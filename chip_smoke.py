@@ -7,29 +7,46 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 
 1. Kernels. Build the hand-written CUDA kernels from ``src/repro_torch/
    csrc`` (one ``nvcc`` per source, in parallel), then hold each against
-   its plain PyTorch version on the card — in bf16 and fp32, at the
-   serving path's shapes (H=16, K=8, D=128, bs=16; decode R=8 over ~4k
-   tokens each; a prefill chunk over a ~3k-token prefix) and on edge
-   cases (empty table, partial tails, -1 padding, MHA, MQA, the largest
-   head dim and block size). Times the kernel, the plain version and
-   ``scaled_dot_product_attention`` over the same KV gathered contiguous
-   (a yardstick the port never calls), next to the least time the card
-   could take for the same bytes and FLOPs (data-sheet peaks).
-2. Serving. ``LLMServer`` serves qwen3-0.6b at full width (28 layers,
-   bf16, seeded random weights) with three instances on the card; the
-   longest prompt stripes its prefix across two creditors at admission
-   and moves KV reactively during decode. Every request must finish, both
-   kernels' launch counters must be > 0 and no step may run a plain
-   version. Reports tokens/s, TTFT, TBT, KV moved and peak memory, for
-   this first (cold) run and for warm repeats of the same workload.
-   A short traced window of a warm server (one more prompt's admission
-   chunk and a few decode steps, ``torch.profiler``) then reports the
-   device's busy share of that window and the kernels with the most
-   device time.
-3. Parity. The same model in float32: a creditor-spanning request served
-   through ``LLMServer`` must give the dense oracle's (``prefill`` +
-   ``decode_step``) greedy stream, and its per-step logits must match the
-   oracle's teacher-forced logits within the stated tolerance.
+   its plain PyTorch version on the card, in bf16 and fp32. The paged
+   kernels at the qwen3 serving path's shapes (H=16, K=8, D=128, bs=16;
+   decode R=8 over ~4k tokens each; a prefill chunk over a ~3k-token
+   prefix) and on edge cases (empty table, partial tails, -1 padding,
+   MHA, MQA, the largest head dim and block size). The flash-prefill
+   kernel at the recurrentgemma-9b admission shape (S=6000, H=16, K=1,
+   D=256, window 2048), at qwen3-0.6b's dense-prefill shape (S=4000,
+   H=16, K=8, D=128, causal) and on edge cases (ragged S, S < window,
+   B=2, MHA with D=112 and H=3, a window of one token). Times the
+   kernel, the plain version and ``scaled_dot_product_attention`` over
+   the same inputs (a yardstick the port never calls), next to the least
+   time the card could take for the same bytes and FLOPs (data-sheet
+   peaks).
+2. Serving, qwen3-0.6b. ``LLMServer`` serves it at full width (28
+   layers, bf16, seeded random weights) with three instances on the
+   card; the longest prompt stripes its prefix across two creditors at
+   admission and moves KV reactively during decode. Every request must
+   finish, both paged kernels' launch counters must be > 0 and no step
+   may run a plain version. Reports tokens/s, TTFT, TBT, KV moved and
+   peak memory, for this first (cold) run and for warm repeats of the
+   same workload. A short traced window of a warm server (one more
+   prompt's admission chunk and a few decode steps, ``torch.profiler``)
+   then reports the device's busy share of that window and the kernels
+   with the most device time.
+3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
+   full width (38 layers: 26 RG-LRU, 12 local-attention; bf16, seeded
+   random weights) with two non-pooled instances: prompts of 6,000,
+   3,000, 1,000 and 400 tokens, two of them longer than the 2,048-token
+   window. Every request must finish, the flash-prefill kernel must
+   launch exactly once per attention layer per admission, and no plain
+   version may run. A traced window of a warm hybrid server (a late
+   6,000-token admission and a few decode steps) reports the device's
+   busy share and the kernels with the most device time.
+4. Parity, float32. qwen3-0.6b: a creditor-spanning request served
+   through ``LLMServer``; recurrentgemma-9b at full width and 5 layers
+   (one (rglru, rglru, attn) group plus two leftover RG-LRU layers): a
+   3,000-token prompt, past the window. Each must give the dense
+   oracle's (``prefill`` with the plain "xla" core + ``decode_step``)
+   greedy stream, and its per-step logits must match the oracle's
+   teacher-forced logits within the stated tolerance.
 
 Prints the card's name and power limit, then per-phase lines, then one
 JSON line with every kernel's numbers, then the card's name and power
@@ -57,6 +74,9 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # float32 outside tensor cores
 TOL = 1e-4      # kernel vs plain: both float32 math on the same inputs
+# A bf16 flash-prefill output is rounded from float32 on both sides, so
+# the two may differ by one bf16 ulp (2**-7 of the value) beyond TOL.
+FLASH_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 0.0}
 PARITY_RTOL = 1e-3  # served vs oracle logits, float32, |diff| / max|logit|
 WARM_REPEATS = 3    # untraced repeats of the serving workload
 TRACE_STEPS = 6     # server steps in the traced window
@@ -233,6 +253,67 @@ def prefill_case(name, C, H, K, D, bs, ctx_blocks, dtype, device, *,
     return row
 
 
+def live_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) prompt attention computes:
+    query position qp sees min(qp + 1, window) keys."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
+    """The flash-prefill wrapper the model calls (``ops``, default
+    scale) on CUDA tensors against the kernel's plain version."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.kernels.ops import flash_prefill
+    gen = torch.Generator(device=device).manual_seed(zlib.crc32(
+        name.encode()))
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+               for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    scale = D ** -0.5
+    got = flash_prefill(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want = flash_prefill_plain(q, k, v, scale=scale, window=window)
+    if torch.isnan(got).any():
+        raise AssertionError(f"{name}: kernel produced NaN")
+    diff = (got.float() - want.float()).abs()
+    bad = diff > TOL + FLASH_RTOL[dtype] * want.float().abs()
+    if bad.any():
+        raise AssertionError(f"{name}: kernel disagrees at {int(bad.sum())}"
+                             f" elements (max |diff| {diff.max().item():.3g})")
+    tol = f"{TOL} + {FLASH_RTOL[dtype]:.3g}*|plain|"
+    row = {"case": name, "dtype": str(dtype), "B": B, "S": S, "H": H,
+           "K": K, "D": D, "window": window,
+           "max_abs_err": diff.max().item(), "tol": tol}
+    del want, diff, bad
+    if timed:
+        itemsize = q.element_size()
+        pairs = B * live_pairs(S, window)
+        flops = 4 * H * D * pairs
+        nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * itemsize
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        row["live_pairs"] = pairs
+        row["ms"] = time_ms(lambda: flash_prefill(q, k, v, window=window),
+                            iters=10)
+        row["plain_ms"] = time_ms(lambda: flash_prefill_plain(
+            q, k, v, scale=scale, window=window), iters=3, warmup=1)
+        qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if window and window < S:
+            pos = torch.arange(S, device=device)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            row["library_ms"] = time_ms(lambda: sdpa(
+                qq, kk, vv, attn_mask=mask, enable_gqa=True), iters=10)
+        else:
+            row["library_ms"] = time_ms(lambda: sdpa(
+                qq, kk, vv, is_causal=True, enable_gqa=True), iters=10)
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
+
+
 def kernel_phase(device, chunk: int):
     """Every kernel against its plain version; returns (rows, main rows)."""
     rows = []
@@ -268,6 +349,22 @@ def kernel_phase(device, chunk: int):
                                  dt, device))
         rows.append(prefill_case(f"prefill-d256-bs64-{dt}", 33, 8, 2, 256,
                                  64, 5, dt, device))
+        # Flash prefill: (a) the recurrentgemma-9b admission of the
+        # hybrid serving phase, (b) qwen3-0.6b's dense-prefill shape.
+        r = flash_case(f"flash-main-{dt}", 1, 6000, 16, 1, 256, 2048, dt,
+                       device, timed=True)
+        rows.append(r)
+        main.setdefault("flash", r)
+        rows.append(flash_case(f"flash-qwen3-{dt}", 1, 4000, 16, 8, 128, 0,
+                               dt, device, timed=True))
+        # Edge cases.
+        for args in (("ragged-S", 1, 1037, 16, 1, 256, 256),
+                     ("S-below-window", 1, 500, 16, 1, 256, 2048),
+                     ("B2-gqa-causal", 2, 300, 8, 2, 128, 0),
+                     ("mha-d112-h3", 1, 200, 3, 3, 112, 64),
+                     ("window-1", 1, 130, 4, 1, 64, 1)):
+            rows.append(flash_case(f"flash-{args[0]}-{dt}", *args[1:], dt,
+                                   device))
     return rows, main
 
 
@@ -347,6 +444,21 @@ def all_finished(handles):
         raise AssertionError(f"not every request finished: {states}")
 
 
+def check_counts(counts, path_kernels, device):
+    """Every kernel of the path ran on it (launches on the card, plain
+    twins on the CPU); on the card no plain version ran at all."""
+    for name in path_kernels:
+        c = counts[name]
+        served_by = c["launches"] if device.type == "cuda" \
+            else c["plain_calls"]
+        if served_by <= 0:
+            raise AssertionError(f"{name}: never ran on the serving path")
+    for name, c in counts.items():
+        if device.type == "cuda" and c["plain_calls"]:
+            raise AssertionError(f"{name}: {c['plain_calls']} plain-version "
+                                 f"calls on the serving path")
+
+
 def serving_phase(params, cfg, device, prompt_lens, n_new):
     """The main path, once and counted, then ``WARM_REPEATS`` untraced
     repeats of the same workload for their end-to-end numbers."""
@@ -369,14 +481,8 @@ def serving_phase(params, cfg, device, prompt_lens, n_new):
     moves = moves_executed(server)
     if moves < 1:
         raise AssertionError("no KV move happened during decode")
-    for name, c in counts.items():
-        served_by = c["launches"] if device.type == "cuda" \
-            else c["plain_calls"]
-        if served_by <= 0:
-            raise AssertionError(f"{name}: never ran on the serving path")
-        if device.type == "cuda" and c["plain_calls"]:
-            raise AssertionError(f"{name}: {c['plain_calls']} plain-version "
-                                 f"calls on the serving path")
+    check_counts(counts, ("paged_micro_attention", "paged_prefill_attention"),
+                 device)
     report = {
         "prompt_lens": list(prompt_lens), "n_new": n_new,
         "creditors_per_admission": stripes, "moves_during_decode": moves,
@@ -399,9 +505,10 @@ def serving_phase(params, cfg, device, prompt_lens, n_new):
     return report
 
 
-def trace_phase(params, cfg, device, prompt_lens, n_new, top=12):
+def trace_phase(params, cfg, device, config, prompt_lens, n_new, late_len,
+                top=12):
     """A short traced window of a warm server: once the workload is
-    admitted and decoding, one more prompt of one prefill chunk arrives
+    admitted and decoding, one more prompt of ``late_len`` tokens arrives
     and the next ``TRACE_STEPS`` server steps (its admission and that
     many decode steps) run under ``torch.profiler``. Reports the device's busy
     time as a share of the window's wall time, the kernels that took most
@@ -409,7 +516,6 @@ def trace_phase(params, cfg, device, prompt_lens, n_new, top=12):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.serving import LLMServer, SamplingParams
-    config = serving_config()
     server = LLMServer(params, cfg, config, device=device)
     sp = SamplingParams(max_new_tokens=n_new)
     handles = [server.submit(p, sp)
@@ -420,7 +526,7 @@ def trace_phase(params, cfg, device, prompt_lens, n_new, top=12):
         server.step()
     else:
         raise AssertionError("the traced window's workload never decoded")
-    extra = make_prompts(cfg, [config.prefill_chunk], 13)[0]
+    extra = make_prompts(cfg, [late_len], 13)[0]
     torch.cuda.synchronize()
     ops.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -448,13 +554,75 @@ def trace_phase(params, cfg, device, prompt_lens, n_new, top=12):
                              "calls": e.count} for e in events[:top]]}
 
 
+def hybrid_serving_config():
+    """Two non-pooled instances of four slots on one card; the quota
+    covers the longest prompt."""
+    from repro_torch.serving import ServingConfig
+    return ServingConfig.h100(
+        n_instances=2, max_batch=4, max_local_len=8192, pool_blocks=1024,
+        block_size=16)
+
+
+class DenseAdmissionSpy:
+    """Records the prompt length of every non-pooled (dense prefill)
+    admission."""
+
+    def __enter__(self):
+        import repro_torch.serving.engine as engine_mod
+        self.cls = engine_mod.InstanceEngine
+        self.orig = self.cls._admit_dense
+        self.lens = []
+        spy = self
+
+        def admit(eng, req, slot, tokens, n_local):
+            spy.lens.append(len(tokens))
+            return spy.orig(eng, req, slot, tokens, n_local)
+        self.cls._admit_dense = admit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._admit_dense = self.orig
+
+
+def hybrid_serving_phase(params, cfg, device, prompt_lens, n_new):
+    """The hybrid main path, once and counted: every attention layer of
+    every admission prefill on the flash-prefill kernel."""
+    from repro_torch.kernels import ops
+    prompts = make_prompts(cfg, prompt_lens, 17)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with DenseAdmissionSpy() as spy:
+        ops.reset_counts()
+        handles, server, wall = serve(params, cfg, hybrid_serving_config(),
+                                      prompts, n_new, device)
+        counts = ops.counts()
+    all_finished(handles)
+    check_counts(counts, ("flash_prefill",), device)
+    if sorted(spy.lens) != sorted(prompt_lens):
+        raise AssertionError(f"admissions {spy.lens} != prompts "
+                             f"{list(prompt_lens)}")
+    want = n_attn * len(spy.lens)
+    if counts["flash_prefill"]["launches"] != want:
+        raise AssertionError(f"flash_prefill launched "
+                             f"{counts['flash_prefill']['launches']} times, "
+                             f"not {n_attn} x {len(spy.lens)} admissions")
+    return {"prompt_lens": list(prompt_lens), "n_new": n_new,
+            "admissions": len(spy.lens), "attn_layers": n_attn,
+            **e2e_numbers(server, handles, wall),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "phase_s": time.perf_counter() - t0, "counts": counts}
+
+
 def oracle_logits(params, cfg, prompt, forced, device):
-    """Dense oracle: prefill + decode_step, teacher-forced on ``forced``."""
+    """Dense oracle: prefill (plain "xla" core) + decode_step,
+    teacher-forced on ``forced``."""
     from repro_torch.models.model import decode_step
     from repro_torch.models.prefill import prefill
     tokens = torch.tensor([prompt], device=device)
     lg, state = prefill(params, cfg, tokens,
-                        max_len=len(prompt) + len(forced) + 2)
+                        max_len=len(prompt) + len(forced) + 2,
+                        backend="xla")
     out = [lg[0].float()]
     for tok in forced[:-1]:
         lg, state = decode_step(params, cfg, state,
@@ -493,6 +661,16 @@ def parity_phase(params, cfg, device, prompt_len, n_new):
     out = handles[0].result()
     if max(spy.stripes) < 1:
         raise AssertionError("the parity request did not span a creditor")
+    return {"prompt_len": prompt_len, "n_new": n_new,
+            **check_parity(params, cfg, device, prompt, out, served),
+            "creditors_at_admission": max(spy.stripes),
+            "moves_during_decode": moves_executed(server)}
+
+
+def check_parity(params, cfg, device, prompt, out, served):
+    """The served greedy stream ``out`` == the dense oracle's, and the
+    served per-step logits ``served`` within PARITY_RTOL of its
+    teacher-forced logits."""
     ref = oracle_logits(params, cfg, prompt, out, device)
     greedy = [int(lg.argmax()) for lg in ref]
     if greedy != out:
@@ -506,10 +684,42 @@ def parity_phase(params, cfg, device, prompt_len, n_new):
     if worst > PARITY_RTOL:
         raise AssertionError(f"served logits differ from the oracle by "
                              f"{worst:.3g} (relative) > {PARITY_RTOL}")
-    return {"prompt_len": prompt_len, "n_new": n_new, "tokens_equal": True,
-            "max_rel_logit_err": worst, "rtol": PARITY_RTOL,
-            "creditors_at_admission": max(spy.stripes),
-            "moves_during_decode": moves_executed(server)}
+    return {"tokens_equal": True, "max_rel_logit_err": worst,
+            "rtol": PARITY_RTOL}
+
+
+def hybrid_parity_phase(params, cfg, device, prompt_len, n_new):
+    """float32 hybrid: served greedy stream == oracle past the window,
+    per-step logits close."""
+    import repro_torch.serving.engine as engine_mod
+    prompt = make_prompts(cfg, [prompt_len], 23)[0]
+    config = hybrid_serving_config().replace(max_local_len=4096,
+                                             pool_blocks=512)
+    served = []
+    orig_decode = engine_mod.decode_step
+    orig_prefill = engine_mod.prefill
+
+    def spy_decode(*a, **k):
+        out = orig_decode(*a, **k)
+        served.append(out[0][0].float().clone())   # slot 0: one request
+        return out
+
+    def spy_prefill(*a, **k):
+        out = orig_prefill(*a, **k)
+        served[:] = [out[0][0].float().clone()]
+        return out
+    engine_mod.decode_step = spy_decode
+    engine_mod.prefill = spy_prefill
+    try:
+        handles, server, _ = serve(params, cfg, config, [prompt], n_new,
+                                   device)
+    finally:
+        engine_mod.decode_step = orig_decode
+        engine_mod.prefill = orig_prefill
+    out = handles[0].result()
+    return {"prompt_len": prompt_len, "n_new": n_new,
+            "layers": cfg.num_layers, "window": cfg.local_window,
+            **check_parity(params, cfg, device, prompt, out, served)}
 
 
 # --------------------------------------------------------------------- #
@@ -533,6 +743,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     report = {"card": card, "torch": torch.__version__,
@@ -568,9 +779,29 @@ def main(argv=None) -> int:
     report["serving"] = serving
     print("serving: " + json.dumps({k: v for k, v in serving.items()
                                     if k != "counts"}), flush=True)
-    report["trace"] = trace_phase(params, cfg, device, (4000, 600, 300), 32)
+    report["trace"] = trace_phase(params, cfg, device, config,
+                                  (4000, 600, 300), 32,
+                                  config.prefill_chunk)
     print("trace: " + json.dumps(report["trace"]), flush=True)
     del params
+    torch.cuda.empty_cache()
+
+    hcfg = get_config("recurrentgemma-9b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    hparams = init_params(hcfg, gen, device)
+    torch.cuda.synchronize()
+    report["hybrid_init_s"] = time.perf_counter() - t0
+    hybrid = hybrid_serving_phase(hparams, hcfg, device,
+                                  (6000, 3000, 1000, 400), 32)
+    report["hybrid_serving"] = hybrid
+    print("hybrid serving: " + json.dumps(
+        {k: v for k, v in hybrid.items() if k != "counts"}), flush=True)
+    report["hybrid_trace"] = trace_phase(hparams, hcfg, device,
+                                         hybrid_serving_config(),
+                                         (3000, 1000, 400), 32, 6000)
+    print("hybrid trace: " + json.dumps(report["hybrid_trace"]), flush=True)
+    del hparams
     torch.cuda.empty_cache()
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -579,25 +810,45 @@ def main(argv=None) -> int:
     parity = parity_phase(params32, cfg32, device, 1500, 24)
     report["parity"] = parity
     print("parity: " + json.dumps(parity), flush=True)
+    del params32
+    torch.cuda.empty_cache()
 
-    counts = serving["counts"]
+    hcfg32 = dataclasses.replace(hcfg, dtype="float32", num_layers=5)
+    gen = torch.Generator(device=device).manual_seed(0)
+    hparams32 = init_params(hcfg32, gen, device)
+    hparity = hybrid_parity_phase(hparams32, hcfg32, device, 3000, 24)
+    report["hybrid_parity"] = hparity
+    print("hybrid parity: " + json.dumps(hparity), flush=True)
+    del hparams32
+    torch.cuda.empty_cache()
+
+    # Launches: each kernel's count from the run of ITS main path.
+    launches = {name: c["launches"]
+                for name, c in serving["counts"].items()
+                if name != "flash_prefill"}
+    launches["flash_prefill"] = hybrid["counts"]["flash_prefill"]["launches"]
     sources = {"decode": ("paged_micro_attention",
                           "src/repro_torch/csrc/micro_attn_decode.cu",
                           "src/repro/kernels/micro_attn_decode.py:86"),
                "prefill": ("paged_prefill_attention",
                            "src/repro_torch/csrc/micro_attn_prefill.cu",
-                           "src/repro/kernels/micro_attn_prefill.py:89")}
+                           "src/repro/kernels/micro_attn_prefill.py:89"),
+               "flash": ("flash_prefill",
+                         "src/repro_torch/csrc/flash_prefill.cu",
+                         "src/repro/kernels/flash_prefill.py:77")}
     kernels = []
     for key, (name, src, replaces) in sources.items():
         r = main[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": counts[name]["launches"],
+                        "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
     report["kernels"] = kernels
+    report["script_s"] = time.perf_counter() - t_start
+    print(f"script: {report['script_s']:.1f} s", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke_config``.
 
-The port serves the dense family; only its two dense architectures are
+The port serves the dense and hybrid families; their architectures are
 registered here (``qwen3-0.6b``: GQA with qk-norm; ``olmo-1b``: MHA with
-non-parametric LayerNorm). The other architectures of the JAX package
-join as their families are ported.
+non-parametric LayerNorm; ``recurrentgemma-9b``: RG-LRU layers and local
+MQA attention). The other architectures of the JAX package join as their
+families are ported.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, SHAPES, reduce_co
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b":           "repro_torch.configs.olmo_1b",
     "qwen3-0.6b":        "repro_torch.configs.qwen3_0_6b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

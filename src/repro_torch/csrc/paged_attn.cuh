@@ -1,4 +1,5 @@
-// Helpers shared by the two paged MicroAttention kernels (decode, prefill).
+// Helpers shared by the port's attention kernels (paged decode and prefill,
+// flash prefill).
 #pragma once
 
 #include <cuda_bf16.h>

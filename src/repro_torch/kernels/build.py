@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "kernels"
-KERNELS = ("micro_attn_decode", "micro_attn_prefill")
+KERNELS = ("micro_attn_decode", "micro_attn_prefill", "flash_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

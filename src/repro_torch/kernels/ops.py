@@ -1,13 +1,16 @@
-"""Dispatching wrappers of the paged MicroAttention kernels.
+"""Dispatching wrappers of the port's attention kernels.
 
 ``paged_micro_attention`` (decode) and ``paged_prefill_attention``
 (prefill chunk) keep the JAX package's signatures and ``(o, m, l)``
-float32 outputs, and dispatch on the device of ``q``: a CUDA tensor
-launches the hand-written kernel — or raises, never falling back — and a
-CPU tensor runs the kernel's plain PyTorch twin. The TPU-only wrapper
-work of the reference (padding D to 128 lanes, the kv-head-major query
-layout) has no counterpart: the CUDA kernels index heads and rows
-themselves. ``scale`` defaults to ``true_head_dim ** -0.5``.
+float32 outputs; ``flash_prefill`` (causal, optionally sliding-window,
+whole-prompt attention) keeps its signature and returns the normalized
+output in q's dtype. All three dispatch on the device of ``q``: a CUDA
+tensor launches the hand-written kernel — or raises, never falling back
+— and a CPU tensor runs the kernel's plain PyTorch twin. The TPU-only
+wrapper work of the reference (padding D to 128 lanes and S to the tile,
+the kv-head-major query layout) has no counterpart: the CUDA kernels
+index heads and rows and mask the ragged end themselves. ``scale``
+defaults to ``true_head_dim ** -0.5``.
 
 Each kernel carries a plain integer launch counter, ``launches`` on its
 launcher (``*_cuda``), incremented right after a successful launch and
@@ -21,6 +24,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                               flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
     paged_micro_attention_cuda, paged_micro_attention_plain)
 from repro_torch.kernels.micro_attn_prefill import (
@@ -32,7 +37,7 @@ def _route(q: torch.Tensor) -> str:
         return "cuda"
     if q.device.type == "cpu":
         return "cpu"
-    raise ValueError(f"no paged attention path for device {q.device}")
+    raise ValueError(f"no attention kernel path for device {q.device}")
 
 
 def paged_micro_attention(q, pool_k, pool_v, table, tail_len, *,
@@ -73,12 +78,29 @@ def paged_prefill_attention(q, pool_k, pool_v, table, tail_len, *,
                                          tail_len, scale=scale)
 
 
+def flash_prefill(q, k, v, *, scale=None, window=0):
+    """Causal flash attention, optionally sliding-window (local layers).
+
+    q [B,S,H,D]; k/v [B,S,K,D] -> [B,S,H,D] in q's dtype. ``window`` > 0
+    keeps, for query position qp, the keys kp with qp - window < kp <= qp.
+    """
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _route(q) == "cuda":
+        return flash_prefill_cuda(q, k, v, scale=scale, window=window)
+    flash_prefill.plain_calls += 1
+    return flash_prefill_plain(q, k, v, scale=scale, window=window)
+
+
 # wrapper name -> (wrapper, its kernel's launcher)
 WRAPPERS = {
     "paged_micro_attention": (paged_micro_attention,
                               paged_micro_attention_cuda),
     "paged_prefill_attention": (paged_prefill_attention,
                                 paged_prefill_attention_cuda),
+    "flash_prefill": (flash_prefill, flash_prefill_cuda),
 }
 
 

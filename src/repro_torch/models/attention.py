@@ -4,7 +4,9 @@ The attention *core* (score/softmax/value) is injected so the same layer
 definition serves the full-sequence forward, dense prefill and the paged
 decode (``repro_torch.models.prefill``). Backend names follow the JAX
 package: ``"xla"`` is its chunked online-softmax core (here plain
-PyTorch), ``"ref"`` the naive full-matrix reference.
+PyTorch), ``"ref"`` the naive full-matrix reference, and ``"flash"`` the
+port's counterpart of its ``"pallas"`` core: the hand-written
+flash-prefill kernel behind ``kernels.ops.flash_prefill``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.online_softmax import (combine, empty_partial,
                                              finalize,
                                              micro_attention_prefill)
+from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dense_init,
                                        rms_norm_headwise, torch_dtype)
 
@@ -74,16 +77,20 @@ def make_causal_core(cfg: ModelConfig, *, backend: str = "xla",
 
     backend "xla": chunked online softmax over KV chunks (memory-bounded);
     backend "ref": one full-matrix partial (tests/tiny shapes only);
-    backend "pallas" (the JAX package's flash-prefill kernel) is not
-    ported yet.
+    backend "flash": the flash-prefill kernel (its plain twin for CPU
+    tensors). ``window`` > 0 makes every core local (sliding window).
     """
     scale = cfg.head_dim ** -0.5
-    if backend == "pallas":
-        raise NotImplementedError(
-            "the flash-prefill kernel (JAX kernels/flash_prefill.py) is "
-            "not ported yet; it comes with a later slice of the port")
+    if backend == "flash":
+        def flash_core(q, k, v):
+            return ops.flash_prefill(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), scale=scale,
+                                     window=window)
+        return flash_core
     if backend not in ("xla", "ref"):
-        raise ValueError(f"unknown attention backend {backend!r}")
+        hint = " (the port's kernel core is 'flash')" \
+            if backend == "pallas" else ""
+        raise ValueError(f"unknown attention backend {backend!r}{hint}")
 
     def core(q, k, v):
         B, T, H, hd = q.shape

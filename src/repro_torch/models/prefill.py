@@ -1,8 +1,11 @@
-"""Dense prefill and the paged serving steps (dense family).
+"""Dense prefill, batch-slot management, and the paged serving steps.
 
 ``prefill`` runs the full-sequence forward while capturing per-layer KV
-into a ``DecodeState`` — with ``decode_step`` it is the greedy oracle the
-serving tests hold the paged path against.
+(and, for the hybrid family, the RG-LRU and conv states) into a
+``DecodeState`` — with ``decode_step`` it is the greedy oracle the
+serving tests hold the paged path against, and the admission step of the
+non-pooled (hybrid) serving path, which then moves the request's state
+into a batch slot with ``repack_ring`` and ``write_slot``.
 
 ``prefill_chunk_paged`` is the serving admission step: it streams one
 prompt chunk into the block pools — causal attention inside the chunk
@@ -24,10 +27,11 @@ block ``NB`` (inactive decode slots, creditor-bound or padded prefill
 rows; the JAX ``mode="drop"`` writes) are removed on the host before the
 write: an out-of-range index would be a device-side assert on the card.
 Tables keep the reference's bucketed widths (``kvpool.table_bucket``).
+The paged steps serve the dense family only.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +44,9 @@ from repro_torch.kernels.ops import (paged_micro_attention,
 from repro_torch.models.attention import make_causal_core, qkv_project
 from repro_torch.models.common import apply_ffn, apply_norm
 from repro_torch.models.model import (DecodeState, _attn_layer_fwd,
+                                      _layer_params, _rglru_layer_fwd,
                                       embed_tokens, init_decode_state,
-                                      layer_params, require_dense, unembed)
+                                      layer_params, require_family, unembed)
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -54,26 +59,113 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Uniform-length prefill. Returns (logits_last [B,V], DecodeState).
 
-    The cache keeps the LAST min(T, max_len) tokens in ring layout
-    (slot = position % max_len), as in the JAX package.
+    The cache keeps the LAST min(T, ring) tokens in ring layout (slot =
+    position % ring), as in the JAX package; ring = max_len for the
+    dense family, min(max_len, local_window) for the hybrid family, whose
+    attention layers use the sliding-window core of ``backend``. The
+    hybrid RG-LRU and conv states are stored in layer order, the order
+    ``decode_step`` reads them in.
     """
-    require_dense(cfg)
+    require_family(cfg)
     B, T = tokens.shape
     dev = tokens.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
     x = embed_tokens(params, cfg, tokens, positions)
-    core = make_causal_core(cfg, backend=backend, chunk=chunk)
     state = init_decode_state(cfg, B, max_len, device=dev)
-    n = min(T, max_len)
-    slots = torch.arange(T - n, T, device=dev) % max_len
-    for i in range(cfg.num_layers):
-        x, (k, v) = _attn_layer_fwd(layer_params(params["layers"], i), x,
-                                    positions, cfg, core)
-        state.kv_k[i][:, slots] = k[:, T - n:]
-        state.kv_v[i][:, slots] = v[:, T - n:]
+    ring = state.kv_k.shape[2]
+    n = min(T, ring)
+    slots = torch.arange(T - n, T, device=dev) % ring
+    if cfg.family == "dense":
+        core = make_causal_core(cfg, backend=backend, chunk=chunk)
+        for i in range(cfg.num_layers):
+            x, (k, v) = _attn_layer_fwd(layer_params(params["layers"], i),
+                                        x, positions, cfg, core)
+            state.kv_k[i][:, slots] = k[:, T - n:]
+            state.kv_v[i][:, slots] = v[:, T - n:]
+    else:
+        wcore = make_causal_core(cfg, backend=backend, chunk=chunk,
+                                 window=cfg.local_window)
+        conv, h = state.rec
+        ai = ri = 0
+        for i in range(cfg.num_layers):
+            lp = _layer_params(params, cfg, i)
+            if cfg.layer_kind(i) == "rglru":
+                x, (cc, hh) = _rglru_layer_fwd(lp, x, cfg)
+                conv[ri].copy_(cc)
+                h[ri].copy_(hh)
+                ri += 1
+            else:
+                x, (k, v) = _attn_layer_fwd(lp, x, positions, cfg, wcore)
+                state.kv_k[ai][:, slots] = k[:, T - n:]
+                state.kv_v[ai][:, slots] = v[:, T - n:]
+                ai += 1
     lens = torch.full((B,), T, dtype=torch.int64, device=dev)
     logits = unembed(params, cfg, x[:, -1])
     return logits, state._replace(lens=lens)
+
+
+# ===================================================================== #
+# Slot management (the non-pooled engine batches single prefills into
+# fixed decode slots)
+# ===================================================================== #
+def repack_ring(state: DecodeState, new_maxlen: int,
+                n_keep: Optional[int] = None) -> DecodeState:
+    """Move a prefill cache into a ring of ``new_maxlen`` slots holding
+    the last ``n_keep`` tokens (default: as many as fit).
+
+    The source is read in its own ring layout — slot = position % its
+    length, which is the identity only while the prompt fits in it — so
+    a prompt longer than the window repacks correctly (the JAX
+    package's version slices the source as if it held every token).
+    """
+    T = int(state.lens[0])
+    w_src = state.kv_k.shape[2]
+    n = min(T, w_src, new_maxlen, T if n_keep is None else n_keep)
+    pos = torch.arange(T - n, T, device=state.kv_k.device)
+    src, dst = pos % w_src, pos % new_maxlen
+    L, B = state.kv_k.shape[:2]
+    shape = (L, B, new_maxlen) + tuple(state.kv_k.shape[3:])
+    nk = torch.zeros(shape, dtype=state.kv_k.dtype, device=state.kv_k.device)
+    nv = torch.zeros_like(nk)
+    nk[:, :, dst] = state.kv_k[:, :, src]
+    nv[:, :, dst] = state.kv_v[:, :, src]
+    # Own copies: decode_step updates recurrent states in place.
+    rec = None if state.rec is None else tuple(r.clone() for r in state.rec)
+    return DecodeState(nk, nv, state.lens.clone(), rec)
+
+
+def batch_axis_map(cfg: ModelConfig):
+    """Batch-axis index of each DecodeState field's tensors."""
+    require_family(cfg)
+    if cfg.family == "dense":
+        return {"kv": 1, "rec": None}
+    return {"kv": 1, "rec": 1}
+
+
+def write_slot(state: DecodeState, slot: int, req: DecodeState,
+               cfg: ModelConfig) -> DecodeState:
+    """Copy a single-request (B=1) DecodeState into batch slot ``slot``.
+
+    Every field of the slot is overwritten — KV ring, RG-LRU state, conv
+    carry and length — so a reused slot keeps nothing of its previous
+    request. Updates ``state``'s tensors IN PLACE (JAX returns new
+    arrays) and returns a state sharing them.
+    """
+    ax = batch_axis_map(cfg)
+
+    def put(dst, src, axis):
+        dst.select(axis, slot).copy_(src.select(axis, 0))
+
+    if state.kv_k is not None:
+        if state.kv_k.shape[2] != req.kv_k.shape[2]:
+            raise ValueError("slot and request ring sizes must match")
+        put(state.kv_k, req.kv_k, ax["kv"])                 # [L, B, ...]
+        put(state.kv_v, req.kv_v, ax["kv"])
+    if state.rec is not None:
+        for dst, src in zip(state.rec, req.rec):            # [n_rg, B, ...]
+            put(dst, src, ax["rec"])
+    state.lens[slot] = req.lens[0]
+    return state
 
 
 # ===================================================================== #
@@ -142,7 +234,7 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, lens,
     remote_pools: creditor pool pairs, read-only.
     Returns (logits [B, V], pool_k, pool_v) — the same pool tensors.
     """
-    require_dense(cfg)
+    require_family(cfg, ("dense",))
     dev = pool_k.device
     tokens = torch.as_tensor(_host(tokens), dtype=torch.int64).to(dev)
     lens = torch.as_tensor(_host(lens), dtype=torch.int64).to(dev)
@@ -209,7 +301,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, t0: int,
     pool_v, k_chunk [L, C, K, hd], v_chunk) — the chunk KV export is what
     the engine streams to creditor pools for prefix rows.
     """
-    require_dense(cfg)
+    require_family(cfg, ("dense",))
     dev = pool_k.device
     C = len(tokens)
     toks = torch.as_tensor(_host(tokens), dtype=torch.int64).to(dev)[None]

@@ -27,6 +27,10 @@ Both protocols stage their pool-row copies on the cluster's
 owner's multi-rank ``decode_step_paged`` merge (creditor pools are read
 directly, block-table addressed).
 
+Engines of a non-pooled (hybrid) model hold no pool: reactive moves,
+Algorithm-1 plans and creditor picks all skip them, so nothing ever
+moves to, from or between them.
+
 Not in this slice of the port (each raises NotImplementedError): the
 global pool, the prefix cache and host tier, overload preemption, and
 fault injection/recovery (``kill_instance``, ``install_faults``).
@@ -300,6 +304,9 @@ class Cluster:
         req = self.requests.get(mv.req_id)
         if req is None or req.done or req.slot is None:
             return MoveResult.GONE
+        if not src._can_pool or not all(self.engines[leg.dst_inst]._can_pool
+                                        for leg in mv.legs):
+            return MoveResult.GONE       # a non-pooled engine has no KV rows
         owner = next((e for e in self.engines.values()
                       if req in e.running), None)
         if owner is None:
@@ -389,6 +396,8 @@ class Cluster:
     def _reactive_moves(self) -> None:
         """Ship prefix blocks before a request breaches its local quota."""
         for eng in self.engines.values():
+            if not eng._can_pool:
+                continue
             for req in eng.running:
                 if eng.local_free_tokens(req) <= 1:
                     dst = self._pick_creditor(exclude=eng.inst_id)
@@ -409,7 +418,7 @@ class Cluster:
         excl = {exclude} if isinstance(exclude, int) else set(exclude)
         best, best_free = None, 0
         for i, e in self.engines.items():
-            if i in excl:
+            if i in excl or not e._can_pool:
                 continue
             free = e.rmanager.effective_free
             if free > best_free:
@@ -456,7 +465,8 @@ class Cluster:
 
         # Reactive overflow shipping, then periodic Algorithm-1 planning.
         self._reactive_moves()
-        if self._step_count % self.schedule_every == 0:
+        if self._step_count % self.schedule_every == 0 and any(
+                e._can_pool for e in self.engines.values()):
             # Frontend lifecycle feeds the planner: per-request urgency
             # (priority + deadline proximity) biases which debtor
             # requests are offloaded first.

@@ -36,9 +36,23 @@ every step and row copy updates them in place (the JAX package donates
 them instead). ``CommStats.pool_copy_steps`` counts decode steps after
 which the pool's ``data_ptr()`` changed — 0 on the hot path.
 
-This slice ports the per-instance pool path of the dense family. The
-JAX engine's global pool, prefix cache, host tier, preemption, fault
-replay and its dense ring path for hybrid/ssm families come later.
+NON-POOLED PATH (hybrid family): a model whose state is O(1) in the
+sequence — RG-LRU states and a local-attention KV ring bounded by the
+window — has nothing for DistAttention to pool. Its engine holds no pool
+tensors; every decode slot's state lives in one batched ``DecodeState``
+(a ring of ``local_window`` tokens per attention layer, so attention
+always sees the whole window whatever ``max_local_len`` is). Admission
+is one dense ``prefill`` whose attention layers run the flash-prefill
+kernel, repacked into the slot (``repack_ring`` + ``write_slot``); each
+iteration is one batched ``decode_step`` over every slot. The rManager's
+allocator still accounts each request's tokens against the quota, and a
+prompt longer than ``max_local_len - block_size`` FAILS (it cannot span
+creditors).
+
+This slice ports the per-instance pool path of the dense family and the
+non-pooled path of the hybrid family. The JAX engine's global pool,
+prefix cache, host tier, preemption, fault replay and the ssm family
+come later.
 """
 from __future__ import annotations
 
@@ -51,9 +65,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import torch_dtype
-from repro_torch.models.model import (params_device, require_dense,
+from repro_torch.models.model import (decode_step, init_decode_state,
+                                      params_device, require_family,
                                       resolve_device)
-from repro_torch.models.prefill import decode_step_paged, prefill_chunk_paged
+from repro_torch.models.prefill import (decode_step_paged, prefill,
+                                        prefill_chunk_paged, repack_ring,
+                                        write_slot)
 from repro_torch.serving.kvpool import (build_local_tables, prefix_tables,
                                         read_pool_rows, rows_for_token_range,
                                         scatter_pool_rows, table_bucket,
@@ -74,7 +91,9 @@ class CommStats:
     # (0: every step updated it in place).
     pool_copy_steps: int = 0
     # Peak bytes of prompt-KV STAGED in flight by admission: one chunk's
-    # [L, C, K, hd] export (never a dense [L, 1, T, K, hd] cache).
+    # [L, C, K, hd] export on the pooled path (never a dense
+    # [L, 1, T, K, hd] cache); the prefill's KV ring on the non-pooled
+    # path.
     admit_stage_bytes: int = 0
 
 
@@ -113,13 +132,17 @@ _CANCELLED = object()
 
 
 class InstanceEngine:
-    """One serving instance (model replica) on ``device``."""
+    """One serving instance (model replica) on ``device``.
+
+    Several instances may share one parameter tree (the cluster passes
+    the same tensors to each).
+    """
 
     def __init__(self, params, cfg: ModelConfig, *, max_batch: int = 8,
                  max_local_len: int = 256, pool_blocks: int = 1024,
                  block_size: int = 16, inst_id: int = 0,
                  prefill_chunk: int = 32, device=None):
-        require_dense(cfg)
+        require_family(cfg)
         self.device = resolve_device(device)
         if params_device(params) != self.device:
             raise ValueError(f"params live on {params_device(params)}, "
@@ -138,15 +161,23 @@ class InstanceEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(
             1234 + inst_id)
         self._finished_events: List[int] = []
-        assert max_local_len >= 2 * block_size, \
-            "local quota must cover at least two blocks"
-        L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-        dt = torch_dtype(cfg)
-        # THE serving KV store: every local or hosted byte lives here.
-        self.pool_k = torch.zeros((L, pool_blocks, block_size, K, hd),
-                                  dtype=dt, device=self.device)
-        self.pool_v = torch.zeros((L, pool_blocks, block_size, K, hd),
-                                  dtype=dt, device=self.device)
+        self._can_pool = cfg.family == "dense"
+        self.pool_k = self.pool_v = None
+        self.state = None
+        if self._can_pool:
+            assert max_local_len >= 2 * block_size, \
+                "local quota must cover at least two blocks"
+            L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+            dt = torch_dtype(cfg)
+            # THE serving KV store: every local or hosted byte lives here.
+            self.pool_k = torch.zeros((L, pool_blocks, block_size, K, hd),
+                                      dtype=dt, device=self.device)
+            self.pool_v = torch.zeros((L, pool_blocks, block_size, K, hd),
+                                      dtype=dt, device=self.device)
+        else:
+            # Every slot's recurrent state and a window-sized KV ring.
+            self.state = init_decode_state(cfg, max_batch, cfg.local_window,
+                                           device=self.device)
         # Sequence-ordered GLOBAL block chain [(inst_id, block_id)] per
         # creditor-spanning (or moved) request.
         self.req_chain: Dict[int, List[Tuple[int, int]]] = {}
@@ -210,14 +241,18 @@ class InstanceEngine:
         need_blocks = -(-n_local // bs)
         if self.rmanager.pool.alloc.free_count < need_blocks:
             return False
-        if n_over and self.prefix_sink is None:
-            req.state = RequestState.FAILED      # cannot span: no cluster
+        if n_over and (not self._can_pool or self.prefix_sink is None):
+            # Cannot span: no cluster, or no KV pool to span with.
+            req.state = RequestState.FAILED
             req.finish_time = time.monotonic()
             self.waiting.pop(0)
             self._finished_events.append(req.req_id)
             return True
         self.waiting.pop(0)
-        logits = self._admit_streaming(req, tokens, n_over, n_local)
+        if not self._can_pool:
+            logits = self._admit_dense(req, slot, tokens, n_local)
+        else:
+            logits = self._admit_streaming(req, tokens, n_over, n_local)
         if logits is None:                       # cluster-wide OOM
             req.state = RequestState.FAILED
             req.finish_time = time.monotonic()
@@ -233,6 +268,23 @@ class InstanceEngine:
         # First generated token comes from the final prefill logits.
         self._emit(req, int(self._sample_tokens(logits, [req])[0]))
         return True
+
+    def _admit_dense(self, req: Request, slot: int, tokens: List[int],
+                     n_local: int) -> torch.Tensor:
+        """Non-pooled admission: one dense prefill (its attention layers
+        on the flash-prefill kernel), its state moved into ``slot``."""
+        T = len(tokens)
+        tok = torch.tensor([tokens], dtype=torch.int64, device=self.device)
+        logits, full = prefill(self.params, self.cfg, tok, max_len=T,
+                               backend="flash")
+        self.stats.admit_stage_bytes = max(
+            self.stats.admit_stage_bytes,
+            2 * full.kv_k.numel() * full.kv_k.element_size())
+        ring = self.state.kv_k.shape[2]
+        req_state = repack_ring(full, ring, n_keep=min(n_local, ring))
+        self.state = write_slot(self.state, slot, req_state, self.cfg)
+        self.rmanager.pool.append_tokens(req.req_id, n_local)
+        return logits
 
     def _admit_streaming(self, req: Request, tokens: List[int],
                          n_over: int, n_local: int):
@@ -504,6 +556,23 @@ class InstanceEngine:
             entries * L * (H * hd * 2 + H * hd * 4 + 2 * H * 4))
         return logits
 
+    def _step_dense(self) -> Optional[torch.Tensor]:
+        """One decode iteration over the batch slots (non-pooled path):
+        one ``decode_step`` for every slot, empty ones included (their
+        state is overwritten when the slot is reused). Returns logits."""
+        self._append_step_tokens()
+        if not self.running:
+            return None
+        tokens = np.zeros(self.max_batch, np.int64)
+        for i, r in enumerate(self.slots):
+            if r is not None:
+                tokens[i] = r.output[-1] if r.output else r.prompt[-1]
+        self.stats.decode_steps += 1
+        logits, self.state = decode_step(
+            self.params, self.cfg, self.state,
+            torch.from_numpy(tokens).to(self.device))
+        return logits
+
     def step(self) -> int:
         """Admit + one decode iteration. Returns #tokens generated."""
         # Retire slots whose cancel flag was set since the last step
@@ -516,7 +585,7 @@ class InstanceEngine:
         if not self.running:
             self.rmanager.batch_size = 0
             return 0
-        logits = self._step_paged()
+        logits = self._step_paged() if self._can_pool else self._step_dense()
         if logits is None:
             self.rmanager.batch_size = 0
             return 0

@@ -4,7 +4,8 @@ Same numpy-made inputs through both: the stacked LSE merge (paper Eq. 3)
 with an empty partial among the ranks, the causal chunk partial the
 admission step merges with the paged ones, the single-process paged
 DistAttention decode over several rank pools (one of them empty) against
-full attention over the whole KV, and the plain flash-prefill oracle.
+full attention over the whole KV, and the flash-prefill kernel's plain
+twin.
 Tolerance 1e-5: float32 on both sides, summed in different orders.
 """
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ from repro.kernels import ref as jax_ref
 from repro_torch.core.distattn import distattn_decode_paged
 from repro_torch.core.online_softmax import (combine, merge_partials,
                                              micro_attention_prefill)
-from repro_torch.kernels import ref as pt_ref
+from repro_torch.kernels.flash_prefill import flash_prefill_plain
 
 TOL = 1e-5
 
@@ -117,4 +118,5 @@ def test_flash_prefill_oracle_matches_jax(window):
     jk, tk = _pair(rng, (2, 11, 3, 16))
     jv, tv = _pair(rng, (2, 11, 3, 16))
     want = jax_ref.flash_prefill_ref(jq, jk, jv, window=window)
-    _close(pt_ref.flash_prefill_ref(tq, tk, tv, window=window).numpy(), want)
+    _close(flash_prefill_plain(tq, tk, tv, scale=16 ** -0.5,
+                               window=window).numpy(), want)

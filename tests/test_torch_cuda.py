@@ -7,13 +7,16 @@ so it runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance 1e-4: kernel and twin both compute in float32 from the same
-inputs and differ only in summation order.
+inputs and differ only in summation order; a bf16 flash-prefill output is
+rounded from float32 on both sides, so it may differ by one bf16 ulp.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                               flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
     paged_micro_attention_cuda, paged_micro_attention_plain)
 from repro_torch.kernels.micro_attn_prefill import (
@@ -83,6 +86,38 @@ def test_cuda_kernels_match_plain(dtype, K, G, D, bs, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,D,window", [
+    (1, 300, 16, 1, 256, 128),     # MQA, the hybrid path's heads
+    (2, 200, 8, 2, 128, 0),        # GQA, causal only, ragged S
+    (1, 77, 3, 3, 112, 16),        # MHA, odd head count, D=112
+    (1, 50, 4, 1, 64, 100),        # window larger than S
+    (1, 130, 4, 2, 64, 1),         # window of one token
+])
+def test_flash_prefill_kernel_matches_plain(dtype, B, S, H, K, D, window,
+                                            cuda_device):
+    """The flash-prefill kernel == its plain twin (tiles skipped before
+    the window and above the diagonal, ragged S, every GQA grouping)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((B, S, H, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    k = torch.randn((B, S, K, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    v = torch.randn((B, S, K, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    scale = D ** -0.5
+    got = flash_prefill_cuda(q, k, v, scale=scale, window=window)
+    want = flash_prefill_plain(q, k, v, scale=scale, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    # A bf16 output is rounded once from float32 on both sides: at most
+    # one bf16 ulp apart (2**-7 relative).
+    rtol = TOL if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=TOL,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_launch_the_kernels_and_count_them(cuda_device):
     q = torch.randn((2, 4, 16), device=cuda_device)
     pool = torch.randn((4, 8, 2, 16), device=cuda_device)
@@ -94,7 +129,10 @@ def test_cuda_tensors_launch_the_kernels_and_count_them(cuda_device):
     ops.paged_prefill_attention(q, pool, pool,
                                 torch.tensor([3, -1], device=cuda_device),
                                 torch.tensor(5, device=cuda_device))
+    kv = pool[0, :2][None]                     # [1, 2, 2, 16]
+    ops.flash_prefill(q[None], kv, kv, window=4)
     torch.cuda.synchronize()
     assert ops.counts() == {
         "paged_micro_attention": {"launches": 1, "plain_calls": 0},
-        "paged_prefill_attention": {"launches": 1, "plain_calls": 0}}
+        "paged_prefill_attention": {"launches": 1, "plain_calls": 0},
+        "flash_prefill": {"launches": 1, "plain_calls": 0}}

@@ -32,6 +32,9 @@ def _port_modules():
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     mods = _port_modules()
     assert "repro_torch.serving.engine" in mods and len(mods) > 20
+    assert {"repro_torch.core.attention", "repro_torch.kernels.flash_prefill",
+            "repro_torch.models.rglru",
+            "repro_torch.configs.recurrentgemma_9b"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"
@@ -71,6 +74,12 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     from repro_torch.models.model import init_params
     from repro_torch.serving import (Cluster, InstanceEngine, LLMServer,
                                      ServingConfig)
+    hybrid = get_smoke_config("recurrentgemma-9b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(hybrid)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LLMServer(init_params(hybrid, device="cpu"), hybrid,
+                  ServingConfig.smoke())
     cfg = get_smoke_config("olmo-1b")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg)

@@ -1,13 +1,16 @@
-"""The paged MicroAttention kernels' plain twins against the JAX package.
+"""The attention kernels' plain twins against the JAX package.
 
 On the CPU the port's wrappers run the plain PyTorch twins of its CUDA
 kernels; here they are held against the Pallas kernels in interpret mode
 and against the JAX package's ``ref.py``, on the shape sweeps of its own
 kernel tests (MHA, GQA, MQA, an unaligned head dim; the prefill chunk
-sizes of its zero-copy tests). Tolerances: float32 1e-4 everywhere. In
-bf16 the twins and the Pallas kernels both upcast to float32, so they
-still agree to 1e-4; ``ref.py`` rounds q and the probabilities to bf16,
-so it is held at the JAX tests' bf16 tolerance, 5e-2.
+sizes of its zero-copy tests; the flash-prefill sweep and its sliding
+windows, plus a window longer than the prompt). Tolerances for the paged
+kernels: float32 1e-4 everywhere. In bf16 the twins and the Pallas
+kernels both upcast to float32, so they still agree to 1e-4; ``ref.py``
+rounds q and the probabilities to bf16, so it is held at the JAX tests'
+bf16 tolerance, 5e-2. Flash prefill keeps the JAX test's tolerances:
+2e-5 in float32, 3e-2 in bf16 (its output is rounded to bf16).
 
 The kernels themselves need the card: ``tests/test_torch_cuda.py``
 (no JAX, so it also runs on a machine without it) holds them against
@@ -20,10 +23,13 @@ import torch
 
 from repro.core.attention import full_attention_decode as jax_full_decode
 from repro.kernels import ref as jax_ref
+from repro.kernels.ops import flash_prefill as jax_flash_prefill
 from repro.kernels.ops import paged_micro_attention as jax_paged_decode
 from repro.kernels.ops import paged_prefill_attention as jax_paged_prefill
 from repro_torch.core.online_softmax import combine, finalize
 from repro_torch.kernels import build, ops
+from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+                                               flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
     paged_micro_attention_cuda, paged_micro_attention_plain)
 from repro_torch.kernels.micro_attn_prefill import (
@@ -174,9 +180,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_it():
                               torch.tensor([8, 3]))
     ops.paged_prefill_attention(q, pool, pool, torch.tensor([3, -1]),
                                 torch.tensor(5))
+    ops.flash_prefill(q[None], pool[0, :2][None], pool[0, :2][None],
+                      window=4)
     assert ops.counts() == {
         "paged_micro_attention": {"launches": 0, "plain_calls": 1},
-        "paged_prefill_attention": {"launches": 0, "plain_calls": 1}}
+        "paged_prefill_attention": {"launches": 0, "plain_calls": 1},
+        "flash_prefill": {"launches": 0, "plain_calls": 1}}
 
 
 def test_kernel_requests_never_fall_back(monkeypatch):
@@ -191,9 +200,15 @@ def test_kernel_requests_never_fall_back(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         paged_prefill_attention_cuda(q, pool, pool, table[0], tail[0],
                                      scale=0.25)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_prefill_cuda(q[None], pool[:1, :2], pool[:1, :2], scale=0.25)
     meta = q.to("meta")
-    with pytest.raises(ValueError, match="no paged attention path"):
+    with pytest.raises(ValueError, match="no attention kernel path"):
         ops.paged_micro_attention(meta, pool, pool, table, tail)
+    with pytest.raises(ValueError, match="no attention kernel path"):
+        ops.flash_prefill(meta[None], pool[:1, :2], pool[:1, :2])
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_prefill(q[None], pool[:1, :2], pool[:1, :2], window=-1)
     monkeypatch.setenv("PATH", "")
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
@@ -208,3 +223,60 @@ def test_build_is_keyed_on_the_sources():
     assert build.build_dir().name == h and len(h) == 16
     assert {p.name for p in build.CSRC.glob("*.cu")} == \
         {f"{n}.cu" for n in build.KERNELS}
+
+
+# ------------------------------------------------------------------ #
+# Flash prefill (causal, optionally sliding-window)
+# ------------------------------------------------------------------ #
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _flash_inputs(seed, B, S, H, K, D, dtype):
+    rng = np.random.default_rng(seed)
+    return [_arrays(rng, shape, dtype)
+            for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
+
+
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (1, 128, 4, 4, 16),      # MHA
+    (2, 256, 8, 2, 32),      # GQA
+    (1, 200, 4, 1, 112),     # MQA, ragged seq, unaligned head dim
+    (1, 64, 3, 3, 8),        # odd head count
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_and_ref(B, S, H, K, D, dtype):
+    """The plain twin and the CPU dispatch of ``ops.flash_prefill``
+    against the Pallas kernel (interpret mode) and ``ref.py``, on the
+    JAX package's flash-prefill sweep."""
+    (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(B * S + D, B, S, H, K, D,
+                                                 dtype)
+    pallas = jax_flash_prefill(qj, kj, vj, bq=64, bk=64, interpret=True)
+    want = jax_ref.flash_prefill_ref(qj, kj, vj)
+    plain = flash_prefill_plain(qt, kt, vt, scale=D ** -0.5)
+    ops.reset_counts()
+    got = ops.flash_prefill(qt, kt, vt)
+    assert ops.counts()["flash_prefill"] == {"launches": 0, "plain_calls": 1}
+    assert got.dtype == qt.dtype and tuple(got.shape) == (B, S, H, D)
+    assert torch.equal(got, plain)
+    tol = FLASH_TOL[dtype]
+    _close([got.float()], [pallas], tol)
+    _close([got.float()], [want], tol)
+
+
+@pytest.mark.parametrize("S,window", [
+    (128, 16), (128, 64),    # the JAX package's sliding-window cases
+    (150, 64),               # S not a multiple of the 64-token tile
+    (150, 300),              # a window longer than the prompt
+])
+def test_flash_plain_sliding_window_matches_pallas_and_ref(S, window):
+    B, H, K, D = 1, 4, 2, 16
+    (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(S + window, B, S, H, K, D,
+                                                 "float32")
+    pallas = jax_flash_prefill(qj, kj, vj, window=window, bq=32, bk=32,
+                               interpret=True)
+    want = jax_ref.flash_prefill_ref(qj, kj, vj, window=window)
+    got = ops.flash_prefill(qt, kt, vt, window=window)
+    _close([got], [pallas], FLASH_TOL["float32"])
+    _close([got], [want], FLASH_TOL["float32"])
+    if window >= S:   # the window never binds: plain causal attention
+        _close([got], [ops.flash_prefill(qt, kt, vt)], 0.0)

@@ -1,9 +1,17 @@
-"""The port's dense model and paged steps against the JAX package.
+"""The port's dense and hybrid models and paged steps against the JAX
+package.
 
 The same float32 smoke weights (JAX ``init_params``, bridged) and the
 same numpy-made inputs go through the JAX functions and the port's:
 
 * ``forward`` logits, and prefill followed by ``decode_step`` == forward;
+* hybrid (RecurrentGemma): the RG-LRU scan (closed form by chunks)
+  against JAX's associative scan, with and without a carried state and
+  at lengths from 1 to over two chunks; chained decode steps == the
+  scan; ``forward`` with the flash and xla cores; ``prefill`` then
+  teacher-forced ``decode_step`` past the window; ``repack_ring`` and
+  ``write_slot`` against JAX where JAX is right, and the port's repack
+  of a prompt longer than the window (where JAX's raises);
 * ``prefill_chunk_paged`` over a prompt whose prefix is striped across
   1-3 creditor pools (chunk sizes of the JAX package's chunked-prefill
   test), then teacher-forced ``decode_step_paged`` steps over the same
@@ -32,12 +40,18 @@ from repro.models.model import init_params as jax_init_params
 from repro.models.prefill import decode_step_paged as jax_decode_step_paged
 from repro.models.prefill import prefill as jax_prefill
 from repro.models.prefill import prefill_chunk_paged as jax_prefill_chunk_paged
+from repro.models.prefill import repack_ring as jax_repack_ring
+from repro.models.prefill import write_slot as jax_write_slot
+from repro.models import rglru as jax_rglru
 from repro.serving.kvpool import scatter_pool_rows as jax_scatter_pool_rows
 from repro_torch import bridge
+from repro_torch.models import rglru
 from repro_torch.models.attention import make_causal_core
-from repro_torch.models.model import decode_step, forward, init_params
+from repro_torch.models.model import (decode_step, forward,
+                                      init_decode_state, init_params)
 from repro_torch.models.prefill import (decode_step_paged, prefill,
-                                        prefill_chunk_paged)
+                                        prefill_chunk_paged, repack_ring,
+                                        write_slot)
 from repro_torch.serving.kvpool import (RankKVPool, build_local_tables,
                                         prefix_tables, rows_for_token_range,
                                         scatter_pool_rows, table_bucket)
@@ -46,15 +60,17 @@ TOL = 1e-4
 _SETUPS = {}
 
 
-def _setup(arch):
-    """(cfg, JAX params, port params) in float32, built once per arch."""
-    if arch not in _SETUPS:
-        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+def _setup(arch, layers=None):
+    """(cfg, JAX params, port params) in float32, built once per arch
+    and depth."""
+    if (arch, layers) not in _SETUPS:
+        cfg = dataclasses.replace(get_smoke_config(arch, layers=layers),
+                                  dtype="float32")
         jp = jax_init_params(jax.random.PRNGKey(0), cfg)
         tp = bridge.from_numpy_tree(jax.tree.map(np.asarray, jp),
                                     device="cpu")
-        _SETUPS[arch] = (cfg, jp, tp)
-    return _SETUPS[arch]
+        _SETUPS[(arch, layers)] = (cfg, jp, tp)
+    return _SETUPS[(arch, layers)]
 
 
 def _close_logits(got, want):
@@ -102,10 +118,20 @@ def test_prefill_then_decode_step_equals_forward(arch):
 
 
 def test_flash_backend_and_other_families_wait_for_later_slices():
+    """The "flash" core builds and equals the "xla" core; the JAX name
+    "pallas" points to it; MoE and ssm still raise."""
     cfg, _, _ = _setup("olmo-1b")
-    with pytest.raises(NotImplementedError, match="flash"):
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, 37, cfg.num_heads, cfg.head_dim)).astype(np.float32))
+        for _ in range(3))
+    for window in (0, 8):
+        flash = make_causal_core(cfg, backend="flash", window=window)
+        xla = make_causal_core(cfg, backend="xla", window=window, chunk=16)
+        _close(flash(q, k, v).numpy(), xla(q, k, v).numpy())
+    with pytest.raises(ValueError, match="'flash'"):
         make_causal_core(cfg, backend="pallas")
-    for family in ("moe", "hybrid", "ssm"):
+    for family in ("moe", "ssm"):
         with pytest.raises(NotImplementedError, match="not ported"):
             init_params(dataclasses.replace(cfg, family=family),
                         device="cpu")
@@ -259,3 +285,180 @@ def test_paged_steps_match_jax_and_dense_oracle(arch, chunk, n_cred):
         _close(tk[:, wblk[0], woff[0]].numpy(), ost.kv_k[:, 0, pos].numpy())
         _close(tv[:, wblk[0], woff[0]].numpy(), ost.kv_v[:, 0, pos].numpy())
     ranks.assert_pools_equal()
+
+
+# ------------------------------------------------------------------ #
+# Hybrid family (RecurrentGemma): RG-LRU, local attention, slots
+# ------------------------------------------------------------------ #
+HYBRID = "recurrentgemma-9b"
+
+
+def _rglru_params(cfg):
+    """One recurrent block's weights: JAX's init, bridged to the port."""
+    jp = jax_rglru.init_rglru_block(jax.random.PRNGKey(3), cfg)
+    return jp, bridge.from_numpy_tree(jax.tree.map(np.asarray, jp),
+                                      device="cpu")
+
+
+@pytest.mark.parametrize("T", [1, 7, 64, 150])
+@pytest.mark.parametrize("carried", [False, True])
+def test_rglru_scan_matches_jax(T, carried):
+    """Chunked closed form == JAX's associative scan: the scan alone, and
+    the whole block (conv with its carry, scan with h0, gates, GeLU)."""
+    cfg, _, _ = _setup(HYBRID)
+    jp, tp = _rglru_params(cfg)
+    w = cfg.lru_width
+    rng = np.random.default_rng(T)
+    x = rng.standard_normal((2, T, w)).astype(np.float32)
+    xd = rng.standard_normal((2, T, cfg.d_model)).astype(np.float32)
+    h0 = rng.standard_normal((2, w)).astype(np.float32) if carried else None
+    conv = (rng.standard_normal((2, 3, w)).astype(np.float32)
+            if carried else None)
+    jy, jh = jax.jit(jax_rglru.rglru_scan)(
+        jp, jnp.asarray(x), None if h0 is None else jnp.asarray(h0))
+    y, h = rglru.rglru_scan(
+        tp, torch.from_numpy(x), None if h0 is None else torch.from_numpy(h0))
+    assert h.dtype == torch.float32 and y.dtype == torch.float32
+    _close(y.numpy(), jy)
+    _close(h.numpy(), jh)
+    jstate = None if h0 is None else (jnp.asarray(conv), jnp.asarray(h0))
+    state = None if h0 is None else (torch.from_numpy(conv),
+                                     torch.from_numpy(h0))
+    jy, (jc, jh) = jax.jit(jax_rglru.apply_rglru_block, static_argnums=2)(
+        jp, jnp.asarray(xd), cfg, jstate)
+    y, (c, h) = rglru.apply_rglru_block(tp, torch.from_numpy(xd), cfg, state)
+    _close(y.numpy(), jy)
+    _close(c.numpy(), jc)                 # last 3 PRE-conv inputs
+    _close(h.numpy(), jh)
+
+
+def test_rglru_steps_chained_equal_the_scan():
+    """T decode steps of the block, state carried, == one prompt pass."""
+    cfg, _, _ = _setup(HYBRID)
+    jp, tp = _rglru_params(cfg)
+    T = 70
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, T, cfg.d_model)).astype(np.float32))
+    y, (c, h) = rglru.apply_rglru_block(tp, x, cfg)
+    shapes = rglru.rglru_state_shape(cfg, 2)
+    state = (torch.zeros(shapes[0]), torch.zeros(shapes[1]))
+    steps = []
+    for t in range(T):
+        yt, state = rglru.apply_rglru_block(tp, x[:, t:t + 1], cfg, state,
+                                            decode=True)
+        steps.append(yt)
+    _close(torch.cat(steps, 1).numpy(), y.numpy())
+    _close(state[0].numpy(), c.numpy())
+    _close(state[1].numpy(), h.numpy())
+
+
+@pytest.mark.parametrize("layers", [3, 6])
+@pytest.mark.parametrize("backend", ["flash", "xla"])
+def test_hybrid_forward_matches_jax(layers, backend):
+    """Logits over a prompt longer than the window (45 > 32), with one
+    group and with two groups of (rglru, rglru, attn)."""
+    cfg, jp, tp = _setup(HYBRID, layers)
+    toks = np.random.default_rng(layers).integers(0, cfg.vocab_size, (2, 45))
+    want, _ = jax_forward(jp, cfg, jnp.asarray(toks, jnp.int32))
+    got, _ = forward(tp, cfg, torch.from_numpy(toks), backend=backend)
+    _close_logits(got.numpy(), want)
+
+
+def test_hybrid_prefill_then_decode_past_the_window_matches_jax():
+    """Prefill 40 tokens (> window 32) with the flash core, then
+    teacher-forced decode steps: logits, KV ring, RG-LRU and conv states
+    == JAX's, and logits == the full forward (5 layers: a group plus
+    two leftover RG-LRU layers)."""
+    cfg, jp, tp = _setup(HYBRID, 5)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 46))
+    T0 = 40
+    full, _ = forward(tp, cfg, torch.from_numpy(toks))
+    lg, st = prefill(tp, cfg, torch.from_numpy(toks[:, :T0]), max_len=T0,
+                     backend="flash")
+    jlg, jst = jax.jit(jax_prefill, static_argnums=1,
+                       static_argnames="max_len")(
+        jp, cfg, jnp.asarray(toks[:, :T0], jnp.int32), max_len=T0)
+    assert st.kv_k.shape[2] == cfg.local_window
+    jdecode = jax.jit(jax_decode_step, static_argnums=1)
+    _close_logits(lg.numpy(), jlg)
+    _close_logits(lg.numpy(), full[:, T0 - 1].numpy())
+    for t in range(T0, toks.shape[1]):
+        lg, st = decode_step(tp, cfg, st, torch.from_numpy(toks[:, t]))
+        jlg, jst = jdecode(jp, cfg, jst, jnp.asarray(toks[:, t], jnp.int32))
+        _close_logits(lg.numpy(), jlg)
+        _close_logits(lg.numpy(), full[:, t].numpy())
+    _close(st.kv_k.numpy(), jst.kv_k)
+    _close(st.kv_v.numpy(), jst.kv_v)
+    _close(st.rec[0].numpy(), jst.rec[0])
+    _close(st.rec[1].numpy(), jst.rec[1])
+    assert st.lens.tolist() == [toks.shape[1]] * 2
+
+
+def test_hybrid_prefill_then_decode_with_two_groups_equals_forward():
+    """With two or more groups the states are kept in layer order, the
+    order ``decode_step`` reads them in (JAX's ``prefill`` stacks them by
+    pattern position, so its own decode drifts from its forward here)."""
+    cfg, _, tp = _setup(HYBRID, 6)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 44))
+    T0 = 36
+    full, _ = forward(tp, cfg, torch.from_numpy(toks))
+    lg, st = prefill(tp, cfg, torch.from_numpy(toks[:, :T0]), max_len=T0)
+    _close_logits(lg.numpy(), full[:, T0 - 1].numpy())
+    for t in range(T0, toks.shape[1]):
+        lg, st = decode_step(tp, cfg, st, torch.from_numpy(toks[:, t]))
+        _close_logits(lg.numpy(), full[:, t].numpy())
+
+
+def test_repack_ring_and_write_slot_match_jax_within_the_window():
+    """A 20-token prompt (< window) repacked into a 32-slot ring and
+    written into slot 1 of a 3-slot batch state, as JAX does it."""
+    cfg, jp, tp = _setup(HYBRID)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 20))
+    _, st = prefill(tp, cfg, torch.from_numpy(toks), max_len=20)
+    _, jst = jax_prefill(jp, cfg, jnp.asarray(toks, jnp.int32), max_len=20)
+    req = repack_ring(st, 32, n_keep=20)
+    jreq = jax_repack_ring(jst, 32, n_keep=20)
+    _close(req.kv_k.numpy(), jreq.kv_k)
+    _close(req.kv_v.numpy(), jreq.kv_v)
+    batch = init_decode_state(cfg, 3, 32, device="cpu")
+    for f in (batch.kv_k, batch.kv_v, *batch.rec):
+        f.fill_(7.0)                      # stale contents of a reused slot
+    def j(t):
+        return jnp.asarray(t.numpy().copy())
+    jbatch = type(jst)(j(batch.kv_k), j(batch.kv_v),
+                       j(batch.lens).astype(jnp.int32),
+                       (j(batch.rec[0]), j(batch.rec[1])))
+    got = write_slot(batch, 1, req, cfg)
+    want = jax_write_slot(jbatch, 1, jreq, cfg)
+    assert got.kv_k is batch.kv_k                   # written in place
+    for g, w in ((got.kv_k, want.kv_k), (got.kv_v, want.kv_v),
+                 (got.rec[0], want.rec[0]), (got.rec[1], want.rec[1])):
+        _close(g.numpy(), w)
+    assert got.lens.tolist() == [0, 20, 0]
+
+
+def test_repack_ring_reads_the_prefill_ring_past_the_window():
+    """A 40-token prompt (> window 32): the prefill ring holds positions
+    8..39 at slot position % 32. Repacked into rings of 32 and 48 slots,
+    decoding from either equals decoding from the prefill's own state
+    (JAX's repack slices the ring as if it held every token, and
+    raises)."""
+    cfg, jp, tp = _setup(HYBRID)
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (1, 48))
+    T0 = 40
+    _, ref = prefill(tp, cfg, torch.from_numpy(toks[:, :T0]), max_len=T0)
+    _, jst = jax_prefill(jp, cfg, jnp.asarray(toks[:, :T0], jnp.int32),
+                         max_len=T0)
+    with pytest.raises(ValueError):
+        jax_repack_ring(jst, 64, n_keep=T0)
+    states = [repack_ring(ref, ring, n_keep=T0) for ring in (32, 48)]
+    pos = torch.arange(T0 - 32, T0)
+    for st, ring in zip(states, (32, 48)):
+        assert st.kv_k.shape[2] == ring
+        assert torch.equal(st.kv_k[:, :, pos % ring], ref.kv_k[:, :, pos % 32])
+    for t in range(T0, toks.shape[1]):
+        tok = torch.from_numpy(toks[:, t])
+        want, ref = decode_step(tp, cfg, ref, tok)
+        for i, st in enumerate(states):
+            got, states[i] = decode_step(tp, cfg, st, tok)
+            _close_logits(got.numpy(), want.numpy())
