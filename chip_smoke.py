@@ -15,11 +15,19 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    kernel at the recurrentgemma-9b admission shape (S=6000, H=16, K=1,
    D=256, window 2048), at qwen3-0.6b's dense-prefill shape (S=4000,
    H=16, K=8, D=128, causal) and on edge cases (ragged S, S < window,
-   B=2, MHA with D=112 and H=3, a window of one token). Times the
+   B=2, MHA with D=112 and H=3, a window of one token); the split-KV and
+   tensor-core edges of the paged kernels (long and empty tables, splits
+   past a short request, bs 8, 24 and 64, G 1, 2 and 16, D 40, 64, 72,
+   112, 120 and 256, D % 16 == 8 among them), and a timed decode row at
+   the serving phase's batch and table width (R=4, 64 slots). Prints the
+   split and grid each paged kernel plans at its main shape. Times the
    kernel, the plain version and ``scaled_dot_product_attention`` over
-   the same inputs (a yardstick the port never calls), next to the least
-   time the card could take for the same bytes and FLOPs (data-sheet
-   peaks).
+   the same inputs (a yardstick the port never calls) eagerly with CUDA
+   events, as every earlier report did (``ms``, ``library_ms``), and the
+   paged kernels and their yardstick also as CUDA-graph replays, without
+   the host's per-call work (``graph_ms``, ``library_graph_ms``), next to
+   the least time the card could take for the same bytes and FLOPs
+   (data-sheet peaks).
 2. Serving, qwen3-0.6b. ``LLMServer`` serves it at full width (28
    layers, bf16, seeded random weights) with three instances on the
    card; the longest prompt stripes its prefix across two creditors at
@@ -73,7 +81,14 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # float32 outside tensor cores
-TOL = 1e-4      # kernel vs plain: both float32 math on the same inputs
+# Kernel vs plain twin (float32 math on the same inputs), on the finalized
+# output, m and l. Decode and float32 prefill compute in float32 and differ
+# only in summation order (and, split-KV, in merge order). The bf16
+# prefill kernel runs on tensor cores under a stated contract: q K^T
+# products of bf16 values are exact in float32, each probability enters
+# P V as bf16 hi + lo (one bf16 rounding would miss 1e-4), and l is summed
+# from the float32 probabilities; so the same 1e-4 holds.
+TOL = 1e-4
 # A bf16 flash-prefill output is rounded from float32 on both sides, so
 # the two may differ by one bf16 ulp (2**-7 of the value) beyond TOL.
 FLASH_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 0.0}
@@ -92,7 +107,9 @@ def card_line() -> str:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds of ``fn`` over ``iters`` back-to-back calls,
-    measured with CUDA events after ``warmup`` calls."""
+    measured with CUDA events after ``warmup`` calls. Where one call's
+    host work (the Python wrapper, the launch) outlasts its device work,
+    this is the host's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -104,6 +121,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds of one ``fn`` call: ``iters`` calls
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events, so the host's per-call work is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 # --------------------------------------------------------------------- #
@@ -157,19 +201,22 @@ def compare(got, want, tol):
 
 
 def decode_case(name, R, H, K, D, bs, ctx_blocks, dtype, device, *,
-                empty_rows=0, pad=3, timed=False):
+                empty_rows=0, pad=3, nblks=None, timed=False):
     """The decode wrapper the model calls (``ops``, default scale) on
-    CUDA tensors against the kernel's plain version."""
+    CUDA tensors against the kernel's plain version. Request r holds
+    ``ctx_blocks`` blocks (0 for the first ``empty_rows``), or
+    ``nblks[r]`` where given; tables are ``max(blocks) + pad`` wide."""
     from repro_torch.core.distattn import gather_local_kv
     from repro_torch.kernels.micro_attn_decode import (
         paged_micro_attention_plain)
     from repro_torch.kernels.ops import paged_micro_attention
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     gen = torch.Generator(device=device).manual_seed(1)
-    nblks = [0 if r < empty_rows else ctx_blocks for r in range(R)]
+    if nblks is None:
+        nblks = [0 if r < empty_rows else ctx_blocks for r in range(R)]
     NB = sum(nblks) + 4
     pk, pv = make_pool(gen, NB, bs, K, D, dtype, device)
-    table, tail = make_tables(rng, R, ctx_blocks + pad, nblks, NB, bs)
+    table, tail = make_tables(rng, R, max(nblks) + pad, nblks, NB, bs)
     q = torch.randn((R, H, D), generator=gen, device=device).to(dtype)
     tb = torch.from_numpy(table).to(device)
     tl = torch.from_numpy(tail).to(device)
@@ -191,6 +238,8 @@ def decode_case(name, R, H, K, D, bs, ctx_blocks, dtype, device, *,
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         row["ms"] = time_ms(lambda: paged_micro_attention(q, pk, pv, tb,
                                                           tl))
+        row["graph_ms"] = device_ms(lambda: paged_micro_attention(
+            q, pk, pv, tb, tl))
         row["plain_ms"] = time_ms(lambda: paged_micro_attention_plain(
             q, pk, pv, tb, tl, scale=scale), iters=5)
         k, v = gather_local_kv(pk, pv, tb)            # [R, S_pad, K, D]
@@ -200,6 +249,8 @@ def decode_case(name, R, H, K, D, bs, ctx_blocks, dtype, device, *,
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(lambda: sdpa(qq, kk, vv,
                                                  enable_gqa=True))
+        row["library_graph_ms"] = device_ms(lambda: sdpa(qq, kk, vv,
+                                                         enable_gqa=True))
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
@@ -239,6 +290,8 @@ def prefill_case(name, C, H, K, D, bs, ctx_blocks, dtype, device, *,
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         row["ms"] = time_ms(lambda: paged_prefill_attention(q, pk, pv, tb,
                                                             tl))
+        row["graph_ms"] = device_ms(lambda: paged_prefill_attention(
+            q, pk, pv, tb, tl))
         row["plain_ms"] = time_ms(lambda: paged_prefill_attention_plain(
             q, pk, pv, tb, tl, scale=scale), iters=5)
         k, v = gather_local_kv(pk, pv, tb[None])
@@ -248,6 +301,8 @@ def prefill_case(name, C, H, K, D, bs, ctx_blocks, dtype, device, *,
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(lambda: sdpa(qq, kk, vv,
                                                  enable_gqa=True))
+        row["library_graph_ms"] = device_ms(lambda: sdpa(qq, kk, vv,
+                                                         enable_gqa=True))
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
@@ -314,6 +369,22 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
     return row
 
 
+def kernel_plans(chunk: int):
+    """The split and grid each redesigned kernel launches at its main
+    shape on this card (from shapes and the SM count alone)."""
+    from repro_torch.kernels.micro_attn_decode import (decode_plan,
+                                                       device_sm_count)
+    from repro_torch.kernels.micro_attn_prefill import prefill_plan
+    sms = device_sm_count(torch.cuda.current_device())
+    out = {"sm_count": sms}
+    for dt in (torch.bfloat16, torch.float32):
+        out[f"decode-main-{dt}"] = decode_plan(8, 16, 8, 259, 16, sms)
+        out[f"decode-serving-R4-{dt}"] = decode_plan(4, 16, 8, 64, 16, sms)
+        out[f"prefill-main-{dt}"] = prefill_plan(chunk, 16, 8, 128, 191,
+                                                 16, dt, sms)
+    return out
+
+
 def kernel_phase(device, chunk: int):
     """Every kernel against its plain version; returns (rows, main rows)."""
     rows = []
@@ -341,6 +412,12 @@ def kernel_phase(device, chunk: int):
                                 5, dt, device))
         rows.append(decode_case(f"decode-d112-bs8-{dt}", 3, 4, 1, 112, 8,
                                 7, dt, device))
+        rows.append(decode_case(f"decode-d120-{dt}", 2, 4, 2, 120, 16, 0,
+                                dt, device, nblks=[250, 40]))
+        rows.append(decode_case(f"decode-d72-{dt}", 1, 8, 4, 72, 16, 200,
+                                dt, device))
+        rows.append(decode_case(f"decode-d40-bs8-{dt}", 1, 4, 1, 40, 8, 500,
+                                dt, device))
         rows.append(prefill_case(f"prefill-empty-{dt}", 37, 16, 8, 128, 16,
                                  0, dt, device))
         rows.append(prefill_case(f"prefill-mha-{dt}", 40, 16, 16, 128, 16,
@@ -349,6 +426,42 @@ def kernel_phase(device, chunk: int):
                                  dt, device))
         rows.append(prefill_case(f"prefill-d256-bs64-{dt}", 33, 8, 2, 256,
                                  64, 5, dt, device))
+        # Split-KV decode at the serving phase's batch and table width
+        # (R=4, max_local_len 1024 = 64 slots), timed, and the split edges: one long request, an empty table and one shorter
+        # than a split, full tables (the tail in the last split), bs 8
+        # with G 1, bs 64 with G 16, G 16 at D 256.
+        rows.append(decode_case(f"decode-serving-R4-{dt}", 4, 16, 8, 128,
+                                16, 61, dt, device, timed=True))
+        rows.append(decode_case(f"decode-R1-long-{dt}", 1, 16, 8, 128, 16,
+                                250, dt, device))
+        rows.append(decode_case(f"decode-split-empty-short-{dt}", 3, 16, 8,
+                                128, 16, 0, dt, device, nblks=[0, 3, 250]))
+        rows.append(decode_case(f"decode-tail-last-split-{dt}", 2, 8, 4,
+                                128, 16, 128, dt, device, pad=0))
+        rows.append(decode_case(f"decode-bs8-g1-{dt}", 2, 8, 8, 128, 8, 0,
+                                dt, device, nblks=[500, 37]))
+        rows.append(decode_case(f"decode-bs64-g16-{dt}", 2, 16, 1, 128, 64,
+                                0, dt, device, nblks=[64, 10], pad=0))
+        rows.append(decode_case(f"decode-g16-d256-{dt}", 2, 32, 2, 256, 16,
+                                0, dt, device, nblks=[200, 0]))
+        # Prefill chunk edges: C*G = 74 rows over a long prefix, D 112 in
+        # the 128-wide build, D % 16 == 8 (120, 72, and 40 in the 64-wide
+        # build: the reduction zero-padded to 16), bs 24 (does not divide
+        # the 64-token tile), D 256 over a long prefix.
+        rows.append(prefill_case(f"prefill-c37-long-{dt}", 37, 16, 8, 128,
+                                 16, 187, dt, device))
+        rows.append(prefill_case(f"prefill-d112-bs8-{dt}", 50, 4, 2, 112, 8,
+                                 130, dt, device))
+        rows.append(prefill_case(f"prefill-bs24-d64-{dt}", 40, 12, 4, 64,
+                                 24, 70, dt, device))
+        rows.append(prefill_case(f"prefill-d120-bs8-{dt}", 50, 4, 2, 120, 8,
+                                 130, dt, device))
+        rows.append(prefill_case(f"prefill-d72-{dt}", 45, 12, 4, 72, 16, 60,
+                                 dt, device))
+        rows.append(prefill_case(f"prefill-d40-bs24-{dt}", 40, 8, 2, 40, 24,
+                                 70, dt, device))
+        rows.append(prefill_case(f"prefill-d256-long-{dt}", 33, 8, 2, 256,
+                                 64, 20, dt, device))
         # Flash prefill: (a) the recurrentgemma-9b admission of the
         # hybrid serving phase, (b) qwen3-0.6b's dense-prefill shape.
         r = flash_case(f"flash-main-{dt}", 1, 6000, 16, 1, 256, 2048, dt,
@@ -758,16 +871,21 @@ def main(argv=None) -> int:
         log = (build.build_dir() / f"{name}.log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("Compiling entry", "registers",
+                                           "spill")):
                     print(f"  ptxas {name}: {line.strip()}")
 
     cfg = get_config("qwen3-0.6b")
     config = serving_config()
+    report["plans"] = kernel_plans(config.prefill_chunk)
+    for name, plan in report["plans"].items():
+        print(f"plan {name}: {json.dumps(plan)}", flush=True)
     rows, main = kernel_phase(device, config.prefill_chunk)
     report["kernel_cases"] = rows
     for r in rows:
         extra = "".join(f" {k}={r[k]:.4g}" for k in
-                        ("ms", "plain_ms", "library_ms", "bound_ms")
+                        ("ms", "graph_ms", "plain_ms", "library_ms",
+                         "library_graph_ms", "bound_ms")
                         if k in r)
         print(f"kernel {r['case']}: max_abs_err={r['max_abs_err']:.3g} "
               f"tol={r['tol']}{extra}", flush=True)
@@ -846,6 +964,8 @@ def main(argv=None) -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        kernels[-1].update({k: r[k] for k in ("graph_ms", "library_graph_ms")
+                            if k in r})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
     print(f"script: {report['script_s']:.1f} s", flush=True)

@@ -9,28 +9,77 @@
 // [C, H], float32; an empty table gives (0, -inf, 0).
 //
 // Bound on the H100: the larger of the FLOPs, 4 * C * S * H * D against
-// 989 TFLOP/s, and the bytes, S * K * D * 2 * itemsize against 3.35 TB/s;
-// at chunk sizes of hundreds of tokens the FLOPs dominate.
+// 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (float32), and the
+// bytes, S * K * D * 2 * itemsize against 3.35 TB/s. At the qwen3 path's
+// main shape (C=512, H=16, K=8, D=128, S~3,000, bf16) that is 12.6 GFLOP
+// against 12 MB of K/V: 0.0127 ms, bound by operations. Only the tensor
+// cores approach it.
 //
-// Design: flash attention on the CUDA cores, in float32 like the Pallas
-// kernel. One thread block per (kv head, tile of TR = 64 of the C * G
-// (query, head) rows that share that kv head). Tables are prefix-
-// contiguous, so the block counts the valid slots once and walks the
-// prefix's valid tokens [0, S) in tiles of TK = 64, wherever their table
-// blocks lie (-1 slots and the masked tail are never read). Each K/V
-// tile is staged in shared memory ONCE and used by all 64 rows, so the
-// prefix is read from device memory C * G / 64 times per kv head. The
-// 256 threads form a 16 x 16 grid: a thread holds a 4 x 4 register tile
-// of scores (4 rows x 4 tokens, two 16-byte shared loads per 16 FMAs),
-// row maxima and sums are reduced over the 16 threads of a row group with
-// warp shuffles, and the running (o, m, l) of its 4 rows x D/16 output
-// columns stays in registers. Simple first version: the products do not
-// use the tensor cores (wgmma) and the tile loads are not overlapped with
-// compute (no cp.async or TMA), which is where the FLOP bound would be
-// approached.
+// bf16 pools: tensor cores (mma.sync), FlashAttention-2 register layout.
+// - Grid (K, ceil(C*G / BM), nsplit), 4 warps (128 threads) a block.
+//   GQA packing as the Pallas kernel: the C*G rows (query, head of the kv
+//   head's group), kv-head-major, so a block's rows share one kv head and
+//   each K/V tile is staged once for all G heads. The wrapper
+//   (prefill_plan) chooses BM, the split and the shared memory and passes
+//   them in; the C entry checks them. Up to D = 128 a warp
+//   owns two m16 tiles (32 rows, BM = 128), so every K/V fragment feeds
+//   two independent products; at D = 256 one (BM = 64), whose
+//   accumulators fill the registers alone. At the main shape 8 x 8 = 64
+//   work items would leave most SMs idle, so the wrapper splits the
+//   prefix's slot range (kernels/micro_attn_decode.py::plan_splits, from
+//   shapes alone) into nsplit = 4 runs of whole slots: 256 blocks, 2 per
+//   SM (105 KB of shared memory each at D = 128; 170 KB, one per SM, at
+//   D = 256), merged in the same launch by the last split's block
+//   (paged_attn.cuh).
+// - The block copies its split's table slots to shared memory once and
+//   resolves each tile's pool rows (table[t / bs] * bs + t % bs, for any
+//   bs <= 64, whether or not bs divides the tile) two tiles ahead. K/V
+//   tiles of 64 tokens go to shared memory through cp.async.cg (16 bytes
+//   a copy) in a ring of 2 stages: tile i+1's loads are in flight while
+//   tile i's MMAs run. Tokens past the split's valid part and -1 slots
+//   are zero-filled (cp.async with src-size 0, no read) and their scores
+//   masked to -inf (only tiles holding such tokens look). Rows are D + 8
+//   elements apart (ldmatrix without bank conflicts); for D % 16 == 8 the
+//   reduction is zero-padded to 16 in shared memory.
+// - S = Q K^T with mma.sync.m16n8k16 bf16 -> fp32, A and B by ldmatrix;
+//   the online softmax runs on the S accumulator fragment in float32
+//   (exp2 of one fma; the accumulators are rescaled only when a row's max
+//   moved), and the probabilities become the A operand of P V in
+//   registers (no trip through shared memory); V by ldmatrix.trans.
+// - Why mma.sync and not wgmma: the FlashAttention-2 layout passes P from
+//   the S accumulator to the next product inside each warp's registers,
+//   which mma.sync does with warp-sized tiles and no warpgroup
+//   synchronization; at this size (12.6 GFLOP, about a tenth of a
+//   millisecond) its rate meets the goal of this redesign. wgmma and TMA
+//   are a later step.
+// - Registers: 255 at D = 128 (two 16 x 128 float32 accumulators and two
+//   16 x 64 score tiles a warp); ptxas reports the spills of each build.
+//
+// Precision contract (bf16 pools). The Pallas kernel upcasts to float32
+// and accumulates in float32; the kernel is held to 1e-4 against that
+// float32 plain twin. (1) Q K^T: bf16 x bf16 products are exact in fp32;
+// only the order of the fp32 sums differs. (2) P V: p is float32;
+// rounding it to bf16 once (2^-9 relative per term) would exceed 1e-4 at
+// the main shape, so p is split into hi = bf16(p) and lo = bf16(p - hi),
+// and two MMAs against the same bf16 V tile give ~2^-17 relative per
+// term (1.5x the useful tensor-core work). (3) l is summed in float32
+// from the float32 p, never from hi + lo. (4) m, the rescaling and the
+// split merge are float32 on the CUDA cores.
+//
+// float32 pools keep the CUDA-core kernel (float32 FMAs, one block of 256
+// threads per (kv head, 64 rows), 4 x 4 register tiles, no split).
 #include "paged_attn.cuh"
 
 namespace {
+
+using paged_attn::cp_async16;
+using paged_attn::cp_async_commit;
+using paged_attn::cp_async_wait;
+using paged_attn::smem_addr;
+
+// ---------------------------------------------------------------------
+// float32 pools: CUDA cores.
+// ---------------------------------------------------------------------
 
 constexpr int TR = 64;        // query rows per thread block
 constexpr int TK = 64;        // KV tokens per tile
@@ -53,14 +102,6 @@ __device__ __forceinline__ void load_vec(const float* p, float* x) {
   x[1] = v.y;
   x[2] = v.z;
   x[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* x) {
-  const uint4 w = *reinterpret_cast<const uint4*>(p);
-  paged_attn::unpack_bf16x2(w.x, x[0], x[1]);
-  paged_attn::unpack_bf16x2(w.y, x[2], x[3]);
-  paged_attn::unpack_bf16x2(w.z, x[4], x[5]);
-  paged_attn::unpack_bf16x2(w.w, x[6], x[7]);
 }
 
 template <typename T>
@@ -269,6 +310,455 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 pools: tensor cores.
+// ---------------------------------------------------------------------
+constexpr int MW = 4;            // warps a block
+constexpr int BN = 64;           // KV tokens a tile
+constexpr int STAGES = 2;        // cp.async ring depth of K/V tiles
+constexpr int ROW_RING = 3;      // tiles whose pool rows are resolved
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory row stride (elements) for head dim D: D rounded up to 16,
+// plus 8 so that ldmatrix's 8 row addresses fall in distinct banks.
+__host__ __device__ inline int row_stride(int D) {
+  return ((D + 15) / 16) * 16 + 8;
+}
+
+// q (BM rows) and the K/V ring (bf16), the resolved pool rows of
+// ROW_RING tiles, their "every token valid" flags, and the split's slice
+// of the table (int32).
+inline size_t mma_smem_bytes(int D, int BM, int slots) {
+  return static_cast<size_t>(BM + 2 * STAGES * BN) * row_stride(D) * 2 +
+         sizeof(int) * (ROW_RING * BN + 2 * ROW_RING + slots);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo_elem,
+                                              __nv_bfloat16 hi_elem) {
+  __nv_bfloat162 v;
+  v.x = lo_elem;
+  v.y = hi_elem;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The hi and lo bf16 halves of two float32 probabilities, packed for the
+// A operand (first value in the low 16 bits).
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 ha = __float2bfloat16_rn(a);
+  const __nv_bfloat16 hb = __float2bfloat16_rn(b);
+  hi = pack_bf16(ha, hb);
+  lo = pack_bf16(__float2bfloat16_rn(a - __bfloat162float(ha)),
+                 __float2bfloat16_rn(b - __bfloat162float(hb)));
+}
+
+// DMAX: the largest head dim of the instantiation (64, 128 or 256); the
+// register arrays are sized for it and loops stop at the runtime D. MT:
+// m16 tiles of query rows a warp owns, so BM = 16 * MT * MW rows a block
+// (the caller's rows_per_block).
+template <int DMAX, int MT>
+__global__ void __launch_bounds__(MW * 32)
+    paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ pool_k,
+                             const __nv_bfloat16* __restrict__ pool_v,
+                             const int* __restrict__ table,
+                             const int* __restrict__ tail,
+                             float* __restrict__ o, float* __restrict__ m_out,
+                             float* __restrict__ l_out,
+                             float* __restrict__ ws,
+                             unsigned* __restrict__ tickets, int C, int H,
+                             int K, int D, int bs, int bs_shift, int MB,
+                             int slots_per_split, float scale) {
+  constexpr int BM = 16 * MT * MW;  // query rows a block
+  constexpr int NT = DMAX / 8;      // n8 tiles of the output columns
+  constexpr int KC = DMAX / 16;     // k16 chunks of the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int DS = row_stride(D);
+  const int DP = DS - 8;
+  const int nrows_s = BM + 2 * STAGES * BN;
+  __nv_bfloat16* q_s = sm;                      // [BM][DS]
+  __nv_bfloat16* k_s = sm + BM * DS;            // [STAGES][BN][DS]
+  __nv_bfloat16* v_s = k_s + STAGES * BN * DS;  // [STAGES][BN][DS]
+  int* rows_s = reinterpret_cast<int*>(sm + nrows_s * DS);  // [RING][BN]
+  int* full_s = rows_s + ROW_RING * BN;         // [RING][2]
+  int* tab_s = full_s + 2 * ROW_RING;           // the split's table slots
+
+  const int kh = blockIdx.x;
+  const int G = H / K;
+  const int CG = C * G;
+  const int row0 = blockIdx.y * BM;
+  const int nrows = min(BM, CG - row0);
+  const int split = blockIdx.z;
+  const int nsplit = gridDim.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nch = D / 8;  // 16-byte chunks in a row (D % 8 == 0)
+
+  // Zero the padded reduction columns [D, DP) once; cp.async never
+  // writes them.
+  if (DP > D) {
+    const int w = DP - D;
+    for (int idx = tid; idx < nrows_s * w; idx += blockDim.x)
+      sm[(idx / w) * DS + D + idx % w] = __float2bfloat16_rn(0.f);
+  }
+
+  // q rows of the tile (zero past nrows).
+  for (int idx = tid; idx < BM * nch; idx += blockDim.x) {
+    const int r = idx / nch, ch = idx - r * nch, gr = row0 + r;
+    const __nv_bfloat16* src = q;
+    int bytes = 0;
+    if (r < nrows) {
+      const size_t head = static_cast<size_t>(gr / G) * H + kh * G + gr % G;
+      src = q + head * D + ch * 8;
+      bytes = 16;
+    }
+    cp_async16(smem_addr(q_s + r * DS + ch * 8), src, bytes);
+  }
+
+  // The split's table slots, to shared memory; its valid tokens are
+  // [t_lo, t_hi).
+  const int s0 = split * slots_per_split;
+  const int ns = max(0, min(MB, s0 + slots_per_split) - s0);
+  const int t_lo = s0 * bs;
+  const int t_hi = t_lo + paged_attn::load_split_slots(table, MB, s0, ns, bs,
+                                                       tail[0], tab_s);
+  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + BN - 1) / BN : 0;
+  const size_t tok_stride = static_cast<size_t>(K) * D;
+
+  // Pool row (block * bs + offset) of every token of tile `it`, or -1 past
+  // the valid tokens and for -1 slots: one thread a token (warps 0, 1),
+  // and whether every token of the tile is valid.
+  auto resolve_rows = [&](int it) {
+    if (tid < BN) {
+      const int t = t_lo + it * BN + tid;
+      int row = -1;
+      if (t < t_hi) {
+        const int sl = bs_shift >= 0 ? t >> bs_shift : t / bs;
+        const int blk = tab_s[sl - s0];
+        if (blk >= 0) row = blk * bs + (t - sl * bs);
+      }
+      rows_s[(it % ROW_RING) * BN + tid] = row;
+      const bool all = __all_sync(0xffffffffu, row >= 0);
+      if (lane == 0) full_s[(it % ROW_RING) * 2 + warp] = all;
+    }
+  };
+  // Stage K/V tile `it` into ring slot it % STAGES: a thread keeps one
+  // 16-byte column chunk and walks the tile's tokens; a token whose row
+  // is -1 is zero-filled and never read.
+  const int rpp = blockDim.x / nch;  // tokens a pass
+  const int my_ch = tid % nch, my_tok = tid / nch;
+  auto load_tile = [&](int it) {
+    if (my_tok >= rpp) return;
+    const int st = it % STAGES;
+    const int* rows = rows_s + (it % ROW_RING) * BN;
+    const uint32_t kd = smem_addr(k_s + st * BN * DS + my_ch * 8);
+    const uint32_t vd = smem_addr(v_s + st * BN * DS + my_ch * 8);
+    const size_t col = static_cast<size_t>(kh) * D + my_ch * 8;
+    for (int tok = my_tok; tok < BN; tok += rpp) {
+      const int row = rows[tok];
+      const size_t off = row >= 0 ? row * tok_stride + col : 0;
+      const int bytes = row >= 0 ? 16 : 0;
+      cp_async16(kd + 2 * tok * DS, pool_k + off, bytes);
+      cp_async16(vd + 2 * tok * DS, pool_v + off, bytes);
+    }
+  };
+
+  resolve_rows(0);
+  resolve_rows(1);
+  __syncthreads();
+  if (ntiles > 0) load_tile(0);
+  cp_async_commit();  // group 0: q and the first tile
+
+  float oacc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      oacc[mt][j][0] = oacc[mt][j][1] = oacc[mt][j][2] = oacc[mt][j][3] = 0.f;
+  // Per m16 tile, rows lane/4 and lane/4 + 8: the running max of the raw
+  // scores (q . k, before the scale) and this thread's share of l.
+  float m_r[MT][2], l_r[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m_r[mt][0] = m_r[mt][1] = -CUDART_INF_F;
+    l_r[mt][0] = l_r[mt][1] = 0.f;
+  }
+  const float c = scale * LOG2E;  // p = 2^((s - m) * c)
+
+  const int wrow = warp * 16 * MT;
+  // ldmatrix lane addresses (element offsets within a tile).
+  const int a_off = (wrow + (lane & 15)) * DS + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * DS + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * DS + (lane >> 4) * 8;
+  const uint32_t q_base = smem_addr(q_s);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % STAGES;
+    if (it + 1 < ntiles) {
+      load_tile(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (it + 2 < ntiles) resolve_rows(it + 2);
+    __syncthreads();
+    const uint32_t k_base = smem_addr(k_s + st * BN * DS);
+    const uint32_t v_base = smem_addr(v_s + st * BN * DS);
+    const int* rows = rows_s + (it % ROW_RING) * BN;
+    const bool full = full_s[(it % ROW_RING) * 2] &&
+                      full_s[(it % ROW_RING) * 2 + 1];
+
+    // S = Q K^T: MT x 16 rows x 64 tokens per warp, 8 n8 tiles each.
+    float sacc[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sacc[mt][j][0] = sacc[mt][j][1] = sacc[mt][j][2] = sacc[mt][j][3] =
+            0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      if (kc * 16 < D) {
+        uint32_t a[MT][4], b[4][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(a[mt], q_base + 2 * (a_off + mt * 16 * DS + kc * 16));
+#pragma unroll
+        for (int np = 0; np < 4; ++np)
+          ldmatrix_x4(b[np], k_base + 2 * (k_off + np * 16 * DS + kc * 16));
+#pragma unroll
+        for (int np = 0; np < 4; ++np)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(sacc[mt][2 * np], a[mt], b[np][0], b[np][1]);
+            mma_bf16(sacc[mt][2 * np + 1], a[mt], b[np][2], b[np][3]);
+          }
+      }
+    }
+
+    // Online softmax on the fragment: per m16 tile a thread holds rows
+    // lane/4 (c0, c1) and lane/4 + 8 (c2, c3), tokens j * 8 + (lane % 4)
+    // * 2 + {0, 1}. Tokens past the valid ones score -inf (only a tile
+    // with such tokens reads the row flags), and 2^-inf = 0.
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int tk = j * 8 + (lane & 3) * 2;
+        const bool ok0 = rows[tk] >= 0, ok1 = rows[tk + 1] >= 0;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (!ok0) sacc[mt][j][0] = sacc[mt][j][2] = -CUDART_INF_F;
+          if (!ok1) sacc[mt][j][1] = sacc[mt][j][3] = -CUDART_INF_F;
+        }
+      }
+    }
+    bool rescale = false;
+    float alpha[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sacc[mt][j][0], sacc[mt][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sacc[mt][j][2], sacc[mt][j][3]));
+      }
+      float mc[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[mt][h], mx[h]);
+        alpha[mt][h] = m_r[mt][h] == m_new ? 1.f
+                       : m_r[mt][h] == -CUDART_INF_F
+                           ? 0.f
+                           : exp2f((m_r[mt][h] - m_new) * c);
+        rescale |= alpha[mt][h] != 1.f;
+        m_r[mt][h] = m_new;
+        mc[h] = m_new == -CUDART_INF_F ? 0.f : m_new * c;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(sacc[mt][j][e], c, -mc[e >> 1]));
+          sacc[mt][j][e] = p;
+          psum[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l_r[mt][h] = l_r[mt][h] * alpha[mt][h] + psum[h];
+    }
+    // Rescale the accumulators only where a row's max moved (after the
+    // first tiles it rarely does).
+    if (__any_sync(0xffffffffu, rescale)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          oacc[mt][j][0] *= alpha[mt][0];
+          oacc[mt][j][1] *= alpha[mt][0];
+          oacc[mt][j][2] *= alpha[mt][1];
+          oacc[mt][j][3] *= alpha[mt][1];
+        }
+    }
+
+    // O += P V with P = hi + lo, both bf16, from the S fragment; V
+    // fragments two column pairs at a time, each feeding MT x 4 products.
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_pair(sacc[mt][2 * kc][0], sacc[mt][2 * kc][1], ph[mt][0],
+                   pl[mt][0]);
+        split_pair(sacc[mt][2 * kc][2], sacc[mt][2 * kc][3], ph[mt][1],
+                   pl[mt][1]);
+        split_pair(sacc[mt][2 * kc + 1][0], sacc[mt][2 * kc + 1][1],
+                   ph[mt][2], pl[mt][2]);
+        split_pair(sacc[mt][2 * kc + 1][2], sacc[mt][2 * kc + 1][3],
+                   ph[mt][3], pl[mt][3]);
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < NT / 2; n0 += 2) {
+        uint32_t b[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if ((n0 + i) * 16 < D)
+            ldmatrix_x4_trans(b[i], v_base + 2 * (v_off + kc * 16 * DS +
+                                                  (n0 + i) * 16));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if ((n0 + i) * 16 < D) {
+            const int n = 2 * (n0 + i);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_bf16(oacc[mt][n], ph[mt], b[i][0], b[i][1]);
+              mma_bf16(oacc[mt][n + 1], ph[mt], b[i][2], b[i][3]);
+            }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_bf16(oacc[mt][n], pl[mt], b[i][0], b[i][1]);
+              mma_bf16(oacc[mt][n + 1], pl[mt], b[i][2], b[i][3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with slot st before its reload
+  }
+  cp_async_wait<0>();
+
+  const size_t split_stride = static_cast<size_t>(C) * H * (D + 2);
+  float* po = o;
+  float* pm = m_out;
+  float* pls = l_out;
+  size_t ostride = D, sstride = 1;
+  if (nsplit > 1) {
+    po = ws + split * split_stride;
+    pm = po + D;
+    pls = po + D + 1;
+    ostride = sstride = D + 2;
+  }
+  auto head_of = [&](int r) {  // local row -> output row (query, head)
+    const int gr = row0 + r;
+    return (gr / G) * H + kh * G + gr % G;
+  };
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // The quad's four threads share a row: sum their shares of l.
+      float lr = l_r[mt][h];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int r = wrow + mt * 16 + (lane >> 2) + h * 8;
+      if (r >= nrows) continue;
+      const size_t head = static_cast<size_t>(head_of(r));
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = j * 8 + (lane & 3) * 2;
+        if (col < D)
+          *reinterpret_cast<float2*>(po + head * ostride + col) =
+              make_float2(oacc[mt][j][2 * h], oacc[mt][j][2 * h + 1]);
+      }
+      if ((lane & 3) == 0) {
+        pm[head * sstride] = m_r[mt][h] * scale;  // m of the scaled scores
+        pls[head * sstride] = lr;
+      }
+    }
+  }
+  if (nsplit == 1) return;
+  const size_t item = static_cast<size_t>(kh) * gridDim.y + blockIdx.y;
+  if (paged_attn::last_split_arrives(tickets + item, nsplit))
+    paged_attn::merge_splits(ws, split_stride, nsplit, nrows, D, head_of, o,
+                             m_out, l_out, reinterpret_cast<float*>(k_s));
+}
+
+// Returns cudaErrorInvalidValue unless the caller's shared memory and
+// ticket count are what this instantiation needs.
+template <int DMAX, int MT>
+int launch_mma(const void* q, const void* pk, const void* pv,
+               const void* table, const void* tail, void* o, void* m,
+               void* l, void* ws, void* tickets, int C, int H, int K, int D,
+               int bs, int MB, int nsplit, int slots_per_split,
+               int smem_bytes, int n_tickets, float scale,
+               cudaStream_t stream) {
+  constexpr int BM = 16 * MT * MW;
+  const size_t smem = mma_smem_bytes(D, BM, slots_per_split);
+  const int rows = C * (H / K);
+  const dim3 grid(K, (rows + BM - 1) / BM, nsplit);
+  if (static_cast<size_t>(smem_bytes) != smem ||
+      (nsplit > 1 && static_cast<long>(grid.x) * grid.y > n_tickets))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = paged_prefill_mma_kernel<DMAX, MT>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  // Ask for the largest shared-memory carve-out, so that as many blocks
+  // as their shared memory allows share an SM.
+  cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  const int bs_shift = (bs & (bs - 1)) ? -1 : __builtin_ctz(bs);
+  kern<<<grid, MW * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(pk),
+      static_cast<const __nv_bfloat16*>(pv), static_cast<const int*>(table),
+      static_cast<const int*>(tail), static_cast<float*>(o),
+      static_cast<float*>(m), static_cast<float*>(l),
+      static_cast<float*>(ws), static_cast<unsigned*>(tickets), C, H, K, D,
+      bs, bs_shift, MB, slots_per_split, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DPT>
 int launch(const void* q, const void* pk, const void* pv, const void* table,
            const void* tail, void* o, void* m, void* l, int C, int H, int K,
@@ -288,32 +778,54 @@ int launch(const void* q, const void* pk, const void* pv, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_t(const void* q, const void* pk, const void* pv,
-             const void* table, const void* tail, void* o, void* m, void* l,
-             int C, int H, int K, int D, int bs, int MB, float scale,
-             cudaStream_t s) {
-  if (D <= 128)
-    return launch<T, 8>(q, pk, pv, table, tail, o, m, l, C, H, K, D, bs, MB,
-                        scale, s);
-  return launch<T, 16>(q, pk, pv, table, tail, o, m, l, C, H, K, D, bs, MB,
-                       scale, s);
-}
-
 }  // namespace
 
 // C entry: returns cudaGetLastError() after the launch (0 = success).
-// dtype: 0 = float32, 1 = bfloat16 (q and both pools share it).
+// dtype: 0 = float32 (CUDA cores, nsplit must be 1), 1 = bfloat16 (tensor
+// cores); q and both pools share it. The caller plans the launch
+// (kernels/micro_attn_prefill.py::prefill_plan): rows_per_block picks the
+// instantiation (bf16: 128 up to D = 128, 64 above; float32: 64), and
+// smem_bytes (bf16) must equal what that instantiation lays out; any
+// other value returns cudaErrorInvalidValue. With nsplit > 1, ws is a
+// float32 scratch [nsplit, C, H, D + 2] and tickets n_tickets zeroed
+// uint32 counters, at least one per (kv head, row tile), that the kernel
+// leaves at zero; both may be null when nsplit == 1.
 extern "C" int paged_prefill_launch(const void* q, const void* pool_k,
                                     const void* pool_v, const void* table,
                                     const void* tail, void* o, void* m,
-                                    void* l, int C, int H, int K, int D,
-                                    int bs, int MB, float scale, int dtype,
+                                    void* l, void* ws, void* tickets, int C,
+                                    int H, int K, int D, int bs, int MB,
+                                    int nsplit, int slots_per_split,
+                                    int rows_per_block, int smem_bytes,
+                                    int n_tickets, float scale, int dtype,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_t<__nv_bfloat16>(q, pool_k, pool_v, table, tail, o, m, l,
-                                   C, H, K, D, bs, MB, scale, s);
-  return launch_t<float>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K, D,
-                         bs, MB, scale, s);
+  if (dtype == 1) {
+    // Up to D = 128 a warp owns two m16 tiles (32 rows), so every K/V
+    // fragment feeds two independent products; at D = 256 one, whose
+    // accumulators fill the registers alone.
+    if (D <= 64 && rows_per_block == 32 * MW)
+      return launch_mma<64, 2>(q, pool_k, pool_v, table, tail, o, m, l, ws,
+                               tickets, C, H, K, D, bs, MB, nsplit,
+                               slots_per_split, smem_bytes, n_tickets, scale,
+                               s);
+    if (D > 64 && D <= 128 && rows_per_block == 32 * MW)
+      return launch_mma<128, 2>(q, pool_k, pool_v, table, tail, o, m, l, ws,
+                                tickets, C, H, K, D, bs, MB, nsplit,
+                                slots_per_split, smem_bytes, n_tickets,
+                                scale, s);
+    if (D > 128 && rows_per_block == 16 * MW)
+      return launch_mma<256, 1>(q, pool_k, pool_v, table, tail, o, m, l, ws,
+                                tickets, C, H, K, D, bs, MB, nsplit,
+                                slots_per_split, smem_bytes, n_tickets,
+                                scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nsplit != 1 || rows_per_block != TR)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 128)
+    return launch<float, 8>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K,
+                            D, bs, MB, scale, s);
+  return launch<float, 16>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K,
+                           D, bs, MB, scale, s);
 }

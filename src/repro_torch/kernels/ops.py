@@ -12,6 +12,16 @@ the kv-head-major query layout) has no counterpart: the CUDA kernels
 index heads and rows and mask the ragged end themselves. ``scale``
 defaults to ``true_head_dim ** -0.5``.
 
+Precision. The two paged kernels return what their float32 plain twins
+return, within 1e-4, in both storage dtypes. Decode computes in float32
+on the CUDA cores; it splits each request's slots over several blocks
+(split-KV) and LSE-merges the splits in float32. The prefill chunk with
+bf16 pools runs on the tensor cores: q K^T products of bf16 values are
+exact in float32, each float32 probability p enters P V as two bf16
+halves ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p
+would exceed 1e-4 over a few thousand keys), and ``l`` is summed from
+the float32 p; with float32 pools it stays on the CUDA cores.
+
 Each kernel carries a plain integer launch counter, ``launches`` on its
 launcher (``*_cuda``), incremented right after a successful launch and
 nowhere else; each wrapper counts its dispatches to the plain twin in

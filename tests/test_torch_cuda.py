@@ -6,9 +6,13 @@ so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 1e-4: kernel and twin both compute in float32 from the same
-inputs and differ only in summation order; a bf16 flash-prefill output is
-rounded from float32 on both sides, so it may differ by one bf16 ulp.
+Tolerance 1e-4: kernel and twin compute in float32 from the same inputs
+and differ in summation order (split-KV decode and prefill also in merge
+order); the bf16 prefill-chunk kernel runs on tensor cores, where q K^T
+products of bf16 values are exact and each probability enters P V as
+bf16 hi + lo, which keeps it within the same 1e-4. A bf16 flash-prefill
+output is rounded from float32 on both sides, so it may differ by one
+bf16 ulp.
 """
 import numpy as np
 import pytest
@@ -136,3 +140,164 @@ def test_cuda_tensors_launch_the_kernels_and_count_them(cuda_device):
         "paged_micro_attention": {"launches": 1, "plain_calls": 0},
         "paged_prefill_attention": {"launches": 1, "plain_calls": 0},
         "flash_prefill": {"launches": 1, "plain_calls": 0}}
+
+
+def _prefix_tables(rng, nblks, MB, bs):
+    """Prefix-contiguous -1-padded tables [R, MB] over disjoint random
+    blocks of a pool with sum(nblks) + 2 blocks; random tails."""
+    perm = rng.permutation(sum(nblks) + 2)
+    table = -np.ones((len(nblks), MB), np.int32)
+    tail = np.full(len(nblks), bs, np.int32)
+    used = 0
+    for r, n in enumerate(nblks):
+        table[r, :n] = perm[used:used + n]
+        used += n
+        if n:
+            tail[r] = rng.integers(1, bs + 1)
+    return table, tail
+
+
+def _close_partials(got, want):
+    """The contract's check, as in chip_smoke.py: finalized outputs and m
+    within TOL, l within TOL relative, the same empty rows, no NaN."""
+    from repro_torch.core.online_softmax import finalize
+    (go, gm, gl), (wo, wm, wl) = got, want
+    for t in got:
+        assert not torch.isnan(t).any()
+    assert torch.equal(torch.isneginf(gm), torch.isneginf(wm))
+    fin = (finalize(go, gl) - finalize(wo, wl)).abs().max().item()
+    finite = ~torch.isneginf(wm)
+    m_err = (gm - wm)[finite].abs().max().item() if finite.any() else 0.0
+    l_err = ((gl - wl).abs() / wl.abs().clamp_min(1e-30)).max().item()
+    assert max(fin, m_err, l_err) <= TOL, (fin, m_err, l_err)
+    empty = torch.isneginf(wm)
+    assert float(go[empty].abs().sum()) == 0.0
+    assert float(gl[empty].abs().sum()) == 0.0
+
+
+def _pools(gen, NB, bs, K, D, dtype, device):
+    return tuple(torch.randn((NB, bs, K, D), generator=gen,
+                             device=device).to(dtype) for _ in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,G,D,bs,nblks,MB", [
+    (8, 2, 128, 16, [250], 256),             # R=1 over ~4,000 tokens
+    (8, 2, 128, 16, [0, 3, 250], 256),       # empty, shorter than a split
+    (4, 2, 128, 16, [128, 128], 128),        # full tables: tail in last split
+    (8, 1, 128, 8, [500, 37], 512),          # bs 8, G 1
+    (1, 16, 128, 64, [64, 10], 64),          # bs 64, G 16
+    (2, 16, 256, 16, [200, 0], 256),         # G 16 at D 256
+    (2, 2, 120, 16, [250, 40], 256),         # D % 16 == 8: odd bf16 chunks
+    (4, 2, 72, 16, [200], 256),              # D = 72
+    (1, 4, 40, 8, [500], 512),               # D = 40, bs 8
+])
+def test_split_kv_decode_matches_plain(dtype, K, G, D, bs, nblks, MB,
+                                       cuda_device):
+    """The split-KV decode kernel == its plain twin over contexts long
+    enough to split: empty tables, splits past a short request's tokens,
+    a partial tail in the last split, bs 8 and 64, G 1, 2 and 16."""
+    from repro_torch.kernels.micro_attn_decode import (decode_plan,
+                                                       device_sm_count)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rng = np.random.default_rng(5)
+    R, H = len(nblks), K * G
+    table, tail = _prefix_tables(rng, nblks, MB, bs)
+    pk, pv = _pools(gen, sum(nblks) + 2, bs, K, D, dtype, cuda_device)
+    q = torch.randn((R, H, D), generator=gen, device=cuda_device).to(dtype)
+    tb = torch.from_numpy(table).to(cuda_device)
+    tl = torch.from_numpy(tail).to(cuda_device)
+    plan = decode_plan(R, H, K, MB, bs,
+                       device_sm_count(torch.cuda.current_device()))
+    assert plan["nsplit"] > 1
+    scale = D ** -0.5
+    for _ in range(2):          # the ticket counters are reset for reuse
+        got = paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=scale)
+        _close_partials(got, paged_micro_attention_plain(
+            q, pk, pv, tb, tl, scale=scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,K,G,D,bs,nblk", [
+    (37, 8, 2, 128, 16, 187),     # C*G = 74: not a multiple of 16 or 64
+    (512, 8, 2, 128, 16, 190),    # the main shape, ~3,000-token prefix
+    (50, 2, 2, 112, 8, 130),      # D = 112 in the 128-wide build
+    (33, 2, 4, 256, 64, 20),      # D = 256, bs = 64
+    (40, 4, 3, 64, 24, 70),       # bs 24 does not divide the 64-token tile
+    (37, 8, 2, 128, 16, 0),       # empty table: (0, -inf, 0)
+    (50, 2, 2, 120, 8, 130),      # D % 16 == 8: reduction padded to 128
+    (45, 4, 3, 72, 16, 60),       # D = 72, padded to 80
+    (40, 2, 4, 40, 24, 70),       # D = 40 in the 64-wide build, bs 24
+])
+def test_prefill_chunk_kernel_matches_plain(dtype, C, K, G, D, bs, nblk,
+                                            cuda_device):
+    """The prefill-chunk kernel (bf16: tensor cores, hi + lo
+    probabilities, split prefix) == its float32 plain twin at 1e-4."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    rng = np.random.default_rng(6)
+    H, MB = K * G, nblk + 3
+    table, tail = _prefix_tables(rng, [nblk], MB, bs)
+    pk, pv = _pools(gen, nblk + 2, bs, K, D, dtype, cuda_device)
+    q = torch.randn((C, H, D), generator=gen, device=cuda_device).to(dtype)
+    tb = torch.from_numpy(table[0]).to(cuda_device)
+    tl = torch.tensor(int(tail[0]), dtype=torch.int32, device=cuda_device)
+    scale = D ** -0.5
+    for _ in range(2):
+        got = paged_prefill_attention_cuda(q, pk, pv, tb, tl, scale=scale)
+        _close_partials(got, paged_prefill_attention_plain(
+            q, pk, pv, tb, tl, scale=scale))
+
+
+@pytest.mark.cuda
+def test_split_kernels_launch_once_per_call(cuda_device):
+    """A split grid is still one launch per wrapper call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    rng = np.random.default_rng(7)
+    table, tail = _prefix_tables(rng, [250, 100], 256, 16)
+    pk, pv = _pools(gen, 352, 16, 8, 128, torch.bfloat16, cuda_device)
+    q = torch.randn((2, 16, 128), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    tb = torch.from_numpy(table).to(cuda_device)
+    tl = torch.from_numpy(tail).to(cuda_device)
+    ops.reset_counts()
+    ops.paged_micro_attention(q, pk, pv, tb, tl)
+    ops.paged_prefill_attention(q, pk, pv, tb[0], tl[0])
+    torch.cuda.synchronize()
+    c = ops.counts()
+    assert c["paged_micro_attention"] == {"launches": 1, "plain_calls": 0}
+    assert c["paged_prefill_attention"] == {"launches": 1, "plain_calls": 0}
+
+
+@pytest.mark.cuda
+def test_c_entries_refuse_plans_they_cannot_launch(cuda_device,
+                                                   monkeypatch):
+    """The C entries launch the wrappers' plans as given and refuse one
+    they have no instantiation for or whose shared memory differs from
+    the kernel's layout, instead of launching a mismatched grid."""
+    import repro_torch.kernels.micro_attn_decode as dec
+    import repro_torch.kernels.micro_attn_prefill as pre
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    rng = np.random.default_rng(8)
+    table, tail = _prefix_tables(rng, [120, 30], 128, 16)
+    pk, pv = _pools(gen, 152, 16, 8, 128, torch.bfloat16, cuda_device)
+    q = torch.randn((2, 16, 128), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    tb = torch.from_numpy(table).to(cuda_device)
+    tl = torch.from_numpy(tail).to(cuda_device)
+    plan_p, plan_d = pre.prefill_plan, dec.decode_plan
+    for bad in ({"smem_bytes": 16}, {"rows_per_block": 96}):
+        monkeypatch.setattr(pre, "prefill_plan",
+                            lambda *a, bad=bad: {**plan_p(*a), **bad})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            paged_prefill_attention_cuda(q, pk, pv, tb[0], tl[0],
+                                         scale=0.1)
+    monkeypatch.setattr(dec, "decode_plan",
+                        lambda *a: {**plan_d(*a), "heads_per_block": 3})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=0.1)
+    monkeypatch.undo()
+    _close_partials(paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=0.1),
+                    paged_micro_attention_plain(q, pk, pv, tb, tl,
+                                                scale=0.1))

@@ -16,6 +16,8 @@ The kernels themselves need the card: ``tests/test_torch_cuda.py``
 (no JAX, so it also runs on a machine without it) holds them against
 these plain twins there.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,14 +28,18 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.ops import flash_prefill as jax_flash_prefill
 from repro.kernels.ops import paged_micro_attention as jax_paged_decode
 from repro.kernels.ops import paged_prefill_attention as jax_paged_prefill
-from repro_torch.core.online_softmax import combine, finalize
+from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
+from repro_torch.core.online_softmax import (_masked_softmax_parts, combine,
+                                             finalize)
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
                                                flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
-    paged_micro_attention_cuda, paged_micro_attention_plain)
+    MAX_SPLITS, MIN_SPLIT_TOKENS, decode_plan, paged_micro_attention_cuda,
+    paged_micro_attention_plain, plan_splits)
 from repro_torch.kernels.micro_attn_prefill import (
-    paged_prefill_attention_cuda, paged_prefill_attention_plain)
+    paged_prefill_attention_cuda, paged_prefill_attention_plain,
+    prefill_plan)
 
 F32_TOL = 1e-4
 JAX_REF_BF16_TOL = 5e-2
@@ -223,6 +229,224 @@ def test_build_is_keyed_on_the_sources():
     assert build.build_dir().name == h and len(h) == 16
     assert {p.name for p in build.CSRC.glob("*.cu")} == \
         {f"{n}.cu" for n in build.KERNELS}
+
+
+# ------------------------------------------------------------------ #
+# Split-KV plans and the bf16 prefill precision contract (the design of
+# the CUDA kernels, checked before any run on the card)
+# ------------------------------------------------------------------ #
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("kind,args", [
+    # decode main shape: R=8 over ~4,090 tokens, qwen3 heads
+    ("decode", (8, 16, 8, 259, 16)),
+    # decode at the serving phase's batch: R=4 (long and local tables), 3
+    ("decode", (4, 16, 8, 259, 16)),
+    ("decode", (4, 16, 8, 64, 16)),
+    ("decode", (3, 16, 8, 64, 16)),
+    ("decode", (1, 16, 1, 256, 8)),         # MQA, G = 16, bs 8
+    ("decode", (2, 8, 8, 5, 64)),           # MHA, bs 64, short
+    ("decode", (8, 16, 8, 1, 16)),          # one slot
+    # prefill chunk: main shape, a short chunk, D 256, float32
+    ("prefill", (512, 16, 8, 128, 191, 16, torch.bfloat16)),
+    ("prefill", (37, 16, 8, 128, 191, 16, torch.bfloat16)),
+    ("prefill", (33, 8, 2, 256, 23, 64, torch.bfloat16)),
+    ("prefill", (512, 16, 8, 128, 191, 16, torch.float32)),
+    # D % 16 == 8 (the padded reduction), the 64-wide build
+    ("prefill", (50, 4, 2, 120, 133, 8, torch.bfloat16)),
+    ("prefill", (40, 8, 2, 40, 73, 24, torch.bfloat16)),
+])
+def test_kernel_plans_cover_every_slot_once(kind, args):
+    """A kernel's plan: split s reads the whole slots [s*spb, min((s+1)*
+    spb, MB)); the runs tile [0, MB) exactly once, none empty, and the
+    grid holds every work item once per split."""
+    if kind == "decode":
+        plan = decode_plan(*args, H100_SMS)
+        MB, bs = args[3], args[4]
+    else:
+        plan = prefill_plan(*args, H100_SMS)
+        MB, bs = args[4], args[5]
+    nsplit, spb = plan["nsplit"], plan["slots_per_split"]
+    assert plan["grid"][2] == nsplit
+    assert plan["grid"][0] * plan["grid"][1] == plan["items"]
+    runs = [range(s * spb, min((s + 1) * spb, MB)) for s in range(nsplit)]
+    assert all(len(r) for r in runs)
+    assert [j for r in runs for j in r] == list(range(MB))
+    assert nsplit == 1 or MB * bs >= nsplit * MIN_SPLIT_TOKENS
+
+
+@pytest.mark.parametrize("items,MB,bs,sms,per_sm", [
+    (64, 259, 16, 132, 4), (32, 64, 16, 132, 4), (24, 64, 16, 132, 4),
+    (128, 191, 16, 132, 2), (16, 191, 16, 132, 2), (4, 23, 64, 132, 1),
+    (64, 1, 16, 132, 4), (1, 1000, 8, 132, 4), (1, 4096, 16, 132, 3),
+    (3, 17, 16, 7, 3),
+    (64, 0, 16, 132, 4),
+])
+def test_plan_splits_tiles_the_table_in_whole_slots(items, MB, bs, sms,
+                                                    per_sm):
+    nsplit, spb = plan_splits(items, MB, bs, sms, per_sm)
+    covered = []
+    for s in range(nsplit):
+        run = list(range(s * spb, min((s + 1) * spb, MB)))
+        assert run or MB == 0               # no empty split
+        covered += run
+    assert covered == list(range(MB))       # every slot once, in order
+    if nsplit > 1:          # ~256 tokens a split, no more blocks than fit
+        assert MB * bs >= nsplit * MIN_SPLIT_TOKENS
+        assert nsplit * items <= per_sm * sms and nsplit <= MAX_SPLITS
+
+
+def test_split_plans_fill_the_card_at_the_main_shapes():
+    """The grids the kernels' headers state: decode 64 work items x 6
+    splits (one wave of ~3 blocks per SM); prefill 64 items of 128 rows x
+    4 splits, one wave of 2 per SM (D = 256: 64-row blocks, 1 per SM)."""
+    dec = decode_plan(8, 16, 8, 259, 16, H100_SMS)
+    assert dec["grid"] == (8, 8, 6) and dec["heads_per_block"] == 2
+    assert 2 * H100_SMS <= 64 * dec["nsplit"] <= 3 * H100_SMS
+    assert decode_plan(4, 16, 8, 259, 16, H100_SMS)["grid"] == (8, 4, 12)
+    assert decode_plan(4, 16, 8, 64, 16, H100_SMS)["grid"] == (8, 4, 4)
+    pre = prefill_plan(512, 16, 8, 128, 191, 16, torch.bfloat16, H100_SMS)
+    assert pre["grid"] == (8, 8, 4)
+    assert pre["rows_per_block"] == 128 and pre["blocks_per_sm"] == 2
+    assert 64 * 4 <= 2 * H100_SMS and pre["smem_bytes"] == 105_432
+    wide = prefill_plan(33, 8, 2, 256, 23, 64, torch.bfloat16, H100_SMS)
+    assert wide["rows_per_block"] == 64 and wide["blocks_per_sm"] == 1
+    assert prefill_plan(512, 16, 8, 128, 191, 16, torch.float32,
+                        H100_SMS)["nsplit"] == 1
+
+
+def _split_view(table, tail, bs, s0, s1):
+    """The table slots [s0, s1) as a table of their own: the request's
+    tail applies only in the split that holds its last valid slot."""
+    last = (table >= 0).sum(dim=-1) - 1
+    sub_tail = torch.where((last >= s0) & (last < s1), tail,
+                           torch.full_like(tail, bs))
+    return table[..., s0:s1].contiguous(), sub_tail
+
+
+def _merged_over_splits(fn, q, pk, pv, table, tail, bs, nsplit, spb):
+    MB = table.shape[-1]
+    part = None
+    for s in range(nsplit):
+        tb, tl = _split_view(table, tail, bs, s * spb,
+                             min((s + 1) * spb, MB))
+        p = fn(q, pk, pv, tb, tl, scale=q.shape[-1] ** -0.5)
+        part = p if part is None else combine(part, p)
+    return part
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_partials_merge_to_the_unsplit_twin(dtype):
+    """The decode kernel's split: the plain twin over each split's slots,
+    LSE-merged with ``combine``, == the unsplit plain twin (an empty
+    table, one shorter than a split, a tail in the last split)."""
+    rng = np.random.default_rng(11)
+    R, K, G, D, bs, MB = 3, 2, 2, 16, 16, 64
+    nblks = [0, 3, MB]
+    _, q = _arrays(rng, (R, K * G, D), dtype)
+    _, pk = _arrays(rng, (sum(nblks) + 2, bs, K, D), dtype)
+    _, pv = _arrays(rng, (sum(nblks) + 2, bs, K, D), dtype)
+    perm = rng.permutation(sum(nblks) + 2)
+    table = -np.ones((R, MB), np.int32)
+    used = 0
+    for r, n in enumerate(nblks):
+        table[r, :n] = perm[used:used + n]
+        used += n
+    table = torch.from_numpy(table)
+    tail = torch.tensor([bs, 5, 7], dtype=torch.int32)
+    plan = decode_plan(R, K * G, K, MB, bs, H100_SMS)
+    assert plan["nsplit"] == 4
+    got = _merged_over_splits(paged_micro_attention_plain, q, pk, pv, table,
+                              tail, bs, plan["nsplit"],
+                              plan["slots_per_split"])
+    want = paged_micro_attention_plain(q, pk, pv, table, tail,
+                                       scale=D ** -0.5)
+    _close(got, want, F32_TOL)
+    assert bool(torch.isneginf(got[1][0]).all())
+
+
+@pytest.mark.parametrize("nblk", [50, 7])
+def test_prefill_split_partials_merge_to_the_unsplit_twin(nblk):
+    """The bf16 prefill kernel's split of the prefix, the same way."""
+    rng = np.random.default_rng(nblk)
+    C, K, G, D, bs, MB = 5, 2, 2, 16, 16, 64
+    _, q = _arrays(rng, (C, K * G, D), "bfloat16")
+    _, pk = _arrays(rng, (nblk + 2, bs, K, D), "bfloat16")
+    _, pv = _arrays(rng, (nblk + 2, bs, K, D), "bfloat16")
+    table = -np.ones((MB,), np.int32)
+    table[:nblk] = rng.permutation(nblk + 2)[:nblk]
+    table = torch.from_numpy(table)
+    tail = torch.tensor(9, dtype=torch.int32)
+    plan = prefill_plan(C, K * G, K, D, MB, bs, torch.bfloat16, H100_SMS)
+    assert plan["nsplit"] == 4
+    got = _merged_over_splits(paged_prefill_attention_plain, q, pk, pv,
+                              table, tail, bs, plan["nsplit"],
+                              plan["slots_per_split"])
+    want = paged_prefill_attention_plain(q, pk, pv, table, tail,
+                                         scale=D ** -0.5)
+    _close(got, want, F32_TOL)
+
+
+def _prefill_emulation(q, pk, pv, table, tail, *, scale, split_p):
+    """The bf16 prefill kernel's arithmetic in plain PyTorch: bf16 q and K
+    (products exact in float32), float32 softmax and l, and P V from the
+    probabilities as bf16 ``hi`` + ``lo`` (``split_p``) or as one bf16
+    rounding of p."""
+    C, H, D = q.shape
+    K = pk.shape[2]
+    k, v = gather_local_kv(pk, pv, table[None])
+    mask = local_mask_from_table(table[None], pk.shape[1],
+                                 tail.reshape(1))[0]
+    s = torch.einsum("ckgd,skd->ckgs", q.float().reshape(C, K, H // K, D),
+                     k[0].float()) * scale
+    m, p, l = _masked_softmax_parts(s, mask[None, None, None, :])
+    hi = p.to(torch.bfloat16).float()
+    o = torch.einsum("ckgs,skd->ckgd", hi, v[0].float())
+    if split_p:
+        lo = (p - hi).to(torch.bfloat16).float()
+        o = o + torch.einsum("ckgs,skd->ckgd", lo, v[0].float())
+    return o.reshape(C, H, D), m.reshape(C, H), l.reshape(C, H)
+
+
+@functools.lru_cache(maxsize=1)
+def _main_prefill_case():
+    """The qwen3 path's main prefill shape in bf16: a 512-token chunk,
+    H=16, K=8, D=128, over a ~3,000-token prefix (bs 16)."""
+    rng = np.random.default_rng(13)
+    C, H, K, D, bs, nblk = 512, 16, 8, 128, 16, 188
+    _, q = _arrays(rng, (C, H, D), "bfloat16")
+    _, pk = _arrays(rng, (nblk + 4, bs, K, D), "bfloat16")
+    _, pv = _arrays(rng, (nblk + 4, bs, K, D), "bfloat16")
+    table = -np.ones((nblk + 3,), np.int32)
+    table[:nblk] = rng.permutation(nblk + 4)[:nblk]
+    args = (q, pk, pv, torch.from_numpy(table),
+            torch.tensor(11, dtype=torch.int32))
+    want = paged_prefill_attention_plain(*args, scale=D ** -0.5)
+    return args, want
+
+
+def _finalized_error(got, want):
+    return (finalize(got[0], got[2]) - finalize(want[0], want[2])) \
+        .abs().max().item()
+
+
+def test_prefill_hi_lo_contract_meets_tol_at_the_main_shape():
+    """p as bf16 hi + lo, l from the float32 p: within 1e-4 of the
+    float32 plain twin (finalized output, m, l)."""
+    args, want = _main_prefill_case()
+    got = _prefill_emulation(*args, scale=128 ** -0.5, split_p=True)
+    assert _finalized_error(got, want) <= F32_TOL
+    torch.testing.assert_close(got[1], want[1], atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=F32_TOL)
+
+
+def test_prefill_single_bf16_rounding_of_p_exceeds_tol():
+    """Why the split exists: p rounded once to bf16 before P V misses
+    1e-4 at the main shape."""
+    args, want = _main_prefill_case()
+    got = _prefill_emulation(*args, scale=128 ** -0.5, split_p=False)
+    assert _finalized_error(got, want) > F32_TOL
 
 
 # ------------------------------------------------------------------ #
