@@ -15,19 +15,22 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    kernel at the recurrentgemma-9b admission shape (S=6000, H=16, K=1,
    D=256, window 2048), at qwen3-0.6b's dense-prefill shape (S=4000,
    H=16, K=8, D=128, causal) and on edge cases (ragged S, S < window,
-   B=2, MHA with D=112 and H=3, a window of one token); the split-KV and
+   B=2 with and without a window, MHA with D=112 and H=3, windows of one
+   and of 100 tokens, S of 1 and 13, D 40 and 120, G 16 at D 128 and
+   256); the split-KV and
    tensor-core edges of the paged kernels (long and empty tables, splits
    past a short request, bs 8, 24 and 64, G 1, 2 and 16, D 40, 64, 72,
    112, 120 and 256, D % 16 == 8 among them), and a timed decode row at
    the serving phase's batch and table width (R=4, 64 slots). Prints the
-   split and grid each paged kernel plans at its main shape. Times the
-   kernel, the plain version and ``scaled_dot_product_attention`` over
-   the same inputs (a yardstick the port never calls) eagerly with CUDA
-   events, as every earlier report did (``ms``, ``library_ms``), and the
-   paged kernels and their yardstick also as CUDA-graph replays, without
+   plan (split, grid, rows a block, shared memory) of each kernel at its
+   main shapes. Times the kernel, the plain version and
+   ``scaled_dot_product_attention`` over the same inputs (a yardstick the
+   port never calls) eagerly with CUDA events, as every earlier report
+   did (``ms``, ``library_ms``), and also as CUDA-graph replays, without
    the host's per-call work (``graph_ms``, ``library_graph_ms``), next to
    the least time the card could take for the same bytes and FLOPs
-   (data-sheet peaks).
+   (data-sheet peaks); for flash prefill it also names the CUDA kernels
+   that serve the yardstick call (which ``sdpa`` backend).
 2. Serving, qwen3-0.6b. ``LLMServer`` serves it at full width (28
    layers, bf16, seeded random weights) with three instances on the
    card; the longest prompt stripes its prefix across two creditors at
@@ -47,7 +50,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    launch exactly once per attention layer per admission, and no plain
    version may run. A traced window of a warm hybrid server (a late
    6,000-token admission and a few decode steps) reports the device's
-   busy share and the kernels with the most device time.
+   busy share and the kernels with the most device time. Each traced
+   window also reports the device time of the port's own kernels.
 4. Parity, float32. qwen3-0.6b: a creditor-spanning request served
    through ``LLMServer``; recurrentgemma-9b at full width and 5 layers
    (one (rglru, rglru, attn) group plus two leftover RG-LRU layers): a
@@ -95,6 +99,9 @@ FLASH_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 0.0}
 PARITY_RTOL = 1e-3  # served vs oracle logits, float32, |diff| / max|logit|
 WARM_REPEATS = 3    # untraced repeats of the serving workload
 TRACE_STEPS = 6     # server steps in the traced window
+# Names of the port's CUDA kernels (csrc/), as a traced window lists them.
+PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_prefill",
+                       "flash_prefill")
 
 
 def card_line() -> str:
@@ -148,6 +155,21 @@ def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (iters * replays)
+
+
+def cuda_kernel_names(fn) -> list:
+    """The CUDA kernels one ``fn`` call runs, longest first (from
+    ``torch.profiler``): which backend serves a library call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return [e.key[:120] for e in events]
 
 
 # --------------------------------------------------------------------- #
@@ -319,7 +341,8 @@ def live_pairs(S: int, window: int) -> int:
 def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
     """The flash-prefill wrapper the model calls (``ops``, default
     scale) on CUDA tensors against the kernel's plain version."""
-    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.kernels.flash_prefill import (flash_plan,
+                                                  flash_prefill_plain)
     from repro_torch.kernels.ops import flash_prefill
     gen = torch.Generator(device=device).manual_seed(zlib.crc32(
         name.encode()))
@@ -349,8 +372,12 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         row["live_pairs"] = pairs
+        row["plan"] = flash_plan(B, S, H, K, D, dtype)
         row["ms"] = time_ms(lambda: flash_prefill(q, k, v, window=window),
                             iters=10)
+        row["graph_ms"] = device_ms(lambda: flash_prefill(q, k, v,
+                                                          window=window),
+                                    iters=10)
         row["plain_ms"] = time_ms(lambda: flash_prefill_plain(
             q, k, v, scale=scale, window=window), iters=3, warmup=1)
         qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -359,19 +386,24 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
             pos = torch.arange(S, device=device)
             mask = (pos[None, :] <= pos[:, None]) & \
                 (pos[None, :] > pos[:, None] - window)
-            row["library_ms"] = time_ms(lambda: sdpa(
-                qq, kk, vv, attn_mask=mask, enable_gqa=True), iters=10)
+
+            def library():
+                return sdpa(qq, kk, vv, attn_mask=mask, enable_gqa=True)
         else:
-            row["library_ms"] = time_ms(lambda: sdpa(
-                qq, kk, vv, is_causal=True, enable_gqa=True), iters=10)
+            def library():
+                return sdpa(qq, kk, vv, is_causal=True, enable_gqa=True)
+        row["library_ms"] = time_ms(library, iters=10)
+        row["library_graph_ms"] = device_ms(library, iters=10)
+        row["library_kernels"] = cuda_kernel_names(library)
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
 
 
 def kernel_plans(chunk: int):
-    """The split and grid each redesigned kernel launches at its main
-    shape on this card (from shapes and the SM count alone)."""
+    """The launch each kernel plans at its main shapes on this card (from
+    shapes and the SM count alone)."""
+    from repro_torch.kernels.flash_prefill import flash_plan
     from repro_torch.kernels.micro_attn_decode import (decode_plan,
                                                        device_sm_count)
     from repro_torch.kernels.micro_attn_prefill import prefill_plan
@@ -382,6 +414,8 @@ def kernel_plans(chunk: int):
         out[f"decode-serving-R4-{dt}"] = decode_plan(4, 16, 8, 64, 16, sms)
         out[f"prefill-main-{dt}"] = prefill_plan(chunk, 16, 8, 128, 191,
                                                  16, dt, sms)
+        out[f"flash-main-{dt}"] = flash_plan(1, 6000, 16, 1, 256, dt)
+        out[f"flash-qwen3-{dt}"] = flash_plan(1, 4000, 16, 8, 128, dt)
     return out
 
 
@@ -470,12 +504,23 @@ def kernel_phase(device, chunk: int):
         main.setdefault("flash", r)
         rows.append(flash_case(f"flash-qwen3-{dt}", 1, 4000, 16, 8, 128, 0,
                                dt, device, timed=True))
-        # Edge cases.
+        # Edge cases; then prompts shorter than one m16 tile, D % 16 == 8
+        # (the reduction zero-padded to 16), G 16 at both wide builds, a
+        # window that is not a multiple of the 64-token tile, and B 2 with
+        # a window.
         for args in (("ragged-S", 1, 1037, 16, 1, 256, 256),
                      ("S-below-window", 1, 500, 16, 1, 256, 2048),
                      ("B2-gqa-causal", 2, 300, 8, 2, 128, 0),
                      ("mha-d112-h3", 1, 200, 3, 3, 112, 64),
-                     ("window-1", 1, 130, 4, 1, 64, 1)):
+                     ("window-1", 1, 130, 4, 1, 64, 1),
+                     ("S1", 1, 1, 16, 1, 256, 2048),
+                     ("S13", 1, 13, 16, 8, 128, 0),
+                     ("d40", 1, 300, 8, 2, 40, 0),
+                     ("d120-window", 1, 300, 8, 2, 120, 100),
+                     ("g16-d128", 1, 700, 16, 1, 128, 0),
+                     ("g16-d256-window", 1, 700, 32, 2, 256, 300),
+                     ("window-100-S1037", 1, 1037, 16, 1, 256, 100),
+                     ("B2-window", 2, 777, 16, 1, 256, 200)):
             rows.append(flash_case(f"flash-{args[0]}-{dt}", *args[1:], dt,
                                    device))
     return rows, main
@@ -657,11 +702,15 @@ def trace_phase(params, cfg, device, config, prompt_lens, n_new, late_len,
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     events.sort(key=lambda e: -e.self_device_time_total)
+    port_ms = {sym: sum(e.self_device_time_total for e in events
+                        if sym in e.key) / 1e3
+               for sym in PORT_KERNEL_SYMBOLS}
     return {"steps": TRACE_STEPS, "late_prompt_len": len(extra),
             "late_tokens": int(late.metrics["n_tokens"]),
             "launches": launches, "wall_s": wall,
             "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / 1e3 / wall,
+            "port_kernel_ms": port_ms,
             "top_kernels": [{"name": e.key[:90],
                              "ms": e.self_device_time_total / 1e3,
                              "calls": e.count} for e in events[:top]]}
@@ -887,6 +936,8 @@ def main(argv=None) -> int:
                         ("ms", "graph_ms", "plain_ms", "library_ms",
                          "library_graph_ms", "bound_ms")
                         if k in r)
+        if "library_kernels" in r:
+            extra += f" library_kernels={r['library_kernels'][:3]}"
         print(f"kernel {r['case']}: max_abs_err={r['max_abs_err']:.3g} "
               f"tol={r['tol']}{extra}", flush=True)
 

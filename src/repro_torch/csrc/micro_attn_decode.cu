@@ -60,11 +60,11 @@ namespace {
 using paged_attn::cp_async16;
 using paged_attn::cp_async_commit;
 using paged_attn::cp_async_wait;
+using paged_attn::LOG2E;
 using paged_attn::smem_addr;
 
 constexpr int WARPS = 4;  // warps per thread block
 constexpr int STAGES = 2;  // cp.async ring depth of K/V tiles
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Tokens a K/V tile, by row size: 64 rows of up to 256 bytes, 32 of up
 // to 512, 16 of up to 1 KB (a stage of K and V stays near 34 KB).

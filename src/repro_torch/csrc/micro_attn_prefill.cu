@@ -45,7 +45,10 @@
 //   the online softmax runs on the S accumulator fragment in float32
 //   (exp2 of one fma; the accumulators are rescaled only when a row's max
 //   moved), and the probabilities become the A operand of P V in
-//   registers (no trip through shared memory); V by ldmatrix.trans.
+//   registers (no trip through shared memory); V by ldmatrix.trans. This
+//   tile step is paged_attn.cuh's (qk_tile, softmax_tile, pv_tile), shared
+//   with the flash-prefill kernel; this kernel adds the paged loads and
+//   the mask of invalid tokens.
 // - Why mma.sync and not wgmma: the FlashAttention-2 layout passes P from
 //   the S accumulator to the next product inside each warp's registers,
 //   which mma.sync does with warp-sized tiles and no warpgroup
@@ -59,10 +62,10 @@
 // and accumulates in float32; the kernel is held to 1e-4 against that
 // float32 plain twin. (1) Q K^T: bf16 x bf16 products are exact in fp32;
 // only the order of the fp32 sums differs. (2) P V: p is float32;
-// rounding it to bf16 once (2^-9 relative per term) would exceed 1e-4 at
+// rounding it to bf16 once (2^-8 relative per term) would exceed 1e-4 at
 // the main shape, so p is split into hi = bf16(p) and lo = bf16(p - hi),
-// and two MMAs against the same bf16 V tile give ~2^-17 relative per
-// term (1.5x the useful tensor-core work). (3) l is summed in float32
+// and two MMAs against the same bf16 V tile give at most 2^-16 relative
+// per term (1.5x the useful tensor-core work). (3) l is summed in float32
 // from the float32 p, never from hi + lo. (4) m, the rescaling and the
 // split merge are float32 on the CUDA cores.
 //
@@ -75,6 +78,7 @@ namespace {
 using paged_attn::cp_async16;
 using paged_attn::cp_async_commit;
 using paged_attn::cp_async_wait;
+using paged_attn::row_stride;
 using paged_attn::smem_addr;
 
 // ---------------------------------------------------------------------
@@ -314,16 +318,9 @@ __global__ void __launch_bounds__(THREADS)
 // bf16 pools: tensor cores.
 // ---------------------------------------------------------------------
 constexpr int MW = 4;            // warps a block
-constexpr int BN = 64;           // KV tokens a tile
+constexpr int BN = paged_attn::MMA_TOKENS;  // KV tokens a tile
 constexpr int STAGES = 2;        // cp.async ring depth of K/V tiles
 constexpr int ROW_RING = 3;      // tiles whose pool rows are resolved
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Shared-memory row stride (elements) for head dim D: D rounded up to 16,
-// plus 8 so that ldmatrix's 8 row addresses fall in distinct banks.
-__host__ __device__ inline int row_stride(int D) {
-  return ((D + 15) / 16) * 16 + 8;
-}
 
 // q (BM rows) and the K/V ring (bf16), the resolved pool rows of
 // ROW_RING tiles, their "every token valid" flags, and the split's slice
@@ -331,51 +328,6 @@ __host__ __device__ inline int row_stride(int D) {
 inline size_t mma_smem_bytes(int D, int BM, int slots) {
   return static_cast<size_t>(BM + 2 * STAGES * BN) * row_stride(D) * 2 +
          sizeof(int) * (ROW_RING * BN + 2 * ROW_RING + slots);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo_elem,
-                                              __nv_bfloat16 hi_elem) {
-  __nv_bfloat162 v;
-  v.x = lo_elem;
-  v.y = hi_elem;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The hi and lo bf16 halves of two float32 probabilities, packed for the
-// A operand (first value in the low 16 bits).
-__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat16 ha = __float2bfloat16_rn(a);
-  const __nv_bfloat16 hb = __float2bfloat16_rn(b);
-  hi = pack_bf16(ha, hb);
-  lo = pack_bf16(__float2bfloat16_rn(a - __bfloat162float(ha)),
-                 __float2bfloat16_rn(b - __bfloat162float(hb)));
 }
 
 // DMAX: the largest head dim of the instantiation (64, 128 or 256); the
@@ -511,13 +463,10 @@ __global__ void __launch_bounds__(MW * 32)
     m_r[mt][0] = m_r[mt][1] = -CUDART_INF_F;
     l_r[mt][0] = l_r[mt][1] = 0.f;
   }
-  const float c = scale * LOG2E;  // p = 2^((s - m) * c)
+  const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
 
   const int wrow = warp * 16 * MT;
-  // ldmatrix lane addresses (element offsets within a tile).
-  const int a_off = (wrow + (lane & 15)) * DS + (lane >> 4) * 8;
-  const int k_off = ((lane & 7) + (lane >> 4) * 8) * DS + ((lane >> 3) & 1) * 8;
-  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * DS + (lane >> 4) * 8;
+  const paged_attn::MmaLanes ln = paged_attn::mma_lanes(lane, wrow, DS);
   const uint32_t q_base = smem_addr(q_s);
 
   for (int it = 0; it < ntiles; ++it) {
@@ -537,38 +486,10 @@ __global__ void __launch_bounds__(MW * 32)
     const bool full = full_s[(it % ROW_RING) * 2] &&
                       full_s[(it % ROW_RING) * 2 + 1];
 
-    // S = Q K^T: MT x 16 rows x 64 tokens per warp, 8 n8 tiles each.
     float sacc[MT][8][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sacc[mt][j][0] = sacc[mt][j][1] = sacc[mt][j][2] = sacc[mt][j][3] =
-            0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      if (kc * 16 < D) {
-        uint32_t a[MT][4], b[4][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          ldmatrix_x4(a[mt], q_base + 2 * (a_off + mt * 16 * DS + kc * 16));
-#pragma unroll
-        for (int np = 0; np < 4; ++np)
-          ldmatrix_x4(b[np], k_base + 2 * (k_off + np * 16 * DS + kc * 16));
-#pragma unroll
-        for (int np = 0; np < 4; ++np)
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(sacc[mt][2 * np], a[mt], b[np][0], b[np][1]);
-            mma_bf16(sacc[mt][2 * np + 1], a[mt], b[np][2], b[np][3]);
-          }
-      }
-    }
-
-    // Online softmax on the fragment: per m16 tile a thread holds rows
-    // lane/4 (c0, c1) and lane/4 + 8 (c2, c3), tokens j * 8 + (lane % 4)
-    // * 2 + {0, 1}. Tokens past the valid ones score -inf (only a tile
-    // with such tokens reads the row flags), and 2^-inf = 0.
+    paged_attn::qk_tile<MT, KC>(sacc, q_base, k_base, ln, DS, D);
+    // Tokens past the valid ones score -inf (only a tile with such tokens
+    // reads the row flags).
     if (!full) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -581,99 +502,8 @@ __global__ void __launch_bounds__(MW * 32)
         }
       }
     }
-    bool rescale = false;
-    float alpha[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(sacc[mt][j][0], sacc[mt][j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(sacc[mt][j][2], sacc[mt][j][3]));
-      }
-      float mc[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m_r[mt][h], mx[h]);
-        alpha[mt][h] = m_r[mt][h] == m_new ? 1.f
-                       : m_r[mt][h] == -CUDART_INF_F
-                           ? 0.f
-                           : exp2f((m_r[mt][h] - m_new) * c);
-        rescale |= alpha[mt][h] != 1.f;
-        m_r[mt][h] = m_new;
-        mc[h] = m_new == -CUDART_INF_F ? 0.f : m_new * c;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(fmaf(sacc[mt][j][e], c, -mc[e >> 1]));
-          sacc[mt][j][e] = p;
-          psum[e >> 1] += p;
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        l_r[mt][h] = l_r[mt][h] * alpha[mt][h] + psum[h];
-    }
-    // Rescale the accumulators only where a row's max moved (after the
-    // first tiles it rarely does).
-    if (__any_sync(0xffffffffu, rescale)) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          oacc[mt][j][0] *= alpha[mt][0];
-          oacc[mt][j][1] *= alpha[mt][0];
-          oacc[mt][j][2] *= alpha[mt][1];
-          oacc[mt][j][3] *= alpha[mt][1];
-        }
-    }
-
-    // O += P V with P = hi + lo, both bf16, from the S fragment; V
-    // fragments two column pairs at a time, each feeding MT x 4 products.
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t ph[MT][4], pl[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        split_pair(sacc[mt][2 * kc][0], sacc[mt][2 * kc][1], ph[mt][0],
-                   pl[mt][0]);
-        split_pair(sacc[mt][2 * kc][2], sacc[mt][2 * kc][3], ph[mt][1],
-                   pl[mt][1]);
-        split_pair(sacc[mt][2 * kc + 1][0], sacc[mt][2 * kc + 1][1],
-                   ph[mt][2], pl[mt][2]);
-        split_pair(sacc[mt][2 * kc + 1][2], sacc[mt][2 * kc + 1][3],
-                   ph[mt][3], pl[mt][3]);
-      }
-#pragma unroll
-      for (int n0 = 0; n0 < NT / 2; n0 += 2) {
-        uint32_t b[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if ((n0 + i) * 16 < D)
-            ldmatrix_x4_trans(b[i], v_base + 2 * (v_off + kc * 16 * DS +
-                                                  (n0 + i) * 16));
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          if ((n0 + i) * 16 < D) {
-            const int n = 2 * (n0 + i);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma_bf16(oacc[mt][n], ph[mt], b[i][0], b[i][1]);
-              mma_bf16(oacc[mt][n + 1], ph[mt], b[i][2], b[i][3]);
-            }
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma_bf16(oacc[mt][n], pl[mt], b[i][0], b[i][1]);
-              mma_bf16(oacc[mt][n + 1], pl[mt], b[i][2], b[i][3]);
-            }
-          }
-        }
-      }
-    }
+    paged_attn::softmax_tile<MT, NT>(sacc, oacc, m_r, l_r, c);
+    paged_attn::pv_tile<MT, NT>(oacc, sacc, v_base, ln, DS, D);
     __syncthreads();  // every warp is done with slot st before its reload
   }
   cp_async_wait<0>();

@@ -17,8 +17,8 @@ Precision contract of the bf16 kernel, held to 1e-4 against the float32
 plain twin: q K^T is exact per product (bf16 x bf16 in fp32), only the
 order of the fp32 sums differs; each float32 probability p enters P V as
 two bf16 halves, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, against the
-same bf16 V (about 2^-17 relative per term, where one rounding of p,
-2^-9, would exceed 1e-4 over a few thousand keys); ``l`` is summed from
+same bf16 V (at most 2^-16 relative per term, where one rounding of p,
+2^-8, would exceed 1e-4 over a few thousand keys); ``l`` is summed from
 the float32 p; m, the rescaling and the split merge stay float32.
 
 ``paged_prefill_attention_plain`` is the same function in plain PyTorch,

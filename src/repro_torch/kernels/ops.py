@@ -20,7 +20,11 @@ bf16 pools runs on the tensor cores: q K^T products of bf16 values are
 exact in float32, each float32 probability p enters P V as two bf16
 halves ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p
 would exceed 1e-4 over a few thousand keys), and ``l`` is summed from
-the float32 p; with float32 pools it stays on the CUDA cores.
+the float32 p; with float32 pools it stays on the CUDA cores. Flash
+prefill with bf16 inputs runs on the tensor cores under the same
+contract and returns what its float32 plain twin returns within 1e-4
+plus one bf16 ulp of the output (both are rounded to bf16); with float32
+inputs it stays on the CUDA cores, within 1e-4.
 
 Each kernel carries a plain integer launch counter, ``launches`` on its
 launcher (``*_cuda``), incremented right after a successful launch and

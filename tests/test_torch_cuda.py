@@ -10,9 +10,9 @@ Tolerance 1e-4: kernel and twin compute in float32 from the same inputs
 and differ in summation order (split-KV decode and prefill also in merge
 order); the bf16 prefill-chunk kernel runs on tensor cores, where q K^T
 products of bf16 values are exact and each probability enters P V as
-bf16 hi + lo, which keeps it within the same 1e-4. A bf16 flash-prefill
-output is rounded from float32 on both sides, so it may differ by one
-bf16 ulp.
+bf16 hi + lo, which keeps it within the same 1e-4. The bf16 flash-prefill
+kernel runs on tensor cores under the same contract; its output is
+rounded from float32 on both sides, so it may differ by one bf16 ulp.
 """
 import numpy as np
 import pytest
@@ -97,6 +97,14 @@ def test_cuda_kernels_match_plain(dtype, K, G, D, bs, cuda_device):
     (1, 77, 3, 3, 112, 16),        # MHA, odd head count, D=112
     (1, 50, 4, 1, 64, 100),        # window larger than S
     (1, 130, 4, 2, 64, 1),         # window of one token
+    (1, 1, 16, 1, 256, 2048),      # S = 1: less than one m16 tile
+    (1, 13, 16, 8, 128, 0),        # S = 13
+    (1, 300, 8, 2, 40, 0),         # D = 40: reduction padded to 48
+    (1, 300, 8, 2, 120, 100),      # D = 120: padded to 128, windowed
+    (1, 700, 16, 1, 128, 0),       # G = 16 at D = 128
+    (1, 700, 32, 2, 256, 300),     # G = 16 at D = 256, windowed
+    (1, 1037, 16, 1, 256, 100),    # window not a multiple of the tile
+    (2, 777, 16, 1, 256, 200),     # B = 2 with a window
 ])
 def test_flash_prefill_kernel_matches_plain(dtype, B, S, H, K, D, window,
                                             cuda_device):
@@ -119,6 +127,33 @@ def test_flash_prefill_kernel_matches_plain(dtype, B, S, H, K, D, window,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=TOL,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_entry_refuses_plans_it_cannot_launch(cuda_device,
+                                                    monkeypatch):
+    """The flash C entry takes the wrapper's plan and refuses rows or a
+    shared-memory size unlike its instantiation's, in both dtypes, instead
+    of launching a mismatched block; the launch counter stays put."""
+    import repro_torch.kernels.flash_prefill as fp
+    plan = fp.flash_plan
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 70, 4, 64), device=cuda_device).to(dtype)
+        kv = torch.randn((1, 70, 2, 64), device=cuda_device).to(dtype)
+        for bad in ({"smem_bytes": 16}, {"rows_per_block": 96}):
+            monkeypatch.setattr(fp, "flash_plan",
+                                lambda *a, bad=bad: {**plan(*a), **bad})
+            before = flash_prefill_cuda.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                flash_prefill_cuda(q, kv, kv, scale=0.125)
+            assert flash_prefill_cuda.launches == before
+        monkeypatch.undo()
+        got = flash_prefill_cuda(q, kv, kv, scale=0.125)
+        want = flash_prefill_plain(q, kv, kv, scale=0.125)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=TOL,
+                                   rtol=TOL if dtype == torch.float32
+                                   else 2 ** -7)
 
 
 @pytest.mark.cuda

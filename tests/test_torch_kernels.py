@@ -12,6 +12,11 @@ rounds q and the probabilities to bf16, so it is held at the JAX tests'
 bf16 tolerance, 5e-2. Flash prefill keeps the JAX test's tolerances:
 2e-5 in float32, 3e-2 in bf16 (its output is rounded to bf16).
 
+The design of the CUDA kernels is checked here before any run on the
+card: the split plans and their merges, the flash-prefill plans, and the
+bf16 precision contracts of the prefill-chunk and flash-prefill kernels,
+emulated in plain PyTorch at their main shapes.
+
 The kernels themselves need the card: ``tests/test_torch_cuda.py``
 (no JAX, so it also runs on a machine without it) holds them against
 these plain twins there.
@@ -32,13 +37,15 @@ from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
 from repro_torch.core.online_softmax import (_masked_softmax_parts, combine,
                                              finalize)
 from repro_torch.kernels import build, ops
-from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
+from repro_torch.kernels.flash_prefill import (MAX_HEAD_DIM,
+                                               flash_plan,
+                                               flash_prefill_cuda,
                                                flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
     MAX_SPLITS, MIN_SPLIT_TOKENS, decode_plan, paged_micro_attention_cuda,
     paged_micro_attention_plain, plan_splits)
 from repro_torch.kernels.micro_attn_prefill import (
-    paged_prefill_attention_cuda, paged_prefill_attention_plain,
+    SMEM_PER_SM, paged_prefill_attention_cuda, paged_prefill_attention_plain,
     prefill_plan)
 
 F32_TOL = 1e-4
@@ -447,6 +454,138 @@ def test_prefill_single_bf16_rounding_of_p_exceeds_tol():
     args, want = _main_prefill_case()
     got = _prefill_emulation(*args, scale=128 ** -0.5, split_p=False)
     assert _finalized_error(got, want) > F32_TOL
+
+
+# The bf16 flash-prefill kernel's precision contract, held to the
+# tolerance of chip_smoke.py and tests/test_torch_cuda.py: one bf16 ulp of
+# the output (2^-7 relative) beyond 1e-4.
+FLASH_BF16_ATOL, FLASH_BF16_RTOL = 1e-4, 2 ** -7
+
+
+def _flash_emulation(q, k, v, *, scale, window, q0, p_mode):
+    """The bf16 flash kernel's arithmetic in plain PyTorch, for the query
+    rows q [T,H,D] at positions q0 .. q0 + T - 1 over k/v [N,K,D] at
+    positions 0 .. N - 1 (causal, optionally windowed): bf16 q and K
+    (products exact in float32), float32 softmax and l, P V from the
+    probabilities kept in float32 (``p_mode`` "f32": the plain twin's
+    arithmetic), as bf16 hi + lo ("hi_lo") or rounded once to bf16
+    ("single"); normalized in float32, rounded to q's dtype. The kernel
+    rounds p relative to a running max; the relative rounding error per
+    term is the same."""
+    T, H, D = q.shape
+    N, K, _ = k.shape
+    s = torch.einsum("tkgd,nkd->tkgn", q.float().reshape(T, K, H // K, D),
+                     k.float()) * scale
+    qp = torch.arange(q0, q0 + T)[:, None]
+    kp = torch.arange(N)[None, :]
+    ok = kp <= qp
+    if window:
+        ok = ok & (kp > qp - window)
+    s = s.masked_fill(~ok[:, None, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if p_mode == "f32":
+        parts = [p]
+    else:
+        hi = p.to(torch.bfloat16).float()
+        parts = [hi]
+        if p_mode == "hi_lo":
+            parts.append((p - hi).to(torch.bfloat16).float())
+    o = sum(torch.einsum("tkgn,nkd->tkgd", x, v.float()) for x in parts)
+    return (o / l).reshape(T, H, D).to(q.dtype)
+
+
+# The two flash-prefill main shapes, bf16: (a) the hybrid admission (S =
+# 6000, H = 16, K = 1, D = 256, window 2048), its last 64 query positions
+# against their 2,048-key window (translated to start at key 0); (b)
+# qwen3-0.6b's causal dense-prefill shape (S = 4000, H = 16, K = 8, D =
+# 128), its last 128-row query tile over every key.
+_FLASH_MAIN = {"a": dict(T=64, N=2111, H=16, K=1, D=256, window=2048),
+               "b": dict(T=128, N=4000, H=16, K=8, D=128, window=0)}
+
+
+@functools.lru_cache(maxsize=2)
+def _flash_main_case(name):
+    c = _FLASH_MAIN[name]
+    rng = np.random.default_rng(17)
+    _, q = _arrays(rng, (c["T"], c["H"], c["D"]), "bfloat16")
+    _, k = _arrays(rng, (c["N"], c["K"], c["D"]), "bfloat16")
+    _, v = _arrays(rng, (c["N"], c["K"], c["D"]), "bfloat16")
+    kw = dict(scale=c["D"] ** -0.5, window=c["window"], q0=c["N"] - c["T"])
+    want = _flash_emulation(q, k, v, p_mode="f32", **kw).float()
+    return (q, k, v), kw, want
+
+
+def _flash_misses(got, want):
+    """Elements outside the bf16 contract's tolerance."""
+    bad = (got.float() - want).abs() > FLASH_BF16_ATOL + \
+        FLASH_BF16_RTOL * want.abs()
+    return int(bad.sum())
+
+
+def test_flash_emulation_f32_mode_is_the_plain_twin():
+    """The emulation's float32 mode reproduces ``flash_prefill_plain``
+    (the reference of the two tests below) on the rows it computes."""
+    rng = np.random.default_rng(19)
+    S, H, K, D, window, T = 300, 8, 2, 64, 100, 64
+    _, q = _arrays(rng, (1, S, H, D), "bfloat16")
+    _, k = _arrays(rng, (1, S, K, D), "bfloat16")
+    _, v = _arrays(rng, (1, S, K, D), "bfloat16")
+    plain = flash_prefill_plain(q, k, v, scale=D ** -0.5, window=window)
+    got = _flash_emulation(q[0, -T:], k[0], v[0], scale=D ** -0.5,
+                           window=window, q0=S - T, p_mode="f32")
+    assert _flash_misses(got, plain[0, -T:].float()) == 0
+
+
+@pytest.mark.parametrize("shape", ["a", "b"])
+def test_flash_hi_lo_contract_meets_tol_at_the_main_shapes(shape):
+    """p as bf16 hi + lo, l from the float32 p: every output element
+    within 1e-4 + 2^-7 |plain| of the float32 plain arithmetic."""
+    args, kw, want = _flash_main_case(shape)
+    got = _flash_emulation(*args, p_mode="hi_lo", **kw)
+    assert _flash_misses(got, want) == 0
+
+
+@pytest.mark.parametrize("shape", ["a", "b"])
+def test_flash_single_bf16_rounding_of_p_misses_tol(shape):
+    """Why the kernel splits p: one bf16 rounding of p before P V puts
+    elements outside the tolerance at both main shapes."""
+    args, kw, want = _flash_main_case(shape)
+    got = _flash_emulation(*args, p_mode="single", **kw)
+    assert _flash_misses(got, want) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [40, 64, 112, 120, 128, 256])
+def test_flash_plans_fit_shared_memory_and_cover_the_head_dim(D, dtype):
+    """Every head dim the wrapper takes has an instantiation at least as
+    wide, whose block fits the H100's 232,448 B of shared memory; bf16
+    blocks own 128 rows, whose float32 output accumulator stays at 128
+    registers a thread; the grid covers every (query tile, head, row)."""
+    B, S, H, K = 2, 6000, 16, 1
+    plan = flash_plan(B, S, H, K, D, dtype)
+    assert D <= plan["dmax"] <= MAX_HEAD_DIM
+    assert plan["smem_bytes"] <= SMEM_PER_SM
+    assert plan["warps"] * plan["rows_per_warp"] == plan["rows_per_block"]
+    n_qt = -(-S // plan["rows_per_block"])
+    assert np.prod(plan["grid"]) == n_qt * H * B
+    if dtype == torch.bfloat16:
+        assert plan["rows_per_block"] == 128
+        assert plan["rows_per_warp"] * plan["dmax"] // 32 <= 128
+
+
+def test_flash_plans_at_the_main_shapes():
+    """(a) 8 warps of 16 rows, q and two 64-token K/V stages in 202,752 B
+    (one block an SM); (b) 4 warps of 32 rows in 104,448 B (two)."""
+    a = flash_plan(1, 6000, 16, 1, 256, torch.bfloat16)
+    assert (a["warps"], a["grid"], a["smem_bytes"]) == (8, (752, 1, 1),
+                                                       202_752)
+    b = flash_plan(1, 4000, 16, 8, 128, torch.bfloat16)
+    assert (b["warps"], b["grid"], b["smem_bytes"]) == (4, (512, 1, 1),
+                                                       104_448)
+    assert 2 * (b["smem_bytes"] + 1024) <= SMEM_PER_SM
+    f = flash_plan(1, 6000, 16, 1, 256, torch.float32)
+    assert (f["grid"], f["smem_bytes"]) == ((94, 16, 1), 222_208)
 
 
 # ------------------------------------------------------------------ #
