@@ -30,18 +30,28 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the host's per-call work (``graph_ms``, ``library_graph_ms``), next to
    the least time the card could take for the same bytes and FLOPs
    (data-sheet peaks); for flash prefill it also names the CUDA kernels
-   that serve the yardstick call (which ``sdpa`` backend).
+   that serve the yardstick call (which ``sdpa`` backend). The rank forms
+   of the paged kernels (one launch over every rank pool of the global
+   pool) at the qwen2-moe-a2.7b global path's shapes (MHA 16 x 128, three
+   ranks, a strided layer view of a 24-layer pool; decode R=4 over
+   256-slot tables, a 512-query chunk) and edges (one and four ranks,
+   empty ranks, G 1 and 2), in bf16 and fp32, also timed as NR
+   single-rank launches on the same inputs (``nr_launch_ms``).
 2. Serving, qwen3-0.6b. ``LLMServer`` serves it at full width (28
    layers, bf16, seeded random weights) with three instances on the
    card; the longest prompt stripes its prefix across two creditors at
    admission and moves KV reactively during decode. Every request must
    finish, both paged kernels' launch counters must be > 0 and no step
    may run a plain version. Reports tokens/s, TTFT, TBT, KV moved and
-   peak memory, for this first (cold) run and for warm repeats of the
+   peak memory, for this first (cold) run and for a warm repeat of the
    same workload. A short traced window of a warm server (one more
    prompt's admission chunk and a few decode steps, ``torch.profiler``)
    then reports the device's busy share of that window and the kernels
-   with the most device time.
+   with the most device time. Then the same workload in global-pool mode
+   (``global_pool=True``: one pool tensor for the three instances): every
+   request must finish, KV must move, the pool tensor must never be
+   reallocated, and each engine decode step must launch the decode rank
+   kernel once per layer (28) and no single-rank paged kernel.
 3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
    full width (38 layers: 26 RG-LRU, 12 local-attention; bf16, seeded
    random weights) with two non-pooled instances: prompts of 6,000,
@@ -52,8 +62,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    6,000-token admission and a few decode steps) reports the device's
    busy share and the kernels with the most device time. Each traced
    window also reports the device time of the port's own kernels.
-4. Parity, float32. qwen3-0.6b: a creditor-spanning request served
-   through ``LLMServer``; recurrentgemma-9b at full width and 5 layers
+4. Serving, qwen2-moe-a2.7b. ``LLMServer`` serves the MoE model at full
+   width (24 layers, 60 routed experts top-4 plus 4 shared; bf16, seeded
+   random weights) in global-pool mode with the qwen3 phase's config and
+   prompts, under the global phase's checks; then a traced window with a
+   late 512-token admission.
+5. Parity, float32. qwen3-0.6b: a creditor-spanning request served
+   through ``LLMServer``, in both pool modes; qwen2-moe-a2.7b at full
+   width and 4 layers in global-pool mode, the prompt striped over both
+   creditors; recurrentgemma-9b at full width and 5 layers
    (one (rglru, rglru, attn) group plus two leftover RG-LRU layers): a
    3,000-token prompt, past the window. Each must give the dense
    oracle's (``prefill`` with the plain "xla" core + ``decode_step``)
@@ -71,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -97,7 +115,8 @@ TOL = 1e-4
 # the two may differ by one bf16 ulp (2**-7 of the value) beyond TOL.
 FLASH_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 0.0}
 PARITY_RTOL = 1e-3  # served vs oracle logits, float32, |diff| / max|logit|
-WARM_REPEATS = 3    # untraced repeats of the serving workload
+WARM_REPEATS = 1    # untraced repeats of the serving workload (the
+#                     pool-mode A/B, scripts/pool_mode_ab.py, repeats it)
 TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
 PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_prefill",
@@ -110,6 +129,20 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def release_memory() -> None:
+    """Free the device memory of models and servers no longer used: a
+    server's engines reference each other (``peers``), so only the
+    garbage collector frees them, and with them weights and pools."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def reset_peak_memory() -> None:
+    """Start a peak-memory reading from live tensors only."""
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -400,6 +433,91 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
     return row
 
 
+def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
+              L=2, bs=16, NB=160, timed=False):
+    """A rank form the global pool's steps call (``ops``, default scale)
+    on one layer's view of a global pool [NR, L, NB, bs, K, D] — strided,
+    read in place — against its plain version. ``kind`` "decode": q
+    [rows, H, D], request r holding ``nblks[rank][r]`` blocks on each
+    rank; "prefill": a chunk of ``rows`` queries over one prefix holding
+    ``nblks[rank]`` blocks on each rank. Timed rows add the time of NR
+    single-rank launches on the same inputs (``nr_launch_ms``)."""
+    from repro_torch.core.distattn import gather_local_kv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.micro_attn_decode import (
+        paged_micro_attention_ranks_plain)
+    from repro_torch.kernels.micro_attn_prefill import (
+        paged_prefill_attention_ranks_plain)
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    gen = torch.Generator(device=device).manual_seed(3)
+    gk, gv = (torch.randn((NR, L, NB, bs, K, D), generator=gen,
+                          device=device).to(dtype) for _ in range(2))
+    pk, pv = gk[:, L // 2], gv[:, L // 2]
+    decode = kind == "decode"
+    R = rows if decode else 1
+    tabs = [make_tables(rng, R, MB, nb if decode else [nb], NB, bs)
+            for nb in nblks]
+    table = np.stack([t for t, _ in tabs])
+    tail = np.stack([t for _, t in tabs])
+    if not decode:
+        table, tail = table[:, 0], tail[:, 0]
+    q = torch.randn((rows, H, D), generator=gen, device=device).to(dtype)
+    tb = torch.from_numpy(table).to(device)
+    tl = torch.from_numpy(tail).to(device)
+    scale = D ** -0.5
+    wrapper, one = ((ops.paged_micro_attention_ranks,
+                     ops.paged_micro_attention) if decode else
+                    (ops.paged_prefill_attention_ranks,
+                     ops.paged_prefill_attention))
+    plain = (paged_micro_attention_ranks_plain if decode
+             else paged_prefill_attention_ranks_plain)
+    got = wrapper(q, pk, pv, tb, tl)
+    torch.cuda.synchronize()
+    want = plain(q, pk, pv, tb, tl, scale=scale)
+    err = compare(got, want, TOL)
+    S = sum(valid_tokens(t if decode else t[None], tt if decode else tt[None],
+                         bs) for t, tt in zip(table, tail))
+    row = {"case": name, "dtype": str(dtype), "NR": NR,
+           ("R" if decode else "C"): rows, "H": H, "K": K, "D": D, "bs": bs,
+           "MB": MB, "rank_stride": pk.stride(0), "tokens": S,
+           "max_abs_err": err, "tol": TOL}
+    if timed:
+        itemsize = pk.element_size()
+        nbytes = (2 * S * K * D * itemsize + q.numel() * itemsize
+                  + table.nbytes + tail.nbytes
+                  + NR * rows * H * (D + 2) * 4)
+        flops = 4 * S * H * D * (1 if decode else rows)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+
+        def per_rank():
+            for i in range(NR):
+                one(q, pk[i], pv[i], tb[i], tl[i])
+        row["ms"] = time_ms(lambda: wrapper(q, pk, pv, tb, tl))
+        row["graph_ms"] = device_ms(lambda: wrapper(q, pk, pv, tb, tl))
+        row["nr_launch_ms"] = time_ms(per_rank)
+        row["nr_launch_graph_ms"] = device_ms(per_rank)
+        row["plain_ms"] = time_ms(lambda: plain(q, pk, pv, tb, tl,
+                                                scale=scale), iters=5)
+        # Yardstick: one sdpa call over every rank's gathered (padded)
+        # rows, the ranks as batch rows.
+        kk, vv = (torch.cat(t) for t in zip(*(
+            gather_local_kv(pk[i], pv[i], tb[i] if decode else tb[i][None])
+            for i in range(NR))))
+        kk = kk.transpose(1, 2).contiguous()        # [NR*R, K, S_pad, D]
+        vv = vv.transpose(1, 2).contiguous()
+        qq = (q[:, :, None, :].repeat(NR, 1, 1, 1) if decode else
+              q.transpose(0, 1)[None].repeat(NR, 1, 1, 1).contiguous())
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = time_ms(lambda: sdpa(qq, kk, vv,
+                                                 enable_gqa=True))
+        row["library_graph_ms"] = device_ms(lambda: sdpa(qq, kk, vv,
+                                                         enable_gqa=True))
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
+
+
 def kernel_plans(chunk: int):
     """The launch each kernel plans at its main shapes on this card (from
     shapes and the SM count alone)."""
@@ -416,6 +534,12 @@ def kernel_plans(chunk: int):
                                                  16, dt, sms)
         out[f"flash-main-{dt}"] = flash_plan(1, 6000, 16, 1, 256, dt)
         out[f"flash-qwen3-{dt}"] = flash_plan(1, 4000, 16, 8, 128, dt)
+        # The rank forms at the qwen2-moe global path's shapes (MHA 16 x
+        # 128, three ranks, 256-slot tables).
+        out[f"decode-ranks-main-{dt}"] = decode_plan(4, 16, 16, 256, 16,
+                                                     sms, 3)
+        out[f"prefill-ranks-main-{dt}"] = prefill_plan(chunk, 16, 16, 128,
+                                                       256, 16, dt, sms, 3)
     return out
 
 
@@ -508,6 +632,32 @@ def kernel_phase(device, chunk: int):
         # (the reduction zero-padded to 16), G 16 at both wide builds, a
         # window that is not a multiple of the 64-token tile, and B 2 with
         # a window.
+        # Rank forms at the qwen2-moe global path's shapes: MHA 16 x 128,
+        # three ranks, a layer's view of a 24-layer global pool; decode
+        # R=4 (a request striped over all three ranks, a local one, two
+        # empty slots), a 512-query chunk over a prefix striped 32 / 160 /
+        # 27 blocks. Edges: one and four ranks, empty ranks, G 2.
+        r = rank_case(f"decode-ranks-main-{dt}", "decode", 3, 16, 16, 128,
+                      dt, device, rows=4, MB=256, L=24, timed=True,
+                      nblks=[[63, 38, 0, 0], [160, 0, 0, 0],
+                             [27, 0, 0, 0]])
+        rows.append(r)
+        main.setdefault("decode_ranks", r)
+        r = rank_case(f"prefill-ranks-main-{dt}", "prefill", 3, 16, 16,
+                      128, dt, device, rows=chunk, MB=256, L=24,
+                      timed=True, nblks=[32, 160, 27])
+        rows.append(r)
+        main.setdefault("prefill_ranks", r)
+        for nr, K, G, nb in ((1, 16, 1, [[40, 3]]),
+                             (4, 8, 2, [[0, 0], [100, 2], [0, 0], [7, 60]]),
+                             (3, 8, 2, [[0, 0], [0, 0], [0, 0]])):
+            rows.append(rank_case(f"decode-ranks-nr{nr}-g{G}-{dt}", "decode",
+                                  nr, K * G, K, 128, dt, device, rows=2,
+                                  MB=128, nblks=nb))
+            rows.append(rank_case(f"prefill-ranks-nr{nr}-g{G}-{dt}",
+                                  "prefill", nr, K * G, K, 128, dt, device,
+                                  rows=77, MB=128,
+                                  nblks=[b[-1] for b in nb]))
         for args in (("ragged-S", 1, 1037, 16, 1, 256, 256),
                      ("S-below-window", 1, 500, 16, 1, 256, 2048),
                      ("B2-gqa-causal", 2, 300, 8, 2, 128, 0),
@@ -602,14 +752,18 @@ def all_finished(handles):
         raise AssertionError(f"not every request finished: {states}")
 
 
+def served(counts, name, device) -> int:
+    """Calls of a kernel's wrapper that ran it: launches on the card,
+    plain-twin calls on the CPU."""
+    c = counts[name]
+    return c["launches"] if device.type == "cuda" else c["plain_calls"]
+
+
 def check_counts(counts, path_kernels, device):
     """Every kernel of the path ran on it (launches on the card, plain
     twins on the CPU); on the card no plain version ran at all."""
     for name in path_kernels:
-        c = counts[name]
-        served_by = c["launches"] if device.type == "cuda" \
-            else c["plain_calls"]
-        if served_by <= 0:
+        if served(counts, name, device) <= 0:
             raise AssertionError(f"{name}: never ran on the serving path")
     for name, c in counts.items():
         if device.type == "cuda" and c["plain_calls"]:
@@ -624,7 +778,7 @@ def serving_phase(params, cfg, device, prompt_lens, n_new):
     prompts = make_prompts(cfg, prompt_lens, 7)
     config = serving_config()
     if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak_memory()
     with AdmissionSpy() as spy:
         ops.reset_counts()
         handles, server, wall = serve(params, cfg, config, prompts, n_new,
@@ -641,9 +795,12 @@ def serving_phase(params, cfg, device, prompt_lens, n_new):
         raise AssertionError("no KV move happened during decode")
     check_counts(counts, ("paged_micro_attention", "paged_prefill_attention"),
                  device)
+    steps = decode_steps(server)
     report = {
         "prompt_lens": list(prompt_lens), "n_new": n_new,
         "creditors_per_admission": stripes, "moves_during_decode": moves,
+        "decode_steps": steps, "decode_launches_per_step":
+            served(counts, "paged_micro_attention", device) / steps,
         **e2e_numbers(server, handles, wall),
         "kv_moved_bytes": server.cluster.throughput_stats["kv_moved_bytes"],
         "pool_copy_steps": sum(e.stats.pool_copy_steps
@@ -660,6 +817,60 @@ def serving_phase(params, cfg, device, prompt_lens, n_new):
                                       device)
         all_finished(handles)
         report["warm"].append(e2e_numbers(server, handles, wall))
+    return report
+
+
+def decode_steps(server) -> int:
+    """Engine decode steps of a run (each runs every layer once)."""
+    return sum(e.stats.decode_steps for e in server.cluster.engines.values())
+
+
+def global_serving_phase(params, cfg, device, prompt_lens, n_new):
+    """The global-pool main path, once and counted: the serving phase's
+    config with ``global_pool=True``. Every request must finish, the
+    longest prompt stripe over two creditors, KV move, the pool tensor
+    never be reallocated, and every engine decode step launch the decode
+    rank kernel once per layer (no single-rank paged launch at all)."""
+    from repro_torch.kernels import ops
+    prompts = make_prompts(cfg, prompt_lens, 7)
+    config = serving_config().replace(global_pool=True)
+    t0 = time.perf_counter()
+    reset_peak_memory()
+    with AdmissionSpy() as spy:
+        ops.reset_counts()
+        handles, server, wall = serve(params, cfg, config, prompts, n_new,
+                                      device)
+        counts = ops.counts()
+    all_finished(handles)
+    if max(spy.stripes) < 2:
+        raise AssertionError(f"no prompt striped across >= 2 creditors "
+                             f"({spy.stripes})")
+    check_counts(counts, ("paged_micro_attention_ranks",
+                          "paged_prefill_attention_ranks"), device)
+    for name in ("paged_micro_attention", "paged_prefill_attention"):
+        if served(counts, name, device):
+            raise AssertionError(f"{name} ran on the global path")
+    cl = server.cluster
+    steps = decode_steps(server)
+    per_step = served(counts, "paged_micro_attention_ranks", device) / steps
+    if per_step != cfg.num_layers:
+        raise AssertionError(f"{per_step} decode launches per engine step, "
+                             f"not one per layer ({cfg.num_layers})")
+    report = {"prompt_lens": list(prompt_lens), "n_new": n_new,
+              "layers": cfg.num_layers, "creditors_per_admission":
+                  spy.stripes, "moves_during_decode": moves_executed(server),
+              "decode_steps": steps, "decode_launches_per_step": per_step,
+              **e2e_numbers(server, handles, wall),
+              "kv_moved_bytes": cl.throughput_stats["kv_moved_bytes"],
+              "pool_copy_steps": sum(e.stats.pool_copy_steps
+                                     for e in cl.engines.values()),
+              "pool_bytes": 2 * cl.gpool.k.numel() * cl.gpool.k.element_size(),
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "phase_s": time.perf_counter() - t0, "counts": counts}
+    if report["kv_moved_bytes"] <= 0:
+        raise AssertionError("no KV moved on the global path")
+    if report["pool_copy_steps"]:
+        raise AssertionError("a decode step reallocated the global pool")
     return report
 
 
@@ -753,7 +964,7 @@ def hybrid_serving_phase(params, cfg, device, prompt_lens, n_new):
     prompts = make_prompts(cfg, prompt_lens, 17)
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     with DenseAdmissionSpy() as spy:
         ops.reset_counts()
         handles, server, wall = serve(params, cfg, hybrid_serving_config(),
@@ -793,14 +1004,20 @@ def oracle_logits(params, cfg, prompt, forced, device):
     return out
 
 
-def parity_phase(params, cfg, device, prompt_len, n_new):
-    """float32: served greedy stream == oracle, per-step logits close."""
+def parity_phase(params, cfg, device, prompt_len, n_new, *,
+                 global_pool=False, pool_blocks=96):
+    """float32: served greedy stream == oracle, per-step logits close, in
+    either pool mode (``pool_blocks`` small enough that the prompt spans
+    creditors)."""
     import repro_torch.serving.engine as engine_mod
     prompt = make_prompts(cfg, [prompt_len], 11)[0]
-    config = serving_config().replace(pool_blocks=96, max_local_len=512)
+    config = serving_config().replace(pool_blocks=pool_blocks,
+                                      max_local_len=512,
+                                      global_pool=global_pool)
     served = []
-    orig_decode = engine_mod.decode_step_paged
-    orig_chunk = engine_mod.prefill_chunk_paged
+    names = (("decode_step_global", "prefill_chunk_global") if global_pool
+             else ("decode_step_paged", "prefill_chunk_paged"))
+    orig_decode, orig_chunk = (getattr(engine_mod, n) for n in names)
 
     def spy_decode(*a, **k):
         out = orig_decode(*a, **k)
@@ -811,19 +1028,20 @@ def parity_phase(params, cfg, device, prompt_len, n_new):
         out = orig_chunk(*a, **k)
         served[:] = [out[0][0].float().clone()]    # keep the last chunk's
         return out
-    engine_mod.decode_step_paged = spy_decode
-    engine_mod.prefill_chunk_paged = spy_chunk
+    setattr(engine_mod, names[0], spy_decode)
+    setattr(engine_mod, names[1], spy_chunk)
     try:
         with AdmissionSpy() as spy:
             handles, server, _ = serve(params, cfg, config, [prompt], n_new,
                                        device)
     finally:
-        engine_mod.decode_step_paged = orig_decode
-        engine_mod.prefill_chunk_paged = orig_chunk
+        setattr(engine_mod, names[0], orig_decode)
+        setattr(engine_mod, names[1], orig_chunk)
     out = handles[0].result()
     if max(spy.stripes) < 1:
         raise AssertionError("the parity request did not span a creditor")
     return {"prompt_len": prompt_len, "n_new": n_new,
+            "global_pool": global_pool, "layers": cfg.num_layers,
             **check_parity(params, cfg, device, prompt, out, served),
             "creditors_at_admission": max(spy.stripes),
             "moves_during_decode": moves_executed(server)}
@@ -909,7 +1127,11 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     report = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "elapsed_s": {}}
+
+    def mark(phase):
+        """Seconds since the start, at the end of ``phase``."""
+        report["elapsed_s"][phase] = time.perf_counter() - t_start
 
     t0 = time.perf_counter()
     libs = build.build()
@@ -933,13 +1155,15 @@ def main(argv=None) -> int:
     report["kernel_cases"] = rows
     for r in rows:
         extra = "".join(f" {k}={r[k]:.4g}" for k in
-                        ("ms", "graph_ms", "plain_ms", "library_ms",
+                        ("ms", "graph_ms", "nr_launch_ms",
+                         "nr_launch_graph_ms", "plain_ms", "library_ms",
                          "library_graph_ms", "bound_ms")
                         if k in r)
         if "library_kernels" in r:
             extra += f" library_kernels={r['library_kernels'][:3]}"
         print(f"kernel {r['case']}: max_abs_err={r['max_abs_err']:.3g} "
               f"tol={r['tol']}{extra}", flush=True)
+    mark("kernels")
 
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
@@ -952,8 +1176,15 @@ def main(argv=None) -> int:
                                   (4000, 600, 300), 32,
                                   config.prefill_chunk)
     print("trace: " + json.dumps(report["trace"]), flush=True)
+    mark("qwen3")
+    gserving = global_serving_phase(params, cfg, device, (4000, 600, 300),
+                                    32)
+    report["global_serving"] = gserving
+    print("global serving: " + json.dumps(
+        {k: v for k, v in gserving.items() if k != "counts"}), flush=True)
+    mark("qwen3_global")
     del params
-    torch.cuda.empty_cache()
+    release_memory()
 
     hcfg = get_config("recurrentgemma-9b")
     t0 = time.perf_counter()
@@ -970,8 +1201,27 @@ def main(argv=None) -> int:
                                          hybrid_serving_config(),
                                          (3000, 1000, 400), 32, 6000)
     print("hybrid trace: " + json.dumps(report["hybrid_trace"]), flush=True)
+    mark("hybrid")
     del hparams
-    torch.cuda.empty_cache()
+    release_memory()
+
+    mcfg = get_config("qwen2-moe-a2.7b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    mparams = init_params(mcfg, gen, device)
+    torch.cuda.synchronize()
+    report["moe_init_s"] = time.perf_counter() - t0
+    moe = global_serving_phase(mparams, mcfg, device, (4000, 600, 300), 32)
+    report["moe_serving"] = moe
+    print("moe serving: " + json.dumps(
+        {k: v for k, v in moe.items() if k != "counts"}), flush=True)
+    report["moe_trace"] = trace_phase(
+        mparams, mcfg, device, serving_config().replace(global_pool=True),
+        (4000, 600, 300), 32, config.prefill_chunk)
+    print("moe trace: " + json.dumps(report["moe_trace"]), flush=True)
+    mark("moe")
+    del mparams
+    release_memory()
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device=device).manual_seed(0)
@@ -979,8 +1229,26 @@ def main(argv=None) -> int:
     parity = parity_phase(params32, cfg32, device, 1500, 24)
     report["parity"] = parity
     print("parity: " + json.dumps(parity), flush=True)
+    gparity = parity_phase(params32, cfg32, device, 1500, 24,
+                           global_pool=True)
+    report["global_parity"] = gparity
+    print("global parity: " + json.dumps(gparity), flush=True)
+    mark("qwen3_parity")
     del params32
-    torch.cuda.empty_cache()
+    release_memory()
+
+    # MoE at full width, depth cut to 4 layers; a pool of 48 blocks a
+    # rank makes the prompt stripe over both creditors.
+    mcfg32 = dataclasses.replace(mcfg, dtype="float32", num_layers=4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    mparams32 = init_params(mcfg32, gen, device)
+    mparity = parity_phase(mparams32, mcfg32, device, 1500, 24,
+                           global_pool=True, pool_blocks=48)
+    report["moe_parity"] = mparity
+    print("moe parity: " + json.dumps(mparity), flush=True)
+    mark("moe_parity")
+    del mparams32
+    release_memory()
 
     hcfg32 = dataclasses.replace(hcfg, dtype="float32", num_layers=5)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -988,13 +1256,19 @@ def main(argv=None) -> int:
     hparity = hybrid_parity_phase(hparams32, hcfg32, device, 3000, 24)
     report["hybrid_parity"] = hparity
     print("hybrid parity: " + json.dumps(hparity), flush=True)
+    mark("hybrid_parity")
     del hparams32
-    torch.cuda.empty_cache()
+    release_memory()
 
-    # Launches: each kernel's count from the run of ITS main path.
-    launches = {name: c["launches"]
-                for name, c in serving["counts"].items()
-                if name != "flash_prefill"}
+    # Launches: each kernel's count from the run of ITS main path: the
+    # single-rank paged kernels from qwen3's per-instance phase, the rank
+    # forms from qwen2-moe's global phase, flash from the hybrid phase.
+    launches = {name: serving["counts"][name]["launches"]
+                for name in ("paged_micro_attention",
+                             "paged_prefill_attention")}
+    for name in ("paged_micro_attention_ranks",
+                 "paged_prefill_attention_ranks"):
+        launches[name] = moe["counts"][name]["launches"]
     launches["flash_prefill"] = hybrid["counts"]["flash_prefill"]["launches"]
     sources = {"decode": ("paged_micro_attention",
                           "src/repro_torch/csrc/micro_attn_decode.cu",
@@ -1002,6 +1276,12 @@ def main(argv=None) -> int:
                "prefill": ("paged_prefill_attention",
                            "src/repro_torch/csrc/micro_attn_prefill.cu",
                            "src/repro/kernels/micro_attn_prefill.py:89"),
+               "decode_ranks": ("paged_micro_attention_ranks",
+                                "src/repro_torch/csrc/micro_attn_decode.cu",
+                                "src/repro/kernels/ops.py:182"),
+               "prefill_ranks": ("paged_prefill_attention_ranks",
+                                 "src/repro_torch/csrc/micro_attn_prefill.cu",
+                                 "src/repro/kernels/ops.py:198"),
                "flash": ("flash_prefill",
                          "src/repro_torch/csrc/flash_prefill.cu",
                          "src/repro/kernels/flash_prefill.py:77")}
@@ -1015,11 +1295,14 @@ def main(argv=None) -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-        kernels[-1].update({k: r[k] for k in ("graph_ms", "library_graph_ms")
+        kernels[-1].update({k: r[k] for k in ("graph_ms", "library_graph_ms",
+                                              "nr_launch_ms",
+                                              "nr_launch_graph_ms")
                             if k in r})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
-    print(f"script: {report['script_s']:.1f} s", flush=True)
+    print(f"script: {report['script_s']:.1f} s (elapsed at the end of "
+          f"each phase: {json.dumps(report['elapsed_s'])})", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -1,11 +1,21 @@
 // Paged DistAttention MicroAttention partial, decode (paper Eq. 2), split-KV.
 //
 // Replaces the Pallas TPU kernel repro/kernels/micro_attn_decode.py::
-// paged_micro_attention_kernel (body _kernel). One query token per request
-// attends over one rank's paged pool [NB, bs, K, D] through the request's
-// -1-padded block table [R, MB]; only the last valid slot is partial
-// (tail_len[r] tokens). Output: unnormalized o [R, H, D] and m, l [R, H],
-// all float32; an empty table gives (0, -inf, 0).
+// paged_micro_attention_kernel (body _kernel), and its vmap over the rank
+// axis (repro/kernels/ops.py::paged_micro_attention_ranks). One query
+// token per request attends over one rank's paged pool [NB, bs, K, D]
+// through the request's -1-padded block table [R, MB]; only the last valid
+// slot is partial (tail_len[r] tokens). Output: unnormalized o [R, H, D]
+// and m, l [R, H], all float32; an empty table gives (0, -inf, 0).
+//
+// Rank axis: one launch covers NR rank pools, each a [NB, bs, K, D] slab
+// rank_stride elements after the previous one (a per-layer view of the
+// global pool [NR, L, NB, bs, K, D] is not contiguous; it is read in
+// place, never copied). q [R, H, D] is shared by every rank; tables
+// [NR, R, MB], tails [NR, R] and the outputs [NR, R, ...] are stacked.
+// grid.z enumerates (rank, split); every block offsets its pool, table,
+// tails, outputs, scratch slice and ticket counters by its rank. A rank
+// whose table row is empty reads no K/V and yields (0, -inf, 0).
 //
 // Bound on the H100: HBM bytes. Each step reads every valid K/V row once,
 // R * S * K * D * 2 * itemsize bytes, against ~4 FLOPs per KV element, far
@@ -16,13 +26,14 @@
 // over every SM.
 //
 // Design: split-KV on the CUDA cores, K/V staged through shared memory.
-// - Grid (K, R * ceil(G / GT), nsplit), 4 warps a block: one block per
-//   (kv head, request, group of GT <= 2 of the kv head's G query heads,
-//   split). The wrapper (decode_plan) chooses GT (1 where G == 1, else
-//   2) and passes it in, and splits each request's slot range [0, MB) into
-//   nsplit contiguous runs of whole slots, from shapes alone (never from
-//   the tables: a host read would synchronize the step), so that the
-//   grid fills every SM and each split still spans >= 256 tokens. At the
+// - Grid (K, R * ceil(G / GT), NR * nsplit), 4 warps a block: one block
+//   per (kv head, request, group of GT <= 2 of the kv head's G query
+//   heads, rank, split). The wrapper (decode_plan) chooses GT (1 where
+//   G == 1, else 2) and passes it in, and splits each request's slot
+//   range [0, MB) into nsplit contiguous runs of whole slots, from shapes
+//   alone (never from the tables: a host read would synchronize the
+//   step), so that the grid fills every SM and each split still spans
+//   >= 256 tokens. At the
 //   main shape: 64 work items x 6 splits = 384 blocks, ~3 per SM (71 KB
 //   of shared memory each); at the serving phase's R=4 with a 64-slot
 //   table, 32 x 4 = 128.
@@ -131,7 +142,8 @@ __global__ void __launch_bounds__(WARPS * 32)
                         float* __restrict__ m_out, float* __restrict__ l_out,
                         float* __restrict__ ws, unsigned* __restrict__ tickets,
                         int R, int H, int K, int D, int bs, int bs_shift,
-                        int MB, int slots_per_split, float scale) {
+                        int MB, int nsplit, int slots_per_split,
+                        long long rank_stride, float scale) {
   constexpr int TT = tile_tokens<T, DMAX>();  // tokens a tile
   constexpr int TPW = TT / WARPS;     // a warp's tokens of a tile
   constexpr int LPT = 32 / TPW;       // lanes sharing a token's q . k
@@ -150,13 +162,19 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int ngroups = (G + GT - 1) / GT;
   const int r = blockIdx.y / ngroups;
   const int grp = blockIdx.y - r * ngroups;
-  const int split = blockIdx.z;
-  const int nsplit = gridDim.z;
+  const int rank = blockIdx.z / nsplit;
+  const int split = blockIdx.z - rank * nsplit;
   const int g0 = grp * GT;
   const int ng = min(GT, G - g0);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // The block's rank: its table rows and tails here, its pool slab at
+  // each load, its outputs in the epilogue (fewer values live in the
+  // loop).
+  const long long pool_off = rank * rank_stride;
+  table += static_cast<size_t>(rank) * R * MB;
+  tail += static_cast<size_t>(rank) * R;
   const int* tab = table + static_cast<size_t>(r) * MB;
   const size_t h0 = static_cast<size_t>(r) * H + kh * G + g0;
 
@@ -199,8 +217,8 @@ __global__ void __launch_bounds__(WARPS * 32)
         off = (static_cast<size_t>(blk) * bs + in_blk) * tok_stride + col;
         bytes = 16;
       }
-      cp_async16(kd + sizeof(T) * tok * DS, pool_k + off, bytes);
-      cp_async16(vd + sizeof(T) * tok * DS, pool_v + off, bytes);
+      cp_async16(kd + sizeof(T) * tok * DS, pool_k + pool_off + off, bytes);
+      cp_async16(vd + sizeof(T) * tok * DS, pool_v + pool_off + off, bytes);
     }
   };
 
@@ -330,13 +348,21 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
   }
   __syncthreads();
-  const size_t split_stride = static_cast<size_t>(R) * H * (D + 2);
+  // This rank's outputs, and its slice of each split's scratch
+  // [nsplit, NR, R, H, D + 2].
+  const size_t rank_rows = static_cast<size_t>(rank) * R * H;
+  o += rank_rows * D;
+  m_out += rank_rows;
+  l_out += rank_rows;
+  const int NR = gridDim.z / nsplit;
+  const size_t split_stride = static_cast<size_t>(NR) * R * H * (D + 2);
+  float* ws_r = ws + rank_rows * (D + 2);
   float* po = o;
   float* pm = m_out;
   float* pl = l_out;
   size_t ostride = D, sstride = 1;
   if (nsplit > 1) {
-    po = ws + split * split_stride;
+    po = ws_r + split * split_stride;
     pm = po + D;
     pl = po + D + 1;
     ostride = sstride = D + 2;
@@ -364,10 +390,11 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
   }
   if (nsplit == 1) return;
-  const size_t item = (static_cast<size_t>(r) * ngroups + grp) * K + kh;
+  const size_t item =
+      ((static_cast<size_t>(rank) * R + r) * ngroups + grp) * K + kh;
   if (paged_attn::last_split_arrives(tickets + item, nsplit))
     paged_attn::merge_splits(
-        ws, split_stride, nsplit, ng, D,
+        ws_r, split_stride, nsplit, ng, D,
         [h0](int i) { return static_cast<int>(h0) + i; }, o, m_out, l_out,
         sm_m);
 }
@@ -375,7 +402,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 struct Args {
   const void *q, *pk, *pv, *table, *tail;
   void *o, *m, *l, *ws, *tickets;
-  int R, H, K, D, bs, MB, nsplit, slots_per_split, n_tickets;
+  int NR, R, H, K, D, bs, MB;
+  long long rank_stride;
+  int nsplit, slots_per_split, n_tickets;
   float scale;
 };
 
@@ -384,8 +413,9 @@ struct Args {
 template <typename T, int GT, int DMAX>
 int launch(const Args& a, cudaStream_t stream) {
   const int G = a.H / a.K;
-  const dim3 grid(a.K, a.R * ((G + GT - 1) / GT), a.nsplit);
-  if (a.nsplit > 1 && static_cast<long>(grid.x) * grid.y > a.n_tickets)
+  const dim3 grid(a.K, a.R * ((G + GT - 1) / GT), a.NR * a.nsplit);
+  if (a.nsplit > 1 &&
+      static_cast<long>(grid.x) * grid.y * a.NR > a.n_tickets)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = paged_decode_kernel<T, GT, DMAX>;
   const size_t smem = smem_bytes<T, DMAX>(a.D, GT, a.slots_per_split);
@@ -400,7 +430,8 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const int*>(a.tail), static_cast<float*>(a.o),
       static_cast<float*>(a.m), static_cast<float*>(a.l),
       static_cast<float*>(a.ws), static_cast<unsigned*>(a.tickets), a.R,
-      a.H, a.K, a.D, a.bs, bs_shift, a.MB, a.slots_per_split, a.scale);
+      a.H, a.K, a.D, a.bs, bs_shift, a.MB, a.nsplit, a.slots_per_split,
+      a.rank_stride, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -420,24 +451,30 @@ int launch_t(const Args& a, int heads_per_block, cudaStream_t s) {
 }  // namespace
 
 // C entry: returns cudaGetLastError() after the launch (0 = success).
-// dtype: 0 = float32, 1 = bfloat16 (q and both pools share it). The
-// caller plans the launch (kernels/micro_attn_decode.py::decode_plan):
-// heads_per_block (GT, 1 or 2) picks the instantiation; any other value
+// dtype: 0 = float32, 1 = bfloat16 (q and both pools share it). NR rank
+// pools (NR = 1: one pool) start rank_stride elements apart; tables are
+// [NR, R, MB], tails [NR, R], outputs [NR, R, H, ...]. The caller plans
+// the launch (kernels/micro_attn_decode.py::decode_plan): heads_per_block
+// (GT, 1 or 2) picks the instantiation; any other value, or NR < 1,
 // returns cudaErrorInvalidValue. With nsplit > 1, ws is a float32
-// scratch [nsplit, R, H, D + 2] and tickets n_tickets zeroed uint32
-// counters, at least one per (request, query-head group, kv head), that
-// the kernel leaves at zero; both may be null when nsplit == 1.
+// scratch [nsplit, NR, R, H, D + 2] and tickets n_tickets zeroed uint32
+// counters, at least one per (rank, request, query-head group, kv head),
+// that the kernel leaves at zero; both may be null when nsplit == 1.
 extern "C" int paged_decode_launch(const void* q, const void* pool_k,
                                    const void* pool_v, const void* table,
                                    const void* tail, void* o, void* m,
-                                   void* l, void* ws, void* tickets, int R,
-                                   int H, int K, int D, int bs, int MB,
-                                   int nsplit, int slots_per_split,
-                                   int heads_per_block, int n_tickets,
-                                   float scale, int dtype, void* stream) {
+                                   void* l, void* ws, void* tickets, int NR,
+                                   int R, int H, int K, int D, int bs,
+                                   int MB, long long rank_stride, int nsplit,
+                                   int slots_per_split, int heads_per_block,
+                                   int n_tickets, float scale, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q, pool_k, pool_v, table, tail, o, m, l, ws, tickets, R, H, K,
-               D, bs, MB, nsplit, slots_per_split, n_tickets, scale};
+  if (NR < 1 || nsplit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,  pool_k, pool_v, table, tail, o,      m,
+               l,  ws,     tickets, NR,  R,    H,      K,
+               D,  bs,     MB,     rank_stride, nsplit, slots_per_split,
+               n_tickets, scale};
   if (dtype == 1) return launch_t<__nv_bfloat16>(a, heads_per_block, s);
   return launch_t<float>(a, heads_per_block, s);
 }

@@ -1,12 +1,21 @@
 // Paged DistAttention MicroAttention partial, prefill chunk (paper Eq. 2).
 //
 // Replaces the Pallas TPU kernel repro/kernels/micro_attn_prefill.py::
-// paged_prefill_micro_attention_kernel (body _kernel). A chunk of C query
-// rows [C, H, D] attends over one rank's paged pool [NB, bs, K, D] through
-// ONE shared -1-padded prefix table [MB]. There is no causal mask: every
-// addressed token precedes every chunk query. Only the last valid slot is
-// partial (tail_len tokens). Output: unnormalized o [C, H, D] and m, l
-// [C, H], float32; an empty table gives (0, -inf, 0).
+// paged_prefill_micro_attention_kernel (body _kernel), and its vmap over
+// the rank axis (repro/kernels/ops.py::paged_prefill_attention_ranks). A
+// chunk of C query rows [C, H, D] attends over one rank's paged pool
+// [NB, bs, K, D] through ONE shared -1-padded prefix table [MB]. There is
+// no causal mask: every addressed token precedes every chunk query. Only
+// the last valid slot is partial (tail_len tokens). Output: unnormalized
+// o [C, H, D] and m, l [C, H], float32; an empty table gives (0, -inf, 0).
+//
+// Rank axis: one launch covers NR rank pools, [NB, bs, K, D] slabs
+// rank_stride elements apart (a per-layer view of the global pool, read
+// in place). q is shared by every rank; tables [NR, MB], tails [NR] and
+// the outputs [NR, C, ...] are stacked. grid.z enumerates (rank, split)
+// (float32: the rank); each block offsets its pool, table, tail,
+// outputs, scratch slice and ticket counters by its rank. An empty rank
+// reads no K/V and yields (0, -inf, 0).
 //
 // Bound on the H100: the larger of the FLOPs, 4 * C * S * H * D against
 // 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (float32), and the
@@ -16,7 +25,7 @@
 // cores approach it.
 //
 // bf16 pools: tensor cores (mma.sync), FlashAttention-2 register layout.
-// - Grid (K, ceil(C*G / BM), nsplit), 4 warps (128 threads) a block.
+// - Grid (K, ceil(C*G / BM), NR * nsplit), 4 warps (128 threads) a block.
 //   GQA packing as the Pallas kernel: the C*G rows (query, head of the kv
 //   head's group), kv-head-major, so a block's rows share one kv head and
 //   each K/V tile is staged once for all G heads. The wrapper
@@ -136,7 +145,7 @@ __global__ void __launch_bounds__(THREADS)
                          const int* __restrict__ tail, float* __restrict__ o,
                          float* __restrict__ m_out, float* __restrict__ l_out,
                          int C, int H, int K, int D, int bs, int MB,
-                         float scale) {
+                         long long rank_stride, float scale) {
   constexpr int VEC = Vec<T>::N;
   constexpr int DP = 16 * DPT;
   extern __shared__ float smem[];
@@ -152,6 +161,15 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int tx = tid & 15;         // token / column group
   const int ty = tid >> 4;         // row group: rows ty*4 .. ty*4+3
+  const int rank = blockIdx.z;     // the block's rank pool
+  const size_t rank_rows = static_cast<size_t>(rank) * C * H;
+  pool_k += rank * rank_stride;
+  pool_v += rank * rank_stride;
+  table += static_cast<size_t>(rank) * MB;
+  tail += rank;
+  o += rank_rows * D;
+  m_out += rank_rows;
+  l_out += rank_rows;
 
   const int S = paged_attn::valid_tokens(table, MB, bs, tail[0]);
 
@@ -346,7 +364,8 @@ __global__ void __launch_bounds__(MW * 32)
                              float* __restrict__ ws,
                              unsigned* __restrict__ tickets, int C, int H,
                              int K, int D, int bs, int bs_shift, int MB,
-                             int slots_per_split, float scale) {
+                             int nsplit, int slots_per_split,
+                             long long rank_stride, float scale) {
   constexpr int BM = 16 * MT * MW;  // query rows a block
   constexpr int NT = DMAX / 8;      // n8 tiles of the output columns
   constexpr int KC = DMAX / 16;     // k16 chunks of the head dim
@@ -367,12 +386,21 @@ __global__ void __launch_bounds__(MW * 32)
   const int CG = C * G;
   const int row0 = blockIdx.y * BM;
   const int nrows = min(BM, CG - row0);
-  const int split = blockIdx.z;
-  const int nsplit = gridDim.z;
+  const int rank = blockIdx.z / nsplit;
+  const int split = blockIdx.z - rank * nsplit;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nch = D / 8;  // 16-byte chunks in a row (D % 8 == 0)
+  // The block's rank: its pool slab, table, tail and outputs.
+  const size_t rank_rows = static_cast<size_t>(rank) * C * H;
+  pool_k += rank * rank_stride;
+  pool_v += rank * rank_stride;
+  table += static_cast<size_t>(rank) * MB;
+  tail += rank;
+  o += rank_rows * D;
+  m_out += rank_rows;
+  l_out += rank_rows;
 
   // Zero the padded reduction columns [D, DP) once; cp.async never
   // writes them.
@@ -508,13 +536,16 @@ __global__ void __launch_bounds__(MW * 32)
   }
   cp_async_wait<0>();
 
-  const size_t split_stride = static_cast<size_t>(C) * H * (D + 2);
+  // Scratch [nsplit, NR, C, H, D + 2]: this rank's slice of each split.
+  const int NR = gridDim.z / nsplit;
+  const size_t split_stride = static_cast<size_t>(NR) * C * H * (D + 2);
+  float* ws_r = ws + rank_rows * (D + 2);
   float* po = o;
   float* pm = m_out;
   float* pls = l_out;
   size_t ostride = D, sstride = 1;
   if (nsplit > 1) {
-    po = ws + split * split_stride;
+    po = ws_r + split * split_stride;
     pm = po + D;
     pls = po + D + 1;
     ostride = sstride = D + 2;
@@ -548,9 +579,10 @@ __global__ void __launch_bounds__(MW * 32)
     }
   }
   if (nsplit == 1) return;
-  const size_t item = static_cast<size_t>(kh) * gridDim.y + blockIdx.y;
+  const size_t item =
+      (static_cast<size_t>(rank) * K + kh) * gridDim.y + blockIdx.y;
   if (paged_attn::last_split_arrives(tickets + item, nsplit))
-    paged_attn::merge_splits(ws, split_stride, nsplit, nrows, D, head_of, o,
+    paged_attn::merge_splits(ws_r, split_stride, nsplit, nrows, D, head_of, o,
                              m_out, l_out, reinterpret_cast<float*>(k_s));
 }
 
@@ -559,16 +591,16 @@ __global__ void __launch_bounds__(MW * 32)
 template <int DMAX, int MT>
 int launch_mma(const void* q, const void* pk, const void* pv,
                const void* table, const void* tail, void* o, void* m,
-               void* l, void* ws, void* tickets, int C, int H, int K, int D,
-               int bs, int MB, int nsplit, int slots_per_split,
-               int smem_bytes, int n_tickets, float scale,
-               cudaStream_t stream) {
+               void* l, void* ws, void* tickets, int NR, int C, int H, int K,
+               int D, int bs, int MB, long long rank_stride, int nsplit,
+               int slots_per_split, int smem_bytes, int n_tickets,
+               float scale, cudaStream_t stream) {
   constexpr int BM = 16 * MT * MW;
   const size_t smem = mma_smem_bytes(D, BM, slots_per_split);
   const int rows = C * (H / K);
-  const dim3 grid(K, (rows + BM - 1) / BM, nsplit);
+  const dim3 grid(K, (rows + BM - 1) / BM, NR * nsplit);
   if (static_cast<size_t>(smem_bytes) != smem ||
-      (nsplit > 1 && static_cast<long>(grid.x) * grid.y > n_tickets))
+      (nsplit > 1 && static_cast<long>(grid.x) * grid.y * NR > n_tickets))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = paged_prefill_mma_kernel<DMAX, MT>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -585,26 +617,27 @@ int launch_mma(const void* q, const void* pk, const void* pv,
       static_cast<const int*>(tail), static_cast<float*>(o),
       static_cast<float*>(m), static_cast<float*>(l),
       static_cast<float*>(ws), static_cast<unsigned*>(tickets), C, H, K, D,
-      bs, bs_shift, MB, slots_per_split, scale);
+      bs, bs_shift, MB, nsplit, slots_per_split, rank_stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DPT>
 int launch(const void* q, const void* pk, const void* pv, const void* table,
-           const void* tail, void* o, void* m, void* l, int C, int H, int K,
-           int D, int bs, int MB, float scale, cudaStream_t stream) {
+           const void* tail, void* o, void* m, void* l, int NR, int C, int H,
+           int K, int D, int bs, int MB, long long rank_stride, float scale,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes(D, DPT);
   auto kern = paged_prefill_kernel<T, DPT>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int rows = C * (H / K);
-  const dim3 grid(K, (rows + TR - 1) / TR);
+  const dim3 grid(K, (rows + TR - 1) / TR, NR);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pk),
       static_cast<const T*>(pv), static_cast<const int*>(table),
       static_cast<const int*>(tail), static_cast<float*>(o),
       static_cast<float*>(m), static_cast<float*>(l), C, H, K, D, bs, MB,
-      scale);
+      rank_stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -612,50 +645,54 @@ int launch(const void* q, const void* pk, const void* pv, const void* table,
 
 // C entry: returns cudaGetLastError() after the launch (0 = success).
 // dtype: 0 = float32 (CUDA cores, nsplit must be 1), 1 = bfloat16 (tensor
-// cores); q and both pools share it. The caller plans the launch
+// cores); q and both pools share it. NR rank pools (NR = 1: one pool)
+// start rank_stride elements apart; tables are [NR, MB], tails [NR],
+// outputs [NR, C, H, ...]. The caller plans the launch
 // (kernels/micro_attn_prefill.py::prefill_plan): rows_per_block picks the
 // instantiation (bf16: 128 up to D = 128, 64 above; float32: 64), and
 // smem_bytes (bf16) must equal what that instantiation lays out; any
-// other value returns cudaErrorInvalidValue. With nsplit > 1, ws is a
-// float32 scratch [nsplit, C, H, D + 2] and tickets n_tickets zeroed
-// uint32 counters, at least one per (kv head, row tile), that the kernel
-// leaves at zero; both may be null when nsplit == 1.
+// other value, or NR < 1, returns cudaErrorInvalidValue. With nsplit > 1,
+// ws is a float32 scratch [nsplit, NR, C, H, D + 2] and tickets n_tickets
+// zeroed uint32 counters, at least one per (rank, kv head, row tile),
+// that the kernel leaves at zero; both may be null when nsplit == 1.
 extern "C" int paged_prefill_launch(const void* q, const void* pool_k,
                                     const void* pool_v, const void* table,
                                     const void* tail, void* o, void* m,
-                                    void* l, void* ws, void* tickets, int C,
-                                    int H, int K, int D, int bs, int MB,
+                                    void* l, void* ws, void* tickets, int NR,
+                                    int C, int H, int K, int D, int bs,
+                                    int MB, long long rank_stride,
                                     int nsplit, int slots_per_split,
                                     int rows_per_block, int smem_bytes,
                                     int n_tickets, float scale, int dtype,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (NR < 1 || nsplit < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     // Up to D = 128 a warp owns two m16 tiles (32 rows), so every K/V
     // fragment feeds two independent products; at D = 256 one, whose
     // accumulators fill the registers alone.
     if (D <= 64 && rows_per_block == 32 * MW)
       return launch_mma<64, 2>(q, pool_k, pool_v, table, tail, o, m, l, ws,
-                               tickets, C, H, K, D, bs, MB, nsplit,
-                               slots_per_split, smem_bytes, n_tickets, scale,
-                               s);
+                               tickets, NR, C, H, K, D, bs, MB, rank_stride,
+                               nsplit, slots_per_split, smem_bytes,
+                               n_tickets, scale, s);
     if (D > 64 && D <= 128 && rows_per_block == 32 * MW)
       return launch_mma<128, 2>(q, pool_k, pool_v, table, tail, o, m, l, ws,
-                                tickets, C, H, K, D, bs, MB, nsplit,
-                                slots_per_split, smem_bytes, n_tickets,
-                                scale, s);
+                                tickets, NR, C, H, K, D, bs, MB, rank_stride,
+                                nsplit, slots_per_split, smem_bytes,
+                                n_tickets, scale, s);
     if (D > 128 && rows_per_block == 16 * MW)
       return launch_mma<256, 1>(q, pool_k, pool_v, table, tail, o, m, l, ws,
-                                tickets, C, H, K, D, bs, MB, nsplit,
-                                slots_per_split, smem_bytes, n_tickets,
-                                scale, s);
+                                tickets, NR, C, H, K, D, bs, MB, rank_stride,
+                                nsplit, slots_per_split, smem_bytes,
+                                n_tickets, scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nsplit != 1 || rows_per_block != TR)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 128)
-    return launch<float, 8>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K,
-                            D, bs, MB, scale, s);
-  return launch<float, 16>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K,
-                           D, bs, MB, scale, s);
+    return launch<float, 8>(q, pool_k, pool_v, table, tail, o, m, l, NR, C,
+                            H, K, D, bs, MB, rank_stride, scale, s);
+  return launch<float, 16>(q, pool_k, pool_v, table, tail, o, m, l, NR, C, H,
+                           K, D, bs, MB, rank_stride, scale, s);
 }

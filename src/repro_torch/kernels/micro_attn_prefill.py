@@ -21,9 +21,17 @@ same bf16 V (at most 2^-16 relative per term, where one rounding of p,
 2^-8, would exceed 1e-4 over a few thousand keys); ``l`` is summed from
 the float32 p; m, the rescaling and the split merge stay float32.
 
+``paged_prefill_attention_ranks_cuda`` launches the same kernel once over
+a stack of NR rank pools, each with its own prefix table — the
+counterpart of the JAX package's vmap over the global pool's rank axis
+(``repro/kernels/ops.py::paged_prefill_attention_ranks``). As for decode,
+the pools may be a strided per-layer view of the global pool, read in
+place.
+
 ``paged_prefill_attention_plain`` is the same function in plain PyTorch,
-in float32 throughout like the Pallas kernel. The CPU runs it; the card
-runs it only to check the kernel.
+in float32 throughout like the Pallas kernel;
+``paged_prefill_attention_ranks_plain`` stacks it over the ranks. The CPU
+runs them; the card runs them only to check the kernel.
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ from repro_torch.kernels.micro_attn_decode import (_DTYPES, _ptr, argtypes,
                                                    device_sm_count,
                                                    partial_outputs,
                                                    plan_splits,
-                                                   split_tickets)
+                                                   split_tickets,
+                                                   stack_ranks)
 
 SMEM_PER_SM = 232_448   # bytes of shared memory a block may use on an H100
 _ARGTYPES = argtypes(5)
@@ -66,26 +75,31 @@ def mma_smem_bytes(D: int, rows: int, slots: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def prefill_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
-                 dtype: torch.dtype, sm_count: int) -> Dict[str, object]:
-    """The prefill-chunk kernel's launch, which the C entry takes as
-    given: rows a block, split, grid and (bf16) shared memory. Cached:
-    callers share the dict and must not change it.
+                 dtype: torch.dtype, sm_count: int,
+                 NR: int = 1) -> Dict[str, object]:
+    """The prefill-chunk kernel's launch over ``NR`` rank pools, which
+    the C entry takes as given: rows a block, split, grid (``items``
+    work items a rank) and (bf16) shared memory. Cached: callers share
+    the dict and must not change it.
 
-    bf16 splits the prefix's slots (``plan_splits``) to fill every SM
-    with as many 4-warp blocks as its shared memory holds; float32 runs
-    one 8-warp block per (kv head, 64 rows), unsplit.
+    bf16 splits the prefix's slots (``plan_splits``, for all ``items *
+    NR`` work items) to fill every SM with as many 4-warp blocks as its
+    shared memory holds; float32 runs one 8-warp block per (kv head, 64
+    rows, rank), unsplit.
     """
     bm = rows_per_block(D, dtype)
     items = K * -(-(C * (H // K)) // bm)
     if dtype != torch.bfloat16:
         return {"nsplit": 1, "slots_per_split": max(MB, 1), "items": items,
-                "grid": (K, items // K, 1), "rows_per_block": bm,
-                "smem_bytes": 0, "route": "cuda cores, float32"}
+                "ranks": NR, "grid": (K, items // K, NR),
+                "rows_per_block": bm, "smem_bytes": 0,
+                "route": "cuda cores, float32"}
     per_sm = max(1, min(4, SMEM_PER_SM // (mma_smem_bytes(D, bm, MB)
                                            + 1024)))
-    nsplit, spb = plan_splits(items, MB, bs, sm_count, per_sm)
+    nsplit, spb = plan_splits(items * NR, MB, bs, sm_count, per_sm)
     return {"nsplit": nsplit, "slots_per_split": spb, "items": items,
-            "grid": (K, items // K, nsplit), "rows_per_block": bm,
+            "ranks": NR, "grid": (K, items // K, NR * nsplit),
+            "rows_per_block": bm,
             "blocks_per_sm": per_sm,
             "smem_bytes": mma_smem_bytes(D, bm, spb),
             "route": "tensor cores, mma.sync bf16"}
@@ -108,6 +122,56 @@ def paged_prefill_attention_plain(q, pool_k, pool_v, table, tail_len, *,
     return o.reshape(C, H, D), m.reshape(C, H), l.reshape(C, H)
 
 
+def paged_prefill_attention_ranks_plain(q, pools_k, pools_v, tables, tails,
+                                        *, scale):
+    """q [C,H,D]; pools_k/v [NR,NB,bs,K,D]; tables [NR,MB]; tails [NR]
+    -> (o [NR,C,H,D], m [NR,C,H], l [NR,C,H]) float32."""
+    return stack_ranks(paged_prefill_attention_plain, q, pools_k, pools_v,
+                       tables, tails, scale=scale)
+
+
+def _prefill_launch(counter, q, pool_k, pool_v, table, tail_len, scale,
+                    NR: int, rank_stride: int):
+    """Launch the prefill-chunk kernel over ``NR`` rank pools (checked
+    inputs); returns float32 ``(o [NR*C,H,D], m, l [NR*C,H])`` and adds
+    one to ``counter.launches`` after the launch."""
+    C, H, D = q.shape
+    bs, K = pool_k.shape[-3], pool_k.shape[-2]
+    MB = table.shape[-1]
+    dev = q.device
+    o, m, l = partial_outputs(NR * C, H, D, dev)
+    if C == 0:
+        return o, m, l
+    q = q.contiguous()
+    table = table.to(torch.int32).contiguous()
+    tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).reshape(
+        NR).contiguous()
+    plan = prefill_plan(C, H, K, D, MB, bs, q.dtype,
+                        device_sm_count(dev.index), NR)
+    nsplit = plan["nsplit"]
+    ws = tickets = None
+    if nsplit > 1:
+        ws = torch.empty((nsplit, NR, C, H, D + 2), dtype=torch.float32,
+                         device=dev)
+        tickets = split_tickets("micro_attn_prefill", dev,
+                                plan["items"] * NR)
+    lib = build.load("micro_attn_prefill", "paged_prefill_launch",
+                     _ARGTYPES)
+    err = lib.paged_prefill_launch(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), _ptr(ws), _ptr(tickets), NR, C, H, K, D, bs, MB,
+        rank_stride, nsplit, plan["slots_per_split"],
+        plan["rows_per_block"], plan["smem_bytes"],
+        0 if tickets is None else tickets.numel(), float(scale),
+        _DTYPES[q.dtype], current_stream(dev))
+    if err:
+        raise RuntimeError(f"paged prefill kernel launch failed: CUDA error "
+                           f"{err}")
+    counter.launches += 1
+    return o, m, l
+
+
 def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
                                  scale):
     """Launch the prefill-chunk kernel on q's current stream.
@@ -116,38 +180,25 @@ def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
     on inputs it does not take and RuntimeError if the launch fails.
     """
     check_inputs(q, pool_k, pool_v, table)
+    return _prefill_launch(paged_prefill_attention_cuda, q, pool_k, pool_v,
+                           table, tail_len, scale, 1, 0)
+
+
+def paged_prefill_attention_ranks_cuda(q, pools_k, pools_v, tables, tails,
+                                       *, scale):
+    """Launch the prefill-chunk kernel ONCE over every rank pool.
+
+    Same contract as ``paged_prefill_attention_ranks_plain``; the pools
+    may be a strided view (each rank's slab contiguous), never copied.
+    """
+    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True)
+    NR = pools_k.shape[0]
     C, H, D = q.shape
-    NB, bs, K, _ = pool_k.shape
-    MB = table.shape[0]
-    dev = q.device
-    o, m, l = partial_outputs(C, H, D, dev)
-    if C == 0:
-        return o, m, l
-    q = q.contiguous()
-    table = table.to(torch.int32).contiguous()
-    tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).reshape(1)
-    plan = prefill_plan(C, H, K, D, MB, bs, q.dtype,
-                        device_sm_count(dev.index))
-    nsplit = plan["nsplit"]
-    ws = tickets = None
-    if nsplit > 1:
-        ws = torch.empty((nsplit, C, H, D + 2), dtype=torch.float32,
-                         device=dev)
-        tickets = split_tickets("micro_attn_prefill", dev, plan["items"])
-    lib = build.load("micro_attn_prefill", "paged_prefill_launch",
-                     _ARGTYPES)
-    err = lib.paged_prefill_launch(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), _ptr(ws), _ptr(tickets), C, H, K, D, bs, MB, nsplit,
-        plan["slots_per_split"], plan["rows_per_block"], plan["smem_bytes"],
-        0 if tickets is None else tickets.numel(), float(scale),
-        _DTYPES[q.dtype], current_stream(dev))
-    if err:
-        raise RuntimeError(f"paged prefill kernel launch failed: CUDA error "
-                           f"{err}")
-    paged_prefill_attention_cuda.launches += 1
-    return o, m, l
+    o, m, l = _prefill_launch(paged_prefill_attention_ranks_cuda, q,
+                              pools_k, pools_v, tables, tails, scale, NR,
+                              rank_stride)
+    return o.view(NR, C, H, D), m.view(NR, C, H), l.view(NR, C, H)
 
 
 paged_prefill_attention_cuda.launches = 0
+paged_prefill_attention_ranks_cuda.launches = 0

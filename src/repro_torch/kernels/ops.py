@@ -2,9 +2,13 @@
 
 ``paged_micro_attention`` (decode) and ``paged_prefill_attention``
 (prefill chunk) keep the JAX package's signatures and ``(o, m, l)``
-float32 outputs; ``flash_prefill`` (causal, optionally sliding-window,
+float32 outputs, and so do their rank forms over a stack of rank pools,
+``paged_micro_attention_ranks`` and ``paged_prefill_attention_ranks``
+(the global pool's path: ONE launch of the same kernel, the rank one
+more grid axis, where the JAX package vmaps the Pallas kernel);
+``flash_prefill`` (causal, optionally sliding-window,
 whole-prompt attention) keeps its signature and returns the normalized
-output in q's dtype. All three dispatch on the device of ``q``: a CUDA
+output in q's dtype. All five dispatch on the device of ``q``: a CUDA
 tensor launches the hand-written kernel — or raises, never falling back
 — and a CPU tensor runs the kernel's plain PyTorch twin. The TPU-only
 wrapper work of the reference (padding D to 128 lanes and S to the tile,
@@ -41,9 +45,11 @@ import torch
 from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
                                                flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
-    paged_micro_attention_cuda, paged_micro_attention_plain)
+    paged_micro_attention_cuda, paged_micro_attention_plain,
+    paged_micro_attention_ranks_cuda, paged_micro_attention_ranks_plain)
 from repro_torch.kernels.micro_attn_prefill import (
-    paged_prefill_attention_cuda, paged_prefill_attention_plain)
+    paged_prefill_attention_cuda, paged_prefill_attention_plain,
+    paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain)
 
 
 def _route(q: torch.Tensor) -> str:
@@ -92,6 +98,43 @@ def paged_prefill_attention(q, pool_k, pool_v, table, tail_len, *,
                                          tail_len, scale=scale)
 
 
+def paged_micro_attention_ranks(q, pools_k, pools_v, tables, tails, *,
+                                scale=None):
+    """Decode MicroAttention partials over a stack of rank pools.
+
+    q [R,H,D] shared by every rank; pools_k/v [NR,NB,bs,K,D] (a strided
+    view is fine: each rank's slab must be contiguous); tables
+    [NR,R,MB]; tails [NR,R]. Returns stacked partials (o [NR,R,H,D],
+    m [NR,R,H], l [NR,R,H]) — merge with ``merge_partials(axis=0)``.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _route(q) == "cuda":
+        return paged_micro_attention_ranks_cuda(q, pools_k, pools_v, tables,
+                                                tails, scale=scale)
+    paged_micro_attention_ranks.plain_calls += 1
+    return paged_micro_attention_ranks_plain(q, pools_k, pools_v, tables,
+                                             tails, scale=scale)
+
+
+def paged_prefill_attention_ranks(q, pools_k, pools_v, tables, tails, *,
+                                  scale=None):
+    """Prefill-chunk MicroAttention partials over a stack of rank pools.
+
+    q [C,H,D] chunk queries shared by every rank; pools_k/v
+    [NR,NB,bs,K,D]; tables [NR,MB]; tails [NR]. Returns stacked partials
+    (o [NR,C,H,D], m [NR,C,H], l [NR,C,H]).
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _route(q) == "cuda":
+        return paged_prefill_attention_ranks_cuda(q, pools_k, pools_v,
+                                                  tables, tails, scale=scale)
+    paged_prefill_attention_ranks.plain_calls += 1
+    return paged_prefill_attention_ranks_plain(q, pools_k, pools_v, tables,
+                                               tails, scale=scale)
+
+
 def flash_prefill(q, k, v, *, scale=None, window=0):
     """Causal flash attention, optionally sliding-window (local layers).
 
@@ -114,6 +157,10 @@ WRAPPERS = {
                               paged_micro_attention_cuda),
     "paged_prefill_attention": (paged_prefill_attention,
                                 paged_prefill_attention_cuda),
+    "paged_micro_attention_ranks": (paged_micro_attention_ranks,
+                                    paged_micro_attention_ranks_cuda),
+    "paged_prefill_attention_ranks": (paged_prefill_attention_ranks,
+                                      paged_prefill_attention_ranks_cuda),
     "flash_prefill": (flash_prefill, flash_prefill_cuda),
 }
 

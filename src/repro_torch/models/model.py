@@ -3,6 +3,8 @@
 Families ported so far:
 
   dense   — [ln1, attn, ln2, ffn] x L
+  moe     — ``first_k_dense`` dense layers + [ln1, attn, ln2, moe] x L'
+            (``dense_layers`` / ``moe_layers`` stacks)
   hybrid  — repeating ``block_pattern`` groups of RG-LRU and local
             (sliding-window) attention layers, plus leftover layers
             (RecurrentGemma)
@@ -10,9 +12,8 @@ Families ported so far:
 The JAX package stacks per-layer parameters along a leading layer (or
 group) axis and scans over them; the port keeps that stacked layout (so
 the weight bridge is key-for-key) and runs a Python loop over layers,
-slicing one layer's parameters per iteration (``layer_params``,
-``_layer_params``). MoE and SSM families raise and come with later
-slices.
+slicing one layer's parameters per iteration (``attn_layer_params``,
+``_layer_params``). The ssm family raises and comes with a later slice.
 """
 from __future__ import annotations
 
@@ -29,10 +30,13 @@ from repro_torch.models.attention import (apply_attention_train,
 from repro_torch.models.common import (apply_ffn, apply_norm, dense_init,
                                        embed_init, init_ffn, init_norm,
                                        sinusoidal_embedding, torch_dtype)
+from repro_torch.models.moe import apply_moe, init_moe, moe_aux_loss
 from repro_torch.models.rglru import (apply_rglru_block, init_rglru_block,
                                       rglru_state_shape)
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
+# Families whose KV lives in paged pools (every layer attends).
+POOLED_FAMILIES = ("dense", "moe")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,18 +62,23 @@ def require_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported here yet (only "
-            f"{', '.join(repr(f) for f in families)}); MoE and the ssm "
-            f"family come with later slices")
+            f"{', '.join(repr(f) for f in families)}); the ssm family "
+            f"comes with a later slice")
 
 
 # ===================================================================== #
 # Init
 # ===================================================================== #
-def _init_attn_layer(gen, cfg: ModelConfig, *, device, lead=()):
-    return {"ln1": init_norm(cfg, cfg.d_model, device=device, lead=lead),
-            "attn": init_attention(gen, cfg, device=device, lead=lead),
-            "ln2": init_norm(cfg, cfg.d_model, device=device, lead=lead),
-            "ffn": init_ffn(gen, cfg, device=device, lead=lead)}
+def _init_attn_layer(gen, cfg: ModelConfig, *, device, lead=(),
+                     moe: bool = False):
+    p = {"ln1": init_norm(cfg, cfg.d_model, device=device, lead=lead),
+         "attn": init_attention(gen, cfg, device=device, lead=lead),
+         "ln2": init_norm(cfg, cfg.d_model, device=device, lead=lead)}
+    if moe:
+        p["moe"] = init_moe(gen, cfg, device=device, lead=lead)
+    else:
+        p["ffn"] = init_ffn(gen, cfg, device=device, lead=lead)
+    return p
 
 
 def _init_rglru_layer(gen, cfg: ModelConfig, *, device, lead=()):
@@ -95,7 +104,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights with the JAX ``init_params`` distributions and keys.
 
     ``generator`` must live on ``device`` (default: a generator seeded 0).
-    Dense: per-layer leaves carry a leading ``num_layers`` axis. Hybrid:
+    Dense: per-layer leaves carry a leading ``num_layers`` axis. MoE:
+    ``dense_layers`` (the first ``first_k_dense`` layers, FFN width
+    ``d_ff``, only if any) and ``moe_layers`` stacks. Hybrid:
     ``groups`` holds one entry ``f"{j}_{kind}"`` per pattern position with
     a leading ``n_groups`` axis, ``leftover`` the unstacked remaining
     layers — as in JAX.
@@ -115,6 +126,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                   device=dev)
     if cfg.family == "dense":
         p["layers"] = _init_attn_layer(gen, cfg, device=dev, lead=(L,))
+        return p
+    if cfg.family == "moe":
+        nd = cfg.first_k_dense
+        if nd:
+            p["dense_layers"] = _init_attn_layer(gen, cfg, device=dev,
+                                                 lead=(nd,))
+        p["moe_layers"] = _init_attn_layer(gen, cfg, device=dev,
+                                           lead=(L - nd,), moe=True)
         return p
     n_groups, n_left = hybrid_groups(cfg)
     pat = cfg.block_pattern
@@ -140,6 +159,27 @@ def layer_params(stacked, i: int):
     return stacked[i]
 
 
+def attn_layer_params(params, cfg: ModelConfig, i: int):
+    """Layer ``i``'s parameters of a dense or MoE model (views): MoE
+    layers below ``first_k_dense`` come from ``dense_layers``, the rest
+    from ``moe_layers``."""
+    if cfg.family == "dense":
+        return layer_params(params["layers"], i)
+    nd = cfg.first_k_dense
+    if i < nd:
+        return layer_params(params["dense_layers"], i)
+    return layer_params(params["moe_layers"], i - nd)
+
+
+def ffn_or_moe(lp, h, cfg: ModelConfig,
+               capacity_factor: float = 1.25) -> torch.Tensor:
+    """The layer's feed-forward block: its dense FFN, or its MoE (a
+    layer's parameters hold ``ffn`` or ``moe``, never both)."""
+    if "moe" in lp:
+        return apply_moe(lp["moe"], h, cfg, capacity_factor)
+    return apply_ffn(lp["ffn"], h, cfg)
+
+
 def _layer_params(params, cfg: ModelConfig, i: int):
     """Layer ``i``'s parameters of a hybrid model (views, no copy)."""
     pat = cfg.block_pattern
@@ -154,12 +194,17 @@ def _layer_params(params, cfg: ModelConfig, i: int):
 # ===================================================================== #
 # Full-sequence forward
 # ===================================================================== #
-def _attn_layer_fwd(lp, x, positions, cfg, core):
+def _attn_layer_fwd(lp, x, positions, cfg, core, *,
+                    capacity_factor: float = 1.25):
+    """One attention layer. Returns (x, (k, v), MoE aux loss — 0 for a
+    dense FFN layer)."""
     h = apply_norm(lp["ln1"], x, cfg)
     attn_out, kv = apply_attention_train(lp["attn"], h, positions, cfg, core)
     x = x + attn_out
     h = apply_norm(lp["ln2"], x, cfg)
-    return x + apply_ffn(lp["ffn"], h, cfg), kv
+    aux = (moe_aux_loss(lp["moe"], h, cfg) if "moe" in lp
+           else torch.zeros((), device=x.device))
+    return x + ffn_or_moe(lp, h, cfg, capacity_factor), kv, aux
 
 
 def _rglru_layer_fwd(lp, x, cfg, state=None, *, decode=False):
@@ -187,22 +232,28 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, backend: str = "xla",
-            chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward. Returns (logits [B,T,V], moe_aux).
+            chunk: int = 512, capacity_factor: float = 1.25
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward. Returns (logits [B,T,V], moe_aux —
+    the MoE layers' summed load-balancing loss, 0 without MoE).
 
-    Hybrid attention layers use the sliding-window core
-    (``window=cfg.local_window``) of the same backend.
+    MoE layers route with ``capacity_factor`` (the default drops tokens
+    past capacity, as in JAX). Hybrid attention layers use the
+    sliding-window core (``window=cfg.local_window``) of the same backend.
     """
     require_family(cfg)
     B, T = tokens.shape
     dev = tokens.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
     x = embed_tokens(params, cfg, tokens, positions)
-    if cfg.family == "dense":
+    aux = torch.zeros((), device=dev)
+    if cfg.family in POOLED_FAMILIES:
         core = make_causal_core(cfg, backend=backend, chunk=chunk)
         for i in range(cfg.num_layers):
-            x, _ = _attn_layer_fwd(layer_params(params["layers"], i), x,
-                                   positions, cfg, core)
+            x, _, a = _attn_layer_fwd(attn_layer_params(params, cfg, i), x,
+                                      positions, cfg, core,
+                                      capacity_factor=capacity_factor)
+            aux = aux + a
     else:
         wcore = make_causal_core(cfg, backend=backend, chunk=chunk,
                                  window=cfg.local_window)
@@ -211,8 +262,8 @@ def forward(params, cfg: ModelConfig, tokens, *, backend: str = "xla",
             if cfg.layer_kind(i) == "rglru":
                 x, _ = _rglru_layer_fwd(lp, x, cfg)
             else:
-                x, _ = _attn_layer_fwd(lp, x, positions, cfg, wcore)
-    return unembed(params, cfg, x), torch.zeros((), device=dev)
+                x, _, _ = _attn_layer_fwd(lp, x, positions, cfg, wcore)
+    return unembed(params, cfg, x), aux
 
 
 # ===================================================================== #
@@ -224,11 +275,11 @@ class DecodeState(NamedTuple):
     kv_v: Any
     lens: torch.Tensor  # [B] current sequence length
     rec: Any           # hybrid: (conv [n_rg,B,3,w], h [n_rg,B,w] f32);
-    #                    dense: None
+    #                    dense, moe: None
 
 
 def n_attn_layers(cfg: ModelConfig) -> int:
-    """Attention layers of the model (every layer for the dense family)."""
+    """Attention layers of the model (every layer for dense and MoE)."""
     return sum(1 for i in range(cfg.num_layers)
                if cfg.layer_kind(i) == "attn")
 
@@ -237,7 +288,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       prefix_lens=None, *, device) -> DecodeState:
     """Zero cache for ``batch`` sequences.
 
-    Dense: KV of ``max_len`` tokens per layer. Hybrid: a ring of
+    Dense, MoE: KV of ``max_len`` tokens per layer. Hybrid: a ring of
     ``min(max_len, local_window)`` tokens per attention layer (slot =
     position % ring), plus zero RG-LRU and conv states, as in JAX.
     """
@@ -247,7 +298,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     lens = (torch.zeros((batch,), dtype=torch.int64, device=device)
             if prefix_lens is None else prefix_lens)
     n_attn = n_attn_layers(cfg)
-    w = max_len if cfg.family == "dense" else min(max_len, cfg.local_window)
+    w = (max_len if cfg.family in POOLED_FAMILIES
+         else min(max_len, cfg.local_window))
     kv_k = torch.zeros((n_attn, batch, w, K, hd), dtype=dt, device=device)
     kv_v = torch.zeros((n_attn, batch, w, K, hd), dtype=dt, device=device)
     rec = None
@@ -291,7 +343,7 @@ def _attn_layer_decode(lp, x, ck, cv, lens, cfg, *, window=0):
     x = x + _cached_attn_decode(lp["attn"], h, ck, cv, lens, cfg,
                                 window=window)
     h = apply_norm(lp["ln2"], x, cfg)
-    return x + apply_ffn(lp["ffn"], h, cfg)
+    return x + ffn_or_moe(lp, h, cfg, capacity_factor=-1.0)
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState,
@@ -305,9 +357,9 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
     require_family(cfg)
     lens = state.lens
     x = embed_tokens(params, cfg, tokens[:, None], positions=lens[:, None])
-    if cfg.family == "dense":
+    if cfg.family in POOLED_FAMILIES:
         for i in range(cfg.num_layers):
-            x = _attn_layer_decode(layer_params(params["layers"], i), x,
+            x = _attn_layer_decode(attn_layer_params(params, cfg, i), x,
                                    state.kv_k[i], state.kv_v[i], lens, cfg)
     else:
         conv_c, lru_h = state.rec

@@ -27,7 +27,10 @@ block ``NB`` (inactive decode slots, creditor-bound or padded prefill
 rows; the JAX ``mode="drop"`` writes) are removed on the host before the
 write: an out-of-range index would be a device-side assert on the card.
 Tables keep the reference's bucketed widths (``kvpool.table_bucket``).
-The paged steps serve the dense family only.
+The paged steps serve the dense and MoE families; MoE layers route with
+no capacity drop (``capacity_factor=-1``), as the JAX serving steps do.
+The global pool's steps, over one cluster-wide pool tensor, are in
+``repro_torch.serving.sharded_step``.
 """
 from __future__ import annotations
 
@@ -42,11 +45,13 @@ from repro_torch.core.online_softmax import (combine, finalize,
 from repro_torch.kernels.ops import (paged_micro_attention,
                                      paged_prefill_attention)
 from repro_torch.models.attention import make_causal_core, qkv_project
-from repro_torch.models.common import apply_ffn, apply_norm
-from repro_torch.models.model import (DecodeState, _attn_layer_fwd,
-                                      _layer_params, _rglru_layer_fwd,
-                                      embed_tokens, init_decode_state,
-                                      layer_params, require_family, unembed)
+from repro_torch.models.common import apply_norm
+from repro_torch.models.model import (POOLED_FAMILIES, DecodeState,
+                                      _attn_layer_fwd, _layer_params,
+                                      _rglru_layer_fwd, attn_layer_params,
+                                      embed_tokens, ffn_or_moe,
+                                      init_decode_state, require_family,
+                                      unembed)
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -55,16 +60,18 @@ Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 # Prefill (dense oracle)
 # ===================================================================== #
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
-            backend: str = "xla", chunk: int = 512
+            backend: str = "xla", chunk: int = 512,
+            capacity_factor: float = -1.0
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Uniform-length prefill. Returns (logits_last [B,V], DecodeState).
 
     The cache keeps the LAST min(T, ring) tokens in ring layout (slot =
     position % ring), as in the JAX package; ring = max_len for the
-    dense family, min(max_len, local_window) for the hybrid family, whose
-    attention layers use the sliding-window core of ``backend``. The
-    hybrid RG-LRU and conv states are stored in layer order, the order
-    ``decode_step`` reads them in.
+    dense and MoE families (MoE layers route with ``capacity_factor``,
+    by default no drop), min(max_len, local_window) for the hybrid
+    family, whose attention layers use the sliding-window core of
+    ``backend``. The hybrid RG-LRU and conv states are stored in layer
+    order, the order ``decode_step`` reads them in.
     """
     require_family(cfg)
     B, T = tokens.shape
@@ -75,11 +82,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     ring = state.kv_k.shape[2]
     n = min(T, ring)
     slots = torch.arange(T - n, T, device=dev) % ring
-    if cfg.family == "dense":
+    if cfg.family in POOLED_FAMILIES:
         core = make_causal_core(cfg, backend=backend, chunk=chunk)
         for i in range(cfg.num_layers):
-            x, (k, v) = _attn_layer_fwd(layer_params(params["layers"], i),
-                                        x, positions, cfg, core)
+            x, (k, v), _ = _attn_layer_fwd(
+                attn_layer_params(params, cfg, i), x, positions, cfg, core,
+                capacity_factor=capacity_factor)
             state.kv_k[i][:, slots] = k[:, T - n:]
             state.kv_v[i][:, slots] = v[:, T - n:]
     else:
@@ -95,7 +103,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
                 h[ri].copy_(hh)
                 ri += 1
             else:
-                x, (k, v) = _attn_layer_fwd(lp, x, positions, cfg, wcore)
+                x, (k, v), _ = _attn_layer_fwd(lp, x, positions, cfg, wcore)
                 state.kv_k[ai][:, slots] = k[:, T - n:]
                 state.kv_v[ai][:, slots] = v[:, T - n:]
                 ai += 1
@@ -137,7 +145,7 @@ def repack_ring(state: DecodeState, new_maxlen: int,
 def batch_axis_map(cfg: ModelConfig):
     """Batch-axis index of each DecodeState field's tensors."""
     require_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in POOLED_FAMILIES:
         return {"kv": 1, "rec": None}
     return {"kv": 1, "rec": 1}
 
@@ -223,7 +231,7 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, lens,
                       pool_k: torch.Tensor, pool_v: torch.Tensor,
                       tables, tails, write_block, write_off,
                       remote_pools: Pools = ()):
-    """Paged DistAttention decode (dense serving path).
+    """Paged DistAttention decode (dense and MoE serving path).
 
     tokens/lens: [B] (lens = absolute position of the new token);
     pool_k/pool_v: [L, NB, bs, K, hd] — the owner rank's pool, updated IN
@@ -234,7 +242,7 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, lens,
     remote_pools: creditor pool pairs, read-only.
     Returns (logits [B, V], pool_k, pool_v) — the same pool tensors.
     """
-    require_family(cfg, ("dense",))
+    require_family(cfg, POOLED_FAMILIES)
     dev = pool_k.device
     tokens = torch.as_tensor(_host(tokens), dtype=torch.int64).to(dev)
     lens = torch.as_tensor(_host(lens), dtype=torch.int64).to(dev)
@@ -243,14 +251,14 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, lens,
     write = _write_plan(write_block, write_off, pool_k.shape[1], dev)
     x = embed_tokens(params, cfg, tokens[:, None], positions=lens[:, None])
     for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+        lp = attn_layer_params(params, cfg, i)
         h = apply_norm(lp["ln1"], x, cfg)
         x = x + _paged_attn_decode(
             lp["attn"], h, lens, pool_k[i], pool_v[i],
             [(rk[i], rv[i]) for rk, rv in remote_pools], tables, tails,
             write, cfg)
         h = apply_norm(lp["ln2"], x, cfg)
-        x = x + apply_ffn(lp["ffn"], h, cfg)
+        x = x + ffn_or_moe(lp, h, cfg, capacity_factor=-1.0)
     logits = unembed(params, cfg, x[:, 0])
     return logits, pool_k, pool_v
 
@@ -301,7 +309,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, t0: int,
     pool_v, k_chunk [L, C, K, hd], v_chunk) — the chunk KV export is what
     the engine streams to creditor pools for prefix rows.
     """
-    require_family(cfg, ("dense",))
+    require_family(cfg, POOLED_FAMILIES)
     dev = pool_k.device
     C = len(tokens)
     toks = torch.as_tensor(_host(tokens), dtype=torch.int64).to(dev)[None]
@@ -314,7 +322,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, t0: int,
     x = embed_tokens(params, cfg, toks, positions)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+        lp = attn_layer_params(params, cfg, i)
         h = apply_norm(lp["ln1"], x, cfg)
         out, k, v = _chunk_attn_paged(
             lp["attn"], h, positions, valid, pool_k[i], pool_v[i],
@@ -322,7 +330,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, t0: int,
             write, cfg)
         x = x + out
         h = apply_norm(lp["ln2"], x, cfg)
-        x = x + apply_ffn(lp["ffn"], h, cfg)
+        x = x + ffn_or_moe(lp, h, cfg, capacity_factor=-1.0)
         ks.append(k)
         vs.append(v)
     logits = unembed(params, cfg, x[:, n_valid - 1])

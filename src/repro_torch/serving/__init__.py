@@ -27,12 +27,15 @@ Internal layers (exported for tests and tools)
 KV pool addressed through ``RankKVPool`` block tables) plus a
 ``GManager`` running the paper's Algorithm 1 via ``GreedyScheduler``.
 The paged attention partials run in the hand-written CUDA kernels of
-``repro_torch.kernels``.
+``repro_torch.kernels``. With ``ServingConfig(global_pool=True)`` the
+engines alias rank slices of one cluster-wide ``GlobalKVPool`` tensor on
+the card instead of owning private pools.
 """
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.config import (FaultPolicy, OverloadPolicy,
                                         ServingConfig)
 from repro_torch.serving.engine import InstanceEngine
+from repro_torch.serving.globalpool import GlobalKVPool
 from repro_torch.serving.gmanager import GManager
 from repro_torch.serving.kvpool import BlockAllocator, RankKVPool
 from repro_torch.serving.perfmodel import InstancePerfModel, cluster_tps
@@ -49,5 +52,5 @@ __all__ = [
     "Cluster", "InstanceEngine", "GManager", "BlockAllocator", "RankKVPool",
     "InstancePerfModel", "cluster_tps", "Request", "RequestIdAllocator",
     "RequestState", "SamplingParams", "RManager", "GreedyScheduler",
-    "InstanceView", "SpanLeg", "StripedMove",
+    "InstanceView", "SpanLeg", "StripedMove", "GlobalKVPool",
 ]

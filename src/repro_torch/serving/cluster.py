@@ -27,23 +27,36 @@ Both protocols stage their pool-row copies on the cluster's
 owner's multi-rank ``decode_step_paged`` merge (creditor pools are read
 directly, block-table addressed).
 
+Global-pool mode (``ServingConfig.global_pool``, dense and MoE): ONE
+``GlobalKVPool`` tensor ``[n_instances, L, NB, bs, K, hd]`` on the card
+holds every instance's KV; each engine aliases its rank's slice and
+allocator, a StripedMove leg is a block copy inside the tensor
+(``GlobalKVPool.copy_blocks``), admission writes creditor rows in the
+prefill step itself, and decode reads every rank in one kernel launch a
+layer. The rank axis is fixed at construction, so ``add_instance``
+raises there.
+
 Engines of a non-pooled (hybrid) model hold no pool: reactive moves,
 Algorithm-1 plans and creditor picks all skip them, so nothing ever
 moves to, from or between them.
 
-Not in this slice of the port (each raises NotImplementedError): the
-global pool, the prefix cache and host tier, overload preemption, and
-fault injection/recovery (``kill_instance``, ``install_faults``).
+Not in this port yet (each raises NotImplementedError): the prefix cache
+and host tier, overload preemption, fault injection/recovery
+(``kill_instance``, ``install_faults``), and a global pool sharded over
+several devices.
 """
 from __future__ import annotations
 
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import resolve_device
+from repro_torch.models.model import POOLED_FAMILIES, resolve_device
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import InstanceEngine
+from repro_torch.serving.globalpool import GlobalKVPool
 from repro_torch.serving.gmanager import GManager
 from repro_torch.serving.kvpool import rows_for_token_range
 from repro_torch.serving.perfmodel import InstancePerfModel
@@ -111,6 +124,26 @@ class PrefixSink:
             cov[d] += min(max(upto - start, 0), len(blocks) * self._bs)
         return cov
 
+    def row_targets(self, t0: int, t1: int):
+        """Per-token (rank, block, offset) of global tokens [t0, t1) in
+        the committed creditor spans — the global-pool prefill step
+        writes creditor rows itself with these."""
+        n = t1 - t0
+        ranks = np.zeros(n, np.int32)
+        blks = np.zeros(n, np.int32)
+        offs = np.zeros(n, np.int32)
+        for d, start, blocks in self._spans:
+            lo = max(t0, start)
+            hi = min(t1, start + len(blocks) * self._bs)
+            if lo >= hi:
+                continue
+            b, o = rows_for_token_range(blocks, self._bs, lo - start,
+                                        hi - start)
+            ranks[lo - t0:hi - t0] = d
+            blks[lo - t0:hi - t0] = b
+            offs[lo - t0:hi - t0] = o
+        return ranks, blks, offs
+
     def write(self, t0: int, k, v) -> None:
         """Scatter global prefix rows [t0, t0 + n) into creditor pools.
 
@@ -159,8 +192,6 @@ class Cluster:
                  config: Optional[ServingConfig] = None, *,
                  perf: Optional[InstancePerfModel] = None, device=None):
         config = config if config is not None else ServingConfig()
-        if config.global_pool:
-            raise NotImplementedError(f"the global KV pool {_LATER}")
         if config.prefix_cache or config.host_tier_blocks > 0:
             raise NotImplementedError(
                 f"the prefix cache and host-DRAM tier {_LATER}")
@@ -175,13 +206,21 @@ class Cluster:
         # All stripe/offload/reclaim row copies and streaming-prefill
         # creditor writes go through one double-buffered stager.
         self.stager = AsyncStager(overlap=config.async_movement)
+        # Global-pool mode: ONE [n_instances, L, NB, bs, K, hd] tensor
+        # holds every instance's KV; every engine aliases its rank's
+        # slice + allocator.
+        self.gpool = None
+        if config.global_pool and cfg.family in POOLED_FAMILIES:
+            self.gpool = GlobalKVPool(config.n_instances,
+                                      config.pool_blocks, config.block_size,
+                                      cfg, device=self.device)
         self.engines: Dict[int, InstanceEngine] = {
             i: InstanceEngine(params, cfg, max_batch=config.max_batch,
                               max_local_len=config.max_local_len,
                               pool_blocks=config.pool_blocks,
                               block_size=config.block_size, inst_id=i,
                               prefill_chunk=config.prefill_chunk,
-                              device=self.device)
+                              device=self.device, gpool=self.gpool)
             for i in range(config.n_instances)
         }
         for eng in self.engines.values():
@@ -359,13 +398,21 @@ class Cluster:
             dst = self.engines[dst_id]
             src_blocks = list(
                 src.rmanager.pool.requests[mv.req_id].blocks[:n])
-            k, v = src.extract_prefix_kv(req, n)
             blocks = dst.rmanager.commit_move_in(
                 mv.req_id, n, at_front=(dst_id == owner.inst_id))
-            dst.host_kv(mv.req_id, blocks, k, v)
+            if self.gpool is not None:
+                # Global-pool mode: the leg is ONE block copy between
+                # rank slices of the tensor + allocator/table edits.
+                self.gpool.copy_blocks(src.inst_id, src_blocks, dst_id,
+                                       blocks)
+            else:
+                k, v = src.extract_prefix_kv(req, n)
+                dst.host_kv(mv.req_id, blocks, k, v)
             self.stager.stage((dst.pool_k, dst.pool_v))
             src.rmanager.move_out_prefix(mv.req_id, n)
-            nbytes = int(k.numel() + v.numel()) * k.element_size()
+            c = self.cfg
+            nbytes = (2 * c.num_layers * n * bs * c.num_kv_heads *
+                      c.head_dim * src.pool_k.element_size())
             if dst_id != owner.inst_id:
                 insts = owner.remote_insts.setdefault(mv.req_id, [])
                 if dst_id not in insts:
@@ -435,6 +482,10 @@ class Cluster:
 
     def add_instance(self, params) -> int:
         """Elastic scale-out: new instance joins as a fresh creditor."""
+        if self.gpool is not None:
+            raise RuntimeError(
+                "add_instance is unsupported in global-pool mode: the "
+                "pool tensor's rank axis is fixed at construction")
         new_id = max(self.engines) + 1
         ref = next(iter(self.engines.values()))
         self.engines[new_id] = InstanceEngine(

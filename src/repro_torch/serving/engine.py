@@ -36,6 +36,16 @@ every step and row copy updates them in place (the JAX package donates
 them instead). ``CommStats.pool_copy_steps`` counts decode steps after
 which the pool's ``data_ptr()`` changed — 0 on the hot path.
 
+GLOBAL-POOL MODE (``gpool``, a cluster-installed ``GlobalKVPool``): the
+engine holds no private pool. ``pool_k``/``pool_v`` are views of its
+rank's slice of the ONE cluster-wide ``[NR, L, NB, bs, K, hd]`` tensor
+and the rManager aliases the shared per-rank allocator, so every row
+copy above works unchanged on the shared tensor. Admission runs
+``prefill_chunk_global`` and decode ``decode_step_global``: one
+rank-form kernel launch per layer reads every rank's slab, creditor
+rows included, and the step writes both owner- and creditor-bound rows
+itself (the prefix sink only reserves and accounts).
+
 NON-POOLED PATH (hybrid family): a model whose state is O(1) in the
 sequence — RG-LRU states and a local-attention KV ring bounded by the
 window — has nothing for DistAttention to pool. Its engine holds no pool
@@ -49,10 +59,10 @@ allocator still accounts each request's tokens against the quota, and a
 prompt longer than ``max_local_len - block_size`` FAILS (it cannot span
 creditors).
 
-This slice ports the per-instance pool path of the dense family and the
-non-pooled path of the hybrid family. The JAX engine's global pool,
-prefix cache, host tier, preemption, fault replay and the ssm family
-come later.
+This port covers the per-instance and global pool paths of the dense
+and MoE families and the non-pooled path of the hybrid family. The JAX
+engine's prefix cache, host tier, preemption, fault replay and the ssm
+family come later.
 """
 from __future__ import annotations
 
@@ -65,9 +75,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import torch_dtype
-from repro_torch.models.model import (decode_step, init_decode_state,
-                                      params_device, require_family,
-                                      resolve_device)
+from repro_torch.models.model import (POOLED_FAMILIES, decode_step,
+                                      init_decode_state, params_device,
+                                      require_family, resolve_device)
 from repro_torch.models.prefill import (decode_step_paged, prefill,
                                         prefill_chunk_paged, repack_ring,
                                         write_slot)
@@ -77,6 +87,8 @@ from repro_torch.serving.kvpool import (build_local_tables, prefix_tables,
                                         write_pool_rows)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.rmanager import RManager
+from repro_torch.serving.sharded_step import (decode_step_global,
+                                              prefill_chunk_global)
 
 
 @dataclass
@@ -135,13 +147,13 @@ class InstanceEngine:
     """One serving instance (model replica) on ``device``.
 
     Several instances may share one parameter tree (the cluster passes
-    the same tensors to each).
+    the same tensors to each), and in global-pool mode one pool tensor.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_batch: int = 8,
                  max_local_len: int = 256, pool_blocks: int = 1024,
                  block_size: int = 16, inst_id: int = 0,
-                 prefill_chunk: int = 32, device=None):
+                 prefill_chunk: int = 32, device=None, gpool=None):
         require_family(cfg)
         self.device = resolve_device(device)
         if params_device(params) != self.device:
@@ -154,26 +166,34 @@ class InstanceEngine:
         self.max_local_len = max_local_len
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
-        self.rmanager = RManager(inst_id, pool_blocks, block_size)
+        # Global-pool mode: this engine's KV lives in rank ``inst_id``'s
+        # slice of the cluster-wide tensor, and the rManager aliases the
+        # shared per-rank allocator.
+        self.gpool = gpool
+        self.rmanager = RManager(
+            inst_id, pool_blocks, block_size,
+            pool=(gpool.ranks[inst_id] if gpool is not None else None))
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.waiting: List[Request] = []
         self.stats = CommStats()
         self._gen = torch.Generator(device=self.device).manual_seed(
             1234 + inst_id)
         self._finished_events: List[int] = []
-        self._can_pool = cfg.family == "dense"
-        self.pool_k = self.pool_v = None
+        self._can_pool = cfg.family in POOLED_FAMILIES
+        self._pool_k = self._pool_v = None
         self.state = None
         if self._can_pool:
             assert max_local_len >= 2 * block_size, \
                 "local quota must cover at least two blocks"
-            L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-            dt = torch_dtype(cfg)
-            # THE serving KV store: every local or hosted byte lives here.
-            self.pool_k = torch.zeros((L, pool_blocks, block_size, K, hd),
-                                      dtype=dt, device=self.device)
-            self.pool_v = torch.zeros((L, pool_blocks, block_size, K, hd),
-                                      dtype=dt, device=self.device)
+            if gpool is None:
+                L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+                dt = torch_dtype(cfg)
+                # THE serving KV store: every local or hosted byte lives
+                # here (global mode: in gpool.k/gpool.v instead).
+                shape = (L, pool_blocks, block_size, K, hd)
+                self._pool_k = torch.zeros(shape, dtype=dt,
+                                           device=self.device)
+                self._pool_v = torch.zeros_like(self._pool_k)
         else:
             # Every slot's recurrent state and a window-sized KV ring.
             self.state = init_decode_state(cfg, max_batch, cfg.local_window,
@@ -193,6 +213,24 @@ class InstanceEngine:
         # (cluster OOM); the chunk loop streams KV rows in through
         # handle.write().
         self.prefix_sink: Optional[Callable] = None
+
+    # The pool handles are properties so the whole serving stack — row
+    # copies, staging, pointer checks — reads the same tensors in both
+    # modes: the private per-instance tensors, or this rank's view of
+    # the global tensors. None for a non-pooled engine.
+    @property
+    def pool_k(self) -> Optional[torch.Tensor]:
+        """Key pool [L, NB, bs, K, hd] (private, or the global view)."""
+        if self.gpool is None:
+            return self._pool_k
+        return self.gpool.k[self.inst_id]
+
+    @property
+    def pool_v(self) -> Optional[torch.Tensor]:
+        """Value pool [L, NB, bs, K, hd] (private, or the global view)."""
+        if self.gpool is None:
+            return self._pool_v
+        return self.gpool.v[self.inst_id]
 
     # ----------------------------------------------------------------- #
     def submit(self, req: Request) -> None:
@@ -347,6 +385,9 @@ class InstanceEngine:
         out through ``sink.write`` — the only transient tensors are
         chunk-sized, never [T]-sized.
         """
+        if self.gpool is not None:
+            return self._stream_prefill_global(req, tokens, n_over, n_local,
+                                               sink)
         rid = req.req_id
         T = len(tokens)
         bs, C = self.block_size, self.prefill_chunk
@@ -401,6 +442,71 @@ class InstanceEngine:
             # Table-commit point: the creditor spans become part of this
             # request's decode view now, so the staged row writes are
             # drained here — and only here.
+            sink.flush()
+        return logits
+
+    def _stream_prefill_global(self, req: Request, tokens: List[int],
+                               n_over: int, n_local: int, sink):
+        """``_stream_prefill`` over the GLOBAL pool tensor.
+
+        One ``prefill_chunk_global`` per chunk: the prefix partial runs
+        over EVERY rank's slab in one launch a layer, and creditor-striped
+        rows are written by the same in-step scatter as owner rows — the
+        sink only reserves the blocks, gives each row's target and covers
+        the tables (its flush drains the stager).
+        """
+        rid = req.req_id
+        T = len(tokens)
+        bs, C = self.block_size, self.prefill_chunk
+        gpool = self.gpool
+        pool = self.rmanager.pool
+        NB = pool.alloc.num_blocks
+        local_blocks = pool.requests[rid].blocks
+        cred_ids = list(sink.rank_ids) if sink is not None else []
+        cred_end = n_over                # first locally-written token
+        logits = None
+        for t0 in range(0, T, C):
+            if req.cancelled:
+                return _CANCELLED
+            t1 = min(t0 + C, T)
+            n_valid = t1 - t0
+            toks = np.zeros(C, np.int32)
+            toks[:n_valid] = tokens[t0:t1]
+            # Per-row (rank, block, offset) target; padded rows keep the
+            # out-of-range block sentinel.
+            wrank = np.full(C, self.inst_id, np.int32)
+            wblk = np.full(C, NB, np.int32)
+            woff = np.zeros(C, np.int32)
+            if sink is not None and t0 < cred_end:
+                hi = min(t1, cred_end)
+                rr, bb, oo = sink.row_targets(t0, hi)
+                wrank[:hi - t0] = rr
+                wblk[:hi - t0] = bb
+                woff[:hi - t0] = oo
+            lo = max(t0, cred_end)
+            if lo < t1:
+                blk, off = rows_for_token_range(local_blocks, bs,
+                                                lo - n_over, t1 - n_over)
+                wblk[lo - t0:t1 - t0] = blk
+                woff[lo - t0:t1 - t0] = off
+            # Coverage over ALL ranks: the owner's written tail, each
+            # creditor's streamed span, zero elsewhere.
+            covered = [0] * gpool.n_ranks
+            covered[self.inst_id] = min(max(t0 - cred_end, 0), n_local)
+            if sink is not None:
+                cov = sink.coverage(min(t0, cred_end))
+                for d in cred_ids:
+                    covered[d] = cov[d]
+            needed = max(1, max(-(-c // bs) for c in covered))
+            tables, tails = prefix_tables(gpool.ranks, rid, covered,
+                                          table_bucket(needed))
+            logits, _, _, k_c, v_c = prefill_chunk_global(
+                self.params, self.cfg, toks, t0, n_valid, gpool.k, gpool.v,
+                tables[:, 0], tails[:, 0], wrank, wblk, woff)
+            self.stats.admit_stage_bytes = max(
+                self.stats.admit_stage_bytes,
+                int((k_c.numel() + v_c.numel()) * k_c.element_size()))
+        if sink is not None:
             sink.flush()
         return logits
 
@@ -505,6 +611,8 @@ class InstanceEngine:
 
     def _step_paged(self) -> Optional[torch.Tensor]:
         """One decode iteration over the pool path. Returns logits."""
+        if self.gpool is not None:
+            return self._step_paged_global()
         pool = self.rmanager.pool
         t0 = time.perf_counter()
         self._append_step_tokens()
@@ -544,17 +652,74 @@ class InstanceEngine:
             tables, tails, wblk, woff, remote_pools=remote_pools)
         if pool_k is not self.pool_k or pool_k.data_ptr() != ptr:
             self.stats.pool_copy_steps += 1
+        self._account_merge_traffic(running)
+        return logits
 
-        # Account the paper's per-step merge traffic — q + (o, m, l) —
-        # once per (request, creditor) span entry, matching the per-rank
-        # partial exchanges a real deployment would make.
+    def _step_paged_global(self) -> Optional[torch.Tensor]:
+        """One decode iteration over the GLOBAL pool tensor.
+
+        One ``decode_step_global`` call covers the owner AND every
+        creditor rank: tables come from the shared per-rank allocators
+        (``gpool.ranks``), each layer LSE-merges the ranks' partials from
+        one kernel launch, and the new token's KV lands after the layer
+        loop — so the pending token's slot is excluded from the tables
+        (it enters as the self partial)."""
+        gpool = self.gpool
+        pool = self.rmanager.pool
+        t0 = time.perf_counter()
+        self._append_step_tokens()
+        running = self.running
+        if not running:
+            return None
+        B, NB = self.max_batch, pool.alloc.num_blocks
+        tokens = np.zeros(B, np.int32)
+        lens = np.zeros(B, np.int32)
+        wblk = np.full(B, NB, np.int32)      # NB = out of range => no write
+        woff = np.zeros(B, np.int32)
+        req_ids = [r.req_id if r is not None else -1 for r in self.slots]
+        needed = max((len(p.requests[rid].blocks)
+                      for p in gpool.ranks for rid in req_ids
+                      if rid in p.requests), default=1)
+        tables, tails = build_local_tables(gpool.ranks, req_ids,
+                                           table_bucket(needed))
+        own = self.inst_id
+        for i, r in enumerate(self.slots):
+            if r is None:
+                continue
+            tokens[i] = r.output[-1] if r.output else r.prompt[-1]
+            lens[i] = r.length - 1       # abs position of the new token
+            rb = pool.requests[r.req_id]
+            wblk[i] = rb.blocks[-1]
+            woff[i] = rb.tail_tokens - 1
+            # The pending token's slot must not be visible to the pooled
+            # partial (its row is written after the layer loop).
+            if rb.tail_tokens == 1:
+                tables[own, i, len(rb.blocks) - 1] = -1
+                tails[own, i] = self.block_size
+            else:
+                tails[own, i] = rb.tail_tokens - 1
+        self.stats.host_gather_s += time.perf_counter() - t0
+        self.stats.decode_steps += 1
+
+        ptr = gpool.k.data_ptr()
+        logits, gk, _ = decode_step_global(
+            self.params, self.cfg, tokens, lens, gpool.k, gpool.v, tables,
+            tails, wblk, woff, rank=own)
+        if gk is not gpool.k or gk.data_ptr() != ptr:
+            self.stats.pool_copy_steps += 1
+        self._account_merge_traffic(running)
+        return logits
+
+    def _account_merge_traffic(self, running) -> None:
+        """Account the paper's per-step merge traffic — q + (o, m, l) —
+        once per (request, creditor) span entry, matching the per-rank
+        partial exchanges a real deployment would make."""
         H, hd = self.cfg.num_heads, self.cfg.head_dim
         L = self.cfg.num_layers
         entries = sum(len(self.remote_insts.get(r.req_id, ()))
                       for r in running)
         self.stats.query_shipped += int(
             entries * L * (H * hd * 2 + H * hd * 4 + 2 * H * 4))
-        return logits
 
     def _step_dense(self) -> Optional[torch.Tensor]:
         """One decode iteration over the batch slots (non-pooled path):

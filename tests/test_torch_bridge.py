@@ -1,10 +1,12 @@
 """Weight bridge: JAX ``init_params`` trees <-> the port's tensors.
 
-The olmo-1b, qwen3-0.6b and recurrentgemma-9b smoke parameter trees (the
-hybrid one: stacked ``groups`` plus unstacked ``leftover`` layers), in
-bf16 and float32, cross into the port with the same keys, shapes and
-dtypes and come back bit for bit (bf16 travels through float32, which is
-exact). The port's own seeded initializer builds the same tree with the
+The olmo-1b, qwen3-0.6b, qwen2-moe-a2.7b, kimi-k2-1t-a32b and
+recurrentgemma-9b smoke parameter trees (MoE: ``router``, routed
+``experts.{wi,wg,wo}`` and ``shared`` banks, with kimi's
+``dense_layers`` stack beside ``moe_layers``; hybrid: stacked ``groups``
+plus unstacked ``leftover`` layers), in bf16 and float32, cross into the
+port with the same keys, shapes and dtypes and come back bit for bit
+(bf16 travels through float32, which is exact). The port's own seeded initializer builds the same tree with the
 same distributions.
 """
 import dataclasses
@@ -30,7 +32,8 @@ def _leaves(tree, prefix=""):
     return {prefix: tree}
 
 
-ARCHS = ["olmo-1b", "qwen3-0.6b", "recurrentgemma-9b"]
+ARCHS = ["olmo-1b", "qwen3-0.6b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+         "recurrentgemma-9b"]
 # Hybrid smoke depth with one whole group and two leftover layers.
 LAYERS = {"recurrentgemma-9b": 5}
 

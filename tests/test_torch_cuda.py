@@ -22,9 +22,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
                                                flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
-    paged_micro_attention_cuda, paged_micro_attention_plain)
+    paged_micro_attention_cuda, paged_micro_attention_plain,
+    paged_micro_attention_ranks_cuda, paged_micro_attention_ranks_plain)
 from repro_torch.kernels.micro_attn_prefill import (
-    paged_prefill_attention_cuda, paged_prefill_attention_plain)
+    paged_prefill_attention_cuda, paged_prefill_attention_plain,
+    paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain)
 
 TOL = 1e-4
 
@@ -174,6 +176,8 @@ def test_cuda_tensors_launch_the_kernels_and_count_them(cuda_device):
     assert ops.counts() == {
         "paged_micro_attention": {"launches": 1, "plain_calls": 0},
         "paged_prefill_attention": {"launches": 1, "plain_calls": 0},
+        "paged_micro_attention_ranks": {"launches": 0, "plain_calls": 0},
+        "paged_prefill_attention_ranks": {"launches": 0, "plain_calls": 0},
         "flash_prefill": {"launches": 1, "plain_calls": 0}}
 
 
@@ -336,3 +340,219 @@ def test_c_entries_refuse_plans_they_cannot_launch(cuda_device,
     _close_partials(paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=0.1),
                     paged_micro_attention_plain(q, pk, pv, tb, tl,
                                                 scale=0.1))
+
+
+# ------------------------------------------------------------------ #
+# Rank forms: one launch over a stack of rank pools (the global pool)
+# ------------------------------------------------------------------ #
+def _global_pool(gen, NR, L, NB, bs, K, D, dtype, device):
+    """A global pool pair [NR, L, NB, bs, K, D] (noise in every row)."""
+    return tuple(torch.randn((NR, L, NB, bs, K, D), generator=gen,
+                             device=device).to(dtype) for _ in range(2))
+
+
+def _rank_tables(rng, NR, nblks, MB, bs, NB, empty):
+    """Tables [NR, R, MB] and tails [NR, R]: each non-empty rank holds
+    request r's ``nblks[r]`` blocks (prefix-contiguous, random ids)."""
+    tables = -np.ones((NR, len(nblks), MB), np.int32)
+    tails = np.full((NR, len(nblks)), bs, np.int32)
+    for rank in range(NR):
+        if rank in empty:
+            continue
+        perm, used = rng.permutation(NB), 0
+        for r, n in enumerate(nblks):
+            tables[rank, r, :n] = perm[used:used + n]
+            used += n
+            if n:
+                tails[rank, r] = rng.integers(1, bs + 1)
+    return tables, tails
+
+
+def _no_copy_call(fn, view):
+    """``fn()`` under the peak-memory counter: the call may allocate its
+    outputs and scratch, never a copy of ``view``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < \
+        view.numel() * view.element_size()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NR,K,G,nblks,MB,empty", [
+    (1, 4, 2, [5, 0, 9], 9, ()),           # one rank
+    (3, 16, 1, [3, 7, 0, 2], 8, (1,)),     # MHA (G 1), an empty rank
+    (3, 8, 2, [60, 4], 64, (0, 2)),        # split-KV, two empty ranks
+    (4, 8, 2, [20, 61, 0, 5], 64, (3,)),   # four ranks, split-KV
+    (4, 4, 2, [6, 6], 8, (0, 1, 2, 3)),    # every rank empty
+])
+def test_rank_kernels_match_plain_on_a_strided_layer_view(
+        dtype, NR, K, G, nblks, MB, empty, cuda_device):
+    """Both rank kernels == their plain twins on one layer's view of a
+    global pool, ``gk[:, l]``: strided (rank stride L*NB*bs*K*D), read in
+    place, one launch each; empty ranks give (0, -inf, 0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    rng = np.random.default_rng(NR * 10 + G)
+    L, NB, bs, D, H = 3, 160, 16, 128, K * G
+    gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, dtype, cuda_device)
+    pk, pv = gk[:, 1], gv[:, 1]
+    assert NR == 1 or not pk.is_contiguous()
+    tables, tails = _rank_tables(rng, NR, nblks, MB, bs, NB, empty)
+    tb = torch.from_numpy(tables).to(cuda_device)
+    tl = torch.from_numpy(tails).to(cuda_device)
+    q = torch.randn((len(nblks), H, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    ops.reset_counts()
+    got = _no_copy_call(lambda: ops.paged_micro_attention_ranks(
+        q, pk, pv, tb, tl), pk)
+    want = paged_micro_attention_ranks_plain(q, pk, pv, tb, tl,
+                                             scale=D ** -0.5)
+    assert got[0].shape == (NR, len(nblks), H, D)
+    _close_partials(got, want)
+    for rank in empty:
+        assert bool(torch.isneginf(got[1][rank]).all())
+    # Prefill chunk: request 0's table on each rank, 37 chunk queries.
+    qc = torch.randn((37, H, D), generator=gen,
+                     device=cuda_device).to(dtype)
+    got = _no_copy_call(lambda: ops.paged_prefill_attention_ranks(
+        qc, pk, pv, tb[:, 0], tl[:, 0]), pk)
+    want = paged_prefill_attention_ranks_plain(qc, pk, pv, tb[:, 0],
+                                               tl[:, 0], scale=D ** -0.5)
+    assert got[0].shape == (NR, 37, H, D)
+    _close_partials(got, want)
+    c = ops.counts()
+    assert c["paged_micro_attention_ranks"] == {"launches": 1,
+                                                "plain_calls": 0}
+    assert c["paged_prefill_attention_ranks"] == {"launches": 1,
+                                                  "plain_calls": 0}
+    assert c["paged_micro_attention"]["launches"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rank_kernels_equal_one_launch_per_rank(dtype, cuda_device):
+    """At the qwen2-moe global path's shapes (MHA 16 x 128, three ranks,
+    a 512-query chunk) a rank launch == NR single-rank launches, rank by
+    rank, to 1e-4 (their split plans may differ)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    rng = np.random.default_rng(12)
+    NR, L, NB, bs, K, D = 3, 2, 160, 16, 16, 128
+    gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, dtype, cuda_device)
+    pk, pv = gk[:, 1], gv[:, 1]
+    tables, tails = _rank_tables(rng, NR, [63, 2, 30, 0], 64, bs, NB, (2,))
+    tb = torch.from_numpy(tables).to(cuda_device)
+    tl = torch.from_numpy(tails).to(cuda_device)
+    q = torch.randn((4, K, D), generator=gen, device=cuda_device).to(dtype)
+    qc = torch.randn((512, K, D), generator=gen,
+                     device=cuda_device).to(dtype)
+    s = D ** -0.5
+    for rank_fn, one_fn, qq, t, tt in (
+            (paged_micro_attention_ranks_cuda, paged_micro_attention_cuda,
+             q, tb, tl),
+            (paged_prefill_attention_ranks_cuda,
+             paged_prefill_attention_cuda, qc, tb[:, 0], tl[:, 0])):
+        got = rank_fn(qq, pk, pv, t, tt, scale=s)
+        for rank in range(NR):
+            one = one_fn(qq, pk[rank].contiguous(), pv[rank].contiguous(),
+                         t[rank], tt[rank], scale=s)
+            _close_partials(tuple(g[rank] for g in got), one)
+
+
+@pytest.mark.cuda
+def test_rank_entries_refuse_bad_plans_and_layouts(cuda_device,
+                                                   monkeypatch):
+    """The C entries refuse a rank plan they cannot launch (too few
+    ticket counters for the rank grid, no instantiation), and the
+    wrappers refuse a rank slab that is not contiguous."""
+    import repro_torch.kernels.micro_attn_decode as dec
+    import repro_torch.kernels.micro_attn_prefill as pre
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    rng = np.random.default_rng(13)
+    NR, NB, bs, K, D = 3, 160, 16, 8, 128
+    gk, gv = _global_pool(gen, NR, 2, NB, bs, K, D, torch.bfloat16,
+                          cuda_device)
+    pk, pv = gk[:, 0], gv[:, 0]
+    tables, tails = _rank_tables(rng, NR, [60, 60], 64, bs, NB, ())
+    tb = torch.from_numpy(tables).to(cuda_device)
+    tl = torch.from_numpy(tails).to(cuda_device)
+    q = torch.randn((2, 16, D), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    plan_d, plan_p = dec.decode_plan, pre.prefill_plan
+    # A plan for one rank's work items: the rank grid needs NR times the
+    # ticket counters it would be given.
+    monkeypatch.setattr(dec, "decode_plan",
+                        lambda *a: {**plan_d(*a), "items": 1})
+    monkeypatch.setattr(dec, "_TICKETS", {})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        paged_micro_attention_ranks_cuda(q, pk, pv, tb, tl, scale=0.1)
+    monkeypatch.setattr(pre, "prefill_plan",
+                        lambda *a: {**plan_p(*a), "rows_per_block": 96})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        paged_prefill_attention_ranks_cuda(q, pk, pv, tb[:, 0], tl[:, 0],
+                                           scale=0.1)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_micro_attention_ranks_cuda(q, pk[:, :, :, ::2],
+                                         pv[:, :, :, ::2], tb, tl,
+                                         scale=0.1)
+    with pytest.raises(ValueError, match="rank tables"):
+        paged_micro_attention_ranks_cuda(q, pk, pv, tb[:2], tl[:2],
+                                         scale=0.1)
+    _close_partials(paged_micro_attention_ranks_cuda(q, pk, pv, tb, tl,
+                                                     scale=0.1),
+                    paged_micro_attention_ranks_plain(q, pk, pv, tb, tl,
+                                                      scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-moe-a2.7b"])
+def test_global_pool_serves_on_the_card(arch, cuda_device):
+    """The cluster in global-pool mode on the card, float32 smoke width:
+    the streams equal the per-instance cluster's and the dense oracle's,
+    KV moves, the pool tensor is never reallocated, and only the rank
+    kernels serve the pooled attention."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import decode_step, init_params
+    from repro_torch.models.prefill import prefill
+    from repro_torch.serving import (Cluster, Request, SamplingParams,
+                                     ServingConfig)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 40, 12)]
+    streams = {}
+    for gp in (False, True):
+        ops.reset_counts()
+        cl = Cluster(params, cfg, ServingConfig.smoke(
+            n_instances=3, max_batch=2, pool_blocks=32, global_pool=gp))
+        reqs = [Request(prompt=p, sampling=SamplingParams(max_new_tokens=10))
+                for p in prompts]
+        for r in reqs:
+            cl.submit(r)
+        cl.run_until_done(max_steps=400)
+        assert all(r.done for r in reqs)
+        streams[gp] = [r.output for r in reqs]
+        assert sum(e.stats.pool_copy_steps for e in cl.engines.values()) == 0
+        assert cl.throughput_stats["kv_moved_bytes"] > 0
+    c = ops.counts()
+    assert c["paged_micro_attention_ranks"]["launches"] > 0
+    assert c["paged_prefill_attention_ranks"]["launches"] > 0
+    assert c["paged_micro_attention"]["launches"] == 0
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    assert streams[True] == streams[False]
+    for p, out in zip(prompts, streams[True]):
+        lg, st = prefill(params, cfg, torch.tensor([p], device=cuda_device),
+                         max_len=len(p) + 12)
+        ref = [int(lg[0].argmax())]
+        for _ in range(9):
+            lg, st = decode_step(params, cfg, st,
+                                 torch.tensor([ref[-1]], device=cuda_device))
+            ref.append(int(lg[0].argmax()))
+        assert out == ref

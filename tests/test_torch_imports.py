@@ -34,7 +34,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "repro_torch.serving.engine" in mods and len(mods) > 20
     assert {"repro_torch.core.attention", "repro_torch.kernels.flash_prefill",
             "repro_torch.models.rglru",
-            "repro_torch.configs.recurrentgemma_9b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.models.moe", "repro_torch.serving.globalpool",
+            "repro_torch.serving.sharded_step",
+            "repro_torch.configs.qwen2_moe_a2_7b",
+            "repro_torch.configs.kimi_k2_1t_a32b"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"
@@ -53,9 +57,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
 
 def test_port_sources_never_name_jax_or_the_reference():
     """A static guard beside the runtime one: no import line of the
-    port or of chip_smoke.py names jax or the ``repro`` package."""
+    port, of chip_smoke.py or of the port's scripts names jax or the
+    ``repro`` package."""
     files = list((SRC / "repro_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py"] + list((REPO / "scripts").glob("*.py"))
+    assert REPO / "scripts" / "pool_mode_ab.py" in files
     bad = []
     for f in files:
         for i, line in enumerate(f.read_text().splitlines(), 1):

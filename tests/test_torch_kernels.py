@@ -12,6 +12,13 @@ rounds q and the probabilities to bf16, so it is held at the JAX tests'
 bf16 tolerance, 5e-2. Flash prefill keeps the JAX test's tolerances:
 2e-5 in float32, 3e-2 in bf16 (its output is rounded to bf16).
 
+The rank forms' plain twins (a stack of rank pools, one partial each —
+the global pool's path) are held against the JAX package's
+``paged_micro_attention_ranks`` / ``paged_prefill_attention_ranks`` (a
+vmap over the rank axis) with ``backend="jnp"`` and with the Pallas
+kernels in interpret mode, at 1e-5 in float32, on a strided per-layer
+view of a global pool with an empty rank.
+
 The design of the CUDA kernels is checked here before any run on the
 card: the split plans and their merges, the flash-prefill plans, and the
 bf16 precision contracts of the prefill-chunk and flash-prefill kernels,
@@ -33,6 +40,10 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.ops import flash_prefill as jax_flash_prefill
 from repro.kernels.ops import paged_micro_attention as jax_paged_decode
 from repro.kernels.ops import paged_prefill_attention as jax_paged_prefill
+from repro.kernels.ops import \
+    paged_micro_attention_ranks as jax_paged_decode_ranks
+from repro.kernels.ops import \
+    paged_prefill_attention_ranks as jax_paged_prefill_ranks
 from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
 from repro_torch.core.online_softmax import (_masked_softmax_parts, combine,
                                              finalize)
@@ -43,9 +54,11 @@ from repro_torch.kernels.flash_prefill import (MAX_HEAD_DIM,
                                                flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
     MAX_SPLITS, MIN_SPLIT_TOKENS, decode_plan, paged_micro_attention_cuda,
-    paged_micro_attention_plain, plan_splits)
+    paged_micro_attention_plain, paged_micro_attention_ranks_cuda,
+    paged_micro_attention_ranks_plain, plan_splits)
 from repro_torch.kernels.micro_attn_prefill import (
     SMEM_PER_SM, paged_prefill_attention_cuda, paged_prefill_attention_plain,
+    paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain,
     prefill_plan)
 
 F32_TOL = 1e-4
@@ -140,6 +153,63 @@ def test_prefill_plain_matches_pallas_and_ref(chunk, dtype):
                F32_TOL if dtype == "float32" else JAX_REF_BF16_TOL)
 
 
+RANK_TOL = 1e-5
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("NR", [1, 3])
+def test_rank_plain_twins_match_jax_ranks(backend, NR):
+    """Both rank forms' plain twins == the JAX package's vmapped ones, on
+    one layer's (strided) view of a global pool; with three ranks the
+    middle one is empty and yields the merge identity."""
+    L, NB, bs, K, G, D, MB, R, C = 2, 12, 8, 2, 2, 32, 4, 3, 5
+    H = K * G
+    rng = np.random.default_rng(40 + NR)
+    qj, qt = _arrays(rng, (R, H, D), "float32")
+    qcj, qct = _arrays(rng, (C, H, D), "float32")
+    gkj, gkt = _arrays(rng, (NR, L, NB, bs, K, D), "float32")
+    gvj, gvt = _arrays(rng, (NR, L, NB, bs, K, D), "float32")
+    tables = -np.ones((NR, R, MB), np.int32)
+    tails = np.full((NR, R), bs, np.int32)
+    for p in range(NR):
+        if NR > 1 and p == 1:
+            continue
+        tables[p], _, tails[p] = _tables(rng, R, NB, bs, MB)
+    tb, tl = torch.from_numpy(tables), torch.from_numpy(tails)
+    pk, pv = gkt[:, 1], gvt[:, 1]
+    assert NR == 1 or not pk.is_contiguous()
+    got = paged_micro_attention_ranks_plain(qt, pk, pv, tb, tl,
+                                            scale=D ** -0.5)
+    want = jax_paged_decode_ranks(qj, gkj[:, 1], gvj[:, 1],
+                                  jnp.asarray(tables), jnp.asarray(tails),
+                                  backend=backend)
+    assert got[0].shape == (NR, R, H, D)
+    _close(got, want, RANK_TOL)
+    got = paged_prefill_attention_ranks_plain(qct, pk, pv, tb[:, 0],
+                                              tl[:, 0], scale=D ** -0.5)
+    want = jax_paged_prefill_ranks(qcj, gkj[:, 1], gvj[:, 1],
+                                   jnp.asarray(tables[:, 0]),
+                                   jnp.asarray(tails[:, 0]),
+                                   backend=backend)
+    assert got[0].shape == (NR, C, H, D)
+    _close(got, want, RANK_TOL)
+    if NR > 1:
+        assert bool(torch.isneginf(got[1][1]).all())
+
+
+def test_rank_launchers_refuse_cpu_tensors_and_bad_stacks():
+    q = torch.zeros(2, 4, 16)
+    pools = torch.zeros(3, 4, 8, 2, 16)
+    tables = torch.zeros(3, 2, 2, dtype=torch.int32)
+    tails = torch.full((3, 2), 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        paged_micro_attention_ranks_cuda(q, pools, pools, tables, tails,
+                                         scale=0.25)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        paged_prefill_attention_ranks_cuda(q, pools, pools, tables[:, 0],
+                                           tails[:, 0], scale=0.25)
+
+
 def test_empty_tables_are_the_merge_identity():
     """A rank with no blocks contributes (0, -inf, 0), never NaN."""
     rng = np.random.default_rng(1)
@@ -195,9 +265,18 @@ def test_cpu_tensors_take_the_plain_path_and_count_it():
                                 torch.tensor(5))
     ops.flash_prefill(q[None], pool[0, :2][None], pool[0, :2][None],
                       window=4)
+    pools = pool[None].expand(2, -1, -1, -1, -1)
+    ops.paged_micro_attention_ranks(q, pools, pools,
+                                    torch.tensor([[[0, 1], [2, -1]]] * 2),
+                                    torch.tensor([[8, 3]] * 2))
+    ops.paged_prefill_attention_ranks(q, pools, pools,
+                                      torch.tensor([[3, -1]] * 2),
+                                      torch.tensor([5, 5]))
     assert ops.counts() == {
         "paged_micro_attention": {"launches": 0, "plain_calls": 1},
         "paged_prefill_attention": {"launches": 0, "plain_calls": 1},
+        "paged_micro_attention_ranks": {"launches": 0, "plain_calls": 1},
+        "paged_prefill_attention_ranks": {"launches": 0, "plain_calls": 1},
         "flash_prefill": {"launches": 0, "plain_calls": 1}}
 
 
@@ -302,6 +381,34 @@ def test_plan_splits_tiles_the_table_in_whole_slots(items, MB, bs, sms,
     if nsplit > 1:          # ~256 tokens a split, no more blocks than fit
         assert MB * bs >= nsplit * MIN_SPLIT_TOKENS
         assert nsplit * items <= per_sm * sms and nsplit <= MAX_SPLITS
+
+
+@pytest.mark.parametrize("NR", [1, 2, 3, 4])
+def test_rank_plans_split_all_ranks_work_items(NR):
+    """A rank plan is the single-rank plan of the same shapes with the
+    split planned for ``items * NR`` work items and the rank folded
+    into grid.z; one rank is exactly the single-rank plan."""
+    for R, H, K, MB in ((4, 16, 16, 256), (4, 16, 8, 64)):
+        dec = decode_plan(R, H, K, MB, 16, H100_SMS, NR)
+        nsplit, spb = plan_splits(dec["items"] * NR, MB, 16, H100_SMS, 3)
+        assert (dec["nsplit"], dec["slots_per_split"]) == (nsplit, spb)
+        assert dec["grid"][2] == NR * nsplit and dec["ranks"] == NR
+        assert dec["grid"][0] * dec["grid"][1] == dec["items"]
+    for dt in (torch.bfloat16, torch.float32):
+        pre = prefill_plan(512, 16, 16, 128, 256, 16, dt, H100_SMS, NR)
+        assert pre["grid"] == (16, 4 if dt == torch.bfloat16 else 8,
+                               NR * pre["nsplit"])
+        assert dt == torch.bfloat16 or pre["nsplit"] == 1
+    assert decode_plan(4, 16, 8, 64, 16, H100_SMS, 1) == \
+        decode_plan(4, 16, 8, 64, 16, H100_SMS)
+    # The qwen2-moe global path's plans on an H100 (132 SMs): decode
+    # splits 2 ways over 3 x 64 work items, the prefill chunk not at all.
+    if NR == 3:
+        dec = decode_plan(4, 16, 16, 256, 16, H100_SMS, 3)
+        assert dec["grid"] == (16, 4, 6)
+        pre = prefill_plan(512, 16, 16, 128, 256, 16, torch.bfloat16,
+                           H100_SMS, 3)
+        assert pre["grid"] == (16, 4, 3)
 
 
 def test_split_plans_fill_the_card_at_the_main_shapes():

@@ -13,7 +13,7 @@ same numpy-made inputs go through the JAX functions and the port's:
   ``write_slot`` against JAX where JAX is right, and the port's repack
   of a prompt longer than the window (where JAX's raises);
 * ``prefill_chunk_paged`` over a prompt whose prefix is striped across
-  1-3 creditor pools (chunk sizes of the JAX package's chunked-prefill
+  1-3 creditor pools (dense models, and the MoE smoke models) (chunk sizes of the JAX package's chunked-prefill
   test), then teacher-forced ``decode_step_paged`` steps over the same
   owner + creditor pools: per-step logits, the chunk KV exports and every
   pool row agree, the new token's KV lands in its tail block before
@@ -119,7 +119,8 @@ def test_prefill_then_decode_step_equals_forward(arch):
 
 def test_flash_backend_and_other_families_wait_for_later_slices():
     """The "flash" core builds and equals the "xla" core; the JAX name
-    "pallas" points to it; MoE and ssm still raise."""
+    "pallas" points to it; the ssm family still raises (MoE is ported:
+    ``tests/test_torch_moe.py``)."""
     cfg, _, _ = _setup("olmo-1b")
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -131,10 +132,8 @@ def test_flash_backend_and_other_families_wait_for_later_slices():
         _close(flash(q, k, v).numpy(), xla(q, k, v).numpy())
     with pytest.raises(ValueError, match="'flash'"):
         make_causal_core(cfg, backend="pallas")
-    for family in ("moe", "ssm"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            init_params(dataclasses.replace(cfg, family=family),
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init_params(dataclasses.replace(cfg, family="ssm"), device="cpu")
 
 
 # ------------------------------------------------------------------ #
@@ -239,6 +238,8 @@ def _stream_prompt(cfg, jp, tp, ranks, prompt, chunk):
     ("qwen3-0.6b", 8, 2),
     ("qwen3-0.6b", 32, 1),
     ("olmo-1b", 8, 3),
+    ("qwen2-moe-a2.7b", 8, 2),         # MoE layers, no capacity drop
+    ("kimi-k2-1t-a32b", 5, 3),         # first_k_dense=1: dense + MoE
 ])
 def test_paged_steps_match_jax_and_dense_oracle(arch, chunk, n_cred):
     cfg, jp, tp = _setup(arch)
