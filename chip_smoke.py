@@ -36,7 +36,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    ranks, a strided layer view of a 24-layer pool; decode R=4 over
    256-slot tables, a 512-query chunk) and edges (one and four ranks,
    empty ranks, G 1 and 2), in bf16 and fp32, also timed as NR
-   single-rank launches on the same inputs (``nr_launch_ms``).
+   single-rank launches on the same inputs (``nr_launch_ms``). The chunks
+   the memory hierarchy launches: the copy-on-write path's one-query
+   chunk (C = 1) over a 3,007-token prefix whose last block holds bs - 1
+   rows, single-rank (timed) and in rank form (NR 3, one rank empty), and
+   a warm admission's 128-token tail over a 768-token prefix ending at a
+   block boundary.
 2. Serving, qwen3-0.6b. ``LLMServer`` serves it at full width (28
    layers, bf16, seeded random weights) with three instances on the
    card; the longest prompt stripes its prefix across two creditors at
@@ -52,6 +57,26 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    request must finish, KV must move, the pool tensor must never be
    reallocated, and each engine decode step must launch the decode rank
    kernel once per layer (28) and no single-rank paged kernel.
+   Then, once per pool mode, the memory hierarchy: ``prefix_cache=True``
+   and a 96-frame host tier, 128 blocks an instance, every request on
+   instance 0: a cold request (a 768-token prefix + 128 tokens), three
+   warm ones (the prefix, new suffixes), an exact repeat (the COW path),
+   two unrelated 600-token prompts whose pressure spills cached frames to
+   the host tier, one more shared-prefix request whose hit prefetches
+   from the host, and in global mode the 4,000-token spanning prompt
+   (its chain adopted on >= 2 instances); 32 new tokens each. Every
+   request must finish, the hits cover >= 3 x 768 tokens, a COW copy,
+   a spill and a prefetch happen, no pool is reallocated, only the CUDA
+   paged kernels run, and once the cache is cleared every allocator is
+   free. Reports TTFT (cold, warm p50, COW, host hit), tokens/s, the
+   host-tier bytes each way with their device time, peak memory. Then,
+   once per pool mode, overload: ``OverloadPolicy(enabled=True)``, three
+   instances of two slots filled by six best-effort requests (the
+   4,000-token spanning prompt and five of 600 tokens, 64 new tokens),
+   then two urgent 300-token arrivals (a priority, a deadline): >= 1
+   preemption, as many resumes, every request finishes, the preempt
+   tier ends empty and the allocators return to their state before
+   admission. Reports pause and resume times and the bytes spilled.
 3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
    full width (38 layers: 26 RG-LRU, 12 local-attention; bf16, seeded
    random weights) with two non-pooled instances: prompts of 6,000,
@@ -75,7 +100,16 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    3,000-token prompt, past the window. Each must give the dense
    oracle's (``prefill`` with the plain "xla" core + ``decode_step``)
    greedy stream, and its per-step logits must match the oracle's
-   teacher-forced logits within the stated tolerance.
+   teacher-forced logits within the stated tolerance. qwen3 also, in both
+   pool modes, with the prefix cache, a host tier and preemption on: a
+   warm partial-prefix hit, a full-prompt COW hit, a hit prefetched from
+   the host tier, and a creditor-spanning request paused after 4 tokens
+   and resumed with its recorded layout, each held to the oracle the
+   same way.
+
+After each model's phases its servers and weights are dropped and the
+card must hold (almost) nothing: a dropped server frees its memory at
+once, with no garbage collection.
 
 Prints the card's name and power limit, then per-phase lines, then one
 JSON line with every kernel's numbers, then the card's name and power
@@ -88,7 +122,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import gc
 import json
 import subprocess
 import sys
@@ -115,8 +148,9 @@ TOL = 1e-4
 # the two may differ by one bf16 ulp (2**-7 of the value) beyond TOL.
 FLASH_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 0.0}
 PARITY_RTOL = 1e-3  # served vs oracle logits, float32, |diff| / max|logit|
-WARM_REPEATS = 1    # untraced repeats of the serving workload (the
-#                     pool-mode A/B, scripts/pool_mode_ab.py, repeats it)
+WARM_REPEATS = 0    # untraced repeats of the serving workload (the
+#                     pool-mode A/B, scripts/pool_mode_ab.py, repeats it;
+#                     0 since the memory-hierarchy and overload phases)
 TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
 PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_prefill",
@@ -132,11 +166,25 @@ def card_line() -> str:
 
 
 def release_memory() -> None:
-    """Free the device memory of models and servers no longer used: a
-    server's engines reference each other (``peers``), so only the
-    garbage collector frees them, and with them weights and pools."""
-    gc.collect()
+    """Return the cached blocks of freed tensors to the card. A dropped
+    server frees its weights and pools at once (its engines, prefix
+    cache, host tiers and preemptor hold the cluster weakly: no
+    reference cycle), so no garbage collection is needed first."""
     torch.cuda.empty_cache()
+
+
+def check_released(report, model: str, limit: int = 512 << 20) -> None:
+    """After a model's phases and ``del`` of its weights, the card must
+    hold (almost) nothing: a reference cycle would keep a server's
+    weights and pools alive until a garbage collection (qwen3-0.6b's
+    alone are 1.19 GB). What stays is the math libraries' workspaces
+    (268,436,992 B after the qwen3 phases on an H100)."""
+    release_memory()
+    held = torch.cuda.memory_allocated()
+    report.setdefault("allocated_after_release", {})[model] = held
+    if held > limit:
+        raise AssertionError(f"{held} B still allocated after dropping "
+                             f"{model}'s servers and weights")
 
 
 def reset_peak_memory() -> None:
@@ -312,9 +360,10 @@ def decode_case(name, R, H, K, D, bs, ctx_blocks, dtype, device, *,
 
 
 def prefill_case(name, C, H, K, D, bs, ctx_blocks, dtype, device, *,
-                 pad=3, timed=False):
+                 pad=3, tail=None, timed=False):
     """The prefill-chunk wrapper the model calls (``ops``, default
-    scale) on CUDA tensors against the kernel's plain version."""
+    scale) on CUDA tensors against the kernel's plain version; ``tail``
+    fixes the rows of the prefix's last block (else random)."""
     from repro_torch.core.distattn import gather_local_kv
     from repro_torch.kernels.micro_attn_prefill import (
         paged_prefill_attention_plain)
@@ -323,7 +372,11 @@ def prefill_case(name, C, H, K, D, bs, ctx_blocks, dtype, device, *,
     gen = torch.Generator(device=device).manual_seed(2)
     NB = ctx_blocks + 4
     pk, pv = make_pool(gen, NB, bs, K, D, dtype, device)
-    table, tail = make_tables(rng, 1, ctx_blocks + pad, [ctx_blocks], NB, bs)
+    table, tails = make_tables(rng, 1, ctx_blocks + pad, [ctx_blocks], NB,
+                               bs)
+    if tail is not None:
+        tails[0] = tail
+    tail = tails
     q = torch.randn((C, H, D), generator=gen, device=device).to(dtype)
     tb = torch.from_numpy(table[0]).to(device)
     tl = torch.tensor(int(tail[0]), dtype=torch.int32, device=device)
@@ -434,14 +487,16 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
 
 
 def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
-              L=2, bs=16, NB=160, timed=False):
+              L=2, bs=16, NB=160, tail_rows=None, timed=False):
     """A rank form the global pool's steps call (``ops``, default scale)
     on one layer's view of a global pool [NR, L, NB, bs, K, D] — strided,
     read in place — against its plain version. ``kind`` "decode": q
     [rows, H, D], request r holding ``nblks[rank][r]`` blocks on each
     rank; "prefill": a chunk of ``rows`` queries over one prefix holding
     ``nblks[rank]`` blocks on each rank. Timed rows add the time of NR
-    single-rank launches on the same inputs (``nr_launch_ms``)."""
+    single-rank launches on the same inputs (``nr_launch_ms``).
+    ``tail_rows`` fixes the rows of each non-empty rank's last block
+    (else random)."""
     from repro_torch.core.distattn import gather_local_kv
     from repro_torch.kernels import ops
     from repro_torch.kernels.micro_attn_decode import (
@@ -459,6 +514,8 @@ def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
             for nb in nblks]
     table = np.stack([t for t, _ in tabs])
     tail = np.stack([t for _, t in tabs])
+    if tail_rows is not None:
+        tail[table[..., 0] >= 0] = tail_rows
     if not decode:
         table, tail = table[:, 0], tail[:, 0]
     q = torch.randn((rows, H, D), generator=gen, device=device).to(dtype)
@@ -540,6 +597,16 @@ def kernel_plans(chunk: int):
                                                      sms, 3)
         out[f"prefill-ranks-main-{dt}"] = prefill_plan(chunk, 16, 16, 128,
                                                        256, 16, dt, sms, 3)
+        # The memory hierarchy's chunks: the COW path's one-query chunk
+        # over a ~3,000-token prefix (single-rank and rank form) and a
+        # warm admission's 128-token tail over a 768-token prefix.
+        out[f"prefill-cow-c1-{dt}"] = prefill_plan(1, 16, 8, 128, 191, 16,
+                                                   dt, sms)
+        out[f"prefill-ranks-cow-c1-{dt}"] = prefill_plan(1, 16, 8, 128,
+                                                         256, 16, dt, sms,
+                                                         3)
+        out[f"prefill-warm-c128-{dt}"] = prefill_plan(128, 16, 8, 128, 51,
+                                                      16, dt, sms)
     return out
 
 
@@ -620,6 +687,19 @@ def kernel_phase(device, chunk: int):
                                  70, dt, device))
         rows.append(prefill_case(f"prefill-d256-long-{dt}", 33, 8, 2, 256,
                                  64, 20, dt, device))
+        # The memory hierarchy's chunks (qwen3 heads): the COW path
+        # re-runs a full-prompt hit's last token as a one-query chunk over
+        # a prefix whose last block holds bs - 1 rows (3,007 tokens),
+        # single-rank (timed) and in rank form with an empty rank; a warm
+        # admission streams its 128-token tail over a 768-token cached
+        # prefix ending at a block boundary.
+        rows.append(prefill_case(f"prefill-cow-c1-{dt}", 1, 16, 8, 128, 16,
+                                 188, dt, device, tail=15, timed=True))
+        rows.append(rank_case(f"prefill-ranks-cow-c1-{dt}", "prefill", 3,
+                              16, 8, 128, dt, device, rows=1, MB=256,
+                              nblks=[120, 0, 68], tail_rows=15))
+        rows.append(prefill_case(f"prefill-warm-c128-{dt}", 128, 16, 8, 128,
+                                 16, 48, dt, device, tail=16))
         # Flash prefill: (a) the recurrentgemma-9b admission of the
         # hybrid serving phase, (b) qwen3-0.6b's dense-prefill shape.
         r = flash_case(f"flash-main-{dt}", 1, 6000, 16, 1, 256, 2048, dt,
@@ -874,6 +954,352 @@ def global_serving_phase(params, cfg, device, prompt_lens, n_new):
     return report
 
 
+# --------------------------------------------------------------------- #
+# Memory hierarchy and overload survival (qwen3-0.6b)
+# --------------------------------------------------------------------- #
+PREFIX_LEN, SUFFIX_LEN = 768, 128   # shared prefix (48 blocks), suffixes
+
+
+def pool_ptrs(cluster) -> list:
+    """Storage addresses of every pool tensor of a cluster."""
+    if cluster.gpool is not None:
+        return [cluster.gpool.k.data_ptr(), cluster.gpool.v.data_ptr()]
+    return [p.data_ptr() for e in cluster.engines.values()
+            for p in (e.pool_k, e.pool_v)]
+
+
+def alloc_state(cluster) -> dict:
+    """Every allocator's free list, reservations and request chains."""
+    return {i: (sorted(e.rmanager.pool.alloc._free),
+                e.rmanager.pool.alloc.reserved,
+                {r: list(rb.blocks)
+                 for r, rb in e.rmanager.pool.requests.items()})
+            for i, e in cluster.engines.items()}
+
+
+def check_all_free(cluster) -> None:
+    """Every allocator back to free == num_blocks, reserved == 0."""
+    for i, e in cluster.engines.items():
+        a = e.rmanager.pool.alloc
+        if a.free_count != a.num_blocks or a.reserved:
+            raise AssertionError(f"instance {i}: {a.free_count} of "
+                                 f"{a.num_blocks} blocks free, "
+                                 f"{a.reserved} reserved")
+
+
+def check_path_kernels(counts, global_pool, device) -> None:
+    """The pooled path's prefill-chunk and decode kernels (rank forms in
+    global mode) ran, and no plain version did."""
+    names = (("paged_micro_attention_ranks", "paged_prefill_attention_ranks")
+             if global_pool else
+             ("paged_micro_attention", "paged_prefill_attention"))
+    check_counts(counts, names, device)
+
+
+class UploadSpy:
+    """Times (CUDA events on the compute stream) and counts every
+    ``write_block_rows`` call whose rows come from host memory: the H2D
+    upload of a host-tier frame plus its write into the pool."""
+
+    def __enter__(self):
+        import repro_torch.serving.engine as engine_mod
+        self.cls = engine_mod.InstanceEngine
+        self.orig = self.cls.write_block_rows
+        self.events, self.bytes = [], 0
+        spy = self
+
+        def write(eng, block, k, v):
+            if k.device.type != "cpu":
+                return spy.orig(eng, block, k, v)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            spy.orig(eng, block, k, v)
+            end.record()
+            spy.events.append((start, end))
+            spy.bytes += int(k.nbytes + v.nbytes)
+        self.cls.write_block_rows = write
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.write_block_rows = self.orig
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class ChainInsertSpy:
+    """Records the instances of every chain the prefix cache adopts
+    through ``insert_chain_multi`` (creditor-spanning requests)."""
+
+    def __enter__(self):
+        from repro_torch.serving.prefixcache import RadixPrefixCache
+        self.cls = RadixPrefixCache
+        self.orig = self.cls.insert_chain_multi
+        self.chains = []
+        spy = self
+
+        def insert(cache, placements, tokens):
+            spy.chains.append(sorted({i for i, _ in placements}))
+            return spy.orig(cache, placements, tokens)
+        self.cls.insert_chain_multi = insert
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.insert_chain_multi = self.orig
+
+
+def hierarchy_config(global_pool: bool):
+    """The serving config with the prefix cache and a 96-frame host tier;
+    128 blocks an instance, so the pressure stage has to evict (spill)
+    cached frames."""
+    return serving_config().replace(prefix_cache=True, host_tier_blocks=96,
+                                    pool_blocks=128, global_pool=global_pool)
+
+
+def hierarchy_phase(params, cfg, device, global_pool: bool, n_new=32):
+    """qwen3 with the memory hierarchy, once and counted, every request
+    submitted to instance 0 (``Cluster.submit_to``; Algorithm-1 moves may
+    still carry some of its blocks, and so cache replicas, elsewhere): a
+    cold request (a 768-token shared prefix + a 128-token
+    suffix), three warm ones (the prefix, new suffixes), an exact repeat
+    (the COW path), pressure (three unrelated 600-token prompts on each
+    instance holding the prefix's first block) that makes the least
+    recently used cached frames — the warm requests' tails, then the
+    prefix's first blocks — spill to the host tier, one more
+    shared-prefix request (its hit prefetches those blocks from the
+    host; three pressure prompts of 40 blocks each in a pool of 128
+    evict more than the warm tails, and the phase checks that the
+    prefix's first block left every device), and in global mode the 4,000-token creditor-spanning prompt,
+    whose chain is adopted on >= 2 instances."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (LLMServer, Request, RequestHandle,
+                                     SamplingParams)
+    t_phase = time.perf_counter()
+    reset_peak_memory()
+    rng = np.random.default_rng(29)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    cold, *warm, last = [prefix + rng.integers(0, cfg.vocab_size,
+                                                SUFFIX_LEN).tolist()
+                         for _ in range(5)]
+    sp = SamplingParams(max_new_tokens=n_new)
+    server = LLMServer(params, cfg, hierarchy_config(global_pool),
+                       device=device)
+    cl = server.cluster
+    cache, tier = cl.prefix_cache, cl.host_tier
+    ptrs = pool_ptrs(cl)
+    walls, handles = {}, {}
+    ids = iter(range(1_000_000, 2_000_000))
+
+    def run(stage, prompts, insts=None):
+        t0 = time.perf_counter()
+        reqs = [Request(prompt=p, sampling=sp, req_id=next(ids))
+                for p in prompts]
+        for i, r in enumerate(reqs):
+            cl.submit_to(r, insts[i] if insts else 0)
+        for _ in range(20_000):
+            if all(r.done for r in reqs):
+                break
+            server.step()
+        torch.cuda.synchronize()
+        walls[stage] = time.perf_counter() - t0
+        handles[stage] = [RequestHandle(server, r) for r in reqs]
+
+    with UploadSpy() as up, ChainInsertSpy() as chains:
+        ops.reset_counts()
+        run("cold", [cold])
+        run("warm", warm)
+        run("cow", [cold])
+        # Algorithm-1 moves may have carried prefix blocks (and so cache
+        # replicas) to other instances: the pressure goes to every
+        # instance holding the prefix's first block.
+        bs = cl.block_size
+        holders = sorted(cache.root.children[tuple(prefix[:bs])].replicas)
+        cached_before = {i: cache.device_blocks(i) for i in cl.engines}
+        run("pressure", make_prompts(cfg, (600,) * (3 * len(holders)), 31),
+            insts=[i for i in holders for _ in range(3)])
+        spilled_after_pressure = sum(e.stats.host_spill_bytes
+                                     for e in cl.engines.values())
+        first = cache.root.children.get(tuple(prefix[:bs]))
+        if first is None or not first.on_host or first.replicas:
+            raise AssertionError("the pressure stage left the shared "
+                                 "prefix's first block on a device")
+        run("host_hit", [last])
+        if global_pool:
+            run("spanning", make_prompts(cfg, [4000], 7))
+        counts = ops.counts()
+    stats = [e.stats for e in cl.engines.values()]
+    hit_tokens = sum(s.cache_hit_tokens for s in stats)
+    spill = sum(s.host_spill_bytes for s in stats)
+    prefetch = sum(s.host_prefetch_bytes for s in stats)
+    hs = [h for stage in handles.values() for h in stage]
+    all_finished(hs)
+    if hit_tokens < 3 * PREFIX_LEN:
+        raise AssertionError(f"cache hit tokens {hit_tokens} < "
+                             f"{3 * PREFIX_LEN}")
+    if cache.stats.cow_copies < 1:
+        raise AssertionError("the repeated prompt took no COW copy")
+    if not spilled_after_pressure or not prefetch:
+        raise AssertionError(f"host tier unused: spilled "
+                             f"{spilled_after_pressure} B under pressure, "
+                             f"prefetched {prefetch} B (tier "
+                             f"{tier.stats}, cache {cache.stats})")
+    if global_pool and not any(len(c) >= 2 for c in chains.chains):
+        raise AssertionError(f"no spanning chain adopted on >= 2 instances "
+                             f"({chains.chains})")
+    if pool_ptrs(cl) != ptrs or sum(s.pool_copy_steps for s in stats):
+        raise AssertionError("a pool tensor was reallocated")
+    check_path_kernels(counts, global_pool, device)
+    report = {
+        "global_pool": global_pool, "n_new": n_new,
+        "prefix_len": PREFIX_LEN, "suffix_len": SUFFIX_LEN,
+        "pool_blocks": cl.config.pool_blocks,
+        "host_tier_blocks": cl.config.host_tier_blocks,
+        "ttft_cold_s": handles["cold"][0].metrics["ttft"],
+        "ttft_warm_p50_s": float(np.median([h.metrics["ttft"]
+                                            for h in handles["warm"]])),
+        "ttft_cow_s": handles["cow"][0].metrics["ttft"],
+        "ttft_host_hit_s": handles["host_hit"][0].metrics["ttft"],
+        "tokens": sum(len(h._req.output) for h in hs),
+        "stage_wall_s": walls,
+        "cache_hit_tokens": hit_tokens,
+        "cow_copies": cache.stats.cow_copies,
+        "cache_device_evictions": cache.stats.device_evictions,
+        "cached_frames_before_pressure": cached_before,
+        "pressure_instances": holders,
+        "host_spill_bytes": spill, "host_prefetch_bytes": prefetch,
+        "d2h_device_ms": tier.stats.d2h_ms,
+        "d2h_dispatch_s": tier.stats.spill_s,
+        "h2d_upload_bytes": up.bytes, "h2d_upload_ms": up.ms(),
+        "host_fetch_stalls": tier.stats.fetch_stalls,
+        "host_evictions": tier.stats.evictions,
+        "spanning_chains": chains.chains,
+        "kv_moved_bytes": cl.throughput_stats["kv_moved_bytes"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "counts": counts}
+    report["throughput_tok_s"] = report["tokens"] / sum(walls.values())
+    cache.clear()
+    tier.drain(block=True)
+    if tier.used_blocks:
+        raise AssertionError(f"{tier.used_blocks} host frames left after "
+                             f"clearing the cache")
+    check_all_free(cl)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
+
+
+class PauseSpy:
+    """Host wall time of every preemptor pause and resume attempt."""
+
+    def __enter__(self):
+        from repro_torch.serving.preempt import Preemptor
+        self.cls = Preemptor
+        self.orig = (Preemptor.pause, Preemptor._resume_one)
+        self.pause_s, self.resume_s = [], []
+        spy = self
+
+        def pause(pre, req, now=None):
+            t0 = time.perf_counter()
+            ok = spy.orig[0](pre, req, now=now)
+            if ok:
+                spy.pause_s.append(time.perf_counter() - t0)
+            return ok
+
+        def resume(pre, rec):
+            t0 = time.perf_counter()
+            ok = spy.orig[1](pre, rec)
+            if ok:
+                spy.resume_s.append(time.perf_counter() - t0)
+            return ok
+        Preemptor.pause, Preemptor._resume_one = pause, resume
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.pause, self.cls._resume_one = self.orig
+
+
+def overload_phase(params, cfg, device, global_pool: bool, n_new=64):
+    """qwen3 under overload, once and counted: three instances of two
+    slots, six best-effort requests in every slot (the 4,000-token
+    spanning prompt and five of 600 tokens), then two urgent arrivals of
+    300 tokens (one with priority, one with a deadline) that the server
+    makes room for by pausing victims; the victims resume later."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (LLMServer, OverloadPolicy, Request,
+                                     RequestHandle, SamplingParams)
+    t_phase = time.perf_counter()
+    reset_peak_memory()
+    config = serving_config().replace(
+        max_batch=2, pool_blocks=320, global_pool=global_pool,
+        overload=OverloadPolicy(enabled=True))
+    server = LLMServer(params, cfg, config, device=device)
+    cl = server.cluster
+    pre = cl.preemptor
+    ptrs = pool_ptrs(cl)
+    before = alloc_state(cl)
+    sp = SamplingParams(max_new_tokens=n_new)
+    best = [Request(prompt=p, sampling=sp, req_id=1_000_000 + i)
+            for i, p in enumerate(make_prompts(cfg, (4000,) + (600,) * 5,
+                                               37))]
+    with PauseSpy() as spy:
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        for i, r in enumerate(best):        # two a slot-pair, in order
+            cl.submit_to(r, i // 2)
+        for _ in range(200):
+            if all(r.output for r in best):
+                break
+            server.step()
+        else:
+            raise AssertionError("the best-effort requests never all ran")
+        urgent = [server.submit(p, sp, **kw) for p, kw in zip(
+            make_prompts(cfg, (300, 300), 41),
+            ({"priority": 1}, {"deadline_s": 30.0}))]
+        for _ in range(20_000):
+            if all(r.done for r in best) and all(h.done for h in urgent):
+                break
+            server.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.counts()
+    all_finished(urgent + [RequestHandle(server, r) for r in best])
+    st = pre.stats
+    if st.preemptions < 1 or st.resumes != st.preemptions:
+        raise AssertionError(f"{st.preemptions} preemptions, {st.resumes} "
+                             f"resumes")
+    if pre.paused or pre.tier.used_blocks:
+        raise AssertionError("the preempt tier did not end empty")
+    server.step()
+    if alloc_state(cl) != before:
+        raise AssertionError("the allocators did not return to their state "
+                             "before admission")
+    if pool_ptrs(cl) != ptrs or sum(e.stats.pool_copy_steps
+                                    for e in cl.engines.values()):
+        raise AssertionError("a pool tensor was reallocated")
+    check_path_kernels(counts, global_pool, device)
+    toks = sum(len(r.output) for r in best) + sum(len(h._req.output)
+                                                  for h in urgent)
+    return {"global_pool": global_pool, "n_new": n_new,
+            "pool_blocks": config.pool_blocks,
+            "preemptions": st.preemptions, "resumes": st.resumes,
+            "failed_pauses": st.failed_pauses,
+            "failed_resumes": st.failed_resumes,
+            "victims": [r.req_id - 1_000_000 for r in best
+                        if r.preemptions],
+            "spilled_blocks": st.spilled_blocks,
+            "spilled_tokens": st.spilled_tokens,
+            "spilled_bytes": pre.tier.stats.spilled_bytes,
+            "fetched_bytes": pre.tier.stats.fetched_bytes,
+            "d2h_device_ms": pre.tier.stats.d2h_ms,
+            "pause_s": spy.pause_s, "resume_s": spy.resume_s,
+            "urgent_ttft_s": [h.metrics["ttft"] for h in urgent],
+            "tokens": toks, "wall_s": wall,
+            "throughput_tok_s": toks / wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "phase_s": time.perf_counter() - t_phase, "counts": counts}
+
+
 def trace_phase(params, cfg, device, config, prompt_lens, n_new, late_len,
                 top=12):
     """A short traced window of a warm server: once the workload is
@@ -1004,47 +1430,133 @@ def oracle_logits(params, cfg, prompt, forced, device):
     return out
 
 
+class LogitSpy:
+    """Collects the logits the pooled steps give slot 0 — the one request
+    a parity run serves at a time: each prefill chunk resets the list to
+    its logits (the last chunk's stay), each decode step appends."""
+
+    def __init__(self, global_pool: bool):
+        self.names = (("decode_step_global", "prefill_chunk_global")
+                      if global_pool else
+                      ("decode_step_paged", "prefill_chunk_paged"))
+        self.served = []
+
+    def __enter__(self):
+        import repro_torch.serving.engine as engine_mod
+        self.mod = engine_mod
+        self.orig = [getattr(engine_mod, n) for n in self.names]
+        orig_decode, orig_chunk = self.orig
+        served = self.served
+
+        def spy_decode(*a, **k):
+            out = orig_decode(*a, **k)
+            served.append(out[0][0].float().clone())
+            return out
+
+        def spy_chunk(*a, **k):
+            out = orig_chunk(*a, **k)
+            served[:] = [out[0][0].float().clone()]
+            return out
+        setattr(engine_mod, self.names[0], spy_decode)
+        setattr(engine_mod, self.names[1], spy_chunk)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in zip(self.names, self.orig):
+            setattr(self.mod, name, fn)
+
+
 def parity_phase(params, cfg, device, prompt_len, n_new, *,
                  global_pool=False, pool_blocks=96):
     """float32: served greedy stream == oracle, per-step logits close, in
     either pool mode (``pool_blocks`` small enough that the prompt spans
     creditors)."""
-    import repro_torch.serving.engine as engine_mod
     prompt = make_prompts(cfg, [prompt_len], 11)[0]
     config = serving_config().replace(pool_blocks=pool_blocks,
                                       max_local_len=512,
                                       global_pool=global_pool)
-    served = []
-    names = (("decode_step_global", "prefill_chunk_global") if global_pool
-             else ("decode_step_paged", "prefill_chunk_paged"))
-    orig_decode, orig_chunk = (getattr(engine_mod, n) for n in names)
-
-    def spy_decode(*a, **k):
-        out = orig_decode(*a, **k)
-        served.append(out[0][0].float().clone())   # slot 0: one request
-        return out
-
-    def spy_chunk(*a, **k):
-        out = orig_chunk(*a, **k)
-        served[:] = [out[0][0].float().clone()]    # keep the last chunk's
-        return out
-    setattr(engine_mod, names[0], spy_decode)
-    setattr(engine_mod, names[1], spy_chunk)
-    try:
-        with AdmissionSpy() as spy:
-            handles, server, _ = serve(params, cfg, config, [prompt], n_new,
-                                       device)
-    finally:
-        setattr(engine_mod, names[0], orig_decode)
-        setattr(engine_mod, names[1], orig_chunk)
+    with LogitSpy(global_pool) as logits, AdmissionSpy() as spy:
+        handles, server, _ = serve(params, cfg, config, [prompt], n_new,
+                                   device)
     out = handles[0].result()
     if max(spy.stripes) < 1:
         raise AssertionError("the parity request did not span a creditor")
     return {"prompt_len": prompt_len, "n_new": n_new,
             "global_pool": global_pool, "layers": cfg.num_layers,
-            **check_parity(params, cfg, device, prompt, out, served),
+            **check_parity(params, cfg, device, prompt, out, logits.served),
             "creditors_at_admission": max(spy.stripes),
             "moves_during_decode": moves_executed(server)}
+
+
+def hierarchy_parity_phase(params, cfg, device, *, global_pool, n_new=12):
+    """float32, the memory hierarchy's paths against the dense oracle: a
+    warm partial-prefix hit (16 cached blocks), a full-prompt COW hit, a
+    hit prefetched from the host tier (every cached replica evicted
+    first), and a creditor-spanning request paused after 4 tokens and
+    resumed with its recorded layout (``prefer=``). Each request is
+    served alone; its stream must equal the oracle's greedy stream and
+    its logits the oracle's teacher-forced logits."""
+    from repro_torch.serving import (LLMServer, OverloadPolicy,
+                                     SamplingParams)
+    config = serving_config().replace(
+        pool_blocks=96, max_local_len=512, global_pool=global_pool,
+        prefix_cache=True, host_tier_blocks=64,
+        overload=OverloadPolicy(enabled=True))
+    server = LLMServer(params, cfg, config, device=device)
+    cl = server.cluster
+    cache, pre = cl.prefix_cache, cl.preemptor
+    rng = np.random.default_rng(43)
+    base = rng.integers(0, cfg.vocab_size, 400).tolist()       # 25 blocks
+    partial = base[:256] + rng.integers(0, cfg.vocab_size, 136).tolist()
+    spanning = make_prompts(cfg, [1500], 11)[0]
+
+    def metric(name):
+        return server.metrics[name]
+
+    def serve_one(logits, prompt, pause_after=None):
+        h = server.submit(prompt, SamplingParams(max_new_tokens=n_new))
+        for _ in range(2_000):
+            if h.done:
+                break
+            server.step()
+            if pause_after and len(h._req.output) == pause_after and \
+                    not h._req.preemptions:
+                if not pre.pause(h._req):
+                    raise AssertionError("the spanning request did not "
+                                         "pause")
+        return h.result(), list(logits.served)
+
+    cases = {}
+    with LogitSpy(global_pool) as logits:
+        serve_one(logits, base)                            # cold
+        for name, prompt, want in (("warm", partial, "cache_hit_tokens"),
+                                   ("cow", base, "cache_hit_tokens")):
+            got0 = metric(want)
+            out, served = serve_one(logits, prompt)
+            cases[name] = {"hit_tokens": metric(want) - got0,
+                           **check_parity(params, cfg, device, prompt, out,
+                                          served)}
+        for i in cl.engines:
+            cache.evict_device(i, config.pool_blocks)
+        cl.host_tier.drain(block=True)
+        got0 = metric("host_prefetch_bytes")
+        out, served = serve_one(logits, partial)
+        cases["host"] = {"prefetch_bytes": metric("host_prefetch_bytes")
+                         - got0, **check_parity(params, cfg, device, partial,
+                                                out, served)}
+        out, served = serve_one(logits, spanning, pause_after=4)
+        cases["paused_spanning"] = {
+            "preemptions": pre.stats.preemptions,
+            "resumes": pre.stats.resumes,
+            **check_parity(params, cfg, device, spanning, out, served)}
+    if cases["warm"]["hit_tokens"] < 256 or cases["cow"]["hit_tokens"] < 399:
+        raise AssertionError(f"cache hits too short: {cases}")
+    if cache.stats.cow_copies < 1 or cases["host"]["prefetch_bytes"] <= 0:
+        raise AssertionError(f"no COW copy or no host prefetch: {cases}")
+    if pre.stats.preemptions != 1 or pre.stats.resumes != 1:
+        raise AssertionError(f"pause/resume did not happen once: {cases}")
+    return {"global_pool": global_pool, "n_new": n_new,
+            "layers": cfg.num_layers, "cases": cases}
 
 
 def check_parity(params, cfg, device, prompt, out, served):
@@ -1183,8 +1695,22 @@ def main(argv=None) -> int:
     print("global serving: " + json.dumps(
         {k: v for k, v in gserving.items() if k != "counts"}), flush=True)
     mark("qwen3_global")
+    for gp in (False, True):
+        key = "hierarchy_global" if gp else "hierarchy"
+        report[key] = hierarchy_phase(params, cfg, device, gp)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(
+            {k: v for k, v in report[key].items() if k != "counts"}),
+            flush=True)
+    mark("qwen3_hierarchy")
+    for gp in (False, True):
+        key = "overload_global" if gp else "overload"
+        report[key] = overload_phase(params, cfg, device, gp)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(
+            {k: v for k, v in report[key].items() if k != "counts"}),
+            flush=True)
+    mark("qwen3_overload")
     del params
-    release_memory()
+    check_released(report, "qwen3-0.6b")
 
     hcfg = get_config("recurrentgemma-9b")
     t0 = time.perf_counter()
@@ -1203,7 +1729,7 @@ def main(argv=None) -> int:
     print("hybrid trace: " + json.dumps(report["hybrid_trace"]), flush=True)
     mark("hybrid")
     del hparams
-    release_memory()
+    check_released(report, "recurrentgemma-9b")
 
     mcfg = get_config("qwen2-moe-a2.7b")
     t0 = time.perf_counter()
@@ -1221,7 +1747,7 @@ def main(argv=None) -> int:
     print("moe trace: " + json.dumps(report["moe_trace"]), flush=True)
     mark("moe")
     del mparams
-    release_memory()
+    check_released(report, "qwen2-moe-a2.7b")
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1233,9 +1759,15 @@ def main(argv=None) -> int:
                            global_pool=True)
     report["global_parity"] = gparity
     print("global parity: " + json.dumps(gparity), flush=True)
+    for gp in (False, True):
+        key = "hierarchy_parity_global" if gp else "hierarchy_parity"
+        report[key] = hierarchy_parity_phase(params32, cfg32, device,
+                                             global_pool=gp)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
+              flush=True)
     mark("qwen3_parity")
     del params32
-    release_memory()
+    check_released(report, "qwen3-0.6b float32")
 
     # MoE at full width, depth cut to 4 layers; a pool of 48 blocks a
     # rank makes the prompt stripe over both creditors.
@@ -1248,7 +1780,7 @@ def main(argv=None) -> int:
     print("moe parity: " + json.dumps(mparity), flush=True)
     mark("moe_parity")
     del mparams32
-    release_memory()
+    check_released(report, "qwen2-moe-a2.7b float32")
 
     hcfg32 = dataclasses.replace(hcfg, dtype="float32", num_layers=5)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1258,7 +1790,7 @@ def main(argv=None) -> int:
     print("hybrid parity: " + json.dumps(hparity), flush=True)
     mark("hybrid_parity")
     del hparams32
-    release_memory()
+    check_released(report, "recurrentgemma-9b float32")
 
     # Launches: each kernel's count from the run of ITS main path: the
     # single-rank paged kernels from qwen3's per-instance phase, the rank

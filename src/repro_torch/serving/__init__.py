@@ -30,15 +30,30 @@ The paged attention partials run in the hand-written CUDA kernels of
 ``repro_torch.kernels``. With ``ServingConfig(global_pool=True)`` the
 engines alias rank slices of one cluster-wide ``GlobalKVPool`` tensor on
 the card instead of owning private pools.
+
+Memory hierarchy and overload survival (opt-in, both pool modes):
+``ServingConfig(prefix_cache=True, host_tier_blocks=N)`` adopts every
+finished request's full KV blocks into a ``RadixPrefixCache`` (warm
+admissions attach them and prefill only the uncached tail; a full-prompt
+hit copies its last block, copy-on-write) and spills evicted replicas to
+a ``HostKVTier`` of pinned host frames (asynchronous D2H on a side
+stream, H2D back on a hit). ``ServingConfig(overload=OverloadPolicy(
+enabled=True))`` lets the frontend pause SLO-slack victims for urgent
+arrivals: the ``Preemptor`` spills the victim's KV chain to its own
+host tier and resumes it later over byte-identical KV.
 """
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.config import (FaultPolicy, OverloadPolicy,
                                         ServingConfig)
 from repro_torch.serving.engine import InstanceEngine
+from repro_torch.serving.faults import FrameCorruptionError, TransferError
 from repro_torch.serving.globalpool import GlobalKVPool
 from repro_torch.serving.gmanager import GManager
+from repro_torch.serving.hosttier import HostKVTier
 from repro_torch.serving.kvpool import BlockAllocator, RankKVPool
 from repro_torch.serving.perfmodel import InstancePerfModel, cluster_tps
+from repro_torch.serving.preempt import Preemptor, PreemptStats
+from repro_torch.serving.prefixcache import RadixPrefixCache
 from repro_torch.serving.request import (Request, RequestIdAllocator,
                                          RequestState, SamplingParams)
 from repro_torch.serving.rmanager import RManager
@@ -53,4 +68,6 @@ __all__ = [
     "InstancePerfModel", "cluster_tps", "Request", "RequestIdAllocator",
     "RequestState", "SamplingParams", "RManager", "GreedyScheduler",
     "InstanceView", "SpanLeg", "StripedMove", "GlobalKVPool",
+    "HostKVTier", "RadixPrefixCache", "Preemptor", "PreemptStats",
+    "TransferError", "FrameCorruptionError",
 ]

@@ -40,14 +40,23 @@ Engines of a non-pooled (hybrid) model hold no pool: reactive moves,
 Algorithm-1 plans and creditor picks all skip them, so nothing ever
 moves to, from or between them.
 
-Not in this port yet (each raises NotImplementedError): the prefix cache
-and host tier, overload preemption, fault injection/recovery
-(``kill_instance``, ``install_faults``), and a global pool sharded over
-several devices.
+The memory hierarchy (opt-in, both pool modes): ``prefix_cache=True``
+installs one ``RadixPrefixCache`` over every engine's pool, and
+``host_tier_blocks > 0`` a ``HostKVTier`` of pinned host frames that
+evicted replicas spill into; ``overload.enabled`` installs the
+``Preemptor`` (pause/spill/resume, its own host tier). The cluster owns
+all of them, and they, the engines' peer maps and prefix sinks hold the
+cluster only weakly: a dropped server frees its weights and pools at
+once, without a garbage collection.
+
+Not in this port yet (each raises NotImplementedError): fault
+injection/recovery (``kill_instance``, ``install_faults``), and a global
+pool sharded over several devices.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -58,13 +67,22 @@ from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import InstanceEngine
 from repro_torch.serving.globalpool import GlobalKVPool
 from repro_torch.serving.gmanager import GManager
+from repro_torch.serving.hosttier import HostKVTier
 from repro_torch.serving.kvpool import rows_for_token_range
 from repro_torch.serving.perfmodel import InstancePerfModel
+from repro_torch.serving.prefixcache import RadixPrefixCache
+from repro_torch.serving.preempt import Preemptor
 from repro_torch.serving.protocol import MoveKVCache, MoveLeg, MoveResult
 from repro_torch.serving.request import Request
 from repro_torch.serving.staging import AsyncStager
 
 _LATER = "is not ported yet; it comes with a later slice of the port"
+
+
+class EngineMap(dict):
+    """inst_id -> InstanceEngine: the cluster's engines. A dict that can
+    be referenced weakly, so each engine's ``peers`` does not keep the
+    map (and with it every engine) alive."""
 
 
 def reserve_all_or_nothing(req_id: int, legs) -> bool:
@@ -183,20 +201,18 @@ class PrefixSink:
 class Cluster:
     """N ``InstanceEngine``s + one ``GManager`` driven in lock-step.
 
-    ``step()`` is the cluster heartbeat: step every engine's heartbeat
-    into the gManager, run reactive moves and the Algorithm-1 plan
-    round, execute moves, step every engine, drain releases.
+    Owns the shared ``AsyncStager`` (all KV movement), the optional
+    ``GlobalKVPool``/host tier/prefix cache, and — when
+    ``config.overload.enabled`` — the ``Preemptor``. ``step()`` is the
+    cluster heartbeat: every engine's heartbeat into the gManager,
+    reactive moves and the Algorithm-1 plan round, resume of paused
+    requests, a step of every engine, host-tier drains, releases.
     """
 
     def __init__(self, params, cfg: ModelConfig,
                  config: Optional[ServingConfig] = None, *,
                  perf: Optional[InstancePerfModel] = None, device=None):
         config = config if config is not None else ServingConfig()
-        if config.prefix_cache or config.host_tier_blocks > 0:
-            raise NotImplementedError(
-                f"the prefix cache and host-DRAM tier {_LATER}")
-        if config.overload.enabled:
-            raise NotImplementedError(f"overload preemption {_LATER}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.config = config
@@ -214,7 +230,7 @@ class Cluster:
             self.gpool = GlobalKVPool(config.n_instances,
                                       config.pool_blocks, config.block_size,
                                       cfg, device=self.device)
-        self.engines: Dict[int, InstanceEngine] = {
+        self.engines: Dict[int, InstanceEngine] = EngineMap({
             i: InstanceEngine(params, cfg, max_batch=config.max_batch,
                               max_local_len=config.max_local_len,
                               pool_blocks=config.pool_blocks,
@@ -222,12 +238,30 @@ class Cluster:
                               prefill_chunk=config.prefill_chunk,
                               device=self.device, gpool=self.gpool)
             for i in range(config.n_instances)
-        }
+        })
         for eng in self.engines.values():
             eng.prefix_sink = self._make_prefix_sink(eng.inst_id)
             eng.peers = self.engines      # shared: add_instance updates all
-        perf = perf if perf is not None else InstancePerfModel(cfg)
+        # Host-DRAM tier + cross-request prefix cache (both opt-in). They
+        # and the preemptor reach the cluster through a weak proxy.
         fpol = config.faults
+        self.host_tier: Optional[HostKVTier] = None
+        self.prefix_cache: Optional[RadixPrefixCache] = None
+        if config.host_tier_blocks > 0:
+            self.host_tier = HostKVTier(
+                config.host_tier_blocks,
+                high_watermark=config.host_high_watermark,
+                low_watermark=config.host_low_watermark,
+                verify=fpol.verify_host_frames,
+                max_retries=fpol.max_transfer_retries,
+                backoff_base_s=fpol.retry_backoff_base_s,
+                backoff_max_s=fpol.retry_backoff_max_s)
+        if config.prefix_cache:
+            self.prefix_cache = RadixPrefixCache(weakref.proxy(self),
+                                                 host_tier=self.host_tier)
+            for eng in self.engines.values():
+                self._wire_cache(eng)
+        perf = perf if perf is not None else InstancePerfModel(cfg)
         self.gmanager = GManager(perf, config.block_size,
                                  heartbeat_timeout=config.heartbeat_timeout,
                                  beta_thres=config.beta_threshold,
@@ -238,8 +272,16 @@ class Cluster:
                                  arrival_alpha=config.overload.arrival_alpha,
                                  heartbeat_timeout_steps=(
                                      fpol.heartbeat_timeout_steps))
+        # Overload survival (opt-in): pause/host-spill preemption with
+        # its own pinned host tier, driven by the serving frontend.
+        self.preemptor: Optional[Preemptor] = None
+        if config.overload.enabled:
+            self.preemptor = Preemptor(weakref.proxy(self), config.overload)
         self.requests: Dict[int, Request] = {}
         self._step_count = 0
+        # Dead (quarantined) instances: always empty until the port's
+        # fault recovery fills it; the cache and preemptor filter on it.
+        self._dead: set = set()
         self._need_full_hb: set = set(self.engines)
         # Req ids whose creditor-hosted spans still need releasing; fed
         # by the engines' finished-event drains so each finished request
@@ -260,6 +302,18 @@ class Cluster:
                        key=lambda e: e.batch_size).inst_id
         self.engines[inst].submit(req)
 
+    def submit_to(self, req: Request, inst_id: int,
+                  now: Optional[float] = None) -> None:
+        """Targeted ``submit``: enqueue on a SPECIFIC live instance —
+        the preemption path pairs a paused victim's freed slot with the
+        urgent request it was freed for, bypassing the most-free-memory
+        placement query."""
+        if req.req_id not in self.requests and req.arrival_time == 0.0:
+            req.arrival_time = time.monotonic() if now is None else now
+        self.requests[req.req_id] = req
+        assert inst_id in self.engines and inst_id not in self._dead
+        self.engines[inst_id].submit(req)
+
     def cancel(self, req_id: int) -> bool:
         """Cancel a request anywhere in its lifecycle.
 
@@ -275,6 +329,11 @@ class Cluster:
         if req is None or req.done:
             return False
         req.cancelled = True
+        # A PAUSED request lives in no engine — its device state was
+        # already released at pause; retire it from the preempt tier.
+        if self.preemptor is not None and \
+                self.preemptor.cancel_paused(req_id):
+            return True
         for eng in self.engines.values():
             if eng.cancel(req):
                 break
@@ -289,6 +348,18 @@ class Cluster:
                     eng.drop_hosted(req_id)
         return True
 
+    def _wire_cache(self, eng: InstanceEngine) -> None:
+        """Install the prefix cache's hooks on one engine: the engine's
+        admission walks/inserts it, and the rManager treats unpinned
+        replicas as reclaimable capacity (evicting on demand)."""
+        cache = self.prefix_cache
+        eng.prefix_cache = cache
+        inst = eng.inst_id
+        eng.rmanager.evict_hook = \
+            lambda n, _i=inst: cache.evict_device(_i, n)
+        eng.rmanager.cache_blocks_fn = \
+            lambda _i=inst: cache.evictable(_i)
+
     # --- movement ------------------------------------------------------ #
     def _make_prefix_sink(self, src_id: int):
         """Reserve-then-stream prefix sink for streaming paged prefill.
@@ -296,36 +367,68 @@ class Cluster:
         ``sink(req, n_tokens, start=0)`` commits whole blocks covering
         the block-aligned GLOBAL token range [start, start + n_tokens)
         across one or more creditors (striping when no single creditor
-        can hold it) and returns the ``PrefixSink`` the owner's chunk
-        loop writes through — or None when the cluster is out of pooled
-        memory, with every partial reservation rolled back and zero
-        compute spent."""
-        def sink(req: Request, n_tokens: int, start: int = 0
+        can hold it; ``start`` > 0 when a cached prefix already covers
+        the head of the prompt) and returns the ``PrefixSink`` the
+        owner's chunk loop writes through — or None when the cluster is
+        out of pooled memory, with every partial reservation rolled back
+        and zero compute spent. Creditors count their unpinned
+        prefix-cache replicas as capacity (try_move evicts on demand).
+
+        ``prefer`` (``[(inst_id, n_blocks)]``, chain order) asks the
+        sink to reproduce a specific span layout before falling back to
+        the generic creditor picker — preemption resume passes the
+        paused chain's layout so the restored request keeps its exact
+        LSE-merge partition. Entries naming dead instances or the owner
+        itself are skipped (their blocks fall through to the generic
+        picker), so ``prefer`` is best-effort and never blocks a resume
+        that generic placement could satisfy.
+
+        The sink holds the cluster weakly (the engine holding it is the
+        cluster's)."""
+        cluster = weakref.proxy(self)
+
+        def sink(req: Request, n_tokens: int, start: int = 0,
+                 prefer: Optional[List[Tuple[int, int]]] = None,
                  ) -> Optional[PrefixSink]:
-            bs = self.block_size
+            bs = cluster.block_size
             spans: List[Tuple[int, int, List[int]]] = []
 
             def rollback():
                 for d, _, _ in spans:
-                    self.engines[d].drop_hosted(req.req_id)
+                    cluster.engines[d].drop_hosted(req.req_id)
 
-            off = 0
-            while off < n_tokens:
-                dst = self._pick_creditor(exclude=src_id)
-                if dst is None:
-                    rollback()
-                    return None
-                eng = self.engines[dst]
-                nb = min((n_tokens - off) // bs, eng.rmanager.effective_free)
+            def take(dst: int, nb: int, off: int) -> int:
+                """Reserve up to ``nb`` blocks on ``dst``; 0 on refusal."""
+                eng = cluster.engines[dst]
+                nb = min(nb, eng.rmanager.effective_free)
                 if nb <= 0 or not eng.rmanager.try_move_kvcache(
                         req.req_id, nb):
-                    rollback()
-                    return None
+                    return 0
                 blocks = eng.rmanager.commit_move_in(req.req_id, nb,
                                                      at_front=False)
                 spans.append((dst, start + off, blocks))
+                return nb
+
+            off = 0
+            for dst, nb in (prefer or []):
+                if off >= n_tokens:
+                    break
+                if dst == src_id or dst in cluster._dead \
+                        or dst not in cluster.engines:
+                    continue
+                nb = min(nb, (n_tokens - off) // bs)
+                off += take(dst, nb, off) * bs
+            while off < n_tokens:
+                dst = cluster._pick_creditor(exclude=src_id)
+                if dst is None:
+                    rollback()
+                    return None
+                nb = take(dst, (n_tokens - off) // bs, off)
+                if nb <= 0:
+                    rollback()
+                    return None
                 off += nb * bs
-            return PrefixSink(self, req.req_id, spans)
+            return PrefixSink(cluster, req.req_id, spans)
         return sink
 
     def _execute_move(self, mv: MoveKVCache) -> MoveResult:
@@ -465,7 +568,7 @@ class Cluster:
         excl = {exclude} if isinstance(exclude, int) else set(exclude)
         best, best_free = None, 0
         for i, e in self.engines.items():
-            if i in excl or not e._can_pool:
+            if i in excl or i in self._dead or not e._can_pool:
                 continue
             free = e.rmanager.effective_free
             if free > best_free:
@@ -496,6 +599,8 @@ class Cluster:
             prefill_chunk=ref.prefill_chunk, device=self.device)
         self.engines[new_id].prefix_sink = self._make_prefix_sink(new_id)
         self.engines[new_id].peers = self.engines
+        if self.prefix_cache is not None:
+            self._wire_cache(self.engines[new_id])
         self._need_full_hb.add(new_id)
         return new_id
 
@@ -528,9 +633,23 @@ class Cluster:
             for mv in self.gmanager.plan_moves(urgency=urgency):
                 self._execute_move(mv)
 
+        # Resume parked (preempted) requests before the decode sweep so
+        # a freed slot carries tokens this very step; the preemptor's
+        # guards keep it from stealing capacity the waiting queue (or a
+        # more urgent arrival) is entitled to.
+        if self.preemptor is not None:
+            self.preemptor.maybe_resume(now=now)
+
         made = 0
         for eng in self.engines.values():
             made += eng.step()
+        # Finalize whichever D2H spills have landed (the preempt tier's
+        # and the shared tier's) — behind the decode compute just
+        # dispatched, never blocking on it.
+        if self.preemptor is not None:
+            self.preemptor.tier.drain(block=False)
+        if self.host_tier is not None:
+            self.host_tier.drain(block=False)
         # Free creditor-hosted blocks of requests that finished since the
         # last step (metadata only). Engines report each finish once.
         for eng in self.engines.values():
@@ -538,6 +657,12 @@ class Cluster:
         for rid in self._pending_release:
             req = self.requests.get(rid)
             if req is not None and not req.done:
+                # A pause queues a finished event after dropping the
+                # chain's hosted spans itself. If the request resumed
+                # within this same step, is_hosting is true again for its
+                # FRESH creditor spans — releasing those here would
+                # silently shrink the resumed chain. Live requests keep
+                # their spans; terminal ones release as usual.
                 continue
             for eng in self.engines.values():
                 if eng.rmanager.is_hosting(rid):

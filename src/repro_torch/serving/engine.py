@@ -59,14 +59,27 @@ allocator still accounts each request's tokens against the quota, and a
 prompt longer than ``max_local_len - block_size`` FAILS (it cannot span
 creditors).
 
+MEMORY HIERARCHY (pooled paths, both pool modes): with a cluster-
+installed ``prefix_cache`` admission walks the radix cache for the
+longest cached prefix, attaches its frames by reference and streams only
+the uncached tail (a full-prompt hit copies its last block and re-runs
+the final token as a one-query chunk with its pool write suppressed);
+``_finish`` adopts the request's chain back into the cache. Evicted
+replicas spill to the host tier and come back H2D (``read_block_rows`` /
+``write_block_rows``). Overload preemption pauses a running request
+(``read_chain_frames`` + ``finalize_pause``: its chain spills to the
+preemptor's host tier) and resumes it over byte-identical KV
+(``resume_paused``); a pause requested mid-prefill rolls the admission
+back exactly and re-queues the request.
+
 This port covers the per-instance and global pool paths of the dense
 and MoE families and the non-pooled path of the hybrid family. The JAX
-engine's prefix cache, host tier, preemption, fault replay and the ssm
-family come later.
+engine's fault replay and the ssm family come later.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -107,6 +120,14 @@ class CommStats:
     # [L, 1, T, K, hd] cache); the prefill's KV ring on the non-pooled
     # path.
     admit_stage_bytes: int = 0
+    # Host-tier traffic through this instance's pool: blocks spilled
+    # D2H by prefix-cache eviction / uploaded H2D on a host-tier hit or
+    # a resume.
+    host_spill_bytes: int = 0
+    host_prefetch_bytes: int = 0
+    # Prompt tokens admission covered from the prefix cache instead of
+    # prefilling (the FLOPs the cache saved this instance).
+    cache_hit_tokens: int = 0
 
 
 def _sample_batch(gen: torch.Generator, logits: torch.Tensor,
@@ -141,6 +162,11 @@ def _sample_batch(gen: torch.Generator, logits: torch.Tensor,
 # Sentinel return of a streaming admission aborted by cancellation
 # (distinct from None, which means cluster-wide OOM).
 _CANCELLED = object()
+
+# Sentinel return of a streaming admission aborted by a cooperative
+# pause request (overload preemption): same exact rollback as a cancel,
+# but the request survives and returns to the waiting queue.
+_PAUSED = object()
 
 
 class InstanceEngine:
@@ -204,15 +230,33 @@ class InstanceEngine:
         # Owner-side placement metadata: req_id -> creditor inst ids
         # hosting prefix spans (the KV itself is in THEIR pools).
         self.remote_insts: Dict[int, List[int]] = {}
-        # Cluster-installed peer lookup (inst_id -> InstanceEngine) so the
-        # decode step can read creditor pools directly.
-        self.peers: Dict[int, "InstanceEngine"] = {}
+        # Cluster-installed peer lookup (see ``peers``).
+        self._peers = None
         # Cluster-installed callback: commit creditor blocks for an
         # overflowing prompt prefix BEFORE any prefill compute.
-        # sink(req, n_tokens, start=0) -> PrefixSink handle | None
-        # (cluster OOM); the chunk loop streams KV rows in through
-        # handle.write().
+        # sink(req, n_tokens, start=0, prefer=None) -> PrefixSink handle
+        # | None (cluster OOM); ``start`` is the global token the creditor
+        # region begins at (after any cached prefix); the chunk loop
+        # streams KV rows in through handle.write().
         self.prefix_sink: Optional[Callable] = None
+        # Cluster-installed cross-request prefix cache (None = disabled).
+        # Admission walks it for the longest cached prefix; _finish
+        # inserts the request's chain back.
+        self.prefix_cache = None
+
+    @property
+    def peers(self) -> Dict[int, "InstanceEngine"]:
+        """inst_id -> engine of the cluster (empty outside one), so the
+        steps can read creditor pools directly. Held weakly: the cluster
+        owns its engines, and engines holding each other would make
+        every server a reference cycle that only a garbage collection
+        frees (with its weights and pools)."""
+        peers = self._peers() if self._peers is not None else None
+        return peers if peers is not None else {}
+
+    @peers.setter
+    def peers(self, engines) -> None:
+        self._peers = weakref.ref(engines)
 
     # The pool handles are properties so the whole serving stack — row
     # copies, staging, pointer checks — reads the same tensors in both
@@ -277,7 +321,12 @@ class InstanceEngine:
         n_over = 0 if T <= cap else -(-(T - cap) // bs) * bs
         n_local = T - n_over
         need_blocks = -(-n_local // bs)
-        if self.rmanager.pool.alloc.free_count < need_blocks:
+        # A cached prefix needs no fresh frames, and unpinned cache
+        # replicas are reclaimable on demand — count both as headroom
+        # (the actual eviction happens lazily in _admit_streaming).
+        evictable = (self.prefix_cache.evictable(self.inst_id)
+                     if self.prefix_cache is not None else 0)
+        if self.rmanager.pool.alloc.free_count + evictable < need_blocks:
             return False
         if n_over and (not self._can_pool or self.prefix_sink is None):
             # Cannot span: no cluster, or no KV pool to span with.
@@ -299,6 +348,18 @@ class InstanceEngine:
         if logits is _CANCELLED:                 # aborted mid-prefill
             self._cancel_finalize(req)
             return True
+        if logits is _PAUSED:
+            # Paused mid-prefill: the admission rolled back exactly; the
+            # request returns to the head of the queue and is re-admitted
+            # (re-prefilled) on a later step. Returning False ends this
+            # step's admission sweep — the freed capacity is the point of
+            # the pause.
+            req.pause_requested = False
+            req.preemptions += 1
+            req.paused_at = time.monotonic()
+            req.state = RequestState.WAITING
+            self.waiting.insert(0, req)
+            return False
         self.rmanager.set_owner(req.req_id, True)
         req.slot = slot
         req.state = RequestState.RUNNING
@@ -324,41 +385,124 @@ class InstanceEngine:
         self.rmanager.pool.append_tokens(req.req_id, n_local)
         return logits
 
+    def _ensure_free(self, n_blocks: int) -> bool:
+        """Make ``n_blocks`` frames allocatable, evicting unpinned
+        prefix-cache replicas on demand (they spill to the host tier
+        when one is configured)."""
+        alloc = self.rmanager.pool.alloc
+        if alloc.free_count >= n_blocks:
+            return True
+        if self.prefix_cache is not None:
+            self.prefix_cache.evict_device(
+                self.inst_id, n_blocks - alloc.free_count)
+        return alloc.free_count >= n_blocks
+
+    def _copy_block(self, src_blk: int, dst_blk: int) -> None:
+        """Copy one pool block into another, in place (the copy-on-write
+        tail split; in global mode inside this rank's slice)."""
+        self.write_block_rows(dst_blk, *self.read_block_rows(src_blk))
+
+    def _admit_cached_prefix(self, req: Request, tokens: List[int],
+                             n_local: int) -> Tuple[int, int]:
+        """Walk the prefix cache and attach the longest cached prefix to
+        the request's local chain. Returns ``(n_cached, write_from)``:
+        the global token count admission may skip prefilling, and the
+        first global token index the stream may WRITE pool rows for.
+
+        Shared full blocks are attached by reference (one allocator ref
+        each). A FULL-prompt hit takes the copy-on-write path: the first
+        m-1 blocks are shared and the last is COPIED WHOLE into a
+        private frame, so decode appends land in request-private frames
+        — a shared frame is never mutated. The final prompt token is
+        still re-run through one prefill chunk (its logits sample the
+        first output token) but with its pool write SUPPRESSED
+        (``write_from = T``): its cached KV row stays byte-identical, so
+        a warm request's decode attends over exactly the bytes a cold run
+        would have produced."""
+        cache, pool, bs = self.prefix_cache, self.rmanager.pool, \
+            self.block_size
+        rid, T = req.req_id, len(tokens)
+        shared = cache.acquire(self.inst_id, rid, tokens,
+                               max_blocks=n_local // bs)
+        if not shared:
+            return 0, 0
+        m = len(shared)
+        if m * bs == T:
+            pool.attach_shared(rid, shared[:m - 1], bs)
+            n_cached = T - 1
+            cow_src = shared[m - 1]
+        else:
+            pool.attach_shared(rid, shared, bs)
+            n_cached = m * bs
+            cow_src = None
+        n_shared = m - (1 if cow_src is not None else 0)
+        tail_blocks = -(-(n_local - n_shared * bs) // bs)
+        if not self._ensure_free(tail_blocks) or \
+                not pool.append_tokens(rid, n_local - pool.tokens_of(rid)):
+            pool.release(rid)
+            cache.release(rid)
+            return 0, 0
+        if cow_src is not None:
+            cow = pool.requests[rid].blocks[-1]
+            self._copy_block(cow_src, cow)
+            cache.stats.cow_copies += 1
+        self.stats.cache_hit_tokens += n_cached
+        return n_cached, (T if cow_src is not None else 0)
+
     def _admit_streaming(self, req: Request, tokens: List[int],
                          n_over: int, n_local: int):
         """Reserve every block, then stream chunks.
 
-        All placement decisions happen BEFORE any compute: creditor
-        blocks for the overflow prefix are committed via the
+        All placement decisions happen BEFORE any compute: the longest
+        cached prefix is pinned from the prefix cache (when enabled),
+        creditor blocks for the overflow prefix are committed via the
         reserve-then-stream ``prefix_sink`` and the local tail's blocks
         are allocated here, so a failed admission costs zero FLOPs.
         Returns the final chunk's logits, None on cluster-wide OOM, or
-        the ``_CANCELLED`` sentinel when the request was cancelled
-        mid-stream — in that case every reservation (local blocks and
-        committed creditor spans) is rolled back, allocator state
-        restored exactly.
+        the ``_CANCELLED``/``_PAUSED`` sentinel when the request was
+        cancelled or paused mid-stream — in that case every reservation
+        (local blocks, committed creditor spans AND cache pins) is rolled
+        back, allocator state restored exactly.
         """
         rid = req.req_id
         req.state = RequestState.PREFILLING
+        cache = self.prefix_cache
+        n_cached, write_from = 0, 0
+        if cache is not None:
+            n_cached, write_from = self._admit_cached_prefix(
+                req, tokens, n_local)
         sink = None
         if n_over:
-            sink = self.prefix_sink(req, n_over, start=0)
+            sink = self.prefix_sink(req, n_over, start=n_cached)
             if sink is None:
                 self.rmanager.release_request(rid)
+                if cache is not None:
+                    cache.release(rid)
                 return None
-        if not self.rmanager.pool.append_tokens(rid, n_local):
-            if sink is not None:
-                sink.abort()
-            self.rmanager.release_request(rid)
-            return None
-        logits = self._stream_prefill(req, tokens, n_over, n_local, sink)
-        if logits is _CANCELLED:
+        if not n_cached:
+            # Cold path: the cached branch already appended its tail.
+            if not self._ensure_free(-(-n_local // self.block_size)) or \
+                    not self.rmanager.pool.append_tokens(rid, n_local):
+                if sink is not None:
+                    sink.abort()
+                self.rmanager.release_request(rid)
+                if cache is not None:
+                    cache.release(rid)
+                return None
+        logits = self._stream_prefill(req, tokens, n_over, n_local, sink,
+                                      n_cached, write_from)
+        if logits is _CANCELLED or logits is _PAUSED:
             # Abort the in-flight admission: drain staged creditor
             # writes, drop the committed spans (metadata release — the
             # all-or-nothing machinery's rollback), free local blocks.
+            # Cache pins are released in _release_slot, exactly once —
+            # except on a PAUSE, which never reaches a terminal path, so
+            # its pins are released here.
             if sink is not None:
                 sink.abort()
             self.rmanager.release_request(rid)
+            if logits is _PAUSED and cache is not None:
+                cache.release(rid)
             return logits
         if sink is not None:
             self.remote_insts[rid] = list(sink.rank_ids)
@@ -366,28 +510,43 @@ class InstanceEngine:
                         self.cfg.head_dim)
             itemsize = self.pool_k.element_size()
             self.stats.kv_moved += int(2 * L * n_over * K * hd) * itemsize
-            # The GLOBAL chain: striped creditor blocks + local tail, in
-            # token order.
-            chain = []
+            # The GLOBAL chain — cached + striped creditor + local tail
+            # blocks in token order (with a sink, n_cached is always
+            # block-aligned: a full-prompt COW hit implies n_over == 0).
+            # _cache_insert adopts it on finish.
+            local = self.rmanager.pool.requests[rid].blocks
+            m = n_cached // self.block_size
+            chain = [(self.inst_id, b) for b in local[:m]]
             for inst, _start, blks in sink.spans:
                 chain += [(inst, b) for b in blks]
-            chain += [(self.inst_id, b)
-                      for b in self.rmanager.pool.requests[rid].blocks]
+            chain += [(self.inst_id, b) for b in local[m:]]
             self.req_chain[rid] = chain
         return logits
 
     def _stream_prefill(self, req: Request, tokens: List[int],
-                        n_over: int, n_local: int, sink):
+                        n_over: int, n_local: int, sink,
+                        n_cached: int = 0, write_from: int = 0):
         """Drive ``prefill_chunk_paged`` over the prompt, O(chunk) peak.
 
         Per chunk: local rows are written into the pool inside the step;
         creditor-bound rows come back as the chunk KV export and stream
         out through ``sink.write`` — the only transient tensors are
-        chunk-sized, never [T]-sized.
+        chunk-sized, never [T]-sized. A chunk holds up to
+        ``prefill_chunk`` tokens; the last one only the tokens left (no
+        padding: the kernels take any chunk length).
+
+        With a cached prefix the stream starts at ``n_cached``: global
+        tokens [0, n_cached) are already resident in the local chain's
+        leading (shared) blocks, the creditor region shifts to
+        [n_cached, n_cached + n_over), and the local tail holds
+        [n_cached + n_over, T) — chain index of global token t stays
+        ``t - n_over`` because the chain is cached blocks then tail in
+        global token order. Pool rows carry position-encoded KV, so
+        attention over the union of the covered tables is exact.
         """
         if self.gpool is not None:
             return self._stream_prefill_global(req, tokens, n_over, n_local,
-                                               sink)
+                                               sink, n_cached, write_from)
         rid = req.req_id
         T = len(tokens)
         bs, C = self.block_size, self.prefill_chunk
@@ -397,29 +556,33 @@ class InstanceEngine:
         cred_ids = list(sink.rank_ids) if sink is not None else []
         rank_pools = [pool] + [self.peers[d].rmanager.pool
                                for d in cred_ids]
-        cred_end = n_over                # first locally-written token
+        cred_end = n_cached + n_over     # first locally-written token
         logits = None
-        for t0 in range(0, T, C):
-            if req.cancelled:
+        for t0 in range(n_cached, T, C):
+            if req.cancelled or req.pause_requested:
                 # Cooperative abort point: between chunks, before any
-                # more compute or creditor writes are dispatched.
-                return _CANCELLED
+                # more compute or creditor writes are dispatched. A pause
+                # rolls back identically but keeps the request.
+                return _CANCELLED if req.cancelled else _PAUSED
             t1 = min(t0 + C, T)
             n_valid = t1 - t0
-            toks = np.zeros(C, np.int32)
-            toks[:n_valid] = tokens[t0:t1]
-            # Owner-pool write target per chunk row; creditor-bound and
-            # padded rows carry block id NB (out of range => not written).
-            wblk = np.full(C, NB, np.int32)
-            woff = np.zeros(C, np.int32)
-            lo = max(t0, cred_end)
+            toks = np.asarray(tokens[t0:t1], np.int32)
+            # Owner-pool write target per chunk row; creditor-bound rows
+            # carry block id NB (out of range => not written).
+            wblk = np.full(n_valid, NB, np.int32)
+            woff = np.zeros(n_valid, np.int32)
+            # ``write_from`` suppresses pool writes for re-run tokens
+            # whose KV is already resident (the COW full hit's final
+            # prompt token: computed for logits only, never re-written).
+            lo = max(t0, cred_end, write_from)
             if lo < t1:
                 blk, off = rows_for_token_range(local_blocks, bs,
                                                 lo - n_over, t1 - n_over)
-                wblk[lo - t0:t1 - t0] = blk
-                woff[lo - t0:t1 - t0] = off
-            # Tables address exactly the already-written tokens [0, t0).
-            covered = [min(max(t0 - cred_end, 0), n_local)]
+                wblk[lo - t0:] = blk
+                woff[lo - t0:] = off
+            # Tables address exactly the already-resident tokens [0, t0):
+            # the cached prefix plus whatever this stream has written.
+            covered = [min(n_cached + max(t0 - cred_end, 0), n_local)]
             if sink is not None:
                 cov = sink.coverage(min(t0, cred_end))
                 covered += [cov[d] for d in cred_ids]
@@ -446,7 +609,8 @@ class InstanceEngine:
         return logits
 
     def _stream_prefill_global(self, req: Request, tokens: List[int],
-                               n_over: int, n_local: int, sink):
+                               n_over: int, n_local: int, sink,
+                               n_cached: int = 0, write_from: int = 0):
         """``_stream_prefill`` over the GLOBAL pool tensor.
 
         One ``prefill_chunk_global`` per chunk: the prefix partial runs
@@ -463,36 +627,36 @@ class InstanceEngine:
         NB = pool.alloc.num_blocks
         local_blocks = pool.requests[rid].blocks
         cred_ids = list(sink.rank_ids) if sink is not None else []
-        cred_end = n_over                # first locally-written token
+        cred_end = n_cached + n_over     # first locally-written token
         logits = None
-        for t0 in range(0, T, C):
-            if req.cancelled:
-                return _CANCELLED
+        for t0 in range(n_cached, T, C):
+            if req.cancelled or req.pause_requested:
+                return _CANCELLED if req.cancelled else _PAUSED
             t1 = min(t0 + C, T)
             n_valid = t1 - t0
-            toks = np.zeros(C, np.int32)
-            toks[:n_valid] = tokens[t0:t1]
-            # Per-row (rank, block, offset) target; padded rows keep the
-            # out-of-range block sentinel.
-            wrank = np.full(C, self.inst_id, np.int32)
-            wblk = np.full(C, NB, np.int32)
-            woff = np.zeros(C, np.int32)
+            toks = np.asarray(tokens[t0:t1], np.int32)
+            # Per-row (rank, block, offset) target; suppressed rewrites
+            # keep the out-of-range block sentinel.
+            wrank = np.full(n_valid, self.inst_id, np.int32)
+            wblk = np.full(n_valid, NB, np.int32)
+            woff = np.zeros(n_valid, np.int32)
             if sink is not None and t0 < cred_end:
                 hi = min(t1, cred_end)
                 rr, bb, oo = sink.row_targets(t0, hi)
                 wrank[:hi - t0] = rr
                 wblk[:hi - t0] = bb
                 woff[:hi - t0] = oo
-            lo = max(t0, cred_end)
+            lo = max(t0, cred_end, write_from)
             if lo < t1:
                 blk, off = rows_for_token_range(local_blocks, bs,
                                                 lo - n_over, t1 - n_over)
-                wblk[lo - t0:t1 - t0] = blk
-                woff[lo - t0:t1 - t0] = off
-            # Coverage over ALL ranks: the owner's written tail, each
-            # creditor's streamed span, zero elsewhere.
+                wblk[lo - t0:] = blk
+                woff[lo - t0:] = off
+            # Coverage over ALL ranks: the owner's cached + written
+            # prefix, each creditor's streamed span, zero elsewhere.
             covered = [0] * gpool.n_ranks
-            covered[self.inst_id] = min(max(t0 - cred_end, 0), n_local)
+            covered[self.inst_id] = min(
+                n_cached + max(t0 - cred_end, 0), n_local)
             if sink is not None:
                 cov = sink.coverage(min(t0, cred_end))
                 for d in cred_ids:
@@ -534,7 +698,38 @@ class InstanceEngine:
     def _finish(self, req: Request) -> None:
         req.state = RequestState.FINISHED
         req.finish_time = time.monotonic()
+        self._cache_insert(req)
         self._release_slot(req)
+
+    def _cache_insert(self, req: Request) -> None:
+        """Adopt a finished request's full blocks into the prefix cache
+        BEFORE the chain is released — the cache's incref keeps each
+        adopted frame alive through the release's decref, so a finished
+        request's prefix is cached instead of dropped.
+        Creditor-SPANNING requests insert their GLOBAL chain
+        (``req_chain``: striped creditor frames + local tail, in token
+        order) via ``insert_chain_multi`` — each frame is adopted in its
+        own instance's allocator, so the striped prefix warm-hits
+        follow-up requests instead of dropping with the span."""
+        cache = self.prefix_cache
+        if cache is None or not self._can_pool or req.cancelled:
+            return
+        rb = self.rmanager.pool.requests.get(req.req_id)
+        if rb is None or not rb.blocks:
+            return
+        # KV exists for the prompt plus every DECODED INPUT token — the
+        # last sampled token was never fed back, so its KV was never
+        # written.
+        tokens = list(req.prompt) + list(req.output[:-1])
+        if self.remote_insts.get(req.req_id):
+            chain = self.req_chain.get(req.req_id)
+            if chain is None:
+                return
+            total = (len(chain) - 1) * self.block_size + rb.tail_tokens
+            cache.insert_chain_multi(chain, tokens[:total])
+            return
+        tokens = tokens[:rb.n_tokens(self.block_size)]
+        cache.insert_chain(self.inst_id, tokens, rb.blocks)
 
     def _fail(self, req: Request) -> None:
         req.state = RequestState.FAILED
@@ -574,6 +769,10 @@ class InstanceEngine:
             self.slots[req.slot] = None
             req.slot = None
         self.rmanager.release_request(req.req_id)
+        if self.prefix_cache is not None:
+            # Unpin the request's cached-prefix nodes — exactly once (the
+            # pin list is popped), on every terminal path.
+            self.prefix_cache.release(req.req_id)
         self.remote_insts.pop(req.req_id, None)
         self.req_chain.pop(req.req_id, None)
         self._finished_events.append(req.req_id)
@@ -605,6 +804,12 @@ class InstanceEngine:
             if r is None:
                 continue
             if not pool.append_tokens(r.req_id, 1):
+                # Unpinned prefix-cache replicas are reclaimable: evict
+                # one and retry before rejecting the request.
+                if self._ensure_free(1) and pool.append_tokens(r.req_id,
+                                                               1):
+                    self._chain_append(r)
+                    continue
                 self._fail(r)
             else:
                 self._chain_append(r)
@@ -784,6 +989,28 @@ class InstanceEngine:
         v = read_pool_rows(self.pool_v, blocks, self.block_size)
         return k[:, None], v[:, None]
 
+    # --- block transport (prefix cache, host tier, preemption) ---------#
+    def read_block_rows(self, block: int):
+        """One pool block's rows as independent [L, bs, K, hd] tensors
+        (a gather on the compute stream: safe to keep after the frame is
+        freed and reused)."""
+        if self.gpool is not None:
+            return self.gpool.read_blocks(self.inst_id, [block])
+        return (read_pool_rows(self.pool_k, [block], self.block_size),
+                read_pool_rows(self.pool_v, [block], self.block_size))
+
+    def write_block_rows(self, block: int, k, v) -> None:
+        """Fill one pool block from [L, bs, K, hd] rows, in place: an
+        H2D upload of a (pinned) host frame, ``non_blocking`` on the
+        compute stream, or a D2D peer replica copy."""
+        k = k.to(self.device, non_blocking=True)
+        v = v.to(self.device, non_blocking=True)
+        if self.gpool is not None:
+            self.gpool.write_blocks(self.inst_id, [block], k, v)
+            return
+        write_pool_rows(self.pool_k, [block], k, self.block_size)
+        write_pool_rows(self.pool_v, [block], v, self.block_size)
+
     # --- creditor side -------------------------------------------------#
     def host_kv(self, req_id: int, blocks: List[int], k, v) -> None:
         """Write an arriving span's rows into already-committed blocks.
@@ -807,3 +1034,132 @@ class InstanceEngine:
     def drop_hosted(self, req_id: int) -> None:
         """Release a hosted span — pure metadata; rows are reused later."""
         self.rmanager.release_request(req_id)
+
+    # --- preemption (overload survival) -------------------------------- #
+    def chain_of(self, req: Request) -> List[Tuple[int, int]]:
+        """The request's GLOBAL block chain in token order: the striped
+        ``req_chain`` when it spans creditors (or was moved), else its
+        purely local block list."""
+        chain = self.req_chain.get(req.req_id)
+        if chain is not None:
+            return chain
+        rb = self.rmanager.pool.requests.get(req.req_id)
+        return [(self.inst_id, b) for b in rb.blocks] if rb else []
+
+    def read_chain_frames(self, req: Request):
+        """Gather every block of a request's KV chain (cross-engine for
+        creditor spans) as independent ``(k, v)`` frame pairs of shape
+        [L, bs, K, hd], in token order.
+
+        Returns ``(n_resident_tokens, frames)`` or None when the chain
+        is unreadable (unknown request, missing creditor). The gathers do
+        not alias the pools and run on the compute stream before any
+        later reuse of the frames, so the caller may release the blocks
+        right after."""
+        rid = req.req_id
+        rb = self.rmanager.pool.requests.get(rid)
+        if rb is None or not rb.blocks:
+            return None
+        chain = self.chain_of(req)
+        if not chain:
+            return None
+        frames = []
+        peers = self.peers
+        for inst, blk in chain:
+            eng = self if inst == self.inst_id else peers.get(inst)
+            if eng is None:
+                return None
+            frames.append(eng.read_block_rows(blk))
+        n_tokens = (len(chain) - 1) * self.block_size + rb.tail_tokens
+        return n_tokens, frames
+
+    def finalize_pause(self, req: Request,
+                       now: Optional[float] = None) -> None:
+        """Release a RUNNING request's device state and park it PAUSED.
+
+        Called by the preemptor AFTER its KV chain has been read and
+        stored host-side: the slot, local blocks (decref'ing shared
+        cache frames) and cache pins are released through the same
+        ``_release_slot`` discipline as every terminal path — the
+        finished event it queues lets the cluster drop any creditor
+        span not already dropped, exactly once. The request itself
+        keeps its prompt/output/stream state and is NOT terminal."""
+        req.state = RequestState.PAUSED
+        req.preemptions += 1
+        req.paused_at = time.monotonic() if now is None else now
+        self._release_slot(req)
+
+    def resume_paused(self, req: Request, n_tokens: int,
+                      frames, remote_layout=None) -> bool:
+        """Re-admit a PAUSED request by restoring its KV chain, without
+        recompute.
+
+        Reserves a fresh placement — a local tail and, when ``n_tokens``
+        overflows the local quota, block-aligned creditor spans
+        committed through the reserve-then-stream prefix sink. When
+        ``remote_layout`` (the paused chain's creditor runs as
+        ``[(inst_id, n_blocks)]``) is given, the SAME local/remote
+        partition — and preferentially the same creditors — is
+        reproduced: the partition decides the LSE-merge grouping, so
+        reproducing it keeps the resumed greedy stream bit-identical to
+        the unpreempted run rather than merely byte-identical in KV. The
+        saved ``frames`` (chain order) are uploaded H2D into the
+        reserved blocks: creditor spans first (tokens [0, n_over)), local
+        tail after. Rollback is exact on any reservation failure (sink
+        abort + block release), leaving the request PAUSED and resumable
+        elsewhere. On success the request is RUNNING in a slot and the
+        next decode step feeds ``output[-1]`` over byte-identical KV."""
+        if not self._can_pool:
+            return False
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        rid, bs = req.req_id, self.block_size
+        if remote_layout:
+            n_over = sum(nb for _, nb in remote_layout) * bs
+        else:
+            cap = self.max_local_len - bs
+            n_over = 0 if n_tokens <= cap \
+                else -(-(n_tokens - cap) // bs) * bs
+        n_local = n_tokens - n_over
+        if n_over and self.prefix_sink is None:
+            return False
+        sink = None
+        if n_over:
+            sink = self.prefix_sink(req, n_over, start=0,
+                                    prefer=remote_layout)
+            if sink is None:
+                return False
+        if not self._ensure_free(-(-n_local // bs)) or \
+                not self.rmanager.pool.append_tokens(rid, n_local):
+            if sink is not None:
+                sink.abort()
+            self.rmanager.release_request(rid)
+            return False
+        idx = 0
+        if sink is not None:
+            peers = self.peers
+            for inst, _start, blks in sink.spans:
+                for b in blks:
+                    k, v = frames[idx]
+                    idx += 1
+                    peers[inst].write_block_rows(b, k, v)
+            sink.flush()
+            self.remote_insts[rid] = list(sink.rank_ids)
+        local = self.rmanager.pool.requests[rid].blocks
+        for b in local:
+            k, v = frames[idx]
+            idx += 1
+            self.write_block_rows(b, k, v)
+            self.stats.host_prefetch_bytes += int(k.nbytes + v.nbytes)
+        assert idx == len(frames), "chain frames != reserved blocks"
+        if sink is not None:
+            chain = [(inst, b) for inst, _start, blks in sink.spans
+                     for b in blks]
+            chain += [(self.inst_id, b) for b in local]
+            self.req_chain[rid] = chain
+        self.rmanager.set_owner(rid, True)
+        req.slot = slot
+        req.state = RequestState.RUNNING
+        self.slots[slot] = req
+        return True

@@ -25,9 +25,19 @@ debtors are offloaded/served first. Cancellation propagates through
 every layer (engine slot, in-flight streaming prefill, creditor-hosted
 spans, planned moves) — see ``Cluster.cancel``.
 
-Every ``submit`` feeds the gManager's EWMA arrival estimator, which
-replaces the static ``avg_new_req_len`` knob in Algorithm 1's planning.
-(Overload preemption is not in this slice of the port.)
+With ``ServingConfig.overload.enabled`` the frontend also survives
+sustained overload instead of queueing through it: when urgent arrivals
+find zero free slots, ``_overload_control`` pauses SLO-slack victims
+(their KV spills byte-for-byte to a pinned host tier — see
+``repro_torch.serving.preempt``) and hands the freed slots to the
+arrivals; parked requests resume with byte-identical KV once capacity
+returns. Every ``submit`` additionally feeds the gManager's EWMA arrival
+estimator, which replaces the static ``avg_new_req_len`` knob in
+Algorithm 1's planning.
+
+A handle holds its server; the server holds only the requests (never a
+handle), so a dropped server with no live handle frees its cluster —
+weights and pools — at once.
 
 The cluster's ``step()`` loop still exists underneath — it is the
 INTERNAL execution engine this frontend drives.
@@ -153,7 +163,7 @@ class LLMServer:
         self.cluster = Cluster(params, cfg, self.config, perf=perf,
                                device=device)
         self._ids = RequestIdAllocator()
-        self._handles: Dict[int, RequestHandle] = {}
+        self._requests: Dict[int, Request] = {}   # submitted, unreaped
         self._queue: List[Request] = []      # admitted, not yet dispatched
         self.rejected: int = 0               # bounded-queue rejections
 
@@ -178,7 +188,7 @@ class LLMServer:
         req.arrival_time = time.monotonic() if arrival_time is None \
             else arrival_time
         handle = RequestHandle(self, req)
-        self._handles[req.req_id] = handle
+        self._requests[req.req_id] = req
         # Every arrival (even one about to be shed) feeds the gManager's
         # EWMA traffic estimator: expected KV footprint is the prompt
         # plus the decode budget — the worst case the pool must plan for.
@@ -238,20 +248,52 @@ class LLMServer:
             self.cluster.submit(req, now=now)
         del self._queue[:budget]
 
+    def _overload_control(self, now: float) -> None:
+        """Preempt-for-queue: when dispatch left urgent requests queued
+        with zero free slots, pause SLO-slack victims to make room.
+
+        Runs after ``_dispatch`` each step (no-op unless the overload
+        policy is enabled). Each queued request, most urgent first, asks
+        the preemptor for a victim it out-ranks whose charged slack
+        survives the detour; the victim's freed slot takes the queued
+        request directly (``submit_to``), pairing preemption with the
+        arrival that justified it. The preemptor's resume path is told
+        the remaining queue's best urgency (``queue_pressure``) so
+        parked requests never steal capacity the queue is entitled to."""
+        pre = self.cluster.preemptor
+        if pre is None:
+            return
+        if not self._queue:
+            pre.queue_pressure = None
+            return
+        if self._free_slots() <= 0:
+            self._queue.sort(
+                key=lambda r: (-r.urgency(now), r.arrival_time))
+            for req in list(self._queue):
+                inst = pre.pause_for(req, now=now)
+                if inst is None:
+                    break           # no eligible victim for anyone less
+                self._queue.remove(req)
+                self.cluster.submit_to(req, inst, now=now)
+        pre.queue_pressure = max(
+            (r.urgency(now) for r in self._queue), default=None)
+
     # --- execution ----------------------------------------------------- #
     def step(self, now: Optional[float] = None) -> int:
-        """One frontend iteration: dispatch, then one cluster step."""
+        """One frontend iteration: dispatch, overload control (paused
+        victims / preempted slots when enabled), then one cluster step."""
         now = time.monotonic() if now is None else now
         self._dispatch(now)
+        self._overload_control(now)
         return self.cluster.step(now=now)
 
     def drain(self, max_steps: int = 10_000) -> int:
         """Drive until every submitted request is terminal (closed-loop
         convenience for examples/tests). Returns steps taken."""
         steps = 0
-        active = [h for h in self._handles.values() if not h.done]
+        active = [r for r in self._requests.values() if not r.done]
         while steps < max_steps:
-            active = [h for h in active if not h.done]
+            active = [r for r in active if not r.done]
             if not active:
                 break
             self.step()
@@ -263,33 +305,57 @@ class LLMServer:
         long-lived server does not retain every prompt/output forever.
         Handles the caller still holds stay valid — they reference the
         Request directly. Returns how many were evicted."""
-        gone = [rid for rid, h in self._handles.items() if h.done]
+        gone = [rid for rid, r in self._requests.items() if r.done]
         for rid in gone:
-            self._handles.pop(rid, None)
+            self._requests.pop(rid, None)
             self.cluster.requests.pop(rid, None)
         return len(gone)
 
     @property
     def handles(self) -> List[RequestHandle]:
         """Live (unreaped) request handles, including queued ones."""
-        return list(self._handles.values())
+        return [RequestHandle(self, r) for r in self._requests.values()]
 
     @property
     def metrics(self) -> Dict[str, float]:
         """Cluster-wide occupancy counters: device-pool blocks (total /
-        used / free), the KV bytes moved between instances, and the live
-        traffic estimate feeding Algorithm 1."""
+        used / free), prefix-cache footprint (device replicas, pinned by
+        live requests), host-tier occupancy, cumulative spill / prefetch /
+        hit traffic, overload-survival counters, the KV bytes moved
+        between instances, and the live traffic estimate feeding
+        Algorithm 1. Cache, host-tier and preemption entries are present
+        (as zeros) even when the features are off, so dashboards keyed on
+        the names never miss."""
         cl = self.cluster
         total = used = free = 0
+        spill = prefetch = hit_toks = 0
         for eng in cl.engines.values():
             alloc = eng.rmanager.pool.alloc
             total += alloc.num_blocks
             used += alloc.used_count
             free += alloc.free_count
+            spill += eng.stats.host_spill_bytes
+            prefetch += eng.stats.host_prefetch_bytes
+            hit_toks += eng.stats.cache_hit_tokens
+        cache, tier, pre = cl.prefix_cache, cl.host_tier, cl.preemptor
         return {
             "device_blocks_total": float(total),
             "device_blocks_used": float(used),
             "device_blocks_free": float(free),
+            "cache_device_blocks": float(sum(
+                cache.device_blocks(i) for i in cl.engines)) if cache else 0.0,
+            "cache_pinned_blocks": float(sum(
+                cache.pinned_blocks(i) for i in cl.engines)) if cache else 0.0,
+            "cache_hit_tokens": float(hit_toks),
+            "host_blocks_used": float(tier.used_blocks) if tier else 0.0,
+            "host_blocks_capacity": float(tier.capacity) if tier else 0.0,
+            "host_spill_bytes": float(spill),
+            "host_prefetch_bytes": float(prefetch),
+            "preemptions": float(pre.stats.preemptions) if pre else 0.0,
+            "preempt_resumes": float(pre.stats.resumes) if pre else 0.0,
+            "paused_now": float(len(pre.paused)) if pre else 0.0,
+            "preempt_tier_blocks_used":
+                float(pre.tier.used_blocks) if pre else 0.0,
             "kv_moved_bytes": float(cl.throughput_stats["kv_moved_bytes"]),
             "arrival_rate_hz": cl.gmanager.arrivals.rate_hz,
             "avg_new_req_len_est":

@@ -556,3 +556,143 @@ def test_global_pool_serves_on_the_card(arch, cuda_device):
                                  torch.tensor([ref[-1]], device=cuda_device))
             ref.append(int(lg[0].argmax()))
         assert out == ref
+
+
+# ------------------------------------------------------------------ #
+# The memory hierarchy's shapes and transport on the card
+# ------------------------------------------------------------------ #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,tail", [(1, 15), (128, 16)])
+def test_warm_and_cow_chunks_match_plain(dtype, C, tail, cuda_device):
+    """The chunks a cached admission launches: C = 1 (the COW path's
+    re-run last token) over a ~3,000-token prefix whose last block holds
+    bs - 1 rows, and C = 128 over a prefix ending at a block boundary (a
+    warm admission's uncached tail), single-rank and in rank form (NR 3,
+    one rank empty), each one launch, equal to the plain twins."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    rng = np.random.default_rng(C)
+    K, G, D, bs, nblk = 8, 2, 128, 16, 188
+    H, MB = K * G, 256
+    table, _ = _prefix_tables(rng, [nblk], MB, bs)
+    pk, pv = _pools(gen, nblk + 2, bs, K, D, dtype, cuda_device)
+    q = torch.randn((C, H, D), generator=gen, device=cuda_device).to(dtype)
+    tb = torch.from_numpy(table[0]).to(cuda_device)
+    tl = torch.tensor(tail, dtype=torch.int32, device=cuda_device)
+    scale = D ** -0.5
+    ops.reset_counts()
+    _close_partials(ops.paged_prefill_attention(q, pk, pv, tb, tl),
+                    paged_prefill_attention_plain(q, pk, pv, tb, tl,
+                                                  scale=scale))
+    gk, gv = _global_pool(gen, 3, 2, 200, bs, K, D, dtype, cuda_device)
+    tables, tails = _rank_tables(rng, 3, [nblk], MB, bs, 200, (1,))
+    tails[:, 0] = np.where(tables[:, 0, 0] >= 0, tail, bs)
+    rtb = torch.from_numpy(tables[:, 0]).to(cuda_device)
+    rtl = torch.from_numpy(tails[:, 0]).to(cuda_device)
+    got = ops.paged_prefill_attention_ranks(q, gk[:, 1], gv[:, 1], rtb, rtl)
+    _close_partials(got, paged_prefill_attention_ranks_plain(
+        q, gk[:, 1], gv[:, 1], rtb, rtl, scale=scale))
+    assert bool(torch.isneginf(got[1][1]).all())
+    c = ops.counts()
+    assert c["paged_prefill_attention"] == {"launches": 1, "plain_calls": 0}
+    assert c["paged_prefill_attention_ranks"] == {"launches": 1,
+                                                  "plain_calls": 0}
+
+
+@pytest.mark.cuda
+def test_host_tier_spills_and_uploads_bf16_frames_byte_identical(
+        cuda_device):
+    """A bf16 block spilled through pinned memory on the tier's side
+    stream and uploaded back into another block is byte-identical, even
+    when the source block is overwritten right after the put (the
+    gathered rows are the copy's source, ordered after the gather); the
+    pool is written in place."""
+    from repro_torch.serving.hosttier import HostKVTier
+    from repro_torch.serving.kvpool import read_pool_rows, write_pool_rows
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    L, NB, bs, K, D = 4, 64, 16, 8, 128
+    pool = torch.randn((L, NB, bs, K, D), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    ptr = pool.data_ptr()
+    want = pool[:, 3].clone()
+    tier = HostKVTier(4, verify=True)
+    for key in range(6):                 # LRU keeps the newest 4
+        k = read_pool_rows(pool, [3 + key], bs)
+        assert tier.put(key, k, k)
+        pool[:, 3 + key].zero_()          # the frame must not see this
+    tier.drain(block=True)
+    assert tier.used_blocks <= 4 and 5 in tier
+    k_host, _ = tier._frames[5]
+    assert k_host.is_pinned() and k_host.device.type == "cpu"
+    pool[:, 3] = want
+    k = read_pool_rows(pool, [3], bs)
+    assert tier.put("again", k, k)
+    fk, fv = tier.get("again")           # finalizes (maybe a stall)
+    write_pool_rows(pool, [40], fk.to(cuda_device, non_blocking=True), bs)
+    torch.cuda.synchronize()
+    assert torch.equal(pool[:, 40].view(torch.int16),
+                       want.view(torch.int16))
+    assert torch.equal(fv.view(torch.int16), want.view(torch.int16).cpu())
+    assert pool.data_ptr() == ptr
+    assert tier.stats.corruptions == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("global_pool", [False, True],
+                         ids=["per-instance", "global-pool"])
+def test_cached_serving_on_the_card_allocates_nothing_pool_sized(
+        global_pool, cuda_device):
+    """bf16 smoke serving with the prefix cache and a host tier on the
+    card: replicas spill and come back, no step reallocates a pool and
+    only the CUDA paged kernels run (a 9-block pool); and a warm
+    admission allocates nothing pool-sized (a 4,096-block pool, so that
+    a pool dwarfs the smoke model's activations)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import LLMServer, SamplingParams, ServingConfig
+    cfg = get_smoke_config("olmo-1b")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    rng = np.random.default_rng(61)
+    prompts = [rng.integers(0, cfg.vocab_size, 24).tolist()
+               for _ in range(3)]
+    sp = SamplingParams(max_new_tokens=4)
+
+    def server(pool_blocks):
+        return LLMServer(params, cfg, ServingConfig.smoke(
+            n_instances=1, max_batch=1, max_local_len=64,
+            pool_blocks=pool_blocks, block_size=8, prefill_chunk=8,
+            prefix_cache=True, host_tier_blocks=64,
+            global_pool=global_pool))
+
+    small = server(9)
+    eng = small.cluster.engines[0]
+    ptr = eng.pool_k.data_ptr()
+    ops.reset_counts()
+    for p in prompts + prompts:
+        small.submit(p, sp).result()
+    m = small.metrics
+    assert m["host_spill_bytes"] > 0 and m["host_prefetch_bytes"] > 0
+    assert m["cache_hit_tokens"] > 0
+    assert eng.pool_k.data_ptr() == ptr
+    assert eng.stats.pool_copy_steps == 0
+    c = ops.counts()
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    suffix = "_ranks" if global_pool else ""
+    assert c["paged_prefill_attention" + suffix]["launches"] > 0
+    assert c["paged_micro_attention" + suffix]["launches"] > 0
+
+    big = server(4096)
+    eng = big.cluster.engines[0]
+    big.submit(prompts[0], sp).result()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    h = big.submit(prompts[0][:20] + [1, 2, 3], sp)   # warm: 16 cached
+    big.step()
+    torch.cuda.synchronize()
+    assert h._req.output, "the warm request was not admitted"
+    assert big.metrics["cache_hit_tokens"] == 16
+    pool_bytes = eng.pool_k.numel() * eng.pool_k.element_size()
+    assert torch.cuda.max_memory_allocated() - base < pool_bytes
+    h.result()

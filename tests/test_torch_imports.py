@@ -38,7 +38,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.models.moe", "repro_torch.serving.globalpool",
             "repro_torch.serving.sharded_step",
             "repro_torch.configs.qwen2_moe_a2_7b",
-            "repro_torch.configs.kimi_k2_1t_a32b"} <= set(mods)
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.serving.faults", "repro_torch.serving.hosttier",
+            "repro_torch.serving.prefixcache",
+            "repro_torch.serving.preempt"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"

@@ -11,9 +11,14 @@ JAX cluster's step for step, so the port's perf model gets the JAX
 package's hardware constants); cancel mid-prefill with the allocators
 restored exactly; ``top_k=1`` == greedy, and ``top_k=3`` sampling stays
 inside each step's top-3 set (the port's random stream cannot match
-JAX's, so sampled paths are checked by support).
+JAX's, so sampled paths are checked by support). And a dropped server
+frees its weights at once, with the garbage collector off, even with
+the prefix cache, host tier and preemption on (no reference cycle holds
+a cluster).
 """
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +35,7 @@ from repro import serving as jsv
 from repro_torch import bridge
 from repro_torch import serving as psv
 from repro_torch.distributed.hardware import HardwareSpec
+from repro_torch.models.model import init_params as pt_init_params
 
 
 @pytest.fixture(scope="module")
@@ -282,3 +288,50 @@ def test_top_k_one_is_greedy_and_top_k_stays_in_top_set(setup):
     for i, lg in enumerate(_oracle_logits(jp, cfg, prompt, sampled)):
         top3 = set(np.argsort(lg)[-3:].tolist())
         assert sampled[i] in top3, f"step {i}: {sampled[i]} not in {top3}"
+
+
+def _served_server(cfg, global_pool):
+    """A server with the prefix cache, a host tier and preemption on
+    that served warm, spanning, spilled and paused requests; returns it
+    and weak references to one of its weight tensors, its cache and
+    both host tiers (which hold pinned host frames on the card)."""
+    params = pt_init_params(cfg, device="cpu")
+    weight = weakref.ref(params["embed"])
+    server = psv.LLMServer(params, cfg, psv.ServingConfig.smoke(
+        n_instances=3, max_batch=2, pool_blocks=24, prefix_cache=True,
+        host_tier_blocks=16, overload=psv.OverloadPolicy(enabled=True),
+        global_pool=global_pool), device="cpu")
+    rng = np.random.default_rng(40)
+    sp = psv.SamplingParams(max_new_tokens=6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (40, 16, 24, 9)]
+    handles = [server.submit(p, sp) for p in prompts]
+    for _ in range(3):
+        server.step()
+    paused = next(h for h in handles if h.status.name == "RUNNING")
+    assert server.cluster.preemptor.pause(paused._req)
+    server.drain()
+    server.submit(prompts[0], sp).result()          # warm, spanning
+    assert all(h.status.name == "FINISHED" for h in handles)
+    m = server.metrics
+    assert m["preempt_resumes"] == 1 and m["cache_hit_tokens"] > 0
+    cl = server.cluster
+    return server, [weight, weakref.ref(cl.prefix_cache),
+                    weakref.ref(cl.host_tier), weakref.ref(cl.preemptor),
+                    weakref.ref(cl.preemptor.tier)]
+
+
+@pytest.mark.parametrize("global_pool", [False, True],
+                         ids=["per-instance", "global-pool"])
+def test_dropped_server_frees_its_weights_without_gc(setup, global_pool):
+    cfg = setup[0]
+    gc.collect()
+    gc.disable()
+    try:
+        server, refs = _served_server(cfg, global_pool)
+        assert all(r() is not None for r in refs)
+        del server
+        assert [r() for r in refs] == [None] * len(refs), \
+            "a reference cycle keeps the server (or its tiers) alive"
+    finally:
+        gc.enable()
