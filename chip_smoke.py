@@ -77,6 +77,25 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    preemption, as many resumes, every request finishes, the preempt
    tier ends empty and the allocators return to their state before
    admission. Reports pause and resume times and the bytes spilled.
+   Then, once per pool mode, faults (two transfer retries a chain). A
+   creditor crash: the server serves the 4,000-, 600- and 300-token
+   prompts unfailed, then again, and once the longest has 4 tokens
+   ``kill_instance`` takes down a creditor hosting its span: the
+   request replays once (a re-prefill of ``prompt + output[:-1]``, the
+   paged kernels' counters rising during it; in global mode still one
+   decode rank launch per layer and engine step), the dead instance
+   holds no block, every request finishes, every allocator drains, no
+   pool is reallocated. Reports the steps to detection, the replay's
+   host time and the delay from detection to the next token, the
+   replayed tokens and how many tokens each stream shares with the
+   unfailed one. A seeded plan: a ``FaultPlan`` with one event of each
+   kind (a stager timeout, a host fetch error, a host frame
+   corruption, a move-leg failure, a crash, a silence past the
+   heartbeat timeout) with the prefix cache, a host tier and
+   preemption on: every request finishes (or FAILs only past its
+   replay budget), the server's fault counters show each event, both
+   host tiers end empty once the cache is cleared and no allocator
+   leaks.
 3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
    full width (38 layers: 26 RG-LRU, 12 local-attention; bf16, seeded
    random weights) with two non-pooled instances: prompts of 6,000,
@@ -92,7 +111,17 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    random weights) in global-pool mode with the qwen3 phase's config and
    prompts, under the global phase's checks; then a traced window with a
    late 512-token admission.
-5. Parity, float32. qwen3-0.6b: a creditor-spanning request served
+5. Serving, xlstm-350m (the ssm family). ``LLMServer`` serves it at
+   full width (24 layers: 21 mLSTM, 3 sLSTM; bf16, seeded random
+   weights) with two non-pooled instances of four slots: prompts of
+   1,024, 512, 256 and 64 tokens. Every request must finish and no
+   kernel of the port may run (xLSTM has none). Reports tokens/s, TTFT,
+   TBT, peak memory and the mLSTM state of a slot. A traced window (a
+   late 64-token admission and a few decode steps) reports the
+   device's busy share; then a ``FaultPlan`` crash of the busiest
+   instance: its requests replay on the survivor and every request
+   finishes.
+6. Parity, float32. qwen3-0.6b: a creditor-spanning request served
    through ``LLMServer``, in both pool modes; qwen2-moe-a2.7b at full
    width and 4 layers in global-pool mode, the prompt striped over both
    creditors; recurrentgemma-9b at full width and 5 layers
@@ -105,7 +134,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    warm partial-prefix hit, a full-prompt COW hit, a hit prefetched from
    the host tier, and a creditor-spanning request paused after 4 tokens
    and resumed with its recorded layout, each held to the oracle the
-   same way.
+   same way; and, in both pool modes, each on a fresh server, token
+   replay of a creditor-spanning request after a creditor crash
+   (``kill_instance``), after an owner crash (a ``FaultPlan`` event), and
+   after its pause when a ``host_corrupt`` event spoils its first
+   preempt-tier frame (the resume falls back to replay): every logit,
+   the re-prefill's too, is held to the oracle's logit for the output
+   index it predicts. xlstm-350m at full width: a 1,024-token prompt
+   through ``LLMServer`` against the port's own ``prefill`` +
+   ``decode_step``.
 
 After each model's phases its servers and weights are dropped and the
 card must hold (almost) nothing: a dropped server frees its memory at
@@ -155,6 +192,13 @@ TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
 PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_prefill",
                        "flash_prefill")
+
+
+def tree_leaves(tree) -> list:
+    """Every tensor of a nested parameter dict."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
 
 
 def card_line() -> str:
@@ -1300,14 +1344,334 @@ def overload_phase(params, cfg, device, global_pool: bool, n_new=64):
             "phase_s": time.perf_counter() - t_phase, "counts": counts}
 
 
+# --------------------------------------------------------------------- #
+# Fault injection and token-replay recovery (qwen3-0.6b)
+# --------------------------------------------------------------------- #
+def fault_config(global_pool: bool, **over):
+    """The serving config with two transfer retries a chain."""
+    from repro_torch.serving import FaultPolicy
+    return serving_config().replace(
+        global_pool=global_pool, faults=FaultPolicy(max_transfer_retries=2),
+        **over)
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_allocators_clean(cluster) -> None:
+    """Two more steps flush pending hosted releases; then every allocator,
+    quarantined ranks included, is free (``check_all_free``) and holds no
+    request record."""
+    for _ in range(2):
+        cluster.step()
+    check_all_free(cluster)
+    for i, e in cluster.engines.items():
+        if e.rmanager.pool.requests:
+            raise AssertionError(f"instance {i} kept request records "
+                                 f"{list(e.rmanager.pool.requests)}")
+
+
+def check_done_or_replay_failed(reqs, max_replays: int) -> None:
+    """Every request FINISHED, or FAILED only past its replay budget."""
+    from repro_torch.serving import RequestState
+    for r in reqs:
+        if r.state == RequestState.FINISHED:
+            continue
+        if r.state == RequestState.FAILED and r.replays >= max_replays:
+            continue
+        raise AssertionError(f"request {r.req_id} ended {r.state} after "
+                             f"{r.replays} replays")
+
+
+class ReplaySpy:
+    """Host time of every replay admission (the re-prefill of ``prompt +
+    output[:-1]``, synchronized at its end), and the time and step at
+    which each dead instance was detected (``Cluster._handle_dead``)."""
+
+    def __enter__(self):
+        import repro_torch.serving.engine as engine_mod
+        from repro_torch.serving.cluster import Cluster
+        self.eng_cls, self.cl_cls = engine_mod.InstanceEngine, Cluster
+        self.orig = (self.eng_cls._admit_streaming, self.eng_cls._admit_dense,
+                     Cluster._handle_dead)
+        self.replays, self.detected = [], []
+        spy = self
+
+        def timed(orig):
+            def admit(eng, req, *a):
+                replay = req.needs_replay and bool(req.output)
+                t0 = time.monotonic()
+                out = orig(eng, req, *a)
+                if replay:
+                    sync(eng.device)
+                    spy.replays.append({
+                        "req_id": req.req_id, "inst": eng.inst_id,
+                        "tokens": len(req.prompt) + len(req.output) - 1,
+                        "host_s": time.monotonic() - t0})
+                return out
+            return admit
+
+        def handle_dead(cl, dead):
+            spy.detected.append({"t": time.monotonic(),
+                                 "step": cl._step_count, "dead": list(dead)})
+            return spy.orig[2](cl, dead)
+        self.eng_cls._admit_streaming = timed(self.orig[0])
+        self.eng_cls._admit_dense = timed(self.orig[1])
+        Cluster._handle_dead = handle_dead
+        return self
+
+    def __exit__(self, *exc):
+        (self.eng_cls._admit_streaming, self.eng_cls._admit_dense,
+         self.cl_cls._handle_dead) = self.orig
+
+
+def shared_tokens(a, b) -> dict:
+    """Leading tokens two streams share, and positions where they agree."""
+    lead = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+    return {"leading": lead, "equal": sum(x == y for x, y in zip(a, b)),
+            "of": len(a)}
+
+
+def fault_phase(params, cfg, device, global_pool: bool, prompt_lens,
+                n_new=32, pool_blocks=256):
+    """qwen3, a creditor crash, once and counted: the server first serves
+    the prompts unfailed (the reference stream), then the same prompts
+    again; once the longest has emitted 4 tokens, ``kill_instance`` of a
+    creditor hosting its span. Detection, token replay (re-prefill of
+    ``prompt + output[:-1]``, the paged kernels over the re-striped
+    prefix), every request finishing, no leak, no pool reallocated."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import LLMServer, SamplingParams
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        reset_peak_memory()
+    # 256 blocks an instance: once one creditor is dead, the other must
+    # hold the longest request's whole overflow (188 blocks) on replay.
+    server = LLMServer(params, cfg, fault_config(global_pool,
+                                                 pool_blocks=pool_blocks),
+                       device=device)
+    cl = server.cluster
+    ptrs = pool_ptrs(cl)
+    prompts = make_prompts(cfg, prompt_lens, 7)
+    sp = SamplingParams(max_new_tokens=n_new)
+    clean = [server.submit(p, sp) for p in prompts]
+    server.drain(max_steps=20_000)
+    all_finished(clean)
+    hs = [server.submit(p, sp) for p in prompts]
+    req = hs[0]._req
+    for _ in range(2_000):
+        server.step()
+        if len(req.output) >= 4:
+            break
+    owner = next(i for i, e in cl.engines.items() if req in e.running)
+    hosts = [i for i, e in cl.engines.items()
+             if i != owner and e.rmanager.is_hosting(req.req_id)]
+    if not hosts:
+        raise AssertionError("the spanning request has no creditor span")
+    victim = hosts[0]
+    kill_step, tokens_at_kill = cl._step_count, len(req.output)
+    with ReplaySpy() as spy:
+        sync(device)
+        ops.reset_counts()
+        steps0 = decode_steps(server)
+        cl.kill_instance(victim)
+        for _ in range(50):
+            server.step()
+            if spy.detected:
+                break
+        else:
+            raise AssertionError("the dead creditor was never detected")
+        detect = spy.detected[0]
+        if cl.engines[victim].rmanager.pool.alloc.used_count:
+            raise AssertionError("the dead instance still holds blocks")
+        for _ in range(2_000):
+            if req.token_times[-1] > detect["t"]:
+                break
+            server.step()
+        sync(device)
+        window = ops.counts()
+        window_steps = decode_steps(server) - steps0
+        server.drain(max_steps=20_000)
+        sync(device)
+        counts = ops.counts()
+    all_finished(hs)
+    if req.replays != 1 or not spy.replays:
+        raise AssertionError(f"the spanning request replayed {req.replays} "
+                             f"times")
+    check_allocators_clean(cl)
+    if pool_ptrs(cl) != ptrs or sum(e.stats.pool_copy_steps
+                                    for e in cl.engines.values()):
+        raise AssertionError("a pool tensor was reallocated")
+    check_path_kernels(counts, global_pool, device)
+    names = (("paged_micro_attention_ranks", "paged_prefill_attention_ranks")
+             if global_pool else
+             ("paged_micro_attention", "paged_prefill_attention"))
+    for name in names:
+        if served(window, name, device) <= 0:
+            raise AssertionError(f"{name} did not run during the replay")
+    report = {
+        "global_pool": global_pool, "prompt_lens": list(prompt_lens),
+        "n_new": n_new, "victim": victim, "owner": owner,
+        "tokens_at_kill": tokens_at_kill,
+        "steps_to_detection": detect["step"] - kill_step,
+        "replay_tokens_prefilled": spy.replays[0]["tokens"],
+        "replay_host_s": spy.replays[0]["host_s"],
+        "replay_token_delay_s": next(t for t in req.token_times
+                                     if t > detect["t"]) - detect["t"],
+        "replayed_tokens": req.replayed_tokens,
+        "shared_with_unfailed": [shared_tokens(h._req.output, c._req.output)
+                                 for h, c in zip(hs, clean)],
+        "window_launches": {k: served(window, k, device) for k in names},
+        "window_decode_steps": window_steps,
+        "metrics": {k: server.metrics[k] for k in FAULT_METRICS},
+        "counts": counts}
+    if global_pool:
+        per_step = report["window_launches"][names[0]] / window_steps
+        report["decode_launches_per_step"] = per_step
+        if per_step != cfg.num_layers:
+            raise AssertionError(f"{per_step} decode rank launches per "
+                                 f"engine step during the replay, not "
+                                 f"{cfg.num_layers}")
+    if device.type == "cuda":
+        report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
+
+
+FAULT_METRICS = ("dead_instances", "fault_recoveries",
+                 "fault_failed_recoveries", "replayed_tokens",
+                 "move_leg_failures", "transfer_retries",
+                 "transfer_failures", "host_frame_corruptions")
+
+
+def fault_plan_phase(params, cfg, device, global_pool: bool, *,
+                     prefix_len=PREFIX_LEN, suffix_len=SUFFIX_LEN,
+                     mover_len=1500, worker_len=600, crash_at=40, n_new=32):
+    """qwen3 under a FaultPlan with one event of each kind, with the
+    prefix cache, a host tier and preemption on. A cold request caches a
+    shared prefix + suffix, whose frames are then all evicted to the host
+    tier. The plan arms a host fetch error, a stager timeout and a
+    move-leg failure at the next step and a host frame corruption at the
+    one after, then crashes instance 1 and silences instance 2 past the
+    heartbeat timeout ``crash_at`` steps later. On instance 0: a warm
+    request (its first host hit meets the fetch error, retried; its
+    prefetches of the prefix overflow the stager's ring, whose drain
+    meets the timeout, retried), a ``mover_len``-token request, striped
+    over a creditor at admission, whose reactive move during decode
+    meets the leg failure and re-plans, and, one step later, the cold
+    prompt again (its suffix's host hit meets the corruption: that
+    block is recomputed). All three finish before the crash. Instances
+    1 and 2 each serve a ``worker_len``-token request still decoding at
+    the crash: both replay on the survivor."""
+    from repro_torch.serving import (FaultEvent, FaultPlan, LLMServer,
+                                     OverloadPolicy, Request, SamplingParams)
+    from repro_torch.serving.faults import FAULT_KINDS
+    t_phase = time.perf_counter()
+    config = fault_config(global_pool, prefix_cache=True,
+                          host_tier_blocks=96,
+                          overload=OverloadPolicy(enabled=True))
+    server = LLMServer(params, cfg, config, device=device)
+    cl = server.cluster
+    cache, tier = cl.prefix_cache, cl.host_tier
+    ptrs = pool_ptrs(cl)
+    rng = np.random.default_rng(47)
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len).tolist()
+
+    def suffix(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+    ids = iter(range(3_000_000, 4_000_000))
+
+    def submit(prompt, inst, n):
+        r = Request(prompt=prompt, sampling=SamplingParams(max_new_tokens=n),
+                    req_id=next(ids))
+        cl.submit_to(r, inst)
+        return r
+    cold_prompt = prefix + suffix(suffix_len)
+    cold = submit(cold_prompt, 0, n_new)
+    for _ in range(2_000):
+        if cold.done:
+            break
+        server.step()
+    for i in cl.engines:
+        cache.evict_device(i, config.pool_blocks)
+    tier.drain(block=True)
+    on_host = tier.used_blocks
+    s0 = cl._step_count
+    steps = config.faults.heartbeat_timeout_steps
+    plan = FaultPlan(events=(
+        FaultEvent(step=s0 + 1, kind="stager_timeout"),
+        FaultEvent(step=s0 + 1, kind="host_fetch"),
+        FaultEvent(step=s0 + 1, kind="move_leg"),
+        FaultEvent(step=s0 + 2, kind="host_corrupt"),
+        FaultEvent(step=s0 + crash_at, kind="crash", target=1),
+        FaultEvent(step=s0 + crash_at, kind="silence", target=2,
+                   duration=steps + 3)))
+    if sorted({e.kind for e in plan.events}) != sorted(FAULT_KINDS):
+        raise AssertionError("the plan misses a fault kind")
+    injector = cl.install_faults(plan)
+    with ReplaySpy() as spy:
+        reqs = [submit(prefix + suffix(suffix_len), 0, n_new),
+                submit(suffix(mover_len), 0, n_new)]
+        reqs += [submit(suffix(worker_len), i, crash_at + 24)
+                 for i in (1, 2)]
+        server.step()
+        reqs.append(submit(cold_prompt, 0, n_new))
+        for _ in range(20_000):
+            if all(r.done for r in reqs):
+                break
+            server.step()
+        sync(device)
+    check_done_or_replay_failed([cold] + reqs,
+                                config.faults.max_replays_per_request)
+    m = server.metrics
+    want = {"dead_instances": 2.0, "move_leg_failures": 1.0,
+            "host_frame_corruptions": 1.0, "transfer_failures": 0.0,
+            "fault_failed_recoveries": 0.0}
+    bad = {k: m[k] for k, v in want.items() if m[k] != v}
+    if m["transfer_retries"] < 2 or m["fault_recoveries"] < 2 \
+            or m["replayed_tokens"] <= 0:
+        bad.update({k: m[k] for k in ("transfer_retries", "fault_recoveries",
+                                      "replayed_tokens")})
+    if bad or len(injector.fired) != len(plan.events):
+        raise AssertionError(f"fault counters off: {bad}; fired "
+                             f"{[e.kind for e in injector.fired]}")
+    if pool_ptrs(cl) != ptrs:
+        raise AssertionError("a pool tensor was reallocated")
+    report = {"global_pool": global_pool, "host_frames_before": on_host,
+              "plan": [dataclasses.astuple(e) for e in plan.events],
+              "fired": [e.kind for e in injector.fired],
+              "steps_to_detection": [
+                  {"steps": d["step"] - (s0 + crash_at - 1), "dead": d["dead"]}
+                  for d in spy.detected],
+              "replays": spy.replays,
+              "states": [r.state.name for r in [cold] + reqs],
+              "move_leg_replans": cl.fault_stats.move_leg_replans,
+              "stager_retries": dict(cl.stager.retries),
+              "host_fetch_retries": tier.stats.fetch_retries,
+              "metrics": {k: m[k] for k in FAULT_METRICS}}
+    cache.clear()
+    tier.drain(block=True)
+    cl.preemptor.tier.drain(block=True)
+    if tier.used_blocks or cl.preemptor.tier.used_blocks:
+        raise AssertionError("a host tier did not end empty")
+    check_allocators_clean(cl)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
+
+
 def trace_phase(params, cfg, device, config, prompt_lens, n_new, late_len,
-                top=12):
+                top=12, then=None):
     """A short traced window of a warm server: once the workload is
     admitted and decoding, one more prompt of ``late_len`` tokens arrives
     and the next ``TRACE_STEPS`` server steps (its admission and that
     many decode steps) run under ``torch.profiler``. Reports the device's busy
     time as a share of the window's wall time, the kernels that took most
-    device time, and each kernel's launches in the window."""
+    device time, and each kernel's launches in the window; then, if given,
+    ``then(server, handles)`` on the still-decoding server (its report
+    under "then")."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.serving import LLMServer, SamplingParams
@@ -1342,15 +1706,18 @@ def trace_phase(params, cfg, device, config, prompt_lens, n_new, late_len,
     port_ms = {sym: sum(e.self_device_time_total for e in events
                         if sym in e.key) / 1e3
                for sym in PORT_KERNEL_SYMBOLS}
-    return {"steps": TRACE_STEPS, "late_prompt_len": len(extra),
-            "late_tokens": int(late.metrics["n_tokens"]),
-            "launches": launches, "wall_s": wall,
-            "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / 1e3 / wall,
-            "port_kernel_ms": port_ms,
-            "top_kernels": [{"name": e.key[:90],
-                             "ms": e.self_device_time_total / 1e3,
-                             "calls": e.count} for e in events[:top]]}
+    report = {"steps": TRACE_STEPS, "late_prompt_len": len(extra),
+              "late_tokens": int(late.metrics["n_tokens"]),
+              "launches": launches, "wall_s": wall,
+              "device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / 1e3 / wall,
+              "port_kernel_ms": port_ms,
+              "top_kernels": [{"name": e.key[:90],
+                               "ms": e.self_device_time_total / 1e3,
+                               "calls": e.count} for e in events[:top]]}
+    if then is not None:
+        report["then"] = then(server, handles + [late])
+    return report
 
 
 def hybrid_serving_config():
@@ -1431,31 +1798,41 @@ def oracle_logits(params, cfg, prompt, forced, device):
 
 
 class LogitSpy:
-    """Collects the logits the pooled steps give slot 0 — the one request
-    a parity run serves at a time: each prefill chunk resets the list to
-    its logits (the last chunk's stay), each decode step appends."""
+    """Every pooled step's logits for slot 0 (one request served at a
+    time), keyed by the output index they predict: a prefill chunk's last
+    row predicts ``output[t0 + n - len(prompt)]``, a decode step at
+    position p predicts ``output[p + 1 - len(prompt)]``. A replay's
+    re-prefill predicts an index a decode step already did: both are
+    kept and both held to the oracle. ``start(len(prompt))`` begins each
+    request's records."""
 
     def __init__(self, global_pool: bool):
         self.names = (("decode_step_global", "prefill_chunk_global")
                       if global_pool else
                       ("decode_step_paged", "prefill_chunk_paged"))
-        self.served = []
+        self.start(0)
+
+    def start(self, prompt_len: int) -> None:
+        self.prompt_len, self.records = prompt_len, []
 
     def __enter__(self):
         import repro_torch.serving.engine as engine_mod
         self.mod = engine_mod
         self.orig = [getattr(engine_mod, n) for n in self.names]
         orig_decode, orig_chunk = self.orig
-        served = self.served
+        spy = self
 
-        def spy_decode(*a, **k):
-            out = orig_decode(*a, **k)
-            served.append(out[0][0].float().clone())
+        def spy_decode(params, cfg, tokens, lens, *a, **k):
+            out = orig_decode(params, cfg, tokens, lens, *a, **k)
+            spy.records.append((int(lens[0]) + 1 - spy.prompt_len,
+                                out[0][0].float().clone()))
             return out
 
-        def spy_chunk(*a, **k):
-            out = orig_chunk(*a, **k)
-            served[:] = [out[0][0].float().clone()]
+        def spy_chunk(params, cfg, toks, t0, n, *a, **k):
+            out = orig_chunk(params, cfg, toks, t0, n, *a, **k)
+            if t0 + n >= spy.prompt_len:
+                spy.records.append((t0 + n - spy.prompt_len,
+                                    out[0][0].float().clone()))
             return out
         setattr(engine_mod, self.names[0], spy_decode)
         setattr(engine_mod, self.names[1], spy_chunk)
@@ -1476,6 +1853,7 @@ def parity_phase(params, cfg, device, prompt_len, n_new, *,
                                       max_local_len=512,
                                       global_pool=global_pool)
     with LogitSpy(global_pool) as logits, AdmissionSpy() as spy:
+        logits.start(prompt_len)
         handles, server, _ = serve(params, cfg, config, [prompt], n_new,
                                    device)
     out = handles[0].result()
@@ -1483,7 +1861,7 @@ def parity_phase(params, cfg, device, prompt_len, n_new, *,
         raise AssertionError("the parity request did not span a creditor")
     return {"prompt_len": prompt_len, "n_new": n_new,
             "global_pool": global_pool, "layers": cfg.num_layers,
-            **check_parity(params, cfg, device, prompt, out, logits.served),
+            **check_parity(params, cfg, device, prompt, out, logits.records),
             "creditors_at_admission": max(spy.stripes),
             "moves_during_decode": moves_executed(server)}
 
@@ -1514,6 +1892,7 @@ def hierarchy_parity_phase(params, cfg, device, *, global_pool, n_new=12):
         return server.metrics[name]
 
     def serve_one(logits, prompt, pause_after=None):
+        logits.start(len(prompt))
         h = server.submit(prompt, SamplingParams(max_new_tokens=n_new))
         for _ in range(2_000):
             if h.done:
@@ -1524,7 +1903,7 @@ def hierarchy_parity_phase(params, cfg, device, *, global_pool, n_new=12):
                 if not pre.pause(h._req):
                     raise AssertionError("the spanning request did not "
                                          "pause")
-        return h.result(), list(logits.served)
+        return h.result(), list(logits.records)
 
     cases = {}
     with LogitSpy(global_pool) as logits:
@@ -1559,30 +1938,16 @@ def hierarchy_parity_phase(params, cfg, device, *, global_pool, n_new=12):
             "layers": cfg.num_layers, "cases": cases}
 
 
-def check_parity(params, cfg, device, prompt, out, served):
-    """The served greedy stream ``out`` == the dense oracle's, and the
-    served per-step logits ``served`` within PARITY_RTOL of its
-    teacher-forced logits."""
-    ref = oracle_logits(params, cfg, prompt, out, device)
-    greedy = [int(lg.argmax()) for lg in ref]
-    if greedy != out:
-        raise AssertionError(f"served greedy stream differs from the dense "
-                             f"oracle: {out} vs {greedy}")
-    if len(served) != len(ref):
-        raise AssertionError(f"{len(served)} served logits vs {len(ref)}")
-    worst = 0.0
-    for s, r in zip(served, ref):
-        worst = max(worst, ((s - r).abs().max() / r.abs().max()).item())
-    if worst > PARITY_RTOL:
-        raise AssertionError(f"served logits differ from the oracle by "
-                             f"{worst:.3g} (relative) > {PARITY_RTOL}")
-    return {"tokens_equal": True, "max_rel_logit_err": worst,
-            "rtol": PARITY_RTOL}
+def check_parity(params, cfg, device, prompt, out, records):
+    """``check_parity_at`` against the dense oracle's teacher-forced
+    logits for ``prompt`` and the served stream ``out``."""
+    return check_parity_at(oracle_logits(params, cfg, prompt, out, device),
+                           out, records)
 
 
 def hybrid_parity_phase(params, cfg, device, prompt_len, n_new):
-    """float32 hybrid: served greedy stream == oracle past the window,
-    per-step logits close."""
+    """float32, the non-pooled path (hybrid past the window, or ssm):
+    served greedy stream == oracle, per-step logits close."""
     import repro_torch.serving.engine as engine_mod
     prompt = make_prompts(cfg, [prompt_len], 23)[0]
     config = hybrid_serving_config().replace(max_local_len=4096,
@@ -1611,7 +1976,172 @@ def hybrid_parity_phase(params, cfg, device, prompt_len, n_new):
     out = handles[0].result()
     return {"prompt_len": prompt_len, "n_new": n_new,
             "layers": cfg.num_layers, "window": cfg.local_window,
-            **check_parity(params, cfg, device, prompt, out, served)}
+            **check_parity(params, cfg, device, prompt, out,
+                           list(enumerate(served)))}
+
+
+# --------------------------------------------------------------------- #
+# Serving, xlstm-350m (the ssm family)
+# --------------------------------------------------------------------- #
+def ssm_serving_config():
+    """Two non-pooled instances of four slots on one card; the quota
+    covers the longest prompt and its replay."""
+    from repro_torch.serving import ServingConfig
+    return ServingConfig.h100(n_instances=2, max_batch=4, max_local_len=2048,
+                              pool_blocks=512, block_size=16)
+
+
+def check_no_kernel(counts) -> None:
+    """No kernel of the port (nor its plain version) ran: xLSTM has no
+    attention and no Pallas kernel in the reference."""
+    ran = {k: c for k, c in counts.items()
+           if c["launches"] or c["plain_calls"]}
+    if ran:
+        raise AssertionError(f"kernels ran on the xLSTM path: {ran}")
+
+
+def ssm_serving_phase(params, cfg, device, prompt_lens, n_new):
+    """xLSTM, once and counted: every request finishes and no kernel of
+    the port runs. Reports the end-to-end numbers, the peak memory and
+    the mLSTM state a slot holds."""
+    from repro_torch.kernels import ops
+    prompts = make_prompts(cfg, prompt_lens, 19)
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        reset_peak_memory()
+    with DenseAdmissionSpy() as spy:
+        ops.reset_counts()
+        handles, server, wall = serve(params, cfg, ssm_serving_config(),
+                                      prompts, n_new, device)
+        counts = ops.counts()
+    all_finished(handles)
+    check_no_kernel(counts)
+    if sorted(spy.lens) != sorted(prompt_lens):
+        raise AssertionError(f"admissions {spy.lens} != prompts "
+                             f"{list(prompt_lens)}")
+    eng = server.cluster.engines[0]
+    mlstm = eng.state.rec["mlstm"]
+    report = {"prompt_lens": list(prompt_lens), "n_new": n_new,
+              "layers": cfg.num_layers, **e2e_numbers(server, handles, wall),
+              "mlstm_state_bytes_per_slot":
+                  sum(t.numel() * t.element_size() for t in mlstm)
+                  // eng.max_batch,
+              "phase_s": time.perf_counter() - t0, "counts": counts}
+    if device.type == "cuda":
+        report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return report
+
+
+def ssm_owner_crash(server, handles) -> dict:
+    """A FaultPlan crash of the instance serving the most requests, mid
+    decode: they replay on the survivor and every request finishes."""
+    from repro_torch.serving import FaultEvent, FaultPlan
+    cl = server.cluster
+    victim = max(cl.engines, key=lambda i: cl.engines[i].batch_size)
+    owned = [h._req for h in handles if h._req in cl.engines[victim].running]
+    last_beat = cl._step_count
+    with ReplaySpy() as spy:
+        cl.install_faults(FaultPlan(events=(FaultEvent(
+            step=last_beat + 1, kind="crash", target=victim),)))
+        server.drain(max_steps=20_000)
+        sync(server.cluster.device)
+    all_finished(handles)
+    if not owned or any(r.replays != 1 for r in owned) \
+            or victim not in cl._dead:
+        raise AssertionError(f"owner crash: {[r.replays for r in owned]} "
+                             f"replays, dead {sorted(cl._dead)}")
+    return {"victim": victim, "replayed_requests": len(owned),
+            "replays": spy.replays,
+            "steps_to_detection": [d["step"] - last_beat
+                                   for d in spy.detected],
+            "metrics": {k: server.metrics[k] for k in FAULT_METRICS}}
+
+
+# --------------------------------------------------------------------- #
+# Parity under faults (float32)
+# --------------------------------------------------------------------- #
+def fault_parity_phase(params, cfg, device, *, global_pool, prompt_len=1500,
+                       n_new=16, max_local_len=512, pool_blocks=96):
+    """float32, token replay against the dense oracle, each case on a
+    fresh server: a creditor crash of a creditor-spanning request
+    (``kill_instance``), an owner crash (a FaultPlan event), and a
+    spanning request paused after 4 tokens whose first preempt-tier frame
+    a ``host_corrupt`` event corrupts, so that its resume falls back to
+    replay. Each stream must equal the oracle's and every logit, the
+    re-prefill's included, match its teacher-forced logit."""
+    from repro_torch.serving import (FaultEvent, FaultPlan, LLMServer,
+                                     OverloadPolicy, SamplingParams)
+    prompt = make_prompts(cfg, [prompt_len], 11)[0]
+    config = fault_config(global_pool, pool_blocks=pool_blocks,
+                          max_local_len=max_local_len,
+                          overload=OverloadPolicy(enabled=True))
+    oracle = {}
+    cases = {}
+    for case in ("creditor_crash", "owner_crash", "corrupt_preempt_frame"):
+        server = LLMServer(params, cfg, config, device=device)
+        cl = server.cluster
+        with LogitSpy(global_pool) as spy:
+            spy.start(prompt_len)
+            h = server.submit(prompt, SamplingParams(max_new_tokens=n_new))
+            req = h._req
+            for _ in range(2_000):
+                if len(req.output) >= 4:
+                    break
+                server.step()
+            owner = next(i for i, e in cl.engines.items()
+                         if req in e.running)
+            if case == "creditor_crash":
+                cl.kill_instance(next(
+                    i for i, e in cl.engines.items()
+                    if i != owner and e.rmanager.is_hosting(req.req_id)))
+            elif case == "owner_crash":
+                cl.install_faults(FaultPlan(events=(FaultEvent(
+                    step=cl._step_count + 1, kind="crash", target=owner),)))
+            else:
+                if not cl.preemptor.pause(req):
+                    raise AssertionError("the spanning request did not "
+                                         "pause")
+                cl.install_faults(FaultPlan(events=(FaultEvent(
+                    step=cl._step_count + 1, kind="host_corrupt"),)))
+            out = h.result()
+        if req.replays != 1:
+            raise AssertionError(f"{case}: {req.replays} replays")
+        key = tuple(out)
+        if key not in oracle:
+            oracle[key] = oracle_logits(params, cfg, prompt, out, device)
+        cases[case] = {"replays": req.replays,
+                       "replayed_tokens": req.replayed_tokens,
+                       "metrics": {k: server.metrics[k]
+                                   for k in FAULT_METRICS},
+                       **check_parity_at(oracle[key], out, spy.records)}
+        del server
+    return {"global_pool": global_pool, "prompt_len": prompt_len,
+            "n_new": n_new, "layers": cfg.num_layers, "cases": cases}
+
+
+def check_parity_at(ref, out, records):
+    """The served greedy stream ``out`` == the oracle's (``ref``: its
+    teacher-forced logits, ``ref[i]`` predicting ``out[i]``), every index
+    has a served logit, and every served logit ``(i, logits)`` is within
+    PARITY_RTOL of ``ref[i]``."""
+    greedy = [int(lg.argmax()) for lg in ref]
+    if greedy != out:
+        raise AssertionError(f"served greedy stream differs from the dense "
+                             f"oracle: {out} vs {greedy}")
+    seen = {i for i, _ in records if i < len(ref)}
+    if seen != set(range(len(ref))):
+        raise AssertionError(f"no served logits for output indices "
+                             f"{sorted(set(range(len(ref))) - seen)}")
+    worst = 0.0
+    for i, s in records:
+        if i < len(ref):
+            r = ref[i]
+            worst = max(worst, ((s - r).abs().max() / r.abs().max()).item())
+    if worst > PARITY_RTOL:
+        raise AssertionError(f"served logits differ from the oracle by "
+                             f"{worst:.3g} (relative) > {PARITY_RTOL}")
+    return {"tokens_equal": True, "max_rel_logit_err": worst,
+            "rtol": PARITY_RTOL, "logits_checked": len(records)}
 
 
 # --------------------------------------------------------------------- #
@@ -1709,6 +2239,17 @@ def main(argv=None) -> int:
             {k: v for k, v in report[key].items() if k != "counts"}),
             flush=True)
     mark("qwen3_overload")
+    for gp in (False, True):
+        key = "faults_global" if gp else "faults"
+        report[key] = fault_phase(params, cfg, device, gp, (4000, 600, 300))
+        print(f"{key.replace('_', ' ')}: " + json.dumps(
+            {k: v for k, v in report[key].items() if k != "counts"}),
+            flush=True)
+        key = "fault_plan_global" if gp else "fault_plan"
+        report[key] = fault_plan_phase(params, cfg, device, gp)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
+              flush=True)
+    mark("qwen3_faults")
     del params
     check_released(report, "qwen3-0.6b")
 
@@ -1749,6 +2290,26 @@ def main(argv=None) -> int:
     del mparams
     check_released(report, "qwen2-moe-a2.7b")
 
+    xcfg = get_config("xlstm-350m")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    xparams = init_params(xcfg, gen, device)
+    torch.cuda.synchronize()
+    report["ssm_init_s"] = time.perf_counter() - t0
+    report["ssm_param_bytes"] = sum(
+        t.numel() * t.element_size() for t in tree_leaves(xparams))
+    ssm = ssm_serving_phase(xparams, xcfg, device, (1024, 512, 256, 64), 32)
+    report["ssm_serving"] = ssm
+    print("ssm serving: " + json.dumps(
+        {k: v for k, v in ssm.items() if k != "counts"}), flush=True)
+    report["ssm_trace"] = trace_phase(xparams, xcfg, device,
+                                      ssm_serving_config(), (512, 256, 64),
+                                      32, 64, then=ssm_owner_crash)
+    print("ssm trace: " + json.dumps(report["ssm_trace"]), flush=True)
+    mark("ssm")
+    del xparams
+    check_released(report, "xlstm-350m")
+
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device=device).manual_seed(0)
     params32 = init_params(cfg32, gen, device)
@@ -1763,6 +2324,12 @@ def main(argv=None) -> int:
         key = "hierarchy_parity_global" if gp else "hierarchy_parity"
         report[key] = hierarchy_parity_phase(params32, cfg32, device,
                                              global_pool=gp)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
+              flush=True)
+    for gp in (False, True):
+        key = "fault_parity_global" if gp else "fault_parity"
+        report[key] = fault_parity_phase(params32, cfg32, device,
+                                         global_pool=gp)
         print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
               flush=True)
     mark("qwen3_parity")
@@ -1791,6 +2358,16 @@ def main(argv=None) -> int:
     mark("hybrid_parity")
     del hparams32
     check_released(report, "recurrentgemma-9b float32")
+
+    xcfg32 = dataclasses.replace(xcfg, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(0)
+    xparams32 = init_params(xcfg32, gen, device)
+    xparity = hybrid_parity_phase(xparams32, xcfg32, device, 1024, 16)
+    report["ssm_parity"] = xparity
+    print("ssm parity: " + json.dumps(xparity), flush=True)
+    mark("ssm_parity")
+    del xparams32
+    check_released(report, "xlstm-350m float32")
 
     # Launches: each kernel's count from the run of ITS main path: the
     # single-rank paged kernels from qwen3's per-instance phase, the rank

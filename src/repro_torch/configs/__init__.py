@@ -1,12 +1,13 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke_config``.
 
-The port serves the dense, MoE and hybrid families; their architectures
+The port serves the dense, MoE, hybrid and ssm families; their architectures
 are registered here (``qwen3-0.6b``: GQA with qk-norm; ``olmo-1b``: MHA
 with non-parametric LayerNorm; ``qwen2-moe-a2.7b``: 60 routed experts,
 top-4, plus 4 shared; ``kimi-k2-1t-a32b``: 384 routed experts, top-8,
 one shared, its first layer dense — served here only as its smoke config;
-``recurrentgemma-9b``: RG-LRU layers and local MQA attention). The other
-architectures of the JAX package join as their families are ported.
+``recurrentgemma-9b``: RG-LRU layers and local MQA attention;
+``xlstm-350m``: mLSTM and sLSTM blocks, no attention). The other
+architectures of the JAX package join later.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b":           "repro_torch.configs.olmo_1b",
     "qwen3-0.6b":        "repro_torch.configs.qwen3_0_6b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "xlstm-350m":        "repro_torch.configs.xlstm_350m",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -1,6 +1,6 @@
 """Model builder: init / full-sequence forward / decode step.
 
-Families ported so far:
+Families:
 
   dense   — [ln1, attn, ln2, ffn] x L
   moe     — ``first_k_dense`` dense layers + [ln1, attn, ln2, moe] x L'
@@ -8,12 +8,16 @@ Families ported so far:
   hybrid  — repeating ``block_pattern`` groups of RG-LRU and local
             (sliding-window) attention layers, plus leftover layers
             (RecurrentGemma)
+  ssm     — groups of ``slstm_every - 1`` mLSTM layers + 1 sLSTM layer,
+            each [ln, block] with a residual (xLSTM; ``groups.mlstm``
+            leaves stacked ``[n_groups, slstm_every - 1, ...]``,
+            ``groups.slstm`` leaves ``[n_groups, ...]``)
 
 The JAX package stacks per-layer parameters along a leading layer (or
 group) axis and scans over them; the port keeps that stacked layout (so
 the weight bridge is key-for-key) and runs a Python loop over layers,
 slicing one layer's parameters per iteration (``attn_layer_params``,
-``_layer_params``). The ssm family raises and comes with a later slice.
+``_layer_params``, ``layer_params``).
 """
 from __future__ import annotations
 
@@ -33,8 +37,11 @@ from repro_torch.models.common import (apply_ffn, apply_norm, dense_init,
 from repro_torch.models.moe import apply_moe, init_moe, moe_aux_loss
 from repro_torch.models.rglru import (apply_rglru_block, init_rglru_block,
                                       rglru_state_shape)
+from repro_torch.models.xlstm import (apply_mlstm_block, apply_slstm_block,
+                                      init_mlstm_block, init_slstm_block,
+                                      mlstm_state_init, slstm_state_init)
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 # Families whose KV lives in paged pools (every layer attends).
 POOLED_FAMILIES = ("dense", "moe")
 
@@ -57,13 +64,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def require_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
-    """Raise for a family the caller does not cover (by default: the
-    families the port does not cover yet)."""
+    """Raise ValueError for a family the caller does not cover (by
+    default: a family the port does not know)."""
     if cfg.family not in families:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported here yet (only "
-            f"{', '.join(repr(f) for f in families)}); the ssm family "
-            f"comes with a later slice")
+        raise ValueError(
+            f"family {cfg.family!r} is not supported here (only "
+            f"{', '.join(repr(f) for f in families)})")
 
 
 # ===================================================================== #
@@ -93,6 +99,14 @@ def _init_layer(kind: str, gen, cfg: ModelConfig, *, device, lead=()):
     return init(gen, cfg, device=device, lead=lead)
 
 
+def ssm_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(number of xLSTM groups, layers a group) — ``num_layers //
+    slstm_every`` groups of ``slstm_every - 1`` mLSTM layers and one
+    sLSTM layer; layers past the last whole group are not built, as in
+    JAX."""
+    return cfg.num_layers // cfg.slstm_every, cfg.slstm_every
+
+
 def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
     """(number of whole ``block_pattern`` groups, leftover layers)."""
     n = len(cfg.block_pattern)
@@ -109,7 +123,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``d_ff``, only if any) and ``moe_layers`` stacks. Hybrid:
     ``groups`` holds one entry ``f"{j}_{kind}"`` per pattern position with
     a leading ``n_groups`` axis, ``leftover`` the unstacked remaining
-    layers — as in JAX.
+    layers. Ssm: ``groups`` = {"mlstm": {"ln", "blk"} with leading
+    ``[n_groups, slstm_every - 1]``, "slstm": {"ln", "blk"} with leading
+    ``[n_groups]``} — as in JAX.
     """
     require_family(cfg)
     dev = resolve_device(device)
@@ -135,6 +151,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         p["moe_layers"] = _init_attn_layer(gen, cfg, device=dev,
                                            lead=(L - nd,), moe=True)
         return p
+    if cfg.family == "ssm":
+        ng, se = ssm_groups(cfg)
+        ml, sl = (ng, se - 1), (ng,)
+        p["groups"] = {
+            "mlstm": {"ln": init_norm(cfg, cfg.d_model, device=dev, lead=ml),
+                      "blk": init_mlstm_block(gen, cfg, device=dev,
+                                              lead=ml)},
+            "slstm": {"ln": init_norm(cfg, cfg.d_model, device=dev, lead=sl),
+                      "blk": init_slstm_block(gen, cfg, device=dev,
+                                              lead=sl)}}
+        return p
     n_groups, n_left = hybrid_groups(cfg)
     pat = cfg.block_pattern
     p["groups"] = {f"{j}_{kind}": _init_layer(kind, gen, cfg, device=dev,
@@ -152,11 +179,12 @@ def params_device(params) -> torch.device:
     return params["embed"].device
 
 
-def layer_params(stacked, i: int):
-    """Layer ``i``'s slice of a stacked parameter tree (views, no copy)."""
+def layer_params(stacked, *idx: int):
+    """The ``idx`` slice of a stacked parameter tree (views, no copy):
+    layer ``i``, or (group, layer) of the ssm family's mLSTM stack."""
     if isinstance(stacked, dict):
-        return {k: layer_params(v, i) for k, v in stacked.items()}
-    return stacked[i]
+        return {k: layer_params(v, *idx) for k, v in stacked.items()}
+    return stacked[idx]
 
 
 def attn_layer_params(params, cfg: ModelConfig, i: int):
@@ -216,6 +244,26 @@ def _rglru_layer_fwd(lp, x, cfg, state=None, *, decode=False):
     return x + apply_ffn(lp["ffn"], h, cfg), new_state
 
 
+def _ssm_layers(params, cfg: ModelConfig):
+    """Every xLSTM layer in order: ``(kind, idx, its params)``, where
+    ``idx`` — (group, j) of an mLSTM layer, (group,) of the sLSTM — also
+    indexes the layer's state in ``DecodeState.rec[kind]``."""
+    ng, se = ssm_groups(cfg)
+    gp = params["groups"]
+    for g in range(ng):
+        for j in range(se - 1):
+            yield "mlstm", (g, j), layer_params(gp["mlstm"], g, j)
+        yield "slstm", (g,), layer_params(gp["slstm"], g)
+
+
+def _ssm_layer_fwd(kind, lp, x, cfg, state=None, *, decode=False):
+    """One xLSTM layer with its residual: (x, new state)."""
+    h = apply_norm(lp["ln"], x, cfg)
+    apply = apply_mlstm_block if kind == "mlstm" else apply_slstm_block
+    y, st = apply(lp["blk"], h, cfg, state, decode=decode)
+    return x + y, st
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens, positions=None):
     x = params["embed"][tokens]
     if cfg.positional == "sinusoidal":
@@ -240,6 +288,7 @@ def forward(params, cfg: ModelConfig, tokens, *, backend: str = "xla",
     MoE layers route with ``capacity_factor`` (the default drops tokens
     past capacity, as in JAX). Hybrid attention layers use the
     sliding-window core (``window=cfg.local_window``) of the same backend.
+    The ssm family has no attention (``backend`` is unused).
     """
     require_family(cfg)
     B, T = tokens.shape
@@ -254,6 +303,9 @@ def forward(params, cfg: ModelConfig, tokens, *, backend: str = "xla",
                                       positions, cfg, core,
                                       capacity_factor=capacity_factor)
             aux = aux + a
+    elif cfg.family == "ssm":
+        for kind, _, lp in _ssm_layers(params, cfg):
+            x, _ = _ssm_layer_fwd(kind, lp, x, cfg)
     else:
         wcore = make_causal_core(cfg, backend=backend, chunk=chunk,
                                  window=cfg.local_window)
@@ -271,10 +323,12 @@ def forward(params, cfg: ModelConfig, tokens, *, backend: str = "xla",
 # ===================================================================== #
 class DecodeState(NamedTuple):
     """Simple (non-paged) cache: KV tensors + recurrent states."""
-    kv_k: Any          # [L_attn, B, maxlen, K, hd]
+    kv_k: Any          # [L_attn, B, maxlen, K, hd]; ssm: None
     kv_v: Any
     lens: torch.Tensor  # [B] current sequence length
     rec: Any           # hybrid: (conv [n_rg,B,3,w], h [n_rg,B,w] f32);
+    #                    ssm: {"mlstm": MLstmState [ng, se-1, B, ...],
+    #                          "slstm": SLstmState [ng, B, ...]} f32;
     #                    dense, moe: None
 
 
@@ -290,13 +344,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
     Dense, MoE: KV of ``max_len`` tokens per layer. Hybrid: a ring of
     ``min(max_len, local_window)`` tokens per attention layer (slot =
-    position % ring), plus zero RG-LRU and conv states, as in JAX.
+    position % ring), plus zero RG-LRU and conv states. Ssm: no KV, the
+    mLSTM/sLSTM states of every group (``max_len`` is unused) — as in
+    JAX.
     """
     require_family(cfg)
-    dt = torch_dtype(cfg)
-    K, hd = cfg.num_kv_heads, cfg.head_dim
     lens = (torch.zeros((batch,), dtype=torch.int64, device=device)
             if prefix_lens is None else prefix_lens)
+    if cfg.family == "ssm":
+        ng, se = ssm_groups(cfg)
+        rec = {"mlstm": mlstm_state_init(cfg, batch, device=device,
+                                         lead=(ng, se - 1)),
+               "slstm": slstm_state_init(cfg, batch, device=device,
+                                         lead=(ng,))}
+        return DecodeState(None, None, lens, rec)
+    dt = torch_dtype(cfg)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
     n_attn = n_attn_layers(cfg)
     w = (max_len if cfg.family in POOLED_FAMILIES
          else min(max_len, cfg.local_window))
@@ -361,6 +424,13 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
         for i in range(cfg.num_layers):
             x = _attn_layer_decode(attn_layer_params(params, cfg, i), x,
                                    state.kv_k[i], state.kv_v[i], lens, cfg)
+    elif cfg.family == "ssm":
+        for kind, idx, lp in _ssm_layers(params, cfg):
+            rec = state.rec[kind]
+            st = type(rec)(*(a[idx] for a in rec))
+            x, st = _ssm_layer_fwd(kind, lp, x, cfg, st, decode=True)
+            for dst, src in zip(rec, st):
+                dst[idx].copy_(src)
     else:
         conv_c, lru_h = state.rec
         ai = ri = 0

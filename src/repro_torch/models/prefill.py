@@ -1,11 +1,12 @@
 """Dense prefill, batch-slot management, and the paged serving steps.
 
 ``prefill`` runs the full-sequence forward while capturing per-layer KV
-(and, for the hybrid family, the RG-LRU and conv states) into a
-``DecodeState`` — with ``decode_step`` it is the greedy oracle the
-serving tests hold the paged path against, and the admission step of the
-non-pooled (hybrid) serving path, which then moves the request's state
-into a batch slot with ``repack_ring`` and ``write_slot``.
+(and, for the hybrid family, the RG-LRU and conv states; for the ssm
+family, the mLSTM and sLSTM states) into a ``DecodeState`` — with
+``decode_step`` it is the greedy oracle the serving tests hold the paged
+path against, and the admission step of the non-pooled (hybrid, ssm)
+serving path, which then moves the request's state into a batch slot
+with ``repack_ring`` (hybrid) and ``write_slot``.
 
 ``prefill_chunk_paged`` is the serving admission step: it streams one
 prompt chunk into the block pools — causal attention inside the chunk
@@ -48,7 +49,8 @@ from repro_torch.models.attention import make_causal_core, qkv_project
 from repro_torch.models.common import apply_norm
 from repro_torch.models.model import (POOLED_FAMILIES, DecodeState,
                                       _attn_layer_fwd, _layer_params,
-                                      _rglru_layer_fwd, attn_layer_params,
+                                      _rglru_layer_fwd, _ssm_layer_fwd,
+                                      _ssm_layers, attn_layer_params,
                                       embed_tokens, ffn_or_moe,
                                       init_decode_state, require_family,
                                       unembed)
@@ -71,7 +73,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     by default no drop), min(max_len, local_window) for the hybrid
     family, whose attention layers use the sliding-window core of
     ``backend``. The hybrid RG-LRU and conv states are stored in layer
-    order, the order ``decode_step`` reads them in.
+    order, the order ``decode_step`` reads them in; the ssm family's
+    states in (group, layer) order, as ``decode_step`` reads them.
     """
     require_family(cfg)
     B, T = tokens.shape
@@ -79,6 +82,13 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
     x = embed_tokens(params, cfg, tokens, positions)
     state = init_decode_state(cfg, B, max_len, device=dev)
+    lens = torch.full((B,), T, dtype=torch.int64, device=dev)
+    if cfg.family == "ssm":
+        for kind, idx, lp in _ssm_layers(params, cfg):
+            x, st = _ssm_layer_fwd(kind, lp, x, cfg)
+            for dst, src in zip(state.rec[kind], st):
+                dst[idx].copy_(src)
+        return unembed(params, cfg, x[:, -1]), state._replace(lens=lens)
     ring = state.kv_k.shape[2]
     n = min(T, ring)
     slots = torch.arange(T - n, T, device=dev) % ring
@@ -107,7 +117,6 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
                 state.kv_k[ai][:, slots] = k[:, T - n:]
                 state.kv_v[ai][:, slots] = v[:, T - n:]
                 ai += 1
-    lens = torch.full((B,), T, dtype=torch.int64, device=dev)
     logits = unembed(params, cfg, x[:, -1])
     return logits, state._replace(lens=lens)
 
@@ -147,7 +156,17 @@ def batch_axis_map(cfg: ModelConfig):
     require_family(cfg)
     if cfg.family in POOLED_FAMILIES:
         return {"kv": 1, "rec": None}
-    return {"kv": 1, "rec": 1}
+    if cfg.family == "hybrid":
+        return {"kv": 1, "rec": 1}
+    return {"kv": None, "rec": {"mlstm": 2, "slstm": 1}}
+
+
+def _rec_parts(cfg: ModelConfig, rec, axes):
+    """(tensor, batch axis) of every recurrent-state leaf."""
+    if cfg.family == "hybrid":
+        return [(r, axes) for r in rec]
+    return [(r, axes[kind]) for kind in ("mlstm", "slstm")
+            for r in rec[kind]]
 
 
 def write_slot(state: DecodeState, slot: int, req: DecodeState,
@@ -155,9 +174,9 @@ def write_slot(state: DecodeState, slot: int, req: DecodeState,
     """Copy a single-request (B=1) DecodeState into batch slot ``slot``.
 
     Every field of the slot is overwritten — KV ring, RG-LRU state, conv
-    carry and length — so a reused slot keeps nothing of its previous
-    request. Updates ``state``'s tensors IN PLACE (JAX returns new
-    arrays) and returns a state sharing them.
+    carry, mLSTM/sLSTM states and length — so a reused slot keeps
+    nothing of its previous request. Updates ``state``'s tensors IN
+    PLACE (JAX returns new arrays) and returns a state sharing them.
     """
     ax = batch_axis_map(cfg)
 
@@ -170,8 +189,10 @@ def write_slot(state: DecodeState, slot: int, req: DecodeState,
         put(state.kv_k, req.kv_k, ax["kv"])                 # [L, B, ...]
         put(state.kv_v, req.kv_v, ax["kv"])
     if state.rec is not None:
-        for dst, src in zip(state.rec, req.rec):            # [n_rg, B, ...]
-            put(dst, src, ax["rec"])
+        for (dst, axis), (src, _) in zip(
+                _rec_parts(cfg, state.rec, ax["rec"]),
+                _rec_parts(cfg, req.rec, ax["rec"])):
+            put(dst, src, axis)
     state.lens[slot] = req.lens[0]
     return state
 

@@ -41,12 +41,24 @@ stream, H2D back on a hit). ``ServingConfig(overload=OverloadPolicy(
 enabled=True))`` lets the frontend pause SLO-slack victims for urgent
 arrivals: the ``Preemptor`` spills the victim's KV chain to its own
 host tier and resumes it later over byte-identical KV.
+
+Fault tolerance (always on; chaos injection opt-in, both pool modes): an
+instance that misses ``FaultPolicy.heartbeat_timeout_steps`` heartbeats
+is quarantined and every request that lost KV on it is re-admitted by
+token replay (re-prefill of ``prompt + output[:-1]``, no resampling).
+``cluster.kill_instance(i)`` simulates a crash; ``cluster.install_faults(
+FaultPlan(...))`` (or ``FaultPlan.from_seed``) arms a deterministic plan
+of crashes, silences, move-leg failures, host-tier fetch errors and
+corruptions, and stager timeouts; ``server.metrics`` carries the fault
+counters.
 """
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.config import (FaultPolicy, OverloadPolicy,
                                         ServingConfig)
 from repro_torch.serving.engine import InstanceEngine
-from repro_torch.serving.faults import FrameCorruptionError, TransferError
+from repro_torch.serving.faults import (FaultEvent, FaultInjector, FaultPlan,
+                                        FaultStats, FrameCorruptionError,
+                                        TransferError)
 from repro_torch.serving.globalpool import GlobalKVPool
 from repro_torch.serving.gmanager import GManager
 from repro_torch.serving.hosttier import HostKVTier
@@ -69,5 +81,6 @@ __all__ = [
     "RequestState", "SamplingParams", "RManager", "GreedyScheduler",
     "InstanceView", "SpanLeg", "StripedMove", "GlobalKVPool",
     "HostKVTier", "RadixPrefixCache", "Preemptor", "PreemptStats",
+    "FaultPlan", "FaultEvent", "FaultInjector", "FaultStats",
     "TransferError", "FrameCorruptionError",
 ]

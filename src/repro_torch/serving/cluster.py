@@ -1,4 +1,4 @@
-"""Cluster runtime: N instances + gManager, KV movement.
+"""Cluster runtime: N instances + gManager, KV movement, fault tolerance.
 
 In-process realization of the paper's Fig. 3/8 system: every instance is
 an ``InstanceEngine`` with an ``RManager``; a ``GManager`` ingests
@@ -49,9 +49,23 @@ all of them, and they, the engines' peer maps and prefix sinks hold the
 cluster only weakly: a dropped server frees its weights and pools at
 once, without a garbage collection.
 
-Not in this port yet (each raises NotImplementedError): fault
-injection/recovery (``kill_instance``, ``install_faults``), and a global
-pool sharded over several devices.
+Fault tolerance (``serving.faults`` is the chaos side), in both pool
+modes: an instance that misses ``FaultPolicy.heartbeat_timeout_steps``
+consecutive heartbeats (or the wall-clock timeout) is marked DEAD and
+quarantined — no new creditor legs, its view leaves Algorithm-1
+planning, its allocator is drained wholesale (in global-pool mode the
+dead rank is a quarantined slice of the one tensor: its memory stays,
+every block of it is released and never reused). Every request that lost
+KV on the dead rank — owned locally OR creditor-hosted — is recovered by
+TOKEN REPLAY: its emitted tokens are known, so the lost KV is exactly
+recomputable by re-prefilling ``prompt + output[:-1]`` through the
+normal admission path (no resampling; the greedy continuation equals an
+unfailed run's). Transfer failures retry with bounded backoff; a move
+stripe whose leg fails mid-execution rolls back exactly and re-plans
+against surviving creditors. ``install_faults`` arms a deterministic
+``FaultPlan``; the injector holds no reference to the cluster.
+
+A global pool sharded over several devices is not in this port yet.
 """
 from __future__ import annotations
 
@@ -65,6 +79,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import POOLED_FAMILIES, resolve_device
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import InstanceEngine
+from repro_torch.serving.faults import FaultInjector, FaultPlan, FaultStats
 from repro_torch.serving.globalpool import GlobalKVPool
 from repro_torch.serving.gmanager import GManager
 from repro_torch.serving.hosttier import HostKVTier
@@ -73,11 +88,8 @@ from repro_torch.serving.perfmodel import InstancePerfModel
 from repro_torch.serving.prefixcache import RadixPrefixCache
 from repro_torch.serving.preempt import Preemptor
 from repro_torch.serving.protocol import MoveKVCache, MoveLeg, MoveResult
-from repro_torch.serving.request import Request
+from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.staging import AsyncStager
-
-_LATER = "is not ported yet; it comes with a later slice of the port"
-
 
 class EngineMap(dict):
     """inst_id -> InstanceEngine: the cluster's engines. A dict that can
@@ -204,9 +216,10 @@ class Cluster:
     Owns the shared ``AsyncStager`` (all KV movement), the optional
     ``GlobalKVPool``/host tier/prefix cache, and — when
     ``config.overload.enabled`` — the ``Preemptor``. ``step()`` is the
-    cluster heartbeat: every engine's heartbeat into the gManager,
-    reactive moves and the Algorithm-1 plan round, resume of paused
-    requests, a step of every engine, host-tier drains, releases.
+    cluster heartbeat: armed chaos events, every live engine's heartbeat
+    into the gManager, liveness and recovery of dead instances, reactive
+    moves and the Algorithm-1 plan round, resume of paused requests, a
+    step of every live engine, host-tier drains, releases.
     """
 
     def __init__(self, params, cfg: ModelConfig,
@@ -221,7 +234,11 @@ class Cluster:
         self.schedule_every = config.schedule_every
         # All stripe/offload/reclaim row copies and streaming-prefill
         # creditor writes go through one double-buffered stager.
-        self.stager = AsyncStager(overlap=config.async_movement)
+        fpol = config.faults
+        self.stager = AsyncStager(overlap=config.async_movement,
+                                  max_retries=fpol.max_transfer_retries,
+                                  backoff_base_s=fpol.retry_backoff_base_s,
+                                  backoff_max_s=fpol.retry_backoff_max_s)
         # Global-pool mode: ONE [n_instances, L, NB, bs, K, hd] tensor
         # holds every instance's KV; every engine aliases its rank's
         # slice + allocator.
@@ -244,7 +261,6 @@ class Cluster:
             eng.peers = self.engines      # shared: add_instance updates all
         # Host-DRAM tier + cross-request prefix cache (both opt-in). They
         # and the preemptor reach the cluster through a weak proxy.
-        fpol = config.faults
         self.host_tier: Optional[HostKVTier] = None
         self.prefix_cache: Optional[RadixPrefixCache] = None
         if config.host_tier_blocks > 0:
@@ -279,9 +295,11 @@ class Cluster:
             self.preemptor = Preemptor(weakref.proxy(self), config.overload)
         self.requests: Dict[int, Request] = {}
         self._step_count = 0
-        # Dead (quarantined) instances: always empty until the port's
-        # fault recovery fills it; the cache and preemptor filter on it.
+        # Dead (quarantined) instances; the cache, the preemptor and the
+        # creditor picks filter on it.
         self._dead: set = set()
+        self.fault_stats = FaultStats()
+        self.faults: Optional[FaultInjector] = None
         self._need_full_hb: set = set(self.engines)
         # Req ids whose creditor-hosted spans still need releasing; fed
         # by the engines' finished-event drains so each finished request
@@ -296,10 +314,11 @@ class Cluster:
             req.arrival_time = time.monotonic() if now is None else now
         self.requests[req.req_id] = req
         inst = self.gmanager.pick_instance_for_new_request()
-        if inst is None:
-            # Bootstrap: no heartbeats yet -> least-loaded engine.
-            inst = min(self.engines.values(),
-                       key=lambda e: e.batch_size).inst_id
+        if inst is None or inst in self._dead:
+            # Bootstrap: no heartbeats yet -> least-loaded live engine.
+            live = [e for i, e in self.engines.items()
+                    if i not in self._dead]
+            inst = min(live, key=lambda e: e.batch_size).inst_id
         self.engines[inst].submit(req)
 
     def submit_to(self, req: Request, inst_id: int,
@@ -334,7 +353,9 @@ class Cluster:
         if self.preemptor is not None and \
                 self.preemptor.cancel_paused(req_id):
             return True
-        for eng in self.engines.values():
+        for i, eng in self.engines.items():
+            if i in self._dead:
+                continue
             if eng.cancel(req):
                 break
         # Mid-streaming-prefill: the engine's chunk loop owns the
@@ -441,7 +462,15 @@ class Cluster:
         pool rows + edit tables. Handles both offload plans (src = owner,
         keep the live tail local) and reclaim plans (src = a stressed
         creditor; a leg whose destination is the OWNER re-adopts blocks
-        at the FRONT of its local span)."""
+        at the FRONT of its local span).
+
+        A leg that fails mid-stripe (an injected ``move_leg`` fault)
+        cancels its own and every later leg's reservation exactly; the
+        un-moved tail re-plans once onto a creditor outside the failed
+        stripe (``FaultStats.move_leg_replans``)."""
+        if mv.src_inst in self._dead or \
+                any(leg.dst_inst in self._dead for leg in mv.legs):
+            return MoveResult.REJECTED
         src = self.engines[mv.src_inst]
         req = self.requests.get(mv.req_id)
         if req is None or req.done or req.slot is None:
@@ -449,8 +478,8 @@ class Cluster:
         if not src._can_pool or not all(self.engines[leg.dst_inst]._can_pool
                                         for leg in mv.legs):
             return MoveResult.GONE       # a non-pooled engine has no KV rows
-        owner = next((e for e in self.engines.values()
-                      if req in e.running), None)
+        owner = next((e for i, e in self.engines.items()
+                      if i not in self._dead and req in e.running), None)
         if owner is None:
             return MoveResult.GONE
         bs = self.block_size
@@ -497,7 +526,20 @@ class Cluster:
             if rb0 is not None:
                 owner.req_chain[mv.req_id] = [(owner.inst_id, b)
                                               for b in rb0.blocks]
-        for dst_id, n in legs:
+        failed_tail: List[Tuple[int, int]] = []
+        executed = 0
+        for li, (dst_id, n) in enumerate(legs):
+            if self.faults is not None and \
+                    self.faults.take_move_leg_fault():
+                # Injected mid-stripe leg failure: this leg and every
+                # later one are still only RESERVATIONS (their
+                # commit_move_in has not run) — cancel them exactly.
+                # Executed legs keep their consistent placement.
+                self.fault_stats.move_leg_failures += 1
+                for dj, nj in legs[li:]:
+                    self.engines[dj].rmanager.cancel_move_in(nj)
+                failed_tail = legs[li:]
+                break
             dst = self.engines[dst_id]
             src_blocks = list(
                 src.rmanager.pool.requests[mv.req_id].blocks[:n])
@@ -531,6 +573,23 @@ class Cluster:
                 for ci, e in enumerate(chain):
                     if e in remap:
                         chain[ci] = remap.pop(e)
+            executed += 1
+        if failed_tail:
+            # Re-plan the un-moved tail onto a surviving creditor OUTSIDE
+            # the failed stripe (source and every failed destination
+            # excluded). One recursive attempt — a still-armed fault is
+            # consumed above — and no alternative leaves the tail where
+            # it was for the next reactive or planning round.
+            n_rest = sum(n for _, n in failed_tail)
+            alt = self._pick_creditor(
+                exclude={mv.src_inst} | {d for d, _ in failed_tail})
+            if alt is not None:
+                res = self._execute_move(MoveKVCache(
+                    mv.req_id, mv.src_inst, [MoveLeg(alt, n_rest)]))
+                if res == MoveResult.OK:
+                    self.fault_stats.move_leg_replans += 1
+                    return MoveResult.OK
+            return MoveResult.OK if executed else MoveResult.REJECTED
         # A reclaim that drained the source span drops it from the
         # owner's span map (and frees the host's metadata).
         if mv.src_inst != owner.inst_id and \
@@ -545,8 +604,8 @@ class Cluster:
 
     def _reactive_moves(self) -> None:
         """Ship prefix blocks before a request breaches its local quota."""
-        for eng in self.engines.values():
-            if not eng._can_pool:
+        for i, eng in self.engines.items():
+            if i in self._dead or not eng._can_pool:
                 continue
             for req in eng.running:
                 if eng.local_free_tokens(req) <= 1:
@@ -575,13 +634,106 @@ class Cluster:
                 best, best_free = i, free
         return best
 
+    # --- fault tolerance ------------------------------------------------#
     def kill_instance(self, inst_id: int) -> None:
-        """Instance failure injection: not in this slice of the port."""
-        raise NotImplementedError(f"fault injection and recovery {_LATER}")
+        """Simulate an instance failure: it stops heartbeating (and
+        stepping) at once; detection and recovery follow in ``step``."""
+        self._dead.add(inst_id)
 
-    def install_faults(self, plan) -> None:
-        """Chaos-plan injection: not in this slice of the port."""
-        raise NotImplementedError(f"fault injection and recovery {_LATER}")
+    def install_faults(self, plan: FaultPlan) -> FaultInjector:
+        """Arm a deterministic chaos plan against this cluster.
+
+        Crash/silence events fire at the top of the matching ``step()``;
+        transfer faults (move leg, host fetch/corrupt, stager timeout)
+        become one-shot armed flags the subsystem hooks consume on the
+        next matching transfer. Returns the attached injector (the
+        cluster holds it; it holds nothing of the cluster)."""
+        return FaultInjector(plan).attach(self)
+
+    def _recover_via_replay(self, req: Request,
+                            owner: Optional[InstanceEngine] = None) -> bool:
+        """Re-admit one request whose KV (partially) died with a rank.
+
+        Every surviving resource the request still holds is released
+        exactly once — the live owner's slot and local blocks (when
+        ``owner`` is given), hosted spans on live creditors, cache pins —
+        then the request goes back to WAITING with ``needs_replay`` set:
+        admission re-prefills ``prompt + output[:-1]`` (known tokens, NO
+        resampling) and the next decode feeds ``output[-1]``, so the
+        greedy continuation equals an unfailed run's. The emitted-token
+        stream is never truncated — ``RequestHandle.tokens()`` consumers
+        see no seam. A request past
+        ``FaultPolicy.max_replays_per_request`` FAILs instead of
+        replaying forever. Returns True when the request was re-queued."""
+        if req.done:
+            return False
+        rid = req.req_id
+        if owner is not None:
+            if req.slot is not None and owner.slots[req.slot] is req:
+                owner.slots[req.slot] = None
+            owner.rmanager.release_request(rid)
+            owner.remote_insts.pop(rid, None)
+            owner.req_chain.pop(rid, None)
+        req.slot = None
+        for i, e in self.engines.items():
+            if i not in self._dead and e.rmanager.is_hosting(rid):
+                e.drop_hosted(rid)
+        if self.prefix_cache is not None:
+            self.prefix_cache.release(rid)
+        if req.output and \
+                req.replays >= self.config.faults.max_replays_per_request:
+            req.state = RequestState.FAILED
+            req.finish_time = time.monotonic()
+            self.fault_stats.failed_recoveries += 1
+            return False
+        req.state = RequestState.WAITING
+        req.needs_replay = bool(req.output)
+        self.fault_stats.recoveries += 1
+        self.fault_stats.replayed_tokens += max(0, len(req.output) - 1)
+        self.submit(req)
+        return True
+
+    def _handle_dead(self, dead: List[int]) -> None:
+        """Quarantine newly dead instances and recover their requests.
+
+        Every request with LOCAL blocks (owned by the dead engine) or a
+        creditor-HOSTED span on the dead rank lost KV that is exactly
+        recomputable from its known tokens — each is re-admitted via
+        ``_recover_via_replay``. The dead rank's allocator is then
+        drained wholesale (leftover records, cache replicas), so a
+        quarantined rank — in global-pool mode, the quarantined slice of
+        the one tensor — holds zero blocks, and the gManager forgets it:
+        its view leaves Algorithm-1 planning and
+        ``pick_instance_for_new_request`` can never choose it."""
+        for d in dead:
+            self._dead.add(d)
+            self.fault_stats.dead_instances += 1
+            eng = self.engines[d]
+            # 1) Requests OWNED by the dead instance (running or queued):
+            #    their local span is gone.
+            for req in list(eng.running) + list(eng.waiting):
+                self._recover_via_replay(req)
+            eng.slots = [None] * eng.max_batch
+            eng.waiting = []
+            # 2) Requests owned by SURVIVORS with a span hosted on the
+            #    dead rank: the lost creditor span is replayed too.
+            for i, e in self.engines.items():
+                if i in self._dead:
+                    continue
+                for req in list(e.running):
+                    if d in e.remote_insts.get(req.req_id, ()):
+                        self._recover_via_replay(req, owner=e)
+            # 3) Drain the dead rank's allocator: whatever records remain
+            #    (hosted spans of other dead-owned requests, stale
+            #    entries) release here, and its prefix-cache replicas are
+            #    purged — the quarantined rank ends with zero blocks.
+            for rid in list(eng.rmanager.pool.requests):
+                eng.rmanager.release_request(rid)
+            if self.prefix_cache is not None:
+                self.prefix_cache.purge_instance(d)
+            eng.remote_insts.clear()
+            eng.req_chain.clear()
+            self.gmanager.deregister(d)
 
     def add_instance(self, params) -> int:
         """Elastic scale-out: new instance joins as a fresh creditor."""
@@ -606,10 +758,25 @@ class Cluster:
 
     # ----------------------------------------------------------------- #
     def step(self, now: Optional[float] = None) -> int:
-        """One cluster iteration: heartbeats, plan, moves, decode."""
+        """One cluster iteration: heartbeats, liveness, plan, moves,
+        decode."""
         now = time.monotonic() if now is None else now
         self._step_count += 1
+
+        # Armed chaos events fire first: a crash injected at this step
+        # already misses this step's heartbeat, like a real failure in
+        # the gap between steps.
+        if self.faults is not None:
+            self.faults.on_step(self._step_count, self)
+
+        # Heartbeats (dead and fault-silenced instances stay silent).
+        beat: set = set()
         for i, eng in self.engines.items():
+            if i in self._dead:
+                continue
+            if self.faults is not None and \
+                    self.faults.silenced(i, self._step_count):
+                continue
             full = i in self._need_full_hb or self.gmanager.bootstrapping
             ok = self.gmanager.on_heartbeat(eng.rmanager.heartbeat(full),
                                             now=now)
@@ -617,7 +784,18 @@ class Cluster:
                 self.gmanager.on_heartbeat(
                     eng.rmanager.heartbeat(full=True), now=now)
             self._need_full_hb.discard(i)
+            beat.add(i)
         self.gmanager.bootstrapping = False
+
+        # Liveness: the wall-clock timeout against this step's ``now``
+        # (the time live engines just beat at, so a slow step never
+        # kills a live engine) OR the deterministic step-count detector.
+        dead = self.gmanager.check_liveness(now=now)
+        for d in self.gmanager.check_liveness_steps(beat):
+            if d not in dead:
+                dead.append(d)
+        if dead:
+            self._handle_dead(dead)
 
         # Reactive overflow shipping, then periodic Algorithm-1 planning.
         self._reactive_moves()
@@ -641,8 +819,9 @@ class Cluster:
             self.preemptor.maybe_resume(now=now)
 
         made = 0
-        for eng in self.engines.values():
-            made += eng.step()
+        for i, eng in self.engines.items():
+            if i not in self._dead:
+                made += eng.step()
         # Finalize whichever D2H spills have landed (the preempt tier's
         # and the shared tier's) — behind the decode compute just
         # dispatched, never blocking on it.
@@ -652,8 +831,9 @@ class Cluster:
             self.host_tier.drain(block=False)
         # Free creditor-hosted blocks of requests that finished since the
         # last step (metadata only). Engines report each finish once.
-        for eng in self.engines.values():
-            self._pending_release.update(eng.drain_finished())
+        for i, eng in self.engines.items():
+            if i not in self._dead:
+                self._pending_release.update(eng.drain_finished())
         for rid in self._pending_release:
             req = self.requests.get(rid)
             if req is not None and not req.done:

@@ -46,15 +46,17 @@ rank-form kernel launch per layer reads every rank's slab, creditor
 rows included, and the step writes both owner- and creditor-bound rows
 itself (the prefix sink only reserves and accounts).
 
-NON-POOLED PATH (hybrid family): a model whose state is O(1) in the
-sequence — RG-LRU states and a local-attention KV ring bounded by the
-window — has nothing for DistAttention to pool. Its engine holds no pool
-tensors; every decode slot's state lives in one batched ``DecodeState``
-(a ring of ``local_window`` tokens per attention layer, so attention
-always sees the whole window whatever ``max_local_len`` is). Admission
-is one dense ``prefill`` whose attention layers run the flash-prefill
-kernel, repacked into the slot (``repack_ring`` + ``write_slot``); each
-iteration is one batched ``decode_step`` over every slot. The rManager's
+NON-POOLED PATH (hybrid and ssm families): a model whose state is O(1)
+in the sequence — RG-LRU states and a local-attention KV ring bounded by
+the window, or xLSTM's mLSTM matrix memories and sLSTM cells — has
+nothing for DistAttention to pool. Its engine holds no pool tensors;
+every decode slot's state lives in one batched ``DecodeState`` (for the
+hybrid family a ring of ``local_window`` tokens per attention layer, so
+attention always sees the whole window whatever ``max_local_len`` is;
+the ssm family has no KV at all). Admission is one dense ``prefill``
+(hybrid attention layers on the flash-prefill kernel), moved into the
+slot (``repack_ring`` + ``write_slot``); each iteration is one batched
+``decode_step`` over every slot. The rManager's
 allocator still accounts each request's tokens against the quota, and a
 prompt longer than ``max_local_len - block_size`` FAILS (it cannot span
 creditors).
@@ -72,9 +74,14 @@ preemptor's host tier) and resumes it over byte-identical KV
 (``resume_paused``); a pause requested mid-prefill rolls the admission
 back exactly and re-queues the request.
 
+CRASH RECOVERY (every admission path): a request whose KV died with an
+instance comes back WAITING with ``needs_replay`` set; admission then
+prefills ``prompt + output[:-1]`` (``_admit_tokens``) and emits nothing —
+the next decode step feeds ``output[-1]``, exactly as it would have on an
+unfailed instance, so the handle's token stream shows no seam.
+
 This port covers the per-instance and global pool paths of the dense
-and MoE families and the non-pooled path of the hybrid family. The JAX
-engine's fault replay and the ssm family come later.
+and MoE families and the non-pooled path of the hybrid and ssm families.
 """
 from __future__ import annotations
 
@@ -310,7 +317,7 @@ class InstanceEngine:
         if slot is None:
             return False
         req = self.waiting[0]
-        tokens = list(req.prompt)
+        tokens = self._admit_tokens(req)
         T = len(tokens)
         bs = self.block_size
         # Admit with one block of quota headroom so the first decode
@@ -364,23 +371,49 @@ class InstanceEngine:
         req.slot = slot
         req.state = RequestState.RUNNING
         self.slots[slot] = req
+        if req.needs_replay and req.output:
+            # Replay re-admission (crash recovery): the KV now covers
+            # prompt + output[:-1] — exactly the state an unfailed decode
+            # would hold. The final prefill logits would merely re-produce
+            # output[-1] (already emitted to the stream), so NOTHING is
+            # emitted here; the next decode step feeds output[-1], the
+            # normal decode input convention.
+            req.needs_replay = False
+            req.replays += 1
+            req.replayed_tokens += len(req.output) - 1
+            return True
+        req.needs_replay = False
         # First generated token comes from the final prefill logits.
         self._emit(req, int(self._sample_tokens(logits, [req])[0]))
         return True
 
+    def _admit_tokens(self, req: Request) -> List[int]:
+        """The token sequence admission must prefill: the prompt, or —
+        for a crash-recovery replay — prompt + output[:-1] (every
+        generated token except the last, whose KV row was never written:
+        the next decode step feeds it, exactly as it would have on an
+        unfailed instance)."""
+        if req.needs_replay and req.output:
+            return list(req.prompt) + list(req.output[:-1])
+        return list(req.prompt)
+
     def _admit_dense(self, req: Request, slot: int, tokens: List[int],
                      n_local: int) -> torch.Tensor:
-        """Non-pooled admission: one dense prefill (its attention layers
-        on the flash-prefill kernel), its state moved into ``slot``."""
+        """Non-pooled admission: one dense prefill (hybrid attention
+        layers on the flash-prefill kernel), its state moved into
+        ``slot``. The ssm family has no KV ring: its recurrent states
+        move as they are."""
         T = len(tokens)
         tok = torch.tensor([tokens], dtype=torch.int64, device=self.device)
         logits, full = prefill(self.params, self.cfg, tok, max_len=T,
                                backend="flash")
-        self.stats.admit_stage_bytes = max(
-            self.stats.admit_stage_bytes,
-            2 * full.kv_k.numel() * full.kv_k.element_size())
-        ring = self.state.kv_k.shape[2]
-        req_state = repack_ring(full, ring, n_keep=min(n_local, ring))
+        req_state = full
+        if full.kv_k is not None:
+            self.stats.admit_stage_bytes = max(
+                self.stats.admit_stage_bytes,
+                2 * full.kv_k.numel() * full.kv_k.element_size())
+            ring = self.state.kv_k.shape[2]
+            req_state = repack_ring(full, ring, n_keep=min(n_local, ring))
         self.state = write_slot(self.state, slot, req_state, self.cfg)
         self.rmanager.pool.append_tokens(req.req_id, n_local)
         return logits

@@ -28,11 +28,9 @@ recovery paths claim to survive can be reproduced exactly:
 Everything is deterministic: ``FaultPlan.from_seed`` derives the event
 list from a PRNG seed, events fire at exact cluster step counts, and
 transfer faults are one-shot armed flags consumed in execution order.
-
-In this port the host tier, the prefix cache and the preemptor already
-raise and catch ``TransferError``/``FrameCorruptionError`` and use
-``backoff_delay_s``; the injector itself is not wired into the port's
-cluster yet (``Cluster.install_faults`` raises).
+The injector's hooks are its own bound methods and it keeps no reference
+to the cluster (``on_step`` receives it), so an armed cluster frees its
+weights and pools as soon as it is dropped.
 """
 from __future__ import annotations
 

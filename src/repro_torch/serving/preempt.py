@@ -282,16 +282,15 @@ class Preemptor:
                 frames.append(f)
         except (TransferError, FrameCorruptionError):
             # A parked frame that cannot be fetched (or fails hash
-            # verification) makes a byte-identical restore impossible.
-            # The token-replay fallback comes with the port's fault
-            # recovery; until then the request FAILS loudly (never
-            # resumes over wrong KV).
+            # verification) makes a byte-identical restore impossible —
+            # fall back to token-replay recovery: drop the record and
+            # re-admit via re-prefill of the known tokens (never resume
+            # over wrong KV).
             for i in range(rec.n_frames):
                 self.tier.drop((rid, i))
             self.paused.pop(rid, None)
             self.stats.failed_resumes += 1
-            req.state = RequestState.FAILED
-            req.finish_time = time.monotonic()
+            self.cluster._recover_via_replay(req)
             return False
         cands.sort(key=lambda e: -e.rmanager.effective_free)
         for eng in cands:

@@ -219,7 +219,8 @@ class LLMServer:
     # --- dispatch ------------------------------------------------------ #
     def _waiting_count(self) -> int:
         return len(self._queue) + sum(
-            len(e.waiting) for e in self.cluster.engines.values())
+            len(e.waiting) for i, e in self.cluster.engines.items()
+            if i not in self.cluster._dead)
 
     def _free_slots(self) -> int:
         """Cluster-wide dispatch budget: each live engine contributes
@@ -227,7 +228,9 @@ class LLMServer:
         overloaded engine contributes zero — it never cancels another
         engine's free capacity)."""
         free = 0
-        for eng in self.cluster.engines.values():
+        for i, eng in self.cluster.engines.items():
+            if i in self.cluster._dead:
+                continue
             free += max(0, sum(1 for s in eng.slots if s is None)
                         - len(eng.waiting))
         return free
@@ -322,14 +325,19 @@ class LLMServer:
         used / free), prefix-cache footprint (device replicas, pinned by
         live requests), host-tier occupancy, cumulative spill / prefetch /
         hit traffic, overload-survival counters, the KV bytes moved
-        between instances, and the live traffic estimate feeding
-        Algorithm 1. Cache, host-tier and preemption entries are present
-        (as zeros) even when the features are off, so dashboards keyed on
-        the names never miss."""
+        between instances, the live traffic estimate feeding Algorithm 1,
+        and fault-tolerance counters (dead ranks, token-replay
+        recoveries, replayed tokens, move-leg failures, transfer
+        retries/failures, frame corruptions). Cache, host-tier,
+        preemption and fault entries are present (as zeros) even when the
+        features are off or quiet, so dashboards keyed on the names never
+        miss. Pool and cache entries count live instances only."""
         cl = self.cluster
+        live = [i for i in cl.engines if i not in cl._dead]
         total = used = free = 0
         spill = prefetch = hit_toks = 0
-        for eng in cl.engines.values():
+        for i in live:
+            eng = cl.engines[i]
             alloc = eng.rmanager.pool.alloc
             total += alloc.num_blocks
             used += alloc.used_count
@@ -338,14 +346,24 @@ class LLMServer:
             prefetch += eng.stats.host_prefetch_bytes
             hit_toks += eng.stats.cache_hit_tokens
         cache, tier, pre = cl.prefix_cache, cl.host_tier, cl.preemptor
+        # Transfer retries/failures: the stager's plus every host tier's.
+        retries = float(sum(cl.stager.retries.values()))
+        failures = float(sum(cl.stager.failures.values()))
+        corruptions = 0.0
+        for t in (tier, pre.tier if pre else None):
+            if t is not None:
+                retries += float(t.stats.fetch_retries)
+                failures += float(t.stats.fetch_failures)
+                corruptions += float(t.stats.corruptions)
+        fs = cl.fault_stats
         return {
             "device_blocks_total": float(total),
             "device_blocks_used": float(used),
             "device_blocks_free": float(free),
             "cache_device_blocks": float(sum(
-                cache.device_blocks(i) for i in cl.engines)) if cache else 0.0,
+                cache.device_blocks(i) for i in live)) if cache else 0.0,
             "cache_pinned_blocks": float(sum(
-                cache.pinned_blocks(i) for i in cl.engines)) if cache else 0.0,
+                cache.pinned_blocks(i) for i in live)) if cache else 0.0,
             "cache_hit_tokens": float(hit_toks),
             "host_blocks_used": float(tier.used_blocks) if tier else 0.0,
             "host_blocks_capacity": float(tier.capacity) if tier else 0.0,
@@ -360,6 +378,14 @@ class LLMServer:
             "arrival_rate_hz": cl.gmanager.arrivals.rate_hz,
             "avg_new_req_len_est":
                 float(cl.gmanager.arrivals.avg_new_req_len),
+            "dead_instances": float(len(cl._dead)),
+            "fault_recoveries": float(fs.recoveries),
+            "fault_failed_recoveries": float(fs.failed_recoveries),
+            "replayed_tokens": float(fs.replayed_tokens),
+            "move_leg_failures": float(fs.move_leg_failures),
+            "transfer_retries": retries,
+            "transfer_failures": failures,
+            "host_frame_corruptions": corruptions,
         }
 
     # --- open-loop event pump ------------------------------------------ #

@@ -16,15 +16,18 @@ compute (paper Fig. 12) or is paid serially on top of it:
 
 CUDA events take the place of the JAX package's ``block_until_ready``.
 On the CPU every copy has completed when it returns, so staging is a
-synchronous no-op there (the counters still count).
+synchronous no-op there (the counters still count, and the fault hook is
+still consulted before each wait).
 """
 from __future__ import annotations
 
 import time
 from collections import defaultdict, deque
-from typing import Deque, Dict, Optional, Sequence, Tuple
+from typing import Callable, Deque, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.serving.faults import TransferError, backoff_delay_s
 
 
 class AsyncStager:
@@ -33,11 +36,25 @@ class AsyncStager:
     Chains may carry a ``tag``: per-tag stall counters record how often
     draining a tagged chain actually had to WAIT — the copy was still in
     flight when the host needed it done.
+
+    Failure handling: waiting on a chain that raises ``TransferError``
+    (an injected ``FaultPlan`` timeout) is retried up to ``max_retries``
+    times with bounded exponential backoff (``retries`` per tag);
+    synchronizing the same CUDA event again is idempotent. On exhaustion
+    — or any other error, such as a CUDA error, which is sticky and never
+    retried — the failure is counted in ``failures`` per tag, the
+    REMAINING in-flight ring is drained to a clean state (secondary
+    errors are counted, not raised), and the original error propagates.
     """
 
-    def __init__(self, overlap: bool = True, depth: int = 2):
+    def __init__(self, overlap: bool = True, depth: int = 2, *,
+                 max_retries: int = 0, backoff_base_s: float = 0.0,
+                 backoff_max_s: float = 0.05):
         self.overlap = overlap
         self.depth = max(1, depth)
+        self.max_retries = max(0, max_retries)
+        self.backoff_base_s = backoff_base_s
+        self.backoff_max_s = backoff_max_s
         self._inflight: Deque[Tuple[Optional[torch.cuda.Event],
                                     Optional[str]]] = deque()
         self.staged = 0          # copy chains handed to the stager
@@ -45,6 +62,11 @@ class AsyncStager:
         self.sync_wait_s = 0.0   # host time spent blocked on copies
         self.stalls: Dict[str, int] = defaultdict(int)
         self.stall_wait_s: Dict[str, float] = defaultdict(float)
+        self.retries: Dict[str, int] = defaultdict(int)
+        self.failures: Dict[str, int] = defaultdict(int)
+        # Chaos hook: called with the chain's tag before each wait; a
+        # True return injects one TransferError (see serving.faults).
+        self.fault_hook: Optional[Callable[[Optional[str]], bool]] = None
 
     def stage(self, tensors: Sequence[torch.Tensor],
               tag: Optional[str] = None) -> None:
@@ -75,6 +97,48 @@ class AsyncStager:
 
     def _block(self, event: Optional[torch.cuda.Event],
                tag: Optional[str] = None) -> None:
+        # Retry wrapper around the actual wait. The chain was already
+        # popped from the ring by the caller, so a chain that ultimately
+        # fails is never left in flight.
+        name = tag or "untagged"
+        attempt = 0
+        while True:
+            try:
+                self._wait_ready(event, tag)
+                return
+            except TransferError:
+                if attempt < self.max_retries:
+                    self.retries[name] += 1
+                    delay = backoff_delay_s(attempt, self.backoff_base_s,
+                                            self.backoff_max_s)
+                    if delay > 0:
+                        time.sleep(delay)
+                    attempt += 1
+                    continue
+                self.failures[name] += 1
+                self._drain_after_failure()
+                raise
+            except Exception:
+                self.failures[name] += 1
+                self._drain_after_failure()
+                raise
+
+    def _drain_after_failure(self) -> None:
+        # Leave the ring EMPTY and consistent after a failed chain:
+        # secondary errors while flushing the survivors are counted but
+        # not raised (the primary error is the one that propagates).
+        pending, self._inflight = list(self._inflight), deque()
+        for event, tag in pending:
+            try:
+                self._wait_ready(event, tag)
+            except Exception:
+                self.failures[tag or "untagged"] += 1
+
+    def _wait_ready(self, event: Optional[torch.cuda.Event],
+                    tag: Optional[str] = None) -> None:
+        if self.fault_hook is not None and self.fault_hook(tag):
+            raise TransferError(
+                f"injected stager transfer timeout (tag={tag!r})")
         self.synced += 1
         if event is None:
             return

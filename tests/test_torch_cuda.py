@@ -696,3 +696,100 @@ def test_cached_serving_on_the_card_allocates_nothing_pool_sized(
     pool_bytes = eng.pool_k.numel() * eng.pool_k.element_size()
     assert torch.cuda.max_memory_allocated() - base < pool_bytes
     h.result()
+
+
+# ------------------------------------------------------------------ #
+# Fault recovery and the ssm family on the card
+# ------------------------------------------------------------------ #
+def _greedy_oracle(params, cfg, prompt, n_new, device):
+    from repro_torch.models.model import decode_step
+    from repro_torch.models.prefill import prefill
+    lg, st = prefill(params, cfg, torch.tensor([prompt], device=device),
+                     max_len=len(prompt) + n_new + 2)
+    out = [int(lg[0].argmax())]
+    for _ in range(n_new - 1):
+        lg, st = decode_step(params, cfg, st,
+                             torch.tensor([out[-1]], device=device))
+        out.append(int(lg[0].argmax()))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("global_pool", [False, True],
+                         ids=["per-instance", "global-pool"])
+def test_creditor_crash_replays_on_the_card(global_pool, cuda_device):
+    """float32 smoke width: a creditor of a spanning request crashes
+    mid-decode; the request replays to the dense oracle's stream through
+    the CUDA paged kernels only (the replay's re-prefill and the decode
+    after it), every allocator drains and no pool is reallocated."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import (Cluster, FaultPolicy, Request,
+                                     SamplingParams, ServingConfig)
+    cfg = dataclasses.replace(get_smoke_config("olmo-1b"), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    prompt = np.random.default_rng(90).integers(0, cfg.vocab_size,
+                                                40).tolist()
+    cl = Cluster(params, cfg, ServingConfig.smoke(
+        n_instances=3, max_batch=2, pool_blocks=32, global_pool=global_pool,
+        faults=FaultPolicy(max_transfer_retries=2)))
+    ptr = (cl.gpool.k if global_pool else cl.engines[0].pool_k).data_ptr()
+    req = Request(prompt=prompt, sampling=SamplingParams(max_new_tokens=12))
+    cl.submit(req)
+    while len(req.output) < 4:
+        cl.step()
+    victim = next(i for i, e in cl.engines.items()
+                  if e.rmanager.is_hosting(req.req_id))
+    ops.reset_counts()
+    cl.kill_instance(victim)
+    cl.run_until_done(max_steps=300)
+    assert req.output == _greedy_oracle(params, cfg, prompt, 12, cuda_device)
+    assert req.replays == 1 and victim in cl._dead
+    c = ops.counts()
+    suffix = "_ranks" if global_pool else ""
+    assert c["paged_prefill_attention" + suffix]["launches"] > 0
+    assert c["paged_micro_attention" + suffix]["launches"] > 0
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    for _ in range(2):
+        cl.step()
+    for e in cl.engines.values():
+        assert e.rmanager.pool.alloc.used_count == 0
+        assert e.rmanager.pool.alloc.reserved == 0
+    assert (cl.gpool.k if global_pool else cl.engines[0].pool_k) \
+        .data_ptr() == ptr
+
+
+@pytest.mark.cuda
+def test_xlstm_steps_on_the_card_match_the_cpu(cuda_device):
+    """float32 xLSTM smoke: prefill and decode steps on the card equal
+    the same weights' steps on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import decode_step, init_params
+    from repro_torch.models.prefill import prefill
+    cfg = dataclasses.replace(get_smoke_config("xlstm-350m", layers=16),
+                              dtype="float32")
+    cpu = init_params(cfg, device="cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+    gpu = to(cpu, cuda_device)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 20))
+    out = {}
+    for dev, params in (("cpu", cpu), (cuda_device, gpu)):
+        t = torch.from_numpy(toks).to(dev)
+        lg, st = prefill(params, cfg, t[:, :12], max_len=24)
+        logits = [lg]
+        for i in range(12, 20):
+            lg, st = decode_step(params, cfg, st, t[:, i])
+            logits.append(lg)
+        out[str(dev)] = [x.cpu() for x in logits] + \
+            [x.cpu() for x in st.rec["mlstm"]] + \
+            [x.cpu() for x in st.rec["slstm"]]
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        scale = float(a.abs().max().clamp_min(1e-6))
+        assert float((a - b).abs().max()) <= 1e-4 * scale

@@ -41,7 +41,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.configs.kimi_k2_1t_a32b",
             "repro_torch.serving.faults", "repro_torch.serving.hosttier",
             "repro_torch.serving.prefixcache",
-            "repro_torch.serving.preempt"} <= set(mods)
+            "repro_torch.serving.preempt", "repro_torch.serving.staging",
+            "repro_torch.models.xlstm",
+            "repro_torch.configs.xlstm_350m"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"

@@ -47,8 +47,9 @@ from repro.serving.kvpool import scatter_pool_rows as jax_scatter_pool_rows
 from repro_torch import bridge
 from repro_torch.models import rglru
 from repro_torch.models.attention import make_causal_core
+from repro_torch.models.moe import apply_moe
 from repro_torch.models.model import (decode_step, forward,
-                                      init_decode_state, init_params)
+                                      init_decode_state, layer_params)
 from repro_torch.models.prefill import (decode_step_paged, prefill,
                                         prefill_chunk_paged, repack_ring,
                                         write_slot)
@@ -119,8 +120,9 @@ def test_prefill_then_decode_step_equals_forward(arch):
 
 def test_flash_backend_and_other_families_wait_for_later_slices():
     """The "flash" core builds and equals the "xla" core; the JAX name
-    "pallas" points to it; the ssm family still raises (MoE is ported:
-    ``tests/test_torch_moe.py``)."""
+    "pallas" points to it; expert-parallel grouped MoE (``ep_groups > 1``)
+    still raises (plain MoE is ported: ``tests/test_torch_moe.py``; the
+    ssm family: ``tests/test_torch_xlstm.py``)."""
     cfg, _, _ = _setup("olmo-1b")
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -132,8 +134,12 @@ def test_flash_backend_and_other_families_wait_for_later_slices():
         _close(flash(q, k, v).numpy(), xla(q, k, v).numpy())
     with pytest.raises(ValueError, match="'flash'"):
         make_causal_core(cfg, backend="pallas")
+    mcfg, _, mtp = _setup("qwen2-moe-a2.7b")
+    lp = layer_params(mtp["moe_layers"]["moe"], 0)
+    x = torch.zeros((1, 4, mcfg.d_model))
     with pytest.raises(NotImplementedError, match="not ported"):
-        init_params(dataclasses.replace(cfg, family="ssm"), device="cpu")
+        apply_moe(lp, x, mcfg, ep_groups=2)
+    assert apply_moe(lp, x, mcfg, ep_groups=1).shape == x.shape
 
 
 # ------------------------------------------------------------------ #

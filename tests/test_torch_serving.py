@@ -13,8 +13,8 @@ restored exactly; ``top_k=1`` == greedy, and ``top_k=3`` sampling stays
 inside each step's top-3 set (the port's random stream cannot match
 JAX's, so sampled paths are checked by support). And a dropped server
 frees its weights at once, with the garbage collector off, even with
-the prefix cache, host tier and preemption on (no reference cycle holds
-a cluster).
+the prefix cache, host tier and preemption on and a fault injector
+installed (no reference cycle holds a cluster).
 """
 import dataclasses
 import gc
@@ -291,16 +291,22 @@ def test_top_k_one_is_greedy_and_top_k_stays_in_top_set(setup):
 
 
 def _served_server(cfg, global_pool):
-    """A server with the prefix cache, a host tier and preemption on
-    that served warm, spanning, spilled and paused requests; returns it
-    and weak references to one of its weight tensors, its cache and
-    both host tiers (which hold pinned host frames on the card)."""
+    """A server with the prefix cache, a host tier, preemption and an
+    armed fault injector (a stager timeout, a short silence, a host
+    fetch error) that served warm, spanning, spilled and paused
+    requests; returns it and weak references to one of its weight
+    tensors, its cache, both host tiers (which hold pinned host frames
+    on the card) and the injector."""
     params = pt_init_params(cfg, device="cpu")
     weight = weakref.ref(params["embed"])
     server = psv.LLMServer(params, cfg, psv.ServingConfig.smoke(
         n_instances=3, max_batch=2, pool_blocks=24, prefix_cache=True,
         host_tier_blocks=16, overload=psv.OverloadPolicy(enabled=True),
         global_pool=global_pool), device="cpu")
+    injector = server.cluster.install_faults(psv.FaultPlan(events=(
+        psv.FaultEvent(step=1, kind="stager_timeout"),
+        psv.FaultEvent(step=2, kind="silence", target=2, duration=1),
+        psv.FaultEvent(step=3, kind="host_fetch"))))
     rng = np.random.default_rng(40)
     sp = psv.SamplingParams(max_new_tokens=6)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
@@ -315,10 +321,12 @@ def _served_server(cfg, global_pool):
     assert all(h.status.name == "FINISHED" for h in handles)
     m = server.metrics
     assert m["preempt_resumes"] == 1 and m["cache_hit_tokens"] > 0
+    assert m["transfer_retries"] >= 1 and m["dead_instances"] == 0
+    assert len(injector.fired) == 3
     cl = server.cluster
     return server, [weight, weakref.ref(cl.prefix_cache),
                     weakref.ref(cl.host_tier), weakref.ref(cl.preemptor),
-                    weakref.ref(cl.preemptor.tier)]
+                    weakref.ref(cl.preemptor.tier), weakref.ref(injector)]
 
 
 @pytest.mark.parametrize("global_pool", [False, True],
