@@ -143,6 +143,27 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    index it predicts. xlstm-350m at full width: a 1,024-token prompt
    through ``LLMServer`` against the port's own ``prefill`` +
    ``decode_step``.
+7. Training (no kernel of the port may run: training uses the plain
+   attention core, as JAX does). qwen3-0.6b at full width and depth
+   (28 layers, bf16, remat) through the port's trainer
+   (``launch.train.run``) at S = 4,096 and B = 4 for 6 steps, and
+   qwen2-moe-a2.7b at full width and 4 of 24 layers with
+   ``ep_groups=4`` at S = 2,048 and B = 4 for 5 steps: every loss and
+   gradient norm finite; reports the median step time (the first two
+   steps and the traced last one excluded), tokens/s, MFU, the least
+   time the card could take, the peak memory, and the traced step's
+   device busy share, its device time of forward, backward and
+   optimizer, and its top kernels. Then one float32 train step a family
+   (qwen3 2 layers, qwen2-moe 2 layers with ``ep_groups=2``,
+   recurrentgemma one 3-layer group, xLSTM one 8-layer group; S = 256,
+   B = 2), on the card and on the CPU from the same weights: loss and
+   gradient norm within 1e-5 relative, each gradient within 1e-4 of its
+   largest, or within 4 times the model's own change when every weight
+   is raised by one ulp, where that is larger (xLSTM). Then a restart:
+   qwen3 at 2 layers, bf16, 6 steps with a checkpoint after step 2,
+   restored into a fresh state bit for bit; its 3 continued steps must
+   give the uninterrupted run's losses and gradient norms within 1e-3
+   relative.
 
 After each model's phases its servers and weights are dropped and the
 card must hold (almost) nothing: a dropped server frees its memory at
@@ -192,6 +213,33 @@ TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
 PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_prefill",
                        "flash_prefill")
+TRAIN_UNTIMED = 2   # first train steps not timed (allocator warm-up)
+# float32 train step, card against CPU: loss and gradient norm (relative),
+# each leaf's gradient (max |diff| over its largest magnitude).
+TRAIN_STEP_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+# ... or, for a worse-conditioned model, this many times the model's own
+# change under a one-ulp raise of every weight (the CPU and the card
+# round differently at every operation; xlstm-350m's float32 gradients
+# move by about 4.5e-4 of a leaf's largest under one ulp, as this phase
+# reads it on an H100).
+TRAIN_ULPS = 4
+# bf16 continuation after a restore on the card, each step's loss and
+# gradient norm (relative): the gather backward's adds are unordered.
+RESTART_RTOL = 1e-3
+# Training phases: qwen3-0.6b at full width and depth at train_4k's
+# sequence length; qwen2-moe-a2.7b at full width, 4 of 24 layers (full
+# depth needs about 14.3e9 x 12 B of weights, gradients and moments).
+TRAIN_DENSE = {"steps": 6, "seq": 4096, "batch": 4}
+TRAIN_MOE = {"steps": 5, "seq": 2048, "batch": 4, "layers": 4,
+             "ep_groups": 4}
+# float32 card-vs-CPU steps: (arch, layers, TrainConfig fields); the
+# hybrid model's 3 layers are one (rglru, rglru, attn) group, xLSTM's 8
+# one group of 7 mLSTM + 1 sLSTM.
+TRAIN_PARITY = (("qwen3-0.6b", 2, {}),
+                ("qwen2-moe-a2.7b", 2, {"moe_ep_groups": 2}),
+                ("recurrentgemma-9b", 3, {}),
+                ("xlstm-350m", 8, {}))
 
 
 def tree_leaves(tree) -> list:
@@ -1991,13 +2039,14 @@ def ssm_serving_config():
                               pool_blocks=512, block_size=16)
 
 
-def check_no_kernel(counts) -> None:
+def check_no_kernel(counts, path: str = "the xLSTM path") -> None:
     """No kernel of the port (nor its plain version) ran: xLSTM has no
-    attention and no Pallas kernel in the reference."""
+    attention and no Pallas kernel in the reference, and training uses
+    the plain attention core, as JAX does."""
     ran = {k: c for k, c in counts.items()
            if c["launches"] or c["plain_calls"]}
     if ran:
-        raise AssertionError(f"kernels ran on the xLSTM path: {ran}")
+        raise AssertionError(f"kernels ran on {path}: {ran}")
 
 
 def ssm_serving_phase(params, cfg, device, prompt_lens, n_new):
@@ -2145,6 +2194,268 @@ def check_parity_at(ref, out, records):
 
 
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+# Training
+# --------------------------------------------------------------------- #
+def tree_to(tree, device):
+    """A nested parameter dict with every tensor copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def traced_step(report: dict):
+    """An ``around_step`` hook for ``launch.train.run``: runs the step
+    under ``torch.profiler`` with a CUDA event at the end of each of its
+    phases, and fills ``report`` with the step's wall time, the device's
+    busy share of it, the device time of forward, backward (remat's
+    recompute included) and optimizer, and the kernels with the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def around(step, run_step):
+        marks = []
+
+        def on_phase(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            start.record()
+            out = run_step(on_phase=on_phase)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        split, prev = {}, start
+        for name, ev in marks:
+            split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+            prev = ev
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        events.sort(key=lambda e: -e.self_device_time_total)
+        report.update({"step": step, "wall_s": wall,
+                       "device_busy_ms": busy_ms,
+                       "device_busy_share": busy_ms / 1e3 / wall,
+                       "phase_device_ms": split,
+                       "top_kernels": [
+                           {"name": e.key[:90],
+                            "ms": e.self_device_time_total / 1e3,
+                            "calls": e.count} for e in events[:12]]})
+        return out
+    return around
+
+
+def train_phase(arch, device, *, steps, seq, batch, layers=None,
+                ep_groups=0):
+    """``arch`` trained through the port's trainer (``launch.train.run``:
+    seeded random weights, bf16, remat, AdamW) for ``steps`` steps of
+    ``batch`` x ``seq`` tokens, the last one traced. Every loss and
+    gradient norm must be finite and no kernel of the port may run.
+    Reports the median time of the steps after the first
+    ``TRAIN_UNTIMED`` (the traced one excluded), tokens/s, MFU (useful
+    FLOPs over the step time and the bf16 peak), the least time the card
+    could take, the peak memory, and each step's loss and gradient
+    norm."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.roofline import (ideal_step_s, mfu,
+                                             model_useful_flops)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = ShapeConfig(f"train_{seq}", "train", seq, batch)
+    trace = {}
+    hook = traced_step(trace)
+    t0 = time.perf_counter()
+    reset_peak_memory()
+    ops.reset_counts()
+    recs = train.run(arch, steps=steps, seq=seq, batch=batch, layers=layers,
+                     ep_groups=ep_groups, device=device, log=None,
+                     around_step=lambda step, run_step: (
+                         hook(step, run_step) if step == steps - 1
+                         else run_step()))
+    counts = ops.counts()
+    check_no_kernel(counts, f"{arch}'s training path")
+    peak = torch.cuda.max_memory_allocated()
+    timed = [r["seconds"] for r in recs[TRAIN_UNTIMED:steps - 1]]
+    step_s = float(np.median(timed))
+    return {"arch": arch, "layers": cfg.num_layers,
+            "params": cfg.param_count(), "seq": seq, "batch": batch,
+            "ep_groups": ep_groups, "steps": len(recs),
+            "step_s_median": step_s, "step_s_timed": timed,
+            "step_s_untimed": [r["seconds"] for r in recs[:TRAIN_UNTIMED]],
+            "tokens_per_s": batch * seq / step_s,
+            "useful_flops": model_useful_flops(cfg, shape),
+            "mfu": mfu(cfg, shape, step_s),
+            "bound_s": ideal_step_s(cfg, shape),
+            "peak_mem_bytes": peak,
+            "loss": [r["loss"] for r in recs],
+            "grad_norm": [r["grad_norm"] for r in recs],
+            "lr": [r["lr"] for r in recs], "trace": trace,
+            "phase_s": time.perf_counter() - t0}
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| / max |want|, in float32 on ``want``'s device."""
+    got, want = got.detach().float().to(want.device), want.detach().float()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def train_parity_phase(device, arch, layers, tkw, *, seq=256, batch=2):
+    """One float32 ``train_step`` of ``arch`` at full width and ``layers``
+    layers, on the card and on the CPU from the same weights (drawn on the
+    card, where drawing is fast, and copied to the CPU before either
+    step: a step updates its weights in place): loss and gradient norm
+    within ``TRAIN_STEP_RTOL`` relative, and each leaf's gradient within
+    ``TRAIN_GRAD_RTOL`` of its largest magnitude — or, where the model
+    is worse conditioned, within ``TRAIN_ULPS`` times its own
+    sensitivity, measured in the same run: a third step on the card from
+    the weights each raised by one ulp. The gradients are read from the
+    first moments: a step from zero moments stores (1 - b1) times the
+    clipped gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 train_step)
+    from repro_torch.training.tree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              num_layers=layers)
+    card = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                       device)
+    runs = [(torch.device("cpu"), tree_to(card, "cpu")), (device, card),
+            (device, tree_map(lambda p: p * (1 + 2 ** -23), card))]
+    del card
+    toks, mask = batch_for_step(DataConfig(cfg.vocab_size, seq, batch), 0)
+    acfg, tcfg = AdamWConfig(), TrainConfig(**tkw)
+    res = []
+    ops.reset_counts()
+    while runs:
+        dev, params = runs.pop(0)
+        state = init_train_state(params, acfg, tcfg, dev)
+        del params
+        t1 = time.perf_counter()
+        state, out = train_step(state, torch.from_numpy(toks).to(dev),
+                                torch.from_numpy(mask).to(dev), cfg=cfg,
+                                tcfg=tcfg, adam_cfg=acfg)
+        res.append((out, tree_leaves(state.opt.m),
+                    time.perf_counter() - t1))
+        del state
+    check_no_kernel(ops.counts(), f"{arch}'s training path")
+
+    def diffs(a, b):
+        (out_a, m_a, _), (out_b, m_b, _) = a, b
+        return {"loss": rel_diff(out_a["loss"], out_b["loss"]),
+                "grad_norm": rel_diff(out_a["grad_norm"], out_b["grad_norm"]),
+                "grad_max": max(rel_diff(x, y) for x, y in zip(m_a, m_b))}
+    cpu, card, ulp = res
+    got, sens = diffs(card, cpu), diffs(ulp, card)
+    bound = {k: max(floor, TRAIN_ULPS * sens[k]) for k, floor in
+             (("loss", TRAIN_STEP_RTOL), ("grad_norm", TRAIN_STEP_RTOL),
+              ("grad_max", TRAIN_GRAD_RTOL))}
+    report = {"arch": arch, "layers": layers, "seq": seq, "batch": batch,
+              **tkw, "cpu_s": cpu[2], "card_s": card[2],
+              "loss": float(card[0]["loss"]), "rel_diff": got,
+              "one_ulp_sensitivity": sens, "bound": bound,
+              "leaves": len(cpu[1]), "phase_s": time.perf_counter() - t0}
+    if any(got[k] > bound[k] for k in got):
+        raise AssertionError(f"train parity: {report}")
+    return report
+
+
+def train_restart_phase(device, *, layers=2, seq=512, batch=2, steps=6,
+                        save_at=2):
+    """qwen3-0.6b at full width and ``layers`` layers, bf16: ``steps``
+    train steps with a checkpoint after step ``save_at``; the checkpoint
+    restores into a fresh state (other weights) bit for bit, and the
+    restored state's remaining steps give the uninterrupted run's losses
+    and gradient norms within ``RESTART_RTOL`` (on the card the backward
+    of a gather adds in no fixed order, so bitwise continuation is
+    promised only on the CPU, where the tests hold it)."""
+    import shutil
+    from repro_torch.checkpoint import (Checkpointer, restore_train_state,
+                                        save_train_state)
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 train_step)
+    from repro_torch.training.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=layers)
+    acfg = AdamWConfig(warmup_steps=2, total_steps=steps)
+    tcfg = TrainConfig(remat=True)
+    dc = DataConfig(cfg.vocab_size, seq, batch)
+
+    def fresh(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return init_train_state(init_params(cfg, gen, device), acfg, tcfg,
+                                device)
+
+    def leaves(state):
+        return [state.opt.step] + tree_leaves(state.params) + \
+            tree_leaves(state.opt.m) + tree_leaves(state.opt.v)
+
+    def run(state, first, last):
+        outs = []
+        for step in range(first, last):
+            toks, mask = batch_for_step(dc, step)
+            state, out = train_step(state, torch.from_numpy(toks).to(device),
+                                    torch.from_numpy(mask).to(device),
+                                    cfg=cfg, tcfg=tcfg, adam_cfg=acfg)
+            outs.append((float(out["loss"]), float(out["grad_norm"])))
+        return state, outs
+
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        ckpt = Checkpointer(str(ckdir), keep=1)
+        state, first = run(fresh(0), 0, save_at + 1)
+        t1 = time.perf_counter()
+        save_train_state(ckpt, save_at, state)
+        save_s = time.perf_counter() - t1
+        saved = [t.cpu().clone() for t in leaves(state)]
+        state, rest = run(state, save_at + 1, steps)
+        del state
+        t1 = time.perf_counter()
+        restored = restore_train_state(ckpt, ckpt.latest(), fresh(1))
+        restore_s = time.perf_counter() - t1
+        got = leaves(restored)
+        if len(got) != len(saved) or not all(
+                a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                for a, b in zip(got, saved)):
+            raise AssertionError("the restored state differs from the "
+                                 "saved one")
+        del got, saved
+        restored, again = run(restored, save_at + 1, steps)
+        del restored
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    diff = max(abs(a - b) / abs(b) for x, y in zip(again, rest)
+               for a, b in zip(x, y))
+    report = {"layers": layers, "seq": seq, "batch": batch, "steps": steps,
+              "save_at": save_at, "save_s": save_s, "restore_s": restore_s,
+              "uninterrupted": first + rest, "continued": again,
+              "continuation_max_rel_diff": diff,
+              "continuation_bitwise": again == rest,
+              "phase_s": time.perf_counter() - t0}
+    if diff > RESTART_RTOL:
+        raise AssertionError(f"train restart: {report}")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2368,6 +2679,28 @@ def main(argv=None) -> int:
     mark("ssm_parity")
     del xparams32
     check_released(report, "xlstm-350m float32")
+
+    for key, arch, kw in (
+            ("train_dense", "qwen3-0.6b", TRAIN_DENSE),
+            ("train_moe", "qwen2-moe-a2.7b", TRAIN_MOE)):
+        report[key] = train_phase(arch, device, **kw)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
+              flush=True)
+        mark(key)
+        check_released(report, f"{arch} training")
+    report["train_parity"] = []
+    for arch, layers, tkw in TRAIN_PARITY:
+        report["train_parity"].append(
+            train_parity_phase(device, arch, layers, tkw))
+        print("train parity: " + json.dumps(report["train_parity"][-1]),
+              flush=True)
+        check_released(report, f"{arch} float32 training")
+    mark("train_parity")
+    report["train_restart"] = train_restart_phase(device)
+    print("train restart: " + json.dumps(report["train_restart"]),
+          flush=True)
+    mark("train_restart")
+    check_released(report, "qwen3-0.6b restart")
 
     # Launches: each kernel's count from the run of ITS main path: the
     # single-rank paged kernels from qwen3's per-instance phase, the rank

@@ -17,13 +17,15 @@ The JAX package stacks per-layer parameters along a leading layer (or
 group) axis and scans over them; the port keeps that stacked layout (so
 the weight bridge is key-for-key) and runs a Python loop over layers,
 slicing one layer's parameters per iteration (``attn_layer_params``,
-``_layer_params``, ``layer_params``).
+``_layer_params``, ``layer_params``); the full-sequence forward, which
+training differentiates, unbinds each stack once (``unstack``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (full_attention_decode,
@@ -199,12 +201,12 @@ def attn_layer_params(params, cfg: ModelConfig, i: int):
     return layer_params(params["moe_layers"], i - nd)
 
 
-def ffn_or_moe(lp, h, cfg: ModelConfig,
-               capacity_factor: float = 1.25) -> torch.Tensor:
+def ffn_or_moe(lp, h, cfg: ModelConfig, capacity_factor: float = 1.25,
+               ep_groups: int = 0) -> torch.Tensor:
     """The layer's feed-forward block: its dense FFN, or its MoE (a
     layer's parameters hold ``ffn`` or ``moe``, never both)."""
     if "moe" in lp:
-        return apply_moe(lp["moe"], h, cfg, capacity_factor)
+        return apply_moe(lp["moe"], h, cfg, capacity_factor, ep_groups)
     return apply_ffn(lp["ffn"], h, cfg)
 
 
@@ -223,7 +225,7 @@ def _layer_params(params, cfg: ModelConfig, i: int):
 # Full-sequence forward
 # ===================================================================== #
 def _attn_layer_fwd(lp, x, positions, cfg, core, *,
-                    capacity_factor: float = 1.25):
+                    capacity_factor: float = 1.25, ep_groups: int = 0):
     """One attention layer. Returns (x, (k, v), MoE aux loss — 0 for a
     dense FFN layer)."""
     h = apply_norm(lp["ln1"], x, cfg)
@@ -232,7 +234,7 @@ def _attn_layer_fwd(lp, x, positions, cfg, core, *,
     h = apply_norm(lp["ln2"], x, cfg)
     aux = (moe_aux_loss(lp["moe"], h, cfg) if "moe" in lp
            else torch.zeros((), device=x.device))
-    return x + ffn_or_moe(lp, h, cfg, capacity_factor), kv, aux
+    return x + ffn_or_moe(lp, h, cfg, capacity_factor, ep_groups), kv, aux
 
 
 def _rglru_layer_fwd(lp, x, cfg, state=None, *, decode=False):
@@ -264,8 +266,12 @@ def _ssm_layer_fwd(kind, lp, x, cfg, state=None, *, decode=False):
     return x + y, st
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens, positions=None):
-    x = params["embed"][tokens]
+def embed_tokens(params, cfg: ModelConfig, tokens=None, embeds=None,
+                 positions=None):
+    """Token embeddings, or the given ``embeds`` [B, T, d] (a modality
+    frontend's output), plus the sinusoidal table where the model has
+    one."""
+    x = params["embed"][tokens] if embeds is None else embeds
     if cfg.positional == "sinusoidal":
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -279,42 +285,110 @@ def unembed(params, cfg: ModelConfig, x):
     return x @ w
 
 
-def forward(params, cfg: ModelConfig, tokens, *, backend: str = "xla",
-            chunk: int = 512, capacity_factor: float = 1.25
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward. Returns (logits [B,T,V], moe_aux —
-    the MoE layers' summed load-balancing loss, 0 without MoE).
+def unstack(stacked, n: int) -> list:
+    """The ``n`` slices of a stacked parameter tree along its leading
+    axis, one tree of views each. One ``unbind`` per leaf: under autograd
+    the stack's gradient is then assembled once, where indexing layer by
+    layer would add a zero tensor of the whole stack per layer."""
+    if isinstance(stacked, dict):
+        parts = {k: unstack(v, n) for k, v in stacked.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(stacked, 0))
+
+
+def _layer_units(params, cfg: ModelConfig):
+    """The forward's units in order, ``(checkpointed, kind, params)``
+    (``forward`` maps each kind to ``fn(lp, x, aux) -> (x, aux)``): a
+    layer (dense, MoE) or a group
+    (hybrid, ssm) — what JAX scans and, with remat, checkpoints — and the
+    hybrid family's leftover layers, which JAX does not checkpoint."""
+    if cfg.family in POOLED_FAMILIES:
+        nd = cfg.first_k_dense if cfg.family == "moe" else 0
+        layers = (unstack(params["layers"], cfg.num_layers)
+                  if cfg.family == "dense" else
+                  (unstack(params["dense_layers"], nd) if nd else [])
+                  + unstack(params["moe_layers"], cfg.num_layers - nd))
+        return [(True, "attn", lp) for lp in layers]
+    if cfg.family == "ssm":
+        ng, se = ssm_groups(cfg)
+        gp = params["groups"]
+        return [(True, "ssm_group",
+                 {"mlstm": unstack(m, se - 1), "slstm": s})
+                for m, s in zip(unstack(gp["mlstm"], ng),
+                                unstack(gp["slstm"], ng))]
+    n_groups, n_left = hybrid_groups(cfg)
+    pat = cfg.block_pattern
+    units = [(True, "hybrid_group", g)
+             for g in unstack(params["groups"], n_groups)]
+    if n_left:
+        left = params["leftover"]
+        units += [(False, kind, left[f"{j}_{kind}"])
+                  for j, kind in enumerate(pat[:n_left])]
+    return units
+
+
+def forward(params, cfg: ModelConfig, tokens=None, embeds=None, *,
+            backend: str = "xla", chunk: int = 512,
+            capacity_factor: float = 1.25, remat: bool = False,
+            ep_groups: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward over ``tokens`` [B, T] or ``embeds``
+    [B, T, d]. Returns (logits [B,T,V], moe_aux — the MoE layers' summed
+    load-balancing loss, 0 without MoE).
 
     MoE layers route with ``capacity_factor`` (the default drops tokens
-    past capacity, as in JAX). Hybrid attention layers use the
-    sliding-window core (``window=cfg.local_window``) of the same backend.
-    The ssm family has no attention (``backend`` is unused).
+    past capacity, as in JAX) in ``ep_groups`` token groups (see
+    ``apply_moe``). Hybrid attention layers use the sliding-window core
+    (``window=cfg.local_window``) of the same backend. The ssm family has
+    no attention (``backend`` is unused).
+
+    ``remat=True`` (under autograd) checkpoints each unit JAX checkpoints
+    — a layer of the dense and MoE families, a group of the hybrid and
+    ssm ones; hybrid leftover layers are not — with
+    ``torch.utils.checkpoint``. The values are the same as without it.
+    JAX's policy keeps the matmul outputs that have no batch dimension
+    (none of the units' activations); the port keeps only each unit's
+    inputs and recomputes the rest in backward. JAX's
+    ``layer_constraints`` re-pin GSPMD shardings inside the scan and have
+    no single-device counterpart.
     """
     require_family(cfg)
-    B, T = tokens.shape
-    dev = tokens.device
+    B, T = tokens.shape if embeds is None else embeds.shape[:2]
+    dev = (tokens if embeds is None else embeds).device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
-    x = embed_tokens(params, cfg, tokens, positions)
+    x = embed_tokens(params, cfg, tokens, embeds, positions)
+    core = make_causal_core(cfg, backend=backend, chunk=chunk,
+                            window=(cfg.local_window
+                                    if cfg.family == "hybrid" else 0))
+
+    def attn(lp, x, aux):
+        x, _, a = _attn_layer_fwd(lp, x, positions, cfg, core,
+                                  capacity_factor=capacity_factor,
+                                  ep_groups=ep_groups)
+        return x, aux + a
+
+    def rglru(lp, x, aux):
+        return _rglru_layer_fwd(lp, x, cfg)[0], aux
+
+    def hybrid_group(gp, x, aux):
+        for j, kind in enumerate(cfg.block_pattern):
+            x, aux = (rglru if kind == "rglru" else attn)(
+                gp[f"{j}_{kind}"], x, aux)
+        return x, aux
+
+    def ssm_group(gp, x, aux):
+        for lp in gp["mlstm"]:
+            x, _ = _ssm_layer_fwd("mlstm", lp, x, cfg)
+        return _ssm_layer_fwd("slstm", gp["slstm"], x, cfg)[0], aux
+
+    fns = {"attn": attn, "rglru": rglru, "hybrid_group": hybrid_group,
+           "ssm_group": ssm_group}
+    ckpt = remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=dev)
-    if cfg.family in POOLED_FAMILIES:
-        core = make_causal_core(cfg, backend=backend, chunk=chunk)
-        for i in range(cfg.num_layers):
-            x, _, a = _attn_layer_fwd(attn_layer_params(params, cfg, i), x,
-                                      positions, cfg, core,
-                                      capacity_factor=capacity_factor)
-            aux = aux + a
-    elif cfg.family == "ssm":
-        for kind, _, lp in _ssm_layers(params, cfg):
-            x, _ = _ssm_layer_fwd(kind, lp, x, cfg)
-    else:
-        wcore = make_causal_core(cfg, backend=backend, chunk=chunk,
-                                 window=cfg.local_window)
-        for i in range(cfg.num_layers):
-            lp = _layer_params(params, cfg, i)
-            if cfg.layer_kind(i) == "rglru":
-                x, _ = _rglru_layer_fwd(lp, x, cfg)
-            else:
-                x, _, _ = _attn_layer_fwd(lp, x, positions, cfg, wcore)
+    for checkpointed, kind, lp in _layer_units(params, cfg):
+        if ckpt and checkpointed:
+            x, aux = checkpoint(fns[kind], lp, x, aux, use_reentrant=False)
+        else:
+            x, aux = fns[kind](lp, x, aux)
     return unembed(params, cfg, x), aux
 
 

@@ -1,10 +1,10 @@
-"""Mixture-of-Experts FFN: shared + routed experts, top-k, plain dispatch.
+"""Mixture-of-Experts FFN: shared + routed experts, top-k.
 
 The JAX package's sort-based dispatch with per-expert capacity
-(``repro/models/moe.py``), ported for ``ep_groups = 0`` (expert-parallel
-grouping comes with a later slice): the (token, k) assignments are sorted
-by expert id (a STABLE sort, so the capacity drops keep the tokens JAX
-keeps), each expert receives a fixed-capacity ``[E, C, d]`` buffer, the
+(``repro/models/moe.py``), plain and expert-parallel grouped
+(``ep_groups``, one code path: the plain dispatch is one group): the
+(token, k) assignments are sorted by expert id (a STABLE sort, so the
+capacity drops keep the tokens JAX keeps), each expert receives a fixed-capacity ``[E, C, d]`` buffer, the
 expert FFNs run as batched matrix products over the expert axis
 (``torch.matmul``; JAX leaves these products to XLA, outside any Pallas
 kernel), and the outputs gather back with the gate weights.
@@ -24,7 +24,9 @@ buffer row (dropped ones to one spare row that is never read), and the
 combine gathers each token's ``top_k`` expert outputs back through the
 inverse of the sort into ``[N, top_k, d]`` and sums over k — so bf16
 streams do not vary from run to run on the card, as a float
-``index_add_`` would. The dispatch reads nothing back to the host.
+``index_add_`` would. (Under autograd the gather of each token's rows
+has an accumulating backward, which on the card adds in no fixed
+order.) The dispatch reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -102,53 +104,72 @@ def _route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
 
 
 def _dispatch_combine(xt: torch.Tensor, params, cfg: ModelConfig,
-                      C: int) -> torch.Tensor:
-    """Sort-based dispatch for one token group. xt: [N, d] -> [N, d]."""
+                      C: int, G: int = 1) -> torch.Tensor:
+    """Sort-based dispatch in ``G`` token groups of ``N / G`` tokens each,
+    capacity ``C`` per expert and group. xt: [N, d] -> [N, d].
+
+    Each group routes, sorts (stably) and drops past capacity on its own;
+    the expert FFNs run once over ``[E, G*C, d]`` (group g's rows of
+    expert e at ``g*C .. g*C + C - 1``, JAX's grouped layout), and each
+    token gathers back its own ``top_k`` rows. ``G = 1`` is the plain
+    dispatch."""
     E, topk = cfg.num_experts, cfg.top_k
     N, d = xt.shape
+    Ng, A = N // G, (N // G) * topk            # tokens, assignments a group
     dev = xt.device
     _, gates, idx = _route(xt, params["router"], topk)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
-    flat_e = idx.reshape(-1)                                  # [N*k]
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
-    st = order // topk                                        # token ids
-    sg = gates.reshape(-1)[order]
-    # Assignments an expert (integer adds: exact in any order; unlike
-    # torch.bincount, no host read of the ids' maximum).
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, 0) - counts                 # exclusive
-    pos = torch.arange(N * topk, device=dev) - starts[se]
+    flat_e = idx.reshape(G, A)                                # [G, Ng*k]
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    grp = torch.arange(G, device=dev)[:, None]
+    st = order // topk + grp * Ng                             # token ids
+    sg = torch.gather(gates.reshape(G, A), 1, order)
+    # Assignments an expert and group (integer adds: exact in any order;
+    # unlike torch.bincount, no host read of the ids' maximum).
+    counts = torch.zeros((G, E), dtype=flat_e.dtype, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 1) - counts                 # exclusive
+    pos = torch.arange(A, device=dev) - torch.gather(starts, 1, se)
     keep = pos < C
-    # Kept assignment i -> buffer row se*C + pos (unique); dropped ones ->
-    # the spare row E*C, never read.
-    row = torch.where(keep, se * C + pos, E * C)
-    buf = xt.new_zeros((E * C + 1, d))
-    buf[row] = xt[st]
-    y_buf = _expert_ffn(params["experts"], buf[:E * C].view(E, C, d), cfg)
-    y = y_buf.reshape(E * C, d)[torch.where(keep, row, 0)]
-    y = y * (sg * keep).to(xt.dtype)[:, None]
-    # Back to (token, k) order through the inverse of the sort: each
-    # token sums its own top_k rows, no scatter-add.
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(N * topk, device=dev)
+    # Kept assignment -> buffer row se*G*C + g*C + pos (unique); dropped
+    # ones -> the spare row E*G*C, never read.
+    row = torch.where(keep, se * (G * C) + grp * C + pos, E * G * C)
+    buf = xt.new_zeros((E * G * C + 1, d))
+    buf[row.reshape(-1)] = xt[st.reshape(-1)]
+    y_buf = _expert_ffn(params["experts"], buf[:E * G * C].view(E, G * C, d),
+                        cfg)
+    y = y_buf.reshape(E * G * C, d)[torch.where(keep, row, 0).reshape(-1)]
+    y = y * (sg * keep).to(xt.dtype).reshape(-1, 1)
+    # Back to (token, k) order through the inverse of each group's sort:
+    # each token sums its own top_k rows, no scatter-add.
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(A, device=dev).expand(G, A))
+    inv = (inv + grp * A).reshape(-1)
     return y[inv].view(N, topk, d).sum(1)
 
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
               capacity_factor: float = 1.25,
               ep_groups: int = 0) -> torch.Tensor:
-    """x: [B, T, d] -> [B, T, d]. Top-k routed + always-on shared experts."""
-    if ep_groups and ep_groups > 1:
-        raise NotImplementedError(
-            "expert-parallel grouped MoE (ep_groups > 1) is not ported yet; "
-            "it comes with a later slice of the port")
+    """x: [B, T, d] -> [B, T, d]. Top-k routed + always-on shared experts.
+
+    ``ep_groups > 1`` with ``N = B*T`` divisible by it is the JAX
+    package's 2D expert-parallel formulation: the tokens split into
+    ``ep_groups`` groups that each route, sort and drop on their own at
+    capacity ``moe_capacity(N // ep_groups)``, one expert FFN runs over
+    every group's buffers, and each group combines its own tokens. Other
+    token counts take the plain path, as in JAX. JAX's sharding
+    constraints (groups over "data", experts over "model") have no
+    single-device counterpart and are left out.
+    """
     B, T, d = x.shape
     xt = x.reshape(-1, d)
-    C = moe_capacity(xt.shape[0], cfg, capacity_factor)
-    y = _dispatch_combine(xt, params, cfg, C)
+    N = xt.shape[0]
+    G = ep_groups if ep_groups > 1 and N % ep_groups == 0 else 1
+    C = moe_capacity(N // G, cfg, capacity_factor)
+    y = _dispatch_combine(xt, params, cfg, C, G)
     if cfg.num_shared_experts:
         y = y + _expert_ffn(params["shared"], xt[None], cfg).sum(0).to(
             xt.dtype)

@@ -80,7 +80,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     B, T = tokens.shape
     dev = tokens.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
-    x = embed_tokens(params, cfg, tokens, positions)
+    x = embed_tokens(params, cfg, tokens, positions=positions)
     state = init_decode_state(cfg, B, max_len, device=dev)
     lens = torch.full((B,), T, dtype=torch.int64, device=dev)
     if cfg.family == "ssm":
@@ -340,7 +340,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, t0: int,
     tables = _as_int32(tables, dev)
     tails = _as_int32(tails, dev)
     write = _write_plan(write_block, write_off, pool_k.shape[1], dev)
-    x = embed_tokens(params, cfg, toks, positions)
+    x = embed_tokens(params, cfg, toks, positions=positions)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = attn_layer_params(params, cfg, i)

@@ -298,6 +298,8 @@ class Cluster:
         # Dead (quarantined) instances; the cache, the preemptor and the
         # creditor picks filter on it.
         self._dead: set = set()
+        # Dead instances whose recovery has run (``_handle_dead``).
+        self._recovered: set = set()
         self.fault_stats = FaultStats()
         self.faults: Optional[FaultInjector] = None
         self._need_full_hb: set = set(self.engines)
@@ -707,6 +709,7 @@ class Cluster:
         ``pick_instance_for_new_request`` can never choose it."""
         for d in dead:
             self._dead.add(d)
+            self._recovered.add(d)
             self.fault_stats.dead_instances += 1
             eng = self.engines[d]
             # 1) Requests OWNED by the dead instance (running or queued):
@@ -793,6 +796,12 @@ class Cluster:
         dead = self.gmanager.check_liveness(now=now)
         for d in self.gmanager.check_liveness_steps(beat):
             if d not in dead:
+                dead.append(d)
+        # An instance killed before its first heartbeat was never
+        # registered, so neither detector can see it: recover it at once
+        # (it holds nothing but queued requests).
+        for d in sorted(self._dead - self._recovered):
+            if d not in self.gmanager.instances and d not in dead:
                 dead.append(d)
         if dead:
             self._handle_dead(dead)

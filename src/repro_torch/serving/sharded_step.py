@@ -155,7 +155,7 @@ def prefill_chunk_global(params, cfg: ModelConfig, tokens, t0: int,
     tails = _as_int32(tails, dev)
     plan = _global_write_plan(wrank, wblk, woff, NR, NB, dev)
     scale = cfg.head_dim ** -0.5
-    x = embed_tokens(params, cfg, toks, positions)
+    x = embed_tokens(params, cfg, toks, positions=positions)
     ks, vs = [], []
     for i in range(L):
         lp = attn_layer_params(params, cfg, i)

@@ -793,3 +793,92 @@ def test_xlstm_steps_on_the_card_match_the_cpu(cuda_device):
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         scale = float(a.abs().max().clamp_min(1e-6))
         assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 products in float32 (not TF32) for a card-vs-CPU check."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.cuda
+def test_bf16_train_steps_at_full_width_are_finite(cuda_device):
+    """qwen3-0.6b at full width, 2 layers, bf16, through the trainer:
+    finite losses and gradient norms, and no kernel of the port runs
+    (training uses the plain attention core, as JAX does)."""
+    from repro_torch.launch import train
+    ops.reset_counts()
+    recs = train.run("qwen3-0.6b", steps=3, seq=512, batch=2, layers=2,
+                     device=cuda_device, log=None)
+    assert len(recs) == 3
+    for r in recs:
+        assert np.isfinite([r["loss"], r["grad_norm"], r["lr"]]).all()
+    assert not any(c["launches"] or c["plain_calls"]
+                   for c in ops.counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw,tkw", [
+    ("qwen3-0.6b", {}, {}),
+    ("qwen2-moe-a2.7b", {}, {"moe_ep_groups": 2}),
+    ("recurrentgemma-9b", {"layers": 3}, {}),
+])
+def test_float32_train_step_on_the_card_matches_the_cpu(
+        cuda_device, no_tf32, arch, kw, tkw):
+    """One float32 train step of the same smoke weights on the card and
+    on the CPU: loss and gradient norm within 1e-5 relative, each
+    gradient within 1e-4 of its largest magnitude."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training.data import DataConfig, batch_for_step
+    from repro_torch.training.train_step import TrainConfig, loss_and_grads
+    from repro_torch.training.tree import tree_leaves
+    cfg = dataclasses.replace(get_smoke_config(arch, **kw), dtype="float32")
+    cpu = init_params(cfg, device="cpu")
+    toks, mask = batch_for_step(DataConfig(cfg.vocab_size, 48, 2, 3), 0)
+    res = {}
+    for dev, params in (("cpu", cpu), ("cuda", _tree_to(cpu, cuda_device))):
+        loss, _, grads = loss_and_grads(
+            params, cfg, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(mask).to(dev), TrainConfig(**tkw))
+        res[dev] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)])
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        scale = float(b.abs().max().clamp_min(1e-12))
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf,T", [(-1.0, 8), (1.25, 16), (0.5, 24)])
+def test_grouped_moe_on_the_card_matches_the_cpu(cuda_device, no_tf32,
+                                                 cf, T):
+    """``apply_moe(..., ep_groups=4)`` in float32 on the card equals the
+    grouped path on the CPU, with and without drops."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params, layer_params
+    from repro_torch.models.moe import apply_moe
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              dtype="float32")
+    lp = layer_params(init_params(cfg, device="cpu")["moe_layers"]["moe"], 0)
+    x = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        (2, T, cfg.d_model)).astype(np.float32))
+    want = apply_moe(lp, x, cfg, cf, ep_groups=4)
+    got = apply_moe(_tree_to(lp, cuda_device), x.to(cuda_device), cfg, cf,
+                    ep_groups=4).cpu()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale

@@ -193,6 +193,35 @@ def test_chaos_crash_event_owner_recovery(setup, global_pool):
     _assert_allocators_clean(cl)
 
 
+@MODES
+def test_crash_before_first_heartbeat_recovers_queued_requests(
+        setup, global_pool):
+    """An instance that crashes before its first heartbeat was never
+    registered, so neither liveness detector sees it: its queued
+    request is re-routed at once and served to the oracle."""
+    cfg, jp, tp = setup
+    prompt = _prompt(cfg, 94, 8)
+    n_new = 6
+    cl = _cluster(tp, cfg, _chaos_config(
+        global_pool=global_pool, heartbeat_timeout=1e9,
+        faults=psv.FaultPolicy(heartbeat_timeout_steps=2)))
+    req = psv.Request(prompt=prompt,
+                      sampling=psv.SamplingParams(max_new_tokens=n_new))
+    cl.submit(req)
+    owner = next(i for i, e in cl.engines.items() if req in e.waiting)
+    cl.install_faults(FaultPlan(events=(
+        FaultEvent(step=1, kind="crash", target=owner),)))
+    cl.run_until_done(max_steps=100)
+
+    assert owner in cl._dead and owner not in cl.gmanager.instances
+    assert cl.fault_stats.dead_instances == 1
+    assert cl.fault_stats.recoveries == 1
+    assert req.state == psv.RequestState.FINISHED
+    assert req.output == _oracle(jp, cfg, prompt, n_new)
+    assert req.replays == 0
+    _assert_allocators_clean(cl)
+
+
 # ------------------------------------------------------------------ #
 # Heartbeat-silence detection budgets
 # ------------------------------------------------------------------ #

@@ -43,7 +43,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.serving.prefixcache",
             "repro_torch.serving.preempt", "repro_torch.serving.staging",
             "repro_torch.models.xlstm",
-            "repro_torch.configs.xlstm_350m"} <= set(mods)
+            "repro_torch.configs.xlstm_350m",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.compression",
+            "repro_torch.training.data", "repro_torch.training.train_step",
+            "repro_torch.training.tree", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.launch.train",
+            "repro_torch.launch.roofline"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"
@@ -104,6 +111,36 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     # Asked for the CPU explicitly, the same calls work.
     assert LLMServer(params, cfg, ServingConfig.smoke(),
                      device="cpu").cluster.device.type == "cpu"
+
+
+def test_training_entry_points_default_to_cuda_and_refuse_the_cpu():
+    """``launch.train`` (its ``run`` and its command line) and
+    ``init_train_state`` default to the card and raise without it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainConfig, init_train_state
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.run("qwen3-0.6b", steps=1, seq=8, batch=1, smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "qwen3-0.6b", "--steps", "1", "--smoke"])
+    params = init_params(get_smoke_config("qwen3-0.6b"), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(params, AdamWConfig(), TrainConfig())
+    state = init_train_state(params, AdamWConfig(), TrainConfig(),
+                             device="cpu")
+    assert int(state.opt.step) == 0 and state.ef is None
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", "qwen3-0.6b", "--steps", "1", "--smoke"],
+                         capture_output=True, text=True, timeout=240,
+                         env=env, cwd=str(REPO))
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
 
 
 def test_chip_smoke_refuses_without_cuda_or_outside_the_repo(tmp_path):

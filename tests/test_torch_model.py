@@ -120,8 +120,10 @@ def test_prefill_then_decode_step_equals_forward(arch):
 
 def test_flash_backend_and_other_families_wait_for_later_slices():
     """The "flash" core builds and equals the "xla" core; the JAX name
-    "pallas" points to it; expert-parallel grouped MoE (``ep_groups > 1``)
-    still raises (plain MoE is ported: ``tests/test_torch_moe.py``; the
+    "pallas" points to it; expert-parallel grouped MoE (``ep_groups > 1``,
+    ported since the training slice) no longer raises and, with no-drop
+    capacity, equals the plain dispatch (both against JAX:
+    ``tests/test_torch_moe.py``, ``tests/test_torch_training.py``; the
     ssm family: ``tests/test_torch_xlstm.py``)."""
     cfg, _, _ = _setup("olmo-1b")
     rng = np.random.default_rng(4)
@@ -136,10 +138,11 @@ def test_flash_backend_and_other_families_wait_for_later_slices():
         make_causal_core(cfg, backend="pallas")
     mcfg, _, mtp = _setup("qwen2-moe-a2.7b")
     lp = layer_params(mtp["moe_layers"]["moe"], 0)
-    x = torch.zeros((1, 4, mcfg.d_model))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        apply_moe(lp, x, mcfg, ep_groups=2)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, 4, mcfg.d_model)).astype(np.float32))
+    plain = apply_moe(lp, x, mcfg, -1.0)
     assert apply_moe(lp, x, mcfg, ep_groups=1).shape == x.shape
+    _close(apply_moe(lp, x, mcfg, -1.0, ep_groups=2).numpy(), plain.numpy())
 
 
 # ------------------------------------------------------------------ #

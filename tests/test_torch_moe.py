@@ -98,10 +98,20 @@ def test_capacity_drops_tokens_as_jax_does():
 
 
 def test_expert_parallel_groups_wait_for_a_later_slice():
-    cfg, _, tp = _setup("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        moe.apply_moe(_layer(tp["moe_layers"]["moe"]),
-                      torch.zeros(1, 4, cfg.d_model), cfg, ep_groups=2)
+    """Since the training slice ``ep_groups > 1`` no longer raises: two
+    groups of two tokens equal JAX's grouped path (run under a mesh whose
+    axes are Auto; ``tests/test_torch_training.py`` holds more shapes)."""
+    cfg, jp, tp = _setup("qwen2-moe-a2.7b")
+    x = np.random.default_rng(3).standard_normal(
+        (1, 4, cfg.d_model)).astype(np.float32)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    with mesh:
+        want = jax_moe.apply_moe(_layer(jp["moe_layers"]["moe"]),
+                                 jnp.asarray(x), cfg, ep_groups=2)
+    got = moe.apply_moe(_layer(tp["moe_layers"]["moe"]), torch.from_numpy(x),
+                        cfg, ep_groups=2)
+    _close(got.numpy(), want)
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
