@@ -96,6 +96,25 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    replay budget), the server's fault counters show each event, both
    host tiers end empty once the cache is cleared and no allocator
    leaks.
+   Then the global pool sharded over processes (the mesh phase): the
+   same three prompts on four instances in global-pool mode, served by
+   ``LLMServer(..., mesh=, layout=)`` in W = 2 processes on a (2, 1)
+   mesh (``pool_axes=("data",)``: two ranks a process) and in W = 4 on
+   a (2, 2) mesh (``("data", "model")``: one rank each), spawned on the
+   one card and talking over gloo (NCCL refuses two ranks on one GPU),
+   the kernels built once here first. In every process: every request
+   finishes, the streams equal process 0's, the 4,000-token prompt
+   stripes over two creditors, a move leg crosses processes, the decode
+   rank kernel launches once per layer and engine step (no single-rank
+   paged kernel, no plain version), no slab is reallocated, and the
+   slab holds 4 / W ranks. W = 2 also serves float32 prompts of 1,500
+   and 600 tokens at 4 layers, whose greedy streams (with a move) must
+   equal the single-process global path's here and the dense oracle's
+   argmax, and averages seeded gradient tensors of qwen3's parameter
+   tree with ``make_grad_sync`` (int8 all-gather), which must equal the
+   one-process average bit for bit. Reports TBT, tokens/s, the
+   collectives' calls and host time, the bytes broadcast per move leg,
+   the wire bytes of the gradient sync and each process's peak memory.
 3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
    full width (38 layers: 26 RG-LRU, 12 local-attention; bf16, seeded
    random weights) with two non-pooled instances: prompts of 6,000,
@@ -181,6 +200,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -689,6 +709,14 @@ def kernel_plans(chunk: int):
                                                      sms, 3)
         out[f"prefill-ranks-main-{dt}"] = prefill_plan(chunk, 16, 16, 128,
                                                        256, 16, dt, sms, 3)
+        # The rank forms at the mesh path's shapes (qwen3 heads, a slab of
+        # two ranks at W = 2 and of one at W = 4).
+        for nr in (2, 1):
+            for MB in (128, 256):
+                out[f"decode-ranks-mesh-nr{nr}-mb{MB}-{dt}"] = decode_plan(
+                    4, 16, 8, MB, 16, sms, nr)
+            out[f"prefill-ranks-mesh-nr{nr}-{dt}"] = prefill_plan(
+                chunk, 16, 8, 128, 256, 16, dt, sms, nr)
         # The memory hierarchy's chunks: the COW path's one-query chunk
         # over a ~3,000-token prefix (single-rank and rank form) and a
         # warm admission's 128-token tail over a 768-token prefix.
@@ -820,6 +848,24 @@ def kernel_phase(device, chunk: int):
                       timed=True, nblks=[32, 160, 27])
         rows.append(r)
         main.setdefault("prefill_ranks", r)
+        # The mesh path's own shapes: each process launches the rank
+        # forms over its slab of qwen3's 28-layer global pool (160 blocks
+        # a rank), two ranks at W = 2 and one at W = 4: decode R=4 over
+        # the served tables (a request striped over both local ranks,
+        # local ones, an empty slot; a process holding none of a batch's
+        # blocks), a 512-query chunk over a striped prefix.
+        for nr, nb in ((2, [[64, 20, 38, 0], [150, 0, 0, 0]]),
+                       (1, [[90, 0, 12, 0]]), (1, [[0, 0, 0, 0]])):
+            empty = "-empty" if not any(map(any, nb)) else ""
+            for MB in (128, 256):
+                rows.append(rank_case(
+                    f"decode-ranks-mesh-nr{nr}{empty}-mb{MB}-{dt}", "decode",
+                    nr, 16, 8, 128, dt, device, rows=4, MB=MB, L=28,
+                    nblks=[[min(b, MB) for b in r] for r in nb]))
+        for nr, nb in ((2, [64, 160]), (1, [96]), (1, [0])):
+            rows.append(rank_case(
+                f"prefill-ranks-mesh-nr{nr}-{nb[-1]}-{dt}", "prefill", nr, 16,
+                8, 128, dt, device, rows=chunk, MB=256, L=28, nblks=nb))
         for nr, K, G, nb in ((1, 16, 1, [[40, 3]]),
                              (4, 8, 2, [[0, 0], [100, 2], [0, 0], [7, 60]]),
                              (3, 8, 2, [[0, 0], [0, 0], [0, 0]])):
@@ -2456,6 +2502,387 @@ def train_restart_phase(device, *, layers=2, seq=512, batch=2, steps=6,
     return report
 
 
+# --------------------------------------------------------------------- #
+# The global pool sharded over processes (qwen3-0.6b)
+# --------------------------------------------------------------------- #
+# W -> (mesh shape, pool axes): global_check.py's two layouts. W = 2
+# holds two of the four ranks a process (the local merge runs before the
+# collective), W = 4 one.
+MESH_LAYOUTS = {2: ((2, 1), ("data",)), 4: ((2, 2), ("data", "model"))}
+MESH_TIMEOUT_S = 300
+GRAD_SEED = 1000
+
+
+def mesh_config(**over):
+    """The serving phase's config on four instances (the rank axis
+    divides over 2 and 4 processes), global pool."""
+    return serving_config().replace(n_instances=4, global_pool=True, **over)
+
+
+def mesh_model(job, dtype=None, layers=None):
+    """The job's model config: full width; ``job["smoke"]`` (a CPU
+    rehearsal) shrinks it, ``layers`` cuts the depth."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config(job["arch"]) if job.get("smoke")
+           else get_config(job["arch"]))
+    over = {}
+    if dtype:
+        over["dtype"] = dtype
+    if layers:
+        over["num_layers"] = layers
+    return dataclasses.replace(cfg, **over)
+
+
+class CollectiveSpy:
+    """Calls and host seconds of every all-reduce and broadcast (the
+    port calls them as ``torch.distributed`` attributes). With gloo a
+    CUDA tensor is staged through the host, so a call's host time
+    includes waiting for the kernels queued before it."""
+
+    NAMES = ("all_reduce", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist = dist
+        self.orig = {n: getattr(dist, n) for n in self.NAMES}
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        for name, fn in self.orig.items():
+            setattr(dist, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, fn)
+
+
+def mesh_serve(params, cfg, device, mesh, layout, prompts, n_new, config):
+    """One process's share of the mesh main path, counted: LLMServer over
+    the mesh serves ``prompts`` greedily."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import LLMServer, SamplingParams
+    if device.type == "cuda":
+        reset_peak_memory()
+    with AdmissionSpy() as spy, CollectiveSpy() as coll:
+        ops.reset_counts()
+        server = LLMServer(params, cfg, config, device=device, mesh=mesh,
+                           layout=layout)
+        handles = [server.submit(p, SamplingParams(max_new_tokens=n_new))
+                   for p in prompts]
+        t0 = time.perf_counter()
+        server.drain(max_steps=20_000)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = ops.counts()
+    all_finished(handles)
+    cl = server.cluster
+    out = {"streams": [h.result() for h in handles],
+           "stripes": spy.stripes, "moves": moves_executed(server),
+           "decode_steps": decode_steps(server),
+           "cluster_steps": cl._step_count, "counts": counts,
+           "traffic": dataclasses.asdict(cl.gpool.traffic),
+           "slab_ranks": cl.gpool.k.shape[0],
+           "slab_bytes": 2 * cl.gpool.k.numel() * cl.gpool.k.element_size(),
+           "pool_copy_steps": sum(e.stats.pool_copy_steps
+                                  for e in cl.engines.values()),
+           "collective_calls": coll.calls,
+           "collective_s": coll.seconds,
+           **e2e_numbers(server, handles, wall)}
+    if device.type == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def seeded_grads(params, seed, device):
+    """Float32 tensors of the parameter tree's shapes, seeded: one pod's
+    stand-in gradients (values like a bf16 model's, 1e-3 scale)."""
+    from repro_torch.training.tree import tree_map
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                          device=device) * 1e-3, params)
+
+
+def bit_checksums(tree) -> list:
+    """Two integer sums of each leaf's float32 bits (plain and position
+    weighted): equal leaves give equal sums, and any flipped bit moves
+    them."""
+    out = []
+    for t in tree_leaves(tree):
+        bits = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((int(bits.sum()), int((bits * w).sum())))
+    return out
+
+
+def mesh_grad_sync(params, device, pod):
+    """``make_grad_sync`` over a 1-D ("pod",) mesh of the processes,
+    each with its own pod's gradients."""
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.training.grad_sync import make_grad_sync, wire_bytes
+    pods = make_mesh((2,), ("pod",), device=device)
+    grads = seeded_grads(params, GRAD_SEED + pod, device)
+    sync(device)
+    t0 = time.perf_counter()
+    avg = make_grad_sync(pods, "pod")(grads)
+    sync(device)
+    return {"sync_s": time.perf_counter() - t0, "wire": wire_bytes(grads),
+            "checksums": bit_checksums(avg)}
+
+
+def mesh_worker(rank, world, store, job, queue):
+    """One process of a mesh group: gloo over a FileStore, the card it
+    shares with every other process of the group."""
+    import traceback
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.distributed.mesh import make_mesh
+        from repro_torch.models.model import init_params
+        from repro_torch.serving import ServeLayout
+        device = torch.device(job["device"])
+        if device.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        else:
+            torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        shape, axes = MESH_LAYOUTS[world]
+        mesh = make_mesh(shape, device=device)
+        layout = ServeLayout(batch_axes=("data",), pool_axes=axes)
+        cfg = mesh_model(job, layers=job.get("layers"))
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0), device)
+        out = {"serve": mesh_serve(params, cfg, device, mesh, layout,
+                                   job["prompts"], job["n_new"],
+                                   mesh_config())}
+        if job.get("grad_sync"):
+            out["grad_sync"] = mesh_grad_sync(params, device, rank)
+        del params
+        par = job.get("parity")
+        if par:
+            cfg32 = mesh_model(job, "float32", par["layers"])
+            params32 = init_params(cfg32, torch.Generator(device=device)
+                                   .manual_seed(0), device)
+            out["parity"] = mesh_serve(params32, cfg32, device, mesh, layout,
+                                       par["prompts"], par["n_new"],
+                                       mesh_config(**par["config"]))
+        queue.put((rank, out))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def collect(queue, procs, timeout_s):
+    """{rank: report} from every process; fails as soon as one died
+    without reporting, or at ``timeout_s``."""
+    import queue as queue_mod
+    res, deadline = {}, time.monotonic() + timeout_s
+    while len(res) < len(procs):
+        try:
+            rank, out = queue.get(timeout=5)
+            res[rank] = out
+        except queue_mod.Empty:
+            dead = [i for i, p in enumerate(procs)
+                    if p.exitcode not in (None, 0) and i not in res]
+            if dead or time.monotonic() > deadline:
+                raise AssertionError(f"mesh processes {dead or 'all'} gave "
+                                     f"no report") from None
+    return res
+
+
+def run_mesh_group(world, job):
+    """Spawn ``world`` processes of ``mesh_worker`` (never fork: CUDA is
+    initialized here), wait for each one's report, reap them all."""
+    import shutil
+    import torch.multiprocessing as mp
+    tmp = ROOT / "build" / f"mesh-store-{os.getpid()}-{world}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=mesh_worker,
+                         args=(r, world, str(tmp / "store"), job, queue))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        res = collect(queue, procs, MESH_TIMEOUT_S)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [v for v in res.values() if isinstance(v, str)]
+    if bad:
+        raise AssertionError(f"a mesh process failed:\n{bad[0]}")
+    return [res[r] for r in range(world)], time.perf_counter() - t0
+
+
+def check_mesh_serve(runs, world, layers, device, *, gate_remote):
+    """The gates of one layout's served run, over every process."""
+    first = runs[0]
+    for r, run in enumerate(runs):
+        if run["streams"] != first["streams"]:
+            raise AssertionError(f"process {r}'s streams differ from "
+                                 f"process 0's")
+        if run["slab_ranks"] != 4 // world:
+            raise AssertionError(f"process {r} holds {run['slab_ranks']} "
+                                 f"ranks, not {4 // world}")
+        if run["pool_copy_steps"]:
+            raise AssertionError(f"process {r}: a step reallocated the slab")
+        check_counts(run["counts"], ("paged_micro_attention_ranks",
+                                     "paged_prefill_attention_ranks"),
+                     device)
+        for name in ("paged_micro_attention", "paged_prefill_attention"):
+            if served(run["counts"], name, device):
+                raise AssertionError(f"process {r}: {name} ran on the mesh "
+                                     f"path")
+        per_step = served(run["counts"], "paged_micro_attention_ranks",
+                          device) / run["decode_steps"]
+        if per_step != layers:
+            raise AssertionError(f"process {r}: {per_step} decode launches "
+                                 f"per engine step, not {layers}")
+        if gate_remote and run["traffic"]["remote_copies"] < 1:
+            raise AssertionError(f"process {r}: no move leg crossed "
+                                 f"processes")
+
+
+def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
+               layers=None, parity_layers=4):
+    """The global pool sharded over processes, on one card: W = 2 and
+    W = 4 processes serve the main path's prompts (``LLMServer(...,
+    mesh=, layout=)``, gloo); W = 2 also serves the float32 parity
+    prompts and averages a gradient tree with ``make_grad_sync``. This
+    process holds the references: the float32 single-process global
+    path, the dense oracle, the one-process gradient average."""
+    arch = "qwen3-0.6b"
+    t_phase = time.perf_counter()
+    prompts = make_prompts(cfg, prompt_lens, 7)
+    par = {"layers": parity_layers, "n_new": 24,
+           "prompts": make_prompts(cfg, (1500, 600), 11),
+           "config": {"pool_blocks": 96, "max_local_len": 512}}
+    job = {"device": str(device), "arch": arch, "smoke": smoke,
+           "layers": layers, "prompts": prompts, "n_new": n_new}
+    n_layers = layers or cfg.num_layers
+    report = {"prompt_lens": list(prompt_lens), "n_new": n_new,
+              "layers": n_layers, "instances": 4, "backend": "gloo",
+              "layouts": {}}
+    for world in sorted(MESH_LAYOUTS):
+        wjob = dict(job, parity=par, grad_sync=True) if world == 2 else job
+        runs, wall = run_mesh_group(world, wjob)
+        serve = [run["serve"] for run in runs]
+        check_mesh_serve(serve, world, n_layers, device, gate_remote=True)
+        if max(serve[0]["stripes"]) < 2:
+            raise AssertionError(f"W={world}: no prompt striped over >= 2 "
+                                 f"creditors ({serve[0]['stripes']})")
+        s0 = serve[0]
+        steps = s0["cluster_steps"]
+        legs = s0["traffic"]["remote_copies"]
+        report["layouts"][str(world)] = {
+            "mesh": list(MESH_LAYOUTS[world][0]),
+            "pool_axes": list(MESH_LAYOUTS[world][1]),
+            "group_wall_s": wall,
+            "creditors_per_admission": s0["stripes"],
+            "moves_during_decode": s0["moves"],
+            "decode_steps": s0["decode_steps"], "cluster_steps": steps,
+            "decode_launches_per_step": served(
+                s0["counts"], "paged_micro_attention_ranks", device)
+            / s0["decode_steps"],
+            "traffic": s0["traffic"],
+            "broadcast_bytes_per_remote_leg":
+                s0["traffic"]["broadcast_bytes"] / legs,
+            "slab_ranks": s0["slab_ranks"], "slab_bytes": s0["slab_bytes"],
+            "per_process": [{
+                k: run[k] for k in ("wall_s", "tokens", "throughput_tok_s",
+                                    "ttft_p50_s", "tbt_p50_s", "tbt_p99_s",
+                                    "collective_calls", "collective_s",
+                                    "peak_mem_bytes") if k in run}
+                | {"collective_s_per_cluster_step":
+                   sum(run["collective_s"].values()) / steps,
+                   "launches": {n: run["counts"][n]["launches"] for n in
+                                ("paged_micro_attention_ranks",
+                                 "paged_prefill_attention_ranks")}}
+                for run in serve]}
+        if world == 2:
+            report["parity"] = mesh_parity(runs, cfg, device, par)
+            report["grad_sync"] = mesh_grad_sync_check(runs, params, device)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
+
+
+def mesh_parity(runs, cfg, device, par):
+    """float32: the mesh streams equal the single-process global path's
+    and the dense oracle's greedy argmax, with a move."""
+    from repro_torch.models.model import init_params
+    served_runs = [run["parity"] for run in runs]
+    check_mesh_serve(served_runs, 2, par["layers"], device,
+                     gate_remote=False)
+    got = served_runs[0]["streams"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=par["layers"])
+    params32 = init_params(cfg32, torch.Generator(device=device)
+                           .manual_seed(0), device)
+    handles, _, _ = serve(params32, cfg32, mesh_config(**par["config"]),
+                          par["prompts"], par["n_new"], device)
+    single = [h.result() for h in handles]
+    if got != single:
+        raise AssertionError(f"mesh streams {got} != single-process {single}")
+    flips = 0
+    for prompt, out in zip(par["prompts"], got):
+        oracle = oracle_logits(params32, cfg32, prompt, out, device)
+        flips += sum(int(torch.argmax(lg)) != tok
+                     for lg, tok in zip(oracle, out))
+    if flips:
+        raise AssertionError(f"{flips} mesh tokens differ from the dense "
+                             f"oracle's greedy argmax")
+    if served_runs[0]["moves"] < 1:
+        raise AssertionError("no KV move during the parity decode")
+    return {"layers": par["layers"], "prompt_lens": [len(p) for p in
+                                                     par["prompts"]],
+            "n_new": par["n_new"], "greedy_equal": True,
+            "moves_during_decode": served_runs[0]["moves"],
+            "remote_legs": served_runs[0]["traffic"]["remote_copies"]}
+
+
+def mesh_grad_sync_check(runs, params, device):
+    """Every process's averaged tree equals, bit for bit, the same int8
+    quantize/all-gather/mean done in this process."""
+    from repro_torch.training.compression import quantize_int8
+    from repro_torch.training.grad_sync import wire_bytes
+    from repro_torch.training.tree import tree_map
+    pods = [seeded_grads(params, GRAD_SEED + p, device) for p in range(2)]
+
+    def mean(*gs):
+        deq = [q.float() * s for q, s in (quantize_int8(g) for g in gs)]
+        return torch.mean(torch.stack(deq), dim=0)
+    want = bit_checksums(tree_map(mean, *pods))
+    for r, run in enumerate(runs):
+        if run["grad_sync"]["checksums"] != want:
+            raise AssertionError(f"process {r}'s averaged gradients differ "
+                                 f"from the one-process average")
+    wire = wire_bytes(pods[0])
+    return {"leaves": len(want), "bit_equal": True, "wire_bytes": wire,
+            "wire_ratio_vs_fp32": wire["int8"] / wire["float32"],
+            "sync_s": [run["grad_sync"]["sync_s"] for run in runs]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2561,6 +2988,9 @@ def main(argv=None) -> int:
         print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
               flush=True)
     mark("qwen3_faults")
+    report["mesh"] = mesh_phase(params, cfg, device, (4000, 600, 300), 32)
+    print("mesh: " + json.dumps(report["mesh"]), flush=True)
+    mark("qwen3_mesh")
     del params
     check_released(report, "qwen3-0.6b")
 
@@ -2708,9 +3138,15 @@ def main(argv=None) -> int:
     launches = {name: serving["counts"][name]["launches"]
                 for name in ("paged_micro_attention",
                              "paged_prefill_attention")}
+    # The rank forms also run in every process of the mesh phase (its
+    # served main path, both layouts): each process's own count, apart.
+    mesh_launches = {}
     for name in ("paged_micro_attention_ranks",
                  "paged_prefill_attention_ranks"):
         launches[name] = moe["counts"][name]["launches"]
+        mesh_launches[name] = [
+            pp["launches"][name] for lay in report["mesh"]["layouts"].values()
+            for pp in lay["per_process"]]
     launches["flash_prefill"] = hybrid["counts"]["flash_prefill"]["launches"]
     sources = {"decode": ("paged_micro_attention",
                           "src/repro_torch/csrc/micro_attn_decode.cu",
@@ -2741,6 +3177,8 @@ def main(argv=None) -> int:
                                               "nr_launch_ms",
                                               "nr_launch_graph_ms")
                             if k in r})
+        if name in mesh_launches:
+            kernels[-1]["mesh_launches"] = mesh_launches[name]
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
     print(f"script: {report['script_s']:.1f} s (elapsed at the end of "

@@ -1,14 +1,18 @@
-"""DistAttention math: online-softmax partials, their merge, paged helpers."""
+"""DistAttention math: online-softmax partials, their merge (in this
+process or across a process group), paged helpers."""
 from repro_torch.core.online_softmax import (
     combine, empty_partial, finalize, merge_partials,
-    micro_attention_decode, micro_attention_prefill,
+    merge_partials_collective, micro_attention_decode,
+    micro_attention_prefill,
 )
 from repro_torch.core.distattn import (
     distattn_decode_paged, gather_local_kv, local_mask_from_table,
+    merge_over_axes,
 )
 
 __all__ = [
     "combine", "empty_partial", "finalize", "merge_partials",
-    "micro_attention_decode", "micro_attention_prefill",
-    "distattn_decode_paged", "gather_local_kv", "local_mask_from_table",
+    "merge_partials_collective", "micro_attention_decode",
+    "micro_attention_prefill", "distattn_decode_paged", "gather_local_kv",
+    "local_mask_from_table", "merge_over_axes",
 ]

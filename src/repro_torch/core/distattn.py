@@ -3,9 +3,10 @@
 Every rank computes a MicroAttention partial over whatever KV blocks it
 locally holds (possibly none — empty partials are the monoid identity and
 merge away); the per-rank partials are LSE-merged (paper Eq. 2-3).
-``distattn_decode_paged`` is the single-process form: the partials of
-all ranks are merged in this process. The collective merge over
-``torch.distributed`` ranks comes with the global pool.
+``distattn_decode_paged`` merges the partials of the ranks this process
+holds and, given a process ``group``, merges the result across the
+group's processes (``merge_over_axes``: one all-reduce MAX and two SUMs,
+the query's scalars and one value vector of traffic, never the KV).
 """
 from __future__ import annotations
 
@@ -13,8 +14,18 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch.core.online_softmax import (combine, finalize,
-                                             micro_attention_decode)
+from repro_torch.core.online_softmax import (combine, empty_partial,
+                                             finalize,
+                                             merge_partials_collective)
+
+
+def merge_over_axes(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                    group) -> torch.Tensor:
+    """Collective LSE-merge of per-process partials (paper Eq. 3) over
+    ``group``; returns the NORMALIZED output. Traffic: MAX(m) + SUM(l')
+    + SUM(o') = (2 * |m| + |o|) elements."""
+    o_g, _, l_g = merge_partials_collective(o, m, l, group)
+    return finalize(o_g, l_g)
 
 
 def gather_local_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -64,18 +75,23 @@ def distattn_decode_paged(
     tails: torch.Tensor,
     *,
     scale: float | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Paged DistAttention decode for one layer over several ranks' pools.
 
-    q [B,H,D]; rank_pools: ((pool_k, pool_v) [NB_p, bs, K, D]) per rank;
-    tables [P, B, MB] -1-padded; tails [P, B]. Each rank's MicroAttention
-    partial (the paged kernel on the card, its plain version on the CPU)
-    is LSE-merged; returns the normalized output in q's dtype.
+    q [B,H,D]; rank_pools: ((pool_k, pool_v) [NB_p, bs, K, D]) per rank
+    held by this process (possibly none); tables [P, B, MB] -1-padded;
+    tails [P, B]. Each rank's MicroAttention partial (the paged kernel on
+    the card, its plain version on the CPU) is LSE-merged, then across
+    ``group``'s processes when one is given (the JAX package's
+    ``shard_map`` body); returns the normalized output in q's dtype.
     """
     from repro_torch.kernels.ops import paged_micro_attention
-    part = None
+    B, H, D = q.shape
+    part = empty_partial((B, H, D), (B, H), device=q.device)
     for p, (pk, pv) in enumerate(rank_pools):
-        cur = paged_micro_attention(q, pk, pv, tables[p], tails[p],
-                                    scale=scale)
-        part = cur if part is None else combine(part, cur)
+        part = combine(part, paged_micro_attention(q, pk, pv, tables[p],
+                                                   tails[p], scale=scale))
+    if group is not None:
+        part = merge_partials_collective(*part, group)
     return finalize(part[0], part[2]).to(q.dtype)

@@ -14,12 +14,18 @@ with only per-head scalars + one value-vector of traffic (paper Fig. 4b).
 Precision follows the JAX reference: q and the probabilities are cast to
 the KV storage dtype before each product, and every product accumulates
 in float32.
+
+``merge_partials_collective`` is the merge across processes (the JAX
+package's ``shard_map`` body with ``pmax``/``psum``): one
+``torch.distributed`` all-reduce MAX of ``m``, then SUM of the rescaled
+``l`` and ``o``, over a process group.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 Partial = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (o, m, l)
 
@@ -63,6 +69,27 @@ def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     scale = _safe_scale(m, m_g.unsqueeze(axis))
     l_g = torch.sum(l * scale, dim=axis)
     o_g = torch.sum(o * scale[..., None], dim=axis)
+    return o_g, m_g, l_g
+
+
+def merge_partials_collective(o: torch.Tensor, m: torch.Tensor,
+                              l: torch.Tensor, group) -> Partial:
+    """Merge per-process partials across ``group`` (paper Eq. 3).
+
+    Each process holds ONE partial (its MicroAttention over the KV
+    blocks it holds; an empty shard's ``(0, -inf, 0)`` merges away) and
+    only the per-head scalars ``(m, l)`` and the value vector ``o``
+    cross processes: all-reduce MAX of ``m``, then SUM of ``l * scale``
+    and of ``o * scale``. Every process returns the same merged partial.
+    The inputs are not modified.
+    """
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    scale = _safe_scale(m, m_g)
+    l_g = l * scale
+    dist.all_reduce(l_g, group=group)
+    o_g = o * scale[..., None]
+    dist.all_reduce(o_g, group=group)
     return o_g, m_g, l_g
 
 

@@ -51,6 +51,40 @@ FaultPlan(...))`` (or ``FaultPlan.from_seed``) arms a deterministic plan
 of crashes, silences, move-leg failures, host-tier fetch errors and
 corruptions, and stager timeouts; ``server.metrics`` carries the fault
 counters.
+
+Mesh-sharded global KV pool (opt-in)
+------------------------------------
+``ServingConfig(global_pool=True)`` folds the per-instance pool tensors
+into ONE cluster-wide ``GlobalKVPool`` ``[ranks, L, NB, bs, K, hd]``
+whose rank axis can be sharded over the processes of a
+``torch.distributed`` job. Spawn W processes (``torch.multiprocessing``
+with the ``spawn`` method), and in each:
+
+    dist.init_process_group("gloo", init_method="file:///.../store",
+                            rank=rank, world_size=W)
+    mesh = make_mesh((2, W // 2))             # repro_torch.distributed.mesh
+    layout = ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    server = LLMServer(params, cfg,
+                       ServingConfig.h100(n_instances=4, global_pool=True),
+                       mesh=mesh, layout=layout)
+
+then make the same calls (submit, step, drain) in every process, in the
+same order, with the same weights: SPMD with replicated control, the
+counterpart of the JAX package's single controller over a device mesh.
+Knobs: ``LLMServer(..., mesh=...)`` attaches the mesh (omit it for the
+single-process path — same math, no collectives); ``layout``
+(``ServeLayout.pool_axes``) picks which mesh axes shard the rank axis
+(``("data",)`` or ``("data", "model")``; n_instances must divide over
+their total size). Each process allocates only its slab of ranks; every
+process runs every engine's host logic over the shared allocator views;
+decode and prefill run ``decode_step_global``/``prefill_chunk_global``
+(per-process rank-form kernel partials, LSE-merged across processes with
+one all-reduce MAX and two SUMs: queries and merge scalars cross, KV
+never moves), and ``StripedMove`` legs and prefix-cache copies between
+processes are broadcasts from the owner. Each step checks that every
+process planned the same step (``RuntimeError`` otherwise). The host
+tier, overload preemption and fault injection raise
+``NotImplementedError`` under a mesh.
 """
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.config import (FaultPolicy, OverloadPolicy,
@@ -72,6 +106,7 @@ from repro_torch.serving.rmanager import RManager
 from repro_torch.serving.scheduler import (GreedyScheduler, InstanceView,
                                            SpanLeg, StripedMove)
 from repro_torch.serving.server import Arrival, LLMServer, RequestHandle
+from repro_torch.serving.sharded_step import ServeLayout
 
 __all__ = [
     "LLMServer", "RequestHandle", "Arrival", "ServingConfig",
@@ -82,5 +117,5 @@ __all__ = [
     "InstanceView", "SpanLeg", "StripedMove", "GlobalKVPool",
     "HostKVTier", "RadixPrefixCache", "Preemptor", "PreemptStats",
     "FaultPlan", "FaultEvent", "FaultInjector", "FaultStats",
-    "TransferError", "FrameCorruptionError",
+    "TransferError", "FrameCorruptionError", "ServeLayout",
 ]

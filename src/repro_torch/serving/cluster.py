@@ -65,7 +65,20 @@ stripe whose leg fails mid-execution rolls back exactly and re-plans
 against surviving creditors. ``install_faults`` arms a deterministic
 ``FaultPlan``; the injector holds no reference to the cluster.
 
-A global pool sharded over several devices is not in this port yet.
+Global pool sharded over processes (``Cluster(..., mesh=, layout=)``,
+``distributed.mesh``): SPMD with replicated control. Every process runs
+this whole cluster — every engine's host logic, the gManager, Algorithm
+1 — on the same request stream, holds only its slab of the pool
+(``layout.pool_axes``), and issues every collective in the same order.
+Decisions read only what every process agrees on: the clock is
+``agreed_clock`` (the largest of the processes' readings), liveness is
+the step-count detector alone, and each step checks that a digest of
+its plan (per engine: running requests, their lengths and last tokens,
+the waiting queue; then the Algorithm-1 moves) is equal everywhere,
+raising ``RuntimeError`` in every process if not. A mesh serves the
+plain global path and the prefix cache; the host tier, overload
+preemption and fault injection raise ``NotImplementedError`` under one
+(ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -76,6 +89,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.mesh import (agreed_clock, check_replicated,
+                                          mesh_group)
 from repro_torch.models.model import POOLED_FAMILIES, resolve_device
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import InstanceEngine
@@ -90,6 +105,10 @@ from repro_torch.serving.preempt import Preemptor
 from repro_torch.serving.protocol import MoveKVCache, MoveLeg, MoveResult
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.staging import AsyncStager
+
+_MESH_LATER = ("under a mesh (a global pool sharded over processes) is "
+               "not ported yet: ROADMAP Queue 1 item 4")
+
 
 class EngineMap(dict):
     """inst_id -> InstanceEngine: the cluster's engines. A dict that can
@@ -194,7 +213,7 @@ class PrefixSink:
             eng.host_kv_rows(
                 self._req_id, blk, off,
                 k[:, lo - t0:hi - t0], v[:, lo - t0:hi - t0])
-            self._cluster.stager.stage((eng.pool_k, eng.pool_v))
+            self._cluster.stager.stage(eng.kv_store)
 
     def flush(self) -> None:
         """Drain every staged creditor write (end-of-admission commit)."""
@@ -224,9 +243,25 @@ class Cluster:
 
     def __init__(self, params, cfg: ModelConfig,
                  config: Optional[ServingConfig] = None, *,
-                 perf: Optional[InstancePerfModel] = None, device=None):
+                 perf: Optional[InstancePerfModel] = None, device=None,
+                 mesh=None, layout=None):
         config = config if config is not None else ServingConfig()
         self.device = resolve_device(device)
+        # Replicated control over a mesh: the group every process of the
+        # job is in (the clock and the divergence guard run over it).
+        self.mesh = mesh
+        self._group = None
+        if mesh is not None:
+            if not (config.global_pool and cfg.family in POOLED_FAMILIES):
+                raise ValueError("a mesh shards the global pool: it needs "
+                                 "ServingConfig(global_pool=True) and a "
+                                 "pooled (dense or moe) model")
+            if config.host_tier_blocks > 0:
+                raise NotImplementedError(f"the host tier {_MESH_LATER}")
+            if config.overload.enabled:
+                raise NotImplementedError(
+                    f"overload preemption {_MESH_LATER}")
+            self._group = mesh_group(mesh)
         self.cfg = cfg
         self.config = config
         self.block_size = config.block_size
@@ -244,9 +279,11 @@ class Cluster:
         # slice + allocator.
         self.gpool = None
         if config.global_pool and cfg.family in POOLED_FAMILIES:
-            self.gpool = GlobalKVPool(config.n_instances,
-                                      config.pool_blocks, config.block_size,
-                                      cfg, device=self.device)
+            self.gpool = GlobalKVPool(
+                config.n_instances, config.pool_blocks, config.block_size,
+                cfg, device=self.device, mesh=mesh,
+                pool_axes=(layout.pool_axes if layout is not None
+                           else ("data",)))
         self.engines: Dict[int, InstanceEngine] = EngineMap({
             i: InstanceEngine(params, cfg, max_batch=config.max_batch,
                               max_local_len=config.max_local_len,
@@ -313,7 +350,7 @@ class Cluster:
         """Register ``req`` and enqueue it on the instance Algorithm 1
         picks (least-loaded engine before any heartbeat exists)."""
         if req.req_id not in self.requests and req.arrival_time == 0.0:
-            req.arrival_time = time.monotonic() if now is None else now
+            req.arrival_time = self.clock(now)
         self.requests[req.req_id] = req
         inst = self.gmanager.pick_instance_for_new_request()
         if inst is None or inst in self._dead:
@@ -330,7 +367,7 @@ class Cluster:
         urgent request it was freed for, bypassing the most-free-memory
         placement query."""
         if req.req_id not in self.requests and req.arrival_time == 0.0:
-            req.arrival_time = time.monotonic() if now is None else now
+            req.arrival_time = self.clock(now)
         self.requests[req.req_id] = req
         assert inst_id in self.engines and inst_id not in self._dead
         self.engines[inst_id].submit(req)
@@ -555,11 +592,11 @@ class Cluster:
             else:
                 k, v = src.extract_prefix_kv(req, n)
                 dst.host_kv(mv.req_id, blocks, k, v)
-            self.stager.stage((dst.pool_k, dst.pool_v))
+            self.stager.stage(dst.kv_store)
             src.rmanager.move_out_prefix(mv.req_id, n)
             c = self.cfg
             nbytes = (2 * c.num_layers * n * bs * c.num_kv_heads *
-                      c.head_dim * src.pool_k.element_size())
+                      c.head_dim * src.kv_store[0].element_size())
             if dst_id != owner.inst_id:
                 insts = owner.remote_insts.setdefault(mv.req_id, [])
                 if dst_id not in insts:
@@ -640,6 +677,8 @@ class Cluster:
     def kill_instance(self, inst_id: int) -> None:
         """Simulate an instance failure: it stops heartbeating (and
         stepping) at once; detection and recovery follow in ``step``."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"fault injection {_MESH_LATER}")
         self._dead.add(inst_id)
 
     def install_faults(self, plan: FaultPlan) -> FaultInjector:
@@ -650,6 +689,8 @@ class Cluster:
         become one-shot armed flags the subsystem hooks consume on the
         next matching transfer. Returns the attached injector (the
         cluster holds it; it holds nothing of the cluster)."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"fault injection {_MESH_LATER}")
         return FaultInjector(plan).attach(self)
 
     def _recover_via_replay(self, req: Request,
@@ -760,11 +801,35 @@ class Cluster:
         return new_id
 
     # ----------------------------------------------------------------- #
-    def step(self, now: Optional[float] = None) -> int:
+    def clock(self, now: Optional[float] = None) -> float:
+        """``now`` (``time.monotonic()`` by default); under a mesh the
+        reading every process agrees on (a collective)."""
+        if self._group is not None:
+            return agreed_clock(self._group, now)
+        return time.monotonic() if now is None else now
+
+    def _plan_state(self) -> list:
+        """What this step's decisions follow from, per engine: running
+        requests with their lengths and last tokens, and the waiting
+        queue."""
+        return [(i, [(r.req_id, r.length, r.output[-1] if r.output else -1)
+                     for r in e.slots if r is not None],
+                 [r.req_id for r in e.waiting])
+                for i, e in self.engines.items()]
+
+    def step(self, now: Optional[float] = None, *,
+             agreed: bool = False) -> int:
         """One cluster iteration: heartbeats, liveness, plan, moves,
-        decode."""
-        now = time.monotonic() if now is None else now
+        decode. ``agreed``: ``now`` already is the reading every process
+        agrees on (``LLMServer.step`` agreed on it), so no second
+        collective is spent on the clock."""
+        if not agreed:
+            now = self.clock(now)
         self._step_count += 1
+        if self._group is not None:
+            # Divergence guard: before this step's first collective.
+            check_replicated(self._group, "step state",
+                             (self._step_count, now, self._plan_state()))
 
         # Armed chaos events fire first: a crash injected at this step
         # already misses this step's heartbeat, like a real failure in
@@ -793,7 +858,10 @@ class Cluster:
         # Liveness: the wall-clock timeout against this step's ``now``
         # (the time live engines just beat at, so a slow step never
         # kills a live engine) OR the deterministic step-count detector.
-        dead = self.gmanager.check_liveness(now=now)
+        # Under a mesh only the step-count detector (a slow step must not
+        # read as a death in one process and not in another).
+        dead = (self.gmanager.check_liveness(now=now)
+                if self.mesh is None else [])
         for d in self.gmanager.check_liveness_steps(beat):
             if d not in dead:
                 dead.append(d)
@@ -817,7 +885,13 @@ class Cluster:
                        for rid, r in self.requests.items()
                        if not r.done and (r.priority
                                           or r.deadline_s is not None)}
-            for mv in self.gmanager.plan_moves(urgency=urgency):
+            moves = self.gmanager.plan_moves(urgency=urgency)
+            if self._group is not None:
+                check_replicated(self._group, "move plan",
+                                 [(m.req_id, m.src_inst,
+                                   [(g.dst_inst, g.num_blocks)
+                                    for g in m.legs]) for m in moves])
+            for mv in moves:
                 self._execute_move(mv)
 
         # Resume parked (preempted) requests before the decode sweep so

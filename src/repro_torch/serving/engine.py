@@ -44,7 +44,12 @@ copy above works unchanged on the shared tensor. Admission runs
 ``prefill_chunk_global`` and decode ``decode_step_global``: one
 rank-form kernel launch per layer reads every rank's slab, creditor
 rows included, and the step writes both owner- and creditor-bound rows
-itself (the prefix sink only reserves and accounts).
+itself (the prefix sink only reserves and accounts). With the pool
+sharded over processes (a mesh), every process runs every engine's
+host logic; the steps read the local slab and merge across processes,
+and every block read or copy goes through the pool's collective methods
+(``read_blocks``, ``copy_blocks``): ``pool_k``/``pool_v`` exist only
+for a rank this process holds.
 
 NON-POOLED PATH (hybrid and ssm families): a model whose state is O(1)
 in the sequence — RG-LRU states and a local-attention KV ring bounded by
@@ -274,14 +279,30 @@ class InstanceEngine:
         """Key pool [L, NB, bs, K, hd] (private, or the global view)."""
         if self.gpool is None:
             return self._pool_k
-        return self.gpool.k[self.inst_id]
+        return self.gpool.k[self._slab_index()]
 
     @property
     def pool_v(self) -> Optional[torch.Tensor]:
         """Value pool [L, NB, bs, K, hd] (private, or the global view)."""
         if self.gpool is None:
             return self._pool_v
-        return self.gpool.v[self.inst_id]
+        return self.gpool.v[self._slab_index()]
+
+    def _slab_index(self) -> int:
+        if not self.gpool.is_local(self.inst_id):
+            raise RuntimeError(
+                f"rank {self.inst_id}'s KV lives in another process of "
+                f"the mesh: reach it through the pool's methods")
+        return self.inst_id - self.gpool.rank_base
+
+    @property
+    def kv_store(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The tensors this engine's KV lives in (its private pools, or
+        this process's slab of the global pool): what a row copy into
+        its blocks is staged on."""
+        if self.gpool is None:
+            return self._pool_k, self._pool_v
+        return self.gpool.k, self.gpool.v
 
     # ----------------------------------------------------------------- #
     def submit(self, req: Request) -> None:
@@ -433,6 +454,10 @@ class InstanceEngine:
     def _copy_block(self, src_blk: int, dst_blk: int) -> None:
         """Copy one pool block into another, in place (the copy-on-write
         tail split; in global mode inside this rank's slice)."""
+        if self.gpool is not None:
+            self.gpool.copy_blocks(self.inst_id, [src_blk], self.inst_id,
+                                   [dst_blk])
+            return
         self.write_block_rows(dst_blk, *self.read_block_rows(src_blk))
 
     def _admit_cached_prefix(self, req: Request, tokens: List[int],
@@ -541,7 +566,7 @@ class InstanceEngine:
             self.remote_insts[rid] = list(sink.rank_ids)
             L, K, hd = (self.cfg.num_layers, self.cfg.num_kv_heads,
                         self.cfg.head_dim)
-            itemsize = self.pool_k.element_size()
+            itemsize = self.kv_store[0].element_size()
             self.stats.kv_moved += int(2 * L * n_over * K * hd) * itemsize
             # The GLOBAL chain — cached + striped creditor + local tail
             # blocks in token order (with a sink, n_cached is always
@@ -699,7 +724,8 @@ class InstanceEngine:
                                           table_bucket(needed))
             logits, _, _, k_c, v_c = prefill_chunk_global(
                 self.params, self.cfg, toks, t0, n_valid, gpool.k, gpool.v,
-                tables[:, 0], tails[:, 0], wrank, wblk, woff)
+                tables[:, 0], tails[:, 0], wrank, wblk, woff,
+                mesh=gpool.mesh, pool_axes=gpool.pool_axes)
             self.stats.admit_stage_bytes = max(
                 self.stats.admit_stage_bytes,
                 int((k_c.numel() + v_c.numel()) * k_c.element_size()))
@@ -942,7 +968,8 @@ class InstanceEngine:
         ptr = gpool.k.data_ptr()
         logits, gk, _ = decode_step_global(
             self.params, self.cfg, tokens, lens, gpool.k, gpool.v, tables,
-            tails, wblk, woff, rank=own)
+            tails, wblk, woff, rank=own, mesh=gpool.mesh,
+            pool_axes=gpool.pool_axes)
         if gk is not gpool.k or gk.data_ptr() != ptr:
             self.stats.pool_copy_steps += 1
         self._account_merge_traffic(running)
@@ -1018,8 +1045,11 @@ class InstanceEngine:
         rank owns it, or the hosted span when this rank is a creditor
         being reclaimed. Returns copies [L, 1, n*bs, K, hd]."""
         blocks = self.rmanager.pool.requests[req.req_id].blocks[:n_blocks]
-        k = read_pool_rows(self.pool_k, blocks, self.block_size)
-        v = read_pool_rows(self.pool_v, blocks, self.block_size)
+        if self.gpool is not None:
+            k, v = self.gpool.read_blocks(self.inst_id, blocks)
+        else:
+            k = read_pool_rows(self.pool_k, blocks, self.block_size)
+            v = read_pool_rows(self.pool_v, blocks, self.block_size)
         return k[:, None], v[:, None]
 
     # --- block transport (prefix cache, host tier, preemption) ---------#
@@ -1051,6 +1081,9 @@ class InstanceEngine:
         k/v: [L, 1, n, K, hd] with n == len(blocks) * block_size (spans
         are always whole blocks).
         """
+        if self.gpool is not None:
+            self.gpool.write_blocks(self.inst_id, blocks, k[:, 0], v[:, 0])
+            return
         write_pool_rows(self.pool_k, blocks, k[:, 0], self.block_size)
         write_pool_rows(self.pool_v, blocks, v[:, 0], self.block_size)
 
@@ -1061,6 +1094,9 @@ class InstanceEngine:
         k/v: [L, n, K, hd] with row i bound for
         ``(block_ids[i], offsets[i])`` of this pool.
         """
+        if self.gpool is not None:
+            self.gpool.scatter_rows(self.inst_id, block_ids, offsets, k, v)
+            return
         scatter_pool_rows(self.pool_k, block_ids, offsets, k)
         scatter_pool_rows(self.pool_v, block_ids, offsets, v)
 

@@ -296,7 +296,7 @@ class Preemptor:
         for eng in cands:
             if eng.resume_paused(req, rec.n_tokens, frames,
                                  remote_layout=rec.remote_layout):
-                self.cluster.stager.stage((eng.pool_k, eng.pool_v),
+                self.cluster.stager.stage(eng.kv_store,
                                           tag="preempt_fetch")
                 for i in range(rec.n_frames):
                     self.tier.drop((rid, i))

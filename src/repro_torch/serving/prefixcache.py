@@ -202,7 +202,7 @@ class RadixPrefixCache:
             k, v = self.cluster.engines[si].read_block_rows(sb)
             eng.write_block_rows(blk, k, v)
             eng.stats.kv_moved += frame_bytes((k, v))
-            self.cluster.stager.stage((eng.pool_k, eng.pool_v),
+            self.cluster.stager.stage(eng.kv_store,
                                       tag="prefetch")
         elif node.on_host and self.tier is not None:
             try:
@@ -221,7 +221,7 @@ class RadixPrefixCache:
             k, v = frame
             eng.write_block_rows(blk, k, v)
             eng.stats.host_prefetch_bytes += frame_bytes(frame)
-            self.cluster.stager.stage((eng.pool_k, eng.pool_v),
+            self.cluster.stager.stage(eng.kv_store,
                                       tag="prefetch")
         else:
             alloc.free([blk])                     # storage-less node

@@ -41,6 +41,12 @@ weights and pools — at once.
 
 The cluster's ``step()`` loop still exists underneath — it is the
 INTERNAL execution engine this frontend drives.
+
+``LLMServer(..., mesh=, layout=)`` serves with the global pool sharded
+over the processes of a ``torch.distributed`` job (see the
+``repro_torch.serving`` package docstring): every process makes the same
+calls in the same order, and the clock every decision reads (arrival
+stamps, dispatch urgency) is the one the processes agree on.
 """
 from __future__ import annotations
 
@@ -158,10 +164,11 @@ class LLMServer:
 
     def __init__(self, params, cfg: ModelConfig,
                  config: Optional[ServingConfig] = None, *,
-                 perf: Optional[InstancePerfModel] = None, device=None):
+                 perf: Optional[InstancePerfModel] = None, device=None,
+                 mesh=None, layout=None):
         self.config = config if config is not None else ServingConfig()
         self.cluster = Cluster(params, cfg, self.config, perf=perf,
-                               device=device)
+                               device=device, mesh=mesh, layout=layout)
         self._ids = RequestIdAllocator()
         self._requests: Dict[int, Request] = {}   # submitted, unreaped
         self._queue: List[Request] = []      # admitted, not yet dispatched
@@ -185,8 +192,7 @@ class LLMServer:
                       else SamplingParams(),
                       req_id=self._ids.next_id(),
                       priority=priority, deadline_s=deadline_s)
-        req.arrival_time = time.monotonic() if arrival_time is None \
-            else arrival_time
+        req.arrival_time = self.cluster.clock(arrival_time)
         handle = RequestHandle(self, req)
         self._requests[req.req_id] = req
         # Every arrival (even one about to be shed) feeds the gManager's
@@ -285,10 +291,10 @@ class LLMServer:
     def step(self, now: Optional[float] = None) -> int:
         """One frontend iteration: dispatch, overload control (paused
         victims / preempted slots when enabled), then one cluster step."""
-        now = time.monotonic() if now is None else now
+        now = self.cluster.clock(now)
         self._dispatch(now)
         self._overload_control(now)
-        return self.cluster.step(now=now)
+        return self.cluster.step(now=now, agreed=True)
 
     def drain(self, max_steps: int = 10_000) -> int:
         """Drive until every submitted request is terminal (closed-loop
@@ -403,12 +409,12 @@ class LLMServer:
         every arrival is terminal.
         """
         pending = sorted(arrivals, key=lambda a: a.at)
-        t0 = time.monotonic()
+        t0 = self.cluster.clock()
         submitted: List[RequestHandle] = []
         in_flight: List[RequestHandle] = []   # pruned as handles finish
         steps = 0
         while steps < max_steps:
-            now = time.monotonic()
+            now = self.cluster.clock()
             rel = now - t0
             while pending and pending[0].at <= rel:
                 a = pending.pop(0)
@@ -429,7 +435,7 @@ class LLMServer:
             self.step(now=now)
             steps += 1
         return self.frontend_metrics(submitted,
-                                     wall_s=time.monotonic() - t0)
+                                     wall_s=self.cluster.clock() - t0)
 
     # --- aggregate metrics --------------------------------------------- #
     @staticmethod

@@ -6,8 +6,8 @@ tensor), rounding half to even (``torch.round``, like ``jnp.round``).
 The quantization residual is carried in a float32 error-feedback buffer
 and added back the next step, so compression adds no bias in the long
 run. The train step applies it numerically before the update
-(``TrainConfig.grad_compression``); the wire-level all-reduce it is
-meant for is not ported yet.
+(``TrainConfig.grad_compression``); ``grad_sync`` puts the int8
+values and scales on the wire across pods.
 """
 from __future__ import annotations
 

@@ -8,8 +8,8 @@ launches none of the port's kernels. Gradients come from
 1`` each microbatch's gradient is added into float32 buffers, as JAX's
 scan does (not summed in the parameters' dtype). With
 ``grad_compression`` the gradients pass through int8 quantization with
-error feedback before the update (numerically; the wire-level pod-axis
-all-reduce is not ported yet).
+error feedback before the update (numerically, as in JAX; the pod-axis
+average on the wire is ``training.grad_sync``).
 """
 from __future__ import annotations
 

@@ -50,7 +50,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.training.tree", "repro_torch.checkpoint",
             "repro_torch.checkpoint.checkpointer",
             "repro_torch.launch.train",
-            "repro_torch.launch.roofline"} <= set(mods)
+            "repro_torch.launch.roofline",
+            "repro_torch.distributed.mesh", "repro_torch.core.baselines",
+            "repro_torch.training.grad_sync"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"
@@ -108,6 +110,9 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
         Cluster(params, cfg, ServingConfig.smoke())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InstanceEngine(params, cfg, max_local_len=64, block_size=8)
+    from repro_torch.distributed.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh((1, 1))
     # Asked for the CPU explicitly, the same calls work.
     assert LLMServer(params, cfg, ServingConfig.smoke(),
                      device="cpu").cluster.device.type == "cpu"

@@ -73,6 +73,7 @@ class _StubEngine:
                                      host_prefetch_bytes=0)
         self.frames = {}                 # blk -> (k, v) rows
         self.pool_k = self.pool_v = None
+        self.kv_store = (None, None)     # the port's staging handle
         self._zeros, self._copy = zeros, copy
 
     def read_block_rows(self, blk):
