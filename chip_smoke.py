@@ -115,6 +115,35 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    one-process average bit for bit. Reports TBT, tokens/s, the
    collectives' calls and host time, the bytes broadcast per move leg,
    the wire bytes of the gradient sync and each process's peak memory.
+   Each mesh group also serves ``sharded_check.py``'s three layouts
+   through the ServeLayout steps (olmo-1b and qwen2-moe-a2.7b tp_head,
+   qwen3-0.6b seq_model; full width, 4 layers, float32, B = 2, a
+   320-token prefill, 6 decode steps a schedule, 128-token blocks over
+   4 shards): every process's slab is 1/shards of the pool (its kv
+   heads in tp_head mode) and its streams equal the single-process
+   steps' here.
+   Then the ServeLayout steps in one process (``serving/sharded_step``;
+   NP = 4 shards on the card, 128-token blocks): (a) ``serve_prefill_step``
+   of B = 2 prompts (prefill_32k's batch of 32 cut to 2) at S = 32,768
+   (every block full) and S = 32,704 (64 free slots in each request's
+   last block): 28 flash launches each, no plain call; layer 0's pool
+   rows of the two agree on the common tokens; (b) 32 decode steps of
+   each schedule (``serve_decode_step``, write-then-attend;
+   ``serve_decode_step_opt``, read-only pool) from the 32,704-token
+   pool: 28 decode rank launches a step and nothing else, equal first
+   tokens; (c) long_500k: R = 1
+   over a seeded 60,129,542,144-byte pool (4,096 blocks, 1,024 a shard,
+   1,025-slot tables, filled one layer slice at a time), 16 steps of
+   each schedule up to a 524,288-token context, TBT against the byte
+   bound, peak memory under 80 GB, one layer's launch against its plain
+   version; (d) float32 at 4 layers (B = 2, S = 1,500, a partial block,
+   12 steps): both schedules greedy-equal to the dense oracle, one
+   ``decode_step_dist`` step against ``decode_step``; (e) ``python -m
+   repro_torch.launch.serve`` as ``main([...])`` on a smoke config. The
+   kernel phase adds the decode rank form at 128-token blocks (R = 1
+   over 1,025-slot tables on four shards; R = 2 at (b)'s shape) and
+   flash prefill at (a)'s shape (B = 2, S = 32,768, GQA 16/8 x 128,
+   causal; its plain version one (batch, head) slice at a time).
 3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
    full width (38 layers: 26 RG-LRU, 12 local-attention; bf16, seeded
    random weights) with two non-pooled instances: prompts of 6,000,
@@ -866,6 +895,34 @@ def kernel_phase(device, chunk: int):
             rows.append(rank_case(
                 f"prefill-ranks-mesh-nr{nr}-{nb[-1]}-{dt}", "prefill", nr, 16,
                 8, 128, dt, device, rows=chunk, MB=256, L=28, nblks=nb))
+        # The ServeLayout path's block size, 128 tokens, at its two decode
+        # shapes (qwen3 GQA 16/8 x 128, NP = 4 shards): long_500k, R = 1
+        # over every shard's 1,024 blocks through 1,025-slot tables; and
+        # the 32k batch, R = 2, each request's 128 blocks on two shards.
+        r = rank_case(f"decode-ranks-bs128-long500k-{dt}", "decode", 4, 16,
+                      8, 128, dt, device, rows=1, MB=1025, L=1, bs=128,
+                      NB=1024, nblks=[[1024]] * 4, timed=True)
+        rows.append(r)
+        main.setdefault("decode_ranks_long500k", r)
+        r = rank_case(f"decode-ranks-bs128-R2-{dt}", "decode", 4, 16, 8, 128,
+                      dt, device, rows=2, MB=130, L=1, bs=128, NB=128,
+                      nblks=[[128, 0], [128, 0], [0, 128], [0, 128]],
+                      timed=True)
+        rows.append(r)
+        main.setdefault("decode_ranks_R2", r)
+        # The ServeLayout mesh job's shapes (SL_MESH: B = 2, a 320-token
+        # prefill in 128-token blocks over 4 shards, 2 blocks a shard,
+        # 4-slot tables, 4 layers): one process holds all 4 shards, a
+        # slab of 2 (W = 2; W = 4 tp_head) or of 1 (W = 4 seq_model);
+        # MHA 16/16 (olmo-1b, qwen2-moe), its 8/8 half over a TP axis of
+        # 2, GQA 16/8 (qwen3).
+        for nr, nb in ((4, [[2, 0], [1, 0], [0, 2], [0, 1]]),
+                       (2, [[2, 0], [1, 0]]), (1, [[2, 0]])):
+            for H, K in ((16, 16), (8, 8), (16, 8)):
+                rows.append(rank_case(
+                    f"decode-ranks-mesh-bs128-nr{nr}-h{H}k{K}-{dt}",
+                    "decode", nr, H, K, 128, dt, device, rows=2, MB=4, L=4,
+                    bs=128, NB=2, nblks=nb))
         for nr, K, G, nb in ((1, 16, 1, [[40, 3]]),
                              (4, 8, 2, [[0, 0], [100, 2], [0, 0], [7, 60]]),
                              (3, 8, 2, [[0, 0], [0, 0], [0, 0]])):
@@ -891,6 +948,11 @@ def kernel_phase(device, chunk: int):
                      ("B2-window", 2, 777, 16, 1, 256, 200)):
             rows.append(flash_case(f"flash-{args[0]}-{dt}", *args[1:], dt,
                                    device))
+    # The ServeLayout prefill's causal shape: prefill_32k with B = 2.
+    r = flash_long_case("flash-serve-prefill-S32768-bf16", 2, 32768, 16, 8,
+                        128, torch.bfloat16, device)
+    rows.append(r)
+    main["flash_serve_prefill"] = r
     return rows, main
 
 
@@ -2678,6 +2740,11 @@ def mesh_worker(rank, world, store, job, queue):
             out["parity"] = mesh_serve(params32, cfg32, device, mesh, layout,
                                        par["prompts"], par["n_new"],
                                        mesh_config(**par["config"]))
+            del params32
+        if job.get("serve_layout"):
+            out["serve_layout"] = {
+                arch: sl_mesh_case(arch, mode, job, device, mesh)
+                for arch, mode in SERVE_LAYOUT_MESH}
         queue.put((rank, out))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
@@ -2779,11 +2846,13 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
            "prompts": make_prompts(cfg, (1500, 600), 11),
            "config": {"pool_blocks": 96, "max_local_len": 512}}
     job = {"device": str(device), "arch": arch, "smoke": smoke,
-           "layers": layers, "prompts": prompts, "n_new": n_new}
+           "layers": layers, "prompts": prompts, "n_new": n_new,
+           "serve_layout": True}
     n_layers = layers or cfg.num_layers
     report = {"prompt_lens": list(prompt_lens), "n_new": n_new,
               "layers": n_layers, "instances": 4, "backend": "gloo",
               "layouts": {}}
+    sl_single = {}
     for world in sorted(MESH_LAYOUTS):
         wjob = dict(job, parity=par, grad_sync=True) if world == 2 else job
         runs, wall = run_mesh_group(world, wjob)
@@ -2820,6 +2889,8 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
                                 ("paged_micro_attention_ranks",
                                  "paged_prefill_attention_ranks")}}
                 for run in serve]}
+        report["layouts"][str(world)]["serve_layout"] = sl_mesh_check(
+            runs, world, job, device, sl_single)
         if world == 2:
             report["parity"] = mesh_parity(runs, cfg, device, par)
             report["grad_sync"] = mesh_grad_sync_check(runs, params, device)
@@ -2881,6 +2952,568 @@ def mesh_grad_sync_check(runs, params, device):
     return {"leaves": len(want), "bit_equal": True, "wire_bytes": wire,
             "wire_ratio_vs_fp32": wire["int8"] / wire["float32"],
             "sync_s": [run["grad_sync"]["sync_s"] for run in runs]}
+
+
+# --------------------------------------------------------------------- #
+# The ServeLayout steps (qwen3-0.6b): pooled prefill, both decode
+# schedules, a 524,288-token context, parity, the dense-span decode
+# --------------------------------------------------------------------- #
+# The launch cells' pool: NP shards on the card, 128-token blocks
+# (BLOCK_SIZE of the JAX package's launch inputs). "smoke" is a CPU
+# rehearsal at smoke width.
+SERVE_LAYOUT = {
+    "full": {"bs": 128, "NP": 4, "n_data": 2, "B": 2, "S": 32768,
+             "S_ragged": 32704, "steps": 32, "long_S": 524288,
+             "long_steps": 16, "parity_layers": 4, "parity_S": 1500,
+             "parity_steps": 12, "dist_ring": 1024},
+    "smoke": {"bs": 8, "NP": 4, "n_data": 2, "B": 2, "S": 64,
+              "S_ragged": 60, "steps": 3, "long_S": 512,
+              "long_steps": 3, "parity_layers": 2, "parity_S": 60,
+              "parity_steps": 3, "dist_ring": 32}}
+# The mesh job: sharded_check.py's three layouts at 4 layers, float32.
+SERVE_LAYOUT_MESH = (("olmo-1b", "tp_head"), ("qwen3-0.6b", "seq_model"),
+                     ("qwen2-moe-a2.7b", "tp_head"))
+SL_MESH = {"layers": 4, "B": 2, "S": 320, "bs": 128, "NP": 4, "n_data": 2,
+           "steps": 6}
+SL_MESH_SMOKE = dict(SL_MESH, S=60, bs=8, steps=3)
+
+
+def layout_tables(wblk, NB_loc, S, bs, MB):
+    """The tables of the pool ``serve_prefill_step`` wrote (``wblk`` [NP,
+    B, S] from ``prefill_layout``): tables [NP, B, MB] in sequence order,
+    tails [NP, B], and each request's last block (shard, local block),
+    where the next tokens go while it has room."""
+    NP, B, _ = wblk.shape
+    tables = -np.ones((NP, B, MB), np.int32)
+    tails = np.full((NP, B), bs, np.int32)
+    for p in range(NP):
+        for b in range(B):
+            t = np.nonzero(wblk[p, b] < NB_loc)[0]
+            if len(t):
+                first = t[t % bs == 0]
+                tables[p, b, :len(first)] = wblk[p, b, first]
+                tails[p, b] = t[-1] % bs + 1
+    owner = np.argmax(wblk[:, :, S - 1] < NB_loc, axis=0)
+    last = wblk[owner, np.arange(B), S - 1]
+    return tables, tails, owner, last
+
+
+def decode_run(params, cfg, layout, pools, tabs, S, bs, tokens, steps, *,
+               opt, device, mesh=None, logits=False):
+    """Greedy decode of ``steps`` tokens from the pool of a ``S``-token
+    context with ``serve_decode_step`` (``opt``: ``serve_decode_step_opt``)
+    over ``tabs`` = (tables, tails, owner shard, last block) of that
+    context. Returns the token stream [steps, R] (every request's, also
+    under a mesh), each step's host seconds (ended by reading the
+    tokens), each step's kernel counts and the first step's logits of
+    this process's rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sharded_step as ss
+    tables, tails0, owner, last = tabs
+    NP, R = tables.shape[:2]
+    NB = pools[0].shape[2]
+    if S % bs + steps > bs:
+        raise ValueError("the decode would leave the context's last block")
+    nblk = (tables >= 0).sum(-1).astype(np.int32)
+    step = ss.serve_decode_step_opt if opt else ss.serve_decode_step
+    rows = np.arange(R)
+    tok = np.asarray(tokens)
+    out, secs, counts, first = [], [], [], None
+    for s in range(steps):
+        tails = tails0.copy()
+        tails[owner, rows] += s + (0 if opt else 1)
+        wb = np.full((NP, R), NB, np.int32)
+        wb[owner, rows] = last
+        wo = np.full((NP, R), (S + s) % bs, np.int32)
+        lens = np.full(R, S + s, np.int32)
+        sync(device)
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        lg, pk, pv = step(params, cfg, layout, pools[0], pools[1], tables,
+                          nblk, tails, wb, wo, tok, lens, mesh=mesh,
+                          return_logits=True)
+        nxt = ss.gather_batch(torch.argmax(lg, -1), mesh, layout, R)
+        tok = nxt.cpu().numpy()
+        secs.append(time.perf_counter() - t0)
+        counts.append(ops.counts())
+        if first is None and logits:
+            first = lg.float()
+        out.append(tok)
+    return np.stack(out), secs, counts, first
+
+
+def check_decode_counts(counts, layers, device):
+    """Each decode step launched the decode rank kernel once a layer and
+    nothing else: no plain version, no single-rank kernel, no prefill."""
+    for i, c in enumerate(counts):
+        if served(c, "paged_micro_attention_ranks", device) != layers:
+            raise AssertionError(f"decode step {i}: {c} (want {layers} "
+                                 f"rank launches)")
+        for name, v in c.items():
+            if device.type == "cuda" and v["plain_calls"]:
+                raise AssertionError(f"decode step {i}: {name} ran its "
+                                     f"plain version")
+            if name != "paged_micro_attention_ranks" and \
+                    served(c, name, device):
+                raise AssertionError(f"decode step {i}: {name} ran")
+
+
+def tbt_numbers(secs, R) -> dict:
+    """TBT p50 and max, tokens/s of a decode run of ``R`` requests."""
+    return {"tbt_p50_s": float(np.median(secs)),
+            "tbt_max_s": float(max(secs)),
+            "tokens_per_s": R * len(secs) / sum(secs)}
+
+
+def sl_prefill(params, cfg, layout, toks, sh, device, mesh=None):
+    """``serve_prefill_step`` once, counted: (first tokens, pools, host
+    seconds, counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sharded_step as ss
+    sync(device)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    first, pk, pv = ss.serve_prefill_step(
+        params, cfg, layout, toks, block_size=sh["bs"], NP=sh["NP"],
+        n_data=sh["n_data"], mesh=mesh)
+    sync(device)
+    return first, (pk, pv), time.perf_counter() - t0, ops.counts()
+
+
+def check_prefill_counts(c, layers, device):
+    """A prefill ran the flash kernel once a layer and nothing else."""
+    for name, v in c.items():
+        want = layers if name == "flash_prefill" else 0
+        if served(c, name, device) != want or \
+                (device.type == "cuda" and v["plain_calls"]):
+            raise AssertionError(f"prefill: {name} {v} (want {want} "
+                                 f"launches, no plain call)")
+
+
+def long_context_pool(cfg, sh, device, seed=500):
+    """The long_500k pool: ``long_S / bs`` blocks over NP shards (block j
+    on shard j % NP), seeded, filled in the model's dtype one layer slice
+    at a time (no float32 copy of the pool), R = 1; the context is
+    ``long_S - long_steps`` tokens so that every step has a slot."""
+    bs, NP, L = sh["bs"], sh["NP"], cfg.num_layers
+    blocks = sh["long_S"] // bs
+    NB = blocks // NP
+    shape = (L, NP, NB, bs, cfg.num_kv_heads, cfg.head_dim)
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pools = (torch.empty(shape, dtype=dt, device=device),
+             torch.empty(shape, dtype=dt, device=device))
+    for pool in pools:
+        for layer in pool:
+            layer.normal_(generator=gen)
+    S = sh["long_S"] - sh["long_steps"]
+    tables = -np.ones((NP, 1, NB + 1), np.int32)
+    tables[:, 0, :NB] = np.arange(NB)
+    tails = np.full((NP, 1), bs, np.int32)
+    last = (S - 1) // bs                  # the context's last block
+    owner = np.array([last % NP])
+    tails[owner, 0] = (S - 1) % bs + 1
+    return pools, (tables, tails, owner, np.array([last // NP])), S
+
+
+def sl_prefill_phase(params, cfg, device, sh, layout, rep):
+    """(a): the prefill at S (every block full) and at S_ragged (a
+    partial last block); returns the S_ragged run's first tokens and
+    pools."""
+    from repro_torch.serving import sharded_step as ss
+    cuda = device.type == "cuda"
+    L, bs, NP, B = cfg.num_layers, sh["bs"], sh["NP"], sh["B"]
+    toks = np.random.default_rng(32).integers(0, cfg.vocab_size,
+                                              (B, sh["S"]))
+    pre = {}
+    for name, S in (("full", sh["S"]), ("ragged", sh["S_ragged"])):
+        if cuda:
+            reset_peak_memory()
+        first, pools, secs, c = sl_prefill(params, cfg, layout, toks[:, :S],
+                                           sh, device)
+        check_prefill_counts(c, L, device)
+        pre[name] = (first, pools)
+        rep[f"prefill_{name}"] = {
+            "S": S, "seconds": secs, "first_tokens": first.tolist(),
+            "pool_bytes": 2 * pools[0].numel() * pools[0].element_size(),
+            "pool_shape": list(pools[0].shape),
+            "flash_launches": served(c, "flash_prefill", device),
+            "prefill_tokens_per_s": B * S / secs}
+        if cuda:
+            rep[f"prefill_{name}"]["peak_mem_bytes"] = \
+                torch.cuda.max_memory_allocated()
+    # The two pools hold the same tokens [0, S_ragged) on the same
+    # shards: layer 0's rows agree within a few roundings of the model's
+    # dtype (GEMMs of other shapes may sum in another order; the later
+    # layers' differences grow through the model and are reported).
+    n = sh["S_ragged"]
+    wb, wo, NBl = ss.prefill_layout(B, n, bs, NP, n_data=sh["n_data"])
+    wa, _, _ = ss.prefill_layout(B, sh["S"], bs, NP, n_data=sh["n_data"])
+    p_, b_, t_ = np.nonzero(wb < NBl)
+    at = [torch.from_numpy(a).to(device) for a in
+          (p_, wb[p_, b_, t_], wa[p_, b_, t_], wo[b_, t_])]
+    diffs = []
+    for layer in range(L):
+        x = pre["ragged"][1][0][layer][at[0], at[1], at[3]].float()
+        y = pre["full"][1][0][layer][at[0], at[2], at[3]].float()
+        if not torch.isfinite(x).all():
+            raise AssertionError("prefill pool holds a non-finite value")
+        d = (x - y).abs()
+        diffs.append(float(d.max()))
+        if layer == 0 and bool((d > 2 ** -5 * y.abs() + 1e-3).any()):
+            raise AssertionError(f"layer 0 K rows of the two prefills "
+                                 f"differ by {diffs[0]}")
+    rep["prefill_common_rows_max_abs_diff"] = {"layer0": diffs[0],
+                                               "all_layers": max(diffs)}
+    return pre["ragged"], (wb, NBl)
+
+
+def sl_decode_phase(params, cfg, device, sh, layout, rep, first, pools,
+                    placed):
+    """(b): each schedule decodes ``steps`` tokens from the S_ragged
+    pool; the first tokens must agree."""
+    L, bs, NP, B = cfg.num_layers, sh["bs"], sh["NP"], sh["B"]
+    S = sh["S_ragged"]
+    MB = -(-S // bs) // (NP // sh["n_data"]) + 2
+    tabs = layout_tables(*placed, S, bs, MB)
+    streams = {}
+    for opt in (False, True):
+        out, secs, counts, _ = decode_run(params, cfg, layout, pools, tabs,
+                                          S, bs, first.cpu().numpy(),
+                                          sh["steps"], opt=opt,
+                                          device=device)
+        check_decode_counts(counts, L, device)
+        streams[opt] = out
+        rep["decode_opt" if opt else "decode_write"] = dict(
+            tbt_numbers(secs, B), steps=sh["steps"], context=S, MB=MB,
+            rank_launches=sum(served(c, "paged_micro_attention_ranks",
+                                     device) for c in counts))
+    if not np.array_equal(streams[False][0], streams[True][0]):
+        raise AssertionError(f"the schedules' first tokens differ: "
+                             f"{streams[False][0]} {streams[True][0]}")
+    rep["decode_first_tokens"] = streams[False][0].tolist()
+    rep["decode_streams_equal"] = bool(np.array_equal(streams[False],
+                                                      streams[True]))
+
+
+def sl_long_phase(params, cfg, device, sh, layout):
+    """(c): long_500k, R = 1 over the whole seeded pool, each schedule;
+    one layer's launch against its plain version."""
+    from repro_torch.kernels.micro_attn_decode import (
+        paged_micro_attention_ranks_plain)
+    from repro_torch.kernels.ops import paged_micro_attention_ranks
+    cuda = device.type == "cuda"
+    L, bs = cfg.num_layers, sh["bs"]
+    long = {}
+    if cuda:
+        reset_peak_memory()
+        long["allocated_before_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pools, tabs, S = long_context_pool(cfg, sh, device)
+    sync(device)
+    pool_bytes = 2 * pools[0].numel() * pools[0].element_size()
+    long.update({"context": S, "last_step_context": S + sh["long_steps"],
+                 "pool_bytes": pool_bytes,
+                 "fill_s": time.perf_counter() - t0,
+                 "bound_ms_per_step": pool_bytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_ms_per_launch":
+                     pool_bytes / L / HBM_BYTES_PER_S * 1e3})
+    tok = np.random.default_rng(5).integers(0, cfg.vocab_size, 1)
+    firsts = []
+    for opt in (False, True):
+        out, secs, counts, _ = decode_run(params, cfg, layout, pools, tabs,
+                                          S, bs, tok, sh["long_steps"],
+                                          opt=opt, device=device)
+        check_decode_counts(counts, L, device)
+        firsts.append(int(out[0, 0]))
+        long["opt" if opt else "write"] = dict(
+            tbt_numbers(secs, 1), steps=sh["long_steps"],
+            rank_launches=sum(served(c, "paged_micro_attention_ranks",
+                                     device) for c in counts),
+            tbt_p50_over_bound=float(np.median(secs)) * 1e3
+            / long["bound_ms_per_step"])
+    if firsts[0] != firsts[1]:
+        raise AssertionError(f"long context: first tokens differ {firsts}")
+    tables, tails, owner, _ = tabs
+    tl = tails.copy()
+    tl[owner, 0] += sh["long_steps"]
+    tb_d = torch.from_numpy(tables).to(device)
+    tl_d = torch.from_numpy(tl).to(device)
+    q = torch.randn((1, cfg.num_heads, cfg.head_dim),
+                    generator=torch.Generator(device=device).manual_seed(9),
+                    device=device).to(pools[0].dtype)
+    pk, pv = pools[0][L // 2], pools[1][L // 2]
+    got = paged_micro_attention_ranks(q, pk, pv, tb_d, tl_d)
+    sync(device)
+    want = paged_micro_attention_ranks_plain(q, pk, pv, tb_d, tl_d,
+                                             scale=cfg.head_dim ** -0.5)
+    long["layer_launch_max_abs_err"] = compare(got, want, TOL)
+    if cuda:
+        long["layer_launch_ms"] = time_ms(
+            lambda: paged_micro_attention_ranks(q, pk, pv, tb_d, tl_d),
+            iters=10)
+        long["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if long["peak_mem_bytes"] >= 80e9:
+            raise AssertionError(f"peak memory {long['peak_mem_bytes']}")
+    return long
+
+
+def sl_parity_phase(device, cfg, sh, layout):
+    """(d): float32 at ``parity_layers`` layers: both schedules greedy-
+    equal to the dense oracle (``prefill`` + ``decode_step``) from the
+    pool of a context that ends in a partial block, and one
+    ``decode_step_dist`` step (a ring of the last ``dist_ring`` tokens +
+    the remote span) against ``decode_step``."""
+    import dataclasses as dc
+    from repro_torch.models.model import decode_step, init_params
+    from repro_torch.models.prefill import decode_step_dist, prefill
+    from repro_torch.serving import sharded_step as ss
+    bs, NP, B = sh["bs"], sh["NP"], sh["B"]
+    cfg32 = dc.replace(cfg, dtype="float32", num_layers=sh["parity_layers"])
+    p32 = init_params(cfg32, torch.Generator(device=device).manual_seed(0),
+                      device)
+    S, n_new = sh["parity_S"], sh["parity_steps"]
+    ptoks = np.random.default_rng(15).integers(0, cfg.vocab_size, (B, S))
+    first, pools, _, c = sl_prefill(p32, cfg32, layout, ptoks, sh, device)
+    check_prefill_counts(c, cfg32.num_layers, device)
+    wb, _, NBl = ss.prefill_layout(B, S, bs, NP, n_data=sh["n_data"])
+    MB = -(-S // bs) // (NP // sh["n_data"]) + 2
+    tabs = layout_tables(wb, NBl, S, bs, MB)
+    t_ = torch.from_numpy(ptoks).to(device)
+    lg, st = prefill(p32, cfg32, t_, max_len=S + n_new + 1)
+    oracle = [torch.argmax(lg, -1)]
+    for _ in range(n_new):
+        lg, st = decode_step(p32, cfg32, st, oracle[-1])
+        oracle.append(torch.argmax(lg, -1))
+    oracle = torch.stack(oracle).cpu().numpy()
+    if not np.array_equal(first.cpu().numpy(), oracle[0]):
+        raise AssertionError("parity: prefill first tokens differ")
+    par = {"layers": cfg32.num_layers, "B": B, "S": S, "steps": n_new,
+           "partial_block": S % bs != 0}
+    for opt in (False, True):
+        run = tuple(p.clone() for p in pools)
+        out, _, counts, _ = decode_run(p32, cfg32, layout, run, tabs, S, bs,
+                                       oracle[0], n_new, opt=opt,
+                                       device=device)
+        check_decode_counts(counts, cfg32.num_layers, device)
+        if not np.array_equal(out, oracle[1:]):
+            raise AssertionError(f"parity ({'opt' if opt else 'write'}): "
+                                 f"{out.T.tolist()} != {oracle[1:].T}")
+        par["opt_greedy_equal" if opt else "write_greedy_equal"] = True
+    ring = sh["dist_ring"]
+    _, full = prefill(p32, cfg32, t_, max_len=S + 2)
+    _, rst = prefill(p32, cfg32, t_, max_len=ring)
+    start = torch.full((B,), S + 1 - ring, dtype=torch.int64, device=device)
+    nxt = torch.from_numpy(oracle[0]).to(device).long()
+    want, _ = decode_step(p32, cfg32, full, nxt)
+    got, _ = decode_step_dist(p32, cfg32, rst, nxt, start,
+                              full.kv_k[:, :, :S + 1 - ring],
+                              full.kv_v[:, :, :S + 1 - ring], start)
+    rel = float((got - want).abs().max() / want.abs().max())
+    if rel > PARITY_RTOL or not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError(f"decode_step_dist: {rel} relative")
+    par.update(decode_step_dist_rel_err=rel, dist_ring=ring)
+    return par
+
+
+def serve_layout_phase(params, cfg, device, *, smoke=False):
+    """The ServeLayout steps (module docstring, phase 2): (a) prefill,
+    (b) decode, (c) long_500k, (d) parity."""
+    from repro_torch.serving import sharded_step as ss
+    sh = SERVE_LAYOUT["smoke" if smoke else "full"]
+    t_phase = time.perf_counter()
+    layout = ss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    rep = {"layers": cfg.num_layers, "bs": sh["bs"], "NP": sh["NP"],
+           "B": sh["B"]}
+    (first, pools), placed = sl_prefill_phase(params, cfg, device, sh,
+                                              layout, rep)
+    sl_decode_phase(params, cfg, device, sh, layout, rep, first, pools,
+                    placed)
+    del first, pools
+    rep["long_500k"] = sl_long_phase(params, cfg, device, sh, layout)
+    if device.type == "cuda":
+        release_memory()
+    rep["parity"] = sl_parity_phase(device, cfg, sh, layout)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    return rep
+
+
+def launcher_phase(device):
+    """``python -m repro_torch.launch.serve`` as a function, on a smoke
+    config on the card: every request finishes."""
+    from repro_torch.launch import serve as launch_serve
+    t0 = time.perf_counter()
+    args = ["--arch", "qwen3-0.6b", "--instances", "3", "--requests", "8"]
+    if device.type != "cuda":
+        args += ["--device", "cpu"]
+    stats = launch_serve.main(args)
+    if stats["finished"] != 8:
+        raise AssertionError(f"launcher: {stats['finished']} of 8 finished")
+    return {"args": args, "wall_s": time.perf_counter() - t0,
+            **{k: stats[k] for k in ("finished", "tokens", "ttft_p50",
+                                     "tbt_p99")}}
+
+
+def sl_mesh_layout(cfg, mesh, mode):
+    """``mode``'s ServeLayout on ``mesh`` (one process: every shard here):
+    the batch axes, and in tp_head mode the pool axes, as
+    ``distributed.sharding`` picks them. seq_model is forced: the kv
+    heads of these configs divide the TP axis of a mesh of 2 or 4
+    processes, so ``serve_pool_axes`` picks tp_head (sharded_check.py
+    reaches seq_model on a TP axis wider than the kv heads)."""
+    from repro_torch.distributed.sharding import batch_axes, serve_pool_axes
+    from repro_torch.serving import sharded_step as ss
+    if mesh is None:
+        return ss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    axes = batch_axes(mesh)
+    pool = serve_pool_axes(cfg, mesh)
+    if pool != axes:
+        raise AssertionError(f"{cfg.name}: serve_pool_axes {pool} on "
+                             f"{axes}")
+    if mode == "seq_model":
+        pool = axes + ("model",)
+    return ss.ServeLayout(batch_axes=axes, pool_axes=pool)
+
+
+def sl_mesh_case(arch, mode, job, device, mesh=None):
+    """One of sharded_check.py's layouts through the ServeLayout steps at
+    float32: the prefill, then each decode schedule from its pool; with
+    ``mesh``, as one process of it."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import sharded_step as ss
+    sh = SL_MESH_SMOKE if job.get("smoke") else SL_MESH
+    cfg = mesh_model(dict(job, arch=arch), "float32", sh["layers"])
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    layout = sl_mesh_layout(cfg, mesh, mode)
+    B, S, bs = sh["B"], sh["S"], sh["bs"]
+    toks = np.random.default_rng(40).integers(0, cfg.vocab_size, (B, S))
+    first, pools, _, c = sl_prefill(params, cfg, layout, toks, sh, device,
+                                    mesh)
+    check_prefill_counts(c, cfg.num_layers, device)
+    first = ss.gather_batch(first, mesh, layout, B).cpu().numpy()
+    wb, _, NBl = ss.prefill_layout(B, S, bs, sh["NP"], n_data=sh["n_data"])
+    tabs = layout_tables(wb, NBl, S, bs, -(-S // bs) + 1)
+    out = {"first": first.tolist(), "pool_axes": list(layout.pool_axes),
+           "slab_shape": list(pools[0].shape),
+           "slab_bytes": 2 * pools[0].numel() * pools[0].element_size()}
+    for opt in (False, True):
+        run = tuple(p.clone() for p in pools)
+        stream, secs, counts, _ = decode_run(params, cfg, layout, run, tabs,
+                                             S, bs, first, sh["steps"],
+                                             opt=opt, device=device,
+                                             mesh=mesh)
+        check_decode_counts(counts, cfg.num_layers, device)
+        out["opt" if opt else "write"] = {"stream": stream.tolist(),
+                                          **tbt_numbers(secs, B)}
+    return out
+
+
+def sl_mesh_check(runs, world, job, device, single):
+    """Every process of a group holds 1/shards of the pool and the
+    single-process streams (computed here once, kept in ``single``)."""
+    sh = SL_MESH_SMOKE if job.get("smoke") else SL_MESH
+    shape, _ = MESH_LAYOUTS[world]
+    rep = {}
+    for arch, mode in SERVE_LAYOUT_MESH:
+        if arch not in single:
+            single[arch] = sl_mesh_case(arch, mode, job, device)
+        want = single[arch]
+        K = mesh_model(dict(job, arch=arch)).num_kv_heads
+        shards = world if mode == "seq_model" else shape[0]
+        k_loc = K if mode == "seq_model" else K // shape[1]
+        for r, run in enumerate(runs):
+            got = run["serve_layout"][arch]
+            if got["slab_shape"][1] != sh["NP"] // shards or \
+                    got["slab_shape"][4] != k_loc:
+                raise AssertionError(f"{arch} W={world} process {r}: slab "
+                                     f"{got['slab_shape']}")
+            for key in ("first", "write", "opt"):
+                g = got[key] if key == "first" else got[key]["stream"]
+                w = want[key] if key == "first" else want[key]["stream"]
+                if g != w:
+                    raise AssertionError(f"{arch} W={world} process {r}: "
+                                         f"{key} {g} != single-process {w}")
+        rep[arch] = {"mode": mode,
+                     "pool_axes": runs[0]["serve_layout"][arch]["pool_axes"],
+                     "slab_shape": runs[0]["serve_layout"][arch]["slab_shape"],
+                     "slab_bytes": [run["serve_layout"][arch]["slab_bytes"]
+                                    for run in runs],
+                     "single_slab_bytes": want["slab_bytes"],
+                     "streams_equal": True,
+                     "tbt_p50_s": {k: [run["serve_layout"][arch][k]
+                                       ["tbt_p50_s"] for run in runs]
+                                   for k in ("write", "opt")}}
+        if device.type == "cuda":
+            release_memory()
+    return rep
+
+
+def flash_long_case(name, B, S, H, K, D, dtype, device):
+    """The flash-prefill kernel at the ServeLayout prefill's causal shape,
+    against its plain version applied to one (batch, query head) slice
+    at a time (the whole plain score matrix would take B * H * S * S *
+    4 bytes), timed, with ``sdpa`` as the yardstick."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.kernels.ops import flash_prefill
+    gen = torch.Generator(device=device).manual_seed(zlib.crc32(
+        name.encode()))
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+               for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    scale = D ** -0.5
+    G = H // K
+    cut = [(slice(b, b + 1), slice(h, h + 1), slice(h // G, h // G + 1))
+           for b in range(B) for h in range(H)]
+
+    def plain_slice(b, h, kv):
+        return flash_prefill_plain(q[b, :, h].contiguous(),
+                                   k[b, :, kv].contiguous(),
+                                   v[b, :, kv].contiguous(), scale=scale)
+
+    def plain():
+        out = torch.empty_like(q)
+        for b, h, kv in cut:
+            out[b, :, h] = plain_slice(b, h, kv)
+        return out
+    got = flash_prefill(q, k, v)
+    sync(device)
+    err, bad = 0.0, 0
+    for b, h, kv in cut:
+        w = plain_slice(b, h, kv).float()
+        d = (got[b, :, h].float() - w).abs()
+        err = max(err, float(d.max()))
+        bad += int((d > TOL + FLASH_RTOL[dtype] * w.abs()).sum())
+    if bad or torch.isnan(got).any():
+        raise AssertionError(f"{name}: kernel disagrees at {bad} elements "
+                             f"(max |diff| {err:.3g})")
+    row = {"case": name, "dtype": str(dtype), "B": B, "S": S, "H": H,
+           "K": K, "D": D, "window": 0, "max_abs_err": err,
+           "tol": f"{TOL} + {FLASH_RTOL[dtype]:.3g}*|plain|"}
+    if device.type != "cuda":
+        return row
+    itemsize = q.element_size()
+    pairs = B * live_pairs(S, 0)
+    flops = 4 * H * D * pairs
+    nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * itemsize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    row["live_pairs"] = pairs
+    row["ms"] = time_ms(lambda: flash_prefill(q, k, v), iters=5, warmup=1)
+    row["graph_ms"] = device_ms(lambda: flash_prefill(q, k, v), iters=3,
+                                replays=2)
+    row["plain_ms"] = time_ms(plain, iters=1, warmup=0)
+    row["plain_note"] = "the plain version over B * H (batch, head) slices"
+    qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(qq, kk, vv, is_causal=True, enable_gqa=True)
+    row["library_ms"] = time_ms(library, iters=5, warmup=1)
+    row["library_graph_ms"] = device_ms(library, iters=3, replays=2)
+    row["library_kernels"] = cuda_kernel_names(library)[:3]
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
 
 
 def main(argv=None) -> int:
@@ -2991,6 +3624,14 @@ def main(argv=None) -> int:
     report["mesh"] = mesh_phase(params, cfg, device, (4000, 600, 300), 32)
     print("mesh: " + json.dumps(report["mesh"]), flush=True)
     mark("qwen3_mesh")
+    check_released(report, "qwen3-0.6b servers", limit=(512 << 20)
+                   + sum(t.numel() * t.element_size()
+                         for t in tree_leaves(params)))
+    report["serve_layout"] = serve_layout_phase(params, cfg, device)
+    print("serve layout: " + json.dumps(report["serve_layout"]), flush=True)
+    report["launcher"] = launcher_phase(device)
+    print("launcher: " + json.dumps(report["launcher"]), flush=True)
+    mark("qwen3_serve_layout")
     del params
     check_released(report, "qwen3-0.6b")
 
@@ -3148,6 +3789,29 @@ def main(argv=None) -> int:
             pp["launches"][name] for lay in report["mesh"]["layouts"].values()
             for pp in lay["per_process"]]
     launches["flash_prefill"] = hybrid["counts"]["flash_prefill"]["launches"]
+    # The ServeLayout path's launches (phase 2) and its shapes' rows.
+    sl = report["serve_layout"]
+
+    def sl_rows(*keys):
+        return {main[k]["case"]: {f: main[k][f] for f in (
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms") if f in main[k]} for k in keys}
+    sl_extra = {
+        "paged_micro_attention_ranks": {
+            "serve_layout_launches": {
+                f"{part}_{sched}": sl_part[sched]["rank_launches"]
+                for part, sl_part in (("decode_32k", sl),
+                                      ("long_500k", sl["long_500k"]))
+                for sched in (("decode_write", "decode_opt")
+                              if part == "decode_32k" else
+                              ("write", "opt"))},
+            "serve_layout_rows": sl_rows("decode_ranks_long500k",
+                                         "decode_ranks_R2")},
+        "flash_prefill": {
+            "serve_layout_launches": {
+                f"prefill_32k_{n}": sl[f"prefill_{n}"]["flash_launches"]
+                for n in ("full", "ragged")},
+            "serve_layout_rows": sl_rows("flash_serve_prefill")}}
     sources = {"decode": ("paged_micro_attention",
                           "src/repro_torch/csrc/micro_attn_decode.cu",
                           "src/repro/kernels/micro_attn_decode.py:86"),
@@ -3179,6 +3843,8 @@ def main(argv=None) -> int:
                             if k in r})
         if name in mesh_launches:
             kernels[-1]["mesh_launches"] = mesh_launches[name]
+        if name in sl_extra:
+            kernels[-1].update(sl_extra[name])
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
     print(f"script: {report['script_s']:.1f} s (elapsed at the end of "

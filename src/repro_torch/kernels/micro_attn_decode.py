@@ -42,7 +42,8 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_BLOCK_SIZE = 64
+MAX_BLOCK_SIZE = 64        # the paged prefill kernel's largest block
+MAX_DECODE_BLOCK_SIZE = 128  # the decode kernel's (the launch cells' 128)
 MIN_SPLIT_TOKENS = 256    # the least a split-KV block is given to read
 MAX_SPLITS = 32           # the most splits a merge takes (csrc MAX_SPLITS)
 DECODE_BLOCKS_PER_SM = 3  # decode blocks an SM holds (~71 KB each)
@@ -174,12 +175,16 @@ def paged_micro_attention_ranks_plain(q, pools_k, pools_v, tables, tails,
                        tables, tails, scale=scale)
 
 
-def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False) -> int:
+def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
+                 max_block_size: int = MAX_BLOCK_SIZE) -> int:
     """Raise ValueError on anything the CUDA kernels do not take.
 
     ``ranked``: the pools are ``[NR, NB, bs, K, D]`` — any rank stride,
-    each rank's slab contiguous. Returns the rank stride in elements (0
-    for one pool)."""
+    each rank's slab contiguous. ``max_block_size``: the largest block
+    the calling kernel was checked at (the decode kernel indexes tokens
+    by shift or division and stages tiles sized by the row alone, so it
+    takes the launch cells' 128; the prefill kernel stays at 64).
+    Returns the rank stride in elements (0 for one pool)."""
     if not (q.is_cuda and pool_k.is_cuda and pool_v.is_cuda
             and table.is_cuda):
         raise ValueError("the CUDA kernel takes CUDA tensors only; CPU "
@@ -217,8 +222,8 @@ def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False) -> int:
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"head dim {D} must be <= {MAX_HEAD_DIM} and a "
                          f"multiple of 8")
-    if bs > MAX_BLOCK_SIZE:
-        raise ValueError(f"block size {bs} exceeds {MAX_BLOCK_SIZE}")
+    if bs > max_block_size:
+        raise ValueError(f"block size {bs} exceeds {max_block_size}")
     return rank_stride
 
 
@@ -267,7 +272,8 @@ def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
     Same contract as ``paged_micro_attention_plain``; raises ValueError
     on inputs it does not take and RuntimeError if the launch fails.
     """
-    check_inputs(q, pool_k, pool_v, table)
+    check_inputs(q, pool_k, pool_v, table,
+                 max_block_size=MAX_DECODE_BLOCK_SIZE)
     return _decode_launch(paged_micro_attention_cuda, q, pool_k, pool_v,
                           table, tail_len, scale, 1, 0)
 
@@ -280,7 +286,8 @@ def paged_micro_attention_ranks_cuda(q, pools_k, pools_v, tables, tails, *,
     may be a strided view (only each rank's slab must be contiguous) and
     are never copied.
     """
-    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True)
+    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True,
+                               max_block_size=MAX_DECODE_BLOCK_SIZE)
     NR = pools_k.shape[0]
     R, H, D = q.shape
     o, m, l = _decode_launch(paged_micro_attention_ranks_cuda, q, pools_k,

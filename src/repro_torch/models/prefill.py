@@ -32,6 +32,11 @@ The paged steps serve the dense and MoE families; MoE layers route with
 no capacity drop (``capacity_factor=-1``), as the JAX serving steps do.
 The global pool's steps, over one cluster-wide pool tensor, are in
 ``repro_torch.serving.sharded_step``.
+
+``decode_step_dist`` is the older dense-span formulation (a local ring
+cache ``[start, len)`` plus the concatenated remote spans ``[0, start)``,
+each a MicroAttention partial, LSE-merged): plain PyTorch, as in the
+JAX package, which keeps it as an equivalence oracle for the paged path.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.online_softmax import (combine, finalize,
+                                             micro_attention_decode,
                                              micro_attention_prefill)
 from repro_torch.kernels.ops import (paged_micro_attention,
                                      paged_prefill_attention)
@@ -195,6 +201,70 @@ def write_slot(state: DecodeState, slot: int, req: DecodeState,
             put(dst, src, axis)
     state.lens[slot] = req.lens[0]
     return state
+
+
+# ===================================================================== #
+# Distributed decode step (dense/moe): local ring span + remote spans
+# ===================================================================== #
+def _ring_mask(length, start, maxlen: int) -> torch.Tensor:
+    """[B, maxlen] validity of ring slots holding positions [start, len).
+
+    ``length``: [B] sequence length AFTER the current token's write.
+    Slot j holds absolute position p = (len-1) - ((len-1-j) mod maxlen);
+    it is valid iff p >= max(start, 0).
+    """
+    j = torch.arange(maxlen, device=length.device)[None]
+    last = (length - 1)[:, None]
+    p = last - torch.remainder(last - j, maxlen)
+    return (p >= start[:, None]) & (p >= 0)
+
+
+def _dist_attn_decode(lp, x, ck, cv, lens, start, rk, rv, rlen, cfg):
+    """Local ring partial + remote span partial, merged (paper Eq. 3).
+    Writes the token's KV into the ring ``ck``/``cv`` IN PLACE."""
+    B = x.shape[0]
+    q, k, v = qkv_project(lp, x, lens[:, None], cfg)
+    ql = q[:, 0]
+    maxlen = ck.shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = lens % maxlen
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    lmask = _ring_mask(lens + 1, torch.clamp(start, min=0), maxlen)
+    local = micro_attention_decode(ql, ck, cv, lmask)
+    rmask = torch.arange(rk.shape[1], device=x.device)[None] < rlen[:, None]
+    remote = micro_attention_decode(ql, rk, rv, rmask)
+    o, _, l = combine(local, remote)
+    out = finalize(o, l).reshape(B, 1, -1).to(x.dtype)
+    return out @ lp["wo"]
+
+
+def decode_step_dist(params, cfg: ModelConfig, state: DecodeState,
+                     tokens: torch.Tensor, start: torch.Tensor,
+                     remote_k: torch.Tensor, remote_v: torch.Tensor,
+                     remote_len: torch.Tensor
+                     ) -> Tuple[torch.Tensor, DecodeState]:
+    """DistAttention decode for dense/moe: KV = local[start, len) + remote.
+
+    state: a ring cache (``prefill``/``init_decode_state``) whose
+    ``kv_k``/``kv_v`` are updated IN PLACE; remote_k/v: [L, B, S_r, K,
+    hd] concatenated creditor spans (token positions [0, start));
+    remote_len: [B] valid remote tokens. MoE layers route with no drop.
+    Returns (logits [B, V], a state sharing the caches, lens + 1).
+    """
+    require_family(cfg, POOLED_FAMILIES)
+    lens = state.lens
+    x = embed_tokens(params, cfg, tokens[:, None], positions=lens[:, None])
+    for i in range(cfg.num_layers):
+        lp = attn_layer_params(params, cfg, i)
+        h = apply_norm(lp["ln1"], x, cfg)
+        x = x + _dist_attn_decode(lp["attn"], h, state.kv_k[i],
+                                  state.kv_v[i], lens, start, remote_k[i],
+                                  remote_v[i], remote_len, cfg)
+        h = apply_norm(lp["ln2"], x, cfg)
+        x = x + ffn_or_moe(lp, h, cfg, capacity_factor=-1.0)
+    logits = unembed(params, cfg, x[:, 0])
+    return logits, DecodeState(state.kv_k, state.kv_v, lens + 1, None)
 
 
 # ===================================================================== #

@@ -33,17 +33,67 @@ local slab, merges the local ranks with ``merge_partials(axis=0)`` and
 then across the group with ``merge_partials_collective`` (so a process
 that holds none of a request's blocks contributes ``(0, -inf, 0)``); the
 deferred writes keep only the rows whose rank is local. Every process
-computes the same logits. The ``ServeLayout`` steps (batch-sharded
-serving, ``sharded_step.py:79-519`` of the JAX package) are a later
-slice; only the layout itself is here.
+computes the same logits.
+
+The ``ServeLayout`` steps (the JAX package's mesh-level serving steps,
+from which its launch layer builds the production cells) serve a batch
+of R requests over a pool ``[L, NP, NB, bs, K, hd]`` of NP shards:
+
+* ``serve_decode_step`` (write-then-attend): each layer writes the new
+  token's K/V into its tail block (the sentinel block ``NB`` drops the
+  write on every other shard), then ONE launch of the decode rank kernel
+  (``paged_micro_attention_ranks``) over the layer's ``[NP, NB, bs, K,
+  hd]`` view gives every shard's MicroAttention partial — where the JAX
+  package vmaps ``paged_micro_attention_ref`` — merged with
+  ``merge_partials(axis=0)``. Tails INCLUDE the new token.
+* ``serve_decode_step_opt`` (read-only pool): the pool is only read in
+  the layer loop, the new token joins each layer as a self partial, and
+  every layer's new row is written after the loop in one scatter a pool.
+  Tails EXCLUDE the new token. The JAX package picks between an
+  owner-masked whole-pool partial and the gathered partial by a size
+  test and ``REPRO_FORCE_GATHER`` (how GSPMD lowers a gather); both are
+  the same partial, which the port computes with the rank kernel.
+* ``prefill_layout`` (host index math, the data-local layout or the
+  round-robin fallback) and ``serve_prefill_step``: the full-sequence
+  forward on the flash core, each layer's K/V laid into a fresh pool by
+  a drop-scatter.
+* ``serve_prefill_step_state`` / ``serve_decode_step_state``: the
+  hybrid and ssm families decode from their recurrent state (no pool).
+
+JAX passes each shard's valid-block count ``nblk`` beside the tables
+and marks slot ``nblk - 1`` as the partial one; the port's kernels read
+the count from the ``-1`` padding. The steps check on the host that
+``nblk == (tables >= 0).sum(-1)`` and that the valid slots form a
+prefix, and raise otherwise. JAX's GSPMD knobs have no counterpart:
+``layer_constraints`` (weight re-pinning inside the scan), the prefill's
+``attn_chunk``, ``seq_parallel`` and carry pin; nor has ``embeds=`` (the
+port's ``embed_tokens`` path for modality frontends is not served yet):
+it raises ``NotImplementedError``.
+
+With a ``mesh`` the steps run SPMD over its processes, as the JAX
+package's GSPMD program runs over devices. Each process holds its slab
+of the shards of ``layout.pool_axes`` — ``[L, NP/shards, NB, bs, K_loc,
+hd]``, with ``K_loc = K / tp`` kv heads in tp_head mode
+(``layout.kv_head_axis`` set) and ``K`` in seq_model mode; tables,
+tails and write targets stay global on the host and are sliced to the
+local shards. Rows split over ``layout.batch_axes`` when R divides
+their size and are replicated otherwise (``batch_rows``). A layer
+gathers q over the batch axes (queries are broadcast, KV never moves),
+launches the rank kernel once over the local shards and heads, merges
+the local shards and then the pool group (``merge_partials_collective``)
+and, in tp_head mode, gathers the heads over the TP axis; each process
+keeps its own rows. MoE layers that drop past capacity see the whole
+batch (gathered), so the capacity is the global one. Weights stay
+replicated in every process.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.online_softmax import (combine, finalize,
@@ -54,12 +104,13 @@ from repro_torch.core.online_softmax import (combine, finalize,
 from repro_torch.distributed.mesh import pool_shards
 from repro_torch.kernels.ops import (paged_micro_attention_ranks,
                                      paged_prefill_attention_ranks)
-from repro_torch.models.attention import qkv_project
-from repro_torch.models.common import apply_norm
+from repro_torch.models.attention import make_causal_core, qkv_project
+from repro_torch.models.common import apply_norm, torch_dtype
 from repro_torch.models.model import (POOLED_FAMILIES, attn_layer_params,
-                                      embed_tokens, ffn_or_moe,
-                                      require_family, unembed)
-from repro_torch.models.prefill import _as_int32, _host, _write_plan
+                                      decode_step, embed_tokens, ffn_or_moe,
+                                      params_device, require_family, unembed)
+from repro_torch.models.prefill import (_as_int32, _host, _write_plan,
+                                        prefill)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +130,15 @@ class ServeLayout:
         """In tp_head mode the pool's kv-head dim shards over the TP
         axis; in seq_model mode the sequence (NP) dim already covers it."""
         return None if self.seq_model else self.tp_axis
+
+    def pool_spec(self) -> Tuple:
+        """Placement of the pool's ``[NP, NB, bs, K, hd]`` dims (prepend
+        None for the L dim): the mesh axis a dim is split over, the tuple
+        of them for several, or None — what the JAX package's
+        ``PartitionSpec`` holds."""
+        axes = self.pool_axes
+        return (axes[0] if len(axes) == 1 else axes, None, None,
+                self.kv_head_axis, None)
 
 
 def _local_view(mesh, pool_axes, n_local: int, n_ranks: int):
@@ -243,4 +303,378 @@ def prefill_chunk_global(params, cfg: ModelConfig, tokens, t0: int,
     return logits, gk, gv, ks, vs
 
 
-__all__ = ["ServeLayout", "decode_step_global", "prefill_chunk_global"]
+# --------------------------------------------------------------------- #
+# The ServeLayout steps: a batch of requests over a pool of NP shards
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class _Placement:
+    """What this process holds of a step's pool, heads and batch.
+
+    Pool shards ``[base, base + n_local)`` (merged across
+    ``pool_group``), kv heads ``[k0, k0 + K_loc)`` with their query heads
+    ``[h0, h0 + H_loc)`` (gathered over ``head``), batch rows ``[r0, r0
+    + R_loc)`` (gathered over ``batch``). Without a mesh: everything,
+    and no group."""
+    base: int
+    n_local: int
+    pool_group: object
+    k0: int
+    K_loc: int
+    h0: int
+    H_loc: int
+    head: object
+    r0: int
+    R_loc: int
+    batch: object
+
+
+def _placement(mesh, layout: ServeLayout, cfg: ModelConfig, NP: int,
+               R: int) -> _Placement:
+    K, H = cfg.num_kv_heads, cfg.num_heads
+    if mesh is None:
+        return _Placement(0, NP, None, 0, K, 0, H, None, 0, R, None)
+    # The pool's placement, as the JAX package gives it to GSPMD: the
+    # shard dim over spec[0], the kv-head dim over spec[3] (or not split).
+    spec = layout.pool_spec()
+    shard_axes = spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+    pool = pool_shards(mesh, shard_axes)
+    n_local = pool.local_ranks(NP)
+    k0, K_loc, head = 0, K, None
+    if spec[3] is not None:
+        tp = pool_shards(mesh, (spec[3],))
+        if K % tp.count:
+            raise ValueError(f"{K} kv heads do not split over a TP axis "
+                             f"of {tp.count}: use seq_model mode")
+        K_loc = K // tp.count
+        k0 = tp.index * K_loc
+        head = tp if tp.count > 1 else None
+    G = H // K
+    own = batch_rows(mesh, layout, R)
+    batch = None if own == slice(0, R) else \
+        pool_shards(mesh, layout.batch_axes)
+    return _Placement(pool.index * n_local, n_local,
+                      pool.group if pool.count > 1 else None, k0, K_loc,
+                      k0 * G, K_loc * G, head, own.start,
+                      own.stop - own.start, batch)
+
+
+def batch_rows(mesh, layout: ServeLayout, R: int) -> slice:
+    """The batch rows a process of ``mesh`` keeps in the ServeLayout
+    steps (all R without a mesh, or when R does not divide over the
+    batch axes)."""
+    if mesh is not None:
+        rows = pool_shards(mesh, layout.batch_axes)
+        if rows.count > 1 and R % rows.count == 0:
+            n = R // rows.count
+            return slice(rows.index * n, (rows.index + 1) * n)
+    return slice(0, R)
+
+
+def gather_batch(x: torch.Tensor, mesh, layout: ServeLayout,
+                 R: int) -> torch.Tensor:
+    """A step's rows of this process (``batch_rows``) concatenated into
+    the whole batch of ``R`` in every process (``x`` itself without a mesh
+    or where the rows are replicated): the next step takes every
+    request's token."""
+    if batch_rows(mesh, layout, R) == slice(0, R):
+        return x
+    return _gather(x, pool_shards(mesh, layout.batch_axes))
+
+
+def _gather(x: torch.Tensor, shards, dim: int = 0) -> torch.Tensor:
+    """Concatenate every shard's ``x`` along ``dim``, in shard order
+    (``shards``: a ``PoolShards`` of the axes, or None: ``x`` itself)."""
+    if shards is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(shards.count)]
+    dist.all_gather(parts, x, group=shards.group)
+    order = [dist.get_group_rank(shards.group, o) for o in shards.owners]
+    return torch.cat([parts[i] for i in order], dim)
+
+
+def _check_tables(tables, nblk) -> np.ndarray:
+    """Host int32 tables [NP, R, MB] whose valid slots are a prefix of
+    ``nblk`` slots each; raise ValueError otherwise (the kernels read the
+    partial slot from the -1 padding, JAX from ``nblk``)."""
+    tab = _host(tables).astype(np.int32)
+    valid = tab >= 0
+    if (valid[..., 1:] & ~valid[..., :-1]).any():
+        raise ValueError("a block table's valid slots do not form a "
+                         "prefix (a -1 slot before a valid one)")
+    count = valid.sum(-1)
+    nb = _host(nblk).astype(np.int64)
+    if nb.shape != count.shape or not np.array_equal(count, nb):
+        raise ValueError("nblk differs from the tables' valid slots "
+                         "(tables >= 0).sum(-1)")
+    return tab
+
+
+def _ffn(lp, h, cfg: ModelConfig, capacity_factor: float,
+         pl: _Placement) -> torch.Tensor:
+    """The layer's FFN/MoE on this process's rows. An MoE that drops past
+    capacity routes the whole batch (gathered over the batch axes), so
+    its capacity and drops are the single-process step's."""
+    if "moe" in lp and capacity_factor > 0 and pl.batch is not None:
+        y = ffn_or_moe(lp, _gather(h, pl.batch), cfg, capacity_factor)
+        return y[pl.r0:pl.r0 + pl.R_loc]
+    return ffn_or_moe(lp, h, cfg, capacity_factor)
+
+
+def _check_pool(pool_k, pool_v, pl: _Placement, L: int, K: int, hd: int):
+    """Raise ValueError unless the pools are this process's slab."""
+    want = (L, pl.n_local, pool_k.shape[2], pool_k.shape[3], pl.K_loc, hd)
+    if tuple(pool_k.shape) != want or pool_v.shape != pool_k.shape:
+        raise ValueError(f"pool {tuple(pool_k.shape)}: this process holds "
+                         f"[L, NP_local, NB, bs, K_local, hd] = {want} "
+                         f"(K = {K})")
+
+
+def _serve_decode(params, cfg, layout, pool_k, pool_v, tables, nblk, tails,
+                  wblk, woff, tokens, lens, *, capacity_factor,
+                  return_logits, mesh, deferred):
+    """Both decode schedules: ``deferred`` is the read-only one."""
+    if cfg.family not in POOLED_FAMILIES:
+        raise ValueError("sharded decode pools KV only for attention archs; "
+                         "hybrid/ssm use serve_decode_step_state")
+    dev = pool_k.device
+    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    tab = _check_tables(tables, nblk)
+    NP, R = tab.shape[:2]
+    pl = _placement(mesh, layout, cfg, NP, R)
+    _check_pool(pool_k, pool_v, pl, L, K, hd)
+    NB = pool_k.shape[2]
+    local = slice(pl.base, pl.base + pl.n_local)
+    tables_l = _as_int32(tab[local], dev)
+    tails_l = _as_int32(_host(tails)[local], dev)
+    # The new rows that land on this process's shards, as (shard, row):
+    # the sentinel block NB drops, as JAX's mode="drop" does.
+    sel, wb, wo = _write_plan(_host(wblk)[local].reshape(-1),
+                              _host(woff)[local].reshape(-1), NB, dev)
+    ps, rs = sel // R, sel % R
+    own = slice(pl.r0, pl.r0 + pl.R_loc)
+    toks = torch.as_tensor(_host(tokens)[own], dtype=torch.int64).to(dev)
+    lens = torch.as_tensor(_host(lens)[own], dtype=torch.int64).to(dev)
+    scale = hd ** -0.5
+    heads = slice(pl.h0, pl.h0 + pl.H_loc)
+    kvh = slice(pl.k0, pl.k0 + pl.K_loc)
+    self_mask = torch.ones((pl.R_loc, 1), dtype=torch.bool, device=dev)
+    x = embed_tokens(params, cfg, toks[:, None], positions=lens[:, None])
+    ks, vs = [], []
+    for i in range(L):
+        lp = attn_layer_params(params, cfg, i)
+        h = apply_norm(lp["ln1"], x, cfg)
+        q, k, v = qkv_project(lp["attn"], h, lens[:, None], cfg)
+        q1 = _gather(q[:, 0, heads], pl.batch)           # [R, H_loc, hd]
+        k1, v1 = k[:, 0, kvh], v[:, 0, kvh]              # [R_loc, K_loc, hd]
+        if deferred:
+            ks.append(k1)
+            vs.append(v1)
+        else:
+            pk_l, pv_l = pool_k[i], pool_v[i]
+            pk_l[ps, wb, wo] = _gather(k1, pl.batch)[rs].to(pk_l.dtype)
+            pv_l[ps, wb, wo] = _gather(v1, pl.batch)[rs].to(pv_l.dtype)
+        o, m, l = _global_pooled_decode(q1, pool_k[i], pool_v[i], tables_l,
+                                        tails_l, scale, pl.pool_group)
+        part = (o[own], m[own], l[own])
+        if deferred:
+            part = combine(part, micro_attention_decode(
+                q[:, 0, heads], k[:, :, kvh], v[:, :, kvh], self_mask,
+                scale=scale))
+        out = _gather(finalize(part[0], part[2]), pl.head, dim=1)
+        out = out.reshape(pl.R_loc, 1, -1).to(x.dtype)
+        x = x + out @ lp["attn"]["wo"]
+        h = apply_norm(lp["ln2"], x, cfg)
+        x = x + _ffn(lp, h, cfg, capacity_factor, pl)
+    if deferred:
+        # All layers' new rows in one scatter a pool.
+        kall = _gather(torch.stack(ks), pl.batch, dim=1)  # [L, R, K_loc, hd]
+        vall = _gather(torch.stack(vs), pl.batch, dim=1)
+        pool_k[:, ps, wb, wo] = kall[:, rs].to(pool_k.dtype)
+        pool_v[:, ps, wb, wo] = vall[:, rs].to(pool_v.dtype)
+    logits = unembed(params, cfg, x[:, 0])
+    if return_logits:
+        return logits, pool_k, pool_v
+    return torch.argmax(logits, dim=-1).to(torch.int32), pool_k, pool_v
+
+
+def serve_decode_step(params, cfg: ModelConfig, layout: ServeLayout,
+                      pool_k: torch.Tensor, pool_v: torch.Tensor, tables,
+                      nblk, tails, wblk, woff, tokens, lens, *,
+                      capacity_factor: float = 1.25,
+                      return_logits: bool = False, mesh=None):
+    """One decode iteration for R requests over the pool's NP shards,
+    write-then-attend.
+
+    pool_k/v: [L, NP, NB, bs, K, hd] (with ``mesh``: this process's slab
+    [L, NP/shards, NB, bs, K_loc, hd]), updated IN PLACE and returned;
+    tables [NP, R, MB] (-1 padded), nblk/tails [NP, R] — the tails
+    INCLUDE the new token, written into its tail block (wblk/woff [NP,
+    R]; block NB: no write on that shard) before the layer's attention;
+    tokens/lens [R]. MoE layers drop past ``capacity_factor`` (-1: no
+    drop). Returns (next tokens [R] int32, or logits [R, V] with
+    ``return_logits``, pool_k, pool_v); with ``mesh``, of this process's
+    rows (``batch_rows``).
+    """
+    return _serve_decode(params, cfg, layout, pool_k, pool_v, tables, nblk,
+                         tails, wblk, woff, tokens, lens,
+                         capacity_factor=capacity_factor,
+                         return_logits=return_logits, mesh=mesh,
+                         deferred=False)
+
+
+def serve_decode_step_opt(params, cfg: ModelConfig, layout: ServeLayout,
+                          pool_k: torch.Tensor, pool_v: torch.Tensor,
+                          tables, nblk, tails, wblk, woff, tokens, lens, *,
+                          capacity_factor: float = 1.25,
+                          return_logits: bool = False, mesh=None):
+    """The read-only-pool schedule of ``serve_decode_step``: the same
+    math, the pool only read in the layer loop, the new token a self
+    partial in each layer (Eq. 3 is associative), and every layer's new
+    row written after the loop in one scatter a pool.
+
+    NOTE: ``tails``/``nblk`` here describe the pool WITHOUT the new
+    token (the caller advances them after the step).
+    """
+    return _serve_decode(params, cfg, layout, pool_k, pool_v, tables, nblk,
+                         tails, wblk, woff, tokens, lens,
+                         capacity_factor=capacity_factor,
+                         return_logits=return_logits, mesh=mesh,
+                         deferred=True)
+
+
+def prefill_layout(B: int, S: int, bs: int, NP: int,
+                   n_data: Optional[int] = None):
+    """Block placement at prefill time: (wblk [NP, B, S], woff [B, S],
+    NB_loc), int32 numpy.
+
+    With ``B % n_data == 0`` the data-local layout: request b's blocks
+    live on its own data rank's ``NP / n_data`` shards (block j on
+    sub-shard ``j % n_sub``), so the writes need no communication.
+    Otherwise round-robin over all shards. A token's entry is its block
+    on the shard that holds it and the out-of-range sentinel ``NB_loc``
+    on every other shard (the pool has exactly ``NB_loc`` blocks).
+    """
+    nblocks = -(-S // bs)
+    pos = np.arange(S, dtype=np.int32)
+    blk = pos // bs
+    woff = np.ascontiguousarray(np.broadcast_to(pos % bs, (B, S)))
+    p_idx = np.arange(NP, dtype=np.int32)[:, None, None]
+    b_idx = np.arange(B, dtype=np.int32)[:, None]
+    if n_data and B % n_data == 0:
+        n_sub = NP // n_data
+        per_data = B // n_data
+        shard_of = (b_idx // per_data) * n_sub + (blk % n_sub)[None]
+        per_req = -(-nblocks // n_sub)
+        NB_loc = per_data * per_req
+        local = (b_idx % per_data) * per_req + (blk // n_sub)[None]
+        wblk = np.where(shard_of[None] == p_idx, local[None], NB_loc)
+        return wblk.astype(np.int32), woff, NB_loc
+    per_req = -(-nblocks // NP)
+    NB_loc = B * per_req
+    owner = b_idx * per_req + (blk // NP)[None]
+    wblk = np.where((blk % NP)[None, None, :] == p_idx, owner[None], NB_loc)
+    return wblk.astype(np.int32), woff, NB_loc
+
+
+def _prefill_writer(S: int, bs: int, pl, NB_loc: int, wblk, device):
+    """The per-layer pool write of ``serve_prefill_step``: a function of
+    (pool layer view [n_local, NB_loc, bs, K_loc, hd], this process's
+    rows of K or V [R_loc, S, K_loc, hd]) that scatters every row bound
+    for a local shard into its (block, offset); the sentinel block drops.
+    In the data-local layout a process's shards hold only its own rows,
+    so the write is local; the round-robin fallback gathers the rows.
+    (The JAX package also lays an aligned data-local pool by a reshape,
+    which keeps GSPMD from all-gathering the rows; the scatter here
+    gathers nothing it does not need.)"""
+    wb = wblk[pl.base:pl.base + pl.n_local]               # [n_local, B, S]
+    sl, bb, tt = np.nonzero(wb < NB_loc)
+    gather = not set(bb.tolist()) <= set(range(pl.r0, pl.r0 + pl.R_loc))
+    r0 = 0 if gather else pl.r0
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+    idx = (dev(sl), dev(wb[sl, bb, tt]), dev(tt % bs), dev((bb - r0) * S + tt))
+
+    def write(pool_l, k):
+        k = _gather(k, pl.batch) if gather else k
+        s_, b_, o_, src = idx
+        pool_l[s_, b_, o_] = k.reshape(-1, *k.shape[2:])[src].to(pool_l.dtype)
+    return write
+
+
+def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
+                       tokens, *, block_size: int, NP: int,
+                       n_data: Optional[int] = None, embeds=None,
+                       capacity_factor: float = 1.25, mesh=None):
+    """Prefill B requests of length S and write their KV into a fresh
+    pool laid out by ``prefill_layout``.
+
+    The full-sequence forward runs the flash-prefill core (the kernel on
+    a CUDA tensor, its plain twin on a CPU tensor: the same causal GQA
+    function as the JAX package's "xla" core). Each layer's K/V goes
+    into the pool by one scatter that drops the sentinel block. Returns
+    (first tokens [B] int32, pool_k, pool_v [L, NP, NB_loc, bs, K, hd]);
+    with ``mesh``, this process's rows and slab.
+    """
+    if embeds is not None:
+        raise NotImplementedError("serve_prefill_step(embeds=): the port's "
+                                  "embed_tokens path takes tokens only")
+    if cfg.family not in POOLED_FAMILIES:
+        raise ValueError("pooled prefill is for attention archs")
+    dev = params_device(params)
+    tok = _host(tokens).astype(np.int64)
+    B, S = tok.shape
+    bs = block_size
+    wblk, _, NB_loc = prefill_layout(B, S, bs, NP, n_data=n_data)
+    pl = _placement(mesh, layout, cfg, NP, B)
+    write = _prefill_writer(S, bs, pl, NB_loc, wblk, dev)
+    L, hd = cfg.num_layers, cfg.head_dim
+    shape = (L, pl.n_local, NB_loc, bs, pl.K_loc, hd)
+    pool_k = torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)
+    pool_v = torch.zeros_like(pool_k)
+    toks = torch.from_numpy(tok[pl.r0:pl.r0 + pl.R_loc]).to(dev)
+    positions = torch.arange(S, device=dev)[None].expand(pl.R_loc, S)
+    core = make_causal_core(cfg, backend="flash")
+    kvh = slice(pl.k0, pl.k0 + pl.K_loc)
+    x = embed_tokens(params, cfg, toks, positions=positions)
+    for i in range(L):
+        lp = attn_layer_params(params, cfg, i)
+        h = apply_norm(lp["ln1"], x, cfg)
+        q, k, v = qkv_project(lp["attn"], h, positions, cfg)
+        out = core(q, k, v).reshape(pl.R_loc, S, -1).to(x.dtype)
+        x = x + out @ lp["attn"]["wo"]
+        write(pool_k[i], k[:, :, kvh])
+        write(pool_v[i], v[:, :, kvh])
+        h = apply_norm(lp["ln2"], x, cfg)
+        x = x + _ffn(lp, h, cfg, capacity_factor, pl)
+    logits = unembed(params, cfg, x[:, -1])
+    return torch.argmax(logits, dim=-1).to(torch.int32), pool_k, pool_v
+
+
+def serve_prefill_step_state(params, cfg: ModelConfig, layout: ServeLayout,
+                             tokens, *, max_len: int, embeds=None):
+    """Hybrid/ssm prefill: (first tokens [B] int32, DecodeState) — the
+    recurrent (and windowed) state these families decode from; no pool.
+    ``layout`` only places the batch in the JAX package (GSPMD); here
+    the step runs on the tokens' device."""
+    if embeds is not None:
+        raise NotImplementedError("serve_prefill_step_state(embeds=): the "
+                                  "port's embed_tokens takes tokens only")
+    logits, state = prefill(params, cfg, tokens, max_len=max_len)
+    return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+
+def serve_decode_step_state(params, cfg: ModelConfig, layout: ServeLayout,
+                            state, tokens):
+    """Hybrid/ssm decode: one step of the recurrence (the state updated
+    in place). DistAttention does not apply: there is no KV pool."""
+    logits, state = decode_step(params, cfg, state, tokens)
+    return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+
+__all__ = ["ServeLayout", "batch_rows", "decode_step_global",
+           "gather_batch", "prefill_chunk_global", "prefill_layout",
+           "serve_decode_step",
+           "serve_decode_step_opt", "serve_decode_step_state",
+           "serve_prefill_step", "serve_prefill_step_state"]

@@ -882,3 +882,97 @@ def test_grouped_moe_on_the_card_matches_the_cpu(cuda_device, no_tf32,
                     ep_groups=4).cpu()
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------------------------ #
+# The ServeLayout steps' shapes: the decode kernel at block size 128
+# ------------------------------------------------------------------ #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NR,nblks,MB,H,K", [
+    (1, [1024], 1025, 16, 8),   # long_500k: one shard's 1,024 blocks
+    (4, [64, 3], 65, 16, 8),    # a batch of two over four shards
+    (2, [0, 40, 7], 48, 16, 8),  # an empty request, short ones
+    (2, [2, 1], 4, 16, 16),     # the mesh job's slab, MHA (G = 1)
+    (1, [0, 2], 4, 8, 8),       # its half over a TP axis of 2 (G = 1)
+])
+def test_decode_kernels_at_block_size_128_match_plain(dtype, NR, nblks, MB,
+                                                      H, K, cuda_device):
+    """The decode kernel and its rank form at the launch cells' block size
+    (128 tokens), on a strided layer view of a [NR, L, NB, 128, K, D]
+    pool (qwen3's GQA 16/8 x 128, and MHA), against their plain twins."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    rng = np.random.default_rng(len(nblks) * 10 + NR)
+    L, bs, D = 2, 128, 128
+    NB = sum(nblks) + 2
+    gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, dtype, cuda_device)
+    pk, pv = gk[:, 1], gv[:, 1]
+    tables, tails = _rank_tables(rng, NR, nblks, MB, bs, NB, ())
+    tb = torch.from_numpy(tables).to(cuda_device)
+    tl = torch.from_numpy(tails).to(cuda_device)
+    q = torch.randn((len(nblks), H, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    scale = D ** -0.5
+    ops.reset_counts()
+    got = ops.paged_micro_attention_ranks(q, pk, pv, tb, tl)
+    _close_partials(got, paged_micro_attention_ranks_plain(
+        q, pk, pv, tb, tl, scale=scale))
+    got = ops.paged_micro_attention(q, pk[0], pv[0], tb[0], tl[0])
+    _close_partials(got, paged_micro_attention_plain(
+        q, pk[0], pv[0], tb[0], tl[0], scale=scale))
+    c = ops.counts()
+    assert c["paged_micro_attention_ranks"] == {"launches": 1,
+                                                "plain_calls": 0}
+    assert c["paged_micro_attention"] == {"launches": 1, "plain_calls": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b"])
+def test_serve_steps_on_the_card_match_the_cpu(arch, cuda_device, no_tf32):
+    """``serve_prefill_step`` (full and partial last blocks) and both
+    decode schedules at float32 smoke width, on the card (flash prefill,
+    one decode rank launch a layer) against the same steps on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.prefill import prefill
+    from repro_torch.serving import sharded_step as ss
+    from test_torch_serve_layout import adversarial_pool
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dev_params = _tree_to(params, cuda_device)
+    layout = ss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    rng = np.random.default_rng(21)
+    for S in (32, 30):
+        toks = rng.integers(0, cfg.vocab_size, (2, S))
+        ops.reset_counts()
+        got = ss.serve_prefill_step(dev_params, cfg, layout, toks,
+                                    block_size=8, NP=4, n_data=2)
+        assert ops.counts()["flash_prefill"] == {
+            "launches": cfg.num_layers, "plain_calls": 0}
+        want = ss.serve_prefill_step(params, cfg, layout, toks,
+                                     block_size=8, NP=4, n_data=2)
+        assert torch.equal(got[0].cpu(), want[0])
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       atol=TOL, rtol=TOL)
+    hist = rng.integers(0, cfg.vocab_size, (4, 21))
+    _, st = prefill(params, cfg, torch.from_numpy(hist), max_len=25)
+    inp = adversarial_pool(st.kv_k.numpy(), st.kv_v.numpy(), 21, 8, 4)
+    tokens = rng.integers(0, cfg.vocab_size, 4)
+    lens = np.full(4, 21)
+    for step, tails in ((ss.serve_decode_step, inp["tails_new"]),
+                        (ss.serve_decode_step_opt, inp["tails"])):
+        out = {}
+        for dev, p in (("cpu", params), (cuda_device, dev_params)):
+            ops.reset_counts()
+            out[str(dev)] = step(
+                p, cfg, layout, torch.from_numpy(inp["pool_k"]).to(dev),
+                torch.from_numpy(inp["pool_v"]).to(dev), inp["tables"],
+                inp["nblk"], tails, inp["wblk"], inp["woff"], tokens, lens,
+                return_logits=True)
+        c = ops.counts()["paged_micro_attention_ranks"]
+        assert c == {"launches": cfg.num_layers, "plain_calls": 0}
+        for g, w in zip(out[str(cuda_device)], out["cpu"]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       atol=TOL, rtol=TOL)

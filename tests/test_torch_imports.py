@@ -52,7 +52,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.launch.train",
             "repro_torch.launch.roofline",
             "repro_torch.distributed.mesh", "repro_torch.core.baselines",
-            "repro_torch.training.grad_sync"} <= set(mods)
+            "repro_torch.training.grad_sync",
+            "repro_torch.distributed.sharding",
+            "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"
@@ -146,6 +148,25 @@ def test_training_entry_points_default_to_cuda_and_refuse_the_cpu():
                          env=env, cwd=str(REPO))
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr
+
+
+def test_serve_launcher_defaults_to_cuda_and_refuses_the_cpu():
+    """``launch.serve`` (its ``main`` and its command line) runs on the
+    card unless asked for the CPU, and raises without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "olmo-1b", "--requests", "1"])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "olmo-1b", "--requests", "1"],
+                         capture_output=True, text=True, timeout=240,
+                         env=env, cwd=str(REPO))
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "finished" not in out.stdout
 
 
 def test_chip_smoke_refuses_without_cuda_or_outside_the_repo(tmp_path):
