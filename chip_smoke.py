@@ -57,6 +57,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    request must finish, KV must move, the pool tensor must never be
    reallocated, and each engine decode step must launch the decode rank
    kernel once per layer (28) and no single-rank paged kernel.
+   The memory hierarchy, overload and fault phases below serve qwen3's
+   first 14 of 28 layers (``QWEN3_EXT_LAYERS``: views of its weights).
    Then, once per pool mode, the memory hierarchy: ``prefix_cache=True``
    and a 96-frame host tier, 128 blocks an instance, every request on
    instance 0: a cold request (a 768-token prefix + 128 tokens), three
@@ -97,7 +99,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    host tiers end empty once the cache is cleared and no allocator
    leaks.
    Then the global pool sharded over processes (the mesh phase): the
-   same three prompts on four instances in global-pool mode, served by
+   same three prompts on four instances in global-pool mode (qwen3 at
+   14 of its 28 layers: the groups' gloo steps are host-bound), served by
    ``LLMServer(..., mesh=, layout=)`` in W = 2 processes on a (2, 1)
    mesh (``pool_axes=("data",)``: two ranks a process) and in W = 4 on
    a (2, 2) mesh (``("data", "model")``: one rank each), spawned on the
@@ -121,7 +124,29 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    320-token prefill, 6 decode steps a schedule, 128-token blocks over
    4 shards): every process's slab is 1/shards of the pool (its kv
    heads in tp_head mode) and its streams equal the single-process
-   steps' here.
+   steps' here. Each group then runs the placement job: every process
+   draws qwen3-0.6b (bf16, 28 layers) with ``seeded_params`` placed by
+   ``validate_divisibility(param_specs(...))`` over (1, 2) at W = 2,
+   (1, 4) and (2, 2) at W = 4, and must hold exactly the bytes the spec
+   tree gives; a ``serve_prefill_step`` of B = 2 x S = 4,096, then 16
+   decode steps of each schedule on the placed weights and on the whole
+   tree, interleaved (TBT side by side; 28 decode rank launches a step,
+   28 flash launches a prefill); at W = 2 also qwen2-moe-a2.7b placed
+   over (1, 2) at full depth (its bytes, a 512-token prefill, 4 decode
+   steps a schedule); then float32 at 4 layers, on every mesh, with
+   forced FSDP over (2, 2), and on a ("pod", "data", "model") = (2, 1,
+   2) mesh with the pool over ("pod", "data"): placed logits within
+   1e-5 relative of the whole tree's, the streams equal in every
+   process, to the whole tree's and to the single-process steps' here.
+   It also reports whether gloo takes bf16 CUDA tensors.
+   Also with the qwen3 weights, once per pool mode: the serving phase's
+   prompts with 128-token blocks (``block_size=128``, 20 blocks a pool:
+   the same 2,560 tokens): every request finishes, every paged prefill
+   launch reads a 64-token sub-block view of the pool (same addresses),
+   the first against its plain version within 1e-4; and, at float32 and
+   4 layers, the 4,000-token creditor-spanning prompt greedy-equal to
+   the dense oracle. The kernel phase adds the prefill chunk (C = 512)
+   and its rank form (NR = 3) at 128-token blocks.
    Then the ServeLayout steps in one process (``serving/sharded_step``;
    NP = 4 shards on the card, 128-token blocks): (a) ``serve_prefill_step``
    of B = 2 prompts (prefill_32k's batch of 32 cut to 2) at S = 32,768
@@ -145,7 +170,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    flash prefill at (a)'s shape (B = 2, S = 32,768, GQA 16/8 x 128,
    causal; its plain version one (batch, head) slice at a time).
 3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
-   full width (38 layers: 26 RG-LRU, 12 local-attention; bf16, seeded
+   full width (20 of its 38 layers: 14 RG-LRU, 6 local-attention,
+   ``HYBRID_SERVE_LAYERS``; bf16, seeded
    random weights) with two non-pooled instances: prompts of 6,000,
    3,000, 1,000 and 400 tokens, two of them longer than the 2,048-token
    window. Every request must finish, the flash-prefill kernel must
@@ -160,7 +186,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    prompts, under the global phase's checks; then a traced window with a
    late 512-token admission.
 5. Serving, xlstm-350m (the ssm family). ``LLMServer`` serves it at
-   full width (24 layers: 21 mLSTM, 3 sLSTM; bf16, seeded random
+   full width (16 of its 24 layers: 14 mLSTM, 2 sLSTM,
+   ``SSM_SERVE_LAYERS``; bf16, seeded random
    weights) with two non-pooled instances of four slots: prompts of
    1,024, 512, 256 and 64 tokens. Every request must finish and no
    kernel of the port may run (xLSTM has none). Reports tokens/s, TTFT,
@@ -202,7 +229,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    time the card could take, the peak memory, and the traced step's
    device busy share, its device time of forward, backward and
    optimizer, and its top kernels. Then one float32 train step a family
-   (qwen3 2 layers, qwen2-moe 2 layers with ``ep_groups=2``,
+   (qwen3 2 layers, qwen2-moe 1 layer with ``ep_groups=2``,
    recurrentgemma one 3-layer group, xLSTM one 8-layer group; S = 256,
    B = 2), on the card and on the CPU from the same weights: loss and
    gradient norm within 1e-5 relative, each gradient within 1e-4 of its
@@ -284,9 +311,10 @@ TRAIN_MOE = {"steps": 5, "seq": 2048, "batch": 4, "layers": 4,
              "ep_groups": 4}
 # float32 card-vs-CPU steps: (arch, layers, TrainConfig fields); the
 # hybrid model's 3 layers are one (rglru, rglru, attn) group, xLSTM's 8
-# one group of 7 mLSTM + 1 sLSTM.
+# one group of 7 mLSTM + 1 sLSTM; qwen2-moe one MoE layer (its float32
+# CPU reference is the longest part of the script).
 TRAIN_PARITY = (("qwen3-0.6b", 2, {}),
-                ("qwen2-moe-a2.7b", 2, {"moe_ep_groups": 2}),
+                ("qwen2-moe-a2.7b", 1, {"moe_ep_groups": 2}),
                 ("recurrentgemma-9b", 3, {}),
                 ("xlstm-350m", 8, {}))
 
@@ -910,6 +938,20 @@ def kernel_phase(device, chunk: int):
                       timed=True)
         rows.append(r)
         main.setdefault("decode_ranks_R2", r)
+        # 128-token blocks in the paged prefill (read as 64-token
+        # sub-blocks of the same pool): the chunk at the serving shape
+        # (C = 512, qwen3 GQA 16/8 x 128) over 24 blocks (3,072 tokens),
+        # and the rank form at NR = 3 over a prefix striped 4 / 20 / 0
+        # blocks, each with a partial last block.
+        r = prefill_case(f"prefill-bs128-{dt}", chunk, 16, 8, 128, 128, 24,
+                         dt, device, tail=65, timed=True)
+        rows.append(r)
+        main.setdefault("prefill_bs128", r)
+        r = rank_case(f"prefill-ranks-bs128-nr3-{dt}", "prefill", 3, 16, 8,
+                      128, dt, device, rows=chunk, MB=32, L=2, bs=128,
+                      NB=24, nblks=[4, 20, 0], tail_rows=65, timed=True)
+        rows.append(r)
+        main.setdefault("prefill_ranks_bs128", r)
         # The ServeLayout mesh job's shapes (SL_MESH: B = 2, a 320-token
         # prefill in 128-token blocks over 4 shards, 2 blocks a shard,
         # 4-slot tables, 4 layers): one process holds all 4 shards, a
@@ -1152,6 +1194,111 @@ def global_serving_phase(params, cfg, device, prompt_lens, n_new):
     if report["pool_copy_steps"]:
         raise AssertionError("a decode step reallocated the global pool")
     return report
+
+
+# --------------------------------------------------------------------- #
+# The launch cells' 128-token blocks on the serving path
+# --------------------------------------------------------------------- #
+def bs128_config(global_pool: bool):
+    """The serving phase's config with 128-token blocks, each pool cut to
+    the same token capacity (160 x 16 = 20 x 128 = 2,560 tokens)."""
+    return serving_config().replace(block_size=128, pool_blocks=20,
+                                    global_pool=global_pool)
+
+
+class SubBlockSpy:
+    """Every prefill-kernel launch's block sizes and pool addresses as the
+    wrappers present them (``micro_attn_prefill._checked``), and, for the
+    first launch of each form, the kernel's partials against the plain
+    version on the same (128-token-block) inputs."""
+
+    def __enter__(self):
+        from repro_torch.kernels import micro_attn_prefill as mp_, ops
+        self.mods = (mp_, ops)
+        self.orig = (mp_._checked, ops.paged_prefill_attention_cuda,
+                     ops.paged_prefill_attention_ranks_cuda)
+        self.calls, self.errs = [], {}
+        checked, one, ranks = self.orig
+        spy = self
+
+        def spy_checked(q, pool_k, pool_v, tables, tails, *, ranked):
+            out = checked(q, pool_k, pool_v, tables, tails, ranked=ranked)
+            spy.calls.append((pool_k.shape[-3], out[1].shape[-3],
+                              out[1].data_ptr() == pool_k.data_ptr()
+                              and out[2].data_ptr() == pool_v.data_ptr()))
+            return out
+
+        def checked_once(name, fn, plain):
+            def call(q, pk, pv, table, tail, *, scale):
+                got = fn(q, pk, pv, table, tail, scale=scale)
+                if name not in spy.errs and bool((table >= 0).any()):
+                    spy.errs[name] = compare(got, plain(
+                        q, pk, pv, table, tail, scale=scale), TOL)
+                return got
+            return call
+        mp_._checked = spy_checked
+        ops.paged_prefill_attention_cuda = checked_once(
+            "single", one, mp_.paged_prefill_attention_plain)
+        ops.paged_prefill_attention_ranks_cuda = checked_once(
+            "ranks", ranks, mp_.paged_prefill_attention_ranks_plain)
+        return self
+
+    def __exit__(self, *exc):
+        mp_, ops = self.mods
+        (mp_._checked, ops.paged_prefill_attention_cuda,
+         ops.paged_prefill_attention_ranks_cuda) = self.orig
+
+
+def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
+    """qwen3 served with 128-token blocks (``bs128_config``): every
+    request finishes, the longest prompt stripes over two creditors, the
+    paged prefill kernel launches on 64-token sub-block views of the
+    pool (never a copy), its first launch within 1e-4 of the plain
+    version, and no plain version runs."""
+    from repro_torch.kernels import ops
+    prompts = make_prompts(cfg, prompt_lens, 7)
+    config = bs128_config(global_pool)
+    kernels = (("paged_micro_attention_ranks", "paged_prefill_attention_ranks")
+               if global_pool else
+               ("paged_micro_attention", "paged_prefill_attention"))
+    reset_peak_memory()
+    with AdmissionSpy() as spy, SubBlockSpy() as sub:
+        ops.reset_counts()
+        handles, server, wall = serve(params, cfg, config, prompts, n_new,
+                                      device)
+        counts = ops.counts()
+    all_finished(handles)
+    check_counts(counts, kernels, device)
+    if max(spy.stripes) < 2:
+        raise AssertionError(f"bs 128: no prompt striped over >= 2 "
+                             f"creditors ({spy.stripes})")
+    if not sub.calls or any(c != (128, 64, True) for c in sub.calls):
+        raise AssertionError(f"bs 128: prefill launches not on 64-token "
+                             f"sub-block views of the pool: "
+                             f"{sorted(set(sub.calls))}")
+    if served(counts, kernels[1], device) != len(sub.calls):
+        raise AssertionError("bs 128: a prefill launch bypassed the "
+                             "sub-block view")
+    err = max(sub.errs.values())
+    if err > TOL:
+        raise AssertionError(f"bs 128: the prefill kernel {err} from plain")
+    cl = server.cluster
+    copies = sum(e.stats.pool_copy_steps for e in cl.engines.values())
+    if copies:
+        raise AssertionError("bs 128: a step reallocated a pool")
+    return {"global_pool": global_pool, "block_size": 128,
+            "pool_blocks": config.pool_blocks,
+            "prompt_lens": list(prompt_lens), "n_new": n_new,
+            "creditors_per_admission": spy.stripes,
+            "moves_during_decode": moves_executed(server),
+            "decode_steps": decode_steps(server),
+            "prefill_launches": served(counts, kernels[1], device),
+            "decode_launches": served(counts, kernels[0], device),
+            "sub_block_launches": len(sub.calls),
+            "first_launch_max_abs_err": sub.errs,
+            **e2e_numbers(server, handles, wall),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "counts": counts}
 
 
 # --------------------------------------------------------------------- #
@@ -2000,14 +2147,14 @@ class LogitSpy:
 
 
 def parity_phase(params, cfg, device, prompt_len, n_new, *,
-                 global_pool=False, pool_blocks=96):
+                 global_pool=False, pool_blocks=96, seed=11, **over):
     """float32: served greedy stream == oracle, per-step logits close, in
     either pool mode (``pool_blocks`` small enough that the prompt spans
-    creditors)."""
-    prompt = make_prompts(cfg, [prompt_len], 11)[0]
-    config = serving_config().replace(pool_blocks=pool_blocks,
-                                      max_local_len=512,
-                                      global_pool=global_pool)
+    creditors; ``over``: other fields of the serving config)."""
+    prompt = make_prompts(cfg, [prompt_len], seed)[0]
+    config = serving_config().replace(**{
+        "pool_blocks": pool_blocks, "max_local_len": 512,
+        "global_pool": global_pool, **over})
     with LogitSpy(global_pool) as logits, AdmissionSpy() as spy:
         logits.start(prompt_len)
         handles, server, _ = serve(params, cfg, config, [prompt], n_new,
@@ -2017,6 +2164,7 @@ def parity_phase(params, cfg, device, prompt_len, n_new, *,
         raise AssertionError("the parity request did not span a creditor")
     return {"prompt_len": prompt_len, "n_new": n_new,
             "global_pool": global_pool, "layers": cfg.num_layers,
+            "block_size": config.block_size,
             **check_parity(params, cfg, device, prompt, out, logits.records),
             "creditors_at_admission": max(spy.stripes),
             "moves_during_decode": moves_executed(server)}
@@ -2572,6 +2720,28 @@ def train_restart_phase(device, *, layers=2, seq=512, batch=2, steps=6,
 # collective), W = 4 one.
 MESH_LAYOUTS = {2: ((2, 1), ("data",)), 4: ((2, 2), ("data", "model"))}
 MESH_TIMEOUT_S = 300
+MESH_SERVE_LAYERS = 14   # the mesh groups' qwen3 depth (of 28)
+# Depths of the phases that rerun the main path's machinery at full
+# width (qwen3's memory hierarchy, overload and faults; the hybrid and
+# ssm servers): cut so that the script stays inside its time on a slow
+# host (one call took 1,201 s at full depth).
+QWEN3_EXT_LAYERS = 14    # of 28
+HYBRID_SERVE_LAYERS = 20  # of 38: six (rglru, rglru, attn) groups + 2
+SSM_SERVE_LAYERS = 16    # of 24: two groups of 7 mLSTM + 1 sLSTM
+
+
+def first_layers(params, cfg, n: int):
+    """A dense model's first ``n`` layers: the stacked leaves' leading
+    slices (views, no copy) and the config of that depth."""
+    return ({**params, "layers": layer_slice(params["layers"], n)},
+            dataclasses.replace(cfg, num_layers=n))
+
+
+def layer_slice(tree, n: int):
+    """Every leaf of ``tree`` cut to its first ``n`` along dim 0."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, n) for k, v in tree.items()}
+    return tree[:n]
 GRAD_SEED = 1000
 
 
@@ -2730,7 +2900,10 @@ def mesh_worker(rank, world, store, job, queue):
                                    job["prompts"], job["n_new"],
                                    mesh_config())}
         if job.get("grad_sync"):
-            out["grad_sync"] = mesh_grad_sync(params, device, rank)
+            # Over the full-depth tree's shapes, whatever depth served.
+            from repro_torch.distributed.placement import param_shapes
+            out["grad_sync"] = mesh_grad_sync(param_shapes(mesh_model(job)),
+                                              device, rank)
         del params
         par = job.get("parity")
         if par:
@@ -2745,6 +2918,9 @@ def mesh_worker(rank, world, store, job, queue):
             out["serve_layout"] = {
                 arch: sl_mesh_case(arch, mode, job, device, mesh)
                 for arch, mode in SERVE_LAYOUT_MESH}
+        if job.get("placement"):
+            release_memory()
+            out["placement"] = placement_job(world, job, device)
         queue.put((rank, out))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
@@ -2847,7 +3023,7 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
            "config": {"pool_blocks": 96, "max_local_len": 512}}
     job = {"device": str(device), "arch": arch, "smoke": smoke,
            "layers": layers, "prompts": prompts, "n_new": n_new,
-           "serve_layout": True}
+           "serve_layout": True, "placement": True}
     n_layers = layers or cfg.num_layers
     report = {"prompt_lens": list(prompt_lens), "n_new": n_new,
               "layers": n_layers, "instances": 4, "backend": "gloo",
@@ -2890,6 +3066,8 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
                                  "paged_prefill_attention_ranks")}}
                 for run in serve]}
         report["layouts"][str(world)]["serve_layout"] = sl_mesh_check(
+            runs, world, job, device, sl_single)
+        report["layouts"][str(world)]["placement"] = placement_check(
             runs, world, job, device, sl_single)
         if world == 2:
             report["parity"] = mesh_parity(runs, cfg, device, par)
@@ -3449,6 +3627,329 @@ def sl_mesh_check(runs, world, job, device, single):
     return rep
 
 
+# --------------------------------------------------------------------- #
+# Parameter placements over the mesh (in the mesh phase's groups)
+# --------------------------------------------------------------------- #
+# qwen3-0.6b at full depth and width, bf16: a prefill of B = 2 x S =
+# 4,096 (the S = 32,768 prefill stays in the one-process phase: every TP
+# all-reduce of its activations is staged through the host over gloo),
+# then ``steps`` decode steps of each schedule, placed and replicated
+# interleaved; qwen2-moe-a2.7b placed only (W = 2), a shorter run.
+PLACEMENT = {"B": 2, "S": 4096, "bs": 128, "NP": 4, "steps": 16,
+             "moe_S": 512, "moe_steps": 4, "parity_layers": 4,
+             "parity_S": 320, "parity_steps": 4, "seed": 21}
+PLACEMENT_RTOL = 1e-5   # placed vs whole-tree logits, float32, relative
+PLACEMENT_SMOKE = dict(PLACEMENT, S=64, bs=8, steps=3, moe_S=32,
+                       moe_steps=2, parity_layers=2, parity_S=60,
+                       parity_steps=3)
+# world -> the meshes of the bf16 runs ((axis names, shape)) and of the
+# float32 parity runs ((axis names, shape, fsdp)).
+PLACEMENT_MESHES = {2: ((("data", "model"), (1, 2)),),
+                    4: ((("data", "model"), (1, 4)),
+                        (("data", "model"), (2, 2)))}
+PLACEMENT_PARITY = {2: ((("data", "model"), (1, 2), False),),
+                    4: ((("data", "model"), (1, 4), False),
+                        (("data", "model"), (2, 2), False),
+                        (("data", "model"), (2, 2), True),
+                        (("pod", "data", "model"), (2, 1, 2), False))}
+
+
+def gloo_bf16_probe(device) -> dict:
+    """Whether gloo takes a bf16 tensor on ``device`` for an all-reduce
+    and an all-gather (the placed steps reduce in float32 either way)."""
+    import torch.distributed as dist
+    out = {}
+    x = torch.ones(4, dtype=torch.bfloat16, device=device)
+    for name in ("all_reduce", "all_gather"):
+        try:
+            if name == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = float(y[0]) == dist.get_world_size()
+            else:
+                parts = [torch.empty_like(x)
+                         for _ in range(dist.get_world_size())]
+                dist.all_gather(parts, x)
+                ok = all(bool((p == 1).all()) for p in parts)
+            out[name] = "ok" if ok else "wrong values"
+        except Exception as exc:                # the answer is the point
+            out[name] = f"refused: {type(exc).__name__}: {exc}"[:200]
+    return out
+
+
+def placement_model(job, arch, dtype=None, layers=None):
+    return mesh_model(dict(job, arch=arch), dtype, layers)
+
+
+def placed_tree(cfg, mesh, fsdp, seed, device):
+    """(placed params, specs, bytes predicted from the spec tree, draw
+    seconds): ``seeded_params`` keeps only this process's shards."""
+    from repro_torch.distributed.placement import (param_shapes,
+                                                   seeded_params, spec_bytes)
+    from repro_torch.distributed.sharding import (param_specs,
+                                                  validate_divisibility)
+    shapes = param_shapes(cfg)
+    specs = validate_divisibility(param_specs(cfg, shapes, fsdp=fsdp),
+                                  shapes, mesh)
+    sync(device)
+    t0 = time.perf_counter()
+    placed = seeded_params(cfg, seed, mesh=mesh, specs=specs, device=device)
+    sync(device)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return placed, specs, spec_bytes(shapes, specs, sizes), \
+        time.perf_counter() - t0
+
+
+def placement_layout(cfg, mesh):
+    """The mesh's ServeLayout as ``distributed.sharding`` decides it, and
+    the prefill's ``n_data`` (the batch axes' size)."""
+    from repro_torch.distributed.sharding import batch_axes, serve_pool_axes
+    from repro_torch.serving import sharded_step as ss
+    axes = batch_axes(mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return (ss.ServeLayout(axes, serve_pool_axes(cfg, mesh)),
+            int(np.prod([sizes[a] for a in axes])))
+
+
+def placed_serve_run(arch, mesh, job, device, ph, *, S, steps,
+                     replicated):
+    """One model on placed weights over ``mesh``: the weight bytes this
+    process holds (against the spec tree's prediction), a prefill of B x
+    S, then ``steps`` decode steps of each schedule; with ``replicated``
+    the same steps on the whole tree in between (replicated, placed,
+    placed, replicated), for TBT side by side."""
+    from repro_torch.distributed.placement import local_bytes, seeded_params
+    from repro_torch.serving import sharded_step as ss
+    cfg = placement_model(job, arch)
+    L = cfg.num_layers
+    placed, specs, predicted, draw_s = placed_tree(cfg, mesh, False,
+                                                   ph["seed"], device)
+    held = local_bytes(placed)
+    if held != predicted:
+        raise AssertionError(f"{arch}: {held} B held, the spec tree gives "
+                             f"{predicted}")
+    layout, n_data = placement_layout(cfg, mesh)
+    sh = {"bs": ph["bs"], "NP": ph["NP"], "n_data": n_data}
+    B, bs = ph["B"], ph["bs"]
+    toks = np.random.default_rng(ph["seed"]).integers(0, cfg.vocab_size,
+                                                      (B, S))
+    if device.type == "cuda":
+        reset_peak_memory()
+    first, pools, prefill_s, c = sl_prefill(placed, cfg, layout, toks, sh,
+                                            device, mesh)
+    check_prefill_counts(c, L, device)
+    first = ss.gather_batch(first, mesh, layout, B).cpu().numpy()
+    wb, _, NBl = ss.prefill_layout(B, S, bs, ph["NP"], n_data=n_data)
+    tabs = layout_tables(wb, NBl, S, bs, -(-S // bs) + 1)
+    out = {"arch": arch, "mesh": list(mesh.shape),
+           "pool_axes": list(layout.pool_axes), "weight_bytes": held,
+           "weight_bytes_predicted": predicted, "draw_s": draw_s,
+           "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+           "slab_shape": list(pools[0].shape), "runs": {}}
+    whole = seeded_params(cfg, ph["seed"], device=device) if replicated \
+        else None
+    order = ((("replicated", False), ("placed", False), ("placed", True),
+              ("replicated", True)) if replicated else
+             (("placed", False), ("placed", True)))
+    for who, opt in order:
+        run = tuple(p.clone() for p in pools)
+        stream, secs, counts, _ = decode_run(
+            placed if who == "placed" else whole, cfg, layout, run, tabs, S,
+            bs, first, steps, opt=opt, device=device, mesh=mesh)
+        check_decode_counts(counts, L, device)
+        out["runs"][f"{who}_{'opt' if opt else 'write'}"] = {
+            "stream": stream.tolist(), **tbt_numbers(secs, B)}
+        del run
+    if device.type == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["first"] = first.tolist()
+    del placed, whole, pools
+    release_memory()
+    return out
+
+
+def placed_parity_run(mesh, fsdp, job, device, ph):
+    """float32 at ``parity_layers``: the steps on placed weights against
+    the same steps on the whole tree, in this process: the first tokens,
+    each schedule's first-step logits (this process's rows) and streams."""
+    from repro_torch.distributed.placement import seeded_params
+    from repro_torch.serving import sharded_step as ss
+    cfg = placement_model(job, "qwen3-0.6b", "float32", ph["parity_layers"])
+    placed, _, _, _ = placed_tree(cfg, mesh, fsdp, ph["seed"], device)
+    whole = seeded_params(cfg, ph["seed"], device=device)
+    layout, n_data = placement_layout(cfg, mesh)
+    sh = {"bs": ph["bs"], "NP": ph["NP"], "n_data": n_data}
+    B, S, bs = ph["B"], ph["parity_S"], ph["bs"]
+    toks = np.random.default_rng(ph["seed"] + 1).integers(
+        0, cfg.vocab_size, (B, S))
+    res = {"mesh": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+           "fsdp": fsdp, "pool_axes": list(layout.pool_axes),
+           "n_data": n_data}
+    firsts, streams = {}, {}
+    for who, params in (("placed", placed), ("replicated", whole)):
+        first, pools, _, _ = sl_prefill(params, cfg, layout, toks, sh,
+                                        device, mesh)
+        firsts[who] = ss.gather_batch(first, mesh, layout, B).cpu().numpy()
+        wb, _, NBl = ss.prefill_layout(B, S, bs, ph["NP"], n_data=n_data)
+        tabs = layout_tables(wb, NBl, S, bs, -(-S // bs) + 1)
+        for opt in (False, True):
+            run = tuple(p.clone() for p in pools)
+            stream, _, _, lg = decode_run(
+                params, cfg, layout, run, tabs, S, bs, firsts[who],
+                ph["parity_steps"], opt=opt, device=device, mesh=mesh,
+                logits=True)
+            streams[who, opt] = (stream, lg)
+    res["first"] = firsts["placed"].tolist()
+    res["first_equal"] = bool((firsts["placed"] ==
+                               firsts["replicated"]).all())
+    for opt in (False, True):
+        (sp, lp), (sr, lr) = streams["placed", opt], streams["replicated",
+                                                            opt]
+        key = "opt" if opt else "write"
+        res[key] = {"stream": sp.tolist(),
+                    "streams_equal": bool((sp == sr).all()),
+                    "logit_rel_err": rel_diff(lp, lr)}
+    del placed, whole
+    return res
+
+
+def placement_job(world, job, device):
+    """This process's share of the placement runs of a group of
+    ``world`` processes (``PLACEMENT_MESHES``, ``PLACEMENT_PARITY``)."""
+    from repro_torch.distributed.mesh import make_mesh
+    ph = PLACEMENT_SMOKE if job.get("smoke") else PLACEMENT
+    out = {"gloo_bf16": gloo_bf16_probe(device), "runs": {}, "parity": []}
+    meshes = {}
+    for names, shape in PLACEMENT_MESHES[world]:
+        mesh = meshes[names, shape] = make_mesh(shape, names, device=device)
+        out["runs"][str(shape)] = placed_serve_run(
+            "qwen3-0.6b", mesh, job, device, ph, S=ph["S"],
+            steps=ph["steps"], replicated=True)
+    if world == 2:
+        out["moe"] = placed_serve_run(
+            "qwen2-moe-a2.7b", meshes[("data", "model"), (1, 2)], job,
+            device, ph, S=ph["moe_S"], steps=ph["moe_steps"],
+            replicated=False)
+    for names, shape, fsdp in PLACEMENT_PARITY[world]:
+        mesh = meshes.get((names, shape)) or make_mesh(shape, names,
+                                                       device=device)
+        meshes[names, shape] = mesh
+        out["parity"].append(placed_parity_run(mesh, fsdp, job, device, ph))
+    return out
+
+
+def placement_check(runs, world, job, device, single):
+    """The gates of a group's placement runs over every process: the
+    bytes each holds, equal streams in every process (and, at float32,
+    equal to the whole tree's and to the single-process step's, logits
+    within 1e-5 relative)."""
+    ph = PLACEMENT_SMOKE if job.get("smoke") else PLACEMENT
+    jobs = [run["placement"] for run in runs]
+    rep = {"gloo_bf16": jobs[0]["gloo_bf16"], "runs": {}, "parity": []}
+    for key in jobs[0]["runs"]:
+        for j, p in enumerate(jobs):
+            for name in ("first",):
+                if p["runs"][key][name] != jobs[0]["runs"][key][name]:
+                    raise AssertionError(f"placement {key}: process {j}'s "
+                                         f"{name} differs")
+            for name, r in p["runs"][key]["runs"].items():
+                if r["stream"] != jobs[0]["runs"][key]["runs"][name][
+                        "stream"]:
+                    raise AssertionError(f"placement {key} {name}: process "
+                                         f"{j}'s stream differs")
+        r0 = jobs[0]["runs"][key]
+        rep["runs"][key] = {
+            **{k: r0[k] for k in ("arch", "mesh", "pool_axes",
+                                  "weight_bytes_predicted", "slab_shape")},
+            "weight_bytes": [p["runs"][key]["weight_bytes"] for p in jobs],
+            "draw_s": [p["runs"][key]["draw_s"] for p in jobs],
+            "prefill_s": [p["runs"][key]["prefill_s"] for p in jobs],
+            "peak_mem_bytes": [p["runs"][key].get("peak_mem_bytes")
+                               for p in jobs],
+            "tbt_p50_s": {n: [p["runs"][key]["runs"][n]["tbt_p50_s"]
+                              for p in jobs] for n in r0["runs"]},
+            "placed_equals_replicated_tokens": {
+                sched: float(np.mean(np.array(r0["runs"][f"placed_{sched}"]
+                                              ["stream"]) ==
+                                     np.array(r0["runs"][
+                                         f"replicated_{sched}"]["stream"])))
+                for sched in ("write", "opt")}}
+    if "moe" in jobs[0]:
+        m0 = jobs[0]["moe"]
+        for j, p in enumerate(jobs):
+            if p["moe"]["runs"] and any(
+                    p["moe"]["runs"][n]["stream"] != m0["runs"][n]["stream"]
+                    for n in m0["runs"]):
+                raise AssertionError(f"placement moe: process {j}'s stream "
+                                     f"differs")
+        rep["moe"] = {**{k: m0[k] for k in ("arch", "mesh", "pool_axes",
+                                            "weight_bytes_predicted",
+                                            "slab_shape")},
+                      "weight_bytes": [p["moe"]["weight_bytes"]
+                                       for p in jobs],
+                      "draw_s": [p["moe"]["draw_s"] for p in jobs],
+                      "prefill_s": [p["moe"]["prefill_s"] for p in jobs],
+                      "peak_mem_bytes": [p["moe"].get("peak_mem_bytes")
+                                         for p in jobs],
+                      "tbt_p50_s": {n: [p["moe"]["runs"][n]["tbt_p50_s"]
+                                        for p in jobs] for n in m0["runs"]}}
+    for i, p0 in enumerate(jobs[0]["parity"]):
+        want = single_placement_streams(job, device, ph, single,
+                                        p0["n_data"])
+        for j, p in enumerate(jobs):
+            par = p["parity"][i]
+            err = max(par[k]["logit_rel_err"] for k in ("write", "opt"))
+            if err > PLACEMENT_RTOL or not par["first_equal"] or not all(
+                    par[k]["streams_equal"] for k in ("write", "opt")):
+                raise AssertionError(f"placement parity {par['mesh']} "
+                                     f"fsdp={par['fsdp']} process {j}: "
+                                     f"logits {err} relative, {par}")
+            got = (par["first"], par["write"]["stream"], par["opt"]["stream"])
+            if got != want:
+                raise AssertionError(f"placement parity {par['mesh']} "
+                                     f"process {j}: streams {got} != the "
+                                     f"single-process step's {want}")
+        rep["parity"].append({
+            k: p0[k] for k in ("mesh", "names", "fsdp", "pool_axes")} | {
+            "logit_rel_err": max(p["parity"][i][k]["logit_rel_err"]
+                                 for p in jobs for k in ("write", "opt")),
+            "streams_equal_single_process": True})
+    if device.type == "cuda":
+        release_memory()
+    return rep
+
+
+def single_placement_streams(job, device, ph, single, n_data):
+    """The float32 parity case's streams from the one-process steps
+    (every shard here, the whole tree, the prefill laid out for
+    ``n_data`` batch ranks as on the mesh), computed once."""
+    key = ("placement_parity", n_data)
+    if key in single:
+        return single[key]
+    from repro_torch.distributed.placement import seeded_params
+    from repro_torch.serving import sharded_step as ss
+    cfg = placement_model(job, "qwen3-0.6b", "float32", ph["parity_layers"])
+    params = seeded_params(cfg, ph["seed"], device=device)
+    layout = ss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    B, S, bs = ph["B"], ph["parity_S"], ph["bs"]
+    sh = {"bs": bs, "NP": ph["NP"], "n_data": n_data}
+    toks = np.random.default_rng(ph["seed"] + 1).integers(
+        0, cfg.vocab_size, (B, S))
+    first, pools, _, _ = sl_prefill(params, cfg, layout, toks, sh, device)
+    first = first.cpu().numpy()
+    wb, _, NBl = ss.prefill_layout(B, S, bs, ph["NP"], n_data=n_data)
+    tabs = layout_tables(wb, NBl, S, bs, -(-S // bs) + 1)
+    out = [first.tolist()]
+    for opt in (False, True):
+        run = tuple(p.clone() for p in pools)
+        stream, _, _, _ = decode_run(params, cfg, layout, run, tabs, S, bs,
+                                     first, ph["parity_steps"], opt=opt,
+                                     device=device)
+        out.append(stream.tolist())
+    single[key] = tuple(out)
+    return single[key]
+
+
 def flash_long_case(name, B, S, H, K, D, dtype, device):
     """The flash-prefill kernel at the ServeLayout prefill's causal shape,
     against its plain version applied to one (batch, query head) slice
@@ -3597,31 +4098,45 @@ def main(argv=None) -> int:
         {k: v for k, v in gserving.items() if k != "counts"}), flush=True)
     mark("qwen3_global")
     for gp in (False, True):
+        key = "bs128_global" if gp else "bs128"
+        report[key] = bs128_phase(params, cfg, device, (4000, 600, 300), 32,
+                                  global_pool=gp)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(
+            {k: v for k, v in report[key].items() if k != "counts"}),
+            flush=True)
+    mark("qwen3_bs128")
+    # The extensions' phases at QWEN3_EXT_LAYERS (views of the weights).
+    ext, ecfg = first_layers(params, cfg, QWEN3_EXT_LAYERS)
+    for gp in (False, True):
         key = "hierarchy_global" if gp else "hierarchy"
-        report[key] = hierarchy_phase(params, cfg, device, gp)
+        report[key] = hierarchy_phase(ext, ecfg, device, gp)
         print(f"{key.replace('_', ' ')}: " + json.dumps(
             {k: v for k, v in report[key].items() if k != "counts"}),
             flush=True)
     mark("qwen3_hierarchy")
     for gp in (False, True):
         key = "overload_global" if gp else "overload"
-        report[key] = overload_phase(params, cfg, device, gp)
+        report[key] = overload_phase(ext, ecfg, device, gp)
         print(f"{key.replace('_', ' ')}: " + json.dumps(
             {k: v for k, v in report[key].items() if k != "counts"}),
             flush=True)
     mark("qwen3_overload")
     for gp in (False, True):
         key = "faults_global" if gp else "faults"
-        report[key] = fault_phase(params, cfg, device, gp, (4000, 600, 300))
+        report[key] = fault_phase(ext, ecfg, device, gp, (4000, 600, 300))
         print(f"{key.replace('_', ' ')}: " + json.dumps(
             {k: v for k, v in report[key].items() if k != "counts"}),
             flush=True)
         key = "fault_plan_global" if gp else "fault_plan"
-        report[key] = fault_plan_phase(params, cfg, device, gp)
+        report[key] = fault_plan_phase(ext, ecfg, device, gp)
         print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
               flush=True)
     mark("qwen3_faults")
-    report["mesh"] = mesh_phase(params, cfg, device, (4000, 600, 300), 32)
+    del ext
+    # The mesh groups serve qwen3 at half depth (14 layers): their gloo
+    # steps are host-bound, and the placement job shares their time.
+    report["mesh"] = mesh_phase(params, cfg, device, (4000, 600, 300), 32,
+                                layers=MESH_SERVE_LAYERS)
     print("mesh: " + json.dumps(report["mesh"]), flush=True)
     mark("qwen3_mesh")
     check_released(report, "qwen3-0.6b servers", limit=(512 << 20)
@@ -3636,17 +4151,18 @@ def main(argv=None) -> int:
     check_released(report, "qwen3-0.6b")
 
     hcfg = get_config("recurrentgemma-9b")
+    hcfg_s = dataclasses.replace(hcfg, num_layers=HYBRID_SERVE_LAYERS)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    hparams = init_params(hcfg, gen, device)
+    hparams = init_params(hcfg_s, gen, device)
     torch.cuda.synchronize()
     report["hybrid_init_s"] = time.perf_counter() - t0
-    hybrid = hybrid_serving_phase(hparams, hcfg, device,
+    hybrid = hybrid_serving_phase(hparams, hcfg_s, device,
                                   (6000, 3000, 1000, 400), 32)
     report["hybrid_serving"] = hybrid
     print("hybrid serving: " + json.dumps(
         {k: v for k, v in hybrid.items() if k != "counts"}), flush=True)
-    report["hybrid_trace"] = trace_phase(hparams, hcfg, device,
+    report["hybrid_trace"] = trace_phase(hparams, hcfg_s, device,
                                          hybrid_serving_config(),
                                          (3000, 1000, 400), 32, 6000)
     print("hybrid trace: " + json.dumps(report["hybrid_trace"]), flush=True)
@@ -3673,18 +4189,20 @@ def main(argv=None) -> int:
     check_released(report, "qwen2-moe-a2.7b")
 
     xcfg = get_config("xlstm-350m")
+    xcfg_s = dataclasses.replace(xcfg, num_layers=SSM_SERVE_LAYERS)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    xparams = init_params(xcfg, gen, device)
+    xparams = init_params(xcfg_s, gen, device)
     torch.cuda.synchronize()
     report["ssm_init_s"] = time.perf_counter() - t0
     report["ssm_param_bytes"] = sum(
         t.numel() * t.element_size() for t in tree_leaves(xparams))
-    ssm = ssm_serving_phase(xparams, xcfg, device, (1024, 512, 256, 64), 32)
+    ssm = ssm_serving_phase(xparams, xcfg_s, device, (1024, 512, 256, 64),
+                            32)
     report["ssm_serving"] = ssm
     print("ssm serving: " + json.dumps(
         {k: v for k, v in ssm.items() if k != "counts"}), flush=True)
-    report["ssm_trace"] = trace_phase(xparams, xcfg, device,
+    report["ssm_trace"] = trace_phase(xparams, xcfg_s, device,
                                       ssm_serving_config(), (512, 256, 64),
                                       32, 64, then=ssm_owner_crash)
     print("ssm trace: " + json.dumps(report["ssm_trace"]), flush=True)
@@ -3730,6 +4248,23 @@ def main(argv=None) -> int:
     mark("moe_parity")
     del mparams32
     check_released(report, "qwen2-moe-a2.7b float32")
+
+    # 128-token blocks, float32 at 4 layers: the creditor-spanning
+    # prompt of the serving phase (4,000 tokens, seed 7) over pools of 20
+    # blocks, in both pool modes, greedy-equal to the dense oracle.
+    cfg4 = dataclasses.replace(cfg32, num_layers=4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params4 = init_params(cfg4, gen, device)
+    for gp in (False, True):
+        key = "bs128_parity_global" if gp else "bs128_parity"
+        report[key] = parity_phase(params4, cfg4, device, 4000, 24,
+                                   global_pool=gp, pool_blocks=20, seed=7,
+                                   block_size=128, max_local_len=1024)
+        print(f"{key.replace('_', ' ')}: " + json.dumps(report[key]),
+              flush=True)
+    mark("bs128_parity")
+    del params4
+    check_released(report, "qwen3-0.6b float32 4 layers")
 
     hcfg32 = dataclasses.replace(hcfg, dtype="float32", num_layers=5)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -3812,6 +4347,17 @@ def main(argv=None) -> int:
                 f"prefill_32k_{n}": sl[f"prefill_{n}"]["flash_launches"]
                 for n in ("full", "ragged")},
             "serve_layout_rows": sl_rows("flash_serve_prefill")}}
+    # 128-token blocks: the prefill kernels' rows (sub-block views) and
+    # their launches in the bs-128 served runs, each pool mode's own.
+    bs128_extra = {
+        "paged_prefill_attention": {
+            "bs128_launches": report["bs128"]["counts"][
+                "paged_prefill_attention"]["launches"],
+            "bs128_rows": sl_rows("prefill_bs128")},
+        "paged_prefill_attention_ranks": {
+            "bs128_launches": report["bs128_global"]["counts"][
+                "paged_prefill_attention_ranks"]["launches"],
+            "bs128_rows": sl_rows("prefill_ranks_bs128")}}
     sources = {"decode": ("paged_micro_attention",
                           "src/repro_torch/csrc/micro_attn_decode.cu",
                           "src/repro/kernels/micro_attn_decode.py:86"),
@@ -3845,6 +4391,8 @@ def main(argv=None) -> int:
             kernels[-1]["mesh_launches"] = mesh_launches[name]
         if name in sl_extra:
             kernels[-1].update(sl_extra[name])
+        if name in bs128_extra:
+            kernels[-1].update(bs128_extra[name])
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
     print(f"script: {report['script_s']:.1f} s (elapsed at the end of "

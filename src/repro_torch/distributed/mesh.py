@@ -91,7 +91,7 @@ def mesh_group(mesh):
 
 def pool_shards(mesh, pool_axes: Sequence[str]) -> PoolShards:
     """The shards of a pool whose rank axis is split over ``pool_axes``
-    (one axis, or every axis of the mesh), in the axes' order — shard
+    (any non-empty set of the mesh's axes), in the axes' order — shard
     ``s`` holds ranks ``[s * r_loc, (s + 1) * r_loc)``, as JAX's
     ``PartitionSpec(pool_axes)`` places them. Worked out once per mesh
     and axes, then kept on the mesh (the steps ask every call)."""
@@ -107,15 +107,14 @@ def _pool_shards(mesh, pool_axes: Tuple[str, ...]) -> PoolShards:
     unknown = [ax for ax in pool_axes if ax not in names]
     if unknown or not pool_axes:
         raise ValueError(f"pool axes {pool_axes} not in mesh axes {names}")
+    dims = [names.index(ax) for ax in pool_axes]
     if len(pool_axes) == 1:
         group = mesh.get_group(pool_axes[0])
     elif sorted(pool_axes) == sorted(names):
         group = mesh_group(mesh)
     else:
-        raise NotImplementedError(
-            f"pool axes {pool_axes}: one axis or every axis of the mesh")
+        group = _subset_group(mesh, dims)
     coord = list(mesh.get_coordinate())
-    dims = [names.index(ax) for ax in pool_axes]
     sizes = [mesh.size(d) for d in dims]
     index = int(np.ravel_multi_index([coord[d] for d in dims], sizes))
     owners = []
@@ -125,6 +124,22 @@ def _pool_shards(mesh, pool_axes: Tuple[str, ...]) -> PoolShards:
             at[d] = int(c)
         owners.append(int(mesh.mesh[tuple(at)]))
     return PoolShards(group, index, len(owners), tuple(owners))
+
+
+def _subset_group(mesh, dims):
+    """The process group of the processes that differ from this one only
+    in the mesh dims ``dims`` (a proper subset of two or more). Every
+    process creates every such group, in the same order (``new_group``
+    is collective over the job), and keeps its own."""
+    other = [d for d in range(mesh.ndim) if d not in dims]
+    size = int(np.prod([mesh.size(d) for d in dims]))
+    rows = mesh.mesh.permute(other + list(dims)).reshape(-1, size).tolist()
+    me, mine = dist.get_rank(), None
+    for ranks in rows:
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
 
 
 def shard_rank_base(mesh, pool_axes: Sequence[str], r_loc: int) -> int:

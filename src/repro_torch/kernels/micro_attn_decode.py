@@ -42,7 +42,7 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_BLOCK_SIZE = 64        # the paged prefill kernel's largest block
+MAX_BLOCK_SIZE = 64        # the paged prefill kernel's largest (sub-)block
 MAX_DECODE_BLOCK_SIZE = 128  # the decode kernel's (the launch cells' 128)
 MIN_SPLIT_TOKENS = 256    # the least a split-KV block is given to read
 MAX_SPLITS = 32           # the most splits a merge takes (csrc MAX_SPLITS)
@@ -183,7 +183,8 @@ def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
     each rank's slab contiguous. ``max_block_size``: the largest block
     the calling kernel was checked at (the decode kernel indexes tokens
     by shift or division and stages tiles sized by the row alone, so it
-    takes the launch cells' 128; the prefill kernel stays at 64).
+    takes the launch cells' 128; the prefill kernel reads at most 64, so
+    its wrappers read larger blocks as sub-blocks and pass their own).
     Returns the rank stride in elements (0 for one pool)."""
     if not (q.is_cuda and pool_k.is_cuda and pool_v.is_cuda
             and table.is_cuda):

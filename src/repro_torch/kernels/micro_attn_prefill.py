@@ -28,6 +28,15 @@ counterpart of the JAX package's vmap over the global pool's rank axis
 the pools may be a strided per-layer view of the global pool, read in
 place.
 
+Blocks larger than the kernel's 64 tokens (the launch cells' 128): the
+two CUDA wrappers present a pool of ``bs``-token blocks as one of
+``sub``-token blocks, ``sub`` the largest divisor of ``bs`` the kernel
+takes (``sub_block_size``). The pool is a view of each rank's
+contiguous slab (``[NB * bs // sub, sub, K, D]``, never a copy); the
+tables and tails are expanded on the card by ``sub_block_tables`` (no
+host read), which the CPU tests hold to the plain function over the
+original pool.
+
 ``paged_prefill_attention_plain`` is the same function in plain PyTorch,
 in float32 throughout like the Pallas kernel;
 ``paged_prefill_attention_ranks_plain`` stacks it over the ranks. The CPU
@@ -43,7 +52,8 @@ import torch
 from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
 from repro_torch.core.online_softmax import _masked_softmax_parts
 from repro_torch.kernels import build
-from repro_torch.kernels.micro_attn_decode import (_DTYPES, _ptr, argtypes,
+from repro_torch.kernels.micro_attn_decode import (MAX_BLOCK_SIZE, _DTYPES,
+                                                   _ptr, argtypes,
                                                    check_inputs,
                                                    current_stream,
                                                    device_sm_count,
@@ -53,6 +63,7 @@ from repro_torch.kernels.micro_attn_decode import (_DTYPES, _ptr, argtypes,
                                                    stack_ranks)
 
 SMEM_PER_SM = 232_448   # bytes of shared memory a block may use on an H100
+MIN_SUB_BLOCK = 8       # the smallest sub-block a larger block is cut into
 _ARGTYPES = argtypes(5)
 
 
@@ -130,6 +141,64 @@ def paged_prefill_attention_ranks_plain(q, pools_k, pools_v, tables, tails,
                        tables, tails, scale=scale)
 
 
+def sub_block_size(bs: int) -> int:
+    """The block the kernel reads a pool of ``bs``-token blocks as:
+    ``bs`` itself up to the kernel's 64, else the largest divisor of
+    ``bs`` in [MIN_SUB_BLOCK, 64]; ValueError when there is none."""
+    if bs <= MAX_BLOCK_SIZE:
+        return bs
+    for sub in range(MAX_BLOCK_SIZE, MIN_SUB_BLOCK - 1, -1):
+        if bs % sub == 0:
+            return sub
+    raise ValueError(f"block size {bs} exceeds {MAX_BLOCK_SIZE} and has no "
+                     f"divisor in [{MIN_SUB_BLOCK}, {MAX_BLOCK_SIZE}] to read "
+                     f"it as sub-blocks")
+
+
+def sub_block_tables(tables: torch.Tensor, tails, bs: int, sub: int):
+    """Tables and tails of a pool of ``bs``-token blocks, for the same
+    pool read as ``sub``-token blocks (``bs % sub == 0``, f = bs // sub).
+
+    tables [..., MB] (-1 padded, valid slots a prefix) -> [..., MB * f]:
+    block b becomes sub-blocks ``b * f + j`` (j < f); those past the tail
+    of the last valid block become -1. tails [...] (valid tokens of the
+    last valid block, read as the kernel reads them: clamped to [0, bs])
+    -> the valid tokens of the last valid sub-block. Device ops only: no
+    host read."""
+    f = bs // sub
+    dev = tables.device
+    tab = tables.to(torch.int32)
+    tail = torch.as_tensor(tails, device=dev).to(torch.int32).reshape(
+        tab.shape[:-1]).clamp(0, bs)
+    n_valid = (tab >= 0).sum(-1, dtype=torch.int32)            # [...]
+    n_last = (tail + sub - 1) // sub                            # sub-blocks
+    slot = torch.arange(tab.shape[-1], device=dev, dtype=torch.int32)
+    j = torch.arange(f, device=dev, dtype=torch.int32)
+    is_last = (slot == (n_valid - 1)[..., None])[..., None]    # [..., MB, 1]
+    keep = (tab >= 0)[..., None] & (~is_last | (j < n_last[..., None, None]))
+    out = torch.where(keep, tab[..., None] * f + j, -1).flatten(-2)
+    new_tail = torch.where(n_last > 0, tail - (n_last - 1) * sub, sub)
+    return out, new_tail
+
+
+def _checked(q, pool_k, pool_v, tables, tails, *, ranked: bool):
+    """Check the inputs (``check_inputs``, the block size as sub-blocks)
+    and give (rank stride, pool_k, pool_v, tables, tails) with blocks the
+    kernel takes: the pools as views of ``sub``-token blocks, the tables
+    and tails expanded to match (the inputs themselves when ``bs`` is
+    taken)."""
+    bs = pool_k.shape[-3]
+    sub = sub_block_size(bs)
+    rank_stride = check_inputs(q, pool_k, pool_v, tables, ranked=ranked,
+                               max_block_size=bs)
+    if sub == bs:
+        return rank_stride, pool_k, pool_v, tables, tails
+    lead, NB = pool_k.shape[:-4], pool_k.shape[-4]
+    shape = (*lead, NB * (bs // sub), sub, *pool_k.shape[-2:])
+    tables, tails = sub_block_tables(tables, tails, bs, sub)
+    return rank_stride, pool_k.view(shape), pool_v.view(shape), tables, tails
+
+
 def _prefill_launch(counter, q, pool_k, pool_v, table, tail_len, scale,
                     NR: int, rank_stride: int):
     """Launch the prefill-chunk kernel over ``NR`` rank pools (checked
@@ -178,8 +247,10 @@ def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
 
     Same contract as ``paged_prefill_attention_plain``; raises ValueError
     on inputs it does not take and RuntimeError if the launch fails.
+    Blocks over 64 tokens are read as sub-blocks (``_checked``).
     """
-    check_inputs(q, pool_k, pool_v, table)
+    _, pool_k, pool_v, table, tail_len = _checked(q, pool_k, pool_v, table,
+                                                  tail_len, ranked=False)
     return _prefill_launch(paged_prefill_attention_cuda, q, pool_k, pool_v,
                            table, tail_len, scale, 1, 0)
 
@@ -190,8 +261,10 @@ def paged_prefill_attention_ranks_cuda(q, pools_k, pools_v, tables, tails,
 
     Same contract as ``paged_prefill_attention_ranks_plain``; the pools
     may be a strided view (each rank's slab contiguous), never copied.
+    Blocks over 64 tokens are read as sub-blocks (``_checked``).
     """
-    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True)
+    rank_stride, pools_k, pools_v, tables, tails = _checked(
+        q, pools_k, pools_v, tables, tails, ranked=True)
     NR = pools_k.shape[0]
     C, H, D = q.shape
     o, m, l = _prefill_launch(paged_prefill_attention_ranks_cuda, q,

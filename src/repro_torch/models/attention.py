@@ -42,12 +42,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *, device,
 def qkv_project(params, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [B, T, d] -> q [B,T,H,hd], k/v [B,T,K,hd] with qk-norm + RoPE."""
+    """x: [B, T, d] -> q [B,T,H,hd], k/v [B,T,K,hd] with qk-norm + RoPE.
+    Placed weights whose columns are split over the TP axis give this
+    process's heads only (whole heads: q/norm/RoPE act head by head)."""
     B, T, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, T, H, hd)
-    k = (x @ params["wk"]).reshape(B, T, K, hd)
-    v = (x @ params["wv"]).reshape(B, T, K, hd)
+    hd = cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, T, -1, hd)
+    k = (x @ params["wk"]).reshape(B, T, -1, hd)
+    v = (x @ params["wv"]).reshape(B, T, -1, hd)
     if cfg.qk_norm:
         q = rms_norm_headwise(q, params["q_norm"])
         k = rms_norm_headwise(k, params["k_norm"])

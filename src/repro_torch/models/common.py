@@ -26,6 +26,36 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # --------------------------------------------------------------------- #
+# Tensor parallelism: what a layer reads of a placed leaf
+# --------------------------------------------------------------------- #
+TP_AXIS = "model"
+
+
+def spec_axes(entry):
+    """The mesh axes of one spec entry (a name, a tuple of names, None)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def tp_split(spec, dim: int, tp) -> bool:
+    """Whether dim ``dim`` of a leaf placed by ``spec`` is split over the
+    TP axis. ``tp`` is the TP axis (``distributed.placement.TPAxis``: its
+    ``index``, ``count``, ``sum`` and ``cat``) or None: never split."""
+    return tp is not None and spec is not None and \
+        TP_AXIS in spec_axes(tuple(spec)[dim])
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool,
+                 tp) -> torch.Tensor:
+    """``x @ w``; when ``w``'s rows are split over the TP axis, ``x``
+    holds the matching columns and the partial products are summed over
+    it (in float32, cast back)."""
+    y = x @ w
+    return tp.sum(y) if split else y
+
+
+# --------------------------------------------------------------------- #
 # Norms
 # --------------------------------------------------------------------- #
 def init_norm(cfg: ModelConfig, dim: int, *, device, lead=()):
@@ -129,7 +159,11 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None,
     return p
 
 
-def apply_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_ffn(params, x: torch.Tensor, cfg: ModelConfig, *, specs=None,
+              tp=None) -> torch.Tensor:
+    """The dense FFN. Placed (``specs``, ``tp``): ``wi``/``wg`` hold this
+    process's columns and ``wo`` the matching rows, and one all-reduce
+    over the TP axis sums the partial outputs."""
     h = x @ params["wi"]
     if cfg.activation == "swiglu":
         h = F.silu(h) * (x @ params["wg"])
@@ -138,4 +172,5 @@ def apply_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh") * (x @ params["wg"])
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ params["wo"]
+    split = tp_split(None if specs is None else specs["wo"], 0, tp)
+    return row_parallel(h, params["wo"], split, tp)

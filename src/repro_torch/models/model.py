@@ -35,7 +35,8 @@ from repro_torch.models.attention import (apply_attention_train,
                                           qkv_project)
 from repro_torch.models.common import (apply_ffn, apply_norm, dense_init,
                                        embed_init, init_ffn, init_norm,
-                                       sinusoidal_embedding, torch_dtype)
+                                       sinusoidal_embedding, torch_dtype,
+                                       tp_split)
 from repro_torch.models.moe import apply_moe, init_moe, moe_aux_loss
 from repro_torch.models.rglru import (apply_rglru_block, init_rglru_block,
                                       rglru_state_shape)
@@ -202,12 +203,16 @@ def attn_layer_params(params, cfg: ModelConfig, i: int):
 
 
 def ffn_or_moe(lp, h, cfg: ModelConfig, capacity_factor: float = 1.25,
-               ep_groups: int = 0) -> torch.Tensor:
+               ep_groups: int = 0, *, specs=None, tp=None) -> torch.Tensor:
     """The layer's feed-forward block: its dense FFN, or its MoE (a
-    layer's parameters hold ``ffn`` or ``moe``, never both)."""
-    if "moe" in lp:
-        return apply_moe(lp["moe"], h, cfg, capacity_factor, ep_groups)
-    return apply_ffn(lp["ffn"], h, cfg)
+    layer's parameters hold ``ffn`` or ``moe``, never both). Placed
+    weights: ``specs`` (the layer's) and ``tp``, the TP axis."""
+    kind = "moe" if "moe" in lp else "ffn"
+    sp = None if specs is None else specs[kind]
+    if kind == "moe":
+        return apply_moe(lp["moe"], h, cfg, capacity_factor, ep_groups,
+                         specs=sp, tp=tp)
+    return apply_ffn(lp["ffn"], h, cfg, specs=sp, tp=tp)
 
 
 def _layer_params(params, cfg: ModelConfig, i: int):
@@ -267,11 +272,23 @@ def _ssm_layer_fwd(kind, lp, x, cfg, state=None, *, decode=False):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens=None, embeds=None,
-                 positions=None):
+                 positions=None, *, specs=None, tp=None):
     """Token embeddings, or the given ``embeds`` [B, T, d] (a modality
     frontend's output), plus the sinusoidal table where the model has
-    one."""
-    x = params["embed"][tokens] if embeds is None else embeds
+    one. Placed weights (``specs``, ``tp``) whose vocab rows are split
+    over the TP axis: each process looks up its own rows (other ids give
+    zero) and one all-reduce sums them."""
+    if embeds is not None:
+        x = embeds
+    elif tp_split(None if specs is None else specs["embed"], 0, tp):
+        emb = params["embed"]
+        ids = tokens - tp.index * emb.shape[0]
+        inside = (ids >= 0) & (ids < emb.shape[0])
+        x = torch.where(inside[..., None], emb[ids.clamp(0, emb.shape[0] - 1)],
+                        0)
+        x = tp.sum(x)
+    else:
+        x = params["embed"][tokens]
     if cfg.positional == "sinusoidal":
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -279,10 +296,25 @@ def embed_tokens(params, cfg: ModelConfig, tokens=None, embeds=None,
     return x
 
 
-def unembed(params, cfg: ModelConfig, x):
+def unembed(params, cfg: ModelConfig, x, *, specs=None, tp=None):
+    """Final norm and logits [..., V]. Placed weights split over the TP
+    axis: by vocab (the tied table's rows), each process makes its logit
+    columns and they are gathered; by ``d`` (the untied ``unembed``'s
+    rows: JAX's ``embed$`` rule matches it first), each multiplies its
+    slice of ``x`` and the partial logits are summed."""
     x = apply_norm(params["final_norm"], x, cfg)
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ w
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    leaf = params[key]                       # [V, d] tied, else [d, V]
+    v_dim, d_dim = (0, 1) if cfg.tie_embeddings else (1, 0)
+    w = leaf.T if cfg.tie_embeddings else leaf
+    spec = None if specs is None else specs[key]
+    if tp_split(spec, d_dim, tp):
+        n = leaf.shape[d_dim]
+        return tp.sum(x[..., tp.index * n:(tp.index + 1) * n] @ w)
+    logits = x @ w
+    if tp_split(spec, v_dim, tp):
+        logits = tp.cat(logits, dim=-1)
+    return logits
 
 
 def unstack(stacked, n: int) -> list:

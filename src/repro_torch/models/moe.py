@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, torch_dtype
+from repro_torch.models.common import dense_init, torch_dtype, tp_split
 
 
 def _normal(gen, shape, std, dtype, device) -> torch.Tensor:
@@ -104,7 +104,7 @@ def _route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
 
 
 def _dispatch_combine(xt: torch.Tensor, params, cfg: ModelConfig,
-                      C: int, G: int = 1) -> torch.Tensor:
+                      C: int, G: int = 1, e0: int = 0) -> torch.Tensor:
     """Sort-based dispatch in ``G`` token groups of ``N / G`` tokens each,
     capacity ``C`` per expert and group. xt: [N, d] -> [N, d].
 
@@ -112,7 +112,9 @@ def _dispatch_combine(xt: torch.Tensor, params, cfg: ModelConfig,
     the expert FFNs run once over ``[E, G*C, d]`` (group g's rows of
     expert e at ``g*C .. g*C + C - 1``, JAX's grouped layout), and each
     token gathers back its own ``top_k`` rows. ``G = 1`` is the plain
-    dispatch."""
+    dispatch. A bank of fewer than E experts holds experts ``[e0, e0 +
+    E_loc)`` (split over the TP axis): the others' rows stay zero, and
+    the result is this process's partial sum."""
     E, topk = cfg.num_experts, cfg.top_k
     N, d = xt.shape
     Ng, A = N // G, (N // G) * topk            # tokens, assignments a group
@@ -138,8 +140,13 @@ def _dispatch_combine(xt: torch.Tensor, params, cfg: ModelConfig,
     row = torch.where(keep, se * (G * C) + grp * C + pos, E * G * C)
     buf = xt.new_zeros((E * G * C + 1, d))
     buf[row.reshape(-1)] = xt[st.reshape(-1)]
-    y_buf = _expert_ffn(params["experts"], buf[:E * G * C].view(E, G * C, d),
-                        cfg)
+    bank = params["experts"]
+    E_loc = bank["wi"].shape[0]
+    y_buf = _expert_ffn(bank, buf[:E * G * C].view(E, G * C, d)[
+        e0:e0 + E_loc], cfg)
+    if E_loc < E:
+        y_buf = torch.cat([y_buf.new_zeros((e0, G * C, d)), y_buf,
+                           y_buf.new_zeros((E - e0 - E_loc, G * C, d))])
     y = y_buf.reshape(E * G * C, d)[torch.where(keep, row, 0).reshape(-1)]
     y = y * (sg * keep).to(xt.dtype).reshape(-1, 1)
     # Back to (token, k) order through the inverse of each group's sort:
@@ -152,7 +159,7 @@ def _dispatch_combine(xt: torch.Tensor, params, cfg: ModelConfig,
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
               capacity_factor: float = 1.25,
-              ep_groups: int = 0) -> torch.Tensor:
+              ep_groups: int = 0, *, specs=None, tp=None) -> torch.Tensor:
     """x: [B, T, d] -> [B, T, d]. Top-k routed + always-on shared experts.
 
     ``ep_groups > 1`` with ``N = B*T`` divisible by it is the JAX
@@ -163,16 +170,32 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
     token counts take the plain path, as in JAX. JAX's sharding
     constraints (groups over "data", experts over "model") have no
     single-device counterpart and are left out.
+
+    Placed (``specs``, ``tp``): every process routes all of ``x`` with
+    the whole router (so its capacity drops are the single process's),
+    applies its own experts (split over the TP axis) and its columns of
+    the shared experts, and one all-reduce sums the split parts.
     """
     B, T, d = x.shape
     xt = x.reshape(-1, d)
     N = xt.shape[0]
     G = ep_groups if ep_groups > 1 and N % ep_groups == 0 else 1
     C = moe_capacity(N // G, cfg, capacity_factor)
-    y = _dispatch_combine(xt, params, cfg, C, G)
+    ex_split = tp_split(None if specs is None else
+                        specs["experts"]["wi"], 0, tp)
+    e0 = tp.index * params["experts"]["wi"].shape[0] if ex_split else 0
+    y = _dispatch_combine(xt, params, cfg, C, G, e0)
+    ys, sh_split = None, False
     if cfg.num_shared_experts:
-        y = y + _expert_ffn(params["shared"], xt[None], cfg).sum(0).to(
-            xt.dtype)
+        ys = _expert_ffn(params["shared"], xt[None], cfg).sum(0).to(xt.dtype)
+        sh_split = tp_split(None if specs is None else
+                            specs["shared"]["wo"], -2, tp)
+    outs = ((y, ex_split), (ys, sh_split))
+    whole = [t for t, split in outs if t is not None and not split]
+    split = [t for t, split in outs if split]
+    if split:                          # one all-reduce over the TP axis
+        whole.insert(0, tp.sum(sum(t.float() for t in split), xt.dtype))
+    y = whole[0] if len(whole) == 1 else whole[0] + whole[1]
     return y.reshape(B, T, d).to(x.dtype)
 
 

@@ -83,8 +83,23 @@ launches the rank kernel once over the local shards and heads, merges
 the local shards and then the pool group (``merge_partials_collective``)
 and, in tp_head mode, gathers the heads over the TP axis; each process
 keeps its own rows. MoE layers that drop past capacity see the whole
-batch (gathered), so the capacity is the global one. Weights stay
-replicated in every process.
+batch (gathered), so the capacity is the global one.
+
+The three pooled steps take the weights replicated (a plain tree, whole
+in every process) or placed over the mesh (``distributed.placement``'s
+``PlacedParams``, as the JAX package's cells pass ``param_specs`` to
+GSPMD): each layer all-gathers its FSDP leaves, q (and k/v where
+``wk``/``wv`` split: whole kv heads over the production TP degree)
+come out for this process's heads only, ``wo`` takes its own heads'
+rows and one all-reduce over "model" sums the partial outputs (in
+seq_model mode the pool needs every head, so q is gathered first); the
+FFN is column- then row-split (one all-reduce), MoE experts split over
+"model" (every process routes the whole batch with the whole router,
+applies its experts and its columns of the shared experts, one
+all-reduce); the vocab-split embedding looks up its rows and
+all-reduces, the logits are gathered (or summed, for an untied
+``unembed`` split over d). A placed tree needs the step's mesh; the
+state steps refuse it.
 """
 from __future__ import annotations
 
@@ -93,7 +108,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.online_softmax import (combine, finalize,
@@ -102,10 +116,11 @@ from repro_torch.core.online_softmax import (combine, finalize,
                                              micro_attention_decode,
                                              micro_attention_prefill)
 from repro_torch.distributed.mesh import pool_shards
+from repro_torch.distributed.placement import PlacedParams, all_gather_cat
 from repro_torch.kernels.ops import (paged_micro_attention_ranks,
                                      paged_prefill_attention_ranks)
 from repro_torch.models.attention import make_causal_core, qkv_project
-from repro_torch.models.common import apply_norm, torch_dtype
+from repro_torch.models.common import apply_norm, torch_dtype, tp_split
 from repro_torch.models.model import (POOLED_FAMILIES, attn_layer_params,
                                       decode_step, embed_tokens, ffn_or_moe,
                                       params_device, require_family, unembed)
@@ -378,19 +393,7 @@ def gather_batch(x: torch.Tensor, mesh, layout: ServeLayout,
     request's token."""
     if batch_rows(mesh, layout, R) == slice(0, R):
         return x
-    return _gather(x, pool_shards(mesh, layout.batch_axes))
-
-
-def _gather(x: torch.Tensor, shards, dim: int = 0) -> torch.Tensor:
-    """Concatenate every shard's ``x`` along ``dim``, in shard order
-    (``shards``: a ``PoolShards`` of the axes, or None: ``x`` itself)."""
-    if shards is None:
-        return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(shards.count)]
-    dist.all_gather(parts, x, group=shards.group)
-    order = [dist.get_group_rank(shards.group, o) for o in shards.owners]
-    return torch.cat([parts[i] for i in order], dim)
+    return all_gather_cat(x, pool_shards(mesh, layout.batch_axes))
 
 
 def _check_tables(tables, nblk) -> np.ndarray:
@@ -410,15 +413,120 @@ def _check_tables(tables, nblk) -> np.ndarray:
     return tab
 
 
-def _ffn(lp, h, cfg: ModelConfig, capacity_factor: float,
-         pl: _Placement) -> torch.Tensor:
-    """The layer's FFN/MoE on this process's rows. An MoE that drops past
-    capacity routes the whole batch (gathered over the batch axes), so
-    its capacity and drops are the single-process step's."""
+def _ffn(lp, ls, h, cfg: ModelConfig, capacity_factor: float,
+         pl: _Placement, tp) -> torch.Tensor:
+    """The layer's FFN/MoE on this process's rows (``ls``, ``tp``: the
+    layer's specs and the TP axis of placed weights). An MoE that drops
+    past capacity routes the whole batch (gathered over the batch axes),
+    so its capacity and drops are the single-process step's."""
     if "moe" in lp and capacity_factor > 0 and pl.batch is not None:
-        y = ffn_or_moe(lp, _gather(h, pl.batch), cfg, capacity_factor)
+        y = ffn_or_moe(lp, all_gather_cat(h, pl.batch), cfg, capacity_factor,
+                       specs=ls, tp=tp)
         return y[pl.r0:pl.r0 + pl.R_loc]
-    return ffn_or_moe(lp, h, cfg, capacity_factor)
+    return ffn_or_moe(lp, h, cfg, capacity_factor, specs=ls, tp=tp)
+
+
+def _heads(t: torch.Tensor, split: bool, n_total: int, lo: int, n: int,
+           tp) -> torch.Tensor:
+    """Heads ``[lo, lo + n)`` of a projection ``t [..., heads, hd]``: of
+    all ``n_total`` heads, or — its weight's columns split over the TP
+    axis — of this process's own ``n_total / tp.count`` (gathered over
+    the axis when others' are asked for)."""
+    if not split:
+        return t[..., lo:lo + n, :]
+    own = t.shape[-2]
+    if own * tp.count != n_total:
+        raise NotImplementedError(f"{n_total} heads split over a TP axis of "
+                                  f"{tp.count} cut inside a head")
+    if (lo, n) == (tp.index * own, own):
+        return t
+    return tp.cat(t, -2)[..., lo:lo + n, :]
+
+
+def _kv_for_heads(k: torch.Tensor, split: bool, cfg: ModelConfig, h0: int,
+                  n: int, tp) -> torch.Tensor:
+    """The kv heads query heads ``[h0, h0 + n)`` attend to under GQA, as
+    a tensor whose own grouping (``n / its heads``) matches them."""
+    K, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    if h0 % G == 0 and n % G == 0:
+        return _heads(k, split, K, h0 // G, n // G, tp)
+    idx = torch.arange(h0, h0 + n, device=k.device) // G
+    return _heads(k, split, K, 0, K, tp)[..., idx, :]
+
+
+class _Weights:
+    """A step's parameters: the plain tree (every weight whole in every
+    process), or a ``PlacedParams`` over the step's mesh, whose leaves
+    are read with their specs and whose FSDP dims are gathered a layer
+    at a time."""
+
+    def __init__(self, params, cfg: ModelConfig, mesh):
+        self.cfg = cfg
+        self.placed = params if isinstance(params, PlacedParams) else None
+        self.params = params
+        self.tp = None
+        if self.placed is not None:
+            if mesh is None:
+                raise ValueError("a placed parameter tree needs the step's "
+                                 "mesh=")
+            if self.placed.mesh is not mesh and self.placed.mesh != mesh:
+                raise ValueError("the parameter tree is placed over another "
+                                 "mesh than the step's")
+            self.tp = self.placed.tp
+
+    @property
+    def device(self) -> torch.device:
+        return (self.placed.device if self.placed is not None
+                else params_device(self.params))
+
+    def _top(self, keys):
+        if self.placed is None:
+            return self.params, None
+        return self.placed.top(keys)
+
+    def embed(self, tokens, positions) -> torch.Tensor:
+        top, sp = self._top(("embed",))
+        return embed_tokens(top, self.cfg, tokens, positions=positions,
+                            specs=sp, tp=self.tp)
+
+    def unembed(self, x) -> torch.Tensor:
+        key = "embed" if self.cfg.tie_embeddings else "unembed"
+        top, sp = self._top((key, "final_norm"))
+        return unembed(top, self.cfg, x, specs=sp, tp=self.tp)
+
+    def layer(self, i: int):
+        """(layer ``i``'s leaves, their specs or None)."""
+        if self.placed is None:
+            return attn_layer_params(self.params, self.cfg, i), None
+        return self.placed.layer(self.cfg, i)
+
+    def split(self, ls, name: str, dim: int) -> bool:
+        return ls is not None and tp_split(ls["attn"][name], dim, self.tp)
+
+    def qkv(self, ls, q, k, v, h0: int, H_loc: int, k0: int, K_loc: int):
+        """q heads ``[h0, h0 + H_loc)`` and kv heads ``[k0, k0 + K_loc)``
+        of a layer's projections, whichever of them this process made."""
+        cfg = self.cfg
+        sk = self.split(ls, "wk", 1)
+        return (_heads(q, self.split(ls, "wq", 1), cfg.num_heads, h0, H_loc,
+                       self.tp),
+                _heads(k, sk, cfg.num_kv_heads, k0, K_loc, self.tp),
+                _heads(v, sk, cfg.num_kv_heads, k0, K_loc, self.tp))
+
+    def attn_out(self, lp, ls, out, h0: int, heads_group, dtype):
+        """The output projection of attention heads ``out [..., n, hd]``
+        (heads ``[h0, h0 + n)``): with ``wo``'s rows split over the TP
+        axis, this process's own heads by its rows, summed over the axis;
+        else every head (gathered over ``heads_group``) by the whole
+        ``wo``."""
+        wo = lp["attn"]["wo"]
+        if self.split(ls, "wo", 0):
+            own = wo.shape[0] // self.cfg.head_dim
+            lo = self.tp.index * own - h0
+            part = out[..., lo:lo + own, :].flatten(-2).to(dtype) @ wo
+            return self.tp.sum(part)
+        out = all_gather_cat(out, heads_group, dim=out.dim() - 2)
+        return out.flatten(-2).to(dtype) @ wo
 
 
 def _check_pool(pool_k, pool_v, pl: _Placement, L: int, K: int, hd: int):
@@ -439,6 +547,7 @@ def _serve_decode(params, cfg, layout, pool_k, pool_v, tables, nblk, tails,
                          "hybrid/ssm use serve_decode_step_state")
     dev = pool_k.device
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    W = _Weights(params, cfg, mesh)
     tab = _check_tables(tables, nblk)
     NP, R = tab.shape[:2]
     pl = _placement(mesh, layout, cfg, NP, R)
@@ -456,43 +565,41 @@ def _serve_decode(params, cfg, layout, pool_k, pool_v, tables, nblk, tails,
     toks = torch.as_tensor(_host(tokens)[own], dtype=torch.int64).to(dev)
     lens = torch.as_tensor(_host(lens)[own], dtype=torch.int64).to(dev)
     scale = hd ** -0.5
-    heads = slice(pl.h0, pl.h0 + pl.H_loc)
-    kvh = slice(pl.k0, pl.k0 + pl.K_loc)
     self_mask = torch.ones((pl.R_loc, 1), dtype=torch.bool, device=dev)
-    x = embed_tokens(params, cfg, toks[:, None], positions=lens[:, None])
+    x = W.embed(toks[:, None], lens[:, None])
     ks, vs = [], []
     for i in range(L):
-        lp = attn_layer_params(params, cfg, i)
+        lp, ls = W.layer(i)
         h = apply_norm(lp["ln1"], x, cfg)
-        q, k, v = qkv_project(lp["attn"], h, lens[:, None], cfg)
-        q1 = _gather(q[:, 0, heads], pl.batch)           # [R, H_loc, hd]
-        k1, v1 = k[:, 0, kvh], v[:, 0, kvh]              # [R_loc, K_loc, hd]
+        q, k, v = W.qkv(ls, *qkv_project(lp["attn"], h, lens[:, None], cfg),
+                        pl.h0, pl.H_loc, pl.k0, pl.K_loc)
+        q1 = all_gather_cat(q[:, 0], pl.batch)           # [R, H_loc, hd]
+        k1, v1 = k[:, 0], v[:, 0]                        # [R_loc, K_loc, hd]
         if deferred:
             ks.append(k1)
             vs.append(v1)
         else:
             pk_l, pv_l = pool_k[i], pool_v[i]
-            pk_l[ps, wb, wo] = _gather(k1, pl.batch)[rs].to(pk_l.dtype)
-            pv_l[ps, wb, wo] = _gather(v1, pl.batch)[rs].to(pv_l.dtype)
+            pk_l[ps, wb, wo] = all_gather_cat(k1, pl.batch)[rs].to(pk_l.dtype)
+            pv_l[ps, wb, wo] = all_gather_cat(v1, pl.batch)[rs].to(pv_l.dtype)
         o, m, l = _global_pooled_decode(q1, pool_k[i], pool_v[i], tables_l,
                                         tails_l, scale, pl.pool_group)
         part = (o[own], m[own], l[own])
         if deferred:
             part = combine(part, micro_attention_decode(
-                q[:, 0, heads], k[:, :, kvh], v[:, :, kvh], self_mask,
-                scale=scale))
-        out = _gather(finalize(part[0], part[2]), pl.head, dim=1)
-        out = out.reshape(pl.R_loc, 1, -1).to(x.dtype)
-        x = x + out @ lp["attn"]["wo"]
+                q[:, 0], k, v, self_mask, scale=scale))
+        out = finalize(part[0], part[2])                 # [R_loc, H_loc, hd]
+        x = x + W.attn_out(lp, ls, out, pl.h0, pl.head, x.dtype)[:, None]
         h = apply_norm(lp["ln2"], x, cfg)
-        x = x + _ffn(lp, h, cfg, capacity_factor, pl)
+        x = x + _ffn(lp, ls, h, cfg, capacity_factor, pl, W.tp)
     if deferred:
         # All layers' new rows in one scatter a pool.
-        kall = _gather(torch.stack(ks), pl.batch, dim=1)  # [L, R, K_loc, hd]
-        vall = _gather(torch.stack(vs), pl.batch, dim=1)
+        # [L, R, K_loc, hd]
+        kall = all_gather_cat(torch.stack(ks), pl.batch, dim=1)
+        vall = all_gather_cat(torch.stack(vs), pl.batch, dim=1)
         pool_k[:, ps, wb, wo] = kall[:, rs].to(pool_k.dtype)
         pool_v[:, ps, wb, wo] = vall[:, rs].to(pool_v.dtype)
-    logits = unembed(params, cfg, x[:, 0])
+    logits = W.unembed(x[:, 0])
     if return_logits:
         return logits, pool_k, pool_v
     return torch.argmax(logits, dim=-1).to(torch.int32), pool_k, pool_v
@@ -597,7 +704,7 @@ def _prefill_writer(S: int, bs: int, pl, NB_loc: int, wblk, device):
     idx = (dev(sl), dev(wb[sl, bb, tt]), dev(tt % bs), dev((bb - r0) * S + tt))
 
     def write(pool_l, k):
-        k = _gather(k, pl.batch) if gather else k
+        k = all_gather_cat(k, pl.batch) if gather else k
         s_, b_, o_, src = idx
         pool_l[s_, b_, o_] = k.reshape(-1, *k.shape[2:])[src].to(pool_l.dtype)
     return write
@@ -622,7 +729,8 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
                                   "embed_tokens path takes tokens only")
     if cfg.family not in POOLED_FAMILIES:
         raise ValueError("pooled prefill is for attention archs")
-    dev = params_device(params)
+    W = _Weights(params, cfg, mesh)
+    dev = W.device
     tok = _host(tokens).astype(np.int64)
     B, S = tok.shape
     bs = block_size
@@ -636,20 +744,33 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
     toks = torch.from_numpy(tok[pl.r0:pl.r0 + pl.R_loc]).to(dev)
     positions = torch.arange(S, device=dev)[None].expand(pl.R_loc, S)
     core = make_causal_core(cfg, backend="flash")
-    kvh = slice(pl.k0, pl.k0 + pl.K_loc)
-    x = embed_tokens(params, cfg, toks, positions=positions)
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    x = W.embed(toks, positions)
     for i in range(L):
-        lp = attn_layer_params(params, cfg, i)
+        lp, ls = W.layer(i)
         h = apply_norm(lp["ln1"], x, cfg)
         q, k, v = qkv_project(lp["attn"], h, positions, cfg)
-        out = core(q, k, v).reshape(pl.R_loc, S, -1).to(x.dtype)
-        x = x + out @ lp["attn"]["wo"]
-        write(pool_k[i], k[:, :, kvh])
-        write(pool_v[i], v[:, :, kvh])
+        sq, sk = W.split(ls, "wq", 1), W.split(ls, "wk", 1)
+        # Attention over the heads this process made: its own with q
+        # split over the TP axis (and the kv heads they read), else all.
+        h0, n = (W.tp.index * q.shape[2], q.shape[2]) if sq else (0, H)
+        out = core(q, _kv_for_heads(k, sk, cfg, h0, n, W.tp),
+                   _kv_for_heads(v, sk, cfg, h0, n, W.tp))
+        x = x + W.attn_out(lp, ls, out, h0, None, x.dtype)
+        write(pool_k[i], _heads(k, sk, K, pl.k0, pl.K_loc, W.tp))
+        write(pool_v[i], _heads(v, sk, K, pl.k0, pl.K_loc, W.tp))
         h = apply_norm(lp["ln2"], x, cfg)
-        x = x + _ffn(lp, h, cfg, capacity_factor, pl)
-    logits = unembed(params, cfg, x[:, -1])
+        x = x + _ffn(lp, ls, h, cfg, capacity_factor, pl, W.tp)
+    logits = W.unembed(x[:, -1])
     return torch.argmax(logits, dim=-1).to(torch.int32), pool_k, pool_v
+
+
+def _refuse_placed(params) -> None:
+    if isinstance(params, PlacedParams):
+        raise NotImplementedError(
+            "the state steps (hybrid, ssm) take a replicated tree: their "
+            "RG-LRU and xLSTM placements are not executed yet (ROADMAP "
+            "Queue 1, the state steps under placed weights)")
 
 
 def serve_prefill_step_state(params, cfg: ModelConfig, layout: ServeLayout,
@@ -661,6 +782,7 @@ def serve_prefill_step_state(params, cfg: ModelConfig, layout: ServeLayout,
     if embeds is not None:
         raise NotImplementedError("serve_prefill_step_state(embeds=): the "
                                   "port's embed_tokens takes tokens only")
+    _refuse_placed(params)
     logits, state = prefill(params, cfg, tokens, max_len=max_len)
     return torch.argmax(logits, dim=-1).to(torch.int32), state
 
@@ -669,6 +791,7 @@ def serve_decode_step_state(params, cfg: ModelConfig, layout: ServeLayout,
                             state, tokens):
     """Hybrid/ssm decode: one step of the recurrence (the state updated
     in place). DistAttention does not apply: there is no KV pool."""
+    _refuse_placed(params)
     logits, state = decode_step(params, cfg, state, tokens)
     return torch.argmax(logits, dim=-1).to(torch.int32), state
 

@@ -976,3 +976,54 @@ def test_serve_steps_on_the_card_match_the_cpu(arch, cuda_device, no_tf32):
         for g, w in zip(out[str(cuda_device)], out["cpu"]):
             np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
                                        atol=TOL, rtol=TOL)
+
+
+# ------------------------------------------------------------------ #
+# The paged prefill at block size 128: read as 64-token sub-blocks
+# ------------------------------------------------------------------ #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tail", [1, 64, 65, 128])
+def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
+                                                       cuda_device):
+    """The prefill-chunk kernel and its rank form over a strided layer
+    view of a [NR, L, NB, 128, K, D] pool (qwen3's GQA 16/8 x 128): the
+    wrappers read it as 64-token sub-blocks of the same memory, and the
+    partials equal the plain twins' over the 128-token blocks (a
+    -1-padded table, an empty rank)."""
+    from repro_torch.kernels.micro_attn_prefill import _checked
+    gen = torch.Generator(device=cuda_device).manual_seed(tail)
+    NR, L, NB, bs, K, H, D, C, MB = 3, 2, 9, 128, 8, 16, 128, 64, 5
+    gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, dtype, cuda_device)
+    pk, pv = gk[:, 1], gv[:, 1]
+    tb = torch.tensor([[4, 0, 2, -1, -1], [7, -1, -1, -1, -1],
+                       [-1] * 5], dtype=torch.int32, device=cuda_device)
+    tl = torch.full((NR,), tail, dtype=torch.int32, device=cuda_device)
+    q = torch.randn((C, H, D), generator=gen, device=cuda_device).to(dtype)
+    scale = D ** -0.5
+    ops.reset_counts()
+    got = ops.paged_prefill_attention_ranks(q, pk, pv, tb, tl)
+    _close_partials(got, paged_prefill_attention_ranks_plain(
+        q, pk, pv, tb, tl, scale=scale))
+    for r in range(NR):
+        got = ops.paged_prefill_attention(q, pk[r], pv[r], tb[r], tl[r])
+        _close_partials(got, paged_prefill_attention_plain(
+            q, pk[r], pv[r], tb[r], tl[r], scale=scale))
+    c = ops.counts()
+    assert c["paged_prefill_attention_ranks"] == {"launches": 1,
+                                                  "plain_calls": 0}
+    assert c["paged_prefill_attention"] == {"launches": NR,
+                                            "plain_calls": 0}
+    # The kernel reads the pool itself: views, never a copy.
+    _, vk, vv, _, _ = _checked(q, pk, pv, tb, tl, ranked=True)
+    assert vk.shape[-3] == 64 and vk.data_ptr() == pk.data_ptr() and \
+        vv.data_ptr() == pv.data_ptr()
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_refuses_a_block_without_a_sub_block(cuda_device):
+    pool = torch.zeros((2, 67, 1, 8), device=cuda_device)
+    q = torch.zeros((1, 1, 8), device=cuda_device)
+    table = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="no divisor"):
+        ops.paged_prefill_attention(q, pool, pool, table, 1)

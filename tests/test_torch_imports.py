@@ -54,6 +54,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.distributed.mesh", "repro_torch.core.baselines",
             "repro_torch.training.grad_sync",
             "repro_torch.distributed.sharding",
+            "repro_torch.distributed.placement",
             "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
@@ -115,6 +116,9 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     from repro_torch.distributed.mesh import make_mesh
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_mesh((1, 1))
+    from repro_torch.distributed.placement import seeded_params
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        seeded_params(cfg, 0)
     # Asked for the CPU explicitly, the same calls work.
     assert LLMServer(params, cfg, ServingConfig.smoke(),
                      device="cpu").cluster.device.type == "cpu"

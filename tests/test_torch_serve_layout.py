@@ -26,7 +26,17 @@ for the module. Float32 smoke configs; JAX's weights are bridged with
   ``sharded_check.py``'s three layouts (olmo-1b tp_head, qwen3 seq_model,
   qwen2-moe tp_head): each process holds its shards and kv heads, and
   its rows of the prefill, both decode schedules and their pools equal
-  the single-process steps'.
+  the single-process steps';
+* placed weights (``distributed.placement``) in the same processes, on
+  (2, 2) and (1, 2) meshes: tp_head and the forced seq_model, dense and
+  MoE (experts over "model"), q split over "model" or not (16-head
+  variants of the smoke configs, ``test_torch_placement.H16``), one
+  forced-FSDP case: ``place_params`` then ``gather_params`` gives the
+  tree back bit for bit; each process's logits and pools of both decode
+  schedules and of the prefill equal the same JAX references the
+  replicated path is held to; the streams are equal in every process
+  and to the single-process step's. And a ("pod", "data", "model") =
+  (2, 1, 2) mesh whose pool is over ("pod", "data").
 
 The spawned processes import this module; JAX is imported only where
 references are computed.
@@ -44,9 +54,21 @@ from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
 from repro_torch.serving import sharded_step as pss
 from test_torch_collectives import Spawned
+from test_torch_placement import H16, h16_config
 
 TOL = 1e-5
 ARCHS = ("olmo-1b", "qwen3-0.6b", "qwen2-moe-a2.7b")
+# (arch, mode, fsdp) run on placed weights; the 16-head variants split q.
+PLACED_CASES = (("olmo-1b", "tp_head", False),
+                ("qwen2-moe-a2.7b", "tp_head", False),
+                ("qwen3-0.6b", "seq_model", False),
+                ("olmo-h16", "tp_head", False),
+                ("qwen3-h16", "seq_model", False),
+                ("qwen3-h16", "tp_head", True))
+PLACED_MESHES = {4: ((("data", "model"), (2, 2)),
+                     (("pod", "data", "model"), (2, 1, 2))),
+                 2: ((("data", "model"), (1, 2)),)}
+THREE_AXIS_CASE = ("qwen3-h16", "tp_head", False)
 R, T_HIST, BS, NP = 4, 21, 8, 4          # sharded_check.py's decode shapes
 SCHEDULES = ("write", "opt-fullpool", "opt-gather")
 # (arch, mode): sharded_check.py's three layouts.
@@ -57,7 +79,8 @@ PREFILLS = ((2, 32, 2), (3, 20, 2))      # (B, S, n_data): aligned, fallback
 
 
 def _cfg(arch):
-    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = h16_config(arch) if arch in H16 else get_smoke_config(arch)
+    return dataclasses.replace(cfg, dtype="float32")
 
 
 def _close(got, want, tol=TOL):
@@ -88,8 +111,9 @@ def _jax():
     return SimpleNamespace(
         jax=jax, jnp=jnp, mesh=mesh, ss=sharded_step, sharding=sharding,
         model=model, prefill=prefill,
-        cfg=lambda arch, **kw: dataclasses.replace(jax_smoke(arch, **kw),
-                                                   dtype="float32"))
+        cfg=lambda arch: dataclasses.replace(
+            h16_config(arch, jax_smoke) if arch in H16 else jax_smoke(arch),
+            dtype="float32"))
 
 
 def adversarial_pool(kv_k, kv_v, T, bs, n_shards):
@@ -175,13 +199,13 @@ def decode_refs(mesh_group):
     that the spawned processes run while the references compute.)"""
     J = _jax()
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + tuple(H16):
         jcfg = J.cfg(arch)
         tp, jp = _weights(arch, J)
         inp = _decode_inputs(arch, tp)
         layout = J.ss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
         for cf in (-1.0, 1.25):
-            for sched in SCHEDULES:
+            for sched in SCHEDULES[:2] if arch in H16 else SCHEDULES:
                 if cf > 0 and not jcfg.is_moe:
                     # JAX's dense layers never read capacity_factor.
                     out[arch, cf, sched] = out[arch, -1.0, sched]
@@ -226,6 +250,16 @@ def test_serve_decode_steps_match_jax(decode_refs, arch, cf, sched):
     p, r = np.nonzero(inp["wblk"] < inp["pool_k"].shape[2])
     assert changed[p, inp["wblk"][p, r]].all() and \
         np.count_nonzero(changed) == len(p)
+
+
+@pytest.mark.parametrize("sched", SCHEDULES[:2])
+@pytest.mark.parametrize("arch", tuple(H16))
+def test_16_head_variants_decode_match_jax(decode_refs, arch, sched):
+    tp, inp = decode_refs[arch]
+    layout = pss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    got = _port_decode(tp, _cfg(arch), layout, inp, sched != "write", -1.0)
+    for g, w in zip(got, decode_refs[arch, -1.0, sched]):
+        _close(g, w)
 
 
 def test_decode_rejects_inconsistent_tables(decode_refs):
@@ -282,7 +316,7 @@ def prefill_refs(decode_refs):
     J = _jax()
     out = {}
     layout = J.ss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
-    for arch in ARCHS:
+    for arch in ARCHS + tuple(H16):
         jp = J.jax.tree.map(J.jnp.asarray, bridge.to_numpy_tree(
             decode_refs[arch][0]))
         jcfg = J.cfg(arch)
@@ -299,7 +333,7 @@ def prefill_refs(decode_refs):
 
 
 @pytest.mark.parametrize("B,S,n_data", PREFILLS, ids=["aligned", "scatter"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + tuple(H16))
 def test_serve_prefill_step_matches_jax(decode_refs, prefill_refs, arch, B,
                                         S, n_data):
     from repro_torch.models.prefill import prefill
@@ -491,6 +525,72 @@ def _mesh_run(rank, world, payload):
     return out
 
 
+def _slab(names, shape, rank, mode, K):
+    """(pool shards, kv heads, batch rows) process ``rank`` of a mesh of
+    ``shape`` over ``names`` holds: the pool over the batch axes (and
+    "model" in seq_model mode), kv heads over "model" in tp_head mode."""
+    coord = dict(zip(names, np.unravel_index(rank, shape)))
+    size = dict(zip(names, shape))
+    bnames = [a for a in names if a != "model"]
+    n_b = int(np.prod([size[a] for a in bnames]))
+    b = int(np.ravel_multi_index([coord[a] for a in bnames],
+                                 [size[a] for a in bnames]))
+    m, tp = int(coord["model"]), size["model"]
+    if mode == "seq_model":
+        n = NP // (n_b * tp)
+        i = b * tp + m
+        return slice(i * n, (i + 1) * n), slice(0, K), _rows(R, b, n_b)
+    n, kl = NP // n_b, K // tp
+    return (slice(b * n, (b + 1) * n), slice(m * kl, (m + 1) * kl),
+            _rows(R, b, n_b))
+
+
+def _placed_run(rank, mesh, names, shape, cases, payload):
+    """Each case on placed weights: whether gathering the placed tree
+    gives it back bit for bit, each decode schedule's logits, pools and
+    (gathered) greedy tokens, and each prefill's first tokens and
+    pools."""
+    from repro_torch.distributed.placement import gather_params, place_params
+    from repro_torch.distributed.sharding import (param_specs,
+                                                  validate_divisibility)
+    out = {}
+    for arch, mode, fsdp in cases:
+        cfg = _cfg(arch)
+        tree, inp = payload["placed"][arch]
+        full = bridge.from_numpy_tree(tree, device="cpu")
+        specs = validate_divisibility(param_specs(cfg, full, fsdp=fsdp),
+                                      full, mesh)
+        placed = place_params(tree, specs, mesh, device="cpu")
+        back = gather_params(placed)
+        res = {"identity": all(torch.equal(a, b) for a, b in zip(
+            _leaves_t(back), _leaves_t(full)))}
+        del full, back
+        layout = serve_layout(cfg, mesh, mode)
+        shards, heads, _ = _slab(names, shape, rank, mode, cfg.num_kv_heads)
+        for opt in (False, True):
+            lg, pk, pv = _port_decode(placed, cfg, layout, inp, opt, 1.25,
+                                      mesh, (shards, heads))
+            stream = pss.gather_batch(torch.from_numpy(lg).argmax(-1), mesh,
+                                      layout, R)
+            res[opt] = (lg, pk, pv, stream.numpy())
+        for B, S, n_data in PREFILLS:
+            toks = np.random.default_rng(S).integers(0, cfg.vocab_size,
+                                                     (B, S))
+            first, pk, pv = pss.serve_prefill_step(
+                placed, cfg, layout, toks, block_size=BS, NP=NP,
+                n_data=n_data, mesh=mesh)
+            res[S] = (pss.gather_batch(first, mesh, layout, B).numpy(),
+                      pk.numpy(), pv.numpy())
+        out[arch, mode, fsdp] = res
+    return out
+
+
+def _leaves_t(tree):
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _leaves_t(tree[k])]
+    return [tree]
+
+
 def _mesh_worker(rank, store, payload, queue):
     import traceback
     torch.set_num_threads(1)
@@ -502,6 +602,13 @@ def _mesh_worker(rank, store, payload, queue):
             dist.init_process_group("gloo", init_method=f"file://{store}"
                                     f"-{world}", rank=rank, world_size=world)
             out[world] = _mesh_run(rank, world, payload)
+            from repro_torch.distributed.mesh import make_mesh
+            for names, shape in PLACED_MESHES[world]:
+                mesh = make_mesh(shape, names, device="cpu")
+                cases = (_placed_cases(world) if len(shape) == 2
+                         else (THREE_AXIS_CASE,))
+                out[world, shape] = _placed_run(rank, mesh, names, shape,
+                                                cases, payload)
             dist.barrier()
             dist.destroy_process_group()
         queue.put((rank, out))
@@ -513,11 +620,17 @@ def _mesh_worker(rank, store, payload, queue):
 def mesh_group(tmp_path_factory):
     """The spawned processes, started once, and what they were given."""
     from repro_torch.models.model import init_params
-    payload = {}
+    payload = {"placed": {}}
     for arch, _ in MESH_CASES:
         tp = init_params(_cfg(arch), torch.Generator().manual_seed(3),
                          device="cpu")
         payload[arch] = (bridge.to_numpy_tree(tp), _decode_inputs(arch, tp))
+    for arch in {a for a, _, _ in PLACED_CASES}:
+        # decode_refs' weights and inputs (seed 0), held to its references.
+        tp = init_params(_cfg(arch), torch.Generator().manual_seed(0),
+                         device="cpu")
+        payload["placed"][arch] = (bridge.to_numpy_tree(tp),
+                                   _decode_inputs(arch, tp))
     return payload, Spawned(_mesh_worker, 4,
                             str(tmp_path_factory.mktemp("sl")), payload)
 
@@ -568,3 +681,108 @@ def test_mesh_steps_give_each_process_its_shards(mesh_runs, world, arch,
                                                                   n_data)])
             _close(pk, want[S][1][:, shards, ..., heads, :])
             _close(pv, want[S][2][:, shards, ..., heads, :])
+
+
+def _single_placed_streams(payload):
+    """The single-process (replicated) port's greedy tokens of each
+    placed case's decode schedules and prefills."""
+    layout = pss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    out = {}
+    for arch in payload["placed"]:
+        cfg = _cfg(arch)
+        tree, inp = payload["placed"][arch]
+        tp = bridge.from_numpy_tree(tree, device="cpu")
+        res = {opt: _port_decode(tp, cfg, layout, inp, opt, 1.25)[0].argmax(-1)
+               for opt in (False, True)}
+        for B, S, n_data in PREFILLS:
+            toks = np.random.default_rng(S).integers(0, cfg.vocab_size,
+                                                     (B, S))
+            res[S] = pss.serve_prefill_step(tp, cfg, layout, toks,
+                                            block_size=BS, NP=NP,
+                                            n_data=n_data)[0].numpy()
+        out[arch] = res
+    return out
+
+
+@pytest.fixture(scope="module")
+def placed_runs(mesh_group, mesh_runs):
+    payload, _ = mesh_group
+    return mesh_runs[0], _single_placed_streams(payload)
+
+
+def _check_placed(res, world, names, shape, case, decode_refs, prefill_refs,
+                  single):
+    arch, mode, _ = case
+    K = _cfg(arch).num_kv_heads
+    for rank in range(world):
+        got = res[rank][world, shape][case]
+        assert got["identity"], f"process {rank}: gather(place) differs"
+        shards, heads, rows = _slab(names, shape, rank, mode, K)
+        for opt in (False, True):
+            lg, pk, pv, stream = got[opt]
+            want = decode_refs[arch, 1.25, "opt-fullpool" if opt else "write"]
+            assert pk.shape[1] == shards.stop - shards.start
+            assert pk.shape[4] == heads.stop - heads.start
+            _close(lg, want[0][rows])
+            _close(pk, want[1][:, shards, ..., heads, :])
+            _close(pv, want[2][:, shards, ..., heads, :])
+            np.testing.assert_array_equal(stream, single[arch][opt])
+        for B, S, _ in PREFILLS:
+            first, pk, pv = got[S]
+            _, jfirst, jpk, jpv = prefill_refs[arch, S]
+            np.testing.assert_array_equal(first, jfirst)
+            np.testing.assert_array_equal(first, single[arch][S])
+            _close(pk, jpk[:, shards, ..., heads, :])
+            _close(pv, jpv[:, shards, ..., heads, :])
+
+
+def _placed_cases(world):
+    """The placed cases a group runs: FSDP only where "data" has 2."""
+    return tuple(c for c in PLACED_CASES if world == 4 or not c[2])
+
+
+@pytest.mark.parametrize("world,case", [
+    (w, c) for w in (4, 2) for c in _placed_cases(w)],
+    ids=[f"{w}-{a}-{m}{'-fsdp' if f else ''}"
+         for w in (4, 2) for a, m, f in _placed_cases(w)])
+def test_placed_steps_match_jax_in_every_process(placed_runs, decode_refs,
+                                                 prefill_refs, world, case):
+    res, single = placed_runs
+    names, shape = PLACED_MESHES[world][0]
+    _check_placed(res, world, names, shape, case, decode_refs, prefill_refs,
+                  single)
+
+
+def test_pool_over_two_of_three_mesh_axes(placed_runs, decode_refs,
+                                          prefill_refs):
+    """("pod", "data", "model") = (2, 1, 2): the pool over ("pod",
+    "data"), kv heads over "model" (tp_head), placed weights."""
+    from repro_torch.distributed.sharding import serve_pool_axes
+    res, single = placed_runs
+    names, shape = PLACED_MESHES[4][1]
+    mesh = SimpleNamespace(mesh_dim_names=names, size=lambda i: shape[i])
+    assert serve_pool_axes(_cfg(THREE_AXIS_CASE[0]), mesh) == ("pod", "data")
+    _check_placed(res, 4, names, shape, THREE_AXIS_CASE, decode_refs,
+                  prefill_refs, single)
+
+
+def test_steps_refuse_a_placed_tree_off_its_mesh():
+    from repro_torch.distributed.placement import PlacedParams
+    cfg = _cfg("olmo-1b")
+    layout = pss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    placed = PlacedParams({"embed": torch.zeros(1)}, {"embed": (None,)},
+                          mesh=SimpleNamespace(shape=(1, 2)))
+    with pytest.raises(ValueError, match="mesh="):
+        pss.serve_prefill_step(placed, cfg, layout, np.zeros((1, 8)),
+                               block_size=8, NP=2)
+    with pytest.raises(ValueError, match="another mesh"):
+        pss.serve_prefill_step(placed, cfg, layout, np.zeros((1, 8)),
+                               block_size=8, NP=2,
+                               mesh=SimpleNamespace(shape=(2, 1)))
+    for arch in ("recurrentgemma-9b", "xlstm-350m"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pss.serve_prefill_step_state(placed, _cfg(arch), layout,
+                                         np.zeros((1, 8)), max_len=16)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pss.serve_decode_step_state(placed, _cfg(arch), layout, None,
+                                        None)
