@@ -128,7 +128,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    draws qwen3-0.6b (bf16, 28 layers) with ``seeded_params`` placed by
    ``validate_divisibility(param_specs(...))`` over (1, 2) at W = 2,
    (1, 4) and (2, 2) at W = 4, and must hold exactly the bytes the spec
-   tree gives; a ``serve_prefill_step`` of B = 2 x S = 4,096, then 16
+   tree gives; a ``serve_prefill_step`` of B = 2 x S = 4,096, then 8
    decode steps of each schedule on the placed weights and on the whole
    tree, interleaved (TBT side by side; 28 decode rank launches a step,
    28 flash launches a prefill); at W = 2 also qwen2-moe-a2.7b placed
@@ -138,7 +138,37 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    2) mesh with the pool over ("pod", "data"): placed logits within
    1e-5 relative of the whole tree's, the streams equal in every
    process, to the whole tree's and to the single-process steps' here.
-   It also reports whether gloo takes bf16 CUDA tensors.
+   It also reports whether gloo takes bf16 CUDA tensors. Each group
+   then runs the state steps on placed weights: recurrentgemma-9b (20
+   of 38 layers, ``HYBRID_SERVE_LAYERS``; bf16, B = 2 x S = 4,096, past
+   its 2,048-token window) and xlstm-350m (24 layers, B = 2 x S = 256)
+   drawn with
+   ``seeded_params`` placed over (1, 2) at W = 2 and (1, 4) at W = 4,
+   holding exactly the spec tree's bytes: ``serve_prefill_step_state``
+   (the hybrid's first flash launch held to its plain version, one
+   flash launch per local-attention layer, on 16 / tp query heads over
+   the one kv head) and 16 ``serve_decode_step_state`` steps, every
+   process's streams equal; the same steps on the whole tree in this
+   process give the bf16 share of equal tokens. Float32 parity at one
+   group (recurrentgemma 3 layers, xlstm 8) on (1, 2) and on (2, 2)
+   with forced FSDP: placed logits and gathered states
+   (``gather_state``) within 1e-5 relative of the whole tree's without a
+   mesh (run in the group's first process, broadcast; 1e-4 for xLSTM's
+   whole model), tokens equal. W = 2 also runs the serving
+   extensions under its mesh (four global-pool instances, qwen3 at 14
+   layers, bf16): the host tier (every cached replica spilled, then a
+   host hit and a device hit), overload (a best-effort request in every
+   slot, an urgent arrival pauses a victim, which resumes), a creditor
+   crash of the 4,000-token request after 4 tokens (replayed), and a
+   seeded ``FaultPlan`` (``from_seed``: six events, prefix cache, host
+   tier and preemption on): in every process equal streams, request
+   states, counters; every request finishes (or fails past its replay
+   budget); no slab reallocated; every allocator free; only the rank
+   kernels. Reports the host bytes each process holds, pause, resume
+   and replay times and collectives per decode step. The same four
+   scenarios at float32 and 4 layers must equal the single-process
+   cluster's here, counter for counter, with every stream the dense
+   oracle's.
    Also with the qwen3 weights, once per pool mode: the serving phase's
    prompts with 128-token blocks (``block_size=128``, 20 blocks a pool:
    the same 2,560 tokens): every request finishes, every paged prefill
@@ -230,8 +260,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    device busy share, its device time of forward, backward and
    optimizer, and its top kernels. Then one float32 train step a family
    (qwen3 2 layers, qwen2-moe 1 layer with ``ep_groups=2``,
-   recurrentgemma one 3-layer group, xLSTM one 8-layer group; S = 256,
-   B = 2), on the card and on the CPU from the same weights: loss and
+   recurrentgemma one 3-layer group, xLSTM one 8-layer group; S = 128,
+   B = 1), on the card and on the CPU from the same weights: loss and
    gradient norm within 1e-5 relative, each gradient within 1e-4 of its
    largest, or within 4 times the model's own change when every weight
    is raised by one ulp, where that is larger (xLSTM). Then a restart:
@@ -313,6 +343,9 @@ TRAIN_MOE = {"steps": 5, "seq": 2048, "batch": 4, "layers": 4,
 # hybrid model's 3 layers are one (rglru, rglru, attn) group, xLSTM's 8
 # one group of 7 mLSTM + 1 sLSTM; qwen2-moe one MoE layer (its float32
 # CPU reference is the longest part of the script).
+# One sequence of 128 tokens (the float32 CPU references of 2 x 256
+# took 179-262 s of the script's time).
+TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH = 128, 1
 TRAIN_PARITY = (("qwen3-0.6b", 2, {}),
                 ("qwen2-moe-a2.7b", 1, {"moe_ep_groups": 2}),
                 ("recurrentgemma-9b", 3, {}),
@@ -2563,7 +2596,8 @@ def rel_diff(got, want) -> float:
         float(want.abs().max()), 1e-30)
 
 
-def train_parity_phase(device, arch, layers, tkw, *, seq=256, batch=2):
+def train_parity_phase(device, arch, layers, tkw, *, seq=TRAIN_PARITY_SEQ,
+                       batch=TRAIN_PARITY_BATCH):
     """One float32 ``train_step`` of ``arch`` at full width and ``layers``
     layers, on the card and on the CPU from the same weights (drawn on the
     card, where drawing is fast, and copied to the CPU before either
@@ -2719,7 +2753,7 @@ def train_restart_phase(device, *, layers=2, seq=512, batch=2, steps=6,
 # holds two of the four ranks a process (the local merge runs before the
 # collective), W = 4 one.
 MESH_LAYOUTS = {2: ((2, 1), ("data",)), 4: ((2, 2), ("data", "model"))}
-MESH_TIMEOUT_S = 300
+MESH_TIMEOUT_S = 600
 MESH_SERVE_LAYERS = 14   # the mesh groups' qwen3 depth (of 28)
 # Depths of the phases that rerun the main path's machinery at full
 # width (qwen3's memory hierarchy, overload and faults; the hybrid and
@@ -2899,6 +2933,9 @@ def mesh_worker(rank, world, store, job, queue):
         out = {"serve": mesh_serve(params, cfg, device, mesh, layout,
                                    job["prompts"], job["n_new"],
                                    mesh_config())}
+        if job.get("ext"):
+            out["ext"] = ext_job(params, cfg, device, job, EXT_SMOKE
+                                 if job.get("smoke") else EXT, mesh, layout)
         if job.get("grad_sync"):
             # Over the full-depth tree's shapes, whatever depth served.
             from repro_torch.distributed.placement import param_shapes
@@ -2913,6 +2950,10 @@ def mesh_worker(rank, world, store, job, queue):
             out["parity"] = mesh_serve(params32, cfg32, device, mesh, layout,
                                        par["prompts"], par["n_new"],
                                        mesh_config(**par["config"]))
+            if job.get("ext"):
+                out["ext32"] = ext_job(params32, cfg32, device, job,
+                                       EXT_SMOKE if job.get("smoke")
+                                       else EXT_F32, mesh, layout)
             del params32
         if job.get("serve_layout"):
             out["serve_layout"] = {
@@ -2921,6 +2962,9 @@ def mesh_worker(rank, world, store, job, queue):
         if job.get("placement"):
             release_memory()
             out["placement"] = placement_job(world, job, device)
+        if job.get("state"):
+            release_memory()
+            out["state"] = state_job(world, job, device)
         queue.put((rank, out))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
@@ -3023,14 +3067,18 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
            "config": {"pool_blocks": 96, "max_local_len": 512}}
     job = {"device": str(device), "arch": arch, "smoke": smoke,
            "layers": layers, "prompts": prompts, "n_new": n_new,
-           "serve_layout": True, "placement": True}
+           "serve_layout": True, "placement": True, "state": True}
     n_layers = layers or cfg.num_layers
     report = {"prompt_lens": list(prompt_lens), "n_new": n_new,
               "layers": n_layers, "instances": 4, "backend": "gloo",
               "layouts": {}}
     sl_single = {}
+    t0 = time.perf_counter()
+    st_single = state_single(job, device)
+    report["state_single_s"] = time.perf_counter() - t0
     for world in sorted(MESH_LAYOUTS):
-        wjob = dict(job, parity=par, grad_sync=True) if world == 2 else job
+        wjob = dict(job, parity=par, grad_sync=True, ext=True) \
+            if world == 2 else job
         runs, wall = run_mesh_group(world, wjob)
         serve = [run["serve"] for run in runs]
         check_mesh_serve(serve, world, n_layers, device, gate_remote=True)
@@ -3069,9 +3117,13 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
             runs, world, job, device, sl_single)
         report["layouts"][str(world)]["placement"] = placement_check(
             runs, world, job, device, sl_single)
+        report["layouts"][str(world)]["state"] = state_check(
+            runs, world, st_single)
         if world == 2:
             report["parity"] = mesh_parity(runs, cfg, device, par)
             report["grad_sync"] = mesh_grad_sync_check(runs, params, device)
+            report["ext"] = ext_check(runs, "ext", device, n_layers)
+            report["ext32"] = ext_mesh_parity(runs, cfg, device, par, job)
     report["phase_s"] = time.perf_counter() - t_phase
     return report
 
@@ -3108,6 +3160,24 @@ def mesh_parity(runs, cfg, device, par):
             "n_new": par["n_new"], "greedy_equal": True,
             "moves_during_decode": served_runs[0]["moves"],
             "remote_legs": served_runs[0]["traffic"]["remote_copies"]}
+
+
+def ext_mesh_parity(runs, cfg, device, par, job):
+    """float32 at the parity depth: every extension scenario in this one
+    process (four global-pool instances, no mesh), whose summaries the
+    mesh's must equal, and every stream held to the dense oracle."""
+    from repro_torch.models.model import init_params
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=par["layers"])
+    params32 = init_params(cfg32, torch.Generator(device=device)
+                           .manual_seed(0), device)
+    single, _ = ext_job(params32, cfg32, device, job, EXT_SMOKE
+                        if job.get("smoke") else EXT_F32)
+    rep = ext_check(runs, "ext32", device, par["layers"], single=single,
+                    params32=params32, cfg32=cfg32)
+    del params32
+    release_memory()
+    return rep
 
 
 def mesh_grad_sync_check(runs, params, device):
@@ -3635,7 +3705,9 @@ def sl_mesh_check(runs, world, job, device, single):
 # all-reduce of its activations is staged through the host over gloo),
 # then ``steps`` decode steps of each schedule, placed and replicated
 # interleaved; qwen2-moe-a2.7b placed only (W = 2), a shorter run.
-PLACEMENT = {"B": 2, "S": 4096, "bs": 128, "NP": 4, "steps": 16,
+# 8 decode steps a schedule: room for the state and extension jobs that
+# the same groups run.
+PLACEMENT = {"B": 2, "S": 4096, "bs": 128, "NP": 4, "steps": 8,
              "moe_S": 512, "moe_steps": 4, "parity_layers": 4,
              "parity_S": 320, "parity_steps": 4, "seed": 21}
 PLACEMENT_RTOL = 1e-5   # placed vs whole-tree logits, float32, relative
@@ -3948,6 +4020,610 @@ def single_placement_streams(job, device, ph, single, n_data):
         out.append(stream.tolist())
     single[key] = tuple(out)
     return single[key]
+
+
+# --------------------------------------------------------------------- #
+# The state steps on placed weights (recurrentgemma-9b, xlstm-350m)
+# --------------------------------------------------------------------- #
+STATE_ARCHS = ("recurrentgemma-9b", "xlstm-350m")
+# bf16 at full width: B x S prompts (the hybrid's past its 2,048-token
+# window, so the ring wraps), then ``steps`` decode steps; the hybrid at
+# HYBRID_SERVE_LAYERS of 38 (its placed prefill's all-reduces go through
+# the host: the full depth does not fit the script's time), xLSTM at all
+# 24 (its prompt at 256 tokens: the scan is sequential);
+# float32 parity at one group (hybrid 3 layers, xLSTM 8) with
+# ``parity_steps`` steps.
+STATE = {"B": 2, "S": {"recurrentgemma-9b": 4096, "xlstm-350m": 256},
+         "steps": 16, "seed": 23,
+         "layers": {"recurrentgemma-9b": HYBRID_SERVE_LAYERS,
+                    "xlstm-350m": None},
+         "parity_layers": {"recurrentgemma-9b": 3, "xlstm-350m": 8},
+         "parity_S": {"recurrentgemma-9b": 2304, "xlstm-350m": 256},
+         "parity_steps": 4}
+STATE_SMOKE = dict(STATE, S={"recurrentgemma-9b": 40, "xlstm-350m": 12},
+                   layers={"recurrentgemma-9b": None, "xlstm-350m": None},
+                   steps=3, parity_S={"recurrentgemma-9b": 40,
+                                      "xlstm-350m": 12}, parity_steps=2)
+# placed vs whole-tree logits and gathered states, float32, relative to
+# the largest value (xLSTM's whole model as its CPU tests hold it).
+STATE_RTOL = {"recurrentgemma-9b": 1e-5, "xlstm-350m": 1e-4}
+STATE_MESHES = {2: ((1, 2),), 4: ((1, 4),)}
+STATE_PARITY = {2: (((1, 2), False),), 4: (((2, 2), True),)}
+
+
+class FlashCheck:
+    """The first flash-prefill kernel launch of a run held against the
+    kernel's plain version on the same inputs, as the kernel phase holds
+    it (its query and kv heads recorded); the plain call is no launch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_prefill as fp, ops
+        self.ops, self.plain, self.orig = (ops, fp.flash_prefill_plain,
+                                           ops.flash_prefill_cuda)
+        self.heads = self.err = None
+
+        def spy(q, k, v, *, scale, window=0):
+            out = self.orig(q, k, v, scale=scale, window=window)
+            if self.err is None:
+                want = self.plain(q, k, v, scale=scale, window=window)
+                diff = (out.float() - want.float()).abs()
+                bad = diff > TOL + FLASH_RTOL[q.dtype] * want.float().abs()
+                if bad.any():
+                    raise AssertionError(f"flash on the placed prefill: "
+                                         f"{int(bad.sum())} elements off")
+                self.heads = [q.shape[2], k.shape[2]]
+                self.err = diff.max().item()
+                del want, diff, bad
+            return out
+        ops.flash_prefill_cuda = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_prefill_cuda = self.orig
+
+
+def state_leaves(state) -> list:
+    """A DecodeState's tensors, in field order."""
+    out = [state.lens]
+    if state.kv_k is not None:
+        out += [state.kv_k, state.kv_v]
+    rec = state.rec
+    return out + (list(rec) if isinstance(rec, tuple) else
+                  list(rec["mlstm"]) + list(rec["slstm"]))
+
+
+def state_run(params, cfg, layout, toks, steps, device, mesh=None,
+              parity=False):
+    """``serve_prefill_step_state`` then ``steps`` greedy
+    ``serve_decode_step_state`` steps: the first tokens and the stream
+    (every row's), the prefill's host seconds and kernel counts, each
+    step's seconds; with ``parity`` every step's logits (this process's
+    rows) and the gathered state after the prefill and at the end."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sharded_step as ss
+    B = toks.shape[0]
+    sync(device)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    lg, st = ss.serve_prefill_step_state(params, cfg, layout, toks,
+                                         max_len=toks.shape[1], mesh=mesh,
+                                         return_logits=True)
+    tok = ss.gather_batch(lg.argmax(-1), mesh, layout, B)
+    sync(device)
+    out = {"prefill_s": time.perf_counter() - t0, "counts": ops.counts(),
+           "first": tok.cpu().tolist(), "stream": [], "secs": [],
+           "local_state_bytes": sum(t.numel() * t.element_size()
+                                    for t in state_leaves(st))}
+    logits, states = [lg.float()], []
+    if parity:
+        states.append([t.float().clone() for t in state_leaves(
+            ss.gather_state(st, cfg, mesh, layout, B))])
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lg, st = ss.serve_decode_step_state(params, cfg, layout, st, tok,
+                                            mesh=mesh, return_logits=True)
+        tok = ss.gather_batch(lg.argmax(-1), mesh, layout, B)
+        out["stream"].append(tok.cpu().tolist())
+        out["secs"].append(time.perf_counter() - t0)
+        logits.append(lg.float())
+    if parity:
+        states.append([t.float() for t in state_leaves(
+            ss.gather_state(st, cfg, mesh, layout, B))])
+        out["logits"], out["states"] = logits, states
+    return out
+
+
+def state_layout(mesh):
+    """The state steps' layout: the batch over the batch axes (as the
+    JAX package's cells place the states)."""
+    from repro_torch.distributed.sharding import batch_axes
+    from repro_torch.serving import sharded_step as ss
+    if mesh is None:
+        return ss.ServeLayout(("data",), ("data",))
+    axes = batch_axes(mesh)
+    return ss.ServeLayout(axes, axes)
+
+
+def state_tokens(cfg, ph, arch, S):
+    return np.random.default_rng(ph["seed"]).integers(
+        0, cfg.vocab_size, (ph["B"], S))
+
+
+def check_state_counts(counts, cfg, device) -> None:
+    """The prefill launched the flash kernel once per local-attention
+    layer (none for xLSTM) and ran nothing else."""
+    want = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers)) \
+        if cfg.family == "hybrid" else 0
+    if served(counts, "flash_prefill", device) != want:
+        raise AssertionError(f"{cfg.name}: {counts} (want {want} flash "
+                             f"launches)")
+    for name, v in counts.items():
+        if name != "flash_prefill" and served(counts, name, device):
+            raise AssertionError(f"{cfg.name}: {name} ran on the state path")
+        if device.type == "cuda" and v["plain_calls"]:
+            raise AssertionError(f"{cfg.name}: {name} ran its plain version")
+
+
+def state_serve_run(arch, mesh, job, device, ph):
+    """bf16 at full size on placed weights: the bytes this process holds
+    (against the spec tree's prediction), a B x S prefill (its first
+    flash launch held to the plain version), ``steps`` decode steps."""
+    from repro_torch.distributed.placement import local_bytes
+    cfg = placement_model(job, arch, layers=ph["layers"][arch])
+    placed, _, predicted, draw_s = placed_tree(cfg, mesh, False, ph["seed"],
+                                               device)
+    held = local_bytes(placed)
+    if held != predicted:
+        raise AssertionError(f"{arch}: {held} B held, the spec tree gives "
+                             f"{predicted}")
+    if device.type == "cuda":
+        reset_peak_memory()
+    toks = state_tokens(cfg, ph, arch, ph["S"][arch])
+    with FlashCheck() as fc:
+        run = state_run(placed, cfg, state_layout(mesh), toks, ph["steps"],
+                        device, mesh)
+    check_state_counts(run["counts"], cfg, device)
+    out = {"arch": arch, "mesh": list(mesh.shape), "layers": cfg.num_layers,
+           "S": ph["S"][arch], "weight_bytes": held, "draw_s": draw_s,
+           "flash_heads": fc.heads, "flash_max_abs_err": fc.err,
+           "flash_launches": run["counts"]["flash_prefill"]["launches"],
+           **{k: run[k] for k in ("prefill_s", "first", "stream",
+                                  "local_state_bytes")},
+           **tbt_numbers(run["secs"], ph["B"])}
+    if device.type == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del placed
+    release_memory()
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|, at least 1: the scale
+    the CPU tests hold states and logits to (``rel_diff`` has no
+    floor)."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+
+
+def to_cpu(x):
+    """Tensors of nested lists and dicts copied to the host."""
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [to_cpu(v) for v in x]
+    return x.cpu() if torch.is_tensor(x) else x
+
+
+def state_parity_run(arch, mesh, fsdp, job, device, ph):
+    """float32 at one group: the placed steps against the whole tree's
+    without a mesh (the single-process step; run once, in the group's
+    first process, while the others wait, so that one whole float32 tree
+    is on the card at a time, and broadcast): first tokens and streams
+    equal, every step's logits and the gathered states within
+    ``STATE_RTOL`` relative."""
+    import torch.distributed as dist
+    from repro_torch.distributed.placement import seeded_params
+    from repro_torch.serving.sharded_step import batch_rows
+    cfg = placement_model(job, arch, "float32", ph["parity_layers"][arch])
+    placed, _, _, _ = placed_tree(cfg, mesh, fsdp, ph["seed"], device)
+    toks = state_tokens(cfg, ph, arch, ph["parity_S"][arch])
+    got = to_cpu(state_run(placed, cfg, state_layout(mesh), toks,
+                           ph["parity_steps"], device, mesh, parity=True))
+    del placed
+    release_memory()
+    want = [None]
+    if dist.get_rank() == 0:
+        whole = seeded_params(cfg, ph["seed"], device=device)
+        want[0] = to_cpu(state_run(whole, cfg, state_layout(None), toks,
+                                   ph["parity_steps"], device, parity=True))
+        del whole
+        release_memory()
+    dist.broadcast_object_list(want, src=0)
+    want = want[0]
+    rows = batch_rows(mesh, state_layout(mesh), ph["B"])
+    lerr = max(rel_err(g, w[rows]) for g, w in zip(got["logits"],
+                                                   want["logits"]))
+    serr = max(rel_err(g, w) for gs, ws in zip(got["states"],
+                                               want["states"])
+               for g, w in zip(gs, ws))
+    res = {"arch": arch, "mesh": list(mesh.shape), "fsdp": fsdp,
+           "layers": cfg.num_layers, "S": ph["parity_S"][arch],
+           "logit_rel_err": lerr, "state_rel_err": serr,
+           "tokens_equal": got["first"] == want["first"]
+           and got["stream"] == want["stream"],
+           "stream": got["stream"]}
+    if not res["tokens_equal"] or max(lerr, serr) > STATE_RTOL[arch]:
+        raise AssertionError(f"state parity {arch} {mesh.shape} fsdp="
+                             f"{fsdp}: {res}")
+    return res
+
+
+def state_job(world, job, device):
+    """This process's share of the state-step runs of a group of
+    ``world`` processes (``STATE_MESHES``, ``STATE_PARITY``)."""
+    from repro_torch.distributed.mesh import make_mesh
+    ph = STATE_SMOKE if job.get("smoke") else STATE
+    out = {"runs": [], "parity": []}
+    meshes = {}
+    for shape in STATE_MESHES[world]:
+        mesh = meshes[shape] = make_mesh(shape, device=device)
+        for arch in STATE_ARCHS:
+            out["runs"].append(state_serve_run(arch, mesh, job, device, ph))
+    for shape, fsdp in STATE_PARITY[world]:
+        mesh = meshes.get(shape) or make_mesh(shape, device=device)
+        meshes[shape] = mesh
+        for arch in STATE_ARCHS:
+            out["parity"].append(state_parity_run(arch, mesh, fsdp, job,
+                                                  device, ph))
+    release_memory()
+    return out
+
+
+def state_single(job, device):
+    """The bf16 runs' reference in this one process: the same seeded
+    weights whole, the same steps without a mesh (greedy streams)."""
+    from repro_torch.distributed.placement import seeded_params
+    ph = STATE_SMOKE if job.get("smoke") else STATE
+    out = {}
+    for arch in STATE_ARCHS:
+        cfg = placement_model(job, arch, layers=ph["layers"][arch])
+        whole = seeded_params(cfg, ph["seed"], device=device)
+        run = state_run(whole, cfg, state_layout(None),
+                        state_tokens(cfg, ph, arch, ph["S"][arch]),
+                        ph["steps"], device)
+        out[arch] = {"first": run["first"], "stream": run["stream"],
+                     "prefill_s": run["prefill_s"],
+                     **tbt_numbers(run["secs"], ph["B"])}
+        del whole
+        release_memory()
+    return out
+
+
+def state_check(runs, world, single):
+    """The gates of a group's state runs over every process: equal first
+    tokens and streams in every process; the share of bf16 tokens equal
+    to the whole tree's (reduction order); the parity runs' errors."""
+    jobs = [run["state"] for run in runs]
+    rep = {"runs": [], "parity": []}
+    for i, r0 in enumerate(jobs[0]["runs"]):
+        for j, p in enumerate(jobs):
+            r = p["runs"][i]
+            if (r["first"], r["stream"]) != (r0["first"], r0["stream"]):
+                raise AssertionError(f"state {r0['arch']} {r0['mesh']}: "
+                                     f"process {j}'s stream differs")
+        ref = single[r0["arch"]]
+        placed = np.array([r0["first"]] + r0["stream"])
+        whole = np.array([ref["first"]] + ref["stream"])
+        rep["runs"].append({
+            **{k: r0[k] for k in ("arch", "mesh", "layers", "S",
+                                  "flash_heads", "flash_launches")},
+            **{k: [p["runs"][i].get(k) for p in jobs] for k in (
+                "weight_bytes", "local_state_bytes", "draw_s", "prefill_s",
+                "tbt_p50_s", "flash_max_abs_err", "peak_mem_bytes")},
+            "replicated_prefill_s": ref["prefill_s"],
+            "replicated_tbt_p50_s": ref["tbt_p50_s"],
+            "placed_equals_replicated_tokens": float(np.mean(placed ==
+                                                             whole))})
+    for i, p0 in enumerate(jobs[0]["parity"]):
+        for j, p in enumerate(jobs):
+            if p["parity"][i]["stream"] != p0["stream"]:
+                raise AssertionError(f"state parity {p0['arch']}: process "
+                                     f"{j}'s stream differs")
+        rep["parity"].append({
+            **{k: p0[k] for k in ("arch", "mesh", "fsdp", "layers", "S")},
+            **{k: max(p["parity"][i][k] for p in jobs)
+               for k in ("logit_rel_err", "state_rel_err")},
+            "tokens_equal_whole_tree": True})
+    return rep
+
+
+# --------------------------------------------------------------------- #
+# The serving extensions under a mesh (qwen3-0.6b, global pool, W = 2)
+# --------------------------------------------------------------------- #
+# bf16 at MESH_SERVE_LAYERS; float32 at 4 layers, where every stream is
+# also held to the dense oracle and every counter to the same scenario
+# in one process.
+EXT = {"n_new": 12, "prefix": PREFIX_LEN, "suffix": SUFFIX_LEN,
+       "span": (4000, 600, 300), "bg": 600, "urgent": 300, "plan": 1500,
+       "plan_seed": 5}
+EXT_F32 = dict(EXT, n_new=8, span=(1500, 600, 300), plan=1000)
+EXT_SMOKE = dict(EXT, n_new=6, prefix=24, suffix=8, span=(48, 20, 9),
+                 bg=12, urgent=6, plan=40)
+HOST_COUNTS = ("spills", "fetches", "evictions", "rejected",
+               "fetch_retries", "fetch_failures", "corruptions",
+               "spilled_bytes", "fetched_bytes")
+
+
+def ext_config(job, **over):
+    """Four global-pool instances (two ranks a process at W = 2); the
+    smoke rehearsal's tiny pools."""
+    from repro_torch.serving import FaultPolicy, ServingConfig
+    faults = FaultPolicy(max_transfer_retries=2, verify_host_frames=True)
+    if job.get("smoke"):
+        return ServingConfig.smoke(n_instances=4, global_pool=True,
+                                   faults=faults, **over)
+    return mesh_config(faults=faults, **over)
+
+
+def ext_tier_counts(tier):
+    return None if tier is None else {k: getattr(tier.stats, k)
+                                      for k in HOST_COUNTS}
+
+
+def ext_summary(cl, reqs) -> dict:
+    """What every process (and the single process) must agree on; the
+    allocators' check once any cache is cleared."""
+    pre = cl.preemptor
+    out = {"outs": [list(r.output) for r in reqs],
+           "prompts": [list(r.prompt) for r in reqs],
+           "states": [r.state.name for r in reqs],
+           "replays": [r.replays for r in reqs],
+           "preemptions": [r.preemptions for r in reqs],
+           "fault_stats": dataclasses.asdict(cl.fault_stats),
+           "preempt": None if pre is None else dataclasses.asdict(pre.stats),
+           "host": ext_tier_counts(cl.host_tier),
+           "preempt_tier": ext_tier_counts(pre and pre.tier),
+           "stager": [dict(cl.stager.retries), dict(cl.stager.failures)],
+           "copies": sum(e.stats.pool_copy_steps
+                         for e in cl.engines.values()),
+           "dead": sorted(cl._dead)}
+    if cl.prefix_cache is not None:
+        cl.prefix_cache.clear()
+    check_allocators_clean(cl)
+    for tier in (cl.host_tier, pre and pre.tier):
+        if tier is not None and tier.used_blocks:
+            raise AssertionError(f"{tier.used_blocks} host frames left")
+    return out
+
+
+def ext_serve(server, reqs, insts=None):
+    """Submit ``reqs`` (to ``insts`` when given) and step to the end."""
+    cl = server.cluster
+    for i, r in enumerate(reqs):
+        if insts is None:
+            cl.submit(r)
+        else:
+            cl.submit_to(r, insts[i])
+    for _ in range(20_000):
+        if all(r.done for r in reqs):
+            return
+        server.step()
+    raise AssertionError("requests did not finish")
+
+
+def ext_host_tier(params, cfg, device, job, ph, mesh, layout):
+    """A cold request caches a shared prefix; every cached replica is
+    spilled to the host tier (pressure on every instance); the same
+    prompt then hits the host (H2D fetch), and once more the device."""
+    from repro_torch.serving import LLMServer, Request, SamplingParams
+    server = LLMServer(params, cfg, ext_config(
+        job, prefix_cache=True, host_tier_blocks=96), device=device,
+        mesh=mesh, layout=layout)
+    cl = server.cluster
+    prompt = make_prompts(cfg, [ph["prefix"] + ph["suffix"]], 29)[0]
+    sp = SamplingParams(max_new_tokens=ph["n_new"])
+    reqs = [Request(prompt=list(prompt), sampling=sp) for _ in range(3)]
+    ttft, t0 = [], time.perf_counter()
+    for i, r in enumerate(reqs):
+        if i == 1:
+            for j in cl.engines:
+                cl.prefix_cache.evict_device(j, 10 ** 6)
+            held = cl.host_tier.held_bytes
+        ext_serve(server, [r], [0])
+        ttft.append(r.token_times[0] - r.arrival_time)
+    meas = {"host_bytes_held": held, "ttft_cold_host_warm_s": ttft,
+            "d2h_device_ms": cl.host_tier.stats.d2h_ms,
+            "wall_s": time.perf_counter() - t0}
+    return ext_summary(cl, reqs), meas
+
+
+def ext_overload(params, cfg, device, job, ph, mesh, layout):
+    """One best-effort request in every slot (one a slot, four
+    instances), then an urgent arrival: a victim pauses (its chain
+    spilled to the preempt tier) and resumes."""
+    from repro_torch.serving import (LLMServer, OverloadPolicy, Request,
+                                     SamplingParams)
+    server = LLMServer(params, cfg, ext_config(
+        job, max_batch=1, overload=OverloadPolicy(enabled=True)),
+        device=device, mesh=mesh, layout=layout)
+    cl = server.cluster
+    sp = SamplingParams(max_new_tokens=ph["n_new"])
+    best = [Request(prompt=p, sampling=sp)
+            for p in make_prompts(cfg, (ph["bg"],) * 4, 37)]
+    with PauseSpy() as spy:
+        for i, r in enumerate(best):
+            cl.submit_to(r, i)
+        for _ in range(200):
+            if all(r.output for r in best):
+                break
+            server.step()
+        urgent = server.submit(make_prompts(cfg, [ph["urgent"]], 41)[0],
+                               sp, priority=1)
+        reqs = best + [urgent._req]
+        for _ in range(20_000):
+            if all(r.done for r in reqs):
+                break
+            server.step()
+    if cl.preemptor.stats.preemptions < 1:
+        raise AssertionError("the urgent arrival paused no victim")
+    meas = {"pause_s": spy.pause_s, "resume_s": spy.resume_s,
+            "urgent_ttft_s": urgent.metrics["ttft"],
+            "preempt_spilled_bytes": cl.preemptor.tier.stats.spilled_bytes}
+    return ext_summary(cl, reqs), meas
+
+
+def ext_kill(params, cfg, device, job, ph, mesh, layout):
+    """A creditor of the spanning request dies once it has 4 tokens (a
+    logical crash: its rank's slab stays); the request replays."""
+    from repro_torch.serving import LLMServer, Request, SamplingParams
+    server = LLMServer(params, cfg, ext_config(job, pool_blocks=256)
+                       if not job.get("smoke") else ext_config(job),
+                       device=device, mesh=mesh, layout=layout)
+    cl = server.cluster
+    sp = SamplingParams(max_new_tokens=ph["n_new"])
+    reqs = [Request(prompt=p, sampling=sp)
+            for p in make_prompts(cfg, ph["span"], 7)]
+    for r in reqs:
+        cl.submit(r)
+    for _ in range(2000):
+        if len(reqs[0].output) >= 4:
+            break
+        server.step()
+    owner = next(e for e in cl.engines.values() if reqs[0] in e.running)
+    victim = owner.remote_insts[reqs[0].req_id][0]
+    with ReplaySpy() as spy:
+        t_kill, n_kill = time.monotonic(), len(reqs[0].output)
+        cl.kill_instance(victim)
+        step0 = cl._step_count
+        for _ in range(20_000):
+            if all(r.done for r in reqs):
+                break
+            server.step()
+    tt = reqs[0].token_times
+    meas = {"victim": victim, "detect_steps":
+            spy.detected[0]["step"] - step0 if spy.detected else None,
+            "replay_host_s": [r["host_s"] for r in spy.replays],
+            "replay_tokens": [r["tokens"] for r in spy.replays],
+            "next_token_after_kill_s": tt[n_kill] - t_kill
+            if len(tt) > n_kill else None}
+    return ext_summary(cl, reqs), meas
+
+
+def ext_fault_plan(params, cfg, device, job, ph, mesh, layout):
+    """A seeded ``FaultPlan`` (``FaultPlan.from_seed``: six events over
+    the first 30 steps, at most one crash) with the prefix cache, a host
+    tier and preemption on; after the first round every cached replica
+    is spilled and one prompt is served again from the host."""
+    from repro_torch.serving import (FaultPlan, LLMServer, OverloadPolicy,
+                                     Request, SamplingParams)
+    server = LLMServer(params, cfg, ext_config(
+        job, prefix_cache=True, host_tier_blocks=96,
+        overload=OverloadPolicy(enabled=True)), device=device, mesh=mesh,
+        layout=layout)
+    cl = server.cluster
+    inj = cl.install_faults(FaultPlan.from_seed(
+        ph["plan_seed"], n_steps=30, n_instances=4, n_events=6))
+    sp = SamplingParams(max_new_tokens=ph["n_new"])
+    prompts = make_prompts(cfg, (ph["plan"],) + tuple(ph["span"][1:]), 43)
+    reqs = [Request(prompt=p, sampling=sp) for p in prompts]
+    ext_serve(server, reqs)
+    for i in cl.engines:
+        if i not in cl._dead:
+            cl.prefix_cache.evict_device(i, 10 ** 6)
+    again = Request(prompt=list(prompts[1]), sampling=sp)
+    ext_serve(server, [again])
+    max_replays = cl.config.faults.max_replays_per_request
+    check_done_or_replay_failed(reqs + [again], max_replays)
+    fired = [ev.kind for ev in inj.fired]
+    out = dict(ext_summary(cl, reqs + [again]), fired=fired)
+    return out, {"planned": [(ev.step, ev.kind, ev.target)
+                             for ev in inj.plan.events]}
+
+
+EXT_CASES = {"host_tier": ext_host_tier, "overload": ext_overload,
+             "kill": ext_kill, "fault_plan": ext_fault_plan}
+
+
+def ext_job(params, cfg, device, job, ph, mesh=None, layout=None):
+    """Every extension scenario once, counted: (summaries, measures)."""
+    from repro_torch.kernels import ops
+    summ, meas = {}, {}
+    for name, fn in EXT_CASES.items():
+        if device.type == "cuda":
+            reset_peak_memory()
+        with CollectiveSpy() as coll:
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            summ[name], meas[name] = fn(params, cfg, device, job, ph, mesh,
+                                        layout)
+            sync(device)
+            meas[name]["phase_s"] = time.perf_counter() - t0
+            meas[name]["counts"] = ops.counts()
+        meas[name]["collective_calls"] = coll.calls
+        meas[name]["collective_s"] = coll.seconds
+        if device.type == "cuda":
+            meas[name]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        release_memory()
+    return summ, meas
+
+
+def ext_check(runs, key, device, layers, single=None, params32=None,
+              cfg32=None):
+    """The gates of the extension runs over every process: equal
+    summaries in every process (streams, states, counters), every
+    request finished (or failed past its replay budget, as in one
+    process), no slab reallocated, the mesh path's rank kernels and no
+    single-rank one; at float32, the summaries equal the single-process
+    scenario's and every stream the dense oracle's greedy argmax."""
+    jobs = [run[key] for run in runs]
+    s0, m0 = jobs[0]
+    for j, (s, _) in enumerate(jobs):
+        if s != s0:
+            bad = [c for c in s0 if s[c] != s0[c]]
+            raise AssertionError(f"{key}: process {j} differs in {bad}")
+    rep = {}
+    for name, summ in s0.items():
+        if summ["copies"]:
+            raise AssertionError(f"{key} {name}: a slab was reallocated")
+        if single is not None and summ != single[name]:
+            bad = [k for k in summ if summ[k] != single[name][k]]
+            raise AssertionError(f"{key} {name}: the mesh differs from one "
+                                 f"process in {bad}")
+        counts = [m[name]["counts"] for _, m in jobs]
+        for c in counts:
+            check_counts(c, ("paged_micro_attention_ranks",
+                             "paged_prefill_attention_ranks"), device)
+            for n in ("paged_micro_attention", "paged_prefill_attention"):
+                if served(c, n, device):
+                    raise AssertionError(f"{key} {name}: {n} ran")
+        flips = 0
+        if params32 is not None:
+            for prompt, out, st in zip(summ["prompts"], summ["outs"],
+                                       summ["states"]):
+                if st != "FINISHED":
+                    continue
+                oracle = oracle_logits(params32, cfg32, prompt, out, device)
+                flips += sum(int(torch.argmax(lg)) != t
+                             for lg, t in zip(oracle, out))
+            if flips:
+                raise AssertionError(f"{key} {name}: {flips} tokens differ "
+                                     f"from the dense oracle")
+        steps = [max(1, served(m[name]["counts"],
+                              "paged_micro_attention_ranks", device)
+                     / layers) for _, m in jobs]
+        rep[name] = {
+            **{k: summ[k] for k in ("states", "replays", "preemptions",
+                                    "fault_stats", "preempt", "host",
+                                    "preempt_tier", "stager", "dead")},
+            "fired": summ.get("fired"),
+            "oracle_checked": params32 is not None,
+            "per_process": [{k: v for k, v in m[name].items()
+                             if k != "counts"} |
+                            {"launches": {n: m[name]["counts"][n]["launches"]
+                                          for n in m[name]["counts"]},
+                             "collectives_per_decode_step":
+                             sum(m[name]["collective_calls"].values()) / st}
+                            for (_, m), st in zip(jobs, steps)]}
+    return rep
 
 
 def flash_long_case(name, B, S, H, K, D, dtype, device):
@@ -4324,6 +5000,20 @@ def main(argv=None) -> int:
             pp["launches"][name] for lay in report["mesh"]["layouts"].values()
             for pp in lay["per_process"]]
     launches["flash_prefill"] = hybrid["counts"]["flash_prefill"]["launches"]
+    # The serving extensions under a mesh (W = 2, bf16): each process's
+    # rank-form launches per scenario; the placed state steps' flash
+    # launches per placed recurrentgemma prefill.
+    ext_launches = {name: {case: [pp["launches"][name]
+                                  for pp in rep["per_process"]]
+                           for case, rep in report["mesh"]["ext"].items()}
+                    for name in ("paged_micro_attention_ranks",
+                                 "paged_prefill_attention_ranks")}
+    state_flash = [{"mesh": r["mesh"], "layers": r["layers"],
+                    "heads": r["flash_heads"],
+                    "launches": r["flash_launches"]}
+                   for lay in report["mesh"]["layouts"].values()
+                   for r in lay["state"]["runs"]
+                   if r["arch"] == "recurrentgemma-9b"]
     # The ServeLayout path's launches (phase 2) and its shapes' rows.
     sl = report["serve_layout"]
 
@@ -4389,6 +5079,9 @@ def main(argv=None) -> int:
                             if k in r})
         if name in mesh_launches:
             kernels[-1]["mesh_launches"] = mesh_launches[name]
+            kernels[-1]["mesh_ext_launches"] = ext_launches[name]
+        if name == "flash_prefill":
+            kernels[-1]["placed_state_launches"] = state_flash
         if name in sl_extra:
             kernels[-1].update(sl_extra[name])
         if name in bs128_extra:

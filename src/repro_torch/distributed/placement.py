@@ -22,6 +22,7 @@ row-parallel all-reduce, in float32) and ``cat`` (an all-gather).
 """
 from __future__ import annotations
 
+import itertools
 import zlib
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -33,8 +34,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.mesh import pool_shards
 from repro_torch.models.common import TP_AXIS, spec_axes as _axes
-from repro_torch.models.model import (POOLED_FAMILIES, init_params,
-                                      require_family, resolve_device)
+from repro_torch.models.model import (init_params, layer_path,
+                                      resolve_device)
 
 
 def _tree_map(fn, *trees):
@@ -157,19 +158,22 @@ class PlacedParams:
         return self._unshard({k: self.local[k] for k in keys},
                              {k: self.specs[k] for k in keys})
 
+    def sub(self, keys, idx=()):
+        """The leaves under the dict ``keys`` at index ``idx`` of their
+        leading stacked dims, FSDP-gathered, and their specs (those dims
+        dropped)."""
+        local, specs = self.local, self.specs
+        for k in keys:
+            local, specs = local[k], specs[k]
+        if idx:
+            local = _tree_map(lambda x: x[tuple(idx)], local)
+        return self._unshard(local, specs, drop=len(idx))
+
     def layer(self, cfg: ModelConfig, i: int):
-        """Layer ``i``'s leaves of a dense or MoE model, FSDP-gathered,
-        and their specs (the stacked layer dim dropped)."""
-        key, j = _layer_key(cfg, i)
-        local = _tree_map(lambda x: x[j], self.local[key])
-        return self._unshard(local, self.specs[key], drop=1)
-
-
-def _layer_key(cfg: ModelConfig, i: int) -> Tuple[str, int]:
-    if cfg.family == "dense":
-        return "layers", i
-    nd = cfg.first_k_dense
-    return ("dense_layers", i) if i < nd else ("moe_layers", i - nd)
+        """Layer ``i``'s leaves (any family: ``models.model.layer_path``
+        says where they live), FSDP-gathered, and their specs (the
+        stacked dims dropped)."""
+        return self.sub(*layer_path(cfg, i))
 
 
 def place_params(params, specs, mesh, *, device=None) -> PlacedParams:
@@ -201,48 +205,71 @@ def _leaf_seed(seed: int, path: str, i: int) -> int:
     return zlib.crc32(f"{seed}/{path}/{i}".encode())
 
 
+# Stacked leading dims of the leaves under each top-level key (a stacked
+# leaf is drawn one layer at a time); the ssm family's mLSTM stack has two.
+_STACKED = {"layers": 1, "dense_layers": 1, "moe_layers": 1, "groups": 1}
+
+
+def _n_stacked(path: str) -> int:
+    if path.startswith("groups/mlstm/"):
+        return 2
+    top, sep, _ = path.partition("/")
+    return _STACKED.get(top, 0) if sep else 0
+
+
 def _draw(path: str, shape, dtype, gen, device) -> torch.Tensor:
     """One leaf (or one layer of a stacked leaf) with the distribution
     ``init_params`` gives it: norm scales 1, biases 0, the embedding
-    N(0, 0.02^2), every matrix N(0, 1 / fan_in)."""
+    N(0, 0.02^2), every matrix N(0, 1 / fan_in); RG-LRU's conv N(0,
+    0.1^2) and Lambda with ``sigmoid(L)^8`` uniform in [0.9, 0.999];
+    mLSTM's gate bias 0 for the input half and 3 for the forget half."""
     name = path.rsplit("/", 1)[-1]
-    if name in ("scale", "q_norm", "k_norm"):
+    if name in ("scale", "q_norm", "k_norm", "gn_scale"):
         return torch.ones(shape, dtype=dtype, device=device)
-    if name == "bias":
+    if name in ("bias", "b", "b_r", "b_i"):
         return torch.zeros(shape, dtype=dtype, device=device)
-    std = 0.02 if path == "embed" else shape[-2] ** -0.5
+    if name == "b_if":
+        nh = shape[-1] // 2
+        return torch.cat([torch.zeros(shape[:-1] + (nh,), device=device),
+                          torch.full(shape[:-1] + (nh,), 3.0,
+                                     device=device)], -1).to(dtype)
+    if name == "log_sig_lambda":
+        u = torch.rand(shape, generator=gen, device=device) \
+            * (0.999 - 0.9) + 0.9
+        return torch.log(u ** (1.0 / 8.0)).to(dtype)
+    if name == "conv_w":
+        std = 0.1
+    else:
+        std = 0.02 if path == "embed" else shape[-2] ** -0.5
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return (w * std).to(dtype)
 
 
 def seeded_params(cfg: ModelConfig, seed: int = 0, *, mesh=None,
                   specs=None, device=None):
-    """Seeded random weights of a dense or MoE model, drawn one leaf at a
-    time — a stacked leaf one layer at a time, each layer from its own
-    generator — so the values do not depend on the mesh. Without
-    ``mesh``: the whole tree. With it: a ``PlacedParams`` by ``specs``
-    (validated), of which this process only ever holds its shards and
-    one layer of one leaf."""
-    require_family(cfg, POOLED_FAMILIES)
+    """Seeded random weights of any family, drawn one leaf at a time — a
+    stacked leaf one layer at a time, each layer from its own generator
+    — so the values do not depend on the mesh. Without ``mesh``: the
+    whole tree. With it: a ``PlacedParams`` by ``specs`` (validated), of
+    which this process only ever holds its shards and one layer of one
+    leaf."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
 
     def one(path, meta, spec):
         sl = shard_slices(meta.shape, spec, mesh) if mesh is not None \
             else (slice(None),) * meta.ndim
-        if meta.ndim < 3:
-            gen = torch.Generator(device=dev).manual_seed(
-                _leaf_seed(seed, path, 0))
-            return _draw(path, tuple(meta.shape), meta.dtype, gen,
-                         dev)[sl].contiguous()
-        n = meta.shape[0]                  # a stacked leaf, a layer a time
+        ns = _n_stacked(path)
+        lead = tuple(meta.shape[:ns])
         local = [len(range(*s_.indices(d))) for s_, d in zip(sl, meta.shape)]
         out = torch.empty(local, dtype=meta.dtype, device=dev)
-        for j, i in enumerate(range(*sl[0].indices(n))):
+        ranges = [range(*s_.indices(d)) for s_, d in zip(sl[:ns], lead)]
+        for j, idx in enumerate(itertools.product(*ranges)):
+            i = int(np.ravel_multi_index(idx, lead)) if ns else 0
             gen = torch.Generator(device=dev).manual_seed(
                 _leaf_seed(seed, path, i))
-            out[j] = _draw(path, tuple(meta.shape[1:]), meta.dtype, gen,
-                           dev)[sl[1:]]
+            layer = _draw(path, tuple(meta.shape[ns:]), meta.dtype, gen, dev)
+            out.view(-1, *local[ns:])[j] = layer[sl[ns:]]
         return out
 
     def walk(tree, sp, path=""):

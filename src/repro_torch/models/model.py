@@ -17,7 +17,7 @@ The JAX package stacks per-layer parameters along a leading layer (or
 group) axis and scans over them; the port keeps that stacked layout (so
 the weight bridge is key-for-key) and runs a Python loop over layers,
 slicing one layer's parameters per iteration (``attn_layer_params``,
-``_layer_params``, ``layer_params``); the full-sequence forward, which
+``param_layer``, ``layer_params``); the full-sequence forward, which
 training differentiates, unbinds each stack once (``unstack``).
 """
 from __future__ import annotations
@@ -215,15 +215,40 @@ def ffn_or_moe(lp, h, cfg: ModelConfig, capacity_factor: float = 1.25,
     return apply_ffn(lp["ffn"], h, cfg, specs=sp, tp=tp)
 
 
-def _layer_params(params, cfg: ModelConfig, i: int):
-    """Layer ``i``'s parameters of a hybrid model (views, no copy)."""
+def layer_path(cfg: ModelConfig, i: int) -> Tuple[Tuple[str, ...],
+                                                  Tuple[int, ...]]:
+    """Where layer ``i``'s parameters live in the tree: (the dict keys of
+    its stack, its index along the stack's leading dims). Dense and MoE
+    as ``attn_layer_params``; hybrid by group and pattern position (a
+    leftover layer has no stacked dim); ssm in
+    ``_ssm_layers``' order (an mLSTM layer at (group, j), the group's
+    sLSTM at (group,))."""
+    if cfg.family == "dense":
+        return ("layers",), (i,)
+    if cfg.family == "moe":
+        nd = cfg.first_k_dense
+        return (("dense_layers",), (i,)) if i < nd else \
+            (("moe_layers",), (i - nd,))
+    if cfg.family == "ssm":
+        g, j = divmod(i, cfg.slstm_every)
+        if j < cfg.slstm_every - 1:
+            return ("groups", "mlstm"), (g, j)
+        return ("groups", "slstm"), (g,)
     pat = cfg.block_pattern
     n_groups, _ = hybrid_groups(cfg)
     g, j = divmod(i, len(pat))
     key = f"{j}_{pat[j]}"
-    if g < n_groups:
-        return layer_params(params["groups"][key], g)
-    return params["leftover"][key]
+    return (("groups", key), (g,)) if g < n_groups else \
+        (("leftover", key), ())
+
+
+def param_layer(params, cfg: ModelConfig, i: int):
+    """Layer ``i``'s parameters of any family (views, no copy)."""
+    keys, idx = layer_path(cfg, i)
+    tree = params
+    for k in keys:
+        tree = tree[k]
+    return layer_params(tree, *idx) if idx else tree
 
 
 # ===================================================================== #
@@ -242,13 +267,22 @@ def _attn_layer_fwd(lp, x, positions, cfg, core, *,
     return x + ffn_or_moe(lp, h, cfg, capacity_factor, ep_groups), kv, aux
 
 
-def _rglru_layer_fwd(lp, x, cfg, state=None, *, decode=False):
+def _sub(specs, key):
+    return None if specs is None else specs[key]
+
+
+def _rglru_layer_fwd(lp, x, cfg, state=None, *, decode=False, specs=None,
+                     tp=None):
+    """One RG-LRU layer with its FFN: (x, new state). Placed weights:
+    ``specs`` (the layer's) and ``tp``, the TP axis."""
     h = apply_norm(lp["ln1"], x, cfg)
     mix, new_state = apply_rglru_block(lp["rglru"], h, cfg, state,
-                                       decode=decode)
+                                       decode=decode,
+                                       specs=_sub(specs, "rglru"), tp=tp)
     x = x + mix
     h = apply_norm(lp["ln2"], x, cfg)
-    return x + apply_ffn(lp["ffn"], h, cfg), new_state
+    return x + apply_ffn(lp["ffn"], h, cfg, specs=_sub(specs, "ffn"),
+                         tp=tp), new_state
 
 
 def _ssm_layers(params, cfg: ModelConfig):
@@ -263,11 +297,14 @@ def _ssm_layers(params, cfg: ModelConfig):
         yield "slstm", (g,), layer_params(gp["slstm"], g)
 
 
-def _ssm_layer_fwd(kind, lp, x, cfg, state=None, *, decode=False):
-    """One xLSTM layer with its residual: (x, new state)."""
+def _ssm_layer_fwd(kind, lp, x, cfg, state=None, *, decode=False,
+                   specs=None, tp=None):
+    """One xLSTM layer with its residual: (x, new state). Placed weights:
+    ``specs`` (the layer's) and ``tp``, the TP axis."""
     h = apply_norm(lp["ln"], x, cfg)
     apply = apply_mlstm_block if kind == "mlstm" else apply_slstm_block
-    y, st = apply(lp["blk"], h, cfg, state, decode=decode)
+    y, st = apply(lp["blk"], h, cfg, state, decode=decode,
+                  specs=_sub(specs, "blk"), tp=tp)
     return x + y, st
 
 
@@ -488,23 +525,32 @@ def _cached_attn_decode(lp, x, state_k, state_v, lens, cfg, *, window=0):
     """
     B = x.shape[0]
     q, k, v = qkv_project(lp, x, lens[:, None], cfg)
-    rows = torch.arange(B, device=x.device)
-    maxlen = state_k.shape[1]
-    if window:
-        pos = lens % maxlen                                  # ring buffer
-        state_k[rows, pos] = k[:, 0]
-        state_v[rows, pos] = v[:, 0]
-        rel = torch.arange(maxlen, device=x.device)[None]
-        # Absolute position of each ring slot given the write head.
-        abs_pos = lens[:, None] - ((pos[:, None] - rel) % maxlen)
-        mask = (abs_pos >= 0) & sliding_window_mask_decode(abs_pos, lens,
-                                                           window)
-    else:
-        state_k[rows, lens] = k[:, 0]
-        state_v[rows, lens] = v[:, 0]
-        mask = torch.arange(maxlen, device=x.device)[None] <= lens[:, None]
+    mask = cache_write(state_k, state_v, k[:, 0], v[:, 0], lens,
+                       window=window)
     out = full_attention_decode(q[:, 0], state_k, state_v, mask)
     return out.reshape(B, 1, -1).to(x.dtype) @ lp["wo"]
+
+
+def cache_write(state_k, state_v, k, v, lens, *, window=0):
+    """Write one token's ``k``/``v`` [B, K, hd] at position ``lens`` into
+    a cache [B, maxlen, K, hd] IN PLACE; returns the [B, maxlen] mask of
+    the slots the token attends to. With ``window`` the cache is a ring
+    (slot = position % its length) and the mask keeps the last
+    ``window`` positions it holds."""
+    B, maxlen = state_k.shape[:2]
+    rows = torch.arange(B, device=k.device)
+    if window:
+        pos = lens % maxlen                                  # ring buffer
+        state_k[rows, pos] = k
+        state_v[rows, pos] = v
+        rel = torch.arange(maxlen, device=k.device)[None]
+        # Absolute position of each ring slot given the write head.
+        abs_pos = lens[:, None] - ((pos[:, None] - rel) % maxlen)
+        return (abs_pos >= 0) & sliding_window_mask_decode(abs_pos, lens,
+                                                           window)
+    state_k[rows, lens] = k
+    state_v[rows, lens] = v
+    return torch.arange(maxlen, device=k.device)[None] <= lens[:, None]
 
 
 def _attn_layer_decode(lp, x, ck, cv, lens, cfg, *, window=0):
@@ -541,7 +587,7 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
         conv_c, lru_h = state.rec
         ai = ri = 0
         for i in range(cfg.num_layers):
-            lp = _layer_params(params, cfg, i)
+            lp = param_layer(params, cfg, i)
             if cfg.layer_kind(i) == "attn":
                 x = _attn_layer_decode(lp, x, state.kv_k[ai],
                                        state.kv_v[ai], lens, cfg,

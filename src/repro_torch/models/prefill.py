@@ -54,12 +54,11 @@ from repro_torch.kernels.ops import (paged_micro_attention,
 from repro_torch.models.attention import make_causal_core, qkv_project
 from repro_torch.models.common import apply_norm
 from repro_torch.models.model import (POOLED_FAMILIES, DecodeState,
-                                      _attn_layer_fwd, _layer_params,
-                                      _rglru_layer_fwd, _ssm_layer_fwd,
-                                      _ssm_layers, attn_layer_params,
-                                      embed_tokens, ffn_or_moe,
-                                      init_decode_state, require_family,
-                                      unembed)
+                                      _attn_layer_fwd, _rglru_layer_fwd,
+                                      _ssm_layer_fwd, _ssm_layers,
+                                      attn_layer_params, embed_tokens,
+                                      ffn_or_moe, init_decode_state,
+                                      param_layer, require_family, unembed)
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -67,11 +66,14 @@ Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 # ===================================================================== #
 # Prefill (dense oracle)
 # ===================================================================== #
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
+def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None, *, max_len: int,
             backend: str = "xla", chunk: int = 512,
             capacity_factor: float = -1.0
             ) -> Tuple[torch.Tensor, DecodeState]:
-    """Uniform-length prefill. Returns (logits_last [B,V], DecodeState).
+    """Uniform-length prefill over ``tokens`` [B, T] or ``embeds`` [B, T,
+    d] (a modality frontend's output, as ``forward`` takes it). Returns
+    (logits_last [B,V], DecodeState).
 
     The cache keeps the LAST min(T, ring) tokens in ring layout (slot =
     position % ring), as in the JAX package; ring = max_len for the
@@ -83,10 +85,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     states in (group, layer) order, as ``decode_step`` reads them.
     """
     require_family(cfg)
-    B, T = tokens.shape
-    dev = tokens.device
+    B, T = tokens.shape if embeds is None else embeds.shape[:2]
+    dev = (tokens if embeds is None else embeds).device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
-    x = embed_tokens(params, cfg, tokens, positions=positions)
+    x = embed_tokens(params, cfg, tokens, embeds, positions)
     state = init_decode_state(cfg, B, max_len, device=dev)
     lens = torch.full((B,), T, dtype=torch.int64, device=dev)
     if cfg.family == "ssm":
@@ -112,7 +114,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
         conv, h = state.rec
         ai = ri = 0
         for i in range(cfg.num_layers):
-            lp = _layer_params(params, cfg, i)
+            lp = param_layer(params, cfg, i)
             if cfg.layer_kind(i) == "rglru":
                 x, (cc, hh) = _rglru_layer_fwd(lp, x, cfg)
                 conv[ri].copy_(cc)

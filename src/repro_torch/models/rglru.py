@@ -18,6 +18,15 @@ the form is stable in float32; ``h`` carries from chunk to chunk, and
 a prompt costs a few operations per chunk instead of per token. Decode
 is the O(1)-state step ``rglru_step``. There is no Pallas kernel here in
 the JAX package, so none here either: this is plain PyTorch.
+
+Placed weights (``specs``, ``tp``: the TP axis, as ``common.tp_split``
+reads them) split the recurrent width over "model": ``w_gate``,
+``w_rec_in`` and ``conv_w`` by columns, so this process holds columns
+``[p * w / tp, (p + 1) * w / tp)`` of the gate, the conv input and its
+state; ``w_r``/``w_i`` by rows, whose pre-activations are one
+row-parallel sum (float32) of which the process keeps its own columns;
+``w_out`` by rows, the block's one all-reduce. The state ``(conv_carry,
+h)`` then holds the local columns only.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, torch_dtype
+from repro_torch.models.common import (dense_init, row_parallel,
+                                       torch_dtype, tp_split)
 
 _C = 8.0
 _CONV_W = 4
@@ -60,21 +70,34 @@ def init_rglru_block(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
-def _gates(p, x: torch.Tensor):
-    """x: [..., w] (conv output) -> (log_a [..., w] f32, gated_in f32)."""
-    r = torch.sigmoid((x @ p["w_r"]).float() + p["b_r"])
-    i = torch.sigmoid((x @ p["w_i"]).float() + p["b_i"])
-    log_a = _C * r * p["log_sig_lambda"]                        # <= 0
+def _gates(p, x: torch.Tensor, tp=None):
+    """x: [..., w] (conv output) -> (log_a [..., w] f32, gated_in f32).
+    With ``tp`` (the recurrent width split over it) ``x`` holds this
+    process's columns: both pre-activations come from one row-parallel
+    sum, cut to the same columns, as are the biases and Lambda."""
+    if tp is None:
+        r_pre, i_pre = x @ p["w_r"], x @ p["w_i"]
+        b_r, b_i, lam = p["b_r"], p["b_i"], p["log_sig_lambda"]
+    else:
+        n = x.shape[-1]
+        own = slice(tp.index * n, (tp.index + 1) * n)
+        pre = tp.sum(torch.cat([x @ p["w_r"], x @ p["w_i"]], -1))
+        r_pre, i_pre = (t[..., own] for t in pre.chunk(2, -1))
+        b_r, b_i, lam = (p[k][own] for k in ("b_r", "b_i", "log_sig_lambda"))
+    r = torch.sigmoid(r_pre.float() + b_r)
+    i = torch.sigmoid(i_pre.float() + b_i)
+    log_a = _C * r * lam                                        # <= 0
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * x.float()
     return log_a, gated
 
 
-def rglru_scan(p, x: torch.Tensor, h0: Optional[torch.Tensor] = None):
+def rglru_scan(p, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               tp=None):
     """RG-LRU over [B, T, w]. Returns (y [B,T,w] in x's dtype, h_T [B,w]
-    float32)."""
+    float32). ``tp``: as ``_gates``."""
     B, T, w = x.shape
-    log_a, gated = _gates(p, x)                                 # [B,T,w] f32
+    log_a, gated = _gates(p, x, tp)                               # [B,T,w] f32
     h = (torch.zeros((B, w), device=x.device) if h0 is None
          else h0.float())
     ys = []
@@ -93,9 +116,10 @@ def rglru_scan(p, x: torch.Tensor, h0: Optional[torch.Tensor] = None):
     return y.to(x.dtype), h
 
 
-def rglru_step(p, x: torch.Tensor, h: torch.Tensor):
-    """Single decode step. x: [B, w] conv output, h: [B, w] f32 state."""
-    log_a, gated = _gates(p, x[:, None])
+def rglru_step(p, x: torch.Tensor, h: torch.Tensor, tp=None):
+    """Single decode step. x: [B, w] conv output, h: [B, w] f32 state.
+    ``tp``: as ``_gates``."""
+    log_a, gated = _gates(p, x[:, None], tp)
     h_new = torch.exp(log_a[:, 0]) * h + gated[:, 0]
     return h_new.to(x.dtype), h_new
 
@@ -116,22 +140,27 @@ def causal_conv1d(p, x: torch.Tensor, carry: Optional[torch.Tensor] = None):
 
 def apply_rglru_block(p, x: torch.Tensor, cfg: ModelConfig,
                       state: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                      = None, *, decode: bool = False):
+                      = None, *, decode: bool = False, specs=None, tp=None):
     """Full Griffin recurrent block. x: [B, T, d].
 
     state = (conv_carry [B,3,w], lru_h [B,w]); returns (y, new_state).
+    Placed weights (``specs``, ``tp``): see the module docstring; the
+    state then holds ``w / tp`` columns.
     """
+    split = tp_split(None if specs is None else specs["w_rec_in"], 1, tp)
+    ltp = tp if split else None
     # jax.nn.gelu defaults to the tanh approximation.
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")          # [B,T,w]
     rec = x @ p["w_rec_in"]
     conv_carry, h = state if state is not None else (None, None)
     rec_c, conv_carry = causal_conv1d(p, rec, conv_carry)
     if decode:
-        y_rec, h = rglru_step(p, rec_c[:, 0], h)
+        y_rec, h = rglru_step(p, rec_c[:, 0], h, ltp)
         y_rec = y_rec[:, None]
     else:
-        y_rec, h = rglru_scan(p, rec_c, h)
-    y = (gate * y_rec) @ p["w_out"]
+        y_rec, h = rglru_scan(p, rec_c, h, ltp)
+    out_split = tp_split(None if specs is None else specs["w_out"], 0, tp)
+    y = row_parallel(gate * y_rec, p["w_out"], out_split, tp)
     return y, (conv_carry, h)
 
 

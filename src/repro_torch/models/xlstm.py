@@ -17,6 +17,17 @@ package's parameter keys, distributions and roundings (``h`` rounded to
 the input dtype before the sLSTM recurrent product and before the group
 norm; the stabilizers start at -1e30, so both ``exp`` terms of the first
 step underflow to 0).
+
+Placed weights (``specs``, ``tp``: the TP axis, as ``common.tp_split``
+reads them). mLSTM: ``w_up``/``w_gate`` are split by columns, so this
+process holds ``up / tp`` columns of the up-projection; ``wq``, ``wk``,
+``wv`` and ``w_if`` by rows, their products one row-parallel sum of
+which the process keeps its own heads (``num_heads / tp``: the memory
+``(C, n, m)`` and the group norm run on those heads only); ``w_down`` by
+rows. sLSTM: ``w_x``, ``w_h`` (gates packed ``i|f|z|o``) and ``w_ff_i``
+(packed ``a|b``) split by contiguous columns would give one process
+whole gates and another none, so they are gathered over "model" once a
+layer and the recurrence runs replicated; ``w_ff_o`` stays row-parallel.
 """
 from __future__ import annotations
 
@@ -26,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, torch_dtype
+from repro_torch.models.common import (dense_init, row_parallel,
+                                       torch_dtype, tp_split)
 
 _M0 = -1e30         # initial log-domain stabilizer
 
@@ -68,16 +80,33 @@ def init_mlstm_block(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
-def _mlstm_qkvg(p, x_up: torch.Tensor, nh: int):
+def _mlstm_qkvg(p, x_up: torch.Tensor, nh: int, tp=None):
     """x_up [B, T, up] -> q, k, v [B, T, nh, hd], log_i, log_f [B, T, nh]
-    (float32; k scaled by hd ** -0.5 after the cast)."""
+    (float32; k scaled by hd ** -0.5 after the cast). With ``tp`` (the
+    up-projection split over it) ``x_up`` holds this process's columns,
+    the four products are one row-parallel sum and the results hold its
+    own ``nh / tp`` heads."""
     B, T, up = x_up.shape
+    if tp is None:
+        q, k, v, gif = (x_up @ p[n] for n in ("wq", "wk", "wv", "w_if"))
+        b_if, heads = p["b_if"], nh
+    else:
+        heads, up = nh // tp.count, up * tp.count
+        own = slice(tp.index * heads, (tp.index + 1) * heads)
+        cols = slice(own.start * (up // nh), own.stop * (up // nh))
+        y = tp.sum(torch.cat([x_up @ p[n] for n in ("wq", "wk", "wv",
+                                                    "w_if")], -1))
+        q, k, v, gif = y.split([up, up, up, 2 * nh], -1)
+        q, k, v = q[..., cols], k[..., cols], v[..., cols]
+        gif = torch.cat([gif[..., :nh][..., own], gif[..., nh:][..., own]],
+                        -1)
+        b_if = torch.cat([p["b_if"][:nh][own], p["b_if"][nh:][own]])
     hd = up // nh
-    q = (x_up @ p["wq"]).reshape(B, T, nh, hd).float()
-    k = (x_up @ p["wk"]).reshape(B, T, nh, hd).float() * (hd ** -0.5)
-    v = (x_up @ p["wv"]).reshape(B, T, nh, hd).float()
-    gif = (x_up @ p["w_if"]).float() + p["b_if"]
-    return q, k, v, gif[..., :nh], F.logsigmoid(gif[..., nh:])
+    q = q.reshape(B, T, heads, hd).float()
+    k = k.reshape(B, T, heads, hd).float() * (hd ** -0.5)
+    v = v.reshape(B, T, heads, hd).float()
+    gif = gif.float() + b_if
+    return q, k, v, gif[..., :heads], F.logsigmoid(gif[..., heads:])
 
 
 def mlstm_step(q, k, v, log_i, log_f, state: MLstmState):
@@ -93,10 +122,12 @@ def mlstm_step(q, k, v, log_i, log_f, state: MLstmState):
     return num / den[..., None], MLstmState(c, n, m_new)
 
 
-def mlstm_scan(p, x_up: torch.Tensor, nh: int, state: MLstmState):
-    """Sequential scan over T. Returns (h [B, T, up] f32, state)."""
+def mlstm_scan(p, x_up: torch.Tensor, nh: int, state: MLstmState,
+               tp=None):
+    """Sequential scan over T. Returns (h [B, T, up] f32, state) (``tp``:
+    as ``_mlstm_qkvg``; then h holds this process's heads)."""
     B, T, up = x_up.shape
-    q, k, v, log_i, log_f = _mlstm_qkvg(p, x_up, nh)
+    q, k, v, log_i, log_f = _mlstm_qkvg(p, x_up, nh, tp)
     hs = []
     for t in range(T):
         h, state = mlstm_step(q[:, t], k[:, t], v[:, t], log_i[:, t],
@@ -118,9 +149,11 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, nh: int,
 
 
 def mlstm_state_init(cfg: ModelConfig, batch: int, *, device,
-                     lead=()) -> MLstmState:
-    """Zero memories and -1e30 stabilizers (``lead``: stack dims)."""
+                     lead=(), heads: Optional[int] = None) -> MLstmState:
+    """Zero memories and -1e30 stabilizers (``lead``: stack dims;
+    ``heads``: this process's heads, default all)."""
     _, nh, hd = mlstm_dims(cfg)
+    nh = heads or nh
     lead = tuple(lead) + (batch, nh)
     return MLstmState(torch.zeros(lead + (hd, hd), device=device),
                       torch.zeros(lead + (hd,), device=device),
@@ -129,23 +162,35 @@ def mlstm_state_init(cfg: ModelConfig, batch: int, *, device,
 
 def apply_mlstm_block(p, x: torch.Tensor, cfg: ModelConfig,
                       state: Optional[MLstmState] = None, *,
-                      decode: bool = False):
-    """x: [B, T, d] -> (y [B, T, d], state)."""
+                      decode: bool = False, specs=None, tp=None):
+    """x: [B, T, d] -> (y [B, T, d], state). Placed weights (``specs``,
+    ``tp``): see the module docstring; the state holds this process's
+    ``num_heads / tp`` heads."""
     B, T, d = x.shape
     nh = cfg.num_heads
+    split = tp_split(None if specs is None else specs["w_up"], 1, tp)
+    ltp = tp if split else None
+    heads, gn_scale = nh, p["gn_scale"]
+    if split:
+        if nh % tp.count:
+            raise ValueError(f"{nh} mLSTM heads do not split over a TP "
+                             f"axis of {tp.count}")
+        heads = nh // tp.count
+        n = gn_scale.shape[-1] // tp.count
+        gn_scale = gn_scale[tp.index * n:(tp.index + 1) * n]
     if state is None:
-        state = mlstm_state_init(cfg, B, device=x.device)
+        state = mlstm_state_init(cfg, B, device=x.device, heads=heads)
     x_up = x @ p["w_up"]
     gate = F.silu(x @ p["w_gate"])
     if decode:
-        q, k, v, log_i, log_f = _mlstm_qkvg(p, x_up, nh)
+        q, k, v, log_i, log_f = _mlstm_qkvg(p, x_up, nh, ltp)
         h, state = mlstm_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
                               log_f[:, 0], state)
         h = h.reshape(B, 1, -1)
     else:
-        h, state = mlstm_scan(p, x_up, nh, state)
-    h = _group_norm(h.to(x.dtype), p["gn_scale"], nh)
-    return (h * gate) @ p["w_down"], state
+        h, state = mlstm_scan(p, x_up, nh, state, ltp)
+    h = _group_norm(h.to(x.dtype), gn_scale, heads)
+    return row_parallel(h * gate, p["w_down"], split, tp), state
 
 
 # --------------------------------------------------------------------- #
@@ -203,11 +248,23 @@ def slstm_state_init(cfg: ModelConfig, batch: int, *, device,
                       torch.full(shape, _M0, device=device))
 
 
+def _tp_whole(p, specs, tp, names):
+    """``p`` with each leaf of ``names`` whose columns are split over the
+    TP axis gathered whole (one all-gather a leaf)."""
+    if specs is None or tp is None:
+        return p
+    return {**p, **{n: tp.cat(p[n], 1) for n in names
+                    if tp_split(specs[n], 1, tp)}}
+
+
 def apply_slstm_block(p, x: torch.Tensor, cfg: ModelConfig,
                       state: Optional[SLstmState] = None, *,
-                      decode: bool = False):
-    """x: [B, T, d] -> (y, state). Inherently sequential (h -> gates)."""
+                      decode: bool = False, specs=None, tp=None):
+    """x: [B, T, d] -> (y, state). Inherently sequential (h -> gates).
+    Placed weights (``specs``, ``tp``): see the module docstring; the
+    state is whole in every process."""
     B, T, d = x.shape
+    p = _tp_whole(p, specs, tp, ("w_x", "w_h", "w_ff_i"))
     if state is None:
         state = slstm_state_init(cfg, B, device=x.device)
     hs = []
@@ -218,4 +275,9 @@ def apply_slstm_block(p, x: torch.Tensor, cfg: ModelConfig,
                     cfg.num_heads)
     a, b = torch.chunk(y @ p["w_ff_i"], 2, dim=-1)
     # jax.nn.gelu defaults to the tanh approximation.
-    return (F.gelu(a, approximate="tanh") * b) @ p["w_ff_o"], state
+    u = F.gelu(a, approximate="tanh") * b
+    if tp_split(None if specs is None else specs["w_ff_o"], 0, tp):
+        n = p["w_ff_o"].shape[0]                # this process's rows
+        return tp.sum(u[..., tp.index * n:(tp.index + 1) * n]
+                      @ p["w_ff_o"]), state
+    return u @ p["w_ff_o"], state

@@ -83,8 +83,11 @@ one all-reduce MAX and two SUMs: queries and merge scalars cross, KV
 never moves), and ``StripedMove`` legs and prefix-cache copies between
 processes are broadcasts from the owner. Each step checks that every
 process planned the same step (``RuntimeError`` otherwise). The host
-tier, overload preemption and fault injection raise
-``NotImplementedError`` under a mesh.
+tier, overload preemption and fault injection run under a mesh too: a
+spill's block read is such a broadcast, so every process keeps the
+frame and the tiers stay replicated; fetches and resumes write on the
+owner; a crash is logical (the rank's slab stays); every process arms
+the same ``FaultPlan``.
 """
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.config import (FaultPolicy, OverloadPolicy,

@@ -74,11 +74,29 @@ Decisions read only what every process agrees on: the clock is
 ``agreed_clock`` (the largest of the processes' readings), liveness is
 the step-count detector alone, and each step checks that a digest of
 its plan (per engine: running requests, their lengths and last tokens,
-the waiting queue; then the Algorithm-1 moves) is equal everywhere,
-raising ``RuntimeError`` in every process if not. A mesh serves the
-plain global path and the prefix cache; the host tier, overload
-preemption and fault injection raise ``NotImplementedError`` under one
-(ROADMAP Queue 1 item 4).
+the waiting queue, the dead set, the paused requests, each request's
+replay count and the host tiers' keys in LRU order; then the Algorithm-1
+moves) is equal everywhere, raising ``RuntimeError`` in every process if
+not. Every extension runs under a mesh, as the JAX package's cluster
+runs them over its mesh-sharded pool:
+
+* the host tier and the prefix cache: a spill reads its block through
+  ``GlobalKVPool.read_blocks`` (a broadcast from the owner), so EVERY
+  process keeps the frame — the tier's keys, LRU order, watermarks,
+  pins and checksums stay replicated like the rest of control (a GSPMD
+  read is a global array too); a fetch writes on the owner only. The
+  cache's content hashes are chained from a root hash the processes
+  agree on at construction (Python salts a string's hash per process);
+* overload preemption: pause reads the chain the same way, resume writes
+  on the owners; pause stamps and the resume gate read the step's
+  agreed clock;
+* a crash is logical: ``kill_instance`` marks the instance dead, its
+  rank's slab stays addressable and no process exits; replay re-admits
+  through the normal (collective) path;
+* a ``FaultPlan`` is deterministic and armed in every process, so every
+  process fires the same events and consumes the same one-shot transfer
+  faults at the same transfers (a host-fetch corruption flips the same
+  frame in every process).
 """
 from __future__ import annotations
 
@@ -89,8 +107,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.mesh import (agreed_clock, check_replicated,
-                                          mesh_group)
+from repro_torch.distributed.mesh import (agreed_clock, agreed_int,
+                                          check_replicated, mesh_group)
 from repro_torch.models.model import POOLED_FAMILIES, resolve_device
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import InstanceEngine
@@ -100,14 +118,11 @@ from repro_torch.serving.gmanager import GManager
 from repro_torch.serving.hosttier import HostKVTier
 from repro_torch.serving.kvpool import rows_for_token_range
 from repro_torch.serving.perfmodel import InstancePerfModel
-from repro_torch.serving.prefixcache import RadixPrefixCache
+from repro_torch.serving.prefixcache import ROOT_HASH, RadixPrefixCache
 from repro_torch.serving.preempt import Preemptor
 from repro_torch.serving.protocol import MoveKVCache, MoveLeg, MoveResult
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.staging import AsyncStager
-
-_MESH_LATER = ("under a mesh (a global pool sharded over processes) is "
-               "not ported yet: ROADMAP Queue 1 item 4")
 
 
 class EngineMap(dict):
@@ -256,12 +271,10 @@ class Cluster:
                 raise ValueError("a mesh shards the global pool: it needs "
                                  "ServingConfig(global_pool=True) and a "
                                  "pooled (dense or moe) model")
-            if config.host_tier_blocks > 0:
-                raise NotImplementedError(f"the host tier {_MESH_LATER}")
-            if config.overload.enabled:
-                raise NotImplementedError(
-                    f"overload preemption {_MESH_LATER}")
             self._group = mesh_group(mesh)
+        # The clock of this step's decisions (``Cluster.clock``'s reading
+        # at the top of ``step``), which the engines stamp pauses with.
+        self._now = 0.0
         self.cfg = cfg
         self.config = config
         self.block_size = config.block_size
@@ -296,6 +309,8 @@ class Cluster:
         for eng in self.engines.values():
             eng.prefix_sink = self._make_prefix_sink(eng.inst_id)
             eng.peers = self.engines      # shared: add_instance updates all
+            if self._group is not None:
+                eng.clock = self._step_clock()
         # Host-DRAM tier + cross-request prefix cache (both opt-in). They
         # and the preemptor reach the cluster through a weak proxy.
         self.host_tier: Optional[HostKVTier] = None
@@ -310,8 +325,11 @@ class Cluster:
                 backoff_base_s=fpol.retry_backoff_base_s,
                 backoff_max_s=fpol.retry_backoff_max_s)
         if config.prefix_cache:
+            root = (ROOT_HASH if self._group is None
+                    else agreed_int(self._group, ROOT_HASH))
             self.prefix_cache = RadixPrefixCache(weakref.proxy(self),
-                                                 host_tier=self.host_tier)
+                                                 host_tier=self.host_tier,
+                                                 root_hash=root)
             for eng in self.engines.values():
                 self._wire_cache(eng)
         perf = perf if perf is not None else InstancePerfModel(cfg)
@@ -676,9 +694,9 @@ class Cluster:
     # --- fault tolerance ------------------------------------------------#
     def kill_instance(self, inst_id: int) -> None:
         """Simulate an instance failure: it stops heartbeating (and
-        stepping) at once; detection and recovery follow in ``step``."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"fault injection {_MESH_LATER}")
+        stepping) at once; detection and recovery follow in ``step``.
+        Under a mesh the crash is logical (every process calls this at
+        the same point): the rank's slab stays, no process exits."""
         self._dead.add(inst_id)
 
     def install_faults(self, plan: FaultPlan) -> FaultInjector:
@@ -688,9 +706,8 @@ class Cluster:
         transfer faults (move leg, host fetch/corrupt, stager timeout)
         become one-shot armed flags the subsystem hooks consume on the
         next matching transfer. Returns the attached injector (the
-        cluster holds it; it holds nothing of the cluster)."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"fault injection {_MESH_LATER}")
+        cluster holds it; it holds nothing of the cluster). Under a mesh
+        every process arms the same plan."""
         return FaultInjector(plan).attach(self)
 
     def _recover_via_replay(self, req: Request,
@@ -808,14 +825,31 @@ class Cluster:
             return agreed_clock(self._group, now)
         return time.monotonic() if now is None else now
 
+    def _step_clock(self):
+        """An engine's clock under a mesh: this step's agreed reading
+        (held weakly: the engines are the cluster's)."""
+        ref = weakref.ref(self)
+        return lambda: ref()._now
+
     def _plan_state(self) -> list:
-        """What this step's decisions follow from, per engine: running
+        """What this step's decisions follow from: per engine, running
         requests with their lengths and last tokens, and the waiting
-        queue."""
-        return [(i, [(r.req_id, r.length, r.output[-1] if r.output else -1)
-                     for r in e.slots if r is not None],
-                 [r.req_id for r in e.waiting])
-                for i, e in self.engines.items()]
+        queue; the dead instances, the paused requests (with their pause
+        stamps), every live request's replay count, and each host tier's
+        keys in LRU order."""
+        tiers = [t for t in (self.host_tier, self.preemptor and
+                             self.preemptor.tier) if t is not None]
+        return [[(i, [(r.req_id, r.length, r.output[-1] if r.output else -1)
+                      for r in e.slots if r is not None],
+                  [r.req_id for r in e.waiting])
+                 for i, e in self.engines.items()],
+                sorted(self._dead),
+                [] if self.preemptor is None else
+                [(rid, rec.paused_at) for rid, rec in
+                 self.preemptor.paused.items()],
+                [(rid, r.replays) for rid, r in self.requests.items()
+                 if r.replays and not r.done],
+                [t.lru_keys() for t in tiers]]
 
     def step(self, now: Optional[float] = None, *,
              agreed: bool = False) -> int:
@@ -825,6 +859,7 @@ class Cluster:
         collective is spent on the clock."""
         if not agreed:
             now = self.clock(now)
+        self._now = now
         self._step_count += 1
         if self._group is not None:
             # Divergence guard: before this step's first collective.

@@ -217,6 +217,9 @@ class InstanceEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(
             1234 + inst_id)
         self._finished_events: List[int] = []
+        # The clock pause stamps read (under a mesh the cluster installs
+        # its step's agreed reading).
+        self.clock: Callable[[], float] = time.monotonic
         self._can_pool = cfg.family in POOLED_FAMILIES
         self._pool_k = self._pool_v = None
         self.state = None
@@ -384,7 +387,7 @@ class InstanceEngine:
             # the pause.
             req.pause_requested = False
             req.preemptions += 1
-            req.paused_at = time.monotonic()
+            req.paused_at = self.clock()
             req.state = RequestState.WAITING
             self.waiting.insert(0, req)
             return False
@@ -1066,11 +1069,15 @@ class InstanceEngine:
         """Fill one pool block from [L, bs, K, hd] rows, in place: an
         H2D upload of a (pinned) host frame, ``non_blocking`` on the
         compute stream, or a D2D peer replica copy."""
+        if self.gpool is not None:
+            if self.gpool.is_local(self.inst_id):   # the owner writes
+                self.gpool.write_blocks(
+                    self.inst_id, [block], k.to(self.device,
+                                                non_blocking=True),
+                    v.to(self.device, non_blocking=True))
+            return
         k = k.to(self.device, non_blocking=True)
         v = v.to(self.device, non_blocking=True)
-        if self.gpool is not None:
-            self.gpool.write_blocks(self.inst_id, [block], k, v)
-            return
         write_pool_rows(self.pool_k, [block], k, self.block_size)
         write_pool_rows(self.pool_v, [block], v, self.block_size)
 
@@ -1155,7 +1162,7 @@ class InstanceEngine:
         keeps its prompt/output/stream state and is NOT terminal."""
         req.state = RequestState.PAUSED
         req.preemptions += 1
-        req.paused_at = time.monotonic() if now is None else now
+        req.paused_at = self.clock() if now is None else now
         self._release_slot(req)
 
     def resume_paused(self, req: Request, n_tokens: int,

@@ -31,6 +31,12 @@ transfer faults are one-shot armed flags consumed in execution order.
 The injector's hooks are its own bound methods and it keeps no reference
 to the cluster (``on_step`` receives it), so an armed cluster frees its
 weights and pools as soon as it is dropped.
+
+Under a mesh every process arms the same plan on its replica of the
+control state: the events fire at the same steps, and each one-shot
+transfer fault is consumed by the same transfer in every process (a
+``host_corrupt`` flips the same frame in every process's copy of the
+tier), so recovery takes the same path everywhere.
 """
 from __future__ import annotations
 

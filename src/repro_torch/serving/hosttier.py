@@ -20,7 +20,12 @@ Both directions are ASYNCHRONOUS on the card:
   finalizes the frames whose event has fired, without blocking. Pinned
   frames come from torch's caching host allocator, one pair per put, so
   the tier pins only what it holds and steady state allocates no new
-  pinned memory.
+  pinned memory. Whether a spill has landed (``event.query()``) differs
+  from process to process under a mesh, so no decision follows from
+  it: a key counts toward membership, capacity and the LRU order from
+  its ``put`` on, landed or not, and its checksum is of the same bytes
+  whenever it is taken; only ``d2h_ms`` and ``fetch_stalls`` (and the
+  host time counters) may differ between processes.
 * **Upload (H2D)** — ``get`` returns the host frame; the engine uploads
   it with ``non_blocking=True`` on the compute stream, which orders the
   upload against the next step's kernels. ``get`` on a spill still in
@@ -146,6 +151,17 @@ class HostKVTier:
     def free_blocks(self) -> int:
         """Capacity headroom without evicting anything."""
         return max(0, self.capacity - self.used_blocks)
+
+    @property
+    def held_bytes(self) -> int:
+        """Host bytes of the frames resident or in flight."""
+        return sum(frame_bytes(f[:2]) for f in list(self._frames.values())
+                   + list(self._pending.values()))
+
+    def lru_keys(self) -> List[Any]:
+        """Every key resident or in flight, least recently used first."""
+        return sorted((k for k in self._tick if k in self),
+                      key=self._tick.__getitem__)
 
     def __contains__(self, key: Any) -> bool:
         return key in self._frames or key in self._pending

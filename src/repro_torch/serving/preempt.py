@@ -115,6 +115,12 @@ class Preemptor:
         # preempted again (thrash).
         self.queue_pressure: Optional[float] = None
 
+    def _now(self, now: Optional[float]) -> float:
+        """``now``, or the cluster's clock: the reading every process of
+        a mesh agrees on (pause stamps and the resume gate are
+        decisions)."""
+        return self.cluster.clock() if now is None else now
+
     # --- pause --------------------------------------------------------- #
     def is_paused(self, req_id: int) -> bool:
         """True while ``req_id`` is parked in the preempt tier."""
@@ -145,7 +151,7 @@ class Preemptor:
         dropped exactly once (immediately here; the finished-event
         drain at step end sees ``is_hosting`` false and no-ops).
         Returns True when the request is now PAUSED."""
-        now = time.monotonic() if now is None else now
+        now = self._now(now)
         rid = req.req_id
         owner = self._owner_of(req)
         if (owner is None or req.state is not RequestState.RUNNING
@@ -248,7 +254,7 @@ class Preemptor:
         its own SLO after the detour. Returns the instance id whose
         slot was freed (so the caller can dispatch ``queued`` straight
         into it), or None when no victim is eligible."""
-        now = time.monotonic() if now is None else now
+        now = self._now(now)
         qu = queued.urgency(now)
         for slack, victim in self.rank_victims(now):
             if slack < self.policy.victim_min_slack_s:
@@ -316,7 +322,7 @@ class Preemptor:
         requests were resumed."""
         if not self.paused:
             return 0
-        now = time.monotonic() if now is None else now
+        now = self._now(now)
         made = 0
         order = sorted(self.paused.values(),
                        key=lambda rec: (-rec.req.urgency(now),

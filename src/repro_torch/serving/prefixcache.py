@@ -39,6 +39,11 @@ tests/test_torch_prefix_cache.py):
 Hash collisions: children are keyed by the literal token tuple, so a
 colliding 64-bit chain hash can never serve wrong KV — it could only
 alias two host-tier frames, which we accept at ~2^-64 odds.
+
+The chain hashes hash a tuple of ints under the root's hash, which is the
+same in every process given the same root: the cluster passes one root
+that every process of a mesh agrees on, so the node hashes — the host
+tier's keys — are replicated like the rest of control.
 """
 from __future__ import annotations
 
@@ -52,7 +57,9 @@ from repro_torch.serving.hosttier import HostKVTier, frame_bytes
 # Allocator owner id of frames held by the cache (never a real req_id).
 CACHE_OWNER = -2
 
-_ROOT_HASH = hash(("radix-root",))
+# The root's chain hash. A string's ``hash`` is salted per process, so
+# the processes of a mesh agree on one (``Cluster`` passes it in).
+ROOT_HASH = hash(("radix-root",))
 
 
 def _weakly(method):
@@ -111,17 +118,18 @@ class RadixPrefixCache:
     ``stats``), ``stager`` and ``block_size`` — the real ``Cluster`` (as
     a weak proxy: the cluster owns the cache) or a test stub. The host
     tier's callbacks hold the cache weakly, so cache and tier form no
-    reference cycle.
+    reference cycle. ``root_hash`` seeds every chain hash.
     """
 
-    def __init__(self, cluster, host_tier: Optional[HostKVTier] = None):
+    def __init__(self, cluster, host_tier: Optional[HostKVTier] = None,
+                 root_hash: int = ROOT_HASH):
         self.cluster = cluster
         self.bs = cluster.block_size
         self.tier = host_tier
         if host_tier is not None:
             host_tier.on_evict = _weakly(self._on_host_evict)
             host_tier.evictable_fn = _weakly(self._host_evictable)
-        self.root = RadixNode((), _ROOT_HASH, None)
+        self.root = RadixNode((), root_hash, None)
         self._nodes: Dict[int, RadixNode] = {}      # hash -> node
         self._pins: Dict[int, List[RadixNode]] = {}  # req_id -> path
         self._clock = 0
@@ -429,4 +437,4 @@ class RadixPrefixCache:
 
 
 __all__ = ["RadixPrefixCache", "RadixNode", "PrefixCacheStats",
-           "block_hash", "CACHE_OWNER"]
+           "block_hash", "CACHE_OWNER", "ROOT_HASH"]

@@ -248,7 +248,7 @@ class LLMServer:
         instead of piling into the engines' FCFS queues)."""
         if not self._queue:
             return
-        now = time.monotonic() if now is None else now
+        now = self.cluster.clock() if now is None else now
         budget = self._free_slots()
         if budget <= 0:
             return

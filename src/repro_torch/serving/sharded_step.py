@@ -58,7 +58,10 @@ of R requests over a pool ``[L, NP, NB, bs, K, hd]`` of NP shards:
   forward on the flash core, each layer's K/V laid into a fresh pool by
   a drop-scatter.
 * ``serve_prefill_step_state`` / ``serve_decode_step_state``: the
-  hybrid and ssm families decode from their recurrent state (no pool).
+  hybrid and ssm families decode from their recurrent state (no pool);
+  the hybrid attention layers prefill on the flash core with the
+  window. ``gather_state`` puts a state split over a mesh back
+  together.
 
 JAX passes each shard's valid-block count ``nblk`` beside the tables
 and marks slot ``nblk - 1`` as the partial one; the port's kernels read
@@ -66,9 +69,9 @@ the count from the ``-1`` padding. The steps check on the host that
 ``nblk == (tables >= 0).sum(-1)`` and that the valid slots form a
 prefix, and raise otherwise. JAX's GSPMD knobs have no counterpart:
 ``layer_constraints`` (weight re-pinning inside the scan), the prefill's
-``attn_chunk``, ``seq_parallel`` and carry pin; nor has ``embeds=`` (the
-port's ``embed_tokens`` path for modality frontends is not served yet):
-it raises ``NotImplementedError``.
+``attn_chunk``, ``seq_parallel`` and carry pin. Both prefill steps take
+``embeds=`` [B, S, d] (a modality frontend's output) in place of the
+tokens, as JAX's do.
 
 With a ``mesh`` the steps run SPMD over its processes, as the JAX
 package's GSPMD program runs over devices. Each process holds its slab
@@ -98,8 +101,18 @@ FFN is column- then row-split (one all-reduce), MoE experts split over
 applies its experts and its columns of the shared experts, one
 all-reduce); the vocab-split embedding looks up its rows and
 all-reduces, the logits are gathered (or summed, for an untied
-``unembed`` split over d). A placed tree needs the step's mesh; the
-state steps refuse it.
+``unembed`` split over d). A placed tree needs the step's mesh.
+
+The state steps take placed weights the same way (the JAX package's
+ServeLayout cells place them by the same rules and split the states
+over the batch axes): rows over ``layout.batch_axes``; the hybrid's
+attention layers as above (recurrentgemma's 16 query heads split over
+"model", its one kv head whole, so each process's ring holds the kv
+heads its query heads read), its RG-LRU layers with the recurrent width
+split over "model" (``models/rglru.py``: this process's columns of the
+conv carry and of ``h``); xLSTM's mLSTM layers with this process's
+heads and sLSTM layers replicated (``models/xlstm.py``). The returned
+``DecodeState`` holds this process's rows, columns and heads.
 """
 from __future__ import annotations
 
@@ -110,6 +123,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import full_attention_decode
 from repro_torch.core.online_softmax import (combine, finalize,
                                              merge_partials,
                                              merge_partials_collective,
@@ -121,11 +135,14 @@ from repro_torch.kernels.ops import (paged_micro_attention_ranks,
                                      paged_prefill_attention_ranks)
 from repro_torch.models.attention import make_causal_core, qkv_project
 from repro_torch.models.common import apply_norm, torch_dtype, tp_split
-from repro_torch.models.model import (POOLED_FAMILIES, attn_layer_params,
-                                      decode_step, embed_tokens, ffn_or_moe,
-                                      params_device, require_family, unembed)
-from repro_torch.models.prefill import (_as_int32, _host, _write_plan,
-                                        prefill)
+from repro_torch.models.model import (POOLED_FAMILIES, DecodeState,
+                                      _rglru_layer_fwd, _ssm_layer_fwd,
+                                      attn_layer_params, cache_write,
+                                      embed_tokens, ffn_or_moe, layer_path,
+                                      param_layer, params_device,
+                                      require_family, ssm_groups, unembed)
+from repro_torch.models.prefill import _as_int32, _host, _write_plan
+from repro_torch.models.xlstm import MLstmState, SLstmState, mlstm_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -443,15 +460,30 @@ def _heads(t: torch.Tensor, split: bool, n_total: int, lo: int, n: int,
     return tp.cat(t, -2)[..., lo:lo + n, :]
 
 
+def _kv_range(cfg: ModelConfig, h0: int, n: int):
+    """(lo, hi, idx): the kv heads ``[lo, hi)`` query heads ``[h0, h0 +
+    n)`` read under GQA, and None when each of them serves an equal run
+    of those query heads (the attention's own grouping), else the index
+    that expands them to one a query head."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = h0 // G, -(-(h0 + n) // G)
+    idx = torch.arange(h0, h0 + n) // G - lo
+    m = hi - lo
+    if n % m == 0 and torch.equal(idx, torch.arange(m).repeat_interleave(
+            n // m)):
+        return lo, hi, None
+    return lo, hi, idx
+
+
 def _kv_for_heads(k: torch.Tensor, split: bool, cfg: ModelConfig, h0: int,
                   n: int, tp) -> torch.Tensor:
     """The kv heads query heads ``[h0, h0 + n)`` attend to under GQA, as
-    a tensor whose own grouping (``n / its heads``) matches them."""
-    K, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-    if h0 % G == 0 and n % G == 0:
-        return _heads(k, split, K, h0 // G, n // G, tp)
-    idx = torch.arange(h0, h0 + n, device=k.device) // G
-    return _heads(k, split, K, 0, K, tp)[..., idx, :]
+    a tensor whose own grouping (``n / its heads``) matches them: the
+    range they read (an MQA layer's one head for any ``n``), expanded
+    only where the grouping is not uniform."""
+    lo, hi, idx = _kv_range(cfg, h0, n)
+    kv = _heads(k, split, cfg.num_kv_heads, lo, hi - lo, tp)
+    return kv if idx is None else kv[..., idx.to(k.device), :]
 
 
 class _Weights:
@@ -484,7 +516,12 @@ class _Weights:
             return self.params, None
         return self.placed.top(keys)
 
-    def embed(self, tokens, positions) -> torch.Tensor:
+    def embed(self, tokens, positions, embeds=None) -> torch.Tensor:
+        """Token embeddings (or ``embeds``, a frontend's output) with the
+        model's positional table."""
+        if embeds is not None:
+            return embed_tokens(None, self.cfg, embeds=embeds,
+                                positions=positions)
         top, sp = self._top(("embed",))
         return embed_tokens(top, self.cfg, tokens, positions=positions,
                             specs=sp, tp=self.tp)
@@ -495,10 +532,28 @@ class _Weights:
         return unembed(top, self.cfg, x, specs=sp, tp=self.tp)
 
     def layer(self, i: int):
-        """(layer ``i``'s leaves, their specs or None)."""
+        """(layer ``i``'s leaves, their specs or None), any family."""
         if self.placed is None:
-            return attn_layer_params(self.params, self.cfg, i), None
+            return param_layer(self.params, self.cfg, i), None
         return self.placed.layer(self.cfg, i)
+
+    def q_heads(self) -> Tuple[int, int]:
+        """(h0, n): the query heads ``[h0, h0 + n)`` this process makes in
+        the attention layers (its own with ``wq`` split over the TP axis,
+        else all)."""
+        H = self.cfg.num_heads
+        i = next((i for i in range(self.cfg.num_layers)
+                  if self.cfg.layer_kind(i) == "attn"), None)
+        if self.placed is None or self.tp is None or i is None:
+            return 0, H
+        keys, idx = layer_path(self.cfg, i)
+        spec = self.placed.specs
+        for k in keys + ("attn", "wq"):
+            spec = spec[k]
+        if not tp_split(tuple(spec)[len(idx):], 1, self.tp):
+            return 0, H
+        n = H // self.tp.count
+        return self.tp.index * n, n
 
     def split(self, ls, name: str, dim: int) -> bool:
         return ls is not None and tp_split(ls["attn"][name], dim, self.tp)
@@ -724,15 +779,11 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
     (first tokens [B] int32, pool_k, pool_v [L, NP, NB_loc, bs, K, hd]);
     with ``mesh``, this process's rows and slab.
     """
-    if embeds is not None:
-        raise NotImplementedError("serve_prefill_step(embeds=): the port's "
-                                  "embed_tokens path takes tokens only")
     if cfg.family not in POOLED_FAMILIES:
         raise ValueError("pooled prefill is for attention archs")
     W = _Weights(params, cfg, mesh)
     dev = W.device
-    tok = _host(tokens).astype(np.int64)
-    B, S = tok.shape
+    B, S = _host(tokens).shape if embeds is None else embeds.shape[:2]
     bs = block_size
     wblk, _, NB_loc = prefill_layout(B, S, bs, NP, n_data=n_data)
     pl = _placement(mesh, layout, cfg, NP, B)
@@ -741,11 +792,12 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
     shape = (L, pl.n_local, NB_loc, bs, pl.K_loc, hd)
     pool_k = torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)
     pool_v = torch.zeros_like(pool_k)
-    toks = torch.from_numpy(tok[pl.r0:pl.r0 + pl.R_loc]).to(dev)
+    own = slice(pl.r0, pl.r0 + pl.R_loc)
     positions = torch.arange(S, device=dev)[None].expand(pl.R_loc, S)
     core = make_causal_core(cfg, backend="flash")
     H, K = cfg.num_heads, cfg.num_kv_heads
-    x = W.embed(toks, positions)
+    toks, emb = _own_inputs(tokens, embeds, own, dev)
+    x = W.embed(toks, positions, emb)
     for i in range(L):
         lp, ls = W.layer(i)
         h = apply_norm(lp["ln1"], x, cfg)
@@ -765,39 +817,254 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
     return torch.argmax(logits, dim=-1).to(torch.int32), pool_k, pool_v
 
 
-def _refuse_placed(params) -> None:
-    if isinstance(params, PlacedParams):
-        raise NotImplementedError(
-            "the state steps (hybrid, ssm) take a replicated tree: their "
-            "RG-LRU and xLSTM placements are not executed yet (ROADMAP "
-            "Queue 1, the state steps under placed weights)")
+def _own_inputs(tokens, embeds, own: slice, device):
+    """(tokens, embeds) of the batch rows ``own``: the token ids as a long
+    tensor, or the embeddings [rows, S, d] (then no tokens)."""
+    if embeds is not None:
+        return None, torch.as_tensor(embeds)[own].to(device)
+    tok = _host(tokens).astype(np.int64)[own]
+    return torch.from_numpy(np.ascontiguousarray(tok)).to(device), None
+
+
+def _state_attn_prefill(W, lp, ls, x, positions, core, cfg, h0, n):
+    """A hybrid attention layer over a prompt on this process's query
+    heads: (x, the k/v of the kv heads they read, for the ring)."""
+    h = apply_norm(lp["ln1"], x, cfg)
+    q, k, v = qkv_project(lp["attn"], h, positions, cfg)
+    sk = W.split(ls, "wk", 1)
+    out = core(q, _kv_for_heads(k, sk, cfg, h0, n, W.tp),
+               _kv_for_heads(v, sk, cfg, h0, n, W.tp))
+    x = x + W.attn_out(lp, ls, out, h0, None, x.dtype)
+    h = apply_norm(lp["ln2"], x, cfg)
+    lo, hi, _ = _kv_range(cfg, h0, n)
+    K = cfg.num_kv_heads
+    return (x + ffn_or_moe(lp, h, cfg, -1.0, specs=ls, tp=W.tp),
+            _heads(k, sk, K, lo, hi - lo, W.tp),
+            _heads(v, sk, K, lo, hi - lo, W.tp))
+
+
+def _state_attn_decode(W, lp, ls, x, ck, cv, lens, cfg, h0, n):
+    """A hybrid attention layer's decode step on this process's query
+    heads over its window ring ``ck``/``cv`` [B, ring, K_loc, hd] (the kv
+    heads they read; written IN PLACE)."""
+    h = apply_norm(lp["ln1"], x, cfg)
+    q, k, v = qkv_project(lp["attn"], h, lens[:, None], cfg)
+    sk = W.split(ls, "wk", 1)
+    lo, hi, idx = _kv_range(cfg, h0, n)
+    K = cfg.num_kv_heads
+    mask = cache_write(ck, cv, _heads(k, sk, K, lo, hi - lo, W.tp)[:, 0],
+                       _heads(v, sk, K, lo, hi - lo, W.tp)[:, 0], lens,
+                       window=cfg.local_window)
+    if idx is not None:
+        ck, cv = ck[..., idx.to(ck.device), :], cv[..., idx.to(cv.device), :]
+    out = full_attention_decode(q[:, 0], ck, cv, mask)      # [B, n, hd]
+    x = x + W.attn_out(lp, ls, out[:, None], h0, None, x.dtype)
+    h = apply_norm(lp["ln2"], x, cfg)
+    return x + ffn_or_moe(lp, h, cfg, -1.0, specs=ls, tp=W.tp)
+
+
+def _state_layers(cfg: ModelConfig):
+    """The built layers of a hybrid or ssm model in order, ``(i, kind,
+    idx)``: ``idx`` indexes the layer's recurrent state (ssm: (group, j)
+    of an mLSTM layer, (group,) of an sLSTM one)."""
+    if cfg.family == "ssm":
+        ng, se = ssm_groups(cfg)
+        for i in range(ng * se):
+            keys, idx = layer_path(cfg, i)
+            yield i, keys[-1], idx
+        return
+    for i in range(cfg.num_layers):
+        yield i, cfg.layer_kind(i), None
+
+
+def _state_prefill(W, cfg: ModelConfig, x, max_len: int) -> Tuple:
+    """The hybrid/ssm prefill's layer loop on this process's rows ``x``
+    [B, T, d] (``prefill``'s, on placed or whole weights): (x, the
+    DecodeState of these rows, heads and columns)."""
+    B, T = x.shape[:2]
+    dev = x.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+        B, T)
+    h0, n = W.q_heads()
+    core = make_causal_core(cfg, backend="flash", window=cfg.local_window)
+    kvs, rec = [], {"rglru": [], "mlstm": {}, "slstm": {}}
+    ring = min(max_len, cfg.local_window)
+    keep = min(T, ring)
+    slots = torch.arange(T - keep, T, device=dev) % ring
+    for i, kind, idx in _state_layers(cfg):
+        lp, ls = W.layer(i)
+        if kind == "attn":
+            x, k, v = _state_attn_prefill(W, lp, ls, x, positions, core,
+                                          cfg, h0, n)
+            ring_kv = []
+            for t in (k, v):
+                r = torch.zeros((B, ring) + t.shape[2:], dtype=t.dtype,
+                                device=dev)
+                r[:, slots] = t[:, T - keep:]
+                ring_kv.append(r)
+            kvs.append(ring_kv)
+        elif kind == "rglru":
+            x, st = _rglru_layer_fwd(lp, x, cfg, specs=ls, tp=W.tp)
+            rec["rglru"].append(st)
+        else:
+            x, st = _ssm_layer_fwd(kind, lp, x, cfg, specs=ls, tp=W.tp)
+            rec[kind][idx] = st
+    lens = torch.full((B,), T, dtype=torch.int64, device=dev)
+    if cfg.family == "ssm":
+        ng, se = ssm_groups(cfg)
+        ml = [rec["mlstm"][g, j] for g in range(ng) for j in range(se - 1)]
+        sl = [rec["slstm"][(g,)] for g in range(ng)]
+        mst = MLstmState(*(torch.stack(a).reshape((ng, se - 1) + a[0].shape)
+                           for a in zip(*ml)))
+        sst = SLstmState(*(torch.stack(a) for a in zip(*sl)))
+        return x, DecodeState(None, None, lens, {"mlstm": mst,
+                                                 "slstm": sst})
+    conv, hs = zip(*rec["rglru"])
+    return x, DecodeState(torch.stack([k for k, _ in kvs]),
+                          torch.stack([v for _, v in kvs]), lens,
+                          (torch.stack(conv), torch.stack(hs)))
+
+
+def _state_decode(W, cfg: ModelConfig, state: DecodeState, x):
+    """The hybrid/ssm decode step's layer loop on this process's rows
+    (``decode_step``'s, on placed or whole weights); the state tensors
+    are updated IN PLACE."""
+    lens = state.lens
+    h0, n = W.q_heads()
+    ai = ri = 0
+    for i, kind, idx in _state_layers(cfg):
+        lp, ls = W.layer(i)
+        if kind == "attn":
+            x = _state_attn_decode(W, lp, ls, x, state.kv_k[ai],
+                                   state.kv_v[ai], lens, cfg, h0, n)
+            ai += 1
+        elif kind == "rglru":
+            conv_c, lru_h = state.rec
+            x, (cc, hh) = _rglru_layer_fwd(
+                lp, x, cfg, (conv_c[ri], lru_h[ri]), decode=True, specs=ls,
+                tp=W.tp)
+            conv_c[ri].copy_(cc)
+            lru_h[ri].copy_(hh)
+            ri += 1
+        else:
+            rec = state.rec[kind]
+            st = type(rec)(*(a[idx] for a in rec))
+            x, st = _ssm_layer_fwd(kind, lp, x, cfg, st, decode=True,
+                                   specs=ls, tp=W.tp)
+            for dst, src in zip(rec, st):
+                dst[idx].copy_(src)
+    return x
+
+
+def _check_state_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("hybrid", "ssm"):
+        raise ValueError("the state steps serve the hybrid and ssm "
+                         "families; attention archs use the pooled steps")
 
 
 def serve_prefill_step_state(params, cfg: ModelConfig, layout: ServeLayout,
-                             tokens, *, max_len: int, embeds=None):
+                             tokens, *, max_len: int, embeds=None,
+                             mesh=None, return_logits: bool = False):
     """Hybrid/ssm prefill: (first tokens [B] int32, DecodeState) — the
     recurrent (and windowed) state these families decode from; no pool.
-    ``layout`` only places the batch in the JAX package (GSPMD); here
-    the step runs on the tokens' device."""
-    if embeds is not None:
-        raise NotImplementedError("serve_prefill_step_state(embeds=): the "
-                                  "port's embed_tokens takes tokens only")
-    _refuse_placed(params)
-    logits, state = prefill(params, cfg, tokens, max_len=max_len)
+    The hybrid attention layers run the flash-prefill core with the
+    window; ``embeds`` [B, S, d] replaces the token embeddings.
+
+    With ``mesh`` the batch rows split over ``layout.batch_axes`` (as
+    the JAX package's cells place them; replicated when B does not
+    divide): the first tokens and the state are this process's rows
+    (``batch_rows``). Weights replicated (a plain tree) or placed (a
+    ``PlacedParams`` over ``mesh``): then the state holds this process's
+    columns of the RG-LRU width and of the conv carry, its mLSTM heads
+    and the kv heads its query heads read (``gather_state`` puts a state
+    back together). ``return_logits``: the last position's logits [rows,
+    V] in place of the tokens."""
+    _check_state_family(cfg)
+    W = _Weights(params, cfg, mesh)
+    dev = W.device
+    B, T = _host(tokens).shape if embeds is None else embeds.shape[:2]
+    own = batch_rows(mesh, layout, B)
+    toks, emb = _own_inputs(tokens, embeds, own, dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+        own.stop - own.start, T)
+    x, state = _state_prefill(W, cfg, W.embed(toks, positions, emb),
+                              max_len)
+    logits = W.unembed(x[:, -1])
+    if return_logits:
+        return logits, state
     return torch.argmax(logits, dim=-1).to(torch.int32), state
 
 
 def serve_decode_step_state(params, cfg: ModelConfig, layout: ServeLayout,
-                            state, tokens):
+                            state, tokens, *, mesh=None,
+                            return_logits: bool = False):
     """Hybrid/ssm decode: one step of the recurrence (the state updated
-    in place). DistAttention does not apply: there is no KV pool."""
-    _refuse_placed(params)
-    logits, state = decode_step(params, cfg, state, tokens)
-    return torch.argmax(logits, dim=-1).to(torch.int32), state
+    in place and returned, ``lens`` advanced). DistAttention does not
+    apply: there is no KV pool. ``tokens`` [B] are every row's; with
+    ``mesh``, ``state`` and the result are this process's rows, heads
+    and columns, as ``serve_prefill_step_state`` gives them;
+    ``return_logits``: logits [rows, V] in place of the next tokens."""
+    _check_state_family(cfg)
+    W = _Weights(params, cfg, mesh)
+    dev = W.device
+    tok = _host(tokens).astype(np.int64)
+    own = batch_rows(mesh, layout, len(tok))
+    toks = torch.from_numpy(np.ascontiguousarray(tok[own])).to(dev)
+    lens = state.lens
+    x = W.embed(toks[:, None], lens[:, None])
+    x = _state_decode(W, cfg, state, x)
+    logits = W.unembed(x[:, 0])
+    if not return_logits:
+        logits = torch.argmax(logits, dim=-1).to(torch.int32)
+    return logits, state._replace(lens=lens + 1)
+
+
+def _state_split_dims(cfg: ModelConfig, state: DecodeState):
+    """(tensor, batch dim, dim split over "model" or None) of every
+    tensor of a state step's DecodeState, in ``DecodeState`` order."""
+    out = [(state.lens, 0, None)]
+    if cfg.family == "ssm":
+        _, nh, _ = mlstm_dims(cfg)
+        m = state.rec["mlstm"]
+        out += [(t, 2, 3 if m.m.shape[3] < nh else None) for t in m]
+        out += [(t, 1, None) for t in state.rec["slstm"]]
+        return out
+    K, w = cfg.num_kv_heads, cfg.lru_width or cfg.d_model
+    kdim = 3 if state.kv_k.shape[3] < K else None
+    out += [(state.kv_k, 1, kdim), (state.kv_v, 1, kdim)]
+    conv, h = state.rec
+    wdim = -1 if h.shape[-1] < w else None
+    return out + [(conv, 1, wdim), (h, 1, wdim)]
+
+
+def gather_state(state: DecodeState, cfg: ModelConfig, mesh,
+                 layout: ServeLayout, R: int) -> DecodeState:
+    """A state step's DecodeState of this process (``batch_rows``, and
+    its share of heads and columns under placed weights) put back
+    together: every row, head and column, in every process (collective;
+    ``state`` itself without a mesh)."""
+    if mesh is None:
+        return state
+    rows = None if batch_rows(mesh, layout, R) == slice(0, R) else \
+        pool_shards(mesh, layout.batch_axes)
+    names = mesh.mesh_dim_names
+    model = pool_shards(mesh, ("model",)) if "model" in names else None
+    whole = []
+    for t, bdim, mdim in _state_split_dims(cfg, state):
+        t = all_gather_cat(t, rows, bdim)
+        if mdim is not None:
+            t = all_gather_cat(t, model, mdim % t.dim())
+        whole.append(t)
+    lens, rest = whole[0], whole[1:]
+    if cfg.family == "ssm":
+        n = len(state.rec["mlstm"])
+        return DecodeState(None, None, lens, {
+            "mlstm": MLstmState(*rest[:n]), "slstm": SLstmState(*rest[n:])})
+    return DecodeState(rest[0], rest[1], lens, (rest[2], rest[3]))
 
 
 __all__ = ["ServeLayout", "batch_rows", "decode_step_global",
            "gather_batch", "prefill_chunk_global", "prefill_layout",
            "serve_decode_step",
-           "serve_decode_step_opt", "serve_decode_step_state",
+           "serve_decode_step_opt", "serve_decode_step_state", "gather_state",
            "serve_prefill_step", "serve_prefill_step_state"]

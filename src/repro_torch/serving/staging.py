@@ -18,6 +18,11 @@ CUDA events take the place of the JAX package's ``block_until_ready``.
 On the CPU every copy has completed when it returns, so staging is a
 synchronous no-op there (the counters still count, and the fault hook is
 still consulted before each wait).
+
+Under a mesh the chains are staged in the same order in every process,
+so an armed fault meets the same wait everywhere and the retries take
+the same path; whether a chain had landed (``event.query()``) feeds
+only the stall counters, which may differ between processes.
 """
 from __future__ import annotations
 

@@ -21,8 +21,19 @@ from a numpy seed here. Checked:
   processes, no step reallocates a slab; the prefix cache gets a warm
   and a copy-on-write hit under a mesh with the single-process streams;
 * the divergence guard raises in every process when one process's plan
-  is perturbed; the host tier, preemption and fault injection raise
-  ``NotImplementedError`` under a mesh;
+  is perturbed, and when one process's paused set, dead set or host
+  tier keys are;
+* the serving extensions under a mesh (W = 2, four or two global-pool
+  instances), olmo-1b and qwen3-0.6b: the host tier (every cached
+  replica spilled, then a host hit), overload preemption (an urgent
+  arrival pauses a victim, which resumes), a creditor crash mid-decode
+  replayed, and a ``FaultPlan`` with one event of each kind (prefix
+  cache, host tier, verification on). Every process's streams, request
+  states, replay and preemption counts, ``FaultStats``, preemption
+  stats, host-tier counters and stager retries equal the single-process
+  global cluster's, the streams equal the JAX dense oracle's, no step
+  reallocates a slab, every allocator ends free, and the prefix cache's
+  root hash (and so every host-tier key) is the same in every process;
 * ``LLMServer`` under a mesh agrees on the clock once a step (one
   collective, not one for the server and one for its cluster), and a
   mesh works out its pool shards once.
@@ -102,10 +113,11 @@ def _cache_prompts(cfg):
 
 
 def _cluster(params, cfg, n_inst, **kw):
-    cache = kw.pop("prefix_cache", False)
+    over = {k: kw.pop(k) for k in ("prefix_cache", "host_tier_blocks",
+                                   "overload") if k in kw}
     return psv.Cluster(params, cfg, psv.ServingConfig.smoke(
         n_instances=n_inst, max_batch=2, pool_blocks=32, global_pool=True,
-        prefix_cache=cache), device="cpu", **kw)
+        **over), device="cpu", **kw)
 
 
 def _serve(cl, prompts, *, one_by_one=False):
@@ -171,28 +183,202 @@ def _cache_case(params, cfg, mesh, layout):
             "cow": cl.prefix_cache.stats.cow_copies}
 
 
-def _refusals(params, cfg, mesh, layout):
-    """Each refusal as its message (all must be NotImplementedError)."""
-    out = {}
-    for name, over in (("host_tier", dict(prefix_cache=True,
-                                          host_tier_blocks=8)),
-                       ("overload", dict(overload=psv.OverloadPolicy(
-                           enabled=True)))):
-        try:
-            psv.Cluster(params, cfg, psv.ServingConfig.smoke(
-                global_pool=True, **over), device="cpu", mesh=mesh,
-                layout=layout)
-        except NotImplementedError as e:
-            out[name] = str(e)
-    cl = _cluster(params, cfg, 2, mesh=mesh, layout=layout)
-    for name, call in (("kill", lambda: cl.kill_instance(1)),
-                       ("faults", lambda: cl.install_faults(
-                           psv.FaultPlan(events=())))):
-        try:
-            call()
-        except NotImplementedError as e:
-            out[name] = str(e)
+# ------------------------------------------------------------------ #
+# The serving extensions: the same scenario in every process of the
+# mesh and in one process (the single-process global cluster)
+# ------------------------------------------------------------------ #
+EXT_ARCHS = ("olmo-1b", "qwen3-0.6b")
+EXT_CASES = ("host_tier", "overload", "kill", "fault_plan")
+# Host-tier counters that decisions follow from (stall counts and
+# times may differ between processes: they read the card's events).
+HOST_COUNTS = ("spills", "fetches", "evictions", "rejected",
+               "fetch_retries", "fetch_failures", "corruptions",
+               "spilled_bytes", "fetched_bytes")
+
+
+def _ext_config(**over):
+    base = dict(n_instances=4, max_batch=2, pool_blocks=32, global_pool=True,
+                faults=psv.FaultPolicy(max_transfer_retries=2,
+                                       verify_host_frames=True))
+    base.update(over)
+    return psv.ServingConfig.smoke(**base)
+
+
+def _ext_prompts(cfg):
+    """A creditor-spanning prompt (40 tokens over a 32-token quota), a
+    3-block one (cacheable) and a short one."""
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 24, 9)]
+
+
+def _tier_counts(tier):
+    return None if tier is None else {
+        k: getattr(tier.stats, k) for k in HOST_COUNTS}
+
+
+def _summary(cl, reqs):
+    """What every process and the single-process cluster must agree on,
+    after the allocators' check (a cache is cleared first)."""
+    pre = cl.preemptor
+    out = {"outs": [list(r.output) for r in reqs],
+           "states": [r.state.name for r in reqs],
+           "replays": [r.replays for r in reqs],
+           "preemptions": [r.preemptions for r in reqs],
+           "fault_stats": dataclasses.asdict(cl.fault_stats),
+           "preempt": None if pre is None else dataclasses.asdict(pre.stats),
+           "host": _tier_counts(cl.host_tier),
+           "preempt_tier": _tier_counts(pre and pre.tier),
+           "stager": (dict(cl.stager.retries), dict(cl.stager.failures)),
+           "copies": sum(e.stats.pool_copy_steps
+                         for e in cl.engines.values()),
+           "dead": sorted(cl._dead)}
+    if cl.prefix_cache is not None:
+        out["root"] = cl.prefix_cache.root.hash
+        out["host_keys"] = (cl.host_tier.lru_keys()
+                            if cl.host_tier is not None else [])
+        cl.prefix_cache.clear()
+    for _ in range(2):                  # flush pending hosted releases
+        cl.step()
+    out["clean"] = all(
+        e.rmanager.pool.alloc.used_count == 0 and
+        e.rmanager.pool.alloc.reserved == 0 and not e.rmanager.pool.requests
+        for e in cl.engines.values())
     return out
+
+
+def _new_requests(prompts, n_new=N_NEW):
+    return [psv.Request(prompt=list(p),
+                        sampling=psv.SamplingParams(max_new_tokens=n_new))
+            for p in prompts]
+
+
+def _run_reqs(cl, reqs):
+    for r in reqs:
+        cl.submit(r)
+    cl.run_until_done(max_steps=400)
+
+
+def _host_tier_case(params, cfg, mesh=None, layout=None):
+    """A 3-block prompt served and cached, every replica spilled to the
+    host tier (pressure on every instance), then served again from the
+    host (an H2D fetch) and once more (a device hit)."""
+    cl = psv.Cluster(params, cfg, _ext_config(
+        n_instances=2, prefix_cache=True, host_tier_blocks=16),
+        device="cpu", mesh=mesh, layout=layout)
+    base = _ext_prompts(cfg)[1]
+    reqs = _new_requests([base] * 3)
+    _run_reqs(cl, reqs[:1])
+    for i in cl.engines:
+        cl.prefix_cache.evict_device(i, 10 ** 6)
+    held = cl.host_tier.held_bytes
+    _run_reqs(cl, reqs[1:2])
+    _run_reqs(cl, reqs[2:])
+    return dict(_summary(cl, reqs), held_bytes=held), [(base, N_NEW)] * 3
+
+
+def _overload_case(params, cfg, mesh=None, layout=None):
+    """Two best-effort requests fill both slots; an urgent arrival pauses
+    one (its chain spilled to the preempt tier), which resumes once the
+    urgent request is done. A synthetic clock (``now=``), as the
+    single-process tests use."""
+    server = psv.LLMServer(params, cfg, _ext_config(
+        n_instances=2, max_batch=1,
+        overload=psv.OverloadPolicy(enabled=True)), device="cpu",
+        mesh=mesh, layout=layout)
+    bg_prompts, urgent = _ext_prompts(cfg)[1:], _ext_prompts(cfg)[0][:6]
+    t, bg = 100.0, []
+    for k in range(5):
+        if k in (0, 2):     # one an instance (heartbeats lag a step)
+            bg.append(server.submit(bg_prompts[k // 2], psv.SamplingParams(
+                max_new_tokens=16), arrival_time=t + 0.1 * k))
+        server.step(now=t + 0.1 * k)
+    up = server.submit(urgent, psv.SamplingParams(max_new_tokens=4),
+                       priority=1, deadline_s=60.0, arrival_time=t + 0.45)
+    handles, k = bg + [up], 5
+    while not all(h.done for h in handles) and k < 400:
+        server.step(now=t + 0.1 * k)
+        k += 1
+    return (_summary(server.cluster, [h._req for h in handles]),
+            [(p, 16) for p in bg_prompts] + [(urgent, 4)])
+
+
+def _kill_case(params, cfg, mesh=None, layout=None):
+    """The creditor of a spanning request dies mid-decode (a logical
+    crash: its rank's slab stays); the request replays."""
+    cl = psv.Cluster(params, cfg, _ext_config(), device="cpu", mesh=mesh,
+                     layout=layout)
+    prompts = _ext_prompts(cfg)
+    reqs = _new_requests(prompts)
+    for r in reqs:
+        cl.submit(r)
+    for _ in range(4):
+        cl.step()
+    owner = next(e for e in cl.engines.values() if reqs[0] in e.running)
+    cl.kill_instance(owner.remote_insts[reqs[0].req_id][0])
+    cl.run_until_done(max_steps=400)
+    return _summary(cl, reqs), [(p, N_NEW) for p in prompts]
+
+
+def _fault_plan_case(params, cfg, mesh=None, layout=None):
+    """One event of each kind against a cluster with the prefix cache and
+    a host tier; after the first round every replica is spilled and the
+    3-block prompt comes back from the host (where the armed fetch error
+    and corruption land)."""
+    cl = psv.Cluster(params, cfg, _ext_config(
+        prefix_cache=True, host_tier_blocks=16), device="cpu", mesh=mesh,
+        layout=layout)
+    inj = cl.install_faults(psv.FaultPlan(events=(
+        psv.FaultEvent(step=1, kind="move_leg"),
+        psv.FaultEvent(step=1, kind="host_fetch"),
+        psv.FaultEvent(step=1, kind="host_corrupt"),
+        psv.FaultEvent(step=2, kind="stager_timeout"),
+        psv.FaultEvent(step=3, kind="silence", target=0, duration=2),
+        psv.FaultEvent(step=6, kind="crash", target=3))))
+    prompts = _ext_prompts(cfg)
+    reqs = _new_requests(prompts)
+    _run_reqs(cl, reqs)
+    for i in cl.engines:
+        if i not in cl._dead:
+            cl.prefix_cache.evict_device(i, 10 ** 6)
+    again = _new_requests([prompts[1]] * 2)
+    for r in again:
+        _run_reqs(cl, [r])
+    out = _summary(cl, reqs + again)
+    out["fired"] = [ev.kind for ev in inj.fired]
+    return out, [(p, N_NEW) for p in prompts + [prompts[1]] * 2]
+
+
+EXT = {"host_tier": _host_tier_case, "overload": _overload_case,
+       "kill": _kill_case, "fault_plan": _fault_plan_case}
+
+
+def _planted_guard(params, cfg, mesh, layout, rank, what):
+    """Serve a request a few steps with the host tier and overload on,
+    then plant a divergence in process 1's ``what``: the step's guard
+    must raise in every process."""
+    cl = _cluster(params, cfg, 2, mesh=mesh, layout=layout,
+                  prefix_cache=True, host_tier_blocks=8,
+                  overload=psv.OverloadPolicy(enabled=True))
+    req = psv.Request(prompt=_prompts(cfg)[1],
+                      sampling=psv.SamplingParams(max_new_tokens=N_NEW))
+    cl.submit(req)
+    for _ in range(3):
+        cl.step()
+    if rank == 1:
+        if what == "paused":
+            from repro_torch.serving.preempt import _PausedRecord
+            cl.preemptor.paused[10 ** 6] = _PausedRecord(req, 0, 0, 0.0, [])
+        elif what == "dead":
+            cl._dead.add(1)
+        else:
+            k = torch.zeros(cfg.num_layers, BS, cfg.num_kv_heads,
+                            cfg.head_dim)
+            cl.host_tier.put(("planted", 0), k, k)
+    try:
+        cl.step()
+    except RuntimeError as e:
+        return str(e)
+    return None
 
 
 def _server_clock(params, cfg, mesh, layout, steps=4):
@@ -237,7 +423,7 @@ def _guard(params, cfg, mesh, layout, rank):
     return None
 
 
-def _worker(rank, store, W, payload, queue):
+def _worker(rank, store, W, payload, ext, queue):
     import traceback
     torch.set_num_threads(1)
     try:
@@ -258,9 +444,21 @@ def _worker(rank, store, W, payload, queue):
                                                          mesh, layout)
             if W == 2 and arch == "olmo-1b":
                 out[arch]["cache"] = _cache_case(params, cfg, mesh, layout)
-                out[arch]["refusals"] = _refusals(params, cfg, mesh, layout)
                 out[arch]["guard"] = _guard(params, cfg, mesh, layout, rank)
+                out[arch]["planted"] = {
+                    what: _planted_guard(params, cfg, mesh, layout, rank,
+                                         what)
+                    for what in ("paused", "dead", "host_keys")}
                 out[arch]["clock"] = _server_clock(params, cfg, mesh, layout)
+        if W == 2:
+            for arch in EXT_ARCHS:
+                cfg = _cfg(arch)
+                params = bridge.from_numpy_tree(
+                    payload[arch][0] if arch in payload else ext[arch],
+                    device="cpu")
+                out.setdefault(arch, {})["ext"] = {
+                    case: EXT[case](params, cfg, mesh, layout)[0]
+                    for case in EXT_CASES}
         queue.put((rank, out))
     except Exception:
         queue.put((rank, traceback.format_exc()))
@@ -269,13 +467,13 @@ def _worker(rank, store, W, payload, queue):
 # ------------------------------------------------------------------ #
 # References (this process)
 # ------------------------------------------------------------------ #
-def _oracle(jp, cfg, prompt, decode):
+def _oracle(jp, cfg, prompt, decode, n_new=N_NEW):
     import jax.numpy as jnp
     from repro.models.prefill import prefill
     logits, state = prefill(jp, cfg, jnp.asarray([prompt], jnp.int32),
-                            max_len=len(prompt) + N_NEW + 2)
+                            max_len=len(prompt) + n_new + 2)
     out = [int(jnp.argmax(logits[0]))]
-    for _ in range(N_NEW - 1):
+    for _ in range(n_new - 1):
         lg, state = decode(jp, cfg, state, jnp.asarray([out[-1]], jnp.int32))
         out.append(int(jnp.argmax(lg[0])))
     return out
@@ -322,23 +520,37 @@ def run(tmp_path_factory):
         jp = init_params(jax.random.PRNGKey(0), jcfg(arch))
         payload[arch] = (jax.tree.map(np.asarray, jp),
                          _step_inputs(cfg, np.random.default_rng(30 + i)))
+    ext = {arch: jax.tree.map(np.asarray, init_params(
+        jax.random.PRNGKey(0), jcfg(arch)))
+        for arch in EXT_ARCHS if arch not in payload}
     # Both process groups run while this process builds the references.
     groups = {W: Spawned(_worker, W, str(tmp_path_factory.mktemp(f"w{W}")),
-                         W, payload) for W in LAYOUTS}
+                         W, payload, ext) for W in LAYOUTS}
     refs = {}
     jit_decode = jax.jit(decode_step, static_argnums=1)
+    for arch in EXT_ARCHS:
+        np_params = payload[arch][0] if arch in payload else ext[arch]
+        jp = jax.tree.map(jnp.asarray, np_params)
+        tp = bridge.from_numpy_tree(np_params, device="cpu")
+        cfg = _cfg(arch)
+        single, oracle = {}, {}
+        for case in EXT_CASES:
+            single[case], served = EXT[case](tp, cfg)
+            oracle[case] = [_oracle(jp, jcfg(arch), p, jit_decode, n)
+                            for p, n in served]
+        refs.setdefault(arch, {})["ext"] = (single, oracle)
     for arch, (np_params, inp) in payload.items():
         cfg = _cfg(arch)
         jp = jax.tree.map(jnp.asarray, np_params)
         tp = bridge.from_numpy_tree(np_params, device="cpu")
-        refs[arch] = {"inp": inp,
+        refs.setdefault(arch, {}).update({"inp": inp,
                       "jax_steps": _jax_steps(jp, jcfg(arch), inp),
                       "oracle": [_oracle(jp, jcfg(arch), p, jit_decode)
                                  for p in _prompts(cfg)],
                       "single": {n: _serve(_cluster(tp, cfg, n),
                                            _prompts(cfg)) for n in (2, 4)},
                       "cache": _serve(_cluster(tp, cfg, 2, prefix_cache=True),
-                                      _cache_prompts(cfg), one_by_one=True)}
+                                      _cache_prompts(cfg), one_by_one=True)})
     return refs, {W: g.results() for W, g in groups.items()}
 
 
@@ -424,12 +636,57 @@ def test_mesh_prefix_cache_warm_and_cow_hits(run):
         assert got["hit_tokens"] >= 16 + 23 and got["cow"] == 1
 
 
-@pytest.mark.parametrize("what", ["host_tier", "overload", "kill", "faults"])
-def test_mesh_refuses_what_is_not_ported(run, what):
+@pytest.mark.parametrize("case", EXT_CASES)
+@pytest.mark.parametrize("arch", EXT_ARCHS)
+def test_mesh_extensions_match_the_single_process_cluster(run, arch, case):
+    refs, res = run
+    single, oracle = refs[arch]["ext"]
+    want = single[case]
+    for r in range(2):
+        # The root hash is the first process's salted one (the keys
+        # chained from it too): held equal across processes below.
+        got = {k: v for k, v in res[2][r][arch]["ext"][case].items()
+               if k not in ("root", "host_keys")}
+        assert got == {k: v for k, v in want.items()
+                       if k not in ("root", "host_keys")}, (r, {
+            k: (got[k], want.get(k)) for k in got if got[k] != want.get(k)})
+    # Every request finished with the oracle's stream (a replayed or
+    # resumed one included), nothing reallocated a slab, no leak.
+    assert want["states"] == ["FINISHED"] * len(want["outs"])
+    assert want["outs"] == oracle[case]
+    assert want["copies"] == 0 and want["clean"]
+    if case == "host_tier":
+        assert want["host"]["spills"] >= 3 and want["host"]["fetches"] >= 3
+        assert want["held_bytes"] > 0
+    elif case == "overload":
+        assert want["preempt"]["preemptions"] == 1
+        assert want["preempt"]["resumes"] == 1
+    elif case == "kill":
+        assert want["fault_stats"]["dead_instances"] == 1
+        assert want["replays"][0] == 1
+    else:
+        assert want["fired"] == ["move_leg", "host_fetch", "host_corrupt",
+                                 "stager_timeout", "silence", "crash"]
+        assert want["fault_stats"]["dead_instances"] == 1
+
+
+def test_mesh_agrees_on_the_prefix_cache_root_hash(run):
+    """Python salts a string's hash per process: without an agreed root
+    the chain hashes (the host tier's keys) would differ between the
+    processes of a mesh."""
+    _, res = run
+    for arch in EXT_ARCHS:
+        got = [res[2][r][arch]["ext"]["host_tier"] for r in range(2)]
+        assert got[0]["root"] == got[1]["root"]
+        assert got[0]["host_keys"] == got[1]["host_keys"]
+
+
+@pytest.mark.parametrize("what", ["paused", "dead", "host_keys"])
+def test_divergence_planted_in_replicated_state_raises_everywhere(run, what):
     _, res = run
     for r in range(2):
-        msg = res[2][r]["olmo-1b"]["refusals"].get(what)
-        assert msg is not None and "ROADMAP Queue 1" in msg
+        msg = res[2][r]["olmo-1b"]["planted"][what]
+        assert msg is not None and "diverged" in msg
 
 
 def test_divergence_guard_raises_in_every_process(run):

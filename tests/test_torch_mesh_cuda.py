@@ -211,3 +211,155 @@ def test_mesh_server_runs_its_control_collectives_on_nccl(tmp_path):
     got = Spawned(_nccl_worker, 1, str(tmp_path)).results()[0]
     assert got["backend"] == "nccl"
     assert got["streams"] == _serve_smoke(torch.device("cuda"))
+
+
+# --------------------------------------------------------------------- #
+# A one-process NCCL mesh: the placed hybrid prefill and the host tier
+# --------------------------------------------------------------------- #
+HYBRID_S = 3000        # past recurrentgemma's 2,048-token window
+
+
+class FlashSpy:
+    """Each ``ops.flash_prefill`` call's query heads, and its output
+    against the plain twin on the same inputs (the comparison's own
+    calls are not counted)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_prefill as fp, ops
+        self.ops, self.plain, self.orig = ops, fp.flash_prefill_plain, \
+            ops.flash_prefill
+        self.heads, self.err = [], 0.0
+
+        def spy(q, k, v, **kw):
+            out = self.orig(q, k, v, **kw)
+            want = self.plain(q, k, v, scale=kw.get("scale") or
+                              q.shape[-1] ** -0.5,
+                              window=kw.get("window", 0))
+            self.heads.append((q.shape[2], k.shape[2]))
+            self.err = max(self.err, float((out - want).abs().max()))
+            return out
+        ops.flash_prefill = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_prefill = self.orig
+
+
+def _hybrid_case(dev, mesh):
+    """The placed recurrentgemma prefill (full width, one group, float32)
+    on ``mesh``: its first tokens, the flash calls' heads and error, the
+    kernel launches; and the same step on the whole tree, unplaced."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.placement import (param_shapes,
+                                                   seeded_params)
+    from repro_torch.distributed.sharding import (param_specs,
+                                                  validate_divisibility)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sharded_step as ss
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3,
+                              dtype="float32")
+    shapes = param_shapes(cfg)
+    specs = validate_divisibility(param_specs(cfg, shapes, fsdp=False),
+                                  shapes, mesh)
+    placed = seeded_params(cfg, 3, mesh=mesh, specs=specs, device=dev)
+    layout = ss.ServeLayout(("data",), ("data",))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                             (1, HYBRID_S))
+    ops.reset_counts()
+    with FlashSpy() as spy:
+        first, state = ss.serve_prefill_step_state(
+            placed, cfg, layout, toks, max_len=HYBRID_S, mesh=mesh)
+    counts = ops.counts()
+    whole = seeded_params(cfg, 3, device=dev)
+    want, _ = ss.serve_prefill_step_state(whole, cfg, layout, toks,
+                                          max_len=HYBRID_S)
+    return {"first": first.cpu().tolist(), "want": want.cpu().tolist(),
+            "heads": spy.heads, "err": spy.err,
+            "tp": placed.tp.count if placed.tp else 1,
+            "launches": counts["flash_prefill"]["launches"],
+            "plain": counts["flash_prefill"]["plain_calls"],
+            "ring": tuple(state.kv_k.shape)}
+
+
+def _host_tier_case(dev, mesh):
+    """Every cached replica spilled to the host tier and fetched back:
+    the fetched blocks hold exactly the spilled bytes."""
+    import repro_torch.serving as psv
+    from repro_torch.models.model import init_params
+    cfg, config, prompts = _smoke()
+    config = config.replace(prefix_cache=True, host_tier_blocks=16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    layout = psv.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    server = psv.LLMServer(params, cfg, config, device=dev, mesh=mesh,
+                           layout=layout)
+    cl = server.cluster
+    base = prompts[0][:24]
+    first = server.submit(base, psv.SamplingParams(max_new_tokens=8))
+    server.drain(max_steps=400)
+    nodes = {nd.hash: cl.engines[i].read_block_rows(b)
+             for nd in cl.prefix_cache._nodes.values()
+             for i, b in list(nd.replicas.items())[:1]}
+    for i in cl.engines:
+        cl.prefix_cache.evict_device(i, 10 ** 6)
+    spilled = cl.host_tier.stats.spills
+    again = server.submit(base, psv.SamplingParams(max_new_tokens=8))
+    server.drain(max_steps=400)
+    exact = []
+    for h, (k, v) in nodes.items():
+        nd = cl.prefix_cache._nodes.get(h)
+        if nd is None or not nd.replicas:
+            continue
+        i, b = next(iter(nd.replicas.items()))
+        k2, v2 = cl.engines[i].read_block_rows(b)
+        exact.append(bool(torch.equal(k, k2) and torch.equal(v, v2)))
+    return {"spilled": spilled, "fetched": cl.host_tier.stats.fetches,
+            "exact": exact, "streams": [first.result(), again.result()]}
+
+
+def _nccl_cases_worker(rank, store, queue):
+    try:
+        from repro_torch.distributed.mesh import make_mesh
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=rank, world_size=1)
+        mesh = make_mesh((1, 1), device=dev)
+        queue.put((rank, {"hybrid": _hybrid_case(dev, mesh),
+                          "host_tier": _host_tier_case(dev, mesh)}))
+        dist.destroy_process_group()
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+
+
+@pytest.fixture(scope="module")
+def nccl_cases(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import build
+    build.build()
+    return Spawned(_nccl_cases_worker, 1,
+                   str(tmp_path_factory.mktemp("nccl"))).results()[0]
+
+
+@pytest.mark.cuda
+def test_placed_hybrid_prefill_launches_flash_on_its_heads(nccl_cases):
+    """recurrentgemma's placed prefill on a one-process mesh: each local
+    attention layer launches the flash kernel once, on 16 / tp query
+    heads over the one kv head, within 1e-4 of the plain twin; the first
+    token equals the unplaced step's."""
+    got = nccl_cases["hybrid"]
+    assert got["launches"] == 1 and got["plain"] == 0
+    assert got["heads"] == [(16 // got["tp"], 1)]
+    assert got["err"] <= 1e-4
+    assert got["first"] == got["want"]
+    assert got["ring"][2:4] == (2048, 1)
+
+
+@pytest.mark.cuda
+def test_host_tier_round_trip_under_a_one_process_mesh(nccl_cases):
+    got = nccl_cases["host_tier"]
+    assert got["spilled"] >= 3 and got["fetched"] >= 3
+    assert got["exact"] and all(got["exact"])
+    assert got["streams"][0] == got["streams"][1]

@@ -134,7 +134,8 @@ def one_process(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b",
-                                  "olmo-h16"])
+                                  "olmo-h16", "recurrentgemma-9b",
+                                  "xlstm-350m"])
 def test_place_gather_seeded_on_one_process(one_process, arch):
     from repro_torch.distributed.mesh import make_mesh
     from repro_torch.models.model import init_params
@@ -189,9 +190,31 @@ def test_seeded_draws_follow_init_distributions():
     assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1) < 1e-2
     assert torch.equal(p["layers"]["ln1"]["scale"],
                        torch.ones_like(p["layers"]["ln1"]["scale"]))
-    with pytest.raises(ValueError, match="not supported"):
-        placement.seeded_params(get_smoke_config("xlstm-350m"), 0,
-                                device="cpu")
+    # The hybrid and ssm leaves (seeded_params draws every family).
+    hcfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                               num_layers=3, vocab_size=512, d_ff=512,
+                               dtype="float32")
+    rg = placement.seeded_params(hcfg, 0, device="cpu")["groups"][
+        "0_rglru"]["rglru"]
+    # log_sig_lambda = log(u ** (1 / 8)), u uniform in [0.9, 0.999].
+    u = torch.exp(8 * rg["log_sig_lambda"])
+    assert u.shape == (1, hcfg.lru_width)
+    assert float(u.min()) >= 0.9 - 1e-5 and float(u.max()) <= 0.999 + 1e-5
+    assert abs(float(rg["conv_w"].std()) - 0.1) < 1e-2
+    assert not rg["b_r"].any() and not rg["b_i"].any()
+    assert abs(float(rg["w_r"].std()) * hcfg.lru_width ** 0.5 - 1) < 1e-2
+    xcfg = dataclasses.replace(get_config("xlstm-350m"), num_layers=8,
+                               vocab_size=512, dtype="float32")
+    x = placement.seeded_params(xcfg, 0, device="cpu")["groups"]
+    b_if = x["mlstm"]["blk"]["b_if"]
+    nh = xcfg.num_heads
+    assert b_if.shape == (1, 7, 2 * nh)
+    assert not b_if[..., :nh].any() and (b_if[..., nh:] == 3.0).all()
+    assert (x["mlstm"]["blk"]["gn_scale"] == 1).all()
+    assert not x["slstm"]["blk"]["b"].any()
+    # Each mLSTM layer of the (group, layer) stack has its own draw.
+    w_up = x["mlstm"]["blk"]["w_up"]
+    assert not torch.equal(w_up[0, 0], w_up[0, 1])
 
 
 # --------------------------------------------------------------------- #

@@ -291,9 +291,11 @@ def test_steps_refuse_unpooled_families_and_embeds():
             pss.serve_prefill_step({"embed": torch.zeros(1)}, cfg, layout,
                                    np.zeros((1, 8), np.int64), block_size=8,
                                    NP=2)
-    with pytest.raises(NotImplementedError, match="embeds"):
-        pss.serve_prefill_step({}, _cfg("olmo-1b"), layout, None,
-                               block_size=8, NP=2, embeds=torch.zeros(1))
+    with pytest.raises(ValueError, match="state steps"):
+        pss.serve_prefill_step_state({}, _cfg("olmo-1b"), layout, None,
+                                     max_len=8)
+    with pytest.raises(ValueError, match="state steps"):
+        pss.serve_decode_step_state({}, _cfg("olmo-1b"), layout, None, None)
 
 
 @pytest.mark.parametrize("B,S,bs,NP_,n_data", [
@@ -780,9 +782,81 @@ def test_steps_refuse_a_placed_tree_off_its_mesh():
                                block_size=8, NP=2,
                                mesh=SimpleNamespace(shape=(2, 1)))
     for arch in ("recurrentgemma-9b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="mesh="):
             pss.serve_prefill_step_state(placed, _cfg(arch), layout,
                                          np.zeros((1, 8)), max_len=16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="another mesh"):
             pss.serve_decode_step_state(placed, _cfg(arch), layout, None,
-                                        None)
+                                        np.zeros(1),
+                                        mesh=SimpleNamespace(shape=(2, 1)))
+
+
+# --------------------------------------------------------------------- #
+# embeds= (a modality frontend's output in place of the token embeddings)
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("step", ["prefill", "serve_prefill_step",
+                                  "serve_prefill_step_state"])
+def test_prefill_entry_points_take_embeds_like_jax(step):
+    """The same float32 embeddings through each prefill entry point of
+    the port and of JAX: first tokens (or logits) and the KV or state
+    within 1e-5; and equal to the token path when the embeddings are
+    the embedding table's rows."""
+    from repro_torch.models.prefill import prefill
+    J = _jax()
+    arch = {"prefill": "qwen3-0.6b", "serve_prefill_step": "olmo-1b",
+            "serve_prefill_step_state": "recurrentgemma-9b"}[step]
+    tp, jp = _weights(arch, J)
+    cfg, jcfg = _cfg(arch), J.cfg(arch)
+    rng = np.random.default_rng(17)
+    B, S = 2, 40
+    emb = (rng.standard_normal((B, S, cfg.d_model)) * 0.5).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    table = tp["embed"].numpy()[toks]             # the token path's rows
+    layout = pss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    jl = J.ss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
+    if step == "prefill":
+        with J.mesh:
+            jlg, jst = J.jax.jit(lambda p, e: J.prefill.prefill(
+                p, jcfg, None, e, max_len=S + 4))(jp, emb)
+        lg, st = prefill(tp, cfg, embeds=torch.from_numpy(emb),
+                         max_len=S + 4)
+        _close(lg.numpy(), jlg)
+        _close(st.kv_k.numpy(), jst.kv_k)
+        lg2, _ = prefill(tp, cfg, embeds=torch.from_numpy(table),
+                         max_len=S + 4)
+        _close(lg2.numpy(), prefill(tp, cfg, torch.from_numpy(toks),
+                                    max_len=S + 4)[0].numpy())
+    elif step == "serve_prefill_step":
+        with J.mesh:
+            jf, jk, jv = J.jax.jit(lambda p, e: J.ss.serve_prefill_step(
+                p, jcfg, jl, None, block_size=BS, NP=NP, n_data=2,
+                embeds=e))(jp, emb)
+        f, pk, pv = pss.serve_prefill_step(tp, cfg, layout, None,
+                                           block_size=BS, NP=NP, n_data=2,
+                                           embeds=torch.from_numpy(emb))
+        np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
+        _close(pk.numpy(), jk)
+        _close(pv.numpy(), jv)
+        f2, pk2, _ = pss.serve_prefill_step(
+            tp, cfg, layout, None, block_size=BS, NP=NP, n_data=2,
+            embeds=torch.from_numpy(table))
+        f3, pk3, _ = pss.serve_prefill_step(tp, cfg, layout, toks,
+                                            block_size=BS, NP=NP, n_data=2)
+        np.testing.assert_array_equal(f2.numpy(), f3.numpy())
+        _close(pk2.numpy(), pk3.numpy())
+    else:
+        with J.mesh:
+            jf, jst = J.jax.jit(lambda p, e: J.ss.serve_prefill_step_state(
+                p, jcfg, jl, None, max_len=S, embeds=e))(jp, emb)
+        f, st = pss.serve_prefill_step_state(tp, cfg, layout, None,
+                                             max_len=S,
+                                             embeds=torch.from_numpy(emb))
+        np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
+        for g, w in zip(_leaves(st), _leaves(jst)):
+            _close(g, w)
+        f2, _ = pss.serve_prefill_step_state(tp, cfg, layout, None,
+                                             max_len=S,
+                                             embeds=torch.from_numpy(table))
+        np.testing.assert_array_equal(
+            f2.numpy(), pss.serve_prefill_step_state(
+                tp, cfg, layout, toks, max_len=S)[0].numpy())
