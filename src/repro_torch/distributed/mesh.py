@@ -168,16 +168,6 @@ def agreed_clock(group, now: Optional[float] = None) -> float:
     return float(t[0])
 
 
-def agreed_int(group, value: int) -> int:
-    """The first process of ``group``'s ``value`` (a 64-bit int), in every
-    process of it: a broadcast. For a value a process derives from its own
-    state that must be equal everywhere (a salted ``hash``)."""
-    t = torch.tensor([int(value)], dtype=torch.int64,
-                     device=_control_device(group))
-    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
-    return int(t[0])
-
-
 def _digest(obj) -> int:
     """A 62-bit digest of ``repr(obj)`` (plain data: ints, tuples, lists)."""
     h = hashlib.blake2b(repr(obj).encode(), digest_size=8).digest()
@@ -199,6 +189,5 @@ def check_replicated(group, what: str, obj) -> None:
             f"between processes (here {d:#x}, min {lo:#x}, max {hi:#x})")
 
 
-__all__ = ["MESH_AXES", "PoolShards", "agreed_clock", "agreed_int",
-           "check_replicated",
+__all__ = ["MESH_AXES", "PoolShards", "agreed_clock", "check_replicated",
            "make_mesh", "mesh_group", "pool_shards", "shard_rank_base"]

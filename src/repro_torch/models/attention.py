@@ -20,7 +20,8 @@ from repro_torch.core.online_softmax import (combine, empty_partial,
                                              micro_attention_prefill)
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dense_init,
-                                       rms_norm_headwise, torch_dtype)
+                                       rms_norm_headwise, row_parallel,
+                                       torch_dtype, tp_split)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *, device,
@@ -63,14 +64,99 @@ def qkv_project(params, x: torch.Tensor, positions: torch.Tensor,
 AttnCore = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def apply_attention_train(params, x: torch.Tensor, positions: torch.Tensor,
-                          cfg: ModelConfig, core: AttnCore):
-    """Full-sequence causal self-attention. Returns (out [B,T,d], (k, v))."""
+# --------------------------------------------------------------------- #
+# Heads under tensor parallelism
+# --------------------------------------------------------------------- #
+def split_heads(t: torch.Tensor, split: bool, n_total: int, lo: int, n: int,
+                tp) -> torch.Tensor:
+    """Heads ``[lo, lo + n)`` of a projection ``t [..., heads, hd]``: of
+    all ``n_total`` heads, or — its weight's columns split over the TP
+    axis — of this process's own ``n_total / tp.count`` (gathered over
+    the axis when others' are asked for)."""
+    if not split:
+        return t[..., lo:lo + n, :]
+    own = t.shape[-2]
+    if own * tp.count != n_total:
+        raise NotImplementedError(f"{n_total} heads split over a TP axis of "
+                                  f"{tp.count} cut inside a head")
+    if (lo, n) == (tp.index * own, own):
+        return t
+    return tp.cat(t, -2)[..., lo:lo + n, :]
+
+
+def kv_range(cfg: ModelConfig, h0: int, n: int):
+    """(lo, hi, idx): the kv heads ``[lo, hi)`` query heads ``[h0, h0 +
+    n)`` read under GQA, and None when each of them serves an equal run
+    of those query heads (the attention's own grouping), else the index
+    that expands them to one a query head."""
+    if n == cfg.num_heads:
+        return 0, cfg.num_kv_heads, None
+    G = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = h0 // G, -(-(h0 + n) // G)
+    idx = torch.arange(h0, h0 + n) // G - lo
+    m = hi - lo
+    if n % m == 0 and torch.equal(idx, torch.arange(m).repeat_interleave(
+            n // m)):
+        return lo, hi, None
+    return lo, hi, idx
+
+
+def expand_kv(kv: torch.Tensor, idx) -> torch.Tensor:
+    """kv heads as ``kv_range`` gives them, expanded to one a query head
+    where their grouping is not uniform (``idx``)."""
+    return kv if idx is None else kv[..., idx.to(kv.device), :]
+
+
+def query_heads(specs, cfg: ModelConfig, tp) -> Tuple[int, int]:
+    """(h0, n): the query heads ``[h0, h0 + n)`` a process makes in an
+    attention layer placed by ``specs`` (its own with ``wq``'s columns
+    split over the TP axis, else all)."""
+    if specs is not None and tp_split(specs["wq"], 1, tp):
+        n = cfg.num_heads // tp.count
+        return tp.index * n, n
+    return 0, cfg.num_heads
+
+
+def heads_qkv(params, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, specs=None, tp=None):
+    """``qkv_project`` for this process's query heads: (q, k, v, h0, idx)
+    with k/v the kv heads those read (``kv_range``; every head of a
+    plain tree), ``h0`` the first query head and ``idx`` the expansion
+    of ``expand_kv``."""
     q, k, v = qkv_project(params, x, positions, cfg)
-    out = core(q, k, v)
-    B, T = x.shape[:2]
-    out = out.reshape(B, T, -1).to(x.dtype) @ params["wo"]
-    return out, (k, v)
+    h0, n = query_heads(specs, cfg, tp)
+    lo, hi, idx = kv_range(cfg, h0, n)
+    sk = specs is not None and tp_split(specs["wk"], 1, tp)
+    K = cfg.num_kv_heads
+    return (q, split_heads(k, sk, K, lo, hi - lo, tp),
+            split_heads(v, sk, K, lo, hi - lo, tp), h0, idx)
+
+
+def heads_out(params, out: torch.Tensor, h0: int, cfg: ModelConfig, dtype,
+              specs=None, tp=None) -> torch.Tensor:
+    """The output projection of heads ``out [..., n, hd]`` (heads ``[h0,
+    h0 + n)``): with ``wo``'s rows split over the TP axis, this
+    process's own heads by its rows, summed over the axis; else every
+    head by the whole ``wo``."""
+    wo = params["wo"]
+    split = specs is not None and tp_split(specs["wo"], 0, tp)
+    if split:
+        own = wo.shape[0] // cfg.head_dim
+        lo = tp.index * own - h0
+        out = out[..., lo:lo + own, :]
+    return row_parallel(out.flatten(-2).to(dtype), wo, split, tp)
+
+
+def apply_attention_train(params, x: torch.Tensor, positions: torch.Tensor,
+                          cfg: ModelConfig, core: AttnCore, *, specs=None,
+                          tp=None):
+    """Full-sequence causal self-attention. Returns (out [B,T,d], (k, v)).
+    Placed weights (``specs``, ``tp``): this process's query heads, the
+    kv heads they read (the (k, v) returned) and ``wo``'s rows summed
+    over the TP axis."""
+    q, k, v, h0, idx = heads_qkv(params, x, positions, cfg, specs, tp)
+    out = core(q, expand_kv(k, idx), expand_kv(v, idx))
+    return heads_out(params, out, h0, cfg, x.dtype, specs, tp), (k, v)
 
 
 def make_causal_core(cfg: ModelConfig, *, backend: str = "xla",

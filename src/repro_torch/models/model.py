@@ -31,8 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (full_attention_decode,
                                         sliding_window_mask_decode)
 from repro_torch.models.attention import (apply_attention_train,
-                                          init_attention, make_causal_core,
-                                          qkv_project)
+                                          expand_kv, heads_out, heads_qkv,
+                                          init_attention, make_causal_core)
 from repro_torch.models.common import (apply_ffn, apply_norm, dense_init,
                                        embed_init, init_ffn, init_norm,
                                        sinusoidal_embedding, torch_dtype,
@@ -221,7 +221,7 @@ def layer_path(cfg: ModelConfig, i: int) -> Tuple[Tuple[str, ...],
     its stack, its index along the stack's leading dims). Dense and MoE
     as ``attn_layer_params``; hybrid by group and pattern position (a
     leftover layer has no stacked dim); ssm in
-    ``_ssm_layers``' order (an mLSTM layer at (group, j), the group's
+    ``layer_kinds``' order (an mLSTM layer at (group, j), the group's
     sLSTM at (group,))."""
     if cfg.family == "dense":
         return ("layers",), (i,)
@@ -254,21 +254,26 @@ def param_layer(params, cfg: ModelConfig, i: int):
 # ===================================================================== #
 # Full-sequence forward
 # ===================================================================== #
+def _sub(specs, key):
+    return None if specs is None else specs[key]
+
+
 def _attn_layer_fwd(lp, x, positions, cfg, core, *,
-                    capacity_factor: float = 1.25, ep_groups: int = 0):
+                    capacity_factor: float = 1.25, ep_groups: int = 0,
+                    specs=None, tp=None):
     """One attention layer. Returns (x, (k, v), MoE aux loss — 0 for a
-    dense FFN layer)."""
+    dense FFN layer). Placed weights: ``specs`` (the layer's) and
+    ``tp``; (k, v) are then the kv heads this process's query heads
+    read."""
     h = apply_norm(lp["ln1"], x, cfg)
-    attn_out, kv = apply_attention_train(lp["attn"], h, positions, cfg, core)
+    attn_out, kv = apply_attention_train(lp["attn"], h, positions, cfg, core,
+                                         specs=_sub(specs, "attn"), tp=tp)
     x = x + attn_out
     h = apply_norm(lp["ln2"], x, cfg)
     aux = (moe_aux_loss(lp["moe"], h, cfg) if "moe" in lp
            else torch.zeros((), device=x.device))
-    return x + ffn_or_moe(lp, h, cfg, capacity_factor, ep_groups), kv, aux
-
-
-def _sub(specs, key):
-    return None if specs is None else specs[key]
+    return x + ffn_or_moe(lp, h, cfg, capacity_factor, ep_groups,
+                          specs=specs, tp=tp), kv, aux
 
 
 def _rglru_layer_fwd(lp, x, cfg, state=None, *, decode=False, specs=None,
@@ -285,16 +290,25 @@ def _rglru_layer_fwd(lp, x, cfg, state=None, *, decode=False, specs=None,
                          tp=tp), new_state
 
 
-def _ssm_layers(params, cfg: ModelConfig):
-    """Every xLSTM layer in order: ``(kind, idx, its params)``, where
-    ``idx`` — (group, j) of an mLSTM layer, (group,) of the sLSTM — also
-    indexes the layer's state in ``DecodeState.rec[kind]``."""
-    ng, se = ssm_groups(cfg)
-    gp = params["groups"]
-    for g in range(ng):
-        for j in range(se - 1):
-            yield "mlstm", (g, j), layer_params(gp["mlstm"], g, j)
-        yield "slstm", (g,), layer_params(gp["slstm"], g)
+def layer_kinds(cfg: ModelConfig):
+    """The built layers in order, ``(i, kind, idx)``: ``idx`` is the ssm
+    family's index of the layer's state in ``DecodeState.rec[kind]``
+    ((group, j) of an mLSTM layer, (group,) of the sLSTM; None for the
+    other families, whose states follow layer order)."""
+    if cfg.family == "ssm":
+        ng, se = ssm_groups(cfg)
+        for i in range(ng * se):
+            keys, idx = layer_path(cfg, i)
+            yield i, keys[-1], idx
+        return
+    for i in range(cfg.num_layers):
+        yield i, cfg.layer_kind(i), None
+
+
+def plain_layers(params, cfg: ModelConfig):
+    """The layer accessor of a plain parameter tree: ``i -> (layer i's
+    parameters, None)`` (no specs: every weight whole)."""
+    return lambda i: (param_layer(params, cfg, i), None)
 
 
 def _ssm_layer_fwd(kind, lp, x, cfg, state=None, *, decode=False,
@@ -517,18 +531,21 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     return DecodeState(kv_k, kv_v, lens, rec)
 
 
-def _cached_attn_decode(lp, x, state_k, state_v, lens, cfg, *, window=0):
+def _cached_attn_decode(lp, x, state_k, state_v, lens, cfg, *, window=0,
+                        specs=None, tp=None):
     """x: [B, 1, d]; writes the token's KV into the cache IN PLACE.
 
     With ``window`` the cache is a ring (slot = position % its length)
     and the token attends to the last ``window`` positions it holds.
+    Placed weights: the cache holds the kv heads this process's query
+    heads read (``heads_qkv``).
     """
-    B = x.shape[0]
-    q, k, v = qkv_project(lp, x, lens[:, None], cfg)
+    q, k, v, h0, idx = heads_qkv(lp, x, lens[:, None], cfg, specs, tp)
     mask = cache_write(state_k, state_v, k[:, 0], v[:, 0], lens,
                        window=window)
-    out = full_attention_decode(q[:, 0], state_k, state_v, mask)
-    return out.reshape(B, 1, -1).to(x.dtype) @ lp["wo"]
+    out = full_attention_decode(q[:, 0], expand_kv(state_k, idx),
+                                expand_kv(state_v, idx), mask)
+    return heads_out(lp, out[:, None], h0, cfg, x.dtype, specs, tp)
 
 
 def cache_write(state_k, state_v, k, v, lens, *, window=0):
@@ -553,12 +570,50 @@ def cache_write(state_k, state_v, k, v, lens, *, window=0):
     return torch.arange(maxlen, device=k.device)[None] <= lens[:, None]
 
 
-def _attn_layer_decode(lp, x, ck, cv, lens, cfg, *, window=0):
+def _attn_layer_decode(lp, x, ck, cv, lens, cfg, *, window=0, specs=None,
+                       tp=None):
     h = apply_norm(lp["ln1"], x, cfg)
     x = x + _cached_attn_decode(lp["attn"], h, ck, cv, lens, cfg,
-                                window=window)
+                                window=window, specs=_sub(specs, "attn"),
+                                tp=tp)
     h = apply_norm(lp["ln2"], x, cfg)
-    return x + ffn_or_moe(lp, h, cfg, capacity_factor=-1.0)
+    return x + ffn_or_moe(lp, h, cfg, capacity_factor=-1.0, specs=specs,
+                          tp=tp)
+
+
+def decode_layers(layer, cfg: ModelConfig, state: DecodeState, x, *,
+                  tp=None) -> torch.Tensor:
+    """``decode_step``'s layer loop over the embedded tokens ``x`` [B, 1,
+    d]: ``layer(i)`` gives layer ``i``'s parameters and their specs (or
+    None; ``plain_layers``), ``tp`` the TP axis of placed ones. The
+    state's tensors are updated IN PLACE; under placed weights they hold
+    this process's kv heads, RG-LRU columns and mLSTM heads, as
+    ``prefill_layers`` makes them."""
+    lens = state.lens
+    window = cfg.local_window if cfg.family == "hybrid" else 0
+    ai = ri = 0
+    for i, kind, idx in layer_kinds(cfg):
+        lp, ls = layer(i)
+        if kind == "attn":
+            x = _attn_layer_decode(lp, x, state.kv_k[ai], state.kv_v[ai],
+                                   lens, cfg, window=window, specs=ls, tp=tp)
+            ai += 1
+        elif kind == "rglru":
+            conv_c, lru_h = state.rec
+            x, (cc, hh) = _rglru_layer_fwd(
+                lp, x, cfg, (conv_c[ri], lru_h[ri]), decode=True, specs=ls,
+                tp=tp)
+            conv_c[ri].copy_(cc)
+            lru_h[ri].copy_(hh)
+            ri += 1
+        else:
+            rec = state.rec[kind]
+            st = type(rec)(*(a[idx] for a in rec))
+            x, st = _ssm_layer_fwd(kind, lp, x, cfg, st, decode=True,
+                                   specs=ls, tp=tp)
+            for dst, src in zip(rec, st):
+                dst[idx].copy_(src)
+    return x
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState,
@@ -572,32 +627,6 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
     require_family(cfg)
     lens = state.lens
     x = embed_tokens(params, cfg, tokens[:, None], positions=lens[:, None])
-    if cfg.family in POOLED_FAMILIES:
-        for i in range(cfg.num_layers):
-            x = _attn_layer_decode(attn_layer_params(params, cfg, i), x,
-                                   state.kv_k[i], state.kv_v[i], lens, cfg)
-    elif cfg.family == "ssm":
-        for kind, idx, lp in _ssm_layers(params, cfg):
-            rec = state.rec[kind]
-            st = type(rec)(*(a[idx] for a in rec))
-            x, st = _ssm_layer_fwd(kind, lp, x, cfg, st, decode=True)
-            for dst, src in zip(rec, st):
-                dst[idx].copy_(src)
-    else:
-        conv_c, lru_h = state.rec
-        ai = ri = 0
-        for i in range(cfg.num_layers):
-            lp = param_layer(params, cfg, i)
-            if cfg.layer_kind(i) == "attn":
-                x = _attn_layer_decode(lp, x, state.kv_k[ai],
-                                       state.kv_v[ai], lens, cfg,
-                                       window=cfg.local_window)
-                ai += 1
-            else:
-                x, (cc, hh) = _rglru_layer_fwd(
-                    lp, x, cfg, (conv_c[ri], lru_h[ri]), decode=True)
-                conv_c[ri].copy_(cc)
-                lru_h[ri].copy_(hh)
-                ri += 1
+    x = decode_layers(plain_layers(params, cfg), cfg, state, x)
     logits = unembed(params, cfg, x[:, 0])
     return logits, DecodeState(state.kv_k, state.kv_v, lens + 1, state.rec)

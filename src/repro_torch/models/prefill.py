@@ -6,7 +6,9 @@ family, the mLSTM and sLSTM states) into a ``DecodeState`` — with
 ``decode_step`` it is the greedy oracle the serving tests hold the paged
 path against, and the admission step of the non-pooled (hybrid, ssm)
 serving path, which then moves the request's state into a batch slot
-with ``repack_ring`` (hybrid) and ``write_slot``.
+with ``repack_ring`` (hybrid) and ``write_slot``. Its layer loop,
+``prefill_layers``, also runs the state steps on weights placed over a
+mesh (``serving.sharded_step``).
 
 ``prefill_chunk_paged`` is the serving admission step: it streams one
 prompt chunk into the block pools — causal attention inside the chunk
@@ -52,13 +54,14 @@ from repro_torch.core.online_softmax import (combine, finalize,
 from repro_torch.kernels.ops import (paged_micro_attention,
                                      paged_prefill_attention)
 from repro_torch.models.attention import make_causal_core, qkv_project
-from repro_torch.models.common import apply_norm
+from repro_torch.models.common import apply_norm, torch_dtype
 from repro_torch.models.model import (POOLED_FAMILIES, DecodeState,
                                       _attn_layer_fwd, _rglru_layer_fwd,
-                                      _ssm_layer_fwd, _ssm_layers,
-                                      attn_layer_params, embed_tokens,
-                                      ffn_or_moe, init_decode_state,
-                                      param_layer, require_family, unembed)
+                                      _ssm_layer_fwd, attn_layer_params,
+                                      embed_tokens, ffn_or_moe, layer_kinds,
+                                      n_attn_layers, plain_layers,
+                                      require_family, ssm_groups, unembed)
+from repro_torch.models.xlstm import MLstmState, SLstmState
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -89,44 +92,84 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     dev = (tokens if embeds is None else embeds).device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
     x = embed_tokens(params, cfg, tokens, embeds, positions)
-    state = init_decode_state(cfg, B, max_len, device=dev)
-    lens = torch.full((B,), T, dtype=torch.int64, device=dev)
-    if cfg.family == "ssm":
-        for kind, idx, lp in _ssm_layers(params, cfg):
-            x, st = _ssm_layer_fwd(kind, lp, x, cfg)
-            for dst, src in zip(state.rec[kind], st):
-                dst[idx].copy_(src)
-        return unembed(params, cfg, x[:, -1]), state._replace(lens=lens)
-    ring = state.kv_k.shape[2]
+    core = make_causal_core(cfg, backend=backend, chunk=chunk,
+                            window=(cfg.local_window
+                                    if cfg.family == "hybrid" else 0))
+    x, state = prefill_layers(plain_layers(params, cfg), cfg, x,
+                              max_len=max_len, core=core,
+                              capacity_factor=capacity_factor)
+    return unembed(params, cfg, x[:, -1]), state
+
+
+def _stacked(states: dict, key: str, lead: Tuple[int, ...], parts,
+             device) -> list:
+    """The zeroed state tensors ``key``, one a ``(shape, dtype)`` of
+    ``parts``, of shape ``lead + shape``: made at the first layer that
+    asks for them (the shapes are that layer's, a process's share under
+    placed weights)."""
+    if key not in states:
+        states[key] = [torch.zeros(lead + tuple(shape), dtype=dt,
+                                   device=device) for shape, dt in parts]
+    return states[key]
+
+
+def prefill_layers(layer, cfg: ModelConfig, x: torch.Tensor, *,
+                   max_len: int, core, capacity_factor: float = -1.0,
+                   tp=None) -> Tuple[torch.Tensor, DecodeState]:
+    """``prefill``'s layer loop over the embedded prompt ``x`` [B, T, d]:
+    (x after the last layer, the DecodeState). ``layer(i)`` gives layer
+    ``i``'s parameters and their specs (or None; ``plain_layers``),
+    ``tp`` the TP axis of placed ones; the attention layers run
+    ``core``. Under placed weights the state holds this process's share:
+    the kv heads its query heads read, its RG-LRU columns, its mLSTM
+    heads."""
+    B, T = x.shape[:2]
+    dev = x.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+        B, T)
+    ring = max_len if cfg.family in POOLED_FAMILIES else \
+        min(max_len, cfg.local_window)
     n = min(T, ring)
     slots = torch.arange(T - n, T, device=dev) % ring
-    if cfg.family in POOLED_FAMILIES:
-        core = make_causal_core(cfg, backend=backend, chunk=chunk)
-        for i in range(cfg.num_layers):
-            x, (k, v), _ = _attn_layer_fwd(
-                attn_layer_params(params, cfg, i), x, positions, cfg, core,
-                capacity_factor=capacity_factor)
-            state.kv_k[i][:, slots] = k[:, T - n:]
-            state.kv_v[i][:, slots] = v[:, T - n:]
-    else:
-        wcore = make_causal_core(cfg, backend=backend, chunk=chunk,
-                                 window=cfg.local_window)
-        conv, h = state.rec
-        ai = ri = 0
-        for i in range(cfg.num_layers):
-            lp = param_layer(params, cfg, i)
-            if cfg.layer_kind(i) == "rglru":
-                x, (cc, hh) = _rglru_layer_fwd(lp, x, cfg)
-                conv[ri].copy_(cc)
-                h[ri].copy_(hh)
-                ri += 1
-            else:
-                x, (k, v), _ = _attn_layer_fwd(lp, x, positions, cfg, wcore)
-                state.kv_k[ai][:, slots] = k[:, T - n:]
-                state.kv_v[ai][:, slots] = v[:, T - n:]
-                ai += 1
-    logits = unembed(params, cfg, x[:, -1])
-    return logits, state._replace(lens=lens)
+    n_attn = n_attn_layers(cfg)
+    states: dict = {}
+    ai = ri = 0
+    for i, kind, idx in layer_kinds(cfg):
+        lp, ls = layer(i)
+        if kind == "attn":
+            x, (k, v), _ = _attn_layer_fwd(lp, x, positions, cfg, core,
+                                           capacity_factor=capacity_factor,
+                                           specs=ls, tp=tp)
+            rk, rv = _stacked(states, kind, (n_attn,),
+                              [((B, ring) + k.shape[2:], torch_dtype(cfg))]
+                              * 2, dev)
+            rk[ai][:, slots] = k[:, T - n:]
+            rv[ai][:, slots] = v[:, T - n:]
+            ai += 1
+        elif kind == "rglru":
+            x, st = _rglru_layer_fwd(lp, x, cfg, specs=ls, tp=tp)
+            n_rg = cfg.num_layers - n_attn
+            parts = [(t.shape, t.dtype) for t in st]
+            for dst, src in zip(_stacked(states, kind, (n_rg,), parts, dev),
+                                st):
+                dst[ri].copy_(src)
+            ri += 1
+        else:
+            x, st = _ssm_layer_fwd(kind, lp, x, cfg, specs=ls, tp=tp)
+            ng, se = ssm_groups(cfg)
+            lead = (ng, se - 1) if kind == "mlstm" else (ng,)
+            parts = [(t.shape, t.dtype) for t in st]
+            for dst, src in zip(_stacked(states, kind, lead, parts, dev),
+                                st):
+                dst[idx].copy_(src)
+    lens = torch.full((B,), T, dtype=torch.int64, device=dev)
+    if cfg.family == "ssm":
+        rec = {"mlstm": MLstmState(*states["mlstm"]),
+               "slstm": SLstmState(*states["slstm"])}
+        return x, DecodeState(None, None, lens, rec)
+    kv_k, kv_v = states.get("attn", (None, None))
+    rec = tuple(states["rglru"]) if cfg.family == "hybrid" else None
+    return x, DecodeState(kv_k, kv_v, lens, rec)
 
 
 # ===================================================================== #

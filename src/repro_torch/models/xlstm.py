@@ -276,8 +276,8 @@ def apply_slstm_block(p, x: torch.Tensor, cfg: ModelConfig,
     a, b = torch.chunk(y @ p["w_ff_i"], 2, dim=-1)
     # jax.nn.gelu defaults to the tanh approximation.
     u = F.gelu(a, approximate="tanh") * b
-    if tp_split(None if specs is None else specs["w_ff_o"], 0, tp):
+    split = tp_split(None if specs is None else specs["w_ff_o"], 0, tp)
+    if split:
         n = p["w_ff_o"].shape[0]                # this process's rows
-        return tp.sum(u[..., tp.index * n:(tp.index + 1) * n]
-                      @ p["w_ff_o"]), state
-    return u @ p["w_ff_o"], state
+        u = u[..., tp.index * n:(tp.index + 1) * n]
+    return row_parallel(u, p["w_ff_o"], split, tp), state

@@ -85,11 +85,12 @@ runs them over its mesh-sharded pool:
   process keeps the frame — the tier's keys, LRU order, watermarks,
   pins and checksums stay replicated like the rest of control (a GSPMD
   read is a global array too); a fetch writes on the owner only. The
-  cache's content hashes are chained from a root hash the processes
-  agree on at construction (Python salts a string's hash per process);
+  cache's content hashes chain from a fixed int root, so they are equal
+  in every process;
 * overload preemption: pause reads the chain the same way, resume writes
   on the owners; pause stamps and the resume gate read the step's
-  agreed clock;
+  agreed clock (``Cluster.step``'s reading, installed in the engines and
+  the preemptor);
 * a crash is logical: ``kill_instance`` marks the instance dead, its
   rank's slab stays addressable and no process exits; replay re-admits
   through the normal (collective) path;
@@ -107,8 +108,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.mesh import (agreed_clock, agreed_int,
-                                          check_replicated, mesh_group)
+from repro_torch.distributed.mesh import (agreed_clock, check_replicated,
+                                          mesh_group)
 from repro_torch.models.model import POOLED_FAMILIES, resolve_device
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import InstanceEngine
@@ -118,7 +119,7 @@ from repro_torch.serving.gmanager import GManager
 from repro_torch.serving.hosttier import HostKVTier
 from repro_torch.serving.kvpool import rows_for_token_range
 from repro_torch.serving.perfmodel import InstancePerfModel
-from repro_torch.serving.prefixcache import ROOT_HASH, RadixPrefixCache
+from repro_torch.serving.prefixcache import RadixPrefixCache
 from repro_torch.serving.preempt import Preemptor
 from repro_torch.serving.protocol import MoveKVCache, MoveLeg, MoveResult
 from repro_torch.serving.request import Request, RequestState
@@ -325,11 +326,8 @@ class Cluster:
                 backoff_base_s=fpol.retry_backoff_base_s,
                 backoff_max_s=fpol.retry_backoff_max_s)
         if config.prefix_cache:
-            root = (ROOT_HASH if self._group is None
-                    else agreed_int(self._group, ROOT_HASH))
             self.prefix_cache = RadixPrefixCache(weakref.proxy(self),
-                                                 host_tier=self.host_tier,
-                                                 root_hash=root)
+                                                 host_tier=self.host_tier)
             for eng in self.engines.values():
                 self._wire_cache(eng)
         perf = perf if perf is not None else InstancePerfModel(cfg)
@@ -348,6 +346,8 @@ class Cluster:
         self.preemptor: Optional[Preemptor] = None
         if config.overload.enabled:
             self.preemptor = Preemptor(weakref.proxy(self), config.overload)
+            if self._group is not None:
+                self.preemptor.clock = self._step_clock()
         self.requests: Dict[int, Request] = {}
         self._step_count = 0
         # Dead (quarantined) instances; the cache, the preemptor and the

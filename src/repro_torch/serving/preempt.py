@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.serving.config import OverloadPolicy
 from repro_torch.serving.faults import FrameCorruptionError, TransferError
@@ -114,12 +114,10 @@ class Preemptor:
         # capacity belongs to the queue and resuming would just get it
         # preempted again (thrash).
         self.queue_pressure: Optional[float] = None
-
-    def _now(self, now: Optional[float]) -> float:
-        """``now``, or the cluster's clock: the reading every process of
-        a mesh agrees on (pause stamps and the resume gate are
-        decisions)."""
-        return self.cluster.clock() if now is None else now
+        # The clock of pause stamps and the resume gate when no ``now``
+        # is given (under a mesh the cluster installs its step's agreed
+        # reading, as for its engines).
+        self.clock: Callable[[], float] = time.monotonic
 
     # --- pause --------------------------------------------------------- #
     def is_paused(self, req_id: int) -> bool:
@@ -151,7 +149,7 @@ class Preemptor:
         dropped exactly once (immediately here; the finished-event
         drain at step end sees ``is_hosting`` false and no-ops).
         Returns True when the request is now PAUSED."""
-        now = self._now(now)
+        now = self.clock() if now is None else now
         rid = req.req_id
         owner = self._owner_of(req)
         if (owner is None or req.state is not RequestState.RUNNING
@@ -254,7 +252,7 @@ class Preemptor:
         its own SLO after the detour. Returns the instance id whose
         slot was freed (so the caller can dispatch ``queued`` straight
         into it), or None when no victim is eligible."""
-        now = self._now(now)
+        now = self.clock() if now is None else now
         qu = queued.urgency(now)
         for slack, victim in self.rank_victims(now):
             if slack < self.policy.victim_min_slack_s:
@@ -322,7 +320,7 @@ class Preemptor:
         requests were resumed."""
         if not self.paused:
             return 0
-        now = self._now(now)
+        now = self.clock() if now is None else now
         made = 0
         order = sorted(self.paused.values(),
                        key=lambda rec: (-rec.req.urgency(now),

@@ -39,11 +39,6 @@ tests/test_torch_prefix_cache.py):
 Hash collisions: children are keyed by the literal token tuple, so a
 colliding 64-bit chain hash can never serve wrong KV — it could only
 alias two host-tier frames, which we accept at ~2^-64 odds.
-
-The chain hashes hash a tuple of ints under the root's hash, which is the
-same in every process given the same root: the cluster passes one root
-that every process of a mesh agrees on, so the node hashes — the host
-tier's keys — are replicated like the rest of control.
 """
 from __future__ import annotations
 
@@ -57,9 +52,10 @@ from repro_torch.serving.hosttier import HostKVTier, frame_bytes
 # Allocator owner id of frames held by the cache (never a real req_id).
 CACHE_OWNER = -2
 
-# The root's chain hash. A string's ``hash`` is salted per process, so
-# the processes of a mesh agree on one (``Cluster`` passes it in).
-ROOT_HASH = hash(("radix-root",))
+# A fixed int: the chain hashes (the host tier's keys) are then the same
+# in every process of a mesh (a string's ``hash`` is salted per process;
+# an int's and a tuple of ints' are not).
+_ROOT_HASH = 0x5AD1C5EED
 
 
 def _weakly(method):
@@ -118,18 +114,17 @@ class RadixPrefixCache:
     ``stats``), ``stager`` and ``block_size`` — the real ``Cluster`` (as
     a weak proxy: the cluster owns the cache) or a test stub. The host
     tier's callbacks hold the cache weakly, so cache and tier form no
-    reference cycle. ``root_hash`` seeds every chain hash.
+    reference cycle.
     """
 
-    def __init__(self, cluster, host_tier: Optional[HostKVTier] = None,
-                 root_hash: int = ROOT_HASH):
+    def __init__(self, cluster, host_tier: Optional[HostKVTier] = None):
         self.cluster = cluster
         self.bs = cluster.block_size
         self.tier = host_tier
         if host_tier is not None:
             host_tier.on_evict = _weakly(self._on_host_evict)
             host_tier.evictable_fn = _weakly(self._host_evictable)
-        self.root = RadixNode((), root_hash, None)
+        self.root = RadixNode((), _ROOT_HASH, None)
         self._nodes: Dict[int, RadixNode] = {}      # hash -> node
         self._pins: Dict[int, List[RadixNode]] = {}  # req_id -> path
         self._clock = 0
@@ -437,4 +432,4 @@ class RadixPrefixCache:
 
 
 __all__ = ["RadixPrefixCache", "RadixNode", "PrefixCacheStats",
-           "block_hash", "CACHE_OWNER", "ROOT_HASH"]
+           "block_hash", "CACHE_OWNER"]

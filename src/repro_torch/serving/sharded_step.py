@@ -111,8 +111,10 @@ attention layers as above (recurrentgemma's 16 query heads split over
 heads its query heads read), its RG-LRU layers with the recurrent width
 split over "model" (``models/rglru.py``: this process's columns of the
 conv carry and of ``h``); xLSTM's mLSTM layers with this process's
-heads and sLSTM layers replicated (``models/xlstm.py``). The returned
-``DecodeState`` holds this process's rows, columns and heads.
+heads and sLSTM layers replicated (``models/xlstm.py``). They run the
+layer loops of ``prefill`` and ``decode_step`` (``prefill_layers``,
+``decode_layers``) over the placed layers. The returned ``DecodeState``
+holds this process's rows, columns and heads.
 """
 from __future__ import annotations
 
@@ -123,7 +125,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.attention import full_attention_decode
 from repro_torch.core.online_softmax import (combine, finalize,
                                              merge_partials,
                                              merge_partials_collective,
@@ -133,15 +134,17 @@ from repro_torch.distributed.mesh import pool_shards
 from repro_torch.distributed.placement import PlacedParams, all_gather_cat
 from repro_torch.kernels.ops import (paged_micro_attention_ranks,
                                      paged_prefill_attention_ranks)
-from repro_torch.models.attention import make_causal_core, qkv_project
+from repro_torch.models.attention import (expand_kv, heads_out, kv_range,
+                                          make_causal_core, qkv_project,
+                                          split_heads)
 from repro_torch.models.common import apply_norm, torch_dtype, tp_split
 from repro_torch.models.model import (POOLED_FAMILIES, DecodeState,
-                                      _rglru_layer_fwd, _ssm_layer_fwd,
-                                      attn_layer_params, cache_write,
-                                      embed_tokens, ffn_or_moe, layer_path,
-                                      param_layer, params_device,
-                                      require_family, ssm_groups, unembed)
-from repro_torch.models.prefill import _as_int32, _host, _write_plan
+                                      attn_layer_params, decode_layers,
+                                      embed_tokens, ffn_or_moe, param_layer,
+                                      params_device,
+                                      require_family, unembed)
+from repro_torch.models.prefill import (_as_int32, _host, _write_plan,
+                                        prefill_layers)
 from repro_torch.models.xlstm import MLstmState, SLstmState, mlstm_dims
 
 
@@ -443,49 +446,6 @@ def _ffn(lp, ls, h, cfg: ModelConfig, capacity_factor: float,
     return ffn_or_moe(lp, h, cfg, capacity_factor, specs=ls, tp=tp)
 
 
-def _heads(t: torch.Tensor, split: bool, n_total: int, lo: int, n: int,
-           tp) -> torch.Tensor:
-    """Heads ``[lo, lo + n)`` of a projection ``t [..., heads, hd]``: of
-    all ``n_total`` heads, or — its weight's columns split over the TP
-    axis — of this process's own ``n_total / tp.count`` (gathered over
-    the axis when others' are asked for)."""
-    if not split:
-        return t[..., lo:lo + n, :]
-    own = t.shape[-2]
-    if own * tp.count != n_total:
-        raise NotImplementedError(f"{n_total} heads split over a TP axis of "
-                                  f"{tp.count} cut inside a head")
-    if (lo, n) == (tp.index * own, own):
-        return t
-    return tp.cat(t, -2)[..., lo:lo + n, :]
-
-
-def _kv_range(cfg: ModelConfig, h0: int, n: int):
-    """(lo, hi, idx): the kv heads ``[lo, hi)`` query heads ``[h0, h0 +
-    n)`` read under GQA, and None when each of them serves an equal run
-    of those query heads (the attention's own grouping), else the index
-    that expands them to one a query head."""
-    G = cfg.num_heads // cfg.num_kv_heads
-    lo, hi = h0 // G, -(-(h0 + n) // G)
-    idx = torch.arange(h0, h0 + n) // G - lo
-    m = hi - lo
-    if n % m == 0 and torch.equal(idx, torch.arange(m).repeat_interleave(
-            n // m)):
-        return lo, hi, None
-    return lo, hi, idx
-
-
-def _kv_for_heads(k: torch.Tensor, split: bool, cfg: ModelConfig, h0: int,
-                  n: int, tp) -> torch.Tensor:
-    """The kv heads query heads ``[h0, h0 + n)`` attend to under GQA, as
-    a tensor whose own grouping (``n / its heads``) matches them: the
-    range they read (an MQA layer's one head for any ``n``), expanded
-    only where the grouping is not uniform."""
-    lo, hi, idx = _kv_range(cfg, h0, n)
-    kv = _heads(k, split, cfg.num_kv_heads, lo, hi - lo, tp)
-    return kv if idx is None else kv[..., idx.to(k.device), :]
-
-
 class _Weights:
     """A step's parameters: the plain tree (every weight whole in every
     process), or a ``PlacedParams`` over the step's mesh, whose leaves
@@ -537,24 +497,6 @@ class _Weights:
             return param_layer(self.params, self.cfg, i), None
         return self.placed.layer(self.cfg, i)
 
-    def q_heads(self) -> Tuple[int, int]:
-        """(h0, n): the query heads ``[h0, h0 + n)`` this process makes in
-        the attention layers (its own with ``wq`` split over the TP axis,
-        else all)."""
-        H = self.cfg.num_heads
-        i = next((i for i in range(self.cfg.num_layers)
-                  if self.cfg.layer_kind(i) == "attn"), None)
-        if self.placed is None or self.tp is None or i is None:
-            return 0, H
-        keys, idx = layer_path(self.cfg, i)
-        spec = self.placed.specs
-        for k in keys + ("attn", "wq"):
-            spec = spec[k]
-        if not tp_split(tuple(spec)[len(idx):], 1, self.tp):
-            return 0, H
-        n = H // self.tp.count
-        return self.tp.index * n, n
-
     def split(self, ls, name: str, dim: int) -> bool:
         return ls is not None and tp_split(ls["attn"][name], dim, self.tp)
 
@@ -563,10 +505,10 @@ class _Weights:
         of a layer's projections, whichever of them this process made."""
         cfg = self.cfg
         sk = self.split(ls, "wk", 1)
-        return (_heads(q, self.split(ls, "wq", 1), cfg.num_heads, h0, H_loc,
-                       self.tp),
-                _heads(k, sk, cfg.num_kv_heads, k0, K_loc, self.tp),
-                _heads(v, sk, cfg.num_kv_heads, k0, K_loc, self.tp))
+        return (split_heads(q, self.split(ls, "wq", 1), cfg.num_heads, h0,
+                            H_loc, self.tp),
+                split_heads(k, sk, cfg.num_kv_heads, k0, K_loc, self.tp),
+                split_heads(v, sk, cfg.num_kv_heads, k0, K_loc, self.tp))
 
     def attn_out(self, lp, ls, out, h0: int, heads_group, dtype):
         """The output projection of attention heads ``out [..., n, hd]``
@@ -574,14 +516,10 @@ class _Weights:
         axis, this process's own heads by its rows, summed over the axis;
         else every head (gathered over ``heads_group``) by the whole
         ``wo``."""
-        wo = lp["attn"]["wo"]
-        if self.split(ls, "wo", 0):
-            own = wo.shape[0] // self.cfg.head_dim
-            lo = self.tp.index * own - h0
-            part = out[..., lo:lo + own, :].flatten(-2).to(dtype) @ wo
-            return self.tp.sum(part)
-        out = all_gather_cat(out, heads_group, dim=out.dim() - 2)
-        return out.flatten(-2).to(dtype) @ wo
+        if not self.split(ls, "wo", 0):
+            out = all_gather_cat(out, heads_group, dim=out.dim() - 2)
+        return heads_out(lp["attn"], out, h0, self.cfg, dtype,
+                         None if ls is None else ls["attn"], self.tp)
 
 
 def _check_pool(pool_k, pool_v, pl: _Placement, L: int, K: int, hd: int):
@@ -806,11 +744,12 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
         # Attention over the heads this process made: its own with q
         # split over the TP axis (and the kv heads they read), else all.
         h0, n = (W.tp.index * q.shape[2], q.shape[2]) if sq else (0, H)
-        out = core(q, _kv_for_heads(k, sk, cfg, h0, n, W.tp),
-                   _kv_for_heads(v, sk, cfg, h0, n, W.tp))
+        lo, hi, idx = kv_range(cfg, h0, n)
+        out = core(q, *(expand_kv(split_heads(t, sk, K, lo, hi - lo, W.tp),
+                                  idx) for t in (k, v)))
         x = x + W.attn_out(lp, ls, out, h0, None, x.dtype)
-        write(pool_k[i], _heads(k, sk, K, pl.k0, pl.K_loc, W.tp))
-        write(pool_v[i], _heads(v, sk, K, pl.k0, pl.K_loc, W.tp))
+        write(pool_k[i], split_heads(k, sk, K, pl.k0, pl.K_loc, W.tp))
+        write(pool_v[i], split_heads(v, sk, K, pl.k0, pl.K_loc, W.tp))
         h = apply_norm(lp["ln2"], x, cfg)
         x = x + _ffn(lp, ls, h, cfg, capacity_factor, pl, W.tp)
     logits = W.unembed(x[:, -1])
@@ -824,136 +763,6 @@ def _own_inputs(tokens, embeds, own: slice, device):
         return None, torch.as_tensor(embeds)[own].to(device)
     tok = _host(tokens).astype(np.int64)[own]
     return torch.from_numpy(np.ascontiguousarray(tok)).to(device), None
-
-
-def _state_attn_prefill(W, lp, ls, x, positions, core, cfg, h0, n):
-    """A hybrid attention layer over a prompt on this process's query
-    heads: (x, the k/v of the kv heads they read, for the ring)."""
-    h = apply_norm(lp["ln1"], x, cfg)
-    q, k, v = qkv_project(lp["attn"], h, positions, cfg)
-    sk = W.split(ls, "wk", 1)
-    out = core(q, _kv_for_heads(k, sk, cfg, h0, n, W.tp),
-               _kv_for_heads(v, sk, cfg, h0, n, W.tp))
-    x = x + W.attn_out(lp, ls, out, h0, None, x.dtype)
-    h = apply_norm(lp["ln2"], x, cfg)
-    lo, hi, _ = _kv_range(cfg, h0, n)
-    K = cfg.num_kv_heads
-    return (x + ffn_or_moe(lp, h, cfg, -1.0, specs=ls, tp=W.tp),
-            _heads(k, sk, K, lo, hi - lo, W.tp),
-            _heads(v, sk, K, lo, hi - lo, W.tp))
-
-
-def _state_attn_decode(W, lp, ls, x, ck, cv, lens, cfg, h0, n):
-    """A hybrid attention layer's decode step on this process's query
-    heads over its window ring ``ck``/``cv`` [B, ring, K_loc, hd] (the kv
-    heads they read; written IN PLACE)."""
-    h = apply_norm(lp["ln1"], x, cfg)
-    q, k, v = qkv_project(lp["attn"], h, lens[:, None], cfg)
-    sk = W.split(ls, "wk", 1)
-    lo, hi, idx = _kv_range(cfg, h0, n)
-    K = cfg.num_kv_heads
-    mask = cache_write(ck, cv, _heads(k, sk, K, lo, hi - lo, W.tp)[:, 0],
-                       _heads(v, sk, K, lo, hi - lo, W.tp)[:, 0], lens,
-                       window=cfg.local_window)
-    if idx is not None:
-        ck, cv = ck[..., idx.to(ck.device), :], cv[..., idx.to(cv.device), :]
-    out = full_attention_decode(q[:, 0], ck, cv, mask)      # [B, n, hd]
-    x = x + W.attn_out(lp, ls, out[:, None], h0, None, x.dtype)
-    h = apply_norm(lp["ln2"], x, cfg)
-    return x + ffn_or_moe(lp, h, cfg, -1.0, specs=ls, tp=W.tp)
-
-
-def _state_layers(cfg: ModelConfig):
-    """The built layers of a hybrid or ssm model in order, ``(i, kind,
-    idx)``: ``idx`` indexes the layer's recurrent state (ssm: (group, j)
-    of an mLSTM layer, (group,) of an sLSTM one)."""
-    if cfg.family == "ssm":
-        ng, se = ssm_groups(cfg)
-        for i in range(ng * se):
-            keys, idx = layer_path(cfg, i)
-            yield i, keys[-1], idx
-        return
-    for i in range(cfg.num_layers):
-        yield i, cfg.layer_kind(i), None
-
-
-def _state_prefill(W, cfg: ModelConfig, x, max_len: int) -> Tuple:
-    """The hybrid/ssm prefill's layer loop on this process's rows ``x``
-    [B, T, d] (``prefill``'s, on placed or whole weights): (x, the
-    DecodeState of these rows, heads and columns)."""
-    B, T = x.shape[:2]
-    dev = x.device
-    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
-        B, T)
-    h0, n = W.q_heads()
-    core = make_causal_core(cfg, backend="flash", window=cfg.local_window)
-    kvs, rec = [], {"rglru": [], "mlstm": {}, "slstm": {}}
-    ring = min(max_len, cfg.local_window)
-    keep = min(T, ring)
-    slots = torch.arange(T - keep, T, device=dev) % ring
-    for i, kind, idx in _state_layers(cfg):
-        lp, ls = W.layer(i)
-        if kind == "attn":
-            x, k, v = _state_attn_prefill(W, lp, ls, x, positions, core,
-                                          cfg, h0, n)
-            ring_kv = []
-            for t in (k, v):
-                r = torch.zeros((B, ring) + t.shape[2:], dtype=t.dtype,
-                                device=dev)
-                r[:, slots] = t[:, T - keep:]
-                ring_kv.append(r)
-            kvs.append(ring_kv)
-        elif kind == "rglru":
-            x, st = _rglru_layer_fwd(lp, x, cfg, specs=ls, tp=W.tp)
-            rec["rglru"].append(st)
-        else:
-            x, st = _ssm_layer_fwd(kind, lp, x, cfg, specs=ls, tp=W.tp)
-            rec[kind][idx] = st
-    lens = torch.full((B,), T, dtype=torch.int64, device=dev)
-    if cfg.family == "ssm":
-        ng, se = ssm_groups(cfg)
-        ml = [rec["mlstm"][g, j] for g in range(ng) for j in range(se - 1)]
-        sl = [rec["slstm"][(g,)] for g in range(ng)]
-        mst = MLstmState(*(torch.stack(a).reshape((ng, se - 1) + a[0].shape)
-                           for a in zip(*ml)))
-        sst = SLstmState(*(torch.stack(a) for a in zip(*sl)))
-        return x, DecodeState(None, None, lens, {"mlstm": mst,
-                                                 "slstm": sst})
-    conv, hs = zip(*rec["rglru"])
-    return x, DecodeState(torch.stack([k for k, _ in kvs]),
-                          torch.stack([v for _, v in kvs]), lens,
-                          (torch.stack(conv), torch.stack(hs)))
-
-
-def _state_decode(W, cfg: ModelConfig, state: DecodeState, x):
-    """The hybrid/ssm decode step's layer loop on this process's rows
-    (``decode_step``'s, on placed or whole weights); the state tensors
-    are updated IN PLACE."""
-    lens = state.lens
-    h0, n = W.q_heads()
-    ai = ri = 0
-    for i, kind, idx in _state_layers(cfg):
-        lp, ls = W.layer(i)
-        if kind == "attn":
-            x = _state_attn_decode(W, lp, ls, x, state.kv_k[ai],
-                                   state.kv_v[ai], lens, cfg, h0, n)
-            ai += 1
-        elif kind == "rglru":
-            conv_c, lru_h = state.rec
-            x, (cc, hh) = _rglru_layer_fwd(
-                lp, x, cfg, (conv_c[ri], lru_h[ri]), decode=True, specs=ls,
-                tp=W.tp)
-            conv_c[ri].copy_(cc)
-            lru_h[ri].copy_(hh)
-            ri += 1
-        else:
-            rec = state.rec[kind]
-            st = type(rec)(*(a[idx] for a in rec))
-            x, st = _ssm_layer_fwd(kind, lp, x, cfg, st, decode=True,
-                                   specs=ls, tp=W.tp)
-            for dst, src in zip(rec, st):
-                dst[idx].copy_(src)
-    return x
 
 
 def _check_state_family(cfg: ModelConfig) -> None:
@@ -987,8 +796,9 @@ def serve_prefill_step_state(params, cfg: ModelConfig, layout: ServeLayout,
     toks, emb = _own_inputs(tokens, embeds, own, dev)
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
         own.stop - own.start, T)
-    x, state = _state_prefill(W, cfg, W.embed(toks, positions, emb),
-                              max_len)
+    core = make_causal_core(cfg, backend="flash", window=cfg.local_window)
+    x, state = prefill_layers(W.layer, cfg, W.embed(toks, positions, emb),
+                              max_len=max_len, core=core, tp=W.tp)
     logits = W.unembed(x[:, -1])
     if return_logits:
         return logits, state
@@ -1012,7 +822,7 @@ def serve_decode_step_state(params, cfg: ModelConfig, layout: ServeLayout,
     toks = torch.from_numpy(np.ascontiguousarray(tok[own])).to(dev)
     lens = state.lens
     x = W.embed(toks[:, None], lens[:, None])
-    x = _state_decode(W, cfg, state, x)
+    x = decode_layers(W.layer, cfg, state, x, tp=W.tp)
     logits = W.unembed(x[:, 0])
     if not return_logits:
         logits = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -643,13 +643,9 @@ def test_mesh_extensions_match_the_single_process_cluster(run, arch, case):
     single, oracle = refs[arch]["ext"]
     want = single[case]
     for r in range(2):
-        # The root hash is the first process's salted one (the keys
-        # chained from it too): held equal across processes below.
-        got = {k: v for k, v in res[2][r][arch]["ext"][case].items()
-               if k not in ("root", "host_keys")}
-        assert got == {k: v for k, v in want.items()
-                       if k not in ("root", "host_keys")}, (r, {
-            k: (got[k], want.get(k)) for k in got if got[k] != want.get(k)})
+        got = res[2][r][arch]["ext"][case]
+        assert got == want, (r, {k: (got[k], want.get(k)) for k in got
+                                 if got[k] != want.get(k)})
     # Every request finished with the oracle's stream (a replayed or
     # resumed one included), nothing reallocated a slab, no leak.
     assert want["states"] == ["FINISHED"] * len(want["outs"])
@@ -671,14 +667,17 @@ def test_mesh_extensions_match_the_single_process_cluster(run, arch, case):
 
 
 def test_mesh_agrees_on_the_prefix_cache_root_hash(run):
-    """Python salts a string's hash per process: without an agreed root
-    the chain hashes (the host tier's keys) would differ between the
-    processes of a mesh."""
-    _, res = run
+    """Python salts a string's hash per process: the root's hash is a
+    fixed int, so the chain hashes (the host tier's keys) are the same
+    in every process of a mesh and in a single process."""
+    refs, res = run
     for arch in EXT_ARCHS:
-        got = [res[2][r][arch]["ext"]["host_tier"] for r in range(2)]
-        assert got[0]["root"] == got[1]["root"]
-        assert got[0]["host_keys"] == got[1]["host_keys"]
+        want = refs[arch]["ext"][0]["host_tier"]
+        assert want["host_keys"]
+        for r in range(2):
+            got = res[2][r][arch]["ext"]["host_tier"]
+            assert got["root"] == want["root"]
+            assert got["host_keys"] == want["host_keys"]
 
 
 @pytest.mark.parametrize("what", ["paused", "dead", "host_keys"])

@@ -8,7 +8,10 @@ more with forced FSDP; then processes 0 and 1 re-initialize as W = 2 on
 16 query heads over one kv head (the full config's MQA: ``wq``/``wo``
 split over "model", ``wk``/``wv`` whole; JAX's multi-group hybrid
 prefill orders RG-LRU states wrongly, ROADMAP Queue 3), and xlstm with
-one group of 7 mLSTM layers and an sLSTM. Each process places the same
+one group of 7 mLSTM layers and an sLSTM; past one group, xlstm with two
+groups and recurrentgemma at 8 layers (two groups and two unstacked
+leftover layers), the latter's logits held to JAX's full-sequence
+``forward`` fed the same tokens. Each process places the same
 bridged tree by ``param_specs``, runs ``serve_prefill_step_state`` (a
 40-token prompt past the 32-token window) and three
 ``serve_decode_step_state`` steps, and reports its rows' logits, the
@@ -17,7 +20,8 @@ gathered tokens (``gather_batch``) and the gathered state
 replicated port step's and to JAX's ``serve_*_step_state`` (run here
 under a (1, 1) mesh with Auto axes), logits and states within 1e-5 of
 the largest value (1e-4 for xLSTM's whole model, as
-``tests/test_torch_xlstm.py`` holds it); each process holds only its
+``tests/test_torch_xlstm.py`` holds it; 2e-4 at two groups, ``TOL``);
+each process holds only its
 RG-LRU columns and its mLSTM heads; ``seeded_params`` of both families
 gives the same values on a mesh as without one.
 
@@ -37,8 +41,14 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.serving import sharded_step as pss
 from test_torch_collectives import Spawned
 
-TOL = {"hybrid": 1e-5, "xlstm": 1e-4}
-ARCHS = {"hybrid": "recurrentgemma-9b", "xlstm": "xlstm-350m"}
+# Relative to the largest value. xLSTM's whole model as
+# ``tests/test_torch_xlstm.py`` holds it at one group; at two, its sLSTM
+# cell state (an unbounded accumulator) reaches 1.4e-4 against JAX in
+# float32, whichever way the weights are placed.
+TOL = {"hybrid": 1e-5, "xlstm": 1e-4, "hybrid8": 1e-5, "xlstm2": 2e-4}
+ARCHS = {"hybrid": "recurrentgemma-9b", "xlstm": "xlstm-350m",
+         "hybrid8": "recurrentgemma-9b", "xlstm2": "xlstm-350m"}
+LAYERS = {"hybrid8": 8, "xlstm2": 16}   # default: one group
 # world -> (mesh shape over ("data", "model"), forced FSDP)
 MESHES = {4: (((1, 4), False), ((2, 2), False), ((2, 2), True)),
           2: (((1, 2), False),)}
@@ -46,8 +56,9 @@ B, T, MAX_LEN, STEPS = 2, 40, 40, 3
 
 
 def _cfg(name, get=get_smoke_config):
-    cfg = dataclasses.replace(get(ARCHS[name]), dtype="float32")
-    if name == "hybrid":
+    cfg = dataclasses.replace(get(ARCHS[name], layers=LAYERS.get(name)),
+                              dtype="float32")
+    if cfg.family == "hybrid":
         cfg = dataclasses.replace(cfg, num_heads=16, head_dim=8)
     return cfg
 
@@ -166,17 +177,29 @@ def _worker(rank, store, payload, queue):
 # ------------------------------------------------------------------ #
 def _jax_run(name, tree, toks, steps):
     """JAX's state steps under a (1, 1) Auto mesh, fed the given tokens:
-    (every step's logits, the states after the prefill and at the end)."""
+    (every step's logits, the states after the prefill and at the end).
+    For the multi-group hybrid, whose JAX prefill misorders the states:
+    the logits of its full-sequence ``forward`` over the prompt and the
+    fed tokens, at the prompt's last position and each fed one (no
+    states)."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_smoke_config as jax_smoke
-    from repro.models.model import decode_step
+    from repro.models.model import decode_step, forward
     from repro.models.prefill import prefill
     from repro.serving import sharded_step as jss
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     jcfg = _cfg(name, jax_smoke)
     jp = jax.tree.map(jnp.asarray, tree)
+    if name == "hybrid8":
+        seq = np.concatenate([toks] + [t[:, None] for t in steps], 1)
+        lg, _ = jax.jit(lambda p, t: forward(p, jcfg, t))(
+            jp, seq.astype(np.int32))
+        lg = np.asarray(lg)[:, T - 1:]
+        return {"first": lg[:, 0].argmax(-1),
+                "logits": [lg[:, j] for j in range(lg.shape[1])],
+                "states": None}
     layout = jss.ServeLayout(batch_axes=("data",), pool_axes=("data",))
     with mesh:
         lg, st = jax.jit(lambda p, t: prefill(p, jcfg, t, max_len=MAX_LEN))(
@@ -247,7 +270,7 @@ def test_placed_state_steps_match_replicated_and_jax(runs, world, shape,
     np.testing.assert_array_equal(rep["tokens"][0], jref["first"])
     for got, want in zip(rep["logits"], jref["logits"]):
         _close(got, want, tol)
-    for got, want in zip(rep["states"], jref["states"]):
+    for got, want in zip(rep["states"], jref["states"] or ()):
         for g, w in zip(got, want):
             _close(g, w, tol)
     tp = shape[1]
@@ -259,16 +282,17 @@ def test_placed_state_steps_match_replicated_and_jax(runs, world, shape,
         for g, w, j in zip(got["logits"], rep["logits"], jref["logits"]):
             _close(g, w[rows], tol)
             _close(g, j[rows], tol)
-        for gs, ws, js in zip(got["states"], rep["states"], jref["states"]):
-            for g, w, j in zip(gs, ws, js):
+        for i, (gs, ws) in enumerate(zip(got["states"], rep["states"])):
+            for k, (g, w) in enumerate(zip(gs, ws)):
                 _close(g, w, tol)
-                _close(g, j, tol)
+                if jref["states"] is not None:
+                    _close(g, jref["states"][i][k], tol)
         # Each process holds its rows and its share of the recurrent
         # width (hybrid) or of the mLSTM heads (ssm).
         local, whole = got["local"], [x.shape for x in rep["states"][-1]]
         n_rows = rows.stop - rows.start
         assert local[0] == (n_rows,)
-        if name == "hybrid":
+        if cfg.family == "hybrid":
             w = cfg.lru_width
             assert local[-1] == (whole[-1][0], n_rows, w // tp)
             assert local[-2][-1] == w // tp
