@@ -41,7 +41,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    chunk (C = 1) over a 3,007-token prefix whose last block holds bs - 1
    rows, single-rank (timed) and in rank form (NR 3, one rank empty), and
    a warm admission's 128-token tail over a 768-token prefix ending at a
-   block boundary.
+   block boundary. The paged kernels at the four configs' head shapes
+   (starcoder2-15b GQA 48/4 x 128, G 12; musicgen-medium MHA 24 x 64;
+   chameleon-34b GQA 64/8 x 128): decode R = 4 over 64-slot tables and
+   a 512-query chunk over a 2,400-token prefix, timed.
 2. Serving, qwen3-0.6b. ``LLMServer`` serves it at full width (28
    layers, bf16, seeded random weights) with three instances on the
    card; the longest prompt stripes its prefix across two creditors at
@@ -100,7 +103,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    leaks.
    Then the global pool sharded over processes (the mesh phase): the
    same three prompts on four instances in global-pool mode (qwen3 at
-   14 of its 28 layers: the groups' gloo steps are host-bound), served by
+   7 of its 28 layers, ``MESH_SERVE_LAYERS``: the groups' gloo steps are
+   host-bound), served by
    ``LLMServer(..., mesh=, layout=)`` in W = 2 processes on a (2, 1)
    mesh (``pool_axes=("data",)``: two ranks a process) and in W = 4 on
    a (2, 2) mesh (``("data", "model")``: one rank each), spawned on the
@@ -128,7 +132,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    draws qwen3-0.6b (bf16, 28 layers) with ``seeded_params`` placed by
    ``validate_divisibility(param_specs(...))`` over (1, 2) at W = 2,
    (1, 4) and (2, 2) at W = 4, and must hold exactly the bytes the spec
-   tree gives; a ``serve_prefill_step`` of B = 2 x S = 4,096, then 8
+   tree gives; a ``serve_prefill_step`` of B = 2 x S = 2,048, then 4
    decode steps of each schedule on the placed weights and on the whole
    tree, interleaved (TBT side by side; 28 decode rank launches a step,
    28 flash launches a prefill); at W = 2 also qwen2-moe-a2.7b placed
@@ -139,8 +143,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    1e-5 relative of the whole tree's, the streams equal in every
    process, to the whole tree's and to the single-process steps' here.
    It also reports whether gloo takes bf16 CUDA tensors. Each group
-   then runs the state steps on placed weights: recurrentgemma-9b (11
-   of 38 layers: three groups and two leftover layers; bf16, B = 2 x S
+   then runs the state steps on placed weights: recurrentgemma-9b (5
+   of 38 layers: one group and two leftover layers; bf16, B = 2 x S
    = 4,096, past its 2,048-token window) and xlstm-350m (24 layers, B =
    2 x S = 256)
    drawn with
@@ -148,7 +152,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    holding exactly the spec tree's bytes: ``serve_prefill_step_state``
    (the hybrid's first flash launch held to its plain version, one
    flash launch per local-attention layer, on 16 / tp query heads over
-   the one kv head) and 8 ``serve_decode_step_state`` steps, every
+   the one kv head) and 4 ``serve_decode_step_state`` steps, every
    process's streams equal; the same steps on the whole tree in this
    process give the bf16 share of equal tokens. Float32 parity past one
    group (recurrentgemma 8 layers: two groups and two leftover layers;
@@ -205,7 +209,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    flash prefill at (a)'s shape (B = 2, S = 32,768, GQA 16/8 x 128,
    causal; its plain version one (batch, head) slice at a time).
 3. Serving, recurrentgemma-9b. ``LLMServer`` serves the hybrid model at
-   full width (20 of its 38 layers: 14 RG-LRU, 6 local-attention,
+   full width (14 of its 38 layers: 10 RG-LRU, 4 local-attention,
    ``HYBRID_SERVE_LAYERS``; bf16, seeded
    random weights) with two non-pooled instances: prompts of 6,000,
    3,000, 1,000 and 400 tokens, two of them longer than the 2,048-token
@@ -216,7 +220,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    busy share and the kernels with the most device time. Each traced
    window also reports the device time of the port's own kernels.
 4. Serving, qwen2-moe-a2.7b. ``LLMServer`` serves the MoE model at full
-   width (24 layers, 60 routed experts top-4 plus 4 shared; bf16, seeded
+   width (12 of its 24 layers, ``MOE_SERVE_LAYERS``; 60 routed experts
+   top-4 plus 4 shared; bf16, seeded
    random weights) in global-pool mode with the qwen3 phase's config and
    prompts, under the global phase's checks; then a traced window with a
    late 512-token admission.
@@ -231,8 +236,30 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    device's busy share; then a ``FaultPlan`` crash of the busiest
    instance: its requests replay on the survivor and every request
    finishes.
-6. Parity, float32. qwen3-0.6b: a creditor-spanning request served
-   through ``LLMServer``, in both pool modes; qwen2-moe-a2.7b at full
+6. The four remaining configs (mistral-nemo-12b, starcoder2-15b,
+   chameleon-34b, musicgen-medium) at full width and depth, bf16,
+   weights from ``seeded_params`` (one layer of a leaf drawn at a time:
+   chameleon's 68.59 GB sit beside a 1.51 GB pool), each served through
+   ``LLMServer`` with the qwen3 phase's config: prompts of 2,500, 600
+   and 300 tokens (the longest spans creditors), 16 new tokens. Every
+   request must finish, both paged kernels launch, no plain version
+   runs. Reports TTFT, TBT, peak memory and the weight bytes. Then each
+   at float32 and 4 layers: a 1,500-token creditor-spanning request
+   greedy-equal to the dense oracle, its logits within PARITY_RTOL.
+   The launch cells: musicgen's and chameleon's prefill_32k cells from
+   ``launch.inputs.build_cell`` on a one-process mesh, one
+   ``serve_prefill_step`` each on their served weights and seeded
+   embeddings (the ``embeds=`` path of the vlm and audio cells), cut to
+   one card: musicgen B = 2 of 32 at S = 32,768, chameleon B = 1 at the
+   longest S that fits beside its weights. One flash launch a layer, no
+   plain call, layer 0's pool rows where the layout puts them; reports
+   the step's seconds against the ideal (``launch.roofline``). The flash
+   kernel is then held (bf16 and float32) at each cell's shape. Last,
+   ``python -m repro_torch.launch.dryrun --all --both-meshes`` in a
+   subprocess plans all 80 cells and must exit 0.
+7. Parity, float32. qwen3-0.6b (14 of 28 layers, ``QWEN3_EXT_LAYERS``):
+   a creditor-spanning request served through ``LLMServer``, in both
+   pool modes; qwen2-moe-a2.7b at full
    width and 4 layers in global-pool mode, the prompt striped over both
    creditors; recurrentgemma-9b at full width and 5 layers
    (one (rglru, rglru, attn) group plus two leftover RG-LRU layers): a
@@ -250,13 +277,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    after its pause when a ``host_corrupt`` event spoils its first
    preempt-tier frame (the resume falls back to replay): every logit,
    the re-prefill's too, is held to the oracle's logit for the output
-   index it predicts. xlstm-350m at full width: a 1,024-token prompt
+   index it predicts. xlstm-350m at full width and 16 of its 24 layers
+   (two groups): a 1,024-token prompt
    through ``LLMServer`` against the port's own ``prefill`` +
    ``decode_step``.
-7. Training (no kernel of the port may run: training uses the plain
+8. Training (no kernel of the port may run: training uses the plain
    attention core, as JAX does). qwen3-0.6b at full width and depth
    (28 layers, bf16, remat) through the port's trainer
-   (``launch.train.run``) at S = 4,096 and B = 4 for 6 steps, and
+   (``launch.train.run``) at S = 4,096 and B = 2 for 6 steps, and
    qwen2-moe-a2.7b at full width and 4 of 24 layers with
    ``ep_groups=4`` at S = 2,048 and B = 4 for 5 steps: every loss and
    gradient norm finite; reports the median step time (the first two
@@ -341,9 +369,10 @@ TRAIN_ULPS = 4
 # gradient norm (relative): the gather backward's adds are unordered.
 RESTART_RTOL = 1e-3
 # Training phases: qwen3-0.6b at full width and depth at train_4k's
-# sequence length; qwen2-moe-a2.7b at full width, 4 of 24 layers (full
-# depth needs about 14.3e9 x 12 B of weights, gradients and moments).
-TRAIN_DENSE = {"steps": 6, "seq": 4096, "batch": 4}
+# sequence length, its batch of 256 cut to 2 (time); qwen2-moe-a2.7b at
+# full width, 4 of 24 layers (full depth needs about 14.3e9 x 12 B of
+# weights, gradients and moments).
+TRAIN_DENSE = {"steps": 6, "seq": 4096, "batch": 2}
 TRAIN_MOE = {"steps": 5, "seq": 2048, "batch": 4, "layers": 4,
              "ep_groups": 4}
 # float32 card-vs-CPU steps: (arch, layers, TrainConfig fields, batch
@@ -918,6 +947,18 @@ def kernel_phase(device, chunk: int):
                               nblks=[120, 0, 68], tail_rows=15))
         rows.append(prefill_case(f"prefill-warm-c128-{dt}", 128, 16, 8, 128,
                                  16, 48, dt, device, tail=16))
+        # The four configs' shapes: decode at the configs phase's batch
+        # and table width (R = 4, 64 slots), a 512-query chunk over a
+        # 2,400-token prefix (the 2,500-token prompt's last chunks).
+        for arch, H, K, D in CONFIG_HEADS:
+            r = decode_case(f"decode-{arch}-{dt}", 4, H, K, D, 16, 61, dt,
+                            device, timed=True)
+            rows.append(r)
+            main.setdefault(f"decode_{arch}", r)
+            r = prefill_case(f"prefill-{arch}-{dt}", chunk, H, K, D, 16, 150,
+                             dt, device, timed=True)
+            rows.append(r)
+            main.setdefault(f"prefill_{arch}", r)
         # Flash prefill: (a) the recurrentgemma-9b admission of the
         # hybrid serving phase, (b) qwen3-0.6b's dense-prefill shape.
         r = flash_case(f"flash-main-{dt}", 1, 6000, 16, 1, 256, 2048, dt,
@@ -2779,13 +2820,14 @@ def train_restart_phase(device, *, layers=2, seq=512, batch=2, steps=6,
 # collective), W = 4 one.
 MESH_LAYOUTS = {2: ((2, 1), ("data",)), 4: ((2, 2), ("data", "model"))}
 MESH_TIMEOUT_S = 600
-MESH_SERVE_LAYERS = 14   # the mesh groups' qwen3 depth (of 28)
+MESH_SERVE_LAYERS = 7    # the mesh groups' qwen3 depth (of 28: time)
 # Depths of the phases that rerun the main path's machinery at full
 # width (qwen3's memory hierarchy, overload and faults; the hybrid and
 # ssm servers): cut so that the script stays inside its time on a slow
 # host (one call took 1,201 s at full depth).
 QWEN3_EXT_LAYERS = 14    # of 28
-HYBRID_SERVE_LAYERS = 20  # of 38: six (rglru, rglru, attn) groups + 2
+HYBRID_SERVE_LAYERS = 14  # of 38: four (rglru, rglru, attn) groups + 2
+MOE_SERVE_LAYERS = 12     # of 24
 SSM_SERVE_LAYERS = 8     # of 24: one group of 7 mLSTM + 1 sLSTM
 
 
@@ -3737,13 +3779,13 @@ def sl_mesh_check(runs, world, job, device, single):
 # Parameter placements over the mesh (in the mesh phase's groups)
 # --------------------------------------------------------------------- #
 # qwen3-0.6b at full depth and width, bf16: a prefill of B = 2 x S =
-# 4,096 (the S = 32,768 prefill stays in the one-process phase: every TP
+# 2,048 (the S = 32,768 prefill stays in the one-process phase: every TP
 # all-reduce of its activations is staged through the host over gloo),
 # then ``steps`` decode steps of each schedule, placed and replicated
 # interleaved; qwen2-moe-a2.7b placed only (W = 2), a shorter run.
-# 8 decode steps a schedule: room for the state and extension jobs that
-# the same groups run.
-PLACEMENT = {"B": 2, "S": 4096, "bs": 128, "NP": 4, "steps": 8,
+# S 2,048 and 4 decode steps a schedule: room for the state and
+# extension jobs that the same groups run.
+PLACEMENT = {"B": 2, "S": 2048, "bs": 128, "NP": 4, "steps": 4,
              "moe_S": 512, "moe_steps": 4, "parity_layers": 4,
              "parity_S": 320, "parity_steps": 4, "seed": 21}
 PLACEMENT_RTOL = 1e-5   # placed vs whole-tree logits, float32, relative
@@ -4064,7 +4106,7 @@ def single_placement_streams(job, device, ph, single, n_data):
 STATE_ARCHS = ("recurrentgemma-9b", "xlstm-350m")
 # bf16 at full width: B x S prompts (the hybrid's past its 2,048-token
 # window, so the ring wraps), then ``steps`` decode steps; the hybrid at
-# 11 of 38 layers, three groups and two leftover layers (its placed
+# 5 of 38 layers, one group and two leftover layers (its placed
 # prefill's all-reduces go through the host: the full depth does not fit
 # the script's time), xLSTM at all 24 (its prompt at 256 tokens: the
 # scan is sequential);
@@ -4072,12 +4114,12 @@ STATE_ARCHS = ("recurrentgemma-9b", "xlstm-350m")
 # (hybrid 8 layers: two (rglru, rglru, attn) groups and two unstacked
 # leftover layers; xLSTM 16: two groups) with ``parity_steps`` steps.
 STATE = {"B": 2, "S": {"recurrentgemma-9b": 4096, "xlstm-350m": 256},
-         "steps": 8, "seed": 23,
-         "layers": {"recurrentgemma-9b": 11,
+         "steps": 4, "seed": 23,
+         "layers": {"recurrentgemma-9b": 5,
                     "xlstm-350m": None},
          "parity_layers": {"recurrentgemma-9b": 8, "xlstm-350m": 16},
          "parity_S": {"recurrentgemma-9b": 2304, "xlstm-350m": 256},
-         "parity_steps": 4}
+         "parity_steps": 2}
 STATE_SMOKE = dict(STATE, S={"recurrentgemma-9b": 40, "xlstm-350m": 12},
                    layers={"recurrentgemma-9b": None, "xlstm-350m": None},
                    steps=3, parity_S={"recurrentgemma-9b": 40,
@@ -4720,11 +4762,12 @@ def ext_check(runs, key, device, layers, single=None, params32=None,
     return rep
 
 
-def flash_long_case(name, B, S, H, K, D, dtype, device):
-    """The flash-prefill kernel at the ServeLayout prefill's causal shape,
-    against its plain version applied to one (batch, query head) slice
-    at a time (the whole plain score matrix would take B * H * S * S *
-    4 bytes), timed, with ``sdpa`` as the yardstick."""
+def flash_long_case(name, B, S, H, K, D, dtype, device, *, iters=5):
+    """The flash-prefill kernel at a long causal shape (the ServeLayout
+    prefill's, the prefill cells'), against its plain version applied to
+    one (batch, query head) slice at a time (the whole plain score
+    matrix would take B * H * S * S * 4 bytes), timed over ``iters``
+    calls (the graph over up to 3), with ``sdpa`` as the yardstick."""
     from repro_torch.kernels.flash_prefill import flash_prefill_plain
     from repro_torch.kernels.ops import flash_prefill
     gen = torch.Generator(device=device).manual_seed(zlib.crc32(
@@ -4769,22 +4812,224 @@ def flash_long_case(name, B, S, H, K, D, dtype, device):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     row["live_pairs"] = pairs
-    row["ms"] = time_ms(lambda: flash_prefill(q, k, v), iters=5, warmup=1)
-    row["graph_ms"] = device_ms(lambda: flash_prefill(q, k, v), iters=3,
-                                replays=2)
+    row["ms"] = time_ms(lambda: flash_prefill(q, k, v), iters=iters,
+                        warmup=1)
+    row["graph_ms"] = device_ms(lambda: flash_prefill(q, k, v),
+                                iters=min(3, iters), replays=2)
     row["plain_ms"] = time_ms(plain, iters=1, warmup=0)
     row["plain_note"] = "the plain version over B * H (batch, head) slices"
-    qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if dtype == torch.float32:
+        # K/V expanded to the query heads beforehand: float32 with
+        # ``enable_gqa`` falls back to sdpa's math backend, which holds
+        # B * H * S * S floats (144 GiB at chameleon's cell); without it
+        # the memory-efficient backend serves float32.
+        qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (
+            q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
 
-    def library():
-        return sdpa(qq, kk, vv, is_causal=True, enable_gqa=True)
-    row["library_ms"] = time_ms(library, iters=5, warmup=1)
-    row["library_graph_ms"] = device_ms(library, iters=3, replays=2)
+        def library():
+            return sdpa(qq, kk, vv, is_causal=True)
+    else:
+        qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return sdpa(qq, kk, vv, is_causal=True, enable_gqa=True)
+    row["library_ms"] = time_ms(library, iters=iters, warmup=1)
+    row["library_graph_ms"] = device_ms(library, iters=min(3, iters),
+                                        replays=2)
     row["library_kernels"] = cuda_kernel_names(library)[:3]
     row["bound_ms"] = max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
+
+
+# --------------------------------------------------------------------- #
+# The four configs served at full width; the launch cells
+# --------------------------------------------------------------------- #
+CONFIG_ARCHS = ("mistral-nemo-12b", "starcoder2-15b", "chameleon-34b",
+                "musicgen-medium")
+CONFIG_PROMPTS = (2500, 600, 300)   # the longest over one instance's quota
+CONFIG_NEW = 16
+CONFIG_PARITY = {"layers": 4, "prompt": 1500, "n_new": 16}
+# The kernels' heads at the configs' shapes (kernel phase rows):
+# starcoder2 GQA 48/4 (G 12), musicgen MHA 24/24 at D 64, chameleon GQA
+# 64/8 (G 8).
+CONFIG_HEADS = (("starcoder2", 48, 4, 128), ("musicgen", 24, 24, 64),
+                ("chameleon", 64, 8, 128))
+# The prefill_32k cells run on one card: (B of prefill_32k's 32, the
+# sequence lengths to try, longest first). chameleon's 68.59 GB of bf16
+# weights leave the rest of the card to its pool and activations: on an
+# H100 80GB, after this script's earlier phases, its step ran out of
+# memory at S = 28,672 (so at 32,768); 24,576 peaks at 80.30 GB of the
+# card's 85.0.
+CELL_RUNS = {"musicgen-medium": (2, (32768,)),
+             "chameleon-34b": (1, (24576, 16384))}
+
+
+def param_bytes(params) -> int:
+    """Bytes of a nested parameter dict's tensors."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+def config_serving_phase(params, cfg, device):
+    """One of the four configs at full width through ``LLMServer`` on
+    per-instance pools, the serving phase's three instances of 1,024
+    local tokens (2,560-token pools: 1.51 GB of KV for chameleon-34b
+    beside its 68.59 GB of weights): every request finishes, the
+    longest prompt spans creditors (its steps LSE-merge their
+    partials), both paged kernels launch and no plain version runs."""
+    from repro_torch.kernels import ops
+    prompts = make_prompts(cfg, CONFIG_PROMPTS, 7)
+    reset_peak_memory()
+    with AdmissionSpy() as spy:
+        ops.reset_counts()
+        handles, server, wall = serve(params, cfg, serving_config(),
+                                      prompts, CONFIG_NEW, device)
+        counts = ops.counts()
+    all_finished(handles)
+    if max(spy.stripes) < 1:
+        raise AssertionError(f"{cfg.name}: the {CONFIG_PROMPTS[0]}-token "
+                             f"prompt spanned no creditor ({spy.stripes})")
+    check_counts(counts, ("paged_micro_attention", "paged_prefill_attention"),
+                 device)
+    st = server.cluster.throughput_stats
+    if st["query_shipped_bytes"] <= 0:
+        raise AssertionError(f"{cfg.name}: no partial crossed instances")
+    steps = decode_steps(server)
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "prompt_lens": list(CONFIG_PROMPTS), "n_new": CONFIG_NEW,
+            "weight_bytes": param_bytes(params),
+            "creditors_per_admission": spy.stripes,
+            "decode_steps": steps,
+            "decode_launches_per_step":
+                served(counts, "paged_micro_attention", device) / steps,
+            **e2e_numbers(server, handles, wall),
+            "query_shipped_bytes": st["query_shipped_bytes"],
+            "kv_moved_bytes": st["kv_moved_bytes"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "card": card_line(), "counts": counts}
+
+
+def cell_pool_row(params, cfg, emb, pool_k, S, bs, device) -> float:
+    """Layer 0's K rows of the prefill cell's pool at a few positions of
+    request 0 against the layer's own projection of those embeddings
+    (sinusoidal table, norm, k projection, RoPE): the rows landed at
+    their (block, offset). Returns the largest relative difference."""
+    from repro_torch.models.attention import qkv_project
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.model import embed_tokens, param_layer
+    from repro_torch.serving.sharded_step import prefill_layout
+    wblk, woff, _ = prefill_layout(1, S, bs, 1, n_data=1)
+    pos = np.array([0, bs - 1, bs, S // 2 + 3, S - 1])
+    p = torch.from_numpy(pos).to(device)[None]
+    x = embed_tokens(params, cfg, embeds=emb[:1, p[0]], positions=p)
+    lp = param_layer(params, cfg, 0)
+    _, k, _ = qkv_project(lp["attn"], apply_norm(lp["ln1"], x, cfg), p, cfg)
+    got = pool_k[0, 0, torch.from_numpy(wblk[0, 0, pos]).to(device),
+                 torch.from_numpy(woff[0, pos]).to(device)]
+    return rel_diff(got, k[0])
+
+
+def cell_step(arch, params, cfg, device, B, S) -> dict:
+    """One ``serve_prefill_step`` of ``arch``'s prefill_32k cell as
+    ``launch.inputs.build_cell`` gives it (a one-process mesh), on the
+    seeded weights and seeded frame / patch embeddings of B requests of
+    S tokens."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import BLOCK_SIZE, build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.roofline import ideal_step_s
+    from repro_torch.models.common import torch_dtype
+    cell = build_cell(arch, "prefill_32k", make_test_mesh((1, 1)))
+    B0, S0, d = cell.kwargs["embeds"].shape
+    if cell.meta["kind"] != "prefill" or cell.kwargs["tokens"] is not None:
+        raise AssertionError(f"{arch}: not an embeds prefill cell: "
+                             f"{cell.meta}")
+    rng = np.random.default_rng(zlib.crc32(arch.encode()))
+    emb = (torch.from_numpy(rng.standard_normal((B, S, d), np.float32))
+           * 0.02).to(torch_dtype(cfg)).to(device)
+    reset_peak_memory()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    first, pool_k, pool_v = cell.fn(params=params, tokens=None, embeds=emb)
+    sync(device)
+    secs = time.perf_counter() - t0
+    counts = ops.counts()
+    check_counts(counts, ("flash_prefill",), device)
+    launches = served(counts, "flash_prefill", device)
+    if launches != cfg.num_layers:
+        raise AssertionError(f"{arch}: {launches} flash launches, not one "
+                             f"a layer ({cfg.num_layers})")
+    if tuple(first.shape) != (B,) or not bool(
+            ((first >= 0) & (first < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: first tokens {first.tolist()}")
+    if not bool(torch.isfinite(pool_k[-1]).all()):
+        raise AssertionError(f"{arch}: the last layer's pool is not finite")
+    row_err = cell_pool_row(params, cfg, emb, pool_k, S, BLOCK_SIZE, device)
+    if row_err > FLASH_RTOL[torch.bfloat16]:
+        raise AssertionError(f"{arch}: pool rows off by {row_err:.3g}")
+    ideal = ideal_step_s(cfg, ShapeConfig("prefill_cut", "prefill", S, B))
+    cuts = [f"global_batch {B0} -> {B}",
+            "mesh (16, 16) -> one process (1, 1)"]
+    if S != S0:
+        cuts.append(f"seq_len {S0} -> {S}")
+    return {"arch": arch, "B": B, "S": S, "cuts": cuts,
+            "meta": dict(cell.meta),
+            "prefill_s": secs, "tokens_per_s": B * S / secs,
+            "ideal_step_s": ideal, "ideal_share": ideal / secs,
+            "flash_launches": launches,
+            "first_tokens": first.tolist(), "pool_row_rel_err": row_err,
+            "pool_bytes": 2 * pool_k.numel() * pool_k.element_size(),
+            "weight_bytes": param_bytes(params),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "card": card_line(), "counts": counts}
+
+
+def cells_phase_step(arch, params, cfg, device) -> dict:
+    """``cell_step`` at the longest of ``CELL_RUNS[arch]``'s sequence
+    lengths that fits on the card (an out-of-memory error tries the
+    next)."""
+    B, lengths = CELL_RUNS[arch]
+    too_long = []
+    for S in lengths:
+        try:
+            rep = cell_step(arch, params, cfg, device, B, S)
+        except torch.OutOfMemoryError:
+            too_long.append(S)
+        else:
+            rep["did_not_fit"] = too_long
+            return rep
+        finally:
+            release_memory()
+    raise AssertionError(f"{arch}: no prefill cell fits ({too_long})")
+
+
+def cells_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun --all --both-meshes`` on the
+    host (planning only): it must exit 0 and plan every cell."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--all", "--both-meshes", "--quiet"],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"dryrun exited {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    rows = [line.split(",") for line in out.stdout.splitlines()
+            if line.count(",") == 11 and not line.startswith("arch,")]
+    if len(rows) != 2 * len(ARCH_IDS) * len(SHAPES):
+        raise AssertionError(f"dryrun planned {len(rows)} cells")
+    return {"cells": len(rows), "fit": sum(r[-1] == "1" for r in rows),
+            "do_not_fit": [f"{r[0]} x {r[1]} x {r[2]}" for r in rows
+                           if r[-1] != "1"],
+            "prefill_32k_ideal_step_s": {
+                f"{r[0]} x {r[2]}": float(r[8]) for r in rows
+                if r[1] == "prefill_32k" and r[0] in CELL_RUNS},
+            "seconds": secs}
 
 
 def main(argv=None) -> int:
@@ -4801,6 +5046,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.distributed.placement import seeded_params
     from repro_torch.kernels import build, ops
     from repro_torch.models.model import init_params
 
@@ -4909,9 +5155,8 @@ def main(argv=None) -> int:
                                 layers=MESH_SERVE_LAYERS)
     print("mesh: " + json.dumps(report["mesh"]), flush=True)
     mark("qwen3_mesh")
-    check_released(report, "qwen3-0.6b servers", limit=(512 << 20)
-                   + sum(t.numel() * t.element_size()
-                         for t in tree_leaves(params)))
+    check_released(report, "qwen3-0.6b servers",
+                   limit=(512 << 20) + param_bytes(params))
     report["serve_layout"] = serve_layout_phase(params, cfg, device)
     print("serve layout: " + json.dumps(report["serve_layout"]), flush=True)
     report["launcher"] = launcher_phase(device)
@@ -4940,7 +5185,8 @@ def main(argv=None) -> int:
     del hparams
     check_released(report, "recurrentgemma-9b")
 
-    mcfg = get_config("qwen2-moe-a2.7b")
+    mcfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                               num_layers=MOE_SERVE_LAYERS)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     mparams = init_params(mcfg, gen, device)
@@ -4965,8 +5211,7 @@ def main(argv=None) -> int:
     xparams = init_params(xcfg_s, gen, device)
     torch.cuda.synchronize()
     report["ssm_init_s"] = time.perf_counter() - t0
-    report["ssm_param_bytes"] = sum(
-        t.numel() * t.element_size() for t in tree_leaves(xparams))
+    report["ssm_param_bytes"] = param_bytes(xparams)
     ssm = ssm_serving_phase(xparams, xcfg_s, device, (1024, 512, 256, 64),
                             32)
     report["ssm_serving"] = ssm
@@ -4980,7 +5225,64 @@ def main(argv=None) -> int:
     del xparams
     check_released(report, "xlstm-350m")
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # The four remaining configs at full width and depth (bf16, weights
+    # drawn a layer of a leaf at a time), each then at float32 and 4
+    # layers against the dense oracle. musicgen's and chameleon's
+    # prefill_32k cells run one step on their served weights; the flash
+    # kernel is held at each cell's shape once they are dropped.
+    report["configs"] = {}
+    report["cells"] = {"steps": {}, "flash_rows": []}
+    for arch in CONFIG_ARCHS:
+        acfg = get_config(arch)
+        t0 = time.perf_counter()
+        aparams = seeded_params(acfg, 0, device=device)
+        sync(device)
+        init_s = time.perf_counter() - t0
+        rep = config_serving_phase(aparams, acfg, device)
+        rep["init_s"] = init_s
+        print(f"config {arch}: " + json.dumps(
+            {k: v for k, v in rep.items() if k != "counts"}), flush=True)
+        if arch in CELL_RUNS:
+            step = cells_phase_step(arch, aparams, acfg, device)
+            report["cells"]["steps"][arch] = step
+            print(f"cell {arch} prefill_32k: " + json.dumps(
+                {k: v for k, v in step.items() if k != "counts"}),
+                flush=True)
+        del aparams
+        check_released(report, arch)
+        if arch in CELL_RUNS:
+            for dt, iters in ((torch.bfloat16, 5), (torch.float32, 1)):
+                r = flash_long_case(
+                    f"flash-cell-{arch}-S{step['S']}-{dt}", step["B"],
+                    step["S"], acfg.num_heads, acfg.num_kv_heads,
+                    acfg.head_dim, dt, device, iters=iters)
+                report["cells"]["flash_rows"].append(r)
+                report["kernel_cases"].append(r)
+                print(f"kernel {r['case']}: " + json.dumps(
+                    {k: r[k] for k in ("max_abs_err", "ms", "graph_ms",
+                                       "plain_ms", "library_ms",
+                                       "bound_ms")}), flush=True)
+            check_released(report, f"{arch} flash rows")
+        cfg32 = dataclasses.replace(acfg, dtype="float32",
+                                    num_layers=CONFIG_PARITY["layers"])
+        params32 = seeded_params(cfg32, 0, device=device)
+        rep["parity"] = parity_phase(params32, cfg32, device,
+                                     CONFIG_PARITY["prompt"],
+                                     CONFIG_PARITY["n_new"])
+        print(f"config {arch} parity: " + json.dumps(rep["parity"]),
+              flush=True)
+        del params32
+        check_released(report, f"{arch} float32")
+        report["configs"][arch] = rep
+        mark(f"config_{arch}")
+    report["cells"]["dryrun"] = cells_dryrun()
+    print("cells dryrun: " + json.dumps(report["cells"]["dryrun"]),
+          flush=True)
+    mark("cells_dryrun")
+
+    # qwen3's float32 parities at QWEN3_EXT_LAYERS (time).
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=QWEN3_EXT_LAYERS)
     gen = torch.Generator(device=device).manual_seed(0)
     params32 = init_params(cfg32, gen, device)
     parity = parity_phase(params32, cfg32, device, 1500, 24)
@@ -5046,7 +5348,8 @@ def main(argv=None) -> int:
     del hparams32
     check_released(report, "recurrentgemma-9b float32")
 
-    xcfg32 = dataclasses.replace(xcfg, dtype="float32")
+    # Two of xLSTM's three groups (time).
+    xcfg32 = dataclasses.replace(xcfg, dtype="float32", num_layers=16)
     gen = torch.Generator(device=device).manual_seed(0)
     xparams32 = init_params(xcfg32, gen, device)
     xparity = hybrid_parity_phase(xparams32, xcfg32, device, 1024, 16)
@@ -5143,6 +5446,24 @@ def main(argv=None) -> int:
             "bs128_launches": report["bs128_global"]["counts"][
                 "paged_prefill_attention_ranks"]["launches"],
             "bs128_rows": sl_rows("prefill_ranks_bs128")}}
+    # The four configs' served path: the paged kernels' launches in
+    # each config's run, and their rows at its heads; flash's launches
+    # in each prefill cell's step, and its rows at the cell's shape.
+    cfg_extra = {
+        name: {"configs_launches": {
+            arch: rep["counts"][name]["launches"]
+            for arch, rep in report["configs"].items()},
+            "configs_rows": sl_rows(*(f"{kind}_{h[0]}"
+                                      for h in CONFIG_HEADS))}
+        for name, kind in (("paged_micro_attention", "decode"),
+                           ("paged_prefill_attention", "prefill"))}
+    cfg_extra["flash_prefill"] = {
+        "cells_launches": {arch: st["flash_launches"] for arch, st in
+                           report["cells"]["steps"].items()},
+        "cells_rows": {r["case"]: {f: r[f] for f in (
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+            for r in report["cells"]["flash_rows"]}}
     sources = {"decode": ("paged_micro_attention",
                           "src/repro_torch/csrc/micro_attn_decode.cu",
                           "src/repro/kernels/micro_attn_decode.py:86"),
@@ -5181,6 +5502,8 @@ def main(argv=None) -> int:
             kernels[-1].update(sl_extra[name])
         if name in bs128_extra:
             kernels[-1].update(bs128_extra[name])
+        if name in cfg_extra:
+            kernels[-1].update(cfg_extra[name])
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
     print(f"script: {report['script_s']:.1f} s (elapsed at the end of "

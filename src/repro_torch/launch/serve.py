@@ -11,9 +11,15 @@ weights, ``ServingConfig.smoke(n_instances=...)``, ``--requests``
 arrivals spread over about a second (a ``--long-frac`` share of them
 longer than one instance's quota, so their KV spans creditors), served
 by ``LLMServer.run``. It runs on the card unless ``--device cpu`` is
-given, and raises without CUDA otherwise. Its ``--aot`` and ``--shape``
-(compile the production-mesh serve step ahead of time with XLA) have no
-PyTorch counterpart.
+given, and raises without CUDA otherwise.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b \
+        --aot --shape decode_32k
+
+``--aot --shape S`` plans the production-mesh cell of ``--arch`` at
+``S`` (``launch.dryrun.run_cell``: bytes a process, fit, ideal step
+time) where JAX's lowers and compiles it with XLA; it touches only meta
+tensors, so it needs no card.
 """
 from __future__ import annotations
 
@@ -25,8 +31,9 @@ import numpy as np
 import torch
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the launcher; returns the server's frontend metrics."""
+def main(argv: Optional[Sequence[str]] = None):
+    """Run the launcher; returns the server's frontend metrics (with
+    ``--aot``: the cell's ``launch.roofline.RooflineReport``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--instances", type=int, default=2)
@@ -36,7 +43,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="fraction of requests that exceed one instance")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--aot", action="store_true",
+                    help="plan the production-mesh cell instead of serving")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["prefill_32k", "decode_32k", "long_500k"])
     args = ap.parse_args(argv)
+
+    if args.aot:
+        from repro_torch.launch.dryrun import run_cell
+        return run_cell(args.arch, args.shape)
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import init_params, resolve_device

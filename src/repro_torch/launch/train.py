@@ -9,9 +9,15 @@ The JAX package's ``python -m repro.launch.train`` with the same
 settings: seeded random weights, ``AdamWConfig(lr, warmup_steps=max(2,
 steps // 10), total_steps=steps)``, ``TrainConfig(remat=True)``, the
 seeded data pipeline (``DataConfig(seed=0)``) and, with ``--ckpt-dir``,
-a checkpoint every 50 steps. Its ``--aot`` (compile the production-mesh
-program ahead of time with XLA) has no PyTorch counterpart. ``run`` is
-the same trainer as a function, returning one record per step.
+a checkpoint every 50 steps. ``run`` is the same trainer as a
+function, returning one record per step.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --aot
+
+``--aot`` plans the production-mesh ``train_4k`` cell
+(``launch.dryrun.run_cell``: bytes a process with gradients and AdamW
+moments, fit, ideal step time) where JAX's lowers and compiles it with
+XLA; it touches only meta tensors, so it needs no card.
 """
 from __future__ import annotations
 
@@ -99,7 +105,9 @@ def run(arch: str, *, steps: int, seq: int, batch: int, smoke: bool = False,
     return records
 
 
-def main(argv=None) -> List[dict]:
+def main(argv=None):
+    """Run the trainer; returns its records (with ``--aot``: the cell's
+    ``launch.roofline.RooflineReport``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=10)
@@ -111,7 +119,13 @@ def main(argv=None) -> List[dict]:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without it) or cpu")
+    ap.add_argument("--aot", action="store_true",
+                    help="plan the production-mesh train_4k cell instead "
+                         "of training")
     args = ap.parse_args(argv)
+    if args.aot:
+        from repro_torch.launch.dryrun import run_cell
+        return run_cell(args.arch, "train_4k")
     return run(args.arch, steps=args.steps, seq=args.seq, batch=args.batch,
                smoke=args.smoke, lr=args.lr, ckpt_dir=args.ckpt_dir,
                device=args.device)

@@ -643,6 +643,16 @@ def serve_decode_step_opt(params, cfg: ModelConfig, layout: ServeLayout,
                          deferred=True)
 
 
+def prefill_pool_blocks(B: int, S: int, bs: int, NP: int,
+                        n_data: Optional[int] = None) -> int:
+    """``NB_loc`` of ``prefill_layout``: the blocks each shard's pool has
+    (arithmetic only; the layout's index arrays are not built)."""
+    nblocks = -(-S // bs)
+    if n_data and B % n_data == 0:
+        return B // n_data * -(-nblocks // (NP // n_data))
+    return B * -(-nblocks // NP)
+
+
 def prefill_layout(B: int, S: int, bs: int, NP: int,
                    n_data: Optional[int] = None):
     """Block placement at prefill time: (wblk [NP, B, S], woff [B, S],
@@ -666,12 +676,12 @@ def prefill_layout(B: int, S: int, bs: int, NP: int,
         per_data = B // n_data
         shard_of = (b_idx // per_data) * n_sub + (blk % n_sub)[None]
         per_req = -(-nblocks // n_sub)
-        NB_loc = per_data * per_req
+        NB_loc = prefill_pool_blocks(B, S, bs, NP, n_data)
         local = (b_idx % per_data) * per_req + (blk // n_sub)[None]
         wblk = np.where(shard_of[None] == p_idx, local[None], NB_loc)
         return wblk.astype(np.int32), woff, NB_loc
     per_req = -(-nblocks // NP)
-    NB_loc = B * per_req
+    NB_loc = prefill_pool_blocks(B, S, bs, NP, n_data)
     owner = b_idx * per_req + (blk // NP)[None]
     wblk = np.where((blk % NP)[None, None, :] == p_idx, owner[None], NB_loc)
     return wblk.astype(np.int32), woff, NB_loc
@@ -875,6 +885,7 @@ def gather_state(state: DecodeState, cfg: ModelConfig, mesh,
 
 __all__ = ["ServeLayout", "batch_rows", "decode_step_global",
            "gather_batch", "prefill_chunk_global", "prefill_layout",
+           "prefill_pool_blocks",
            "serve_decode_step",
            "serve_decode_step_opt", "serve_decode_step_state", "gather_state",
            "serve_prefill_step", "serve_prefill_step_state"]

@@ -1,9 +1,13 @@
 """The PyTorch/CUDA port stands alone: no JAX, nothing of the JAX package.
 
-Every module of ``src/repro_torch`` and the repository's ``chip_smoke.py``
-is imported in a fresh interpreter, which must then hold neither ``jax``
-nor any ``repro.`` module. The entry points run on the card by default
-and must refuse — not fall back to the CPU — when CUDA is absent.
+Every module of ``src/repro_torch``, the repository's ``chip_smoke.py``
+and the port's examples (``examples/pt_*.py``) is imported in a fresh
+interpreter, which must then hold neither ``jax`` nor any ``repro.``
+module. The entry points that touch tensors — the examples and the
+launchers' serving and training halves among them — run on the card by
+default and must refuse, not fall back to the CPU, when CUDA is absent.
+The dry run (``launch.dryrun``, the launchers' ``--aot``) touches only
+meta tensors and needs no card.
 """
 import json
 import os
@@ -16,6 +20,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SRC = REPO / "src"
+EXAMPLES = sorted((REPO / "examples").glob("pt_*.py"))
 
 
 def _port_modules():
@@ -55,13 +60,27 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.training.grad_sync",
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.placement",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve",
+            "repro_torch.launch.mesh", "repro_torch.launch.inputs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.report",
+            "repro_torch.serving.simulator",
+            "repro_torch.configs.mistral_nemo_12b",
+            "repro_torch.configs.starcoder2_15b",
+            "repro_torch.configs.chameleon_34b",
+            "repro_torch.configs.musicgen_medium"} <= set(mods)
+    assert [e.name for e in EXAMPLES] == [
+        "pt_long_context.py", "pt_quickstart.py", "pt_serve_cluster.py",
+        "pt_train_small.py"]
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        f"for f in {[str(e) for e in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "print(json.dumps(bad))\n")
@@ -74,10 +93,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
 
 def test_port_sources_never_name_jax_or_the_reference():
     """A static guard beside the runtime one: no import line of the
-    port, of chip_smoke.py or of the port's scripts names jax or the
-    ``repro`` package."""
+    port, of chip_smoke.py, of the port's scripts or of its examples
+    names jax or the ``repro`` package."""
     files = list((SRC / "repro_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"] + list((REPO / "scripts").glob("*.py"))
+        [REPO / "chip_smoke.py"] + list((REPO / "scripts").glob("*.py")) + \
+        EXAMPLES
     assert REPO / "scripts" / "pool_mode_ab.py" in files
     bad = []
     for f in files:
@@ -185,3 +205,30 @@ def test_chip_smoke_refuses_without_cuda_or_outside_the_repo(tmp_path):
                              env=env, cwd=str(script.parent))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda p: p.stem)
+def test_examples_default_to_cuda_and_refuse_the_cpu(example, monkeypatch):
+    """Each example's ``main`` runs on the card unless ``--device cpu``
+    is given, and raises without CUDA."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(example.stem, example)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ex.main([])
+
+
+def test_dry_run_and_aot_need_no_card(monkeypatch, capsys):
+    """The dry run and the launchers' ``--aot`` plan on meta tensors:
+    they run where CUDA is absent."""
+    from repro_torch.launch import dryrun, serve, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rep, = dryrun.main(["--arch", "chameleon-34b", "--shape",
+                        "prefill_32k", "--quiet"])
+    assert rep.fits and rep.memory_breakdown["params"] > 0
+    assert serve.main(["--arch", "musicgen-medium", "--aot",
+                       "--shape", "long_500k"]).shape == "long_500k"
+    assert train.main(["--arch", "mistral-nemo-12b", "--aot"]).fits
+    assert "[dryrun]" in capsys.readouterr().out

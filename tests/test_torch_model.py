@@ -251,7 +251,15 @@ def _stream_prompt(cfg, jp, tp, ranks, prompt, chunk):
     ("kimi-k2-1t-a32b", 5, 3),         # first_k_dense=1: dense + MoE
 ])
 def test_paged_steps_match_jax_and_dense_oracle(arch, chunk, n_cred):
-    cfg, jp, tp = _setup(arch)
+    check_paged_steps(*_setup(arch), chunk, n_cred)
+
+
+def check_paged_steps(cfg, jp, tp, chunk, n_cred):
+    """Stream a T-token prompt through both packages'
+    ``prefill_chunk_paged`` in ``chunk``-token chunks (its prefix on
+    ``n_cred`` creditors), then teacher-force ``N_DEC`` steps of
+    ``decode_step_paged``: logits, KV exports and pools against JAX,
+    logits and new KV rows against the port's dense oracle."""
     rng = np.random.default_rng(100 + chunk)
     prompt = rng.integers(0, cfg.vocab_size, T).astype(np.int32)
     forced = rng.integers(0, cfg.vocab_size, N_DEC).astype(np.int32)
