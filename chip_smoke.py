@@ -32,11 +32,16 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    (data-sheet peaks); for flash prefill it also names the CUDA kernels
    that serve the yardstick call (which ``sdpa`` backend). The rank forms
    of the paged kernels (one launch over every rank pool of the global
-   pool) at the qwen2-moe-a2.7b global path's shapes (MHA 16 x 128, three
-   ranks, a strided layer view of a 24-layer pool; decode R=4 over
-   256-slot tables, a 512-query chunk) and edges (one and four ranks,
-   empty ranks, G 1 and 2), in bf16 and fp32, also timed as NR
-   single-rank launches on the same inputs (``nr_launch_ms``). The chunks
+   pool), stacked (a partial a rank) and merged (the ranks merged in the
+   launch: what the global pool's steps call), at the qwen2-moe-a2.7b
+   global path's shapes (MHA 16 x 128, three ranks, a strided layer view
+   of a 24-layer pool; decode R=4 over 256-slot tables, a 512-query
+   chunk) and edges (one and four ranks, empty ranks, a process holding
+   no block, G 1 and 2, 128-token blocks), in bf16 and fp32, the merged
+   form against ``merge_partials`` of the plain stack; timed also as the
+   stacked form followed by ``merge_partials`` (``stacked_merge_ms``)
+   and as NR single-rank launches (``nr_launch_ms``), and with the unit
+   plan each makes on the card at its main shapes. The chunks
    the memory hierarchy launches: the copy-on-write path's one-query
    chunk (C = 1) over a 3,007-token prefix whose last block holds bs - 1
    rows, single-rank (timed) and in rank form (NR 3, one rank empty), and
@@ -343,6 +348,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
 # P V as bf16 hi + lo (one bf16 rounding would miss 1e-4), and l is summed
 # from the float32 probabilities; so the same 1e-4 holds.
 TOL = 1e-4
+# The global pool's rank kernels, as its steps launch them: one launch a
+# layer over every (local) rank, the ranks merged in the launch.
+RANK_KERNELS = ("paged_micro_attention_ranks_merged",
+                "paged_prefill_attention_ranks_merged")
 # A bf16 flash-prefill output is rounded from float32 on both sides, so
 # the two may differ by one bf16 ulp (2**-7 of the value) beyond TOL.
 FLASH_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 0.0}
@@ -352,8 +361,8 @@ WARM_REPEATS = 0    # untraced repeats of the serving workload (the
 #                     0 since the memory-hierarchy and overload phases)
 TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
-PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_prefill",
-                       "flash_prefill")
+PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_decode_ranks_kernel",
+                       "paged_prefill", "flash_prefill")
 TRAIN_UNTIMED = 2   # first train steps not timed (allocator warm-up)
 # float32 train step, card against CPU: loss and gradient norm (relative),
 # each leaf's gradient (max |diff| over its largest magnitude).
@@ -727,20 +736,26 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
 
 def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
               L=2, bs=16, NB=160, tail_rows=None, timed=False):
-    """A rank form the global pool's steps call (``ops``, default scale)
-    on one layer's view of a global pool [NR, L, NB, bs, K, D] — strided,
-    read in place — against its plain version. ``kind`` "decode": q
-    [rows, H, D], request r holding ``nblks[rank][r]`` blocks on each
-    rank; "prefill": a chunk of ``rows`` queries over one prefix holding
-    ``nblks[rank]`` blocks on each rank. Timed rows add the time of NR
-    single-rank launches on the same inputs (``nr_launch_ms``).
-    ``tail_rows`` fixes the rows of each non-empty rank's last block
-    (else random)."""
+    """Both rank forms (``ops``, default scale) on one layer's view of a
+    global pool [NR, L, NB, bs, K, D] — strided, read in place — against
+    their plain versions: the stacked form (one partial a rank) and the
+    merged form the global pool's steps call (``merge_partials`` of the
+    plain stack). ``kind`` "decode": q [rows, H, D], request r holding
+    ``nblks[rank][r]`` blocks on each rank; "prefill": a chunk of
+    ``rows`` queries over one prefix holding ``nblks[rank]`` blocks on
+    each rank. Timed rows add the merged form's times (``merged_*``),
+    the stacked form followed by ``merge_partials`` timed in the same
+    call (``stacked_merge_*``) and NR single-rank launches on the same
+    inputs (``nr_launch_ms``). ``tail_rows`` fixes the rows of each
+    non-empty rank's last block (else random)."""
     from repro_torch.core.distattn import gather_local_kv
+    from repro_torch.core.online_softmax import merge_partials
     from repro_torch.kernels import ops
     from repro_torch.kernels.micro_attn_decode import (
+        paged_micro_attention_ranks_merged_plain,
         paged_micro_attention_ranks_plain)
     from repro_torch.kernels.micro_attn_prefill import (
+        paged_prefill_attention_ranks_merged_plain,
         paged_prefill_attention_ranks_plain)
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     gen = torch.Generator(device=device).manual_seed(3)
@@ -761,22 +776,33 @@ def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
     tb = torch.from_numpy(table).to(device)
     tl = torch.from_numpy(tail).to(device)
     scale = D ** -0.5
-    wrapper, one = ((ops.paged_micro_attention_ranks,
-                     ops.paged_micro_attention) if decode else
-                    (ops.paged_prefill_attention_ranks,
-                     ops.paged_prefill_attention))
-    plain = (paged_micro_attention_ranks_plain if decode
-             else paged_prefill_attention_ranks_plain)
+    wrapper, merged, one = (
+        (ops.paged_micro_attention_ranks,
+         ops.paged_micro_attention_ranks_merged,
+         ops.paged_micro_attention) if decode else
+        (ops.paged_prefill_attention_ranks,
+         ops.paged_prefill_attention_ranks_merged,
+         ops.paged_prefill_attention))
+    plain, merged_plain = (
+        (paged_micro_attention_ranks_plain,
+         paged_micro_attention_ranks_merged_plain) if decode else
+        (paged_prefill_attention_ranks_plain,
+         paged_prefill_attention_ranks_merged_plain))
     got = wrapper(q, pk, pv, tb, tl)
     torch.cuda.synchronize()
     want = plain(q, pk, pv, tb, tl, scale=scale)
     err = compare(got, want, TOL)
+    got = merged(q, pk, pv, tb, tl)
+    torch.cuda.synchronize()
+    merged_err = compare(got, merged_plain(q, pk, pv, tb, tl, scale=scale),
+                         TOL)
+    del got, want
     S = sum(valid_tokens(t if decode else t[None], tt if decode else tt[None],
                          bs) for t, tt in zip(table, tail))
     row = {"case": name, "dtype": str(dtype), "NR": NR,
            ("R" if decode else "C"): rows, "H": H, "K": K, "D": D, "bs": bs,
            "MB": MB, "rank_stride": pk.stride(0), "tokens": S,
-           "max_abs_err": err, "tol": TOL}
+           "max_abs_err": err, "merged_max_abs_err": merged_err, "tol": TOL}
     if timed:
         itemsize = pk.element_size()
         nbytes = (2 * S * K * D * itemsize + q.numel() * itemsize
@@ -789,12 +815,22 @@ def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
         def per_rank():
             for i in range(NR):
                 one(q, pk[i], pv[i], tb[i], tl[i])
+
+        def stacked_merge():
+            return merge_partials(*wrapper(q, pk, pv, tb, tl), axis=0)
         row["ms"] = time_ms(lambda: wrapper(q, pk, pv, tb, tl))
         row["graph_ms"] = device_ms(lambda: wrapper(q, pk, pv, tb, tl))
+        row["merged_ms"] = time_ms(lambda: merged(q, pk, pv, tb, tl))
+        row["merged_graph_ms"] = device_ms(lambda: merged(q, pk, pv, tb,
+                                                          tl))
+        row["stacked_merge_ms"] = time_ms(stacked_merge)
+        row["stacked_merge_graph_ms"] = device_ms(stacked_merge)
         row["nr_launch_ms"] = time_ms(per_rank)
         row["nr_launch_graph_ms"] = device_ms(per_rank)
         row["plain_ms"] = time_ms(lambda: plain(q, pk, pv, tb, tl,
                                                 scale=scale), iters=5)
+        row["merged_plain_ms"] = time_ms(lambda: merged_plain(
+            q, pk, pv, tb, tl, scale=scale), iters=5)
         # Yardstick: one sdpa call over every rank's gathered (padded)
         # rows, the ranks as batch rows.
         kk, vv = (torch.cat(t) for t in zip(*(
@@ -811,7 +847,29 @@ def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
                                                          enable_gqa=True))
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        # The merged form writes one partial a row, not NR.
+        m_bytes = nbytes - (NR - 1) * rows * H * (D + 2) * 4
+        row["merged_bound_ms"] = max(m_bytes / HBM_BYTES_PER_S * 1e3,
+                                     t_ops)
     return row
+
+
+def unit_walks(plan, nblks, bs) -> dict:
+    """The unit plan a rank kernel makes on the card (``rank_units``)
+    for full blocks ``nblks[rank][request]``: units, busy blocks, and the
+    longest and mean walk of a block in tokens."""
+    from repro_torch.kernels import rank_units
+    S = np.asarray(nblks) * bs
+    up = rank_units.unit_plan(S, plan["unit_tokens"], plan["head_groups"],
+                              plan["stacked"])
+    walks = [sum(hi - lo for seg in rank_units.segments(up, b,
+                                                        plan["blocks"])
+                 for _, _, lo, hi in seg["units"])
+             for b in range(plan["blocks"])]
+    busy = [w for w in walks if w]
+    return {"units": up["T"], "busy_blocks": len(busy),
+            "longest_walk_tokens": max(walks, default=0),
+            "mean_walk_tokens": float(np.mean(busy)) if busy else 0.0}
 
 
 def kernel_plans(chunk: int):
@@ -819,8 +877,10 @@ def kernel_plans(chunk: int):
     shapes and the SM count alone)."""
     from repro_torch.kernels.flash_prefill import flash_plan
     from repro_torch.kernels.micro_attn_decode import (decode_plan,
-                                                       device_sm_count)
-    from repro_torch.kernels.micro_attn_prefill import prefill_plan
+                                                       device_sm_count,
+                                                       rank_decode_plan)
+    from repro_torch.kernels.micro_attn_prefill import (prefill_plan,
+                                                        rank_prefill_plan)
     sms = device_sm_count(torch.cuda.current_device())
     out = {"sm_count": sms}
     for dt in (torch.bfloat16, torch.float32):
@@ -830,28 +890,46 @@ def kernel_plans(chunk: int):
                                                  16, dt, sms)
         out[f"flash-main-{dt}"] = flash_plan(1, 6000, 16, 1, 256, dt)
         out[f"flash-qwen3-{dt}"] = flash_plan(1, 4000, 16, 8, 128, dt)
-        # The rank forms at the qwen2-moe global path's shapes (MHA 16 x
-        # 128, three ranks, 256-slot tables).
-        out[f"decode-ranks-main-{dt}"] = decode_plan(4, 16, 16, 256, 16,
-                                                     sms, 3)
-        out[f"prefill-ranks-main-{dt}"] = prefill_plan(chunk, 16, 16, 128,
-                                                       256, 16, dt, sms, 3)
+        # The merged rank kernels at the qwen2-moe global path's shapes
+        # (MHA 16 x 128, three ranks, 256-slot tables), with the unit
+        # plan the card makes from the kernel phase's tables (a request's
+        # blocks 63 / 160 / 27 and 38 / 0 / 0 on the ranks; a prefix of
+        # 32 / 160 / 27 blocks): the longest walk of a block.
+        rd = rank_decode_plan(4, 16, 16, 128, 256, 16, dt, sms, 3, False)
+        out[f"decode-ranks-main-{dt}"] = dict(rd, **unit_walks(
+            rd, [[63, 38, 0, 0], [160, 0, 0, 0], [27, 0, 0, 0]], 16))
+        rp = rank_prefill_plan(chunk, 16, 16, 128, 256, 16, dt, sms, 3,
+                               False)
+        out[f"prefill-ranks-main-{dt}"] = dict(rp, **unit_walks(
+            rp, [[32], [160], [27]], 16))
+        # The ServeLayout shapes (qwen3 heads, 4 shards, 128-token
+        # blocks): long_500k and the 32k batch of two.
+        rd = rank_decode_plan(1, 16, 8, 128, 1025, 128, dt, sms, 4, False)
+        out[f"decode-ranks-long500k-{dt}"] = dict(rd, **unit_walks(
+            rd, [[1024]] * 4, 128))
+        rd = rank_decode_plan(2, 16, 8, 128, 130, 128, dt, sms, 4, False)
+        out[f"decode-ranks-bs128-R2-{dt}"] = dict(rd, **unit_walks(
+            rd, [[128, 0], [128, 0], [0, 128], [0, 128]], 128))
+        rp = rank_prefill_plan(chunk, 16, 8, 128, 32, 128, dt, sms, 3,
+                               False)
+        out[f"prefill-ranks-bs128-nr3-{dt}"] = dict(rp, **unit_walks(
+            rp, [[4], [20], [0]], 128))
         # The rank forms at the mesh path's shapes (qwen3 heads, a slab of
         # two ranks at W = 2 and of one at W = 4).
         for nr in (2, 1):
             for MB in (128, 256):
-                out[f"decode-ranks-mesh-nr{nr}-mb{MB}-{dt}"] = decode_plan(
-                    4, 16, 8, MB, 16, sms, nr)
-            out[f"prefill-ranks-mesh-nr{nr}-{dt}"] = prefill_plan(
-                chunk, 16, 8, 128, 256, 16, dt, sms, nr)
+                out[f"decode-ranks-mesh-nr{nr}-mb{MB}-{dt}"] = \
+                    rank_decode_plan(4, 16, 8, 128, MB, 16, dt, sms, nr,
+                                     False)
+            out[f"prefill-ranks-mesh-nr{nr}-{dt}"] = rank_prefill_plan(
+                chunk, 16, 8, 128, 256, 16, dt, sms, nr, False)
         # The memory hierarchy's chunks: the COW path's one-query chunk
         # over a ~3,000-token prefix (single-rank and rank form) and a
         # warm admission's 128-token tail over a 768-token prefix.
         out[f"prefill-cow-c1-{dt}"] = prefill_plan(1, 16, 8, 128, 191, 16,
                                                    dt, sms)
-        out[f"prefill-ranks-cow-c1-{dt}"] = prefill_plan(1, 16, 8, 128,
-                                                         256, 16, dt, sms,
-                                                         3)
+        out[f"prefill-ranks-cow-c1-{dt}"] = rank_prefill_plan(
+            1, 16, 8, 128, 256, 16, dt, sms, 3, False)
         out[f"prefill-warm-c128-{dt}"] = prefill_plan(128, 16, 8, 128, 51,
                                                       16, dt, sms)
     return out
@@ -1249,14 +1327,13 @@ def global_serving_phase(params, cfg, device, prompt_lens, n_new):
     if max(spy.stripes) < 2:
         raise AssertionError(f"no prompt striped across >= 2 creditors "
                              f"({spy.stripes})")
-    check_counts(counts, ("paged_micro_attention_ranks",
-                          "paged_prefill_attention_ranks"), device)
+    check_counts(counts, RANK_KERNELS, device)
     for name in ("paged_micro_attention", "paged_prefill_attention"):
         if served(counts, name, device):
             raise AssertionError(f"{name} ran on the global path")
     cl = server.cluster
     steps = decode_steps(server)
-    per_step = served(counts, "paged_micro_attention_ranks", device) / steps
+    per_step = served(counts, RANK_KERNELS[0], device) / steps
     if per_step != cfg.num_layers:
         raise AssertionError(f"{per_step} decode launches per engine step, "
                              f"not one per layer ({cfg.num_layers})")
@@ -1290,28 +1367,32 @@ def bs128_config(global_pool: bool):
 
 class SubBlockSpy:
     """Every prefill-kernel launch's block sizes and pool addresses as the
-    wrappers present them (``micro_attn_prefill._checked``), and, for the
-    first launch of each form, the kernel's partials against the plain
-    version on the same (128-token-block) inputs."""
+    wrappers present them — the single-rank kernel through its 64-token
+    sub-block views (``micro_attn_prefill._checked``), the merged rank
+    kernel on the pool itself — and, for the first launch of each form,
+    the kernel's partials against the plain version on the same
+    (128-token-block) inputs."""
 
     def __enter__(self):
         from repro_torch.kernels import micro_attn_prefill as mp_, ops
         self.mods = (mp_, ops)
         self.orig = (mp_._checked, ops.paged_prefill_attention_cuda,
-                     ops.paged_prefill_attention_ranks_cuda)
+                     ops.paged_prefill_attention_ranks_merged_cuda)
         self.calls, self.errs = [], {}
         checked, one, ranks = self.orig
         spy = self
 
-        def spy_checked(q, pool_k, pool_v, tables, tails, *, ranked):
-            out = checked(q, pool_k, pool_v, tables, tails, ranked=ranked)
-            spy.calls.append((pool_k.shape[-3], out[1].shape[-3],
-                              out[1].data_ptr() == pool_k.data_ptr()
-                              and out[2].data_ptr() == pool_v.data_ptr()))
+        def spy_checked(q, pool_k, pool_v, table, tail):
+            out = checked(q, pool_k, pool_v, table, tail)
+            spy.calls.append((pool_k.shape[-3], out[0].shape[-3],
+                              out[0].data_ptr() == pool_k.data_ptr()
+                              and out[1].data_ptr() == pool_v.data_ptr()))
             return out
 
-        def checked_once(name, fn, plain):
+        def checked_once(name, fn, plain, in_place=False):
             def call(q, pk, pv, table, tail, *, scale):
+                if in_place:
+                    spy.calls.append((pk.shape[-3], pk.shape[-3], True))
                 got = fn(q, pk, pv, table, tail, scale=scale)
                 if name not in spy.errs and bool((table >= 0).any()):
                     spy.errs[name] = compare(got, plain(
@@ -1321,26 +1402,28 @@ class SubBlockSpy:
         mp_._checked = spy_checked
         ops.paged_prefill_attention_cuda = checked_once(
             "single", one, mp_.paged_prefill_attention_plain)
-        ops.paged_prefill_attention_ranks_cuda = checked_once(
-            "ranks", ranks, mp_.paged_prefill_attention_ranks_plain)
+        ops.paged_prefill_attention_ranks_merged_cuda = checked_once(
+            "ranks_merged", ranks,
+            mp_.paged_prefill_attention_ranks_merged_plain, in_place=True)
         return self
 
     def __exit__(self, *exc):
         mp_, ops = self.mods
         (mp_._checked, ops.paged_prefill_attention_cuda,
-         ops.paged_prefill_attention_ranks_cuda) = self.orig
+         ops.paged_prefill_attention_ranks_merged_cuda) = self.orig
 
 
 def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
     """qwen3 served with 128-token blocks (``bs128_config``): every
     request finishes, the longest prompt stripes over two creditors, the
     paged prefill kernel launches on 64-token sub-block views of the
-    pool (never a copy), its first launch within 1e-4 of the plain
+    pool (the merged rank kernel, global: on the 128-token blocks
+    themselves; never a copy), its first launch within 1e-4 of the plain
     version, and no plain version runs."""
     from repro_torch.kernels import ops
     prompts = make_prompts(cfg, prompt_lens, 7)
     config = bs128_config(global_pool)
-    kernels = (("paged_micro_attention_ranks", "paged_prefill_attention_ranks")
+    kernels = (RANK_KERNELS
                if global_pool else
                ("paged_micro_attention", "paged_prefill_attention"))
     reset_peak_memory()
@@ -1354,13 +1437,13 @@ def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
     if max(spy.stripes) < 2:
         raise AssertionError(f"bs 128: no prompt striped over >= 2 "
                              f"creditors ({spy.stripes})")
-    if not sub.calls or any(c != (128, 64, True) for c in sub.calls):
-        raise AssertionError(f"bs 128: prefill launches not on 64-token "
-                             f"sub-block views of the pool: "
+    read_as = (128, 128 if global_pool else 64, True)
+    if not sub.calls or any(c != read_as for c in sub.calls):
+        raise AssertionError(f"bs 128: prefill launches not on "
+                             f"{read_as[1]}-token blocks of the pool: "
                              f"{sorted(set(sub.calls))}")
     if served(counts, kernels[1], device) != len(sub.calls):
-        raise AssertionError("bs 128: a prefill launch bypassed the "
-                             "sub-block view")
+        raise AssertionError("bs 128: a prefill launch bypassed the spy")
     err = max(sub.errs.values())
     if err > TOL:
         raise AssertionError(f"bs 128: the prefill kernel {err} from plain")
@@ -1419,7 +1502,7 @@ def check_all_free(cluster) -> None:
 def check_path_kernels(counts, global_pool, device) -> None:
     """The pooled path's prefill-chunk and decode kernels (rank forms in
     global mode) ran, and no plain version did."""
-    names = (("paged_micro_attention_ranks", "paged_prefill_attention_ranks")
+    names = (RANK_KERNELS
              if global_pool else
              ("paged_micro_attention", "paged_prefill_attention"))
     check_counts(counts, names, device)
@@ -1891,7 +1974,7 @@ def fault_phase(params, cfg, device, global_pool: bool, prompt_lens,
                                     for e in cl.engines.values()):
         raise AssertionError("a pool tensor was reallocated")
     check_path_kernels(counts, global_pool, device)
-    names = (("paged_micro_attention_ranks", "paged_prefill_attention_ranks")
+    names = (RANK_KERNELS
              if global_pool else
              ("paged_micro_attention", "paged_prefill_attention"))
     for name in names:
@@ -3109,14 +3192,12 @@ def check_mesh_serve(runs, world, layers, device, *, gate_remote):
                                  f"ranks, not {4 // world}")
         if run["pool_copy_steps"]:
             raise AssertionError(f"process {r}: a step reallocated the slab")
-        check_counts(run["counts"], ("paged_micro_attention_ranks",
-                                     "paged_prefill_attention_ranks"),
-                     device)
+        check_counts(run["counts"], RANK_KERNELS, device)
         for name in ("paged_micro_attention", "paged_prefill_attention"):
             if served(run["counts"], name, device):
                 raise AssertionError(f"process {r}: {name} ran on the mesh "
                                      f"path")
-        per_step = served(run["counts"], "paged_micro_attention_ranks",
+        per_step = served(run["counts"], RANK_KERNELS[0],
                           device) / run["decode_steps"]
         if per_step != layers:
             raise AssertionError(f"process {r}: {per_step} decode launches "
@@ -3174,7 +3255,7 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
             "moves_during_decode": s0["moves"],
             "decode_steps": s0["decode_steps"], "cluster_steps": steps,
             "decode_launches_per_step": served(
-                s0["counts"], "paged_micro_attention_ranks", device)
+                s0["counts"], RANK_KERNELS[0], device)
             / s0["decode_steps"],
             "traffic": s0["traffic"],
             "broadcast_bytes_per_remote_leg":
@@ -3188,8 +3269,7 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
                 | {"collective_s_per_cluster_step":
                    sum(run["collective_s"].values()) / steps,
                    "launches": {n: run["counts"][n]["launches"] for n in
-                                ("paged_micro_attention_ranks",
-                                 "paged_prefill_attention_ranks")}}
+                                RANK_KERNELS}}
                 for run in serve]}
         report["layouts"][str(world)]["serve_layout"] = sl_mesh_check(
             runs, world, job, device, sl_single)
@@ -3372,14 +3452,14 @@ def check_decode_counts(counts, layers, device):
     """Each decode step launched the decode rank kernel once a layer and
     nothing else: no plain version, no single-rank kernel, no prefill."""
     for i, c in enumerate(counts):
-        if served(c, "paged_micro_attention_ranks", device) != layers:
+        if served(c, RANK_KERNELS[0], device) != layers:
             raise AssertionError(f"decode step {i}: {c} (want {layers} "
                                  f"rank launches)")
         for name, v in c.items():
             if device.type == "cuda" and v["plain_calls"]:
                 raise AssertionError(f"decode step {i}: {name} ran its "
                                      f"plain version")
-            if name != "paged_micro_attention_ranks" and \
+            if name != RANK_KERNELS[0] and \
                     served(c, name, device):
                 raise AssertionError(f"decode step {i}: {name} ran")
 
@@ -3512,7 +3592,7 @@ def sl_decode_phase(params, cfg, device, sh, layout, rep, first, pools,
         streams[opt] = out
         rep["decode_opt" if opt else "decode_write"] = dict(
             tbt_numbers(secs, B), steps=sh["steps"], context=S, MB=MB,
-            rank_launches=sum(served(c, "paged_micro_attention_ranks",
+            rank_launches=sum(served(c, RANK_KERNELS[0],
                                      device) for c in counts))
     if not np.array_equal(streams[False][0], streams[True][0]):
         raise AssertionError(f"the schedules' first tokens differ: "
@@ -3526,8 +3606,8 @@ def sl_long_phase(params, cfg, device, sh, layout):
     """(c): long_500k, R = 1 over the whole seeded pool, each schedule;
     one layer's launch against its plain version."""
     from repro_torch.kernels.micro_attn_decode import (
-        paged_micro_attention_ranks_plain)
-    from repro_torch.kernels.ops import paged_micro_attention_ranks
+        paged_micro_attention_ranks_merged_plain)
+    from repro_torch.kernels.ops import paged_micro_attention_ranks_merged
     cuda = device.type == "cuda"
     L, bs = cfg.num_layers, sh["bs"]
     long = {}
@@ -3554,7 +3634,7 @@ def sl_long_phase(params, cfg, device, sh, layout):
         firsts.append(int(out[0, 0]))
         long["opt" if opt else "write"] = dict(
             tbt_numbers(secs, 1), steps=sh["long_steps"],
-            rank_launches=sum(served(c, "paged_micro_attention_ranks",
+            rank_launches=sum(served(c, RANK_KERNELS[0],
                                      device) for c in counts),
             tbt_p50_over_bound=float(np.median(secs)) * 1e3
             / long["bound_ms_per_step"])
@@ -3569,15 +3649,15 @@ def sl_long_phase(params, cfg, device, sh, layout):
                     generator=torch.Generator(device=device).manual_seed(9),
                     device=device).to(pools[0].dtype)
     pk, pv = pools[0][L // 2], pools[1][L // 2]
-    got = paged_micro_attention_ranks(q, pk, pv, tb_d, tl_d)
+    got = paged_micro_attention_ranks_merged(q, pk, pv, tb_d, tl_d)
     sync(device)
-    want = paged_micro_attention_ranks_plain(q, pk, pv, tb_d, tl_d,
-                                             scale=cfg.head_dim ** -0.5)
+    want = paged_micro_attention_ranks_merged_plain(
+        q, pk, pv, tb_d, tl_d, scale=cfg.head_dim ** -0.5)
     long["layer_launch_max_abs_err"] = compare(got, want, TOL)
     if cuda:
         long["layer_launch_ms"] = time_ms(
-            lambda: paged_micro_attention_ranks(q, pk, pv, tb_d, tl_d),
-            iters=10)
+            lambda: paged_micro_attention_ranks_merged(q, pk, pv, tb_d,
+                                                       tl_d), iters=10)
         long["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         if long["peak_mem_bytes"] >= 80e9:
             raise AssertionError(f"peak memory {long['peak_mem_bytes']}")
@@ -4726,8 +4806,7 @@ def ext_check(runs, key, device, layers, single=None, params32=None,
                                  f"process in {bad}")
         counts = [m[name]["counts"] for _, m in jobs]
         for c in counts:
-            check_counts(c, ("paged_micro_attention_ranks",
-                             "paged_prefill_attention_ranks"), device)
+            check_counts(c, RANK_KERNELS, device)
             for n in ("paged_micro_attention", "paged_prefill_attention"):
                 if served(c, n, device):
                     raise AssertionError(f"{key} {name}: {n} ran")
@@ -4744,7 +4823,7 @@ def ext_check(runs, key, device, layers, single=None, params32=None,
                 raise AssertionError(f"{key} {name}: {flips} tokens differ "
                                      f"from the dense oracle")
         steps = [max(1, served(m[name]["counts"],
-                              "paged_micro_attention_ranks", device)
+                              RANK_KERNELS[0], device)
                      / layers) for _, m in jobs]
         rep[name] = {
             **{k: summ[k] for k in ("states", "replays", "preemptions",
@@ -5085,12 +5164,16 @@ def main(argv=None) -> int:
     report["kernel_cases"] = rows
     for r in rows:
         extra = "".join(f" {k}={r[k]:.4g}" for k in
-                        ("ms", "graph_ms", "nr_launch_ms",
-                         "nr_launch_graph_ms", "plain_ms", "library_ms",
-                         "library_graph_ms", "bound_ms")
+                        ("ms", "graph_ms", "merged_ms", "merged_graph_ms",
+                         "stacked_merge_ms", "stacked_merge_graph_ms",
+                         "nr_launch_ms", "nr_launch_graph_ms", "plain_ms",
+                         "library_ms", "library_graph_ms", "bound_ms")
                         if k in r)
         if "library_kernels" in r:
             extra += f" library_kernels={r['library_kernels'][:3]}"
+        if "merged_max_abs_err" in r:
+            extra = f" merged_max_abs_err={r['merged_max_abs_err']:.3g}" + \
+                extra
         print(f"kernel {r['case']}: max_abs_err={r['max_abs_err']:.3g} "
               f"tol={r['tol']}{extra}", flush=True)
     mark("kernels")
@@ -5383,16 +5466,17 @@ def main(argv=None) -> int:
     check_released(report, "qwen3-0.6b restart")
 
     # Launches: each kernel's count from the run of ITS main path: the
-    # single-rank paged kernels from qwen3's per-instance phase, the rank
-    # forms from qwen2-moe's global phase, flash from the hybrid phase.
+    # single-rank paged kernels from qwen3's per-instance phase, the
+    # merged rank forms from qwen2-moe's global phase, flash from the
+    # hybrid phase. (The stacked rank forms run on no served path; their
+    # rows ride in the merged entries' "stacked" field.)
     launches = {name: serving["counts"][name]["launches"]
                 for name in ("paged_micro_attention",
                              "paged_prefill_attention")}
-    # The rank forms also run in every process of the mesh phase (its
-    # served main path, both layouts): each process's own count, apart.
+    # The merged rank forms also run in every process of the mesh phase
+    # (its served main path, both layouts): each process's own count.
     mesh_launches = {}
-    for name in ("paged_micro_attention_ranks",
-                 "paged_prefill_attention_ranks"):
+    for name in RANK_KERNELS:
         launches[name] = moe["counts"][name]["launches"]
         mesh_launches[name] = [
             pp["launches"][name] for lay in report["mesh"]["layouts"].values()
@@ -5404,8 +5488,7 @@ def main(argv=None) -> int:
     ext_launches = {name: {case: [pp["launches"][name]
                                   for pp in rep["per_process"]]
                            for case, rep in report["mesh"]["ext"].items()}
-                    for name in ("paged_micro_attention_ranks",
-                                 "paged_prefill_attention_ranks")}
+                    for name in RANK_KERNELS}
     state_flash = [{"mesh": r["mesh"], "layers": r["layers"],
                     "heads": r["flash_heads"],
                     "launches": r["flash_launches"]}
@@ -5418,9 +5501,11 @@ def main(argv=None) -> int:
     def sl_rows(*keys):
         return {main[k]["case"]: {f: main[k][f] for f in (
             "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms") if f in main[k]} for k in keys}
+            "bound_by", "library_ms", "merged_max_abs_err", "merged_ms",
+            "merged_graph_ms", "stacked_merge_ms", "stacked_merge_graph_ms",
+            "merged_bound_ms") if f in main[k]} for k in keys}
     sl_extra = {
-        "paged_micro_attention_ranks": {
+        RANK_KERNELS[0]: {
             "serve_layout_launches": {
                 f"{part}_{sched}": sl_part[sched]["rank_launches"]
                 for part, sl_part in (("decode_32k", sl),
@@ -5442,9 +5527,9 @@ def main(argv=None) -> int:
             "bs128_launches": report["bs128"]["counts"][
                 "paged_prefill_attention"]["launches"],
             "bs128_rows": sl_rows("prefill_bs128")},
-        "paged_prefill_attention_ranks": {
+        RANK_KERNELS[1]: {
             "bs128_launches": report["bs128_global"]["counts"][
-                "paged_prefill_attention_ranks"]["launches"],
+                RANK_KERNELS[1]]["launches"],
             "bs128_rows": sl_rows("prefill_ranks_bs128")}}
     # The four configs' served path: the paged kernels' launches in
     # each config's run, and their rows at its heads; flash's launches
@@ -5470,10 +5555,10 @@ def main(argv=None) -> int:
                "prefill": ("paged_prefill_attention",
                            "src/repro_torch/csrc/micro_attn_prefill.cu",
                            "src/repro/kernels/micro_attn_prefill.py:89"),
-               "decode_ranks": ("paged_micro_attention_ranks",
+               "decode_ranks": (RANK_KERNELS[0],
                                 "src/repro_torch/csrc/micro_attn_decode.cu",
                                 "src/repro/kernels/ops.py:182"),
-               "prefill_ranks": ("paged_prefill_attention_ranks",
+               "prefill_ranks": (RANK_KERNELS[1],
                                  "src/repro_torch/csrc/micro_attn_prefill.cu",
                                  "src/repro/kernels/ops.py:198"),
                "flash": ("flash_prefill",
@@ -5482,17 +5567,35 @@ def main(argv=None) -> int:
     kernels = []
     for key, (name, src, replaces) in sources.items():
         r = main[key]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
-        kernels[-1].update({k: r[k] for k in ("graph_ms", "library_graph_ms",
-                                              "nr_launch_ms",
-                                              "nr_launch_graph_ms")
-                            if k in r})
+        if name in RANK_KERNELS:
+            # The merged entry's own numbers; the stacked form's beside
+            # them, and the stacked form + merge_partials it replaces.
+            kernels.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": r["merged_max_abs_err"],
+                "ms": r["merged_ms"], "plain_ms": r["merged_plain_ms"],
+                "bound_ms": r["merged_bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "graph_ms": r["merged_graph_ms"],
+                "library_graph_ms": r["library_graph_ms"],
+                "stacked_merge_ms": r["stacked_merge_ms"],
+                "stacked_merge_graph_ms": r["stacked_merge_graph_ms"],
+                "stacked": {k: r[k] for k in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "nr_launch_ms", "nr_launch_graph_ms")}})
+        else:
+            kernels.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": replaces,
+                            "launches": launches[name],
+                            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                            "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"],
+                            "library_ms": r["library_ms"]})
+            kernels[-1].update({k: r[k] for k in ("graph_ms",
+                                                  "library_graph_ms")
+                                if k in r})
         if name in mesh_launches:
             kernels[-1]["mesh_launches"] = mesh_launches[name]
             kernels[-1]["mesh_ext_launches"] = ext_launches[name]

@@ -8,14 +8,42 @@
 // slot is partial (tail_len[r] tokens). Output: unnormalized o [R, H, D]
 // and m, l [R, H], all float32; an empty table gives (0, -inf, 0).
 //
-// Rank axis: one launch covers NR rank pools, each a [NB, bs, K, D] slab
-// rank_stride elements after the previous one (a per-layer view of the
-// global pool [NR, L, NB, bs, K, D] is not contiguous; it is read in
-// place, never copied). q [R, H, D] is shared by every rank; tables
-// [NR, R, MB], tails [NR, R] and the outputs [NR, R, ...] are stacked.
-// grid.z enumerates (rank, split); every block offsets its pool, table,
-// tails, outputs, scratch slice and ticket counters by its rank. A rank
-// whose table row is empty reads no K/V and yields (0, -inf, 0).
+// The rank kernel (paged_decode_ranks_kernel, below) replaces the JAX
+// package's vmap of that kernel over the global pool's rank axis: one
+// launch covers NR rank pools, each a [NB, bs, K, D] slab rank_stride
+// elements after the previous one (a per-layer view of the global pool
+// [NR, L, NB, bs, K, D] is not contiguous; it is read in place, never
+// copied). q [R, H, D] is shared by every rank; tables [NR, R, MB] and
+// tails [NR, R]. Outputs: stacked, one partial a (rank, request) [NR, R,
+// ...]; or merged, the ranks' partials LSE-merged in the launch [R, ...]
+// (what the global pool's steps take). Its bound is the same HBM bytes,
+// but where the bytes lie is known only on the card: in the paper's
+// layout most of a request's KV sits on one rank (the owner's or one
+// creditor's), so a split of every (rank, request) into equal runs of
+// table slots, planned from shapes, leaves most blocks idle and a few
+// walking thousands of tokens (qwen2-moe's global decode: 7 of 12
+// (rank, request) pairs empty, one block a head walking 2,048 tokens
+// against a mean of 192). The rank design:
+// - Units of valid tokens, planned on the card (paged_attn.cuh): every
+//   block finds each (rank, request)'s valid tokens from its table (an
+//   L-ary search of the prefix-contiguous slots) and tail, cuts them into
+//   units of at most U = 256 tokens and takes an equal share of all
+//   groups' units, so no block walks more than ceil(units / blocks)
+//   units however the KV is spread, and an empty pair reads no K/V. No
+//   host read, no synchronization: the launch is persistent blocks, 3
+//   an SM, from the shapes and the SM count (rank_decode_plan).
+// - Units address tokens, not slots: a tile's pool rows (table[t / bs]
+//   * bs + t % bs, on the tile's rank) are resolved two tiles ahead into
+//   a ring in shared memory, so a block's walk crosses ranks and blocks
+//   of any size without a copy of the tables.
+// - The merge in the launch: a block stores one partial for each run of
+//   one group's units it walked; the last of a group's partials to
+//   arrive (ticket counter) LSE-merges them over every rank, and a group
+//   with one partial is stored straight to the outputs. This folds the
+//   rank merge (merge_partials over the stack, ~8 operations a layer)
+//   into the launch.
+// - The inner loop is the split-KV kernel's: CUDA cores, the cp.async
+//   ring, GT query heads a K/V tile.
 //
 // Bound on the H100: HBM bytes. Each step reads every valid K/V row once,
 // R * S * K * D * 2 * itemsize bytes, against ~4 FLOPs per KV element, far
@@ -399,6 +427,310 @@ __global__ void __launch_bounds__(WARPS * 32)
         sm_m);
 }
 
+// ---------------------------------------------------------------------
+// Rank forms: persistent blocks over units of valid tokens.
+// ---------------------------------------------------------------------
+constexpr int RING = 3;  // tiles whose pool rows are resolved
+
+template <typename T, int DMAX>
+inline size_t rank_smem_bytes(int D, int GT, int R, int npair, int P) {
+  return static_cast<size_t>(2 * STAGES * tile_tokens<T, DMAX>()) *
+             row_stride<T>(D) * sizeof(T) +
+         sizeof(float) * GT * D +
+         sizeof(int) * (RING * tile_tokens<T, DMAX>() + RING + npair + P +
+                        1 + 3 * (npair / R) + 2);
+}
+
+// The tile loop, the warps' merge and the loads of paged_decode_kernel,
+// over a segment of units (paged_attn.cuh) instead of a split of slots:
+// the K/V tiles' pool rows are resolved from the tables two tiles ahead
+// into a ring (rows_s, with each tile's rank in rank_s), a tile may lie on
+// any rank of the segment's group, and the block moves on to its next
+// segment after storing this one's partial.
+template <typename T, int GT, int DMAX>
+__global__ void __launch_bounds__(WARPS * 32)
+    paged_decode_ranks_kernel(const T* __restrict__ q,
+                              const T* __restrict__ pool_k,
+                              const T* __restrict__ pool_v,
+                              const int* __restrict__ table,
+                              const int* __restrict__ tail,
+                              float* __restrict__ o,
+                              float* __restrict__ m_out,
+                              float* __restrict__ l_out,
+                              float* __restrict__ ws,
+                              unsigned* __restrict__ tickets, int NR, int R,
+                              int H, int K, int D, int bs, int MB, int U,
+                              int stacked, long long rank_stride,
+                              float scale) {
+  constexpr int TT = tile_tokens<T, DMAX>();  // tokens a tile
+  constexpr int TPW = TT / WARPS;
+  constexpr int LPT = 32 / TPW;
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int EPL = DMAX / 32;
+  constexpr int MAXC = DMAX / VEC / LPT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int DS = row_stride<T>(D);
+  T* k_s = reinterpret_cast<T*>(smem_raw);      // [STAGES][TT][DS]
+  T* v_s = k_s + STAGES * TT * DS;              // [STAGES][TT][DS]
+  float* q_s = reinterpret_cast<float*>(v_s + STAGES * TT * DS);  // [GT][D]
+  int* rows_s = reinterpret_cast<int*>(q_s + GT * D);  // [RING][TT]
+  int* rank_s = rows_s + RING * TT;                    // [RING]
+  int* S_s = rank_s + RING;                            // [NR * R]
+  int* cum_s = S_s + NR * R;                           // [P + 1]
+  int* span_s = cum_s + (stacked ? NR * R : R) + 1;    // [NR][3]
+  int* info_s = span_s + 3 * NR;                       // [2]
+
+  const int G = H / K;
+  const int ngroups = (G + GT - 1) / GT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int B = gridDim.x;
+  const paged_attn::UnitPlan pl =
+      paged_attn::plan_units(table, tail, NR, R, MB, bs, U, K * ngroups,
+                             stacked != 0, S_s, cum_s);
+  const size_t tok_stride = static_cast<size_t>(K) * D;
+  const int nchk = D / VEC;
+  const size_t W = paged_attn::part_row(D);
+
+  // Output rows of group g (merge row rho, head group h): rho * H + the
+  // group's first head; the q rows: request r's.
+  auto heads = [&](int h, int& ng) {
+    const int kh = h / ngroups, g0 = (h - kh * ngroups) * GT;
+    ng = min(GT, G - g0);
+    return kh * G + g0;
+  };
+  // Groups with no valid token on any of their ranks: (0, -inf, 0).
+  for (int g = blockIdx.x; g < pl.P * pl.HG; g += B) {
+    const int rho = g / pl.HG;
+    if (pl.group_units(rho) != 0) continue;
+    int ng;
+    const size_t h0 =
+        static_cast<size_t>(rho) * H + heads(g - rho * pl.HG, ng);
+    for (int i = tid; i < ng * D; i += blockDim.x) o[h0 * D + i] = 0.f;
+    if (tid < ng) {
+      m_out[h0 + tid] = -CUDART_INF_F;
+      l_out[h0 + tid] = 0.f;
+    }
+  }
+
+  const int tw = warp * TPW + lane % TPW;
+  const int sub = lane / TPW;
+  const int e0 = lane * EPL;
+  const int rpp = blockDim.x / nchk;  // tokens a load pass
+  const int my_ch = tid % nchk, my_tok = tid / nchk;
+  long long p, p1;
+  pl.block_units(blockIdx.x, p, p1);
+  while (p < p1) {
+    const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
+    int ng;
+    const int hoff = heads(sg.h, ng);
+    const size_t h0 = static_cast<size_t>(sg.rho) * H + hoff;  // outputs
+    const size_t hq = static_cast<size_t>(sg.r) * H + hoff;    // q rows
+    const int kh = hoff / G;
+    __syncthreads();  // the previous segment is done with shared memory
+    for (int i = tid; i < GT * D; i += blockDim.x)
+      q_s[i] = i < ng * D ? paged_attn::to_f32(q[hq * D + i]) : 0.f;
+    paged_attn::segment_spans<TT>(pl, sg, span_s, info_s);
+    const int ntiles = info_s[1];
+
+    // Resolve tile j's pool rows (the walk is at tile j): block * bs +
+    // offset within the tile's rank slab, -1 past the valid tokens.
+    paged_attn::TileWalk<TT> walk;
+    walk.start(span_s, info_s[0]);
+    auto resolve = [&](int j) {
+      if (tid < TT) {
+        const int t = walk.t + tid;
+        int row = -1;
+        if (walk.valid() && t < walk.t_end()) {
+          const int* tab =
+              table + (static_cast<size_t>(walk.k()) * R + sg.r) * MB;
+          const int blk = tab[t / bs];
+          if (blk >= 0) row = blk * bs + t % bs;
+        }
+        rows_s[(j % RING) * TT + tid] = row;
+        if (tid == 0) rank_s[j % RING] = walk.valid() ? walk.k() : 0;
+      }
+      walk.next();
+    };
+    auto load_tile = [&](int it) {
+      if (my_tok >= rpp) return;
+      const int st = it % STAGES;
+      const int* rows = rows_s + (it % RING) * TT;
+      const long long pool_off = rank_s[it % RING] * rank_stride;
+      const uint32_t kd = smem_addr(k_s + st * TT * DS + my_ch * VEC);
+      const uint32_t vd = smem_addr(v_s + st * TT * DS + my_ch * VEC);
+      const size_t col = static_cast<size_t>(kh) * D + my_ch * VEC;
+      for (int tok = my_tok; tok < TT; tok += rpp) {
+        const int row = rows[tok];
+        const size_t off = row >= 0 ? row * tok_stride + col : 0;
+        const int bytes = row >= 0 ? 16 : 0;
+        cp_async16(kd + sizeof(T) * tok * DS, pool_k + pool_off + off, bytes);
+        cp_async16(vd + sizeof(T) * tok * DS, pool_v + pool_off + off, bytes);
+      }
+    };
+    resolve(0);
+    resolve(1);
+    __syncthreads();  // q_s and the first rows written
+    if (ntiles > 0) load_tile(0);
+    cp_async_commit();
+
+    float m[GT], l[GT], acc[GT][EPL];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      m[g] = -CUDART_INF_F;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      if (it + 1 < ntiles) {
+        load_tile(it + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      if (it + 2 < ntiles) resolve(it + 2);
+      __syncthreads();
+      const T* kt = k_s + st * TT * DS;
+      const T* vt = v_s + st * TT * DS;
+      float part[GT];
+#pragma unroll
+      for (int g = 0; g < GT; ++g) part[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        const int c = sub + j * LPT;
+        if (c < nchk) {
+          float kv[VEC];
+          load_vec<VEC>(kt + tw * DS + c * VEC, kv);
+#pragma unroll
+          for (int g = 0; g < GT; ++g) {
+            float qv[VEC];
+            load_vec<VEC>(q_s + g * D + c * VEC, qv);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+              part[g] = fmaf(qv[i], kv[i], part[g]);
+          }
+        }
+      }
+      const bool ok = rows_s[(it % RING) * TT + tw] >= 0;
+      float pr[GT];
+      bool rescale = false;
+      float alpha[GT];
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+#pragma unroll
+        for (int off = TPW; off < 32; off <<= 1)
+          part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
+        const float sc = ok ? part[g] * scale : -CUDART_INF_F;
+        float mx = sc;
+#pragma unroll
+        for (int off = 1; off < TPW; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[g], mx);
+        alpha[g] = m[g] == m_new ? 1.f
+                   : m[g] == -CUDART_INF_F ? 0.f
+                                           : exp2f((m[g] - m_new) * LOG2E);
+        rescale |= alpha[g] != 1.f;
+        pr[g] = ok ? exp2f((sc - m_new) * LOG2E) : 0.f;
+        float sum = pr[g];
+#pragma unroll
+        for (int off = 1; off < TPW; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        m[g] = m_new;
+        l[g] = l[g] * alpha[g] + sum;
+      }
+      if (rescale) {
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha[g];
+      }
+#pragma unroll 4
+      for (int j = 0; j < TPW; ++j) {
+        float pj[GT];
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          pj[g] = __shfl_sync(0xffffffffu, pr[g], j);
+        if (e0 < D) {
+          float vv[EPL];
+          load_vec<EPL>(vt + (warp * TPW + j) * DS + e0, vv);
+#pragma unroll
+          for (int g = 0; g < GT; ++g)
+#pragma unroll
+            for (int e = 0; e < EPL; ++e)
+              acc[g][e] = fmaf(pj[g], vv[e], acc[g][e]);
+        }
+      }
+      __syncthreads();  // every warp is done with slot st before its reload
+    }
+    cp_async_wait<0>();
+
+    // The warps' partials, LSE-merged through shared memory (the K tiles'
+    // space), to the outputs (the group's only partial) or to the block's
+    // scratch slot b + g ([slot][GT][part_row(D)]).
+    const int pfirst = pl.block_of(sg.first);
+    const int parts = pl.block_of(sg.end - 1) - pfirst + 1;
+    float* sm_m = reinterpret_cast<float*>(smem_raw);
+    float* sm_l = sm_m + WARPS * GT;
+    float* sm_acc = sm_l + WARPS * GT;
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      if (lane == 0) {
+        sm_m[warp * GT + g] = m[g];
+        sm_l[warp * GT + g] = l[g];
+      }
+      if (e0 < D) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          sm_acc[(warp * GT + g) * D + e0 + e] = acc[g][e];
+      }
+    }
+    __syncthreads();
+    const size_t slot_stride = GT * W;
+    float* po = o + h0 * D;
+    float* pm = m_out + h0;
+    float* pls = l_out + h0;
+    size_t ostride = D, sstride = 1;
+    if (parts > 1) {
+      po = ws + (static_cast<size_t>(blockIdx.x) + sg.g) * slot_stride;
+      pm = po + D;
+      pls = po + D + 1;
+      ostride = sstride = W;
+    }
+    for (int idx = tid; idx < ng * (D + 1); idx += blockDim.x) {
+      const int g = idx / (D + 1), d = idx - g * (D + 1);
+      float mx = -CUDART_INF_F;
+      for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w * GT + g]);
+      float sum = 0.f;
+      if (mx != -CUDART_INF_F) {
+        for (int w = 0; w < WARPS; ++w) {
+          const float mw = sm_m[w * GT + g];
+          if (mw == -CUDART_INF_F) continue;
+          const float x = d < D ? sm_acc[(w * GT + g) * D + d]
+                                : sm_l[w * GT + g];
+          sum = fmaf(x, exp2f((mw - mx) * LOG2E), sum);
+        }
+      }
+      if (d < D) {
+        po[g * ostride + d] = sum;
+      } else {
+        pm[g * sstride] = mx;
+        pls[g * sstride] = sum;
+      }
+    }
+    if (parts > 1 && paged_attn::last_split_arrives(tickets + sg.g, parts))
+      paged_attn::merge_parts(
+          ws, slot_stride, pfirst + sg.g, parts, ng, D,
+          [h0](int i) { return static_cast<int>(h0) + i; }, o, m_out, l_out,
+          sm_m);
+    p = min(p1, sg.end);
+  }
+}
+
 struct Args {
   const void *q, *pk, *pv, *table, *tail;
   void *o, *m, *l, *ws, *tickets;
@@ -448,6 +780,55 @@ int launch_t(const Args& a, int heads_per_block, cudaStream_t s) {
   return launch_g<T, 256>(a, heads_per_block, s);
 }
 
+// The rank kernel's launch plan (kernels/micro_attn_decode.py::
+// rank_decode_plan).
+struct RankPlan {
+  int stacked, unit_tokens, blocks, heads_per_block, smem_bytes, n_tickets;
+};
+
+// Returns cudaErrorInvalidValue unless the plan is one this instantiation
+// launches: U a positive multiple of its tile, the caller's shared memory
+// its own, a ticket counter per merge group.
+template <typename T, int GT, int DMAX>
+int launch_ranks(const Args& a, const RankPlan& p, cudaStream_t stream) {
+  const int G = a.H / a.K;
+  const int npair = a.NR * a.R;
+  const int P = p.stacked ? npair : a.R;
+  const long groups = static_cast<long>(P) * a.K * ((G + GT - 1) / GT);
+  const size_t smem = rank_smem_bytes<T, DMAX>(a.D, GT, a.R, npair, P);
+  constexpr int TT = tile_tokens<T, DMAX>();
+  if (p.unit_tokens < TT || p.unit_tokens % TT || p.blocks < 1 ||
+      static_cast<size_t>(p.smem_bytes) != smem || groups > p.n_tickets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = paged_decode_ranks_kernel<T, GT, DMAX>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  kern<<<p.blocks, WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.pk),
+      static_cast<const T*>(a.pv), static_cast<const int*>(a.table),
+      static_cast<const int*>(a.tail), static_cast<float*>(a.o),
+      static_cast<float*>(a.m), static_cast<float*>(a.l),
+      static_cast<float*>(a.ws), static_cast<unsigned*>(a.tickets), a.NR,
+      a.R, a.H, a.K, a.D, a.bs, a.MB, p.unit_tokens, p.stacked,
+      a.rank_stride, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DMAX>
+int launch_ranks_g(const Args& a, const RankPlan& p, cudaStream_t s) {
+  if (p.heads_per_block == 1) return launch_ranks<T, 1, DMAX>(a, p, s);
+  if (p.heads_per_block == 2) return launch_ranks<T, 2, DMAX>(a, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_ranks_t(const Args& a, const RankPlan& p, cudaStream_t s) {
+  if (a.D <= 128) return launch_ranks_g<T, 128>(a, p, s);
+  return launch_ranks_g<T, 256>(a, p, s);
+}
+
 }  // namespace
 
 // C entry: returns cudaGetLastError() after the launch (0 = success).
@@ -477,4 +858,34 @@ extern "C" int paged_decode_launch(const void* q, const void* pool_k,
                n_tickets, scale};
   if (dtype == 1) return launch_t<__nv_bfloat16>(a, heads_per_block, s);
   return launch_t<float>(a, heads_per_block, s);
+}
+
+// C entry of the rank kernel: returns cudaGetLastError() after the launch
+// (0 = success). NR rank pools start rank_stride elements apart; tables
+// [NR, R, MB], tails [NR, R]; q [R, H, D] (dtype as paged_decode_launch).
+// stacked = 0: one partial a request over every rank, outputs [R, H, ...];
+// stacked = 1: one a (rank, request), outputs [NR, R, H, ...]. The caller
+// plans the launch (kernels/micro_attn_decode.py::rank_decode_plan):
+// unit_tokens U, blocks, heads_per_block (1 or 2) and the shared memory
+// that instantiation lays out; ws is a float32 scratch of blocks + groups
+// slots of heads_per_block * (D + 4) floats and tickets n_tickets zeroed
+// uint32 counters, at least one per merge group (R or NR * R, times K
+// times the query-head groups), which the kernel leaves at zero. Any other
+// plan, or NR < 1, returns cudaErrorInvalidValue.
+extern "C" int paged_decode_ranks_launch(
+    const void* q, const void* pool_k, const void* pool_v, const void* table,
+    const void* tail, void* o, void* m, void* l, void* ws, void* tickets,
+    int NR, int R, int H, int K, int D, int bs, int MB,
+    long long rank_stride, int stacked, int unit_tokens, int blocks,
+    int heads_per_block, int smem_bytes, int n_tickets, float scale,
+    int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (NR < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,  pool_k, pool_v, table, tail, o,  m,           l,
+               ws, tickets, NR,    R,     H,    K,  D,           bs,
+               MB, rank_stride, 1,  1,     n_tickets, scale};
+  const RankPlan p{stacked != 0, unit_tokens,    blocks,
+                   heads_per_block, smem_bytes, n_tickets};
+  if (dtype == 1) return launch_ranks_t<__nv_bfloat16>(a, p, s);
+  return launch_ranks_t<float>(a, p, s);
 }

@@ -1,7 +1,8 @@
 // Helpers shared by the port's attention kernels (paged decode and prefill,
 // flash prefill): cp.async copies, the bf16 tensor-core tile step of the
-// paged prefill-chunk and flash-prefill kernels, and the split-KV merge of
-// the two paged kernels.
+// paged prefill-chunk and flash-prefill kernels, the split-KV merge of the
+// two paged kernels, and the rank kernels' work plan (units of valid
+// tokens, planned on the card) and in-launch merge.
 //
 // Tensor-core tile step (FlashAttention-2 register layout, mma.sync
 // m16n8k16 bf16 -> fp32). A warp owns MT m16 tiles of query rows; q and a
@@ -433,6 +434,371 @@ __device__ void merge_splits(const float* ws, size_t split_stride,
       if (base + u * static_cast<int>(blockDim.x) >= total) break;
       *reinterpret_cast<float2*>(o + out[u]) = acc[u];
     }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Rank forms: work in units of valid tokens, planned on the device.
+// ---------------------------------------------------------------------
+// A rank kernel reads NR rank pools through tables [NR, R, MB] (the
+// prefill chunk: R = 1) whose valid slots form a prefix. Pair (rank k,
+// request r), index k * R + r, holds S valid tokens, cut into ceil(S / U)
+// units of at most U tokens ([j * U, min((j + 1) * U, S))). A merge row
+// rho is what one output row merges: the request r = rho over every rank
+// (merged), or the pair rho alone (stacked). Each merge row has HG head
+// groups (decode: kv head x query-head group; prefill: kv head x tile of
+// query rows); merge group g = rho * HG + h holds the units of its pairs,
+// rank by rank. The groups' units are numbered one after another (cum[rho]
+// is the first unit of merge row rho's groups), T in all, and block b of
+// the first B = min(gridDim.x, T) blocks takes units [b * T / B,
+// (b + 1) * T / B), none of them empty. So every block
+// walks at most ceil(T / B) units, whatever the spread over the ranks,
+// and its units are a few runs (segments) of consecutive units of one
+// group, each walked with one q tile and one online softmax and stored as
+// one partial. The partials of a group come from the consecutive blocks
+// [b_of(first unit), b_of(last unit)]; block b stores its partial of
+// group g in scratch slot b + g (unique: a block's groups follow the
+// previous block's), and the block that draws a group's last ticket
+// LSE-merges them. A group with one partial is stored straight to the
+// outputs; a group with no unit (no valid token on any of its ranks) is
+// written (0, -inf, 0) by block g % B. kernels/rank_units.py is this
+// plan in Python, held to its properties by the CPU tests.
+
+// Valid slots of a prefix-contiguous table row [MB], by an L-ary search
+// over the L lanes (a power of two <= 32) of one aligned group of a warp:
+// each step probes L slots spread over the unknown range and keeps the
+// part between the last valid probe and the first invalid one. Every lane
+// of the group (mask) must call it; all get the count.
+__device__ __forceinline__ int count_valid_slots(const int* row, int MB,
+                                                 int L, unsigned mask) {
+  const int lane = threadIdx.x & 31;
+  const int j = lane % L;
+  const int shift = lane - j;  // the group's first lane
+  int lo = 0, hi = MB;         // slots < lo valid, slots >= hi not
+  while (lo < hi) {
+    const long long n = hi - lo;
+    auto probe = [&](int i) {
+      return lo + static_cast<int>((i + 1) * n / (L + 1));
+    };
+    const bool ok = row[probe(j)] >= 0;
+    const int c = __popc((__ballot_sync(mask, ok) & mask) >> shift);
+    if (c == 0) {
+      hi = probe(0);
+    } else {
+      const int nlo = probe(c - 1) + 1;
+      if (c < L) hi = probe(c);
+      lo = nlo;
+    }
+  }
+  return lo;
+}
+
+// The plan in shared memory: S[pair] valid tokens, cum[rho] (P + 1
+// entries) first unit of merge row rho; T units in all.
+struct UnitPlan {
+  const int* S;
+  const int* cum;
+  int NR, R, U, HG, P, T;
+  bool stacked;
+  __device__ int rank_lo(int rho) const { return stacked ? rho / R : 0; }
+  __device__ int rank_hi(int rho) const { return stacked ? rho / R + 1 : NR; }
+  __device__ int request(int rho) const { return stacked ? rho % R : rho; }
+  __device__ int units(int pair) const { return (S[pair] + U - 1) / U; }
+  // Units of each of merge row rho's groups.
+  __device__ int group_units(int rho) const {
+    return (cum[rho + 1] - cum[rho]) / HG;
+  }
+  // Blocks that take units: none takes none.
+  __device__ int busy_blocks() const {
+    return min(static_cast<int>(gridDim.x), max(T, 1));
+  }
+  // Units [p0, p1) of block b (empty past the busy blocks).
+  __device__ void block_units(int b, long long& p0, long long& p1) const {
+    const int B = busy_blocks();
+    p0 = b < B ? static_cast<long long>(b) * T / B : 0;
+    p1 = b < B ? static_cast<long long>(b + 1) * T / B : 0;
+  }
+  // The block holding unit p.
+  __device__ int block_of(long long p) const {
+    return static_cast<int>(((p + 1) * busy_blocks() - 1) / T);
+  }
+  // Merge row of unit p (< T): the last rho with cum[rho] <= p.
+  __device__ int row_of(long long p) const {
+    int a = 0, b = P;  // cum[a] <= p < cum[b]
+    while (b - a > 1) {
+      const int mid = (a + b) >> 1;
+      if (cum[mid] <= p) a = mid; else b = mid;
+    }
+    return a;
+  }
+};
+
+// Every thread of the block: the valid tokens of every pair (tables
+// [NR * R][MB], tails [NR * R]), then the merge rows' first units.
+// S: NR * R ints, cum: P + 1 ints of shared memory.
+__device__ __forceinline__ UnitPlan plan_units(const int* __restrict__ table,
+                                               const int* __restrict__ tail,
+                                               int NR, int R, int MB, int bs,
+                                               int U, int HG, bool stacked,
+                                               int* S, int* cum) {
+  const int npair = NR * R;
+  const int P = stacked ? npair : R;
+  int L = 32;  // lanes a pair's search
+  while (L > 1 && L * npair > static_cast<int>(blockDim.x)) L >>= 1;
+  const int lane = threadIdx.x & 31;
+  const unsigned mask =
+      L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane - lane % L);
+  const int per_pass = blockDim.x / L;
+  for (int base = 0; base < npair; base += per_pass) {
+    const int pair = base + static_cast<int>(threadIdx.x) / L;
+    if (pair < npair) {  // the same for the whole lane group
+      const int nv = count_valid_slots(
+          table + static_cast<size_t>(pair) * MB, MB, L, mask);
+      if (lane % L == 0)
+        S[pair] = nv ? (nv - 1) * bs + min(max(tail[pair], 0), bs) : 0;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {  // warp 0 scans the merge rows' unit counts
+    int carry = 0;
+    if (lane == 0) cum[0] = 0;
+    for (int base = 0; base < P; base += 32) {
+      const int rho = base + lane;
+      int t = 0;
+      if (rho < P) {
+        if (stacked) {
+          t = (S[rho] + U - 1) / U;
+        } else {
+          for (int k = 0; k < NR; ++k) t += (S[k * R + rho] + U - 1) / U;
+        }
+      }
+      t *= HG;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, t, off);
+        if (lane >= off) t += y;
+      }
+      if (rho < P) cum[rho + 1] = carry + t;
+      carry += __shfl_sync(0xffffffffu, t, 31);
+    }
+  }
+  __syncthreads();
+  return UnitPlan{S, cum, NR, R, U, HG, P, cum[P], stacked};
+}
+
+// One segment: a block's run of units [q0, q1) of merge group (rho, h),
+// and the walk over its tiles of TT tokens (U is a multiple of TT). The
+// group's units are its ranks' units, rank by rank; a tile covers tokens
+// [t, min(t + TT, t_end)) of rank k. Every thread walks it alike.
+struct Segment {
+  int rho, h, g, r, klo, khi, q0, q1;
+  long long first, end;  // the group's units [first, end) of all T
+};
+
+__device__ __forceinline__ Segment segment_at(const UnitPlan& pl,
+                                              long long p, long long p1) {
+  Segment s;
+  s.rho = pl.row_of(p);
+  const int tr = pl.group_units(s.rho);
+  const int within = static_cast<int>(p - pl.cum[s.rho]);
+  s.h = within / tr;
+  s.q0 = within - s.h * tr;
+  s.first = pl.cum[s.rho] + static_cast<long long>(s.h) * tr;
+  s.end = s.first + tr;
+  s.q1 = s.q0 + static_cast<int>(min(p1, s.end) - p);
+  s.g = s.rho * pl.HG + s.h;
+  s.r = pl.request(s.rho);
+  s.klo = pl.rank_lo(s.rho);
+  s.khi = pl.rank_hi(s.rho);
+  return s;
+}
+
+// A segment's token spans, one for each rank with units in it: tokens
+// [lo, hi) of rank k, written by thread 0 to shared memory (span_s: 3
+// ints a rank of the group) with their count and the segment's tiles of
+// TT tokens (info_s[0], info_s[1]); U is a multiple of TT. Every thread
+// of the block calls it and then walks the spans alike.
+template <int TT>
+__device__ __forceinline__ void segment_spans(const UnitPlan& pl,
+                                              const Segment& s, int* span_s,
+                                              int* info_s) {
+  if (threadIdx.x == 0) {
+    int n = 0, tiles = 0, off = 0;
+    for (int k = s.klo; k < s.khi; ++k) {
+      const int pair = k * pl.R + s.r;
+      const int nu = pl.units(pair);
+      const int a = max(s.q0, off) - off, c = min(s.q1, off + nu) - off;
+      if (a < c) {
+        const int lo = a * pl.U, hi = min(c * pl.U, pl.S[pair]);
+        span_s[3 * n] = k;
+        span_s[3 * n + 1] = lo;
+        span_s[3 * n + 2] = hi;
+        tiles += (hi - lo + TT - 1) / TT;
+        ++n;
+      }
+      off += nu;
+    }
+    info_s[0] = n;
+    info_s[1] = tiles;
+  }
+  __syncthreads();
+}
+
+// The walk over a segment's tiles: tile tokens [t, min(t + TT, t_end()))
+// of rank k(), span i of n.
+template <int TT>
+struct TileWalk {
+  const int* span;
+  int n, i, t;
+  __device__ void start(const int* span_s, int nspan) {
+    span = span_s;
+    n = nspan;
+    i = 0;
+    t = n ? span[1] : 0;
+  }
+  __device__ bool valid() const { return i < n; }
+  __device__ int k() const { return span[3 * i]; }
+  __device__ int t_end() const { return span[3 * i + 2]; }
+  __device__ void next() {
+    if (i >= n) return;  // past the segment's last tile
+    t += TT;
+    if (t >= span[3 * i + 2] && ++i < n) t = span[3 * i + 1];
+  }
+};
+
+// Scratch rows of the rank kernels: o (D floats), m, l, 2 floats of
+// padding, so that every row starts on 16 bytes (D % 8 == 0).
+__host__ __device__ constexpr int part_row(int D) { return D + 4; }
+
+// LSE-merge np partials of nrows rows, stored in scratch slots slot0 ..
+// slot0 + np - 1 (slot s at ws + s * slot_stride, row i part_row(D)
+// floats after row 0: o, then m, then l), into (o, m, l) at out_row(i).
+// The scratch is read past L1 (other blocks wrote it in this launch).
+// First each row's max m, its m and l (Ls lanes a row: a power of two <=
+// 32, up to np, while the block still has threads for every row); then
+// o, four columns at a time, MERGE_ILP column quads a thread, over chunks
+// of MERGE_CHUNK partials whose weights sit in shared memory (sm: nrows *
+// (MERGE_CHUNK + 1) floats).
+constexpr int MERGE_CHUNK = 32;
+
+template <typename RowFn>
+__device__ void merge_parts(const float* ws, size_t slot_stride, int slot0,
+                            int np, int nrows, int D, RowFn out_row,
+                            float* o, float* m_out, float* l_out,
+                            float* sm) {
+  const int W = part_row(D);
+  const float* base = ws + static_cast<size_t>(slot0) * slot_stride;
+  float* mx_s = sm + nrows * MERGE_CHUNK;
+  int Ls = 1;  // lanes a row: enough for np, no more than leave rows idle
+  while (Ls < 32 && Ls < np &&
+         2 * Ls * nrows <= static_cast<int>(blockDim.x))
+    Ls <<= 1;
+  const int sub = threadIdx.x % Ls;
+  const int rows_pass = blockDim.x / Ls;
+  for (int i0 = 0; i0 < nrows; i0 += rows_pass) {
+    const int i = i0 + static_cast<int>(threadIdx.x) / Ls;
+    const float* p = base + static_cast<size_t>(i) * W + D;
+    float mx = -CUDART_INF_F;
+    if (i < nrows)
+#pragma unroll 4
+      for (int s = sub; s < np; s += Ls)
+        mx = fmaxf(mx, __ldcg(p + s * slot_stride));
+    for (int off = 1; off < Ls; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float l = 0.f;
+    if (i < nrows && mx != -CUDART_INF_F)
+#pragma unroll 4
+      for (int s = sub; s < np; s += Ls) {
+        const float2 ml =
+            __ldcg(reinterpret_cast<const float2*>(p + s * slot_stride));
+        if (ml.x != -CUDART_INF_F) l = fmaf(ml.y, expf(ml.x - mx), l);
+      }
+    for (int off = 1; off < Ls; off <<= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (i < nrows && sub == 0) {
+      const size_t row = static_cast<size_t>(out_row(i));
+      m_out[row] = mx;
+      l_out[row] = l;
+      mx_s[i] = mx;
+    }
+  }
+  __syncthreads();
+  // o: element e = (row, column quad); Ts lanes an element split the
+  // partials (as many as keep MERGE_ILP elements a thread busy), then
+  // sum theirs by shuffles.
+  const int quads = D / 4;  // D % 8 == 0
+  const int total = nrows * quads;
+  int Ts = 1;
+  while (Ts < 32 && Ts < np &&
+         2 * Ts * total <= MERGE_ILP * static_cast<int>(blockDim.x))
+    Ts <<= 1;
+  const int epass = blockDim.x / Ts;  // elements a pass, an ILP slot
+  const int esub = threadIdx.x % Ts, e0 = threadIdx.x / Ts;
+  for (int c0 = 0; c0 < np; c0 += MERGE_CHUNK) {
+    const int nc = min(MERGE_CHUNK, np - c0);
+    for (int idx = threadIdx.x; idx < nrows * nc; idx += blockDim.x) {
+      const int i = idx / nc, s = idx - i * nc;
+      const float ms = __ldcg(base + (c0 + s) * slot_stride +
+                              static_cast<size_t>(i) * W + D);
+      sm[i * MERGE_CHUNK + s] =
+          ms == -CUDART_INF_F ? 0.f : expf(ms - mx_s[i]);
+    }
+    __syncthreads();
+    const float* cb = base + c0 * slot_stride;
+    for (int b0 = 0; b0 < total; b0 += MERGE_ILP * epass) {
+      int off[MERGE_ILP], wrow[MERGE_ILP];
+      float4 acc[MERGE_ILP];
+#pragma unroll
+      for (int u = 0; u < MERGE_ILP; ++u) {
+        const int idx = min(b0 + e0 + u * epass, total - 1);
+        const int i = idx / quads;
+        off[u] = i * W + 4 * (idx - i * quads);
+        wrow[u] = i * MERGE_CHUNK;
+        acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll 2
+      for (int s = esub; s < nc; s += Ts) {
+        const float* p = cb + s * slot_stride;
+#pragma unroll
+        for (int u = 0; u < MERGE_ILP; ++u) {
+          const float4 x =
+              __ldcg(reinterpret_cast<const float4*>(p + off[u]));
+          const float w = sm[wrow[u] + s];
+          acc[u].x = fmaf(x.x, w, acc[u].x);
+          acc[u].y = fmaf(x.y, w, acc[u].y);
+          acc[u].z = fmaf(x.z, w, acc[u].z);
+          acc[u].w = fmaf(x.w, w, acc[u].w);
+        }
+      }
+      for (int sh = 1; sh < Ts; sh <<= 1) {
+#pragma unroll
+        for (int u = 0; u < MERGE_ILP; ++u) {
+          acc[u].x += __shfl_xor_sync(0xffffffffu, acc[u].x, sh);
+          acc[u].y += __shfl_xor_sync(0xffffffffu, acc[u].y, sh);
+          acc[u].z += __shfl_xor_sync(0xffffffffu, acc[u].z, sh);
+          acc[u].w += __shfl_xor_sync(0xffffffffu, acc[u].w, sh);
+        }
+      }
+      if (esub == 0) {
+#pragma unroll
+        for (int u = 0; u < MERGE_ILP; ++u) {
+          const int idx = b0 + e0 + u * epass;
+          if (idx >= total) break;
+          const int i = idx / quads;
+          float4* dst = reinterpret_cast<float4*>(
+              o + static_cast<size_t>(out_row(i)) * D + 4 * (idx - i * quads));
+          if (c0 > 0) {
+            const float4 prev = *dst;
+            acc[u].x += prev.x;
+            acc[u].y += prev.y;
+            acc[u].z += prev.z;
+            acc[u].w += prev.w;
+          }
+          *dst = acc[u];
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 

@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Set, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -26,8 +26,10 @@ KERNELS = ("micro_attn_decode", "micro_attn_prefill", "flash_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# Loaded libraries of this process, by kernel name.
+# Loaded libraries of this process, by kernel name, and the C entries
+# whose signatures are declared.
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_DECLARED: Set[Tuple[str, str]] = set()
 
 
 def source_hash() -> str:
@@ -96,12 +98,15 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
 
 def load(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
     """Load (building first if needed) kernel ``name``'s library and
-    declare ``fn_name``'s C signature; returns the library."""
+    declare ``fn_name``'s C signature at its first use; returns the
+    library."""
     lib = _LOADED.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
+        _LOADED[name] = lib
+    if (name, fn_name) not in _DECLARED:
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LOADED[name] = lib
+        _DECLARED.add((name, fn_name))
     return lib

@@ -14,19 +14,25 @@ source's header says how its design answers the bound.
 from the tables or lengths, whose host read would synchronize the
 step); the paged prefill-chunk kernel uses it too.
 
-``paged_micro_attention_ranks_cuda`` launches the same kernel once over
-a stack of NR rank pools — the counterpart of the JAX package's vmap of
-the Pallas kernel over the global pool's rank axis
-(``repro/kernels/ops.py::paged_micro_attention_ranks``): the rank is one
-more grid axis. The pools may be a strided view (a layer of the global
-pool ``[NR, L, NB, bs, K, D]``); only each rank's slab has to be
-contiguous, and the kernel reads it in place.
+``paged_micro_attention_ranks_cuda`` (stacked partials, one a rank) and
+``paged_micro_attention_ranks_merged_cuda`` (one partial a request, the
+ranks LSE-merged in the launch) launch the rank kernel of the same
+source: persistent blocks over units of at most ``RANK_UNIT_TOKENS``
+valid tokens, planned on the card from the tables
+(``kernels/rank_units.py`` is the plan on the host) — the counterpart of
+the JAX package's vmap of the Pallas kernel over the global pool's rank
+axis (``repro/kernels/ops.py::paged_micro_attention_ranks``), followed,
+for the merged form, by ``merge_partials(axis=0)``. The pools may be a
+strided view (a layer of the global pool ``[NR, L, NB, bs, K, D]``);
+only each rank's slab has to be contiguous, and the kernel reads it in
+place.
 
 ``paged_micro_attention_plain`` is the same function in plain PyTorch,
 computed in float32 throughout like the kernel (q, k and v upcast, the
 probabilities never rounded to the storage dtype);
-``paged_micro_attention_ranks_plain`` stacks it over the ranks. The CPU
-runs them; the card runs them only to check the kernel.
+``paged_micro_attention_ranks_plain`` stacks it over the ranks and
+``paged_micro_attention_ranks_merged_plain`` merges that stack. The CPU
+runs them; the card runs them only to check the kernels.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
-from repro_torch.core.online_softmax import _masked_softmax_parts
+from repro_torch.core.online_softmax import (_masked_softmax_parts,
+                                             merge_partials)
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,6 +54,10 @@ MAX_DECODE_BLOCK_SIZE = 128  # the decode kernel's (the launch cells' 128)
 MIN_SPLIT_TOKENS = 256    # the least a split-KV block is given to read
 MAX_SPLITS = 32           # the most splits a merge takes (csrc MAX_SPLITS)
 DECODE_BLOCKS_PER_SM = 3  # decode blocks an SM holds (~71 KB each)
+SMEM_PER_SM = 232_448   # bytes of shared memory a block may use on an H100
+RANK_UNIT_TOKENS = 256    # the most valid tokens a unit of the rank kernel
+RANK_RING = 3             # tiles whose pool rows a rank kernel resolves
+MAX_UNITS = 2 ** 31 - 1   # the rank kernels count units in int32
 
 
 def argtypes(n_plan: int):
@@ -59,6 +70,7 @@ def argtypes(n_plan: int):
 
 
 _ARGTYPES = argtypes(4)
+_RANK_ARGTYPES = argtypes(6)
 
 
 def partial_outputs(rows: int, H: int, D: int, device: torch.device):
@@ -100,20 +112,73 @@ def plan_splits(items: int, MB: int, bs: int, sm_count: int,
 
 @functools.lru_cache(maxsize=1024)
 def decode_plan(R: int, H: int, K: int, MB: int, bs: int,
-                sm_count: int, NR: int = 1) -> Dict[str, object]:
-    """The decode kernel's launch over ``NR`` rank pools, which the C
-    entry takes as given: query heads a block (``heads_per_block``: 1
-    where G == 1, else 2), split and grid (``items`` work items a rank,
-    the split planned for all ``items * NR``). Cached: callers share the
-    dict and must not change it."""
+                sm_count: int) -> Dict[str, object]:
+    """The decode kernel's launch, which the C entry takes as given:
+    query heads a block (``heads_per_block``: 1 where G == 1, else 2),
+    split and grid (``items`` work items). Cached: callers share the dict
+    and must not change it."""
     gt = 1 if H // K == 1 else 2
     groups = -(-(H // K) // gt)
     items = K * R * groups
-    nsplit, spb = plan_splits(items * NR, MB, bs, sm_count,
-                              DECODE_BLOCKS_PER_SM)
+    nsplit, spb = plan_splits(items, MB, bs, sm_count, DECODE_BLOCKS_PER_SM)
     return {"nsplit": nsplit, "slots_per_split": spb, "items": items,
-            "ranks": NR, "heads_per_block": gt,
-            "grid": (K, R * groups, NR * nsplit)}
+            "heads_per_block": gt, "grid": (K, R * groups, nsplit)}
+
+
+def decode_tile_tokens(D: int, itemsize: int) -> int:
+    """Tokens a K/V tile of the decode kernels (csrc tile_tokens): 64
+    rows of up to 256 bytes, 32 of up to 512, 16 above, by the
+    instantiation's largest head dim (128 or 256)."""
+    row = (128 if D <= 128 else 256) * itemsize
+    return 64 if row <= 256 else 32 if row <= 512 else 16
+
+
+def rank_decode_smem_bytes(D: int, itemsize: int, gt: int, nranks: int,
+                           npair: int, P: int) -> int:
+    """Shared memory of the rank decode kernel (csrc rank_smem_bytes): a
+    2-stage K/V ring, rows of D plus 16 bytes; ``gt`` float32 q rows; the
+    pool rows and rank of 3 tiles; the plan (``npair`` pairs' tokens and
+    ``P + 1`` merge-row starts) and a segment's spans (3 ints a rank, 2
+    counts)."""
+    tt = decode_tile_tokens(D, itemsize)
+    return (2 * 2 * tt * (D + 16 // itemsize) * itemsize + 4 * gt * D
+            + 4 * (RANK_RING * tt + RANK_RING + npair + P + 1
+                   + 3 * nranks + 2))
+
+
+def rank_blocks(per_sm: int, sm_count: int, max_units: int) -> int:
+    """Persistent blocks of a rank kernel: as many as the card holds at
+    once, no more than units the tables could hold; ValueError past the
+    kernel's int32 unit count."""
+    if max_units > MAX_UNITS:
+        raise ValueError(f"{max_units} units exceed the rank kernel's "
+                         f"int32 count")
+    return max(1, min(per_sm * sm_count, max_units))
+
+
+@functools.lru_cache(maxsize=1024)
+def rank_decode_plan(R: int, H: int, K: int, D: int, MB: int, bs: int,
+                     dtype: torch.dtype, sm_count: int, NR: int,
+                     stacked: bool) -> Dict[str, object]:
+    """The rank decode kernel's launch, which the C entry takes as given:
+    units of ``RANK_UNIT_TOKENS`` tokens, query heads a block
+    (``heads_per_block``: 1 where G == 1, else 2), persistent ``blocks``
+    (from the shapes and the SM count: the work itself is planned on the
+    card), merge ``groups`` (one ticket counter each), scratch slots and
+    shared memory. Cached: callers share the dict and must not change
+    it."""
+    gt = 1 if H // K == 1 else 2
+    hg = K * -(-(H // K) // gt)
+    P = NR * R if stacked else R
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    smem = rank_decode_smem_bytes(D, itemsize, gt, NR, NR * R, P)
+    per_sm = max(1, min(DECODE_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    U = RANK_UNIT_TOKENS
+    blocks = rank_blocks(per_sm, sm_count, hg * R * NR * -(-MB * bs // U))
+    return {"unit_tokens": U, "blocks": blocks, "blocks_per_sm": per_sm,
+            "heads_per_block": gt, "groups": P * hg, "head_groups": hg,
+            "ws_slots": blocks + P * hg, "smem_bytes": smem,
+            "ranks": NR, "stacked": stacked}
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,16 +240,24 @@ def paged_micro_attention_ranks_plain(q, pools_k, pools_v, tables, tails,
                        tables, tails, scale=scale)
 
 
+def paged_micro_attention_ranks_merged_plain(q, pools_k, pools_v, tables,
+                                             tails, *, scale):
+    """The stacked plain twin merged over the ranks: -> (o [R,H,D],
+    m [R,H], l [R,H]) float32."""
+    return merge_partials(*paged_micro_attention_ranks_plain(
+        q, pools_k, pools_v, tables, tails, scale=scale), axis=0)
+
+
 def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
                  max_block_size: int = MAX_BLOCK_SIZE) -> int:
     """Raise ValueError on anything the CUDA kernels do not take.
 
     ``ranked``: the pools are ``[NR, NB, bs, K, D]`` — any rank stride,
     each rank's slab contiguous. ``max_block_size``: the largest block
-    the calling kernel was checked at (the decode kernel indexes tokens
-    by shift or division and stages tiles sized by the row alone, so it
-    takes the launch cells' 128; the prefill kernel reads at most 64, so
-    its wrappers read larger blocks as sub-blocks and pass their own).
+    the calling kernel was checked at (the decode kernels and the rank
+    prefill kernel index tokens, not slots, so they take the launch
+    cells' 128; the single-rank prefill kernel reads at most 64, so its
+    wrapper reads larger blocks as sub-blocks and passes its own).
     Returns the rank stride in elements (0 for one pool)."""
     if not (q.is_cuda and pool_k.is_cuda and pool_v.is_cuda
             and table.is_cuda):
@@ -228,29 +301,33 @@ def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
     return rank_stride
 
 
-def _decode_launch(counter, q, pool_k, pool_v, table, tail_len, scale,
-                   NR: int, rank_stride: int):
-    """Launch the decode kernel over ``NR`` rank pools (checked inputs);
-    returns float32 ``(o [NR*R,H,D], m, l [NR*R,H])`` and adds one to
-    ``counter.launches`` after the launch."""
+def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
+                               scale):
+    """Launch the decode kernel on q's current stream (no synchronize).
+
+    Same contract as ``paged_micro_attention_plain``; raises ValueError
+    on inputs it does not take and RuntimeError if the launch fails.
+    """
+    check_inputs(q, pool_k, pool_v, table,
+                 max_block_size=MAX_DECODE_BLOCK_SIZE)
     R, H, D = q.shape
     bs, K = pool_k.shape[-3], pool_k.shape[-2]
     MB = table.shape[-1]
     dev = q.device
-    o, m, l = partial_outputs(NR * R, H, D, dev)
+    NR, rank_stride = 1, 0
+    o, m, l = partial_outputs(R, H, D, dev)
     if R == 0:
         return o, m, l
     q = q.contiguous()
     table = table.to(torch.int32).contiguous()
     tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).contiguous()
-    plan = decode_plan(R, H, K, MB, bs, device_sm_count(dev.index), NR)
+    plan = decode_plan(R, H, K, MB, bs, device_sm_count(dev.index))
     nsplit = plan["nsplit"]
     ws = tickets = None
     if nsplit > 1:
         ws = torch.empty((nsplit, NR, R, H, D + 2), dtype=torch.float32,
                          device=dev)
-        tickets = split_tickets("micro_attn_decode", dev,
-                                plan["items"] * NR)
+        tickets = split_tickets("micro_attn_decode", dev, plan["items"])
     lib = build.load("micro_attn_decode", "paged_decode_launch", _ARGTYPES)
     err = lib.paged_decode_launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
@@ -262,39 +339,78 @@ def _decode_launch(counter, q, pool_k, pool_v, table, tail_len, scale,
     if err:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{err}")
+    paged_micro_attention_cuda.launches += 1
+    return o, m, l
+
+
+def _decode_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
+                         scale, stacked: bool):
+    """Launch the rank decode kernel once over every rank pool of the
+    stack; returns float32 ``(o, m, l)`` stacked ``[NR, R, ...]`` or
+    merged ``[R, ...]`` and adds one to ``counter.launches`` after the
+    launch."""
+    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True,
+                               max_block_size=MAX_DECODE_BLOCK_SIZE)
+    NR, _, bs, K, _ = pools_k.shape
+    R, H, D = q.shape
+    MB = tables.shape[-1]
+    dev = q.device
+    lead = (NR, R) if stacked else (R,)
+    o, m, l = partial_outputs(NR * R if stacked else R, H, D, dev)
+    o, m, l = o.view(*lead, H, D), m.view(*lead, H), l.view(*lead, H)
+    if R == 0:
+        return o, m, l
+    q = q.contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    tails = torch.as_tensor(tails, device=dev).to(torch.int32).reshape(
+        NR, R).contiguous()
+    plan = rank_decode_plan(R, H, K, D, MB, bs, q.dtype,
+                            device_sm_count(dev.index), NR, stacked)
+    ws = torch.empty((plan["ws_slots"], plan["heads_per_block"], D + 4),
+                     dtype=torch.float32, device=dev)
+    tickets = split_tickets("micro_attn_decode_ranks", dev, plan["groups"])
+    lib = build.load("micro_attn_decode", "paged_decode_ranks_launch",
+                     _RANK_ARGTYPES)
+    err = lib.paged_decode_ranks_launch(
+        q.data_ptr(), pools_k.data_ptr(), pools_v.data_ptr(),
+        tables.data_ptr(), tails.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), ws.data_ptr(), tickets.data_ptr(), NR, R, H, K, D, bs,
+        MB, rank_stride, int(stacked), plan["unit_tokens"], plan["blocks"],
+        plan["heads_per_block"], plan["smem_bytes"], tickets.numel(),
+        float(scale), _DTYPES[q.dtype], current_stream(dev))
+    if err:
+        raise RuntimeError(f"paged decode rank kernel launch failed: CUDA "
+                           f"error {err}")
     counter.launches += 1
     return o, m, l
 
 
-def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
-                               scale):
-    """Launch the decode kernel on q's current stream (no synchronize).
-
-    Same contract as ``paged_micro_attention_plain``; raises ValueError
-    on inputs it does not take and RuntimeError if the launch fails.
-    """
-    check_inputs(q, pool_k, pool_v, table,
-                 max_block_size=MAX_DECODE_BLOCK_SIZE)
-    return _decode_launch(paged_micro_attention_cuda, q, pool_k, pool_v,
-                          table, tail_len, scale, 1, 0)
-
-
 def paged_micro_attention_ranks_cuda(q, pools_k, pools_v, tables, tails, *,
                                      scale):
-    """Launch the decode kernel ONCE over every rank pool of the stack.
+    """Launch the rank decode kernel ONCE over every rank pool of the
+    stack, one partial a (rank, request).
 
     Same contract as ``paged_micro_attention_ranks_plain``; the pools
     may be a strided view (only each rank's slab must be contiguous) and
     are never copied.
     """
-    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True,
-                               max_block_size=MAX_DECODE_BLOCK_SIZE)
-    NR = pools_k.shape[0]
-    R, H, D = q.shape
-    o, m, l = _decode_launch(paged_micro_attention_ranks_cuda, q, pools_k,
-                             pools_v, tables, tails, scale, NR, rank_stride)
-    return o.view(NR, R, H, D), m.view(NR, R, H), l.view(NR, R, H)
+    return _decode_ranks_launch(paged_micro_attention_ranks_cuda, q,
+                                pools_k, pools_v, tables, tails, scale,
+                                stacked=True)
+
+
+def paged_micro_attention_ranks_merged_cuda(q, pools_k, pools_v, tables,
+                                            tails, *, scale):
+    """Launch the rank decode kernel ONCE over every rank pool of the
+    stack, the ranks merged in the launch: one partial a request.
+
+    Same contract as ``paged_micro_attention_ranks_merged_plain``.
+    """
+    return _decode_ranks_launch(paged_micro_attention_ranks_merged_cuda, q,
+                                pools_k, pools_v, tables, tails, scale,
+                                stacked=False)
 
 
 paged_micro_attention_cuda.launches = 0
 paged_micro_attention_ranks_cuda.launches = 0
+paged_micro_attention_ranks_merged_cuda.launches = 0

@@ -21,26 +21,32 @@ same bf16 V (at most 2^-16 relative per term, where one rounding of p,
 2^-8, would exceed 1e-4 over a few thousand keys); ``l`` is summed from
 the float32 p; m, the rescaling and the split merge stay float32.
 
-``paged_prefill_attention_ranks_cuda`` launches the same kernel once over
-a stack of NR rank pools, each with its own prefix table — the
+``paged_prefill_attention_ranks_cuda`` (stacked partials, one a rank)
+and ``paged_prefill_attention_ranks_merged_cuda`` (the ranks LSE-merged
+in the launch) launch the rank kernels of the same source, one launch
+over a stack of NR rank pools, each with its own prefix table — the
 counterpart of the JAX package's vmap over the global pool's rank axis
-(``repro/kernels/ops.py::paged_prefill_attention_ranks``). As for decode,
-the pools may be a strided per-layer view of the global pool, read in
-place.
+(``repro/kernels/ops.py::paged_prefill_attention_ranks``), followed, for
+the merged form, by ``merge_partials(axis=0)``. Persistent blocks take
+equal shares of every rank's 64-token tiles of valid prefix, planned on
+the card from the tables (``kernels/rank_units.py``). As for decode, the
+pools may be a strided per-layer view of the global pool, read in place,
+and the rank kernels address tokens, not slots: they read blocks of up
+to 128 tokens as they are.
 
-Blocks larger than the kernel's 64 tokens (the launch cells' 128): the
-two CUDA wrappers present a pool of ``bs``-token blocks as one of
+Blocks larger than the single-rank kernel's 64 tokens (the launch cells'
+128): its wrapper presents a pool of ``bs``-token blocks as one of
 ``sub``-token blocks, ``sub`` the largest divisor of ``bs`` the kernel
-takes (``sub_block_size``). The pool is a view of each rank's
-contiguous slab (``[NB * bs // sub, sub, K, D]``, never a copy); the
-tables and tails are expanded on the card by ``sub_block_tables`` (no
-host read), which the CPU tests hold to the plain function over the
-original pool.
+takes (``sub_block_size``). The pool is a view of the contiguous pool
+(``[NB * bs // sub, sub, K, D]``, never a copy); the table and tail are
+expanded on the card by ``sub_block_tables`` (no host read), which the
+CPU tests hold to the plain function over the original pool.
 
 ``paged_prefill_attention_plain`` is the same function in plain PyTorch,
 in float32 throughout like the Pallas kernel;
-``paged_prefill_attention_ranks_plain`` stacks it over the ranks. The CPU
-runs them; the card runs them only to check the kernel.
+``paged_prefill_attention_ranks_plain`` stacks it over the ranks and
+``paged_prefill_attention_ranks_merged_plain`` merges that stack. The
+CPU runs them; the card runs them only to check the kernels.
 """
 from __future__ import annotations
 
@@ -50,21 +56,25 @@ from typing import Dict
 import torch
 
 from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
-from repro_torch.core.online_softmax import _masked_softmax_parts
+from repro_torch.core.online_softmax import (_masked_softmax_parts,
+                                             merge_partials)
 from repro_torch.kernels import build
-from repro_torch.kernels.micro_attn_decode import (MAX_BLOCK_SIZE, _DTYPES,
-                                                   _ptr, argtypes,
+from repro_torch.kernels.micro_attn_decode import (MAX_BLOCK_SIZE,
+                                                   MAX_DECODE_BLOCK_SIZE,
+                                                   RANK_RING, SMEM_PER_SM,
+                                                   _DTYPES, _ptr, argtypes,
                                                    check_inputs,
                                                    current_stream,
                                                    device_sm_count,
                                                    partial_outputs,
-                                                   plan_splits,
+                                                   plan_splits, rank_blocks,
                                                    split_tickets,
                                                    stack_ranks)
 
-SMEM_PER_SM = 232_448   # bytes of shared memory a block may use on an H100
 MIN_SUB_BLOCK = 8       # the smallest sub-block a larger block is cut into
+RANK_PREFILL_UNIT = 64  # a unit of the rank kernels: one 64-token tile
 _ARGTYPES = argtypes(5)
+_RANK_ARGTYPES = argtypes(6)
 
 
 def rows_per_block(D: int, dtype: torch.dtype) -> int:
@@ -86,34 +96,79 @@ def mma_smem_bytes(D: int, rows: int, slots: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def prefill_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
-                 dtype: torch.dtype, sm_count: int,
-                 NR: int = 1) -> Dict[str, object]:
-    """The prefill-chunk kernel's launch over ``NR`` rank pools, which
-    the C entry takes as given: rows a block, split, grid (``items``
-    work items a rank) and (bf16) shared memory. Cached: callers share
-    the dict and must not change it.
+                 dtype: torch.dtype, sm_count: int) -> Dict[str, object]:
+    """The prefill-chunk kernel's launch, which the C entry takes as
+    given: rows a block, split, grid (``items`` work items) and (bf16)
+    shared memory. Cached: callers share the dict and must not change it.
 
-    bf16 splits the prefix's slots (``plan_splits``, for all ``items *
-    NR`` work items) to fill every SM with as many 4-warp blocks as its
-    shared memory holds; float32 runs one 8-warp block per (kv head, 64
-    rows, rank), unsplit.
+    bf16 splits the prefix's slots (``plan_splits``) to fill every SM
+    with as many 4-warp blocks as its shared memory holds; float32 runs
+    one 8-warp block per (kv head, 64 rows), unsplit.
     """
     bm = rows_per_block(D, dtype)
     items = K * -(-(C * (H // K)) // bm)
     if dtype != torch.bfloat16:
         return {"nsplit": 1, "slots_per_split": max(MB, 1), "items": items,
-                "ranks": NR, "grid": (K, items // K, NR),
-                "rows_per_block": bm, "smem_bytes": 0,
-                "route": "cuda cores, float32"}
+                "grid": (K, items // K, 1), "rows_per_block": bm,
+                "smem_bytes": 0, "route": "cuda cores, float32"}
     per_sm = max(1, min(4, SMEM_PER_SM // (mma_smem_bytes(D, bm, MB)
                                            + 1024)))
-    nsplit, spb = plan_splits(items * NR, MB, bs, sm_count, per_sm)
+    nsplit, spb = plan_splits(items, MB, bs, sm_count, per_sm)
     return {"nsplit": nsplit, "slots_per_split": spb, "items": items,
-            "ranks": NR, "grid": (K, items // K, NR * nsplit),
-            "rows_per_block": bm,
+            "grid": (K, items // K, nsplit), "rows_per_block": bm,
             "blocks_per_sm": per_sm,
             "smem_bytes": mma_smem_bytes(D, bm, spb),
             "route": "tensor cores, mma.sync bf16"}
+
+
+def rank_mma_smem_bytes(D: int, rows: int, NR: int, P: int) -> int:
+    """Shared memory of the bf16 rank kernel (csrc rank_mma_smem_bytes):
+    ``rows`` q rows and the 2-stage K/V ring as ``mma_smem_bytes``; the
+    pool rows, flags and rank of 3 tiles; the plan (``NR`` ranks' tokens,
+    ``P + 1`` merge-row starts) and a segment's spans (3 ints a rank, 2
+    counts)."""
+    stride = -(-D // 16) * 16 + 8
+    return ((rows + 2 * 2 * 64) * stride * 2
+            + 4 * (RANK_RING * 64 + 3 * RANK_RING + 4 * NR + P + 3))
+
+
+def rank_f32_smem_bytes(D: int, NR: int, P: int) -> int:
+    """Shared memory of the float32 rank kernel (csrc rank_f32_smem_bytes):
+    q [D][68], a K tile [D][68], a V tile [64][16 * DPT] and the
+    probabilities [64][68] in float32 (DPT 8 up to D = 128, else 16);
+    the plan and a segment's spans."""
+    dpt = 8 if D <= 128 else 16
+    return 4 * (D * 68 + D * 68 + 64 * 16 * dpt + 64 * 68
+                + 4 * NR + P + 3)
+
+
+@functools.lru_cache(maxsize=1024)
+def rank_prefill_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
+                      dtype: torch.dtype, sm_count: int, NR: int,
+                      stacked: bool) -> Dict[str, object]:
+    """The rank prefill kernels' launch, which the C entry takes as
+    given: rows a block (the instantiation, as ``prefill_plan``),
+    64-token units, persistent ``blocks`` (as many as the card holds at
+    once: the work is planned on the card), merge ``groups`` (kv head x
+    row tile, x NR when stacked; one ticket counter each), scratch slots
+    and shared memory. Cached: callers share the dict and must not
+    change it."""
+    bm = rows_per_block(D, dtype)
+    hg = K * -(-(C * (H // K)) // bm)
+    P = NR if stacked else 1
+    if dtype == torch.bfloat16:
+        smem = rank_mma_smem_bytes(D, bm, NR, P)
+        route = "tensor cores, mma.sync bf16"
+    else:
+        smem = rank_f32_smem_bytes(D, NR, P)
+        route = "cuda cores, float32"
+    per_sm = max(1, min(4, SMEM_PER_SM // (smem + 1024)))
+    U = RANK_PREFILL_UNIT
+    blocks = rank_blocks(per_sm, sm_count, hg * NR * -(-MB * bs // U))
+    return {"unit_tokens": U, "blocks": blocks, "blocks_per_sm": per_sm,
+            "rows_per_block": bm, "groups": P * hg, "head_groups": hg,
+            "ws_slots": blocks + P * hg, "smem_bytes": smem, "ranks": NR,
+            "stacked": stacked, "route": route}
 
 
 def paged_prefill_attention_plain(q, pool_k, pool_v, table, tail_len, *,
@@ -139,6 +194,14 @@ def paged_prefill_attention_ranks_plain(q, pools_k, pools_v, tables, tails,
     -> (o [NR,C,H,D], m [NR,C,H], l [NR,C,H]) float32."""
     return stack_ranks(paged_prefill_attention_plain, q, pools_k, pools_v,
                        tables, tails, scale=scale)
+
+
+def paged_prefill_attention_ranks_merged_plain(q, pools_k, pools_v, tables,
+                                               tails, *, scale):
+    """The stacked plain twin merged over the ranks: -> (o [C,H,D],
+    m [C,H], l [C,H]) float32."""
+    return merge_partials(*paged_prefill_attention_ranks_plain(
+        q, pools_k, pools_v, tables, tails, scale=scale), axis=0)
 
 
 def sub_block_size(bs: int) -> int:
@@ -181,64 +244,21 @@ def sub_block_tables(tables: torch.Tensor, tails, bs: int, sub: int):
     return out, new_tail
 
 
-def _checked(q, pool_k, pool_v, tables, tails, *, ranked: bool):
+def _checked(q, pool_k, pool_v, table, tail):
     """Check the inputs (``check_inputs``, the block size as sub-blocks)
-    and give (rank stride, pool_k, pool_v, tables, tails) with blocks the
-    kernel takes: the pools as views of ``sub``-token blocks, the tables
-    and tails expanded to match (the inputs themselves when ``bs`` is
+    and give (pool_k, pool_v, table, tail) with blocks the single-rank
+    kernel takes: the pool as views of ``sub``-token blocks, the table
+    and tail expanded to match (the inputs themselves when ``bs`` is
     taken)."""
     bs = pool_k.shape[-3]
     sub = sub_block_size(bs)
-    rank_stride = check_inputs(q, pool_k, pool_v, tables, ranked=ranked,
-                               max_block_size=bs)
+    check_inputs(q, pool_k, pool_v, table, max_block_size=bs)
     if sub == bs:
-        return rank_stride, pool_k, pool_v, tables, tails
-    lead, NB = pool_k.shape[:-4], pool_k.shape[-4]
-    shape = (*lead, NB * (bs // sub), sub, *pool_k.shape[-2:])
-    tables, tails = sub_block_tables(tables, tails, bs, sub)
-    return rank_stride, pool_k.view(shape), pool_v.view(shape), tables, tails
-
-
-def _prefill_launch(counter, q, pool_k, pool_v, table, tail_len, scale,
-                    NR: int, rank_stride: int):
-    """Launch the prefill-chunk kernel over ``NR`` rank pools (checked
-    inputs); returns float32 ``(o [NR*C,H,D], m, l [NR*C,H])`` and adds
-    one to ``counter.launches`` after the launch."""
-    C, H, D = q.shape
-    bs, K = pool_k.shape[-3], pool_k.shape[-2]
-    MB = table.shape[-1]
-    dev = q.device
-    o, m, l = partial_outputs(NR * C, H, D, dev)
-    if C == 0:
-        return o, m, l
-    q = q.contiguous()
-    table = table.to(torch.int32).contiguous()
-    tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).reshape(
-        NR).contiguous()
-    plan = prefill_plan(C, H, K, D, MB, bs, q.dtype,
-                        device_sm_count(dev.index), NR)
-    nsplit = plan["nsplit"]
-    ws = tickets = None
-    if nsplit > 1:
-        ws = torch.empty((nsplit, NR, C, H, D + 2), dtype=torch.float32,
-                         device=dev)
-        tickets = split_tickets("micro_attn_prefill", dev,
-                                plan["items"] * NR)
-    lib = build.load("micro_attn_prefill", "paged_prefill_launch",
-                     _ARGTYPES)
-    err = lib.paged_prefill_launch(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), _ptr(ws), _ptr(tickets), NR, C, H, K, D, bs, MB,
-        rank_stride, nsplit, plan["slots_per_split"],
-        plan["rows_per_block"], plan["smem_bytes"],
-        0 if tickets is None else tickets.numel(), float(scale),
-        _DTYPES[q.dtype], current_stream(dev))
-    if err:
-        raise RuntimeError(f"paged prefill kernel launch failed: CUDA error "
-                           f"{err}")
-    counter.launches += 1
-    return o, m, l
+        return pool_k, pool_v, table, tail
+    NB = pool_k.shape[0]
+    shape = (NB * (bs // sub), sub, *pool_k.shape[-2:])
+    table, tail = sub_block_tables(table, tail, bs, sub)
+    return pool_k.view(shape), pool_v.view(shape), table, tail
 
 
 def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
@@ -249,29 +269,110 @@ def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
     on inputs it does not take and RuntimeError if the launch fails.
     Blocks over 64 tokens are read as sub-blocks (``_checked``).
     """
-    _, pool_k, pool_v, table, tail_len = _checked(q, pool_k, pool_v, table,
-                                                  tail_len, ranked=False)
-    return _prefill_launch(paged_prefill_attention_cuda, q, pool_k, pool_v,
-                           table, tail_len, scale, 1, 0)
+    pool_k, pool_v, table, tail_len = _checked(q, pool_k, pool_v, table,
+                                               tail_len)
+    C, H, D = q.shape
+    bs, K = pool_k.shape[-3], pool_k.shape[-2]
+    MB = table.shape[-1]
+    dev = q.device
+    o, m, l = partial_outputs(C, H, D, dev)
+    if C == 0:
+        return o, m, l
+    q = q.contiguous()
+    table = table.to(torch.int32).contiguous()
+    tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).reshape(
+        1).contiguous()
+    plan = prefill_plan(C, H, K, D, MB, bs, q.dtype,
+                        device_sm_count(dev.index))
+    nsplit = plan["nsplit"]
+    ws = tickets = None
+    if nsplit > 1:
+        ws = torch.empty((nsplit, 1, C, H, D + 2), dtype=torch.float32,
+                         device=dev)
+        tickets = split_tickets("micro_attn_prefill", dev, plan["items"])
+    lib = build.load("micro_attn_prefill", "paged_prefill_launch",
+                     _ARGTYPES)
+    err = lib.paged_prefill_launch(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), _ptr(ws), _ptr(tickets), 1, C, H, K, D, bs, MB, 0,
+        nsplit, plan["slots_per_split"], plan["rows_per_block"],
+        plan["smem_bytes"], 0 if tickets is None else tickets.numel(),
+        float(scale), _DTYPES[q.dtype], current_stream(dev))
+    if err:
+        raise RuntimeError(f"paged prefill kernel launch failed: CUDA error "
+                           f"{err}")
+    paged_prefill_attention_cuda.launches += 1
+    return o, m, l
+
+
+def _prefill_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
+                          scale, stacked: bool):
+    """Launch a rank prefill kernel once over every rank pool of the
+    stack (blocks up to 128 tokens read as they are); returns float32
+    ``(o, m, l)`` stacked ``[NR, C, ...]`` or merged ``[C, ...]`` and adds
+    one to ``counter.launches`` after the launch."""
+    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True,
+                               max_block_size=MAX_DECODE_BLOCK_SIZE)
+    NR, _, bs, K, _ = pools_k.shape
+    C, H, D = q.shape
+    MB = tables.shape[-1]
+    dev = q.device
+    lead = (NR, C) if stacked else (C,)
+    o, m, l = partial_outputs(NR * C if stacked else C, H, D, dev)
+    o, m, l = o.view(*lead, H, D), m.view(*lead, H), l.view(*lead, H)
+    if C == 0:
+        return o, m, l
+    q = q.contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    tails = torch.as_tensor(tails, device=dev).to(torch.int32).reshape(
+        NR).contiguous()
+    plan = rank_prefill_plan(C, H, K, D, MB, bs, q.dtype,
+                             device_sm_count(dev.index), NR, stacked)
+    ws = torch.empty((plan["ws_slots"], plan["rows_per_block"], D + 4),
+                     dtype=torch.float32, device=dev)
+    tickets = split_tickets("micro_attn_prefill_ranks", dev, plan["groups"])
+    lib = build.load("micro_attn_prefill", "paged_prefill_ranks_launch",
+                     _RANK_ARGTYPES)
+    err = lib.paged_prefill_ranks_launch(
+        q.data_ptr(), pools_k.data_ptr(), pools_v.data_ptr(),
+        tables.data_ptr(), tails.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), ws.data_ptr(), tickets.data_ptr(), NR, C, H, K, D, bs,
+        MB, rank_stride, int(stacked), plan["unit_tokens"], plan["blocks"],
+        plan["rows_per_block"], plan["smem_bytes"], tickets.numel(),
+        float(scale), _DTYPES[q.dtype], current_stream(dev))
+    if err:
+        raise RuntimeError(f"paged prefill rank kernel launch failed: CUDA "
+                           f"error {err}")
+    counter.launches += 1
+    return o, m, l
 
 
 def paged_prefill_attention_ranks_cuda(q, pools_k, pools_v, tables, tails,
                                        *, scale):
-    """Launch the prefill-chunk kernel ONCE over every rank pool.
+    """Launch a rank prefill kernel ONCE over every rank pool, one
+    partial a rank.
 
     Same contract as ``paged_prefill_attention_ranks_plain``; the pools
     may be a strided view (each rank's slab contiguous), never copied.
-    Blocks over 64 tokens are read as sub-blocks (``_checked``).
     """
-    rank_stride, pools_k, pools_v, tables, tails = _checked(
-        q, pools_k, pools_v, tables, tails, ranked=True)
-    NR = pools_k.shape[0]
-    C, H, D = q.shape
-    o, m, l = _prefill_launch(paged_prefill_attention_ranks_cuda, q,
-                              pools_k, pools_v, tables, tails, scale, NR,
-                              rank_stride)
-    return o.view(NR, C, H, D), m.view(NR, C, H), l.view(NR, C, H)
+    return _prefill_ranks_launch(paged_prefill_attention_ranks_cuda, q,
+                                 pools_k, pools_v, tables, tails, scale,
+                                 stacked=True)
+
+
+def paged_prefill_attention_ranks_merged_cuda(q, pools_k, pools_v, tables,
+                                              tails, *, scale):
+    """Launch a rank prefill kernel ONCE over every rank pool, the ranks
+    merged in the launch.
+
+    Same contract as ``paged_prefill_attention_ranks_merged_plain``.
+    """
+    return _prefill_ranks_launch(paged_prefill_attention_ranks_merged_cuda,
+                                 q, pools_k, pools_v, tables, tails, scale,
+                                 stacked=False)
 
 
 paged_prefill_attention_cuda.launches = 0
 paged_prefill_attention_ranks_cuda.launches = 0
+paged_prefill_attention_ranks_merged_cuda.launches = 0

@@ -4,11 +4,15 @@
 (prefill chunk) keep the JAX package's signatures and ``(o, m, l)``
 float32 outputs, and so do their rank forms over a stack of rank pools,
 ``paged_micro_attention_ranks`` and ``paged_prefill_attention_ranks``
-(the global pool's path: ONE launch of the same kernel, the rank one
-more grid axis, where the JAX package vmaps the Pallas kernel);
-``flash_prefill`` (causal, optionally sliding-window,
-whole-prompt attention) keeps its signature and returns the normalized
-output in q's dtype. All five dispatch on the device of ``q``: a CUDA
+(ONE launch of a rank kernel over every rank, where the JAX package
+vmaps the Pallas kernel: stacked partials, one a rank). The merged rank
+forms, ``paged_micro_attention_ranks_merged`` and
+``paged_prefill_attention_ranks_merged`` (the global pool's path), give
+what ``merge_partials(axis=0)`` of the stacked forms gives, the ranks
+merged in the same launch. ``flash_prefill`` (causal, optionally
+sliding-window, whole-prompt attention) keeps its signature and returns
+the normalized output in q's dtype. All seven dispatch on the device of
+``q``: a CUDA
 tensor launches the hand-written kernel — or raises, never falling back
 — and a CPU tensor runs the kernel's plain PyTorch twin. The TPU-only
 wrapper work of the reference (padding D to 128 lanes and S to the tile,
@@ -16,10 +20,11 @@ the kv-head-major query layout) has no counterpart: the CUDA kernels
 index heads and rows and mask the ragged end themselves. ``scale``
 defaults to ``true_head_dim ** -0.5``.
 
-Precision. The two paged kernels return what their float32 plain twins
+Precision. The paged kernels return what their float32 plain twins
 return, within 1e-4, in both storage dtypes. Decode computes in float32
 on the CUDA cores; it splits each request's slots over several blocks
-(split-KV) and LSE-merges the splits in float32. The prefill chunk with
+(split-KV; the rank kernel: units of valid tokens over every rank) and
+LSE-merges the parts in float32. The prefill chunk with
 bf16 pools runs on the tensor cores: q K^T products of bf16 values are
 exact in float32, each float32 probability p enters P V as two bf16
 halves ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p
@@ -46,10 +51,16 @@ from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
                                                flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
     paged_micro_attention_cuda, paged_micro_attention_plain,
-    paged_micro_attention_ranks_cuda, paged_micro_attention_ranks_plain)
+    paged_micro_attention_ranks_cuda,
+    paged_micro_attention_ranks_merged_cuda,
+    paged_micro_attention_ranks_merged_plain,
+    paged_micro_attention_ranks_plain)
 from repro_torch.kernels.micro_attn_prefill import (
     paged_prefill_attention_cuda, paged_prefill_attention_plain,
-    paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain)
+    paged_prefill_attention_ranks_cuda,
+    paged_prefill_attention_ranks_merged_cuda,
+    paged_prefill_attention_ranks_merged_plain,
+    paged_prefill_attention_ranks_plain)
 
 
 def _route(q: torch.Tensor) -> str:
@@ -135,6 +146,44 @@ def paged_prefill_attention_ranks(q, pools_k, pools_v, tables, tails, *,
                                                tails, scale=scale)
 
 
+def paged_micro_attention_ranks_merged(q, pools_k, pools_v, tables, tails,
+                                       *, scale=None):
+    """Decode MicroAttention over a stack of rank pools, the ranks merged.
+
+    Inputs as ``paged_micro_attention_ranks``. Returns what
+    ``merge_partials(*paged_micro_attention_ranks(...), axis=0)`` does:
+    (o [R,H,D], m [R,H], l [R,H]) float32, (0, -inf, 0) for a request
+    with no valid token on any rank.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _route(q) == "cuda":
+        return paged_micro_attention_ranks_merged_cuda(
+            q, pools_k, pools_v, tables, tails, scale=scale)
+    paged_micro_attention_ranks_merged.plain_calls += 1
+    return paged_micro_attention_ranks_merged_plain(
+        q, pools_k, pools_v, tables, tails, scale=scale)
+
+
+def paged_prefill_attention_ranks_merged(q, pools_k, pools_v, tables,
+                                         tails, *, scale=None):
+    """Prefill-chunk MicroAttention over a stack of rank pools, the ranks
+    merged.
+
+    Inputs as ``paged_prefill_attention_ranks``. Returns what
+    ``merge_partials(*paged_prefill_attention_ranks(...), axis=0)`` does:
+    (o [C,H,D], m [C,H], l [C,H]) float32.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _route(q) == "cuda":
+        return paged_prefill_attention_ranks_merged_cuda(
+            q, pools_k, pools_v, tables, tails, scale=scale)
+    paged_prefill_attention_ranks_merged.plain_calls += 1
+    return paged_prefill_attention_ranks_merged_plain(
+        q, pools_k, pools_v, tables, tails, scale=scale)
+
+
 def flash_prefill(q, k, v, *, scale=None, window=0):
     """Causal flash attention, optionally sliding-window (local layers).
 
@@ -161,6 +210,12 @@ WRAPPERS = {
                                     paged_micro_attention_ranks_cuda),
     "paged_prefill_attention_ranks": (paged_prefill_attention_ranks,
                                       paged_prefill_attention_ranks_cuda),
+    "paged_micro_attention_ranks_merged": (
+        paged_micro_attention_ranks_merged,
+        paged_micro_attention_ranks_merged_cuda),
+    "paged_prefill_attention_ranks_merged": (
+        paged_prefill_attention_ranks_merged,
+        paged_prefill_attention_ranks_merged_cuda),
     "flash_prefill": (flash_prefill, flash_prefill_cuda),
 }
 

@@ -5,10 +5,11 @@ cluster's steps in global-pool mode: the same paged math as the engines'
 per-instance steps (``models/prefill.py``), but every rank's pool is a
 slice of the cluster-wide ``GlobalKVPool`` tensor ``[NR, L, NB, bs, K,
 hd]``. Each layer reads its view ``gk[:, l]`` (strided, never copied)
-with ONE launch of a rank-form kernel over every rank
-(``kernels.ops.paged_*_attention_ranks``, where the JAX package vmaps
-its Pallas kernel over the rank axis), and the stacked per-rank partials
-merge with ``merge_partials(axis=0)`` (paper Eq. 3).
+with ONE launch of a rank kernel over every rank
+(``kernels.ops.paged_*_attention_ranks_merged``, where the JAX package
+vmaps its Pallas kernel over the rank axis and merges the stacked
+partials with ``merge_partials(axis=0)``, paper Eq. 3): the ranks'
+partials are LSE-merged in the same launch.
 
 The schedule is the JAX package's (``repro/serving/sharded_step.py``):
 the pool is read-only during the layer loop. Decode tables EXCLUDE the
@@ -29,8 +30,8 @@ processes of ``pool_axes``, as the JAX package shards it over devices
 under ``shard_map``: ``gk``/``gv`` are this process's slab ``[NR/shards,
 L, NB, bs, K, hd]``; the tables and tails stay global and are sliced to
 the local ranks; each layer launches the rank-form kernel ONCE over the
-local slab, merges the local ranks with ``merge_partials(axis=0)`` and
-then across the group with ``merge_partials_collective`` (so a process
+local slab, the local ranks merged in the launch, and then merges
+across the group with ``merge_partials_collective`` (so a process
 that holds none of a request's blocks contributes ``(0, -inf, 0)``); the
 deferred writes keep only the rows whose rank is local. Every process
 computes the same logits.
@@ -42,10 +43,11 @@ of R requests over a pool ``[L, NP, NB, bs, K, hd]`` of NP shards:
 * ``serve_decode_step`` (write-then-attend): each layer writes the new
   token's K/V into its tail block (the sentinel block ``NB`` drops the
   write on every other shard), then ONE launch of the decode rank kernel
-  (``paged_micro_attention_ranks``) over the layer's ``[NP, NB, bs, K,
-  hd]`` view gives every shard's MicroAttention partial — where the JAX
-  package vmaps ``paged_micro_attention_ref`` — merged with
-  ``merge_partials(axis=0)``. Tails INCLUDE the new token.
+  (``paged_micro_attention_ranks_merged``) over the layer's ``[NP, NB,
+  bs, K, hd]`` view gives the shards' MicroAttention partials, merged in
+  the launch — where the JAX package vmaps ``paged_micro_attention_ref``
+  and merges with ``merge_partials(axis=0)``. Tails INCLUDE the new
+  token.
 * ``serve_decode_step_opt`` (read-only pool): the pool is only read in
   the layer loop, the new token joins each layer as a self partial, and
   every layer's new row is written after the loop in one scatter a pool.
@@ -82,10 +84,10 @@ tails and write targets stay global on the host and are sliced to the
 local shards. Rows split over ``layout.batch_axes`` when R divides
 their size and are replicated otherwise (``batch_rows``). A layer
 gathers q over the batch axes (queries are broadcast, KV never moves),
-launches the rank kernel once over the local shards and heads, merges
-the local shards and then the pool group (``merge_partials_collective``)
-and, in tp_head mode, gathers the heads over the TP axis; each process
-keeps its own rows. MoE layers that drop past capacity see the whole
+launches the rank kernel once over the local shards and heads (the
+local shards merged in the launch), merges across the pool group
+(``merge_partials_collective``) and, in tp_head mode, gathers the heads
+over the TP axis; each process keeps its own rows. MoE layers that drop past capacity see the whole
 batch (gathered), so the capacity is the global one.
 
 The three pooled steps take the weights replicated (a plain tree, whole
@@ -126,14 +128,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.online_softmax import (combine, finalize,
-                                             merge_partials,
                                              merge_partials_collective,
                                              micro_attention_decode,
                                              micro_attention_prefill)
 from repro_torch.distributed.mesh import pool_shards
 from repro_torch.distributed.placement import PlacedParams, all_gather_cat
-from repro_torch.kernels.ops import (paged_micro_attention_ranks,
-                                     paged_prefill_attention_ranks)
+from repro_torch.kernels.ops import (paged_micro_attention_ranks_merged,
+                                     paged_prefill_attention_ranks_merged)
 from repro_torch.models.attention import (expand_kv, heads_out, kv_range,
                                           make_causal_core, qkv_project,
                                           split_heads)
@@ -208,8 +209,8 @@ def _global_write(g: torch.Tensor, rows: torch.Tensor, plan) -> None:
 
 
 def _merge(part, group):
-    """Merge stacked rank partials here, then across ``group``."""
-    part = merge_partials(*part, axis=0)
+    """The local ranks' partial (merged in the launch), then merged
+    across ``group``."""
     return part if group is None else merge_partials_collective(*part,
                                                                 group)
 
@@ -218,15 +219,15 @@ def _global_pooled_decode(q1, gk_l, gv_l, tables, tails, scale, group):
     """Merged pooled partial for one layer. q1 [B,H,hd] shared by every
     rank; gk_l/gv_l [NR,NB,bs,K,hd] (this process's ranks); tables
     [NR,B,MB]; tails [NR,B]."""
-    return _merge(paged_micro_attention_ranks(q1, gk_l, gv_l, tables, tails,
-                                              scale=scale), group)
+    return _merge(paged_micro_attention_ranks_merged(
+        q1, gk_l, gv_l, tables, tails, scale=scale), group)
 
 
 def _global_pooled_prefill(qc, gk_l, gv_l, tables, tails, scale, group):
     """Merged prefix partial for one prefill chunk. qc [C,H,hd];
     tables [NR,MB]; tails [NR]."""
-    return _merge(paged_prefill_attention_ranks(qc, gk_l, gv_l, tables,
-                                                tails, scale=scale), group)
+    return _merge(paged_prefill_attention_ranks_merged(
+        qc, gk_l, gv_l, tables, tails, scale=scale), group)
 
 
 def decode_step_global(params, cfg: ModelConfig, tokens, lens,

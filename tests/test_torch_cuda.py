@@ -23,10 +23,16 @@ from repro_torch.kernels.flash_prefill import (flash_prefill_cuda,
                                                flash_prefill_plain)
 from repro_torch.kernels.micro_attn_decode import (
     paged_micro_attention_cuda, paged_micro_attention_plain,
-    paged_micro_attention_ranks_cuda, paged_micro_attention_ranks_plain)
+    paged_micro_attention_ranks_cuda,
+    paged_micro_attention_ranks_merged_cuda,
+    paged_micro_attention_ranks_merged_plain,
+    paged_micro_attention_ranks_plain)
 from repro_torch.kernels.micro_attn_prefill import (
     paged_prefill_attention_cuda, paged_prefill_attention_plain,
-    paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain)
+    paged_prefill_attention_ranks_cuda,
+    paged_prefill_attention_ranks_merged_cuda,
+    paged_prefill_attention_ranks_merged_plain,
+    paged_prefill_attention_ranks_plain)
 
 TOL = 1e-4
 
@@ -178,6 +184,10 @@ def test_cuda_tensors_launch_the_kernels_and_count_them(cuda_device):
         "paged_prefill_attention": {"launches": 1, "plain_calls": 0},
         "paged_micro_attention_ranks": {"launches": 0, "plain_calls": 0},
         "paged_prefill_attention_ranks": {"launches": 0, "plain_calls": 0},
+        "paged_micro_attention_ranks_merged": {"launches": 0,
+                                               "plain_calls": 0},
+        "paged_prefill_attention_ranks_merged": {"launches": 0,
+                                                 "plain_calls": 0},
         "flash_prefill": {"launches": 1, "plain_calls": 0}}
 
 
@@ -368,16 +378,42 @@ def _rank_tables(rng, NR, nblks, MB, bs, NB, empty):
     return tables, tails
 
 
-def _no_copy_call(fn, view):
-    """``fn()`` under the peak-memory counter: the call may allocate its
-    outputs and scratch, never a copy of ``view``."""
+def _rank_call_bytes(kind, q, pools, tables, stacked):
+    """What a rank wrapper allocates: its float32 outputs (o, m, l) and
+    the scratch its plan asks for (``rank_*_plan``: slots of rows of
+    D + 4 floats)."""
+    from repro_torch.kernels.micro_attn_decode import (device_sm_count,
+                                                       rank_decode_plan)
+    from repro_torch.kernels.micro_attn_prefill import rank_prefill_plan
+    NR, _, bs, K, D = pools.shape
+    rows, H = q.shape[:2]
+    sms = device_sm_count(q.device.index)
+    MB = tables.shape[-1]
+    if kind == "decode":
+        plan = rank_decode_plan(rows, H, K, D, MB, bs, q.dtype, sms, NR,
+                                stacked)
+        slot_rows = plan["heads_per_block"]
+    else:
+        plan = rank_prefill_plan(rows, H, K, D, MB, bs, q.dtype, sms, NR,
+                                 stacked)
+        slot_rows = plan["rows_per_block"]
+    outputs = (NR if stacked else 1) * rows * H * (D + 2) * 4
+    return outputs + plan["ws_slots"] * slot_rows * (D + 4) * 4
+
+
+def _no_copy_call(fn, view, planned):
+    """``fn()`` under the peak-memory counter: the call allocates its
+    outputs and scratch (``planned`` bytes, its ticket counters, and what
+    the caching allocator adds: it hands out a cached block up to 1 MiB
+    larger than asked, for each of the two large allocations) and nothing
+    else, never a copy of ``view`` (at least 2.6 MB in these tests)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     out = fn()
     torch.cuda.synchronize()
-    assert torch.cuda.max_memory_allocated() - base < \
-        view.numel() * view.element_size()
+    extra = torch.cuda.max_memory_allocated() - base - planned
+    assert extra < min(2 << 20, view.numel() * view.element_size()), extra
     return out
 
 
@@ -408,7 +444,7 @@ def test_rank_kernels_match_plain_on_a_strided_layer_view(
                     device=cuda_device).to(dtype)
     ops.reset_counts()
     got = _no_copy_call(lambda: ops.paged_micro_attention_ranks(
-        q, pk, pv, tb, tl), pk)
+        q, pk, pv, tb, tl), pk, _rank_call_bytes("decode", q, pk, tb, True))
     want = paged_micro_attention_ranks_plain(q, pk, pv, tb, tl,
                                              scale=D ** -0.5)
     assert got[0].shape == (NR, len(nblks), H, D)
@@ -419,7 +455,8 @@ def test_rank_kernels_match_plain_on_a_strided_layer_view(
     qc = torch.randn((37, H, D), generator=gen,
                      device=cuda_device).to(dtype)
     got = _no_copy_call(lambda: ops.paged_prefill_attention_ranks(
-        qc, pk, pv, tb[:, 0], tl[:, 0]), pk)
+        qc, pk, pv, tb[:, 0], tl[:, 0]), pk,
+        _rank_call_bytes("prefill", qc, pk, tb, True))
     want = paged_prefill_attention_ranks_plain(qc, pk, pv, tb[:, 0],
                                                tl[:, 0], scale=D ** -0.5)
     assert got[0].shape == (NR, 37, H, D)
@@ -463,11 +500,68 @@ def test_rank_kernels_equal_one_launch_per_rank(dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NR,K,G,bs,nblks,MB,empty", [
+    (1, 8, 2, 16, [250, 0, 9], 256, ()),      # one rank
+    (4, 8, 2, 16, [60, 3, 0, 200], 256, ()),  # four ranks
+    (3, 16, 1, 16, [63, 38, 0, 0], 256, (1,)),  # MHA, an empty rank
+    (3, 4, 2, 16, [40, 7], 64, (0, 1, 2)),    # a process holding no block
+    (2, 4, 2, 128, [64, 3], 65, (1,)),        # 128-token blocks
+    (4, 8, 2, 8, [500, 37], 512, (2,)),       # bs 8: many units a request
+], ids=["nr1", "nr4", "mha-empty", "no-block", "bs128", "bs8"])
+def test_merged_and_stacked_rank_kernels_match_plain(
+        dtype, NR, K, G, bs, nblks, MB, empty, cuda_device):
+    """The rank kernels' merged entries == merge_partials of the stacked
+    plain twin, and their stacked entries == the stacked twin, at one and
+    four ranks, G 1 and 2, empty ranks, a process holding no block of
+    the batch, bs 8 / 16 / 128 (decode; a 37-query chunk over request
+    0's prefix for prefill), each one launch, twice (the ticket counters
+    are reset for reuse)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    rng = np.random.default_rng(NR * 100 + bs)
+    L, D, H = 2, 128, K * G
+    NB = max(nblks) * len(nblks) + 2
+    gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, dtype, cuda_device)
+    pk, pv = gk[:, 1], gv[:, 1]
+    tables, tails = _rank_tables(rng, NR, nblks, MB, bs, NB, empty)
+    tb = torch.from_numpy(tables).to(cuda_device)
+    tl = torch.from_numpy(tails).to(cuda_device)
+    q = torch.randn((len(nblks), H, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    qc = torch.randn((37, H, D), generator=gen,
+                     device=cuda_device).to(dtype)
+    s = D ** -0.5
+    for stacked_fn, merged_fn, stacked_plain, merged_plain, qq, t, tt in (
+            (paged_micro_attention_ranks_cuda,
+             paged_micro_attention_ranks_merged_cuda,
+             paged_micro_attention_ranks_plain,
+             paged_micro_attention_ranks_merged_plain, q, tb, tl),
+            (paged_prefill_attention_ranks_cuda,
+             paged_prefill_attention_ranks_merged_cuda,
+             paged_prefill_attention_ranks_plain,
+             paged_prefill_attention_ranks_merged_plain, qc, tb[:, 0],
+             tl[:, 0])):
+        want = merged_plain(qq, pk, pv, t, tt, scale=s)
+        want_st = stacked_plain(qq, pk, pv, t, tt, scale=s)
+        before = (merged_fn.launches, stacked_fn.launches)
+        for _ in range(2):
+            got = merged_fn(qq, pk, pv, t, tt, scale=s)
+            assert got[0].shape == want[0].shape
+            _close_partials(got, want)
+            _close_partials(stacked_fn(qq, pk, pv, t, tt, scale=s), want_st)
+        assert (merged_fn.launches, stacked_fn.launches) == (
+            before[0] + 2, before[1] + 2)
+        if len(empty) == NR:
+            assert bool(torch.isneginf(got[1]).all())
+
+
+@pytest.mark.cuda
 def test_rank_entries_refuse_bad_plans_and_layouts(cuda_device,
                                                    monkeypatch):
     """The C entries refuse a rank plan they cannot launch (too few
-    ticket counters for the rank grid, no instantiation), and the
-    wrappers refuse a rank slab that is not contiguous."""
+    ticket counters for the merge groups, no instantiation, a shared
+    memory size or unit unlike the kernel's), and the wrappers refuse a
+    rank slab that is not contiguous."""
     import repro_torch.kernels.micro_attn_decode as dec
     import repro_torch.kernels.micro_attn_prefill as pre
     gen = torch.Generator(device=cuda_device).manual_seed(13)
@@ -481,19 +575,25 @@ def test_rank_entries_refuse_bad_plans_and_layouts(cuda_device,
     tl = torch.from_numpy(tails).to(cuda_device)
     q = torch.randn((2, 16, D), generator=gen,
                     device=cuda_device).to(torch.bfloat16)
-    plan_d, plan_p = dec.decode_plan, pre.prefill_plan
-    # A plan for one rank's work items: the rank grid needs NR times the
-    # ticket counters it would be given.
-    monkeypatch.setattr(dec, "decode_plan",
-                        lambda *a: {**plan_d(*a), "items": 1})
-    monkeypatch.setattr(dec, "_TICKETS", {})
-    with pytest.raises(RuntimeError, match="launch failed"):
-        paged_micro_attention_ranks_cuda(q, pk, pv, tb, tl, scale=0.1)
-    monkeypatch.setattr(pre, "prefill_plan",
-                        lambda *a: {**plan_p(*a), "rows_per_block": 96})
-    with pytest.raises(RuntimeError, match="launch failed"):
-        paged_prefill_attention_ranks_cuda(q, pk, pv, tb[:, 0], tl[:, 0],
-                                           scale=0.1)
+    plan_d, plan_p = dec.rank_decode_plan, pre.rank_prefill_plan
+    # One ticket counter for all the merge groups; no instantiation.
+    for bad in ({"groups": 1}, {"heads_per_block": 3},
+                {"smem_bytes": 16}, {"unit_tokens": 100}):
+        monkeypatch.setattr(dec, "rank_decode_plan",
+                            lambda *a, bad=bad: {**plan_d(*a), **bad})
+        monkeypatch.setattr(dec, "_TICKETS", {})
+        before = paged_micro_attention_ranks_cuda.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            paged_micro_attention_ranks_cuda(q, pk, pv, tb, tl, scale=0.1)
+        assert paged_micro_attention_ranks_cuda.launches == before
+    for bad in ({"groups": 1}, {"rows_per_block": 96}, {"smem_bytes": 16},
+                {"unit_tokens": 128}):
+        monkeypatch.setattr(pre, "rank_prefill_plan",
+                            lambda *a, bad=bad: {**plan_p(*a), **bad})
+        monkeypatch.setattr(dec, "_TICKETS", {})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            paged_prefill_attention_ranks_cuda(q, pk, pv, tb[:, 0],
+                                               tl[:, 0], scale=0.1)
     monkeypatch.undo()
     with pytest.raises(ValueError, match="contiguous"):
         paged_micro_attention_ranks_cuda(q, pk[:, :, :, ::2],
@@ -542,8 +642,8 @@ def test_global_pool_serves_on_the_card(arch, cuda_device):
         assert sum(e.stats.pool_copy_steps for e in cl.engines.values()) == 0
         assert cl.throughput_stats["kv_moved_bytes"] > 0
     c = ops.counts()
-    assert c["paged_micro_attention_ranks"]["launches"] > 0
-    assert c["paged_prefill_attention_ranks"]["launches"] > 0
+    assert c["paged_micro_attention_ranks_merged"]["launches"] > 0
+    assert c["paged_prefill_attention_ranks_merged"]["launches"] > 0
     assert c["paged_micro_attention"]["launches"] == 0
     assert all(v["plain_calls"] == 0 for v in c.values())
     assert streams[True] == streams[False]
@@ -678,7 +778,7 @@ def test_cached_serving_on_the_card_allocates_nothing_pool_sized(
     assert eng.stats.pool_copy_steps == 0
     c = ops.counts()
     assert all(v["plain_calls"] == 0 for v in c.values())
-    suffix = "_ranks" if global_pool else ""
+    suffix = "_ranks_merged" if global_pool else ""
     assert c["paged_prefill_attention" + suffix]["launches"] > 0
     assert c["paged_micro_attention" + suffix]["launches"] > 0
 
@@ -748,7 +848,7 @@ def test_creditor_crash_replays_on_the_card(global_pool, cuda_device):
     assert req.output == _greedy_oracle(params, cfg, prompt, 12, cuda_device)
     assert req.replays == 1 and victim in cl._dead
     c = ops.counts()
-    suffix = "_ranks" if global_pool else ""
+    suffix = "_ranks_merged" if global_pool else ""
     assert c["paged_prefill_attention" + suffix]["launches"] > 0
     assert c["paged_micro_attention" + suffix]["launches"] > 0
     assert all(v["plain_calls"] == 0 for v in c.values())
@@ -971,7 +1071,7 @@ def test_serve_steps_on_the_card_match_the_cpu(arch, cuda_device, no_tf32):
                 torch.from_numpy(inp["pool_v"]).to(dev), inp["tables"],
                 inp["nblk"], tails, inp["wblk"], inp["woff"], tokens, lens,
                 return_logits=True)
-        c = ops.counts()["paged_micro_attention_ranks"]
+        c = ops.counts()["paged_micro_attention_ranks_merged"]
         assert c == {"launches": cfg.num_layers, "plain_calls": 0}
         for g, w in zip(out[str(cuda_device)], out["cpu"]):
             np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
@@ -986,9 +1086,10 @@ def test_serve_steps_on_the_card_match_the_cpu(arch, cuda_device, no_tf32):
 @pytest.mark.parametrize("tail", [1, 64, 65, 128])
 def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
                                                        cuda_device):
-    """The prefill-chunk kernel and its rank form over a strided layer
+    """The prefill-chunk kernel and its rank forms over a strided layer
     view of a [NR, L, NB, 128, K, D] pool (qwen3's GQA 16/8 x 128): the
-    wrappers read it as 64-token sub-blocks of the same memory, and the
+    single-rank wrapper reads it as 64-token sub-blocks of the same
+    memory, the rank kernels read the 128-token blocks in place, and the
     partials equal the plain twins' over the 128-token blocks (a
     -1-padded table, an empty rank)."""
     from repro_torch.kernels.micro_attn_prefill import _checked
@@ -1005,6 +1106,9 @@ def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
     got = ops.paged_prefill_attention_ranks(q, pk, pv, tb, tl)
     _close_partials(got, paged_prefill_attention_ranks_plain(
         q, pk, pv, tb, tl, scale=scale))
+    got = ops.paged_prefill_attention_ranks_merged(q, pk, pv, tb, tl)
+    _close_partials(got, paged_prefill_attention_ranks_merged_plain(
+        q, pk, pv, tb, tl, scale=scale))
     for r in range(NR):
         got = ops.paged_prefill_attention(q, pk[r], pv[r], tb[r], tl[r])
         _close_partials(got, paged_prefill_attention_plain(
@@ -1012,12 +1116,14 @@ def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
     c = ops.counts()
     assert c["paged_prefill_attention_ranks"] == {"launches": 1,
                                                   "plain_calls": 0}
+    assert c["paged_prefill_attention_ranks_merged"] == {
+        "launches": 1, "plain_calls": 0}
     assert c["paged_prefill_attention"] == {"launches": NR,
                                             "plain_calls": 0}
-    # The kernel reads the pool itself: views, never a copy.
-    _, vk, vv, _, _ = _checked(q, pk, pv, tb, tl, ranked=True)
-    assert vk.shape[-3] == 64 and vk.data_ptr() == pk.data_ptr() and \
-        vv.data_ptr() == pv.data_ptr()
+    # The single-rank kernel reads the pool itself: views, never a copy.
+    vk, vv, _, _ = _checked(q, pk[0], pv[0], tb[0], tl[0])
+    assert vk.shape[-3] == 64 and vk.data_ptr() == pk[0].data_ptr() and \
+        vv.data_ptr() == pv[0].data_ptr()
 
 
 @pytest.mark.cuda

@@ -52,14 +52,16 @@ from repro_torch.kernels.flash_prefill import (MAX_HEAD_DIM,
                                                flash_plan,
                                                flash_prefill_cuda,
                                                flash_prefill_plain)
+from repro_torch.kernels import rank_units
 from repro_torch.kernels.micro_attn_decode import (
-    MAX_SPLITS, MIN_SPLIT_TOKENS, decode_plan, paged_micro_attention_cuda,
-    paged_micro_attention_plain, paged_micro_attention_ranks_cuda,
-    paged_micro_attention_ranks_plain, plan_splits)
+    MAX_SPLITS, MIN_SPLIT_TOKENS, RANK_UNIT_TOKENS, decode_plan,
+    paged_micro_attention_cuda, paged_micro_attention_plain,
+    paged_micro_attention_ranks_cuda, paged_micro_attention_ranks_plain,
+    plan_splits, rank_decode_plan)
 from repro_torch.kernels.micro_attn_prefill import (
     SMEM_PER_SM, paged_prefill_attention_cuda, paged_prefill_attention_plain,
     paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain,
-    prefill_plan)
+    prefill_plan, rank_prefill_plan)
 
 F32_TOL = 1e-4
 JAX_REF_BF16_TOL = 5e-2
@@ -272,11 +274,21 @@ def test_cpu_tensors_take_the_plain_path_and_count_it():
     ops.paged_prefill_attention_ranks(q, pools, pools,
                                       torch.tensor([[3, -1]] * 2),
                                       torch.tensor([5, 5]))
+    ops.paged_micro_attention_ranks_merged(
+        q, pools, pools, torch.tensor([[[0, 1], [2, -1]]] * 2),
+        torch.tensor([[8, 3]] * 2))
+    ops.paged_prefill_attention_ranks_merged(q, pools, pools,
+                                             torch.tensor([[3, -1]] * 2),
+                                             torch.tensor([5, 5]))
     assert ops.counts() == {
         "paged_micro_attention": {"launches": 0, "plain_calls": 1},
         "paged_prefill_attention": {"launches": 0, "plain_calls": 1},
         "paged_micro_attention_ranks": {"launches": 0, "plain_calls": 1},
         "paged_prefill_attention_ranks": {"launches": 0, "plain_calls": 1},
+        "paged_micro_attention_ranks_merged": {"launches": 0,
+                                               "plain_calls": 1},
+        "paged_prefill_attention_ranks_merged": {"launches": 0,
+                                                 "plain_calls": 1},
         "flash_prefill": {"launches": 0, "plain_calls": 1}}
 
 
@@ -385,36 +397,53 @@ def test_plan_splits_tiles_the_table_in_whole_slots(items, MB, bs, sms,
 
 @pytest.mark.parametrize("NR", [1, 2, 3, 4])
 def test_rank_plans_split_all_ranks_work_items(NR):
-    """A rank plan is the single-rank plan of the same shapes with the
-    split planned for ``items * NR`` work items and the rank folded
-    into grid.z; one rank is exactly the single-rank plan."""
+    """A rank plan launches as many persistent blocks as the card holds
+    at once (3 decode blocks an SM, 2 bf16 and 1 float32 prefill blocks),
+    no more than the tables could hold units, with one ticket counter a
+    merge group and a scratch slot a block and a group; the work itself
+    (every rank's valid tokens) is planned on the card."""
     for R, H, K, MB in ((4, 16, 16, 256), (4, 16, 8, 64)):
-        dec = decode_plan(R, H, K, MB, 16, H100_SMS, NR)
-        nsplit, spb = plan_splits(dec["items"] * NR, MB, 16, H100_SMS, 3)
-        assert (dec["nsplit"], dec["slots_per_split"]) == (nsplit, spb)
-        assert dec["grid"][2] == NR * nsplit and dec["ranks"] == NR
-        assert dec["grid"][0] * dec["grid"][1] == dec["items"]
-    for dt in (torch.bfloat16, torch.float32):
-        pre = prefill_plan(512, 16, 16, 128, 256, 16, dt, H100_SMS, NR)
-        assert pre["grid"] == (16, 4 if dt == torch.bfloat16 else 8,
-                               NR * pre["nsplit"])
-        assert dt == torch.bfloat16 or pre["nsplit"] == 1
-    assert decode_plan(4, 16, 8, 64, 16, H100_SMS, 1) == \
-        decode_plan(4, 16, 8, 64, 16, H100_SMS)
-    # The qwen2-moe global path's plans on an H100 (132 SMs): decode
-    # splits 2 ways over 3 x 64 work items, the prefill chunk not at all.
-    if NR == 3:
-        dec = decode_plan(4, 16, 16, 256, 16, H100_SMS, 3)
-        assert dec["grid"] == (16, 4, 6)
-        pre = prefill_plan(512, 16, 16, 128, 256, 16, torch.bfloat16,
-                           H100_SMS, 3)
-        assert pre["grid"] == (16, 4, 3)
+        for stacked in (False, True):
+            dec = rank_decode_plan(R, H, K, 128, MB, 16, torch.bfloat16,
+                                   H100_SMS, NR, stacked)
+            gt = 1 if H == K else 2
+            hg = K * (H // K) // gt
+            assert dec["heads_per_block"] == gt and dec["head_groups"] == hg
+            assert dec["groups"] == (NR * R if stacked else R) * hg
+            assert dec["unit_tokens"] == RANK_UNIT_TOKENS == 256
+            assert dec["blocks"] == min(3 * H100_SMS,
+                                        hg * R * NR * MB * 16 // 256)
+            assert dec["ws_slots"] == dec["blocks"] + dec["groups"]
+            assert dec["smem_bytes"] * dec["blocks_per_sm"] <= SMEM_PER_SM
+    for dt, per_sm in ((torch.bfloat16, 2), (torch.float32, 1)):
+        for stacked in (False, True):
+            pre = rank_prefill_plan(512, 16, 16, 128, 256, 16, dt, H100_SMS,
+                                    NR, stacked)
+            rows = 128 if dt == torch.bfloat16 else 64
+            assert pre["rows_per_block"] == rows
+            assert pre["head_groups"] == 16 * 512 // rows
+            assert pre["groups"] == pre["head_groups"] * (NR if stacked
+                                                          else 1)
+            assert pre["blocks_per_sm"] == per_sm
+            assert pre["blocks"] == per_sm * H100_SMS
+            assert pre["unit_tokens"] == 64
+    # One rank and a short table: fewer blocks than the card holds.
+    tiny = rank_decode_plan(1, 8, 8, 128, 2, 16, torch.float32, H100_SMS,
+                            1, False)
+    assert tiny["blocks"] == 8     # 8 kv heads x one 256-token unit
 
 
 def test_split_plans_fill_the_card_at_the_main_shapes():
     """The grids the kernels' headers state: decode 64 work items x 6
     splits (one wave of ~3 blocks per SM); prefill 64 items of 128 rows x
-    4 splits, one wave of 2 per SM (D = 256: 64-row blocks, 1 per SM)."""
+    4 splits, one wave of 2 per SM (D = 256: 64-row blocks, 1 per SM).
+    The rank kernels at the qwen2-moe global path's shapes (MHA 16 x 128,
+    three ranks holding a request's 63 / 160 / 27 blocks of 16 tokens;
+    a 512-query chunk over a 32 / 160 / 27-block prefix): one wave of
+    persistent blocks, and by the plan on the card (kernels/rank_units.py
+    at these tables) no block walks more than one 256-token unit in
+    decode, nor more than 14 of the prefill's 64-token tiles, where the
+    split plans of PR 15's kernels walked 2,048 and 2,560."""
     dec = decode_plan(8, 16, 8, 259, 16, H100_SMS)
     assert dec["grid"] == (8, 8, 6) and dec["heads_per_block"] == 2
     assert 2 * H100_SMS <= 64 * dec["nsplit"] <= 3 * H100_SMS
@@ -428,6 +457,28 @@ def test_split_plans_fill_the_card_at_the_main_shapes():
     assert wide["rows_per_block"] == 64 and wide["blocks_per_sm"] == 1
     assert prefill_plan(512, 16, 8, 128, 191, 16, torch.float32,
                         H100_SMS)["nsplit"] == 1
+    # The rank kernels.
+    bs = 16
+    S = np.array([[63 * bs, 38 * bs, 0, 0], [160 * bs, 0, 0, 0],
+                  [27 * bs, 0, 0, 0]])
+    dec = rank_decode_plan(4, 16, 16, 128, 256, bs, torch.bfloat16,
+                           H100_SMS, 3, False)
+    assert dec["blocks"] == 3 * H100_SMS
+    plan = rank_units.unit_plan(S, dec["unit_tokens"], dec["head_groups"],
+                                stacked=False)
+    walks = [sum(hi - lo for seg in rank_units.segments(plan, b,
+                                                        dec["blocks"])
+                 for _, _, lo, hi in seg["units"])
+             for b in range(dec["blocks"])]
+    assert max(walks) <= 256 and sum(walks) == 16 * S.sum()
+    pre = rank_prefill_plan(512, 16, 16, 128, 256, bs, torch.bfloat16,
+                            H100_SMS, 3, False)
+    assert pre["blocks"] == 2 * H100_SMS
+    Sp = np.array([[32 * bs], [160 * bs], [27 * bs]])
+    plan = rank_units.unit_plan(Sp, 64, pre["head_groups"], stacked=False)
+    tiles = [sum(len(seg["units"]) for seg in rank_units.segments(
+        plan, b, pre["blocks"])) for b in range(pre["blocks"])]
+    assert max(tiles) <= 14 and sum(tiles) == 64 * (8 + 40 + 7)
 
 
 def _split_view(table, tail, bs, s0, s1):

@@ -153,7 +153,7 @@ def test_mesh_decode_step_equals_the_single_process_step(run):
                 got[key], pool[2 * r:2 * r + 2].cpu().numpy(), rtol=TOL,
                 atol=TOL)
         c = got["counts"]
-        assert c["paged_micro_attention_ranks"]["launches"] == LAYERS
+        assert c["paged_micro_attention_ranks_merged"]["launches"] == LAYERS
         assert all(v["plain_calls"] == 0 for v in c.values())
         assert c["paged_micro_attention"]["launches"] == 0
 

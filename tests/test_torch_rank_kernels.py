@@ -1,0 +1,353 @@
+"""The rank kernels' merged forms and their work plan, on the CPU.
+
+The merged rank forms (``kernels.ops.paged_*_attention_ranks_merged``:
+one launch over a stack of rank pools, the ranks' partials LSE-merged in
+the launch) are held, through their plain twins, against the JAX
+package's rank forms (``repro.kernels.ops.paged_micro_attention_ranks``
+/ ``paged_prefill_attention_ranks``, a vmap of the Pallas kernel over the
+rank axis, with ``backend="jnp"`` and in interpret mode) followed by its
+``merge_partials``: one to four ranks, empty ranks, 16- and 128-token
+blocks, float32, 1e-5 (the same float32 sums in another order).
+
+The rank kernels plan their work on the card from the tables
+(``csrc/paged_attn.cuh``); ``kernels/rank_units.py`` is that plan on the
+host. A hypothesis test holds it to its properties over random tables;
+an emulation runs it with plain partials over each block's units and
+holds the merged and stacked results to the plain twins.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.online_softmax import merge_partials as jax_merge_partials
+from repro.kernels.ops import \
+    paged_micro_attention_ranks as jax_paged_decode_ranks
+from repro.kernels.ops import \
+    paged_prefill_attention_ranks as jax_paged_prefill_ranks
+from repro_torch.core.online_softmax import (_masked_softmax_parts, combine,
+                                             empty_partial, merge_partials)
+from repro_torch.kernels import ops, rank_units
+from repro_torch.kernels.micro_attn_decode import (
+    paged_micro_attention_ranks_merged_plain,
+    paged_micro_attention_ranks_plain)
+from repro_torch.kernels.micro_attn_prefill import (
+    paged_prefill_attention_ranks_merged_plain,
+    paged_prefill_attention_ranks_plain)
+
+pytest.importorskip("hypothesis", reason="property tests need hypothesis "
+                    "(requirements-dev.txt)")
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+RANK_TOL = 1e-5
+
+
+def _rank_tables(rng, NR, R, MB, bs, NB, empty):
+    """Tables [NR, R, MB] over disjoint random blocks of each rank's pool
+    (valid slots a prefix, 0..MB of them) and tails [NR, R]; the ranks in
+    ``empty`` hold nothing."""
+    tables = -np.ones((NR, R, MB), np.int32)
+    tails = np.full((NR, R), bs, np.int32)
+    for k in range(NR):
+        if k in empty:
+            continue
+        perm, used = rng.permutation(NB), 0
+        for r in range(R):
+            n = min(int(rng.integers(0, MB + 1)), NB - used)
+            tables[k, r, :n] = perm[used:used + n]
+            used += n
+            if n:
+                tails[k, r] = rng.integers(1, bs + 1)
+    return tables, tails
+
+
+def _pools(rng, NR, NB, bs, K, D):
+    """A layer's (strided) view of a global pool [NR, 2, NB, bs, K, D], as
+    numpy (for JAX) and torch."""
+    g = rng.standard_normal((2, NR, 2, NB, bs, K, D)).astype(np.float32)
+    return (g[0][:, 1], g[1][:, 1], torch.from_numpy(g[0])[:, 1],
+            torch.from_numpy(g[1])[:, 1])
+
+
+def _close(got, want, tol=RANK_TOL):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g, np.float32),
+                                   np.asarray(w, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("NR,empty", [(1, ()), (2, (1,)), (3, (0, 2)),
+                                      (4, (2,))])
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+def test_merged_rank_twins_match_jax_ranks_then_merge(backend, NR, empty,
+                                                      bs):
+    """Both merged rank forms' plain twins == the JAX package's vmapped
+    rank forms merged over the rank axis, on a strided layer view of a
+    global pool with empty ranks; a request with no block on any rank
+    gives (0, -inf, 0)."""
+    NB, K, G, D, R, C = 12, 2, 2, 32, 3, 5
+    MB = 3 if bs == 128 else 5
+    H = K * G
+    rng = np.random.default_rng(100 * NR + bs)
+    pk_j, pv_j, pk, pv = _pools(rng, NR, NB, bs, K, D)
+    tables, tails = _rank_tables(rng, NR, R, MB, bs, NB, empty)
+    tables[:, 2] = -1                     # request 2: no block anywhere
+    q = rng.standard_normal((R, H, D)).astype(np.float32)
+    qc = rng.standard_normal((C, H, D)).astype(np.float32)
+    tb, tl = torch.from_numpy(tables), torch.from_numpy(tails)
+    scale = D ** -0.5
+    got = paged_micro_attention_ranks_merged_plain(
+        torch.from_numpy(q), pk, pv, tb, tl, scale=scale)
+    want = jax_merge_partials(*jax_paged_decode_ranks(
+        jnp.asarray(q), jnp.asarray(pk_j), jnp.asarray(pv_j),
+        jnp.asarray(tables), jnp.asarray(tails), backend=backend), axis=0)
+    assert got[0].shape == (R, H, D)
+    _close(got, want)
+    assert bool(torch.isneginf(got[1][2]).all())
+    assert float(got[0][2].abs().sum()) == 0.0 == float(got[2][2].sum())
+    got = paged_prefill_attention_ranks_merged_plain(
+        torch.from_numpy(qc), pk, pv, tb[:, 0], tl[:, 0], scale=scale)
+    want = jax_merge_partials(*jax_paged_prefill_ranks(
+        jnp.asarray(qc), jnp.asarray(pk_j), jnp.asarray(pv_j),
+        jnp.asarray(tables[:, 0]), jnp.asarray(tails[:, 0]),
+        backend=backend), axis=0)
+    assert got[0].shape == (C, H, D)
+    _close(got, want)
+
+
+def test_merged_wrappers_take_the_plain_path_on_the_cpu():
+    """On CPU tensors the merged wrappers run their plain twins (counted),
+    which equal merge_partials of the stacked wrappers."""
+    rng = np.random.default_rng(3)
+    _, _, pk, pv = _pools(rng, 3, 8, 16, 2, 16)
+    tables, tails = _rank_tables(rng, 3, 2, 4, 16, 8, (1,))
+    tb, tl = torch.from_numpy(tables), torch.from_numpy(tails)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
+    ops.reset_counts()
+    for merged, stacked, t, tt in (
+            (ops.paged_micro_attention_ranks_merged,
+             ops.paged_micro_attention_ranks, tb, tl),
+            (ops.paged_prefill_attention_ranks_merged,
+             ops.paged_prefill_attention_ranks, tb[:, 0], tl[:, 0])):
+        _close(merged(q, pk, pv, t, tt),
+               merge_partials(*stacked(q, pk, pv, t, tt), axis=0), 0.0)
+    c = ops.counts()
+    for name in ("paged_micro_attention_ranks_merged",
+                 "paged_prefill_attention_ranks_merged",
+                 "paged_micro_attention_ranks",
+                 "paged_prefill_attention_ranks"):
+        assert c[name] == {"launches": 0, "plain_calls": 1}
+
+
+# ------------------------------------------------------------------ #
+# The work plan: units of valid tokens (kernels/rank_units.py)
+# ------------------------------------------------------------------ #
+@st.composite
+def _plans(draw):
+    NR = draw(st.integers(1, 4))
+    R = draw(st.integers(1, 4))
+    MB = draw(st.integers(0, 12))
+    bs = draw(st.sampled_from([8, 16, 24, 128]))
+    nv = draw(st.lists(st.integers(0, MB), min_size=NR * R,
+                       max_size=NR * R))
+    # Tails out of [0, bs] too: the kernels clamp them.
+    tl = draw(st.lists(st.integers(-1, bs + 2), min_size=NR * R,
+                       max_size=NR * R))
+    tables = -np.ones((NR, R, max(MB, 1)), np.int32)[..., :MB]
+    for i, n in enumerate(nv):
+        tables[i // R, i % R, :n] = np.arange(n)
+    tails = np.asarray(tl, np.int32).reshape(NR, R)
+    U = draw(st.sampled_from([64, 128, 256]))
+    HG = draw(st.integers(1, 3))
+    B = draw(st.integers(1, 40))
+    stacked = draw(st.booleans())
+    return tables, tails, bs, U, HG, B, stacked
+
+
+@settings(max_examples=300, deadline=None)
+@given(_plans())
+def test_units_cover_every_valid_token_once(case):
+    """Every valid token of every (rank, request) pair lies in exactly one
+    unit of each merge group that reads the pair; no unit passes the
+    pair's tail or holds more than U tokens; an empty pair has no unit;
+    a group's partials come from consecutive blocks, one a block, each
+    stored in its own scratch slot (none when the group has one)."""
+    tables, tails, bs, U, HG, B, stacked = case
+    NR, R = tables.shape[:2]
+    S = rank_units.pair_tokens(tables, tails, bs)
+    want_S = np.array([[0 if not (tables[k, r] >= 0).any() else
+                        (int((tables[k, r] >= 0).sum()) - 1) * bs
+                        + min(max(int(tails[k, r]), 0), bs)
+                        for r in range(R)] for k in range(NR)])
+    assert (S == want_S).all()
+    plan = rank_units.unit_plan(S, U, HG, stacked)
+    segs = rank_units.all_segments(plan, B)
+    covered = {}                      # (g, k, r) -> [(lo, hi)]
+    by_group = {}
+    for seg in segs:
+        by_group.setdefault(seg["g"], []).append(seg)
+        for k, j, lo, hi in seg["units"]:
+            assert 0 <= lo < hi <= S[k, seg["r"]] and hi - lo <= U
+            assert lo == j * U
+            covered.setdefault((seg["g"], k, seg["r"]), []).append((lo, hi))
+    P = NR * R if stacked else R
+    for rho in range(P):
+        r, ranks = (rho % R, [rho // R]) if stacked else (rho, range(NR))
+        for h in range(HG):
+            g = rho * HG + h
+            for k in ranks:
+                spans = sorted(covered.get((g, k, r), []))
+                if S[k, r] == 0:
+                    assert not spans
+                    continue
+                ends = [0] + [hi for _, hi in spans]
+                assert [lo for lo, _ in spans] == ends[:-1]
+                assert ends[-1] == S[k, r]
+            parts = by_group.get(g, [])
+            if not any(S[k, r] for k in ranks):
+                assert not parts
+                continue
+            blocks = [p["b"] for p in parts]
+            assert blocks == list(range(parts[0]["first"],
+                                        parts[0]["first"] + len(parts)))
+            assert all(p["parts"] == len(parts) for p in parts)
+    slots = [s["slot"] for s in segs if s["slot"] is not None]
+    assert len(slots) == len(set(slots))
+    assert all(0 <= s < B + P * HG for s in slots)
+    assert sum(len(s["units"]) for s in segs) == plan["T"]
+
+
+def _partial(q, kk, vv, scale):
+    """Plain partial of q [N,H,D] over keys kk/vv [n,K,D] (all valid)."""
+    N, H, D = q.shape
+    K = kk.shape[1]
+    s = torch.einsum("nkgd,skd->nkgs", q.reshape(N, K, H // K, D),
+                     kk) * scale
+    m, p, l = _masked_softmax_parts(s, torch.ones_like(s, dtype=torch.bool))
+    o = torch.einsum("nkgs,skd->nkgd", p, vv)
+    return o.reshape(N, H, D), m.reshape(N, H), l.reshape(N, H)
+
+
+def _emulate(kind, q, pk, pv, tables, tails, *, U, B, stacked, scale,
+             rows_per_block=None):
+    """The rank kernels' decomposition with plain partials: each block's
+    segments (the online softmax over a segment's units = combine of the
+    units' partials), stored to its scratch slot or straight out, and
+    each group's slots merged by ``merge_partials``; groups with no unit
+    are (0, -inf, 0). Returns stacked or merged (o, m, l)."""
+    NR, _, bs, K, D = pk.shape
+    decode = kind == "decode"
+    N = 1 if decode else q.shape[0]       # query rows a request
+    R = tables.shape[1] if decode else 1
+    H = q.shape[1]
+    G = H // K
+    if decode:
+        gt = 1 if G == 1 else 2
+        ngr = -(-G // gt)
+        HG = K * ngr
+    else:
+        nrt = -(-(N * G) // rows_per_block)
+        HG = K * nrt
+    tb = tables if decode else tables[:, None]
+    tl = tails if decode else tails[:, None]
+    S = rank_units.pair_tokens(tb.numpy(), tl.numpy(), bs)
+    plan = rank_units.unit_plan(S, U, HG, stacked)
+    P = plan["P"]
+
+    def rows_of(h):                       # the group's (row, head) mask
+        mask = torch.zeros((N, H), dtype=torch.bool)
+        if decode:
+            kh, grp = divmod(h, ngr)
+            mask[:, kh * G + grp * gt:kh * G + min(G, (grp + 1) * gt)] = True
+        else:
+            kh, rt = divmod(h, nrt)
+            for gr in range(rt * rows_per_block,
+                            min((rt + 1) * rows_per_block, N * G)):
+                mask[gr // G, kh * G + gr % G] = True
+        return mask
+
+    out = [empty_partial((P, N, H, D), (P, N, H), device="cpu")]
+    out = list(out[0])
+    slots = {}
+    for seg in rank_units.all_segments(plan, B):
+        r = seg["r"]
+        qr = q[r:r + 1] if decode else q
+        part = None
+        for k, _, lo, hi in seg["units"]:
+            t = torch.arange(lo, hi)
+            blk = tb[k, r, t // bs].long()
+            assert bool((blk >= 0).all())
+            p = _partial(qr.float(), pk[k][blk, t % bs].float(),
+                         pv[k][blk, t % bs].float(), scale)
+            part = p if part is None else combine(part, p)
+        if seg["parts"] > 1:
+            assert seg["slot"] not in slots
+            slots[seg["slot"]] = part
+        else:
+            mask = rows_of(seg["h"])
+            for x, y in zip(out, part):
+                x[seg["rho"]][mask] = y[mask]
+    for g in range(P * HG):
+        rho, h = divmod(g, HG)
+        segs = [s for s in rank_units.all_segments(plan, B) if s["g"] == g]
+        if len(segs) > 1:
+            first = segs[0]["first"]
+            parts = [slots.pop(first + i + g) for i in range(len(segs))]
+            merged = merge_partials(*(torch.stack(x) for x in zip(*parts)),
+                                    axis=0)
+            mask = rows_of(h)
+            for x, y in zip(out, merged):
+                x[rho][mask] = y[mask]
+    assert not slots
+    if decode:
+        lead = (NR, R) if stacked else (R,)
+        return tuple(x.reshape(*lead, *x.shape[2:]) for x in out)
+    return tuple(x if stacked else x[0] for x in out)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("kind,G,bs,U,B,rows", [
+    ("decode", 2, 16, 64, 7, None),       # GQA: two query heads a block
+    ("decode", 1, 8, 64, 40, None),       # MHA, more blocks than units
+    ("decode", 3, 128, 256, 3, None),     # G 3: a short head group
+    ("prefill", 2, 16, 64, 5, 8),         # 3 row tiles a kv head
+    ("prefill", 1, 24, 64, 11, 16),       # bs 24 does not divide a tile
+    ("prefill", 2, 128, 64, 2, 64),       # 128-token blocks in place
+])
+def test_unit_plan_partials_merge_to_the_plain_twins(kind, G, bs, U, B,
+                                                     rows, stacked):
+    """The decomposition the rank kernels run — each block's segments,
+    their partials stored to scratch slots, each group's last arrival
+    merging them — gives the plain twins' stacked and merged partials
+    (three ranks: one empty, requests spread unevenly, one empty)."""
+    rng = np.random.default_rng(hash((kind, G, bs)) % 2 ** 32)
+    NR, K, D, NB = 3, 2, 16, 40
+    H = K * G
+    MB = 6 if bs == 128 else 30
+    _, _, pk, pv = _pools(rng, NR, NB, bs, K, D)
+    tables, tails = _rank_tables(rng, NR, 3, MB, bs, NB, (1,))
+    tables[:, 1] = -1
+    tables[0, 0, :MB - 1] = rng.permutation(NB)[:MB - 1]
+    tables[0, 0, MB - 1:] = -1
+    tb, tl = torch.from_numpy(tables), torch.from_numpy(tails)
+    scale = D ** -0.5
+    if kind == "decode":
+        q = torch.from_numpy(rng.standard_normal((3, H, D))
+                             .astype(np.float32))
+        twin = (paged_micro_attention_ranks_plain if stacked
+                else paged_micro_attention_ranks_merged_plain)
+        want = twin(q, pk, pv, tb, tl, scale=scale)
+        got = _emulate(kind, q, pk, pv, tb, tl, U=U, B=B, stacked=stacked,
+                       scale=scale)
+    else:
+        q = torch.from_numpy(rng.standard_normal((13, H, D))
+                             .astype(np.float32))
+        twin = (paged_prefill_attention_ranks_plain if stacked
+                else paged_prefill_attention_ranks_merged_plain)
+        want = twin(q, pk, pv, tb[:, 0], tl[:, 0], scale=scale)
+        got = _emulate(kind, q, pk, pv, tb[:, 0], tl[:, 0], U=U, B=B,
+                       stacked=stacked, scale=scale, rows_per_block=rows)
+    assert got[0].shape == want[0].shape
+    assert torch.equal(torch.isneginf(got[1]), torch.isneginf(want[1]))
+    _close(got, want)
