@@ -362,7 +362,8 @@ WARM_REPEATS = 0    # untraced repeats of the serving workload (the
 TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
 PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_decode_ranks_kernel",
-                       "paged_prefill", "flash_prefill")
+                       "paged_prefill", "flash_prefill_wgmma_kernel",
+                       "flash_prefill_f32_kernel")
 TRAIN_UNTIMED = 2   # first train steps not timed (allocator warm-up)
 # float32 train step, card against CPU: loss and gradient norm (relative),
 # each leaf's gradient (max |diff| over its largest magnitude).
@@ -677,6 +678,7 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
     scale) on CUDA tensors against the kernel's plain version."""
     from repro_torch.kernels.flash_prefill import (flash_plan,
                                                   flash_prefill_plain)
+    from repro_torch.kernels.micro_attn_decode import device_sm_count
     from repro_torch.kernels.ops import flash_prefill
     gen = torch.Generator(device=device).manual_seed(zlib.crc32(
         name.encode()))
@@ -706,7 +708,8 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         row["live_pairs"] = pairs
-        row["plan"] = flash_plan(B, S, H, K, D, dtype)
+        row["plan"] = flash_plan(B, S, H, K, D, dtype, device_sm_count(
+            device.index or 0))
         row["ms"] = time_ms(lambda: flash_prefill(q, k, v, window=window),
                             iters=10)
         row["graph_ms"] = device_ms(lambda: flash_prefill(q, k, v,
@@ -888,8 +891,8 @@ def kernel_plans(chunk: int):
         out[f"decode-serving-R4-{dt}"] = decode_plan(4, 16, 8, 64, 16, sms)
         out[f"prefill-main-{dt}"] = prefill_plan(chunk, 16, 8, 128, 191,
                                                  16, dt, sms)
-        out[f"flash-main-{dt}"] = flash_plan(1, 6000, 16, 1, 256, dt)
-        out[f"flash-qwen3-{dt}"] = flash_plan(1, 4000, 16, 8, 128, dt)
+        out[f"flash-main-{dt}"] = flash_plan(1, 6000, 16, 1, 256, dt, sms)
+        out[f"flash-qwen3-{dt}"] = flash_plan(1, 4000, 16, 8, 128, dt, sms)
         # The merged rank kernels at the qwen2-moe global path's shapes
         # (MHA 16 x 128, three ranks, 256-slot tables), with the unit
         # plan the card makes from the kernel phase's tables (a request's
@@ -932,6 +935,35 @@ def kernel_plans(chunk: int):
             1, 16, 8, 128, 256, 16, dt, sms, 3, False)
         out[f"prefill-warm-c128-{dt}"] = prefill_plan(128, 16, 8, 128, 51,
                                                       16, dt, sms)
+    return out
+
+
+def flash_ptxas(log: str) -> list:
+    """Each flash-prefill instantiation's ``ptxas -v`` report from its
+    build log: registers, stack and spill bytes, and whether ptxas
+    serialized its wgmmas (a C7515 or C7520 note)."""
+    out, cur, serialized = [], None, set()
+    for line in log.splitlines():
+        sym = next((w for w in line.replace("'", " ").split()
+                    if "flash_prefill_" in w and "_kernel" in w), None)
+        if sym and ("C7515" in line or "C7520" in line):
+            serialized.add(sym)
+        elif sym and "Compiling entry function" in line:
+            route = sym.split("_kernel")[0].rsplit("flash_prefill_", 1)[1]
+            args = sym.split("_kernel", 1)[1].split("EE", 1)[0]
+            cur = {"kernel": f"{route}<{args[3:].replace('ELi', ',')}>",
+                   "symbol": sym}
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            f = line.replace(",", " ").split()
+            cur["stack_bytes"] = int(f[0])
+            cur["spill_stores"] = int(f[f.index("stores") - 3])
+            cur["spill_loads"] = int(f[f.index("loads") - 3])
+        elif cur is not None and "Used" in line and "registers" in line:
+            f = line.split()
+            cur["registers"] = int(f[f.index("registers,") - 1])
+    for r in out:
+        r["serialized"] = r.pop("symbol") in serialized
     return out
 
 
@@ -4847,7 +4879,9 @@ def flash_long_case(name, B, S, H, K, D, dtype, device, *, iters=5):
     one (batch, query head) slice at a time (the whole plain score
     matrix would take B * H * S * S * 4 bytes), timed over ``iters``
     calls (the graph over up to 3), with ``sdpa`` as the yardstick."""
-    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.kernels.flash_prefill import (flash_plan,
+                                                  flash_prefill_plain)
+    from repro_torch.kernels.micro_attn_decode import device_sm_count
     from repro_torch.kernels.ops import flash_prefill
     gen = torch.Generator(device=device).manual_seed(zlib.crc32(
         name.encode()))
@@ -4884,6 +4918,8 @@ def flash_long_case(name, B, S, H, K, D, dtype, device, *, iters=5):
            "tol": f"{TOL} + {FLASH_RTOL[dtype]:.3g}*|plain|"}
     if device.type != "cuda":
         return row
+    row["plan"] = flash_plan(B, S, H, K, D, dtype,
+                             device_sm_count(device.index or 0))
     itemsize = q.element_size()
     pairs = B * live_pairs(S, 0)
     flops = 4 * H * D * pairs
@@ -5154,6 +5190,19 @@ def main(argv=None) -> int:
                 if any(w in line for w in ("Compiling entry", "registers",
                                            "spill")):
                     print(f"  ptxas {name}: {line.strip()}")
+    # The bf16 flash kernel's instantiations must not spill (their
+    # consumers run at 232 registers after setmaxnreg; ptxas reports
+    # the 168 of the launch).
+    report["flash_ptxas"] = flash_ptxas(
+        (build.build_dir() / "flash_prefill.log").read_text())
+    for r in report["flash_ptxas"]:
+        print(f"flash ptxas {r['kernel']}: registers={r.get('registers')} "
+              f"spill_stores={r.get('spill_stores')} "
+              f"spill_loads={r.get('spill_loads')} "
+              f"serialized={r['serialized']}", flush=True)
+        if r["kernel"].startswith("wgmma") and (r.get("spill_stores")
+                                                or r.get("spill_loads")):
+            raise AssertionError(f"flash kernel {r['kernel']} spills")
 
     cfg = get_config("qwen3-0.6b")
     config = serving_config()
@@ -5171,6 +5220,11 @@ def main(argv=None) -> int:
                         if k in r)
         if "library_kernels" in r:
             extra += f" library_kernels={r['library_kernels'][:3]}"
+        if "plan" in r:
+            pl = r["plan"]
+            extra += (f" route={pl['route']!r} blocks={pl['blocks']} "
+                      f"stages={pl['stages']} kv_tile={pl['kv_tile']} "
+                      f"warpgroups={pl.get('warpgroups', 0)}")
         if "merged_max_abs_err" in r:
             extra = f" merged_max_abs_err={r['merged_max_abs_err']:.3g}" + \
                 extra

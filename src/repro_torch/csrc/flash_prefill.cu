@@ -13,73 +13,79 @@
 // At prompt lengths of hundreds of tokens and more the FLOPs bound it by
 // far: at the hybrid admission (S = 6000, H = 16, K = 1, D = 256, window
 // 2048) 167 GFLOP against 104 MB, 0.169 ms at 989 TFLOP/s (bf16 tensor
-// cores) and 0.031 ms at 3.35 TB/s. Only the tensor cores approach it.
+// cores) and 0.031 ms at 3.35 TB/s. Only the tensor cores approach it,
+// and only through wgmma (hopper.cuh) at their full rate. The precision
+// contract below runs P V twice (hi and lo), so the products executed are
+// 1.5 times the bound's.
 //
-// bf16: tensor cores (mma.sync), FlashAttention-2 register layout, the
-// tile step of paged_attn.cuh (qk_tile, softmax_tile, pv_tile) that the
-// paged prefill-chunk kernel also runs.
-// - One block per (tile of BM = 128 query positions, query head, batch
-//   row), on a 1-D grid whose slowest index is the query tile, last tile
-//   first: without a window the last tile has the most keys, so the
-//   longest blocks start first. Up to D = 128 a block is 4 warps that own
-//   two m16 row tiles each (32 rows; every K/V fragment feeds two
-//   independent products); at D = 256 it is 8 warps of one m16 tile, whose
-//   16 x 256 float32 output accumulator is 128 registers a thread alone.
-//   128 rows a block either way: the reuse of a staged K/V tile is the
-//   block's row count, and both give an SM 8 warps (D = 256: 203 KB of
-//   shared memory, one block; D = 128: 104 KB, two).
-// - Registers (ptxas -v, printed by chip_smoke.py; no spills): at D = 256
-//   a tile step takes the whole 64-token tile; up to D = 128 it takes 32
-//   tokens at a time (NJ = 4), which halves the 64 score registers of two
-//   m16 tiles, where whole-tile steps spilled.
-// - q (BM rows) stays in shared memory; its A fragments are loaded per k16
-//   chunk for every tile (in registers they would take 64 more a thread at
-//   D = 256). K/V tiles of 64 tokens arrive through cp.async.cg (16 bytes
-//   a copy) in a ring of 2 stages: tile i+1's copies are in flight while
-//   tile i's MMAs run. Tokens past S (and past the block's last query) are
-//   zero-filled (src-size 0, no read). Rows are D rounded up to 16, plus 8
-//   elements apart (ldmatrix without bank conflicts); for D % 16 == 8 the
-//   reduction's last 8 columns are zeroed once.
-// - Only live tiles are visited: from the window's first key, rounded
-//   down to a tile, to the block's diagonal. Each warp classifies each
-//   tile against its own rows, warp-uniformly: a tile wholly above its
-//   diagonal or wholly before its window is skipped (no MMA; the warp only
-//   joins the block's barriers), and only a tile that crosses its diagonal
-//   or its window's first key builds the per-element mask. Keys past S
-//   lie above every real row's diagonal, so the causal mask covers the
-//   ragged end. At the hybrid admission shape 2 to 3 of the 33 to 35 tiles
-//   a block visits are masked for any one warp.
-// - GQA/MQA: a block serves one query head. At the hybrid shape the whole
-//   K/V (6,000 x 256 x 2 bf16, 6 MB) sits in the 50 MB L2, the 16 heads'
-//   blocks of a query tile are adjacent on the grid, and the reuse of a
-//   staged tile is the block's 128 rows whichever heads they belong to; so
-//   packing a kv group's heads into one block's rows (as the paged kernel
-//   does) would save L2 reads, not HBM bytes. It is not built.
-// - Why mma.sync and not wgmma: as in the paged prefill kernel, P passes
-//   from the S accumulator to P V inside each warp's registers.
+// bf16: flash_prefill_wgmma_kernel, built for Hopper.
+// - Persistent blocks, one an SM (384 threads, 1 block by registers), walk
+//   work items (tile of BM = 128 query positions, head, batch row) in a
+//   static longest-first order (the last query tile has the most keys);
+//   block j takes item r * G + j in even rounds r and r * G + G - 1 - j in
+//   odd ones, so the causal tail fills every SM. kernels/flash_prefill.py
+//   ::flash_plan sets the block count (items and SMs) and the ring; the C
+//   entry refuses any other plan.
+// - Warp specialisation: warpgroup 0 is the producer (setmaxnreg down to
+//   40 registers; one thread issues every load), warpgroups 1 and 2 the
+//   consumers (232 registers), 64 query rows each. The producer loads an
+//   item's q once (TMA, 128 rows) and its live K/V tiles of BN tokens into
+//   a ring of STAGES slots, with mbarrier full (TMA bytes) and empty
+//   (256 consumer threads) handshakes: D <= 64: BN 128, 4 stages; D <= 128:
+//   BN 128, 3 stages (230,488 B); D <= 256: BN 64, 2 stages.
+// - TMA reads q, k and v as 4-D [B, S, H|K, D] tensor maps, 64-column
+//   boxes with the 128-byte swizzle that wgmma's descriptors name. It
+//   fills zeros past S and past D up to the instantiation's width (D 40,
+//   112, 120), so the kernel has no padding or zero-fill code; keys past S
+//   lie above every real row's diagonal, so the causal mask covers them.
+// - A consumer, per tile: S = Q K^T by wgmma with both operands in shared
+//   memory; the mask only where the tile crosses its rows' diagonal or
+//   window's first key; the online softmax in float32 on the accumulator
+//   (paged_attn::softmax_scores: wgmma's m64nN accumulator gives each
+//   warp the m16n8 fragment of mma.sync); p split into bf16 hi + lo
+//   straight into the register-A fragments of O += P_hi V and O += P_lo V
+//   (wgmma, V read transposed from the MN-major tile). Software-pipelined:
+//   tile t's S is issued before tile t - 1's P V, and t's softmax runs
+//   while that P V is on the tensor cores (the output is rescaled after
+//   it). The two consumers interleave on their own (explicit ping-pong
+//   turns between them were tried and not kept).
+// - Only tiles from the window's first key, rounded down to BN, to the
+//   item's diagonal are loaded; a tile with no valid key for a
+//   warpgroup's 64 rows is waited on and released without math.
+// - ptxas serializes wgmmas (notes C7515, C7520, printed by chip_smoke.py)
+//   when a wgmma's issue or completion depends on a branch it takes for
+//   divergent or cannot follow: the warpgroup index is broadcast from
+//   lane 0, the first live tile is peeled off the pipelined loop, S's
+//   first k16 step writes its accumulator afresh, and every k16 step runs
+//   (D past the data reads zeros) rather than stopping at a runtime D.
+// - After its last S = Q K^T of an item a warpgroup frees q, so the next
+//   item's q and first K/V tiles load while it finishes the last tile
+//   and its epilogue (normalize, bf16 stores from registers: the shared
+//   memory holds the third K/V stage instead of an output tile).
+// - GQA/MQA: a work item serves one query head; the heads of a kv group
+//   are adjacent in the order, so the blocks running at once read the
+//   same K/V tiles, mostly from L2.
 //
 // Precision contract (bf16). The Pallas kernel and the plain twin upcast
 // to float32 and round only the normalized output to bf16; the kernel is
 // held to |kernel - plain| <= 1e-4 + 2^-7 |plain| (one bf16 ulp). (1) Q K^T:
 // bf16 x bf16 products are exact in fp32; only the order of the sums
 // differs. (2) P V: each float32 probability enters as bf16 hi + lo (two
-// MMAs, at most 2^-16 relative per term). One rounding of p (2^-8) misses
-// that tolerance at both main shapes and at short prompts, as the plain-
-// PyTorch emulation in tests/test_torch_kernels.py shows on the CPU. (3) l
-// is summed from the float32 p; m, the rescaling and 1 / l are float32.
+// products, at most 2^-16 relative per term). One rounding of p (2^-8)
+// misses that tolerance at both main shapes and at short prompts, as the
+// plain-PyTorch emulation in tests/test_torch_kernels.py shows on the CPU.
+// (3) l is summed from the float32 p; m, the rescaling and 1 / l are
+// float32.
 //
 // float32 keeps the CUDA-core kernel of the first port (one block of 256
 // threads per (64 query positions, head, batch row), float32 FMAs on 4 x 4
 // register tiles, q and K transposed in shared memory, about 217 KB at
 // D = 256).
+#include "hopper.cuh"
 #include "paged_attn.cuh"
 
 namespace {
 
-using paged_attn::cp_async16;
-using paged_attn::cp_async_commit;
-using paged_attn::cp_async_wait;
-using paged_attn::row_stride;
 using paged_attn::smem_addr;
 
 constexpr int MAX_DEVICES = 64;
@@ -359,255 +365,438 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // ---------------------------------------------------------------------
-// bf16: tensor cores.
+// bf16: wgmma fed by a TMA ring, warp-specialised, persistent.
 // ---------------------------------------------------------------------
-constexpr int BM = 128;                     // query rows a block
-constexpr int BN = paged_attn::MMA_TOKENS;  // KV tokens a tile
-constexpr int STAGES = 2;                   // cp.async ring depth
+constexpr int BM = 128;          // query rows a work item (two warpgroups)
+constexpr int WG_ROWS = 64;      // query rows a consumer warpgroup
+constexpr int WG_THREADS = 128;
+constexpr int WS_THREADS = 3 * WG_THREADS;  // producer + two consumers
+constexpr int PRODUCER_REGS = 40;        // 128 x 40 + 256 x 232 <= 65,536
+constexpr int CONSUMER_REGS = 232;
+constexpr int BOX_BYTES_ROW = 128;       // a swizzled box row: 64 bf16
 
-// q (BM rows) and the K/V ring, bf16.
-inline size_t mma_smem_bytes(int D) {
-  return static_cast<size_t>(BM + 2 * STAGES * BN) * row_stride(D) * 2;
+// Shared memory of the instantiation: q (BM rows), then STAGES K tiles,
+// then STAGES V tiles (BN rows each), each as DMAX / 64 boxes of 64
+// columns; then the barriers. 1,024 bytes of slack align the tiles.
+template <int DMAX, int BN, int STAGES>
+struct WgLayout {
+  static constexpr int BOXES = DMAX / 64;
+  static constexpr int Q_BYTES = BM * DMAX * 2;
+  static constexpr int TILE_BYTES = BN * DMAX * 2;  // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
+  // q full / empty, then K full, V full and K/V empty a stage.
+  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * BARS;
+};
+
+// Work item i of n_qt * H * B, in the static longest-first order:
+// query tile n_qt - 1 - i / (H * B) (the last tile has the most keys),
+// then batch row, then head (the heads of a kv group side by side, so
+// that blocks running at once read the same K/V tiles from L2). Its live
+// K/V tiles: from the window's first key, rounded down to BN, to the
+// item's last query or S.
+struct WorkItem {
+  int q_lo, h, b, t_first, ntiles;
+};
+
+template <int BN>
+__device__ __forceinline__ WorkItem work_item(int i, int n_qt, int H, int HB,
+                                              int S, int window) {
+  WorkItem w;
+  w.q_lo = (n_qt - 1 - i / HB) * BM;
+  const int hb = i % HB;
+  w.h = hb % H;
+  w.b = hb / H;
+  const int kv_end = min(S, w.q_lo + BM);
+  const int kv_lo = window > 0 ? max(0, w.q_lo - window + 1) : 0;
+  w.t_first = (kv_lo / BN) * BN;
+  w.ntiles = (kv_end - w.t_first + BN - 1) / BN;
+  return w;
 }
 
-// DMAX: the largest head dim of the instantiation (64, 128 or 256); the
-// register arrays are sized for it and loops stop at the runtime D. MT:
-// m16 row tiles a warp owns; MW: warps a block (16 * MT * MW == BM); NJ:
-// n8 tiles of keys a tile step takes (8: the whole 64-token tile; 4: half
-// of it at a time, with half the score registers).
-template <int DMAX, int MT, int MW, int NJ>
-__global__ void __launch_bounds__(MW * 32)
-    flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             __nv_bfloat16* __restrict__ o, int S, int H,
-                             int K, int D, int window, float scale) {
-  static_assert(16 * MT * MW == BM, "a block owns BM rows");
-  constexpr int KS = 8 * NJ;     // keys a tile step
-  constexpr int NT = DMAX / 8;   // n8 tiles of the output columns
-  constexpr int KC = DMAX / 16;  // k16 chunks of the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int DS = row_stride(D);
-  const int DP = DS - 8;
-  constexpr int nrows_s = BM + 2 * STAGES * BN;
-  // q [BM][DS], then K [STAGES][BN][DS], then V [STAGES][BN][DS].
-  __nv_bfloat16* q_s = sm;
-  __nv_bfloat16* k_s = sm + BM * DS;
+// The block's item of round r (-1 past the end): persistent block j takes
+// item r * G + j in even rounds and r * G + G - 1 - j in odd ones, so the
+// longest items of each round alternate between the ends of the grid.
+__device__ __forceinline__ int block_item(int r, int n_items) {
+  const int G = gridDim.x;
+  const int j = static_cast<int>(blockIdx.x);
+  const int i = r * G + ((r & 1) ? G - 1 - j : j);
+  return i < n_items ? i : -1;
+}
 
-  // Block -> (query tile, head, batch row); the tile is the slowest index,
-  // last tile first.
+// S = Q K^T of one tile, issued (not committed): DMAX / 16 k16 steps of
+// wgmma from the q and K boxes (32 bytes a step inside a box), the first
+// writing s afresh. Steps past D multiply TMA's zero fill: skipping them
+// on a runtime D would make the compiler serialize the wgmmas.
+template <int DMAX, int BN>
+__device__ __forceinline__ void issue_qk(float (&s)[BN / 8][4],
+                                         uint64_t q_desc, uint64_t k_desc) {
+  hopper::wgmma_ss_init<BN>(s, q_desc, k_desc);
+#pragma unroll
+  for (int kk = 1; kk < DMAX / 16; ++kk) {
+    const uint32_t qo = ((kk / 4) * BM * BOX_BYTES_ROW + (kk % 4) * 32) >> 4;
+    const uint32_t ko = ((kk / 4) * BN * BOX_BYTES_ROW + (kk % 4) * 32) >> 4;
+    hopper::wgmma_ss<BN>(s, q_desc + qo, k_desc + ko);
+  }
+}
+
+// O += P_hi V, then O += P_lo V, issued (not committed): a k16 step is 16
+// V rows (2,048 bytes) further.
+template <int DMAX, int BN>
+__device__ __forceinline__ void issue_pv(float (&o)[DMAX / 8][4],
+                                         const uint32_t (&ph)[BN / 16][4],
+                                         const uint32_t (&pl)[BN / 16][4],
+                                         uint64_t v_desc) {
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc)
+    hopper::wgmma_rs<DMAX>(o, ph[kc],
+                           v_desc + ((kc * 16 * BOX_BYTES_ROW) >> 4));
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc)
+    hopper::wgmma_rs<DMAX>(o, pl[kc],
+                           v_desc + ((kc * 16 * BOX_BYTES_ROW) >> 4));
+}
+
+// The float32 probabilities of a score tile as bf16 hi + lo A fragments:
+// k16 chunk kc from the n8 chunks 2 kc and 2 kc + 1 (m16n8k16's A).
+template <int KV>
+__device__ __forceinline__ void split_probs(const float (&s)[2 * KV][4],
+                                            uint32_t (&ph)[KV][4],
+                                            uint32_t (&pl)[KV][4]) {
+#pragma unroll
+  for (int kc = 0; kc < KV; ++kc) {
+    paged_attn::split_pair(s[2 * kc][0], s[2 * kc][1], ph[kc][0], pl[kc][0]);
+    paged_attn::split_pair(s[2 * kc][2], s[2 * kc][3], ph[kc][1], pl[kc][1]);
+    paged_attn::split_pair(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[kc][2],
+                           pl[kc][2]);
+    paged_attn::split_pair(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[kc][3],
+                           pl[kc][3]);
+  }
+}
+
+// One block an SM (384 threads): warpgroup 0 is the producer, one thread
+// of which issues every TMA load; warpgroups 1 and 2 are consumers of 64
+// query rows each (see the header). Per work item the producer loads q
+// (BM rows, once) and then the item's live K/V tiles into a ring of
+// STAGES slots (full barriers count TMA bytes, empty barriers the
+// consumers' 256 threads). After its last S of an item a warpgroup frees
+// q for the next item's load, which so overlaps this item's last tile and
+// its epilogue (normalize, store bf16 from registers).
+template <int DMAX, int BN, int STAGES>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               __nv_bfloat16* __restrict__ o, int S, int H,
+                               int K, int D, int window, float scale,
+                               int n_items) {
+  using L = WgLayout<DMAX, BN, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + L::K_OFF;
+  const uint32_t v_s = base + L::V_OFF;
+  const uint32_t q_full = base + L::BAR_OFF;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t k_full = q_full + 16;                // + 8 * stage
+  const uint32_t v_full = k_full + 8 * STAGES;        // + 8 * stage
+  const uint32_t kv_empty = v_full + 8 * STAGES;      // + 8 * stage
+  constexpr uint32_t CONSUMERS = 2 * WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, CONSUMERS);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(k_full + 8 * s, 1);
+      hopper::mbar_init(v_full + 8 * s, 1);
+      hopper::mbar_init(kv_empty + 8 * s, CONSUMERS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
   const int n_qt = (S + BM - 1) / BM;
-  const int hb = gridDim.x / n_qt;  // H * B
-  const int q_lo = (n_qt - 1 - static_cast<int>(blockIdx.x) / hb) * BM;
-  const int h = static_cast<int>(blockIdx.x) % hb % H;
-  const int b = static_cast<int>(blockIdx.x) % hb / H;
-  const int kh = h / (H / K);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nch = D / 8;  // 16-byte chunks in a row (D % 8 == 0)
+  const int HB = n_items / n_qt;  // H * B
+  const int rounds = (n_items + static_cast<int>(gridDim.x) - 1) /
+                     static_cast<int>(gridDim.x);
 
-  const int q_tok = H * D;   // q/o token stride
-  const int kv_tok = K * D;  // k/v token stride
-  // Offsets of the block's (batch row, head) in q/o and in k/v.
-  const size_t qo = static_cast<size_t>(b) * S * q_tok +
-                    static_cast<size_t>(h) * D;
-  const size_t kv0 = static_cast<size_t>(b) * S * kv_tok +
-                     static_cast<size_t>(kh) * D;
-
-  // Zero the padded reduction columns [D, DP) once; cp.async never
-  // writes them.
-  if (DP > D) {
-    const int w = DP - D;
-    for (int idx = tid; idx < nrows_s * w; idx += blockDim.x)
-      sm[(idx / w) * DS + D + idx % w] = __float2bfloat16_rn(0.f);
-  }
-
-  // q rows of the tile (zero past S).
-  for (int idx = tid; idx < BM * nch; idx += blockDim.x) {
-    const int r = idx / nch, ch = idx - r * nch, t = q_lo + r;
-    const bool ok = t < S;
-    cp_async16(smem_addr(q_s + r * DS + ch * 8),
-               q + qo + (ok ? static_cast<size_t>(t) * q_tok + ch * 8 : 0),
-               ok ? 16 : 0);
-  }
-
-  // Live KV tiles: from the window's first key (tile-aligned) up to the
-  // block's last query; tokens at or past kv_end are zero-filled.
-  const int kv_end = min(S, q_lo + BM);
-  const int kv_lo = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int t_first = (kv_lo / BN) * BN;
-  const int ntiles = (kv_end - t_first + BN - 1) / BN;
-
-  // Stage K/V tile `it` into ring slot it % STAGES (K at k_sa + slot *
-  // stage_bytes, V STAGES slots further): a thread keeps one 16-byte column
-  // chunk and walks the tile's tokens, rpp apart. Few values stay live
-  // across the main loop (32-bit shared offsets, k and v read from the
-  // kernel's parameters), so that the accumulators keep the registers.
-  const int rpp = blockDim.x / nch;  // tokens a pass
-  const int my_tok = tid / nch;
-  const size_t my_src = kv0 + (tid % nch) * 8;
-  const uint32_t k_sa = smem_addr(k_s);
-  const int stage_bytes = 2 * BN * DS;
-  const uint32_t my_dst = k_sa + 2 * (my_tok * DS + (tid % nch) * 8);
-  auto load_tile = [&](int it) {
-    if (my_tok >= rpp) return;
-    const uint32_t d0 = my_dst + (it % STAGES) * stage_bytes;
-    const int t0 = t_first + it * BN;
-    for (int tok = my_tok; tok < BN; tok += rpp) {
-      const int t = t0 + tok;
-      const bool ok = t < kv_end;
-      const size_t off = my_src + (ok ? static_cast<size_t>(t) * kv_tok : 0);
-      const uint32_t d = d0 + 2 * (tok - my_tok) * DS;
-      cp_async16(d, k + off, ok ? 16 : 0);
-      cp_async16(d + STAGES * stage_bytes, v + off, ok ? 16 : 0);
-    }
-  };
-
-  load_tile(0);
-  cp_async_commit();  // group 0: q and the first tile
-
-  float oacc[MT][NT][4];
+  // The warpgroup index, broadcast from lane 0 so that the compiler
+  // knows it is uniform: wgmma in a path it takes for divergent is
+  // serialized.
+  const int wg_idx = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  if (wg_idx == 0) {
+    // Producer: one thread issues the loads; the warpgroup's other
+    // threads hand their registers to the consumers and finish.
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensor_map(&tm_q);
+      hopper::prefetch_tensor_map(&tm_k);
+      hopper::prefetch_tensor_map(&tm_v);
+      int stage = 0;
+      uint32_t phase = 0;   // parity of the ring's current pass
+      uint32_t q_phase = 0;
+      for (int r = 0; r < rounds; ++r) {
+        const int i = block_item(r, n_items);
+        if (i < 0) continue;
+        const WorkItem w = work_item<BN>(i, n_qt, H, HB, S, window);
+        const int kh = w.h / (H / K);
+        hopper::mbar_wait(q_empty, q_phase ^ 1);
+        q_phase ^= 1;
+        hopper::mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+        for (int c = 0; c < L::BOXES; ++c)
+          hopper::tma_load_4d(q_s + c * BM * BOX_BYTES_ROW, &tm_q, q_full,
+                              c * 64, w.h, w.q_lo, w.b);
+        for (int t = 0; t < w.ntiles; ++t) {
+          const int t0 = w.t_first + t * BN;
+          hopper::mbar_wait(kv_empty + 8 * stage, phase ^ 1);
+          const uint32_t kf = k_full + 8 * stage, vf = v_full + 8 * stage;
+          const uint32_t ks = k_s + stage * L::TILE_BYTES;
+          const uint32_t vs = v_s + stage * L::TILE_BYTES;
+          hopper::mbar_expect_tx(kf, L::TILE_BYTES);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      oacc[mt][j][0] = oacc[mt][j][1] = oacc[mt][j][2] = oacc[mt][j][3] = 0.f;
-  // Per m16 tile, rows lane/4 and lane/4 + 8: the running max of the raw
-  // scores (q . k, before the scale) and this thread's share of l.
-  float m_r[MT][2], l_r[MT][2];
+          for (int c = 0; c < L::BOXES; ++c)
+            hopper::tma_load_4d(ks + c * BN * BOX_BYTES_ROW, &tm_k, kf,
+                                c * 64, kh, t0, w.b);
+          hopper::mbar_expect_tx(vf, L::TILE_BYTES);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    m_r[mt][0] = m_r[mt][1] = -CUDART_INF_F;
-    l_r[mt][0] = l_r[mt][1] = 0.f;
-  }
-  const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
-
-  // The warp's query positions [r0, r1].
-  const int wrow = warp * 16 * MT;
-  const int r0 = q_lo + wrow;
-  const int r1 = r0 + 16 * MT - 1;
-  const paged_attn::MmaLanes ln = paged_attn::mma_lanes(lane, wrow, DS);
-  const uint32_t q_base = smem_addr(q_s);
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it % STAGES;
-    if (it + 1 < ntiles) {
-      load_tile(it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // Warp-uniform, per step of KS keys: skip one with no valid key for any
-    // of the warp's rows (wholly above its diagonal, wholly before its
-    // window, or rows past S only); mask only one that crosses its diagonal
-    // or its window's first key.
-#pragma unroll
-    for (int ks = 0; ks < BN; ks += KS) {
-      const int t0 = t_first + it * BN + ks;
-      if (r0 >= S || t0 > r1 || (window > 0 && t0 + KS - 1 <= r0 - window))
-        continue;
-      const uint32_t k_st = k_sa + st * stage_bytes + 2 * ks * DS;
-      float sacc[MT][NJ][4];
-      paged_attn::qk_tile<MT, KC, NJ>(sacc, q_base, k_st, ln, DS, D);
-      if (t0 + KS - 1 > r0 || (window > 0 && t0 <= r1 - window)) {
-        // Key kp is valid for query qp iff 0 <= qp - kp < window (no upper
-        // limit without a window): one unsigned compare an element.
-        const unsigned lim = window > 0 ? window : 0x7fffffffu;
-        const int d0 = r0 + (lane >> 2) - t0 - (lane & 3) * 2;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int dq = d0 + mt * 16 + (e >> 1) * 8 - j * 8 - (e & 1);
-              if (static_cast<unsigned>(dq) >= lim)
-                sacc[mt][j][e] = -CUDART_INF_F;
-            }
+          for (int c = 0; c < L::BOXES; ++c)
+            hopper::tma_load_4d(vs + c * BN * BOX_BYTES_ROW, &tm_v, vf,
+                                c * 64, kh, t0, w.b);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-      paged_attn::softmax_tile<MT, NT, NJ>(sacc, oacc, m_r, l_r, c);
-      paged_attn::pv_tile<MT, NT, NJ>(oacc, sacc,
-                                      k_st + STAGES * stage_bytes, ln, DS, D);
     }
-    __syncthreads();  // every warp is done with slot st before its reload
-  }
-
-  // Normalized output in bf16; a row without a valid key (l == 0) writes 0.
-  __nv_bfloat16* ob = o + qo;
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NJ = BN / 8;     // n8 chunks of a score tile
+    constexpr int NT = DMAX / 8;   // n8 chunks of the output
+    constexpr int KV = BN / 16;    // k16 steps of O += P V
+    const int wg = wg_idx - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
+    // Key kp is valid for query qp iff 0 <= qp - kp < window (no upper
+    // limit without a window): one unsigned compare an element.
+    const unsigned lim = window > 0 ? window : 0x7fffffffu;
+    // Descriptors: q (this warpgroup's 64 rows) and K are K-major, V is
+    // MN-major; a ring slot adds its byte offset / 16.
+    const uint64_t q_desc = hopper::smem_desc(
+        q_s + wg * WG_ROWS * BOX_BYTES_ROW, 16, 1024);
+    const uint64_t k_desc = hopper::smem_desc(k_s, 16, 1024);
+    const uint64_t v_desc =
+        hopper::smem_desc(v_s, BN * BOX_BYTES_ROW, 1024);
+    constexpr uint32_t SLOT = L::TILE_BYTES >> 4;
+    int stage = 0;       // ring slot of the next tile
+    uint32_t phase = 0;  // parity of the ring's current pass
+    uint32_t q_phase = 0;
+    auto advance = [&] {
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    // A tile with no valid key for the warpgroup's rows: waited on (its
+    // TMA writes done) and released without math.
+    auto pass_tile = [&] {
+      hopper::mbar_wait(k_full + 8 * stage, phase);
+      hopper::mbar_wait(v_full + 8 * stage, phase);
+      hopper::mbar_arrive(kv_empty + 8 * stage);
+      advance();
+    };
+    for (int r = 0; r < rounds; ++r) {
+      const int i = block_item(r, n_items);
+      if (i < 0) continue;
+      const WorkItem w = work_item<BN>(i, n_qt, H, HB, S, window);
+      // The warpgroup's query positions [r0, r1], this thread's rows, and
+      // its live tiles [lo, hi): none for rows past S only; those wholly
+      // before the window's first key of row r0 come first and those
+      // wholly above the diagonal of row r1 last.
+      const int r0 = w.q_lo + wg * WG_ROWS;
+      const int r1 = r0 + WG_ROWS - 1;
+      const int row = r0 + warp * 16 + (lane >> 2);
+      int lo = 0, hi = 0;
+      if (r0 < S) {
+        hi = min(w.ntiles, (r1 - w.t_first) / BN + 1);
+        const int x = r0 - window - BN + 1 - w.t_first;
+        if (window > 0 && x >= 0) lo = min(hi, x / BN + 1);
+      }
+      float oacc[1][NT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+      for (int j = 0; j < NT; ++j)
+        oacc[0][j][0] = oacc[0][j][1] = oacc[0][j][2] = oacc[0][j][3] = 0.f;
+      float m_r[1][2] = {{-CUDART_INF_F, -CUDART_INF_F}};
+      float l_r[1][2] = {{0.f, 0.f}};
+      hopper::mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+      for (int t = 0; t < lo; ++t) pass_tile();
+      if (lo == hi) {
+        hopper::mbar_arrive(q_empty);
+      } else {
+        // Software pipeline over the live tiles: tile t's S = Q K^T is
+        // issued before tile t - 1's P V, and its softmax runs while that
+        // P V is on the tensor cores; the output is rescaled once the
+        // P V is done. The first live tile is peeled off, so that every
+        // wait on the tensor cores is unconditional (the compiler
+        // serializes wgmmas whose completion it cannot follow).
+        float sacc[1][NJ][4];  // written by each tile's first k16 step
+        uint32_t ph[KV][4], pl[KV][4];
+        float alpha[1][2];
+        // S of tile t, masked where the tile crosses the warpgroup's
+        // diagonal or its window's first key, turned into float32
+        // probabilities in place; returns whether a row of the warp moved
+        // its max.
+        auto softmax_step = [&](int t) {
+          hopper::fence_regs(sacc[0]);
+          if (t == hi - 1) hopper::mbar_arrive(q_empty);  // q read
+          const int t0 = w.t_first + t * BN;
+          if (t0 + BN - 1 > r0 || (window > 0 && t0 <= r1 - window)) {
+            const int d0 = row - t0 - (lane & 3) * 2;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      // The quad's four threads share a row: sum their shares of l.
-      float lr = l_r[mt][hh];
-      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      const int t = r0 + mt * 16 + (lane >> 2) + hh * 8;
-      if (t >= S) continue;
-      const float inv = lr == 0.f ? 0.f : 1.f / lr;
+            for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = j * 8 + (lane & 3) * 2;
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(
-              ob + static_cast<size_t>(t) * q_tok + col) =
-              __floats2bfloat162_rn(oacc[mt][j][2 * hh] * inv,
-                                    oacc[mt][j][2 * hh + 1] * inv);
+              for (int e = 0; e < 4; ++e) {
+                const int dq = d0 + (e >> 1) * 8 - j * 8 - (e & 1);
+                if (static_cast<unsigned>(dq) >= lim)
+                  sacc[0][j][e] = -CUDART_INF_F;
+              }
+          }
+          const bool moved =
+              paged_attn::softmax_scores(sacc, m_r, l_r, alpha, c);
+          return __any_sync(0xffffffffu, moved);
+        };
+        // p as the A fragments of the next P V.
+        auto stage_probs = [&] {
+          split_probs<KV>(sacc[0], ph, pl);
+          hopper::fence_regs(ph);
+          hopper::fence_regs(pl);
+          hopper::fence_regs(oacc[0]);
+        };
+        hopper::mbar_wait(k_full + 8 * stage, phase);
+        hopper::wgmma_fence();
+        issue_qk<DMAX, BN>(sacc[0], q_desc, k_desc + stage * SLOT);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        softmax_step(lo);  // the output is still 0: no rescale
+        stage_probs();
+        int p_stage = stage;  // slot of the tile whose P V is pending
+        uint32_t p_phase = phase;
+        advance();
+        for (int t = lo + 1; t < hi; ++t) {
+          hopper::mbar_wait(k_full + 8 * stage, phase);
+          hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
+            hopper::wgmma_fence();
+          issue_qk<DMAX, BN>(sacc[0], q_desc, k_desc + stage * SLOT);
+          hopper::wgmma_commit();
+          issue_pv<DMAX, BN>(oacc[0], ph, pl, v_desc + p_stage * SLOT);
+          hopper::wgmma_commit();
+            hopper::wgmma_wait<1>();
+          const bool moved = softmax_step(t);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(oacc[0]);
+          hopper::mbar_arrive(kv_empty + 8 * p_stage);
+          if (moved) paged_attn::rescale_rows(oacc, alpha);
+          stage_probs();
+          p_stage = stage;
+          p_phase = phase;
+          advance();
+        }
+        hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
+        hopper::wgmma_fence();
+        issue_pv<DMAX, BN>(oacc[0], ph, pl, v_desc + p_stage * SLOT);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(oacc[0]);
+        hopper::mbar_arrive(kv_empty + 8 * p_stage);
+      }
+      for (int t = hi; t < w.ntiles; ++t) pass_tile();
+      // Normalized output in bf16; a row without a valid key (l == 0)
+      // writes 0.
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // The quad's four threads share a row: sum their shares of l.
+        float lr = l_r[0][hh];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const int qp = row + hh * 8;
+        if (qp >= S) continue;
+        const float inv = lr == 0.f ? 0.f : 1.f / lr;
+        __nv_bfloat16* orow =
+            o + ((static_cast<size_t>(w.b) * S + qp) * H + w.h) * D;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int col = j * 8 + (lane & 3) * 2;
+          if (col < D)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(oacc[0][j][2 * hh] * inv,
+                                      oacc[0][j][2 * hh + 1] * inv);
+        }
       }
     }
   }
 }
 
-template <int DMAX, int MT, int MW, int NJ>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int K, int D, int window, float scale,
-               int smem_arg, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(D);
-  if (static_cast<size_t>(smem_arg) != smem)
+template <int DMAX, int BN, int STAGES>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int H, int K, int D, int window, float scale,
+                 int kv_tile, int stages, int blocks, int smem_arg,
+                 cudaStream_t stream) {
+  using L = WgLayout<DMAX, BN, STAGES>;
+  const long n_items = static_cast<long>((S + BM - 1) / BM) * H * B;
+  if (kv_tile != BN || stages != STAGES || smem_arg != L::SMEM ||
+      blocks < 1 || blocks > n_items || n_items > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long blocks = static_cast<long>((S + BM - 1) / BM) * H * B;
-  if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_prefill_mma_kernel<DMAX, MT, MW, NJ>;
+  CUtensorMap tq, tk, tv;
+  if (int e = hopper::encode_rows_map(&tq, q, D, H, S, B, BM)) return e;
+  if (int e = hopper::encode_rows_map(&tk, k, D, K, S, B, BN)) return e;
+  if (int e = hopper::encode_rows_map(&tv, v, D, K, S, B, BN)) return e;
+  auto kern = flash_prefill_wgmma_kernel<DMAX, BN, STAGES>;
   static bool ready[MAX_DEVICES] = {};
-  if (int e = allow_smem_once(kern, mma_smem_bytes(DMAX), ready)) return e;
-  kern<<<static_cast<unsigned>(blocks), MW * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, H, K, D, window, scale);
+  if (int e = allow_smem_once(kern, L::SMEM, ready)) return e;
+  kern<<<blocks, WS_THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, D, window, scale,
+      static_cast<int>(n_items));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry: returns cudaGetLastError() after the launch (0 = success).
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v
-// and the output share it. The caller plans the launch (kernels/
-// flash_prefill.py::flash_plan): rows_per_block (bf16 128, float32 64)
-// and smem_bytes must be what the instantiation for (D, dtype) lays out;
-// any other value returns cudaErrorInvalidValue.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma); q, k, v and the
+// output share it. The caller plans the launch (kernels/flash_prefill.py::
+// flash_plan): rows_per_block (bf16 128, float32 64), kv_tile, stages,
+// blocks (bf16: persistent blocks, at most one a work item; float32: the
+// grid's blocks) and smem_bytes must be what the instantiation for (D,
+// dtype) lays out; any other value returns cudaErrorInvalidValue.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int H, int K, int D, int window,
-                                    int rows_per_block, int smem_bytes,
+                                    int rows_per_block, int kv_tile,
+                                    int stages, int blocks, int smem_bytes,
                                     float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (rows_per_block != BM) return static_cast<int>(cudaErrorInvalidValue);
     if (D <= 64)
-      return launch_mma<64, 2, 4, 4>(q, k, v, o, B, S, H, K, D, window, scale,
-                                  smem_bytes, s);
+      return launch_wgmma<64, 128, 4>(q, k, v, o, B, S, H, K, D, window,
+                                      scale, kv_tile, stages, blocks,
+                                      smem_bytes, s);
     if (D <= 128)
-      return launch_mma<128, 2, 4, 4>(q, k, v, o, B, S, H, K, D, window, scale,
-                                   smem_bytes, s);
-    return launch_mma<256, 1, 8, 8>(q, k, v, o, B, S, H, K, D, window, scale,
-                                 smem_bytes, s);
+      return launch_wgmma<128, 128, 3>(q, k, v, o, B, S, H, K, D, window,
+                                       scale, kv_tile, stages, blocks,
+                                       smem_bytes, s);
+    return launch_wgmma<256, 64, 2>(q, k, v, o, B, S, H, K, D, window, scale,
+                                    kv_tile, stages, blocks, smem_bytes, s);
   }
-  if (rows_per_block != TQ) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows_per_block != TQ || kv_tile != TK || stages != 1 ||
+      static_cast<long>(blocks) != static_cast<long>((S + TQ - 1) / TQ) * H * B)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 128)
     return launch_f32<8>(q, k, v, o, B, S, H, K, D, window, scale,
                          smem_bytes, s);

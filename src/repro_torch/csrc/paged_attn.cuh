@@ -1,8 +1,10 @@
 // Helpers shared by the port's attention kernels (paged decode and prefill,
 // flash prefill): cp.async copies, the bf16 tensor-core tile step of the
-// paged prefill-chunk and flash-prefill kernels, the split-KV merge of the
-// two paged kernels, and the rank kernels' work plan (units of valid
-// tokens, planned on the card) and in-launch merge.
+// paged prefill-chunk kernel (its online softmax and hi + lo split of p
+// also serve the flash-prefill kernel's wgmma tiles, whose accumulator
+// has the same per-warp layout), the split-KV merge of the two paged
+// kernels, and the rank kernels' work plan (units of valid tokens,
+// planned on the card) and in-launch merge.
 //
 // Tensor-core tile step (FlashAttention-2 register layout, mma.sync
 // m16n8k16 bf16 -> fp32). A warp owns MT m16 tiles of query rows; q and a
@@ -120,23 +122,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo_elem,
-                                              __nv_bfloat16 hi_elem) {
-  __nv_bfloat162 v;
-  v.x = lo_elem;
-  v.y = hi_elem;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The hi and lo bf16 halves of two float32 probabilities, packed for the
-// A operand (first value in the low 16 bits).
+// A operand (first value in the low 16 bits): one paired conversion each.
 __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
                                            uint32_t& lo) {
-  const __nv_bfloat16 ha = __float2bfloat16_rn(a);
-  const __nv_bfloat16 hb = __float2bfloat16_rn(b);
-  hi = pack_bf16(ha, hb);
-  lo = pack_bf16(__float2bfloat16_rn(a - __bfloat162float(ha)),
-                 __float2bfloat16_rn(b - __bfloat162float(hb)));
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // ldmatrix lane offsets (elements within a tile) of a warp whose rows
@@ -193,16 +187,17 @@ __device__ __forceinline__ void qk_tile(float (&sacc)[MT][NJ][4],
 // lane/4 (c0, c1) and lane/4 + 8 (c2, c3), tokens j * 8 + (lane % 4) * 2
 // + {0, 1}; masked scores are -inf on entry, and 2^-inf = 0. Leaves the
 // float32 probabilities 2^((s - m) * c) in sacc, updates the running max
-// of the raw scores (m_r) and this thread's share of l (l_r), and
-// rescales the output accumulators where a row's max moved (after the
-// first tiles it rarely does). c = scale * log2 e.
-template <int MT, int NT, int NJ = 8>
-__device__ __forceinline__ void softmax_tile(float (&sacc)[MT][NJ][4],
-                                             float (&oacc)[MT][NT][4],
-                                             float (&m_r)[MT][2],
-                                             float (&l_r)[MT][2], float c) {
+// of the raw scores (m_r) and this thread's share of l (l_r), and sets
+// each row's factor alpha for the output accumulators; returns whether
+// any of this thread's rows moved its max (after the first tiles it
+// rarely does). c = scale * log2 e.
+template <int MT, int NJ>
+__device__ __forceinline__ bool softmax_scores(float (&sacc)[MT][NJ][4],
+                                               float (&m_r)[MT][2],
+                                               float (&l_r)[MT][2],
+                                               float (&alpha)[MT][2],
+                                               float c) {
   bool rescale = false;
-  float alpha[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -238,17 +233,34 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[MT][NJ][4],
     for (int h = 0; h < 2; ++h)
       l_r[mt][h] = l_r[mt][h] * alpha[mt][h] + psum[h];
   }
-  if (__any_sync(0xffffffffu, rescale)) {
+  return rescale;
+}
+
+// The output accumulators' rows times their alpha.
+template <int MT, int NT>
+__device__ __forceinline__ void rescale_rows(float (&oacc)[MT][NT][4],
+                                             const float (&alpha)[MT][2]) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        oacc[mt][j][0] *= alpha[mt][0];
-        oacc[mt][j][1] *= alpha[mt][0];
-        oacc[mt][j][2] *= alpha[mt][1];
-        oacc[mt][j][3] *= alpha[mt][1];
-      }
-  }
+    for (int j = 0; j < NT; ++j) {
+      oacc[mt][j][0] *= alpha[mt][0];
+      oacc[mt][j][1] *= alpha[mt][0];
+      oacc[mt][j][2] *= alpha[mt][1];
+      oacc[mt][j][3] *= alpha[mt][1];
+    }
+}
+
+// softmax_scores, then the output accumulators rescaled where a row of
+// the warp moved its max.
+template <int MT, int NT, int NJ = 8>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[MT][NJ][4],
+                                             float (&oacc)[MT][NT][4],
+                                             float (&m_r)[MT][2],
+                                             float (&l_r)[MT][2], float c) {
+  float alpha[MT][2];
+  if (__any_sync(0xffffffffu, softmax_scores(sacc, m_r, l_r, alpha, c)))
+    rescale_rows(oacc, alpha);
 }
 
 // O += P V with P = hi + lo, both bf16, from the S fragment; V fragments

@@ -9,12 +9,18 @@ to the last ``window`` positions (``kp > qp - window``), normalized and
 returned in q's dtype. The card bounds it by FLOPs at prompt lengths of
 hundreds of tokens and more (at the hybrid admission, S=6000, H=16, K=1,
 D=256, window 2048: 167 GFLOP, 0.169 ms at the bf16 tensor-core peak).
-bf16 runs on the tensor cores (``mma.sync`` m16n8k16, the FlashAttention-2
-register layout, a 2-stage ``cp.async`` ring of 64-token K/V tiles, 128
-query rows a block, only live tiles visited and only boundary tiles
-masked); float32 stays on the CUDA cores. ``flash_plan`` states each
-launch's geometry, which the C entry takes and checks; the source's
-header says how the design answers the bound.
+
+bf16 runs a kernel built for Hopper: ``wgmma`` for S = Q K^T (both
+operands in shared memory) and for O += P V (P from registers, V read
+transposed), fed by TMA loads of q and of a ring of K/V tiles that one
+producer warp keeps in flight (``mbarrier`` handshakes), two consumer
+warpgroups of 64 query rows each (``setmaxnreg`` moves registers to
+them), and persistent blocks, one an SM, over a static longest-first
+order of (query tile, head, batch row) work items. Only live K/V tiles
+are loaded and only boundary tiles masked. float32 stays on the CUDA
+cores. ``flash_plan`` states each launch's geometry and order from the
+shapes and the SM count; the C entry takes it and refuses any other. The
+source's header says how the design answers the bound.
 
 Precision contract of the bf16 kernel, held to ``1e-4 + 2**-7 *
 |plain|`` (one bf16 ulp of the output) against the float32 plain twin:
@@ -34,53 +40,90 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.micro_attn_decode import device_sm_count
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-BF16_ROWS = 128   # query rows a block, bf16 (tensor cores)
+BF16_ROWS = 128   # query rows a work item, bf16 (two warpgroups of 64)
 F32_ROWS = 64     # query rows a block, float32 (CUDA cores)
-KV_TILE = 64      # K/V tokens a shared-memory tile
+F32_KV_TILE = 64  # K/V tokens a shared-memory tile, float32
+# bf16 instantiations by their largest head dim: K/V tile tokens and ring
+# stages (as many as fit beside q in 232,448 B).
+BF16_RING = {64: (128, 4), 128: (128, 3), 256: (64, 2)}
 
 
 @functools.lru_cache(maxsize=256)
-def flash_plan(B: int, S: int, H: int, K: int, D: int,
-               dtype: torch.dtype) -> Dict[str, object]:
+def flash_plan(B: int, S: int, H: int, K: int, D: int, dtype: torch.dtype,
+               sm_count: int) -> Dict[str, object]:
     """The flash-prefill kernel's launch, which the C entry takes as
-    given: rows a block, warps, the instantiation's largest head dim
-    (``dmax``), grid and dynamic shared memory. Cached: callers share the
-    dict and must not change it.
+    given: rows a work item, the instantiation's largest head dim
+    (``dmax``), K/V tile, ring stages, blocks and dynamic shared memory.
+    Cached: callers share the dict and must not change it.
 
-    bf16: 128 query rows a block, on a 1-D grid (query tile slowest, last
-    tile first); 4 warps of 32 rows up to D = 128, 8 warps of 16 rows
-    above (a 16 x 256 float32 accumulator is 128 registers a thread);
-    shared memory holds q and a 2-stage ring of K and V tiles, rows of D
-    rounded up to 16 plus 8 bf16. float32: 8 warps over 64 rows, grid
-    (query tiles, H, B), q and K transposed, V and the probabilities, as
-    float32 with rows padded by 4.
+    bf16: ``dmax`` 64, 128 or 256; 384 threads a block (a producer
+    warpgroup and two consumer warpgroups of 64 rows); q (128 rows) and a
+    ring of K and V tiles in 128-byte-swizzled boxes, plus 1,024 bytes of
+    alignment and 8 a barrier; ``min(items, sm_count)`` persistent blocks
+    over the ``items = ceil(S / 128) * H * B`` work items, in the order of
+    ``flash_block_items``. float32: 8 warps over 64 rows, one block a
+    (query tile, head, batch row), q and K transposed, V and the
+    probabilities, as float32 with rows padded by 4.
     """
     if dtype == torch.bfloat16:
         dmax = 64 if D <= 64 else 128 if D <= 128 else 256
-        warps = 4 if D <= 128 else 8
-        stride = -(-D // 16) * 16 + 8
-        return {"rows_per_block": BF16_ROWS, "warps": warps,
-                "rows_per_warp": BF16_ROWS // warps, "dmax": dmax,
-                "grid": (-(-S // BF16_ROWS) * H * B, 1, 1),
-                "smem_bytes": (BF16_ROWS + 2 * 2 * KV_TILE) * stride * 2,
-                "route": "tensor cores, mma.sync bf16"}
+        kv_tile, stages = BF16_RING[dmax]
+        items = -(-S // BF16_ROWS) * H * B
+        blocks = min(items, sm_count)
+        smem = (1024 + BF16_ROWS * dmax * 2 + stages * 2 * kv_tile * dmax * 2
+                + 8 * (2 + 3 * stages))
+        return {"rows_per_block": BF16_ROWS, "warpgroups": 2,
+                "rows_per_warpgroup": BF16_ROWS // 2, "threads": 384,
+                "dmax": dmax, "kv_tile": kv_tile, "stages": stages,
+                "items": items, "blocks": blocks, "grid": (blocks, 1, 1),
+                "smem_bytes": smem,
+                "route": "wgmma bf16, TMA ring, warp-specialised, "
+                         "persistent"}
     dpt = 8 if D <= 128 else 16
-    pad = KV_TILE + 4
+    pad = F32_KV_TILE + 4
+    blocks = -(-S // F32_ROWS) * H * B
     return {"rows_per_block": F32_ROWS, "warps": 8, "rows_per_warp": 8,
-            "dmax": 16 * dpt, "grid": (-(-S // F32_ROWS), H, B),
-            "smem_bytes": 4 * (2 * D * pad + KV_TILE * 16 * dpt
+            "dmax": 16 * dpt, "kv_tile": F32_KV_TILE, "stages": 1,
+            "items": blocks, "blocks": blocks,
+            "grid": (-(-S // F32_ROWS), H, B),
+            "smem_bytes": 4 * (2 * D * pad + F32_KV_TILE * 16 * dpt
                                + F32_ROWS * pad),
             "route": "cuda cores, float32"}
+
+
+def flash_item(i: int, B: int, S: int, H: int) -> Tuple[int, int, int]:
+    """bf16 work item ``i`` of the longest-first order as (query tile,
+    head, batch row): the query tile descends (the last tile has the most
+    keys), then the batch row and the head ascend."""
+    n_qt = -(-S // BF16_ROWS)
+    hb = i % (H * B)
+    return n_qt - 1 - i // (H * B), hb % H, hb // H
+
+
+def flash_block_items(plan: Dict[str, object], block: int, B: int, S: int,
+                      H: int) -> List[Tuple[int, int, int]]:
+    """The work items persistent block ``block`` of a bf16 plan walks, in
+    order, as the kernel computes them: item ``r * G + block`` in even
+    rounds r, ``r * G + G - 1 - block`` in odd ones (G blocks), while
+    below the plan's item count."""
+    G, n = plan["blocks"], plan["items"]
+    out = []
+    for r in range(-(-n // G)):
+        i = r * G + (G - 1 - block if r % 2 else block)
+        if i < n:
+            out.append(flash_item(i, B, S, H))
+    return out
 
 
 def flash_prefill_plain(q, k, v, *, scale, window=0):
@@ -132,8 +175,8 @@ def check_inputs(q, k, v):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (the "
-                             f"kernel loads rows as 16-byte vectors)")
+            raise ValueError(f"{name} must start on a 16-byte boundary (TMA "
+                             f"and 16-byte vector loads need it)")
 
 
 def flash_prefill_cuda(q, k, v, *, scale, window=0):
@@ -148,13 +191,14 @@ def flash_prefill_cuda(q, k, v, *, scale, window=0):
     o = torch.empty_like(q)
     if B == 0 or S == 0 or H == 0:
         return o
-    plan = flash_plan(B, S, H, K, D, q.dtype)
+    plan = flash_plan(B, S, H, K, D, q.dtype,
+                      device_sm_count(q.device.index))
     lib = build.load("flash_prefill", "flash_prefill_launch", _ARGTYPES)
     err = lib.flash_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H, K,
-        D, int(window), plan["rows_per_block"], plan["smem_bytes"],
-        float(scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        D, int(window), plan["rows_per_block"], plan["kv_tile"],
+        plan["stages"], plan["blocks"], plan["smem_bytes"], float(scale),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash prefill kernel launch failed: CUDA error "
                            f"{err}")

@@ -107,12 +107,18 @@ def test_cuda_kernels_match_plain(dtype, K, G, D, bs, cuda_device):
     (1, 130, 4, 2, 64, 1),         # window of one token
     (1, 1, 16, 1, 256, 2048),      # S = 1: less than one m16 tile
     (1, 13, 16, 8, 128, 0),        # S = 13
-    (1, 300, 8, 2, 40, 0),         # D = 40: reduction padded to 48
-    (1, 300, 8, 2, 120, 100),      # D = 120: padded to 128, windowed
+    (1, 300, 8, 2, 40, 0),         # D = 40: zero-filled to 64
+    (1, 300, 8, 2, 120, 100),      # D = 120: zero-filled to 128, windowed
     (1, 700, 16, 1, 128, 0),       # G = 16 at D = 128
     (1, 700, 32, 2, 256, 300),     # G = 16 at D = 256, windowed
     (1, 1037, 16, 1, 256, 100),    # window not a multiple of the tile
     (2, 777, 16, 1, 256, 200),     # B = 2 with a window
+    (2, 4099, 16, 8, 128, 0),      # the persistent order over many items:
+    (2, 4099, 16, 2, 128, 0),      # S 4,099 (a ragged last tile), B 2,
+    (2, 4099, 16, 8, 64, 0),       # G 2 and 8, D 128 and 64
+    (2, 4099, 16, 2, 64, 0),
+    (1, 2000, 8, 2, 112, 0),       # D = 112: TMA zero-fills 112..127
+    (1, 3001, 16, 1, 256, 1000),   # D = 256, window not tile-aligned
 ])
 def test_flash_prefill_kernel_matches_plain(dtype, B, S, H, K, D, window,
                                             cuda_device):
@@ -140,15 +146,18 @@ def test_flash_prefill_kernel_matches_plain(dtype, B, S, H, K, D, window,
 @pytest.mark.cuda
 def test_flash_entry_refuses_plans_it_cannot_launch(cuda_device,
                                                     monkeypatch):
-    """The flash C entry takes the wrapper's plan and refuses rows or a
-    shared-memory size unlike its instantiation's, in both dtypes, instead
-    of launching a mismatched block; the launch counter stays put."""
+    """The flash C entry takes the wrapper's plan and refuses rows, a K/V
+    tile, a ring depth, a block count or a shared-memory size unlike its
+    instantiation's, in both dtypes, instead of launching a mismatched
+    block; the launch counter stays put."""
     import repro_torch.kernels.flash_prefill as fp
     plan = fp.flash_plan
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn((1, 70, 4, 64), device=cuda_device).to(dtype)
         kv = torch.randn((1, 70, 2, 64), device=cuda_device).to(dtype)
-        for bad in ({"smem_bytes": 16}, {"rows_per_block": 96}):
+        for bad in ({"smem_bytes": 16}, {"rows_per_block": 96},
+                    {"kv_tile": 32}, {"stages": 5}, {"blocks": 0},
+                    {"blocks": plan(1, 70, 4, 2, 64, dtype)["items"] + 1}):
             monkeypatch.setattr(fp, "flash_plan",
                                 lambda *a, bad=bad: {**plan(*a), **bad})
             before = flash_prefill_cuda.launches
@@ -162,6 +171,42 @@ def test_flash_entry_refuses_plans_it_cannot_launch(cuda_device,
                                    want.float().cpu().numpy(), atol=TOL,
                                    rtol=TOL if dtype == torch.float32
                                    else 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,D,window", [(2, 1000, 16, 8, 128, 0),
+                                              (1, 1500, 16, 1, 256, 300)])
+def test_flash_prefill_graph_replay_matches_eager(B, S, H, K, D, window,
+                                                  cuda_device):
+    """A CUDA graph of the bf16 kernel (its tensor maps captured as launch
+    parameters) replays to the eager output bit for bit, and after new
+    values are copied into its inputs, to the eager output of those."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def inputs():
+        return [torch.randn(shape, generator=gen, device=cuda_device)
+                .to(torch.bfloat16)
+                for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
+    q, k, v = inputs()
+    scale = D ** -0.5
+    eager = flash_prefill_cuda(q, k, v, scale=scale, window=window)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_prefill_cuda(q, k, v, scale=scale, window=window)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_prefill_cuda(q, k, v, scale=scale, window=window)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    for t, new in zip((q, k, v), inputs()):
+        t.copy_(new)
+    graph.replay()
+    want = flash_prefill_cuda(q, k, v, scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and not torch.equal(want, eager)
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core.attention import full_attention_decode as jax_full_decode
 from repro.kernels import ref as jax_ref
@@ -49,6 +50,7 @@ from repro_torch.core.online_softmax import (_masked_softmax_parts, combine,
                                              finalize)
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_prefill import (MAX_HEAD_DIM,
+                                               flash_block_items,
                                                flash_plan,
                                                flash_prefill_cuda,
                                                flash_prefill_plain)
@@ -713,37 +715,124 @@ def test_flash_single_bf16_rounding_of_p_misses_tol(shape):
     assert _flash_misses(got, want) > 0
 
 
+# The prefill cells' and the ServeLayout prefill's causal shapes, bf16:
+# the last 64 query positions of S = 32,768 over every key, at D 128 with
+# G 2 (qwen3's and chameleon's grouping) and at D 64, MHA (musicgen).
+_FLASH_LONG = {"d128-g2": dict(H=4, K=2, D=128),
+               "d64-mha": dict(H=3, K=3, D=64)}
+
+
+@pytest.mark.parametrize("shape", sorted(_FLASH_LONG))
+def test_flash_hi_lo_contract_meets_tol_at_the_long_causal_shapes(shape):
+    """p as bf16 hi + lo holds every output element within 1e-4 + 2^-7
+    |plain| of the float32 plain arithmetic where the rows sum 32,768
+    terms, the most any served path gives the kernel."""
+    c, T, N = _FLASH_LONG[shape], 64, 32768
+    rng = np.random.default_rng(23)
+    _, q = _arrays(rng, (T, c["H"], c["D"]), "bfloat16")
+    _, k = _arrays(rng, (N, c["K"], c["D"]), "bfloat16")
+    _, v = _arrays(rng, (N, c["K"], c["D"]), "bfloat16")
+    kw = dict(scale=c["D"] ** -0.5, window=0, q0=N - T)
+    want = _flash_emulation(q, k, v, p_mode="f32", **kw).float()
+    got = _flash_emulation(q, k, v, p_mode="hi_lo", **kw)
+    assert _flash_misses(got, want) == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [40, 64, 112, 120, 128, 256])
+@pytest.mark.parametrize("D", range(8, MAX_HEAD_DIM + 1, 8))
 def test_flash_plans_fit_shared_memory_and_cover_the_head_dim(D, dtype):
     """Every head dim the wrapper takes has an instantiation at least as
-    wide, whose block fits the H100's 232,448 B of shared memory; bf16
-    blocks own 128 rows, whose float32 output accumulator stays at 128
-    registers a thread; the grid covers every (query tile, head, row)."""
+    wide, whose block fits the H100's 232,448 B of shared memory: bf16,
+    q (128 rows) and the ring of K and V tiles in 64-column boxes, plus
+    alignment and barriers, under two consumer warpgroups that own 128
+    rows; at most one persistent block an SM or a work item. The route is
+    named."""
     B, S, H, K = 2, 6000, 16, 1
-    plan = flash_plan(B, S, H, K, D, dtype)
+    plan = flash_plan(B, S, H, K, D, dtype, 132)
     assert D <= plan["dmax"] <= MAX_HEAD_DIM
     assert plan["smem_bytes"] <= SMEM_PER_SM
-    assert plan["warps"] * plan["rows_per_warp"] == plan["rows_per_block"]
-    n_qt = -(-S // plan["rows_per_block"])
-    assert np.prod(plan["grid"]) == n_qt * H * B
     if dtype == torch.bfloat16:
-        assert plan["rows_per_block"] == 128
-        assert plan["rows_per_warp"] * plan["dmax"] // 32 <= 128
+        dmax, tile, stages = plan["dmax"], plan["kv_tile"], plan["stages"]
+        assert dmax in (64, 128, 256) and dmax % 64 == 0
+        assert plan["smem_bytes"] == (1024 + 128 * dmax * 2
+                                      + stages * 2 * tile * dmax * 2
+                                      + 8 * (2 + 3 * stages))
+        assert stages >= 2 and tile % 16 == 0
+        assert plan["warpgroups"] * plan["rows_per_warpgroup"] == \
+            plan["rows_per_block"] == 128
+        assert plan["threads"] == 128 * (plan["warpgroups"] + 1)
+        assert plan["items"] == -(-S // 128) * H * B
+        assert plan["blocks"] == min(plan["items"], 132)
+        assert plan["grid"] == (plan["blocks"], 1, 1)
+        assert plan["route"].startswith("wgmma")
+    else:
+        assert plan["warps"] * plan["rows_per_warp"] == plan["rows_per_block"]
+        n_qt = -(-S // plan["rows_per_block"])
+        assert np.prod(plan["grid"]) == plan["blocks"] == n_qt * H * B
+        assert plan["route"] == "cuda cores, float32"
 
 
 def test_flash_plans_at_the_main_shapes():
-    """(a) 8 warps of 16 rows, q and two 64-token K/V stages in 202,752 B
-    (one block an SM); (b) 4 warps of 32 rows in 104,448 B (two)."""
-    a = flash_plan(1, 6000, 16, 1, 256, torch.bfloat16)
-    assert (a["warps"], a["grid"], a["smem_bytes"]) == (8, (752, 1, 1),
-                                                       202_752)
-    b = flash_plan(1, 4000, 16, 8, 128, torch.bfloat16)
-    assert (b["warps"], b["grid"], b["smem_bytes"]) == (4, (512, 1, 1),
-                                                       104_448)
-    assert 2 * (b["smem_bytes"] + 1024) <= SMEM_PER_SM
-    f = flash_plan(1, 6000, 16, 1, 256, torch.float32)
+    """(a) the hybrid admission: D 256, 64-token tiles, 2 stages, 752
+    items on 132 blocks in 197,696 B; (b) qwen3's dense prefill and (c)
+    the ServeLayout prefill (B 2, S 32,768): D 128, 128-token tiles, 3
+    stages in 230,488 B; (d) musicgen's cell (MHA 24 x 64): 4 stages of
+    128-token tiles. A card with fewer SMs gets fewer blocks; a launch
+    with fewer items than SMs one block an item. float32 keeps its grid."""
+    a = flash_plan(1, 6000, 16, 1, 256, torch.bfloat16, 132)
+    assert (a["kv_tile"], a["stages"], a["items"], a["blocks"],
+            a["smem_bytes"]) == (64, 2, 752, 132, 197_696)
+    b = flash_plan(1, 4000, 16, 8, 128, torch.bfloat16, 132)
+    assert (b["kv_tile"], b["stages"], b["items"], b["blocks"],
+            b["smem_bytes"]) == (128, 3, 512, 132, 230_488)
+    c = flash_plan(2, 32768, 16, 8, 128, torch.bfloat16, 132)
+    assert (c["items"], c["blocks"], c["smem_bytes"]) == (8192, 132, 230_488)
+    d = flash_plan(2, 32768, 24, 24, 64, torch.bfloat16, 132)
+    assert (d["kv_tile"], d["stages"], d["items"], d["smem_bytes"]) == \
+        (128, 4, 12_288, 148_592)
+    assert flash_plan(1, 4000, 16, 8, 128, torch.bfloat16, 114)["blocks"] \
+        == 114
+    assert flash_plan(1, 13, 4, 2, 128, torch.bfloat16, 132)["blocks"] == 4
+    f = flash_plan(1, 6000, 16, 1, 256, torch.float32, 132)
     assert (f["grid"], f["smem_bytes"]) == ((94, 16, 1), 222_208)
+
+
+def _live_keys(tile, S, window):
+    """Keys of the last query row of query tile ``tile`` (128 rows) under
+    the causal mask and the window: the most a row of the item reads."""
+    last = min(S, (tile + 1) * 128) - 1
+    return min(last + 1, window) if window else last + 1
+
+
+@settings(max_examples=200, deadline=None)
+@given(B=st.integers(1, 3), S=st.integers(1, 3000), K=st.integers(1, 4),
+       G=st.integers(1, 8), window=st.sampled_from([0, 1, 100, 700, 2048]),
+       sms=st.integers(1, 140))
+def test_flash_work_order_covers_every_item_once_longest_first(B, S, K, G,
+                                                               window,
+                                                               sms):
+    """The bf16 plan's persistent blocks walk every (query tile, head,
+    batch row) exactly once; each block's items come longest first (the
+    live keys of an item's last row never grow along a block's walk),
+    and every round hands out the longest items left: no block starts an
+    item shorter than one another block has yet to start."""
+    H = K * G
+    plan = flash_plan(B, S, H, K, 128, torch.bfloat16, sms)
+    walks = [flash_block_items(plan, j, B, S, H)
+             for j in range(plan["blocks"])]
+    items = [it for walk in walks for it in walk]
+    n_qt = -(-S // 128)
+    assert sorted(items) == sorted((t, h, b) for t in range(n_qt)
+                                   for h in range(H) for b in range(B))
+    for walk in walks:
+        keys = [_live_keys(t, S, window) for t, _, _ in walk]
+        assert keys == sorted(keys, reverse=True)
+    rounds = max(len(w) for w in walks)
+    for r in range(rounds - 1):
+        now = [_live_keys(w[r][0], S, window) for w in walks if len(w) > r]
+        later = [_live_keys(w[r + 1][0], S, window) for w in walks
+                 if len(w) > r + 1]
+        assert min(now) >= max(later)
 
 
 # ------------------------------------------------------------------ #
