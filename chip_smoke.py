@@ -17,13 +17,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    H=16, K=8, D=128, causal) and on edge cases (ragged S, S < window,
    B=2 with and without a window, MHA with D=112 and H=3, windows of one
    and of 100 tokens, S of 1 and 13, D 40 and 120, G 16 at D 128 and
-   256); the split-KV and
-   tensor-core edges of the paged kernels (long and empty tables, splits
-   past a short request, bs 8, 24 and 64, G 1, 2 and 16, D 40, 64, 72,
-   112, 120 and 256, D % 16 == 8 among them), and a timed decode row at
-   the serving phase's batch and table width (R=4, 64 slots). Prints the
-   plan (split, grid, rows a block, shared memory) of each kernel at its
-   main shapes. Times the kernel, the plain version and
+   256); the unit-plan and
+   tensor-core edges of the paged kernels (long and empty tables, a
+   request shorter than a unit, bs 8, 24, 64 and 128, G 1, 2 and 16, D
+   40, 64, 72, 112, 120 and 256, D % 16 == 8 among them), and a timed
+   decode row at the serving phase's batch and table width (R=4, 64
+   slots). Prints the plan (blocks, unit, rows or heads a block, ring,
+   shared memory) of each kernel at its main shapes, and each new
+   kernel's ptxas report (registers, spills, serialized wgmmas), failing
+   on a spill or a serialized wgmma. Times the kernel, the plain version and
    ``scaled_dot_product_attention`` over the same inputs (a yardstick the
    port never calls) eagerly with CUDA events, as every earlier report
    did (``ms``, ``library_ms``), and also as CUDA-graph replays, without
@@ -186,7 +188,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    Also with the qwen3 weights, once per pool mode: the serving phase's
    prompts with 128-token blocks (``block_size=128``, 20 blocks a pool:
    the same 2,560 tokens): every request finishes, every paged prefill
-   launch reads a 64-token sub-block view of the pool (same addresses),
+   launch reads the pool's 128-token blocks in place (same addresses),
    the first against its plain version within 1e-4; and, at float32 and
    4 layers, the 4,000-token creditor-spanning prompt greedy-equal to
    the dense oracle. The kernel phase adds the prefill chunk (C = 512)
@@ -341,12 +343,13 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # float32 outside tensor cores
 # Kernel vs plain twin (float32 math on the same inputs), on the finalized
-# output, m and l. Decode and float32 prefill compute in float32 and differ
-# only in summation order (and, split-KV, in merge order). The bf16
-# prefill kernel runs on tensor cores under a stated contract: q K^T
-# products of bf16 values are exact in float32, each probability enters
-# P V as bf16 hi + lo (one bf16 rounding would miss 1e-4), and l is summed
-# from the float32 probabilities; so the same 1e-4 holds.
+# output, m and l. float32 decode and prefill compute in float32 and
+# differ only in summation order (and in the order of the in-launch
+# merges). bf16 prefill and decode run on tensor cores under a stated
+# contract: q K^T products of bf16 values are exact in float32, each
+# probability enters P V as bf16 hi + lo (one bf16 rounding would miss
+# 1e-4), and l is summed from the float32 probabilities; so the same
+# 1e-4 holds.
 TOL = 1e-4
 # The global pool's rank kernels, as its steps launch them: one launch a
 # layer over every (local) rank, the ranks merged in the launch.
@@ -361,9 +364,14 @@ WARM_REPEATS = 0    # untraced repeats of the serving workload (the
 #                     0 since the memory-hierarchy and overload phases)
 TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
-PORT_KERNEL_SYMBOLS = ("paged_decode_kernel", "paged_decode_ranks_kernel",
-                       "paged_prefill", "flash_prefill_wgmma_kernel",
+PORT_KERNEL_SYMBOLS = ("paged_decode_units_kernel",
+                       "paged_decode_ranks_kernel", "paged_prefill",
+                       "flash_prefill_wgmma_kernel",
                        "flash_prefill_f32_kernel")
+# The single-rank paged kernels built for Hopper, by source: their ptxas
+# reports must show no spill and no serialized wgmma.
+PAGED_KERNELS = {"micro_attn_decode": "paged_decode_units_kernel",
+                 "micro_attn_prefill": "paged_prefill_wgmma_kernel"}
 TRAIN_UNTIMED = 2   # first train steps not timed (allocator warm-up)
 # float32 train step, card against CPU: loss and gradient norm (relative),
 # each leaf's gradient (max |diff| over its largest magnitude).
@@ -877,20 +885,38 @@ def unit_walks(plan, nblks, bs) -> dict:
 
 def kernel_plans(chunk: int):
     """The launch each kernel plans at its main shapes on this card (from
-    shapes and the SM count alone)."""
+    shapes and the SM count alone), with the unit plans the single-rank
+    and rank kernels make on the card from the kernel phase's tables: the
+    longest walk of a block."""
     from repro_torch.kernels.flash_prefill import flash_plan
-    from repro_torch.kernels.micro_attn_decode import (decode_plan,
+    from repro_torch.kernels.micro_attn_decode import (decode_unit_plan,
                                                        device_sm_count,
                                                        rank_decode_plan)
     from repro_torch.kernels.micro_attn_prefill import (prefill_plan,
+                                                        prefill_unit_plan,
                                                         rank_prefill_plan)
     sms = device_sm_count(torch.cuda.current_device())
     out = {"sm_count": sms}
+
+    def single_prefill(C, MB, bs, nblk, dt):
+        if dt != torch.bfloat16:
+            return prefill_plan(C, 16, 8, 128)
+        up = prefill_unit_plan(C, 16, 8, 128, MB, bs, sms)
+        return dict(up, **unit_walks(up, [[nblk]], bs))
     for dt in (torch.bfloat16, torch.float32):
-        out[f"decode-main-{dt}"] = decode_plan(8, 16, 8, 259, 16, sms)
-        out[f"decode-serving-R4-{dt}"] = decode_plan(4, 16, 8, 64, 16, sms)
-        out[f"prefill-main-{dt}"] = prefill_plan(chunk, 16, 8, 128, 191,
-                                                 16, dt, sms)
+        # The single-rank kernels (units of each request's valid tokens;
+        # a prefill unit is a 128-row tile x a 64-token tile).
+        up = decode_unit_plan(8, 16, 8, 128, 259, 16, dt, sms)
+        out[f"decode-main-{dt}"] = dict(up, **unit_walks(
+            up, [[256] * 8], 16))
+        up = decode_unit_plan(4, 16, 8, 128, 64, 16, dt, sms)
+        out[f"decode-serving-R4-{dt}"] = dict(up, **unit_walks(
+            up, [[61] * 4], 16))
+        for arch, H, K, D in CONFIG_HEADS:
+            up = decode_unit_plan(4, H, K, D, 64, 16, dt, sms)
+            out[f"decode-{arch}-{dt}"] = dict(up, **unit_walks(
+                up, [[61] * 4], 16))
+        out[f"prefill-main-{dt}"] = single_prefill(chunk, 191, 16, 188, dt)
         out[f"flash-main-{dt}"] = flash_plan(1, 6000, 16, 1, 256, dt, sms)
         out[f"flash-qwen3-{dt}"] = flash_plan(1, 4000, 16, 8, 128, dt, sms)
         # The merged rank kernels at the qwen2-moe global path's shapes
@@ -917,6 +943,7 @@ def kernel_plans(chunk: int):
                                False)
         out[f"prefill-ranks-bs128-nr3-{dt}"] = dict(rp, **unit_walks(
             rp, [[4], [20], [0]], 128))
+        out[f"prefill-bs128-{dt}"] = single_prefill(chunk, 27, 128, 24, dt)
         # The rank forms at the mesh path's shapes (qwen3 heads, a slab of
         # two ranks at W = 2 and of one at W = 4).
         for nr in (2, 1):
@@ -929,30 +956,34 @@ def kernel_plans(chunk: int):
         # The memory hierarchy's chunks: the COW path's one-query chunk
         # over a ~3,000-token prefix (single-rank and rank form) and a
         # warm admission's 128-token tail over a 768-token prefix.
-        out[f"prefill-cow-c1-{dt}"] = prefill_plan(1, 16, 8, 128, 191, 16,
-                                                   dt, sms)
+        out[f"prefill-cow-c1-{dt}"] = single_prefill(1, 191, 16, 188, dt)
         out[f"prefill-ranks-cow-c1-{dt}"] = rank_prefill_plan(
             1, 16, 8, 128, 256, 16, dt, sms, 3, False)
-        out[f"prefill-warm-c128-{dt}"] = prefill_plan(128, 16, 8, 128, 51,
-                                                      16, dt, sms)
+        out[f"prefill-warm-c128-{dt}"] = single_prefill(128, 51, 16, 48, dt)
     return out
 
 
-def flash_ptxas(log: str) -> list:
-    """Each flash-prefill instantiation's ``ptxas -v`` report from its
-    build log: registers, stack and spill bytes, and whether ptxas
-    serialized its wgmmas (a C7515 or C7520 note)."""
+def kernel_ptxas(log: str, stem: str) -> list:
+    """The ptxas -v report of each instantiation of the kernels whose
+    symbol holds ``stem``, from a build log: registers, stack and spill
+    bytes, and whether ptxas serialized its wgmmas (a C7515 or C7520
+    note). ``kernel`` names the instantiation: its symbol from the last
+    ``stem`` on, without the mangling's letters."""
     out, cur, serialized = [], None, set()
     for line in log.splitlines():
         sym = next((w for w in line.replace("'", " ").split()
-                    if "flash_prefill_" in w and "_kernel" in w), None)
+                    if stem in w and "_kernel" in w), None)
         if sym and ("C7515" in line or "C7520" in line):
             serialized.add(sym)
-        elif sym and "Compiling entry function" in line:
-            route = sym.split("_kernel")[0].rsplit("flash_prefill_", 1)[1]
-            args = sym.split("_kernel", 1)[1].split("EE", 1)[0]
-            cur = {"kernel": f"{route}<{args[3:].replace('ELi', ',')}>",
-                   "symbol": sym}
+        elif sym and "Compiling entry" in line:
+            name = stem + sym.rsplit(stem, 1)[1]
+            route = name.split("_kernel")[0]
+            args = name.split("_kernel", 1)[1].split("EE", 1)[0]
+            for a, b in (("I13__nv_bfloat16", "<bf16,"), ("If", "<f32,"),
+                         ("ILi", "<"), ("ELi", ","), ("ELb", ","),
+                         ("Li", "")):
+                args = args.replace(a, b)
+            cur = {"kernel": f"{route}{args}>", "symbol": sym}
             out.append(cur)
         elif cur is not None and "spill stores" in line:
             f = line.replace(",", " ").split()
@@ -964,6 +995,16 @@ def flash_ptxas(log: str) -> list:
             cur["registers"] = int(f[f.index("registers,") - 1])
     for r in out:
         r["serialized"] = r.pop("symbol") in serialized
+    return out
+
+
+def flash_ptxas(log: str) -> list:
+    """Each flash-prefill instantiation's ``ptxas -v`` report from its
+    build log (``kernel_ptxas``), named by route and template arguments
+    (``wgmma<128,128,3>``)."""
+    out = kernel_ptxas(log, "flash_prefill_")
+    for r in out:
+        r["kernel"] = r["kernel"].replace("flash_prefill_", "", 1)
     return out
 
 
@@ -1008,10 +1049,11 @@ def kernel_phase(device, chunk: int):
                                  dt, device))
         rows.append(prefill_case(f"prefill-d256-bs64-{dt}", 33, 8, 2, 256,
                                  64, 5, dt, device))
-        # Split-KV decode at the serving phase's batch and table width
-        # (R=4, max_local_len 1024 = 64 slots), timed, and the split edges: one long request, an empty table and one shorter
-        # than a split, full tables (the tail in the last split), bs 8
-        # with G 1, bs 64 with G 16, G 16 at D 256.
+        # Decode at the serving phase's batch and table width (R=4,
+        # max_local_len 1024 = 64 slots), timed, and the unit plan's
+        # edges: one long request, an empty table and one shorter than a
+        # unit, full tables (the tail in the last unit), bs 8 with G 1,
+        # bs 64 with G 16, G 16 at D 256.
         rows.append(decode_case(f"decode-serving-R4-{dt}", 4, 16, 8, 128,
                                 16, 61, dt, device, timed=True))
         rows.append(decode_case(f"decode-R1-long-{dt}", 1, 16, 8, 128, 16,
@@ -1130,8 +1172,9 @@ def kernel_phase(device, chunk: int):
                       timed=True)
         rows.append(r)
         main.setdefault("decode_ranks_R2", r)
-        # 128-token blocks in the paged prefill (read as 64-token
-        # sub-blocks of the same pool): the chunk at the serving shape
+        # 128-token blocks in the paged prefill (bf16: read in place, TMA
+        # boxes at rows 0 and 64; float32: as 64-token sub-blocks of the
+        # same pool): the chunk at the serving shape
         # (C = 512, qwen3 GQA 16/8 x 128) over 24 blocks (3,072 tokens),
         # and the rank form at NR = 3 over a prefix striped 4 / 20 / 0
         # blocks, each with a partial last block.
@@ -1397,13 +1440,13 @@ def bs128_config(global_pool: bool):
                                     global_pool=global_pool)
 
 
-class SubBlockSpy:
+class PrefillBlockSpy:
     """Every prefill-kernel launch's block sizes and pool addresses as the
-    wrappers present them — the single-rank kernel through its 64-token
-    sub-block views (``micro_attn_prefill._checked``), the merged rank
-    kernel on the pool itself — and, for the first launch of each form,
-    the kernel's partials against the plain version on the same
-    (128-token-block) inputs."""
+    wrappers present them — the single-rank kernel through
+    ``micro_attn_prefill._checked`` (bf16: the pool itself; float32:
+    64-token sub-block views), the merged rank kernel on the pool itself
+    — and, for the first launch of each form, the kernel's partials
+    against the plain version on the same (128-token-block) inputs."""
 
     def __enter__(self):
         from repro_torch.kernels import micro_attn_prefill as mp_, ops
@@ -1448,10 +1491,9 @@ class SubBlockSpy:
 def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
     """qwen3 served with 128-token blocks (``bs128_config``): every
     request finishes, the longest prompt stripes over two creditors, the
-    paged prefill kernel launches on 64-token sub-block views of the
-    pool (the merged rank kernel, global: on the 128-token blocks
-    themselves; never a copy), its first launch within 1e-4 of the plain
-    version, and no plain version runs."""
+    paged prefill kernel (the merged rank kernel, global) launches on the
+    pool's 128-token blocks themselves (never a copy), its first launch
+    within 1e-4 of the plain version, and no plain version runs."""
     from repro_torch.kernels import ops
     prompts = make_prompts(cfg, prompt_lens, 7)
     config = bs128_config(global_pool)
@@ -1459,7 +1501,7 @@ def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
                if global_pool else
                ("paged_micro_attention", "paged_prefill_attention"))
     reset_peak_memory()
-    with AdmissionSpy() as spy, SubBlockSpy() as sub:
+    with AdmissionSpy() as spy, PrefillBlockSpy() as sub:
         ops.reset_counts()
         handles, server, wall = serve(params, cfg, config, prompts, n_new,
                                       device)
@@ -1469,7 +1511,7 @@ def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
     if max(spy.stripes) < 2:
         raise AssertionError(f"bs 128: no prompt striped over >= 2 "
                              f"creditors ({spy.stripes})")
-    read_as = (128, 128 if global_pool else 64, True)
+    read_as = (128, 128, True)   # bf16: 128-token blocks in place
     if not sub.calls or any(c != read_as for c in sub.calls):
         raise AssertionError(f"bs 128: prefill launches not on "
                              f"{read_as[1]}-token blocks of the pool: "
@@ -1491,7 +1533,7 @@ def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
             "decode_steps": decode_steps(server),
             "prefill_launches": served(counts, kernels[1], device),
             "decode_launches": served(counts, kernels[0], device),
-            "sub_block_launches": len(sub.calls),
+            "spied_prefill_launches": len(sub.calls),
             "first_launch_max_abs_err": sub.errs,
             **e2e_numbers(server, handles, wall),
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -5203,6 +5245,23 @@ def main(argv=None) -> int:
         if r["kernel"].startswith("wgmma") and (r.get("spill_stores")
                                                 or r.get("spill_loads")):
             raise AssertionError(f"flash kernel {r['kernel']} spills")
+    # The paged kernels built for Hopper: no instantiation may spill or
+    # have its wgmmas serialized.
+    report["paged_ptxas"] = [
+        r for lib, stem in PAGED_KERNELS.items()
+        for r in kernel_ptxas((build.build_dir() / f"{lib}.log").read_text(),
+                              stem)]
+    for r in report["paged_ptxas"]:
+        print(f"paged ptxas {r['kernel']}: registers={r.get('registers')} "
+              f"spill_stores={r.get('spill_stores')} "
+              f"spill_loads={r.get('spill_loads')} "
+              f"serialized={r['serialized']}", flush=True)
+        if r.get("spill_stores") or r.get("spill_loads") or r["serialized"]:
+            raise AssertionError(f"paged kernel {r['kernel']} spills or "
+                                 f"serializes its wgmmas")
+    if {r["kernel"].split("<")[0] for r in report["paged_ptxas"]} != {
+            k.replace("_kernel", "") for k in PAGED_KERNELS.values()}:
+        raise AssertionError("a paged kernel has no ptxas report")
 
     cfg = get_config("qwen3-0.6b")
     config = serving_config()
@@ -5618,6 +5677,15 @@ def main(argv=None) -> int:
                "flash": ("flash_prefill",
                          "src/repro_torch/csrc/flash_prefill.cu",
                          "src/repro/kernels/flash_prefill.py:77")}
+    # The CUDA kernels each entry launches (bf16, float32).
+    symbols = {"paged_micro_attention": ["paged_decode_units_kernel"],
+               "paged_prefill_attention": ["paged_prefill_wgmma_kernel",
+                                           "paged_prefill_kernel"],
+               RANK_KERNELS[0]: ["paged_decode_ranks_kernel"],
+               RANK_KERNELS[1]: ["paged_prefill_ranks_mma_kernel",
+                                 "paged_prefill_ranks_f32_kernel"],
+               "flash_prefill": ["flash_prefill_wgmma_kernel",
+                                 "flash_prefill_f32_kernel"]}
     kernels = []
     for key, (name, src, replaces) in sources.items():
         r = main[key]
@@ -5650,6 +5718,7 @@ def main(argv=None) -> int:
             kernels[-1].update({k: r[k] for k in ("graph_ms",
                                                   "library_graph_ms")
                                 if k in r})
+        kernels[-1]["kernel_symbols"] = symbols[name]
         if name in mesh_launches:
             kernels[-1]["mesh_launches"] = mesh_launches[name]
             kernels[-1]["mesh_ext_launches"] = ext_launches[name]

@@ -88,28 +88,6 @@ namespace {
 
 using paged_attn::smem_addr;
 
-constexpr int MAX_DEVICES = 64;
-
-// Raise kern's dynamic shared-memory limit to `bytes` (and prefer the
-// largest carve-out) on the current device, once: ready[] is the calling
-// instantiation's own flag per device.
-template <typename Kern>
-int allow_smem_once(Kern kern, size_t bytes, bool* ready) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < MAX_DEVICES && ready[dev]) return 0;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < MAX_DEVICES) ready[dev] = true;
-  return 0;
-}
-
 // ---------------------------------------------------------------------
 // float32: CUDA cores.
 // ---------------------------------------------------------------------
@@ -353,8 +331,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   if (static_cast<size_t>(smem_arg) != smem)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_prefill_f32_kernel<DPT>;
-  static bool ready[MAX_DEVICES] = {};
-  if (int e = allow_smem_once(kern, smem_bytes(16 * DPT, DPT), ready))
+  static int allowed[hopper::MAX_DEVICES] = {};
+  if (int e = hopper::allow_smem(kern, smem_bytes(16 * DPT, DPT), allowed))
     return e;
   const dim3 grid((S + TQ - 1) / TQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
@@ -424,56 +402,6 @@ __device__ __forceinline__ int block_item(int r, int n_items) {
   const int j = static_cast<int>(blockIdx.x);
   const int i = r * G + ((r & 1) ? G - 1 - j : j);
   return i < n_items ? i : -1;
-}
-
-// S = Q K^T of one tile, issued (not committed): DMAX / 16 k16 steps of
-// wgmma from the q and K boxes (32 bytes a step inside a box), the first
-// writing s afresh. Steps past D multiply TMA's zero fill: skipping them
-// on a runtime D would make the compiler serialize the wgmmas.
-template <int DMAX, int BN>
-__device__ __forceinline__ void issue_qk(float (&s)[BN / 8][4],
-                                         uint64_t q_desc, uint64_t k_desc) {
-  hopper::wgmma_ss_init<BN>(s, q_desc, k_desc);
-#pragma unroll
-  for (int kk = 1; kk < DMAX / 16; ++kk) {
-    const uint32_t qo = ((kk / 4) * BM * BOX_BYTES_ROW + (kk % 4) * 32) >> 4;
-    const uint32_t ko = ((kk / 4) * BN * BOX_BYTES_ROW + (kk % 4) * 32) >> 4;
-    hopper::wgmma_ss<BN>(s, q_desc + qo, k_desc + ko);
-  }
-}
-
-// O += P_hi V, then O += P_lo V, issued (not committed): a k16 step is 16
-// V rows (2,048 bytes) further.
-template <int DMAX, int BN>
-__device__ __forceinline__ void issue_pv(float (&o)[DMAX / 8][4],
-                                         const uint32_t (&ph)[BN / 16][4],
-                                         const uint32_t (&pl)[BN / 16][4],
-                                         uint64_t v_desc) {
-#pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc)
-    hopper::wgmma_rs<DMAX>(o, ph[kc],
-                           v_desc + ((kc * 16 * BOX_BYTES_ROW) >> 4));
-#pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc)
-    hopper::wgmma_rs<DMAX>(o, pl[kc],
-                           v_desc + ((kc * 16 * BOX_BYTES_ROW) >> 4));
-}
-
-// The float32 probabilities of a score tile as bf16 hi + lo A fragments:
-// k16 chunk kc from the n8 chunks 2 kc and 2 kc + 1 (m16n8k16's A).
-template <int KV>
-__device__ __forceinline__ void split_probs(const float (&s)[2 * KV][4],
-                                            uint32_t (&ph)[KV][4],
-                                            uint32_t (&pl)[KV][4]) {
-#pragma unroll
-  for (int kc = 0; kc < KV; ++kc) {
-    paged_attn::split_pair(s[2 * kc][0], s[2 * kc][1], ph[kc][0], pl[kc][0]);
-    paged_attn::split_pair(s[2 * kc][2], s[2 * kc][3], ph[kc][1], pl[kc][1]);
-    paged_attn::split_pair(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[kc][2],
-                           pl[kc][2]);
-    paged_attn::split_pair(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[kc][3],
-                           pl[kc][3]);
-  }
 }
 
 // One block an SM (384 threads): warpgroup 0 is the producer, one thread
@@ -673,14 +601,15 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         };
         // p as the A fragments of the next P V.
         auto stage_probs = [&] {
-          split_probs<KV>(sacc[0], ph, pl);
+          paged_attn::split_probs<KV>(sacc[0], ph, pl);
           hopper::fence_regs(ph);
           hopper::fence_regs(pl);
           hopper::fence_regs(oacc[0]);
         };
         hopper::mbar_wait(k_full + 8 * stage, phase);
         hopper::wgmma_fence();
-        issue_qk<DMAX, BN>(sacc[0], q_desc, k_desc + stage * SLOT);
+        hopper::issue_qk<DMAX, BN, BM>(sacc[0], q_desc,
+                                       k_desc + stage * SLOT);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         softmax_step(lo);  // the output is still 0: no rescale
@@ -692,9 +621,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           hopper::mbar_wait(k_full + 8 * stage, phase);
           hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
             hopper::wgmma_fence();
-          issue_qk<DMAX, BN>(sacc[0], q_desc, k_desc + stage * SLOT);
+          hopper::issue_qk<DMAX, BN, BM>(sacc[0], q_desc,
+                                       k_desc + stage * SLOT);
           hopper::wgmma_commit();
-          issue_pv<DMAX, BN>(oacc[0], ph, pl, v_desc + p_stage * SLOT);
+          hopper::issue_pv<DMAX, BN>(oacc[0], ph, pl,
+                                     v_desc + p_stage * SLOT);
           hopper::wgmma_commit();
             hopper::wgmma_wait<1>();
           const bool moved = softmax_step(t);
@@ -709,7 +640,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         }
         hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
         hopper::wgmma_fence();
-        issue_pv<DMAX, BN>(oacc[0], ph, pl, v_desc + p_stage * SLOT);
+        hopper::issue_pv<DMAX, BN>(oacc[0], ph, pl,
+                                   v_desc + p_stage * SLOT);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(oacc[0]);
@@ -757,8 +689,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (int e = hopper::encode_rows_map(&tk, k, D, K, S, B, BN)) return e;
   if (int e = hopper::encode_rows_map(&tv, v, D, K, S, B, BN)) return e;
   auto kern = flash_prefill_wgmma_kernel<DMAX, BN, STAGES>;
-  static bool ready[MAX_DEVICES] = {};
-  if (int e = allow_smem_once(kern, L::SMEM, ready)) return e;
+  static int allowed[hopper::MAX_DEVICES] = {};
+  if (int e = hopper::allow_smem(kern, L::SMEM, allowed)) return e;
   kern<<<blocks, WS_THREADS, L::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, D, window, scale,
       static_cast<int>(n_items));

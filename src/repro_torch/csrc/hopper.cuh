@@ -1,14 +1,17 @@
 // Hopper (sm_90a) building blocks of the port's kernels, written in PTX:
-// tensor maps and TMA loads (cp.async.bulk.tensor), mbarriers, wgmma with
+// tensor maps and TMA loads (cp.async.bulk.tensor), a cache of encoded
+// maps, mbarriers, the async-proxy fence and named barriers, wgmma with
 // shared-memory descriptors (128-byte swizzle) and register-A operands,
-// and setmaxnreg. The flash-prefill kernel runs on them; the paged
-// prefill-chunk kernel's inner loop can run on the same pieces.
+// the S = Q K^T and O += P V steps of the attention kernels built on
+// them, and setmaxnreg. The flash-prefill and paged prefill-chunk kernels
+// run on all of them; the paged decode kernel on the maps and barriers.
 //
 // Shared-memory tiles are the layout a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B writes: boxes of 64 bf16 columns (128 bytes
-// a row), rows 128 bytes apart, the 16-byte chunks of row r XOR-ed with
-// r % 8; every box starts on 1,024 bytes. A descriptor (smem_desc) names
-// such a tile to wgmma:
+// CU_TENSOR_MAP_SWIZZLE_128B writes: boxes of 128 bytes a row (64 bf16 or
+// 32 float32 columns), rows 128 bytes apart, the 16-byte chunks of row r
+// XOR-ed with r % 8 (swz128 gives an element's address); every box starts
+// on 1,024 bytes. A descriptor (smem_desc) names such a bf16 tile to
+// wgmma:
 // - K-major (the reduction dimension contiguous: q and K for S = Q K^T):
 //   8-row groups 1,024 bytes apart (SBO); a k16 step inside a box moves
 //   the start by 32 bytes, the next box by its size.
@@ -28,6 +31,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
 
 namespace hopper {
 
@@ -60,26 +65,115 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Map of a contiguous bf16 tensor [d3][d2][d1][d0] (d0 innermost) whose
-// boxes are {64, 1, rows, 1}: 64 columns of one (d1) slice over `rows`
+// Map of a contiguous tensor [d3][d2][d1][d0] (d0 innermost) of bf16
+// (elem_bytes 2) or float32 (4) whose boxes are {128 / elem_bytes, 1,
+// rows, 1}: 128 bytes of columns of one (d1) slice over `rows`
 // consecutive d2 indices, written to shared memory with the 128-byte
 // swizzle. Reads outside the tensor (past d0 or d2) fill zeros. Returns 0
 // or a CUDA error code.
 inline int encode_rows_map(CUtensorMap* map, const void* base, uint64_t d0,
                            uint64_t d1, uint64_t d2, uint64_t d3,
-                           uint32_t rows) {
+                           uint32_t rows, uint32_t elem_bytes = 2) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (elem_bytes != 2 && elem_bytes != 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
-  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
-  const cuuint32_t box[4] = {64, 1, rows, 1};
+  const cuuint64_t strides[3] = {d0 * elem_bytes, d0 * d1 * elem_bytes,
+                                 d0 * d1 * d2 * elem_bytes};
+  const cuuint32_t box[4] = {128 / elem_bytes, 1, rows, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(base), dims, strides, box, one,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// encode_rows_map through a cache of the last MAP_CACHE maps, keyed on
+// every argument: the paged kernels' pools never move, so a served step
+// pays no encode (a few microseconds of host time a map) after its first.
+// Safe to call from several host threads.
+constexpr int MAP_CACHE = 64;
+
+inline int cached_rows_map(CUtensorMap* map, const void* base, uint64_t d0,
+                           uint64_t d1, uint64_t d2, uint64_t d3,
+                           uint32_t rows, uint32_t elem_bytes = 2) {
+  struct Entry {
+    const void* base;
+    uint64_t d[4];
+    uint32_t rows, elem_bytes;
+    CUtensorMap map;
+  };
+  static Entry cache[MAP_CACHE];
+  static int filled = 0, next = 0;
+  static std::mutex mu;
+  const Entry key{base, {d0, d1, d2, d3}, rows, elem_bytes, {}};
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < filled; ++i) {
+    const Entry& e = cache[i];
+    if (e.base == key.base && e.rows == key.rows &&
+        e.elem_bytes == key.elem_bytes &&
+        std::memcmp(e.d, key.d, sizeof(key.d)) == 0) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  if (int err = encode_rows_map(map, base, d0, d1, d2, d3, rows, elem_bytes))
+    return err;
+  cache[next] = key;
+  cache[next].map = *map;
+  next = (next + 1) % MAP_CACHE;
+  if (filled < MAP_CACHE) ++filled;
+  return 0;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Raise kern's dynamic shared-memory limit on the current device to at
+// least `bytes` (and prefer the largest carve-out): allowed[] is the
+// calling instantiation's own record of the limit set on each device, so
+// the attribute is set only when a launch needs more.
+template <typename Kern>
+int allow_smem(Kern kern, size_t bytes, int* allowed) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < MAX_DEVICES && allowed[dev] >= static_cast<int>(bytes)) return 0;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < MAX_DEVICES) allowed[dev] = static_cast<int>(bytes);
+  return 0;
+}
+
+// The most dynamic shared memory a block may ask for on the current
+// device (0 if the query fails), read once a device.
+inline int max_smem_optin() {
+  static int known[MAX_DEVICES] = {};
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < MAX_DEVICES && known[dev]) return known[dev];
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  if (dev < MAX_DEVICES) known[dev] = v;
+  return v;
+}
+
+// Shared-memory address of byte `col` of row `row` in a tile of 128-byte
+// swizzled boxes of `box_rows` rows each, starting at `tile`.
+__device__ __forceinline__ uint32_t swz128(uint32_t tile, int box_rows,
+                                           int row, int col) {
+  return tile + (col >> 7) * box_rows * 128 + row * 128 +
+         ((((col >> 4) & 7) ^ (row & 7)) << 4) + (col & 15);
 }
 
 // ---------------------------------------------------------------------
@@ -142,6 +236,18 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (wgmma operand reads, TMA writes of a reused slot).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads, whole
+// warps.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -380,5 +486,38 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[32][4],
 
 #undef HK_D4
 #undef HK_O4
+
+// S = Q K^T of one tile of BN keys, issued (not committed): DMAX / 16 k16
+// steps of wgmma from the q boxes (QROWS rows each) and the K boxes (BN
+// rows each), 32 bytes a step inside a box, the first step writing s
+// afresh. Steps past the data's D multiply TMA's (or the caller's) zero
+// fill: skipping them on a runtime D would make the compiler serialize
+// the wgmmas.
+template <int DMAX, int BN, int QROWS>
+__device__ __forceinline__ void issue_qk(float (&s)[BN / 8][4],
+                                         uint64_t q_desc, uint64_t k_desc) {
+  wgmma_ss_init<BN>(s, q_desc, k_desc);
+#pragma unroll
+  for (int kk = 1; kk < DMAX / 16; ++kk) {
+    const uint32_t qo = ((kk / 4) * QROWS * 128 + (kk % 4) * 32) >> 4;
+    const uint32_t ko = ((kk / 4) * BN * 128 + (kk % 4) * 32) >> 4;
+    wgmma_ss<BN>(s, q_desc + qo, k_desc + ko);
+  }
+}
+
+// O += P_hi V, then O += P_lo V, issued (not committed): a k16 step is 16
+// V rows (2,048 bytes) further.
+template <int DMAX, int BN>
+__device__ __forceinline__ void issue_pv(float (&o)[DMAX / 8][4],
+                                         const uint32_t (&ph)[BN / 16][4],
+                                         const uint32_t (&pl)[BN / 16][4],
+                                         uint64_t v_desc) {
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc)
+    wgmma_rs<DMAX>(o, ph[kc], v_desc + ((kc * 16 * 128) >> 4));
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc)
+    wgmma_rs<DMAX>(o, pl[kc], v_desc + ((kc * 16 * 128) >> 4));
+}
 
 }  // namespace hopper

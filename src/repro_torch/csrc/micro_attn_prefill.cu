@@ -9,79 +9,60 @@
 // the last valid slot is partial (tail_len tokens). Output: unnormalized
 // o [C, H, D] and m, l [C, H], float32; an empty table gives (0, -inf, 0).
 //
-// The rank kernels (paged_prefill_ranks_mma_kernel and, float32,
-// paged_prefill_ranks_f32_kernel, below) replace the JAX package's vmap
-// of that kernel over the global pool's rank axis: one launch covers NR
-// rank pools, [NB, bs, K, D] slabs rank_stride elements apart (a
-// per-layer view of the global pool, read in place); q [C, H, D] is
-// shared by every rank, tables [NR, MB], tails [NR]. Outputs: stacked,
-// one partial a rank [NR, C, ...], or merged over the ranks in the launch
-// [C, ...] (what the global pool's steps take). Bound by operations as
-// above, but the prefix is spread unevenly over the ranks (qwen2-moe's
-// global chunk: 32 / 160 / 27 blocks), so a (kv head, row tile, rank)
-// grid with splits planned from shapes left 64 blocks walking 2,560
-// tokens while the card idled. The rank design is the decode rank
-// kernel's (paged_attn.cuh): persistent blocks (as many as the card
-// holds at once) take equal shares of every group's 64-token tiles of
-// valid prefix, found from the tables on the card; a block loads its q
-// tile once a run of one group's tiles and walks them across ranks, the
-// pool rows resolved two tiles ahead from the tables (so 128-token blocks
-// are read in place, without the single-rank wrapper's sub-block
-// tables); the last partial of a group to arrive LSE-merges them (the
-// rank merge folded into the launch). The tile step is the one below:
-// bf16 on mma.sync with the hi + lo contract, float32 on the CUDA cores.
-// At the main shape the balanced walk is 14 tiles a block; what bounds
-// it then is the mma.sync tile step's issue rate (see PERF.md).
-//
 // Bound on the H100: the larger of the FLOPs, 4 * C * S * H * D against
 // 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (float32), and the
 // bytes, S * K * D * 2 * itemsize against 3.35 TB/s. At the qwen3 path's
 // main shape (C=512, H=16, K=8, D=128, S~3,000, bf16) that is 12.6 GFLOP
 // against 12 MB of K/V: 0.0127 ms, bound by operations. Only the tensor
-// cores approach it.
+// cores approach it, and only through wgmma at their full rate. The
+// precision contract below runs P V twice (hi and lo), so the products
+// executed are 1.5 times the bound's (0.019 ms there).
 //
-// bf16 pools: tensor cores (mma.sync), FlashAttention-2 register layout.
-// - Grid (K, ceil(C*G / BM), NR * nsplit), 4 warps (128 threads) a block.
-//   GQA packing as the Pallas kernel: the C*G rows (query, head of the kv
-//   head's group), kv-head-major, so a block's rows share one kv head and
-//   each K/V tile is staged once for all G heads. The wrapper
-//   (prefill_plan) chooses BM, the split and the shared memory and passes
-//   them in; the C entry checks them. Up to D = 128 a warp
-//   owns two m16 tiles (32 rows, BM = 128), so every K/V fragment feeds
-//   two independent products; at D = 256 one (BM = 64), whose
-//   accumulators fill the registers alone. At the main shape 8 x 8 = 64
-//   work items would leave most SMs idle, so the wrapper splits the
-//   prefix's slot range (kernels/micro_attn_decode.py::plan_splits, from
-//   shapes alone) into nsplit = 4 runs of whole slots: 256 blocks, 2 per
-//   SM (105 KB of shared memory each at D = 128; 170 KB, one per SM, at
-//   D = 256), merged in the same launch by the last split's block
-//   (paged_attn.cuh).
-// - The block copies its split's table slots to shared memory once and
-//   resolves each tile's pool rows (table[t / bs] * bs + t % bs, for any
-//   bs <= 64, whether or not bs divides the tile) two tiles ahead. K/V
-//   tiles of 64 tokens go to shared memory through cp.async.cg (16 bytes
-//   a copy) in a ring of 2 stages: tile i+1's loads are in flight while
-//   tile i's MMAs run. Tokens past the split's valid part and -1 slots
-//   are zero-filled (cp.async with src-size 0, no read) and their scores
-//   masked to -inf (only tiles holding such tokens look). Rows are D + 8
-//   elements apart (ldmatrix without bank conflicts); for D % 16 == 8 the
-//   reduction is zero-padded to 16 in shared memory.
-// - S = Q K^T with mma.sync.m16n8k16 bf16 -> fp32, A and B by ldmatrix;
-//   the online softmax runs on the S accumulator fragment in float32
-//   (exp2 of one fma; the accumulators are rescaled only when a row's max
-//   moved), and the probabilities become the A operand of P V in
-//   registers (no trip through shared memory); V by ldmatrix.trans. This
-//   tile step is paged_attn.cuh's (qk_tile, softmax_tile, pv_tile), shared
-//   with the flash-prefill kernel; this kernel adds the paged loads and
-//   the mask of invalid tokens.
-// - Why mma.sync and not wgmma: the FlashAttention-2 layout passes P from
-//   the S accumulator to the next product inside each warp's registers,
-//   which mma.sync does with warp-sized tiles and no warpgroup
-//   synchronization; at this size (12.6 GFLOP, about a tenth of a
-//   millisecond) its rate meets the goal of this redesign. wgmma and TMA
-//   are a later step.
-// - Registers: 255 at D = 128 (two 16 x 128 float32 accumulators and two
-//   16 x 64 score tiles a warp); ptxas reports the spills of each build.
+// bf16 pools: paged_prefill_wgmma_kernel, built for Hopper.
+// - Rows: GQA packing as the Pallas kernel, the C*G rows (query, head of
+//   the kv head's group) kv-head-major, so a tile of 128 rows shares one
+//   kv head and each K/V tile is staged once for all G heads.
+// - Work: persistent blocks, at most one an SM, take equal shares of
+//   units (one row tile of one kv head crossed with one tile of the valid
+//   prefix: 128 tokens, 64 at D 256), planned on the card from the table
+//   (paged_attn.cuh's plan_units at NR = 1, no host read); a block
+//   stores one partial a run of one row tile's units, and the last
+//   partial of a row tile to arrive LSE-merges them (merge_parts, a
+//   ticket counter a row tile). One launch a
+//   call; no split planned from shapes. The wrapper launches a multiple
+//   or a divisor of the row tiles in blocks (128 at the main shape: two
+//   a row tile), so that a block's share starts and ends on a row tile's
+//   boundary.
+// - Warp specialisation: warpgroup 0 is the producer (setmaxnreg down to
+//   40 registers; its first warp issues the loads), warpgroups 1 and 2
+//   the consumers (232 registers), 64 rows each.
+// - Loads: TMA over 4-D tensor maps of the pools [NB][bs][K][D]
+//   (hopper.cuh, encoded once a pool: cached_rows_map), one box a table
+//   block's share of a tile: 64 columns of one kv head by gcd(bs, tile)
+//   tokens (16 at bs 16; a 128-token block is one box; 8 at bs 24),
+//   128-byte swizzle, lane b of the producer warp issuing box b. Only the
+//   valid tokens' boxes load. The ring holds 4 (D <= 64) or 3 (D <= 128)
+//   tiles of 128 tokens, or 2 of 64 (D <= 256), of K and V, with mbarrier
+//   full (TMA bytes) and empty (256 consumers) stages. TMA's zero fill
+//   past D replaces padding code.
+// - A consumer's q rows are (query, head) pairs, not a box of q: it
+//   stages them once a run of units by 16-byte loads into the swizzled
+//   layout (zero past the chunk and past D).
+// - Tile step (flash_prefill.cu's, on hopper.cuh's pieces): S = Q K^T by
+//   wgmma from shared memory (q and K K-major); the online softmax in
+//   float32 on the accumulator (paged_attn::softmax_scores); p split into
+//   bf16 hi + lo straight into the register-A fragments of O += P_hi V +
+//   P_lo V (V read transposed, MN-major). Software-pipelined: tile t's S
+//   is issued before tile t - 1's P V.
+// - Masking: in the last tile of a run, tokens past the valid ones score
+//   -inf by a select, and their V rows (stale rows of the last block, or
+//   never loaded) are zeroed in shared memory (generic stores, then
+//   fence.proxy.async) before the P V that reads them: 0 * NaN is NaN
+//   inside wgmma.
+// - ptxas serializes wgmmas in a loop it takes for divergent: the loop
+//   bounds read from the plan are broadcast from lane 0
+//   (paged_attn::uniform), the first tile is peeled off, every k16 step
+//   runs.
 //
 // Precision contract (bf16 pools). The Pallas kernel upcasts to float32
 // and accumulates in float32; the kernel is held to 1e-4 against that
@@ -89,13 +70,32 @@
 // only the order of the fp32 sums differs. (2) P V: p is float32;
 // rounding it to bf16 once (2^-8 relative per term) would exceed 1e-4 at
 // the main shape, so p is split into hi = bf16(p) and lo = bf16(p - hi),
-// and two MMAs against the same bf16 V tile give at most 2^-16 relative
-// per term (1.5x the useful tensor-core work). (3) l is summed in float32
-// from the float32 p, never from hi + lo. (4) m, the rescaling and the
-// split merge are float32 on the CUDA cores.
+// and two products against the same bf16 V tile give at most 2^-16
+// relative per term. (3) l is summed in float32 from the float32 p,
+// never from hi + lo. (4) m, the rescaling and the merge are float32 on
+// the CUDA cores.
 //
-// float32 pools keep the CUDA-core kernel (float32 FMAs, one block of 256
-// threads per (kv head, 64 rows), 4 x 4 register tiles, no split).
+// float32 pools keep the CUDA-core kernel (paged_prefill_kernel: float32
+// FMAs, one block of 256 threads per (kv head, 64 rows), 4 x 4 register
+// tiles, blocks of at most 64 tokens: the wrapper reads larger ones as
+// sub-blocks).
+//
+// The rank kernels (paged_prefill_ranks_mma_kernel and, float32,
+// paged_prefill_ranks_f32_kernel, below) replace the JAX package's vmap
+// of that kernel over the global pool's rank axis: one launch covers NR
+// rank pools, [NB, bs, K, D] slabs rank_stride elements apart (a
+// per-layer view of the global pool, read in place); q [C, H, D] is
+// shared by every rank, tables [NR, MB], tails [NR]. Outputs: stacked,
+// one partial a rank [NR, C, ...], or merged over the ranks in the launch
+// [C, ...] (what the global pool's steps take). Their design (PR 24's):
+// persistent blocks (as many as the card holds at once) take equal shares
+// of every group's 64-token tiles of valid prefix, found from the tables
+// on the card; a block loads its q tile once a run of one group's tiles
+// and walks them across ranks, the pool rows resolved two tiles ahead
+// from the tables (128-token blocks read in place); the last partial of a
+// group to arrive LSE-merges them. Their tile step: bf16 on mma.sync with
+// the hi + lo contract, float32 on the CUDA cores.
+#include "hopper.cuh"
 #include "paged_attn.cuh"
 
 namespace {
@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(THREADS)
                          const int* __restrict__ tail, float* __restrict__ o,
                          float* __restrict__ m_out, float* __restrict__ l_out,
                          int C, int H, int K, int D, int bs, int MB,
-                         long long rank_stride, float scale) {
+                         float scale) {
   constexpr int VEC = Vec<T>::N;
   constexpr int DP = 16 * DPT;
   extern __shared__ float smem[];
@@ -177,15 +177,6 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int tx = tid & 15;         // token / column group
   const int ty = tid >> 4;         // row group: rows ty*4 .. ty*4+3
-  const int rank = blockIdx.z;     // the block's rank pool
-  const size_t rank_rows = static_cast<size_t>(rank) * C * H;
-  pool_k += rank * rank_stride;
-  pool_v += rank * rank_stride;
-  table += static_cast<size_t>(rank) * MB;
-  tail += rank;
-  o += rank_rows * D;
-  m_out += rank_rows;
-  l_out += rank_rows;
 
   const int S = paged_attn::valid_tokens(table, MB, bs, tail[0]);
 
@@ -348,270 +339,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---------------------------------------------------------------------
-// bf16 pools: tensor cores.
-// ---------------------------------------------------------------------
-constexpr int MW = 4;            // warps a block
-constexpr int BN = paged_attn::MMA_TOKENS;  // KV tokens a tile
-constexpr int STAGES = 2;        // cp.async ring depth of K/V tiles
-constexpr int ROW_RING = 3;      // tiles whose pool rows are resolved
-
-// q (BM rows) and the K/V ring (bf16), the resolved pool rows of
-// ROW_RING tiles, their "every token valid" flags, and the split's slice
-// of the table (int32).
-inline size_t mma_smem_bytes(int D, int BM, int slots) {
-  return static_cast<size_t>(BM + 2 * STAGES * BN) * row_stride(D) * 2 +
-         sizeof(int) * (ROW_RING * BN + 2 * ROW_RING + slots);
-}
-
-// DMAX: the largest head dim of the instantiation (64, 128 or 256); the
-// register arrays are sized for it and loops stop at the runtime D. MT:
-// m16 tiles of query rows a warp owns, so BM = 16 * MT * MW rows a block
-// (the caller's rows_per_block).
-template <int DMAX, int MT>
-__global__ void __launch_bounds__(MW * 32)
-    paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ pool_k,
-                             const __nv_bfloat16* __restrict__ pool_v,
-                             const int* __restrict__ table,
-                             const int* __restrict__ tail,
-                             float* __restrict__ o, float* __restrict__ m_out,
-                             float* __restrict__ l_out,
-                             float* __restrict__ ws,
-                             unsigned* __restrict__ tickets, int C, int H,
-                             int K, int D, int bs, int bs_shift, int MB,
-                             int nsplit, int slots_per_split,
-                             long long rank_stride, float scale) {
-  constexpr int BM = 16 * MT * MW;  // query rows a block
-  constexpr int NT = DMAX / 8;      // n8 tiles of the output columns
-  constexpr int KC = DMAX / 16;     // k16 chunks of the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int DS = row_stride(D);
-  const int DP = DS - 8;
-  const int nrows_s = BM + 2 * STAGES * BN;
-  __nv_bfloat16* q_s = sm;                      // [BM][DS]
-  __nv_bfloat16* k_s = sm + BM * DS;            // [STAGES][BN][DS]
-  __nv_bfloat16* v_s = k_s + STAGES * BN * DS;  // [STAGES][BN][DS]
-  int* rows_s = reinterpret_cast<int*>(sm + nrows_s * DS);  // [RING][BN]
-  int* full_s = rows_s + ROW_RING * BN;         // [RING][2]
-  int* tab_s = full_s + 2 * ROW_RING;           // the split's table slots
-
-  const int kh = blockIdx.x;
-  const int G = H / K;
-  const int CG = C * G;
-  const int row0 = blockIdx.y * BM;
-  const int nrows = min(BM, CG - row0);
-  const int rank = blockIdx.z / nsplit;
-  const int split = blockIdx.z - rank * nsplit;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nch = D / 8;  // 16-byte chunks in a row (D % 8 == 0)
-  // The block's rank: its pool slab, table, tail and outputs.
-  const size_t rank_rows = static_cast<size_t>(rank) * C * H;
-  pool_k += rank * rank_stride;
-  pool_v += rank * rank_stride;
-  table += static_cast<size_t>(rank) * MB;
-  tail += rank;
-  o += rank_rows * D;
-  m_out += rank_rows;
-  l_out += rank_rows;
-
-  // Zero the padded reduction columns [D, DP) once; cp.async never
-  // writes them.
-  if (DP > D) {
-    const int w = DP - D;
-    for (int idx = tid; idx < nrows_s * w; idx += blockDim.x)
-      sm[(idx / w) * DS + D + idx % w] = __float2bfloat16_rn(0.f);
-  }
-
-  // q rows of the tile (zero past nrows).
-  for (int idx = tid; idx < BM * nch; idx += blockDim.x) {
-    const int r = idx / nch, ch = idx - r * nch, gr = row0 + r;
-    const __nv_bfloat16* src = q;
-    int bytes = 0;
-    if (r < nrows) {
-      const size_t head = static_cast<size_t>(gr / G) * H + kh * G + gr % G;
-      src = q + head * D + ch * 8;
-      bytes = 16;
-    }
-    cp_async16(smem_addr(q_s + r * DS + ch * 8), src, bytes);
-  }
-
-  // The split's table slots, to shared memory; its valid tokens are
-  // [t_lo, t_hi).
-  const int s0 = split * slots_per_split;
-  const int ns = max(0, min(MB, s0 + slots_per_split) - s0);
-  const int t_lo = s0 * bs;
-  const int t_hi = t_lo + paged_attn::load_split_slots(table, MB, s0, ns, bs,
-                                                       tail[0], tab_s);
-  const int ntiles = t_hi > t_lo ? (t_hi - t_lo + BN - 1) / BN : 0;
-  const size_t tok_stride = static_cast<size_t>(K) * D;
-
-  // Pool row (block * bs + offset) of every token of tile `it`, or -1 past
-  // the valid tokens and for -1 slots: one thread a token (warps 0, 1),
-  // and whether every token of the tile is valid.
-  auto resolve_rows = [&](int it) {
-    if (tid < BN) {
-      const int t = t_lo + it * BN + tid;
-      int row = -1;
-      if (t < t_hi) {
-        const int sl = bs_shift >= 0 ? t >> bs_shift : t / bs;
-        const int blk = tab_s[sl - s0];
-        if (blk >= 0) row = blk * bs + (t - sl * bs);
-      }
-      rows_s[(it % ROW_RING) * BN + tid] = row;
-      const bool all = __all_sync(0xffffffffu, row >= 0);
-      if (lane == 0) full_s[(it % ROW_RING) * 2 + warp] = all;
-    }
-  };
-  // Stage K/V tile `it` into ring slot it % STAGES: a thread keeps one
-  // 16-byte column chunk and walks the tile's tokens; a token whose row
-  // is -1 is zero-filled and never read.
-  const int rpp = blockDim.x / nch;  // tokens a pass
-  const int my_ch = tid % nch, my_tok = tid / nch;
-  auto load_tile = [&](int it) {
-    if (my_tok >= rpp) return;
-    const int st = it % STAGES;
-    const int* rows = rows_s + (it % ROW_RING) * BN;
-    const uint32_t kd = smem_addr(k_s + st * BN * DS + my_ch * 8);
-    const uint32_t vd = smem_addr(v_s + st * BN * DS + my_ch * 8);
-    const size_t col = static_cast<size_t>(kh) * D + my_ch * 8;
-    for (int tok = my_tok; tok < BN; tok += rpp) {
-      const int row = rows[tok];
-      const size_t off = row >= 0 ? row * tok_stride + col : 0;
-      const int bytes = row >= 0 ? 16 : 0;
-      cp_async16(kd + 2 * tok * DS, pool_k + off, bytes);
-      cp_async16(vd + 2 * tok * DS, pool_v + off, bytes);
-    }
-  };
-
-  resolve_rows(0);
-  resolve_rows(1);
-  __syncthreads();
-  if (ntiles > 0) load_tile(0);
-  cp_async_commit();  // group 0: q and the first tile
-
-  float oacc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      oacc[mt][j][0] = oacc[mt][j][1] = oacc[mt][j][2] = oacc[mt][j][3] = 0.f;
-  // Per m16 tile, rows lane/4 and lane/4 + 8: the running max of the raw
-  // scores (q . k, before the scale) and this thread's share of l.
-  float m_r[MT][2], l_r[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    m_r[mt][0] = m_r[mt][1] = -CUDART_INF_F;
-    l_r[mt][0] = l_r[mt][1] = 0.f;
-  }
-  const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
-
-  const int wrow = warp * 16 * MT;
-  const paged_attn::MmaLanes ln = paged_attn::mma_lanes(lane, wrow, DS);
-  const uint32_t q_base = smem_addr(q_s);
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it % STAGES;
-    if (it + 1 < ntiles) {
-      load_tile(it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if (it + 2 < ntiles) resolve_rows(it + 2);
-    __syncthreads();
-    const uint32_t k_base = smem_addr(k_s + st * BN * DS);
-    const uint32_t v_base = smem_addr(v_s + st * BN * DS);
-    const int* rows = rows_s + (it % ROW_RING) * BN;
-    const bool full = full_s[(it % ROW_RING) * 2] &&
-                      full_s[(it % ROW_RING) * 2 + 1];
-
-    float sacc[MT][8][4];
-    paged_attn::qk_tile<MT, KC>(sacc, q_base, k_base, ln, DS, D);
-    // Tokens past the valid ones score -inf (only a tile with such tokens
-    // reads the row flags).
-    if (!full) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int tk = j * 8 + (lane & 3) * 2;
-        const bool ok0 = rows[tk] >= 0, ok1 = rows[tk + 1] >= 0;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          if (!ok0) sacc[mt][j][0] = sacc[mt][j][2] = -CUDART_INF_F;
-          if (!ok1) sacc[mt][j][1] = sacc[mt][j][3] = -CUDART_INF_F;
-        }
-      }
-    }
-    paged_attn::softmax_tile<MT, NT>(sacc, oacc, m_r, l_r, c);
-    paged_attn::pv_tile<MT, NT>(oacc, sacc, v_base, ln, DS, D);
-    __syncthreads();  // every warp is done with slot st before its reload
-  }
-  cp_async_wait<0>();
-
-  // Scratch [nsplit, NR, C, H, D + 2]: this rank's slice of each split.
-  const int NR = gridDim.z / nsplit;
-  const size_t split_stride = static_cast<size_t>(NR) * C * H * (D + 2);
-  float* ws_r = ws + rank_rows * (D + 2);
-  float* po = o;
-  float* pm = m_out;
-  float* pls = l_out;
-  size_t ostride = D, sstride = 1;
-  if (nsplit > 1) {
-    po = ws_r + split * split_stride;
-    pm = po + D;
-    pls = po + D + 1;
-    ostride = sstride = D + 2;
-  }
-  auto head_of = [&](int r) {  // local row -> output row (query, head)
-    const int gr = row0 + r;
-    return (gr / G) * H + kh * G + gr % G;
-  };
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // The quad's four threads share a row: sum their shares of l.
-      float lr = l_r[mt][h];
-      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      const int r = wrow + mt * 16 + (lane >> 2) + h * 8;
-      if (r >= nrows) continue;
-      const size_t head = static_cast<size_t>(head_of(r));
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = j * 8 + (lane & 3) * 2;
-        if (col < D)
-          *reinterpret_cast<float2*>(po + head * ostride + col) =
-              make_float2(oacc[mt][j][2 * h], oacc[mt][j][2 * h + 1]);
-      }
-      if ((lane & 3) == 0) {
-        pm[head * sstride] = m_r[mt][h] * scale;  // m of the scaled scores
-        pls[head * sstride] = lr;
-      }
-    }
-  }
-  if (nsplit == 1) return;
-  const size_t item =
-      (static_cast<size_t>(rank) * K + kh) * gridDim.y + blockIdx.y;
-  if (paged_attn::last_split_arrives(tickets + item, nsplit))
-    paged_attn::merge_splits(ws_r, split_stride, nsplit, nrows, D, head_of, o,
-                             m_out, l_out, reinterpret_cast<float*>(k_s));
-}
-
-// ---------------------------------------------------------------------
-// Rank forms: persistent blocks over units of valid tokens.
-// ---------------------------------------------------------------------
-// The merge groups of a rank prefill are (kv head, tile of query rows);
-// their units are 64-token tiles of each rank's prefix (paged_attn.cuh).
-// A block walks its segments with the tile step of the kernels above:
-// q tile once a segment, K/V tiles of any rank of the group, the pool
-// rows resolved from the tables two tiles ahead (no table copy, so
-// blocks of any size are read in place), one partial a segment.
-
 // Output row (query, head) of local row i of kv head kh's rows from row0.
 __device__ __forceinline__ int head_row(int row0, int i, int G, int H,
                                         int kh) {
@@ -619,6 +346,10 @@ __device__ __forceinline__ int head_row(int row0, int i, int G, int H,
   return (gr / G) * H + kh * G + gr % G;
 }
 
+// ---------------------------------------------------------------------
+// Shared by the units kernels (the bf16 single-rank kernel, the rank
+// kernels).
+// ---------------------------------------------------------------------
 // The groups of merge row rho with no valid token: (0, -inf, 0), block
 // g % B writing group g. HG = K * row tiles, BM rows a tile.
 __device__ __forceinline__ void write_empty_groups(
@@ -643,6 +374,396 @@ __device__ __forceinline__ void write_empty_groups(
     }
   }
 }
+
+// ---------------------------------------------------------------------
+// bf16 pools: wgmma fed by TMA boxes, warp-specialised, persistent.
+// ---------------------------------------------------------------------
+constexpr int WG_THREADS = 128;
+constexpr int WS_THREADS = 3 * WG_THREADS;  // producer + two consumers
+constexpr int WG_ROWS = 64;                 // query rows a consumer
+constexpr int ROW_TILE = 2 * WG_ROWS;       // rows a merge group
+constexpr int PRODUCER_REGS = 40;           // 128 x 40 + 256 x 232
+constexpr int CONSUMER_REGS = 232;          //   <= 65,536
+constexpr int MERGE_BAR = 1;                // the consumers' barrier;
+                                            // 2 + wg: one consumer's
+
+// Shared memory of the instantiation: each consumer's q rows, then
+// STAGES K tiles, then STAGES V tiles of TILE tokens, each as DMAX / 64
+// boxes of 64 columns (128-byte swizzle); the merge's row weights (in the
+// q rows, which are free while a run's partials merge, where they fit);
+// the plan (S[1], cum[2]); the barriers. 1,024 bytes of slack align the
+// tiles.
+template <int DMAX, int TILE, int STAGES_>
+struct PfLayout {
+  static constexpr int BOXES = DMAX / 64;
+  static constexpr int Q_BYTES = WG_ROWS * DMAX * 2;  // one consumer's q
+  static constexpr int TILE_BYTES = TILE * DMAX * 2;  // a K or V tile
+  static constexpr int MERGE_BYTES =
+      ROW_TILE * (paged_attn::MERGE_CHUNK + 1) * 4;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES_ * TILE_BYTES;
+  static constexpr bool MERGE_IN_Q = 2 * Q_BYTES >= MERGE_BYTES;
+  static constexpr int MERGE_OFF =
+      MERGE_IN_Q ? 0 : V_OFF + STAGES_ * TILE_BYTES;
+  static constexpr int PLAN_OFF =
+      V_OFF + STAGES_ * TILE_BYTES + (MERGE_IN_Q ? 0 : MERGE_BYTES);
+  static constexpr int BAR_OFF = PLAN_OFF + 16;
+  // K full, V full and K/V empty a stage.
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * 3 * STAGES_;
+};
+
+// One block an SM (384 threads): warpgroup 0's first warp is the
+// producer, whose lane b issues box b of each tile; warpgroups 1 and 2
+// are consumers of 64 query rows each (see the header). The maps read
+// the pools in boxes of 64 columns of one kv head by box_rows tokens of
+// one table block.
+template <int DMAX, int TILE, int STAGES_>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __nv_bfloat16* __restrict__ q,
+                               const int* __restrict__ table,
+                               const int* __restrict__ tail,
+                               float* __restrict__ o,
+                               float* __restrict__ m_out,
+                               float* __restrict__ l_out,
+                               float* __restrict__ ws,
+                               unsigned* __restrict__ tickets, int C, int H,
+                               int K, int D, int bs, int MB, int box_rows,
+                               float scale) {
+  using L = PfLayout<DMAX, TILE, STAGES_>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + L::K_OFF;
+  const uint32_t v_s = base + L::V_OFF;
+  float* merge_sm = reinterpret_cast<float*>(gbase + L::MERGE_OFF);
+  int* plan_s = reinterpret_cast<int*>(gbase + L::PLAN_OFF);
+  const uint32_t k_full = base + L::BAR_OFF;          // + 8 * stage
+  const uint32_t v_full = k_full + 8 * STAGES_;       // + 8 * stage
+  const uint32_t kv_empty = v_full + 8 * STAGES_;     // + 8 * stage
+  constexpr uint32_t CONSUMERS = 2 * WG_THREADS;
+  const int ncb = (D + 63) / 64;  // column boxes holding data
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES_; ++s) {
+      hopper::mbar_init(k_full + 8 * s, 1);
+      hopper::mbar_init(v_full + 8 * s, 1);
+      hopper::mbar_init(kv_empty + 8 * s, CONSUMERS);
+    }
+    hopper::mbar_init_fence();
+  }
+  // Column boxes past the data (D 136..192 at DMAX 256) are never loaded:
+  // zero them once, since every k16 step of S reads them.
+  if (ncb < L::BOXES) {
+    const int chunks = (L::BOXES - ncb) * TILE * 8;  // 16 bytes each
+    for (int idx = threadIdx.x; idx < 2 * STAGES_ * chunks;
+         idx += blockDim.x) {
+      const int t = idx / chunks, j = idx - t * chunks;
+      *reinterpret_cast<uint4*>(gbase + L::K_OFF + t * L::TILE_BYTES +
+                                ncb * TILE * 128 + j * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    hopper::fence_proxy_async();
+  }
+  const int G = H / K;
+  const int CG = C * G;
+  const int nrt = (CG + ROW_TILE - 1) / ROW_TILE;  // row tiles a kv head
+  // plan_units' first __syncthreads also publishes the barriers and the
+  // zeroed boxes.
+  const paged_attn::UnitPlan pl = paged_attn::plan_units(
+      table, tail, 1, 1, MB, bs, TILE, K * nrt, false, plan_s, plan_s + 1);
+  write_empty_groups(pl, CG, ROW_TILE, G, H, C, D, o, m_out, l_out);
+  long long p, p1;
+  pl.block_units(blockIdx.x, p, p1);
+  p = paged_attn::uniform(p);
+  p1 = paged_attn::uniform(p1);
+  const int S = pl.S[0];
+  // The warpgroup index, broadcast so that the compiler knows it is
+  // uniform: wgmma in a path it takes for divergent is serialized.
+  const int wg_idx =
+      paged_attn::uniform(static_cast<int>(threadIdx.x) / WG_THREADS);
+  if (wg_idx == 0) {
+    // Producer: warp 0 issues the loads; the warpgroup's other warps hand
+    // their registers to the consumers and finish.
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::prefetch_tensor_map(&tm_k);
+        hopper::prefetch_tensor_map(&tm_v);
+      }
+      const uint32_t box_bytes = box_rows * 128;
+      int stage = 0;
+      uint32_t phase = 0;  // parity of the ring's current pass
+      while (p < p1) {
+        const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
+        const int kh = sg.h / nrt;
+        const int hi = min(sg.q1 * TILE, S);
+        for (int t0 = sg.q0 * TILE; t0 < hi; t0 += TILE) {
+          // Boxes of the tile's valid tokens; a -1 slot (past them) has
+          // none.
+          const int nb = (min(TILE, hi - t0) + box_rows - 1) / box_rows;
+          int blk = 0, off = 0;
+          if (lane < nb) {
+            const int t = t0 + lane * box_rows;
+            const int slot = t / bs;
+            blk = table[slot];
+            off = t - slot * bs;
+          }
+          hopper::mbar_wait(kv_empty + 8 * stage, phase ^ 1);
+          const uint32_t kf = k_full + 8 * stage, vf = v_full + 8 * stage;
+          if (lane == 0) {
+            hopper::mbar_expect_tx(kf, nb * box_bytes * ncb);
+            hopper::mbar_expect_tx(vf, nb * box_bytes * ncb);
+          }
+          __syncwarp();
+          if (lane < nb) {
+            const uint32_t at = stage * L::TILE_BYTES + lane * box_bytes;
+            for (int c = 0; c < ncb; ++c) {
+              hopper::tma_load_4d(k_s + at + c * TILE * 128, &tm_k, kf,
+                                  c * 64, kh, off, blk);
+              hopper::tma_load_4d(v_s + at + c * TILE * 128, &tm_v, vf,
+                                  c * 64, kh, off, blk);
+            }
+          }
+          if (++stage == STAGES_) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        p = min(p1, sg.end);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int NJ = TILE / 8;   // n8 chunks of a score tile
+    constexpr int NT = DMAX / 8;   // n8 chunks of the output
+    constexpr int KV = TILE / 16;  // k16 steps of O += P V
+    const int wg = wg_idx - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
+    const paged_attn::WarpThreads consumers{WG_THREADS, 2 * WG_THREADS,
+                                            MERGE_BAR};
+    const size_t W = paged_attn::part_row(D);
+    // Descriptors: q (this warpgroup's 64 rows) and K are K-major, V is
+    // MN-major; a ring slot adds its byte offset / 16.
+    const uint32_t q_wg = q_s + wg * L::Q_BYTES;
+    const uint64_t q_desc = hopper::smem_desc(q_wg, 16, 1024);
+    const uint64_t k_desc = hopper::smem_desc(k_s, 16, 1024);
+    const uint64_t v_desc = hopper::smem_desc(v_s, TILE * 128, 1024);
+    constexpr uint32_t SLOT = L::TILE_BYTES >> 4;
+    int stage = 0;       // ring slot of the next tile
+    uint32_t phase = 0;  // parity of the ring's current pass
+    auto advance = [&] {
+      if (++stage == STAGES_) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    while (p < p1) {
+      const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
+      const int kh = sg.h / nrt;
+      const int row0 = (sg.h - kh * nrt) * ROW_TILE;
+      const int nrows = min(ROW_TILE, CG - row0);
+      const int lo = paged_attn::uniform(sg.q0 * TILE);
+      const int hi = paged_attn::uniform(min(sg.q1 * TILE, S));
+      const int ntiles = (hi - lo + TILE - 1) / TILE;
+      const int wrow0 = wg * WG_ROWS;  // the warpgroup's first local row
+      const int active = paged_attn::uniform(wrow0 < nrows ? 1 : 0);
+      float oacc[1][NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        oacc[0][j][0] = oacc[0][j][1] = oacc[0][j][2] = oacc[0][j][3] = 0.f;
+      float m_r[1][2] = {{-CUDART_INF_F, -CUDART_INF_F}};
+      float l_r[1][2] = {{0.f, 0.f}};
+      if (!active) {
+        // No row of this warpgroup in the tile: wait on each tile (its
+        // TMA writes done) and release it without math.
+        for (int t = 0; t < ntiles; ++t) {
+          hopper::mbar_wait(k_full + 8 * stage, phase);
+          hopper::mbar_wait(v_full + 8 * stage, phase);
+          hopper::mbar_arrive(kv_empty + 8 * stage);
+          advance();
+        }
+      } else {
+        // The warpgroup's q rows, by vector loads into the swizzled
+        // layout (the rows are (query, head) pairs, not a box of q);
+        // zero past the chunk's rows and past D.
+        unsigned char* qg = gbase + wg * L::Q_BYTES;
+        for (int idx = tid; idx < WG_ROWS * (DMAX / 8); idx += WG_THREADS) {
+          const int r = idx / (DMAX / 8);
+          const int col = (idx - r * (DMAX / 8)) * 8;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (wrow0 + r < nrows && col < D)
+            v = *reinterpret_cast<const uint4*>(
+                q + static_cast<size_t>(head_row(row0, wrow0 + r, G, H, kh)) *
+                        D + col);
+          *reinterpret_cast<uint4*>(
+              qg + (col >> 6) * WG_ROWS * 128 + r * 128 +
+              ((((col >> 3) & 7) ^ (r & 7)) << 4)) = v;
+        }
+        hopper::fence_proxy_async();
+        hopper::named_bar_sync(2 + wg, WG_THREADS);
+        // Software pipeline over the tiles (flash_prefill.cu's): tile t's
+        // S = Q K^T is issued before tile t - 1's P V, and its softmax
+        // runs while that P V is on the tensor cores; the output is
+        // rescaled once the P V is done. The first tile is peeled off, so
+        // that every wait on the tensor cores is unconditional.
+        float sacc[1][NJ][4];  // written by each tile's first k16 step
+        uint32_t ph[KV][4], pl_[KV][4];
+        float alpha[1][2];
+        // S of tile t, its tokens past the valid ones masked to -inf by a
+        // select, turned into float32 probabilities in place; returns
+        // whether a row of the warp moved its max.
+        auto softmax_step = [&](int t) {
+          hopper::fence_regs(sacc[0]);
+          const int nv = hi - lo - t * TILE;
+          if (nv < TILE) {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (j * 8 + (lane & 3) * 2 + (e & 1) >= nv)
+                  sacc[0][j][e] = -CUDART_INF_F;
+          }
+          const bool moved =
+              paged_attn::softmax_scores(sacc, m_r, l_r, alpha, c);
+          return __any_sync(0xffffffffu, moved);
+        };
+        // p as the A fragments of the next P V.
+        auto stage_probs = [&] {
+          paged_attn::split_probs<KV>(sacc[0], ph, pl_);
+          hopper::fence_regs(ph);
+          hopper::fence_regs(pl_);
+          hopper::fence_regs(oacc[0]);
+        };
+        hopper::mbar_wait(k_full + 8 * stage, phase);
+        hopper::wgmma_fence();
+        hopper::issue_qk<DMAX, TILE, WG_ROWS>(sacc[0], q_desc,
+                                             k_desc + stage * SLOT);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        softmax_step(0);  // the output is still 0: no rescale
+        stage_probs();
+        int p_stage = stage;  // slot of the tile whose P V is pending
+        uint32_t p_phase = phase;
+        advance();
+        for (int t = 1; t < ntiles; ++t) {
+          hopper::mbar_wait(k_full + 8 * stage, phase);
+          hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
+          hopper::wgmma_fence();
+          hopper::issue_qk<DMAX, TILE, WG_ROWS>(sacc[0], q_desc,
+                                               k_desc + stage * SLOT);
+          hopper::wgmma_commit();
+          hopper::issue_pv<DMAX, TILE>(oacc[0], ph, pl_,
+                                       v_desc + p_stage * SLOT);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();
+          const bool moved = softmax_step(t);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(oacc[0]);
+          hopper::mbar_arrive(kv_empty + 8 * p_stage);
+          if (moved) paged_attn::rescale_rows(oacc, alpha);
+          stage_probs();
+          p_stage = stage;
+          p_phase = phase;
+          advance();
+        }
+        hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
+        // The last tile's V rows past the valid tokens (stale rows of the
+        // last block, or never loaded) are zeroed before P V reads them:
+        // their p is 0, but 0 * NaN is NaN inside wgmma.
+        const int nv_last = (hi - lo) - (ntiles - 1) * TILE;
+        if (nv_last < TILE) {
+          unsigned char* vt = gbase + L::V_OFF + p_stage * L::TILE_BYTES;
+          const int n16 = (TILE - nv_last) * 8;  // 16-byte chunks a box
+          for (int idx = tid; idx < n16 * L::BOXES; idx += WG_THREADS) {
+            const int b = idx / n16, j = idx - b * n16;
+            *reinterpret_cast<uint4*>(vt + b * TILE * 128 + nv_last * 128 +
+                                      j * 16) = make_uint4(0u, 0u, 0u, 0u);
+          }
+          hopper::fence_proxy_async();
+          hopper::named_bar_sync(2 + wg, WG_THREADS);
+        }
+        hopper::wgmma_fence();
+        hopper::issue_pv<DMAX, TILE>(oacc[0], ph, pl_,
+                                     v_desc + p_stage * SLOT);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(oacc[0]);
+        hopper::mbar_arrive(kv_empty + 8 * p_stage);
+      }
+
+      // The segment's partial: to the outputs (the group's only partial)
+      // or to the block's scratch slot b + g ([slot][ROW_TILE]
+      // [part_row(D)], by local row).
+      const int pfirst = pl.block_of(sg.first);
+      const int parts = pl.block_of(sg.end - 1) - pfirst + 1;
+      float* slot = ws + (static_cast<size_t>(blockIdx.x) + sg.g) *
+                             ROW_TILE * W;
+      if (active) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // The quad's four threads share a row: sum their shares of l.
+          float lr = l_r[0][h];
+          lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+          lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+          const int r = wrow0 + warp * 16 + (lane >> 2) + h * 8;
+          if (r >= nrows) continue;
+          float *po, *pm, *pls;
+          if (parts > 1) {
+            po = slot + r * W;
+            pm = po + D;
+            pls = po + D + 1;
+          } else {
+            const size_t row = head_row(row0, r, G, H, kh);
+            po = o + row * D;
+            pm = m_out + row;
+            pls = l_out + row;
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int col = j * 8 + (lane & 3) * 2;
+            if (col < D)
+              *reinterpret_cast<float2*>(po + col) =
+                  make_float2(oacc[0][j][2 * h], oacc[0][j][2 * h + 1]);
+          }
+          if ((lane & 3) == 0) {
+            *pm = m_r[0][h] * scale;  // m of the scaled scores
+            *pls = lr;
+          }
+        }
+      }
+      if (parts > 1 &&
+          paged_attn::last_split_arrives(tickets + sg.g, parts, consumers))
+        paged_attn::merge_parts(
+            ws, ROW_TILE * W, pfirst + sg.g, parts, nrows, D,
+            [&](int i) { return head_row(row0, i, G, H, kh); }, o, m_out,
+            l_out, merge_sm, consumers);
+      p = paged_attn::uniform(min(p1, sg.end));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Rank forms: persistent blocks over units of valid tokens.
+// ---------------------------------------------------------------------
+// The merge groups of a rank prefill are (kv head, tile of query rows);
+// their units are 64-token tiles of each rank's prefix (paged_attn.cuh).
+// A block walks its segments: q tile once a segment, K/V tiles of any
+// rank of the group, the pool rows resolved from the tables two tiles
+// ahead (no table copy, so blocks of any size are read in place), one
+// partial a segment. The bf16
+// tile step is mma.sync (paged_attn.cuh), float32 the CUDA-core body of
+// paged_prefill_kernel.
+constexpr int MW = 4;            // warps a block
+constexpr int BN = paged_attn::MMA_TOKENS;  // KV tokens a tile
+constexpr int STAGES = 2;        // cp.async ring depth of K/V tiles
+constexpr int ROW_RING = 3;      // tiles whose pool rows are resolved
 
 inline size_t rank_mma_smem_bytes(int D, int BM, int NR, int P) {
   return static_cast<size_t>(BM + 2 * STAGES * BN) * row_stride(D) * 2 +
@@ -1099,58 +1220,64 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Returns cudaErrorInvalidValue unless the caller's shared memory and
-// ticket count are what this instantiation needs.
-template <int DMAX, int MT>
-int launch_mma(const void* q, const void* pk, const void* pv,
-               const void* table, const void* tail, void* o, void* m,
-               void* l, void* ws, void* tickets, int NR, int C, int H, int K,
-               int D, int bs, int MB, long long rank_stride, int nsplit,
-               int slots_per_split, int smem_bytes, int n_tickets,
-               float scale, cudaStream_t stream) {
-  constexpr int BM = 16 * MT * MW;
-  const size_t smem = mma_smem_bytes(D, BM, slots_per_split);
-  const int rows = C * (H / K);
-  const dim3 grid(K, (rows + BM - 1) / BM, NR * nsplit);
-  if (static_cast<size_t>(smem_bytes) != smem ||
-      (nsplit > 1 && static_cast<long>(grid.x) * grid.y * NR > n_tickets))
+// Returns cudaErrorInvalidValue unless the plan is the instantiation's:
+// its ring depth and shared memory, persistent blocks, a ticket counter
+// per group (K x row tiles) and blocks of a multiple of 8 tokens (so
+// that every box starts on a 1,024-byte swizzle atom).
+template <int DMAX, int TILE, int STAGES_>
+int launch_wgmma(const void* q, const void* pk, const void* pv,
+                 const void* table, const void* tail, void* o, void* m,
+                 void* l, void* ws, void* tickets, int C, int H, int K, int D,
+                 int bs, int MB, int NB, int blocks, int kv_tile,
+                 int stages, int smem_bytes, int n_tickets, float scale,
+                 cudaStream_t stream) {
+  using L = PfLayout<DMAX, TILE, STAGES_>;
+  const long groups = static_cast<long>(K) *
+                      ((C * (H / K) + ROW_TILE - 1) / ROW_TILE);
+  if (kv_tile != TILE || stages != STAGES_ || smem_bytes != L::SMEM ||
+      blocks < 1 ||
+      groups > n_tickets || bs % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = paged_prefill_mma_kernel<DMAX, MT>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  // Ask for the largest shared-memory carve-out, so that as many blocks
-  // as their shared memory allows share an SM.
-  cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  const int bs_shift = (bs & (bs - 1)) ? -1 : __builtin_ctz(bs);
-  kern<<<grid, MW * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(pk),
-      static_cast<const __nv_bfloat16*>(pv), static_cast<const int*>(table),
-      static_cast<const int*>(tail), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(l),
+  int box_rows = TILE;  // gcd(bs, TILE): a box never crosses a block
+  while (bs % box_rows) box_rows >>= 1;
+  CUtensorMap tk, tv;
+  if (int e = hopper::cached_rows_map(&tk, pk, D, K, bs, NB, box_rows))
+    return e;
+  if (int e = hopper::cached_rows_map(&tv, pv, D, K, bs, NB, box_rows))
+    return e;
+  auto kern = paged_prefill_wgmma_kernel<DMAX, TILE, STAGES_>;
+  static int allowed[hopper::MAX_DEVICES] = {};
+  if (int e = hopper::allow_smem(kern, L::SMEM, allowed)) return e;
+  kern<<<blocks, WS_THREADS, L::SMEM, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int*>(table), static_cast<const int*>(tail),
+      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
       static_cast<float*>(ws), static_cast<unsigned*>(tickets), C, H, K, D,
-      bs, bs_shift, MB, nsplit, slots_per_split, rank_stride, scale);
+      bs, MB, box_rows, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DPT>
-int launch(const void* q, const void* pk, const void* pv, const void* table,
-           const void* tail, void* o, void* m, void* l, int NR, int C, int H,
-           int K, int D, int bs, int MB, long long rank_stride, float scale,
-           cudaStream_t stream) {
+template <int DPT>
+int launch_f32(const void* q, const void* pk, const void* pv,
+               const void* table, const void* tail, void* o, void* m,
+               void* l, int C, int H, int K, int D, int bs, int MB,
+               int blocks, int smem_arg, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, DPT);
-  auto kern = paged_prefill_kernel<T, DPT>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
   const int rows = C * (H / K);
-  const dim3 grid(K, (rows + TR - 1) / TR, NR);
+  const dim3 grid(K, (rows + TR - 1) / TR);
+  if (static_cast<size_t>(smem_arg) != smem ||
+      static_cast<long>(blocks) != static_cast<long>(grid.x) * grid.y)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = paged_prefill_kernel<float, DPT>;
+  static int allowed[hopper::MAX_DEVICES] = {};
+  if (int e = hopper::allow_smem(kern, smem_bytes(16 * DPT, DPT), allowed))
+    return e;
   kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const int*>(table),
+      static_cast<const float*>(q), static_cast<const float*>(pk),
+      static_cast<const float*>(pv), static_cast<const int*>(table),
       static_cast<const int*>(tail), static_cast<float*>(o),
       static_cast<float*>(m), static_cast<float*>(l), C, H, K, D, bs, MB,
-      rank_stride, scale);
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1185,58 +1312,48 @@ int launch_rank_kernel(void (*kern)(const T*, const T*, const T*,
 
 }  // namespace
 
-// C entry: returns cudaGetLastError() after the launch (0 = success).
-// dtype: 0 = float32 (CUDA cores, nsplit must be 1), 1 = bfloat16 (tensor
-// cores); q and both pools share it. NR rank pools (NR = 1: one pool)
-// start rank_stride elements apart; tables are [NR, MB], tails [NR],
-// outputs [NR, C, H, ...]. The caller plans the launch
-// (kernels/micro_attn_prefill.py::prefill_plan): rows_per_block picks the
-// instantiation (bf16: 128 up to D = 128, 64 above; float32: 64), and
-// smem_bytes (bf16) must equal what that instantiation lays out; any
-// other value, or NR < 1, returns cudaErrorInvalidValue. With nsplit > 1,
-// ws is a float32 scratch [nsplit, NR, C, H, D + 2] and tickets n_tickets
-// zeroed uint32 counters, at least one per (rank, kv head, row tile),
-// that the kernel leaves at zero; both may be null when nsplit == 1.
+// C entry of the single-rank kernels: returns cudaGetLastError() after
+// the launch (0 = success). q [C, H, D], pools [NB, bs, K, D], table
+// [MB], tail [1], outputs [C, H, ...]; dtype: 0 = float32 (CUDA cores,
+// blocks of at most 64 tokens), 1 = bfloat16 (wgmma). The caller plans
+// the launch (kernels/micro_attn_prefill.py): bf16, prefill_unit_plan:
+// persistent blocks, rows_per_block 128, the K/V tile (the unit), the
+// ring's stages and the shared memory of the instantiation for (D, tile);
+// ws a float32 scratch of blocks + groups slots of 128 * (D + 4) floats
+// and tickets n_tickets zeroed uint32 counters, at least one per group
+// (K x row tiles), which the kernel leaves at zero; float32,
+// prefill_plan: the grid's blocks, rows_per_block 64, kv_tile 64, stages
+// 1 and its shared memory (ws and tickets may be null). Any other plan
+// returns cudaErrorInvalidValue.
 extern "C" int paged_prefill_launch(const void* q, const void* pool_k,
                                     const void* pool_v, const void* table,
                                     const void* tail, void* o, void* m,
-                                    void* l, void* ws, void* tickets, int NR,
-                                    int C, int H, int K, int D, int bs,
-                                    int MB, long long rank_stride,
-                                    int nsplit, int slots_per_split,
-                                    int rows_per_block, int smem_bytes,
+                                    void* l, void* ws, void* tickets, int C,
+                                    int H, int K, int D, int bs, int MB,
+                                    int NB, int blocks, int rows_per_block,
+                                    int kv_tile, int stages, int smem_bytes,
                                     int n_tickets, float scale, int dtype,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (NR < 1 || nsplit < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
-    // Up to D = 128 a warp owns two m16 tiles (32 rows), so every K/V
-    // fragment feeds two independent products; at D = 256 one, whose
-    // accumulators fill the registers alone.
-    if (D <= 64 && rows_per_block == 32 * MW)
-      return launch_mma<64, 2>(q, pool_k, pool_v, table, tail, o, m, l, ws,
-                               tickets, NR, C, H, K, D, bs, MB, rank_stride,
-                               nsplit, slots_per_split, smem_bytes,
-                               n_tickets, scale, s);
-    if (D > 64 && D <= 128 && rows_per_block == 32 * MW)
-      return launch_mma<128, 2>(q, pool_k, pool_v, table, tail, o, m, l, ws,
-                                tickets, NR, C, H, K, D, bs, MB, rank_stride,
-                                nsplit, slots_per_split, smem_bytes,
-                                n_tickets, scale, s);
-    if (D > 128 && rows_per_block == 16 * MW)
-      return launch_mma<256, 1>(q, pool_k, pool_v, table, tail, o, m, l, ws,
-                                tickets, NR, C, H, K, D, bs, MB, rank_stride,
-                                nsplit, slots_per_split, smem_bytes,
-                                n_tickets, scale, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (rows_per_block != ROW_TILE)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto run = [&](auto launch) {
+      return launch(q, pool_k, pool_v, table, tail, o, m, l, ws, tickets, C,
+                    H, K, D, bs, MB, NB, blocks, kv_tile, stages, smem_bytes,
+                    n_tickets, scale, s);
+    };
+    if (D <= 64) return run(launch_wgmma<64, 128, 4>);
+    if (D <= 128) return run(launch_wgmma<128, 128, 3>);
+    return run(launch_wgmma<256, 64, 2>);
   }
-  if (nsplit != 1 || rows_per_block != TR)
+  if (rows_per_block != TR || kv_tile != TK || stages != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 128)
-    return launch<float, 8>(q, pool_k, pool_v, table, tail, o, m, l, NR, C,
-                            H, K, D, bs, MB, rank_stride, scale, s);
-  return launch<float, 16>(q, pool_k, pool_v, table, tail, o, m, l, NR, C, H,
-                           K, D, bs, MB, rank_stride, scale, s);
+    return launch_f32<8>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K,
+                         D, bs, MB, blocks, smem_bytes, scale, s);
+  return launch_f32<16>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K, D,
+                        bs, MB, blocks, smem_bytes, scale, s);
 }
 
 // C entry of the rank kernels: returns cudaGetLastError() after the

@@ -1,20 +1,20 @@
 // Helpers shared by the port's attention kernels (paged decode and prefill,
 // flash prefill): cp.async copies, the bf16 tensor-core tile step of the
-// paged prefill-chunk kernel (its online softmax and hi + lo split of p
-// also serve the flash-prefill kernel's wgmma tiles, whose accumulator
-// has the same per-warp layout), the split-KV merge of the two paged
-// kernels, and the rank kernels' work plan (units of valid tokens,
-// planned on the card) and in-launch merge.
+// paged kernels (its online softmax and hi + lo split of p also serve the
+// wgmma tiles of the flash-prefill and paged prefill-chunk kernels, whose
+// accumulator has the same per-warp layout), and the paged kernels' work
+// plan (units of valid tokens, planned on the card) and in-launch merge.
 //
 // Tensor-core tile step (FlashAttention-2 register layout, mma.sync
 // m16n8k16 bf16 -> fp32). A warp owns MT m16 tiles of query rows; q and a
-// 64-token K/V tile (MMA_TOKENS) sit in shared memory, rows row_stride(D)
-// elements apart; a step takes the whole tile or half of it. qk_tile
-// forms S = Q K^T (A and B by ldmatrix); softmax_tile runs the online
-// softmax on the S accumulator fragment in float32 (exp2 of one fma,
-// scores pre-scaled by scale * log2 e; the output accumulators are
-// rescaled only when a row's max moved); pv_tile reuses the
-// probabilities as the A operand of P V in registers, V by
+// K/V tile sit in shared memory, either rows row_stride(D) elements apart
+// (qk_tile, pv_tile) or as the 128-byte-swizzled boxes a TMA load writes
+// (the *_at forms take the lanes' ldmatrix addresses from the caller). A
+// step covers 8 * NJ keys. qk_tile forms S = Q K^T (A and B by ldmatrix);
+// softmax_tile runs the online softmax on the S accumulator fragment in
+// float32 (exp2 of one fma, scores pre-scaled by scale * log2 e; the
+// output accumulators are rescaled only when a row's max moved); pv_tile
+// reuses the probabilities as the A operand of P V in registers, V by
 // ldmatrix.trans. Precision: q K^T products of bf16 values are exact in
 // fp32; each float32 probability p enters P V as bf16 hi = bf16(p) plus
 // lo = bf16(p - hi), two MMAs against the same bf16 V (at most 2^-16
@@ -22,23 +22,15 @@
 // tolerances: tests/test_torch_kernels.py); l is summed from the float32
 // p. The caller masks scores to -inf between qk_tile and softmax_tile.
 //
-// Split-KV, for the ports of the Pallas kernels repro/kernels/
+// Work plan and merge, for the ports of the Pallas kernels repro/kernels/
 // micro_attn_decode.py (bound by bytes) and micro_attn_prefill.py (bound
-// by operations): neither bound is approached with idle SMs, and a
-// (request or row tile, kv head) grid leaves most of 132 SMs idle at the
-// serving path's shapes. So a paged kernel splits each work item's slot
-// range [0, MB) into nsplit contiguous runs of whole table slots, the
-// grid's z axis (the wrapper plans them from shapes alone: kernels/
-// micro_attn_decode.py::plan_splits). Every split's block computes the
-// unnormalized float32 partial (o, m, l) of its run (paper Eq. 2) and
-// stores it in a scratch ws[split][out_row][D + 2] (o, then m, then l);
-// a split that starts past the valid tokens stores (0, -inf, 0) and reads
-// no K/V. Then it takes a ticket from a per-work-item counter after
-// __threadfence(): the block that draws the last ticket resets the
-// counter to 0 for the next launch and LSE-merges all nsplit partials
-// (paper Eq. 3) into the contract's (o, m, l). One launch per call: no
-// second merge kernel. The merge is float32 on the CUDA cores, in split
-// order, so it adds only float32 rounding to the partials it combines.
+// by operations) and of their vmaps over a global pool's ranks: neither
+// bound is approached with idle SMs, and where a request's tokens lie is
+// known only from its table, on the card. So persistent blocks take equal
+// shares of units of valid tokens (plan_units, below), store one partial
+// (o, m, l) of paper Eq. 2 a run of one group's units, and the last
+// partial of a group to arrive LSE-merges them (paper Eq. 3, merge_parts):
+// one launch a call, no second merge kernel, float32 on the CUDA cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,9 +41,38 @@
 
 namespace paged_attn {
 
+// The threads that run a merge: the whole block, or a warp-specialised
+// kernel's compute warps (whole warps from thread `first`, synchronized
+// by named barrier `bar`).
+struct BlockThreads {
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+struct WarpThreads {
+  int first, count, bar;
+  __device__ int rank() const { return threadIdx.x - first; }
+  __device__ int size() const { return count; }
+  __device__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(count) : "memory");
+  }
+};
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// The value of x in lane 0, which the compiler then knows to be uniform
+// across the warp: a warp-specialised kernel's loop bounds read from the
+// plan in shared memory are not, to it, and ptxas serializes wgmmas in a
+// loop it takes for divergent.
+__device__ __forceinline__ int uniform(int x) {
+  return __shfl_sync(0xffffffffu, x, 0);
+}
+__device__ __forceinline__ long long uniform(long long x) {
+  return __shfl_sync(0xffffffffu, x, 0);
 }
 
 // Two bf16 values packed in one 32-bit word, as float32.
@@ -133,6 +154,21 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// The float32 probabilities of a score tile as bf16 hi + lo A fragments:
+// k16 chunk kc from the n8 chunks 2 kc and 2 kc + 1 (m16n8k16's A).
+template <int KV>
+__device__ __forceinline__ void split_probs(const float (&s)[2 * KV][4],
+                                            uint32_t (&ph)[KV][4],
+                                            uint32_t (&pl)[KV][4]) {
+#pragma unroll
+  for (int kc = 0; kc < KV; ++kc) {
+    split_pair(s[2 * kc][0], s[2 * kc][1], ph[kc][0], pl[kc][0]);
+    split_pair(s[2 * kc][2], s[2 * kc][3], ph[kc][1], pl[kc][1]);
+    split_pair(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[kc][2], pl[kc][2]);
+    split_pair(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[kc][3], pl[kc][3]);
+  }
+}
+
 // ldmatrix lane offsets (elements within a tile) of a warp whose rows
 // start at wrow: the A operand (q), the B operand of Q K^T (K rows) and
 // of P V (V rows, transposed).
@@ -152,11 +188,13 @@ __device__ __forceinline__ MmaLanes mma_lanes(int lane, int wrow, int DS) {
 //
 // S = Q K^T: the warp's MT x 16 rows against 8 * NJ tokens (raw scores,
 // before the scale). KC: k16 chunks of the instantiation's largest head
-// dim; chunks at or past D are skipped.
-template <int MT, int KC, int NJ = 8>
-__device__ __forceinline__ void qk_tile(float (&sacc)[MT][NJ][4],
-                                        uint32_t q_base, uint32_t k_base,
-                                        const MmaLanes& ln, int DS, int D) {
+// dim; chunks at or past D are skipped. a_at(mt, kc) and b_at(np, kc):
+// this lane's ldmatrix address of the A chunk (q rows of m16 tile mt,
+// columns 16 kc ..) and of the B chunk (K rows 16 np + (lane & 7) +
+// (lane >> 4) * 8, columns 16 kc + ((lane >> 3) & 1) * 8).
+template <int MT, int KC, int NJ, typename AAt, typename BAt>
+__device__ __forceinline__ void qk_tile_at(float (&sacc)[MT][NJ][4],
+                                           AAt a_at, BAt b_at, int D) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -167,11 +205,9 @@ __device__ __forceinline__ void qk_tile(float (&sacc)[MT][NJ][4],
     if (kc * 16 < D) {
       uint32_t a[MT][4], b[NJ / 2][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], q_base + 2 * (ln.a + mt * 16 * DS + kc * 16));
+      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], a_at(mt, kc));
 #pragma unroll
-      for (int np = 0; np < NJ / 2; ++np)
-        ldmatrix_x4(b[np], k_base + 2 * (ln.k + np * 16 * DS + kc * 16));
+      for (int np = 0; np < NJ / 2; ++np) ldmatrix_x4(b[np], b_at(np, kc));
 #pragma unroll
       for (int np = 0; np < NJ / 2; ++np)
 #pragma unroll
@@ -181,6 +217,22 @@ __device__ __forceinline__ void qk_tile(float (&sacc)[MT][NJ][4],
         }
     }
   }
+}
+
+// qk_tile_at on q and K rows DS elements apart (MmaLanes offsets).
+template <int MT, int KC, int NJ = 8>
+__device__ __forceinline__ void qk_tile(float (&sacc)[MT][NJ][4],
+                                        uint32_t q_base, uint32_t k_base,
+                                        const MmaLanes& ln, int DS, int D) {
+  qk_tile_at<MT, KC, NJ>(
+      sacc,
+      [&](int mt, int kc) {
+        return q_base + 2 * (ln.a + mt * 16 * DS + kc * 16);
+      },
+      [&](int np, int kc) {
+        return k_base + 2 * (ln.k + np * 16 * DS + kc * 16);
+      },
+      D);
 }
 
 // Online softmax on the S fragment: per m16 tile a thread holds rows
@@ -266,12 +318,13 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[MT][NJ][4],
 // O += P V with P = hi + lo, both bf16, from the S fragment; V fragments
 // two column pairs at a time, each feeding MT x 4 products. NT: n8 tiles
 // of the instantiation's largest head dim; columns at or past D are
-// skipped.
-template <int MT, int NT, int NJ = 8>
-__device__ __forceinline__ void pv_tile(float (&oacc)[MT][NT][4],
-                                        const float (&sacc)[MT][NJ][4],
-                                        uint32_t v_base, const MmaLanes& ln,
-                                        int DS, int D) {
+// skipped. v_at(kc, n16): this lane's ldmatrix.trans address of V rows 16
+// kc + (lane & 7) + ((lane >> 3) & 1) * 8, columns 16 n16 + (lane >> 4) *
+// 8.
+template <int MT, int NT, int NJ, typename VAt>
+__device__ __forceinline__ void pv_tile_at(float (&oacc)[MT][NT][4],
+                                           const float (&sacc)[MT][NJ][4],
+                                           VAt v_at, int D) {
 #pragma unroll
   for (int kc = 0; kc < NJ / 2; ++kc) {
     uint32_t ph[MT][4], pl[MT][4];
@@ -291,9 +344,7 @@ __device__ __forceinline__ void pv_tile(float (&oacc)[MT][NT][4],
       uint32_t b[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        if ((n0 + i) * 16 < D)
-          ldmatrix_x4_trans(b[i], v_base + 2 * (ln.v + kc * 16 * DS +
-                                                (n0 + i) * 16));
+        if ((n0 + i) * 16 < D) ldmatrix_x4_trans(b[i], v_at(kc, n0 + i));
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if ((n0 + i) * 16 < D) {
@@ -314,6 +365,20 @@ __device__ __forceinline__ void pv_tile(float (&oacc)[MT][NT][4],
   }
 }
 
+// pv_tile_at on V rows DS elements apart (MmaLanes offsets).
+template <int MT, int NT, int NJ = 8>
+__device__ __forceinline__ void pv_tile(float (&oacc)[MT][NT][4],
+                                        const float (&sacc)[MT][NJ][4],
+                                        uint32_t v_base, const MmaLanes& ln,
+                                        int DS, int D) {
+  pv_tile_at<MT, NT, NJ>(
+      oacc, sacc,
+      [&](int kc, int n16) {
+        return v_base + 2 * (ln.v + kc * 16 * DS + n16 * 16);
+      },
+      D);
+}
+
 // Valid tokens addressed by a -1-padded block table [MB] whose valid slots
 // form a prefix (as every table of the serving path does) and whose last
 // valid slot holds `tail` tokens. Every thread of the block must call it.
@@ -327,133 +392,36 @@ __device__ __forceinline__ int valid_tokens(const int* table, int MB, int bs,
   return nblk ? (nblk - 1) * bs + min(max(tail, 0), bs) : 0;
 }
 
-// Split-KV: called by every thread of a block after it stored its split's
-// partial in the scratch. Returns true in the block that finished last
-// for this work item (its ticket counter is back at 0 on return), whose
-// threads then see every split's stores.
-__device__ __forceinline__ bool last_split_arrives(unsigned* ticket,
-                                                   int nsplit) {
+// Called by every thread of `th` after it stored its part of a partial of
+// a group whose n partials come from n blocks. Returns true in the block
+// that stored the group's last partial (its ticket counter is back at 0
+// on return), whose threads then see every partial's stores.
+template <typename Threads = BlockThreads>
+__device__ __forceinline__ bool last_split_arrives(unsigned* ticket, int n,
+                                                   Threads th = Threads()) {
   __shared__ int last;
   __threadfence();  // this block's partial is visible device-wide ...
-  __syncthreads();  // ... before its ticket is drawn
-  if (threadIdx.x == 0) {
+  th.sync();        // ... before its ticket is drawn
+  if (th.rank() == 0) {
     const unsigned t = atomicAdd(ticket, 1u);
-    last = t == static_cast<unsigned>(nsplit - 1);
-    if (last) *ticket = 0u;  // every split has drawn: ready for reuse
+    last = t == static_cast<unsigned>(n - 1);
+    if (last) *ticket = 0u;  // every partial has drawn: ready for reuse
   }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
+  th.sync();
+  const bool is_last = last;
+  if (is_last) __threadfence();
+  return is_last;
 }
 
-// Split-KV: copy the split's table slots [s0, s0 + ns) to shared memory
-// (tab_s) and return how many of the request's valid tokens they hold.
-// Tables are prefix-contiguous with `tail` tokens in the last valid slot,
-// so the split holds that slot iff one of its slots is -1 or the slot
-// after it is. Every thread of the block must call it.
-__device__ __forceinline__ int load_split_slots(const int* table, int MB,
-                                                int s0, int ns, int bs,
-                                                int tail, int* tab_s) {
-  int n = 0;
-  for (int base = 0; base < ns; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    int blk = -1;
-    if (i < ns) {
-      blk = table[s0 + i];
-      tab_s[i] = blk;
-    }
-    n += __syncthreads_count(blk >= 0);
-  }
-  if (n == 0) return 0;
-  const bool last_here = n < ns || s0 + ns >= MB || table[s0 + ns] < 0;
-  return (n - 1) * bs + (last_here ? min(max(tail, 0), bs) : bs);
-}
-
-// Split-KV: LSE-merge nsplit (<= MAX_SPLITS) partials of `nrows` rows into
-// (o, m, l). Row i of the work item lives at out_row(i) in the outputs and
-// in every split's slice of the scratch ws ([nsplit][rows_total][D + 2];
-// slices split_stride floats apart). The scratch is read past L1
-// (__ldcg): other blocks wrote it during this launch. First each row's
-// merged max, m, l and split weights exp(m_s - m) (into wsm, nrows *
-// nsplit floats of shared memory); then o, two columns at a time, with
-// MERGE_ILP column pairs of four splits in flight a thread, so the merge
-// costs a few L2 round trips rather than one per column and split.
-constexpr int MAX_SPLITS = 32;
+// Output columns a merge thread takes at once (MERGE_ILP column quads).
 constexpr int MERGE_ILP = 8;
 
-template <typename RowFn>
-__device__ void merge_splits(const float* ws, size_t split_stride,
-                             int nsplit, int nrows, int D, RowFn out_row,
-                             float* o, float* m_out, float* l_out,
-                             float* wsm) {
-  const size_t W = static_cast<size_t>(D) + 2;
-  for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
-    const size_t row = static_cast<size_t>(out_row(i));
-    const float* p = ws + row * W + D;
-    float ms[MAX_SPLITS];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int s = 0; s < MAX_SPLITS; ++s) {
-      if (s < nsplit) {
-        ms[s] = __ldcg(p + s * split_stride);
-        mx = fmaxf(mx, ms[s]);
-      }
-    }
-    float l = 0.f;
-#pragma unroll
-    for (int s = 0; s < MAX_SPLITS; ++s) {
-      if (s < nsplit) {
-        const float w = ms[s] == -CUDART_INF_F ? 0.f : expf(ms[s] - mx);
-        wsm[i * nsplit + s] = w;
-        if (w != 0.f) l = fmaf(__ldcg(p + s * split_stride + 1), w, l);
-      }
-    }
-    m_out[row] = mx;
-    l_out[row] = l;
-  }
-  __syncthreads();
-  const int pairs = D / 2;  // D is even
-  const int total = nrows * pairs;
-  for (int base = threadIdx.x; base < total;
-       base += MERGE_ILP * blockDim.x) {
-    // Offsets within one split's slice and within o (< 2^31 floats).
-    int off[MERGE_ILP], out[MERGE_ILP], wrow[MERGE_ILP];
-    float2 acc[MERGE_ILP];
-#pragma unroll
-    for (int u = 0; u < MERGE_ILP; ++u) {
-      const int idx = min(base + u * static_cast<int>(blockDim.x),
-                          total - 1);
-      const int i = idx / pairs, c = 2 * (idx - i * pairs);
-      const int row = out_row(i);
-      off[u] = row * (D + 2) + c;  // the column pair in a split's slice
-      out[u] = row * D + c;        // the column pair in o
-      wrow[u] = i * nsplit;
-      acc[u] = make_float2(0.f, 0.f);
-    }
-#pragma unroll 4
-    for (int s = 0; s < nsplit; ++s) {
-      const float* p = ws + s * split_stride;
-#pragma unroll
-      for (int u = 0; u < MERGE_ILP; ++u) {
-        const float2 x = __ldcg(reinterpret_cast<const float2*>(p + off[u]));
-        const float w = wsm[wrow[u] + s];
-        acc[u].x = fmaf(x.x, w, acc[u].x);
-        acc[u].y = fmaf(x.y, w, acc[u].y);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < MERGE_ILP; ++u) {
-      if (base + u * static_cast<int>(blockDim.x) >= total) break;
-      *reinterpret_cast<float2*>(o + out[u]) = acc[u];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------
-// Rank forms: work in units of valid tokens, planned on the device.
+// Work in units of valid tokens, planned on the device.
 // ---------------------------------------------------------------------
-// A rank kernel reads NR rank pools through tables [NR, R, MB] (the
-// prefill chunk: R = 1) whose valid slots form a prefix. Pair (rank k,
+// A paged kernel reads NR rank pools (NR = 1: the single-rank kernels)
+// through tables [NR, R, MB] (the prefill chunk: R = 1) whose valid slots
+// form a prefix. Pair (rank k,
 // request r), index k * R + r, holds S valid tokens, cut into ceil(S / U)
 // units of at most U tokens ([j * U, min((j + 1) * U, S))). A merge row
 // rho is what one output row merges: the request r = rho over every rank
@@ -545,6 +513,13 @@ struct UnitPlan {
   }
 };
 
+// Tables of up to SCAN_INT4 16-byte loads a thread (all rows together)
+// are counted in one pass of independent loads, each thread adding its
+// loads' valid slots to their rows' counts in shared memory: one round
+// trip to memory. Larger ones take the L-ary search, log_(L+1)(MB)
+// dependent rounds.
+constexpr int SCAN_INT4 = 8;
+
 // Every thread of the block: the valid tokens of every pair (tables
 // [NR * R][MB], tails [NR * R]), then the merge rows' first units.
 // S: NR * R ints, cum: P + 1 ints of shared memory.
@@ -555,19 +530,57 @@ __device__ __forceinline__ UnitPlan plan_units(const int* __restrict__ table,
                                                int* S, int* cum) {
   const int npair = NR * R;
   const int P = stacked ? npair : R;
-  int L = 32;  // lanes a pair's search
-  while (L > 1 && L * npair > static_cast<int>(blockDim.x)) L >>= 1;
   const int lane = threadIdx.x & 31;
-  const unsigned mask =
-      L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane - lane % L);
-  const int per_pass = blockDim.x / L;
-  for (int base = 0; base < npair; base += per_pass) {
-    const int pair = base + static_cast<int>(threadIdx.x) / L;
-    if (pair < npair) {  // the same for the whole lane group
-      const int nv = count_valid_slots(
-          table + static_cast<size_t>(pair) * MB, MB, L, mask);
-      if (lane % L == 0)
-        S[pair] = nv ? (nv - 1) * bs + min(max(tail[pair], 0), bs) : 0;
+  auto tokens = [&](int pair, int nv) {
+    return nv ? (nv - 1) * bs + min(max(tail[pair], 0), bs) : 0;
+  };
+  const long n = static_cast<long>(npair) * MB;
+  if (MB >= 4 && n <= 4L * SCAN_INT4 * blockDim.x &&
+      (reinterpret_cast<uintptr_t>(table) & 15) == 0) {
+    const int n4 = static_cast<int>(n / 4);
+    int4 w[SCAN_INT4];
+#pragma unroll
+    for (int u = 0; u < SCAN_INT4; ++u) {
+      const int j = threadIdx.x + u * blockDim.x;
+      w[u] = j < n4 ? reinterpret_cast<const int4*>(table)[j]
+                    : make_int4(-1, -1, -1, -1);
+    }
+    for (int i = threadIdx.x; i < npair; i += blockDim.x) S[i] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < SCAN_INT4; ++u) {
+      const int k = 4 * (threadIdx.x + u * blockDim.x);
+      if (k >= 4 * n4) break;
+      // Four consecutive slots span at most two rows (MB >= 4).
+      const int a = k / MB, edge = (a + 1) * MB - k;
+      const int v[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
+      int ca = 0, cb = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (v[e] >= 0) (e < edge ? ca : cb) += 1;
+      }
+      if (ca) atomicAdd(S + a, ca);
+      if (cb) atomicAdd(S + a + 1, cb);
+    }
+    if (threadIdx.x == 0)  // the slots past the last whole 16 bytes
+      for (long k = 4L * n4; k < n; ++k)
+        if (table[k] >= 0) atomicAdd(S + k / MB, 1);
+    __syncthreads();
+    for (int i = threadIdx.x; i < npair; i += blockDim.x)
+      S[i] = tokens(i, S[i]);
+  } else {
+    int L = 32;  // lanes a pair's search
+    while (L > 1 && L * npair > static_cast<int>(blockDim.x)) L >>= 1;
+    const unsigned mask =
+        L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane - lane % L);
+    const int per_pass = blockDim.x / L;
+    for (int base = 0; base < npair; base += per_pass) {
+      const int pair = base + static_cast<int>(threadIdx.x) / L;
+      if (pair < npair) {  // the same for the whole lane group
+        const int nv = count_valid_slots(
+            table + static_cast<size_t>(pair) * MB, MB, L, mask);
+        if (lane % L == 0) S[pair] = tokens(pair, nv);
+      }
     }
   }
   __syncthreads();
@@ -678,7 +691,7 @@ struct TileWalk {
   }
 };
 
-// Scratch rows of the rank kernels: o (D floats), m, l, 2 floats of
+// Scratch rows of the paged kernels: o (D floats), m, l, 2 floats of
 // padding, so that every row starts on 16 bytes (D % 8 == 0).
 __host__ __device__ constexpr int part_row(int D) { return D + 4; }
 
@@ -693,22 +706,21 @@ __host__ __device__ constexpr int part_row(int D) { return D + 4; }
 // (MERGE_CHUNK + 1) floats).
 constexpr int MERGE_CHUNK = 32;
 
-template <typename RowFn>
+template <typename RowFn, typename Threads = BlockThreads>
 __device__ void merge_parts(const float* ws, size_t slot_stride, int slot0,
                             int np, int nrows, int D, RowFn out_row,
-                            float* o, float* m_out, float* l_out,
-                            float* sm) {
+                            float* o, float* m_out, float* l_out, float* sm,
+                            Threads th = Threads()) {
+  const int tid = th.rank(), nthreads = th.size();
   const int W = part_row(D);
   const float* base = ws + static_cast<size_t>(slot0) * slot_stride;
   float* mx_s = sm + nrows * MERGE_CHUNK;
   int Ls = 1;  // lanes a row: enough for np, no more than leave rows idle
-  while (Ls < 32 && Ls < np &&
-         2 * Ls * nrows <= static_cast<int>(blockDim.x))
-    Ls <<= 1;
-  const int sub = threadIdx.x % Ls;
-  const int rows_pass = blockDim.x / Ls;
+  while (Ls < 32 && Ls < np && 2 * Ls * nrows <= nthreads) Ls <<= 1;
+  const int sub = tid % Ls;
+  const int rows_pass = nthreads / Ls;
   for (int i0 = 0; i0 < nrows; i0 += rows_pass) {
-    const int i = i0 + static_cast<int>(threadIdx.x) / Ls;
+    const int i = i0 + tid / Ls;
     const float* p = base + static_cast<size_t>(i) * W + D;
     float mx = -CUDART_INF_F;
     if (i < nrows)
@@ -734,28 +746,27 @@ __device__ void merge_parts(const float* ws, size_t slot_stride, int slot0,
       mx_s[i] = mx;
     }
   }
-  __syncthreads();
+  th.sync();
   // o: element e = (row, column quad); Ts lanes an element split the
   // partials (as many as keep MERGE_ILP elements a thread busy), then
   // sum theirs by shuffles.
   const int quads = D / 4;  // D % 8 == 0
   const int total = nrows * quads;
   int Ts = 1;
-  while (Ts < 32 && Ts < np &&
-         2 * Ts * total <= MERGE_ILP * static_cast<int>(blockDim.x))
+  while (Ts < 32 && Ts < np && 2 * Ts * total <= MERGE_ILP * nthreads)
     Ts <<= 1;
-  const int epass = blockDim.x / Ts;  // elements a pass, an ILP slot
-  const int esub = threadIdx.x % Ts, e0 = threadIdx.x / Ts;
+  const int epass = nthreads / Ts;  // elements a pass, an ILP slot
+  const int esub = tid % Ts, e0 = tid / Ts;
   for (int c0 = 0; c0 < np; c0 += MERGE_CHUNK) {
     const int nc = min(MERGE_CHUNK, np - c0);
-    for (int idx = threadIdx.x; idx < nrows * nc; idx += blockDim.x) {
+    for (int idx = tid; idx < nrows * nc; idx += nthreads) {
       const int i = idx / nc, s = idx - i * nc;
       const float ms = __ldcg(base + (c0 + s) * slot_stride +
                               static_cast<size_t>(i) * W + D);
       sm[i * MERGE_CHUNK + s] =
           ms == -CUDART_INF_F ? 0.f : expf(ms - mx_s[i]);
     }
-    __syncthreads();
+    th.sync();
     const float* cb = base + c0 * slot_stride;
     for (int b0 = 0; b0 < total; b0 += MERGE_ILP * epass) {
       int off[MERGE_ILP], wrow[MERGE_ILP];
@@ -810,7 +821,7 @@ __device__ void merge_parts(const float* ws, size_t slot_stride, int slot0,
         }
       }
     }
-    __syncthreads();
+    th.sync();
   }
 }
 

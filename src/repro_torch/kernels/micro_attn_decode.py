@@ -5,24 +5,26 @@ which replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/micro_attn_decode.py::paged_micro_attention_kernel``:
 one query token per request attends over one rank's paged pool through
 the request's block table and yields the unnormalized partial
-``(o, m, l)`` of paper Eq. 2. The card bounds it by HBM bytes; the
-kernel splits each request's slot range over several thread blocks
-(split-KV) and merges the split partials in the same launch. The
-source's header says how its design answers the bound.
-
-``plan_splits`` chooses the split on the host from shapes alone (never
-from the tables or lengths, whose host read would synchronize the
-step); the paged prefill-chunk kernel uses it too.
+``(o, m, l)`` of paper Eq. 2. The card bounds it by HBM bytes. The
+kernel's persistent blocks take equal shares of units of at most
+``UNIT_TOKENS`` valid tokens of each request, planned on the card from
+the tables (``kernels/rank_units.py`` is the plan on the host), with all
+the query heads of a kv head in one block, K/V through a TMA ring, and
+merge a group's partials in the same launch. bf16 runs on the tensor
+cores (``mma.sync``, the heads as the rows of an m16 tile, p as bf16 hi +
+lo), float32 on the CUDA cores. ``decode_unit_plan`` sets the launch
+from shapes and the SM count alone (never from the tables or lengths,
+whose host read would synchronize the step). The source's header says
+how its design answers the bound.
 
 ``paged_micro_attention_ranks_cuda`` (stacked partials, one a rank) and
 ``paged_micro_attention_ranks_merged_cuda`` (one partial a request, the
 ranks LSE-merged in the launch) launch the rank kernel of the same
 source: persistent blocks over units of at most ``RANK_UNIT_TOKENS``
-valid tokens, planned on the card from the tables
-(``kernels/rank_units.py`` is the plan on the host) — the counterpart of
-the JAX package's vmap of the Pallas kernel over the global pool's rank
-axis (``repro/kernels/ops.py::paged_micro_attention_ranks``), followed,
-for the merged form, by ``merge_partials(axis=0)``. The pools may be a
+valid tokens of every (rank, request) pair — the counterpart of the JAX
+package's vmap of the Pallas kernel over the global pool's rank axis
+(``repro/kernels/ops.py::paged_micro_attention_ranks``), followed, for
+the merged form, by ``merge_partials(axis=0)``. The pools may be a
 strided view (a layer of the global pool ``[NR, L, NB, bs, K, D]``);
 only each rank's slab has to be contiguous, and the kernel reads it in
 place.
@@ -49,27 +51,36 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_BLOCK_SIZE = 64        # the paged prefill kernel's largest (sub-)block
-MAX_DECODE_BLOCK_SIZE = 128  # the decode kernel's (the launch cells' 128)
-MIN_SPLIT_TOKENS = 256    # the least a split-KV block is given to read
-MAX_SPLITS = 32           # the most splits a merge takes (csrc MAX_SPLITS)
-DECODE_BLOCKS_PER_SM = 3  # decode blocks an SM holds (~71 KB each)
+MAX_BLOCK_SIZE = 64        # the float32 prefill kernel's largest (sub-)block
+MAX_DECODE_BLOCK_SIZE = 128  # the paged kernels' (the launch cells' 128)
+BOX_ALIGN = 8             # TMA boxes start on a block's 8-token swizzle atom
+DECODE_BLOCKS_PER_SM = 3  # rank decode blocks an SM holds (~71 KB each)
 SMEM_PER_SM = 232_448   # bytes of shared memory a block may use on an H100
+UNIT_TOKENS = 256         # the most valid tokens a unit of the decode kernel
 RANK_UNIT_TOKENS = 256    # the most valid tokens a unit of the rank kernel
 RANK_RING = 3             # tiles whose pool rows a rank kernel resolves
-MAX_UNITS = 2 ** 31 - 1   # the rank kernels count units in int32
+MAX_UNITS = 2 ** 31 - 1   # the unit kernels count units in int32
+MMA_ROWS = 16             # query heads a tensor-core decode block holds
 
 
 def argtypes(n_plan: int):
-    """ctypes signature of a paged kernel's C entry: 10 pointers, the
-    rank count and six shapes, the pool's rank stride (64-bit), ``n_plan``
+    """ctypes signature of a rank kernel's C entry: 10 pointers, the rank
+    count and six shapes, the pool's rank stride (64-bit), ``n_plan``
     ints of the launch plan, scale, dtype, stream."""
     return ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_longlong]
             + [ctypes.c_int] * n_plan
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-_ARGTYPES = argtypes(4)
+def single_argtypes(n_plan: int):
+    """ctypes signature of a single-rank kernel's C entry: 10 pointers,
+    seven shapes (rows, H, K, D, bs, MB, NB), ``n_plan`` ints of the
+    launch plan, scale, dtype, stream."""
+    return ([ctypes.c_void_p] * 10 + [ctypes.c_int] * (7 + n_plan)
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+_ARGTYPES = single_argtypes(5)
 _RANK_ARGTYPES = argtypes(6)
 
 
@@ -88,49 +99,75 @@ def current_stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def plan_splits(items: int, MB: int, bs: int, sm_count: int,
-                blocks_per_sm: int) -> Tuple[int, int]:
-    """Split-KV plan: ``(nsplit, slots_per_split)``.
+def decode_tile_tokens(D: int, itemsize: int) -> int:
+    """Tokens a K/V tile of the CUDA-core decode kernels (csrc
+    tile_tokens): 64 rows of up to 256 bytes, 32 of up to 512, 16 above,
+    by the instantiation's largest head dim (128 or 256)."""
+    row = (128 if D <= 128 else 256) * itemsize
+    return 64 if row <= 256 else 32 if row <= 512 else 16
 
-    Each of ``items`` work items (thread blocks before the split) reads
-    the slots ``[0, MB)`` of a table with ``bs`` tokens a slot. Split s
-    takes the whole slots ``[s * slots_per_split, min((s + 1) *
-    slots_per_split, MB))``: the runs cover ``[0, MB)`` once, none empty.
-    ``nsplit`` is the most that fits ``blocks_per_sm`` blocks on each of
-    ``sm_count`` SMs, and no more than leaves every split at least
-    ``MIN_SPLIT_TOKENS`` tokens of the table's capacity ``MB * bs``, nor
-    than ``MAX_SPLITS``.
-    Shapes only: the valid lengths are not known on the host.
-    """
-    if MB <= 0:
-        return 1, 1
-    cap = max(1, min(MB, MB * bs // MIN_SPLIT_TOKENS, MAX_SPLITS))
-    want = max(1, blocks_per_sm * sm_count // max(items, 1))
-    spb = -(-MB // min(cap, want))
-    return -(-MB // spb), spb
+
+def decode_layout(D: int, itemsize: int, tensor_cores: bool, heads: int,
+                  R: int) -> Dict[str, int]:
+    """The decode kernel's tile, ring and shared memory (csrc dec_layout):
+    tiles of 64 tokens on the tensor cores, ``decode_tile_tokens`` on the
+    CUDA cores, each the 128-byte boxes of D's columns; 3 stages of K and
+    V tiles, 2 where a tile of the instantiation's width is over 16 KB;
+    barriers; q (16 bf16 rows of DMAX + 8, or GT float32 rows of DMAX, GT
+    the least power of two >= ``heads``, at least 2); the 4 compute warps' partials of
+    ``heads`` rows; the plan (2 R + 1 ints); 1,024 bytes of slack."""
+    dmax = 128 if D <= 128 else 256
+    tt = 64 if tensor_cores else decode_tile_tokens(D, itemsize)
+    tile = tt * -(-D * itemsize // 128) * 128
+    stages = 2 if tt * dmax * itemsize > 16384 else 3
+    gt = max(2, 1 << (heads - 1).bit_length())
+    q_bytes = MMA_ROWS * (dmax + 8) * 2 if tensor_cores else gt * dmax * 4
+    q_off = 2 * stages * tile + -(-24 * stages // 16) * 16
+    plan_off = q_off + q_bytes + 4 * heads * (D + 2) * 4
+    return {"tile_tokens": tt, "stages": stages,
+            "smem_bytes": 1024 + plan_off + 4 * (2 * R + 1)}
 
 
 @functools.lru_cache(maxsize=1024)
-def decode_plan(R: int, H: int, K: int, MB: int, bs: int,
-                sm_count: int) -> Dict[str, object]:
-    """The decode kernel's launch, which the C entry takes as given:
-    query heads a block (``heads_per_block``: 1 where G == 1, else 2),
-    split and grid (``items`` work items). Cached: callers share the dict
-    and must not change it."""
-    gt = 1 if H // K == 1 else 2
-    groups = -(-(H // K) // gt)
-    items = K * R * groups
-    nsplit, spb = plan_splits(items, MB, bs, sm_count, DECODE_BLOCKS_PER_SM)
-    return {"nsplit": nsplit, "slots_per_split": spb, "items": items,
-            "heads_per_block": gt, "grid": (K, R * groups, nsplit)}
-
-
-def decode_tile_tokens(D: int, itemsize: int) -> int:
-    """Tokens a K/V tile of the decode kernels (csrc tile_tokens): 64
-    rows of up to 256 bytes, 32 of up to 512, 16 above, by the
-    instantiation's largest head dim (128 or 256)."""
-    row = (128 if D <= 128 else 256) * itemsize
-    return 64 if row <= 256 else 32 if row <= 512 else 16
+def decode_unit_plan(R: int, H: int, K: int, D: int, MB: int, bs: int,
+                     dtype: torch.dtype, sm_count: int) -> Dict[str, object]:
+    """The decode kernel's launch, which the C entry takes as given: the
+    form (bf16 on the tensor cores, float32 on the CUDA cores), query
+    heads a block (all G up to 16; on the CUDA cores 4 at D 256),
+    persistent ``blocks``
+    (``group_blocks`` of what the card holds at once, no more than the
+    tables could hold units), units of ``UNIT_TOKENS`` tokens (halved,
+    down to a tile, while the tables could not give every block a
+    unit), merge ``groups`` (one ticket counter each), scratch slots and
+    shared memory. From shapes and the SM count alone: the work is
+    planned on the card. Cached: callers share the dict and must not
+    change it."""
+    G = H // K
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    tc = dtype == torch.bfloat16
+    most = MMA_ROWS if tc or D <= 128 else 4
+    heads = min(G, most)
+    hg = K * -(-G // heads)
+    lay = decode_layout(D, itemsize, tc, heads, R)
+    smem = lay["smem_bytes"]
+    # 2 blocks an SM (their registers); 1 at D 256 on the tensor cores and
+    # over 8 heads on the CUDA cores; fewer where the shared memory holds
+    # fewer.
+    regs = 1 if (tc and D > 128) or (not tc and heads > 8) else 2
+    per_sm = max(1, min(regs, SMEM_PER_SM // (smem + 1024)))
+    cap = group_blocks(R * hg, per_sm * sm_count)
+    U = UNIT_TOKENS
+    while U > lay["tile_tokens"] and R * hg * -(-MB * bs // U) < cap:
+        U //= 2
+    blocks = rank_blocks(1, cap, hg * R * -(-MB * bs // U))
+    return {"unit_tokens": U, "blocks": blocks, "blocks_per_sm": per_sm,
+            "heads_per_block": heads, "head_groups": hg, "groups": R * hg,
+            "ws_slots": blocks + R * hg, "tensor_cores": tc,
+            "tile_tokens": lay["tile_tokens"], "stages": lay["stages"],
+            "smem_bytes": smem,
+            "route": ("tensor cores, mma.sync bf16 hi + lo" if tc else
+                      "cuda cores, float32"),
+            "stacked": False}
 
 
 def rank_decode_smem_bytes(D: int, itemsize: int, gt: int, nranks: int,
@@ -144,6 +181,20 @@ def rank_decode_smem_bytes(D: int, itemsize: int, gt: int, nranks: int,
     return (2 * 2 * tt * (D + 16 // itemsize) * itemsize + 4 * gt * D
             + 4 * (RANK_RING * tt + RANK_RING + npair + P + 1
                    + 3 * nranks + 2))
+
+
+def group_blocks(groups: int, cap: int) -> int:
+    """Persistent blocks of a single-rank kernel: at most ``cap`` (as
+    many as the card holds at once), cut to a multiple of its merge
+    groups (k blocks a group) or a divisor of them (k groups a block), so
+    that where the groups hold equal work every block's share starts and
+    ends on a group's boundary: one run of units a group, no block
+    straddling two (measured faster at every main shape but one, within
+    4% there; PERF.md)."""
+    if groups <= cap:
+        return groups * (cap // groups)
+    k = -(-groups // cap)
+    return -(-groups // k)
 
 
 def rank_blocks(per_sm: int, sm_count: int, max_units: int) -> int:
@@ -192,8 +243,8 @@ _TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
 
 def split_tickets(kernel: str, device: torch.device,
                   n: int) -> torch.Tensor:
-    """A zeroed uint32 counter per split-KV work item of ``kernel``, kept
-    per device and grown when more are needed. The kernels leave every
+    """A zeroed uint32 counter per merge group of ``kernel``, kept per
+    device and grown when more are needed. The kernels leave every
     counter at 0, so one buffer serves every launch on the stream."""
     key = (kernel, device.index)
     t = _TICKETS.get(key)
@@ -254,11 +305,11 @@ def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
 
     ``ranked``: the pools are ``[NR, NB, bs, K, D]`` — any rank stride,
     each rank's slab contiguous. ``max_block_size``: the largest block
-    the calling kernel was checked at (the decode kernels and the rank
-    prefill kernel index tokens, not slots, so they take the launch
-    cells' 128; the single-rank prefill kernel reads at most 64, so its
-    wrapper reads larger blocks as sub-blocks and passes its own).
-    Returns the rank stride in elements (0 for one pool)."""
+    the calling kernel was checked at (the kernels that index tokens,
+    not slots, take the launch cells' 128; the float32 prefill-chunk
+    kernel reads at most 64, so its wrapper reads larger blocks as
+    sub-blocks and passes its own). Returns the rank stride in elements
+    (0 for one pool)."""
     if not (q.is_cuda and pool_k.is_cuda and pool_v.is_cuda
             and table.is_cuda):
         raise ValueError("the CUDA kernel takes CUDA tensors only; CPU "
@@ -301,6 +352,24 @@ def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
     return rank_stride
 
 
+def check_box_blocks(bs: int) -> None:
+    """Raise ValueError on a block size a unit kernel's TMA boxes cannot
+    address: a box starts on a 1,024-byte swizzle atom of shared memory,
+    8 rows of 128 bytes, so every block size is a multiple of 8 tokens
+    (no ServingConfig has another)."""
+    if bs % BOX_ALIGN:
+        raise ValueError(f"block size {bs} is not a multiple of "
+                         f"{BOX_ALIGN}: the kernel's TMA boxes start on "
+                         f"{BOX_ALIGN}-row swizzle atoms")
+
+
+def aligned_rows(q: torch.Tensor) -> torch.Tensor:
+    """q contiguous and on a 16-byte boundary (the kernels load its rows
+    as 16-byte vectors)."""
+    q = q.contiguous()
+    return q.clone() if q.data_ptr() % 16 else q
+
+
 def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
                                scale):
     """Launch the decode kernel on q's current stream (no synchronize).
@@ -311,30 +380,28 @@ def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
     check_inputs(q, pool_k, pool_v, table,
                  max_block_size=MAX_DECODE_BLOCK_SIZE)
     R, H, D = q.shape
-    bs, K = pool_k.shape[-3], pool_k.shape[-2]
+    NB, bs, K = pool_k.shape[0], pool_k.shape[-3], pool_k.shape[-2]
+    check_box_blocks(bs)
     MB = table.shape[-1]
     dev = q.device
-    NR, rank_stride = 1, 0
     o, m, l = partial_outputs(R, H, D, dev)
     if R == 0:
         return o, m, l
-    q = q.contiguous()
+    q = aligned_rows(q)
     table = table.to(torch.int32).contiguous()
     tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).contiguous()
-    plan = decode_plan(R, H, K, MB, bs, device_sm_count(dev.index))
-    nsplit = plan["nsplit"]
-    ws = tickets = None
-    if nsplit > 1:
-        ws = torch.empty((nsplit, NR, R, H, D + 2), dtype=torch.float32,
-                         device=dev)
-        tickets = split_tickets("micro_attn_decode", dev, plan["items"])
+    plan = decode_unit_plan(R, H, K, D, MB, bs, q.dtype,
+                            device_sm_count(dev.index))
+    ws = torch.empty((plan["ws_slots"], plan["heads_per_block"], D + 4),
+                     dtype=torch.float32, device=dev)
+    tickets = split_tickets("micro_attn_decode", dev, plan["groups"])
     lib = build.load("micro_attn_decode", "paged_decode_launch", _ARGTYPES)
     err = lib.paged_decode_launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), _ptr(ws), _ptr(tickets), NR, R, H, K, D, bs, MB,
-        rank_stride, nsplit, plan["slots_per_split"],
-        plan["heads_per_block"], 0 if tickets is None else tickets.numel(),
+        l.data_ptr(), ws.data_ptr(), tickets.data_ptr(), R, H, K, D, bs, MB,
+        NB, plan["unit_tokens"], plan["blocks"], plan["heads_per_block"],
+        plan["smem_bytes"], tickets.numel(),
         float(scale), _DTYPES[q.dtype], current_stream(dev))
     if err:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "

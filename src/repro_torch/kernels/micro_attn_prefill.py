@@ -8,10 +8,13 @@ a chunk of C queries, all positioned after the addressed prefix, attends
 over one rank's paged pool through ONE shared block table (no causal
 mask) and yields the unnormalized partial ``(o, m, l)`` of paper Eq. 2.
 The card bounds it by FLOPs at chunk sizes of hundreds of tokens. bf16
-pools run on the tensor cores (``mma.sync``), with the prefix split over
-several blocks where the grid would leave SMs idle (``prefill_plan``);
-float32 pools run on the CUDA cores. The source's header says how the
-design answers the bound.
+pools run on ``wgmma`` fed by TMA boxes of the pool (blocks of up to 128
+tokens read in place), persistent blocks over units (a 128-row tile of
+one kv head x a 64-token tile of the valid prefix) planned on the card
+from the table (``prefill_unit_plan``; ``kernels/rank_units.py`` is the
+plan on the host), the partials merged in the same launch; float32
+pools run on the CUDA cores (``prefill_plan``). The source's header says
+how the design answers the bound.
 
 Precision contract of the bf16 kernel, held to 1e-4 against the float32
 plain twin: q K^T is exact per product (bf16 x bf16 in fp32), only the
@@ -19,7 +22,7 @@ order of the fp32 sums differs; each float32 probability p enters P V as
 two bf16 halves, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, against the
 same bf16 V (at most 2^-16 relative per term, where one rounding of p,
 2^-8, would exceed 1e-4 over a few thousand keys); ``l`` is summed from
-the float32 p; m, the rescaling and the split merge stay float32.
+the float32 p; m, the rescaling and the merge stay float32.
 
 ``paged_prefill_attention_ranks_cuda`` (stacked partials, one a rank)
 and ``paged_prefill_attention_ranks_merged_cuda`` (the ranks LSE-merged
@@ -29,12 +32,12 @@ counterpart of the JAX package's vmap over the global pool's rank axis
 (``repro/kernels/ops.py::paged_prefill_attention_ranks``), followed, for
 the merged form, by ``merge_partials(axis=0)``. Persistent blocks take
 equal shares of every rank's 64-token tiles of valid prefix, planned on
-the card from the tables (``kernels/rank_units.py``). As for decode, the
-pools may be a strided per-layer view of the global pool, read in place,
-and the rank kernels address tokens, not slots: they read blocks of up
-to 128 tokens as they are.
+the card from the tables. As for decode, the pools may be a strided
+per-layer view of the global pool, read in place, and the rank kernels
+address tokens, not slots: they read blocks of up to 128 tokens as they
+are.
 
-Blocks larger than the single-rank kernel's 64 tokens (the launch cells'
+Blocks larger than the float32 kernel's 64 tokens (the launch cells'
 128): its wrapper presents a pool of ``bs``-token blocks as one of
 ``sub``-token blocks, ``sub`` the largest divisor of ``bs`` the kernel
 takes (``sub_block_size``). The pool is a view of the contiguous pool
@@ -62,69 +65,103 @@ from repro_torch.kernels import build
 from repro_torch.kernels.micro_attn_decode import (MAX_BLOCK_SIZE,
                                                    MAX_DECODE_BLOCK_SIZE,
                                                    RANK_RING, SMEM_PER_SM,
-                                                   _DTYPES, _ptr, argtypes,
+                                                   _DTYPES, _ptr,
+                                                   aligned_rows,
+                                                   argtypes,
+                                                   check_box_blocks,
                                                    check_inputs,
                                                    current_stream,
                                                    device_sm_count,
+                                                   group_blocks,
                                                    partial_outputs,
-                                                   plan_splits, rank_blocks,
+                                                   rank_blocks,
+                                                   single_argtypes,
                                                    split_tickets,
                                                    stack_ranks)
 
 MIN_SUB_BLOCK = 8       # the smallest sub-block a larger block is cut into
 RANK_PREFILL_UNIT = 64  # a unit of the rank kernels: one 64-token tile
-_ARGTYPES = argtypes(5)
+ROW_TILE = 128          # (query, head) rows a unit of the bf16 kernel
+_ARGTYPES = single_argtypes(6)
 _RANK_ARGTYPES = argtypes(6)
 
 
 def rows_per_block(D: int, dtype: torch.dtype) -> int:
-    """(query, head) rows a block, which picks the kernel's instantiation:
-    the bf16 kernel's 4 warps own 32 rows each up to D = 128 and 16 above;
-    float32 64."""
+    """(query, head) rows a block of the rank kernels, which picks their
+    instantiation: the bf16 kernel's 4 warps own 32 rows each up to D =
+    128 and 16 above; float32 64."""
     return 128 if dtype == torch.bfloat16 and D <= 128 else 64
 
 
-def mma_smem_bytes(D: int, rows: int, slots: int) -> int:
-    """Shared memory of the bf16 kernel: ``rows`` q rows and a 2-stage
-    ring of 64-token K/V tiles, rows of D rounded up to 16 plus 8 bf16;
-    the pool rows and flags of 3 tiles and ``slots`` table entries. The
-    C entry refuses a launch whose size differs from its own layout's
-    (csrc mma_smem_bytes)."""
-    stride = -(-D // 16) * 16 + 8
-    return (rows + 2 * 2 * 64) * stride * 2 + 4 * (3 * 64 + 6 + slots)
+def f32_smem_bytes(D: int) -> int:
+    """Shared memory of the float32 kernel (csrc smem_bytes): q [D][68],
+    a K tile [D][68], a V tile [64][16 * DPT] and the probabilities
+    [64][68] in float32 (DPT 8 up to D = 128, else 16)."""
+    dpt = 8 if D <= 128 else 16
+    return 4 * (D * 68 + D * 68 + 64 * 16 * dpt + 64 * 68)
 
 
 @functools.lru_cache(maxsize=1024)
-def prefill_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
-                 dtype: torch.dtype, sm_count: int) -> Dict[str, object]:
-    """The prefill-chunk kernel's launch, which the C entry takes as
-    given: rows a block, split, grid (``items`` work items) and (bf16)
-    shared memory. Cached: callers share the dict and must not change it.
+def prefill_plan(C: int, H: int, K: int, D: int) -> Dict[str, object]:
+    """The float32 prefill-chunk kernel's launch, which the C entry takes
+    as given: one block of 256 threads per (kv head, 64 rows), its
+    shared memory. Cached: callers share the dict and must not change
+    it."""
+    blocks = K * -(-(C * (H // K)) // 64)
+    return {"rows_per_block": 64, "blocks": blocks, "kv_tile": 64,
+            "stages": 1,
+            "grid": (K, blocks // K, 1), "smem_bytes": f32_smem_bytes(D),
+            "route": "cuda cores, float32"}
 
-    bf16 splits the prefix's slots (``plan_splits``) to fill every SM
-    with as many 4-warp blocks as its shared memory holds; float32 runs
-    one 8-warp block per (kv head, 64 rows), unsplit.
-    """
-    bm = rows_per_block(D, dtype)
-    items = K * -(-(C * (H // K)) // bm)
-    if dtype != torch.bfloat16:
-        return {"nsplit": 1, "slots_per_split": max(MB, 1), "items": items,
-                "grid": (K, items // K, 1), "rows_per_block": bm,
-                "smem_bytes": 0, "route": "cuda cores, float32"}
-    per_sm = max(1, min(4, SMEM_PER_SM // (mma_smem_bytes(D, bm, MB)
-                                           + 1024)))
-    nsplit, spb = plan_splits(items, MB, bs, sm_count, per_sm)
-    return {"nsplit": nsplit, "slots_per_split": spb, "items": items,
-            "grid": (K, items // K, nsplit), "rows_per_block": bm,
-            "blocks_per_sm": per_sm,
-            "smem_bytes": mma_smem_bytes(D, bm, spb),
-            "route": "tensor cores, mma.sync bf16"}
+
+def unit_smem_bytes(dmax: int, tile: int, stages: int) -> int:
+    """Shared memory of the bf16 kernel (csrc PfLayout): each consumer
+    warpgroup's 64 q rows, ``stages`` K and V tiles of ``tile`` tokens
+    (all of DMAX), the merge's row weights (128 x 33 floats; in the q
+    rows where they fit), the plan (16 bytes), 3 barriers a stage, 1,024
+    bytes of slack."""
+    q = 2 * 64 * dmax * 2
+    merge = ROW_TILE * 33 * 4
+    return (1024 + q + 2 * stages * tile * dmax * 2
+            + (0 if q >= merge else merge) + 16 + 8 * 3 * stages)
+
+
+# The bf16 kernel's instantiations by DMAX: (K/V tile, ring stages).
+PREFILL_RINGS = {64: (128, 4), 128: (128, 3), 256: (64, 2)}
+
+
+@functools.lru_cache(maxsize=1024)
+def prefill_unit_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
+                      sm_count: int) -> Dict[str, object]:
+    """The bf16 prefill-chunk kernel's launch, which the C entry takes as
+    given: the instantiation (DMAX 64, 128 or 256: D rounded up; its K/V
+    tile, which is the unit, and ring depth), persistent ``blocks``
+    (``group_blocks`` of one an SM, no more than the table could hold
+    units), merge ``groups`` (kv head x tile of 128 rows; one ticket
+    counter each), scratch slots and shared memory. From shapes and the
+    SM count alone: the work is planned on the card. Cached: callers
+    share the dict and must not change it."""
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    tile, stages = PREFILL_RINGS[dmax]
+    hg = K * -(-(C * (H // K)) // ROW_TILE)
+    blocks = rank_blocks(1, group_blocks(hg, sm_count),
+                         hg * -(-MB * bs // tile))
+    return {"unit_tokens": tile, "kv_tile": tile,
+            "rows_per_block": ROW_TILE, "dmax": dmax, "stages": stages,
+            "blocks": blocks,
+            "blocks_per_sm": 1, "groups": hg, "head_groups": hg,
+            "ws_slots": blocks + hg,
+            "smem_bytes": unit_smem_bytes(dmax, tile, stages),
+            "warpgroups": 2, "rows_per_warpgroup": 64, "threads": 384,
+            "route": "wgmma bf16 hi + lo, TMA boxes of the pool",
+            "stacked": False}
 
 
 def rank_mma_smem_bytes(D: int, rows: int, NR: int, P: int) -> int:
     """Shared memory of the bf16 rank kernel (csrc rank_mma_smem_bytes):
-    ``rows`` q rows and the 2-stage K/V ring as ``mma_smem_bytes``; the
-    pool rows, flags and rank of 3 tiles; the plan (``NR`` ranks' tokens,
+    ``rows`` q rows and a 2-stage ring of 64-token K/V tiles, rows of D
+    rounded up to 16 plus 8 bf16; the pool rows, flags and rank of 3
+    tiles; the plan (``NR`` ranks' tokens,
     ``P + 1`` merge-row starts) and a segment's spans (3 ints a rank, 2
     counts)."""
     stride = -(-D // 16) * 16 + 8
@@ -138,8 +175,7 @@ def rank_f32_smem_bytes(D: int, NR: int, P: int) -> int:
     probabilities [64][68] in float32 (DPT 8 up to D = 128, else 16);
     the plan and a segment's spans."""
     dpt = 8 if D <= 128 else 16
-    return 4 * (D * 68 + D * 68 + 64 * 16 * dpt + 64 * 68
-                + 4 * NR + P + 3)
+    return f32_smem_bytes(D) + 4 * (4 * NR + P + 3)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -147,7 +183,7 @@ def rank_prefill_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
                       dtype: torch.dtype, sm_count: int, NR: int,
                       stacked: bool) -> Dict[str, object]:
     """The rank prefill kernels' launch, which the C entry takes as
-    given: rows a block (the instantiation, as ``prefill_plan``),
+    given: rows a block (the instantiation, ``rows_per_block``),
     64-token units, persistent ``blocks`` (as many as the card holds at
     once: the work is planned on the card), merge ``groups`` (kv head x
     row tile, x NR when stacked; one ticket counter each), scratch slots
@@ -245,12 +281,17 @@ def sub_block_tables(tables: torch.Tensor, tails, bs: int, sub: int):
 
 
 def _checked(q, pool_k, pool_v, table, tail):
-    """Check the inputs (``check_inputs``, the block size as sub-blocks)
-    and give (pool_k, pool_v, table, tail) with blocks the single-rank
-    kernel takes: the pool as views of ``sub``-token blocks, the table
-    and tail expanded to match (the inputs themselves when ``bs`` is
-    taken)."""
+    """Check the inputs (``check_inputs``) and give (pool_k, pool_v, table,
+    tail) with blocks the single-rank kernel takes: bf16, the inputs
+    themselves (blocks of up to 128 tokens, a multiple of 8, read in
+    place); float32, blocks over 64 tokens as views of ``sub``-token
+    blocks with the table and tail expanded to match."""
     bs = pool_k.shape[-3]
+    if q.dtype == torch.bfloat16:
+        check_inputs(q, pool_k, pool_v, table,
+                     max_block_size=MAX_DECODE_BLOCK_SIZE)
+        check_box_blocks(bs)
+        return pool_k, pool_v, table, tail
     sub = sub_block_size(bs)
     check_inputs(q, pool_k, pool_v, table, max_block_size=bs)
     if sub == bs:
@@ -267,37 +308,39 @@ def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
 
     Same contract as ``paged_prefill_attention_plain``; raises ValueError
     on inputs it does not take and RuntimeError if the launch fails.
-    Blocks over 64 tokens are read as sub-blocks (``_checked``).
+    float32 blocks over 64 tokens are read as sub-blocks (``_checked``).
     """
     pool_k, pool_v, table, tail_len = _checked(q, pool_k, pool_v, table,
                                                tail_len)
     C, H, D = q.shape
-    bs, K = pool_k.shape[-3], pool_k.shape[-2]
+    NB, bs, K = pool_k.shape[0], pool_k.shape[-3], pool_k.shape[-2]
     MB = table.shape[-1]
     dev = q.device
     o, m, l = partial_outputs(C, H, D, dev)
     if C == 0:
         return o, m, l
-    q = q.contiguous()
+    q = aligned_rows(q)
     table = table.to(torch.int32).contiguous()
     tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).reshape(
         1).contiguous()
-    plan = prefill_plan(C, H, K, D, MB, bs, q.dtype,
-                        device_sm_count(dev.index))
-    nsplit = plan["nsplit"]
     ws = tickets = None
-    if nsplit > 1:
-        ws = torch.empty((nsplit, 1, C, H, D + 2), dtype=torch.float32,
-                         device=dev)
-        tickets = split_tickets("micro_attn_prefill", dev, plan["items"])
+    if q.dtype == torch.bfloat16:
+        plan = prefill_unit_plan(C, H, K, D, MB, bs,
+                                 device_sm_count(dev.index))
+        ws = torch.empty((plan["ws_slots"], ROW_TILE, D + 4),
+                         dtype=torch.float32, device=dev)
+        tickets = split_tickets("micro_attn_prefill", dev, plan["groups"])
+    else:
+        plan = prefill_plan(C, H, K, D)
     lib = build.load("micro_attn_prefill", "paged_prefill_launch",
                      _ARGTYPES)
     err = lib.paged_prefill_launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), _ptr(ws), _ptr(tickets), 1, C, H, K, D, bs, MB, 0,
-        nsplit, plan["slots_per_split"], plan["rows_per_block"],
-        plan["smem_bytes"], 0 if tickets is None else tickets.numel(),
+        l.data_ptr(), _ptr(ws), _ptr(tickets), C, H, K, D, bs, MB, NB,
+        plan["blocks"], plan["rows_per_block"], plan["kv_tile"],
+        plan["stages"], plan["smem_bytes"],
+        0 if tickets is None else tickets.numel(),
         float(scale), _DTYPES[q.dtype], current_stream(dev))
     if err:
         raise RuntimeError(f"paged prefill kernel launch failed: CUDA error "

@@ -21,15 +21,15 @@ index heads and rows and mask the ragged end themselves. ``scale``
 defaults to ``true_head_dim ** -0.5``.
 
 Precision. The paged kernels return what their float32 plain twins
-return, within 1e-4, in both storage dtypes. Decode computes in float32
-on the CUDA cores; it splits each request's slots over several blocks
-(split-KV; the rank kernel: units of valid tokens over every rank) and
-LSE-merges the parts in float32. The prefill chunk with
-bf16 pools runs on the tensor cores: q K^T products of bf16 values are
-exact in float32, each float32 probability p enters P V as two bf16
-halves ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p
-would exceed 1e-4 over a few thousand keys), and ``l`` is summed from
-the float32 p; with float32 pools it stays on the CUDA cores. Flash
+return, within 1e-4, in both storage dtypes. They cut each request's
+valid tokens into units over several blocks (the rank kernels: over
+every rank) and LSE-merge the parts in float32. float32 decode computes
+on the CUDA cores, and bf16 decode and the bf16 prefill chunk run on the
+tensor cores: q K^T products of bf16 values are exact
+in float32, each float32 probability p enters P V as two bf16 halves
+``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p would
+exceed 1e-4 over a few thousand keys), and ``l`` is summed from the
+float32 p; the float32 prefill chunk stays on the CUDA cores. Flash
 prefill with bf16 inputs runs on the tensor cores under the same
 contract and returns what its float32 plain twin returns within 1e-4
 plus one bf16 ulp of the output (both are rounded to bf16); with float32

@@ -1,13 +1,16 @@
-"""The rank kernels' work plan on the host: units of valid tokens.
+"""The paged kernels' work plan on the host: units of valid tokens.
 
-The two rank kernels (``csrc/micro_attn_decode.cu`` and
-``csrc/micro_attn_prefill.cu``) plan their work on the card, from the
-tables, with ``plan_units`` and ``segment_at`` of ``csrc/paged_attn.cuh``.
-This module is the same integer arithmetic in Python. The CPU tests hold
-it to the plan's properties (every valid token of every (rank, request)
-pair in exactly one unit, no unit past a tail or over ``U`` tokens, no
-unit on an empty pair, one scratch slot a partial) and emulate the
-kernels' merges with it through the plain twins.
+The paged kernels (``csrc/micro_attn_decode.cu`` and
+``csrc/micro_attn_prefill.cu``: the single-rank kernels at NR = 1 and the
+rank kernels) plan their work on the card, from the tables, with
+``plan_units`` and ``segment_at`` of ``csrc/paged_attn.cuh``. This module
+is the same integer arithmetic in Python. The CPU tests hold it to the
+plan's properties (every valid token of every (rank, request) pair in
+exactly one unit, no unit past a tail or over ``U`` tokens, no unit on an
+empty pair, one scratch slot a partial) and emulate the kernels' merges
+with it through the plain twins. ``tile_boxes`` is the single-rank
+kernels' TMA loads of a run of tiles: one box a table block's share of a
+tile.
 
 The plan. Pair (rank k, request r) holds ``S[k, r]`` valid tokens (the
 tables' valid slots are a prefix; the last holds ``tail`` tokens), cut
@@ -23,6 +26,7 @@ slot ``b + g`` unless it is its group's only partial.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List
 
 import numpy as np
@@ -108,3 +112,29 @@ def segments(plan, b: int, B: int) -> List[Dict[str, object]]:
 def all_segments(plan, B: int) -> List[Dict[str, object]]:
     """Every block's segments, each with its block ``b``."""
     return [dict(seg, b=b) for b in range(B) for seg in segments(plan, b, B)]
+
+
+def box_rows(bs: int, tile: int) -> int:
+    """Tokens a TMA box of the single-rank kernels: gcd(bs, tile), so a
+    box never crosses a table block and the boxes tile a tile."""
+    return math.gcd(bs, tile)
+
+
+def tile_boxes(table_row, bs: int, lo: int, hi: int,
+               tile: int) -> List[Dict[str, object]]:
+    """The boxes the producer warp issues for tokens ``[lo, hi)`` of one
+    table row (valid tokens, ``lo`` a multiple of ``tile``), a tile at a
+    time: tile ``t0`` gets box b (b < ceil(min(tile, hi - t0) / rows))
+    at tokens ``[t0 + b * rows, ...)``, rows ``[off, off + rows)`` of
+    block ``table[t // bs]``. Returns ``[{"t0", "boxes": [(t, blk, off,
+    rows)]}]``."""
+    rows = box_rows(bs, tile)
+    out = []
+    for t0 in range(lo, hi, tile):
+        nb = -(-min(tile, hi - t0) // rows)
+        boxes = []
+        for b in range(nb):
+            t = t0 + b * rows
+            boxes.append((t, int(table_row[t // bs]), t % bs, rows))
+        out.append({"t0": t0, "boxes": boxes})
+    return out

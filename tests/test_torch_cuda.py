@@ -7,10 +7,11 @@ so it runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance 1e-4: kernel and twin compute in float32 from the same inputs
-and differ in summation order (split-KV decode and prefill also in merge
-order); the bf16 prefill-chunk kernel runs on tensor cores, where q K^T
-products of bf16 values are exact and each probability enters P V as
-bf16 hi + lo, which keeps it within the same 1e-4. The bf16 flash-prefill
+and differ in summation order (the paged kernels also in the order of
+their in-launch merges); the bf16 prefill-chunk and decode kernels run
+on tensor cores, where q K^T products of bf16 values are exact and each
+probability enters P V as bf16 hi + lo, which keeps them within the same
+1e-4. The bf16 flash-prefill
 kernel runs on tensor cores under the same contract; its output is
 rounded from float32 on both sides, so it may differ by one bf16 ulp.
 """
@@ -152,12 +153,14 @@ def test_flash_entry_refuses_plans_it_cannot_launch(cuda_device,
     block; the launch counter stays put."""
     import repro_torch.kernels.flash_prefill as fp
     plan = fp.flash_plan
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn((1, 70, 4, 64), device=cuda_device).to(dtype)
         kv = torch.randn((1, 70, 2, 64), device=cuda_device).to(dtype)
+        items = plan(1, 70, 4, 2, 64, dtype, sms)["items"]
         for bad in ({"smem_bytes": 16}, {"rows_per_block": 96},
                     {"kv_tile": 32}, {"stages": 5}, {"blocks": 0},
-                    {"blocks": plan(1, 70, 4, 2, 64, dtype)["items"] + 1}):
+                    {"blocks": items + 1}):
             monkeypatch.setattr(fp, "flash_plan",
                                 lambda *a, bad=bad: {**plan(*a), **bad})
             before = flash_prefill_cuda.launches
@@ -289,10 +292,13 @@ def _pools(gen, NB, bs, K, D, dtype, device):
 ])
 def test_split_kv_decode_matches_plain(dtype, K, G, D, bs, nblks, MB,
                                        cuda_device):
-    """The split-KV decode kernel == its plain twin over contexts long
-    enough to split: empty tables, splits past a short request's tokens,
-    a partial tail in the last split, bs 8 and 64, G 1, 2 and 16."""
-    from repro_torch.kernels.micro_attn_decode import (decode_plan,
+    """The decode kernel (units of valid tokens planned on the card, a
+    group's partials merged in the launch) == its plain twin over
+    contexts long enough to split a group over blocks: empty tables, a
+    request shorter than a unit, a partial tail in the last unit, bs 8
+    and 64, G 1, 2 and 16."""
+    from repro_torch.kernels import rank_units
+    from repro_torch.kernels.micro_attn_decode import (decode_unit_plan,
                                                        device_sm_count)
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     rng = np.random.default_rng(5)
@@ -302,9 +308,13 @@ def test_split_kv_decode_matches_plain(dtype, K, G, D, bs, nblks, MB,
     q = torch.randn((R, H, D), generator=gen, device=cuda_device).to(dtype)
     tb = torch.from_numpy(table).to(cuda_device)
     tl = torch.from_numpy(tail).to(cuda_device)
-    plan = decode_plan(R, H, K, MB, bs,
-                       device_sm_count(torch.cuda.current_device()))
-    assert plan["nsplit"] > 1
+    plan = decode_unit_plan(R, H, K, D, MB, bs, dtype,
+                            device_sm_count(torch.cuda.current_device()))
+    S = rank_units.pair_tokens(table[None], tail[None], bs)
+    up = rank_units.unit_plan(S, plan["unit_tokens"], plan["head_groups"],
+                              stacked=False)
+    assert any(seg["parts"] > 1
+               for seg in rank_units.all_segments(up, plan["blocks"]))
     scale = D ** -0.5
     for _ in range(2):          # the ticket counters are reset for reuse
         got = paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=scale)
@@ -327,8 +337,9 @@ def test_split_kv_decode_matches_plain(dtype, K, G, D, bs, nblks, MB,
 ])
 def test_prefill_chunk_kernel_matches_plain(dtype, C, K, G, D, bs, nblk,
                                             cuda_device):
-    """The prefill-chunk kernel (bf16: tensor cores, hi + lo
-    probabilities, split prefix) == its float32 plain twin at 1e-4."""
+    """The prefill-chunk kernel (bf16: wgmma, hi + lo probabilities,
+    units of the prefix planned on the card) == its float32 plain twin at
+    1e-4."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     rng = np.random.default_rng(6)
     H, MB = K * G, nblk + 3
@@ -346,7 +357,8 @@ def test_prefill_chunk_kernel_matches_plain(dtype, C, K, G, D, bs, nblk,
 
 @pytest.mark.cuda
 def test_split_kernels_launch_once_per_call(cuda_device):
-    """A split grid is still one launch per wrapper call."""
+    """Units merged in the launch are still one launch per wrapper
+    call."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     rng = np.random.default_rng(7)
     table, tail = _prefix_tables(rng, [250, 100], 256, 16)
@@ -368,8 +380,9 @@ def test_split_kernels_launch_once_per_call(cuda_device):
 def test_c_entries_refuse_plans_they_cannot_launch(cuda_device,
                                                    monkeypatch):
     """The C entries launch the wrappers' plans as given and refuse one
-    they have no instantiation for or whose shared memory differs from
-    the kernel's layout, instead of launching a mismatched grid."""
+    they have no instantiation for or whose shared memory, ring or
+    ticket counters differ from the kernel's layout, instead of
+    launching a mismatched grid; the launch counters stay put."""
     import repro_torch.kernels.micro_attn_decode as dec
     import repro_torch.kernels.micro_attn_prefill as pre
     gen = torch.Generator(device=cuda_device).manual_seed(8)
@@ -380,17 +393,26 @@ def test_c_entries_refuse_plans_they_cannot_launch(cuda_device,
                     device=cuda_device).to(torch.bfloat16)
     tb = torch.from_numpy(table).to(cuda_device)
     tl = torch.from_numpy(tail).to(cuda_device)
-    plan_p, plan_d = pre.prefill_plan, dec.decode_plan
-    for bad in ({"smem_bytes": 16}, {"rows_per_block": 96}):
-        monkeypatch.setattr(pre, "prefill_plan",
+    plan_p, plan_d = pre.prefill_unit_plan, dec.decode_unit_plan
+    for bad in ({"smem_bytes": 16}, {"rows_per_block": 96}, {"stages": 5},
+                {"kv_tile": 32}, {"blocks": 0}, {"groups": 1}):
+        monkeypatch.setattr(pre, "prefill_unit_plan",
                             lambda *a, bad=bad: {**plan_p(*a), **bad})
+        monkeypatch.setattr(dec, "_TICKETS", {})
+        before = paged_prefill_attention_cuda.launches
         with pytest.raises(RuntimeError, match="launch failed"):
             paged_prefill_attention_cuda(q, pk, pv, tb[0], tl[0],
                                          scale=0.1)
-    monkeypatch.setattr(dec, "decode_plan",
-                        lambda *a: {**plan_d(*a), "heads_per_block": 3})
-    with pytest.raises(RuntimeError, match="launch failed"):
-        paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=0.1)
+        assert paged_prefill_attention_cuda.launches == before
+    for bad in ({"heads_per_block": 17}, {"smem_bytes": 16},
+                {"unit_tokens": 100}, {"groups": 1}):
+        monkeypatch.setattr(dec, "decode_unit_plan",
+                            lambda *a, bad=bad: {**plan_d(*a), **bad})
+        monkeypatch.setattr(dec, "_TICKETS", {})
+        before = paged_micro_attention_cuda.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=0.1)
+        assert paged_micro_attention_cuda.launches == before
     monkeypatch.undo()
     _close_partials(paged_micro_attention_cuda(q, pk, pv, tb, tl, scale=0.1),
                     paged_micro_attention_plain(q, pk, pv, tb, tl,
@@ -1124,7 +1146,8 @@ def test_serve_steps_on_the_card_match_the_cpu(arch, cuda_device, no_tf32):
 
 
 # ------------------------------------------------------------------ #
-# The paged prefill at block size 128: read as 64-token sub-blocks
+# The paged prefill at block size 128: bf16 in place, float32 as 64-token
+# sub-blocks
 # ------------------------------------------------------------------ #
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1133,10 +1156,11 @@ def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
                                                        cuda_device):
     """The prefill-chunk kernel and its rank forms over a strided layer
     view of a [NR, L, NB, 128, K, D] pool (qwen3's GQA 16/8 x 128): the
-    single-rank wrapper reads it as 64-token sub-blocks of the same
-    memory, the rank kernels read the 128-token blocks in place, and the
-    partials equal the plain twins' over the 128-token blocks (a
-    -1-padded table, an empty rank)."""
+    bf16 single-rank kernel and the rank kernels read the 128-token
+    blocks in place (TMA boxes at rows 0 and 64), the float32 single-rank
+    wrapper as 64-token sub-blocks of the same memory, and the partials
+    equal the plain twins' over the 128-token blocks (a -1-padded table,
+    an empty rank)."""
     from repro_torch.kernels.micro_attn_prefill import _checked
     gen = torch.Generator(device=cuda_device).manual_seed(tail)
     NR, L, NB, bs, K, H, D, C, MB = 3, 2, 9, 128, 8, 16, 128, 64, 5
@@ -1165,9 +1189,11 @@ def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
         "launches": 1, "plain_calls": 0}
     assert c["paged_prefill_attention"] == {"launches": NR,
                                             "plain_calls": 0}
-    # The single-rank kernel reads the pool itself: views, never a copy.
+    # The single-rank kernel reads the pool itself (float32: views of
+    # 64-token sub-blocks), never a copy.
     vk, vv, _, _ = _checked(q, pk[0], pv[0], tb[0], tl[0])
-    assert vk.shape[-3] == 64 and vk.data_ptr() == pk[0].data_ptr() and \
+    assert vk.shape[-3] == (128 if dtype == torch.bfloat16 else 64)
+    assert vk.data_ptr() == pk[0].data_ptr() and \
         vv.data_ptr() == pv[0].data_ptr()
 
 
@@ -1178,3 +1204,114 @@ def test_prefill_kernel_refuses_a_block_without_a_sub_block(cuda_device):
     table = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="no divisor"):
         ops.paged_prefill_attention(q, pool, pool, table, 1)
+
+
+@pytest.mark.cuda
+def test_unit_kernels_refuse_blocks_off_the_swizzle_atom(cuda_device):
+    """The bf16 single-rank kernels' TMA boxes start on 8-row swizzle
+    atoms: a block size that is not a multiple of 8 raises ValueError
+    naming the reason (no ServingConfig has one)."""
+    pool = torch.zeros((2, 12, 1, 8), device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = torch.zeros((1, 1, 8), device=cuda_device, dtype=torch.bfloat16)
+    table = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.paged_prefill_attention(q, pool, pool, table, 1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.paged_micro_attention(q, pool, pool, table[None], table + 1)
+
+
+# ------------------------------------------------------------------ #
+# The single-rank paged kernels: graph replay and poisoned pools
+# ------------------------------------------------------------------ #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_graph_replay_matches_eager(dtype, cuda_device):
+    """CUDA graphs of the decode and prefill-chunk kernels (their tensor
+    maps captured as launch parameters) replay to the eager outputs bit
+    for bit twice over (so the ticket counters are back at 0 after each
+    launch), and after new values are copied into q, to the eager
+    outputs of those."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    rng = np.random.default_rng(21)
+    K, G, D, bs = 8, 2, 128, 16
+    table, tail = _prefix_tables(rng, [250, 3, 100], 256, bs)
+    pk, pv = _pools(gen, 355, bs, K, D, dtype, cuda_device)
+    tb = torch.from_numpy(table).to(cuda_device)
+    tl = torch.from_numpy(tail).to(cuda_device)
+    qd = torch.randn((3, K * G, D), generator=gen,
+                     device=cuda_device).to(dtype)
+    qp = torch.randn((300, K * G, D), generator=gen,
+                     device=cuda_device).to(dtype)
+
+    def step():
+        return (paged_micro_attention_cuda(qd, pk, pv, tb, tl, scale=0.1),
+                paged_prefill_attention_cuda(qp, pk, pv, tb[0], tl[0],
+                                             scale=0.1))
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(out, eager):
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+    qd.copy_(torch.randn(qd.shape, generator=gen, device=cuda_device))
+    qp.copy_(torch.randn(qp.shape, generator=gen, device=cuda_device))
+    graph.replay()
+    want = step()
+    torch.cuda.synchronize()
+    for g, w in zip(out, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 24, 128])
+def test_paged_kernels_ignore_poisoned_rows(dtype, bs, cuda_device):
+    """Pool rows past each tail and blocks no table names hold NaN and
+    Inf: the decode and prefill-chunk kernels give the plain twins'
+    results over a copy of the pool with those rows zeroed, and nothing
+    is NaN (a token past the valid ones scores -inf by a select and its
+    V row never reaches a product)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(bs)
+    rng = np.random.default_rng(bs)
+    K, G, D = 4, 4, 128
+    nblks = [30, 1, 0, 17]
+    NB = sum(nblks) + 6
+    table, tail = _prefix_tables(rng, nblks, 34, bs)
+    tail[1] = 1
+    pk, pv = _pools(gen, NB, bs, K, D, dtype, cuda_device)
+    valid = torch.zeros((NB, bs), dtype=torch.bool)
+    for r, n in enumerate(nblks):
+        for j in range(n):
+            valid[table[r, j], :tail[r] if j == n - 1 else bs] = True
+    valid = valid.to(cuda_device)[..., None, None]
+    poison = torch.full((NB, bs, K, D), float("nan"), device=cuda_device)
+    poison[:, ::2] = float("inf")
+    poison[:, 1::3] = -float("inf")
+    bad_k = torch.where(valid, pk.float(), poison).to(dtype)
+    bad_v = torch.where(valid, pv.float(), poison).to(dtype)
+    clean_k = torch.where(valid, pk.float(), 0.).to(dtype)
+    clean_v = torch.where(valid, pv.float(), 0.).to(dtype)
+    tb = torch.from_numpy(table).to(cuda_device)
+    tl = torch.from_numpy(tail).to(cuda_device)
+    q = torch.randn((4, K * G, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    qc = torch.randn((77, K * G, D), generator=gen,
+                     device=cuda_device).to(dtype)
+    scale = D ** -0.5
+    got = paged_micro_attention_cuda(q, bad_k, bad_v, tb, tl, scale=scale)
+    _close_partials(got, paged_micro_attention_plain(
+        q, clean_k, clean_v, tb, tl, scale=scale))
+    for r in range(len(nblks)):
+        got = paged_prefill_attention_cuda(qc, bad_k, bad_v, tb[r], tl[r],
+                                           scale=scale)
+        _close_partials(got, paged_prefill_attention_plain(
+            qc, clean_k, clean_v, tb[r], tl[r], scale=scale))

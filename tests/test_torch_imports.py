@@ -21,6 +21,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SRC = REPO / "src"
 EXAMPLES = sorted((REPO / "examples").glob("pt_*.py"))
+PAGED_AB = REPO / "scripts" / "paged_ab.py"   # the single-rank kernels' A/B
 
 
 def _port_modules():
@@ -78,7 +79,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "import importlib.util\n"
-        f"for f in {[str(e) for e in EXAMPLES]!r}:\n"
+        f"for f in {[str(e) for e in EXAMPLES] + [str(PAGED_AB)]!r}:\n"
         "    spec = importlib.util.spec_from_file_location('ex', f)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
@@ -99,6 +100,7 @@ def test_port_sources_never_name_jax_or_the_reference():
         [REPO / "chip_smoke.py"] + list((REPO / "scripts").glob("*.py")) + \
         EXAMPLES
     assert REPO / "scripts" / "pool_mode_ab.py" in files
+    assert PAGED_AB in files
     bad = []
     for f in files:
         for i, line in enumerate(f.read_text().splitlines(), 1):

@@ -20,9 +20,10 @@ kernels in interpret mode, at 1e-5 in float32, on a strided per-layer
 view of a global pool with an empty rank.
 
 The design of the CUDA kernels is checked here before any run on the
-card: the split plans and their merges, the flash-prefill plans, and the
-bf16 precision contracts of the prefill-chunk and flash-prefill kernels,
-emulated in plain PyTorch at their main shapes.
+card: the single-rank kernels' unit plans (``kernels/rank_units.py`` at
+NR = 1), their TMA boxes and their merges, the flash-prefill plans, and
+the bf16 precision contracts of the prefill-chunk and flash-prefill
+kernels, emulated in plain PyTorch at their main shapes.
 
 The kernels themselves need the card: ``tests/test_torch_cuda.py``
 (no JAX, so it also runs on a machine without it) holds them against
@@ -47,7 +48,7 @@ from repro.kernels.ops import \
     paged_prefill_attention_ranks as jax_paged_prefill_ranks
 from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
 from repro_torch.core.online_softmax import (_masked_softmax_parts, combine,
-                                             finalize)
+                                             finalize, merge_partials)
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_prefill import (MAX_HEAD_DIM,
                                                flash_block_items,
@@ -56,14 +57,13 @@ from repro_torch.kernels.flash_prefill import (MAX_HEAD_DIM,
                                                flash_prefill_plain)
 from repro_torch.kernels import rank_units
 from repro_torch.kernels.micro_attn_decode import (
-    MAX_SPLITS, MIN_SPLIT_TOKENS, RANK_UNIT_TOKENS, decode_plan,
-    paged_micro_attention_cuda, paged_micro_attention_plain,
-    paged_micro_attention_ranks_cuda, paged_micro_attention_ranks_plain,
-    plan_splits, rank_decode_plan)
+    RANK_UNIT_TOKENS, decode_unit_plan, paged_micro_attention_cuda,
+    paged_micro_attention_plain, paged_micro_attention_ranks_cuda,
+    paged_micro_attention_ranks_plain, rank_decode_plan)
 from repro_torch.kernels.micro_attn_prefill import (
     SMEM_PER_SM, paged_prefill_attention_cuda, paged_prefill_attention_plain,
     paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain,
-    prefill_plan, rank_prefill_plan)
+    prefill_plan, prefill_unit_plan, rank_prefill_plan)
 
 F32_TOL = 1e-4
 JAX_REF_BF16_TOL = 5e-2
@@ -332,10 +332,40 @@ def test_build_is_keyed_on_the_sources():
 
 
 # ------------------------------------------------------------------ #
-# Split-KV plans and the bf16 prefill precision contract (the design of
-# the CUDA kernels, checked before any run on the card)
+# The single-rank kernels' unit plans, TMA boxes and merges, and the bf16
+# prefill precision contract (the design of the CUDA kernels, checked
+# before any run on the card)
 # ------------------------------------------------------------------ #
 H100_SMS = 132
+
+
+def _unit_case(kind, args, sms=H100_SMS):
+    """(plan, R, rows a request, H, K, D, MB, bs) of a single-rank kernel
+    at ``args`` (decode: R, H, K, MB, bs at D 128, bf16; prefill: C, H, K,
+    D, MB, bs)."""
+    if kind == "decode":
+        R, H, K, MB, bs = args
+        return (decode_unit_plan(R, H, K, 128, MB, bs, torch.bfloat16, sms),
+                R, 1, H, K, 128, MB, bs)
+    C, H, K, D, MB, bs = args
+    return prefill_unit_plan(C, H, K, D, MB, bs, sms), 1, C, H, K, D, MB, bs
+
+
+def _segment_spans(plan, S):
+    """Every block's segments of the unit plan the kernel makes on the
+    card for valid tokens ``S [R]`` (rank_units at NR = 1): ``{(g, r):
+    [(lo, hi)]}`` and each busy block's units."""
+    up = rank_units.unit_plan(np.asarray(S)[None], plan["unit_tokens"],
+                              plan["head_groups"], stacked=False)
+    spans, walks = {}, []
+    for b in range(plan["blocks"]):
+        segs = rank_units.segments(up, b, plan["blocks"])
+        walks.append(sum(len(sg["units"]) for sg in segs))
+        for sg in segs:
+            (k, _, lo, _), hi = sg["units"][0], sg["units"][-1][3]
+            assert k == 0
+            spans.setdefault((sg["g"], sg["r"]), []).append((lo, hi))
+    return up, spans, walks
 
 
 @pytest.mark.parametrize("kind,args", [
@@ -348,53 +378,189 @@ H100_SMS = 132
     ("decode", (1, 16, 1, 256, 8)),         # MQA, G = 16, bs 8
     ("decode", (2, 8, 8, 5, 64)),           # MHA, bs 64, short
     ("decode", (8, 16, 8, 1, 16)),          # one slot
-    # prefill chunk: main shape, a short chunk, D 256, float32
-    ("prefill", (512, 16, 8, 128, 191, 16, torch.bfloat16)),
-    ("prefill", (37, 16, 8, 128, 191, 16, torch.bfloat16)),
-    ("prefill", (33, 8, 2, 256, 23, 64, torch.bfloat16)),
-    ("prefill", (512, 16, 8, 128, 191, 16, torch.float32)),
-    # D % 16 == 8 (the padded reduction), the 64-wide build
-    ("prefill", (50, 4, 2, 120, 133, 8, torch.bfloat16)),
-    ("prefill", (40, 8, 2, 40, 73, 24, torch.bfloat16)),
+    # prefill chunk: main shape, a short chunk, D 256, 128-token blocks
+    ("prefill", (512, 16, 8, 128, 191, 16)),
+    ("prefill", (37, 16, 8, 128, 191, 16)),
+    ("prefill", (33, 8, 2, 256, 23, 64)),
+    ("prefill", (512, 16, 8, 128, 24, 128)),
+    # D % 16 == 8, the 64-wide build, bs 24
+    ("prefill", (50, 4, 2, 120, 133, 8)),
+    ("prefill", (40, 8, 2, 40, 73, 24)),
 ])
-def test_kernel_plans_cover_every_slot_once(kind, args):
-    """A kernel's plan: split s reads the whole slots [s*spb, min((s+1)*
-    spb, MB)); the runs tile [0, MB) exactly once, none empty, and the
-    grid holds every work item once per split."""
-    if kind == "decode":
-        plan = decode_plan(*args, H100_SMS)
-        MB, bs = args[3], args[4]
-    else:
-        plan = prefill_plan(*args, H100_SMS)
-        MB, bs = args[4], args[5]
-    nsplit, spb = plan["nsplit"], plan["slots_per_split"]
-    assert plan["grid"][2] == nsplit
-    assert plan["grid"][0] * plan["grid"][1] == plan["items"]
-    runs = [range(s * spb, min((s + 1) * spb, MB)) for s in range(nsplit)]
-    assert all(len(r) for r in runs)
-    assert [j for r in runs for j in r] == list(range(MB))
-    assert nsplit == 1 or MB * bs >= nsplit * MIN_SPLIT_TOKENS
+def test_unit_plans_cover_every_valid_token_once(kind, args):
+    """A single-rank kernel's plan (its wrapper's blocks, unit and head
+    groups; the units found on the card, rank_units at NR = 1): over
+    tails 1..bs and an empty table, every valid token of every request
+    lies in exactly one unit of each of its groups, in order, and no
+    block walks more than ceil(units / blocks) units."""
+    plan, R, _, H, K, _, MB, bs = _unit_case(kind, args)
+    rng = np.random.default_rng(MB * bs + R)
+    nblk = rng.integers(1, MB + 1, size=R)
+    nblk[0] = MB
+    if R > 1:
+        nblk[1] = 0                                # an empty table
+    for tail in range(1, bs + 1):
+        S = np.where(nblk > 0, (nblk - 1) * bs + tail, 0)
+        up, spans, walks = _segment_spans(plan, S)
+        B = min(plan["blocks"], max(up["T"], 1))
+        assert max(walks) <= -(-up["T"] // B)
+        assert sum(walks) == up["T"] == plan["head_groups"] * sum(
+            -(-S // plan["unit_tokens"]))
+        for g in range(R * plan["head_groups"]):
+            r = g // plan["head_groups"]
+            got = sorted(spans.get((g, r), []))
+            ends = [0] + [hi for _, hi in got]
+            assert [lo for lo, _ in got] == ends[:-1] and ends[-1] == S[r]
 
 
-@pytest.mark.parametrize("items,MB,bs,sms,per_sm", [
-    (64, 259, 16, 132, 4), (32, 64, 16, 132, 4), (24, 64, 16, 132, 4),
-    (128, 191, 16, 132, 2), (16, 191, 16, 132, 2), (4, 23, 64, 132, 1),
-    (64, 1, 16, 132, 4), (1, 1000, 8, 132, 4), (1, 4096, 16, 132, 3),
-    (3, 17, 16, 7, 3),
-    (64, 0, 16, 132, 4),
+@pytest.mark.parametrize("bs,nblk,tail", [
+    (8, 17, 1), (8, 9, 8), (16, 188, 11), (16, 4, 16), (24, 70, 5),
+    (24, 3, 24), (64, 5, 1), (64, 20, 64), (128, 24, 65), (128, 1, 1),
+    (128, 4, 128),
 ])
-def test_plan_splits_tiles_the_table_in_whole_slots(items, MB, bs, sms,
-                                                    per_sm):
-    nsplit, spb = plan_splits(items, MB, bs, sms, per_sm)
-    covered = []
-    for s in range(nsplit):
-        run = list(range(s * spb, min((s + 1) * spb, MB)))
-        assert run or MB == 0               # no empty split
-        covered += run
-    assert covered == list(range(MB))       # every slot once, in order
-    if nsplit > 1:          # ~256 tokens a split, no more blocks than fit
-        assert MB * bs >= nsplit * MIN_SPLIT_TOKENS
-        assert nsplit * items <= per_sm * sms and nsplit <= MAX_SPLITS
+def test_tile_boxes_cover_each_tiles_valid_tokens_once(bs, nblk, tail):
+    """The single-rank kernels' TMA loads (rank_units.tile_boxes: the
+    producer warp's arithmetic) over every segment of the unit plan, at
+    the prefill's 128- and 64-token tiles and the decode forms' 64, 32
+    and 16:
+    each tile's boxes cover its valid tokens once, in order, each inside
+    one table block at a row that starts a swizzle atom (a multiple of
+    8), never a -1 slot; a tile's boxes stop at its last valid token."""
+    rng = np.random.default_rng(nblk * bs + tail)
+    MB = nblk + 3
+    table = -np.ones(MB, np.int32)
+    table[:nblk] = rng.permutation(nblk + 5)[:nblk]
+    S = (nblk - 1) * bs + tail
+    for tile, U, hg in ((128, 128, 8), (64, 64, 8), (64, 256, 2),
+                        (32, 256, 3), (16, 256, 1)):
+        plan = {"unit_tokens": U, "head_groups": hg, "blocks": 7}
+        _, spans, _ = _segment_spans(plan, [S])
+        for (g, _), runs in spans.items():
+            for lo, hi in runs:
+                seen = []
+                for t in rank_units.tile_boxes(table, bs, lo, hi, tile):
+                    nv = min(tile, hi - t["t0"])
+                    rows = rank_units.box_rows(bs, tile)
+                    assert len(t["boxes"]) == -(-nv // rows)
+                    for tok, blk, off, n in t["boxes"]:
+                        assert blk >= 0 and off % 8 == 0 and off + n <= bs
+                        assert blk == table[tok // bs] and off == tok % bs
+                        seen += [x for x in range(tok, tok + n)
+                                 if x < t["t0"] + nv]
+                assert seen == list(range(lo, hi))
+
+
+def _range_partial(fn, q, pk, pv, table, tail, bs, lo, hi):
+    """The plain twin over tokens [lo, hi) of a table row (lo a multiple
+    of bs): a table of those tokens' blocks, the last holding hi - its
+    first token."""
+    s0, s1 = lo // bs, -(-hi // bs)
+    sub = table[..., s0:s1].contiguous()
+    return fn(q, pk, pv, sub, torch.full(sub.shape[:-1], hi - (s1 - 1) * bs),
+              scale=q.shape[-1] ** -0.5)
+
+
+def _merged_over_units(kind, plan, q, pk, pv, table, tail, S, rows_of):
+    """The single-rank kernel's decomposition with plain partials: each
+    segment's partial over its tokens, a group's segments LSE-merged
+    (merge_partials), written to the group's rows; (0, -inf, 0) for a
+    group with no unit."""
+    bs = pk.shape[1]
+    fn = (paged_micro_attention_plain if kind == "decode"
+          else paged_prefill_attention_plain)
+    _, spans, _ = _segment_spans(plan, S)
+    lead = q.shape[:-1]
+    o = torch.zeros(q.shape)
+    m = torch.full(lead, float("-inf"))
+    l = torch.zeros(lead)
+    for (g, r), runs in spans.items():
+        parts = []
+        for lo, hi in runs:
+            if kind == "decode":
+                part = _range_partial(fn, q[r:r + 1], pk, pv,
+                                      table[r:r + 1], tail, bs, lo, hi)
+            else:
+                part = _range_partial(fn, q, pk, pv, table, tail, bs, lo, hi)
+            parts.append(part)
+        mo, mm, ml = merge_partials(*(torch.stack(x) for x in zip(*parts)),
+                                    axis=0)
+        mask = rows_of(g)
+        if kind == "decode":
+            o[r][mask], m[r][mask], l[r][mask] = (mo[0][mask], mm[0][mask],
+                                                  ml[0][mask])
+        else:
+            o[mask], m[mask], l[mask] = mo[mask], mm[mask], ml[mask]
+    return o, m, l
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_unit_partials_merge_to_the_unsplit_twin(dtype):
+    """The decode kernel's plan on a small card (3 SMs: groups split over
+    blocks): the plain twin over each segment's tokens, a group's
+    segments LSE-merged, == the unsplit plain twin (an empty table, one
+    shorter than a unit, a tail in the last unit)."""
+    rng = np.random.default_rng(11)
+    R, K, G, D, bs, MB = 3, 2, 2, 16, 16, 64
+    nblks = [0, 3, MB]
+    _, q = _arrays(rng, (R, K * G, D), dtype)
+    _, pk = _arrays(rng, (sum(nblks) + 2, bs, K, D), dtype)
+    _, pv = _arrays(rng, (sum(nblks) + 2, bs, K, D), dtype)
+    perm = rng.permutation(sum(nblks) + 2)
+    table = -np.ones((R, MB), np.int32)
+    used = 0
+    for r, n in enumerate(nblks):
+        table[r, :n] = perm[used:used + n]
+        used += n
+    table = torch.from_numpy(table)
+    tail = torch.tensor([bs, 5, 7], dtype=torch.int32)
+    S = [0, 2 * bs + 5, (MB - 1) * bs + 7]
+    plan = decode_unit_plan(R, K * G, K, D, MB, bs, torch.float32, 3)
+    assert plan["blocks"] == 6 and plan["heads_per_block"] == G
+    hg, heads = plan["head_groups"], plan["heads_per_block"]
+
+    def rows_of(g):                     # the group's query heads
+        kh, grp = divmod(g % hg, hg // K)
+        g0 = kh * G + grp * heads
+        mask = torch.zeros(K * G, dtype=torch.bool)
+        mask[g0:min(g0 + heads, (kh + 1) * G)] = True
+        return mask
+    got = _merged_over_units("decode", plan, q, pk, pv, table, tail, S,
+                             rows_of)
+    want = paged_micro_attention_plain(q, pk, pv, table, tail,
+                                       scale=D ** -0.5)
+    _close(got, want, F32_TOL)
+    assert bool(torch.isneginf(got[1][0]).all())
+
+
+@pytest.mark.parametrize("nblk", [50, 7])
+def test_prefill_unit_partials_merge_to_the_unsplit_twin(nblk):
+    """The bf16 prefill kernel's plan on a small card (9 SMs: two blocks
+    a 128-row tile), the same way: the 128-token units of each tile,
+    merged per tile."""
+    rng = np.random.default_rng(nblk)
+    C, K, G, D, bs, MB = 70, 2, 2, 16, 16, 64
+    _, q = _arrays(rng, (C, K * G, D), "bfloat16")
+    _, pk = _arrays(rng, (nblk + 2, bs, K, D), "bfloat16")
+    _, pv = _arrays(rng, (nblk + 2, bs, K, D), "bfloat16")
+    table = -np.ones((MB,), np.int32)
+    table[:nblk] = rng.permutation(nblk + 2)[:nblk]
+    table = torch.from_numpy(table)
+    tail = torch.tensor(9, dtype=torch.int32)
+    plan = prefill_unit_plan(C, K * G, K, D, MB, bs, 9)
+    nrt = plan["head_groups"] // K
+    assert plan["blocks"] == 8 and nrt == 2
+
+    def rows_of(g):
+        kh, rt = divmod(g, nrt)
+        mask = torch.zeros((C, K * G), dtype=torch.bool)
+        for gr in range(rt * 128, min((rt + 1) * 128, C * G)):
+            mask[gr // G, kh * G + gr % G] = True
+        return mask
+    got = _merged_over_units("prefill", plan, q, pk, pv, table, tail,
+                             [(nblk - 1) * bs + 9], rows_of)
+    want = paged_prefill_attention_plain(q, pk, pv, table, tail,
+                                         scale=D ** -0.5)
+    _close(got, want, F32_TOL)
 
 
 @pytest.mark.parametrize("NR", [1, 2, 3, 4])
@@ -435,30 +601,49 @@ def test_rank_plans_split_all_ranks_work_items(NR):
     assert tiny["blocks"] == 8     # 8 kv heads x one 256-token unit
 
 
-def test_split_plans_fill_the_card_at_the_main_shapes():
-    """The grids the kernels' headers state: decode 64 work items x 6
-    splits (one wave of ~3 blocks per SM); prefill 64 items of 128 rows x
-    4 splits, one wave of 2 per SM (D = 256: 64-row blocks, 1 per SM).
-    The rank kernels at the qwen2-moe global path's shapes (MHA 16 x 128,
-    three ranks holding a request's 63 / 160 / 27 blocks of 16 tokens;
-    a 512-query chunk over a 32 / 160 / 27-block prefix): one wave of
-    persistent blocks, and by the plan on the card (kernels/rank_units.py
-    at these tables) no block walks more than one 256-token unit in
-    decode, nor more than 14 of the prefill's 64-token tiles, where the
-    split plans of PR 15's kernels walked 2,048 and 2,560."""
-    dec = decode_plan(8, 16, 8, 259, 16, H100_SMS)
-    assert dec["grid"] == (8, 8, 6) and dec["heads_per_block"] == 2
-    assert 2 * H100_SMS <= 64 * dec["nsplit"] <= 3 * H100_SMS
-    assert decode_plan(4, 16, 8, 259, 16, H100_SMS)["grid"] == (8, 4, 12)
-    assert decode_plan(4, 16, 8, 64, 16, H100_SMS)["grid"] == (8, 4, 4)
-    pre = prefill_plan(512, 16, 8, 128, 191, 16, torch.bfloat16, H100_SMS)
-    assert pre["grid"] == (8, 8, 4)
-    assert pre["rows_per_block"] == 128 and pre["blocks_per_sm"] == 2
-    assert 64 * 4 <= 2 * H100_SMS and pre["smem_bytes"] == 105_432
-    wide = prefill_plan(33, 8, 2, 256, 23, 64, torch.bfloat16, H100_SMS)
-    assert wide["rows_per_block"] == 64 and wide["blocks_per_sm"] == 1
-    assert prefill_plan(512, 16, 8, 128, 191, 16, torch.float32,
-                        H100_SMS)["nsplit"] == 1
+def test_unit_plans_fill_the_card_at_the_main_shapes():
+    """The plans the kernels' headers state. Decode (units of 256 valid
+    tokens): the main shape, R = 8 over ~4,090 tokens of qwen3's heads,
+    on the tensor cores, 256 blocks (4 a merge group, of the 264 the
+    card holds) each walking exactly 4 of the 1,024 units; starcoder2's G
+    12, every head of a kv head in one block; float32 G 16 at D 256 in
+    four head groups on the CUDA cores. Prefill (128-row x 128-token
+    units): 128 persistent blocks at 230,488 B (D 128, 3 stages), two a
+    group, each 12 units; chameleon's 256 groups two a block; 4 stages at
+    D 64, 2 (64-token tiles) at D 256. The rank
+    kernels at the qwen2-moe global path's shapes (MHA 16 x 128, three
+    ranks holding a request's 63 / 160 / 27 blocks of 16 tokens; a
+    512-query chunk over a 32 / 160 / 27-block prefix): one wave of
+    persistent blocks, no block walking more than one 256-token unit in
+    decode, nor more than 14 of the prefill's 64-token tiles."""
+    dec = decode_unit_plan(8, 16, 8, 128, 259, 16, torch.bfloat16, H100_SMS)
+    assert (dec["blocks"], dec["heads_per_block"], dec["tensor_cores"],
+            dec["groups"]) == (256, 2, True, 64)
+    _, _, walks = _segment_spans(dec, [255 * 16 + 11] * 8)
+    assert max(walks) == min(walks) == 4 and sum(walks) == 64 * 16
+    sc2 = decode_unit_plan(4, 48, 4, 128, 64, 16, torch.bfloat16, H100_SMS)
+    assert (sc2["heads_per_block"], sc2["head_groups"],
+            sc2["tensor_cores"]) == (12, 4, True)
+    g16 = decode_unit_plan(2, 32, 2, 256, 256, 16, torch.float32, H100_SMS)
+    assert (g16["heads_per_block"], g16["head_groups"],
+            g16["tensor_cores"]) == (4, 8, False)
+    for plan in (dec, sc2, g16):
+        assert plan["smem_bytes"] * plan["blocks_per_sm"] <= SMEM_PER_SM
+    pre = prefill_unit_plan(512, 16, 8, 128, 191, 16, H100_SMS)
+    assert (pre["blocks"], pre["groups"], pre["kv_tile"], pre["stages"],
+            pre["smem_bytes"]) == (128, 64, 128, 3, 230_488)
+    _, _, walks = _segment_spans(pre, [187 * 16 + 11])
+    assert max(walks) == min(walks) == 12
+    cham = prefill_unit_plan(512, 64, 8, 128, 153, 16, H100_SMS)
+    assert (cham["blocks"], cham["groups"]) == (128, 256)
+    assert prefill_unit_plan(512, 24, 24, 64, 191, 16, H100_SMS)[
+        "stages"] == 4
+    assert prefill_unit_plan(33, 8, 2, 256, 23, 64, H100_SMS)[
+        "stages"] == 2
+    for D in (64, 128, 256):
+        assert prefill_unit_plan(512, 16, 8, D, 191, 16, H100_SMS)[
+            "smem_bytes"] <= SMEM_PER_SM
+    assert prefill_plan(512, 16, 8, 128)["blocks"] == 8 * 8 * 2
     # The rank kernels.
     bs = 16
     S = np.array([[63 * bs, 38 * bs, 0, 0], [160 * bs, 0, 0, 0],
@@ -481,78 +666,6 @@ def test_split_plans_fill_the_card_at_the_main_shapes():
     tiles = [sum(len(seg["units"]) for seg in rank_units.segments(
         plan, b, pre["blocks"])) for b in range(pre["blocks"])]
     assert max(tiles) <= 14 and sum(tiles) == 64 * (8 + 40 + 7)
-
-
-def _split_view(table, tail, bs, s0, s1):
-    """The table slots [s0, s1) as a table of their own: the request's
-    tail applies only in the split that holds its last valid slot."""
-    last = (table >= 0).sum(dim=-1) - 1
-    sub_tail = torch.where((last >= s0) & (last < s1), tail,
-                           torch.full_like(tail, bs))
-    return table[..., s0:s1].contiguous(), sub_tail
-
-
-def _merged_over_splits(fn, q, pk, pv, table, tail, bs, nsplit, spb):
-    MB = table.shape[-1]
-    part = None
-    for s in range(nsplit):
-        tb, tl = _split_view(table, tail, bs, s * spb,
-                             min((s + 1) * spb, MB))
-        p = fn(q, pk, pv, tb, tl, scale=q.shape[-1] ** -0.5)
-        part = p if part is None else combine(part, p)
-    return part
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_split_partials_merge_to_the_unsplit_twin(dtype):
-    """The decode kernel's split: the plain twin over each split's slots,
-    LSE-merged with ``combine``, == the unsplit plain twin (an empty
-    table, one shorter than a split, a tail in the last split)."""
-    rng = np.random.default_rng(11)
-    R, K, G, D, bs, MB = 3, 2, 2, 16, 16, 64
-    nblks = [0, 3, MB]
-    _, q = _arrays(rng, (R, K * G, D), dtype)
-    _, pk = _arrays(rng, (sum(nblks) + 2, bs, K, D), dtype)
-    _, pv = _arrays(rng, (sum(nblks) + 2, bs, K, D), dtype)
-    perm = rng.permutation(sum(nblks) + 2)
-    table = -np.ones((R, MB), np.int32)
-    used = 0
-    for r, n in enumerate(nblks):
-        table[r, :n] = perm[used:used + n]
-        used += n
-    table = torch.from_numpy(table)
-    tail = torch.tensor([bs, 5, 7], dtype=torch.int32)
-    plan = decode_plan(R, K * G, K, MB, bs, H100_SMS)
-    assert plan["nsplit"] == 4
-    got = _merged_over_splits(paged_micro_attention_plain, q, pk, pv, table,
-                              tail, bs, plan["nsplit"],
-                              plan["slots_per_split"])
-    want = paged_micro_attention_plain(q, pk, pv, table, tail,
-                                       scale=D ** -0.5)
-    _close(got, want, F32_TOL)
-    assert bool(torch.isneginf(got[1][0]).all())
-
-
-@pytest.mark.parametrize("nblk", [50, 7])
-def test_prefill_split_partials_merge_to_the_unsplit_twin(nblk):
-    """The bf16 prefill kernel's split of the prefix, the same way."""
-    rng = np.random.default_rng(nblk)
-    C, K, G, D, bs, MB = 5, 2, 2, 16, 16, 64
-    _, q = _arrays(rng, (C, K * G, D), "bfloat16")
-    _, pk = _arrays(rng, (nblk + 2, bs, K, D), "bfloat16")
-    _, pv = _arrays(rng, (nblk + 2, bs, K, D), "bfloat16")
-    table = -np.ones((MB,), np.int32)
-    table[:nblk] = rng.permutation(nblk + 2)[:nblk]
-    table = torch.from_numpy(table)
-    tail = torch.tensor(9, dtype=torch.int32)
-    plan = prefill_plan(C, K * G, K, D, MB, bs, torch.bfloat16, H100_SMS)
-    assert plan["nsplit"] == 4
-    got = _merged_over_splits(paged_prefill_attention_plain, q, pk, pv,
-                              table, tail, bs, plan["nsplit"],
-                              plan["slots_per_split"])
-    want = paged_prefill_attention_plain(q, pk, pv, table, tail,
-                                         scale=D ** -0.5)
-    _close(got, want, F32_TOL)
 
 
 def _prefill_emulation(q, pk, pv, table, tail, *, scale, split_p):
