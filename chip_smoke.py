@@ -68,7 +68,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    reallocated, and each engine decode step must launch the decode rank
    kernel once per layer (28) and no single-rank paged kernel.
    The memory hierarchy, overload and fault phases below serve qwen3's
-   first 14 of 28 layers (``QWEN3_EXT_LAYERS``: views of its weights).
+   first 7 of 28 layers (``QWEN3_EXT_LAYERS``: views of its weights).
    Then, once per pool mode, the memory hierarchy: ``prefix_cache=True``
    and a 96-frame host tier, 128 blocks an instance, every request on
    instance 0: a cold request (a 768-token prefix + 128 tokens), three
@@ -149,7 +149,24 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    2) mesh with the pool over ("pod", "data"): placed logits within
    1e-5 relative of the whole tree's, the streams equal in every
    process, to the whole tree's and to the single-process steps' here.
-   It also reports whether gloo takes bf16 CUDA tensors. Each group
+   After every placed prefill the same tree runs the sequence-parallel
+   prefill (``seq_parallel=True``): the same first tokens, the pools
+   within ``SP_POOL_RTOL`` (bf16), one write-schedule decode from its
+   pools giving the placed stream, one flash launch a layer, and its
+   collectives a layer (``CollectiveSpy``: 2 all-reduces without it; 2
+   reduce-scatters, 2 all-gathers and no all-reduce with it, the
+   embedding's and the unembedding's counted apart) and its seconds;
+   the float32 parity runs it on every mesh too (logits within 1e-5,
+   streams equal). It also reports whether gloo takes bf16 CUDA
+   tensors, and ``scripts/gloo_probe.py`` whether gloo runs a
+   reduce-scatter (the port's reduce-scatter runs directly: it must) or
+   a send (the port stages the Ring's sends where it does not) on CUDA
+   tensors directly. Each group
+   also runs the paper's Ring baseline (``ring_attention_prefill``, bf16,
+   S = 16,384 over its W processes, GQA 16/8 x 128) against float32
+   causal attention of the whole sequence, with the bytes staged and
+   the host time, beside ``flash_prefill`` over the same S in one
+   process. Each group
    then runs the state steps on placed weights: recurrentgemma-9b (5
    of 38 layers: one group and two leftover layers; bf16, B = 2 x S
    = 4,096, past its 2,048-token window) and xlstm-350m (24 layers, B =
@@ -264,7 +281,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    kernel is then held (bf16 and float32) at each cell's shape. Last,
    ``python -m repro_torch.launch.dryrun --all --both-meshes`` in a
    subprocess plans all 80 cells and must exit 0.
-7. Parity, float32. qwen3-0.6b (14 of 28 layers, ``QWEN3_EXT_LAYERS``):
+7. Parity, float32. qwen3-0.6b (7 of 28 layers, ``QWEN3_EXT_LAYERS``):
    a creditor-spanning request served through ``LLMServer``, in both
    pool modes; qwen2-moe-a2.7b at full
    width and 4 layers in global-pool mode, the prompt striped over both
@@ -291,7 +308,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 8. Training (no kernel of the port may run: training uses the plain
    attention core, as JAX does). qwen3-0.6b at full width and depth
    (28 layers, bf16, remat) through the port's trainer
-   (``launch.train.run``) at S = 4,096 and B = 2 for 6 steps, and
+   (``launch.train.run``) at S = 4,096 and B = 2 for 5 steps, and
    qwen2-moe-a2.7b at full width and 4 of 24 layers with
    ``ep_groups=4`` at S = 2,048 and B = 4 for 5 steps: every loss and
    gradient norm finite; reports the median step time (the first two
@@ -390,7 +407,7 @@ RESTART_RTOL = 1e-3
 # sequence length, its batch of 256 cut to 2 (time); qwen2-moe-a2.7b at
 # full width, 4 of 24 layers (full depth needs about 14.3e9 x 12 B of
 # weights, gradients and moments).
-TRAIN_DENSE = {"steps": 6, "seq": 4096, "batch": 2}
+TRAIN_DENSE = {"steps": 5, "seq": 4096, "batch": 2}
 TRAIN_MOE = {"steps": 5, "seq": 2048, "batch": 4, "layers": 4,
              "ep_groups": 4}
 # float32 card-vs-CPU steps: (arch, layers, TrainConfig fields, batch
@@ -2981,8 +2998,9 @@ MESH_SERVE_LAYERS = 7    # the mesh groups' qwen3 depth (of 28: time)
 # Depths of the phases that rerun the main path's machinery at full
 # width (qwen3's memory hierarchy, overload and faults; the hybrid and
 # ssm servers): cut so that the script stays inside its time on a slow
-# host (one call took 1,201 s at full depth).
-QWEN3_EXT_LAYERS = 14    # of 28
+# host (one call took 1,201 s at full depth; qwen3's 14 layers became 7
+# to make room for the sequence-parallel prefill and the Ring baseline).
+QWEN3_EXT_LAYERS = 7     # of 28
 HYBRID_SERVE_LAYERS = 14  # of 38: four (rglru, rglru, attn) groups + 2
 MOE_SERVE_LAYERS = 12     # of 24
 SSM_SERVE_LAYERS = 8     # of 24: one group of 7 mLSTM + 1 sLSTM
@@ -3024,12 +3042,13 @@ def mesh_model(job, dtype=None, layers=None):
 
 
 class CollectiveSpy:
-    """Calls and host seconds of every all-reduce and broadcast (the
-    port calls them as ``torch.distributed`` attributes). With gloo a
-    CUDA tensor is staged through the host, so a call's host time
-    includes waiting for the kernels queued before it."""
+    """Calls and host seconds of every all-reduce, broadcast, all-gather
+    and reduce-scatter (the port calls them as ``torch.distributed``
+    attributes). With gloo a CUDA tensor is staged through the host, so
+    a call's host time includes waiting for the kernels queued before
+    it."""
 
-    NAMES = ("all_reduce", "broadcast")
+    NAMES = ("all_reduce", "broadcast", "all_gather", "reduce_scatter")
 
     def __enter__(self):
         import torch.distributed as dist
@@ -3197,6 +3216,9 @@ def mesh_worker(rank, world, store, job, queue):
         if job.get("state"):
             release_memory()
             timed("state", state_job, world, job, device)
+        if job.get("ring"):
+            release_memory()
+            timed("ring", ring_job, world, job, device)
         queue.put((rank, out))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
@@ -3297,7 +3319,14 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
            "config": {"pool_blocks": 96, "max_local_len": 512}}
     job = {"device": str(device), "arch": arch, "smoke": smoke,
            "layers": layers, "prompts": prompts, "n_new": n_new,
-           "serve_layout": True, "placement": True, "state": True}
+           "serve_layout": True, "placement": True, "state": True,
+           "ring": True}
+    # Which collectives gloo runs directly on this device's tensors (a
+    # CUDA send aborts its process: pairs of their own, running beside
+    # the groups).
+    probe = subprocess.Popen(
+        [sys.executable, str(ROOT / "scripts" / "gloo_probe.py"),
+         "--device", device.type], stdout=subprocess.PIPE, text=True)
     n_layers = layers or cfg.num_layers
     report = {"prompt_lens": list(prompt_lens), "n_new": n_new,
               "layers": n_layers, "instances": 4, "backend": "gloo",
@@ -3351,11 +3380,17 @@ def mesh_phase(params, cfg, device, prompt_lens, n_new, *, smoke=False,
             runs, world, job, device, sl_single)
         report["layouts"][str(world)]["state"] = state_check(
             runs, world, st_single)
+        report["layouts"][str(world)]["ring"] = ring_check(runs, world)
         if world == 2:
             report["parity"] = mesh_parity(runs, cfg, device, par)
             report["grad_sync"] = mesh_grad_sync_check(runs, params, device)
             report["ext"] = ext_check(runs, "ext", device, n_layers)
             report["ext32"] = ext_mesh_parity(runs, cfg, device, par, job)
+    report["ring_flash"] = ring_flash_ms(device, smoke)
+    report["gloo_probe"] = gp = json.loads(probe.communicate(timeout=300)[0])
+    if any(r["port"] != "ok" for r in gp.values()) or \
+            gp["reduce_scatter"]["direct"] != "ok":
+        raise AssertionError(f"gloo probe: {gp}")
     report["phase_s"] = time.perf_counter() - t_phase
     return report
 
@@ -3545,7 +3580,8 @@ def tbt_numbers(secs, R) -> dict:
             "tokens_per_s": R * len(secs) / sum(secs)}
 
 
-def sl_prefill(params, cfg, layout, toks, sh, device, mesh=None):
+def sl_prefill(params, cfg, layout, toks, sh, device, mesh=None,
+               seq_parallel=False):
     """``serve_prefill_step`` once, counted: (first tokens, pools, host
     seconds, counts)."""
     from repro_torch.kernels import ops
@@ -3555,7 +3591,7 @@ def sl_prefill(params, cfg, layout, toks, sh, device, mesh=None):
     t0 = time.perf_counter()
     first, pk, pv = ss.serve_prefill_step(
         params, cfg, layout, toks, block_size=sh["bs"], NP=sh["NP"],
-        n_data=sh["n_data"], mesh=mesh)
+        n_data=sh["n_data"], mesh=mesh, seq_parallel=seq_parallel)
     sync(device)
     return first, (pk, pv), time.perf_counter() - t0, ops.counts()
 
@@ -3943,6 +3979,12 @@ PLACEMENT = {"B": 2, "S": 2048, "bs": 128, "NP": 4, "steps": 4,
              "moe_S": 512, "moe_steps": 4, "parity_layers": 4,
              "parity_S": 320, "parity_steps": 4, "seed": 21}
 PLACEMENT_RTOL = 1e-5   # placed vs whole-tree logits, float32, relative
+# bf16 pools of the sequence-parallel prefill against the prefill
+# without it, on the same placed tree, relative to the largest magnitude:
+# the reduce-scatter sums the float32 partials in another order than the
+# all-reduce, so a bf16 rounding may differ by one ulp (2^-8 relative),
+# and the difference carries through the layers.
+SP_POOL_RTOL = 2 ** -5
 PLACEMENT_SMOKE = dict(PLACEMENT, S=64, bs=8, steps=3, moe_S=32,
                        moe_steps=2, parity_layers=2, parity_S=60,
                        parity_steps=3)
@@ -3956,6 +3998,109 @@ PLACEMENT_PARITY = {2: ((("data", "model"), (1, 2), False),),
                         (("data", "model"), (2, 2), False),
                         (("data", "model"), (2, 2), True),
                         (("pod", "data", "model"), (2, 1, 2), False))}
+
+
+# The paper's Ring baseline (section 7.4, Fig. 11) in each mesh group:
+# bf16, B 1, qwen3's heads (GQA 16/8 x 128), S in all (S / W a process),
+# held to float32 causal attention of the whole sequence within
+# RING_ATOL + RING_RTOL * (|plain| + plain_abs): the flash contract's
+# numbers, where plain_abs, the same attention of |v|, stands beside
+# |plain| because the ring (as JAX's ``micro_attention_prefill``) rounds
+# each probability to bf16 before P V, an error of up to 2^-9 of each
+# term p |v|, which |plain| does not bound where the terms cancel.
+RING = {"S": 16384, "H": 16, "K": 8, "D": 128, "seed": 41}
+RING_SMOKE = dict(RING, S=64, H=4, K=2, D=16)
+RING_ATOL, RING_RTOL = 1e-4, 2 ** -7
+
+
+def ring_inputs(r, device):
+    """The whole sequence's q, k, v (bf16, seeded on ``device``)."""
+    gen = torch.Generator(device=device).manual_seed(r["seed"])
+    return [torch.randn((1, r["S"], h, r["D"]), generator=gen,
+                        device=device).to(torch.bfloat16)
+            for h in (r["H"], r["K"], r["K"])]
+
+
+def causal_reference(q, k, v, rows: slice, chunk: int = 1024):
+    """float32 causal attention of queries ``rows`` over the whole
+    sequence (B 1, GQA), a chunk of queries at a time, and the same
+    attention of |v|: ([1, T, H, D], [1, T, H, D])."""
+    _, S, H, D = q.shape
+    G = H // k.shape[2]
+    kf, vf = (t[0].float().repeat_interleave(G, 1) for t in (k, v))
+    out = torch.empty((2, rows.stop - rows.start, H, D), device=q.device)
+    for a in range(rows.start, rows.stop, chunk):
+        b = min(a + chunk, rows.stop)
+        sc = torch.einsum("chd,shd->hcs", q[0, a:b].float(), kf[:b]) \
+            * D ** -0.5
+        pos = torch.arange(b, device=q.device)
+        sc.masked_fill_(pos[None, None] > pos[a:b, None][None], -torch.inf)
+        p = torch.softmax(sc, -1)
+        for i, w in enumerate((vf[:b], vf[:b].abs())):
+            out[i, a - rows.start:b - rows.start] = torch.einsum(
+                "hcs,shd->chd", p, w)
+    return out[0][None], out[1][None]
+
+
+def ring_job(world, job, device):
+    """This process's block of ``ring_attention_prefill`` over the group
+    (gloo: CUDA blocks staged through host memory), timed on the host,
+    and its error against ``causal_reference``."""
+    import torch.distributed as dist
+    from repro_torch.core.baselines import ring_attention_prefill
+    from repro_torch.distributed.mesh import HostStaging
+    r = RING_SMOKE if job.get("smoke") else RING
+    q, k, v = ring_inputs(r, device)
+    rank, s = dist.get_rank(), r["S"] // world
+    rows = slice(rank * s, (rank + 1) * s)
+    pos = torch.arange(r["S"], device=device)[None, rows]
+    staging = HostStaging()
+    dist.barrier()
+    sync(device)
+    t0 = time.perf_counter()
+    out = ring_attention_prefill(
+        q[:, rows], k[:, rows], v[:, rows], pos, pos,
+        torch.ones((1, s), dtype=torch.bool, device=device),
+        dist.group.WORLD, staging=staging)
+    sync(device)
+    ring_s = time.perf_counter() - t0
+    want, want_abs = causal_reference(q, k, v, rows)
+    d = (out.float() - want).abs()
+    return {"S": r["S"], "T": s, "ring_s": ring_s,
+            "staged_bytes": staging.bytes, "staged_copies": staging.copies,
+            "max_abs_err": float(d.max()),
+            "outside_bound": int((d > RING_ATOL + RING_RTOL
+                                  * (want.abs() + want_abs)).sum())}
+
+
+def ring_check(runs, world) -> dict:
+    """The Ring baseline's blocks over every process: each within the
+    bound, the bytes staged and the host seconds of each."""
+    rings = [run["ring"] for run in runs]
+    bad = [r["outside_bound"] for r in rings]
+    if any(bad):
+        raise AssertionError(f"ring W={world}: {bad} elements outside "
+                             f"{RING_ATOL} + {RING_RTOL:.3g}*(|plain| + "
+                             f"plain_abs) ({rings})")
+    return {"W": world, "S": rings[0]["S"], "T": rings[0]["T"],
+            "dtype": "bfloat16",
+            "tol": f"{RING_ATOL} + {RING_RTOL:.3g}*(|plain| + plain_abs)",
+            "max_abs_err": max(r["max_abs_err"] for r in rings),
+            "ring_s": [r["ring_s"] for r in rings],
+            "staged_bytes": [r["staged_bytes"] for r in rings],
+            "staged_copies": [r["staged_copies"] for r in rings]}
+
+
+def ring_flash_ms(device, smoke) -> dict:
+    """``flash_prefill`` over the Ring baseline's whole sequence in one
+    process (the same inputs), CUDA-event milliseconds."""
+    from repro_torch.kernels.ops import flash_prefill
+    r = RING_SMOKE if smoke else RING
+    q, k, v = ring_inputs(r, device)
+    out = {"S": r["S"], "H": r["H"], "K": r["K"], "D": r["D"]}
+    if device.type == "cuda":
+        out["flash_ms"] = time_ms(lambda: flash_prefill(q, k, v), iters=5)
+    return out
 
 
 def gloo_bf16_probe(device) -> dict:
@@ -4015,13 +4160,69 @@ def placement_layout(cfg, mesh):
             int(np.prod([sizes[a] for a in axes])))
 
 
+def sp_collectives(plain, sp, cfg) -> dict:
+    """The collectives of a placed prefill without (``plain``) and with
+    sequence parallelism (``sp``; CollectiveSpy calls) a layer, the
+    embedding's (the vocab-split lookup: an all-reduce, or a
+    reduce-scatter) and the unembedding's (a tied table's logits
+    gathered, an untied ``unembed`` split over d summed) counted apart;
+    ValueError unless the residual path makes 2 all-reduces a layer
+    without, and none with it, but 2 reduce-scatters and 2 all-gathers
+    a layer and one broadcast of the last position (one all-reduce or
+    reduce-scatter fewer where ``wo`` stays whole: heads that do not
+    split over the production TP degree, as in the smoke configs)."""
+    from repro_torch.distributed.sharding import PRODUCTION_TP
+    L = cfg.num_layers
+    n = 2 if cfg.num_heads % PRODUCTION_TP == 0 else 1
+    un_ag, un_ar = (1, 0) if cfg.tie_embeddings else (0, 1)
+    got = {"plain_all_reduce": (plain["all_reduce"] - 1 - un_ar) / L,
+           "sp_all_reduce": (sp["all_reduce"] - un_ar) / L,
+           "sp_reduce_scatter": (sp["reduce_scatter"] - 1) / L,
+           "sp_all_gather": (sp["all_gather"] - un_ag) / L,
+           "sp_broadcast": sp["broadcast"]}
+    want = {"plain_all_reduce": n, "sp_all_reduce": 0,
+            "sp_reduce_scatter": n, "sp_all_gather": 2, "sp_broadcast": 1}
+    if got != want:
+        raise ValueError(f"sequence-parallel collectives a layer {got} "
+                         f"(want {want}; calls {plain} / {sp})")
+    return {"per_layer": got, "plain_calls": plain, "sp_calls": sp,
+            "embed": {"plain": "all_reduce", "sp": "reduce_scatter"},
+            "unembed": "all_gather" if un_ag else "all_reduce"}
+
+
+def sp_prefill_check(placed, cfg, layout, toks, sh, device, mesh, first,
+                     pools, plain):
+    """The sequence-parallel prefill on the same placed tree as the
+    prefill that gave ``first`` and ``pools`` (``plain``: that prefill's
+    CollectiveSpy): the flash kernel once a layer and no plain call,
+    the same first tokens, the pools within ``SP_POOL_RTOL``, the
+    collectives of ``sp_collectives``. Returns (report, its pools)."""
+    from repro_torch.serving import sharded_step as ss
+    with CollectiveSpy() as spy:
+        sfirst, spools, sp_s, c = sl_prefill(placed, cfg, layout, toks, sh,
+                                             device, mesh, seq_parallel=True)
+    check_prefill_counts(c, cfg.num_layers, device)
+    sfirst = ss.gather_batch(sfirst, mesh, layout, len(first)).cpu().numpy()
+    err = max(rel_diff(a, b) for a, b in zip(spools, pools))
+    if not (sfirst == first).all() or err > SP_POOL_RTOL:
+        raise AssertionError(f"sequence-parallel prefill: first {sfirst} "
+                             f"(without: {first}), pools {err} relative")
+    return {"prefill_s": sp_s,
+            "collectives": sp_collectives(plain.calls, spy.calls, cfg),
+            "collective_s": spy.seconds,
+            "plain_collective_s": plain.seconds, "pool_rel_err": err,
+            "flash_launches": served(c, "flash_prefill", device)}, spools
+
+
 def placed_serve_run(arch, mesh, job, device, ph, *, S, steps,
                      replicated):
     """One model on placed weights over ``mesh``: the weight bytes this
     process holds (against the spec tree's prediction), a prefill of B x
     S, then ``steps`` decode steps of each schedule; with ``replicated``
     the same steps on the whole tree in between (replicated, placed,
-    placed, replicated), for TBT side by side."""
+    placed, replicated), for TBT side by side. Then the sequence-
+    parallel prefill (``sp_prefill_check``) and one write-schedule
+    decode from its pools, whose stream is the placed one's."""
     from repro_torch.distributed.placement import local_bytes, seeded_params
     from repro_torch.serving import sharded_step as ss
     cfg = placement_model(job, arch)
@@ -4039,10 +4240,13 @@ def placed_serve_run(arch, mesh, job, device, ph, *, S, steps,
                                                       (B, S))
     if device.type == "cuda":
         reset_peak_memory()
-    first, pools, prefill_s, c = sl_prefill(placed, cfg, layout, toks, sh,
-                                            device, mesh)
+    with CollectiveSpy() as spy:
+        first, pools, prefill_s, c = sl_prefill(placed, cfg, layout, toks,
+                                                sh, device, mesh)
     check_prefill_counts(c, L, device)
     first = ss.gather_batch(first, mesh, layout, B).cpu().numpy()
+    sp, sp_pools = sp_prefill_check(placed, cfg, layout, toks, sh, device,
+                                    mesh, first, pools, spy)
     wb, _, NBl = ss.prefill_layout(B, S, bs, ph["NP"], n_data=n_data)
     tabs = layout_tables(wb, NBl, S, bs, -(-S // bs) + 1)
     out = {"arch": arch, "mesh": list(mesh.shape),
@@ -4064,6 +4268,15 @@ def placed_serve_run(arch, mesh, job, device, ph, *, S, steps,
         out["runs"][f"{who}_{'opt' if opt else 'write'}"] = {
             "stream": stream.tolist(), **tbt_numbers(secs, B)}
         del run
+    stream, _, counts, _ = decode_run(placed, cfg, layout, sp_pools, tabs, S,
+                                      bs, first, steps, opt=False,
+                                      device=device, mesh=mesh)
+    check_decode_counts(counts, L, device)
+    if stream.tolist() != out["runs"]["placed_write"]["stream"]:
+        raise AssertionError(f"{arch}: the sequence-parallel prefill's "
+                             f"stream {stream.tolist()} differs")
+    out["seq_parallel"] = sp
+    del sp_pools
     if device.type == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     out["first"] = first.tolist()
@@ -4090,9 +4303,12 @@ def placed_parity_run(mesh, fsdp, job, device, ph):
            "fsdp": fsdp, "pool_axes": list(layout.pool_axes),
            "n_data": n_data}
     firsts, streams = {}, {}
-    for who, params in (("placed", placed), ("replicated", whole)):
-        first, pools, _, _ = sl_prefill(params, cfg, layout, toks, sh,
-                                        device, mesh)
+    for who, params in (("placed", placed), ("replicated", whole),
+                        ("sp", placed)):
+        first, pools, _, c = sl_prefill(params, cfg, layout, toks, sh,
+                                        device, mesh,
+                                        seq_parallel=who == "sp")
+        check_prefill_counts(c, cfg.num_layers, device)
         firsts[who] = ss.gather_batch(first, mesh, layout, B).cpu().numpy()
         wb, _, NBl = ss.prefill_layout(B, S, bs, ph["NP"], n_data=n_data)
         tabs = layout_tables(wb, NBl, S, bs, -(-S // bs) + 1)
@@ -4104,15 +4320,18 @@ def placed_parity_run(mesh, fsdp, job, device, ph):
                 logits=True)
             streams[who, opt] = (stream, lg)
     res["first"] = firsts["placed"].tolist()
-    res["first_equal"] = bool((firsts["placed"] ==
-                               firsts["replicated"]).all())
+    for who in ("placed", "sp"):
+        res[f"{who}_first_equal"] = bool((firsts[who] ==
+                                          firsts["replicated"]).all())
     for opt in (False, True):
-        (sp, lp), (sr, lr) = streams["placed", opt], streams["replicated",
-                                                            opt]
-        key = "opt" if opt else "write"
-        res[key] = {"stream": sp.tolist(),
-                    "streams_equal": bool((sp == sr).all()),
-                    "logit_rel_err": rel_diff(lp, lr)}
+        sr, lr = streams["replicated", opt]
+        res["opt" if opt else "write"] = {
+            f"{who}_{k}": v for who in ("placed", "sp")
+            for k, v in (("stream", streams[who, opt][0].tolist()),
+                         ("streams_equal",
+                          bool((streams[who, opt][0] == sr).all())),
+                         ("logit_rel_err",
+                          rel_diff(streams[who, opt][1], lr)))}
     del placed, whole
     return res
 
@@ -4177,7 +4396,8 @@ def placement_check(runs, world, job, device, single):
                                               ["stream"]) ==
                                      np.array(r0["runs"][
                                          f"replicated_{sched}"]["stream"])))
-                for sched in ("write", "opt")}}
+                for sched in ("write", "opt")},
+            "seq_parallel": sp_report([p["runs"][key] for p in jobs])}
     if "moe" in jobs[0]:
         m0 = jobs[0]["moe"]
         for j, p in enumerate(jobs):
@@ -4196,31 +4416,56 @@ def placement_check(runs, world, job, device, single):
                       "peak_mem_bytes": [p["moe"].get("peak_mem_bytes")
                                          for p in jobs],
                       "tbt_p50_s": {n: [p["moe"]["runs"][n]["tbt_p50_s"]
-                                        for p in jobs] for n in m0["runs"]}}
+                                        for p in jobs] for n in m0["runs"]},
+                      "seq_parallel": sp_report([p["moe"] for p in jobs])}
     for i, p0 in enumerate(jobs[0]["parity"]):
         want = single_placement_streams(job, device, ph, single,
                                         p0["n_data"])
         for j, p in enumerate(jobs):
             par = p["parity"][i]
-            err = max(par[k]["logit_rel_err"] for k in ("write", "opt"))
-            if err > PLACEMENT_RTOL or not par["first_equal"] or not all(
-                    par[k]["streams_equal"] for k in ("write", "opt")):
-                raise AssertionError(f"placement parity {par['mesh']} "
-                                     f"fsdp={par['fsdp']} process {j}: "
-                                     f"logits {err} relative, {par}")
-            got = (par["first"], par["write"]["stream"], par["opt"]["stream"])
-            if got != want:
-                raise AssertionError(f"placement parity {par['mesh']} "
-                                     f"process {j}: streams {got} != the "
-                                     f"single-process step's {want}")
+            for who in ("placed", "sp"):       # sp: sequence-parallel
+                err = max(par[k][f"{who}_logit_rel_err"]
+                          for k in ("write", "opt"))
+                if err > PLACEMENT_RTOL or not par[f"{who}_first_equal"] \
+                        or not all(par[k][f"{who}_streams_equal"]
+                                   for k in ("write", "opt")):
+                    raise AssertionError(
+                        f"placement parity {par['mesh']} fsdp="
+                        f"{par['fsdp']} process {j} {who}: logits {err} "
+                        f"relative, {par}")
+                got = (par["first"], par["write"][f"{who}_stream"],
+                       par["opt"][f"{who}_stream"])
+                if got != want:
+                    raise AssertionError(
+                        f"placement parity {par['mesh']} process {j} "
+                        f"{who}: streams {got} != the single-process "
+                        f"step's {want}")
         rep["parity"].append({
             k: p0[k] for k in ("mesh", "names", "fsdp", "pool_axes")} | {
-            "logit_rel_err": max(p["parity"][i][k]["logit_rel_err"]
-                                 for p in jobs for k in ("write", "opt")),
+            f"{who}_logit_rel_err": max(
+                p["parity"][i][k][f"{who}_logit_rel_err"]
+                for p in jobs for k in ("write", "opt"))
+            for who in ("placed", "sp")} | {
             "streams_equal_single_process": True})
     if device.type == "cuda":
         release_memory()
     return rep
+
+
+def sp_report(runs) -> dict:
+    """The sequence-parallel prefill of one placed run over every
+    process (``placed_serve_run``'s ``seq_parallel``), its prefill
+    seconds beside the prefill's without it."""
+    sps = [r["seq_parallel"] for r in runs]
+    return {"prefill_s": [sp["prefill_s"] for sp in sps],
+            "plain_prefill_s": [r["prefill_s"] for r in runs],
+            "collectives": sps[0]["collectives"],
+            "collective_s": [sp["collective_s"] for sp in sps],
+            "plain_collective_s": [sp["plain_collective_s"] for sp in sps],
+            "pool_rel_err": max(sp["pool_rel_err"] for sp in sps),
+            "pool_rtol": SP_POOL_RTOL,
+            "flash_launches": [sp["flash_launches"] for sp in sps],
+            "stream_equals_plain": True}
 
 
 def single_placement_streams(job, device, ph, single, n_data):
@@ -5608,6 +5853,14 @@ def main(argv=None) -> int:
                    for lay in report["mesh"]["layouts"].values()
                    for r in lay["state"]["runs"]
                    if r["arch"] == "recurrentgemma-9b"]
+    # The sequence-parallel placed prefills' flash launches (each
+    # process's, one a layer).
+    sp_flash = [{"arch": r["arch"], "mesh": r["mesh"],
+                 "launches": r["seq_parallel"]["flash_launches"]}
+                for lay in report["mesh"]["layouts"].values()
+                for r in list(lay["placement"]["runs"].values())
+                + ([lay["placement"]["moe"]] if "moe" in lay["placement"]
+                   else [])]
     # The ServeLayout path's launches (phase 2) and its shapes' rows.
     sl = report["serve_layout"]
 
@@ -5724,6 +5977,7 @@ def main(argv=None) -> int:
             kernels[-1]["mesh_ext_launches"] = ext_launches[name]
         if name == "flash_prefill":
             kernels[-1]["placed_state_launches"] = state_flash
+            kernels[-1]["placed_seq_parallel_launches"] = sp_flash
         if name in sl_extra:
             kernels[-1].update(sl_extra[name])
         if name in bs128_extra:

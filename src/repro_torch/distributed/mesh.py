@@ -148,6 +148,39 @@ def shard_rank_base(mesh, pool_axes: Sequence[str], r_loc: int) -> int:
     return pool_shards(mesh, pool_axes).index * r_loc
 
 
+def host_staged(backend, device) -> bool:
+    """Whether a point-to-point send of a tensor on ``device`` over a
+    process group of ``backend`` goes through host memory. NCCL sends
+    CUDA tensors and gloo host ones; gloo runs its collectives on CUDA
+    tensors (all-reduce, broadcast, all-gather, reduce-scatter), but a
+    send of one aborts the process (torch 2.11, CUDA 12.8:
+    ``scripts/gloo_probe.py``)."""
+    return str(backend) == dist.Backend.GLOO and \
+        torch.device(device).type == "cuda"
+
+
+@dataclass
+class HostStaging:
+    """The copies a process made between its card and host memory for
+    the sends its backend cannot make from the card (``host_staged``):
+    only the transport is staged."""
+    copies: int = 0
+    bytes: int = 0          # card -> host and host -> card
+
+    def to_host(self, tensors):
+        """``tensors`` copied to host memory, counted."""
+        return [self._count(t).cpu() for t in tensors]
+
+    def to_device(self, tensors, device):
+        """Host ``tensors`` copied back to ``device``, counted."""
+        return [self._count(t).to(device) for t in tensors]
+
+    def _count(self, t: torch.Tensor) -> torch.Tensor:
+        self.copies += 1
+        self.bytes += t.numel() * t.element_size()
+        return t
+
+
 def _control_device(group) -> torch.device:
     """Where a host scalar goes for a collective over ``group``: NCCL
     takes only CUDA tensors (the process's current card), gloo host
@@ -189,5 +222,6 @@ def check_replicated(group, what: str, obj) -> None:
             f"between processes (here {d:#x}, min {lo:#x}, max {hi:#x})")
 
 
-__all__ = ["MESH_AXES", "PoolShards", "agreed_clock", "check_replicated",
-           "make_mesh", "mesh_group", "pool_shards", "shard_rank_base"]
+__all__ = ["HostStaging", "MESH_AXES", "PoolShards", "agreed_clock",
+           "check_replicated", "host_staged", "make_mesh", "mesh_group",
+           "pool_shards", "shard_rank_base"]

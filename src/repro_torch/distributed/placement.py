@@ -18,7 +18,9 @@ A ``PlacedParams`` is explicit: the local shards, their specs (as
 read it through ``layer`` and ``top``, which all-gather the FSDP dims
 (every axis but "model") of the leaves a layer uses right before it uses
 them, and through ``tp``, the "model" axis's collectives: ``sum`` (the
-row-parallel all-reduce, in float32) and ``cat`` (an all-gather).
+row-parallel all-reduce, in float32), ``cat`` (an all-gather), and for
+the sequence-parallel prefill ``sum_scatter`` (the reduce-scatter, in
+float32) and ``from_last`` (a broadcast from the axis' last process).
 """
 from __future__ import annotations
 
@@ -93,7 +95,7 @@ def all_gather_cat(x: torch.Tensor, shards, dim: int = 0) -> torch.Tensor:
 
 class TPAxis:
     """This process's place on the TP ("model") axis of a mesh, and the
-    two collectives of tensor parallelism over it."""
+    collectives of tensor parallelism over it."""
 
     def __init__(self, shards):
         self.shards = shards
@@ -106,9 +108,40 @@ class TPAxis:
         dist.all_reduce(y, group=self.shards.group)
         return y.to(dtype or x.dtype)
 
+    def sum_scatter(self, x: torch.Tensor, dim: int,
+                    dtype=None) -> torch.Tensor:
+        """This process's chunk along ``dim`` (its TP index's, as
+        ``shard`` cuts it) of the sum of row-parallel partials: one
+        reduce-scatter, summed in float32 and cast to ``dtype`` (default:
+        ``x``'s)."""
+        if x.shape[dim] % self.count:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over a TP axis of {self.count}")
+        group = self.shards.group
+        chunks = x.float().chunk(self.count, dim)
+        parts = [None] * self.count          # by rank in the group
+        for j, owner in enumerate(self.shards.owners):
+            parts[dist.get_group_rank(group, owner)] = chunks[j].contiguous()
+        y = torch.empty_like(parts[0])
+        dist.reduce_scatter(y, parts, group=group)
+        return y.to(dtype or x.dtype)
+
+    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This process's chunk of ``x`` along ``dim`` (no collective)."""
+        n = x.shape[dim] // self.count
+        return x.narrow(dim, self.index * n, n)
+
     def cat(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every process's ``x`` concatenated along ``dim`` in TP order."""
         return all_gather_cat(x, self.shards, dim)
+
+    def from_last(self, x: torch.Tensor) -> torch.Tensor:
+        """The last process's ``x`` along the axis, in every process (one
+        broadcast)."""
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.broadcast(y, src=self.shards.owners[-1],
+                       group=self.shards.group)
+        return y
 
 
 @dataclass

@@ -19,6 +19,11 @@ HLO FLOPs, HLO bytes or collective breakdown. Nothing touches a device.
 Usage:
   python -m repro_torch.launch.dryrun --arch olmo-1b --shape decode_32k
   python -m repro_torch.launch.dryrun --all [--both-meshes] [--out r.jsonl]
+  python -m repro_torch.launch.dryrun --all --both-meshes --seq-parallel
+
+``--seq-parallel`` plans the prefill cells with ``seq_parallel=True``
+(JAX's ``REPRO_SP=1``): the same bytes a process (the plan counts no
+activations), the cell's ``meta["seq_parallel"]`` printed beside them.
 """
 from __future__ import annotations
 
@@ -128,8 +133,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         peak_memory_per_device=float(sum(mem.values())),
         memory_breakdown=mem).finalize(hw)
     if verbose:
+        sp = (f", seq_parallel={cell.meta['seq_parallel']}"
+              if "seq_parallel" in cell.meta else "")
         print(f"[dryrun] {arch} x {shape_name} x {mesh.name}: "
-              f"{cell.meta['kind']}, fsdp={cell.meta.get('fsdp', True)}")
+              f"{cell.meta['kind']}, fsdp={cell.meta.get('fsdp', True)}{sp}")
         print(f"  bytes a process: {json.dumps(mem)} = "
               f"{rep.peak_memory_per_device / 1e9:.2f} GB "
               f"({'fits' if rep.fits else 'does NOT fit'} "
@@ -152,6 +159,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[RooflineReport]:
     ap.add_argument("--variant", default="baseline",
                     choices=["baseline", "opt"],
                     help="decode-step implementation")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="sequence-parallel prefill cells")
     ap.add_argument("--quiet", action="store_true",
                     help="print only the table")
     args = ap.parse_args(argv)
@@ -169,8 +178,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[RooflineReport]:
     for multi_pod in meshes:
         for a, s in cells:
             try:
-                kw = ({"variant": args.variant}
-                      if SHAPES[s].kind == "decode" else {})
+                kind = SHAPES[s].kind
+                kw = ({"variant": args.variant} if kind == "decode" else
+                      {"seq_parallel": True}
+                      if kind == "prefill" and args.seq_parallel else {})
                 rep = run_cell(a, s, multi_pod=multi_pod,
                                verbose=not args.quiet, **kw)
             except Exception as e:          # a placement bug: report all

@@ -22,8 +22,11 @@ arithmetic; what differs:
   cells);
 * JAX turns on Megatron-style sequence parallelism of the prefill from
   the ``REPRO_SP`` environment variable; the port reads no environment
-  variable, and its prefill has no such mode (``seq_parallel=True``
-  raises);
+  variable: ``build_prefill_cell(seq_parallel=True)`` (``dryrun
+  --seq-parallel``) passes it to ``serve_prefill_step``, and the
+  cell's ``meta["seq_parallel"]`` says whether JAX's rule applies (S a
+  multiple of 16, a TP axis of several devices; the hybrid and ssm
+  prefills have no such mode, as in JAX);
 * JAX's ``_layer_constraints`` (re-pinning each sliced layer's weights
   inside the scan, so GSPMD does not gather a whole stack) has no
   counterpart: the port's placed steps gather one layer's leaves right
@@ -193,11 +196,9 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                        seq_parallel: bool = False) -> Cell:
     """``serve_prefill_step`` into a fresh pool of ``BLOCK_SIZE`` blocks
     (dense, MoE; ``embeds`` for the vlm and audio archs), or
-    ``serve_prefill_step_state`` (hybrid, ssm)."""
-    if seq_parallel:
-        raise NotImplementedError(
-            "the port's prefill has no sequence-parallel mode (a GSPMD "
-            "resharding of the JAX package's)")
+    ``serve_prefill_step_state`` (hybrid, ssm). ``seq_parallel``: the
+    pooled prefill's sequence parallelism (recorded in ``meta`` where
+    asked, as whether it applies)."""
     baxes = batch_axes(mesh)
     paxes = serve_pool_axes(cfg, mesh)
     layout = ServeLayout(batch_axes=baxes, pool_axes=paxes)
@@ -213,9 +214,11 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         fn = functools.partial(serve_prefill_step_state, cfg=cfg,
                                layout=layout,
                                max_len=min(S, cfg.local_window or 1))
+        meta = {"kind": "prefill_state", "fsdp": fsdp}
+        if seq_parallel:
+            meta["seq_parallel"] = False
         return Cell(fn=fn, kwargs=kwargs, in_shardings=in_sh,
-                    out_shardings=None, donate=(),
-                    meta={"kind": "prefill_state", "fsdp": fsdp})
+                    out_shardings=None, donate=(), meta=meta)
     kwargs = {"params": pshapes}
     in_sh = {"params": pspecs}
     if cfg.modality in ("vlm", "audio"):
@@ -229,12 +232,16 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
 
     n_data = _axes_total(mesh, baxes)
     fn = functools.partial(serve_prefill_step, cfg=cfg, layout=layout,
-                           block_size=BLOCK_SIZE, NP=NP, n_data=n_data)
+                           block_size=BLOCK_SIZE, NP=NP, n_data=n_data,
+                           seq_parallel=seq_parallel)
     pool_spec = _pool_spec(paxes)
+    meta = {"kind": "prefill", "pool_axes": paxes, "NP": NP, "fsdp": fsdp}
+    if seq_parallel:
+        meta["seq_parallel"] = S % 16 == 0 and \
+            mesh_axis_sizes(mesh).get("model", 1) > 1
     return Cell(fn=fn, kwargs=kwargs, in_shardings=in_sh,
                 out_shardings=(bspec, pool_spec, pool_spec), donate=(),
-                meta={"kind": "prefill", "pool_axes": paxes,
-                      "NP": NP, "fsdp": fsdp})
+                meta=meta)
 
 
 def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,

@@ -133,18 +133,19 @@ def heads_qkv(params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def heads_out(params, out: torch.Tensor, h0: int, cfg: ModelConfig, dtype,
-              specs=None, tp=None) -> torch.Tensor:
+              specs=None, tp=None, seq_dim=None) -> torch.Tensor:
     """The output projection of heads ``out [..., n, hd]`` (heads ``[h0,
     h0 + n)``): with ``wo``'s rows split over the TP axis, this
     process's own heads by its rows, summed over the axis; else every
-    head by the whole ``wo``."""
+    head by the whole ``wo``. ``seq_dim``: this process's chunk of that
+    dim (sequence parallelism, ``row_parallel``)."""
     wo = params["wo"]
     split = specs is not None and tp_split(specs["wo"], 0, tp)
     if split:
         own = wo.shape[0] // cfg.head_dim
         lo = tp.index * own - h0
         out = out[..., lo:lo + own, :]
-    return row_parallel(out.flatten(-2).to(dtype), wo, split, tp)
+    return row_parallel(out.flatten(-2).to(dtype), wo, split, tp, seq_dim)
 
 
 def apply_attention_train(params, x: torch.Tensor, positions: torch.Tensor,

@@ -41,17 +41,21 @@ def spec_axes(entry):
 def tp_split(spec, dim: int, tp) -> bool:
     """Whether dim ``dim`` of a leaf placed by ``spec`` is split over the
     TP axis. ``tp`` is the TP axis (``distributed.placement.TPAxis``: its
-    ``index``, ``count``, ``sum`` and ``cat``) or None: never split."""
+    ``index``, ``count`` and collectives) or None: never split."""
     return tp is not None and spec is not None and \
         TP_AXIS in spec_axes(tuple(spec)[dim])
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool,
-                 tp) -> torch.Tensor:
+                 tp, seq_dim: Optional[int] = None) -> torch.Tensor:
     """``x @ w``; when ``w``'s rows are split over the TP axis, ``x``
     holds the matching columns and the partial products are summed over
-    it (in float32, cast back)."""
+    it (in float32, cast back). With ``seq_dim`` (sequence parallelism)
+    the result is this process's chunk of that dim: the partials are
+    reduce-scattered, a whole product is cut locally."""
     y = x @ w
+    if seq_dim is not None:
+        return tp.sum_scatter(y, seq_dim) if split else tp.shard(y, seq_dim)
     return tp.sum(y) if split else y
 
 
@@ -160,10 +164,11 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None,
 
 
 def apply_ffn(params, x: torch.Tensor, cfg: ModelConfig, *, specs=None,
-              tp=None) -> torch.Tensor:
+              tp=None, seq_dim: Optional[int] = None) -> torch.Tensor:
     """The dense FFN. Placed (``specs``, ``tp``): ``wi``/``wg`` hold this
     process's columns and ``wo`` the matching rows, and one all-reduce
-    over the TP axis sums the partial outputs."""
+    over the TP axis sums the partial outputs (a reduce-scatter over
+    ``seq_dim`` with sequence parallelism: ``row_parallel``)."""
     h = x @ params["wi"]
     if cfg.activation == "swiglu":
         h = F.silu(h) * (x @ params["wg"])
@@ -173,4 +178,4 @@ def apply_ffn(params, x: torch.Tensor, cfg: ModelConfig, *, specs=None,
     else:
         h = F.gelu(h, approximate="tanh")
     split = tp_split(None if specs is None else specs["wo"], 0, tp)
-    return row_parallel(h, params["wo"], split, tp)
+    return row_parallel(h, params["wo"], split, tp, seq_dim)

@@ -203,16 +203,19 @@ def attn_layer_params(params, cfg: ModelConfig, i: int):
 
 
 def ffn_or_moe(lp, h, cfg: ModelConfig, capacity_factor: float = 1.25,
-               ep_groups: int = 0, *, specs=None, tp=None) -> torch.Tensor:
+               ep_groups: int = 0, *, specs=None, tp=None,
+               seq_dim=None) -> torch.Tensor:
     """The layer's feed-forward block: its dense FFN, or its MoE (a
     layer's parameters hold ``ffn`` or ``moe``, never both). Placed
-    weights: ``specs`` (the layer's) and ``tp``, the TP axis."""
+    weights: ``specs`` (the layer's) and ``tp``, the TP axis; with
+    ``seq_dim``, this process's chunk of that dim (sequence
+    parallelism)."""
     kind = "moe" if "moe" in lp else "ffn"
     sp = None if specs is None else specs[kind]
     if kind == "moe":
         return apply_moe(lp["moe"], h, cfg, capacity_factor, ep_groups,
-                         specs=sp, tp=tp)
-    return apply_ffn(lp["ffn"], h, cfg, specs=sp, tp=tp)
+                         specs=sp, tp=tp, seq_dim=seq_dim)
+    return apply_ffn(lp["ffn"], h, cfg, specs=sp, tp=tp, seq_dim=seq_dim)
 
 
 def layer_path(cfg: ModelConfig, i: int) -> Tuple[Tuple[str, ...],
@@ -323,27 +326,34 @@ def _ssm_layer_fwd(kind, lp, x, cfg, state=None, *, decode=False,
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens=None, embeds=None,
-                 positions=None, *, specs=None, tp=None):
+                 positions=None, *, specs=None, tp=None, seq_dim=None):
     """Token embeddings, or the given ``embeds`` [B, T, d] (a modality
     frontend's output), plus the sinusoidal table where the model has
     one. Placed weights (``specs``, ``tp``) whose vocab rows are split
     over the TP axis: each process looks up its own rows (other ids give
-    zero) and one all-reduce sums them."""
+    zero) and one all-reduce sums them. With ``seq_dim`` (sequence
+    parallelism) the result is this process's chunk of that dim: the
+    split lookup is reduce-scattered, ``embeds``, a whole table's rows
+    and ``positions`` are cut locally."""
+    def own(t):
+        return t if seq_dim is None else tp.shard(t, seq_dim)
     if embeds is not None:
-        x = embeds
+        x = own(embeds)
     elif tp_split(None if specs is None else specs["embed"], 0, tp):
         emb = params["embed"]
         ids = tokens - tp.index * emb.shape[0]
         inside = (ids >= 0) & (ids < emb.shape[0])
         x = torch.where(inside[..., None], emb[ids.clamp(0, emb.shape[0] - 1)],
                         0)
-        x = tp.sum(x)
+        x = tp.sum(x) if seq_dim is None else tp.sum_scatter(x, seq_dim)
     else:
-        x = params["embed"][tokens]
+        x = params["embed"][own(tokens)]
     if cfg.positional == "sinusoidal":
         if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)[None]
-        x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+            n = x.shape[1] * (1 if seq_dim is None else tp.count)
+            positions = torch.arange(n, device=x.device)[None]
+        x = x + sinusoidal_embedding(own(positions), cfg.d_model).to(
+            x.dtype)
     return x
 
 

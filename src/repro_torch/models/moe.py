@@ -159,7 +159,8 @@ def _dispatch_combine(xt: torch.Tensor, params, cfg: ModelConfig,
 
 def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
               capacity_factor: float = 1.25,
-              ep_groups: int = 0, *, specs=None, tp=None) -> torch.Tensor:
+              ep_groups: int = 0, *, specs=None, tp=None,
+              seq_dim=None) -> torch.Tensor:
     """x: [B, T, d] -> [B, T, d]. Top-k routed + always-on shared experts.
 
     ``ep_groups > 1`` with ``N = B*T`` divisible by it is the JAX
@@ -174,7 +175,10 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
     Placed (``specs``, ``tp``): every process routes all of ``x`` with
     the whole router (so its capacity drops are the single process's),
     applies its own experts (split over the TP axis) and its columns of
-    the shared experts, and one all-reduce sums the split parts.
+    the shared experts, and one all-reduce sums the split parts. With
+    ``seq_dim`` (sequence parallelism) the result is this process's chunk
+    of that dim: one reduce-scatter of the split parts, the whole ones
+    cut locally.
     """
     B, T, d = x.shape
     xt = x.reshape(-1, d)
@@ -191,12 +195,17 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
         sh_split = tp_split(None if specs is None else
                             specs["shared"]["wo"], -2, tp)
     outs = ((y, ex_split), (ys, sh_split))
-    whole = [t for t, split in outs if t is not None and not split]
-    split = [t for t, split in outs if split]
-    if split:                          # one all-reduce over the TP axis
-        whole.insert(0, tp.sum(sum(t.float() for t in split), xt.dtype))
+    whole = [t.reshape(B, T, d) for t, split in outs
+             if t is not None and not split]
+    split = [t.reshape(B, T, d) for t, split in outs if split]
+    if seq_dim is not None:
+        whole = [tp.shard(t, seq_dim) for t in whole]
+    if split:                 # one all-reduce (or reduce-scatter) over TP
+        part = sum(t.float() for t in split)
+        whole.insert(0, tp.sum(part, xt.dtype) if seq_dim is None else
+                     tp.sum_scatter(part, seq_dim, xt.dtype))
     y = whole[0] if len(whole) == 1 else whole[0] + whole[1]
-    return y.reshape(B, T, d).to(x.dtype)
+    return y.to(x.dtype)
 
 
 def moe_aux_loss(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -71,9 +71,9 @@ the count from the ``-1`` padding. The steps check on the host that
 ``nblk == (tables >= 0).sum(-1)`` and that the valid slots form a
 prefix, and raise otherwise. JAX's GSPMD knobs have no counterpart:
 ``layer_constraints`` (weight re-pinning inside the scan), the prefill's
-``attn_chunk``, ``seq_parallel`` and carry pin. Both prefill steps take
-``embeds=`` [B, S, d] (a modality frontend's output) in place of the
-tokens, as JAX's do.
+``attn_chunk`` and carry pin. Both prefill steps take ``embeds=`` [B,
+S, d] (a modality frontend's output) in place of the tokens, as JAX's
+do.
 
 With a ``mesh`` the steps run SPMD over its processes, as the JAX
 package's GSPMD program runs over devices. Each process holds its slab
@@ -104,6 +104,21 @@ applies its experts and its columns of the shared experts, one
 all-reduce); the vocab-split embedding looks up its rows and
 all-reduces, the logits are gathered (or summed, for an untied
 ``unembed`` split over d). A placed tree needs the step's mesh.
+
+``serve_prefill_step(seq_parallel=True)`` is JAX's Megatron-style
+sequence parallelism: on placed weights over a TP axis of several
+processes, when S is a multiple of 16 (JAX's rule), the residual stream
+between blocks holds this process's S/tp positions. Each row-parallel
+all-reduce becomes a reduce-scatter over the sequence
+(``TPAxis.sum_scatter``; gloo runs it on CUDA tensors too), the norms
+run on the shard, and the normed
+shard is all-gathered over the TP axis before the attention and the
+FFN/MoE, so RoPE, the flash core, the pool writes and the MoE's routing
+see the whole sequence. The vocab-split embedding reduce-scatters too,
+and the first token's logits read the last position, broadcast from
+the TP axis' last process. Elsewhere (a plain tree, one TP process, S
+not a multiple of 16) it is the step without it, as JAX's GSPMD program
+computes the same values either way.
 
 The state steps take placed weights the same way (the JAX package's
 ServeLayout cells place them by the same rules and split the states
@@ -435,16 +450,21 @@ def _check_tables(tables, nblk) -> np.ndarray:
 
 
 def _ffn(lp, ls, h, cfg: ModelConfig, capacity_factor: float,
-         pl: _Placement, tp) -> torch.Tensor:
+         pl: _Placement, tp, seq_dim=None) -> torch.Tensor:
     """The layer's FFN/MoE on this process's rows (``ls``, ``tp``: the
     layer's specs and the TP axis of placed weights). An MoE that drops
     past capacity routes the whole batch (gathered over the batch axes),
-    so its capacity and drops are the single-process step's."""
+    so its capacity and drops are the single-process step's. With
+    ``seq_dim`` (sequence parallelism) ``h`` is this process's positions:
+    gathered over the TP axis first, the result cut back to them."""
+    if seq_dim is not None:
+        h = tp.cat(h, seq_dim)
     if "moe" in lp and capacity_factor > 0 and pl.batch is not None:
         y = ffn_or_moe(lp, all_gather_cat(h, pl.batch), cfg, capacity_factor,
-                       specs=ls, tp=tp)
+                       specs=ls, tp=tp, seq_dim=seq_dim)
         return y[pl.r0:pl.r0 + pl.R_loc]
-    return ffn_or_moe(lp, h, cfg, capacity_factor, specs=ls, tp=tp)
+    return ffn_or_moe(lp, h, cfg, capacity_factor, specs=ls, tp=tp,
+                      seq_dim=seq_dim)
 
 
 class _Weights:
@@ -477,15 +497,18 @@ class _Weights:
             return self.params, None
         return self.placed.top(keys)
 
-    def embed(self, tokens, positions, embeds=None) -> torch.Tensor:
+    def embed(self, tokens, positions, embeds=None,
+              seq_dim=None) -> torch.Tensor:
         """Token embeddings (or ``embeds``, a frontend's output) with the
-        model's positional table."""
+        model's positional table; ``seq_dim``: this process's chunk of
+        that dim (sequence parallelism)."""
         if embeds is not None:
             return embed_tokens(None, self.cfg, embeds=embeds,
-                                positions=positions)
+                                positions=positions, tp=self.tp,
+                                seq_dim=seq_dim)
         top, sp = self._top(("embed",))
         return embed_tokens(top, self.cfg, tokens, positions=positions,
-                            specs=sp, tp=self.tp)
+                            specs=sp, tp=self.tp, seq_dim=seq_dim)
 
     def unembed(self, x) -> torch.Tensor:
         key = "embed" if self.cfg.tie_embeddings else "unembed"
@@ -511,16 +534,18 @@ class _Weights:
                 split_heads(k, sk, cfg.num_kv_heads, k0, K_loc, self.tp),
                 split_heads(v, sk, cfg.num_kv_heads, k0, K_loc, self.tp))
 
-    def attn_out(self, lp, ls, out, h0: int, heads_group, dtype):
+    def attn_out(self, lp, ls, out, h0: int, heads_group, dtype,
+                 seq_dim=None):
         """The output projection of attention heads ``out [..., n, hd]``
         (heads ``[h0, h0 + n)``): with ``wo``'s rows split over the TP
-        axis, this process's own heads by its rows, summed over the axis;
-        else every head (gathered over ``heads_group``) by the whole
-        ``wo``."""
+        axis, this process's own heads by its rows, summed over the axis
+        (reduce-scattered over ``seq_dim``); else every head (gathered
+        over ``heads_group``) by the whole ``wo``."""
         if not self.split(ls, "wo", 0):
             out = all_gather_cat(out, heads_group, dim=out.dim() - 2)
         return heads_out(lp["attn"], out, h0, self.cfg, dtype,
-                         None if ls is None else ls["attn"], self.tp)
+                         None if ls is None else ls["attn"], self.tp,
+                         seq_dim)
 
 
 def _check_pool(pool_k, pool_v, pl: _Placement, L: int, K: int, hd: int):
@@ -714,10 +739,24 @@ def _prefill_writer(S: int, bs: int, pl, NB_loc: int, wblk, device):
     return write
 
 
+def _seq_parallel(asked: bool, S: int, tp) -> bool:
+    """Whether the prefill runs sequence-parallel: asked, S a multiple
+    of 16 (JAX's rule) and a TP axis of several processes (``tp``: the
+    placed tree's, None for a plain tree or one TP process). Raises
+    ValueError when it applies but S does not split over the axis."""
+    if not (asked and S % 16 == 0 and tp is not None):
+        return False
+    if S % tp.count:
+        raise ValueError(f"sequence parallelism: S = {S} does not split "
+                         f"over a TP axis of {tp.count}")
+    return True
+
+
 def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
                        tokens, *, block_size: int, NP: int,
                        n_data: Optional[int] = None, embeds=None,
-                       capacity_factor: float = 1.25, mesh=None):
+                       capacity_factor: float = 1.25, mesh=None,
+                       seq_parallel: bool = False):
     """Prefill B requests of length S and write their KV into a fresh
     pool laid out by ``prefill_layout``.
 
@@ -726,7 +765,9 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
     function as the JAX package's "xla" core). Each layer's K/V goes
     into the pool by one scatter that drops the sentinel block. Returns
     (first tokens [B] int32, pool_k, pool_v [L, NP, NB_loc, bs, K, hd]);
-    with ``mesh``, this process's rows and slab.
+    with ``mesh``, this process's rows and slab. ``seq_parallel``:
+    Megatron-style sequence parallelism where JAX's rule applies (the
+    module docstring); the same results.
     """
     if cfg.family not in POOLED_FAMILIES:
         raise ValueError("pooled prefill is for attention archs")
@@ -746,10 +787,15 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
     core = make_causal_core(cfg, backend="flash")
     H, K = cfg.num_heads, cfg.num_kv_heads
     toks, emb = _own_inputs(tokens, embeds, own, dev)
-    x = W.embed(toks, positions, emb)
+    # Sequence parallelism: the residual holds this process's S / tp
+    # positions; the normed shard is gathered before each block.
+    seq = 1 if _seq_parallel(seq_parallel, S, W.tp) else None
+    x = W.embed(toks, positions, emb, seq)
     for i in range(L):
         lp, ls = W.layer(i)
         h = apply_norm(lp["ln1"], x, cfg)
+        if seq:
+            h = W.tp.cat(h, seq)
         q, k, v = qkv_project(lp["attn"], h, positions, cfg)
         sq, sk = W.split(ls, "wq", 1), W.split(ls, "wk", 1)
         # Attention over the heads this process made: its own with q
@@ -758,12 +804,13 @@ def serve_prefill_step(params, cfg: ModelConfig, layout: ServeLayout,
         lo, hi, idx = kv_range(cfg, h0, n)
         out = core(q, *(expand_kv(split_heads(t, sk, K, lo, hi - lo, W.tp),
                                   idx) for t in (k, v)))
-        x = x + W.attn_out(lp, ls, out, h0, None, x.dtype)
+        x = x + W.attn_out(lp, ls, out, h0, None, x.dtype, seq)
         write(pool_k[i], split_heads(k, sk, K, pl.k0, pl.K_loc, W.tp))
         write(pool_v[i], split_heads(v, sk, K, pl.k0, pl.K_loc, W.tp))
         h = apply_norm(lp["ln2"], x, cfg)
-        x = x + _ffn(lp, ls, h, cfg, capacity_factor, pl, W.tp)
-    logits = W.unembed(x[:, -1])
+        x = x + _ffn(lp, ls, h, cfg, capacity_factor, pl, W.tp, seq)
+    # Position S - 1 lives on the TP axis' last process.
+    logits = W.unembed(W.tp.from_last(x[:, -1]) if seq else x[:, -1])
     return torch.argmax(logits, dim=-1).to(torch.int32), pool_k, pool_v
 
 

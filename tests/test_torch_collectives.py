@@ -20,7 +20,11 @@ inputs made from a numpy seed here and split between the processes:
 * the paper-§7.4 baselines (``ring_attention_prefill``,
   ``tp_head_attention_decode``, ``ship_kv_decode``, ``distattn_decode``)
   against full attention from the port's ``core/attention.py`` and
-  JAX's ``micro_attention_*``/``finalize`` on the gathered inputs.
+  JAX's ``micro_attention_*``/``finalize`` on the gathered inputs;
+* the ring's shift staged through host memory (as CUDA tensors go over
+  gloo) against the direct shift, bit for bit, its copies counted; and
+  the staging decision (``host_staged``) as a function of the backend
+  and the device.
 
 Tolerance: float32; 1e-6 on the merges, 1e-5 on attention outputs,
 1e-7 relative on the gradient sync against JAX.
@@ -126,10 +130,12 @@ def _inputs():
 
 def _run_checks(rank, W, group, inp):
     """Every collective of the module, as process ``rank`` of ``group``."""
+    from repro_torch.core import baselines
     from repro_torch.core.baselines import (distattn_decode,
                                             ring_attention_prefill,
-                                            ship_kv_decode,
+                                            ring_shift, ship_kv_decode,
                                             tp_head_attention_decode)
+    from repro_torch.distributed.mesh import HostStaging
     from repro_torch.core.distattn import (distattn_decode_paged,
                                            merge_over_axes)
     from repro_torch.core.online_softmax import merge_partials_collective
@@ -162,6 +168,19 @@ def _run_checks(rank, W, group, inp):
         T(np.ascontiguousarray(pos[:, sl])),
         T(np.ascontiguousarray(pos[:, sl])),
         torch.ones((B, s), dtype=torch.bool), group).numpy()
+    blocks = (T(a["k"][:, sl]), T(np.ascontiguousarray(pos[:, sl])))
+    staging = HostStaging()
+    out["shift"] = [[t.numpy() for t in ring_shift(blocks, group,
+                                                   staging=staging)]]
+    # The staged transport (gloo's, for CUDA tensors) on host tensors.
+    decide = baselines.host_staged
+    baselines.host_staged = lambda backend, device: True
+    try:
+        out["shift"].append([t.numpy() for t in ring_shift(
+            blocks, group, staging=staging)])
+    finally:
+        baselines.host_staged = decide
+    out["shift_staging"] = (staging.copies, staging.bytes)
     hs, ks = slice(rank * H // W, (rank + 1) * H // W), \
         slice(rank * K // W, (rank + 1) * K // W)
     out["tp_head"] = tp_head_attention_decode(
@@ -386,6 +405,35 @@ def test_tp_head_attention_decode_equals_its_head_slice(run, W):
     h = H // W
     for r in range(W):
         _close(res[r][W]["tp_head"], want[:, r * h:(r + 1) * h], 1e-5)
+
+
+@pytest.mark.parametrize("W", SIZES)
+def test_staged_ring_shift_equals_the_direct_shift(run, W):
+    """Each process receives the previous one's block, the same bit for
+    bit through host memory, whose copies (two out, two back) carry the
+    blocks' bytes twice."""
+    inputs, res = run
+    k = inputs[W]["attn"]["k"]
+    s = k.shape[1] // W
+    for r in range(W):
+        (dk, dpos), (sk, spos) = res[r][W]["shift"]
+        prv = (r - 1) % W
+        np.testing.assert_array_equal(dk, k[:, prv * s:(prv + 1) * s])
+        np.testing.assert_array_equal(dpos[0], np.arange(prv * s,
+                                                         (prv + 1) * s))
+        np.testing.assert_array_equal(sk, dk)
+        np.testing.assert_array_equal(spos, dpos)
+        assert res[r][W]["shift_staging"] == (4, 2 * (dk.nbytes
+                                                     + dpos.nbytes))
+
+
+def test_host_staging_decision():
+    """gloo stages CUDA tensors and nothing else; NCCL stages nothing."""
+    from repro_torch.distributed.mesh import host_staged
+    assert host_staged("gloo", torch.device("cuda", 0))
+    assert host_staged(dist.Backend.GLOO, "cuda")
+    assert not host_staged("gloo", "cpu")
+    assert not host_staged("nccl", torch.device("cuda", 0))
 
 
 @pytest.mark.parametrize("W", SIZES)

@@ -14,6 +14,13 @@ probability enters P V as bf16 hi + lo, which keeps them within the same
 1e-4. The bf16 flash-prefill
 kernel runs on tensor cores under the same contract; its output is
 rounded from float32 on both sides, so it may differ by one bf16 ulp.
+
+Also the transports of the mesh paths on the card: the gloo probe
+(``scripts/gloo_probe.py``: the port's reduce-scatter and ring shift of
+CUDA tensors give the right values; gloo runs the reduce-scatter
+directly, as the port does, and where it cannot run a send directly the
+port stages it), and ``ring_attention_prefill`` in a one-process NCCL
+group (no shift), equal to its run on host tensors.
 """
 import numpy as np
 import pytest
@@ -1315,3 +1322,61 @@ def test_paged_kernels_ignore_poisoned_rows(dtype, bs, cuda_device):
                                            scale=scale)
         _close_partials(got, paged_prefill_attention_plain(
             qc, clean_k, clean_v, tb[r], tl[r], scale=scale))
+
+
+@pytest.mark.cuda
+def test_gloo_probe_collectives_on_cuda_tensors(cuda_device, tmp_path):
+    """The port's paths give the right values over gloo; gloo runs the
+    reduce-scatter directly (the port relies on it), and a send it does
+    not run directly is one the port stages."""
+    import importlib.util
+    import pathlib
+    from repro_torch.distributed.mesh import host_staged
+    path = pathlib.Path(__file__).parent.parent / "scripts" / "gloo_probe.py"
+    spec = importlib.util.spec_from_file_location("gloo_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    got = probe.probe(workdir=str(tmp_path))
+    assert set(got) == set(probe.OPS)
+    for op, res in got.items():
+        assert res["port"] == "ok", (op, res)
+    assert got["reduce_scatter"]["direct"] == "ok", got
+    assert got["send"]["direct"] == "ok" or host_staged("gloo", cuda_device)
+
+
+def _nccl_ring_worker(rank, store, queue):
+    import traceback
+    import torch.distributed as dist
+    try:
+        from repro_torch.core.baselines import ring_attention_prefill
+        from repro_torch.distributed.mesh import HostStaging
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=rank, world_size=1)
+        gen = torch.Generator().manual_seed(31)
+        B, S, H, K, D = 2, 96, 8, 2, 64
+        q = torch.randn((B, S, H, D), generator=gen)
+        k, v = (torch.randn((B, S, K, D), generator=gen) for _ in range(2))
+        pos = torch.arange(S).expand(B, S)
+        valid = torch.ones((B, S), dtype=torch.bool)
+        out, staging = {}, HostStaging()
+        for dev in ("cpu", "cuda"):
+            args = [t.to(dev) for t in (q, k, v, pos, pos, valid)]
+            out[dev] = ring_attention_prefill(
+                *args, dist.group.WORLD, staging=staging).cpu().numpy()
+        queue.put((rank, {"backend": str(dist.get_backend()),
+                          "copies": staging.copies, **out}))
+        dist.destroy_process_group()
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+
+
+@pytest.mark.cuda
+def test_ring_attention_prefill_in_a_one_process_nccl_group(cuda_device,
+                                                            tmp_path):
+    """W = 1: no shift, nothing staged, the CUDA tensors' result equals
+    the host tensors' within 1e-4."""
+    from test_torch_collectives import Spawned
+    got = Spawned(_nccl_ring_worker, 1, str(tmp_path)).results()[0]
+    assert got["backend"] == "nccl" and got["copies"] == 0
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=TOL, atol=TOL)

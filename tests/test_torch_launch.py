@@ -185,10 +185,13 @@ def test_launchers_aot_plan_their_cells(capsys):
     assert "[dryrun]" in capsys.readouterr().out
 
 
-def test_input_specs_are_the_cells_meta_inputs():
+def test_input_specs_are_the_cells_meta_inputs(capsys):
     """``input_specs`` gives the cell's kwargs: meta tensors, the frame
-    embeddings in place of tokens for the audio arch; the prefill has no
-    sequence-parallel mode (JAX's ``REPRO_SP``)."""
+    embeddings in place of tokens for the audio arch. The sequence-
+    parallel prefill (JAX's ``REPRO_SP``) builds with ``seq_parallel`` in
+    its step's keywords and in its meta (off for the state families, as
+    in JAX), and ``dryrun --seq-parallel`` plans every prefill_32k
+    cell with it."""
     from repro_torch.launch.inputs import build_prefill_cell, input_specs
     mesh = make_production_mesh()
     specs = input_specs("musicgen-medium", "prefill_32k", mesh)
@@ -196,9 +199,22 @@ def test_input_specs_are_the_cells_meta_inputs():
     assert tuple(specs["embeds"].shape) == (32, 32768, 1536)
     assert specs["embeds"].device.type == "meta"
     assert specs["embeds"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        build_prefill_cell(get_config("olmo-1b"), SHAPES["prefill_32k"],
-                           mesh, seq_parallel=True)
+    cell = build_prefill_cell(get_config("olmo-1b"), SHAPES["prefill_32k"],
+                              mesh, seq_parallel=True)
+    assert cell.fn.keywords["seq_parallel"] is True
+    assert cell.meta["seq_parallel"] is True
+    plain = build_cell("olmo-1b", "prefill_32k", mesh)
+    assert plain.fn.keywords["seq_parallel"] is False
+    assert "seq_parallel" not in plain.meta           # JAX's meta
+    state = build_cell("xlstm-350m", "prefill_32k", mesh, seq_parallel=True)
+    assert state.meta["seq_parallel"] is False
+    capsys.readouterr()
+    reps = dryrun.main(["--all", "--both-meshes", "--seq-parallel"])
+    assert len(reps) == 2 * len(ARCH_IDS) * len(SHAPES)
+    planned = [line for line in capsys.readouterr().out.splitlines()
+               if "x prefill_32k x" in line]
+    assert len(planned) == 2 * len(ARCH_IDS)
+    assert all("seq_parallel=" in line for line in planned)
 
 
 def test_mesh_shapes_are_jax_production_meshes():
