@@ -139,11 +139,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    draws qwen3-0.6b (bf16, 28 layers) with ``seeded_params`` placed by
    ``validate_divisibility(param_specs(...))`` over (1, 2) at W = 2,
    (1, 4) and (2, 2) at W = 4, and must hold exactly the bytes the spec
-   tree gives; a ``serve_prefill_step`` of B = 2 x S = 2,048, then 4
+   tree gives; a ``serve_prefill_step`` of B = 2 x S = 2,032, then 4
    decode steps of each schedule on the placed weights and on the whole
    tree, interleaved (TBT side by side; 28 decode rank launches a step,
    28 flash launches a prefill); at W = 2 also qwen2-moe-a2.7b placed
-   over (1, 2) at full depth (its bytes, a 512-token prefill, 4 decode
+   over (1, 2) at full depth (its bytes, a 496-token prefill, 4 decode
    steps a schedule); then float32 at 4 layers, on every mesh, with
    forced FSDP over (2, 2), and on a ("pod", "data", "model") = (2, 1,
    2) mesh with the pool over ("pod", "data"): placed logits within
@@ -359,6 +359,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # float32 outside tensor cores
+# float32-accurate products on the tf32 tensor cores: three tf32 products
+# (3xTF32) a float32 product at the dense tf32 peak, 495e12 / 3. The
+# float32 flash and prefill-chunk kernels run there, so their rows'
+# ``bound_ms`` takes this peak and the CUDA-core bound stays beside it
+# as ``bound_cuda_cores_ms``.
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 # Kernel vs plain twin (float32 math on the same inputs), on the finalized
 # output, m and l. float32 decode and prefill compute in float32 and
 # differ only in summation order (and in the order of the in-launch
@@ -384,11 +390,12 @@ TRACE_STEPS = 6     # server steps in the traced window
 PORT_KERNEL_SYMBOLS = ("paged_decode_units_kernel",
                        "paged_decode_ranks_kernel", "paged_prefill",
                        "flash_prefill_wgmma_kernel",
-                       "flash_prefill_f32_kernel")
-# The single-rank paged kernels built for Hopper, by source: their ptxas
-# reports must show no spill and no serialized wgmma.
-PAGED_KERNELS = {"micro_attn_decode": "paged_decode_units_kernel",
-                 "micro_attn_prefill": "paged_prefill_wgmma_kernel"}
+                       "flash_prefill_tf32_kernel")
+# The single-rank paged kernels built for Hopper, (source, kernel): their
+# ptxas reports must show no spill and no serialized wgmma.
+PAGED_KERNELS = (("micro_attn_decode", "paged_decode_units_kernel"),
+                 ("micro_attn_prefill", "paged_prefill_wgmma_kernel"),
+                 ("micro_attn_prefill", "paged_prefill_tf32_kernel"))
 TRAIN_UNTIMED = 2   # first train steps not timed (allocator warm-up)
 # float32 train step, card against CPU: loss and gradient norm (relative),
 # each leaf's gradient (max |diff| over its largest magnitude).
@@ -669,7 +676,6 @@ def prefill_case(name, C, H, K, D, bs, ctx_blocks, dtype, device, *,
                   + table.nbytes + 4 + (C * H * D + 2 * C * H) * 4)
         flops = 4 * C * S * H * D
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         row["ms"] = time_ms(lambda: paged_prefill_attention(q, pk, pv, tb,
                                                             tl))
         row["graph_ms"] = device_ms(lambda: paged_prefill_attention(
@@ -685,9 +691,22 @@ def prefill_case(name, C, H, K, D, bs, ctx_blocks, dtype, device, *,
                                                  enable_gqa=True))
         row["library_graph_ms"] = device_ms(lambda: sdpa(qq, kk, vv,
                                                          enable_gqa=True))
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        tensor_core_bound(row, dtype, t_bytes, flops)
     return row
+
+
+def tensor_core_bound(row, dtype, t_bytes, flops) -> None:
+    """``bound_ms`` and ``bound_by`` of a kernel that runs its products on
+    the tensor cores in both dtypes (flash prefill, the prefill chunk):
+    float32 at ``PEAK_FLOPS_3XTF32``, its CUDA-core bound kept as
+    ``bound_cuda_cores_ms``."""
+    f32 = dtype == torch.float32
+    t_ops = flops / (PEAK_FLOPS_3XTF32 if f32 else PEAK_FLOPS[dtype]) * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if f32:
+        row["bound_cuda_cores_ms"] = max(t_bytes,
+                                         flops / PEAK_FLOPS[dtype] * 1e3)
 
 
 def live_pairs(S: int, window: int) -> int:
@@ -731,7 +750,6 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
         flops = 4 * H * D * pairs
         nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * itemsize
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         row["live_pairs"] = pairs
         row["plan"] = flash_plan(B, S, H, K, D, dtype, device_sm_count(
             device.index or 0))
@@ -757,8 +775,7 @@ def flash_case(name, B, S, H, K, D, window, dtype, device, *, timed=False):
         row["library_ms"] = time_ms(library, iters=10)
         row["library_graph_ms"] = device_ms(library, iters=10)
         row["library_kernels"] = cuda_kernel_names(library)
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        tensor_core_bound(row, dtype, t_bytes, flops)
     return row
 
 
@@ -909,16 +926,13 @@ def kernel_plans(chunk: int):
     from repro_torch.kernels.micro_attn_decode import (decode_unit_plan,
                                                        device_sm_count,
                                                        rank_decode_plan)
-    from repro_torch.kernels.micro_attn_prefill import (prefill_plan,
-                                                        prefill_unit_plan,
+    from repro_torch.kernels.micro_attn_prefill import (prefill_unit_plan,
                                                         rank_prefill_plan)
     sms = device_sm_count(torch.cuda.current_device())
     out = {"sm_count": sms}
 
     def single_prefill(C, MB, bs, nblk, dt):
-        if dt != torch.bfloat16:
-            return prefill_plan(C, 16, 8, 128)
-        up = prefill_unit_plan(C, 16, 8, 128, MB, bs, sms)
+        up = prefill_unit_plan(C, 16, 8, 128, MB, bs, sms, dt)
         return dict(up, **unit_walks(up, [[nblk]], bs))
     for dt in (torch.bfloat16, torch.float32):
         # The single-rank kernels (units of each request's valid tokens;
@@ -1189,9 +1203,9 @@ def kernel_phase(device, chunk: int):
                       timed=True)
         rows.append(r)
         main.setdefault("decode_ranks_R2", r)
-        # 128-token blocks in the paged prefill (bf16: read in place, TMA
-        # boxes at rows 0 and 64; float32: as 64-token sub-blocks of the
-        # same pool): the chunk at the serving shape
+        # 128-token blocks in the paged prefill (read in place in both
+        # dtypes, TMA boxes of the pool's blocks): the chunk at the serving
+        # shape
         # (C = 512, qwen3 GQA 16/8 x 128) over 24 blocks (3,072 tokens),
         # and the rank form at NR = 3 over a prefix striped 4 / 20 / 0
         # blocks, each with a partial last block.
@@ -1458,50 +1472,40 @@ def bs128_config(global_pool: bool):
 
 
 class PrefillBlockSpy:
-    """Every prefill-kernel launch's block sizes and pool addresses as the
-    wrappers present them — the single-rank kernel through
-    ``micro_attn_prefill._checked`` (bf16: the pool itself; float32:
-    64-token sub-block views), the merged rank kernel on the pool itself
-    — and, for the first launch of each form, the kernel's partials
-    against the plain version on the same (128-token-block) inputs."""
+    """Every prefill-kernel launch's block size as the wrappers present it
+    to the kernels — the single-rank and the merged rank kernel, both on
+    the pool's own blocks (bf16 and float32 alike) — and, for the first
+    launch of each form, the kernel's partials against the plain version
+    on the same (128-token-block) inputs."""
 
     def __enter__(self):
         from repro_torch.kernels import micro_attn_prefill as mp_, ops
         self.mods = (mp_, ops)
-        self.orig = (mp_._checked, ops.paged_prefill_attention_cuda,
+        self.orig = (ops.paged_prefill_attention_cuda,
                      ops.paged_prefill_attention_ranks_merged_cuda)
         self.calls, self.errs = [], {}
-        checked, one, ranks = self.orig
+        one, ranks = self.orig
         spy = self
 
-        def spy_checked(q, pool_k, pool_v, table, tail):
-            out = checked(q, pool_k, pool_v, table, tail)
-            spy.calls.append((pool_k.shape[-3], out[0].shape[-3],
-                              out[0].data_ptr() == pool_k.data_ptr()
-                              and out[1].data_ptr() == pool_v.data_ptr()))
-            return out
-
-        def checked_once(name, fn, plain, in_place=False):
+        def checked_once(name, fn, plain):
             def call(q, pk, pv, table, tail, *, scale):
-                if in_place:
-                    spy.calls.append((pk.shape[-3], pk.shape[-3], True))
+                spy.calls.append((pk.shape[-3], pk.shape[-3], True))
                 got = fn(q, pk, pv, table, tail, scale=scale)
                 if name not in spy.errs and bool((table >= 0).any()):
                     spy.errs[name] = compare(got, plain(
                         q, pk, pv, table, tail, scale=scale), TOL)
                 return got
             return call
-        mp_._checked = spy_checked
         ops.paged_prefill_attention_cuda = checked_once(
             "single", one, mp_.paged_prefill_attention_plain)
         ops.paged_prefill_attention_ranks_merged_cuda = checked_once(
             "ranks_merged", ranks,
-            mp_.paged_prefill_attention_ranks_merged_plain, in_place=True)
+            mp_.paged_prefill_attention_ranks_merged_plain)
         return self
 
     def __exit__(self, *exc):
-        mp_, ops = self.mods
-        (mp_._checked, ops.paged_prefill_attention_cuda,
+        _, ops = self.mods
+        (ops.paged_prefill_attention_cuda,
          ops.paged_prefill_attention_ranks_merged_cuda) = self.orig
 
 
@@ -1528,7 +1532,7 @@ def bs128_phase(params, cfg, device, prompt_lens, n_new, *, global_pool):
     if max(spy.stripes) < 2:
         raise AssertionError(f"bs 128: no prompt striped over >= 2 "
                              f"creditors ({spy.stripes})")
-    read_as = (128, 128, True)   # bf16: 128-token blocks in place
+    read_as = (128, 128, True)   # 128-token blocks in place
     if not sub.calls or any(c != read_as for c in sub.calls):
         raise AssertionError(f"bs 128: prefill launches not on "
                              f"{read_as[1]}-token blocks of the pool: "
@@ -2407,10 +2411,12 @@ def parity_phase(params, cfg, device, prompt_len, n_new, *,
     """float32: served greedy stream == oracle, per-step logits close, in
     either pool mode (``pool_blocks`` small enough that the prompt spans
     creditors; ``over``: other fields of the serving config)."""
+    from repro_torch.kernels import ops
     prompt = make_prompts(cfg, [prompt_len], seed)[0]
     config = serving_config().replace(**{
         "pool_blocks": pool_blocks, "max_local_len": 512,
         "global_pool": global_pool, **over})
+    ops.reset_counts()
     with LogitSpy(global_pool) as logits, AdmissionSpy() as spy:
         logits.start(prompt_len)
         handles, server, _ = serve(params, cfg, config, [prompt], n_new,
@@ -2423,7 +2429,8 @@ def parity_phase(params, cfg, device, prompt_len, n_new, *,
             "block_size": config.block_size,
             **check_parity(params, cfg, device, prompt, out, logits.records),
             "creditors_at_admission": max(spy.stripes),
-            "moves_during_decode": moves_executed(server)}
+            "moves_during_decode": moves_executed(server),
+            "counts": ops.counts()}
 
 
 def hierarchy_parity_phase(params, cfg, device, *, global_pool, n_new=12):
@@ -2434,8 +2441,10 @@ def hierarchy_parity_phase(params, cfg, device, *, global_pool, n_new=12):
     resumed with its recorded layout (``prefer=``). Each request is
     served alone; its stream must equal the oracle's greedy stream and
     its logits the oracle's teacher-forced logits."""
+    from repro_torch.kernels import ops
     from repro_torch.serving import (LLMServer, OverloadPolicy,
                                      SamplingParams)
+    ops.reset_counts()
     config = serving_config().replace(
         pool_blocks=96, max_local_len=512, global_pool=global_pool,
         prefix_cache=True, host_tier_blocks=64,
@@ -2495,7 +2504,8 @@ def hierarchy_parity_phase(params, cfg, device, *, global_pool, n_new=12):
     if pre.stats.preemptions != 1 or pre.stats.resumes != 1:
         raise AssertionError(f"pause/resume did not happen once: {cases}")
     return {"global_pool": global_pool, "n_new": n_new,
-            "layers": cfg.num_layers, "cases": cases}
+            "layers": cfg.num_layers, "cases": cases,
+            "counts": ops.counts()}
 
 
 def check_parity(params, cfg, device, prompt, out, records):
@@ -2509,6 +2519,8 @@ def hybrid_parity_phase(params, cfg, device, prompt_len, n_new):
     """float32, the non-pooled path (hybrid past the window, or ssm):
     served greedy stream == oracle, per-step logits close."""
     import repro_torch.serving.engine as engine_mod
+    from repro_torch.kernels import ops
+    ops.reset_counts()
     prompt = make_prompts(cfg, [prompt_len], 23)[0]
     config = hybrid_serving_config().replace(max_local_len=4096,
                                              pool_blocks=512)
@@ -2537,7 +2549,8 @@ def hybrid_parity_phase(params, cfg, device, prompt_len, n_new):
     return {"prompt_len": prompt_len, "n_new": n_new,
             "layers": cfg.num_layers, "window": cfg.local_window,
             **check_parity(params, cfg, device, prompt, out,
-                           list(enumerate(served)))}
+                           list(enumerate(served))),
+            "counts": ops.counts()}
 
 
 # --------------------------------------------------------------------- #
@@ -2630,8 +2643,10 @@ def fault_parity_phase(params, cfg, device, *, global_pool, prompt_len=1500,
     a ``host_corrupt`` event corrupts, so that its resume falls back to
     replay. Each stream must equal the oracle's and every logit, the
     re-prefill's included, match its teacher-forced logit."""
+    from repro_torch.kernels import ops
     from repro_torch.serving import (FaultEvent, FaultPlan, LLMServer,
                                      OverloadPolicy, SamplingParams)
+    ops.reset_counts()
     prompt = make_prompts(cfg, [prompt_len], 11)[0]
     config = fault_config(global_pool, pool_blocks=pool_blocks,
                           max_local_len=max_local_len,
@@ -2677,7 +2692,8 @@ def fault_parity_phase(params, cfg, device, *, global_pool, prompt_len=1500,
                        **check_parity_at(oracle[key], out, spy.records)}
         del server
     return {"global_pool": global_pool, "prompt_len": prompt_len,
-            "n_new": n_new, "layers": cfg.num_layers, "cases": cases}
+            "n_new": n_new, "layers": cfg.num_layers, "cases": cases,
+            "counts": ops.counts()}
 
 
 def check_parity_at(ref, out, records):
@@ -3518,20 +3534,30 @@ def decode_run(params, cfg, layout, pools, tabs, S, bs, tokens, steps, *,
     """Greedy decode of ``steps`` tokens from the pool of a ``S``-token
     context with ``serve_decode_step`` (``opt``: ``serve_decode_step_opt``)
     over ``tabs`` = (tables, tails, owner shard, last block) of that
-    context. Returns the token stream [steps, R] (every request's, also
-    under a mesh), each step's host seconds (ended by reading the
-    tokens), each step's kernel counts and the first step's logits of
-    this process's rows."""
+    context: the new tokens go to each request's last block, after the
+    rows its owner's tail holds. Refuses (ValueError) a last block that
+    is full (``layout_tables`` of S % bs == 0: a write would overwrite
+    the context; ``spare_blocks`` gives each request an empty one) or
+    that the decode would leave. Returns the token stream [steps, R]
+    (every request's, also under a mesh), each step's host seconds (ended
+    by reading the tokens), each step's kernel counts and the first
+    step's logits of this process's rows."""
     from repro_torch.kernels import ops
     from repro_torch.serving import sharded_step as ss
     tables, tails0, owner, last = tabs
     NP, R = tables.shape[:2]
     NB = pools[0].shape[2]
-    if S % bs + steps > bs:
-        raise ValueError("the decode would leave the context's last block")
+    rows = np.arange(R)
+    fill = tails0[owner, rows]  # rows already in the block written to
+    if (fill >= bs).any():
+        raise ValueError(f"the context's last block is full ({S} tokens "
+                         f"in blocks of {bs}): the decode would overwrite "
+                         f"its rows; give each request a spare block")
+    if (fill + steps > bs).any():
+        raise ValueError(f"the decode would leave the context's last block "
+                         f"({steps} steps after {fill.max()} of {bs} rows)")
     nblk = (tables >= 0).sum(-1).astype(np.int32)
     step = ss.serve_decode_step_opt if opt else ss.serve_decode_step
-    rows = np.arange(R)
     tok = np.asarray(tokens)
     out, secs, counts, first = [], [], [], None
     for s in range(steps):
@@ -3539,7 +3565,8 @@ def decode_run(params, cfg, layout, pools, tabs, S, bs, tokens, steps, *,
         tails[owner, rows] += s + (0 if opt else 1)
         wb = np.full((NP, R), NB, np.int32)
         wb[owner, rows] = last
-        wo = np.full((NP, R), (S + s) % bs, np.int32)
+        wo = np.full((NP, R), 0, np.int32)
+        wo[owner, rows] = fill + s
         lens = np.full(R, S + s, np.int32)
         sync(device)
         ops.reset_counts()
@@ -3555,6 +3582,31 @@ def decode_run(params, cfg, layout, pools, tabs, S, bs, tokens, steps, *,
             first = lg.float()
         out.append(tok)
     return np.stack(out), secs, counts, first
+
+
+def spare_blocks(pools, tabs):
+    """Each request's table gains an empty block on its owner shard, where
+    ``decode_run`` then writes: ``pools`` (this process's slabs [L,
+    NP_loc, NB, ...]) gain R zero blocks (request r's at local index NB +
+    r on every shard), the owner's table slot after its last valid one
+    names it, and its tail (0) says it holds no row yet. For contexts
+    that fill their last block (S % bs == 0). Returns (pools, tabs)."""
+    tables, tails, owner, _ = tabs
+    R = tables.shape[1]
+    NB = pools[0].shape[2]
+    pools = tuple(torch.cat([p, p.new_zeros(p.shape[:2] + (R,)
+                                            + p.shape[3:])], dim=2)
+                  for p in pools)
+    tables, tails = tables.copy(), tails.copy()
+    last = NB + np.arange(R, dtype=np.int32)
+    for r in range(R):
+        row = tables[owner[r], r]
+        n = int((row >= 0).sum())
+        if n == row.shape[0]:
+            raise ValueError("the table has no slot for a spare block")
+        row[n] = last[r]
+        tails[owner[r], r] = 0
+    return pools, (tables, tails, owner, last)
 
 
 def check_decode_counts(counts, layers, device):
@@ -3973,10 +4025,14 @@ def sl_mesh_check(runs, world, job, device, single):
 # all-reduce of its activations is staged through the host over gloo),
 # then ``steps`` decode steps of each schedule, placed and replicated
 # interleaved; qwen2-moe-a2.7b placed only (W = 2), a shorter run.
-# S 2,048 and 4 decode steps a schedule: room for the state and
-# extension jobs that the same groups run.
-PLACEMENT = {"B": 2, "S": 2048, "bs": 128, "NP": 4, "steps": 4,
-             "moe_S": 512, "moe_steps": 4, "parity_layers": 4,
+# S 2,032 and 4 decode steps a schedule: room for the state and
+# extension jobs that the same groups run. S and moe_S are multiples of
+# 16 (the sequence-parallel prefill) that leave 112 free rows in the
+# last 128-token block, where the decode writes (a full last block would
+# be overwritten: decode_run refuses it). At the smoke sizes (bs 8) every
+# multiple of 16 fills its last block: the job decodes into spare blocks.
+PLACEMENT = {"B": 2, "S": 2032, "bs": 128, "NP": 4, "steps": 4,
+             "moe_S": 496, "moe_steps": 4, "parity_layers": 4,
              "parity_S": 320, "parity_steps": 4, "seed": 21}
 PLACEMENT_RTOL = 1e-5   # placed vs whole-tree logits, float32, relative
 # bf16 pools of the sequence-parallel prefill against the prefill
@@ -4254,6 +4310,12 @@ def placed_serve_run(arch, mesh, job, device, ph, *, S, steps,
            "weight_bytes_predicted": predicted, "draw_s": draw_s,
            "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
            "slab_shape": list(pools[0].shape), "runs": {}}
+    if S % bs == 0:
+        # The last blocks are full (the smoke sizes): decode into spare
+        # blocks.
+        sp_pools, _ = spare_blocks(sp_pools, tabs)
+        pools, tabs = spare_blocks(pools, tabs)
+        out["spare_blocks"] = True
     whole = seeded_params(cfg, ph["seed"], device=device) if replicated \
         else None
     order = ((("replicated", False), ("placed", False), ("placed", True),
@@ -5212,7 +5274,6 @@ def flash_long_case(name, B, S, H, K, D, dtype, device, *, iters=5):
     flops = 4 * H * D * pairs
     nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * itemsize
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     row["live_pairs"] = pairs
     row["ms"] = time_ms(lambda: flash_prefill(q, k, v), iters=iters,
                         warmup=1)
@@ -5240,8 +5301,7 @@ def flash_long_case(name, B, S, H, K, D, dtype, device, *, iters=5):
     row["library_graph_ms"] = device_ms(library, iters=min(3, iters),
                                         replays=2)
     row["library_kernels"] = cuda_kernel_names(library)[:3]
-    row["bound_ms"] = max(t_bytes, t_ops)
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    tensor_core_bound(row, dtype, t_bytes, flops)
     return row
 
 
@@ -5434,6 +5494,35 @@ def cells_dryrun() -> dict:
             "seconds": secs}
 
 
+def float32_launches(report) -> dict:
+    """``{wrapper: {path: n}}``: the float32 launches of each wrapper in
+    every counted run of the report (each ``counts`` dict, by its path of
+    keys; lists of per-step counts summed), where there were any."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            c = node.get("counts")
+            runs = c if isinstance(c, list) else [c]
+            for run in runs:
+                if not (isinstance(run, dict) and run and all(
+                        isinstance(v, dict) and "float32_launches" in v
+                        for v in run.values())):
+                    continue
+                for name, v in run.items():
+                    if v["float32_launches"]:
+                        d = out.setdefault(name, {})
+                        d[path] = d.get(path, 0) + v["float32_launches"]
+            for k, v in node.items():
+                if k != "counts":
+                    walk(v, f"{path}.{k}" if path else str(k))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+    walk(report, "")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -5477,9 +5566,10 @@ def main(argv=None) -> int:
                 if any(w in line for w in ("Compiling entry", "registers",
                                            "spill")):
                     print(f"  ptxas {name}: {line.strip()}")
-    # The bf16 flash kernel's instantiations must not spill (their
-    # consumers run at 232 registers after setmaxnreg; ptxas reports
-    # the 168 of the launch).
+    # The flash kernel's instantiations (bf16 wgmma, float32 3xTF32) must
+    # not spill nor have their wgmmas serialized (their consumers run at
+    # 232 / 224 registers after setmaxnreg; ptxas reports the 168 of the
+    # launch).
     report["flash_ptxas"] = flash_ptxas(
         (build.build_dir() / "flash_prefill.log").read_text())
     for r in report["flash_ptxas"]:
@@ -5487,13 +5577,16 @@ def main(argv=None) -> int:
               f"spill_stores={r.get('spill_stores')} "
               f"spill_loads={r.get('spill_loads')} "
               f"serialized={r['serialized']}", flush=True)
-        if r["kernel"].startswith("wgmma") and (r.get("spill_stores")
-                                                or r.get("spill_loads")):
-            raise AssertionError(f"flash kernel {r['kernel']} spills")
+        if r.get("spill_stores") or r.get("spill_loads") or r["serialized"]:
+            raise AssertionError(f"flash kernel {r['kernel']} spills or "
+                                 f"serializes its wgmmas")
+    if {r["kernel"].split("<")[0] for r in report["flash_ptxas"]} != {
+            "wgmma", "tf32"}:
+        raise AssertionError("a flash kernel has no ptxas report")
     # The paged kernels built for Hopper: no instantiation may spill or
     # have its wgmmas serialized.
     report["paged_ptxas"] = [
-        r for lib, stem in PAGED_KERNELS.items()
+        r for lib, stem in PAGED_KERNELS
         for r in kernel_ptxas((build.build_dir() / f"{lib}.log").read_text(),
                               stem)]
     for r in report["paged_ptxas"]:
@@ -5505,7 +5598,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"paged kernel {r['kernel']} spills or "
                                  f"serializes its wgmmas")
     if {r["kernel"].split("<")[0] for r in report["paged_ptxas"]} != {
-            k.replace("_kernel", "") for k in PAGED_KERNELS.values()}:
+            k.replace("_kernel", "") for _, k in PAGED_KERNELS}:
         raise AssertionError("a paged kernel has no ptxas report")
 
     cfg = get_config("qwen3-0.6b")
@@ -5520,7 +5613,8 @@ def main(argv=None) -> int:
                         ("ms", "graph_ms", "merged_ms", "merged_graph_ms",
                          "stacked_merge_ms", "stacked_merge_graph_ms",
                          "nr_launch_ms", "nr_launch_graph_ms", "plain_ms",
-                         "library_ms", "library_graph_ms", "bound_ms")
+                         "library_ms", "library_graph_ms", "bound_ms",
+                         "bound_cuda_cores_ms")
                         if k in r)
         if "library_kernels" in r:
             extra += f" library_kernels={r['library_kernels'][:3]}"
@@ -5702,7 +5796,10 @@ def main(argv=None) -> int:
                 print(f"kernel {r['case']}: " + json.dumps(
                     {k: r[k] for k in ("max_abs_err", "ms", "graph_ms",
                                        "plain_ms", "library_ms",
-                                       "bound_ms")}), flush=True)
+                                       "library_graph_ms", "bound_ms",
+                                       "bound_cuda_cores_ms",
+                                       "library_kernels") if k in r}),
+                    flush=True)
             check_released(report, f"{arch} flash rows")
         cfg32 = dataclasses.replace(acfg, dtype="float32",
                                     num_layers=CONFIG_PARITY["layers"])
@@ -5886,7 +5983,7 @@ def main(argv=None) -> int:
                 f"prefill_32k_{n}": sl[f"prefill_{n}"]["flash_launches"]
                 for n in ("full", "ragged")},
             "serve_layout_rows": sl_rows("flash_serve_prefill")}}
-    # 128-token blocks: the prefill kernels' rows (sub-block views) and
+    # 128-token blocks: the prefill kernels' rows (blocks in place) and
     # their launches in the bs-128 served runs, each pool mode's own.
     bs128_extra = {
         "paged_prefill_attention": {
@@ -5933,12 +6030,12 @@ def main(argv=None) -> int:
     # The CUDA kernels each entry launches (bf16, float32).
     symbols = {"paged_micro_attention": ["paged_decode_units_kernel"],
                "paged_prefill_attention": ["paged_prefill_wgmma_kernel",
-                                           "paged_prefill_kernel"],
+                                           "paged_prefill_tf32_kernel"],
                RANK_KERNELS[0]: ["paged_decode_ranks_kernel"],
                RANK_KERNELS[1]: ["paged_prefill_ranks_mma_kernel",
                                  "paged_prefill_ranks_f32_kernel"],
                "flash_prefill": ["flash_prefill_wgmma_kernel",
-                                 "flash_prefill_f32_kernel"]}
+                                 "flash_prefill_tf32_kernel"]}
     kernels = []
     for key, (name, src, replaces) in sources.items():
         r = main[key]
@@ -5984,6 +6081,9 @@ def main(argv=None) -> int:
             kernels[-1].update(bs128_extra[name])
         if name in cfg_extra:
             kernels[-1].update(cfg_extra[name])
+    f32 = float32_launches(report)
+    for k in kernels:
+        k["float32_launches"] = f32.get(k["name"], {})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
     print(f"script: {report['script_s']:.1f} s (elapsed at the end of "

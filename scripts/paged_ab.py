@@ -2,6 +2,7 @@
 """Time the single-rank paged kernels of one checkout, on one card.
 
     python3 scripts/paged_ab.py [--src DIR] [--label NAME]
+                                [--f32-blocks {plan,groups,sms}]
                                 [--out report.json]
 
 Builds the ``repro_torch`` package under ``DIR/src`` (default: this
@@ -24,8 +25,13 @@ the plain twins (``chip_smoke.decode_case`` / ``prefill_case``):
 Each row: eager calls between CUDA events (``ms``), CUDA-graph replays
 (``graph_ms``), the plain twin (``plain_ms``), one
 ``scaled_dot_product_attention`` call over the gathered rows
-(``library_ms``, ``library_graph_ms``) and the bound. Run trees in
+(``library_ms``, ``library_graph_ms``) and the bound (the float32
+prefill chunk's on the tf32 tensor cores in 3xTF32, its CUDA-core
+bound beside it as ``bound_cuda_cores_ms``). Run trees in
 turns within one call (A B B A) to compare them on the same card.
+``--f32-blocks groups`` or ``sms`` times only the float32 prefill chunk,
+its persistent blocks forced to the merge-group-aligned count or to one
+an SM (the two counts ``prefill_unit_plan`` chooses between).
 Prints the card's name and power limit first and one JSON line a row;
 needs CUDA.
 """
@@ -57,7 +63,28 @@ PREFILL_SHAPES = {
     "prefill-cow-c1": (1, 16, 8, 128, 16, 188, 15),
 }
 FIELDS = ("max_abs_err", "tokens", "ms", "graph_ms", "plain_ms",
-          "library_ms", "library_graph_ms", "bound_ms", "bound_by")
+          "library_ms", "library_graph_ms", "bound_ms", "bound_by",
+          "bound_cuda_cores_ms")
+
+
+def force_f32_blocks(mode: str) -> None:
+    """Replace the float32 prefill-chunk plan's persistent block count by
+    the merge-group-aligned count (``groups``) or one an SM (``sms``);
+    bf16 plans stay as they are."""
+    import repro_torch.kernels.micro_attn_prefill as mp
+    from repro_torch.kernels.micro_attn_decode import (group_blocks,
+                                                       rank_blocks)
+    plan_of = mp.prefill_unit_plan
+
+    def forced(C, H, K, D, MB, bs, sm_count, dtype):
+        plan = plan_of(C, H, K, D, MB, bs, sm_count, dtype)
+        if dtype != torch.float32:
+            return plan
+        hg = plan["groups"]
+        n = group_blocks(hg, sm_count) if mode == "groups" else sm_count
+        n = rank_blocks(1, n, hg * -(-MB * bs // plan["kv_tile"]))
+        return dict(plan, blocks=n, ws_slots=n + hg)
+    mp.prefill_unit_plan = forced
 
 
 def main(argv=None) -> int:
@@ -65,6 +92,9 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT),
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--f32-blocks", choices=("plan", "groups", "sms"),
+                    default="plan", help="float32 prefill chunk only, its "
+                    "blocks forced (default: every row, as planned)")
     ap.add_argument("--out", default=None, help="also write rows here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -79,15 +109,22 @@ def main(argv=None) -> int:
     build.build()
     device = torch.device("cuda")
     rows = []
+    forced = args.f32_blocks != "plan"
+    if forced:
+        force_f32_blocks(args.f32_blocks)
 
     def emit(name, r, **extra):
         row = {"tree": args.label, "case": name, **extra,
-               **{k: r[k] for k in FIELDS}}
+               **{k: r[k] for k in FIELDS if k in r}}
+        if forced:
+            row["f32_blocks"] = args.f32_blocks
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    for dt in (torch.bfloat16, torch.float32):
-        for name, (R, H, K, D, bs, ctx, _) in DECODE_SHAPES.items():
+    for dt in (torch.float32,) if forced else (torch.bfloat16,
+                                               torch.float32):
+        for name, (R, H, K, D, bs, ctx, _) in ({} if forced else
+                                               DECODE_SHAPES).items():
             emit(name, cs.decode_case(f"{name}-{dt}", R, H, K, D, bs, ctx,
                                       dt, device, timed=True),
                  dtype=str(dt))

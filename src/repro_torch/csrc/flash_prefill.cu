@@ -77,270 +77,64 @@
 // (3) l is summed from the float32 p; m, the rescaling and 1 / l are
 // float32.
 //
-// float32 keeps the CUDA-core kernel of the first port (one block of 256
-// threads per (64 query positions, head, batch row), float32 FMAs on 4 x 4
-// register tiles, q and K transposed in shared memory, about 217 KB at
-// D = 256).
+// float32: flash_prefill_tf32_kernel, the same design on the tf32 tensor
+// cores in 3xTF32 (bound: the FLOPs above at 495 / 3 TFLOP/s, 1.012 ms
+// at the hybrid admission; the CUDA cores' 67 TFLOP/s would give 2.49).
+// - Precision (held to 1e-4, FLASH_RTOL 0 in float32): each float32
+//   operand x as hi = x itself and lo = x - trunc_tf32(x). hi is not
+//   rounded by cvt.rna: the tf32 tensor cores ignore the low 13 mantissa
+//   bits of a 32-bit operand, so the raw value is the truncated hi, and a
+//   raw K tile serves as K_hi where TMA wrote it (tests/test_torch_cuda.py
+//   pins the truncation with inputs whose low bits are 0x1FFF, which a
+//   rounding unit would move by a tf32 ulp each). Every product of S = Q
+//   K^T and O += P V runs as q_hi K_hi + q_hi K_lo + q_lo K_hi (P and V
+//   likewise), the dropped lo lo under 2^-20 relative; one tf32 product
+//   (up to 2^-9) misses 1e-4 (tests/test_torch_kernels.py emulates
+//   both). l is summed from the float32 p; m, the rescaling and 1 / l
+//   stay float32.
+// - K-major only: tf32 wgmma reads shared-memory operands K-major, with no
+//   transpose immediate. q [rows][D] and K [keys][D] are K-major for S; V
+//   [keys][D] is not, for P V. The producer warpgroup's warps 1-3 (idle in
+//   the bf16 kernel) write V^T [D][keys] hi and lo with generic stores in
+//   wgmma's no-swizzle core-matrix layout (4 keys x 16 bytes a row, one
+//   core-matrix column a 16 D-byte stride), then fence.proxy.async before
+//   the barrier the consumers wait on. They also write K_lo (the raw
+//   tile's layout) and zero nothing but never-loaded columns: a K tile
+//   needs no transpose, so only its lo half is a copy. Within each 8-key
+//   group V^T holds keys in the order k = i / 2 + 4 (i % 2): the S
+//   accumulator gives a thread keys 2 (lane % 4) and + 1, the tf32 A
+//   fragment wants k = lane % 4 and + 4, so p passes from S to P V in the
+//   same registers, with no shuffle.
+// - Swizzle: a 128-byte swizzle row is 32 float32 columns; TMA boxes are
+//   32 columns wide, and a k8 step advances 32 bytes within them, the
+//   bytes of a bf16 k16 step.
+// - Shared memory (232,448 B) decides the tiles: each consumer keeps q_lo
+//   of its 64 rows (32 KB at D 128) and its q_hi as register-A fragments
+//   (64 registers at D 128), so S reads only K from shared memory in two
+//   of its three products; a stage holds K_hi, K_lo, V^T_hi, V^T_lo, and
+//   two raw V slots feed the split. D <= 64: 64-key tiles, 2 stages (193
+//   KB); D <= 128: 32-key tiles, 2 stages (225 KB); D <= 256: q_hi too
+//   in shared memory (q's halves 128 KB) for one consumer warpgroup of 64
+//   rows, 16-key tiles, 1 stage (225 KB). kernels/flash_prefill.py::
+//   flash_plan mirrors it; the C entry refuses any other plan.
+// - Pipeline: TMA loads a raw K tile into its stage as soon as both
+//   consumers have finished that stage's S, and a raw V tile into a free
+//   raw slot; the split runs a stage ahead; a consumer releases K once S
+//   is done and V once P V is, and issues tile t's S before tile t - 1's
+//   P V as the bf16 kernel does.
+// - Registers: setmaxnreg gives the producer warpgroup 56 and the
+//   consumers 224 (64,512 in all, what the launch holds: 48 / 232 would
+//   need the whole file, and setmaxnreg.inc then waits forever). The
+//   split loops unroll twice (four times spilled the producer at D 128).
+// - ptxas: the descriptors are made opaque at each issue (with one stage
+//   every descriptor is loop-invariant, and hoisting them all spilled at
+//   D 256); the wgmmas keep the bf16 kernel's uniform control flow.
 #include "hopper.cuh"
 #include "paged_attn.cuh"
 
 namespace {
 
 using paged_attn::smem_addr;
-
-// ---------------------------------------------------------------------
-// float32: CUDA cores.
-// ---------------------------------------------------------------------
-constexpr int TQ = 64;        // query rows per thread block
-constexpr int TK = 64;        // KV tokens per tile
-constexpr int THREADS = 256;  // a 16 x 16 thread grid
-constexpr int TQP = TQ + 4;   // padded strides (bank spread, 16-byte rows)
-constexpr int TKP = TK + 4;
-
-// Dynamic shared memory (bytes) for head dim D and DPT columns a thread.
-inline size_t smem_bytes(int D, int DPT) {
-  return sizeof(float) * (static_cast<size_t>(D) * TQP     // q, [D][TQP]
-                          + static_cast<size_t>(D) * TKP   // k, [D][TKP]
-                          + static_cast<size_t>(TK) * 16 * DPT  // v
-                          + static_cast<size_t>(TQ) * TKP);  // p, [TQ][TKP]
-}
-
-// 4 floats at p (16-byte aligned).
-__device__ __forceinline__ void load_vec(const float* p, float* x) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// One block per (64 query positions, head, batch row), tiles issued
-// longest-first; only the live KV tiles of 64 tokens are visited, masks
-// per element. Each K/V tile is staged in shared memory once for the 64
-// rows; the 256 threads form a 16 x 16 grid holding 4 x 4 register tiles
-// of scores, reduce row maxima and sums with warp shuffles, and keep the
-// running (acc, m, l) of 4 rows x DPT columns in registers. A thread's
-// columns are interleaved in groups of four (tx * 4 + 64 * j), so the 16
-// threads of a row group read one contiguous run of the V tile.
-// DPT: output columns per thread (D <= 16 * DPT).
-template <int DPT>
-__global__ void __launch_bounds__(THREADS)
-    flash_prefill_f32_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             float* __restrict__ o, int S, int H, int K,
-                             int D, int window, float scale) {
-  constexpr int VEC = 4;  // floats per 16-byte load
-  constexpr int DP = 16 * DPT;
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [D][TQP]   q tile, transposed
-  float* k_s = q_s + D * TQP;      // [D][TKP]   K tile, transposed
-  float* v_s = k_s + D * TKP;      // [TK][DP]   V tile
-  float* p_s = v_s + TK * DP;      // [TQ][TKP]  probabilities
-
-  const int n_qt = (S + TQ - 1) / TQ;
-  const int q_lo = (n_qt - 1 - static_cast<int>(blockIdx.x)) * TQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / K);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;         // token / column group
-  const int ty = tid >> 4;         // row group: rows ty*4 .. ty*4+3
-  const int nch = D / VEC;         // 16-byte chunks in a row
-
-  const size_t q_tok = static_cast<size_t>(H) * D;   // q/o token stride
-  const size_t kv_tok = static_cast<size_t>(K) * D;  // k/v token stride
-  const float* qb = q + static_cast<size_t>(b) * S * q_tok + h * D;
-  const float* kb = k + static_cast<size_t>(b) * S * kv_tok + kh * D;
-  const float* vb = v + static_cast<size_t>(b) * S * kv_tok + kh * D;
-
-  // q rows of the tile, transposed, zero past S.
-  for (int idx = tid; idx < TQ * nch; idx += THREADS) {
-    const int r = idx % TQ, ch = idx / TQ, t = q_lo + r;
-    float x[VEC];
-    if (t < S) {
-      load_vec(qb + t * q_tok + ch * VEC, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) q_s[(ch * VEC + e) * TQP + r] = x[e];
-  }
-
-  float acc[4][DPT], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
-  }
-
-  // Live KV tiles only: from the window's first key (tile-aligned) to
-  // the tile's diagonal.
-  const int kv_end = min(S, q_lo + TQ);
-  const int kv_lo = window > 0 ? max(0, q_lo - window + 1) : 0;
-  for (int t0 = (kv_lo / TK) * TK; t0 < kv_end; t0 += TK) {
-    __syncthreads();  // previous tile fully consumed; q_s written
-    // K tile, transposed: consecutive threads take consecutive tokens.
-    for (int idx = tid; idx < TK * nch; idx += THREADS) {
-      const int tok = idx % TK, ch = idx / TK, t = t0 + tok;
-      float x[VEC];
-      if (t < kv_end) {
-        load_vec(kb + t * kv_tok + ch * VEC, x);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) k_s[(ch * VEC + e) * TKP + tok] = x[e];
-    }
-    // V tile, row-major: consecutive threads take consecutive chunks.
-    for (int idx = tid; idx < TK * (DP / VEC); idx += THREADS) {
-      const int ch = idx % (DP / VEC), tok = idx / (DP / VEC), t = t0 + tok;
-      float x[VEC];
-      if (t < kv_end && ch < nch) {
-        load_vec(vb + t * kv_tok + ch * VEC, x);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) v_s[tok * DP + ch * VEC + e] = x[e];
-    }
-    __syncthreads();
-
-    // Scores: rows ty*4+i, tokens tx*4+j.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_s + d * TQP +
-                                                         ty * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(k_s + d * TKP +
-                                                         tx * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-    }
-    // Online softmax per row, reduced over the row group's 16 threads.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q_lo + ty * 4 + i;
-      bool ok[4];
-      float mt = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = t0 + tx * 4 + j;
-        ok[j] = kp <= qp && kp < S && (window <= 0 || kp > qp - window);
-        s[i][j] = ok[j] ? s[i][j] * scale : -CUDART_INF_F;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      mt = group16_max(mt);
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = m[i] == -CUDART_INF_F ? 0.f : expf(m[i] - m_new);
-      float p[4], sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p[j];
-      }
-      sum = group16_sum(sum);
-      m[i] = m_new;
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) acc[i][e] *= alpha;
-      *reinterpret_cast<float4*>(p_s + (ty * 4 + i) * TKP + tx * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
-    }
-    __syncthreads();
-
-    // acc[rows ty*4+i][cols (e/4)*64 + tx*4 + e%4] += p @ V.
-    for (int c = 0; c < TK; c += 4) {
-      float pa[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pv = *reinterpret_cast<const float4*>(
-            p_s + (ty * 4 + i) * TKP + c);
-        pa[i][0] = pv.x;
-        pa[i][1] = pv.y;
-        pa[i][2] = pv.z;
-        pa[i][3] = pv.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float va[DPT];
-#pragma unroll
-        for (int e = 0; e < DPT; e += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              v_s + (c + cc) * DP + e * 16 + tx * 4);
-          va[e] = vv.x;
-          va[e + 1] = vv.y;
-          va[e + 2] = vv.z;
-          va[e + 3] = vv.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < DPT; ++e)
-            acc[i][e] = fmaf(pa[i][cc], va[e], acc[i][e]);
-      }
-    }
-  }
-
-  // Normalized output; a row without a valid key (l == 0) writes 0.
-  float* ob = o + static_cast<size_t>(b) * S * q_tok + h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q_lo + ty * 4 + i;
-    if (t >= S) continue;
-    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) {
-      const int d = (e / 4) * 64 + tx * 4 + e % 4;
-      if (d < D) ob[t * q_tok + d] = acc[i][e] * inv;
-    }
-  }
-}
-
-template <int DPT>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int K, int D, int window, float scale,
-               int smem_arg, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, DPT);
-  if (static_cast<size_t>(smem_arg) != smem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_prefill_f32_kernel<DPT>;
-  static int allowed[hopper::MAX_DEVICES] = {};
-  if (int e = hopper::allow_smem(kern, smem_bytes(16 * DPT, DPT), allowed))
-    return e;
-  const dim3 grid((S + TQ - 1) / TQ, H, B);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, K, D,
-      window, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------
 // bf16: wgmma fed by a TMA ring, warp-specialised, persistent.
@@ -369,7 +163,8 @@ struct WgLayout {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * BARS;
 };
 
-// Work item i of n_qt * H * B, in the static longest-first order:
+// Work item i of n_qt * H * B (tiles of ROWS query rows), in the static
+// longest-first order:
 // query tile n_qt - 1 - i / (H * B) (the last tile has the most keys),
 // then batch row, then head (the heads of a kv group side by side, so
 // that blocks running at once read the same K/V tiles from L2). Its live
@@ -379,15 +174,15 @@ struct WorkItem {
   int q_lo, h, b, t_first, ntiles;
 };
 
-template <int BN>
+template <int BN, int ROWS = BM>
 __device__ __forceinline__ WorkItem work_item(int i, int n_qt, int H, int HB,
                                               int S, int window) {
   WorkItem w;
-  w.q_lo = (n_qt - 1 - i / HB) * BM;
+  w.q_lo = (n_qt - 1 - i / HB) * ROWS;
   const int hb = i % HB;
   w.h = hb % H;
   w.b = hb / H;
-  const int kv_end = min(S, w.q_lo + BM);
+  const int kv_end = min(S, w.q_lo + ROWS);
   const int kv_lo = window > 0 ? max(0, w.q_lo - window + 1) : 0;
   w.t_first = (kv_lo / BN) * BN;
   w.ntiles = (kv_end - w.t_first + BN - 1) / BN;
@@ -697,14 +492,398 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------
+// float32: 3xTF32 wgmma fed by TMA rings and split stages,
+// warp-specialised, persistent.
+// ---------------------------------------------------------------------
+// 128 x 56 + 256 x 224 = 64,512 registers, the 384 x 168 the launch
+// holds: setmaxnreg.inc waits for registers that setmaxnreg.dec freed,
+// and a split needing the whole 65,536 (48 / 232) never starts.
+constexpr int F32_PRODUCER_REGS = 56;
+constexpr int F32_CONSUMER_REGS = 224;
+constexpr int SPLITTERS = WG_THREADS - 32;  // the producer's warps 1-3
+
+// Shared memory of a float32 instantiation (NC consumer warpgroups of 64
+// rows, K/V tiles of BN keys, SS stages, RV raw V slots). q_lo of each
+// consumer (64 rows of DMAX, 128-byte-swizzled boxes of 32 columns), and
+// q_hi after it unless q_hi lives in registers (QREG: DMAX <= 128); the
+// raw V slots (TMA's layout); the stages, each K_hi (the raw K tile, which
+// TMA writes there), K_lo (its layout), V^T_hi and V^T_lo (hopper.cuh
+// split_v_tile's); then the barriers. Every region starts on 1,024 bytes.
+template <int DMAX, int BN, int NC, int SS, int RV>
+struct F32Layout {
+  static constexpr bool QREG = DMAX <= 128;
+  static constexpr int BOXES = DMAX / 32;
+  static constexpr int Q_HALF = WG_ROWS * DMAX * 4;  // one consumer's hi or lo
+  static constexpr int Q_WG = (QREG ? 1 : 2) * Q_HALF;  // lo [, hi]
+  static constexpr int TILE = BN * DMAX * 4;         // a K or V tile
+  static constexpr int RAW_V = NC * Q_WG;             // + slot * TILE
+  static constexpr int STAGE = RAW_V + RV * TILE;     // + stage * 4 TILE
+  static constexpr int BAR_OFF = STAGE + SS * 4 * TILE;
+  // raw V full / empty a slot, then K raw (TMA), K full (K_lo), K empty,
+  // V full, V empty a stage.
+  static constexpr int BARS = 2 * RV + 5 * SS;
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * BARS;
+};
+
+// One block an SM ((1 + NC) x 128 threads). Warpgroup 0: lane 0 of its
+// first warp issues every TMA load (raw K and V tiles of an item's live
+// keys into their rings); its warps 1-3 split each raw tile into the tf32
+// halves of a split stage (K as laid out, V transposed), freeing each
+// raw slot as soon as it is split. Warpgroups 1..NC are consumers of 64
+// query rows each: they stage their q themselves (16-byte loads from
+// global memory; q_lo, and q_hi unless QREG, into swizzled shared memory,
+// q_hi as register-A fragments if QREG), then run the tile step of the
+// bf16 kernel with 3xTF32 products.
+template <int DMAX, int BN, int NC, int SS, int RV>
+__global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
+    flash_prefill_tf32_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const float* __restrict__ q,
+                              float* __restrict__ o, int S, int H, int K,
+                              int D, int window, float scale, int n_items) {
+  using L = F32Layout<DMAX, BN, NC, SS, RV>;
+  constexpr int ROWS = NC * WG_ROWS;  // query rows a work item
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw_addr);
+  const uint32_t rv_full = base + L::BAR_OFF;      // + 16 * slot
+  const uint32_t rv_empty = rv_full + 8;
+  const uint32_t k_raw = rv_full + 16 * RV;        // + 40 * stage
+  const uint32_t k_full = k_raw + 8;
+  const uint32_t k_empty = k_raw + 16;
+  const uint32_t v_full = k_raw + 24;
+  const uint32_t v_empty = k_raw + 32;
+  constexpr uint32_t CONSUMERS = NC * WG_THREADS;
+  const int ncb = (D + 31) / 32;  // column boxes holding data
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < RV; ++r) {
+      hopper::mbar_init(rv_full + 16 * r, 1);
+      hopper::mbar_init(rv_empty + 16 * r, SPLITTERS);
+    }
+    for (int s = 0; s < SS; ++s) {
+      hopper::mbar_init(k_raw + 40 * s, 1);
+      hopper::mbar_init(k_full + 40 * s, SPLITTERS);
+      hopper::mbar_init(k_empty + 40 * s, CONSUMERS);
+      hopper::mbar_init(v_full + 40 * s, SPLITTERS);
+      hopper::mbar_init(v_empty + 40 * s, CONSUMERS);
+    }
+    hopper::mbar_init_fence();
+  }
+  // Column boxes of the K and V tiles past the data are never loaded:
+  // zero them once (S reads every column of K_hi; the split copies every
+  // column).
+  if (ncb < L::BOXES) {
+    const int chunks = (L::BOXES - ncb) * BN * 8;  // 16 bytes each
+    for (int idx = threadIdx.x; idx < (SS + RV) * chunks;
+         idx += blockDim.x) {
+      const int t = idx / chunks, j = idx - t * chunks;
+      const int tile = t < SS ? L::STAGE + t * 4 * L::TILE
+                              : L::RAW_V + (t - SS) * L::TILE;
+      *reinterpret_cast<uint4*>(gbase + tile + ncb * BN * 128 + j * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  const int n_qt = (S + ROWS - 1) / ROWS;
+  const int HB = n_items / n_qt;  // H * B
+  const int rounds = (n_items + static_cast<int>(gridDim.x) - 1) /
+                     static_cast<int>(gridDim.x);
+  // The warpgroup index, broadcast from lane 0 so that the compiler
+  // knows it is uniform: wgmma in a path it takes for divergent is
+  // serialized.
+  const int wg_idx = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  if (wg_idx == 0) {
+    if constexpr (NC > 1) hopper::setmaxnreg_dec<F32_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      // TMA, for every live tile in order: the raw K tile into its
+      // stage's K_hi as soon as the consumers are done with the stage's
+      // K, the raw V tile into the V ring as soon as its slot is split.
+      hopper::prefetch_tensor_map(&tm_k);
+      hopper::prefetch_tensor_map(&tm_v);
+      const uint32_t bytes = ncb * BN * 128;
+      hopper::Ring<SS> sp;
+      hopper::Ring<RV> rv;
+      for (int r = 0; r < rounds; ++r) {
+        const int i = block_item(r, n_items);
+        if (i < 0) continue;
+        const WorkItem w = work_item<BN, ROWS>(i, n_qt, H, HB, S, window);
+        const int kh = w.h / (H / K);
+        for (int t = 0; t < w.ntiles; ++t) {
+          const int t0 = w.t_first + t * BN;
+          const uint32_t kr = k_raw + 40 * sp.slot;
+          hopper::mbar_wait(k_empty + 40 * sp.slot, sp.phase ^ 1);
+          hopper::mbar_expect_tx(kr, bytes);
+          for (int c = 0; c < ncb; ++c)
+            hopper::tma_load_4d(
+                base + L::STAGE + sp.slot * 4 * L::TILE + c * BN * 128,
+                &tm_k, kr, c * 32, kh, t0, w.b);
+          sp.next();
+          const uint32_t vf = rv_full + 16 * rv.slot;
+          hopper::mbar_wait(rv_empty + 16 * rv.slot, rv.phase ^ 1);
+          hopper::mbar_expect_tx(vf, bytes);
+          for (int c = 0; c < ncb; ++c)
+            hopper::tma_load_4d(
+                base + L::RAW_V + rv.slot * L::TILE + c * BN * 128, &tm_v,
+                vf, c * 32, kh, t0, w.b);
+          rv.next();
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      // The split: K's lo half once its raw tile has landed (the stage's
+      // K was free before the load), then V's halves when the stage's V
+      // is free; the raw V slot goes back to the loads once split.
+      const int st = threadIdx.x - 32;
+      hopper::Ring<RV> rv;
+      hopper::Ring<SS> sp;
+      for (int r = 0; r < rounds; ++r) {
+        const int i = block_item(r, n_items);
+        if (i < 0) continue;
+        const WorkItem w = work_item<BN, ROWS>(i, n_qt, H, HB, S, window);
+        for (int t = 0; t < w.ntiles; ++t) {
+          unsigned char* dst = gbase + L::STAGE + sp.slot * 4 * L::TILE;
+          hopper::mbar_wait(k_raw + 40 * sp.slot, sp.phase);
+          hopper::split_k_tile(dst, dst + L::TILE, L::TILE, st, SPLITTERS);
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(k_full + 40 * sp.slot);
+          hopper::mbar_wait(rv_full + 16 * rv.slot, rv.phase);
+          hopper::mbar_wait(v_empty + 40 * sp.slot, sp.phase ^ 1);
+          hopper::split_v_tile<DMAX, BN>(
+              gbase + L::RAW_V + rv.slot * L::TILE, dst + 2 * L::TILE,
+              dst + 3 * L::TILE, BN, st, SPLITTERS);
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(v_full + 40 * sp.slot);
+          hopper::mbar_arrive(rv_empty + 16 * rv.slot);
+          rv.next();
+          sp.next();
+        }
+      }
+    }
+  } else {
+    if constexpr (NC > 1) hopper::setmaxnreg_inc<F32_CONSUMER_REGS>();
+    constexpr int NJ = BN / 8;     // n8 chunks of a score tile
+    constexpr int NT = DMAX / 8;   // n8 chunks of the output
+    const int wg = wg_idx - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
+    const unsigned lim = window > 0 ? window : 0x7fffffffu;
+    unsigned char* qg = gbase + wg * L::Q_WG;     // q_lo, then q_hi
+    const uint32_t q_s = base + wg * L::Q_WG;
+    const uint64_t ql_desc = hopper::smem_desc(q_s, 16, 1024);
+    const uint64_t qh_desc = hopper::smem_desc(q_s + L::Q_HALF, 16, 1024);
+    const uint32_t sp0 = base + L::STAGE;
+    const uint64_t kh_desc = hopper::smem_desc(sp0, 16, 1024);
+    const uint64_t kl_desc = hopper::smem_desc(sp0 + L::TILE, 16, 1024);
+    const uint64_t vh_desc =
+        hopper::smem_desc_plain(sp0 + 2 * L::TILE, 16 * DMAX, 128);
+    const uint64_t vl_desc =
+        hopper::smem_desc_plain(sp0 + 3 * L::TILE, 16 * DMAX, 128);
+    constexpr uint32_t SLOT = (4 * L::TILE) >> 4;
+    uint32_t qa[L::QREG ? NT : 1][4];  // q_hi fragments (QREG)
+    hopper::Ring<SS> sp;  // split stage of the next tile
+    // A tile with no valid key for the warpgroup's rows: waited on and
+    // released without math.
+    auto pass_tile = [&] {
+      hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+      hopper::mbar_arrive(k_empty + 40 * sp.slot);
+      hopper::mbar_wait(v_full + 40 * sp.slot, sp.phase);
+      hopper::mbar_arrive(v_empty + 40 * sp.slot);
+      sp.next();
+    };
+    for (int r = 0; r < rounds; ++r) {
+      const int i = block_item(r, n_items);
+      if (i < 0) continue;
+      const WorkItem w = work_item<BN, ROWS>(i, n_qt, H, HB, S, window);
+      const int r0 = w.q_lo + wg * WG_ROWS;
+      const int r1 = r0 + WG_ROWS - 1;
+      const int row = r0 + warp * 16 + (lane >> 2);
+      int lo = 0, hi = 0;
+      if (r0 < S) {
+        hi = min(w.ntiles, (r1 - w.t_first) / BN + 1);
+        const int x = r0 - window - BN + 1 - w.t_first;
+        if (window > 0 && x >= 0) lo = min(hi, x / BN + 1);
+      }
+      float oacc[1][NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        oacc[0][j][0] = oacc[0][j][1] = oacc[0][j][2] = oacc[0][j][3] = 0.f;
+      float m_r[1][2] = {{-CUDART_INF_F, -CUDART_INF_F}};
+      float l_r[1][2] = {{0.f, 0.f}};
+      for (int t = 0; t < lo; ++t) pass_tile();
+      if (lo < hi) {
+        // The warpgroup's q rows as tf32 halves (zero past S and D). The
+        // previous item's last S has completed (waited on), so q's
+        // shared memory and registers are free.
+        const float* qb = q + (static_cast<size_t>(w.b) * S * H + w.h) * D;
+        for (int idx = tid; idx < WG_ROWS * (DMAX / 4); idx += WG_THREADS) {
+          const int rr = idx / (DMAX / 4);
+          const int ch = idx - rr * (DMAX / 4);
+          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r0 + rr < S && ch * 4 < D)
+            x = *reinterpret_cast<const float4*>(
+                qb + static_cast<size_t>(r0 + rr) * H * D + ch * 4);
+          const int off = hopper::swz128_f32(WG_ROWS, rr, ch * 4);
+          *reinterpret_cast<uint4*>(qg + off) = hopper::tf32_lo4(x);
+          if constexpr (!L::QREG)
+            *reinterpret_cast<float4*>(qg + L::Q_HALF + off) = x;
+        }
+        if constexpr (L::QREG)
+          hopper::load_q_frags<DMAX>(
+              qa,
+              [&](int i) -> const float* {
+                const int qp = r0 + warp * 16 + i;
+                return qp < S ? qb + static_cast<size_t>(qp) * H * D
+                              : nullptr;
+              },
+              D);
+        hopper::fence_proxy_async();
+        hopper::named_bar_sync(2 + wg, WG_THREADS);
+        float sacc[1][NJ][4];  // written by each tile's first product
+        uint32_t ph[NJ][4], pl[NJ][4];
+        float alpha[1][2];
+        auto softmax_step = [&](int t) {
+          hopper::fence_regs(sacc[0]);
+          const int t0 = w.t_first + t * BN;
+          if (t0 + BN - 1 > r0 || (window > 0 && t0 <= r1 - window)) {
+            const int d0 = row - t0 - (lane & 3) * 2;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int dq = d0 + (e >> 1) * 8 - j * 8 - (e & 1);
+                if (static_cast<unsigned>(dq) >= lim)
+                  sacc[0][j][e] = -CUDART_INF_F;
+              }
+          }
+          const bool moved =
+              paged_attn::softmax_scores(sacc, m_r, l_r, alpha, c);
+          return __any_sync(0xffffffffu, moved);
+        };
+        auto stage_probs = [&] {
+          hopper::split_probs_tf32<NJ>(sacc[0], ph, pl);
+          hopper::fence_regs(ph);
+          hopper::fence_regs(pl);
+          hopper::fence_regs(oacc[0]);
+        };
+        auto issue_s = [&] {
+          if constexpr (L::QREG)
+            hopper::issue_qk_tf32_rs<DMAX, BN, WG_ROWS>(
+                sacc[0], qa, ql_desc, kh_desc + sp.slot * SLOT,
+                kl_desc + sp.slot * SLOT);
+          else
+            hopper::issue_qk_tf32<DMAX, BN, WG_ROWS>(
+                sacc[0], qh_desc, ql_desc, kh_desc + sp.slot * SLOT,
+                kl_desc + sp.slot * SLOT);
+        };
+        // Software pipeline (the bf16 kernel's): tile t's S is issued
+        // before tile t - 1's P V; K is released once S is done, V once
+        // P V is.
+        hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+        hopper::wgmma_fence();
+        issue_s();
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sacc[0]);
+        hopper::mbar_arrive(k_empty + 40 * sp.slot);
+        softmax_step(lo);  // the output is still 0: no rescale
+        stage_probs();
+        hopper::Ring<SS> pv = sp;  // stage of the tile whose P V is pending
+        sp.next();
+        for (int t = lo + 1; t < hi; ++t) {
+          hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+          hopper::mbar_wait(v_full + 40 * pv.slot, pv.phase);
+          hopper::wgmma_fence();
+          issue_s();
+          hopper::wgmma_commit();
+          hopper::issue_pv_tf32<DMAX, BN>(oacc[0], ph, pl,
+                                          vh_desc + pv.slot * SLOT,
+                                          vl_desc + pv.slot * SLOT);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();
+          hopper::fence_regs(sacc[0]);
+          hopper::mbar_arrive(k_empty + 40 * sp.slot);
+          const bool moved = softmax_step(t);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(oacc[0]);
+          hopper::mbar_arrive(v_empty + 40 * pv.slot);
+          if (moved) paged_attn::rescale_rows(oacc, alpha);
+          stage_probs();
+          pv = sp;
+          sp.next();
+        }
+        hopper::mbar_wait(v_full + 40 * pv.slot, pv.phase);
+        hopper::wgmma_fence();
+        hopper::issue_pv_tf32<DMAX, BN>(oacc[0], ph, pl,
+                                        vh_desc + pv.slot * SLOT,
+                                        vl_desc + pv.slot * SLOT);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(oacc[0]);
+        hopper::mbar_arrive(v_empty + 40 * pv.slot);
+      }
+      for (int t = hi; t < w.ntiles; ++t) pass_tile();
+      // Normalized output; a row without a valid key (l == 0) writes 0.
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float lr = l_r[0][hh];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const int qp = row + hh * 8;
+        if (qp >= S) continue;
+        const float inv = lr == 0.f ? 0.f : 1.f / lr;
+        float* orow = o + ((static_cast<size_t>(w.b) * S + qp) * H + w.h) * D;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int col = j * 8 + (lane & 3) * 2;
+          if (col < D)
+            *reinterpret_cast<float2*>(orow + col) =
+                make_float2(oacc[0][j][2 * hh] * inv,
+                            oacc[0][j][2 * hh + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+template <int DMAX, int BN, int NC, int SS, int RV>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int K, int D, int window, float scale,
+                int rows, int kv_tile, int stages, int blocks, int smem_arg,
+                cudaStream_t stream) {
+  using L = F32Layout<DMAX, BN, NC, SS, RV>;
+  const long n_items =
+      static_cast<long>((S + NC * WG_ROWS - 1) / (NC * WG_ROWS)) * H * B;
+  if (rows != NC * WG_ROWS || kv_tile != BN || stages != SS ||
+      smem_arg != L::SMEM || blocks < 1 || blocks > n_items ||
+      n_items > 0x7fffffffL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tk, tv;
+  if (int e = hopper::encode_rows_map(&tk, k, D, K, S, B, BN, 4)) return e;
+  if (int e = hopper::encode_rows_map(&tv, v, D, K, S, B, BN, 4)) return e;
+  auto kern = flash_prefill_tf32_kernel<DMAX, BN, NC, SS, RV>;
+  static int allowed[hopper::MAX_DEVICES] = {};
+  if (int e = hopper::allow_smem(kern, L::SMEM, allowed)) return e;
+  kern<<<blocks, (1 + NC) * WG_THREADS, L::SMEM, stream>>>(
+      tk, tv, static_cast<const float*>(q), static_cast<float*>(o), S, H, K,
+      D, window, scale, static_cast<int>(n_items));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry: returns cudaGetLastError() after the launch (0 = success).
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma); q, k, v and the
-// output share it. The caller plans the launch (kernels/flash_prefill.py::
-// flash_plan): rows_per_block (bf16 128, float32 64), kv_tile, stages,
-// blocks (bf16: persistent blocks, at most one a work item; float32: the
-// grid's blocks) and smem_bytes must be what the instantiation for (D,
+// dtype: 0 = float32 (3xTF32 wgmma), 1 = bfloat16 (wgmma); q, k, v and
+// the output share it. The caller plans the launch (kernels/
+// flash_prefill.py::flash_plan): rows_per_block (query rows a work item:
+// bf16 128; float32 128, or 64 at D > 128), kv_tile, stages (bf16: the
+// ring's; float32: the split stages), blocks (persistent, at most one a
+// work item) and smem_bytes must be what the instantiation for (D,
 // dtype) lays out; any other value returns cudaErrorInvalidValue.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
@@ -726,12 +905,16 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return launch_wgmma<256, 64, 2>(q, k, v, o, B, S, H, K, D, window, scale,
                                     kv_tile, stages, blocks, smem_bytes, s);
   }
-  if (rows_per_block != TQ || kv_tile != TK || stages != 1 ||
-      static_cast<long>(blocks) != static_cast<long>((S + TQ - 1) / TQ) * H * B)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64)
+    return launch_tf32<64, 64, 2, 2, 2>(q, k, v, o, B, S, H, K, D, window,
+                                           scale, rows_per_block, kv_tile,
+                                           stages, blocks, smem_bytes, s);
   if (D <= 128)
-    return launch_f32<8>(q, k, v, o, B, S, H, K, D, window, scale,
-                         smem_bytes, s);
-  return launch_f32<16>(q, k, v, o, B, S, H, K, D, window, scale, smem_bytes,
-                        s);
+    return launch_tf32<128, 32, 2, 2, 2>(q, k, v, o, B, S, H, K, D,
+                                            window, scale, rows_per_block,
+                                            kv_tile, stages, blocks,
+                                            smem_bytes, s);
+  return launch_tf32<256, 16, 1, 1, 2>(q, k, v, o, B, S, H, K, D, window,
+                                          scale, rows_per_block, kv_tile,
+                                          stages, blocks, smem_bytes, s);
 }

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the port's kernels, written in PTX:
 // tensor maps and TMA loads (cp.async.bulk.tensor), a cache of encoded
-// maps, mbarriers, the async-proxy fence and named barriers, wgmma with
-// shared-memory descriptors (128-byte swizzle) and register-A operands,
+// maps, mbarriers, the async-proxy fence and named barriers, wgmma (bf16
+// and tf32) with shared-memory descriptors (128-byte swizzle, and the
+// no-swizzle layout of the float32 kernels' V^T) and register-A operands,
 // the S = Q K^T and O += P V steps of the attention kernels built on
-// them, and setmaxnreg. The flash-prefill and paged prefill-chunk kernels
-// run on all of them; the paged decode kernel on the maps and barriers.
+// them (bf16 hi + lo; 3xTF32 for float32, with its operand split), and
+// setmaxnreg. The flash-prefill and paged prefill-chunk kernels run on
+// all of them; the paged decode kernel on the maps and barriers.
 //
 // Shared-memory tiles are the layout a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: boxes of 128 bytes a row (64 bf16 or
@@ -204,6 +206,20 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// A position in a ring of N slots guarded by mbarriers: the slot and the
+// parity of the ring's current pass.
+template <int N>
+struct Ring {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ void next() {
+    if (++slot == N) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
 // Wait until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
@@ -332,6 +348,37 @@ __device__ __forceinline__ void wgmma_ss_init(float (&d)[N / 8][4],
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
                                          const uint32_t (&a)[4], uint64_t db);
+
+// float32 on the tensor cores (3xTF32; see issue_qk_tf32): wgmma's tf32
+// forms, k8 a step (32 bytes of each operand, the bytes of a bf16 k16
+// step). tf32 takes shared-memory operands K-major only (no transpose
+// immediates), so P V reads a transposed copy of V (split_v_tile).
+//
+// d (64 x N, float32) += A B^T, A (64 x 8) and B (N x 8) tf32 in shared
+// memory, both K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 8][4],
+                                              uint64_t da, uint64_t db);
+
+// d (64 x N) = A B^T (scale-d 0), d write-only, as wgmma_ss_init.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss_init(float (&d)[N / 8][4],
+                                                   uint64_t da, uint64_t db);
+
+// d (64 x N, float32) += A B, A (64 x 8) tf32 from registers (4 words a
+// thread: rows 16 w + lane / 4 and + 8, columns lane % 4 and + 4, the
+// m16n8k8 tf32 A fragment of warp w), B (8 x N) tf32 in shared memory,
+// K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db);
+
+// d (64 x N) = A B (scale-d 0), A from registers, d write-only.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs_init(float (&d)[N / 8][4],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4],
@@ -484,6 +531,173 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[32][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<16>(float (&d)[2][4],
+    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : HK_D4(0), HK_D4(1)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss_init<16>(float (&d)[2][4],
+    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : HK_O4(0), HK_O4(1)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[4][4],
+    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : HK_D4(0), HK_D4(1), HK_D4(2), HK_D4(3)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[8][4],
+    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : HK_D4(0), HK_D4(1), HK_D4(2), HK_D4(3),
+        HK_D4(4), HK_D4(5), HK_D4(6), HK_D4(7)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[8][4],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HK_D4(0), HK_D4(1), HK_D4(2), HK_D4(3),
+        HK_D4(4), HK_D4(5), HK_D4(6), HK_D4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[16][4],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : HK_D4(0), HK_D4(1), HK_D4(2), HK_D4(3),
+        HK_D4(4), HK_D4(5), HK_D4(6), HK_D4(7),
+        HK_D4(8), HK_D4(9), HK_D4(10), HK_D4(11),
+        HK_D4(12), HK_D4(13), HK_D4(14), HK_D4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<256>(float (&d)[32][4],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : HK_D4(0), HK_D4(1), HK_D4(2), HK_D4(3),
+        HK_D4(4), HK_D4(5), HK_D4(6), HK_D4(7),
+        HK_D4(8), HK_D4(9), HK_D4(10), HK_D4(11),
+        HK_D4(12), HK_D4(13), HK_D4(14), HK_D4(15),
+        HK_D4(16), HK_D4(17), HK_D4(18), HK_D4(19),
+        HK_D4(20), HK_D4(21), HK_D4(22), HK_D4(23),
+        HK_D4(24), HK_D4(25), HK_D4(26), HK_D4(27),
+        HK_D4(28), HK_D4(29), HK_D4(30), HK_D4(31)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[4][4],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HK_D4(0), HK_D4(1), HK_D4(2), HK_D4(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs_init<32>(float (&d)[4][4],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HK_O4(0), HK_O4(1), HK_O4(2), HK_O4(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs_init<64>(float (&d)[8][4],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HK_O4(0), HK_O4(1), HK_O4(2), HK_O4(3),
+        HK_O4(4), HK_O4(5), HK_O4(6), HK_O4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
 #undef HK_D4
 #undef HK_O4
 
@@ -518,6 +732,206 @@ __device__ __forceinline__ void issue_pv(float (&o)[DMAX / 8][4],
 #pragma unroll
   for (int kc = 0; kc < BN / 16; ++kc)
     wgmma_rs<DMAX>(o, pl[kc], v_desc + ((kc * 16 * 128) >> 4));
+}
+
+// ---------------------------------------------------------------------
+// 3xTF32: float32 products on the tf32 tensor cores.
+// ---------------------------------------------------------------------
+// A float32 x is carried as hi = trunc_tf32(x) and lo = x - hi. The tf32
+// tensor cores ignore the low 13 mantissa bits of a 32-bit operand (they
+// truncate it to tf32): so x itself, unmodified, is the operand hi, and
+// no copy of it is made; lo = x - (x with its low 13 bits cleared) is
+// exact in float32, |lo| < 2^-10 |x|, and the hardware's truncation of
+// lo in turn loses less than 2^-20 |x|. A product x y runs as hi_x hi_y +
+// hi_x lo_y + lo_x hi_y, the dropped lo_x lo_y under 2^-20 |x y|. One
+// tf32 product alone is off by up to 2^-9 |x y|. The truncation is the
+// hardware's, not assumed: tests/test_torch_cuda.py feeds the kernels
+// inputs whose low 13 bits are 0x1FFF, where rounding an operand would
+// move each by a tf32 ulp (2^-10) and miss 1e-4; tests/test_torch_
+// kernels.py emulates the split on the CPU.
+__device__ __forceinline__ uint32_t tf32_lo(float x) {
+  return __float_as_uint(x - __uint_as_float(__float_as_uint(x) &
+                                             0xFFFFE000u));
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = tf32_lo(x);
+}
+
+__device__ __forceinline__ uint4 tf32_lo4(const float4& x) {
+  return make_uint4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+}
+
+// Descriptor of a tile in wgmma's no-swizzle (interleaved) K-major
+// layout: 8-row x 16-byte core matrices of 128 contiguous bytes, the next
+// core matrix along K lbo bytes further, along M/N sbo bytes further.
+__device__ __forceinline__ uint64_t smem_desc_plain(uint32_t addr,
+                                                    uint32_t lbo,
+                                                    uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFFu) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32);
+}
+
+// S = Q K^T of one tile of BN keys in 3xTF32, issued (not committed):
+// for each of the DMAX / 8 k8 steps, q_hi K_hi, q_hi K_lo and q_lo K_hi
+// from the 128-byte-swizzled q (QROWS rows a box) and K (BN rows a box)
+// halves, 32 bytes a step inside a box; the first product writes s
+// afresh. Every step runs (columns past the data are zeros).
+template <int DMAX, int BN, int QROWS>
+__device__ __forceinline__ void issue_qk_tf32(float (&s)[BN / 8][4],
+                                              uint64_t qh, uint64_t ql,
+                                              uint64_t kh, uint64_t kl) {
+  // Opaque here, so that the step offsets are added at each issue: with
+  // one stage every descriptor is loop-invariant, and hoisting all 4 x
+  // DMAX / 8 of them (256 registers at D 256) made ptxas spill.
+  asm volatile("" : "+l"(qh), "+l"(ql), "+l"(kh), "+l"(kl));
+  wgmma_tf32_ss_init<BN>(s, qh, kh);
+  wgmma_tf32_ss<BN>(s, qh, kl);
+  wgmma_tf32_ss<BN>(s, ql, kh);
+#pragma unroll
+  for (int kk = 1; kk < DMAX / 8; ++kk) {
+    const uint32_t qo = ((kk / 4) * QROWS * 128 + (kk % 4) * 32) >> 4;
+    const uint32_t ko = ((kk / 4) * BN * 128 + (kk % 4) * 32) >> 4;
+    wgmma_tf32_ss<BN>(s, qh + qo, kh + ko);
+    wgmma_tf32_ss<BN>(s, qh + qo, kl + ko);
+    wgmma_tf32_ss<BN>(s, ql + qo, kh + ko);
+  }
+}
+
+// issue_qk_tf32 with q_hi as register-A fragments (qa[kk]: k8 step kk of
+// the warp's rows) and q_lo in shared memory: q_hi K_hi and q_hi K_lo
+// read only K from shared memory.
+template <int DMAX, int BN, int QROWS>
+__device__ __forceinline__ void issue_qk_tf32_rs(
+    float (&s)[BN / 8][4], const uint32_t (&qa)[DMAX / 8][4], uint64_t ql,
+    uint64_t kh, uint64_t kl) {
+  asm volatile("" : "+l"(ql), "+l"(kh), "+l"(kl));
+  wgmma_tf32_rs_init<BN>(s, qa[0], kh);
+  wgmma_tf32_rs<BN>(s, qa[0], kl);
+  wgmma_tf32_ss<BN>(s, ql, kh);
+#pragma unroll
+  for (int kk = 1; kk < DMAX / 8; ++kk) {
+    const uint32_t qo = ((kk / 4) * QROWS * 128 + (kk % 4) * 32) >> 4;
+    const uint32_t ko = ((kk / 4) * BN * 128 + (kk % 4) * 32) >> 4;
+    wgmma_tf32_rs<BN>(s, qa[kk], kh + ko);
+    wgmma_tf32_rs<BN>(s, qa[kk], kl + ko);
+    wgmma_tf32_ss<BN>(s, ql + qo, kh + ko);
+  }
+}
+
+// The float32 probabilities of a score tile as the tf32 hi and lo A
+// fragments of P V: k8 step j from the accumulator's n8 chunk j. The
+// accumulator gives a thread keys 2 (lane % 4) and + 1 of the chunk, the
+// A fragment wants k = lane % 4 and + 4, so P V's k order within each
+// 8-key group is k = i / 2 + 4 (i % 2) for key i, and split_v_tile
+// writes V^T in that order.
+template <int NJ>
+__device__ __forceinline__ void split_probs_tf32(const float (&s)[NJ][4],
+                                                 uint32_t (&ph)[NJ][4],
+                                                 uint32_t (&pl)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    split_tf32(s[j][0], ph[j][0], pl[j][0]);
+    split_tf32(s[j][2], ph[j][1], pl[j][1]);
+    split_tf32(s[j][1], ph[j][2], pl[j][2]);
+    split_tf32(s[j][3], ph[j][3], pl[j][3]);
+  }
+}
+
+// O += P V in 3xTF32, issued (not committed): for each k8 step, P_hi V_hi,
+// P_hi V_lo and P_lo V_hi, V^T in split_v_tile's layout (a k8 step is two
+// core-matrix columns, 2 * 16 * DMAX bytes, further).
+template <int DMAX, int BN>
+__device__ __forceinline__ void issue_pv_tf32(float (&o)[DMAX / 8][4],
+                                              const uint32_t (&ph)[BN / 8][4],
+                                              const uint32_t (&pl)[BN / 8][4],
+                                              uint64_t vh, uint64_t vl) {
+  asm volatile("" : "+l"(vh), "+l"(vl));
+#pragma unroll
+  for (int kc = 0; kc < BN / 8; ++kc) {
+    const uint32_t off = (kc * 2 * 16 * DMAX) >> 4;
+    wgmma_tf32_rs<DMAX>(o, ph[kc], vh + off);
+    wgmma_tf32_rs<DMAX>(o, ph[kc], vl + off);
+    wgmma_tf32_rs<DMAX>(o, pl[kc], vh + off);
+  }
+}
+
+// The hi halves (the raw values) of a warp's 16 rows of q as
+// issue_qk_tf32_rs's register-A fragments (k8 step kk: rows lane / 4 and + 8, columns 8 kk +
+// lane % 4 and + 4). row_of(i) gives the warp's row i (0-15) in global
+// memory, or null for a row past the data (zeros); columns at or past D
+// are zeros.
+template <int DMAX, typename RowFn>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[DMAX / 8][4],
+                                             RowFn row_of, int D) {
+  const int lane = threadIdx.x & 31;
+  const float* r0 = row_of(lane >> 2);
+  const float* r1 = row_of((lane >> 2) + 8);
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 8; ++kk) {
+    const int c0 = kk * 8 + t, c1 = c0 + 4;
+    qa[kk][0] = __float_as_uint(r0 != nullptr && c0 < D ? r0[c0] : 0.f);
+    qa[kk][1] = __float_as_uint(r1 != nullptr && c0 < D ? r1[c0] : 0.f);
+    qa[kk][2] = __float_as_uint(r0 != nullptr && c1 < D ? r0[c1] : 0.f);
+    qa[kk][3] = __float_as_uint(r1 != nullptr && c1 < D ? r1[c1] : 0.f);
+  }
+}
+
+// Byte offset of float column d of row r in a tile of 128-byte-swizzled
+// boxes of 32 float32 columns and box_rows rows (a TMA load's layout).
+__device__ __forceinline__ int swz128_f32(int box_rows, int r, int d) {
+  return (d >> 5) * box_rows * 128 + r * 128 +
+         ((((d >> 2) & 7) ^ (r & 7)) << 4) + (d & 3) * 4;
+}
+
+// A K tile's lo half: every 16 bytes of the raw tile (bytes of it, TMA's
+// layout, which S reads K-major and whose raw values are its hi half)
+// give lo at the same offset. Threads [0, nthreads) of the caller share
+// the work.
+__device__ __forceinline__ void split_k_tile(const unsigned char* raw,
+                                             unsigned char* lo, int bytes,
+                                             int tid, int nthreads) {
+#pragma unroll 2
+  for (int o = tid * 16; o < bytes; o += nthreads * 16)
+    *reinterpret_cast<uint4*>(lo + o) =
+        tf32_lo4(*reinterpret_cast<const float4*>(raw + o));
+}
+
+// A V tile's tf32 halves, transposed for P V: V^T is DMAX rows (d) by BN
+// keys in the no-swizzle K-major layout (the 4 keys of core-matrix column
+// m at m * 16 * DMAX bytes, row d 16 d bytes in), keys in P V's order
+// (split_probs_tf32: key i of an 8-key group at k = i / 2 + 4 (i % 2)).
+// raw: BN rows of DMAX in TMA's 128-byte-swizzled boxes. Keys at or past
+// nv are written as zeros, whatever the raw rows hold (stale or never
+// loaded rows: 0 x NaN is NaN inside wgmma). A thread takes one d and one
+// column m: four reads of one swizzled row each (a warp's 32 d read
+// whole rows), two 16-byte stores (a warp's stores contiguous).
+template <int DMAX, int BN>
+__device__ __forceinline__ void split_v_tile(const unsigned char* raw,
+                                             unsigned char* hi,
+                                             unsigned char* lo, int nv,
+                                             int tid, int nthreads) {
+#pragma unroll 2
+  for (int idx = tid; idx < (BN / 4) * DMAX; idx += nthreads) {
+    const int m = idx / DMAX, d = idx - m * DMAX;
+    const int k0 = (m >> 1) * 8 + (m & 1);  // keys k0, k0 + 2, + 4, + 6
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 2 * e;
+      x[e] = key < nv ? *reinterpret_cast<const float*>(
+                            raw + swz128_f32(BN, key, d))
+                      : 0.f;
+    }
+    const float4 v = make_float4(x[0], x[1], x[2], x[3]);
+    const int off = m * 16 * DMAX + 16 * d;
+    *reinterpret_cast<float4*>(hi + off) = v;
+    *reinterpret_cast<uint4*>(lo + off) = tf32_lo4(v);
+  }
 }
 
 }  // namespace hopper

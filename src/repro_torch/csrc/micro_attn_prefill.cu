@@ -10,7 +10,8 @@
 // o [C, H, D] and m, l [C, H], float32; an empty table gives (0, -inf, 0).
 //
 // Bound on the H100: the larger of the FLOPs, 4 * C * S * H * D against
-// 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (float32), and the
+// 989 TFLOP/s (bf16 tensor cores) or 165 TFLOP/s (float32 as 3xTF32 on
+// the tf32 tensor cores; 67 on the CUDA cores), and the
 // bytes, S * K * D * 2 * itemsize against 3.35 TB/s. At the qwen3 path's
 // main shape (C=512, H=16, K=8, D=128, S~3,000, bf16) that is 12.6 GFLOP
 // against 12 MB of K/V: 0.0127 ms, bound by operations. Only the tensor
@@ -75,10 +76,19 @@
 // never from hi + lo. (4) m, the rescaling and the merge are float32 on
 // the CUDA cores.
 //
-// float32 pools keep the CUDA-core kernel (paged_prefill_kernel: float32
-// FMAs, one block of 256 threads per (kv head, 64 rows), 4 x 4 register
-// tiles, blocks of at most 64 tokens: the wrapper reads larger ones as
-// sub-blocks).
+// float32 pools: paged_prefill_tf32_kernel, the bf16 kernel's design on
+// the tf32 tensor cores in 3xTF32 (bound: 4 C S H D at 495 / 3 TFLOP/s,
+// 0.0764 ms at the main shape), with the arithmetic, the V^T copy, the
+// shared-memory sizing and the pipeline of flash_prefill.cu's float32
+// kernel (see there): K_hi is the raw K tile TMA wrote, the producer
+// warpgroup's warps 1-3 write K_lo and V^T's two halves, q_hi is register
+// fragments up to D 128. Blocks of up to 128 tokens are read in place
+// (TMA boxes of one table block's share of a tile, gcd(bs, tile) tokens:
+// bs must be a multiple of 8, as for bf16, since a box starts on an
+// 8-row swizzle atom of 128-byte rows: 32 float32 columns). Rows past a
+// tail score -inf by a select, and the V^T columns of keys past the
+// tile's valid ones are written as zeros, both halves (0 x NaN is NaN in
+// wgmma). Merge groups: 128 rows up to D 128, 64 above (one consumer).
 //
 // The rank kernels (paged_prefill_ranks_mma_kernel and, float32,
 // paged_prefill_ranks_f32_kernel, below) replace the JAX package's vmap
@@ -107,7 +117,7 @@ using paged_attn::row_stride;
 using paged_attn::smem_addr;
 
 // ---------------------------------------------------------------------
-// float32 pools: CUDA cores.
+// The float32 rank kernel's CUDA-core tile (paged_prefill_ranks_f32_kernel).
 // ---------------------------------------------------------------------
 
 constexpr int TR = 64;        // query rows per thread block
@@ -150,193 +160,6 @@ __device__ __forceinline__ float group16_sum(float x) {
   for (int off = 8; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// DPT: output columns per thread (D <= 16 * DPT).
-template <typename T, int DPT>
-__global__ void __launch_bounds__(THREADS)
-    paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                         const T* __restrict__ pool_v,
-                         const int* __restrict__ table,
-                         const int* __restrict__ tail, float* __restrict__ o,
-                         float* __restrict__ m_out, float* __restrict__ l_out,
-                         int C, int H, int K, int D, int bs, int MB,
-                         float scale) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int DP = 16 * DPT;
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [D][TRP]   q, transposed
-  float* k_s = q_s + D * TRP;      // [D][TKP]   K tile, transposed
-  float* v_s = k_s + D * TKP;      // [TK][DP]   V tile
-  float* p_s = v_s + TK * DP;      // [TR][TKP]  probabilities
-
-  const int kh = blockIdx.x;
-  const int G = H / K;
-  const int row0 = blockIdx.y * TR;
-  const int nrows = min(TR, C * G - row0);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;         // token / column group
-  const int ty = tid >> 4;         // row group: rows ty*4 .. ty*4+3
-
-  const int S = paged_attn::valid_tokens(table, MB, bs, tail[0]);
-
-  // q rows of the tile, transposed, zero past nrows.
-  for (int idx = tid; idx < TR * D; idx += THREADS) {
-    const int r = idx % TR, d = idx / TR, gr = row0 + r;
-    float x = 0.f;
-    if (r < nrows) {
-      const size_t head = static_cast<size_t>(gr / G) * H + kh * G + gr % G;
-      x = paged_attn::to_f32(q[head * D + d]);
-    }
-    q_s[d * TRP + r] = x;
-  }
-
-  float acc[4][DPT], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
-  }
-
-  const size_t tok_stride = static_cast<size_t>(K) * D;
-  const int nch = D / VEC;  // 16-byte chunks in a row (D % 8 == 0)
-  for (int t0 = 0; t0 < S; t0 += TK) {
-    __syncthreads();  // previous tile fully consumed; q_s written
-    // K tile, transposed: consecutive threads take consecutive tokens.
-    for (int idx = tid; idx < TK * nch; idx += THREADS) {
-      const int tok = idx % TK, ch = idx / TK, t = t0 + tok;
-      const int blk = t < S ? table[t / bs] : -1;
-      float x[VEC];
-      if (blk >= 0) {
-        load_vec(pool_k + (static_cast<size_t>(blk) * bs + t % bs) *
-                              tok_stride + kh * D + ch * VEC, x);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) k_s[(ch * VEC + e) * TKP + tok] = x[e];
-    }
-    // V tile, row-major: consecutive threads take consecutive chunks.
-    for (int idx = tid; idx < TK * (DP / VEC); idx += THREADS) {
-      const int ch = idx % (DP / VEC), tok = idx / (DP / VEC), t = t0 + tok;
-      const int blk = (t < S && ch < nch) ? table[t / bs] : -1;
-      float x[VEC];
-      if (blk >= 0) {
-        load_vec(pool_v + (static_cast<size_t>(blk) * bs + t % bs) *
-                              tok_stride + kh * D + ch * VEC, x);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) v_s[tok * DP + ch * VEC + e] = x[e];
-    }
-    __syncthreads();
-
-    // Scores: rows ty*4+i, tokens tx*4+j.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_s + d * TRP +
-                                                         ty * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(k_s + d * TKP +
-                                                         tx * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-    }
-    bool ok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = t0 + tx * 4 + j;
-      ok[j] = t < S && table[t / bs] >= 0;
-    }
-    // Online softmax per row, reduced over the row group's 16 threads.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = ok[j] ? s[i][j] * scale : -CUDART_INF_F;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      mt = group16_max(mt);
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = m[i] == -CUDART_INF_F ? 0.f : expf(m[i] - m_new);
-      float p[4], sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p[j];
-      }
-      sum = group16_sum(sum);
-      m[i] = m_new;
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) acc[i][e] *= alpha;
-      *reinterpret_cast<float4*>(p_s + (ty * 4 + i) * TKP + tx * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
-    }
-    __syncthreads();
-
-    // acc[rows ty*4+i][cols tx*DPT+e] += p @ V.
-    for (int c = 0; c < TK; c += 4) {
-      float pa[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pv = *reinterpret_cast<const float4*>(
-            p_s + (ty * 4 + i) * TKP + c);
-        pa[i][0] = pv.x;
-        pa[i][1] = pv.y;
-        pa[i][2] = pv.z;
-        pa[i][3] = pv.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float va[DPT];
-#pragma unroll
-        for (int e = 0; e < DPT; e += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              v_s + (c + cc) * DP + tx * DPT + e);
-          va[e] = vv.x;
-          va[e + 1] = vv.y;
-          va[e + 2] = vv.z;
-          va[e + 3] = vv.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < DPT; ++e)
-            acc[i][e] = fmaf(pa[i][cc], va[e], acc[i][e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nrows) continue;
-    const int gr = row0 + r;
-    const size_t head = static_cast<size_t>(gr / G) * H + kh * G + gr % G;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) {
-      const int d = tx * DPT + e;
-      if (d < D) o[head * D + d] = acc[i][e];
-    }
-    if (tx == 0) {
-      m_out[head] = m[i];
-      l_out[head] = l[i];
-    }
-  }
 }
 
 // Output row (query, head) of local row i of kv head kh's rows from row0.
@@ -758,8 +581,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 // rank of the group, the pool rows resolved from the tables two tiles
 // ahead (no table copy, so blocks of any size are read in place), one
 // partial a segment. The bf16
-// tile step is mma.sync (paged_attn.cuh), float32 the CUDA-core body of
-// paged_prefill_kernel.
+// tile step is mma.sync (paged_attn.cuh), float32 a CUDA-core tile step
+// (the helpers above).
 constexpr int MW = 4;            // warps a block
 constexpr int BN = paged_attn::MMA_TOKENS;  // KV tokens a tile
 constexpr int STAGES = 2;        // cp.async ring depth of K/V tiles
@@ -997,8 +820,9 @@ inline size_t rank_f32_smem_bytes(int D, int DPT, int NR, int P) {
   return smem_bytes(D, DPT) + sizeof(int) * (4 * NR + P + 3);
 }
 
-// float32 pools: the CUDA-core body of paged_prefill_kernel over the
-// segments of its block (tiles of TK tokens, loaded synchronously).
+// float32 pools: a CUDA-core tile step (64 rows x 64 tokens, 4 x 4
+// register tiles a thread) over the segments of its block (tiles of TK
+// tokens, loaded synchronously).
 template <int DPT>
 __global__ void __launch_bounds__(THREADS)
     paged_prefill_ranks_f32_kernel(const float* __restrict__ q,
@@ -1257,27 +1081,454 @@ int launch_wgmma(const void* q, const void* pk, const void* pv,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DPT>
-int launch_f32(const void* q, const void* pk, const void* pv,
-               const void* table, const void* tail, void* o, void* m,
-               void* l, int C, int H, int K, int D, int bs, int MB,
-               int blocks, int smem_arg, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, DPT);
-  const int rows = C * (H / K);
-  const dim3 grid(K, (rows + TR - 1) / TR);
-  if (static_cast<size_t>(smem_arg) != smem ||
-      static_cast<long>(blocks) != static_cast<long>(grid.x) * grid.y)
+// ---------------------------------------------------------------------
+// float32 pools: 3xTF32 wgmma fed by TMA boxes and split stages,
+// warp-specialised, persistent.
+// ---------------------------------------------------------------------
+// 128 x 56 + 256 x 224 = 64,512 registers, the 384 x 168 the launch
+// holds: setmaxnreg.inc waits for registers that setmaxnreg.dec freed,
+// and a split needing the whole 65,536 (48 / 232) never starts.
+constexpr int F32_PRODUCER_REGS = 56;
+constexpr int F32_CONSUMER_REGS = 224;
+constexpr int SPLITTERS = WG_THREADS - 32;  // the producer's warps 1-3
+
+// Shared memory of a float32 instantiation (NC consumer warpgroups of 64
+// rows, tiles of TILE tokens, SS stages, RV raw V slots): each consumer's
+// q_lo (64 rows of DMAX, 128-byte-swizzled boxes of 32 columns), and q_hi
+// after it unless q_hi lives in registers (QREG: DMAX <= 128); the merge's
+// row weights use the q rows while a run's partials merge. The raw V
+// slots (the TMA boxes' layout); the stages (K_hi: the raw K tile, which
+// TMA writes there; K_lo as laid out; V^T_hi, V^T_lo as hopper.cuh
+// split_v_tile writes them); the plan (S[1], cum[2]); the barriers. Tiles
+// start on 1,024 bytes.
+template <int DMAX, int TILE, int NC, int SS, int RV>
+struct PfF32Layout {
+  static constexpr bool QREG = DMAX <= 128;
+  static constexpr int BOXES = DMAX / 32;
+  static constexpr int Q_HALF = WG_ROWS * DMAX * 4;
+  static constexpr int Q_WG = (QREG ? 1 : 2) * Q_HALF;
+  static constexpr int TILE_BYTES = TILE * DMAX * 4;  // a K or V tile
+  static constexpr int RAW_V = NC * Q_WG;
+  static constexpr int STAGE = RAW_V + RV * TILE_BYTES;  // + stage * 4 tiles
+  static constexpr int PLAN_OFF = STAGE + SS * 4 * TILE_BYTES;
+  static constexpr int BAR_OFF = PLAN_OFF + 16;
+  static_assert(RAW_V >= NC * WG_ROWS * (paged_attn::MERGE_CHUNK + 1) * 4,
+                "the merge's row weights fit in the q rows");
+  // raw V full / empty a slot, then K raw (TMA), K full (K_lo), K empty,
+  // V full, V empty a stage.
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * RV + 5 * SS);
+};
+
+// One block an SM ((1 + NC) x 128 threads): warpgroup 0's first warp is
+// the producer, whose lane b issues box b of each raw tile; its warps 1-3
+// split each raw tile into the tf32 halves of a split stage (K as laid
+// out, V transposed, the rows past the tile's valid tokens zeroed),
+// freeing each raw slot as soon as it is split; warpgroups 1..NC are
+// consumers of 64 (query, head) rows each (see the header). A merge
+// group is a tile of NC x 64 rows of one kv head.
+template <int DMAX, int TILE, int NC, int SS, int RV>
+__global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
+    paged_prefill_tf32_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const float* __restrict__ q,
+                              const int* __restrict__ table,
+                              const int* __restrict__ tail,
+                              float* __restrict__ o,
+                              float* __restrict__ m_out,
+                              float* __restrict__ l_out,
+                              float* __restrict__ ws,
+                              unsigned* __restrict__ tickets, int C, int H,
+                              int K, int D, int bs, int MB, int box_rows,
+                              float scale) {
+  using L = PfF32Layout<DMAX, TILE, NC, SS, RV>;
+  constexpr int RT = NC * WG_ROWS;  // rows a merge group
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw_addr);
+  float* merge_sm = reinterpret_cast<float*>(gbase);
+  int* plan_s = reinterpret_cast<int*>(gbase + L::PLAN_OFF);
+  const uint32_t rv_full = base + L::BAR_OFF;      // + 16 * slot
+  const uint32_t rv_empty = rv_full + 8;
+  const uint32_t k_raw = rv_full + 16 * RV;        // + 40 * stage
+  const uint32_t k_full = k_raw + 8;
+  const uint32_t k_empty = k_raw + 16;
+  const uint32_t v_full = k_raw + 24;
+  const uint32_t v_empty = k_raw + 32;
+  constexpr uint32_t CONSUMERS = NC * WG_THREADS;
+  const int ncb = (D + 31) / 32;  // column boxes holding data
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < RV; ++r) {
+      hopper::mbar_init(rv_full + 16 * r, 1);
+      hopper::mbar_init(rv_empty + 16 * r, SPLITTERS);
+    }
+    for (int s = 0; s < SS; ++s) {
+      hopper::mbar_init(k_raw + 40 * s, 1);
+      hopper::mbar_init(k_full + 40 * s, SPLITTERS);
+      hopper::mbar_init(k_empty + 40 * s, CONSUMERS);
+      hopper::mbar_init(v_full + 40 * s, SPLITTERS);
+      hopper::mbar_init(v_empty + 40 * s, CONSUMERS);
+    }
+    hopper::mbar_init_fence();
+  }
+  // Column boxes of the K and V tiles past the data are never loaded:
+  // zero them once (S reads every column of K_hi; the split copies every
+  // column).
+  if (ncb < L::BOXES) {
+    const int chunks = (L::BOXES - ncb) * TILE * 8;  // 16 bytes each
+    for (int idx = threadIdx.x; idx < (SS + RV) * chunks;
+         idx += blockDim.x) {
+      const int t = idx / chunks, j = idx - t * chunks;
+      const int tile = t < SS ? L::STAGE + t * 4 * L::TILE_BYTES
+                              : L::RAW_V + (t - SS) * L::TILE_BYTES;
+      *reinterpret_cast<uint4*>(gbase + tile + ncb * TILE * 128 + j * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    hopper::fence_proxy_async();
+  }
+  const int G = H / K;
+  const int CG = C * G;
+  const int nrt = (CG + RT - 1) / RT;  // row tiles a kv head
+  // plan_units' first __syncthreads also publishes the barriers and the
+  // zeroed boxes.
+  const paged_attn::UnitPlan pl = paged_attn::plan_units(
+      table, tail, 1, 1, MB, bs, TILE, K * nrt, false, plan_s, plan_s + 1);
+  write_empty_groups(pl, CG, RT, G, H, C, D, o, m_out, l_out);
+  long long p, p1;
+  pl.block_units(blockIdx.x, p, p1);
+  p = paged_attn::uniform(p);
+  p1 = paged_attn::uniform(p1);
+  const int S = pl.S[0];
+  const int wg_idx =
+      paged_attn::uniform(static_cast<int>(threadIdx.x) / WG_THREADS);
+  if (wg_idx == 0) {
+    if constexpr (NC > 1) hopper::setmaxnreg_dec<F32_PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      // Loads: lane b issues box b of each raw tile (the valid tokens'
+      // boxes only), K and V each into its ring as soon as a slot is
+      // split.
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::prefetch_tensor_map(&tm_k);
+        hopper::prefetch_tensor_map(&tm_v);
+      }
+      const uint32_t box_bytes = box_rows * 128;
+      hopper::Ring<SS> sp;
+      hopper::Ring<RV> rv;
+      while (p < p1) {
+        const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
+        const int kh = sg.h / nrt;
+        const int hi = min(sg.q1 * TILE, S);
+        for (int t0 = sg.q0 * TILE; t0 < hi; t0 += TILE) {
+          const int nb = (min(TILE, hi - t0) + box_rows - 1) / box_rows;
+          int blk = 0, off = 0;
+          if (lane < nb) {
+            const int t = t0 + lane * box_rows;
+            const int slot = t / bs;
+            blk = table[slot];
+            off = t - slot * bs;
+          }
+          const uint32_t at = lane * box_bytes;
+          const uint32_t kr = k_raw + 40 * sp.slot;
+          hopper::mbar_wait(k_empty + 40 * sp.slot, sp.phase ^ 1);
+          if (lane == 0) hopper::mbar_expect_tx(kr, nb * box_bytes * ncb);
+          __syncwarp();
+          if (lane < nb)
+            for (int c = 0; c < ncb; ++c)
+              hopper::tma_load_4d(base + L::STAGE +
+                                      sp.slot * 4 * L::TILE_BYTES + at +
+                                      c * TILE * 128,
+                                  &tm_k, kr, c * 32, kh, off, blk);
+          sp.next();
+          const uint32_t vf = rv_full + 16 * rv.slot;
+          hopper::mbar_wait(rv_empty + 16 * rv.slot, rv.phase ^ 1);
+          if (lane == 0) hopper::mbar_expect_tx(vf, nb * box_bytes * ncb);
+          __syncwarp();
+          if (lane < nb)
+            for (int c = 0; c < ncb; ++c)
+              hopper::tma_load_4d(base + L::RAW_V +
+                                      rv.slot * L::TILE_BYTES + at +
+                                      c * TILE * 128,
+                                  &tm_v, vf, c * 32, kh, off, blk);
+          rv.next();
+        }
+        p = min(p1, sg.end);
+      }
+    } else {
+      // The split, tile by tile: K's lo half once its raw tile has landed
+      // (the stage's K was free before the load), then V's halves (rows
+      // past the tile's valid tokens zeroed) when the stage's V is free.
+      const int st = threadIdx.x - 32;
+      hopper::Ring<RV> rv;
+      hopper::Ring<SS> sp;
+      while (p < p1) {
+        const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
+        const int hi = min(sg.q1 * TILE, S);
+        for (int t0 = sg.q0 * TILE; t0 < hi; t0 += TILE) {
+          unsigned char* dst =
+              gbase + L::STAGE + sp.slot * 4 * L::TILE_BYTES;
+          hopper::mbar_wait(k_raw + 40 * sp.slot, sp.phase);
+          hopper::split_k_tile(dst, dst + L::TILE_BYTES, L::TILE_BYTES, st,
+                               SPLITTERS);
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(k_full + 40 * sp.slot);
+          hopper::mbar_wait(rv_full + 16 * rv.slot, rv.phase);
+          hopper::mbar_wait(v_empty + 40 * sp.slot, sp.phase ^ 1);
+          hopper::split_v_tile<DMAX, TILE>(
+              gbase + L::RAW_V + rv.slot * L::TILE_BYTES,
+              dst + 2 * L::TILE_BYTES, dst + 3 * L::TILE_BYTES,
+              min(TILE, hi - t0), st, SPLITTERS);
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(v_full + 40 * sp.slot);
+          hopper::mbar_arrive(rv_empty + 16 * rv.slot);
+          rv.next();
+          sp.next();
+        }
+        p = min(p1, sg.end);
+      }
+    }
+  } else {
+    if constexpr (NC > 1) hopper::setmaxnreg_inc<F32_CONSUMER_REGS>();
+    constexpr int NJ = TILE / 8;   // n8 chunks of a score tile
+    constexpr int NT = DMAX / 8;   // n8 chunks of the output
+    const int wg = wg_idx - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
+    const paged_attn::WarpThreads consumers{WG_THREADS, NC * WG_THREADS,
+                                            MERGE_BAR};
+    const size_t W = paged_attn::part_row(D);
+    unsigned char* qg = gbase + wg * L::Q_WG;   // q_lo, then q_hi
+    const uint32_t q_s = base + wg * L::Q_WG;
+    const uint64_t ql_desc = hopper::smem_desc(q_s, 16, 1024);
+    const uint64_t qh_desc = hopper::smem_desc(q_s + L::Q_HALF, 16, 1024);
+    const uint32_t sp0 = base + L::STAGE;
+    const uint64_t kh_desc = hopper::smem_desc(sp0, 16, 1024);
+    const uint64_t kl_desc =
+        hopper::smem_desc(sp0 + L::TILE_BYTES, 16, 1024);
+    const uint64_t vh_desc = hopper::smem_desc_plain(
+        sp0 + 2 * L::TILE_BYTES, 16 * DMAX, 128);
+    const uint64_t vl_desc = hopper::smem_desc_plain(
+        sp0 + 3 * L::TILE_BYTES, 16 * DMAX, 128);
+    constexpr uint32_t SLOT = (4 * L::TILE_BYTES) >> 4;
+    uint32_t qa[L::QREG ? NT : 1][4];  // q_hi fragments (QREG)
+    hopper::Ring<SS> sp;  // split stage of the next tile
+    while (p < p1) {
+      const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
+      const int kh = sg.h / nrt;
+      const int row0 = (sg.h - kh * nrt) * RT;
+      const int nrows = min(RT, CG - row0);
+      const int lo = paged_attn::uniform(sg.q0 * TILE);
+      const int hi = paged_attn::uniform(min(sg.q1 * TILE, S));
+      const int ntiles = (hi - lo + TILE - 1) / TILE;
+      const int wrow0 = wg * WG_ROWS;  // the warpgroup's first local row
+      const int active = paged_attn::uniform(wrow0 < nrows ? 1 : 0);
+      float oacc[1][NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        oacc[0][j][0] = oacc[0][j][1] = oacc[0][j][2] = oacc[0][j][3] = 0.f;
+      float m_r[1][2] = {{-CUDART_INF_F, -CUDART_INF_F}};
+      float l_r[1][2] = {{0.f, 0.f}};
+      if (!active) {
+        // No row of this warpgroup in the tile: wait on each tile and
+        // release it without math.
+        for (int t = 0; t < ntiles; ++t) {
+          hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+          hopper::mbar_arrive(k_empty + 40 * sp.slot);
+          hopper::mbar_wait(v_full + 40 * sp.slot, sp.phase);
+          hopper::mbar_arrive(v_empty + 40 * sp.slot);
+          sp.next();
+        }
+      } else {
+        // The warpgroup's q rows as tf32 halves, by 16-byte loads into
+        // the swizzled layout (the rows are (query, head) pairs); zero
+        // past the chunk's rows and past D.
+        for (int idx = tid; idx < WG_ROWS * (DMAX / 4); idx += WG_THREADS) {
+          const int r = idx / (DMAX / 4);
+          const int ch = idx - r * (DMAX / 4);
+          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (wrow0 + r < nrows && ch * 4 < D)
+            x = *reinterpret_cast<const float4*>(
+                q + static_cast<size_t>(head_row(row0, wrow0 + r, G, H, kh)) *
+                        D + ch * 4);
+          const int off = hopper::swz128_f32(WG_ROWS, r, ch * 4);
+          *reinterpret_cast<uint4*>(qg + off) = hopper::tf32_lo4(x);
+          if constexpr (!L::QREG)
+            *reinterpret_cast<float4*>(qg + L::Q_HALF + off) = x;
+        }
+        if constexpr (L::QREG)
+          hopper::load_q_frags<DMAX>(
+              qa,
+              [&](int i) -> const float* {
+                const int r = wrow0 + warp * 16 + i;
+                return r < nrows
+                           ? q + static_cast<size_t>(
+                                     head_row(row0, r, G, H, kh)) * D
+                           : nullptr;
+              },
+              D);
+        hopper::fence_proxy_async();
+        hopper::named_bar_sync(2 + wg, WG_THREADS);
+        float sacc[1][NJ][4];  // written by each tile's first product
+        uint32_t ph[NJ][4], pl_[NJ][4];
+        float alpha[1][2];
+        // S of tile t, its tokens past the valid ones masked to -inf by a
+        // select, turned into float32 probabilities in place.
+        auto softmax_step = [&](int t) {
+          hopper::fence_regs(sacc[0]);
+          const int nv = hi - lo - t * TILE;
+          if (nv < TILE) {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (j * 8 + (lane & 3) * 2 + (e & 1) >= nv)
+                  sacc[0][j][e] = -CUDART_INF_F;
+          }
+          const bool moved =
+              paged_attn::softmax_scores(sacc, m_r, l_r, alpha, c);
+          return __any_sync(0xffffffffu, moved);
+        };
+        auto stage_probs = [&] {
+          hopper::split_probs_tf32<NJ>(sacc[0], ph, pl_);
+          hopper::fence_regs(ph);
+          hopper::fence_regs(pl_);
+          hopper::fence_regs(oacc[0]);
+        };
+        auto issue_s = [&] {
+          if constexpr (L::QREG)
+            hopper::issue_qk_tf32_rs<DMAX, TILE, WG_ROWS>(
+                sacc[0], qa, ql_desc, kh_desc + sp.slot * SLOT,
+                kl_desc + sp.slot * SLOT);
+          else
+            hopper::issue_qk_tf32<DMAX, TILE, WG_ROWS>(
+                sacc[0], qh_desc, ql_desc, kh_desc + sp.slot * SLOT,
+                kl_desc + sp.slot * SLOT);
+        };
+        hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+        hopper::wgmma_fence();
+        issue_s();
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sacc[0]);
+        hopper::mbar_arrive(k_empty + 40 * sp.slot);
+        softmax_step(0);  // the output is still 0: no rescale
+        stage_probs();
+        hopper::Ring<SS> pv = sp;  // stage of the tile whose P V is pending
+        sp.next();
+        for (int t = 1; t < ntiles; ++t) {
+          hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+          hopper::mbar_wait(v_full + 40 * pv.slot, pv.phase);
+          hopper::wgmma_fence();
+          issue_s();
+          hopper::wgmma_commit();
+          hopper::issue_pv_tf32<DMAX, TILE>(oacc[0], ph, pl_,
+                                            vh_desc + pv.slot * SLOT,
+                                            vl_desc + pv.slot * SLOT);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();
+          hopper::fence_regs(sacc[0]);
+          hopper::mbar_arrive(k_empty + 40 * sp.slot);
+          const bool moved = softmax_step(t);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(oacc[0]);
+          hopper::mbar_arrive(v_empty + 40 * pv.slot);
+          if (moved) paged_attn::rescale_rows(oacc, alpha);
+          stage_probs();
+          pv = sp;
+          sp.next();
+        }
+        hopper::mbar_wait(v_full + 40 * pv.slot, pv.phase);
+        hopper::wgmma_fence();
+        hopper::issue_pv_tf32<DMAX, TILE>(oacc[0], ph, pl_,
+                                          vh_desc + pv.slot * SLOT,
+                                          vl_desc + pv.slot * SLOT);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(oacc[0]);
+        hopper::mbar_arrive(v_empty + 40 * pv.slot);
+      }
+
+      // The segment's partial: to the outputs (the group's only partial)
+      // or to the block's scratch slot b + g ([slot][RT][part_row(D)], by
+      // local row).
+      const int pfirst = pl.block_of(sg.first);
+      const int parts = pl.block_of(sg.end - 1) - pfirst + 1;
+      float* slot = ws + (static_cast<size_t>(blockIdx.x) + sg.g) * RT * W;
+      if (active) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float lr = l_r[0][h];
+          lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+          lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+          const int r = wrow0 + warp * 16 + (lane >> 2) + h * 8;
+          if (r >= nrows) continue;
+          float *po, *pm, *pls;
+          if (parts > 1) {
+            po = slot + r * W;
+            pm = po + D;
+            pls = po + D + 1;
+          } else {
+            const size_t row = head_row(row0, r, G, H, kh);
+            po = o + row * D;
+            pm = m_out + row;
+            pls = l_out + row;
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int col = j * 8 + (lane & 3) * 2;
+            if (col < D)
+              *reinterpret_cast<float2*>(po + col) =
+                  make_float2(oacc[0][j][2 * h], oacc[0][j][2 * h + 1]);
+          }
+          if ((lane & 3) == 0) {
+            *pm = m_r[0][h] * scale;  // m of the scaled scores
+            *pls = lr;
+          }
+        }
+      }
+      // The merge's weights overwrite q rows: every consumer's last S has
+      // completed before the barrier in last_split_arrives.
+      if (parts > 1 &&
+          paged_attn::last_split_arrives(tickets + sg.g, parts, consumers))
+        paged_attn::merge_parts(
+            ws, RT * W, pfirst + sg.g, parts, nrows, D,
+            [&](int i) { return head_row(row0, i, G, H, kh); }, o, m_out,
+            l_out, merge_sm, consumers);
+      p = paged_attn::uniform(min(p1, sg.end));
+    }
+  }
+}
+
+template <int DMAX, int TILE, int NC, int SS, int RV>
+int launch_tf32(const void* q, const void* pk, const void* pv,
+                const void* table, const void* tail, void* o, void* m,
+                void* l, void* ws, void* tickets, int C, int H, int K, int D,
+                int bs, int MB, int NB, int blocks, int rows, int kv_tile,
+                int stages, int smem_bytes, int n_tickets, float scale,
+                cudaStream_t stream) {
+  using L = PfF32Layout<DMAX, TILE, NC, SS, RV>;
+  const long groups = static_cast<long>(K) *
+                      ((C * (H / K) + NC * WG_ROWS - 1) / (NC * WG_ROWS));
+  if (rows != NC * WG_ROWS || kv_tile != TILE || stages != SS ||
+      smem_bytes != L::SMEM || blocks < 1 || groups > n_tickets || bs % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = paged_prefill_kernel<float, DPT>;
-  static int allowed[hopper::MAX_DEVICES] = {};
-  if (int e = hopper::allow_smem(kern, smem_bytes(16 * DPT, DPT), allowed))
+  int box_rows = TILE;  // gcd(bs, TILE): a box never crosses a block
+  while (bs % box_rows) box_rows >>= 1;
+  CUtensorMap tk, tv;
+  if (int e = hopper::cached_rows_map(&tk, pk, D, K, bs, NB, box_rows, 4))
     return e;
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(pk),
-      static_cast<const float*>(pv), static_cast<const int*>(table),
+  if (int e = hopper::cached_rows_map(&tv, pv, D, K, bs, NB, box_rows, 4))
+    return e;
+  auto kern = paged_prefill_tf32_kernel<DMAX, TILE, NC, SS, RV>;
+  static int allowed[hopper::MAX_DEVICES] = {};
+  if (int e = hopper::allow_smem(kern, L::SMEM, allowed)) return e;
+  kern<<<blocks, (1 + NC) * WG_THREADS, L::SMEM, stream>>>(
+      tk, tv, static_cast<const float*>(q), static_cast<const int*>(table),
       static_cast<const int*>(tail), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(l), C, H, K, D, bs, MB,
-      scale);
+      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(ws),
+      static_cast<unsigned*>(tickets), C, H, K, D, bs, MB, box_rows, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1314,16 +1565,16 @@ int launch_rank_kernel(void (*kern)(const T*, const T*, const T*,
 
 // C entry of the single-rank kernels: returns cudaGetLastError() after
 // the launch (0 = success). q [C, H, D], pools [NB, bs, K, D], table
-// [MB], tail [1], outputs [C, H, ...]; dtype: 0 = float32 (CUDA cores,
-// blocks of at most 64 tokens), 1 = bfloat16 (wgmma). The caller plans
-// the launch (kernels/micro_attn_prefill.py): bf16, prefill_unit_plan:
-// persistent blocks, rows_per_block 128, the K/V tile (the unit), the
-// ring's stages and the shared memory of the instantiation for (D, tile);
-// ws a float32 scratch of blocks + groups slots of 128 * (D + 4) floats
-// and tickets n_tickets zeroed uint32 counters, at least one per group
-// (K x row tiles), which the kernel leaves at zero; float32,
-// prefill_plan: the grid's blocks, rows_per_block 64, kv_tile 64, stages
-// 1 and its shared memory (ws and tickets may be null). Any other plan
+// [MB], tail [1], outputs [C, H, ...]; dtype: 0 = float32 (3xTF32
+// wgmma), 1 = bfloat16 (wgmma). The caller plans the launch
+// (kernels/micro_attn_prefill.py::prefill_unit_plan): persistent blocks,
+// rows_per_block (a merge group's rows: 128; float32 at D > 128: 64), the
+// K/V tile (the unit), the ring's (bf16) or split (float32) stages and
+// the shared memory of the instantiation for (D, dtype); ws a float32
+// scratch of blocks + groups slots of rows_per_block * (D + 4) floats and
+// tickets n_tickets zeroed uint32 counters, at least one per group (K x
+// row tiles), which the kernel leaves at zero. Blocks of any size up to
+// 128 tokens that is a multiple of 8 are read in place. Any other plan
 // returns cudaErrorInvalidValue.
 extern "C" int paged_prefill_launch(const void* q, const void* pool_k,
                                     const void* pool_v, const void* table,
@@ -1347,13 +1598,14 @@ extern "C" int paged_prefill_launch(const void* q, const void* pool_k,
     if (D <= 128) return run(launch_wgmma<128, 128, 3>);
     return run(launch_wgmma<256, 64, 2>);
   }
-  if (rows_per_block != TR || kv_tile != TK || stages != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 128)
-    return launch_f32<8>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K,
-                         D, bs, MB, blocks, smem_bytes, scale, s);
-  return launch_f32<16>(q, pool_k, pool_v, table, tail, o, m, l, C, H, K, D,
-                        bs, MB, blocks, smem_bytes, scale, s);
+  auto run = [&](auto launch) {
+    return launch(q, pool_k, pool_v, table, tail, o, m, l, ws, tickets, C, H,
+                  K, D, bs, MB, NB, blocks, rows_per_block, kv_tile, stages,
+                  smem_bytes, n_tickets, scale, s);
+  };
+  if (D <= 64) return run(launch_tf32<64, 64, 2, 2, 2>);
+  if (D <= 128) return run(launch_tf32<128, 32, 2, 2, 2>);
+  return run(launch_tf32<256, 16, 1, 1, 2>);
 }
 
 // C entry of the rank kernels: returns cudaGetLastError() after the

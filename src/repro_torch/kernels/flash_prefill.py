@@ -17,9 +17,14 @@ producer warp keeps in flight (``mbarrier`` handshakes), two consumer
 warpgroups of 64 query rows each (``setmaxnreg`` moves registers to
 them), and persistent blocks, one an SM, over a static longest-first
 order of (query tile, head, batch row) work items. Only live K/V tiles
-are loaded and only boundary tiles masked. float32 stays on the CUDA
-cores. ``flash_plan`` states each launch's geometry and order from the
-shapes and the SM count; the C entry takes it and refuses any other. The
+are loaded and only boundary tiles masked. float32 runs the same design
+on the tf32 tensor cores in 3xTF32 (below): TMA loads raw K/V tiles, the
+producer's other three warps split each into tf32 halves in a split
+stage (V transposed: tf32 ``wgmma`` reads shared memory K-major only),
+and each consumer stages its q as tf32 halves itself; two consumers of
+64 rows up to D 128, one above (q's halves take 128 KB at D 256).
+``flash_plan`` states each launch's geometry and order from the shapes
+and the SM count; the C entry takes it and refuses any other. The
 source's header says how the design answers the bound.
 
 Precision contract of the bf16 kernel, held to ``1e-4 + 2**-7 *
@@ -30,7 +35,12 @@ halves, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, against the same
 bf16 V (at most 2^-16 relative per term; one rounding of p, 2^-8, misses
 the tolerance at both main shapes and at short prompts); ``l`` is summed
 from the float32 p; m, the rescaling and ``1 / l`` are float32, and the
-normalized output is rounded to bf16 once.
+normalized output is rounded to bf16 once. The float32 kernel is held to
+1e-4: every product of S = Q K^T and O += P V runs as three tf32
+products of the operands' halves (hi the raw float32 value, whose low
+13 bits the tensor cores ignore, ``lo = x - trunc_tf32(x)``: hi hi + hi
+lo + lo hi, about 2^-20 relative a term; one tf32 product, up to 2^-9,
+misses 1e-4); l, m, the rescaling and ``1 / l`` stay float32.
 
 ``flash_prefill_plain`` is the same function in plain PyTorch, in
 float32 throughout like the kernel (the full ``[B,S,K,G,S]`` score
@@ -52,11 +62,29 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 BF16_ROWS = 128   # query rows a work item, bf16 (two warpgroups of 64)
-F32_ROWS = 64     # query rows a block, float32 (CUDA cores)
-F32_KV_TILE = 64  # K/V tokens a shared-memory tile, float32
+WG_ROWS = 64      # query rows a consumer warpgroup
 # bf16 instantiations by their largest head dim: K/V tile tokens and ring
 # stages (as many as fit beside q in 232,448 B).
 BF16_RING = {64: (128, 4), 128: (128, 3), 256: (64, 2)}
+# float32 (3xTF32) instantiations by their largest head dim: K/V tile
+# tokens, consumer warpgroups, stages, raw V slots (each consumer's q_lo,
+# and its q_hi at D 256 (in registers below), the raw V slots and the
+# stages' four tf32 tiles: 225 KB at most).
+TF32_RING = {64: (64, 2, 2, 2), 128: (32, 2, 2, 2), 256: (16, 1, 1, 2)}
+
+
+def tf32_smem_bytes(dmax: int, tile: int, consumers: int, stages: int,
+                    raw_v: int) -> int:
+    """Shared memory of a float32 instantiation (csrc F32Layout): each
+    consumer's q_lo (64 rows of ``dmax`` float32) and, above D 128, its
+    q_hi (below, q_hi is register-A fragments), ``raw_v`` raw V tiles,
+    ``stages`` stages of K_hi (the raw K tile), K_lo, V^T_hi, V^T_lo; 8
+    bytes a barrier (2 a raw V slot, 5 a stage), 1,024 bytes of
+    alignment."""
+    t = tile * dmax * 4
+    q_halves = 1 if dmax <= 128 else 2
+    return (1024 + consumers * q_halves * WG_ROWS * dmax * 4 + raw_v * t
+            + stages * 4 * t + 8 * (2 * raw_v + 5 * stages))
 
 
 @functools.lru_cache(maxsize=256)
@@ -64,56 +92,54 @@ def flash_plan(B: int, S: int, H: int, K: int, D: int, dtype: torch.dtype,
                sm_count: int) -> Dict[str, object]:
     """The flash-prefill kernel's launch, which the C entry takes as
     given: rows a work item, the instantiation's largest head dim
-    (``dmax``), K/V tile, ring stages, blocks and dynamic shared memory.
+    (``dmax``), K/V tile, stages, blocks and dynamic shared memory.
     Cached: callers share the dict and must not change it.
 
     bf16: ``dmax`` 64, 128 or 256; 384 threads a block (a producer
     warpgroup and two consumer warpgroups of 64 rows); q (128 rows) and a
     ring of K and V tiles in 128-byte-swizzled boxes, plus 1,024 bytes of
-    alignment and 8 a barrier; ``min(items, sm_count)`` persistent blocks
-    over the ``items = ceil(S / 128) * H * B`` work items, in the order of
-    ``flash_block_items``. float32: 8 warps over 64 rows, one block a
-    (query tile, head, batch row), q and K transposed, V and the
-    probabilities, as float32 with rows padded by 4.
+    alignment and 8 a barrier. float32: ``TF32_RING``'s tile, consumer
+    warpgroups (rows a work item: 64 each), stages and raw V slots, in
+    ``tf32_smem_bytes``. Both: ``min(items, sm_count)`` persistent blocks
+    over the ``items = ceil(S / rows) * H * B`` work items, in the order
+    of ``flash_block_items``.
     """
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
     if dtype == torch.bfloat16:
-        dmax = 64 if D <= 64 else 128 if D <= 128 else 256
         kv_tile, stages = BF16_RING[dmax]
-        items = -(-S // BF16_ROWS) * H * B
-        blocks = min(items, sm_count)
+        wgs = 2
         smem = (1024 + BF16_ROWS * dmax * 2 + stages * 2 * kv_tile * dmax * 2
                 + 8 * (2 + 3 * stages))
-        return {"rows_per_block": BF16_ROWS, "warpgroups": 2,
-                "rows_per_warpgroup": BF16_ROWS // 2, "threads": 384,
-                "dmax": dmax, "kv_tile": kv_tile, "stages": stages,
-                "items": items, "blocks": blocks, "grid": (blocks, 1, 1),
-                "smem_bytes": smem,
-                "route": "wgmma bf16, TMA ring, warp-specialised, "
-                         "persistent"}
-    dpt = 8 if D <= 128 else 16
-    pad = F32_KV_TILE + 4
-    blocks = -(-S // F32_ROWS) * H * B
-    return {"rows_per_block": F32_ROWS, "warps": 8, "rows_per_warp": 8,
-            "dmax": 16 * dpt, "kv_tile": F32_KV_TILE, "stages": 1,
-            "items": blocks, "blocks": blocks,
-            "grid": (-(-S // F32_ROWS), H, B),
-            "smem_bytes": 4 * (2 * D * pad + F32_KV_TILE * 16 * dpt
-                               + F32_ROWS * pad),
-            "route": "cuda cores, float32"}
+        route = "wgmma bf16, TMA ring, warp-specialised, persistent"
+    else:
+        kv_tile, wgs, stages, rv = TF32_RING[dmax]
+        smem = tf32_smem_bytes(dmax, kv_tile, wgs, stages, rv)
+        route = ("wgmma 3xTF32, TMA ring and split stage, "
+                 "warp-specialised, persistent")
+    rows = WG_ROWS * wgs
+    items = -(-S // rows) * H * B
+    blocks = min(items, sm_count)
+    return {"rows_per_block": rows, "warpgroups": wgs,
+            "rows_per_warpgroup": WG_ROWS, "threads": 128 * (wgs + 1),
+            "dmax": dmax, "kv_tile": kv_tile, "stages": stages,
+            "items": items, "blocks": blocks, "grid": (blocks, 1, 1),
+            "smem_bytes": smem, "route": route}
 
 
-def flash_item(i: int, B: int, S: int, H: int) -> Tuple[int, int, int]:
-    """bf16 work item ``i`` of the longest-first order as (query tile,
-    head, batch row): the query tile descends (the last tile has the most
-    keys), then the batch row and the head ascend."""
-    n_qt = -(-S // BF16_ROWS)
+def flash_item(i: int, B: int, S: int, H: int,
+               rows: int) -> Tuple[int, int, int]:
+    """Work item ``i`` of the longest-first order (query tiles of
+    ``rows``) as (query tile, head, batch row): the query tile descends
+    (the last tile has the most keys), then the batch row and the head
+    ascend."""
+    n_qt = -(-S // rows)
     hb = i % (H * B)
     return n_qt - 1 - i // (H * B), hb % H, hb // H
 
 
 def flash_block_items(plan: Dict[str, object], block: int, B: int, S: int,
                       H: int) -> List[Tuple[int, int, int]]:
-    """The work items persistent block ``block`` of a bf16 plan walks, in
+    """The work items persistent block ``block`` of a plan walks, in
     order, as the kernel computes them: item ``r * G + block`` in even
     rounds r, ``r * G + G - 1 - block`` in odd ones (G blocks), while
     below the plan's item count."""
@@ -122,7 +148,7 @@ def flash_block_items(plan: Dict[str, object], block: int, B: int, S: int,
     for r in range(-(-n // G)):
         i = r * G + (G - 1 - block if r % 2 else block)
         if i < n:
-            out.append(flash_item(i, B, S, H))
+            out.append(flash_item(i, B, S, H, plan["rows_per_block"]))
     return out
 
 
@@ -203,7 +229,10 @@ def flash_prefill_cuda(q, k, v, *, scale, window=0):
         raise RuntimeError(f"flash prefill kernel launch failed: CUDA error "
                            f"{err}")
     flash_prefill_cuda.launches += 1
+    if q.dtype == torch.float32:
+        flash_prefill_cuda.float32_launches += 1
     return o
 
 
 flash_prefill_cuda.launches = 0
+flash_prefill_cuda.float32_launches = 0

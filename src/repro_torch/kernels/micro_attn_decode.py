@@ -51,8 +51,7 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_BLOCK_SIZE = 64        # the float32 prefill kernel's largest (sub-)block
-MAX_DECODE_BLOCK_SIZE = 128  # the paged kernels' (the launch cells' 128)
+MAX_DECODE_BLOCK_SIZE = 128  # the paged kernels' largest block (the launch cells')
 BOX_ALIGN = 8             # TMA boxes start on a block's 8-token swizzle atom
 DECODE_BLOCKS_PER_SM = 3  # rank decode blocks an SM holds (~71 KB each)
 SMEM_PER_SM = 232_448   # bytes of shared memory a block may use on an H100
@@ -299,16 +298,14 @@ def paged_micro_attention_ranks_merged_plain(q, pools_k, pools_v, tables,
         q, pools_k, pools_v, tables, tails, scale=scale), axis=0)
 
 
-def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
-                 max_block_size: int = MAX_BLOCK_SIZE) -> int:
+def check_inputs(q, pool_k, pool_v, table, *,
+                 ranked: bool = False) -> int:
     """Raise ValueError on anything the CUDA kernels do not take.
 
     ``ranked``: the pools are ``[NR, NB, bs, K, D]`` — any rank stride,
-    each rank's slab contiguous. ``max_block_size``: the largest block
-    the calling kernel was checked at (the kernels that index tokens,
-    not slots, take the launch cells' 128; the float32 prefill-chunk
-    kernel reads at most 64, so its wrapper reads larger blocks as
-    sub-blocks and passes its own). Returns the rank stride in elements
+    each rank's slab contiguous. Every paged kernel indexes tokens, not
+    slots, and reads blocks of up to ``MAX_DECODE_BLOCK_SIZE`` tokens
+    (the launch cells' 128) in place. Returns the rank stride in elements
     (0 for one pool)."""
     if not (q.is_cuda and pool_k.is_cuda and pool_v.is_cuda
             and table.is_cuda):
@@ -347,20 +344,21 @@ def check_inputs(q, pool_k, pool_v, table, *, ranked: bool = False,
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"head dim {D} must be <= {MAX_HEAD_DIM} and a "
                          f"multiple of 8")
-    if bs > max_block_size:
-        raise ValueError(f"block size {bs} exceeds {max_block_size}")
+    if bs > MAX_DECODE_BLOCK_SIZE:
+        raise ValueError(f"block size {bs} exceeds {MAX_DECODE_BLOCK_SIZE}")
     return rank_stride
 
 
 def check_box_blocks(bs: int) -> None:
     """Raise ValueError on a block size a unit kernel's TMA boxes cannot
     address: a box starts on a 1,024-byte swizzle atom of shared memory,
-    8 rows of 128 bytes, so every block size is a multiple of 8 tokens
-    (no ServingConfig has another)."""
+    8 rows of 128 bytes (64 bf16 or 32 float32 columns), so every block
+    size is a multiple of 8 tokens in both dtypes (no ServingConfig has
+    another)."""
     if bs % BOX_ALIGN:
         raise ValueError(f"block size {bs} is not a multiple of "
                          f"{BOX_ALIGN}: the kernel's TMA boxes start on "
-                         f"{BOX_ALIGN}-row swizzle atoms")
+                         f"{BOX_ALIGN}-row swizzle atoms of 128-byte rows")
 
 
 def aligned_rows(q: torch.Tensor) -> torch.Tensor:
@@ -377,8 +375,7 @@ def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
     Same contract as ``paged_micro_attention_plain``; raises ValueError
     on inputs it does not take and RuntimeError if the launch fails.
     """
-    check_inputs(q, pool_k, pool_v, table,
-                 max_block_size=MAX_DECODE_BLOCK_SIZE)
+    check_inputs(q, pool_k, pool_v, table)
     R, H, D = q.shape
     NB, bs, K = pool_k.shape[0], pool_k.shape[-3], pool_k.shape[-2]
     check_box_blocks(bs)
@@ -407,6 +404,8 @@ def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{err}")
     paged_micro_attention_cuda.launches += 1
+    if q.dtype == torch.float32:
+        paged_micro_attention_cuda.float32_launches += 1
     return o, m, l
 
 
@@ -416,8 +415,7 @@ def _decode_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
     stack; returns float32 ``(o, m, l)`` stacked ``[NR, R, ...]`` or
     merged ``[R, ...]`` and adds one to ``counter.launches`` after the
     launch."""
-    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True,
-                               max_block_size=MAX_DECODE_BLOCK_SIZE)
+    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True)
     NR, _, bs, K, _ = pools_k.shape
     R, H, D = q.shape
     MB = tables.shape[-1]
@@ -449,6 +447,8 @@ def _decode_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
         raise RuntimeError(f"paged decode rank kernel launch failed: CUDA "
                            f"error {err}")
     counter.launches += 1
+    if q.dtype == torch.float32:
+        counter.float32_launches += 1
     return o, m, l
 
 
@@ -478,6 +478,8 @@ def paged_micro_attention_ranks_merged_cuda(q, pools_k, pools_v, tables,
                                 stacked=False)
 
 
-paged_micro_attention_cuda.launches = 0
-paged_micro_attention_ranks_cuda.launches = 0
-paged_micro_attention_ranks_merged_cuda.launches = 0
+for _launcher in (paged_micro_attention_cuda,
+                  paged_micro_attention_ranks_cuda,
+                  paged_micro_attention_ranks_merged_cuda):
+    _launcher.launches = 0
+    _launcher.float32_launches = 0

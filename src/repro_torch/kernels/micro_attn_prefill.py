@@ -7,14 +7,16 @@ which replaces the JAX package's Pallas TPU kernel
 a chunk of C queries, all positioned after the addressed prefix, attends
 over one rank's paged pool through ONE shared block table (no causal
 mask) and yields the unnormalized partial ``(o, m, l)`` of paper Eq. 2.
-The card bounds it by FLOPs at chunk sizes of hundreds of tokens. bf16
-pools run on ``wgmma`` fed by TMA boxes of the pool (blocks of up to 128
-tokens read in place), persistent blocks over units (a 128-row tile of
-one kv head x a 64-token tile of the valid prefix) planned on the card
-from the table (``prefill_unit_plan``; ``kernels/rank_units.py`` is the
-plan on the host), the partials merged in the same launch; float32
-pools run on the CUDA cores (``prefill_plan``). The source's header says
-how the design answers the bound.
+The card bounds it by FLOPs at chunk sizes of hundreds of tokens. Both
+dtypes run on ``wgmma`` fed by TMA boxes of the pool (blocks of up to
+128 tokens, a multiple of 8, read in place), persistent blocks over
+units (a tile of 128 rows of one kv head x a tile of the valid prefix)
+planned on the card from the table (``prefill_unit_plan``;
+``kernels/rank_units.py`` is the plan on the host), the partials merged
+in the same launch: bf16 pools on bf16 ``wgmma``, float32 pools in
+3xTF32 (a raw K tile is its own hi half; the producer's other warps
+write K's lo half and V's halves transposed; 64-row tiles at D > 128). The source's header
+says how the design answers the bound.
 
 Precision contract of the bf16 kernel, held to 1e-4 against the float32
 plain twin: q K^T is exact per product (bf16 x bf16 in fp32), only the
@@ -22,7 +24,11 @@ order of the fp32 sums differs; each float32 probability p enters P V as
 two bf16 halves, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, against the
 same bf16 V (at most 2^-16 relative per term, where one rounding of p,
 2^-8, would exceed 1e-4 over a few thousand keys); ``l`` is summed from
-the float32 p; m, the rescaling and the merge stay float32.
+the float32 p; m, the rescaling and the merge stay float32. The float32
+kernel is held to the same 1e-4: every product of Q K^T and P V runs as
+three tf32 products of the operands' halves (hi the raw value, whose low
+13 bits the tensor cores ignore, ``lo = x - trunc_tf32(x)``: hi hi + hi
+lo + lo hi), l from the float32 p.
 
 ``paged_prefill_attention_ranks_cuda`` (stacked partials, one a rank)
 and ``paged_prefill_attention_ranks_merged_cuda`` (the ranks LSE-merged
@@ -36,14 +42,6 @@ the card from the tables. As for decode, the pools may be a strided
 per-layer view of the global pool, read in place, and the rank kernels
 address tokens, not slots: they read blocks of up to 128 tokens as they
 are.
-
-Blocks larger than the float32 kernel's 64 tokens (the launch cells'
-128): its wrapper presents a pool of ``bs``-token blocks as one of
-``sub``-token blocks, ``sub`` the largest divisor of ``bs`` the kernel
-takes (``sub_block_size``). The pool is a view of the contiguous pool
-(``[NB * bs // sub, sub, K, D]``, never a copy); the table and tail are
-expanded on the card by ``sub_block_tables`` (no host read), which the
-CPU tests hold to the plain function over the original pool.
 
 ``paged_prefill_attention_plain`` is the same function in plain PyTorch,
 in float32 throughout like the Pallas kernel;
@@ -62,10 +60,8 @@ from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
 from repro_torch.core.online_softmax import (_masked_softmax_parts,
                                              merge_partials)
 from repro_torch.kernels import build
-from repro_torch.kernels.micro_attn_decode import (MAX_BLOCK_SIZE,
-                                                   MAX_DECODE_BLOCK_SIZE,
-                                                   RANK_RING, SMEM_PER_SM,
-                                                   _DTYPES, _ptr,
+from repro_torch.kernels.micro_attn_decode import (RANK_RING, SMEM_PER_SM,
+                                                   _DTYPES,
                                                    aligned_rows,
                                                    argtypes,
                                                    check_box_blocks,
@@ -79,7 +75,6 @@ from repro_torch.kernels.micro_attn_decode import (MAX_BLOCK_SIZE,
                                                    split_tickets,
                                                    stack_ranks)
 
-MIN_SUB_BLOCK = 8       # the smallest sub-block a larger block is cut into
 RANK_PREFILL_UNIT = 64  # a unit of the rank kernels: one 64-token tile
 ROW_TILE = 128          # (query, head) rows a unit of the bf16 kernel
 _ARGTYPES = single_argtypes(6)
@@ -91,27 +86,6 @@ def rows_per_block(D: int, dtype: torch.dtype) -> int:
     instantiation: the bf16 kernel's 4 warps own 32 rows each up to D =
     128 and 16 above; float32 64."""
     return 128 if dtype == torch.bfloat16 and D <= 128 else 64
-
-
-def f32_smem_bytes(D: int) -> int:
-    """Shared memory of the float32 kernel (csrc smem_bytes): q [D][68],
-    a K tile [D][68], a V tile [64][16 * DPT] and the probabilities
-    [64][68] in float32 (DPT 8 up to D = 128, else 16)."""
-    dpt = 8 if D <= 128 else 16
-    return 4 * (D * 68 + D * 68 + 64 * 16 * dpt + 64 * 68)
-
-
-@functools.lru_cache(maxsize=1024)
-def prefill_plan(C: int, H: int, K: int, D: int) -> Dict[str, object]:
-    """The float32 prefill-chunk kernel's launch, which the C entry takes
-    as given: one block of 256 threads per (kv head, 64 rows), its
-    shared memory. Cached: callers share the dict and must not change
-    it."""
-    blocks = K * -(-(C * (H // K)) // 64)
-    return {"rows_per_block": 64, "blocks": blocks, "kv_tile": 64,
-            "stages": 1,
-            "grid": (K, blocks // K, 1), "smem_bytes": f32_smem_bytes(D),
-            "route": "cuda cores, float32"}
 
 
 def unit_smem_bytes(dmax: int, tile: int, stages: int) -> int:
@@ -128,33 +102,67 @@ def unit_smem_bytes(dmax: int, tile: int, stages: int) -> int:
 
 # The bf16 kernel's instantiations by DMAX: (K/V tile, ring stages).
 PREFILL_RINGS = {64: (128, 4), 128: (128, 3), 256: (64, 2)}
+# The float32 (3xTF32) kernel's by DMAX: (K/V tile, consumer warpgroups
+# of 64 rows, stages, raw V slots).
+TF32_PREFILL_RINGS = {64: (64, 2, 2, 2), 128: (32, 2, 2, 2),
+                      256: (16, 1, 1, 2)}
+
+
+def tf32_unit_smem_bytes(dmax: int, tile: int, consumers: int, stages: int,
+                         raw_v: int) -> int:
+    """Shared memory of the float32 kernel (csrc PfF32Layout): each
+    consumer's q_lo (64 rows of DMAX float32) and, above D 128, its q_hi
+    (below, register-A fragments; the merge's row weights use these
+    rows), the raw V slots, ``stages`` stages of four tf32 tiles (K_hi is
+    the raw K tile), the plan (16 bytes), 8 bytes a barrier (2 a raw V
+    slot, 5 a stage), 1,024 bytes of slack."""
+    t = tile * dmax * 4
+    q_halves = 1 if dmax <= 128 else 2
+    return (1024 + consumers * q_halves * 64 * dmax * 4 + raw_v * t
+            + stages * 4 * t + 16 + 8 * (2 * raw_v + 5 * stages))
 
 
 @functools.lru_cache(maxsize=1024)
 def prefill_unit_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
-                      sm_count: int) -> Dict[str, object]:
-    """The bf16 prefill-chunk kernel's launch, which the C entry takes as
+                      sm_count: int, dtype: torch.dtype
+                      ) -> Dict[str, object]:
+    """The prefill-chunk kernel's launch, which the C entry takes as
     given: the instantiation (DMAX 64, 128 or 256: D rounded up; its K/V
-    tile, which is the unit, and ring depth), persistent ``blocks``
-    (``group_blocks`` of one an SM, no more than the table could hold
-    units), merge ``groups`` (kv head x tile of 128 rows; one ticket
-    counter each), scratch slots and shared memory. From shapes and the
-    SM count alone: the work is planned on the card. Cached: callers
-    share the dict and must not change it."""
+    tile, which is the unit, rows a merge group and stages: bf16
+    ``PREFILL_RINGS``, 128 rows; float32 ``TF32_PREFILL_RINGS``),
+    persistent ``blocks`` (``group_blocks`` of one an SM; float32: one an
+    SM where that leaves an eighth of them idle; no more than the table
+    could hold units), merge ``groups`` (kv head x tile of rows; one
+    ticket counter each), scratch slots and shared memory. From
+    shapes and the SM count alone: the work is planned on the card.
+    Cached: callers share the dict and must not change it."""
     dmax = 64 if D <= 64 else 128 if D <= 128 else 256
-    tile, stages = PREFILL_RINGS[dmax]
-    hg = K * -(-(C * (H // K)) // ROW_TILE)
-    blocks = rank_blocks(1, group_blocks(hg, sm_count),
-                         hg * -(-MB * bs // tile))
+    if dtype == torch.bfloat16:
+        tile, stages = PREFILL_RINGS[dmax]
+        wgs = 2
+        smem = unit_smem_bytes(dmax, tile, stages)
+        route = "wgmma bf16 hi + lo, TMA boxes of the pool"
+    else:
+        tile, wgs, stages, rv = TF32_PREFILL_RINGS[dmax]
+        smem = tf32_unit_smem_bytes(dmax, tile, wgs, stages, rv)
+        route = "wgmma 3xTF32, TMA boxes of the pool, split stage"
+    rows = 64 * wgs
+    hg = K * -(-(C * (H // K)) // rows)
+    blocks = group_blocks(hg, sm_count)
+    if dtype == torch.float32 and 8 * blocks < 7 * sm_count:
+        # A float32 unit carries three times the products: where the
+        # group-aligned count leaves an eighth of the SMs idle (96 of 132
+        # at musicgen's and starcoder2's heads) one block an SM is faster,
+        # its merges notwithstanding; where it fills them, slower.
+        blocks = sm_count
+    blocks = rank_blocks(1, blocks, hg * -(-MB * bs // tile))
     return {"unit_tokens": tile, "kv_tile": tile,
-            "rows_per_block": ROW_TILE, "dmax": dmax, "stages": stages,
+            "rows_per_block": rows, "dmax": dmax, "stages": stages,
             "blocks": blocks,
             "blocks_per_sm": 1, "groups": hg, "head_groups": hg,
-            "ws_slots": blocks + hg,
-            "smem_bytes": unit_smem_bytes(dmax, tile, stages),
-            "warpgroups": 2, "rows_per_warpgroup": 64, "threads": 384,
-            "route": "wgmma bf16 hi + lo, TMA boxes of the pool",
-            "stacked": False}
+            "ws_slots": blocks + hg, "smem_bytes": smem,
+            "warpgroups": wgs, "rows_per_warpgroup": 64,
+            "threads": 128 * (wgs + 1), "route": route, "stacked": False}
 
 
 def rank_mma_smem_bytes(D: int, rows: int, NR: int, P: int) -> int:
@@ -175,7 +183,8 @@ def rank_f32_smem_bytes(D: int, NR: int, P: int) -> int:
     probabilities [64][68] in float32 (DPT 8 up to D = 128, else 16);
     the plan and a segment's spans."""
     dpt = 8 if D <= 128 else 16
-    return f32_smem_bytes(D) + 4 * (4 * NR + P + 3)
+    return 4 * (D * 68 + D * 68 + 64 * 16 * dpt + 64 * 68
+                + 4 * NR + P + 3)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -240,80 +249,18 @@ def paged_prefill_attention_ranks_merged_plain(q, pools_k, pools_v, tables,
         q, pools_k, pools_v, tables, tails, scale=scale), axis=0)
 
 
-def sub_block_size(bs: int) -> int:
-    """The block the kernel reads a pool of ``bs``-token blocks as:
-    ``bs`` itself up to the kernel's 64, else the largest divisor of
-    ``bs`` in [MIN_SUB_BLOCK, 64]; ValueError when there is none."""
-    if bs <= MAX_BLOCK_SIZE:
-        return bs
-    for sub in range(MAX_BLOCK_SIZE, MIN_SUB_BLOCK - 1, -1):
-        if bs % sub == 0:
-            return sub
-    raise ValueError(f"block size {bs} exceeds {MAX_BLOCK_SIZE} and has no "
-                     f"divisor in [{MIN_SUB_BLOCK}, {MAX_BLOCK_SIZE}] to read "
-                     f"it as sub-blocks")
-
-
-def sub_block_tables(tables: torch.Tensor, tails, bs: int, sub: int):
-    """Tables and tails of a pool of ``bs``-token blocks, for the same
-    pool read as ``sub``-token blocks (``bs % sub == 0``, f = bs // sub).
-
-    tables [..., MB] (-1 padded, valid slots a prefix) -> [..., MB * f]:
-    block b becomes sub-blocks ``b * f + j`` (j < f); those past the tail
-    of the last valid block become -1. tails [...] (valid tokens of the
-    last valid block, read as the kernel reads them: clamped to [0, bs])
-    -> the valid tokens of the last valid sub-block. Device ops only: no
-    host read."""
-    f = bs // sub
-    dev = tables.device
-    tab = tables.to(torch.int32)
-    tail = torch.as_tensor(tails, device=dev).to(torch.int32).reshape(
-        tab.shape[:-1]).clamp(0, bs)
-    n_valid = (tab >= 0).sum(-1, dtype=torch.int32)            # [...]
-    n_last = (tail + sub - 1) // sub                            # sub-blocks
-    slot = torch.arange(tab.shape[-1], device=dev, dtype=torch.int32)
-    j = torch.arange(f, device=dev, dtype=torch.int32)
-    is_last = (slot == (n_valid - 1)[..., None])[..., None]    # [..., MB, 1]
-    keep = (tab >= 0)[..., None] & (~is_last | (j < n_last[..., None, None]))
-    out = torch.where(keep, tab[..., None] * f + j, -1).flatten(-2)
-    new_tail = torch.where(n_last > 0, tail - (n_last - 1) * sub, sub)
-    return out, new_tail
-
-
-def _checked(q, pool_k, pool_v, table, tail):
-    """Check the inputs (``check_inputs``) and give (pool_k, pool_v, table,
-    tail) with blocks the single-rank kernel takes: bf16, the inputs
-    themselves (blocks of up to 128 tokens, a multiple of 8, read in
-    place); float32, blocks over 64 tokens as views of ``sub``-token
-    blocks with the table and tail expanded to match."""
-    bs = pool_k.shape[-3]
-    if q.dtype == torch.bfloat16:
-        check_inputs(q, pool_k, pool_v, table,
-                     max_block_size=MAX_DECODE_BLOCK_SIZE)
-        check_box_blocks(bs)
-        return pool_k, pool_v, table, tail
-    sub = sub_block_size(bs)
-    check_inputs(q, pool_k, pool_v, table, max_block_size=bs)
-    if sub == bs:
-        return pool_k, pool_v, table, tail
-    NB = pool_k.shape[0]
-    shape = (NB * (bs // sub), sub, *pool_k.shape[-2:])
-    table, tail = sub_block_tables(table, tail, bs, sub)
-    return pool_k.view(shape), pool_v.view(shape), table, tail
-
-
 def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
                                  scale):
     """Launch the prefill-chunk kernel on q's current stream.
 
     Same contract as ``paged_prefill_attention_plain``; raises ValueError
     on inputs it does not take and RuntimeError if the launch fails.
-    float32 blocks over 64 tokens are read as sub-blocks (``_checked``).
+    Blocks of up to 128 tokens are read in place in both dtypes.
     """
-    pool_k, pool_v, table, tail_len = _checked(q, pool_k, pool_v, table,
-                                               tail_len)
+    check_inputs(q, pool_k, pool_v, table)
     C, H, D = q.shape
     NB, bs, K = pool_k.shape[0], pool_k.shape[-3], pool_k.shape[-2]
+    check_box_blocks(bs)
     MB = table.shape[-1]
     dev = q.device
     o, m, l = partial_outputs(C, H, D, dev)
@@ -323,29 +270,26 @@ def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
     table = table.to(torch.int32).contiguous()
     tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).reshape(
         1).contiguous()
-    ws = tickets = None
-    if q.dtype == torch.bfloat16:
-        plan = prefill_unit_plan(C, H, K, D, MB, bs,
-                                 device_sm_count(dev.index))
-        ws = torch.empty((plan["ws_slots"], ROW_TILE, D + 4),
-                         dtype=torch.float32, device=dev)
-        tickets = split_tickets("micro_attn_prefill", dev, plan["groups"])
-    else:
-        plan = prefill_plan(C, H, K, D)
+    plan = prefill_unit_plan(C, H, K, D, MB, bs, device_sm_count(dev.index),
+                             q.dtype)
+    ws = torch.empty((plan["ws_slots"], plan["rows_per_block"], D + 4),
+                     dtype=torch.float32, device=dev)
+    tickets = split_tickets("micro_attn_prefill", dev, plan["groups"])
     lib = build.load("micro_attn_prefill", "paged_prefill_launch",
                      _ARGTYPES)
     err = lib.paged_prefill_launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), _ptr(ws), _ptr(tickets), C, H, K, D, bs, MB, NB,
-        plan["blocks"], plan["rows_per_block"], plan["kv_tile"],
-        plan["stages"], plan["smem_bytes"],
-        0 if tickets is None else tickets.numel(),
+        l.data_ptr(), ws.data_ptr(), tickets.data_ptr(), C, H, K, D, bs, MB,
+        NB, plan["blocks"], plan["rows_per_block"], plan["kv_tile"],
+        plan["stages"], plan["smem_bytes"], tickets.numel(),
         float(scale), _DTYPES[q.dtype], current_stream(dev))
     if err:
         raise RuntimeError(f"paged prefill kernel launch failed: CUDA error "
                            f"{err}")
     paged_prefill_attention_cuda.launches += 1
+    if q.dtype == torch.float32:
+        paged_prefill_attention_cuda.float32_launches += 1
     return o, m, l
 
 
@@ -355,8 +299,7 @@ def _prefill_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
     stack (blocks up to 128 tokens read as they are); returns float32
     ``(o, m, l)`` stacked ``[NR, C, ...]`` or merged ``[C, ...]`` and adds
     one to ``counter.launches`` after the launch."""
-    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True,
-                               max_block_size=MAX_DECODE_BLOCK_SIZE)
+    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True)
     NR, _, bs, K, _ = pools_k.shape
     C, H, D = q.shape
     MB = tables.shape[-1]
@@ -388,6 +331,8 @@ def _prefill_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
         raise RuntimeError(f"paged prefill rank kernel launch failed: CUDA "
                            f"error {err}")
     counter.launches += 1
+    if q.dtype == torch.float32:
+        counter.float32_launches += 1
     return o, m, l
 
 
@@ -416,6 +361,8 @@ def paged_prefill_attention_ranks_merged_cuda(q, pools_k, pools_v, tables,
                                  stacked=False)
 
 
-paged_prefill_attention_cuda.launches = 0
-paged_prefill_attention_ranks_cuda.launches = 0
-paged_prefill_attention_ranks_merged_cuda.launches = 0
+for _launcher in (paged_prefill_attention_cuda,
+                  paged_prefill_attention_ranks_cuda,
+                  paged_prefill_attention_ranks_merged_cuda):
+    _launcher.launches = 0
+    _launcher.float32_launches = 0

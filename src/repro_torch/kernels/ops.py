@@ -23,23 +23,27 @@ defaults to ``true_head_dim ** -0.5``.
 Precision. The paged kernels return what their float32 plain twins
 return, within 1e-4, in both storage dtypes. They cut each request's
 valid tokens into units over several blocks (the rank kernels: over
-every rank) and LSE-merge the parts in float32. float32 decode computes
-on the CUDA cores, and bf16 decode and the bf16 prefill chunk run on the
-tensor cores: q K^T products of bf16 values are exact
-in float32, each float32 probability p enters P V as two bf16 halves
-``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p would
-exceed 1e-4 over a few thousand keys), and ``l`` is summed from the
-float32 p; the float32 prefill chunk stays on the CUDA cores. Flash
-prefill with bf16 inputs runs on the tensor cores under the same
-contract and returns what its float32 plain twin returns within 1e-4
-plus one bf16 ulp of the output (both are rounded to bf16); with float32
-inputs it stays on the CUDA cores, within 1e-4.
+every rank) and LSE-merge the parts in float32. float32 decode and the
+float32 rank prefill compute on the CUDA cores; bf16 decode and the bf16
+prefill chunk run on the tensor cores: q K^T products of bf16 values
+are exact in float32, each float32 probability p enters P V as two bf16
+halves ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p
+would exceed 1e-4 over a few thousand keys), and ``l`` is summed from
+the float32 p. The float32 prefill chunk and float32 flash prefill run
+on the tf32 tensor cores in 3xTF32: each operand x as hi (its raw
+value, whose low 13 bits the tensor cores ignore) and ``lo = x -
+trunc_tf32(x)``, each product as hi hi + hi lo + lo hi (one tf32 product
+would miss 1e-4), ``l`` from the float32 p. Flash prefill
+with bf16 inputs returns what its float32 plain twin returns within
+1e-4 plus one bf16 ulp of the output (both are rounded to bf16); with
+float32 inputs within 1e-4.
 
-Each kernel carries a plain integer launch counter, ``launches`` on its
-launcher (``*_cuda``), incremented right after a successful launch and
-nowhere else; each wrapper counts its dispatches to the plain twin in
-``plain_calls``. ``reset_counts`` and ``counts`` clear and read both, so
-a run can show which path served it.
+Each kernel carries plain integer launch counters on its launcher
+(``*_cuda``): ``launches``, incremented right after a successful launch
+and nowhere else, and ``float32_launches``, the launches with float32
+inputs among them; each wrapper counts its dispatches to the plain twin
+in ``plain_calls``. ``reset_counts`` and ``counts`` clear and read them,
+so a run can show which path served it.
 """
 from __future__ import annotations
 
@@ -221,16 +225,20 @@ WRAPPERS = {
 
 
 def reset_counts() -> None:
-    """Set every kernel's ``launches`` and wrapper's ``plain_calls`` to 0."""
+    """Set every kernel's launch counters and wrapper's ``plain_calls``
+    to 0."""
     for wrapper, launcher in WRAPPERS.values():
         launcher.launches = 0
+        launcher.float32_launches = 0
         wrapper.plain_calls = 0
 
 
 def counts() -> Dict[str, Dict[str, int]]:
-    """``{wrapper: {"launches": n, "plain_calls": n}}``."""
+    """``{wrapper: {"launches": n, "plain_calls": n, "float32_launches":
+    n}}``, the last the float32 launches among ``launches``."""
     return {name: {"launches": launcher.launches,
-                   "plain_calls": wrapper.plain_calls}
+                   "plain_calls": wrapper.plain_calls,
+                   "float32_launches": launcher.float32_launches}
             for name, (wrapper, launcher) in WRAPPERS.items()}
 
 

@@ -14,6 +14,11 @@ probability enters P V as bf16 hi + lo, which keeps them within the same
 1e-4. The bf16 flash-prefill
 kernel runs on tensor cores under the same contract; its output is
 rounded from float32 on both sides, so it may differ by one bf16 ulp.
+The float32 flash-prefill and prefill-chunk kernels run on the tf32
+tensor cores in 3xTF32 (each float32 product as three tf32 products of
+the operands' hi and lo halves), held to the same 1e-4 as the float32
+twins; the tests here also feed them inputs whose low 13 mantissa bits
+matter, where one tf32 product would miss 1e-4.
 
 Also the transports of the mesh paths on the card: the gloo probe
 (``scripts/gloo_probe.py``: the port's reduce-scatter and ring shift of
@@ -234,16 +239,15 @@ def test_cuda_tensors_launch_the_kernels_and_count_them(cuda_device):
     kv = pool[0, :2][None]                     # [1, 2, 2, 16]
     ops.flash_prefill(q[None], kv, kv, window=4)
     torch.cuda.synchronize()
+    once = {"launches": 1, "plain_calls": 0, "float32_launches": 1}
+    none = {"launches": 0, "plain_calls": 0, "float32_launches": 0}
     assert ops.counts() == {
-        "paged_micro_attention": {"launches": 1, "plain_calls": 0},
-        "paged_prefill_attention": {"launches": 1, "plain_calls": 0},
-        "paged_micro_attention_ranks": {"launches": 0, "plain_calls": 0},
-        "paged_prefill_attention_ranks": {"launches": 0, "plain_calls": 0},
-        "paged_micro_attention_ranks_merged": {"launches": 0,
-                                               "plain_calls": 0},
-        "paged_prefill_attention_ranks_merged": {"launches": 0,
-                                                 "plain_calls": 0},
-        "flash_prefill": {"launches": 1, "plain_calls": 0}}
+        "paged_micro_attention": once, "paged_prefill_attention": once,
+        "paged_micro_attention_ranks": none,
+        "paged_prefill_attention_ranks": none,
+        "paged_micro_attention_ranks_merged": none,
+        "paged_prefill_attention_ranks_merged": none,
+        "flash_prefill": once}
 
 
 def _prefix_tables(rng, nblks, MB, bs):
@@ -379,8 +383,9 @@ def test_split_kernels_launch_once_per_call(cuda_device):
     ops.paged_prefill_attention(q, pk, pv, tb[0], tl[0])
     torch.cuda.synchronize()
     c = ops.counts()
-    assert c["paged_micro_attention"] == {"launches": 1, "plain_calls": 0}
-    assert c["paged_prefill_attention"] == {"launches": 1, "plain_calls": 0}
+    bf16_once = {"launches": 1, "plain_calls": 0, "float32_launches": 0}
+    assert c["paged_micro_attention"] == bf16_once
+    assert c["paged_prefill_attention"] == bf16_once
 
 
 @pytest.mark.cuda
@@ -536,10 +541,10 @@ def test_rank_kernels_match_plain_on_a_strided_layer_view(
     assert got[0].shape == (NR, 37, H, D)
     _close_partials(got, want)
     c = ops.counts()
-    assert c["paged_micro_attention_ranks"] == {"launches": 1,
-                                                "plain_calls": 0}
-    assert c["paged_prefill_attention_ranks"] == {"launches": 1,
-                                                  "plain_calls": 0}
+    once = {"launches": 1, "plain_calls": 0,
+            "float32_launches": int(dtype == torch.float32)}
+    assert c["paged_micro_attention_ranks"] == once
+    assert c["paged_prefill_attention_ranks"] == once
     assert c["paged_micro_attention"]["launches"] == 0
 
 
@@ -768,9 +773,10 @@ def test_warm_and_cow_chunks_match_plain(dtype, C, tail, cuda_device):
         q, gk[:, 1], gv[:, 1], rtb, rtl, scale=scale))
     assert bool(torch.isneginf(got[1][1]).all())
     c = ops.counts()
-    assert c["paged_prefill_attention"] == {"launches": 1, "plain_calls": 0}
-    assert c["paged_prefill_attention_ranks"] == {"launches": 1,
-                                                  "plain_calls": 0}
+    once = {"launches": 1, "plain_calls": 0,
+            "float32_launches": int(dtype == torch.float32)}
+    assert c["paged_prefill_attention"] == once
+    assert c["paged_prefill_attention_ranks"] == once
 
 
 @pytest.mark.cuda
@@ -1095,9 +1101,10 @@ def test_decode_kernels_at_block_size_128_match_plain(dtype, NR, nblks, MB,
     _close_partials(got, paged_micro_attention_plain(
         q, pk[0], pv[0], tb[0], tl[0], scale=scale))
     c = ops.counts()
-    assert c["paged_micro_attention_ranks"] == {"launches": 1,
-                                                "plain_calls": 0}
-    assert c["paged_micro_attention"] == {"launches": 1, "plain_calls": 0}
+    once = {"launches": 1, "plain_calls": 0,
+            "float32_launches": int(dtype == torch.float32)}
+    assert c["paged_micro_attention_ranks"] == once
+    assert c["paged_micro_attention"] == once
 
 
 @pytest.mark.cuda
@@ -1123,7 +1130,8 @@ def test_serve_steps_on_the_card_match_the_cpu(arch, cuda_device, no_tf32):
         got = ss.serve_prefill_step(dev_params, cfg, layout, toks,
                                     block_size=8, NP=4, n_data=2)
         assert ops.counts()["flash_prefill"] == {
-            "launches": cfg.num_layers, "plain_calls": 0}
+            "launches": cfg.num_layers, "plain_calls": 0,
+            "float32_launches": cfg.num_layers}
         want = ss.serve_prefill_step(params, cfg, layout, toks,
                                      block_size=8, NP=4, n_data=2)
         assert torch.equal(got[0].cpu(), want[0])
@@ -1146,29 +1154,46 @@ def test_serve_steps_on_the_card_match_the_cpu(arch, cuda_device, no_tf32):
                 inp["nblk"], tails, inp["wblk"], inp["woff"], tokens, lens,
                 return_logits=True)
         c = ops.counts()["paged_micro_attention_ranks_merged"]
-        assert c == {"launches": cfg.num_layers, "plain_calls": 0}
+        assert c == {"launches": cfg.num_layers, "plain_calls": 0,
+                     "float32_launches": cfg.num_layers}
         for g, w in zip(out[str(cuda_device)], out["cpu"]):
             np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
                                        atol=TOL, rtol=TOL)
 
 
 # ------------------------------------------------------------------ #
-# The paged prefill at block size 128: bf16 in place, float32 as 64-token
-# sub-blocks
+# The paged prefill at block size 128: read in place in both dtypes
 # ------------------------------------------------------------------ #
+class _LaunchSpy:
+    """Wraps a kernel library's C entry: records each launch's positional
+    arguments, then launches."""
+
+    def __init__(self, lib, fn):
+        self.lib, self.fn, self.calls = lib, fn, []
+
+    def __getattr__(self, name):
+        real = getattr(self.lib, name)
+        if name != self.fn:
+            return real
+
+        def call(*args):
+            self.calls.append(args)
+            return real(*args)
+        return call
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tail", [1, 64, 65, 128])
 def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
-                                                       cuda_device):
+                                                       cuda_device,
+                                                       monkeypatch):
     """The prefill-chunk kernel and its rank forms over a strided layer
-    view of a [NR, L, NB, 128, K, D] pool (qwen3's GQA 16/8 x 128): the
-    bf16 single-rank kernel and the rank kernels read the 128-token
-    blocks in place (TMA boxes at rows 0 and 64), the float32 single-rank
-    wrapper as 64-token sub-blocks of the same memory, and the partials
-    equal the plain twins' over the 128-token blocks (a -1-padded table,
-    an empty rank)."""
-    from repro_torch.kernels.micro_attn_prefill import _checked
+    view of a [NR, L, NB, 128, K, D] pool (qwen3's GQA 16/8 x 128): all
+    read the 128-token blocks in place, in both dtypes (TMA boxes of the
+    pool's blocks), and the partials equal the plain twins' over the
+    128-token blocks (a -1-padded table, an empty rank)."""
+    import repro_torch.kernels.micro_attn_prefill as pre
     gen = torch.Generator(device=cuda_device).manual_seed(tail)
     NR, L, NB, bs, K, H, D, C, MB = 3, 2, 9, 128, 8, 16, 128, 64, 5
     gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, dtype, cuda_device)
@@ -1185,47 +1210,147 @@ def test_prefill_kernels_at_block_size_128_match_plain(dtype, tail,
     got = ops.paged_prefill_attention_ranks_merged(q, pk, pv, tb, tl)
     _close_partials(got, paged_prefill_attention_ranks_merged_plain(
         q, pk, pv, tb, tl, scale=scale))
+    load = pre.build.load
+    spies = []
+
+    def spy_load(name, fn, argtypes):
+        spies.append(_LaunchSpy(load(name, fn, argtypes), fn))
+        return spies[-1]
+    monkeypatch.setattr(pre.build, "load", spy_load)
     for r in range(NR):
         got = ops.paged_prefill_attention(q, pk[r], pv[r], tb[r], tl[r])
         _close_partials(got, paged_prefill_attention_plain(
             q, pk[r], pv[r], tb[r], tl[r], scale=scale))
     c = ops.counts()
-    assert c["paged_prefill_attention_ranks"] == {"launches": 1,
-                                                  "plain_calls": 0}
+    f32 = 1 if dtype == torch.float32 else 0
+    assert c["paged_prefill_attention_ranks"] == {
+        "launches": 1, "plain_calls": 0, "float32_launches": f32}
     assert c["paged_prefill_attention_ranks_merged"] == {
-        "launches": 1, "plain_calls": 0}
-    assert c["paged_prefill_attention"] == {"launches": NR,
-                                            "plain_calls": 0}
-    # The single-rank kernel reads the pool itself (float32: views of
-    # 64-token sub-blocks), never a copy.
-    vk, vv, _, _ = _checked(q, pk[0], pv[0], tb[0], tl[0])
-    assert vk.shape[-3] == (128 if dtype == torch.bfloat16 else 64)
-    assert vk.data_ptr() == pk[0].data_ptr() and \
-        vv.data_ptr() == pv[0].data_ptr()
+        "launches": 1, "plain_calls": 0, "float32_launches": f32}
+    assert c["paged_prefill_attention"] == {
+        "launches": NR, "plain_calls": 0, "float32_launches": NR * f32}
+    # The single-rank kernel reads the pool itself: the C entry gets the
+    # pool's own addresses and its 128-token block size, never a copy.
+    calls = [a for sp in spies for a in sp.calls]
+    assert len(calls) == NR
+    for r, args in enumerate(calls):
+        assert args[1] == pk[r].data_ptr() and args[2] == pv[r].data_ptr()
+        assert args[14] == bs
 
 
 @pytest.mark.cuda
-def test_prefill_kernel_refuses_a_block_without_a_sub_block(cuda_device):
-    pool = torch.zeros((2, 67, 1, 8), device=cuda_device)
-    q = torch.zeros((1, 1, 8), device=cuda_device)
-    table = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="no divisor"):
-        ops.paged_prefill_attention(q, pool, pool, table, 1)
+@pytest.mark.parametrize("D", [40, 64, 112, 128, 256])
+@pytest.mark.parametrize("window", [0, 100])
+def test_float32_flash_kernel_at_every_head_dim(D, window, cuda_device):
+    """The 3xTF32 flash kernel at each instantiation's widths (D 40 and 64
+    in the 64-wide build, 112 and 128 in the 128-wide, 256 with one
+    consumer warpgroup), causal and windowed, over several query tiles
+    and a ragged last one: within 1e-4 of the float32 twin."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D + window)
+    B, S, H, K = 1, 517, 8, 2
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    ops.reset_counts()
+    got = ops.flash_prefill(q, k, v, window=window)
+    want = flash_prefill_plain(q, k, v, scale=D ** -0.5, window=window)
+    assert ops.counts()["flash_prefill"] == {
+        "launches": 1, "plain_calls": 0, "float32_launches": 1}
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=TOL, rtol=0)
+
+
+def _low_bits(x, pattern):
+    """x with its low 13 mantissa bits set to ``pattern``: bits that a
+    tf32 operand drops, so only their lo halves carry them."""
+    return ((x.view(torch.int32) & ~0x1FFF) | pattern).view(torch.float32)
+
+
+def _one_tf32_product(eq, a, b):
+    """``einsum(eq, a, b)`` with both operands rounded to tf32 (10
+    mantissa bits, to nearest): one tf32 product a float32 product."""
+    def tf32(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+            torch.float32)
+    return torch.einsum(eq, tf32(a), tf32(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [0x1FFF, 0x1000, 0x0FFF])
+def test_float32_kernels_carry_the_low_mantissa_bits(pattern, cuda_device):
+    """Inputs whose low 13 mantissa bits are all set, at the rounding
+    midpoint or just below it (where rounding to nearest and truncating
+    to tf32 differ most), and logits of standard deviation 2: the flash
+    and prefill-chunk kernels stay within 1e-4 of the float32 twins,
+    where one tf32 product a float32 product (emulated here on the card)
+    misses 1e-4 on the same inputs. A kernel that dropped the lo halves
+    fails this. It also pins the truncation the kernels rely on: they
+    pass each raw float32 value as its tf32 hi half and x - trunc(x) as
+    its lo half, which sum to x only if the tensor cores ignore the low
+    13 bits; a rounding unit would move every operand with bits 0x1FFF
+    or 0x1000 by a tf32 ulp."""
+    gen = torch.Generator(device=cuda_device).manual_seed(pattern)
+    S, H, K, D = 1000, 8, 2, 128
+    q, k, v = (_low_bits(torch.randn(shape, generator=gen,
+                                     device=cuda_device), pattern)
+               for shape in ((1, S, H, D), (1, S, K, D), (1, S, K, D)))
+    q = _low_bits(2 * q, pattern)
+    scale = D ** -0.5
+    got = ops.flash_prefill(q, k, v)
+    want = flash_prefill_plain(q, k, v, scale=scale)
+    assert (got - want).abs().max().item() <= TOL
+    # One tf32 product (the plain twin's arithmetic otherwise).
+    G = H // K
+    s = _one_tf32_product("tkgd,skd->tkgs", q[0].reshape(S, K, G, D),
+                          k[0]) * scale
+    mask = torch.ones(S, S, dtype=torch.bool,
+                      device=cuda_device).tril()[:, None, None, :]
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    one = _one_tf32_product("tkgs,skd->tkgd", p, v[0]).reshape(S, H, D)
+    assert (one - want[0]).abs().max().item() > TOL
+    # The prefill chunk over those keys as a paged pool (bs 16).
+    bs = 16
+    pk = k[0, :S // bs * bs].reshape(S // bs, bs, K, D).contiguous()
+    pv = v[0, :S // bs * bs].reshape(S // bs, bs, K, D).contiguous()
+    table = torch.arange(S // bs + 2, dtype=torch.int32,
+                         device=cuda_device)
+    table[S // bs:] = -1
+    tail = torch.tensor(bs, dtype=torch.int32, device=cuda_device)
+    qc = q[0, :128].contiguous()
+    _close_partials(ops.paged_prefill_attention(qc, pk, pv, table, tail),
+                    paged_prefill_attention_plain(qc, pk, pv, table, tail,
+                                                  scale=scale))
+
+
+@pytest.mark.cuda
+def test_float32_prefill_kernel_empty_table(cuda_device):
+    """An empty table gives (0, -inf, 0) in every row, from the 3xTF32
+    kernel at each width."""
+    for D in (64, 128, 256):
+        pool = torch.randn((3, 16, 2, D), device=cuda_device)
+        q = torch.randn((37, 4, D), device=cuda_device)
+        table = torch.full((4,), -1, dtype=torch.int32, device=cuda_device)
+        o, m, l = ops.paged_prefill_attention(q, pool, pool, table, 5)
+        assert bool((o == 0).all()) and bool(torch.isneginf(m).all())
+        assert bool((l == 0).all())
 
 
 @pytest.mark.cuda
 def test_unit_kernels_refuse_blocks_off_the_swizzle_atom(cuda_device):
-    """The bf16 single-rank kernels' TMA boxes start on 8-row swizzle
-    atoms: a block size that is not a multiple of 8 raises ValueError
-    naming the reason (no ServingConfig has one)."""
-    pool = torch.zeros((2, 12, 1, 8), device=cuda_device,
-                       dtype=torch.bfloat16)
-    q = torch.zeros((1, 1, 8), device=cuda_device, dtype=torch.bfloat16)
-    table = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        ops.paged_prefill_attention(q, pool, pool, table, 1)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        ops.paged_micro_attention(q, pool, pool, table[None], table + 1)
+    """The single-rank kernels' TMA boxes start on 8-row swizzle atoms (8
+    rows of 128 bytes: 64 bf16 or 32 float32 columns): a block size that
+    is not a multiple of 8 raises ValueError naming the reason, in both
+    dtypes (no ServingConfig has one); so does a block over 128 tokens."""
+    for dtype in (torch.bfloat16, torch.float32):
+        pool = torch.zeros((2, 12, 1, 8), device=cuda_device, dtype=dtype)
+        q = torch.zeros((1, 1, 8), device=cuda_device, dtype=dtype)
+        table = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ops.paged_prefill_attention(q, pool, pool, table, 1)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ops.paged_micro_attention(q, pool, pool, table[None], table + 1)
+        big = torch.zeros((2, 136, 1, 8), device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="exceeds 128"):
+            ops.paged_prefill_attention(q, big, big, table, 1)
 
 
 # ------------------------------------------------------------------ #

@@ -94,7 +94,8 @@ def test_hybrid_batching_past_the_window_matches_jax_server(hybrid):
     got, server = _serve(psv, tp, cfg, _hybrid_config(psv, 32), prompts,
                          n_new, device="cpu")
     assert ops.counts()["flash_prefill"] == {
-        "launches": 0, "plain_calls": _n_attn(cfg) * len(prompts)}
+        "launches": 0, "plain_calls": _n_attn(cfg) * len(prompts),
+        "float32_launches": 0}
     for e in server.cluster.engines.values():
         assert e.pool_k is None and e.state.kv_k.shape[2] == cfg.local_window
         assert e.params is tp

@@ -63,7 +63,7 @@ from repro_torch.kernels.micro_attn_decode import (
 from repro_torch.kernels.micro_attn_prefill import (
     SMEM_PER_SM, paged_prefill_attention_cuda, paged_prefill_attention_plain,
     paged_prefill_attention_ranks_cuda, paged_prefill_attention_ranks_plain,
-    prefill_plan, prefill_unit_plan, rank_prefill_plan)
+    prefill_unit_plan, rank_prefill_plan)
 
 F32_TOL = 1e-4
 JAX_REF_BF16_TOL = 5e-2
@@ -282,16 +282,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_it():
     ops.paged_prefill_attention_ranks_merged(q, pools, pools,
                                              torch.tensor([[3, -1]] * 2),
                                              torch.tensor([5, 5]))
-    assert ops.counts() == {
-        "paged_micro_attention": {"launches": 0, "plain_calls": 1},
-        "paged_prefill_attention": {"launches": 0, "plain_calls": 1},
-        "paged_micro_attention_ranks": {"launches": 0, "plain_calls": 1},
-        "paged_prefill_attention_ranks": {"launches": 0, "plain_calls": 1},
-        "paged_micro_attention_ranks_merged": {"launches": 0,
-                                               "plain_calls": 1},
-        "paged_prefill_attention_ranks_merged": {"launches": 0,
-                                                 "plain_calls": 1},
-        "flash_prefill": {"launches": 0, "plain_calls": 1}}
+    plain_once = {"launches": 0, "plain_calls": 1, "float32_launches": 0}
+    assert ops.counts() == {name: plain_once for name in (
+        "paged_micro_attention", "paged_prefill_attention",
+        "paged_micro_attention_ranks", "paged_prefill_attention_ranks",
+        "paged_micro_attention_ranks_merged",
+        "paged_prefill_attention_ranks_merged", "flash_prefill")}
 
 
 def test_kernel_requests_never_fall_back(monkeypatch):
@@ -348,7 +344,8 @@ def _unit_case(kind, args, sms=H100_SMS):
         return (decode_unit_plan(R, H, K, 128, MB, bs, torch.bfloat16, sms),
                 R, 1, H, K, 128, MB, bs)
     C, H, K, D, MB, bs = args
-    return prefill_unit_plan(C, H, K, D, MB, bs, sms), 1, C, H, K, D, MB, bs
+    return (prefill_unit_plan(C, H, K, D, MB, bs, sms, torch.bfloat16), 1,
+            C, H, K, D, MB, bs)
 
 
 def _segment_spans(plan, S):
@@ -546,7 +543,7 @@ def test_prefill_unit_partials_merge_to_the_unsplit_twin(nblk):
     table[:nblk] = rng.permutation(nblk + 2)[:nblk]
     table = torch.from_numpy(table)
     tail = torch.tensor(9, dtype=torch.int32)
-    plan = prefill_unit_plan(C, K * G, K, D, MB, bs, 9)
+    plan = prefill_unit_plan(C, K * G, K, D, MB, bs, 9, torch.bfloat16)
     nrt = plan["head_groups"] // K
     assert plan["blocks"] == 8 and nrt == 2
 
@@ -610,13 +607,16 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
     four head groups on the CUDA cores. Prefill (128-row x 128-token
     units): 128 persistent blocks at 230,488 B (D 128, 3 stages), two a
     group, each 12 units; chameleon's 256 groups two a block; 4 stages at
-    D 64, 2 (64-token tiles) at D 256. The rank
+    D 64, 2 (64-token tiles) at D 256; float32 (3xTF32) at D 128: 32-token
+    units, two stages, the same 128 blocks, each 47 units, and one block
+    an SM where the aligned count would leave an eighth idle. The rank
     kernels at the qwen2-moe global path's shapes (MHA 16 x 128, three
     ranks holding a request's 63 / 160 / 27 blocks of 16 tokens; a
     512-query chunk over a 32 / 160 / 27-block prefix): one wave of
     persistent blocks, no block walking more than one 256-token unit in
     decode, nor more than 14 of the prefill's 64-token tiles."""
-    dec = decode_unit_plan(8, 16, 8, 128, 259, 16, torch.bfloat16, H100_SMS)
+    bf16 = torch.bfloat16
+    dec = decode_unit_plan(8, 16, 8, 128, 259, 16, bf16, H100_SMS)
     assert (dec["blocks"], dec["heads_per_block"], dec["tensor_cores"],
             dec["groups"]) == (256, 2, True, 64)
     _, _, walks = _segment_spans(dec, [255 * 16 + 11] * 8)
@@ -629,21 +629,38 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
             g16["tensor_cores"]) == (4, 8, False)
     for plan in (dec, sc2, g16):
         assert plan["smem_bytes"] * plan["blocks_per_sm"] <= SMEM_PER_SM
-    pre = prefill_unit_plan(512, 16, 8, 128, 191, 16, H100_SMS)
+    pre = prefill_unit_plan(512, 16, 8, 128, 191, 16, H100_SMS, bf16)
     assert (pre["blocks"], pre["groups"], pre["kv_tile"], pre["stages"],
             pre["smem_bytes"]) == (128, 64, 128, 3, 230_488)
     _, _, walks = _segment_spans(pre, [187 * 16 + 11])
     assert max(walks) == min(walks) == 12
-    cham = prefill_unit_plan(512, 64, 8, 128, 153, 16, H100_SMS)
+    cham = prefill_unit_plan(512, 64, 8, 128, 153, 16, H100_SMS, bf16)
     assert (cham["blocks"], cham["groups"]) == (128, 256)
-    assert prefill_unit_plan(512, 24, 24, 64, 191, 16, H100_SMS)[
+    assert prefill_unit_plan(512, 24, 24, 64, 191, 16, H100_SMS, bf16)[
         "stages"] == 4
-    assert prefill_unit_plan(33, 8, 2, 256, 23, 64, H100_SMS)[
+    assert prefill_unit_plan(33, 8, 2, 256, 23, 64, H100_SMS, bf16)[
         "stages"] == 2
     for D in (64, 128, 256):
-        assert prefill_unit_plan(512, 16, 8, D, 191, 16, H100_SMS)[
+        assert prefill_unit_plan(512, 16, 8, D, 191, 16, H100_SMS, bf16)[
             "smem_bytes"] <= SMEM_PER_SM
-    assert prefill_plan(512, 16, 8, 128)["blocks"] == 8 * 8 * 2
+    # float32 (3xTF32): 32-token tiles and two stages at D 128, the same
+    # 128 blocks two a group, 47 units each.
+    f32 = prefill_unit_plan(512, 16, 8, 128, 191, 16, H100_SMS,
+                            torch.float32)
+    assert (f32["blocks"], f32["groups"], f32["kv_tile"], f32["stages"],
+            f32["smem_bytes"]) == (128, 64, 32, 2, 230_528)
+    _, _, walks = _segment_spans(f32, [187 * 16 + 11])
+    assert max(walks) == min(walks) == 47
+    # Where the group-aligned count would leave an eighth of the SMs idle
+    # (musicgen's 96 groups, starcoder2's 192 two a block), float32
+    # launches one block an SM; bf16 keeps the aligned count.
+    for H, K, D in ((24, 24, 64), (48, 4, 128)):
+        assert prefill_unit_plan(512, H, K, D, 191, 16, H100_SMS,
+                                 torch.float32)["blocks"] == H100_SMS
+        assert prefill_unit_plan(512, H, K, D, 191, 16, H100_SMS,
+                                 bf16)["blocks"] == 96
+    assert prefill_unit_plan(512, 64, 8, 128, 153, 16, H100_SMS,
+                             torch.float32)["blocks"] == 128
     # The rank kernels.
     bs = 16
     S = np.array([[63 * bs, 38 * bs, 0, 0], [160 * bs, 0, 0, 0],
@@ -851,6 +868,164 @@ def test_flash_hi_lo_contract_meets_tol_at_the_long_causal_shapes(shape):
     assert _flash_misses(got, want) == 0
 
 
+# ------------------------------------------------------------------ #
+# The float32 kernels' 3xTF32 contract (flash prefill and the prefill
+# chunk), emulated in plain PyTorch
+# ------------------------------------------------------------------ #
+def _tf32(x):
+    """x as a tf32 operand of the tensor cores: its low 13 mantissa bits
+    ignored (truncated toward zero), on the float32 bit pattern."""
+    b = x.float().contiguous().view(torch.int32)
+    return (b & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, products):
+    """``einsum(eq, a, b)`` of float32 operands as the kernels run it:
+    each operand x as hi, its raw value, and lo = x - tf32(x), both read
+    by the tensor cores as tf32 (``_tf32``); the product as hi hi + hi lo
+    + lo hi (``products`` 3) or hi hi alone (1); tf32 x tf32 is exact in
+    float32, the sums are float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if products == 3:
+        al, bl = _tf32(a.float() - ah), _tf32(b.float() - bh)
+        out = out + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+    return out
+
+
+def test_tf32_split_truncates():
+    """The emulation's split: a tf32 operand keeps 10 mantissa bits,
+    truncated toward zero (the low 13 bits ignored, a tf32 value
+    unchanged); hi alone is off by up to 2^-10 of x, hi + lo (lo read as
+    tf32 too) holds x to 2^-20."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp - 2 ** -23,
+                      1 + ulp, 3.0])
+    assert _tf32(x).tolist() == [1.0, -1.0, 1.0, 1 + ulp, 3.0]
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        100_000).astype(np.float32))
+    hi = _tf32(r)
+    lo = _tf32(r - hi)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((r - hi).abs() < 2.0 ** -10 * r.abs()).all()
+    err = ((hi.double() + lo.double()) - r.double()).abs()
+    assert (err <= 2.0 ** -20 * r.abs().double()).all()
+    assert err.max().item() > 0
+
+
+def _prefill_tf32_emulation(q, pk, pv, table, tail, *, scale, products):
+    """The float32 prefill-chunk kernel's arithmetic in plain PyTorch:
+    Q K^T and P V in tf32 products (``_tf32_product``), the softmax, m and
+    l in float32 from the float32 p."""
+    C, H, D = q.shape
+    K = pk.shape[2]
+    k, v = gather_local_kv(pk, pv, table[None])
+    mask = local_mask_from_table(table[None], pk.shape[1],
+                                 tail.reshape(1))[0]
+    s = _tf32_product("ckgd,skd->ckgs", q.reshape(C, K, H // K, D), k[0],
+                      products) * scale
+    m, p, l = _masked_softmax_parts(s, mask[None, None, None, :])
+    o = _tf32_product("ckgs,skd->ckgd", p, v[0], products)
+    return o.reshape(C, H, D), m.reshape(C, H), l.reshape(C, H)
+
+
+# float32 chunks of the prefill kernel's served shapes: qwen3's main
+# shape (C 512, GQA 16/8 x 128 over a ~3,000-token prefix, bs 16) and
+# musicgen's (MHA 24 x 64 over ~2,400 tokens).
+_TF32_PREFILL = {"main": (512, 16, 8, 128, 16, 188),
+                 "musicgen": (512, 24, 24, 64, 16, 150)}
+
+
+@functools.lru_cache(maxsize=2)
+def _tf32_prefill_case(name):
+    C, H, K, D, bs, nblk = _TF32_PREFILL[name]
+    rng = np.random.default_rng(29)
+    q, pk, pv = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 for shape in ((C, H, D), (nblk + 4, bs, K, D),
+                               (nblk + 4, bs, K, D)))
+    table = -np.ones((nblk + 3,), np.int32)
+    table[:nblk] = rng.permutation(nblk + 4)[:nblk]
+    args = (q, pk, pv, torch.from_numpy(table),
+            torch.tensor(11, dtype=torch.int32))
+    want = paged_prefill_attention_plain(*args, scale=D ** -0.5)
+    return args, D ** -0.5, want
+
+
+@pytest.mark.parametrize("name", sorted(_TF32_PREFILL))
+def test_prefill_3xtf32_contract_meets_tol(name):
+    """Three tf32 products a float32 product (hi hi + hi lo + lo hi), l
+    from the float32 p: the finalized output, m and l within 1e-4 of the
+    float32 plain twin."""
+    args, scale, want = _tf32_prefill_case(name)
+    got = _prefill_tf32_emulation(*args, scale=scale, products=3)
+    assert _finalized_error(got, want) <= F32_TOL
+    torch.testing.assert_close(got[1], want[1], atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(_TF32_PREFILL))
+def test_prefill_single_tf32_product_misses_tol(name):
+    """Why three: one tf32 product (up to 2^-10 relative an operand) puts
+    the finalized output, m and l outside 1e-4 at both chunks."""
+    args, scale, want = _tf32_prefill_case(name)
+    got = _prefill_tf32_emulation(*args, scale=scale, products=1)
+    assert _finalized_error(got, want) > F32_TOL
+    assert (got[1] - want[1]).abs().max().item() > F32_TOL
+    assert ((got[2] - want[2]).abs() / want[2]).max().item() > F32_TOL
+
+
+def _flash_tf32_emulation(q, k, v, *, scale, window, q0, products):
+    """The float32 flash kernel's arithmetic (as ``_flash_emulation``,
+    with Q K^T and P V in tf32 products), normalized in float32."""
+    T, H, D = q.shape
+    N, K, _ = k.shape
+    s = _tf32_product("tkgd,nkd->tkgn", q.reshape(T, K, H // K, D), k,
+                      products) * scale
+    qp = torch.arange(q0, q0 + T)[:, None]
+    kp = torch.arange(N)[None, :]
+    ok = kp <= qp
+    if window:
+        ok = ok & (kp > qp - window)
+    s = s.masked_fill(~ok[:, None, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _tf32_product("tkgn,nkd->tkgd", p, v, products)
+    return (o / p.sum(-1, keepdim=True)).reshape(T, H, D)
+
+
+@functools.lru_cache(maxsize=2)
+def _tf32_flash_case(name):
+    """``_FLASH_MAIN``'s rows in float32, and their plain arithmetic."""
+    c = _FLASH_MAIN[name]
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               for shape in ((c["T"], c["H"], c["D"]),
+                             (c["N"], c["K"], c["D"]),
+                             (c["N"], c["K"], c["D"])))
+    kw = dict(scale=c["D"] ** -0.5, window=c["window"], q0=c["N"] - c["T"])
+    want = _flash_emulation(q, k, v, p_mode="f32", **kw)
+    return (q, k, v), kw, want
+
+
+@pytest.mark.parametrize("shape", ["a", "b"])
+def test_flash_3xtf32_contract_meets_tol_at_the_main_shapes(shape):
+    """Three tf32 products a float32 product: every output element within
+    1e-4 of the float32 plain arithmetic (FLASH_RTOL 0 in float32), at
+    the hybrid admission's window and qwen3's causal prefill."""
+    args, kw, want = _tf32_flash_case(shape)
+    got = _flash_tf32_emulation(*args, products=3, **kw)
+    assert (got - want).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("shape", ["a", "b"])
+def test_flash_single_tf32_product_misses_tol(shape):
+    """Why three: one tf32 product a float32 product (the operands
+    truncated to tf32) misses 1e-4 at both main shapes (7e-4 and 6e-4 on
+    these inputs; the three products: 6e-7 and 4e-7)."""
+    args, kw, want = _tf32_flash_case(shape)
+    got = _flash_tf32_emulation(*args, products=1, **kw)
+    assert (got - want).abs().max().item() > F32_TOL
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", range(8, MAX_HEAD_DIM + 1, 8))
 def test_flash_plans_fit_shared_memory_and_cover_the_head_dim(D, dtype):
@@ -879,10 +1054,23 @@ def test_flash_plans_fit_shared_memory_and_cover_the_head_dim(D, dtype):
         assert plan["grid"] == (plan["blocks"], 1, 1)
         assert plan["route"].startswith("wgmma")
     else:
-        assert plan["warps"] * plan["rows_per_warp"] == plan["rows_per_block"]
-        n_qt = -(-S // plan["rows_per_block"])
-        assert np.prod(plan["grid"]) == plan["blocks"] == n_qt * H * B
-        assert plan["route"] == "cuda cores, float32"
+        # 3xTF32: each consumer's q_lo (and q_hi above D 128: below, it
+        # is register fragments), two raw V tiles, the stages' four tf32
+        # tiles (K_hi the raw K tile); two consumers of 64 rows up to D
+        # 128, one above.
+        dmax, tile, stages = plan["dmax"], plan["kv_tile"], plan["stages"]
+        wgs = plan["warpgroups"]
+        q_halves = 1 if dmax <= 128 else 2
+        assert wgs == (2 if D <= 128 else 1)
+        assert plan["smem_bytes"] == (1024 + wgs * q_halves * 64 * dmax * 4
+                                      + (2 + 4 * stages) * tile * dmax * 4
+                                      + 8 * (2 * 2 + 5 * stages))
+        assert tile % 16 == 0 and stages >= 1
+        assert plan["rows_per_block"] == 64 * wgs
+        assert plan["threads"] == 128 * (wgs + 1)
+        assert plan["items"] == -(-S // plan["rows_per_block"]) * H * B
+        assert plan["blocks"] == min(plan["items"], 132)
+        assert plan["route"].startswith("wgmma 3xTF32")
 
 
 def test_flash_plans_at_the_main_shapes():
@@ -891,7 +1079,10 @@ def test_flash_plans_at_the_main_shapes():
     the ServeLayout prefill (B 2, S 32,768): D 128, 128-token tiles, 3
     stages in 230,488 B; (d) musicgen's cell (MHA 24 x 64): 4 stages of
     128-token tiles. A card with fewer SMs gets fewer blocks; a launch
-    with fewer items than SMs one block an item. float32 keeps its grid."""
+    with fewer items than SMs one block an item. float32 (3xTF32): 64-row
+    items of 16-token tiles, one stage, at D 256; 128-row items of
+    32-token tiles, two stages, at D 128 (both in about 225 KB); two
+    stages of 64-token tiles at D 64 in 193 KB."""
     a = flash_plan(1, 6000, 16, 1, 256, torch.bfloat16, 132)
     assert (a["kv_tile"], a["stages"], a["items"], a["blocks"],
             a["smem_bytes"]) == (64, 2, 752, 132, 197_696)
@@ -907,7 +1098,13 @@ def test_flash_plans_at_the_main_shapes():
         == 114
     assert flash_plan(1, 13, 4, 2, 128, torch.bfloat16, 132)["blocks"] == 4
     f = flash_plan(1, 6000, 16, 1, 256, torch.float32, 132)
-    assert (f["grid"], f["smem_bytes"]) == ((94, 16, 1), 222_208)
+    assert (f["rows_per_block"], f["kv_tile"], f["stages"], f["items"],
+            f["blocks"], f["smem_bytes"]) == (64, 16, 1, 1504, 132, 230_472)
+    f = flash_plan(1, 4000, 16, 8, 128, torch.float32, 132)
+    assert (f["rows_per_block"], f["kv_tile"], f["stages"], f["items"],
+            f["smem_bytes"]) == (128, 32, 2, 512, 230_512)
+    f = flash_plan(2, 32768, 24, 24, 64, torch.float32, 132)
+    assert (f["kv_tile"], f["stages"], f["smem_bytes"]) == (64, 2, 197_744)
 
 
 def _live_keys(tile, S, window):
@@ -948,6 +1145,106 @@ def test_flash_work_order_covers_every_item_once_longest_first(B, S, K, G,
         assert min(now) >= max(later)
 
 
+@settings(max_examples=100, deadline=None)
+@given(B=st.integers(1, 3), S=st.integers(1, 3000), K=st.integers(1, 4),
+       G=st.integers(1, 8), D=st.sampled_from([40, 64, 128, 256]),
+       sms=st.integers(1, 140))
+def test_flash_float32_work_order_covers_every_item_once(B, S, K, G, D,
+                                                         sms):
+    """The float32 plan's persistent blocks (at most the SMs, at most one
+    an item) walk every (query tile, head, batch row) exactly once, over
+    its own query tiles: 128 rows up to D 128, 64 above."""
+    H = K * G
+    plan = flash_plan(B, S, H, K, D, torch.float32, sms)
+    rows = plan["rows_per_block"]
+    assert rows == (128 if D <= 128 else 64)
+    assert 1 <= plan["blocks"] <= min(sms, plan["items"])
+    items = [it for j in range(plan["blocks"])
+             for it in flash_block_items(plan, j, B, S, H)]
+    assert sorted(items) == sorted((t, h, b) for t in range(-(-S // rows))
+                                   for h in range(H) for b in range(B))
+
+
+@pytest.mark.parametrize("D", range(8, MAX_HEAD_DIM + 1, 8))
+def test_float32_prefill_plans_fit_shared_memory(D):
+    """The float32 prefill-chunk plan of every head dim the wrapper takes:
+    an instantiation at least as wide, whose block fits the H100's
+    232,448 B (each consumer's q_lo, and q_hi above D 128; two raw V
+    tiles; the stages' four tf32 tiles; the plan; 5 barriers a stage),
+    one block an SM at most, 64-row merge groups above D 128."""
+    plan = prefill_unit_plan(512, 16, 8, D, 191, 16, H100_SMS,
+                             torch.float32)
+    dmax, tile, stages = plan["dmax"], plan["kv_tile"], plan["stages"]
+    wgs = plan["warpgroups"]
+    assert D <= dmax <= MAX_HEAD_DIM and dmax in (64, 128, 256)
+    assert plan["rows_per_block"] == 64 * wgs == (128 if D <= 128 else 64)
+    q_halves = 1 if dmax <= 128 else 2
+    assert plan["smem_bytes"] == (1024 + wgs * q_halves * 64 * dmax * 4
+                                  + (2 + 4 * stages) * tile * dmax * 4
+                                  + 16 + 8 * (2 * 2 + 5 * stages))
+    assert plan["smem_bytes"] <= SMEM_PER_SM
+    assert plan["blocks"] <= H100_SMS and plan["unit_tokens"] == tile
+    assert plan["route"].startswith("wgmma 3xTF32")
+
+
+@pytest.mark.parametrize("args", [
+    (512, 16, 8, 128, 191, 16),      # the main shape
+    (512, 24, 24, 64, 191, 16),      # musicgen's heads (D 64)
+    (33, 8, 2, 256, 23, 64),         # D 256: 64-row groups, 16-token units
+    (512, 16, 8, 128, 24, 128),      # 128-token blocks
+    (40, 8, 2, 40, 73, 24),          # bs 24, D 40
+])
+def test_float32_prefill_unit_plans_cover_every_valid_token_once(args):
+    """The float32 kernel's plan (its units: the 64-, 32- or 16-token
+    tile of its instantiation), over tails 1..bs: every valid token lies
+    in exactly one unit of each group, in order, and no block walks more
+    than ceil(units / blocks) units."""
+    C, H, K, D, MB, bs = args
+    plan = prefill_unit_plan(C, H, K, D, MB, bs, H100_SMS, torch.float32)
+    for tail in range(1, bs + 1):
+        S = np.array([(MB - 1) * bs + tail])
+        up, spans, walks = _segment_spans(plan, S)
+        B = min(plan["blocks"], max(up["T"], 1))
+        assert max(walks) <= -(-up["T"] // B)
+        assert sum(walks) == up["T"] == plan["head_groups"] * -(
+            -S[0] // plan["unit_tokens"])
+        for g in range(plan["head_groups"]):
+            got = sorted(spans.get((g, 0), []))
+            ends = [0] + [hi for _, hi in got]
+            assert [lo for lo, _ in got] == ends[:-1] and ends[-1] == S[0]
+
+
+def test_float32_prefill_unit_partials_merge_to_the_unsplit_twin():
+    """The float32 kernel's plan at D 256 (64-row merge groups, 16-token
+    units) on a small card (5 SMs: groups split over blocks): the plain
+    twin over each segment's tokens, a group's segments LSE-merged ==
+    the unsplit plain twin."""
+    rng = np.random.default_rng(31)
+    C, K, G, D, bs, MB, nblk = 70, 2, 2, 256, 16, 16, 11
+    q, pk, pv = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 for shape in ((C, K * G, D), (nblk + 2, bs, K, D),
+                               (nblk + 2, bs, K, D)))
+    table = -np.ones((MB,), np.int32)
+    table[:nblk] = rng.permutation(nblk + 2)[:nblk]
+    table = torch.from_numpy(table)
+    tail = torch.tensor(7, dtype=torch.int32)
+    plan = prefill_unit_plan(C, K * G, K, D, MB, bs, 5, torch.float32)
+    nrt = plan["head_groups"] // K
+    assert plan["rows_per_block"] == 64 and nrt == 3
+
+    def rows_of(g):
+        kh, rt = divmod(g, nrt)
+        mask = torch.zeros((C, K * G), dtype=torch.bool)
+        for gr in range(rt * 64, min((rt + 1) * 64, C * G)):
+            mask[gr // G, kh * G + gr % G] = True
+        return mask
+    got = _merged_over_units("prefill", plan, q, pk, pv, table, tail,
+                             [(nblk - 1) * bs + 7], rows_of)
+    want = paged_prefill_attention_plain(q, pk, pv, table, tail,
+                                         scale=D ** -0.5)
+    _close(got, want, F32_TOL)
+
+
 # ------------------------------------------------------------------ #
 # Flash prefill (causal, optionally sliding-window)
 # ------------------------------------------------------------------ #
@@ -978,7 +1275,8 @@ def test_flash_plain_matches_pallas_and_ref(B, S, H, K, D, dtype):
     plain = flash_prefill_plain(qt, kt, vt, scale=D ** -0.5)
     ops.reset_counts()
     got = ops.flash_prefill(qt, kt, vt)
-    assert ops.counts()["flash_prefill"] == {"launches": 0, "plain_calls": 1}
+    assert ops.counts()["flash_prefill"] == {
+        "launches": 0, "plain_calls": 1, "float32_launches": 0}
     assert got.dtype == qt.dtype and tuple(got.shape) == (B, S, H, D)
     assert torch.equal(got, plain)
     tol = FLASH_TOL[dtype]

@@ -1,5 +1,5 @@
-"""Parameter placements, the sub-block view of the paged prefill, and
-DistAttention over a partition, against the JAX package (no spawn).
+"""Parameter placements and DistAttention over a partition, against the
+JAX package (no spawn).
 
 * The port's ``param_specs`` + ``validate_divisibility`` equal JAX's leaf
   for leaf, for every port arch at smoke and full size, ``fsdp`` True and
@@ -15,10 +15,6 @@ DistAttention over a partition, against the JAX package (no spawn).
   on a one-process mesh; ``seeded_params`` gives the same values with
   and without a mesh; ``spec_bytes`` predicts ``local_bytes``.
   (Meshes of 2 and 4 processes: ``tests/test_torch_serve_layout.py``.)
-* Repair of 128-token blocks in the paged prefill: the plain prefill
-  over the sub-block view with ``sub_block_tables``' tables equals the
-  plain prefill over the original pool (tails 1, 64, 65, 128; single
-  and rank form; a -1-padded table; an empty rank), within 1e-6.
 * ``dist_attention_decode``/``_prefill`` against JAX's on
   ``tests/test_distattention_equiv.py``'s cases (seeded draws of its
   strategies), 1e-5 in float32 (5e-2 bf16, as that file holds them).
@@ -33,9 +29,6 @@ import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.distributed import placement, sharding
-from repro_torch.kernels.micro_attn_prefill import (
-    paged_prefill_attention_plain, paged_prefill_attention_ranks_plain,
-    sub_block_size, sub_block_tables)
 
 MESHES = ((("data", "model"), (1, 2)), (("data", "model"), (2, 2)),
           (("data", "model"), (1, 4)), (("data", "model"), (16, 16)),
@@ -215,70 +208,6 @@ def test_seeded_draws_follow_init_distributions():
     # Each mLSTM layer of the (group, layer) stack has its own draw.
     w_up = x["mlstm"]["blk"]["w_up"]
     assert not torch.equal(w_up[0, 0], w_up[0, 1])
-
-
-# --------------------------------------------------------------------- #
-# 128-token blocks in the paged prefill: the sub-block view
-# --------------------------------------------------------------------- #
-def test_sub_block_size():
-    assert [sub_block_size(b) for b in (8, 16, 64, 96, 128, 130, 256)] == \
-        [8, 16, 64, 48, 64, 26, 64]
-    for bs in (67, 71, 131):
-        with pytest.raises(ValueError, match="no divisor"):
-            sub_block_size(bs)
-
-
-def _pools(rng, NR, NB, bs, K, D):
-    shape = (NR, NB, bs, K, D)
-    return (torch.from_numpy(rng.standard_normal(shape, np.float32)),
-            torch.from_numpy(rng.standard_normal(shape, np.float32)))
-
-
-def _close(got, want, tol=1e-6):
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol, atol=tol)
-
-
-@pytest.mark.parametrize("tail", [1, 64, 65, 128])
-def test_sub_block_view_equals_the_128_token_pool(tail):
-    rng = np.random.default_rng(tail)
-    bs, NB, K, D, C, H, MB = 128, 6, 2, 16, 5, 4, 4
-    sub = sub_block_size(bs)
-    f = bs // sub
-    pk, pv = _pools(rng, 3, NB, bs, K, D)
-    q = torch.from_numpy(rng.standard_normal((C, H, D), np.float32))
-    # Rank 0: three blocks; rank 1: one block; rank 2: empty (-1 only).
-    tables = torch.tensor([[4, 0, 2, -1], [5, -1, -1, -1],
-                           [-1, -1, -1, -1]], dtype=torch.int32)
-    tails = torch.tensor([tail, tail, tail], dtype=torch.int32)
-    want = paged_prefill_attention_ranks_plain(q, pk, pv, tables, tails,
-                                               scale=0.25)
-    tab_s, tail_s = sub_block_tables(tables, tails, bs, sub)
-    assert tab_s.shape == (3, MB * f) and tab_s.dtype == torch.int32
-    view = (3, NB * f, sub, K, D)
-    got = paged_prefill_attention_ranks_plain(q, pk.view(view), pv.view(view),
-                                              tab_s, tail_s, scale=0.25)
-    _close(got, want)
-    # The empty rank stays empty; a past-the-tail sub-block is -1.
-    assert (tab_s[2] == -1).all()
-    assert int((tab_s[1] >= 0).sum()) == -(-tail // sub)
-    # The single-pool form, one rank at a time.
-    for r in range(3):
-        t1, l1 = sub_block_tables(tables[r], tails[r], bs, sub)
-        got1 = paged_prefill_attention_plain(q, pk[r].view(view[1:]),
-                                             pv[r].view(view[1:]), t1, l1,
-                                             scale=0.25)
-        _close(got1, [x[r] for x in want])
-    # The views are the pool itself, never a copy.
-    assert pk.view(view).data_ptr() == pk.data_ptr()
-
-
-def test_sub_block_tables_cut_a_96_token_block_in_two():
-    tab = torch.tensor([3, 1, -1], dtype=torch.int32)
-    t, tail = sub_block_tables(tab, torch.tensor(50), 96, 48)
-    assert t.tolist() == [6, 7, 2, 3, -1, -1] and int(tail) == 2
-    t, tail = sub_block_tables(tab, torch.tensor(0), 96, 48)   # empty tail
-    assert t.tolist() == [6, 7, -1, -1, -1, -1] and int(tail) == 48
 
 
 # --------------------------------------------------------------------- #

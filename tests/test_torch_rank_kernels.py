@@ -137,7 +137,8 @@ def test_merged_wrappers_take_the_plain_path_on_the_cpu():
                  "paged_prefill_attention_ranks_merged",
                  "paged_micro_attention_ranks",
                  "paged_prefill_attention_ranks"):
-        assert c[name] == {"launches": 0, "plain_calls": 1}
+        assert c[name] == {"launches": 0, "plain_calls": 1,
+                           "float32_launches": 0}
 
 
 # ------------------------------------------------------------------ #
