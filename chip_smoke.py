@@ -855,7 +855,11 @@ def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
                   + NR * rows * H * (D + 2) * 4)
         flops = 4 * S * H * D * (1 if decode else rows)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        # The prefill runs on the tensor cores in both dtypes (float32 in
+        # 3xTF32: tensor_core_bound); decode's float32 on the CUDA cores.
+        tc32 = not decode and dtype == torch.float32
+        t_ops = flops / (PEAK_FLOPS_3XTF32 if tc32
+                         else PEAK_FLOPS[dtype]) * 1e3
 
         def per_rank():
             for i in range(NR):
@@ -896,6 +900,11 @@ def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
         m_bytes = nbytes - (NR - 1) * rows * H * (D + 2) * 4
         row["merged_bound_ms"] = max(m_bytes / HBM_BYTES_PER_S * 1e3,
                                      t_ops)
+        if tc32:
+            cuda_cores = flops / PEAK_FLOPS[dtype] * 1e3
+            row["bound_cuda_cores_ms"] = max(t_bytes, cuda_cores)
+            row["merged_bound_cuda_cores_ms"] = max(
+                m_bytes / HBM_BYTES_PER_S * 1e3, cuda_cores)
     return row
 
 
@@ -936,7 +945,8 @@ def kernel_plans(chunk: int):
         return dict(up, **unit_walks(up, [[nblk]], bs))
     for dt in (torch.bfloat16, torch.float32):
         # The single-rank kernels (units of each request's valid tokens;
-        # a prefill unit is a 128-row tile x a 64-token tile).
+        # a prefill unit is a 128-row tile x a tile of the instantiation,
+        # 128 tokens in bf16 up to D 128).
         up = decode_unit_plan(8, 16, 8, 128, 259, 16, dt, sms)
         out[f"decode-main-{dt}"] = dict(up, **unit_walks(
             up, [[256] * 8], 16))
@@ -1340,6 +1350,42 @@ def all_finished(handles):
         raise AssertionError(f"not every request finished: {states}")
 
 
+class MapEncodeSpy:
+    """Tensor maps the prefill kernels' library encodes in each cluster
+    step (``micro_attn_prefill.map_encodes``: its cache of maps, keyed on
+    each pool view). Card only."""
+
+    def __enter__(self):
+        from repro_torch.kernels.micro_attn_prefill import map_encodes
+        from repro_torch.serving.cluster import Cluster
+        self.cls, self.orig, self.per_step = Cluster, Cluster.step, []
+        spy = self
+
+        def step(cl, *args, **kwargs):
+            n0 = map_encodes()
+            out = spy.orig(cl, *args, **kwargs)
+            spy.per_step.append(map_encodes() - n0)
+            return out
+        Cluster.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+    def report(self) -> dict:
+        """Encodes in the first step that encoded any, and in every later
+        step, which must be none: the pool views and their maps persist."""
+        busy = [i for i, n in enumerate(self.per_step) if n]
+        later = self.per_step[busy[0] + 1:] if busy else []
+        if any(later):
+            raise AssertionError(f"tensor maps encoded after the first "
+                                 f"step: {self.per_step}")
+        return {"steps": len(self.per_step),
+                "first_encoding_step": busy[0] if busy else None,
+                "encodes_first": self.per_step[busy[0]] if busy else 0,
+                "encodes_after_first": sum(later)}
+
+
 def served(counts, name, device) -> int:
     """Calls of a kernel's wrapper that ran it: launches on the card,
     plain-twin calls on the CPU."""
@@ -1424,7 +1470,7 @@ def global_serving_phase(params, cfg, device, prompt_lens, n_new):
     config = serving_config().replace(global_pool=True)
     t0 = time.perf_counter()
     reset_peak_memory()
-    with AdmissionSpy() as spy:
+    with AdmissionSpy() as spy, MapEncodeSpy() as maps:
         ops.reset_counts()
         handles, server, wall = serve(params, cfg, config, prompts, n_new,
                                       device)
@@ -1453,6 +1499,7 @@ def global_serving_phase(params, cfg, device, prompt_lens, n_new):
                                      for e in cl.engines.values()),
               "pool_bytes": 2 * cl.gpool.k.numel() * cl.gpool.k.element_size(),
               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "map_encodes": maps.report(),
               "phase_s": time.perf_counter() - t0, "counts": counts}
     if report["kv_moved_bytes"] <= 0:
         raise AssertionError("no KV moved on the global path")
@@ -6032,8 +6079,8 @@ def main(argv=None) -> int:
                "paged_prefill_attention": ["paged_prefill_wgmma_kernel",
                                            "paged_prefill_tf32_kernel"],
                RANK_KERNELS[0]: ["paged_decode_ranks_kernel"],
-               RANK_KERNELS[1]: ["paged_prefill_ranks_mma_kernel",
-                                 "paged_prefill_ranks_f32_kernel"],
+               RANK_KERNELS[1]: ["paged_prefill_wgmma_kernel",
+                                 "paged_prefill_tf32_kernel"],
                "flash_prefill": ["flash_prefill_wgmma_kernel",
                                  "flash_prefill_tf32_kernel"]}
     kernels = []
@@ -6053,6 +6100,8 @@ def main(argv=None) -> int:
                 "library_graph_ms": r["library_graph_ms"],
                 "stacked_merge_ms": r["stacked_merge_ms"],
                 "stacked_merge_graph_ms": r["stacked_merge_graph_ms"],
+                **({"bound_cuda_cores_ms": r["merged_bound_cuda_cores_ms"]}
+                   if "merged_bound_cuda_cores_ms" in r else {}),
                 "stacked": {k: r[k] for k in (
                     "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
                     "nr_launch_ms", "nr_launch_graph_ms")}})

@@ -2,14 +2,18 @@
 """Time the rank forms of the paged kernels of one checkout, on one card.
 
     python3 scripts/rank_kernels_ab.py [--src DIR] [--label NAME]
+                                       [--dtype bfloat16|float32]
                                        [--out report.json]
 
 Builds the ``repro_torch`` package under ``DIR/src`` (default: this
 checkout; point ``--src`` at an unpacked older commit to compare) and
-times, in bf16, at ``chip_smoke.py``'s main rank shapes (the qwen2-moe
-global path's decode and prefill chunk, MHA 16 x 128 over three ranks;
-the ServeLayout path's 128-token blocks: long_500k, a batch of two, a
-chunk over three ranks), each with its seeded tables:
+times, in ``--dtype`` (default bf16), at ``chip_smoke.py``'s rank shapes
+(the qwen2-moe global path's decode and prefill chunk, MHA 16 x 128 over
+three ranks; the ServeLayout path's 128-token blocks: long_500k, a batch
+of two, a chunk over three ranks; the mesh path's chunks over a slab of
+two ranks and of one, qwen3 heads on a 28-layer pool; the COW path's
+one-query chunk over three ranks; the 77-query chunks at G 1 and G 2),
+each with its seeded tables:
 
 * ``stacked``: ``ops.paged_*_attention_ranks`` (one partial a rank);
 * ``stacked_merge``: the same followed by ``merge_partials(axis=0)``,
@@ -19,7 +23,10 @@ chunk over three ranks), each with its seeded tables:
 
 Each as eager calls between CUDA events (``ms``) and as CUDA-graph
 replays (``graph_ms``), after a check against the plain twins within
-``chip_smoke.TOL``. Run trees in turns within one call (A B B A) to
+``chip_smoke.TOL``; a prefill row also times one
+``scaled_dot_product_attention`` call over every rank's gathered rows
+(``library_ms``, ``library_graph_ms``) and gives ``chip_smoke``'s
+``bound_ms``. Run trees in turns within one call (A B B A) to
 compare them on the same card. Prints the card's name and power limit
 first and one JSON line a row; needs CUDA.
 """
@@ -50,6 +57,16 @@ SHAPES = {
                               None),
     "prefill-ranks-bs128-nr3": ("prefill", 3, 16, 8, 512, 32, 2, 128, 24,
                                 [4, 20, 0], 65),
+    "prefill-ranks-mesh-nr2-160": ("prefill", 2, 16, 8, 512, 256, 28, 16,
+                                   160, [64, 160], None),
+    "prefill-ranks-mesh-nr1-96": ("prefill", 1, 16, 8, 512, 256, 28, 16,
+                                  160, [96], None),
+    "prefill-ranks-cow-c1": ("prefill", 3, 16, 8, 1, 256, 2, 16, 160,
+                             [120, 0, 68], 15),
+    "prefill-ranks-nr1-g1": ("prefill", 1, 16, 16, 77, 128, 2, 16, 160,
+                             [3], None),
+    "prefill-ranks-nr4-g2": ("prefill", 4, 16, 8, 77, 128, 2, 16, 160,
+                             [0, 2, 0, 60], None),
 }
 
 
@@ -83,6 +100,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT),
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     ap.add_argument("--out", default=None, help="also write rows here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -95,13 +114,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import micro_attn_decode as dec
     from repro_torch.kernels import micro_attn_prefill as pre
+    from repro_torch.core.distattn import gather_local_kv
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {cs.card_line()}", flush=True)
     build.build()
     device = torch.device("cuda")
+    dtype = getattr(torch, args.dtype)
     rows = []
     for name, spec in SHAPES.items():
-        (q, pk, pv, tb, tl), decode = case_inputs(name, spec, device)
+        (q, pk, pv, tb, tl), decode = case_inputs(name, spec, device,
+                                                  dtype)
         stacked = (ops.paged_micro_attention_ranks if decode
                    else ops.paged_prefill_attention_ranks)
         plain = (dec.paged_micro_attention_ranks_plain if decode
@@ -118,12 +140,37 @@ def main(argv=None) -> int:
                                "paged_prefill_attention_ranks_merged"), None)
         if merged is not None:
             fns["merged"] = lambda: merged(q, pk, pv, tb, tl)
-        row = {"tree": args.label, "case": name}
+        row = {"tree": args.label, "case": name, "dtype": args.dtype}
         for key, fn in fns.items():
             if key != "stacked":
                 row[f"{key}_max_abs_err"] = cs.compare(fn(), want, cs.TOL)
             row[f"{key}_ms"] = cs.time_ms(fn)
             row[f"{key}_graph_ms"] = cs.device_ms(fn)
+        if not decode:
+            # chip_smoke.rank_case's yardstick and bound.
+            NR, K, D = pk.shape[0], pk.shape[3], q.shape[-1]
+            kk, vv = (torch.cat(t) for t in zip(*(
+                gather_local_kv(pk[i], pv[i], tb[i][None])
+                for i in range(NR))))
+            kk = kk.transpose(1, 2).contiguous()
+            vv = vv.transpose(1, 2).contiguous()
+            qq = q.transpose(0, 1)[None].repeat(NR, 1, 1, 1).contiguous()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["library_ms"] = cs.time_ms(lambda: sdpa(qq, kk, vv,
+                                                        enable_gqa=True))
+            row["library_graph_ms"] = cs.device_ms(lambda: sdpa(
+                qq, kk, vv, enable_gqa=True))
+            S = sum(cs.valid_tokens(tb[i][None].cpu().numpy(),
+                                    tl[i][None].cpu().numpy(),
+                                    pk.shape[2]) for i in range(NR))
+            flops = 4 * S * q.shape[1] * D * q.shape[0]
+            nbytes = (2 * S * K * D * pk.element_size()
+                      + q.numel() * q.element_size() + tb.numel() * 4
+                      + tl.numel() * 4 + q.shape[0] * q.shape[1] * (D + 2)
+                      * 4)
+            cs.tensor_core_bound(row, dtype, nbytes / cs.HBM_BYTES_PER_S
+                                 * 1e3, flops)
+            del kk, vv, qq
         print(json.dumps(row), flush=True)
         rows.append(row)
         del q, pk, pv, want

@@ -35,6 +35,7 @@
 #include <cstdint>
 #include <cstring>
 #include <mutex>
+#include <unordered_map>
 
 namespace hopper {
 
@@ -71,65 +72,91 @@ inline EncodeTiledFn encode_tiled_fn() {
 // (elem_bytes 2) or float32 (4) whose boxes are {128 / elem_bytes, 1,
 // rows, 1}: 128 bytes of columns of one (d1) slice over `rows`
 // consecutive d2 indices, written to shared memory with the 128-byte
-// swizzle. Reads outside the tensor (past d0 or d2) fill zeros. Returns 0
-// or a CUDA error code.
+// swizzle. Reads outside the tensor (past d0 or d2) fill zeros. nr > 0
+// makes it a 5-D map over nr such tensors (ranks), rank_stride elements
+// apart (any stride that is a multiple of 16 bytes; 0: packed), boxes of
+// one rank, loaded with tma_load_5d. Returns 0 or a CUDA error code.
 inline int encode_rows_map(CUtensorMap* map, const void* base, uint64_t d0,
                            uint64_t d1, uint64_t d2, uint64_t d3,
-                           uint32_t rows, uint32_t elem_bytes = 2) {
+                           uint32_t rows, uint32_t elem_bytes = 2,
+                           uint64_t nr = 0, uint64_t rank_stride = 0) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (elem_bytes != 2 && elem_bytes != 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint64_t dims[4] = {d0, d1, d2, d3};
-  const cuuint64_t strides[3] = {d0 * elem_bytes, d0 * d1 * elem_bytes,
-                                 d0 * d1 * d2 * elem_bytes};
-  const cuuint32_t box[4] = {128 / elem_bytes, 1, rows, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const uint64_t slab = d0 * d1 * d2 * d3 * elem_bytes;
+  const cuuint64_t dims[5] = {d0, d1, d2, d3, nr};
+  const cuuint64_t strides[4] = {
+      d0 * elem_bytes, d0 * d1 * elem_bytes, d0 * d1 * d2 * elem_bytes,
+      rank_stride ? rank_stride * elem_bytes : slab};
+  const cuuint32_t box[5] = {128 / elem_bytes, 1, rows, 1, 1};
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map,
       elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      4, const_cast<void*>(base), dims, strides, box, one,
+      nr ? 5 : 4, const_cast<void*>(base), dims, strides, box, one,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// encode_rows_map through a cache of the last MAP_CACHE maps, keyed on
-// every argument: the paged kernels' pools never move, so a served step
-// pays no encode (a few microseconds of host time a map) after its first.
-// Safe to call from several host threads.
-constexpr int MAP_CACHE = 64;
+// encode_rows_map through a cache of up to MAP_CACHE maps, keyed on every
+// argument (the rank count and stride too: two views of one base with
+// other strides are other maps), emptied when full: the paged kernels'
+// pools never move, so a served step pays no encode (a few microseconds
+// of host time a map) after its first. A served global step asks for two
+// maps a layer's view of the pool (28 x 2 for qwen3), a per-instance step
+// as many for each instance. map_encodes() counts the encodes. Safe to
+// call from several host threads.
+constexpr int MAP_CACHE = 1024;
+
+struct MapKey {
+  const void* base;
+  uint64_t d[4], nr, rank_stride;
+  uint32_t rows, elem_bytes;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && rows == o.rows && elem_bytes == o.elem_bytes &&
+           nr == o.nr && rank_stride == o.rank_stride &&
+           std::memcmp(d, o.d, sizeof(d)) == 0;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    uint64_t h = reinterpret_cast<uintptr_t>(k.base);
+    const uint64_t v[8] = {k.d[0], k.d[1], k.d[2], k.d[3], k.nr,
+                           k.rank_stride, k.rows, k.elem_bytes};
+    for (uint64_t x : v) h = (h ^ x) * 0x100000001b3ull;
+    return static_cast<size_t>(h ^ (h >> 29));
+  }
+};
+
+inline unsigned long long& map_encodes() {
+  static unsigned long long n = 0;
+  return n;
+}
 
 inline int cached_rows_map(CUtensorMap* map, const void* base, uint64_t d0,
                            uint64_t d1, uint64_t d2, uint64_t d3,
-                           uint32_t rows, uint32_t elem_bytes = 2) {
-  struct Entry {
-    const void* base;
-    uint64_t d[4];
-    uint32_t rows, elem_bytes;
-    CUtensorMap map;
-  };
-  static Entry cache[MAP_CACHE];
-  static int filled = 0, next = 0;
+                           uint32_t rows, uint32_t elem_bytes = 2,
+                           uint64_t nr = 0, uint64_t rank_stride = 0) {
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
   static std::mutex mu;
-  const Entry key{base, {d0, d1, d2, d3}, rows, elem_bytes, {}};
+  const MapKey key{base, {d0, d1, d2, d3}, nr, rank_stride, rows,
+                   elem_bytes};
   std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < filled; ++i) {
-    const Entry& e = cache[i];
-    if (e.base == key.base && e.rows == key.rows &&
-        e.elem_bytes == key.elem_bytes &&
-        std::memcmp(e.d, key.d, sizeof(key.d)) == 0) {
-      *map = e.map;
-      return 0;
-    }
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return 0;
   }
-  if (int err = encode_rows_map(map, base, d0, d1, d2, d3, rows, elem_bytes))
+  if (int err = encode_rows_map(map, base, d0, d1, d2, d3, rows, elem_bytes,
+                                nr, rank_stride))
     return err;
-  cache[next] = key;
-  cache[next].map = *map;
-  next = (next + 1) % MAP_CACHE;
-  if (filled < MAP_CACHE) ++filled;
+  ++map_encodes();
+  if (cache.size() >= MAP_CACHE) cache.clear();
+  cache.emplace(key, *map);
   return 0;
 }
 
@@ -245,6 +272,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// One box of a 5-D tensor map at coordinates {c0, .., c4}.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
       : "memory");
 }
 

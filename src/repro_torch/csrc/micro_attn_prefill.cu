@@ -3,49 +3,64 @@
 // Replaces the Pallas TPU kernel repro/kernels/micro_attn_prefill.py::
 // paged_prefill_micro_attention_kernel (body _kernel), and its vmap over
 // the rank axis (repro/kernels/ops.py::paged_prefill_attention_ranks). A
-// chunk of C query rows [C, H, D] attends over one rank's paged pool
-// [NB, bs, K, D] through ONE shared -1-padded prefix table [MB]. There is
-// no causal mask: every addressed token precedes every chunk query. Only
-// the last valid slot is partial (tail_len tokens). Output: unnormalized
-// o [C, H, D] and m, l [C, H], float32; an empty table gives (0, -inf, 0).
+// chunk of C query rows [C, H, D] attends over NR rank pools [NB, bs, K,
+// D] (slabs rank_stride elements apart: a per-layer view of the global
+// pool, read in place; NR = 1 for the single-rank form), each through its
+// own -1-padded prefix table [MB] shared by every query of the chunk. There
+// is no causal mask: every addressed token precedes every chunk query.
+// Only a table's last valid slot is partial (its tail tokens). Output:
+// unnormalized o and m, l, float32, one partial a rank [NR, C, H, ...]
+// (stacked) or one over every rank [C, H, ...] (merged, what the global
+// pool's steps take); a row with no valid token gives (0, -inf, 0).
 //
 // Bound on the H100: the larger of the FLOPs, 4 * C * S * H * D against
 // 989 TFLOP/s (bf16 tensor cores) or 165 TFLOP/s (float32 as 3xTF32 on
 // the tf32 tensor cores; 67 on the CUDA cores), and the
-// bytes, S * K * D * 2 * itemsize against 3.35 TB/s. At the qwen3 path's
+// bytes, S * K * D * 2 * itemsize against 3.35 TB/s (S: the valid tokens
+// of every rank). At the qwen3 path's
 // main shape (C=512, H=16, K=8, D=128, S~3,000, bf16) that is 12.6 GFLOP
 // against 12 MB of K/V: 0.0127 ms, bound by operations. Only the tensor
 // cores approach it, and only through wgmma at their full rate. The
 // precision contract below runs P V twice (hi and lo), so the products
 // executed are 1.5 times the bound's (0.019 ms there).
 //
+// One kernel a dtype serves both forms: the single-rank one is the rank
+// form at NR = 1, rank stride 0, merged.
+//
 // bf16 pools: paged_prefill_wgmma_kernel, built for Hopper.
 // - Rows: GQA packing as the Pallas kernel, the C*G rows (query, head of
 //   the kv head's group) kv-head-major, so a tile of 128 rows shares one
 //   kv head and each K/V tile is staged once for all G heads.
 // - Work: persistent blocks, at most one an SM, take equal shares of
-//   units (one row tile of one kv head crossed with one tile of the valid
-//   prefix: 128 tokens, 64 at D 256), planned on the card from the table
-//   (paged_attn.cuh's plan_units at NR = 1, no host read); a block
-//   stores one partial a run of one row tile's units, and the last
-//   partial of a row tile to arrive LSE-merges them (merge_parts, a
-//   ticket counter a row tile). One launch a
-//   call; no split planned from shapes. The wrapper launches a multiple
-//   or a divisor of the row tiles in blocks (128 at the main shape: two
-//   a row tile), so that a block's share starts and ends on a row tile's
-//   boundary.
+//   units (one row tile of one kv head crossed with one tile of one
+//   rank's valid prefix: 128 tokens, 64 at D 256), planned on the card
+//   from the tables (paged_attn.cuh's plan_units, no host read). A merge
+//   group is a row tile of a kv head (of one rank, when stacked); its
+//   units are its ranks' tiles, rank by rank. The producer warp walks them
+//   (paged_attn::UnitWalk) and writes each ring stage's valid tokens to
+//   shared memory before the stage's loads, so the consumers (and the
+//   float32 splitters) keep no walk and no more registers than a
+//   single-rank kernel would. A block stores one partial a
+//   run of one group's units, and the last partial of a group to arrive
+//   LSE-merges them (merge_parts, a ticket counter a group): the rank
+//   merge happens there too. One launch a call; no split planned from
+//   shapes. The wrapper launches a multiple or a divisor of the groups in
+//   blocks (128 at the main shape: two a row tile), so that a block's
+//   share starts and ends on a group's boundary where groups hold equal
+//   work.
 // - Warp specialisation: warpgroup 0 is the producer (setmaxnreg down to
 //   40 registers; its first warp issues the loads), warpgroups 1 and 2
 //   the consumers (232 registers), 64 rows each.
-// - Loads: TMA over 4-D tensor maps of the pools [NB][bs][K][D]
-//   (hopper.cuh, encoded once a pool: cached_rows_map), one box a table
-//   block's share of a tile: 64 columns of one kv head by gcd(bs, tile)
-//   tokens (16 at bs 16; a 128-token block is one box; 8 at bs 24),
-//   128-byte swizzle, lane b of the producer warp issuing box b. Only the
-//   valid tokens' boxes load. The ring holds 4 (D <= 64) or 3 (D <= 128)
-//   tiles of 128 tokens, or 2 of 64 (D <= 256), of K and V, with mbarrier
-//   full (TMA bytes) and empty (256 consumers) stages. TMA's zero fill
-//   past D replaces padding code.
+// - Loads: TMA over 5-D tensor maps of the rank pools [NR][NB][bs][K][D]
+//   (hopper.cuh, any rank stride, encoded once a view: cached_rows_map),
+//   one box a table block's share of a tile: 64 columns of one kv head by
+//   gcd(bs, tile) tokens (16 at bs 16; a 128-token block is one box; 8
+//   at bs 24) of one rank, 128-byte swizzle, lane b of the producer warp
+//   resolving box b's (block, offset) from its rank's table row and
+//   issuing it. Only the valid tokens' boxes load. The ring holds 4 (D <=
+//   64) or 3 (D <= 128) tiles of 128 tokens, or 2 of 64 (D <= 256), of K
+//   and V, with mbarrier full (TMA bytes) and empty (256 consumers)
+//   stages. TMA's zero fill past D replaces padding code.
 // - A consumer's q rows are (query, head) pairs, not a box of q: it
 //   stages them once a run of units by 16-byte loads into the swizzled
 //   layout (zero past the chunk and past D).
@@ -55,11 +70,11 @@
 //   bf16 hi + lo straight into the register-A fragments of O += P_hi V +
 //   P_lo V (V read transposed, MN-major). Software-pipelined: tile t's S
 //   is issued before tile t - 1's P V.
-// - Masking: in the last tile of a run, tokens past the valid ones score
-//   -inf by a select, and their V rows (stale rows of the last block, or
-//   never loaded) are zeroed in shared memory (generic stores, then
-//   fence.proxy.async) before the P V that reads them: 0 * NaN is NaN
-//   inside wgmma.
+// - Masking: in a tile that ends a rank's prefix, tokens past the valid
+//   ones score -inf by a select, and their V rows (stale rows of the last
+//   block, or never loaded) are zeroed in shared memory (generic stores,
+//   then fence.proxy.async) before the P V that reads them: 0 * NaN is
+//   NaN inside wgmma.
 // - ptxas serializes wgmmas in a loop it takes for divergent: the loop
 //   bounds read from the plan are broadcast from lane 0
 //   (paged_attn::uniform), the first tile is peeled off, every k16 step
@@ -86,81 +101,15 @@
 // (TMA boxes of one table block's share of a tile, gcd(bs, tile) tokens:
 // bs must be a multiple of 8, as for bf16, since a box starts on an
 // 8-row swizzle atom of 128-byte rows: 32 float32 columns). Rows past a
-// tail score -inf by a select, and the V^T columns of keys past the
-// tile's valid ones are written as zeros, both halves (0 x NaN is NaN in
+// rank's tail score -inf by a select, and the V^T columns of keys past
+// the tile's valid ones are written as zeros, both halves (0 x NaN is NaN in
 // wgmma). Merge groups: 128 rows up to D 128, 64 above (one consumer).
-//
-// The rank kernels (paged_prefill_ranks_mma_kernel and, float32,
-// paged_prefill_ranks_f32_kernel, below) replace the JAX package's vmap
-// of that kernel over the global pool's rank axis: one launch covers NR
-// rank pools, [NB, bs, K, D] slabs rank_stride elements apart (a
-// per-layer view of the global pool, read in place); q [C, H, D] is
-// shared by every rank, tables [NR, MB], tails [NR]. Outputs: stacked,
-// one partial a rank [NR, C, ...], or merged over the ranks in the launch
-// [C, ...] (what the global pool's steps take). Their design (PR 24's):
-// persistent blocks (as many as the card holds at once) take equal shares
-// of every group's 64-token tiles of valid prefix, found from the tables
-// on the card; a block loads its q tile once a run of one group's tiles
-// and walks them across ranks, the pool rows resolved two tiles ahead
-// from the tables (128-token blocks read in place); the last partial of a
-// group to arrive LSE-merges them. Their tile step: bf16 on mma.sync with
-// the hi + lo contract, float32 on the CUDA cores.
 #include "hopper.cuh"
 #include "paged_attn.cuh"
 
 namespace {
 
-using paged_attn::cp_async16;
-using paged_attn::cp_async_commit;
-using paged_attn::cp_async_wait;
-using paged_attn::row_stride;
 using paged_attn::smem_addr;
-
-// ---------------------------------------------------------------------
-// The float32 rank kernel's CUDA-core tile (paged_prefill_ranks_f32_kernel).
-// ---------------------------------------------------------------------
-
-constexpr int TR = 64;        // query rows per thread block
-constexpr int TK = 64;        // KV tokens per tile
-constexpr int THREADS = 256;  // a 16 x 16 thread grid
-constexpr int TRP = TR + 4;   // padded strides (bank spread, 16-byte rows)
-constexpr int TKP = TK + 4;
-
-// Dynamic shared memory (bytes) for head dim D and DPT columns a thread.
-inline size_t smem_bytes(int D, int DPT) {
-  return sizeof(float) * (static_cast<size_t>(D) * TRP     // q, [D][TRP]
-                          + static_cast<size_t>(D) * TKP   // k, [D][TKP]
-                          + static_cast<size_t>(TK) * 16 * DPT  // v
-                          + static_cast<size_t>(TR) * TKP);  // p, [TR][TKP]
-}
-
-// VEC consecutive elements at p as float32 (16-byte aligned).
-__device__ __forceinline__ void load_vec(const float* p, float* x) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);  // elements per 16-byte load
-};
-
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // Output row (query, head) of local row i of kv head kh's rows from row0.
 __device__ __forceinline__ int head_row(int row0, int i, int G, int H,
@@ -169,10 +118,6 @@ __device__ __forceinline__ int head_row(int row0, int i, int G, int H,
   return (gr / G) * H + kh * G + gr % G;
 }
 
-// ---------------------------------------------------------------------
-// Shared by the units kernels (the bf16 single-rank kernel, the rank
-// kernels).
-// ---------------------------------------------------------------------
 // The groups of merge row rho with no valid token: (0, -inf, 0), block
 // g % B writing group g. HG = K * row tiles, BM rows a tile.
 __device__ __forceinline__ void write_empty_groups(
@@ -214,8 +159,13 @@ constexpr int MERGE_BAR = 1;                // the consumers' barrier;
 // STAGES K tiles, then STAGES V tiles of TILE tokens, each as DMAX / 64
 // boxes of 64 columns (128-byte swizzle); the merge's row weights (in the
 // q rows, which are free while a run's partials merge, where they fit);
-// the plan (S[1], cum[2]); the barriers. 1,024 bytes of slack align the
-// tiles.
+// the barriers; each stage's valid tokens (NV_BYTES); the plan (S[NR],
+// cum[P + 1]: plan_bytes). 1,024 bytes of slack align the tiles.
+__host__ __device__ constexpr int plan_bytes(int NR, int P) {
+  return (4 * (NR + P + 1) + 15) & ~15;
+}
+constexpr int NV_BYTES = 16;  // an int a stage, up to 4 stages
+
 template <int DMAX, int TILE, int STAGES_>
 struct PfLayout {
   static constexpr int BOXES = DMAX / 64;
@@ -228,18 +178,21 @@ struct PfLayout {
   static constexpr bool MERGE_IN_Q = 2 * Q_BYTES >= MERGE_BYTES;
   static constexpr int MERGE_OFF =
       MERGE_IN_Q ? 0 : V_OFF + STAGES_ * TILE_BYTES;
-  static constexpr int PLAN_OFF =
+  static constexpr int BAR_OFF =
       V_OFF + STAGES_ * TILE_BYTES + (MERGE_IN_Q ? 0 : MERGE_BYTES);
-  static constexpr int BAR_OFF = PLAN_OFF + 16;
   // K full, V full and K/V empty a stage.
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * 3 * STAGES_;
+  static constexpr int NV_OFF = BAR_OFF + 8 * 3 * STAGES_;
+  static constexpr int PLAN_OFF = NV_OFF + NV_BYTES;
+  static constexpr int smem(int NR, int P) {
+    return 1024 + PLAN_OFF + plan_bytes(NR, P);
+  }
 };
 
 // One block an SM (384 threads): warpgroup 0's first warp is the
 // producer, whose lane b issues box b of each tile; warpgroups 1 and 2
-// are consumers of 64 query rows each (see the header). The maps read
-// the pools in boxes of 64 columns of one kv head by box_rows tokens of
-// one table block.
+// are consumers of 64 query rows each (see the header). The 5-D maps read
+// the NR rank pools in boxes of 64 columns of one kv head by box_rows
+// tokens of one table block of one rank.
 template <int DMAX, int TILE, int STAGES_>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -251,9 +204,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                                float* __restrict__ m_out,
                                float* __restrict__ l_out,
                                float* __restrict__ ws,
-                               unsigned* __restrict__ tickets, int C, int H,
-                               int K, int D, int bs, int MB, int box_rows,
-                               float scale) {
+                               unsigned* __restrict__ tickets, int NR, int C,
+                               int H, int K, int D, int bs, int MB,
+                               int stacked, int box_rows, float scale) {
   using L = PfLayout<DMAX, TILE, STAGES_>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -264,6 +217,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const uint32_t v_s = base + L::V_OFF;
   float* merge_sm = reinterpret_cast<float*>(gbase + L::MERGE_OFF);
   int* plan_s = reinterpret_cast<int*>(gbase + L::PLAN_OFF);
+  // The valid tokens of the tile in each stage, written by the producer
+  // before the stage's loads (its arrive releases them to the consumers'
+  // wait on the stage): the consumers keep no walk of their own.
+  int* nv_s = reinterpret_cast<int*>(gbase + L::NV_OFF);
   const uint32_t k_full = base + L::BAR_OFF;          // + 8 * stage
   const uint32_t v_full = k_full + 8 * STAGES_;       // + 8 * stage
   const uint32_t kv_empty = v_full + 8 * STAGES_;     // + 8 * stage
@@ -295,14 +252,14 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const int nrt = (CG + ROW_TILE - 1) / ROW_TILE;  // row tiles a kv head
   // plan_units' first __syncthreads also publishes the barriers and the
   // zeroed boxes.
-  const paged_attn::UnitPlan pl = paged_attn::plan_units(
-      table, tail, 1, 1, MB, bs, TILE, K * nrt, false, plan_s, plan_s + 1);
+  const paged_attn::UnitPlan pl =
+      paged_attn::plan_units(table, tail, NR, 1, MB, bs, TILE, K * nrt,
+                             stacked != 0, plan_s, plan_s + NR);
   write_empty_groups(pl, CG, ROW_TILE, G, H, C, D, o, m_out, l_out);
   long long p, p1;
   pl.block_units(blockIdx.x, p, p1);
   p = paged_attn::uniform(p);
   p1 = paged_attn::uniform(p1);
-  const int S = pl.S[0];
   // The warpgroup index, broadcast so that the compiler knows it is
   // uniform: wgmma in a path it takes for divergent is serialized.
   const int wg_idx =
@@ -323,21 +280,22 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       while (p < p1) {
         const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
         const int kh = sg.h / nrt;
-        const int hi = min(sg.q1 * TILE, S);
-        for (int t0 = sg.q0 * TILE; t0 < hi; t0 += TILE) {
-          // Boxes of the tile's valid tokens; a -1 slot (past them) has
-          // none.
-          const int nb = (min(TILE, hi - t0) + box_rows - 1) / box_rows;
+        paged_attn::UnitWalk w(pl, sg);
+        for (int u = sg.q0; u < sg.q1; ++u, w.next()) {
+          // Boxes of the tile's valid tokens in its rank's pool; a -1 slot
+          // (past them) has none.
+          const int nb = (w.valid() + box_rows - 1) / box_rows;
           int blk = 0, off = 0;
           if (lane < nb) {
-            const int t = t0 + lane * box_rows;
+            const int t = w.t + lane * box_rows;
             const int slot = t / bs;
-            blk = table[slot];
+            blk = table[static_cast<size_t>(w.k) * MB + slot];
             off = t - slot * bs;
           }
           hopper::mbar_wait(kv_empty + 8 * stage, phase ^ 1);
           const uint32_t kf = k_full + 8 * stage, vf = v_full + 8 * stage;
           if (lane == 0) {
+            nv_s[stage] = w.valid();
             hopper::mbar_expect_tx(kf, nb * box_bytes * ncb);
             hopper::mbar_expect_tx(vf, nb * box_bytes * ncb);
           }
@@ -345,10 +303,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           if (lane < nb) {
             const uint32_t at = stage * L::TILE_BYTES + lane * box_bytes;
             for (int c = 0; c < ncb; ++c) {
-              hopper::tma_load_4d(k_s + at + c * TILE * 128, &tm_k, kf,
-                                  c * 64, kh, off, blk);
-              hopper::tma_load_4d(v_s + at + c * TILE * 128, &tm_v, vf,
-                                  c * 64, kh, off, blk);
+              hopper::tma_load_5d(k_s + at + c * TILE * 128, &tm_k, kf,
+                                  c * 64, kh, off, blk, w.k);
+              hopper::tma_load_5d(v_s + at + c * TILE * 128, &tm_v, vf,
+                                  c * 64, kh, off, blk, w.k);
             }
           }
           if (++stage == STAGES_) {
@@ -392,9 +350,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       const int kh = sg.h / nrt;
       const int row0 = (sg.h - kh * nrt) * ROW_TILE;
       const int nrows = min(ROW_TILE, CG - row0);
-      const int lo = paged_attn::uniform(sg.q0 * TILE);
-      const int hi = paged_attn::uniform(min(sg.q1 * TILE, S));
-      const int ntiles = (hi - lo + TILE - 1) / TILE;
+      const size_t obase = static_cast<size_t>(sg.rho) * C * H;
+      const int ntiles = paged_attn::uniform(sg.q1 - sg.q0);
       const int wrow0 = wg * WG_ROWS;  // the warpgroup's first local row
       const int active = paged_attn::uniform(wrow0 < nrows ? 1 : 0);
       float oacc[1][NT][4];
@@ -439,12 +396,16 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         float sacc[1][NJ][4];  // written by each tile's first k16 step
         uint32_t ph[KV][4], pl_[KV][4];
         float alpha[1][2];
-        // S of tile t, its tokens past the valid ones masked to -inf by a
-        // select, turned into float32 probabilities in place; returns
+        // The valid tokens of the tile in `stage` (every tile that ends a
+        // rank's span may be partial), after the wait on its K.
+        auto valid_of = [&](int slot) {
+          return paged_attn::uniform(nv_s[slot]);
+        };
+        // S of a tile of nv valid tokens, those past them masked to -inf
+        // by a select, turned into float32 probabilities in place; returns
         // whether a row of the warp moved its max.
-        auto softmax_step = [&](int t) {
+        auto softmax_step = [&](int nv) {
           hopper::fence_regs(sacc[0]);
-          const int nv = hi - lo - t * TILE;
           if (nv < TILE) {
 #pragma unroll
             for (int j = 0; j < NJ; ++j)
@@ -464,20 +425,40 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           hopper::fence_regs(pl_);
           hopper::fence_regs(oacc[0]);
         };
+        // A tile's V rows past its nv valid tokens (stale rows of a
+        // rank's last block, or never loaded) are zeroed before P V reads
+        // them: their p is 0, but 0 * NaN is NaN inside wgmma.
+        auto zero_v_tail = [&](int slot, int nv) {
+          if (nv < TILE) {
+            unsigned char* vt = gbase + L::V_OFF + slot * L::TILE_BYTES;
+            const int n16 = (TILE - nv) * 8;  // 16-byte chunks a box
+            for (int idx = tid; idx < n16 * L::BOXES; idx += WG_THREADS) {
+              const int b = idx / n16, j = idx - b * n16;
+              *reinterpret_cast<uint4*>(vt + b * TILE * 128 + nv * 128 +
+                                        j * 16) = make_uint4(0u, 0u, 0u, 0u);
+            }
+            hopper::fence_proxy_async();
+            hopper::named_bar_sync(2 + wg, WG_THREADS);
+          }
+        };
         hopper::mbar_wait(k_full + 8 * stage, phase);
+        int nv = valid_of(stage);
         hopper::wgmma_fence();
         hopper::issue_qk<DMAX, TILE, WG_ROWS>(sacc[0], q_desc,
                                              k_desc + stage * SLOT);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
-        softmax_step(0);  // the output is still 0: no rescale
+        softmax_step(nv);  // the output is still 0: no rescale
         stage_probs();
         int p_stage = stage;  // slot of the tile whose P V is pending
         uint32_t p_phase = phase;
+        int p_nv = nv;
         advance();
         for (int t = 1; t < ntiles; ++t) {
           hopper::mbar_wait(k_full + 8 * stage, phase);
+          nv = valid_of(stage);
           hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
+          zero_v_tail(p_stage, p_nv);
           hopper::wgmma_fence();
           hopper::issue_qk<DMAX, TILE, WG_ROWS>(sacc[0], q_desc,
                                                k_desc + stage * SLOT);
@@ -486,7 +467,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                                        v_desc + p_stage * SLOT);
           hopper::wgmma_commit();
           hopper::wgmma_wait<1>();
-          const bool moved = softmax_step(t);
+          const bool moved = softmax_step(nv);
           hopper::wgmma_wait<0>();
           hopper::fence_regs(oacc[0]);
           hopper::mbar_arrive(kv_empty + 8 * p_stage);
@@ -494,24 +475,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           stage_probs();
           p_stage = stage;
           p_phase = phase;
+          p_nv = nv;
           advance();
         }
         hopper::mbar_wait(v_full + 8 * p_stage, p_phase);
-        // The last tile's V rows past the valid tokens (stale rows of the
-        // last block, or never loaded) are zeroed before P V reads them:
-        // their p is 0, but 0 * NaN is NaN inside wgmma.
-        const int nv_last = (hi - lo) - (ntiles - 1) * TILE;
-        if (nv_last < TILE) {
-          unsigned char* vt = gbase + L::V_OFF + p_stage * L::TILE_BYTES;
-          const int n16 = (TILE - nv_last) * 8;  // 16-byte chunks a box
-          for (int idx = tid; idx < n16 * L::BOXES; idx += WG_THREADS) {
-            const int b = idx / n16, j = idx - b * n16;
-            *reinterpret_cast<uint4*>(vt + b * TILE * 128 + nv_last * 128 +
-                                      j * 16) = make_uint4(0u, 0u, 0u, 0u);
-          }
-          hopper::fence_proxy_async();
-          hopper::named_bar_sync(2 + wg, WG_THREADS);
-        }
+        zero_v_tail(p_stage, p_nv);
         hopper::wgmma_fence();
         hopper::issue_pv<DMAX, TILE>(oacc[0], ph, pl_,
                                      v_desc + p_stage * SLOT);
@@ -543,7 +511,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
             pm = po + D;
             pls = po + D + 1;
           } else {
-            const size_t row = head_row(row0, r, G, H, kh);
+            const size_t row = obase + head_row(row0, r, G, H, kh);
             po = o + row * D;
             pm = m_out + row;
             pls = l_out + row;
@@ -565,519 +533,73 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           paged_attn::last_split_arrives(tickets + sg.g, parts, consumers))
         paged_attn::merge_parts(
             ws, ROW_TILE * W, pfirst + sg.g, parts, nrows, D,
-            [&](int i) { return head_row(row0, i, G, H, kh); }, o, m_out,
-            l_out, merge_sm, consumers);
+            [&](int i) {
+              return static_cast<int>(obase) + head_row(row0, i, G, H, kh);
+            },
+            o, m_out, l_out, merge_sm, consumers);
       p = paged_attn::uniform(min(p1, sg.end));
     }
   }
 }
 
-// ---------------------------------------------------------------------
-// Rank forms: persistent blocks over units of valid tokens.
-// ---------------------------------------------------------------------
-// The merge groups of a rank prefill are (kv head, tile of query rows);
-// their units are 64-token tiles of each rank's prefix (paged_attn.cuh).
-// A block walks its segments: q tile once a segment, K/V tiles of any
-// rank of the group, the pool rows resolved from the tables two tiles
-// ahead (no table copy, so blocks of any size are read in place), one
-// partial a segment. The bf16
-// tile step is mma.sync (paged_attn.cuh), float32 a CUDA-core tile step
-// (the helpers above).
-constexpr int MW = 4;            // warps a block
-constexpr int BN = paged_attn::MMA_TOKENS;  // KV tokens a tile
-constexpr int STAGES = 2;        // cp.async ring depth of K/V tiles
-constexpr int ROW_RING = 3;      // tiles whose pool rows are resolved
-
-inline size_t rank_mma_smem_bytes(int D, int BM, int NR, int P) {
-  return static_cast<size_t>(BM + 2 * STAGES * BN) * row_stride(D) * 2 +
-         sizeof(int) * (ROW_RING * BN + 3 * ROW_RING + 4 * NR + P + 3);
-}
-
-template <int DMAX, int MT>
-__global__ void __launch_bounds__(MW * 32)
-    paged_prefill_ranks_mma_kernel(
-        const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ pool_k,
-        const __nv_bfloat16* __restrict__ pool_v,
-        const int* __restrict__ table, const int* __restrict__ tail,
-        float* __restrict__ o, float* __restrict__ m_out,
-        float* __restrict__ l_out, float* __restrict__ ws,
-        unsigned* __restrict__ tickets, int NR, int C, int H, int K, int D,
-        int bs, int MB, int stacked, long long rank_stride, float scale) {
-  constexpr int BM = 16 * MT * MW;  // query rows a block
-  constexpr int NT = DMAX / 8;
-  constexpr int KC = DMAX / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int DS = row_stride(D);
-  const int DP = DS - 8;
-  const int nrows_s = BM + 2 * STAGES * BN;
-  __nv_bfloat16* q_s = sm;                      // [BM][DS]
-  __nv_bfloat16* k_s = sm + BM * DS;            // [STAGES][BN][DS]
-  __nv_bfloat16* v_s = k_s + STAGES * BN * DS;  // [STAGES][BN][DS]
-  int* rows_s = reinterpret_cast<int*>(sm + nrows_s * DS);  // [RING][BN]
-  int* full_s = rows_s + ROW_RING * BN;         // [RING][2]
-  int* rank_s = full_s + 2 * ROW_RING;          // [RING]
-  int* S_s = rank_s + ROW_RING;                 // [NR]
-  int* cum_s = S_s + NR;                        // [P + 1]
-  int* span_s = cum_s + (stacked ? NR : 1) + 1;  // [NR][3]
-  int* info_s = span_s + 3 * NR;                // [2]
-
-  const int G = H / K;
-  const int CG = C * G;
-  const int nrt = (CG + BM - 1) / BM;  // row tiles a kv head
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nch = D / 8;
-  const size_t W = paged_attn::part_row(D);
-  const paged_attn::UnitPlan pl = paged_attn::plan_units(
-      table, tail, NR, 1, MB, bs, BN, K * nrt, stacked != 0, S_s, cum_s);
-  write_empty_groups(pl, CG, BM, G, H, C, D, o, m_out, l_out);
-  const size_t tok_stride = static_cast<size_t>(K) * D;
-  const int rpp = blockDim.x / nch;  // tokens a load pass
-  const int my_ch = tid % nch, my_tok = tid / nch;
-  const float c = scale * paged_attn::LOG2E;  // p = 2^((s - m) * c)
-  const int wrow = warp * 16 * MT;
-  const paged_attn::MmaLanes ln = paged_attn::mma_lanes(lane, wrow, DS);
-  const uint32_t q_base = smem_addr(q_s);
-
-  long long p, p1;
-  pl.block_units(blockIdx.x, p, p1);
-  while (p < p1) {
-    const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
-    const int kh = sg.h / nrt;
-    const int row0 = (sg.h - kh * nrt) * BM;
-    const int nrows = min(BM, CG - row0);
-    const size_t obase = static_cast<size_t>(sg.rho) * C * H;
-    __syncthreads();  // the previous segment is done with shared memory
-    // Zero the padded reduction columns [D, DP): cp.async never writes
-    // them, a merge may have.
-    if (DP > D) {
-      const int w = DP - D;
-      for (int idx = tid; idx < nrows_s * w; idx += blockDim.x)
-        sm[(idx / w) * DS + D + idx % w] = __float2bfloat16_rn(0.f);
-    }
-
-    // q rows of the tile (zero past nrows).
-    for (int idx = tid; idx < BM * nch; idx += blockDim.x) {
-      const int r = idx / nch, ch = idx - r * nch;
-      const __nv_bfloat16* src = q;
-      int bytes = 0;
-      if (r < nrows) {
-        src = q + static_cast<size_t>(head_row(row0, r, G, H, kh)) * D +
-              ch * 8;
-        bytes = 16;
-      }
-      cp_async16(smem_addr(q_s + r * DS + ch * 8), src, bytes);
-    }
-
-    // Pool rows (block * bs + offset in the tile's rank slab) of tile j,
-    // or -1 past the valid tokens: one thread a token (warps 0, 1), and
-    // whether every token of the tile is valid.
-    paged_attn::segment_spans<BN>(pl, sg, span_s, info_s);
-    const int ntiles = info_s[1];
-    paged_attn::TileWalk<BN> walk;
-    walk.start(span_s, info_s[0]);
-    auto resolve = [&](int j) {
-      if (tid < BN) {
-        const int t = walk.t + tid;
-        int row = -1;
-        if (walk.valid() && t < walk.t_end()) {
-          const int blk =
-              table[static_cast<size_t>(walk.k()) * MB + t / bs];
-          if (blk >= 0) row = blk * bs + t % bs;
-        }
-        rows_s[(j % ROW_RING) * BN + tid] = row;
-        const bool all = __all_sync(0xffffffffu, row >= 0);
-        if (lane == 0) full_s[(j % ROW_RING) * 2 + warp] = all;
-        if (tid == 0) rank_s[j % ROW_RING] = walk.valid() ? walk.k() : 0;
-      }
-      walk.next();
-    };
-    auto load_tile = [&](int it) {
-      if (my_tok >= rpp) return;
-      const int st = it % STAGES;
-      const int* rows = rows_s + (it % ROW_RING) * BN;
-      const long long pool_off = rank_s[it % ROW_RING] * rank_stride;
-      const uint32_t kd = smem_addr(k_s + st * BN * DS + my_ch * 8);
-      const uint32_t vd = smem_addr(v_s + st * BN * DS + my_ch * 8);
-      const size_t col = static_cast<size_t>(kh) * D + my_ch * 8;
-      for (int tok = my_tok; tok < BN; tok += rpp) {
-        const int row = rows[tok];
-        const size_t off = row >= 0 ? row * tok_stride + col : 0;
-        const int bytes = row >= 0 ? 16 : 0;
-        cp_async16(kd + 2 * tok * DS, pool_k + pool_off + off, bytes);
-        cp_async16(vd + 2 * tok * DS, pool_v + pool_off + off, bytes);
-      }
-    };
-    resolve(0);
-    resolve(1);
-    __syncthreads();
-    if (ntiles > 0) load_tile(0);
-    cp_async_commit();  // group 0: q and the first tile
-
-    float oacc[MT][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        oacc[mt][j][0] = oacc[mt][j][1] = oacc[mt][j][2] = oacc[mt][j][3] =
-            0.f;
-    float m_r[MT][2], l_r[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      m_r[mt][0] = m_r[mt][1] = -CUDART_INF_F;
-      l_r[mt][0] = l_r[mt][1] = 0.f;
-    }
-    for (int it = 0; it < ntiles; ++it) {
-      const int st = it % STAGES;
-      if (it + 1 < ntiles) {
-        load_tile(it + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      if (it + 2 < ntiles) resolve(it + 2);
-      __syncthreads();
-      const uint32_t k_base = smem_addr(k_s + st * BN * DS);
-      const uint32_t v_base = smem_addr(v_s + st * BN * DS);
-      const int* rows = rows_s + (it % ROW_RING) * BN;
-      const bool full = full_s[(it % ROW_RING) * 2] &&
-                        full_s[(it % ROW_RING) * 2 + 1];
-      float sacc[MT][8][4];
-      paged_attn::qk_tile<MT, KC>(sacc, q_base, k_base, ln, DS, D);
-      if (!full) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int tk = j * 8 + (lane & 3) * 2;
-          const bool ok0 = rows[tk] >= 0, ok1 = rows[tk + 1] >= 0;
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            if (!ok0) sacc[mt][j][0] = sacc[mt][j][2] = -CUDART_INF_F;
-            if (!ok1) sacc[mt][j][1] = sacc[mt][j][3] = -CUDART_INF_F;
-          }
-        }
-      }
-      paged_attn::softmax_tile<MT, NT>(sacc, oacc, m_r, l_r, c);
-      paged_attn::pv_tile<MT, NT>(oacc, sacc, v_base, ln, DS, D);
-      __syncthreads();  // every warp is done with slot st before its reload
-    }
-    cp_async_wait<0>();
-
-    // The segment's partial: to the outputs (the group's only partial) or
-    // to the block's scratch slot b + g ([slot][BM][part_row(D)], by local
-    // row).
-    const int pfirst = pl.block_of(sg.first);
-    const int parts = pl.block_of(sg.end - 1) - pfirst + 1;
-    float* slot = ws + (static_cast<size_t>(blockIdx.x) + sg.g) * BM * W;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float lr = l_r[mt][h];
-        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-        const int r = wrow + mt * 16 + (lane >> 2) + h * 8;
-        if (r >= nrows) continue;
-        float *po, *pm, *pls;
-        if (parts > 1) {
-          po = slot + r * W;
-          pm = po + D;
-          pls = po + D + 1;
-        } else {
-          const size_t row = obase + head_row(row0, r, G, H, kh);
-          po = o + row * D;
-          pm = m_out + row;
-          pls = l_out + row;
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = j * 8 + (lane & 3) * 2;
-          if (col < D)
-            *reinterpret_cast<float2*>(po + col) =
-                make_float2(oacc[mt][j][2 * h], oacc[mt][j][2 * h + 1]);
-        }
-        if ((lane & 3) == 0) {
-          *pm = m_r[mt][h] * scale;  // m of the scaled scores
-          *pls = lr;
-        }
-      }
-    }
-    if (parts > 1 && paged_attn::last_split_arrives(tickets + sg.g, parts))
-      paged_attn::merge_parts(
-          ws, BM * W, pfirst + sg.g, parts, nrows, D,
-          [&](int i) {
-            return static_cast<int>(obase) + head_row(row0, i, G, H, kh);
-          },
-          o, m_out, l_out, reinterpret_cast<float*>(smem_raw));
-    p = min(p1, sg.end);
+// The C entries' arguments: pointers, shapes (NR rank pools of NB blocks
+// of bs tokens, rank_stride elements apart), the output form and the
+// caller's plan.
+struct PrefillArgs {
+  const void *q, *pk, *pv, *table, *tail;
+  void *o, *m, *l, *ws, *tickets;
+  int NR, C, H, K, D, bs, MB, NB;
+  long long rank_stride;
+  int stacked, blocks, rows, kv_tile, stages, smem_bytes, n_tickets;
+  float scale;
+  cudaStream_t stream;
+  int P() const { return stacked ? NR : 1; }
+  // Whether the plan holds for an instantiation of RT-row merge groups,
+  // TILE-token units, `stages` stages and `smem` bytes of shared memory:
+  // persistent blocks, a ticket counter per group (P x K x row tiles) and
+  // blocks of a multiple of 8 tokens (so that every box starts on a
+  // 1,024-byte swizzle atom).
+  bool plan_is(int RT, int TILE, int STG, int smem) const {
+    const long groups = static_cast<long>(P()) * K *
+                        ((C * (H / K) + RT - 1) / RT);
+    return NR >= 1 && rows == RT && kv_tile == TILE && stages == STG &&
+           smem_bytes == smem && blocks >= 1 && groups <= n_tickets &&
+           bs % 8 == 0;
   }
-}
-
-inline size_t rank_f32_smem_bytes(int D, int DPT, int NR, int P) {
-  return smem_bytes(D, DPT) + sizeof(int) * (4 * NR + P + 3);
-}
-
-// float32 pools: a CUDA-core tile step (64 rows x 64 tokens, 4 x 4
-// register tiles a thread) over the segments of its block (tiles of TK
-// tokens, loaded synchronously).
-template <int DPT>
-__global__ void __launch_bounds__(THREADS)
-    paged_prefill_ranks_f32_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ pool_k,
-                                   const float* __restrict__ pool_v,
-                                   const int* __restrict__ table,
-                                   const int* __restrict__ tail,
-                                   float* __restrict__ o,
-                                   float* __restrict__ m_out,
-                                   float* __restrict__ l_out,
-                                   float* __restrict__ ws,
-                                   unsigned* __restrict__ tickets, int NR,
-                                   int C, int H, int K, int D, int bs,
-                                   int MB, int stacked,
-                                   long long rank_stride, float scale) {
-  constexpr int VEC = Vec<float>::N;
-  constexpr int DP = 16 * DPT;
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [D][TRP]   q, transposed
-  float* k_s = q_s + D * TRP;      // [D][TKP]   K tile, transposed
-  float* v_s = k_s + D * TKP;      // [TK][DP]   V tile
-  float* p_s = v_s + TK * DP;      // [TR][TKP]  probabilities
-  int* S_s = reinterpret_cast<int*>(p_s + TR * TKP);  // [NR]
-  int* cum_s = S_s + NR;                              // [P + 1]
-  int* span_s = cum_s + (stacked ? NR : 1) + 1;       // [NR][3]
-  int* info_s = span_s + 3 * NR;                      // [2]
-
-  const int G = H / K;
-  const int CG = C * G;
-  const int nrt = (CG + TR - 1) / TR;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t W = paged_attn::part_row(D);
-  const paged_attn::UnitPlan pl = paged_attn::plan_units(
-      table, tail, NR, 1, MB, bs, TK, K * nrt, stacked != 0, S_s, cum_s);
-  write_empty_groups(pl, CG, TR, G, H, C, D, o, m_out, l_out);
-  const size_t tok_stride = static_cast<size_t>(K) * D;
-  const int nch = D / VEC;
-
-  long long p, p1;
-  pl.block_units(blockIdx.x, p, p1);
-  while (p < p1) {
-    const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
-    const int kh = sg.h / nrt;
-    const int row0 = (sg.h - kh * nrt) * TR;
-    const int nrows = min(TR, CG - row0);
-    const size_t obase = static_cast<size_t>(sg.rho) * C * H;
-    __syncthreads();  // the previous segment is done with shared memory
-    for (int idx = tid; idx < TR * D; idx += THREADS) {
-      const int r = idx % TR, d = idx / TR;
-      q_s[d * TRP + r] =
-          r < nrows ? q[static_cast<size_t>(head_row(row0, r, G, H, kh)) *
-                            D + d]
-                    : 0.f;
-    }
-    float acc[4][DPT], m[4], l[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m[i] = -CUDART_INF_F;
-      l[i] = 0.f;
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
-    }
-    paged_attn::segment_spans<TK>(pl, sg, span_s, info_s);
-    paged_attn::TileWalk<TK> walk;
-    for (walk.start(span_s, info_s[0]); walk.valid(); walk.next()) {
-      const int t0 = walk.t, S = walk.t_end();
-      const int* tab = table + static_cast<size_t>(walk.k()) * MB;
-      const float* pk = pool_k + walk.k() * rank_stride;
-      const float* pv = pool_v + walk.k() * rank_stride;
-      __syncthreads();  // previous tile fully consumed; q_s written
-      for (int idx = tid; idx < TK * nch; idx += THREADS) {
-        const int tok = idx % TK, ch = idx / TK, t = t0 + tok;
-        const int blk = t < S ? tab[t / bs] : -1;
-        float x[VEC];
-        if (blk >= 0) {
-          load_vec(pk + (static_cast<size_t>(blk) * bs + t % bs) *
-                            tok_stride + kh * D + ch * VEC, x);
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) k_s[(ch * VEC + e) * TKP + tok] = x[e];
-      }
-      for (int idx = tid; idx < TK * (DP / VEC); idx += THREADS) {
-        const int ch = idx % (DP / VEC), tok = idx / (DP / VEC), t = t0 + tok;
-        const int blk = (t < S && ch < nch) ? tab[t / bs] : -1;
-        float x[VEC];
-        if (blk >= 0) {
-          load_vec(pv + (static_cast<size_t>(blk) * bs + t % bs) *
-                            tok_stride + kh * D + ch * VEC, x);
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) v_s[tok * DP + ch * VEC + e] = x[e];
-      }
-      __syncthreads();
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(q_s + d * TRP + ty * 4);
-        const float4 kv =
-            *reinterpret_cast<const float4*>(k_s + d * TKP + tx * 4);
-        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-        const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-      }
-      bool ok[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + tx * 4 + j;
-        ok[j] = t < S && tab[t / bs] >= 0;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float mt = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = ok[j] ? s[i][j] * scale : -CUDART_INF_F;
-          mt = fmaxf(mt, s[i][j]);
-        }
-        mt = group16_max(mt);
-        const float m_new = fmaxf(m[i], mt);
-        const float alpha = m[i] == -CUDART_INF_F ? 0.f : expf(m[i] - m_new);
-        float pr[4], sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          pr[j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-          sum += pr[j];
-        }
-        sum = group16_sum(sum);
-        m[i] = m_new;
-        l[i] = l[i] * alpha + sum;
-#pragma unroll
-        for (int e = 0; e < DPT; ++e) acc[i][e] *= alpha;
-        *reinterpret_cast<float4*>(p_s + (ty * 4 + i) * TKP + tx * 4) =
-            make_float4(pr[0], pr[1], pr[2], pr[3]);
-      }
-      __syncthreads();
-      for (int cc0 = 0; cc0 < TK; cc0 += 4) {
-        float pa[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 pv4 = *reinterpret_cast<const float4*>(
-              p_s + (ty * 4 + i) * TKP + cc0);
-          pa[i][0] = pv4.x;
-          pa[i][1] = pv4.y;
-          pa[i][2] = pv4.z;
-          pa[i][3] = pv4.w;
-        }
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          float va[DPT];
-#pragma unroll
-          for (int e = 0; e < DPT; e += 4) {
-            const float4 vv = *reinterpret_cast<const float4*>(
-                v_s + (cc0 + cc) * DP + tx * DPT + e);
-            va[e] = vv.x;
-            va[e + 1] = vv.y;
-            va[e + 2] = vv.z;
-            va[e + 3] = vv.w;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < DPT; ++e)
-              acc[i][e] = fmaf(pa[i][cc], va[e], acc[i][e]);
-        }
-      }
-    }
-
-    const int pfirst = pl.block_of(sg.first);
-    const int parts = pl.block_of(sg.end - 1) - pfirst + 1;
-    float* slot = ws + (static_cast<size_t>(blockIdx.x) + sg.g) * TR * W;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      if (r >= nrows) continue;
-      float *po, *pm, *pls;
-      if (parts > 1) {
-        po = slot + r * W;
-        pm = po + D;
-        pls = po + D + 1;
-      } else {
-        const size_t row = obase + head_row(row0, r, G, H, kh);
-        po = o + row * D;
-        pm = m_out + row;
-        pls = l_out + row;
-      }
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) {
-        const int d = tx * DPT + e;
-        if (d < D) po[d] = acc[i][e];
-      }
-      if (tx == 0) {
-        *pm = m[i];
-        *pls = l[i];
-      }
-    }
-    if (parts > 1 && paged_attn::last_split_arrives(tickets + sg.g, parts))
-      paged_attn::merge_parts(
-          ws, TR * W, pfirst + sg.g, parts, nrows, D,
-          [&](int i) {
-            return static_cast<int>(obase) + head_row(row0, i, G, H, kh);
-          },
-          o, m_out, l_out, k_s);
-    p = min(p1, sg.end);
+  // The K and V maps (5-D over the ranks) in boxes of `box_rows` tokens:
+  // gcd(bs, TILE), so a box never crosses a block.
+  int maps(CUtensorMap* tk, CUtensorMap* tv, int TILE, int& box_rows,
+           uint32_t elem_bytes) const {
+    box_rows = TILE;
+    while (bs % box_rows) box_rows >>= 1;
+    if (int e = hopper::cached_rows_map(tk, pk, D, K, bs, NB, box_rows,
+                                        elem_bytes, NR, rank_stride))
+      return e;
+    return hopper::cached_rows_map(tv, pv, D, K, bs, NB, box_rows,
+                                   elem_bytes, NR, rank_stride);
   }
-}
+};
 
-// Returns cudaErrorInvalidValue unless the plan is the instantiation's:
-// its ring depth and shared memory, persistent blocks, a ticket counter
-// per group (K x row tiles) and blocks of a multiple of 8 tokens (so
-// that every box starts on a 1,024-byte swizzle atom).
+// Returns cudaErrorInvalidValue unless the plan is the instantiation's.
 template <int DMAX, int TILE, int STAGES_>
-int launch_wgmma(const void* q, const void* pk, const void* pv,
-                 const void* table, const void* tail, void* o, void* m,
-                 void* l, void* ws, void* tickets, int C, int H, int K, int D,
-                 int bs, int MB, int NB, int blocks, int kv_tile,
-                 int stages, int smem_bytes, int n_tickets, float scale,
-                 cudaStream_t stream) {
+int launch_wgmma(const PrefillArgs& a) {
   using L = PfLayout<DMAX, TILE, STAGES_>;
-  const long groups = static_cast<long>(K) *
-                      ((C * (H / K) + ROW_TILE - 1) / ROW_TILE);
-  if (kv_tile != TILE || stages != STAGES_ || smem_bytes != L::SMEM ||
-      blocks < 1 ||
-      groups > n_tickets || bs % 8)
+  const int smem = L::smem(a.NR, a.P());
+  if (!a.plan_is(ROW_TILE, TILE, STAGES_, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  int box_rows = TILE;  // gcd(bs, TILE): a box never crosses a block
-  while (bs % box_rows) box_rows >>= 1;
   CUtensorMap tk, tv;
-  if (int e = hopper::cached_rows_map(&tk, pk, D, K, bs, NB, box_rows))
-    return e;
-  if (int e = hopper::cached_rows_map(&tv, pv, D, K, bs, NB, box_rows))
-    return e;
+  int box_rows = 0;
+  if (int e = a.maps(&tk, &tv, TILE, box_rows, 2)) return e;
   auto kern = paged_prefill_wgmma_kernel<DMAX, TILE, STAGES_>;
   static int allowed[hopper::MAX_DEVICES] = {};
-  if (int e = hopper::allow_smem(kern, L::SMEM, allowed)) return e;
-  kern<<<blocks, WS_THREADS, L::SMEM, stream>>>(
-      tk, tv, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const int*>(table), static_cast<const int*>(tail),
-      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
-      static_cast<float*>(ws), static_cast<unsigned*>(tickets), C, H, K, D,
-      bs, MB, box_rows, scale);
+  if (int e = hopper::allow_smem(kern, smem, allowed)) return e;
+  kern<<<a.blocks, WS_THREADS, smem, a.stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const int*>(a.table), static_cast<const int*>(a.tail),
+      static_cast<float*>(a.o), static_cast<float*>(a.m),
+      static_cast<float*>(a.l), static_cast<float*>(a.ws),
+      static_cast<unsigned*>(a.tickets), a.NR, a.C, a.H, a.K, a.D, a.bs,
+      a.MB, a.stacked, box_rows, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1099,8 +621,8 @@ constexpr int SPLITTERS = WG_THREADS - 32;  // the producer's warps 1-3
 // row weights use the q rows while a run's partials merge. The raw V
 // slots (the TMA boxes' layout); the stages (K_hi: the raw K tile, which
 // TMA writes there; K_lo as laid out; V^T_hi, V^T_lo as hopper.cuh
-// split_v_tile writes them); the plan (S[1], cum[2]); the barriers. Tiles
-// start on 1,024 bytes.
+// split_v_tile writes them); the barriers; each stage's valid tokens
+// (NV_BYTES); the plan (plan_bytes). Tiles start on 1,024 bytes.
 template <int DMAX, int TILE, int NC, int SS, int RV>
 struct PfF32Layout {
   static constexpr bool QREG = DMAX <= 128;
@@ -1110,13 +632,16 @@ struct PfF32Layout {
   static constexpr int TILE_BYTES = TILE * DMAX * 4;  // a K or V tile
   static constexpr int RAW_V = NC * Q_WG;
   static constexpr int STAGE = RAW_V + RV * TILE_BYTES;  // + stage * 4 tiles
-  static constexpr int PLAN_OFF = STAGE + SS * 4 * TILE_BYTES;
-  static constexpr int BAR_OFF = PLAN_OFF + 16;
+  static constexpr int BAR_OFF = STAGE + SS * 4 * TILE_BYTES;
   static_assert(RAW_V >= NC * WG_ROWS * (paged_attn::MERGE_CHUNK + 1) * 4,
                 "the merge's row weights fit in the q rows");
   // raw V full / empty a slot, then K raw (TMA), K full (K_lo), K empty,
   // V full, V empty a stage.
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * RV + 5 * SS);
+  static constexpr int NV_OFF = BAR_OFF + 8 * (2 * RV + 5 * SS);
+  static constexpr int PLAN_OFF = NV_OFF + NV_BYTES;
+  static constexpr int smem(int NR, int P) {
+    return 1024 + PLAN_OFF + plan_bytes(NR, P);
+  }
 };
 
 // One block an SM ((1 + NC) x 128 threads): warpgroup 0's first warp is
@@ -1125,7 +650,8 @@ struct PfF32Layout {
 // out, V transposed, the rows past the tile's valid tokens zeroed),
 // freeing each raw slot as soon as it is split; warpgroups 1..NC are
 // consumers of 64 (query, head) rows each (see the header). A merge
-// group is a tile of NC x 64 rows of one kv head.
+// group is a tile of NC x 64 rows of one kv head (of one rank when
+// stacked); the 5-D maps read the NR rank pools.
 template <int DMAX, int TILE, int NC, int SS, int RV>
 __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
     paged_prefill_tf32_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -1137,9 +663,9 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
                               float* __restrict__ m_out,
                               float* __restrict__ l_out,
                               float* __restrict__ ws,
-                              unsigned* __restrict__ tickets, int C, int H,
-                              int K, int D, int bs, int MB, int box_rows,
-                              float scale) {
+                              unsigned* __restrict__ tickets, int NR, int C,
+                              int H, int K, int D, int bs, int MB,
+                              int stacked, int box_rows, float scale) {
   using L = PfF32Layout<DMAX, TILE, NC, SS, RV>;
   constexpr int RT = NC * WG_ROWS;  // rows a merge group
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1148,6 +674,10 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
   unsigned char* gbase = smem_raw + (base - raw_addr);
   float* merge_sm = reinterpret_cast<float*>(gbase);
   int* plan_s = reinterpret_cast<int*>(gbase + L::PLAN_OFF);
+  // Each stage's valid tokens, as in the bf16 kernel: written by the
+  // producer before the stage's K load, read by the splitters after it
+  // lands and by the consumers after K's halves are ready.
+  int* nv_s = reinterpret_cast<int*>(gbase + L::NV_OFF);
   const uint32_t rv_full = base + L::BAR_OFF;      // + 16 * slot
   const uint32_t rv_empty = rv_full + 8;
   const uint32_t k_raw = rv_full + 16 * RV;        // + 40 * stage
@@ -1191,14 +721,14 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
   const int nrt = (CG + RT - 1) / RT;  // row tiles a kv head
   // plan_units' first __syncthreads also publishes the barriers and the
   // zeroed boxes.
-  const paged_attn::UnitPlan pl = paged_attn::plan_units(
-      table, tail, 1, 1, MB, bs, TILE, K * nrt, false, plan_s, plan_s + 1);
+  const paged_attn::UnitPlan pl =
+      paged_attn::plan_units(table, tail, NR, 1, MB, bs, TILE, K * nrt,
+                             stacked != 0, plan_s, plan_s + NR);
   write_empty_groups(pl, CG, RT, G, H, C, D, o, m_out, l_out);
   long long p, p1;
   pl.block_units(blockIdx.x, p, p1);
   p = paged_attn::uniform(p);
   p1 = paged_attn::uniform(p1);
-  const int S = pl.S[0];
   const int wg_idx =
       paged_attn::uniform(static_cast<int>(threadIdx.x) / WG_THREADS);
   if (wg_idx == 0) {
@@ -1218,27 +748,30 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
       while (p < p1) {
         const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
         const int kh = sg.h / nrt;
-        const int hi = min(sg.q1 * TILE, S);
-        for (int t0 = sg.q0 * TILE; t0 < hi; t0 += TILE) {
-          const int nb = (min(TILE, hi - t0) + box_rows - 1) / box_rows;
+        paged_attn::UnitWalk w(pl, sg);
+        for (int u = sg.q0; u < sg.q1; ++u, w.next()) {
+          const int nb = (w.valid() + box_rows - 1) / box_rows;
           int blk = 0, off = 0;
           if (lane < nb) {
-            const int t = t0 + lane * box_rows;
+            const int t = w.t + lane * box_rows;
             const int slot = t / bs;
-            blk = table[slot];
+            blk = table[static_cast<size_t>(w.k) * MB + slot];
             off = t - slot * bs;
           }
           const uint32_t at = lane * box_bytes;
           const uint32_t kr = k_raw + 40 * sp.slot;
           hopper::mbar_wait(k_empty + 40 * sp.slot, sp.phase ^ 1);
-          if (lane == 0) hopper::mbar_expect_tx(kr, nb * box_bytes * ncb);
+          if (lane == 0) {
+            nv_s[sp.slot] = w.valid();
+            hopper::mbar_expect_tx(kr, nb * box_bytes * ncb);
+          }
           __syncwarp();
           if (lane < nb)
             for (int c = 0; c < ncb; ++c)
-              hopper::tma_load_4d(base + L::STAGE +
+              hopper::tma_load_5d(base + L::STAGE +
                                       sp.slot * 4 * L::TILE_BYTES + at +
                                       c * TILE * 128,
-                                  &tm_k, kr, c * 32, kh, off, blk);
+                                  &tm_k, kr, c * 32, kh, off, blk, w.k);
           sp.next();
           const uint32_t vf = rv_full + 16 * rv.slot;
           hopper::mbar_wait(rv_empty + 16 * rv.slot, rv.phase ^ 1);
@@ -1246,10 +779,10 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
           __syncwarp();
           if (lane < nb)
             for (int c = 0; c < ncb; ++c)
-              hopper::tma_load_4d(base + L::RAW_V +
+              hopper::tma_load_5d(base + L::RAW_V +
                                       rv.slot * L::TILE_BYTES + at +
                                       c * TILE * 128,
-                                  &tm_v, vf, c * 32, kh, off, blk);
+                                  &tm_v, vf, c * 32, kh, off, blk, w.k);
           rv.next();
         }
         p = min(p1, sg.end);
@@ -1263,11 +796,11 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
       hopper::Ring<SS> sp;
       while (p < p1) {
         const paged_attn::Segment sg = paged_attn::segment_at(pl, p, p1);
-        const int hi = min(sg.q1 * TILE, S);
-        for (int t0 = sg.q0 * TILE; t0 < hi; t0 += TILE) {
+        for (int u = sg.q0; u < sg.q1; ++u) {
           unsigned char* dst =
               gbase + L::STAGE + sp.slot * 4 * L::TILE_BYTES;
           hopper::mbar_wait(k_raw + 40 * sp.slot, sp.phase);
+          const int nv = nv_s[sp.slot];
           hopper::split_k_tile(dst, dst + L::TILE_BYTES, L::TILE_BYTES, st,
                                SPLITTERS);
           hopper::fence_proxy_async();
@@ -1277,7 +810,7 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
           hopper::split_v_tile<DMAX, TILE>(
               gbase + L::RAW_V + rv.slot * L::TILE_BYTES,
               dst + 2 * L::TILE_BYTES, dst + 3 * L::TILE_BYTES,
-              min(TILE, hi - t0), st, SPLITTERS);
+              nv, st, SPLITTERS);
           hopper::fence_proxy_async();
           hopper::mbar_arrive(v_full + 40 * sp.slot);
           hopper::mbar_arrive(rv_empty + 16 * rv.slot);
@@ -1319,9 +852,8 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
       const int kh = sg.h / nrt;
       const int row0 = (sg.h - kh * nrt) * RT;
       const int nrows = min(RT, CG - row0);
-      const int lo = paged_attn::uniform(sg.q0 * TILE);
-      const int hi = paged_attn::uniform(min(sg.q1 * TILE, S));
-      const int ntiles = (hi - lo + TILE - 1) / TILE;
+      const size_t obase = static_cast<size_t>(sg.rho) * C * H;
+      const int ntiles = paged_attn::uniform(sg.q1 - sg.q0);
       const int wrow0 = wg * WG_ROWS;  // the warpgroup's first local row
       const int active = paged_attn::uniform(wrow0 < nrows ? 1 : 0);
       float oacc[1][NT][4];
@@ -1373,11 +905,11 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
         float sacc[1][NJ][4];  // written by each tile's first product
         uint32_t ph[NJ][4], pl_[NJ][4];
         float alpha[1][2];
-        // S of tile t, its tokens past the valid ones masked to -inf by a
+        // S of a tile of nv valid tokens (every tile that ends a rank's
+        // span may be partial), those past them masked to -inf by a
         // select, turned into float32 probabilities in place.
-        auto softmax_step = [&](int t) {
+        auto softmax_step = [&](int nv) {
           hopper::fence_regs(sacc[0]);
-          const int nv = hi - lo - t * TILE;
           if (nv < TILE) {
 #pragma unroll
             for (int j = 0; j < NJ; ++j)
@@ -1407,18 +939,20 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
                 kl_desc + sp.slot * SLOT);
         };
         hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+        int nv = paged_attn::uniform(nv_s[sp.slot]);
         hopper::wgmma_fence();
         issue_s();
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(sacc[0]);
         hopper::mbar_arrive(k_empty + 40 * sp.slot);
-        softmax_step(0);  // the output is still 0: no rescale
+        softmax_step(nv);  // the output is still 0: no rescale
         stage_probs();
         hopper::Ring<SS> pv = sp;  // stage of the tile whose P V is pending
         sp.next();
         for (int t = 1; t < ntiles; ++t) {
           hopper::mbar_wait(k_full + 40 * sp.slot, sp.phase);
+          nv = paged_attn::uniform(nv_s[sp.slot]);
           hopper::mbar_wait(v_full + 40 * pv.slot, pv.phase);
           hopper::wgmma_fence();
           issue_s();
@@ -1430,7 +964,7 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
           hopper::wgmma_wait<1>();
           hopper::fence_regs(sacc[0]);
           hopper::mbar_arrive(k_empty + 40 * sp.slot);
-          const bool moved = softmax_step(t);
+          const bool moved = softmax_step(nv);
           hopper::wgmma_wait<0>();
           hopper::fence_regs(oacc[0]);
           hopper::mbar_arrive(v_empty + 40 * pv.slot);
@@ -1470,7 +1004,7 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
             pm = po + D;
             pls = po + D + 1;
           } else {
-            const size_t row = head_row(row0, r, G, H, kh);
+            const size_t row = obase + head_row(row0, r, G, H, kh);
             po = o + row * D;
             pm = m_out + row;
             pls = l_out + row;
@@ -1494,79 +1028,56 @@ __global__ void __launch_bounds__((1 + NC) * WG_THREADS, 1)
           paged_attn::last_split_arrives(tickets + sg.g, parts, consumers))
         paged_attn::merge_parts(
             ws, RT * W, pfirst + sg.g, parts, nrows, D,
-            [&](int i) { return head_row(row0, i, G, H, kh); }, o, m_out,
-            l_out, merge_sm, consumers);
+            [&](int i) {
+              return static_cast<int>(obase) + head_row(row0, i, G, H, kh);
+            },
+            o, m_out, l_out, merge_sm, consumers);
       p = paged_attn::uniform(min(p1, sg.end));
     }
   }
 }
 
 template <int DMAX, int TILE, int NC, int SS, int RV>
-int launch_tf32(const void* q, const void* pk, const void* pv,
-                const void* table, const void* tail, void* o, void* m,
-                void* l, void* ws, void* tickets, int C, int H, int K, int D,
-                int bs, int MB, int NB, int blocks, int rows, int kv_tile,
-                int stages, int smem_bytes, int n_tickets, float scale,
-                cudaStream_t stream) {
+int launch_tf32(const PrefillArgs& a) {
   using L = PfF32Layout<DMAX, TILE, NC, SS, RV>;
-  const long groups = static_cast<long>(K) *
-                      ((C * (H / K) + NC * WG_ROWS - 1) / (NC * WG_ROWS));
-  if (rows != NC * WG_ROWS || kv_tile != TILE || stages != SS ||
-      smem_bytes != L::SMEM || blocks < 1 || groups > n_tickets || bs % 8)
+  const int smem = L::smem(a.NR, a.P());
+  if (!a.plan_is(NC * WG_ROWS, TILE, SS, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  int box_rows = TILE;  // gcd(bs, TILE): a box never crosses a block
-  while (bs % box_rows) box_rows >>= 1;
   CUtensorMap tk, tv;
-  if (int e = hopper::cached_rows_map(&tk, pk, D, K, bs, NB, box_rows, 4))
-    return e;
-  if (int e = hopper::cached_rows_map(&tv, pv, D, K, bs, NB, box_rows, 4))
-    return e;
+  int box_rows = 0;
+  if (int e = a.maps(&tk, &tv, TILE, box_rows, 4)) return e;
   auto kern = paged_prefill_tf32_kernel<DMAX, TILE, NC, SS, RV>;
   static int allowed[hopper::MAX_DEVICES] = {};
-  if (int e = hopper::allow_smem(kern, L::SMEM, allowed)) return e;
-  kern<<<blocks, (1 + NC) * WG_THREADS, L::SMEM, stream>>>(
-      tk, tv, static_cast<const float*>(q), static_cast<const int*>(table),
-      static_cast<const int*>(tail), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(ws),
-      static_cast<unsigned*>(tickets), C, H, K, D, bs, MB, box_rows, scale);
+  if (int e = hopper::allow_smem(kern, smem, allowed)) return e;
+  kern<<<a.blocks, (1 + NC) * WG_THREADS, smem, a.stream>>>(
+      tk, tv, static_cast<const float*>(a.q),
+      static_cast<const int*>(a.table), static_cast<const int*>(a.tail),
+      static_cast<float*>(a.o), static_cast<float*>(a.m),
+      static_cast<float*>(a.l), static_cast<float*>(a.ws),
+      static_cast<unsigned*>(a.tickets), a.NR, a.C, a.H, a.K, a.D, a.bs,
+      a.MB, a.stacked, box_rows, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The rank kernels' launch: returns cudaErrorInvalidValue unless the
-// plan is one the instantiation launches (the tile as the unit, the
-// caller's shared memory its own, a ticket counter per merge group).
-template <typename T>
-int launch_rank_kernel(void (*kern)(const T*, const T*, const T*,
-                                    const int*, const int*, float*, float*,
-                                    float*, float*, unsigned*, int, int, int,
-                                    int, int, int, int, int, long long,
-                                    float),
-                       size_t smem, int blocks, int threads,
-                       cudaStream_t stream, const void* q, const void* pk,
-                       const void* pv, const void* table, const void* tail,
-                       void* o, void* m, void* l, void* ws, void* tickets,
-                       int NR, int C, int H, int K, int D, int bs, int MB,
-                       int stacked, long long rank_stride, float scale) {
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  kern<<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const int*>(table),
-      static_cast<const int*>(tail), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(ws),
-      static_cast<unsigned*>(tickets), NR, C, H, K, D, bs, MB, stacked,
-      rank_stride, scale);
-  return static_cast<int>(cudaGetLastError());
+// The instantiation for (D, dtype): bf16 wgmma or float32 3xTF32 wgmma,
+// by D rounded up to 64, 128 or 256.
+int launch(const PrefillArgs& a, int dtype) {
+  if (dtype == 1) {
+    if (a.D <= 64) return launch_wgmma<64, 128, 4>(a);
+    if (a.D <= 128) return launch_wgmma<128, 128, 3>(a);
+    return launch_wgmma<256, 64, 2>(a);
+  }
+  if (a.D <= 64) return launch_tf32<64, 64, 2, 2, 2>(a);
+  if (a.D <= 128) return launch_tf32<128, 32, 2, 2, 2>(a);
+  return launch_tf32<256, 16, 1, 1, 2>(a);
 }
 
 }  // namespace
 
-// C entry of the single-rank kernels: returns cudaGetLastError() after
-// the launch (0 = success). q [C, H, D], pools [NB, bs, K, D], table
-// [MB], tail [1], outputs [C, H, ...]; dtype: 0 = float32 (3xTF32
-// wgmma), 1 = bfloat16 (wgmma). The caller plans the launch
+// C entry of the single-rank form: returns cudaGetLastError() after the
+// launch (0 = success). q [C, H, D], pools [NB, bs, K, D], table [MB],
+// tail [1], outputs [C, H, ...]; dtype: 0 = float32 (3xTF32 wgmma), 1 =
+// bfloat16 (wgmma). The caller plans the launch
 // (kernels/micro_attn_prefill.py::prefill_unit_plan): persistent blocks,
 // rows_per_block (a merge group's rows: 128; float32 at D > 128: 64), the
 // K/V tile (the unit), the ring's (bf16) or split (float32) stages and
@@ -1575,7 +1086,7 @@ int launch_rank_kernel(void (*kern)(const T*, const T*, const T*,
 // tickets n_tickets zeroed uint32 counters, at least one per group (K x
 // row tiles), which the kernel leaves at zero. Blocks of any size up to
 // 128 tokens that is a multiple of 8 are read in place. Any other plan
-// returns cudaErrorInvalidValue.
+// returns cudaErrorInvalidValue. The kernels are the rank form's at NR 1.
 extern "C" int paged_prefill_launch(const void* q, const void* pool_k,
                                     const void* pool_v, const void* table,
                                     const void* tail, void* o, void* m,
@@ -1585,79 +1096,45 @@ extern "C" int paged_prefill_launch(const void* q, const void* pool_k,
                                     int kv_tile, int stages, int smem_bytes,
                                     int n_tickets, float scale, int dtype,
                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (rows_per_block != ROW_TILE)
-      return static_cast<int>(cudaErrorInvalidValue);
-    auto run = [&](auto launch) {
-      return launch(q, pool_k, pool_v, table, tail, o, m, l, ws, tickets, C,
-                    H, K, D, bs, MB, NB, blocks, kv_tile, stages, smem_bytes,
-                    n_tickets, scale, s);
-    };
-    if (D <= 64) return run(launch_wgmma<64, 128, 4>);
-    if (D <= 128) return run(launch_wgmma<128, 128, 3>);
-    return run(launch_wgmma<256, 64, 2>);
-  }
-  auto run = [&](auto launch) {
-    return launch(q, pool_k, pool_v, table, tail, o, m, l, ws, tickets, C, H,
-                  K, D, bs, MB, NB, blocks, rows_per_block, kv_tile, stages,
-                  smem_bytes, n_tickets, scale, s);
-  };
-  if (D <= 64) return run(launch_tf32<64, 64, 2, 2, 2>);
-  if (D <= 128) return run(launch_tf32<128, 32, 2, 2, 2>);
-  return run(launch_tf32<256, 16, 1, 1, 2>);
+  const PrefillArgs a{q,      pool_k, pool_v, table,   tail,
+                      o,      m,      l,      ws,      tickets,
+                      1,      C,      H,      K,       D,
+                      bs,     MB,     NB,     0,       0,
+                      blocks, rows_per_block, kv_tile, stages,
+                      smem_bytes, n_tickets, scale,
+                      static_cast<cudaStream_t>(stream)};
+  return launch(a, dtype);
 }
 
-// C entry of the rank kernels: returns cudaGetLastError() after the
-// launch (0 = success). NR rank pools start rank_stride elements apart;
-// tables [NR, MB], tails [NR]; q [C, H, D] (dtype as paged_prefill_launch:
-// bf16 on the tensor cores, float32 on the CUDA cores). stacked = 0: one
-// partial over every rank, outputs [C, H, ...]; stacked = 1: one a rank,
-// outputs [NR, C, H, ...]. The caller plans the launch
-// (kernels/micro_attn_prefill.py::rank_prefill_plan): unit_tokens (the
-// 64-token tile), blocks, rows_per_block (the instantiation, as for
-// paged_prefill_launch) and the shared memory it lays out; ws is a float32
-// scratch of blocks + groups slots of rows_per_block * (D + 4) floats and
-// tickets n_tickets zeroed uint32 counters, at least one per merge group
-// (1 or NR, times K times the row tiles), which the kernel leaves at zero.
-// Any other plan, or NR < 1, returns cudaErrorInvalidValue.
+// C entry of the rank forms: returns cudaGetLastError() after the launch
+// (0 = success). NR rank pools [NB, bs, K, D] start rank_stride elements
+// apart (a multiple of 16 bytes); tables [NR, MB], tails [NR]; q [C, H,
+// D] shared by every rank; dtype as paged_prefill_launch, whose kernels
+// these are. stacked = 0: one partial over every rank, outputs [C, H,
+// ...]; stacked = 1: one a rank, outputs [NR, C, H, ...]. The caller
+// plans the launch (kernels/micro_attn_prefill.py::rank_prefill_plan) as
+// for paged_prefill_launch, with P = 1 or NR times the merge groups, the
+// ticket counters and the scratch slots, and the plan's shared memory
+// for NR ranks. Any other plan, or NR < 1, returns cudaErrorInvalidValue.
 extern "C" int paged_prefill_ranks_launch(
     const void* q, const void* pool_k, const void* pool_v, const void* table,
     const void* tail, void* o, void* m, void* l, void* ws, void* tickets,
-    int NR, int C, int H, int K, int D, int bs, int MB,
-    long long rank_stride, int stacked, int unit_tokens, int blocks,
-    int rows_per_block, int smem_bytes, int n_tickets, float scale,
+    int NR, int C, int H, int K, int D, int bs, int MB, int NB,
+    long long rank_stride, int stacked, int blocks, int rows_per_block,
+    int kv_tile, int stages, int smem_bytes, int n_tickets, float scale,
     int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bm = rows_per_block;
-  const int P = stacked ? NR : 1;
-  if (NR < 1 || blocks < 1 || unit_tokens != BN || bm < 1 ||
-      static_cast<long>(P) * K * ((C * (H / K) + bm - 1) / bm) > n_tickets)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(smem_bytes);
-  auto run = [&](auto kern, size_t need, int threads) {
-    if (smem != need) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_rank_kernel(kern, smem, blocks, threads, s, q, pool_k,
-                              pool_v, table, tail, o, m, l, ws, tickets, NR,
-                              C, H, K, D, bs, MB, stacked, rank_stride,
-                              scale);
-  };
-  if (dtype == 1) {
-    if (D <= 64 && bm == 32 * MW)
-      return run(paged_prefill_ranks_mma_kernel<64, 2>,
-                 rank_mma_smem_bytes(D, bm, NR, P), MW * 32);
-    if (D > 64 && D <= 128 && bm == 32 * MW)
-      return run(paged_prefill_ranks_mma_kernel<128, 2>,
-                 rank_mma_smem_bytes(D, bm, NR, P), MW * 32);
-    if (D > 128 && bm == 16 * MW)
-      return run(paged_prefill_ranks_mma_kernel<256, 1>,
-                 rank_mma_smem_bytes(D, bm, NR, P), MW * 32);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (bm != TR) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 128)
-    return run(paged_prefill_ranks_f32_kernel<8>,
-               rank_f32_smem_bytes(D, 8, NR, P), THREADS);
-  return run(paged_prefill_ranks_f32_kernel<16>,
-             rank_f32_smem_bytes(D, 16, NR, P), THREADS);
+  const PrefillArgs a{q,      pool_k,          pool_v,  table,  tail,
+                      o,      m,               l,       ws,     tickets,
+                      NR,     C,               H,       K,      D,
+                      bs,     MB,              NB,      rank_stride,
+                      stacked != 0,            blocks,  rows_per_block,
+                      kv_tile, stages,         smem_bytes, n_tickets,
+                      scale,  static_cast<cudaStream_t>(stream)};
+  return launch(a, dtype);
+}
+
+// Tensor maps this library has encoded (hopper::cached_rows_map): after a
+// served step's first, the same step encodes none.
+extern "C" unsigned long long paged_prefill_map_encodes() {
+  return hopper::map_encodes();
 }

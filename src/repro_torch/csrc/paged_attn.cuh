@@ -6,21 +6,20 @@
 // plan (units of valid tokens, planned on the card) and in-launch merge.
 //
 // Tensor-core tile step (FlashAttention-2 register layout, mma.sync
-// m16n8k16 bf16 -> fp32). A warp owns MT m16 tiles of query rows; q and a
-// K/V tile sit in shared memory, either rows row_stride(D) elements apart
-// (qk_tile, pv_tile) or as the 128-byte-swizzled boxes a TMA load writes
-// (the *_at forms take the lanes' ldmatrix addresses from the caller). A
-// step covers 8 * NJ keys. qk_tile forms S = Q K^T (A and B by ldmatrix);
+// m16n8k16 bf16 -> fp32; the decode kernel's). A warp owns MT m16 tiles of
+// query rows; q and a K/V tile sit in shared memory, the lanes' ldmatrix
+// addresses given by the caller (qk_tile_at, pv_tile_at). A step covers 8
+// * NJ keys. qk_tile_at forms S = Q K^T (A and B by ldmatrix);
 // softmax_tile runs the online softmax on the S accumulator fragment in
 // float32 (exp2 of one fma, scores pre-scaled by scale * log2 e; the
-// output accumulators are rescaled only when a row's max moved); pv_tile
-// reuses the probabilities as the A operand of P V in registers, V by
-// ldmatrix.trans. Precision: q K^T products of bf16 values are exact in
+// output accumulators are rescaled only when a row's max moved);
+// pv_tile_at reuses the probabilities as the A operand of P V in
+// registers, V by ldmatrix.trans. Precision: q K^T products of bf16 values are exact in
 // fp32; each float32 probability p enters P V as bf16 hi = bf16(p) plus
 // lo = bf16(p - hi), two MMAs against the same bf16 V (at most 2^-16
 // relative per term; one rounding of p, 2^-8, misses the kernels'
 // tolerances: tests/test_torch_kernels.py); l is summed from the float32
-// p. The caller masks scores to -inf between qk_tile and softmax_tile.
+// p. The caller masks scores to -inf between qk_tile_at and softmax_tile.
 //
 // Work plan and merge, for the ports of the Pallas kernels repro/kernels/
 // micro_attn_decode.py (bound by bytes) and micro_attn_prefill.py (bound
@@ -108,14 +107,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // ---------------------------------------------------------------------
 // bf16 tensor cores: primitives and the tile step.
 // ---------------------------------------------------------------------
-constexpr int MMA_TOKENS = 64;  // K/V tokens a tile of the tile step
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Shared-memory row stride (elements) for head dim D: D rounded up to 16,
-// plus 8 so that ldmatrix's 8 row addresses fall in distinct banks.
-__host__ __device__ inline int row_stride(int D) {
-  return ((D + 15) / 16) * 16 + 8;
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             uint32_t addr) {
@@ -169,19 +161,6 @@ __device__ __forceinline__ void split_probs(const float (&s)[2 * KV][4],
   }
 }
 
-// ldmatrix lane offsets (elements within a tile) of a warp whose rows
-// start at wrow: the A operand (q), the B operand of Q K^T (K rows) and
-// of P V (V rows, transposed).
-struct MmaLanes {
-  int a, k, v;
-};
-
-__device__ __forceinline__ MmaLanes mma_lanes(int lane, int wrow, int DS) {
-  return {(wrow + (lane & 15)) * DS + (lane >> 4) * 8,
-          ((lane & 7) + (lane >> 4) * 8) * DS + ((lane >> 3) & 1) * 8,
-          ((lane & 7) + ((lane >> 3) & 1) * 8) * DS + (lane >> 4) * 8};
-}
-
 // The tile step runs on NJ n8 tiles of keys (8 * NJ tokens, NJ even; 8
 // covers a whole 64-token tile at once, 4 half of one with half the score
 // registers), whose K and V rows start at k_base and v_base.
@@ -217,22 +196,6 @@ __device__ __forceinline__ void qk_tile_at(float (&sacc)[MT][NJ][4],
         }
     }
   }
-}
-
-// qk_tile_at on q and K rows DS elements apart (MmaLanes offsets).
-template <int MT, int KC, int NJ = 8>
-__device__ __forceinline__ void qk_tile(float (&sacc)[MT][NJ][4],
-                                        uint32_t q_base, uint32_t k_base,
-                                        const MmaLanes& ln, int DS, int D) {
-  qk_tile_at<MT, KC, NJ>(
-      sacc,
-      [&](int mt, int kc) {
-        return q_base + 2 * (ln.a + mt * 16 * DS + kc * 16);
-      },
-      [&](int np, int kc) {
-        return k_base + 2 * (ln.k + np * 16 * DS + kc * 16);
-      },
-      D);
 }
 
 // Online softmax on the S fragment: per m16 tile a thread holds rows
@@ -363,20 +326,6 @@ __device__ __forceinline__ void pv_tile_at(float (&oacc)[MT][NT][4],
       }
     }
   }
-}
-
-// pv_tile_at on V rows DS elements apart (MmaLanes offsets).
-template <int MT, int NT, int NJ = 8>
-__device__ __forceinline__ void pv_tile(float (&oacc)[MT][NT][4],
-                                        const float (&sacc)[MT][NJ][4],
-                                        uint32_t v_base, const MmaLanes& ln,
-                                        int DS, int D) {
-  pv_tile_at<MT, NT, NJ>(
-      oacc, sacc,
-      [&](int kc, int n16) {
-        return v_base + 2 * (ln.v + kc * 16 * DS + n16 * 16);
-      },
-      D);
 }
 
 // Valid tokens addressed by a -1-padded block table [MB] whose valid slots
@@ -688,6 +637,35 @@ struct TileWalk {
     if (i >= n) return;  // past the segment's last tile
     t += TT;
     if (t >= span[3 * i + 2] && ++i < n) t = span[3 * i + 1];
+  }
+};
+
+// A segment's units one at a time, rank by rank (the empty ranks
+// skipped), for kernels whose tile is the unit: unit tokens [t, t +
+// valid()) of rank k. Each thread walks it on its own, from the plan in
+// shared memory: no barrier, so warp-specialised roles can each keep one.
+struct UnitWalk {
+  const int* S_;  // the plan's tokens a pair
+  int R, U, r, khi, k, t, S;
+  __device__ UnitWalk(const UnitPlan& pl, const Segment& s)
+      : S_(pl.S), R(pl.R), U(pl.U), r(s.r), khi(s.khi) {
+    int off = 0;
+    for (k = s.klo; k + 1 < khi; ++k) {
+      const int nu = pl.units(k * R + r);
+      if (s.q0 < off + nu) break;
+      off += nu;
+    }
+    t = (s.q0 - off) * U;
+    S = S_[k * R + r];
+  }
+  __device__ int valid() const { return min(U, S - t); }
+  __device__ void next() {
+    t += U;
+    while (t >= S && k + 1 < khi) {
+      ++k;
+      t = 0;
+      S = S_[k * R + r];
+    }
   }
 };
 

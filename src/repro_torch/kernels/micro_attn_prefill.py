@@ -32,16 +32,18 @@ lo + lo hi), l from the float32 p.
 
 ``paged_prefill_attention_ranks_cuda`` (stacked partials, one a rank)
 and ``paged_prefill_attention_ranks_merged_cuda`` (the ranks LSE-merged
-in the launch) launch the rank kernels of the same source, one launch
-over a stack of NR rank pools, each with its own prefix table — the
-counterpart of the JAX package's vmap over the global pool's rank axis
+in the launch) launch the same two kernels over a stack of NR rank
+pools, each with its own prefix table, in one launch — the counterpart
+of the JAX package's vmap over the global pool's rank axis
 (``repro/kernels/ops.py::paged_prefill_attention_ranks``), followed, for
-the merged form, by ``merge_partials(axis=0)``. Persistent blocks take
-equal shares of every rank's 64-token tiles of valid prefix, planned on
-the card from the tables. As for decode, the pools may be a strided
-per-layer view of the global pool, read in place, and the rank kernels
-address tokens, not slots: they read blocks of up to 128 tokens as they
-are.
+the merged form, by ``merge_partials(axis=0)``. The kernels are one a
+dtype for both forms (the single-rank form is NR = 1): persistent blocks
+take equal shares of every rank's tiles of valid prefix
+(``rank_prefill_plan``), the K/V boxes come from a 5-D tensor map over
+the rank slabs, and a merge group's partials (over its units and, merged,
+over the ranks) are merged in the launch. As for decode, the pools may be
+a strided per-layer view of the global pool, read in place; blocks of up
+to 128 tokens, a multiple of 8, are read as they are.
 
 ``paged_prefill_attention_plain`` is the same function in plain PyTorch,
 in float32 throughout like the Pallas kernel;
@@ -51,6 +53,7 @@ CPU runs them; the card runs them only to check the kernels.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict
 
@@ -60,10 +63,8 @@ from repro_torch.core.distattn import gather_local_kv, local_mask_from_table
 from repro_torch.core.online_softmax import (_masked_softmax_parts,
                                              merge_partials)
 from repro_torch.kernels import build
-from repro_torch.kernels.micro_attn_decode import (RANK_RING, SMEM_PER_SM,
-                                                   _DTYPES,
+from repro_torch.kernels.micro_attn_decode import (SMEM_PER_SM, _DTYPES,
                                                    aligned_rows,
-                                                   argtypes,
                                                    check_box_blocks,
                                                    check_inputs,
                                                    current_stream,
@@ -75,29 +76,36 @@ from repro_torch.kernels.micro_attn_decode import (RANK_RING, SMEM_PER_SM,
                                                    split_tickets,
                                                    stack_ranks)
 
-RANK_PREFILL_UNIT = 64  # a unit of the rank kernels: one 64-token tile
 ROW_TILE = 128          # (query, head) rows a unit of the bf16 kernel
 _ARGTYPES = single_argtypes(6)
-_RANK_ARGTYPES = argtypes(6)
+# The rank entry: 10 pointers, NR and seven shapes (C, H, K, D, bs, MB,
+# NB), the rank stride (64-bit), stacked and six ints of the plan, scale,
+# dtype, stream.
+_RANK_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def rows_per_block(D: int, dtype: torch.dtype) -> int:
-    """(query, head) rows a block of the rank kernels, which picks their
-    instantiation: the bf16 kernel's 4 warps own 32 rows each up to D =
-    128 and 16 above; float32 64."""
-    return 128 if dtype == torch.bfloat16 and D <= 128 else 64
+def plan_bytes(NR: int, P: int) -> int:
+    """Shared memory of the plan the kernels make on the card (csrc
+    plan_bytes): ``NR`` ranks' valid tokens and ``P + 1`` merge-row
+    starts, rounded up to 16 bytes."""
+    return -(-4 * (NR + P + 1) // 16) * 16
 
 
-def unit_smem_bytes(dmax: int, tile: int, stages: int) -> int:
+def unit_smem_bytes(dmax: int, tile: int, stages: int, NR: int = 1,
+                    P: int = 1) -> int:
     """Shared memory of the bf16 kernel (csrc PfLayout): each consumer
     warpgroup's 64 q rows, ``stages`` K and V tiles of ``tile`` tokens
     (all of DMAX), the merge's row weights (128 x 33 floats; in the q
-    rows where they fit), the plan (16 bytes), 3 barriers a stage, 1,024
+    rows where they fit), 3 barriers a stage, each stage's valid tokens
+    (16 bytes), the plan of ``NR`` ranks and ``P`` merge rows, 1,024
     bytes of slack."""
     q = 2 * 64 * dmax * 2
     merge = ROW_TILE * 33 * 4
     return (1024 + q + 2 * stages * tile * dmax * 2
-            + (0 if q >= merge else merge) + 16 + 8 * 3 * stages)
+            + (0 if q >= merge else merge) + 8 * 3 * stages + 16
+            + plan_bytes(NR, P))
 
 
 # The bf16 kernel's instantiations by DMAX: (K/V tile, ring stages).
@@ -109,17 +117,57 @@ TF32_PREFILL_RINGS = {64: (64, 2, 2, 2), 128: (32, 2, 2, 2),
 
 
 def tf32_unit_smem_bytes(dmax: int, tile: int, consumers: int, stages: int,
-                         raw_v: int) -> int:
+                         raw_v: int, NR: int = 1, P: int = 1) -> int:
     """Shared memory of the float32 kernel (csrc PfF32Layout): each
     consumer's q_lo (64 rows of DMAX float32) and, above D 128, its q_hi
     (below, register-A fragments; the merge's row weights use these
     rows), the raw V slots, ``stages`` stages of four tf32 tiles (K_hi is
-    the raw K tile), the plan (16 bytes), 8 bytes a barrier (2 a raw V
-    slot, 5 a stage), 1,024 bytes of slack."""
+    the raw K tile), 8 bytes a barrier (2 a raw V slot, 5 a stage), each
+    stage's valid tokens (16 bytes), the plan, 1,024 bytes of slack."""
     t = tile * dmax * 4
     q_halves = 1 if dmax <= 128 else 2
     return (1024 + consumers * q_halves * 64 * dmax * 4 + raw_v * t
-            + stages * 4 * t + 16 + 8 * (2 * raw_v + 5 * stages))
+            + stages * 4 * t + 8 * (2 * raw_v + 5 * stages) + 16
+            + plan_bytes(NR, P))
+
+
+def _plan(C: int, H: int, K: int, D: int, MB: int, bs: int, sm_count: int,
+          dtype: torch.dtype, NR: int, stacked: bool) -> Dict[str, object]:
+    """The launch of either form over NR rank pools (see
+    ``prefill_unit_plan``)."""
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    P = NR if stacked else 1
+    if dtype == torch.bfloat16:
+        tile, stages = PREFILL_RINGS[dmax]
+        wgs = 2
+        smem = unit_smem_bytes(dmax, tile, stages, NR, P)
+        route = "wgmma bf16 hi + lo, TMA boxes of the pool"
+    else:
+        tile, wgs, stages, rv = TF32_PREFILL_RINGS[dmax]
+        smem = tf32_unit_smem_bytes(dmax, tile, wgs, stages, rv, NR, P)
+        route = "wgmma 3xTF32, TMA boxes of the pool, split stage"
+    if smem > SMEM_PER_SM:
+        raise ValueError(f"{NR} ranks' plan does not fit the kernel's "
+                         f"shared memory ({smem} > {SMEM_PER_SM} bytes)")
+    rows = 64 * wgs
+    hg = K * -(-(C * (H // K)) // rows)
+    blocks = group_blocks(P * hg, sm_count)
+    if (dtype == torch.float32 or P > 1) and 8 * blocks < 7 * sm_count:
+        # A float32 unit carries three times the products: where the
+        # group-aligned count leaves an eighth of the SMs idle (96 of 132
+        # at musicgen's and starcoder2's heads) one block an SM is faster,
+        # its merges notwithstanding; where it fills them, slower. Stacked
+        # ranks' groups hold unequal work, so no alignment pays there.
+        blocks = sm_count
+    blocks = rank_blocks(1, blocks, hg * NR * -(-MB * bs // tile))
+    return {"unit_tokens": tile, "kv_tile": tile,
+            "rows_per_block": rows, "dmax": dmax, "stages": stages,
+            "blocks": blocks,
+            "blocks_per_sm": 1, "groups": P * hg, "head_groups": hg,
+            "ws_slots": blocks + P * hg, "smem_bytes": smem,
+            "warpgroups": wgs, "rows_per_warpgroup": 64,
+            "threads": 128 * (wgs + 1), "route": route, "ranks": NR,
+            "stacked": stacked}
 
 
 @functools.lru_cache(maxsize=1024)
@@ -136,84 +184,20 @@ def prefill_unit_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
     ticket counter each), scratch slots and shared memory. From
     shapes and the SM count alone: the work is planned on the card.
     Cached: callers share the dict and must not change it."""
-    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
-    if dtype == torch.bfloat16:
-        tile, stages = PREFILL_RINGS[dmax]
-        wgs = 2
-        smem = unit_smem_bytes(dmax, tile, stages)
-        route = "wgmma bf16 hi + lo, TMA boxes of the pool"
-    else:
-        tile, wgs, stages, rv = TF32_PREFILL_RINGS[dmax]
-        smem = tf32_unit_smem_bytes(dmax, tile, wgs, stages, rv)
-        route = "wgmma 3xTF32, TMA boxes of the pool, split stage"
-    rows = 64 * wgs
-    hg = K * -(-(C * (H // K)) // rows)
-    blocks = group_blocks(hg, sm_count)
-    if dtype == torch.float32 and 8 * blocks < 7 * sm_count:
-        # A float32 unit carries three times the products: where the
-        # group-aligned count leaves an eighth of the SMs idle (96 of 132
-        # at musicgen's and starcoder2's heads) one block an SM is faster,
-        # its merges notwithstanding; where it fills them, slower.
-        blocks = sm_count
-    blocks = rank_blocks(1, blocks, hg * -(-MB * bs // tile))
-    return {"unit_tokens": tile, "kv_tile": tile,
-            "rows_per_block": rows, "dmax": dmax, "stages": stages,
-            "blocks": blocks,
-            "blocks_per_sm": 1, "groups": hg, "head_groups": hg,
-            "ws_slots": blocks + hg, "smem_bytes": smem,
-            "warpgroups": wgs, "rows_per_warpgroup": 64,
-            "threads": 128 * (wgs + 1), "route": route, "stacked": False}
-
-
-def rank_mma_smem_bytes(D: int, rows: int, NR: int, P: int) -> int:
-    """Shared memory of the bf16 rank kernel (csrc rank_mma_smem_bytes):
-    ``rows`` q rows and a 2-stage ring of 64-token K/V tiles, rows of D
-    rounded up to 16 plus 8 bf16; the pool rows, flags and rank of 3
-    tiles; the plan (``NR`` ranks' tokens,
-    ``P + 1`` merge-row starts) and a segment's spans (3 ints a rank, 2
-    counts)."""
-    stride = -(-D // 16) * 16 + 8
-    return ((rows + 2 * 2 * 64) * stride * 2
-            + 4 * (RANK_RING * 64 + 3 * RANK_RING + 4 * NR + P + 3))
-
-
-def rank_f32_smem_bytes(D: int, NR: int, P: int) -> int:
-    """Shared memory of the float32 rank kernel (csrc rank_f32_smem_bytes):
-    q [D][68], a K tile [D][68], a V tile [64][16 * DPT] and the
-    probabilities [64][68] in float32 (DPT 8 up to D = 128, else 16);
-    the plan and a segment's spans."""
-    dpt = 8 if D <= 128 else 16
-    return 4 * (D * 68 + D * 68 + 64 * 16 * dpt + 64 * 68
-                + 4 * NR + P + 3)
+    return _plan(C, H, K, D, MB, bs, sm_count, dtype, 1, False)
 
 
 @functools.lru_cache(maxsize=1024)
 def rank_prefill_plan(C: int, H: int, K: int, D: int, MB: int, bs: int,
                       dtype: torch.dtype, sm_count: int, NR: int,
                       stacked: bool) -> Dict[str, object]:
-    """The rank prefill kernels' launch, which the C entry takes as
-    given: rows a block (the instantiation, ``rows_per_block``),
-    64-token units, persistent ``blocks`` (as many as the card holds at
-    once: the work is planned on the card), merge ``groups`` (kv head x
-    row tile, x NR when stacked; one ticket counter each), scratch slots
-    and shared memory. Cached: callers share the dict and must not
-    change it."""
-    bm = rows_per_block(D, dtype)
-    hg = K * -(-(C * (H // K)) // bm)
-    P = NR if stacked else 1
-    if dtype == torch.bfloat16:
-        smem = rank_mma_smem_bytes(D, bm, NR, P)
-        route = "tensor cores, mma.sync bf16"
-    else:
-        smem = rank_f32_smem_bytes(D, NR, P)
-        route = "cuda cores, float32"
-    per_sm = max(1, min(4, SMEM_PER_SM // (smem + 1024)))
-    U = RANK_PREFILL_UNIT
-    blocks = rank_blocks(per_sm, sm_count, hg * NR * -(-MB * bs // U))
-    return {"unit_tokens": U, "blocks": blocks, "blocks_per_sm": per_sm,
-            "rows_per_block": bm, "groups": P * hg, "head_groups": hg,
-            "ws_slots": blocks + P * hg, "smem_bytes": smem, "ranks": NR,
-            "stacked": stacked, "route": route}
+    """The rank forms' launch: ``prefill_unit_plan``'s instantiation,
+    units and block rule over ``NR`` rank pools, with ``groups``,
+    ticket counters and scratch slots times P (NR when ``stacked``, else
+    1), the plan's shared memory for NR ranks, and, when stacked, one
+    block an SM where the group-aligned count would leave an eighth of
+    them idle. Cached: callers share the dict and must not change it."""
+    return _plan(C, H, K, D, MB, bs, sm_count, dtype, NR, stacked)
 
 
 def paged_prefill_attention_plain(q, pool_k, pool_v, table, tail_len, *,
@@ -295,12 +279,14 @@ def paged_prefill_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
 
 def _prefill_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
                           scale, stacked: bool):
-    """Launch a rank prefill kernel once over every rank pool of the
-    stack (blocks up to 128 tokens read as they are); returns float32
+    """Launch the prefill kernel once over every rank pool of the stack
+    (blocks of up to 128 tokens, a multiple of 8, read as they are);
+    returns float32
     ``(o, m, l)`` stacked ``[NR, C, ...]`` or merged ``[C, ...]`` and adds
     one to ``counter.launches`` after the launch."""
     rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True)
-    NR, _, bs, K, _ = pools_k.shape
+    NR, NB, bs, K, _ = pools_k.shape
+    check_box_blocks(bs)
     C, H, D = q.shape
     MB = tables.shape[-1]
     dev = q.device
@@ -309,7 +295,7 @@ def _prefill_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
     o, m, l = o.view(*lead, H, D), m.view(*lead, H), l.view(*lead, H)
     if C == 0:
         return o, m, l
-    q = q.contiguous()
+    q = aligned_rows(q)
     tables = tables.to(torch.int32).contiguous()
     tails = torch.as_tensor(tails, device=dev).to(torch.int32).reshape(
         NR).contiguous()
@@ -324,9 +310,10 @@ def _prefill_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
         q.data_ptr(), pools_k.data_ptr(), pools_v.data_ptr(),
         tables.data_ptr(), tails.data_ptr(), o.data_ptr(), m.data_ptr(),
         l.data_ptr(), ws.data_ptr(), tickets.data_ptr(), NR, C, H, K, D, bs,
-        MB, rank_stride, int(stacked), plan["unit_tokens"], plan["blocks"],
-        plan["rows_per_block"], plan["smem_bytes"], tickets.numel(),
-        float(scale), _DTYPES[q.dtype], current_stream(dev))
+        MB, NB, rank_stride, int(stacked), plan["blocks"],
+        plan["rows_per_block"], plan["kv_tile"], plan["stages"],
+        plan["smem_bytes"], tickets.numel(), float(scale),
+        _DTYPES[q.dtype], current_stream(dev))
     if err:
         raise RuntimeError(f"paged prefill rank kernel launch failed: CUDA "
                            f"error {err}")
@@ -338,11 +325,13 @@ def _prefill_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
 
 def paged_prefill_attention_ranks_cuda(q, pools_k, pools_v, tables, tails,
                                        *, scale):
-    """Launch a rank prefill kernel ONCE over every rank pool, one
-    partial a rank.
+    """Launch the prefill kernel ONCE over every rank pool, one partial
+    a rank.
 
     Same contract as ``paged_prefill_attention_ranks_plain``; the pools
-    may be a strided view (each rank's slab contiguous), never copied.
+    may be a strided view (each rank's slab contiguous, the rank stride a
+    multiple of 16 bytes), never copied; ValueError on a block size that
+    is not a multiple of 8 (``check_box_blocks``).
     """
     return _prefill_ranks_launch(paged_prefill_attention_ranks_cuda, q,
                                  pools_k, pools_v, tables, tails, scale,
@@ -351,7 +340,7 @@ def paged_prefill_attention_ranks_cuda(q, pools_k, pools_v, tables, tails,
 
 def paged_prefill_attention_ranks_merged_cuda(q, pools_k, pools_v, tables,
                                               tails, *, scale):
-    """Launch a rank prefill kernel ONCE over every rank pool, the ranks
+    """Launch the prefill kernel ONCE over every rank pool, the ranks
     merged in the launch.
 
     Same contract as ``paged_prefill_attention_ranks_merged_plain``.
@@ -359,6 +348,15 @@ def paged_prefill_attention_ranks_merged_cuda(q, pools_k, pools_v, tables,
     return _prefill_ranks_launch(paged_prefill_attention_ranks_merged_cuda,
                                  q, pools_k, pools_v, tables, tails, scale,
                                  stacked=False)
+
+
+def map_encodes() -> int:
+    """Tensor maps the prefill library has encoded in this process (its
+    cache of maps: a served step encodes none after its first); loads
+    the library, so it needs CUDA."""
+    lib = build.load("micro_attn_prefill", "paged_prefill_map_encodes", [])
+    lib.paged_prefill_map_encodes.restype = ctypes.c_ulonglong
+    return int(lib.paged_prefill_map_encodes())
 
 
 for _launcher in (paged_prefill_attention_cuda,

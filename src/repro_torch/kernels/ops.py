@@ -22,14 +22,15 @@ defaults to ``true_head_dim ** -0.5``.
 
 Precision. The paged kernels return what their float32 plain twins
 return, within 1e-4, in both storage dtypes. They cut each request's
-valid tokens into units over several blocks (the rank kernels: over
-every rank) and LSE-merge the parts in float32. float32 decode and the
-float32 rank prefill compute on the CUDA cores; bf16 decode and the bf16
-prefill chunk run on the tensor cores: q K^T products of bf16 values
+valid tokens into units over several blocks (the rank forms: over
+every rank) and LSE-merge the parts in float32. float32 decode computes
+on the CUDA cores; bf16 decode and the bf16 prefill chunk (both forms)
+run on the tensor cores: q K^T products of bf16 values
 are exact in float32, each float32 probability p enters P V as two bf16
 halves ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (one rounding of p
 would exceed 1e-4 over a few thousand keys), and ``l`` is summed from
-the float32 p. The float32 prefill chunk and float32 flash prefill run
+the float32 p. The float32 prefill chunk (both forms) and float32
+flash prefill run
 on the tf32 tensor cores in 3xTF32: each operand x as hi (its raw
 value, whose low 13 bits the tensor cores ignore) and ``lo = x -
 trunc_tf32(x)``, each product as hi hi + hi lo + lo hi (one tf32 product

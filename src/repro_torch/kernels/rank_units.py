@@ -8,9 +8,10 @@ is the same integer arithmetic in Python. The CPU tests hold it to the
 plan's properties (every valid token of every (rank, request) pair in
 exactly one unit, no unit past a tail or over ``U`` tokens, no unit on an
 empty pair, one scratch slot a partial) and emulate the kernels' merges
-with it through the plain twins. ``tile_boxes`` is the single-rank
-kernels' TMA loads of a run of tiles: one box a table block's share of a
-tile.
+with it through the plain twins. ``tile_boxes`` is the paged kernels'
+TMA loads of a run of tiles: one box a table block's share of a tile;
+``segment_boxes`` the prefill kernel's over a segment's units, rank by
+rank, each box of one rank's pool.
 
 The plan. Pair (rank k, request r) holds ``S[k, r]`` valid tokens (the
 tables' valid slots are a prefix; the last holds ``tail`` tokens), cut
@@ -137,4 +138,27 @@ def tile_boxes(table_row, bs: int, lo: int, hi: int,
             t = t0 + b * rows
             boxes.append((t, int(table_row[t // bs]), t % bs, rows))
         out.append({"t0": t0, "boxes": boxes})
+    return out
+
+
+def segment_boxes(tables, bs: int, units, tile: int
+                  ) -> List[Dict[str, object]]:
+    """The boxes the prefill kernel's producer warp issues for a
+    segment's ``units`` (``segments``' ``(k, j, lo, hi)``, one tile each:
+    the unit is the tile), in order: ``tile_boxes`` on rank k's table
+    row ``tables[k]`` over the unit's tokens. Returns ``[{"k", "t0",
+    "valid", "boxes": [(k, blk, off, rows)]}]``: box b of a tile holds
+    ``rows`` pool rows from ``off`` of block ``blk`` of rank k's pool,
+    the tile's tokens ``[t0 + b * rows, ...)``, of which the first
+    ``valid`` are the tile's."""
+    out = []
+    for k, _, lo, hi in units:
+        if hi - lo > tile:
+            raise ValueError(f"a unit of {hi - lo} tokens is not one "
+                             f"{tile}-token tile")
+        for t in tile_boxes(tables[k], bs, lo, hi, tile):
+            out.append({"k": k, "t0": t["t0"],
+                        "valid": min(tile, hi - t["t0"]),
+                        "boxes": [(k, blk, off, rows)
+                                  for _, blk, off, rows in t["boxes"]]})
     return out

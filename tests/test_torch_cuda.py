@@ -639,8 +639,8 @@ def test_rank_entries_refuse_bad_plans_and_layouts(cuda_device,
                                                    monkeypatch):
     """The C entries refuse a rank plan they cannot launch (too few
     ticket counters for the merge groups, no instantiation, a shared
-    memory size or unit unlike the kernel's), and the wrappers refuse a
-    rank slab that is not contiguous."""
+    memory size, tile or ring unlike the kernel's), and the wrappers
+    refuse a rank slab that is not contiguous."""
     import repro_torch.kernels.micro_attn_decode as dec
     import repro_torch.kernels.micro_attn_prefill as pre
     gen = torch.Generator(device=cuda_device).manual_seed(13)
@@ -666,7 +666,7 @@ def test_rank_entries_refuse_bad_plans_and_layouts(cuda_device,
             paged_micro_attention_ranks_cuda(q, pk, pv, tb, tl, scale=0.1)
         assert paged_micro_attention_ranks_cuda.launches == before
     for bad in ({"groups": 1}, {"rows_per_block": 96}, {"smem_bytes": 16},
-                {"unit_tokens": 128}):
+                {"kv_tile": 64}, {"stages": 5}):
         monkeypatch.setattr(pre, "rank_prefill_plan",
                             lambda *a, bad=bad: {**plan_p(*a), **bad})
         monkeypatch.setattr(dec, "_TICKETS", {})
@@ -1351,6 +1351,180 @@ def test_unit_kernels_refuse_blocks_off_the_swizzle_atom(cuda_device):
         big = torch.zeros((2, 136, 1, 8), device=cuda_device, dtype=dtype)
         with pytest.raises(ValueError, match="exceeds 128"):
             ops.paged_prefill_attention(q, big, big, table, 1)
+
+
+# ------------------------------------------------------------------ #
+# The rank prefill on the Hopper prefill kernels (one kernel a dtype)
+# ------------------------------------------------------------------ #
+def _poisoned_rank_pools(gen, rng, NR, L, NB, bs, K, D, dtype, device,
+                         nblks, empty):
+    """A layer's view of a global pool [NR, L, NB, bs, K, D] whose rows
+    past each rank's tail and whose blocks no table names hold NaN and
+    Inf, the same view with those rows zeroed, and the tables [NR, MB]
+    and tails [NR] (rank k holds ``nblks[k]`` blocks unless in
+    ``empty``)."""
+    gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, torch.float32, device)
+    MB = max(nblks) + 3
+    tables, tails = _rank_tables(rng, NR, [max(nblks)], MB, bs, NB, empty)
+    tables, tails = tables[:, 0], tails[:, 0]
+    for k in range(NR):
+        tables[k, nblks[k]:] = -1
+        if nblks[k] == 0:
+            tails[k] = bs
+    valid = torch.zeros((NR, NB, bs), dtype=torch.bool)
+    for k in range(NR):
+        n = int((tables[k] >= 0).sum())
+        for j in range(n):
+            valid[k, tables[k, j], :tails[k] if j == n - 1 else bs] = True
+    valid = valid.to(device)[..., None, None]
+    poison = torch.full((NR, NB, bs, K, D), float("nan"), device=device)
+    poison[:, :, ::2] = float("inf")
+    l = L // 2
+    out = []
+    for g in (gk, gv):
+        clean = torch.where(valid, g[:, l], 0.).to(dtype)
+        g[:, l] = torch.where(valid, g[:, l], poison)
+        out.append((g.to(dtype)[:, l], clean))
+    (pk, ck), (pv, cv) = out
+    return (pk, pv, ck, cv, torch.from_numpy(tables).to(device),
+            torch.from_numpy(tails).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NR,nblks,empty,bs,D,K,G", [
+    (1, [40], (), 16, 128, 8, 2),            # the single-rank shape
+    (2, [0, 90], (0,), 8, 64, 4, 1),         # MHA, bs 8, an empty rank
+    (3, [5, 0, 3], (1,), 128, 256, 2, 12),   # D 256, G 12, 128-token blocks
+    (4, [7, 30, 0, 12], (2,), 16, 128, 1, 12),  # MQA-like G 12, four ranks
+    (4, [3, 11, 9, 1], (), 24, 64, 8, 2),    # bs 24: 8-token boxes
+    (3, [0, 0, 0], (0, 1, 2), 16, 128, 8, 2),  # no rank holds a block
+], ids=["nr1", "nr2-bs8-d64", "nr3-bs128-d256-g12", "nr4-g12",
+        "nr4-bs24", "all-empty"])
+def test_hopper_rank_prefill_matches_plain(dtype, NR, nblks, empty, bs, D,
+                                           K, G, cuda_device):
+    """The prefill kernels in rank form (``paged_prefill_wgmma_kernel``,
+    ``paged_prefill_tf32_kernel``: one launch over every rank, the boxes
+    from a 5-D map of the rank slabs) == the plain twins, stacked and
+    merged, on a strided layer view of a global pool, at NR 1-4 with
+    empty ranks, bs 8 / 16 / 24 / 128, D 64 / 128 / 256 and G 1 / 2 /
+    12. The rows past each rank's tail and the blocks no table names
+    hold NaN and Inf: a tile that ends one rank's prefix inside a block's
+    run scores them -inf and zeroes their V rows before P V."""
+    gen = torch.Generator(device=cuda_device).manual_seed(NR * 7 + bs)
+    rng = np.random.default_rng(NR * 1000 + D + G)
+    NB = max(max(nblks) * NR + 2, 4)
+    pk, pv, ck, cv, tb, tl = _poisoned_rank_pools(
+        gen, rng, NR, 3, NB, bs, K, D, dtype, cuda_device, nblks, empty)
+    assert NR == 1 or not pk.is_contiguous()
+    qc = torch.randn((77, K * G, D), generator=gen,
+                     device=cuda_device).to(dtype)
+    s = D ** -0.5
+    before = (paged_prefill_attention_ranks_cuda.launches,
+              paged_prefill_attention_ranks_merged_cuda.launches)
+    got = paged_prefill_attention_ranks_cuda(qc, pk, pv, tb, tl, scale=s)
+    _close_partials(got, paged_prefill_attention_ranks_plain(
+        qc, ck, cv, tb, tl, scale=s))
+    got = paged_prefill_attention_ranks_merged_cuda(qc, pk, pv, tb, tl,
+                                                    scale=s)
+    _close_partials(got, paged_prefill_attention_ranks_merged_plain(
+        qc, ck, cv, tb, tl, scale=s))
+    assert not any(bool(torch.isnan(x).any()) for x in got)
+    if len(empty) == NR:
+        assert bool(torch.isneginf(got[1]).all())
+    assert (paged_prefill_attention_ranks_cuda.launches,
+            paged_prefill_attention_ranks_merged_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_rank_prefill_float32_carries_the_low_mantissa_bits(cuda_device):
+    """The float32 rank form over three ranks of a strided layer view,
+    every input's low 13 mantissa bits 0x1FFF and logits of standard
+    deviation 2: within 1e-4 of the float32 twins, merged and stacked
+    (the lo halves of 3xTF32 carry those bits)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    rng = np.random.default_rng(29)
+    NR, L, NB, bs, K, D = 3, 2, 120, 16, 2, 128
+    gk, gv = (_low_bits(g, 0x1FFF) for g in _global_pool(
+        gen, NR, L, NB, bs, K, D, torch.float32, cuda_device))
+    pk, pv = gk[:, 1], gv[:, 1]
+    tables, tails = _rank_tables(rng, NR, [30], 40, bs, NB, ())
+    tb = torch.from_numpy(tables[:, 0]).to(cuda_device)
+    tl = torch.from_numpy(tails[:, 0]).to(cuda_device)
+    q = _low_bits(2 * torch.randn((128, 8, D), generator=gen,
+                                  device=cuda_device), 0x1FFF)
+    s = D ** -0.5
+    _close_partials(ops.paged_prefill_attention_ranks_merged(q, pk, pv, tb,
+                                                             tl),
+                    paged_prefill_attention_ranks_merged_plain(
+                        q, pk, pv, tb, tl, scale=s))
+    _close_partials(ops.paged_prefill_attention_ranks(q, pk, pv, tb, tl),
+                    paged_prefill_attention_ranks_plain(q, pk, pv, tb, tl,
+                                                        scale=s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rank_prefill_at_a_rank_stride_off_the_block_grid(dtype,
+                                                          cuda_device):
+    """Rank slabs whose stride is a multiple of 16 bytes but not of a
+    block (the 5-D map's rank stride, off every block boundary): both
+    rank forms == the plain twins, read in place."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    rng = np.random.default_rng(31)
+    NR, NB, bs, K, G, D = 3, 24, 16, 2, 4, 128
+    slab = NB * bs * K * D
+    step = slab + 16 * 4 // torch.tensor([], dtype=dtype).element_size()
+    buf = torch.randn(NR * step, generator=gen,
+                      device=cuda_device).to(dtype)
+    pools = buf.as_strided((NR, NB, bs, K, D),
+                           (step, bs * K * D, K * D, D, 1))
+    tables, tails = _rank_tables(rng, NR, [20], 24, bs, NB, ())
+    tb = torch.from_numpy(tables[:, 0]).to(cuda_device)
+    tl = torch.from_numpy(tails[:, 0]).to(cuda_device)
+    q = torch.randn((60, K * G, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    s = D ** -0.5
+    _close_partials(paged_prefill_attention_ranks_cuda(q, pools, pools, tb,
+                                                       tl, scale=s),
+                    paged_prefill_attention_ranks_plain(q, pools, pools, tb,
+                                                        tl, scale=s))
+    _close_partials(paged_prefill_attention_ranks_merged_cuda(
+        q, pools, pools, tb, tl, scale=s),
+        paged_prefill_attention_ranks_merged_plain(q, pools, pools, tb, tl,
+                                                   scale=s))
+
+
+@pytest.mark.cuda
+def test_rank_prefill_refuses_strides_and_blocks_tma_cannot_address(
+        cuda_device):
+    """A rank stride that is not a multiple of 16 bytes (the 5-D map's
+    rank stride) and a block size that is not a multiple of 8 (a box
+    starts on an 8-row swizzle atom) raise ValueError in both rank forms
+    and both dtypes; nothing launches."""
+    for dtype in (torch.bfloat16, torch.float32):
+        NR, NB, bs, K, D = 2, 4, 16, 2, 64
+        slab = NB * bs * K * D
+        step = slab + 1  # 2 or 4 bytes past a 16-byte multiple
+        buf = torch.zeros(NR * step + slab, dtype=dtype, device=cuda_device)
+        pools = buf.as_strided((NR, NB, bs, K, D),
+                               (step, bs * K * D, K * D, D, 1))
+        q = torch.zeros((3, 4, D), dtype=dtype, device=cuda_device)
+        tb = torch.zeros((NR, 2), dtype=torch.int32, device=cuda_device)
+        tl = torch.ones((NR,), dtype=torch.int32, device=cuda_device)
+        odd = torch.zeros((NR, NB, 12, K, D), dtype=dtype,
+                          device=cuda_device)
+        before = (paged_prefill_attention_ranks_cuda.launches,
+                  paged_prefill_attention_ranks_merged_cuda.launches)
+        for fn in (paged_prefill_attention_ranks_cuda,
+                   paged_prefill_attention_ranks_merged_cuda):
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(q, pools, pools, tb, tl, scale=0.1)
+            with pytest.raises(ValueError, match="multiple of 8"):
+                fn(q, odd, odd, tb, tl, scale=0.1)
+        assert (paged_prefill_attention_ranks_cuda.launches,
+                paged_prefill_attention_ranks_merged_cuda.launches) == before
 
 
 # ------------------------------------------------------------------ #

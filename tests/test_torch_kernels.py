@@ -562,11 +562,16 @@ def test_prefill_unit_partials_merge_to_the_unsplit_twin(nblk):
 
 @pytest.mark.parametrize("NR", [1, 2, 3, 4])
 def test_rank_plans_split_all_ranks_work_items(NR):
-    """A rank plan launches as many persistent blocks as the card holds
-    at once (3 decode blocks an SM, 2 bf16 and 1 float32 prefill blocks),
-    no more than the tables could hold units, with one ticket counter a
-    merge group and a scratch slot a block and a group; the work itself
-    (every rank's valid tokens) is planned on the card."""
+    """A rank decode plan launches as many persistent blocks as the card
+    holds at once (3 an SM), no more than the tables could hold units; a
+    rank prefill plan is the single-rank plan's instantiation (128-row
+    merge groups, 128-token units in bf16 and 32-token ones in float32 at
+    D 128, one block an SM) with its block rule over P x the groups (two
+    blocks a group merged; stacked, one an SM where the aligned count
+    would leave an eighth idle) and its shared memory grown by the plan
+    of NR ranks. Both with one ticket counter a merge group and a scratch
+    slot a block and a group; the work itself (every rank's valid tokens)
+    is planned on the card."""
     for R, H, K, MB in ((4, 16, 16, 256), (4, 16, 8, 64)):
         for stacked in (False, True):
             dec = rank_decode_plan(R, H, K, 128, MB, 16, torch.bfloat16,
@@ -580,18 +585,23 @@ def test_rank_plans_split_all_ranks_work_items(NR):
                                         hg * R * NR * MB * 16 // 256)
             assert dec["ws_slots"] == dec["blocks"] + dec["groups"]
             assert dec["smem_bytes"] * dec["blocks_per_sm"] <= SMEM_PER_SM
-    for dt, per_sm in ((torch.bfloat16, 2), (torch.float32, 1)):
+    for dt, tile in ((torch.bfloat16, 128), (torch.float32, 32)):
+        one = prefill_unit_plan(512, 16, 16, 128, 256, 16, H100_SMS, dt)
         for stacked in (False, True):
             pre = rank_prefill_plan(512, 16, 16, 128, 256, 16, dt, H100_SMS,
                                     NR, stacked)
-            rows = 128 if dt == torch.bfloat16 else 64
-            assert pre["rows_per_block"] == rows
-            assert pre["head_groups"] == 16 * 512 // rows
-            assert pre["groups"] == pre["head_groups"] * (NR if stacked
-                                                          else 1)
-            assert pre["blocks_per_sm"] == per_sm
-            assert pre["blocks"] == per_sm * H100_SMS
-            assert pre["unit_tokens"] == 64
+            P = NR if stacked else 1
+            assert pre["rows_per_block"] == 128 == one["rows_per_block"]
+            assert pre["unit_tokens"] == pre["kv_tile"] == tile
+            assert pre["stages"] == one["stages"]
+            assert pre["head_groups"] == 16 * 512 // 128
+            assert pre["groups"] == pre["head_groups"] * P
+            assert pre["ws_slots"] == pre["blocks"] + pre["groups"]
+            assert pre["blocks_per_sm"] == 1
+            assert pre["blocks"] == ({1: 128, 2: 128, 3: H100_SMS, 4: 128}[
+                NR] if stacked else 128)
+            assert pre["smem_bytes"] == one["smem_bytes"] + 4 * (
+                -(-(NR + P + 1) // 4) - 1) * 4 <= SMEM_PER_SM
     # One rank and a short table: fewer blocks than the card holds.
     tiny = rank_decode_plan(1, 8, 8, 128, 2, 16, torch.float32, H100_SMS,
                             1, False)
@@ -605,7 +615,7 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
     card holds) each walking exactly 4 of the 1,024 units; starcoder2's G
     12, every head of a kv head in one block; float32 G 16 at D 256 in
     four head groups on the CUDA cores. Prefill (128-row x 128-token
-    units): 128 persistent blocks at 230,488 B (D 128, 3 stages), two a
+    units): 128 persistent blocks at 230,504 B (D 128, 3 stages), two a
     group, each 12 units; chameleon's 256 groups two a block; 4 stages at
     D 64, 2 (64-token tiles) at D 256; float32 (3xTF32) at D 128: 32-token
     units, two stages, the same 128 blocks, each 47 units, and one block
@@ -614,7 +624,9 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
     ranks holding a request's 63 / 160 / 27 blocks of 16 tokens; a
     512-query chunk over a 32 / 160 / 27-block prefix): one wave of
     persistent blocks, no block walking more than one 256-token unit in
-    decode, nor more than 14 of the prefill's 64-token tiles."""
+    decode; in prefill two blocks a merge group, each exactly 14 of its
+    group's 28 128-token tiles (bf16) or 55 of its 110 32-token tiles
+    (float32), across the three ranks."""
     bf16 = torch.bfloat16
     dec = decode_unit_plan(8, 16, 8, 128, 259, 16, bf16, H100_SMS)
     assert (dec["blocks"], dec["heads_per_block"], dec["tensor_cores"],
@@ -631,7 +643,7 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
         assert plan["smem_bytes"] * plan["blocks_per_sm"] <= SMEM_PER_SM
     pre = prefill_unit_plan(512, 16, 8, 128, 191, 16, H100_SMS, bf16)
     assert (pre["blocks"], pre["groups"], pre["kv_tile"], pre["stages"],
-            pre["smem_bytes"]) == (128, 64, 128, 3, 230_488)
+            pre["smem_bytes"]) == (128, 64, 128, 3, 230_504)
     _, _, walks = _segment_spans(pre, [187 * 16 + 11])
     assert max(walks) == min(walks) == 12
     cham = prefill_unit_plan(512, 64, 8, 128, 153, 16, H100_SMS, bf16)
@@ -648,7 +660,7 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
     f32 = prefill_unit_plan(512, 16, 8, 128, 191, 16, H100_SMS,
                             torch.float32)
     assert (f32["blocks"], f32["groups"], f32["kv_tile"], f32["stages"],
-            f32["smem_bytes"]) == (128, 64, 32, 2, 230_528)
+            f32["smem_bytes"]) == (128, 64, 32, 2, 230_544)
     _, _, walks = _segment_spans(f32, [187 * 16 + 11])
     assert max(walks) == min(walks) == 47
     # Where the group-aligned count would leave an eighth of the SMs idle
@@ -675,14 +687,20 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
                  for _, _, lo, hi in seg["units"])
              for b in range(dec["blocks"])]
     assert max(walks) <= 256 and sum(walks) == 16 * S.sum()
-    pre = rank_prefill_plan(512, 16, 16, 128, 256, bs, torch.bfloat16,
-                            H100_SMS, 3, False)
-    assert pre["blocks"] == 2 * H100_SMS
     Sp = np.array([[32 * bs], [160 * bs], [27 * bs]])
-    plan = rank_units.unit_plan(Sp, 64, pre["head_groups"], stacked=False)
-    tiles = [sum(len(seg["units"]) for seg in rank_units.segments(
-        plan, b, pre["blocks"])) for b in range(pre["blocks"])]
-    assert max(tiles) <= 14 and sum(tiles) == 64 * (8 + 40 + 7)
+    for dt, walk, per_group in ((torch.bfloat16, 14, 4 + 20 + 4),
+                                (torch.float32, 55, 16 + 80 + 14)):
+        pre = rank_prefill_plan(512, 16, 16, 128, 256, bs, dt, H100_SMS, 3,
+                                False)
+        assert pre["blocks"] == 128 == 2 * pre["groups"]
+        plan = rank_units.unit_plan(Sp, pre["unit_tokens"],
+                                    pre["head_groups"], stacked=False)
+        segs = [rank_units.segments(plan, b, pre["blocks"])
+                for b in range(pre["blocks"])]
+        tiles = [sum(len(seg["units"]) for seg in bs_) for bs_ in segs]
+        assert max(tiles) == min(tiles) == walk
+        assert sum(tiles) == 64 * per_group
+        assert all(len(bs_) == 1 for bs_ in segs)  # one group a block
 
 
 def _prefill_emulation(q, pk, pv, table, tail, *, scale, split_p):
@@ -1170,7 +1188,8 @@ def test_float32_prefill_plans_fit_shared_memory(D):
     """The float32 prefill-chunk plan of every head dim the wrapper takes:
     an instantiation at least as wide, whose block fits the H100's
     232,448 B (each consumer's q_lo, and q_hi above D 128; two raw V
-    tiles; the stages' four tf32 tiles; the plan; 5 barriers a stage),
+    tiles; the stages' four tf32 tiles; the plan; 5 barriers a stage;
+    16 bytes of the stages' valid tokens),
     one block an SM at most, 64-row merge groups above D 128."""
     plan = prefill_unit_plan(512, 16, 8, D, 191, 16, H100_SMS,
                              torch.float32)
@@ -1181,7 +1200,7 @@ def test_float32_prefill_plans_fit_shared_memory(D):
     q_halves = 1 if dmax <= 128 else 2
     assert plan["smem_bytes"] == (1024 + wgs * q_halves * 64 * dmax * 4
                                   + (2 + 4 * stages) * tile * dmax * 4
-                                  + 16 + 8 * (2 * 2 + 5 * stages))
+                                  + 16 + 8 * (2 * 2 + 5 * stages) + 16)
     assert plan["smem_bytes"] <= SMEM_PER_SM
     assert plan["blocks"] <= H100_SMS and plan["unit_tokens"] == tile
     assert plan["route"].startswith("wgmma 3xTF32")

@@ -230,13 +230,27 @@ def _partial(q, kk, vv, scale):
     return o.reshape(N, H, D), m.reshape(N, H), l.reshape(N, H)
 
 
+def _box_rows(pool, tables, unit, bs, tile):
+    """A prefill unit's K or V rows as its producer loads them: the TMA
+    boxes of ``rank_units.segment_boxes`` (rank, block, offset, rows) cut
+    from rank k's pool, the rows past the tile's valid tokens dropped (the
+    kernels score them -inf and zero their V rows)."""
+    (tl,) = rank_units.segment_boxes(tables, bs, [unit], tile)
+    rows = torch.cat([pool[k][blk, off:off + n]
+                      for k, blk, off, n in tl["boxes"]])
+    assert rows.shape[0] >= tl["valid"] == unit[3] - unit[2]
+    return rows[:tl["valid"]]
+
+
 def _emulate(kind, q, pk, pv, tables, tails, *, U, B, stacked, scale,
-             rows_per_block=None):
+             rows_per_block=None, boxes=False):
     """The rank kernels' decomposition with plain partials: each block's
     segments (the online softmax over a segment's units = combine of the
     units' partials), stored to its scratch slot or straight out, and
     each group's slots merged by ``merge_partials``; groups with no unit
-    are (0, -inf, 0). Returns stacked or merged (o, m, l)."""
+    are (0, -inf, 0). ``boxes``: each prefill unit's K/V rebuilt from
+    its TMA boxes (``_box_rows``; the unit is one tile), checked equal to
+    the gathered rows. Returns stacked or merged (o, m, l)."""
     NR, _, bs, K, D = pk.shape
     decode = kind == "decode"
     N = 1 if decode else q.shape[0]       # query rows a request
@@ -275,12 +289,18 @@ def _emulate(kind, q, pk, pv, tables, tails, *, U, B, stacked, scale,
         r = seg["r"]
         qr = q[r:r + 1] if decode else q
         part = None
-        for k, _, lo, hi in seg["units"]:
+        for k, j, lo, hi in seg["units"]:
             t = torch.arange(lo, hi)
             blk = tb[k, r, t // bs].long()
             assert bool((blk >= 0).all())
-            p = _partial(qr.float(), pk[k][blk, t % bs].float(),
-                         pv[k][blk, t % bs].float(), scale)
+            kk, vv = pk[k][blk, t % bs], pv[k][blk, t % bs]
+            if boxes:
+                unit = (k, j, lo, hi)
+                assert torch.equal(_box_rows(pk, tb[:, r].numpy(), unit, bs,
+                                             U), kk)
+                assert torch.equal(_box_rows(pv, tb[:, r].numpy(), unit, bs,
+                                             U), vv)
+            p = _partial(qr.float(), kk.float(), vv.float(), scale)
             part = p if part is None else combine(part, p)
         if seg["parts"] > 1:
             assert seg["slot"] not in slots
@@ -352,3 +372,82 @@ def test_unit_plan_partials_merge_to_the_plain_twins(kind, G, bs, U, B,
     assert got[0].shape == want[0].shape
     assert torch.equal(torch.isneginf(got[1]), torch.isneginf(want[1]))
     _close(got, want)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("tile,rows,bs", [
+    (128, 128, 16),   # bf16 up to D 128 (16-token boxes)
+    (64, 128, 24),    # bf16 at D 256, float32 at D 64 (8-token boxes)
+    (32, 128, 8),     # float32 at D 128
+    (16, 64, 128),    # float32 at D 256 (a box a tile of a 128-token block)
+])
+def test_hopper_prefill_box_walk_matches_jax_ranks(tile, rows, bs, stacked):
+    """The Hopper prefill kernels' rank form, emulated at each
+    instantiation's unit (one tile) and merge-group rows over four ranks
+    of a strided layer view (one empty, one short of a tile, uneven
+    prefixes, partial tails): every block's segments walked unit by unit,
+    rank by rank, each unit's K/V rebuilt from the TMA boxes its producer
+    issues (``rank_units.segment_boxes``: the (rank, block, offset, rows)
+    of one rank's pool) equal to that rank's gathered prefix, every valid
+    token in one unit of each group; the partials, combined along a
+    segment and merged per group as the last arrival does, equal the JAX
+    package's ``paged_prefill_attention_ranks`` (a vmap of the Pallas
+    kernel, ``jnp`` backend), merged by its ``merge_partials`` unless
+    stacked."""
+    rng = np.random.default_rng(tile * 7 + bs)
+    NR, K, G, D, C, NB = 4, 2, 2, 16, 9, 40
+    MB = 3 if bs == 128 else 24
+    pk_j, pv_j, pk, pv = _pools(rng, NR, NB, bs, K, D)
+    tables = -np.ones((NR, 1, MB), np.int32)
+    tails = np.full((NR, 1), bs, np.int32)
+    for k, n in enumerate([MB // 2 + 1, MB - 1, 0, 1]):  # rank 2 empty
+        tables[k, 0, :n] = rng.permutation(NB)[:n]
+        tails[k, 0] = rng.integers(1, bs + 1) if n else bs
+    tails[3, 0] = 5                     # rank 3: short of a tile
+    tb, tl = torch.from_numpy(tables[:, 0]), torch.from_numpy(tails[:, 0])
+    q = rng.standard_normal((C, K * G, D)).astype(np.float32)
+    scale = D ** -0.5
+    S = rank_units.pair_tokens(tables, tails, bs)
+    assert S[2, 0] == 0 and 0 < S[3, 0] < tile and S.sum() > 2 * tile
+    got = _emulate("prefill", torch.from_numpy(q), pk, pv, tb, tl, U=tile,
+                   B=5, stacked=stacked, scale=scale, rows_per_block=rows,
+                   boxes=True)
+    want = jax_paged_prefill_ranks(
+        jnp.asarray(q), jnp.asarray(pk_j), jnp.asarray(pv_j),
+        jnp.asarray(tables[:, 0]), jnp.asarray(tails[:, 0]), backend="jnp")
+    if not stacked:
+        want = jax_merge_partials(*want, axis=0)
+    assert got[0].shape == tuple(want[0].shape)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_rank_prefill_plans_share_the_single_rank_instantiation(dtype, D):
+    """``rank_prefill_plan`` at qwen2-moe's global shapes (a 512-query
+    chunk, MHA 16, 256-slot tables of 16 tokens) over 1-8 ranks: the
+    single-rank plan's tile, stages, rows and threads; groups, tickets
+    and scratch slots times P; shared memory the single-rank layout's
+    with the plan grown by the ranks, within the card's 232,448 bytes;
+    the two blocks a merge group of the single-rank rule when merged.
+    Past what the plan's shared memory holds it raises ValueError."""
+    from repro_torch.kernels.micro_attn_prefill import (
+        SMEM_PER_SM, plan_bytes, prefill_unit_plan, rank_prefill_plan)
+    dt = getattr(torch, dtype)
+    one = prefill_unit_plan(512, 16, 16, D, 256, 16, 132, dt)
+    for NR in (1, 2, 3, 4, 8):
+        for stacked in (False, True):
+            P = NR if stacked else 1
+            pl = rank_prefill_plan(512, 16, 16, D, 256, 16, dt, 132, NR,
+                                   stacked)
+            for key in ("kv_tile", "unit_tokens", "stages",
+                        "rows_per_block", "threads", "head_groups"):
+                assert pl[key] == one[key], key
+            assert pl["groups"] == P * one["groups"]
+            assert pl["ws_slots"] == pl["blocks"] + pl["groups"]
+            assert pl["smem_bytes"] == (one["smem_bytes"] - plan_bytes(1, 1)
+                                        + plan_bytes(NR, P)) <= SMEM_PER_SM
+            if not stacked:
+                assert pl["blocks"] == one["blocks"]
+    with pytest.raises(ValueError, match="shared memory"):
+        rank_prefill_plan(512, 16, 16, 128, 256, 16, dt, 132, 4096, True)
