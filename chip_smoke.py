@@ -387,8 +387,7 @@ WARM_REPEATS = 0    # untraced repeats of the serving workload (the
 #                     0 since the memory-hierarchy and overload phases)
 TRACE_STEPS = 6     # server steps in the traced window
 # Names of the port's CUDA kernels (csrc/), as a traced window lists them.
-PORT_KERNEL_SYMBOLS = ("paged_decode_units_kernel",
-                       "paged_decode_ranks_kernel", "paged_prefill",
+PORT_KERNEL_SYMBOLS = ("paged_decode_units_kernel", "paged_prefill",
                        "flash_prefill_wgmma_kernel",
                        "flash_prefill_tf32_kernel")
 # The single-rank paged kernels built for Hopper, (source, kernel): their
@@ -909,19 +908,23 @@ def rank_case(name, kind, NR, H, K, D, dtype, device, *, rows, nblks, MB,
 
 
 def unit_walks(plan, nblks, bs) -> dict:
-    """The unit plan a rank kernel makes on the card (``rank_units``)
-    for full blocks ``nblks[rank][request]``: units, busy blocks, and the
-    longest and mean walk of a block in tokens."""
+    """The unit plan a paged kernel makes on the card (``rank_units``)
+    for full blocks ``nblks[rank][request]``: the unit it takes (a rank
+    decode plan's ``min_units`` may halve it), units, busy blocks, and
+    the longest and mean walk of a block in tokens."""
     from repro_torch.kernels import rank_units
     S = np.asarray(nblks) * bs
-    up = rank_units.unit_plan(S, plan["unit_tokens"], plan["head_groups"],
-                              plan["stacked"])
+    U = rank_units.card_unit(S, plan["unit_tokens"],
+                             plan.get("tile_tokens", plan["unit_tokens"]),
+                             plan["head_groups"], plan.get("min_units", 0))
+    up = rank_units.unit_plan(S, U, plan["head_groups"], plan["stacked"])
     walks = [sum(hi - lo for seg in rank_units.segments(up, b,
                                                         plan["blocks"])
                  for _, _, lo, hi in seg["units"])
              for b in range(plan["blocks"])]
     busy = [w for w in walks if w]
-    return {"units": up["T"], "busy_blocks": len(busy),
+    return {"card_unit_tokens": U, "units": up["T"],
+            "busy_blocks": len(busy),
             "longest_walk_tokens": max(walks, default=0),
             "mean_walk_tokens": float(np.mean(busy)) if busy else 0.0}
 
@@ -986,12 +989,16 @@ def kernel_plans(chunk: int):
             rp, [[4], [20], [0]], 128))
         out[f"prefill-bs128-{dt}"] = single_prefill(chunk, 27, 128, 24, dt)
         # The rank forms at the mesh path's shapes (qwen3 heads, a slab of
-        # two ranks at W = 2 and of one at W = 4).
-        for nr in (2, 1):
+        # two ranks at W = 2 and of one at W = 4), with the kernel phase's
+        # tables.
+        for nr, nb in ((2, [[64, 20, 38, 0], [150, 0, 0, 0]]),
+                       (1, [[90, 0, 12, 0]])):
             for MB in (128, 256):
-                out[f"decode-ranks-mesh-nr{nr}-mb{MB}-{dt}"] = \
-                    rank_decode_plan(4, 16, 8, 128, MB, 16, dt, sms, nr,
-                                     False)
+                rd = rank_decode_plan(4, 16, 8, 128, MB, 16, dt, sms, nr,
+                                      False)
+                out[f"decode-ranks-mesh-nr{nr}-mb{MB}-{dt}"] = dict(
+                    rd, **unit_walks(rd, [[min(b, MB) for b in r]
+                                          for r in nb], 16))
             out[f"prefill-ranks-mesh-nr{nr}-{dt}"] = rank_prefill_plan(
                 chunk, 16, 8, 128, 256, 16, dt, sms, nr, False)
         # The memory hierarchy's chunks: the COW path's one-query chunk
@@ -1351,9 +1358,10 @@ def all_finished(handles):
 
 
 class MapEncodeSpy:
-    """Tensor maps the prefill kernels' library encodes in each cluster
-    step (``micro_attn_prefill.map_encodes``: its cache of maps, keyed on
-    each pool view). Card only."""
+    """Tensor maps the paged kernels encode in each cluster step
+    (``micro_attn_prefill.map_encodes``: the process's one cache of maps,
+    ``hopper.cuh``'s, keyed on each pool view and box, which the decode
+    and prefill kernels share). Card only."""
 
     def __enter__(self):
         from repro_torch.kernels.micro_attn_prefill import map_encodes
@@ -6078,7 +6086,7 @@ def main(argv=None) -> int:
     symbols = {"paged_micro_attention": ["paged_decode_units_kernel"],
                "paged_prefill_attention": ["paged_prefill_wgmma_kernel",
                                            "paged_prefill_tf32_kernel"],
-               RANK_KERNELS[0]: ["paged_decode_ranks_kernel"],
+               RANK_KERNELS[0]: ["paged_decode_units_kernel"],
                RANK_KERNELS[1]: ["paged_prefill_wgmma_kernel",
                                  "paged_prefill_tf32_kernel"],
                "flash_prefill": ["flash_prefill_wgmma_kernel",

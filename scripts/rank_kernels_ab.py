@@ -10,10 +10,11 @@ checkout; point ``--src`` at an unpacked older commit to compare) and
 times, in ``--dtype`` (default bf16), at ``chip_smoke.py``'s rank shapes
 (the qwen2-moe global path's decode and prefill chunk, MHA 16 x 128 over
 three ranks; the ServeLayout path's 128-token blocks: long_500k, a batch
-of two, a chunk over three ranks; the mesh path's chunks over a slab of
-two ranks and of one, qwen3 heads on a 28-layer pool; the COW path's
-one-query chunk over three ranks; the 77-query chunks at G 1 and G 2),
-each with its seeded tables:
+of two, a chunk over three ranks; the mesh path's decode batches and
+chunks over a slab of two ranks and of one, qwen3 heads on a 28-layer
+pool; the COW path's one-query chunk over three ranks; decode batches
+of two at G 1 and at starcoder2's G 12; the 77-query chunks at G 1 and
+G 2), each with its seeded tables:
 
 * ``stacked``: ``ops.paged_*_attention_ranks`` (one partial a rank);
 * ``stacked_merge``: the same followed by ``merge_partials(axis=0)``,
@@ -23,10 +24,11 @@ each with its seeded tables:
 
 Each as eager calls between CUDA events (``ms``) and as CUDA-graph
 replays (``graph_ms``), after a check against the plain twins within
-``chip_smoke.TOL``; a prefill row also times one
+``chip_smoke.TOL``; every row also times one
 ``scaled_dot_product_attention`` call over every rank's gathered rows
 (``library_ms``, ``library_graph_ms``) and gives ``chip_smoke``'s
-``bound_ms``. Run trees in turns within one call (A B B A) to
+``bound_ms`` (of the merged form: bytes for decode, operations for the
+prefill chunk). Run trees in turns within one call (A B B A) to
 compare them on the same card. Prints the card's name and power limit
 first and one JSON line a row; needs CUDA.
 """
@@ -55,6 +57,15 @@ SHAPES = {
     "decode-ranks-bs128-R2": ("decode", 4, 16, 8, 2, 130, 1, 128, 128,
                               [[128, 0], [128, 0], [0, 128], [0, 128]],
                               None),
+    "decode-ranks-mesh-nr2-mb256": ("decode", 2, 16, 8, 4, 256, 28, 16,
+                                    160, [[64, 20, 38, 0], [150, 0, 0, 0]],
+                                    None),
+    "decode-ranks-mesh-nr1-mb256": ("decode", 1, 16, 8, 4, 256, 28, 16,
+                                    160, [[90, 0, 12, 0]], None),
+    "decode-ranks-nr1-g1": ("decode", 1, 16, 16, 2, 128, 2, 16, 160,
+                            [[40, 3]], None),
+    "decode-ranks-nr4-g12": ("decode", 4, 48, 4, 2, 128, 2, 16, 160,
+                             [[0, 0], [100, 2], [0, 0], [7, 60]], None),
     "prefill-ranks-bs128-nr3": ("prefill", 3, 16, 8, 512, 32, 2, 128, 24,
                                 [4, 20, 0], 65),
     "prefill-ranks-mesh-nr2-160": ("prefill", 2, 16, 8, 512, 256, 28, 16,
@@ -146,31 +157,36 @@ def main(argv=None) -> int:
                 row[f"{key}_max_abs_err"] = cs.compare(fn(), want, cs.TOL)
             row[f"{key}_ms"] = cs.time_ms(fn)
             row[f"{key}_graph_ms"] = cs.device_ms(fn)
-        if not decode:
-            # chip_smoke.rank_case's yardstick and bound.
-            NR, K, D = pk.shape[0], pk.shape[3], q.shape[-1]
-            kk, vv = (torch.cat(t) for t in zip(*(
-                gather_local_kv(pk[i], pv[i], tb[i][None])
-                for i in range(NR))))
-            kk = kk.transpose(1, 2).contiguous()
-            vv = vv.transpose(1, 2).contiguous()
-            qq = q.transpose(0, 1)[None].repeat(NR, 1, 1, 1).contiguous()
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            row["library_ms"] = cs.time_ms(lambda: sdpa(qq, kk, vv,
-                                                        enable_gqa=True))
-            row["library_graph_ms"] = cs.device_ms(lambda: sdpa(
-                qq, kk, vv, enable_gqa=True))
-            S = sum(cs.valid_tokens(tb[i][None].cpu().numpy(),
-                                    tl[i][None].cpu().numpy(),
-                                    pk.shape[2]) for i in range(NR))
-            flops = 4 * S * q.shape[1] * D * q.shape[0]
-            nbytes = (2 * S * K * D * pk.element_size()
-                      + q.numel() * q.element_size() + tb.numel() * 4
-                      + tl.numel() * 4 + q.shape[0] * q.shape[1] * (D + 2)
-                      * 4)
-            cs.tensor_core_bound(row, dtype, nbytes / cs.HBM_BYTES_PER_S
-                                 * 1e3, flops)
-            del kk, vv, qq
+        # chip_smoke.rank_case's yardstick (the ranks, and a decode's
+        # requests, as batch rows) and the merged form's bound.
+        NR, K, D = pk.shape[0], pk.shape[3], q.shape[-1]
+        tb2, tl2 = (tb, tl) if decode else (tb[:, None], tl[:, None])
+        kk, vv = (torch.cat(t) for t in zip(*(
+            gather_local_kv(pk[i], pv[i], tb2[i]) for i in range(NR))))
+        kk = kk.transpose(1, 2).contiguous()
+        vv = vv.transpose(1, 2).contiguous()
+        qq = (q[:, :, None, :].repeat(NR, 1, 1, 1) if decode else
+              q.transpose(0, 1)[None].repeat(NR, 1, 1, 1).contiguous())
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = cs.time_ms(lambda: sdpa(qq, kk, vv,
+                                                    enable_gqa=True))
+        row["library_graph_ms"] = cs.device_ms(lambda: sdpa(
+            qq, kk, vv, enable_gqa=True))
+        S = sum(cs.valid_tokens(tb2[i].cpu().numpy(), tl2[i].cpu().numpy(),
+                                pk.shape[2]) for i in range(NR))
+        flops = 4 * S * q.shape[1] * D * (1 if decode else q.shape[0])
+        nbytes = (2 * S * K * D * pk.element_size()
+                  + q.numel() * q.element_size() + tb.numel() * 4
+                  + tl.numel() * 4 + q.shape[0] * q.shape[1] * (D + 2) * 4)
+        t_bytes = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        if decode:
+            t_ops = flops / cs.PEAK_FLOPS[dtype] * 1e3
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        else:
+            cs.tensor_core_bound(row, dtype, t_bytes, flops)
+        row["tokens"] = S
+        del kk, vv, qq
         print(json.dumps(row), flush=True)
         rows.append(row)
         del q, pk, pv, want

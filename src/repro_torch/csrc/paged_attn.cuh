@@ -1,5 +1,5 @@
 // Helpers shared by the port's attention kernels (paged decode and prefill,
-// flash prefill): cp.async copies, the bf16 tensor-core tile step of the
+// flash prefill): the bf16 tensor-core tile step of the
 // paged kernels (its online softmax and hi + lo split of p also serve the
 // wgmma tiles of the flash-prefill and paged prefill-chunk kernels, whose
 // accumulator has the same per-warp layout), and the paged kernels' work
@@ -82,26 +82,9 @@ __device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& a,
   b = f.y;
 }
 
-// Shared-memory address of p, for cp.async and ldmatrix.
+// Shared-memory address of p, for ldmatrix and the TMA / mbarrier ops.
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, or 16 zero bytes when src_bytes == 0.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -469,14 +452,22 @@ struct UnitPlan {
 // dependent rounds.
 constexpr int SCAN_INT4 = 8;
 
+// Halvings of the unit a plan may take (256 tokens down to 16).
+constexpr int UNIT_LEVELS = 5;
+
 // Every thread of the block: the valid tokens of every pair (tables
 // [NR * R][MB], tails [NR * R]), then the merge rows' first units.
-// S: NR * R ints, cum: P + 1 ints of shared memory.
+// S: NR * R ints, cum: P + 1 ints of shared memory. min_units > 0 lets
+// the card choose the unit from the valid tokens (which the host cannot
+// see): U is halved, down to Umin (U / Umin a power of two, at most
+// 2^(UNIT_LEVELS - 1)), while the units number fewer than min_units.
 __device__ __forceinline__ UnitPlan plan_units(const int* __restrict__ table,
                                                const int* __restrict__ tail,
                                                int NR, int R, int MB, int bs,
                                                int U, int HG, bool stacked,
-                                               int* S, int* cum) {
+                                               int* S, int* cum,
+                                               int Umin = 0,
+                                               long long min_units = 0) {
   const int npair = NR * R;
   const int P = stacked ? npair : R;
   const int lane = threadIdx.x & 31;
@@ -533,7 +524,29 @@ __device__ __forceinline__ UnitPlan plan_units(const int* __restrict__ table,
     }
   }
   __syncthreads();
-  if (threadIdx.x < 32) {  // warp 0 scans the merge rows' unit counts
+  __shared__ int unit_s;  // the unit warp 0 chose (given min_units)
+  if (threadIdx.x < 32) {
+    if (min_units > 0 && Umin > 0 && U > Umin) {
+      // The units at U, U / 2, ..., Umin, counted over every pair.
+      long long n[UNIT_LEVELS] = {};
+      for (int i = lane; i < npair; i += 32) {
+#pragma unroll
+        for (int j = 0; j < UNIT_LEVELS; ++j) {
+          const int u = U >> j;
+          if (u >= Umin) n[j] += (S[i] + u - 1) / u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < UNIT_LEVELS; ++j)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          n[j] += __shfl_xor_sync(0xffffffffu, n[j], off);
+      for (int j = 0; U > Umin && j + 1 < UNIT_LEVELS && n[j] * HG < min_units;
+           ++j)
+        U >>= 1;
+    }
+    if (min_units > 0 && lane == 0) unit_s = U;
+    // Warp 0 scans the merge rows' unit counts.
     int carry = 0;
     if (lane == 0) cum[0] = 0;
     for (int base = 0; base < P; base += 32) {
@@ -557,13 +570,13 @@ __device__ __forceinline__ UnitPlan plan_units(const int* __restrict__ table,
     }
   }
   __syncthreads();
+  if (min_units > 0) U = unit_s;
   return UnitPlan{S, cum, NR, R, U, HG, P, cum[P], stacked};
 }
 
-// One segment: a block's run of units [q0, q1) of merge group (rho, h),
-// and the walk over its tiles of TT tokens (U is a multiple of TT). The
-// group's units are its ranks' units, rank by rank; a tile covers tokens
-// [t, min(t + TT, t_end)) of rank k. Every thread walks it alike.
+// One segment: a block's run of units [q0, q1) of merge group (rho, h)
+// of request r over ranks [klo, khi). The group's units are its ranks'
+// units, rank by rank (UnitWalk walks them).
 struct Segment {
   int rho, h, g, r, klo, khi, q0, q1;
   long long first, end;  // the group's units [first, end) of all T
@@ -587,63 +600,10 @@ __device__ __forceinline__ Segment segment_at(const UnitPlan& pl,
   return s;
 }
 
-// A segment's token spans, one for each rank with units in it: tokens
-// [lo, hi) of rank k, written by thread 0 to shared memory (span_s: 3
-// ints a rank of the group) with their count and the segment's tiles of
-// TT tokens (info_s[0], info_s[1]); U is a multiple of TT. Every thread
-// of the block calls it and then walks the spans alike.
-template <int TT>
-__device__ __forceinline__ void segment_spans(const UnitPlan& pl,
-                                              const Segment& s, int* span_s,
-                                              int* info_s) {
-  if (threadIdx.x == 0) {
-    int n = 0, tiles = 0, off = 0;
-    for (int k = s.klo; k < s.khi; ++k) {
-      const int pair = k * pl.R + s.r;
-      const int nu = pl.units(pair);
-      const int a = max(s.q0, off) - off, c = min(s.q1, off + nu) - off;
-      if (a < c) {
-        const int lo = a * pl.U, hi = min(c * pl.U, pl.S[pair]);
-        span_s[3 * n] = k;
-        span_s[3 * n + 1] = lo;
-        span_s[3 * n + 2] = hi;
-        tiles += (hi - lo + TT - 1) / TT;
-        ++n;
-      }
-      off += nu;
-    }
-    info_s[0] = n;
-    info_s[1] = tiles;
-  }
-  __syncthreads();
-}
-
-// The walk over a segment's tiles: tile tokens [t, min(t + TT, t_end()))
-// of rank k(), span i of n.
-template <int TT>
-struct TileWalk {
-  const int* span;
-  int n, i, t;
-  __device__ void start(const int* span_s, int nspan) {
-    span = span_s;
-    n = nspan;
-    i = 0;
-    t = n ? span[1] : 0;
-  }
-  __device__ bool valid() const { return i < n; }
-  __device__ int k() const { return span[3 * i]; }
-  __device__ int t_end() const { return span[3 * i + 2]; }
-  __device__ void next() {
-    if (i >= n) return;  // past the segment's last tile
-    t += TT;
-    if (t >= span[3 * i + 2] && ++i < n) t = span[3 * i + 1];
-  }
-};
-
 // A segment's units one at a time, rank by rank (the empty ranks
-// skipped), for kernels whose tile is the unit: unit tokens [t, t +
-// valid()) of rank k. Each thread walks it on its own, from the plan in
-// shared memory: no barrier, so warp-specialised roles can each keep one.
+// skipped): unit tokens [t, t + valid()) of rank k. Each thread walks it
+// on its own, from the plan in shared memory: no barrier, so
+// warp-specialised roles can each keep one.
 struct UnitWalk {
   const int* S_;  // the plan's tokens a pair
   int R, U, r, khi, k, t, S;

@@ -5,29 +5,34 @@ which replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/micro_attn_decode.py::paged_micro_attention_kernel``:
 one query token per request attends over one rank's paged pool through
 the request's block table and yields the unnormalized partial
-``(o, m, l)`` of paper Eq. 2. The card bounds it by HBM bytes. The
-kernel's persistent blocks take equal shares of units of at most
-``UNIT_TOKENS`` valid tokens of each request, planned on the card from
-the tables (``kernels/rank_units.py`` is the plan on the host), with all
-the query heads of a kv head in one block, K/V through a TMA ring, and
-merge a group's partials in the same launch. bf16 runs on the tensor
-cores (``mma.sync``, the heads as the rows of an m16 tile, p as bf16 hi +
-lo), float32 on the CUDA cores. ``decode_unit_plan`` sets the launch
-from shapes and the SM count alone (never from the tables or lengths,
-whose host read would synchronize the step). The source's header says
-how its design answers the bound.
+``(o, m, l)`` of paper Eq. 2. The card bounds it by HBM bytes.
 
 ``paged_micro_attention_ranks_cuda`` (stacked partials, one a rank) and
 ``paged_micro_attention_ranks_merged_cuda`` (one partial a request, the
-ranks LSE-merged in the launch) launch the rank kernel of the same
-source: persistent blocks over units of at most ``RANK_UNIT_TOKENS``
-valid tokens of every (rank, request) pair — the counterpart of the JAX
-package's vmap of the Pallas kernel over the global pool's rank axis
+ranks LSE-merged in the launch) launch the same kernel over a stack of
+NR rank pools, each request with its own table on each rank, in one
+launch — the counterpart of the JAX package's vmap of the Pallas kernel
+over the global pool's rank axis
 (``repro/kernels/ops.py::paged_micro_attention_ranks``), followed, for
 the merged form, by ``merge_partials(axis=0)``. The pools may be a
 strided view (a layer of the global pool ``[NR, L, NB, bs, K, D]``);
 only each rank's slab has to be contiguous, and the kernel reads it in
 place.
+
+The kernel is one a dtype for both contracts (the single-rank form is NR
+= 1, rank stride 0, merged): persistent blocks take equal shares of
+units of at most ``UNIT_TOKENS`` valid tokens of every (rank, request)
+pair, planned on the card from the tables (``kernels/rank_units.py`` is
+the plan on the host), with all the query heads of a kv head in one
+block, K/V boxes from a 5-D TMA map over the rank slabs into a ring, and
+a merge group's partials (over its units and, merged, over the ranks)
+merged in the same launch. bf16 runs on the tensor cores (``mma.sync``,
+the heads as the rows of an m16 tile, p as bf16 hi + lo), float32 on the
+CUDA cores. Blocks of up to 128 tokens, a multiple of 8, are read in
+place in both forms (``check_box_blocks``). ``decode_unit_plan`` sets
+the launch from shapes and the SM count alone (never from the tables or
+lengths, whose host read would synchronize the step). The source's
+header says how its design answers the bound.
 
 ``paged_micro_attention_plain`` is the same function in plain PyTorch,
 computed in float32 throughout like the kernel (q, k and v upcast, the
@@ -53,34 +58,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_DECODE_BLOCK_SIZE = 128  # the paged kernels' largest block (the launch cells')
 BOX_ALIGN = 8             # TMA boxes start on a block's 8-token swizzle atom
-DECODE_BLOCKS_PER_SM = 3  # rank decode blocks an SM holds (~71 KB each)
 SMEM_PER_SM = 232_448   # bytes of shared memory a block may use on an H100
 UNIT_TOKENS = 256         # the most valid tokens a unit of the decode kernel
-RANK_UNIT_TOKENS = 256    # the most valid tokens a unit of the rank kernel
-RANK_RING = 3             # tiles whose pool rows a rank kernel resolves
 MAX_UNITS = 2 ** 31 - 1   # the unit kernels count units in int32
 MMA_ROWS = 16             # query heads a tensor-core decode block holds
 
 
 def argtypes(n_plan: int):
-    """ctypes signature of a rank kernel's C entry: 10 pointers, the rank
-    count and six shapes, the pool's rank stride (64-bit), ``n_plan``
-    ints of the launch plan, scale, dtype, stream."""
-    return ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_longlong]
-            + [ctypes.c_int] * n_plan
+    """ctypes signature of a rank-form C entry: 10 pointers, the rank
+    count and seven shapes (rows, H, K, D, bs, MB, NB), the pools' rank
+    stride (64-bit), stacked and ``n_plan`` ints of the launch plan,
+    scale, dtype, stream."""
+    return ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_longlong]
+            + [ctypes.c_int] * (1 + n_plan)
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def single_argtypes(n_plan: int):
-    """ctypes signature of a single-rank kernel's C entry: 10 pointers,
-    seven shapes (rows, H, K, D, bs, MB, NB), ``n_plan`` ints of the
-    launch plan, scale, dtype, stream."""
-    return ([ctypes.c_void_p] * 10 + [ctypes.c_int] * (7 + n_plan)
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-
-_ARGTYPES = single_argtypes(5)
-_RANK_ARGTYPES = argtypes(6)
+_ARGTYPES = argtypes(6)
 
 
 def partial_outputs(rows: int, H: int, D: int, device: torch.device):
@@ -98,33 +92,89 @@ def current_stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def decode_tile_tokens(D: int, itemsize: int) -> int:
-    """Tokens a K/V tile of the CUDA-core decode kernels (csrc
-    tile_tokens): 64 rows of up to 256 bytes, 32 of up to 512, 16 above,
-    by the instantiation's largest head dim (128 or 256)."""
-    row = (128 if D <= 128 else 256) * itemsize
-    return 64 if row <= 256 else 32 if row <= 512 else 16
-
-
 def decode_layout(D: int, itemsize: int, tensor_cores: bool, heads: int,
-                  R: int) -> Dict[str, int]:
+                  npair: int, P: int) -> Dict[str, int]:
     """The decode kernel's tile, ring and shared memory (csrc dec_layout):
-    tiles of 64 tokens on the tensor cores, ``decode_tile_tokens`` on the
-    CUDA cores, each the 128-byte boxes of D's columns; 3 stages of K and
-    V tiles, 2 where a tile of the instantiation's width is over 16 KB;
-    barriers; q (16 bf16 rows of DMAX + 8, or GT float32 rows of DMAX, GT
-    the least power of two >= ``heads``, at least 2); the 4 compute warps' partials of
-    ``heads`` rows; the plan (2 R + 1 ints); 1,024 bytes of slack."""
+    tiles of 64 tokens on the tensor cores, on the CUDA cores of 64 rows
+    of up to 256 bytes, 32 of up to 512, 16 above (by the instantiation's
+    width, DMAX 128 or 256), each the 128-byte boxes of D's columns; 3
+    stages of K and V tiles, 2 where a tile of DMAX is over 16 KB or on
+    the CUDA cores at one head a block; 3 barriers and a tag a stage; q
+    (16 bf16 rows of DMAX + 8, or GT float32 rows of DMAX, GT the least
+    power of two >= ``heads``); the 4 compute warps' partials of
+    ``heads`` rows; the plan (``npair`` pairs' valid tokens and ``P + 1``
+    merge-row starts); 1,024 bytes of slack."""
     dmax = 128 if D <= 128 else 256
-    tt = 64 if tensor_cores else decode_tile_tokens(D, itemsize)
+    row = dmax * itemsize
+    tt = 64 if tensor_cores or row <= 256 else 32 if row <= 512 else 16
     tile = tt * -(-D * itemsize // 128) * 128
-    stages = 2 if tt * dmax * itemsize > 16384 else 3
-    gt = max(2, 1 << (heads - 1).bit_length())
+    stages = (2 if tt * dmax * itemsize > 16384
+              or (not tensor_cores and heads == 1) else 3)
+    gt = 1 << (heads - 1).bit_length()
     q_bytes = MMA_ROWS * (dmax + 8) * 2 if tensor_cores else gt * dmax * 4
-    q_off = 2 * stages * tile + -(-24 * stages // 16) * 16
+    q_off = 2 * stages * tile + -(-28 * stages // 16) * 16
     plan_off = q_off + q_bytes + 4 * heads * (D + 2) * 4
     return {"tile_tokens": tt, "stages": stages,
-            "smem_bytes": 1024 + plan_off + 4 * (2 * R + 1)}
+            "smem_bytes": 1024 + plan_off + 4 * (npair + P + 1)}
+
+
+def _plan(R: int, H: int, K: int, D: int, MB: int, bs: int,
+          dtype: torch.dtype, sm_count: int, NR: int, stacked: bool,
+          ranked: bool) -> Dict[str, object]:
+    """The launch of either form over NR rank pools (see
+    ``decode_unit_plan`` and ``rank_decode_plan``)."""
+    G = H // K
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    tc = dtype == torch.bfloat16
+    # Every head of a kv head a block, up to 16; on the CUDA cores 4 at D
+    # 256, and 4 in the rank forms, whose short walks leave a block's
+    # arithmetic (which grows with its heads) on the critical path.
+    most = MMA_ROWS if tc or (D <= 128 and not ranked) else 4
+    heads = min(G, most)
+    hg = K * -(-G // heads)
+    npair = NR * R
+    rows = npair if stacked else R     # merge rows
+    lay = decode_layout(D, itemsize, tc, heads, npair, rows)
+    smem = lay["smem_bytes"]
+    if smem > SMEM_PER_SM:
+        raise ValueError(f"{NR} ranks x {R} requests' plan does not fit the "
+                         f"kernel's shared memory ({smem} > {SMEM_PER_SM} "
+                         f"bytes)")
+    # 2 blocks an SM (their registers); 1 at D 256 on the tensor cores and
+    # over 8 heads on the CUDA cores, 3 at one head on the CUDA cores;
+    # fewer where the shared memory holds fewer.
+    regs = (1 if (tc and D > 128) or (not tc and heads > 8)
+            else 3 if not tc and heads == 1 else 2)
+    per_sm = max(1, min(regs, SMEM_PER_SM // (smem + 1024)))
+    cap = group_blocks(rows * hg, per_sm * sm_count)
+    if stacked and NR > 1 and 8 * cap < 7 * per_sm * sm_count:
+        # Stacked ranks' groups hold unequal work: no alignment pays
+        # where it would leave an eighth of the card idle.
+        cap = per_sm * sm_count
+    U = UNIT_TOKENS
+    while U > lay["tile_tokens"] and npair * hg * -(-MB * bs // U) < cap:
+        U //= 2
+    blocks = rank_blocks(1, cap, npair * hg * -(-MB * bs // U))
+    if not ranked:
+        min_units = 0
+    elif not tc:
+        # A unit's arithmetic on the CUDA cores grows with the heads a
+        # block computes: a quarter of a unit a block for each.
+        min_units = max(1, blocks * heads // 4)
+    elif stacked and heads <= 2:
+        # Stacked pairs hold unequal work: four units a block.
+        min_units = 4 * blocks
+    else:
+        min_units = 0
+    return {"unit_tokens": U, "min_units": min_units,
+            "blocks": blocks, "blocks_per_sm": per_sm,
+            "heads_per_block": heads, "head_groups": hg,
+            "groups": rows * hg, "ws_slots": blocks + rows * hg,
+            "tensor_cores": tc, "tile_tokens": lay["tile_tokens"],
+            "stages": lay["stages"], "smem_bytes": smem,
+            "route": ("tensor cores, mma.sync bf16 hi + lo" if tc else
+                      "cuda cores, float32"),
+            "ranks": NR, "stacked": stacked}
 
 
 @functools.lru_cache(maxsize=1024)
@@ -132,54 +182,17 @@ def decode_unit_plan(R: int, H: int, K: int, D: int, MB: int, bs: int,
                      dtype: torch.dtype, sm_count: int) -> Dict[str, object]:
     """The decode kernel's launch, which the C entry takes as given: the
     form (bf16 on the tensor cores, float32 on the CUDA cores), query
-    heads a block (all G up to 16; on the CUDA cores 4 at D 256),
-    persistent ``blocks``
-    (``group_blocks`` of what the card holds at once, no more than the
-    tables could hold units), units of ``UNIT_TOKENS`` tokens (halved,
-    down to a tile, while the tables could not give every block a
-    unit), merge ``groups`` (one ticket counter each), scratch slots and
-    shared memory. From shapes and the SM count alone: the work is
-    planned on the card. Cached: callers share the dict and must not
-    change it."""
-    G = H // K
-    itemsize = 2 if dtype == torch.bfloat16 else 4
-    tc = dtype == torch.bfloat16
-    most = MMA_ROWS if tc or D <= 128 else 4
-    heads = min(G, most)
-    hg = K * -(-G // heads)
-    lay = decode_layout(D, itemsize, tc, heads, R)
-    smem = lay["smem_bytes"]
-    # 2 blocks an SM (their registers); 1 at D 256 on the tensor cores and
-    # over 8 heads on the CUDA cores; fewer where the shared memory holds
-    # fewer.
-    regs = 1 if (tc and D > 128) or (not tc and heads > 8) else 2
-    per_sm = max(1, min(regs, SMEM_PER_SM // (smem + 1024)))
-    cap = group_blocks(R * hg, per_sm * sm_count)
-    U = UNIT_TOKENS
-    while U > lay["tile_tokens"] and R * hg * -(-MB * bs // U) < cap:
-        U //= 2
-    blocks = rank_blocks(1, cap, hg * R * -(-MB * bs // U))
-    return {"unit_tokens": U, "blocks": blocks, "blocks_per_sm": per_sm,
-            "heads_per_block": heads, "head_groups": hg, "groups": R * hg,
-            "ws_slots": blocks + R * hg, "tensor_cores": tc,
-            "tile_tokens": lay["tile_tokens"], "stages": lay["stages"],
-            "smem_bytes": smem,
-            "route": ("tensor cores, mma.sync bf16 hi + lo" if tc else
-                      "cuda cores, float32"),
-            "stacked": False}
-
-
-def rank_decode_smem_bytes(D: int, itemsize: int, gt: int, nranks: int,
-                           npair: int, P: int) -> int:
-    """Shared memory of the rank decode kernel (csrc rank_smem_bytes): a
-    2-stage K/V ring, rows of D plus 16 bytes; ``gt`` float32 q rows; the
-    pool rows and rank of 3 tiles; the plan (``npair`` pairs' tokens and
-    ``P + 1`` merge-row starts) and a segment's spans (3 ints a rank, 2
-    counts)."""
-    tt = decode_tile_tokens(D, itemsize)
-    return (2 * 2 * tt * (D + 16 // itemsize) * itemsize + 4 * gt * D
-            + 4 * (RANK_RING * tt + RANK_RING + npair + P + 1
-                   + 3 * nranks + 2))
+    heads a block (all G up to 16; on the CUDA cores 4 at D 256), merge
+    ``groups`` (R x head groups; one ticket counter each), persistent
+    ``blocks`` (``group_blocks`` of the groups and what the card holds
+    at once: 2 an SM, 1 where the registers or shared memory hold one, 3
+    on the CUDA cores at one head a block; no more than the tables could
+    hold units), units of
+    ``UNIT_TOKENS`` tokens (halved, down to a tile, while the tables
+    could not give every block a unit), scratch slots and shared memory.
+    From shapes and the SM count alone: the work is planned on the card.
+    Cached: callers share the dict and must not change it."""
+    return _plan(R, H, K, D, MB, bs, dtype, sm_count, 1, False, False)
 
 
 def group_blocks(groups: int, cap: int) -> int:
@@ -197,7 +210,7 @@ def group_blocks(groups: int, cap: int) -> int:
 
 
 def rank_blocks(per_sm: int, sm_count: int, max_units: int) -> int:
-    """Persistent blocks of a rank kernel: as many as the card holds at
+    """Persistent blocks of a unit kernel: as many as the card holds at
     once, no more than units the tables could hold; ValueError past the
     kernel's int32 unit count."""
     if max_units > MAX_UNITS:
@@ -210,25 +223,23 @@ def rank_blocks(per_sm: int, sm_count: int, max_units: int) -> int:
 def rank_decode_plan(R: int, H: int, K: int, D: int, MB: int, bs: int,
                      dtype: torch.dtype, sm_count: int, NR: int,
                      stacked: bool) -> Dict[str, object]:
-    """The rank decode kernel's launch, which the C entry takes as given:
-    units of ``RANK_UNIT_TOKENS`` tokens, query heads a block
-    (``heads_per_block``: 1 where G == 1, else 2), persistent ``blocks``
-    (from the shapes and the SM count: the work itself is planned on the
-    card), merge ``groups`` (one ticket counter each), scratch slots and
-    shared memory. Cached: callers share the dict and must not change
-    it."""
-    gt = 1 if H // K == 1 else 2
-    hg = K * -(-(H // K) // gt)
-    P = NR * R if stacked else R
-    itemsize = 2 if dtype == torch.bfloat16 else 4
-    smem = rank_decode_smem_bytes(D, itemsize, gt, NR, NR * R, P)
-    per_sm = max(1, min(DECODE_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
-    U = RANK_UNIT_TOKENS
-    blocks = rank_blocks(per_sm, sm_count, hg * R * NR * -(-MB * bs // U))
-    return {"unit_tokens": U, "blocks": blocks, "blocks_per_sm": per_sm,
-            "heads_per_block": gt, "groups": P * hg, "head_groups": hg,
-            "ws_slots": blocks + P * hg, "smem_bytes": smem,
-            "ranks": NR, "stacked": stacked}
+    """The rank forms' launch: ``decode_unit_plan``'s rules over ``NR``
+    rank pools: units counted over the NR x R tables; blocks a multiple
+    or divisor of the merge groups, whose units run on from rank to rank
+    (stacked, every slot the card holds where that would leave an eighth
+    idle); ``groups``, ticket counters and scratch slots times NR when
+    ``stacked``; the plan's shared memory for NR x R pairs (ValueError
+    past the card's). Two rules of their own, from the A/B in PERF.md,
+    since a rank's table is sized for the whole request but
+    holds one rank's share, so the walks are short: on the CUDA cores at
+    most 4 query heads a block (a block's arithmetic grows with them), and
+    ``min_units``, the units below which the kernel halves the unit, down
+    to a tile, from the valid tokens it finds: on the CUDA cores a
+    quarter of a unit a block for each head, on the tensor cores four
+    units a block when stacked with at most two heads a block (stacked
+    pairs hold unequal work), else none. Cached: callers share the dict
+    and must not change it."""
+    return _plan(R, H, K, D, MB, bs, dtype, sm_count, NR, stacked, True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -368,55 +379,20 @@ def aligned_rows(q: torch.Tensor) -> torch.Tensor:
     return q.clone() if q.data_ptr() % 16 else q
 
 
-def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
-                               scale):
-    """Launch the decode kernel on q's current stream (no synchronize).
-
-    Same contract as ``paged_micro_attention_plain``; raises ValueError
-    on inputs it does not take and RuntimeError if the launch fails.
-    """
-    check_inputs(q, pool_k, pool_v, table)
-    R, H, D = q.shape
-    NB, bs, K = pool_k.shape[0], pool_k.shape[-3], pool_k.shape[-2]
+def _decode_launch(counter, q, pools_k, pools_v, tables, tails, scale, *,
+                   ranked: bool, stacked: bool):
+    """Launch the decode kernel once on q's current stream (no
+    synchronize): over one pool ``[NB, bs, K, D]`` (the single-rank form:
+    NR 1, rank stride 0, merged) or, ``ranked``, over every rank pool of
+    a stack ``[NR, NB, bs, K, D]``. Raises ValueError on inputs it does
+    not take (a block size that is not a multiple of 8 among them:
+    ``check_box_blocks``) and RuntimeError if the launch fails; returns
+    float32 ``(o, m, l)`` stacked ``[NR, R, ...]`` or merged ``[R, ...]``
+    and adds one to ``counter.launches`` after the launch."""
+    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=ranked)
+    NB, bs, K = pools_k.shape[-4:-1]
     check_box_blocks(bs)
-    MB = table.shape[-1]
-    dev = q.device
-    o, m, l = partial_outputs(R, H, D, dev)
-    if R == 0:
-        return o, m, l
-    q = aligned_rows(q)
-    table = table.to(torch.int32).contiguous()
-    tail = torch.as_tensor(tail_len, device=dev).to(torch.int32).contiguous()
-    plan = decode_unit_plan(R, H, K, D, MB, bs, q.dtype,
-                            device_sm_count(dev.index))
-    ws = torch.empty((plan["ws_slots"], plan["heads_per_block"], D + 4),
-                     dtype=torch.float32, device=dev)
-    tickets = split_tickets("micro_attn_decode", dev, plan["groups"])
-    lib = build.load("micro_attn_decode", "paged_decode_launch", _ARGTYPES)
-    err = lib.paged_decode_launch(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        table.data_ptr(), tail.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), ws.data_ptr(), tickets.data_ptr(), R, H, K, D, bs, MB,
-        NB, plan["unit_tokens"], plan["blocks"], plan["heads_per_block"],
-        plan["smem_bytes"], tickets.numel(),
-        float(scale), _DTYPES[q.dtype], current_stream(dev))
-    if err:
-        raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
-                           f"{err}")
-    paged_micro_attention_cuda.launches += 1
-    if q.dtype == torch.float32:
-        paged_micro_attention_cuda.float32_launches += 1
-    return o, m, l
-
-
-def _decode_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
-                         scale, stacked: bool):
-    """Launch the rank decode kernel once over every rank pool of the
-    stack; returns float32 ``(o, m, l)`` stacked ``[NR, R, ...]`` or
-    merged ``[R, ...]`` and adds one to ``counter.launches`` after the
-    launch."""
-    rank_stride = check_inputs(q, pools_k, pools_v, tables, ranked=True)
-    NR, _, bs, K, _ = pools_k.shape
+    NR = pools_k.shape[0] if ranked else 1
     R, H, D = q.shape
     MB = tables.shape[-1]
     dev = q.device
@@ -425,57 +401,76 @@ def _decode_ranks_launch(counter, q, pools_k, pools_v, tables, tails,
     o, m, l = o.view(*lead, H, D), m.view(*lead, H), l.view(*lead, H)
     if R == 0:
         return o, m, l
-    q = q.contiguous()
+    q = aligned_rows(q)
     tables = tables.to(torch.int32).contiguous()
     tails = torch.as_tensor(tails, device=dev).to(torch.int32).reshape(
         NR, R).contiguous()
-    plan = rank_decode_plan(R, H, K, D, MB, bs, q.dtype,
-                            device_sm_count(dev.index), NR, stacked)
+    sms = device_sm_count(dev.index)
+    if ranked:
+        plan = rank_decode_plan(R, H, K, D, MB, bs, q.dtype, sms, NR,
+                                stacked)
+    else:
+        plan = decode_unit_plan(R, H, K, D, MB, bs, q.dtype, sms)
     ws = torch.empty((plan["ws_slots"], plan["heads_per_block"], D + 4),
                      dtype=torch.float32, device=dev)
-    tickets = split_tickets("micro_attn_decode_ranks", dev, plan["groups"])
-    lib = build.load("micro_attn_decode", "paged_decode_ranks_launch",
-                     _RANK_ARGTYPES)
-    err = lib.paged_decode_ranks_launch(
+    # The rank forms and the single-rank form never share counters.
+    tickets = split_tickets("micro_attn_decode_ranks" if ranked
+                            else "micro_attn_decode", dev, plan["groups"])
+    lib = build.load("micro_attn_decode", "paged_decode_launch", _ARGTYPES)
+    err = lib.paged_decode_launch(
         q.data_ptr(), pools_k.data_ptr(), pools_v.data_ptr(),
         tables.data_ptr(), tails.data_ptr(), o.data_ptr(), m.data_ptr(),
         l.data_ptr(), ws.data_ptr(), tickets.data_ptr(), NR, R, H, K, D, bs,
-        MB, rank_stride, int(stacked), plan["unit_tokens"], plan["blocks"],
-        plan["heads_per_block"], plan["smem_bytes"], tickets.numel(),
-        float(scale), _DTYPES[q.dtype], current_stream(dev))
+        MB, NB, rank_stride, int(stacked), plan["unit_tokens"],
+        plan["min_units"], plan["blocks"], plan["heads_per_block"],
+        plan["smem_bytes"], tickets.numel(), float(scale), _DTYPES[q.dtype],
+        current_stream(dev))
     if err:
-        raise RuntimeError(f"paged decode rank kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
+                           f"{err}")
     counter.launches += 1
     if q.dtype == torch.float32:
         counter.float32_launches += 1
     return o, m, l
 
 
+def paged_micro_attention_cuda(q, pool_k, pool_v, table, tail_len, *,
+                               scale):
+    """Launch the decode kernel on q's current stream (no synchronize).
+
+    Same contract as ``paged_micro_attention_plain``; raises ValueError
+    on inputs it does not take and RuntimeError if the launch fails.
+    """
+    return _decode_launch(paged_micro_attention_cuda, q, pool_k, pool_v,
+                          table, tail_len, scale, ranked=False,
+                          stacked=False)
+
+
 def paged_micro_attention_ranks_cuda(q, pools_k, pools_v, tables, tails, *,
                                      scale):
-    """Launch the rank decode kernel ONCE over every rank pool of the
-    stack, one partial a (rank, request).
+    """Launch the decode kernel ONCE over every rank pool of the stack,
+    one partial a (rank, request).
 
     Same contract as ``paged_micro_attention_ranks_plain``; the pools
-    may be a strided view (only each rank's slab must be contiguous) and
-    are never copied.
+    may be a strided view (each rank's slab contiguous, the rank stride a
+    multiple of 16 bytes), never copied; ValueError on a block size that
+    is not a multiple of 8 (``check_box_blocks``).
     """
-    return _decode_ranks_launch(paged_micro_attention_ranks_cuda, q,
-                                pools_k, pools_v, tables, tails, scale,
-                                stacked=True)
+    return _decode_launch(paged_micro_attention_ranks_cuda, q, pools_k,
+                          pools_v, tables, tails, scale, ranked=True,
+                          stacked=True)
 
 
 def paged_micro_attention_ranks_merged_cuda(q, pools_k, pools_v, tables,
                                             tails, *, scale):
-    """Launch the rank decode kernel ONCE over every rank pool of the
-    stack, the ranks merged in the launch: one partial a request.
+    """Launch the decode kernel ONCE over every rank pool of the stack,
+    the ranks merged in the launch: one partial a request.
 
     Same contract as ``paged_micro_attention_ranks_merged_plain``.
     """
-    return _decode_ranks_launch(paged_micro_attention_ranks_merged_cuda, q,
-                                pools_k, pools_v, tables, tails, scale,
-                                stacked=False)
+    return _decode_launch(paged_micro_attention_ranks_merged_cuda, q,
+                          pools_k, pools_v, tables, tails, scale,
+                          ranked=True, stacked=False)
 
 
 for _launcher in (paged_micro_attention_cuda,

@@ -64,7 +64,7 @@ from repro_torch.core.online_softmax import (_masked_softmax_parts,
                                              merge_partials)
 from repro_torch.kernels import build
 from repro_torch.kernels.micro_attn_decode import (SMEM_PER_SM, _DTYPES,
-                                                   aligned_rows,
+                                                   aligned_rows, argtypes,
                                                    check_box_blocks,
                                                    check_inputs,
                                                    current_stream,
@@ -72,18 +72,15 @@ from repro_torch.kernels.micro_attn_decode import (SMEM_PER_SM, _DTYPES,
                                                    group_blocks,
                                                    partial_outputs,
                                                    rank_blocks,
-                                                   single_argtypes,
                                                    split_tickets,
                                                    stack_ranks)
 
 ROW_TILE = 128          # (query, head) rows a unit of the bf16 kernel
-_ARGTYPES = single_argtypes(6)
-# The rank entry: 10 pointers, NR and seven shapes (C, H, K, D, bs, MB,
-# NB), the rank stride (64-bit), stacked and six ints of the plan, scale,
-# dtype, stream.
-_RANK_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 7
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# The single-rank entry: 10 pointers, seven shapes (C, H, K, D, bs, MB,
+# NB), six ints of the plan, scale, dtype, stream.
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_RANK_ARGTYPES = argtypes(6)
 
 
 def plan_bytes(NR: int, P: int) -> int:

@@ -1,8 +1,8 @@
 """The paged kernels' work plan on the host: units of valid tokens.
 
 The paged kernels (``csrc/micro_attn_decode.cu`` and
-``csrc/micro_attn_prefill.cu``: the single-rank kernels at NR = 1 and the
-rank kernels) plan their work on the card, from the tables, with
+``csrc/micro_attn_prefill.cu``: one kernel a dtype each, the single-rank
+form at NR = 1) plan their work on the card, from the tables, with
 ``plan_units`` and ``segment_at`` of ``csrc/paged_attn.cuh``. This module
 is the same integer arithmetic in Python. The CPU tests hold it to the
 plan's properties (every valid token of every (rank, request) pair in
@@ -10,7 +10,7 @@ exactly one unit, no unit past a tail or over ``U`` tokens, no unit on an
 empty pair, one scratch slot a partial) and emulate the kernels' merges
 with it through the plain twins. ``tile_boxes`` is the paged kernels'
 TMA loads of a run of tiles: one box a table block's share of a tile;
-``segment_boxes`` the prefill kernel's over a segment's units, rank by
+``segment_boxes`` the producer warps' over a segment's units, rank by
 rank, each box of one rank's pool.
 
 The plan. Pair (rank k, request r) holds ``S[k, r]`` valid tokens (the
@@ -54,6 +54,18 @@ def unit_plan(S, U: int, HG: int, stacked: bool) -> Dict[str, object]:
     return {"NR": NR, "R": R, "U": U, "HG": HG, "stacked": stacked,
             "P": len(per_row), "S": S, "n": n, "cum": cum,
             "T": int(cum[-1])}
+
+
+def card_unit(S, U: int, tile: int, HG: int, min_units: int) -> int:
+    """The unit a decode kernel's plan takes on the card
+    (``plan_units``' ``min_units``): ``U`` halved, down to ``tile``,
+    while the valid tokens ``S [NR, R]`` make fewer than ``min_units``
+    units over every head group (``min_units`` 0: ``U``)."""
+    S = np.asarray(S, np.int64)
+    while (min_units > 0 and U > tile
+           and HG * int((-(-S // U)).sum()) < min_units):
+        U //= 2
+    return U
 
 
 def busy_blocks(plan, B: int) -> int:
@@ -116,7 +128,7 @@ def all_segments(plan, B: int) -> List[Dict[str, object]]:
 
 
 def box_rows(bs: int, tile: int) -> int:
-    """Tokens a TMA box of the single-rank kernels: gcd(bs, tile), so a
+    """Tokens a TMA box of the paged kernels: gcd(bs, tile), so a
     box never crosses a table block and the boxes tile a tile."""
     return math.gcd(bs, tile)
 
@@ -143,22 +155,23 @@ def tile_boxes(table_row, bs: int, lo: int, hi: int,
 
 def segment_boxes(tables, bs: int, units, tile: int
                   ) -> List[Dict[str, object]]:
-    """The boxes the prefill kernel's producer warp issues for a
-    segment's ``units`` (``segments``' ``(k, j, lo, hi)``, one tile each:
-    the unit is the tile), in order: ``tile_boxes`` on rank k's table
-    row ``tables[k]`` over the unit's tokens. Returns ``[{"k", "t0",
-    "valid", "boxes": [(k, blk, off, rows)]}]``: box b of a tile holds
-    ``rows`` pool rows from ``off`` of block ``blk`` of rank k's pool,
-    the tile's tokens ``[t0 + b * rows, ...)``, of which the first
-    ``valid`` are the tile's."""
+    """The boxes a unit kernel's producer warp issues for a segment's
+    ``units`` (``segments``' ``(k, j, lo, hi)``), in order: ``tile_boxes``
+    on rank k's table row ``tables[k]`` over each unit's tokens, a tile
+    at a time (the prefill kernels' unit is one tile; the decode
+    kernel's up to U / tile). Returns ``[{"k", "t0", "valid", "last",
+    "boxes": [(k, blk, off, rows)]}]``: box b of a tile holds ``rows``
+    pool rows from ``off`` of block ``blk`` of rank k's pool, the tile's
+    tokens ``[t0 + b * rows, ...)``, of which the first ``valid`` are the
+    tile's; ``last`` marks the segment's last tile (the decode kernel
+    tags its ring stage with ``valid`` and ``last``)."""
     out = []
     for k, _, lo, hi in units:
-        if hi - lo > tile:
-            raise ValueError(f"a unit of {hi - lo} tokens is not one "
-                             f"{tile}-token tile")
         for t in tile_boxes(tables[k], bs, lo, hi, tile):
             out.append({"k": k, "t0": t["t0"],
-                        "valid": min(tile, hi - t["t0"]),
+                        "valid": min(tile, hi - t["t0"]), "last": False,
                         "boxes": [(k, blk, off, rows)
                                   for _, blk, off, rows in t["boxes"]]})
+    if out:
+        out[-1]["last"] = True
     return out

@@ -638,9 +638,10 @@ def test_merged_and_stacked_rank_kernels_match_plain(
 def test_rank_entries_refuse_bad_plans_and_layouts(cuda_device,
                                                    monkeypatch):
     """The C entries refuse a rank plan they cannot launch (too few
-    ticket counters for the merge groups, no instantiation, a shared
-    memory size, tile or ring unlike the kernel's), and the wrappers
-    refuse a rank slab that is not contiguous."""
+    ticket counters for the merge groups, no instantiation for its heads
+    a block, no block, a shared memory size, unit, tile or ring unlike
+    the kernel's), and the wrappers refuse a rank slab that is not
+    contiguous."""
     import repro_torch.kernels.micro_attn_decode as dec
     import repro_torch.kernels.micro_attn_prefill as pre
     gen = torch.Generator(device=cuda_device).manual_seed(13)
@@ -656,8 +657,8 @@ def test_rank_entries_refuse_bad_plans_and_layouts(cuda_device,
                     device=cuda_device).to(torch.bfloat16)
     plan_d, plan_p = dec.rank_decode_plan, pre.rank_prefill_plan
     # One ticket counter for all the merge groups; no instantiation.
-    for bad in ({"groups": 1}, {"heads_per_block": 3},
-                {"smem_bytes": 16}, {"unit_tokens": 100}):
+    for bad in ({"groups": 1}, {"heads_per_block": 17},
+                {"smem_bytes": 16}, {"unit_tokens": 100}, {"blocks": 0}):
         monkeypatch.setattr(dec, "rank_decode_plan",
                             lambda *a, bad=bad: {**plan_d(*a), **bad})
         monkeypatch.setattr(dec, "_TICKETS", {})
@@ -1357,25 +1358,42 @@ def test_unit_kernels_refuse_blocks_off_the_swizzle_atom(cuda_device):
 # The rank prefill on the Hopper prefill kernels (one kernel a dtype)
 # ------------------------------------------------------------------ #
 def _poisoned_rank_pools(gen, rng, NR, L, NB, bs, K, D, dtype, device,
-                         nblks, empty):
+                         nblks, empty, ones=()):
     """A layer's view of a global pool [NR, L, NB, bs, K, D] whose rows
     past each rank's tail and whose blocks no table names hold NaN and
-    Inf, the same view with those rows zeroed, and the tables [NR, MB]
-    and tails [NR] (rank k holds ``nblks[k]`` blocks unless in
-    ``empty``)."""
+    Inf, the same view with those rows zeroed, and the tables and tails:
+    ``nblks[k]`` a number of blocks (one table a rank: tables [NR, MB],
+    tails [NR]) or a list of one a request (tables [NR, R, MB], tails
+    [NR, R]); rank k holds nothing if in ``empty``, and pair (k, r) in
+    ``ones`` a one-token tail."""
+    one_table = not isinstance(nblks[0], (list, tuple))
+    rows = [[n] for n in nblks] if one_table else nblks
+    R = len(rows[0])
     gk, gv = _global_pool(gen, NR, L, NB, bs, K, D, torch.float32, device)
-    MB = max(nblks) + 3
-    tables, tails = _rank_tables(rng, NR, [max(nblks)], MB, bs, NB, empty)
-    tables, tails = tables[:, 0], tails[:, 0]
+    most = max(max(r) for r in rows)
+    MB = most + 3
+    tables = -np.ones((NR, R, MB), np.int32)
+    tails = np.full((NR, R), bs, np.int32)
     for k in range(NR):
-        tables[k, nblks[k]:] = -1
-        if nblks[k] == 0:
-            tails[k] = bs
+        if k in empty:
+            continue
+        perm, used = rng.permutation(NB), 0
+        for r, n in enumerate(rows[k]):
+            tables[k, r, :n] = perm[used:used + n]
+            used += n
+            # One table a rank draws a tail wherever any rank holds a
+            # block (the draws of the tables it was first written for).
+            if n or (one_table and most):
+                tail = rng.integers(1, bs + 1)
+                if n:
+                    tails[k, r] = 1 if (k, r) in ones else tail
     valid = torch.zeros((NR, NB, bs), dtype=torch.bool)
     for k in range(NR):
-        n = int((tables[k] >= 0).sum())
-        for j in range(n):
-            valid[k, tables[k, j], :tails[k] if j == n - 1 else bs] = True
+        for r in range(R):
+            n = int((tables[k, r] >= 0).sum())
+            for j in range(n):
+                valid[k, tables[k, r, j],
+                      :tails[k, r] if j == n - 1 else bs] = True
     valid = valid.to(device)[..., None, None]
     poison = torch.full((NR, NB, bs, K, D), float("nan"), device=device)
     poison[:, :, ::2] = float("inf")
@@ -1386,6 +1404,8 @@ def _poisoned_rank_pools(gen, rng, NR, L, NB, bs, K, D, dtype, device,
         g[:, l] = torch.where(valid, g[:, l], poison)
         out.append((g.to(dtype)[:, l], clean))
     (pk, ck), (pv, cv) = out
+    if one_table:
+        tables, tails = tables[:, 0], tails[:, 0]
     return (pk, pv, ck, cv, torch.from_numpy(tables).to(device),
             torch.from_numpy(tails).to(device))
 
@@ -1525,6 +1545,129 @@ def test_rank_prefill_refuses_strides_and_blocks_tma_cannot_address(
                 fn(q, odd, odd, tb, tl, scale=0.1)
         assert (paged_prefill_attention_ranks_cuda.launches,
                 paged_prefill_attention_ranks_merged_cuda.launches) == before
+
+
+# ------------------------------------------------------------------ #
+# The rank decode on the Hopper decode kernel (one kernel a dtype)
+# ------------------------------------------------------------------ #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NR,nblks,empty,ones,bs,D,K,G", [
+    (1, [[40, 3, 0]], (), ((0, 1),), 16, 128, 8, 2),  # the single-rank shape
+    (2, [[0, 0], [90, 5]], (0,), ((1, 1),), 8, 64, 4, 1),  # MHA, bs 8
+    (3, [[5, 1], [0, 0], [3, 2]], (1,), ((0, 1),), 128, 256, 2, 12),
+    (4, [[7, 30], [30, 1], [0, 0], [12, 0]], (2,), ((1, 1),), 16, 128, 1,
+     16),                                             # G 16, four ranks
+    (4, [[3, 11], [11, 9], [9, 1], [1, 3]], (), ((2, 1), (3, 0)), 24, 64,
+     8, 2),                                           # bs 24: 8-token boxes
+    (3, [[0, 0], [0, 0], [0, 0]], (0, 1, 2), (), 16, 128, 8, 2),
+], ids=["nr1", "nr2-bs8-d64-g1", "nr3-bs128-d256-g12", "nr4-g16",
+        "nr4-bs24", "no-block"])
+def test_hopper_rank_decode_matches_plain(dtype, NR, nblks, empty, ones, bs,
+                                          D, K, G, cuda_device):
+    """The decode kernel in rank form (``paged_decode_units_kernel``: one
+    launch over every rank, the boxes from a 5-D map of the rank slabs)
+    == the plain twins, stacked and merged, on a strided layer view of a
+    global pool, at NR 1-4 with empty ranks, one-token tails, bs 8 / 16 /
+    24 / 128, D 64 / 128 / 256 and G 1 / 2 / 12 / 16. The rows past each
+    pair's tail and the blocks no table names hold NaN and Inf: a tile
+    that ends a unit inside a segment (the segment going on to the next
+    rank) scores them -inf and, on the tensor cores, zeroes their V rows
+    before P V; a request with no valid token on any rank gives (0, -inf,
+    0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(NR * 7 + bs)
+    rng = np.random.default_rng(NR * 1000 + D + G)
+    R = len(nblks[0])
+    NB = max(max(sum(r) for r in nblks) + 2, 4)
+    pk, pv, ck, cv, tb, tl = _poisoned_rank_pools(
+        gen, rng, NR, 3, NB, bs, K, D, dtype, cuda_device, nblks, empty,
+        ones)
+    assert NR == 1 or not pk.is_contiguous()
+    q = torch.randn((R, K * G, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    s = D ** -0.5
+    before = (paged_micro_attention_ranks_cuda.launches,
+              paged_micro_attention_ranks_merged_cuda.launches)
+    got = paged_micro_attention_ranks_cuda(q, pk, pv, tb, tl, scale=s)
+    assert got[0].shape == (NR, R, K * G, D)
+    _close_partials(got, paged_micro_attention_ranks_plain(
+        q, ck, cv, tb, tl, scale=s))
+    got = paged_micro_attention_ranks_merged_cuda(q, pk, pv, tb, tl,
+                                                  scale=s)
+    assert got[0].shape == (R, K * G, D)
+    want = paged_micro_attention_ranks_merged_plain(q, ck, cv, tb, tl,
+                                                    scale=s)
+    _close_partials(got, want)
+    assert not any(bool(torch.isnan(x).any()) for x in got)
+    empty_rows = [r for r in range(R) if not (tb[:, r] >= 0).any()]
+    for r in empty_rows:
+        assert bool(torch.isneginf(got[1][r]).all())
+    assert (paged_micro_attention_ranks_cuda.launches,
+            paged_micro_attention_ranks_merged_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rank_decode_at_a_rank_stride_off_the_block_grid(dtype,
+                                                         cuda_device):
+    """Rank slabs whose stride is a multiple of 16 bytes but not of a
+    block (the 5-D map's rank stride, off every block boundary): both
+    rank decode forms == the plain twins, read in place."""
+    gen = torch.Generator(device=cuda_device).manual_seed(37)
+    rng = np.random.default_rng(37)
+    NR, NB, bs, K, G, D = 3, 48, 16, 2, 4, 128
+    slab = NB * bs * K * D
+    step = slab + 16 * 4 // torch.tensor([], dtype=dtype).element_size()
+    buf = torch.randn(NR * step, generator=gen,
+                      device=cuda_device).to(dtype)
+    pools = buf.as_strided((NR, NB, bs, K, D),
+                           (step, bs * K * D, K * D, D, 1))
+    tables, tails = _rank_tables(rng, NR, [20, 3, 17], 24, bs, NB, ())
+    tb = torch.from_numpy(tables).to(cuda_device)
+    tl = torch.from_numpy(tails).to(cuda_device)
+    q = torch.randn((3, K * G, D), generator=gen,
+                    device=cuda_device).to(dtype)
+    s = D ** -0.5
+    _close_partials(paged_micro_attention_ranks_cuda(q, pools, pools, tb,
+                                                     tl, scale=s),
+                    paged_micro_attention_ranks_plain(q, pools, pools, tb,
+                                                      tl, scale=s))
+    _close_partials(paged_micro_attention_ranks_merged_cuda(
+        q, pools, pools, tb, tl, scale=s),
+        paged_micro_attention_ranks_merged_plain(q, pools, pools, tb, tl,
+                                                 scale=s))
+
+
+@pytest.mark.cuda
+def test_rank_decode_refuses_strides_and_blocks_tma_cannot_address(
+        cuda_device):
+    """A rank stride that is not a multiple of 16 bytes (the 5-D map's
+    rank stride) and a block size that is not a multiple of 8 (a box
+    starts on an 8-row swizzle atom) raise ValueError in both rank decode
+    forms and both dtypes; nothing launches."""
+    for dtype in (torch.bfloat16, torch.float32):
+        NR, NB, bs, K, D = 2, 4, 16, 2, 64
+        slab = NB * bs * K * D
+        step = slab + 1  # 2 or 4 bytes past a 16-byte multiple
+        buf = torch.zeros(NR * step + slab, dtype=dtype, device=cuda_device)
+        pools = buf.as_strided((NR, NB, bs, K, D),
+                               (step, bs * K * D, K * D, D, 1))
+        q = torch.zeros((3, 4, D), dtype=dtype, device=cuda_device)
+        tb = torch.zeros((NR, 3, 2), dtype=torch.int32, device=cuda_device)
+        tl = torch.ones((NR, 3), dtype=torch.int32, device=cuda_device)
+        odd = torch.zeros((NR, NB, 12, K, D), dtype=dtype,
+                          device=cuda_device)
+        before = (paged_micro_attention_ranks_cuda.launches,
+                  paged_micro_attention_ranks_merged_cuda.launches)
+        for fn in (paged_micro_attention_ranks_cuda,
+                   paged_micro_attention_ranks_merged_cuda):
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(q, pools, pools, tb, tl, scale=0.1)
+            with pytest.raises(ValueError, match="multiple of 8"):
+                fn(q, odd, odd, tb, tl, scale=0.1)
+        assert (paged_micro_attention_ranks_cuda.launches,
+                paged_micro_attention_ranks_merged_cuda.launches) == before
 
 
 # ------------------------------------------------------------------ #

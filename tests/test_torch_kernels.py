@@ -57,7 +57,7 @@ from repro_torch.kernels.flash_prefill import (MAX_HEAD_DIM,
                                                flash_prefill_plain)
 from repro_torch.kernels import rank_units
 from repro_torch.kernels.micro_attn_decode import (
-    RANK_UNIT_TOKENS, decode_unit_plan, paged_micro_attention_cuda,
+    decode_unit_plan, paged_micro_attention_cuda,
     paged_micro_attention_plain, paged_micro_attention_ranks_cuda,
     paged_micro_attention_ranks_plain, rank_decode_plan)
 from repro_torch.kernels.micro_attn_prefill import (
@@ -562,29 +562,67 @@ def test_prefill_unit_partials_merge_to_the_unsplit_twin(nblk):
 
 @pytest.mark.parametrize("NR", [1, 2, 3, 4])
 def test_rank_plans_split_all_ranks_work_items(NR):
-    """A rank decode plan launches as many persistent blocks as the card
-    holds at once (3 an SM), no more than the tables could hold units; a
-    rank prefill plan is the single-rank plan's instantiation (128-row
-    merge groups, 128-token units in bf16 and 32-token ones in float32 at
-    D 128, one block an SM) with its block rule over P x the groups (two
-    blocks a group merged; stacked, one an SM where the aligned count
-    would leave an eighth idle) and its shared memory grown by the plan
-    of NR ranks. Both with one ticket counter a merge group and a scratch
-    slot a block and a group; the work itself (every rank's valid tokens)
-    is planned on the card."""
+    """A rank decode plan is the single-rank decode plan over NR rank
+    pools: its instantiation (every query head of a kv head a block, 64-
+    or 32-token tiles, the ring), units of 256 tokens halved while the NR
+    x R tables could not give every block one (and on the card while the
+    valid tokens make fewer than 4 units a block: ``min_units``),
+    ``group_blocks`` of the merge groups (stacked over ranks: every slot
+    the card holds where that would leave an eighth idle), its shared
+    memory grown by the plan of NR x R pairs; a rank prefill plan is the single-rank plan's
+    instantiation (128-row merge groups, 128-token units in bf16 and
+    32-token ones in float32 at D 128, one block an SM) with its block
+    rule over P x the groups (two blocks a group merged; stacked, one an
+    SM where the aligned count would leave an eighth idle) and its shared
+    memory grown by the plan of NR ranks. Both with one ticket counter a
+    merge group and a scratch slot a block and a group; the work itself
+    (every rank's valid tokens) is planned on the card."""
     for R, H, K, MB in ((4, 16, 16, 256), (4, 16, 8, 64)):
-        for stacked in (False, True):
-            dec = rank_decode_plan(R, H, K, 128, MB, 16, torch.bfloat16,
-                                   H100_SMS, NR, stacked)
-            gt = 1 if H == K else 2
-            hg = K * (H // K) // gt
-            assert dec["heads_per_block"] == gt and dec["head_groups"] == hg
-            assert dec["groups"] == (NR * R if stacked else R) * hg
-            assert dec["unit_tokens"] == RANK_UNIT_TOKENS == 256
-            assert dec["blocks"] == min(3 * H100_SMS,
-                                        hg * R * NR * MB * 16 // 256)
-            assert dec["ws_slots"] == dec["blocks"] + dec["groups"]
-            assert dec["smem_bytes"] * dec["blocks_per_sm"] <= SMEM_PER_SM
+        for dt in (torch.bfloat16, torch.float32):
+            one = decode_unit_plan(R, H, K, 128, MB, 16, dt, H100_SMS)
+            tc = dt == torch.bfloat16
+            for stacked in (False, True):
+                dec = rank_decode_plan(R, H, K, 128, MB, 16, dt, H100_SMS,
+                                       NR, stacked)
+                for key in ("heads_per_block", "head_groups", "tile_tokens",
+                            "stages", "tensor_cores", "route",
+                            "blocks_per_sm"):
+                    assert dec[key] == one[key], key
+                assert dec["heads_per_block"] == H // K
+                # Float32 at one head a block: 3 blocks an SM on a 2-stage
+                # ring (GT 1); else 2 blocks, 3 stages.
+                per_sm = 3 if not tc and H == K else 2
+                assert (dec["blocks_per_sm"], dec["stages"]) == (
+                    per_sm, 5 - per_sm)
+                P = NR if stacked else 1
+                assert dec["groups"] == P * one["groups"] == P * R * K
+                assert dec["ws_slots"] == dec["blocks"] + dec["groups"]
+                rows = P * R
+                assert dec["smem_bytes"] == one["smem_bytes"] + 4 * (
+                    NR * R + rows - 2 * R)
+                assert dec["smem_bytes"] * dec["blocks_per_sm"] \
+                    <= SMEM_PER_SM
+                # Group-aligned (a multiple or divisor of the merge
+                # groups) within the card's slots; stacked over ranks,
+                # every slot where that would idle an eighth of them.
+                slots = per_sm * H100_SMS
+                groups = dec["groups"]
+                aligned = (groups * (slots // groups) if groups <= slots
+                           else -(-groups // -(-groups // slots)))
+                fill = stacked and NR > 1 and 8 * aligned < 7 * slots
+                assert dec["blocks"] == (slots if fill else aligned)
+                # 256-token units, halved at one rank of 64-slot tables
+                # (128 units of 256 tokens for 256 blocks).
+                assert dec["unit_tokens"] == (256 if MB == 256 or NR > 1
+                                              else 128)
+                # The card may halve the unit further (min_units): on the
+                # CUDA cores while a block would get under a quarter unit
+                # a head; on the tensor cores only stacked, at most two
+                # heads a block, under four units a block.
+                assert dec["min_units"] == (
+                    max(1, dec["blocks"] * H // K // 4) if not tc
+                    else 4 * dec["blocks"] if stacked else 0)
+            assert one["min_units"] == 0
     for dt, tile in ((torch.bfloat16, 128), (torch.float32, 32)):
         one = prefill_unit_plan(512, 16, 16, 128, 256, 16, H100_SMS, dt)
         for stacked in (False, True):
@@ -602,10 +640,21 @@ def test_rank_plans_split_all_ranks_work_items(NR):
                 NR] if stacked else 128)
             assert pre["smem_bytes"] == one["smem_bytes"] + 4 * (
                 -(-(NR + P + 1) // 4) - 1) * 4 <= SMEM_PER_SM
-    # One rank and a short table: fewer blocks than the card holds.
+    # One rank and a short table: fewer blocks than the card holds, the
+    # unit halved down to a tile.
     tiny = rank_decode_plan(1, 8, 8, 128, 2, 16, torch.float32, H100_SMS,
                             1, False)
-    assert tiny["blocks"] == 8     # 8 kv heads x one 256-token unit
+    assert tiny["unit_tokens"] == 32 and tiny["blocks"] == 8
+    # The rank forms' CUDA cores take at most 4 query heads a block (G 12:
+    # three head groups a kv head); the single-rank form all 12.
+    g12 = rank_decode_plan(2, 48, 4, 128, 128, 16, torch.float32, H100_SMS,
+                           4, False)
+    assert (g12["heads_per_block"], g12["head_groups"]) == (4, 12)
+    assert decode_unit_plan(2, 48, 4, 128, 128, 16, torch.float32,
+                            H100_SMS)["heads_per_block"] == 12
+    with pytest.raises(ValueError, match="shared memory"):
+        rank_decode_plan(4, 16, 8, 128, 64, 16, torch.bfloat16, H100_SMS,
+                         4096, True)
 
 
 def test_unit_plans_fill_the_card_at_the_main_shapes():
@@ -622,11 +671,12 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
     an SM where the aligned count would leave an eighth idle. The rank
     kernels at the qwen2-moe global path's shapes (MHA 16 x 128, three
     ranks holding a request's 63 / 160 / 27 blocks of 16 tokens; a
-    512-query chunk over a 32 / 160 / 27-block prefix): one wave of
-    persistent blocks, no block walking more than one 256-token unit in
-    decode; in prefill two blocks a merge group, each exactly 14 of its
-    group's 28 128-token tiles (bf16) or 55 of its 110 32-token tiles
-    (float32), across the three ranks."""
+    512-query chunk over a 32 / 160 / 27-block prefix): in decode the 304
+    units of 256 tokens over 256 blocks in bf16 (4 a merge group, no
+    block walking more than two) and 384 in float32 (3 an SM, one unit a
+    block at most); in prefill two blocks a merge group, each exactly 14
+    of its group's 28 128-token tiles (bf16) or 55 of its 110 32-token
+    tiles (float32), across the three ranks."""
     bf16 = torch.bfloat16
     dec = decode_unit_plan(8, 16, 8, 128, 259, 16, bf16, H100_SMS)
     assert (dec["blocks"], dec["heads_per_block"], dec["tensor_cores"],
@@ -677,16 +727,21 @@ def test_unit_plans_fill_the_card_at_the_main_shapes():
     bs = 16
     S = np.array([[63 * bs, 38 * bs, 0, 0], [160 * bs, 0, 0, 0],
                   [27 * bs, 0, 0, 0]])
-    dec = rank_decode_plan(4, 16, 16, 128, 256, bs, torch.bfloat16,
-                           H100_SMS, 3, False)
-    assert dec["blocks"] == 3 * H100_SMS
-    plan = rank_units.unit_plan(S, dec["unit_tokens"], dec["head_groups"],
-                                stacked=False)
-    walks = [sum(hi - lo for seg in rank_units.segments(plan, b,
-                                                        dec["blocks"])
-                 for _, _, lo, hi in seg["units"])
-             for b in range(dec["blocks"])]
-    assert max(walks) <= 256 and sum(walks) == 16 * S.sum()
+    for dt, blocks, walk in ((torch.bfloat16, 256, 512),
+                             (torch.float32, 384, 256)):
+        dec = rank_decode_plan(4, 16, 16, 128, 256, bs, dt, H100_SMS, 3,
+                               False)
+        assert (dec["blocks"], dec["groups"], dec["unit_tokens"]) == (
+            blocks, 64, 256)
+        U = rank_units.card_unit(S, dec["unit_tokens"], dec["tile_tokens"],
+                                 dec["head_groups"], dec["min_units"])
+        plan = rank_units.unit_plan(S, U, dec["head_groups"], stacked=False)
+        assert plan["T"] == 16 * (4 + 3 + 10 + 2)
+        walks = [sum(hi - lo for seg in rank_units.segments(plan, b,
+                                                            dec["blocks"])
+                     for _, _, lo, hi in seg["units"])
+                 for b in range(dec["blocks"])]
+        assert max(walks) == walk and sum(walks) == 16 * S.sum()
     Sp = np.array([[32 * bs], [160 * bs], [27 * bs]])
     for dt, walk, per_group in ((torch.bfloat16, 14, 4 + 20 + 4),
                                 (torch.float32, 55, 16 + 80 + 14)):

@@ -231,26 +231,32 @@ def _partial(q, kk, vv, scale):
 
 
 def _box_rows(pool, tables, unit, bs, tile):
-    """A prefill unit's K or V rows as its producer loads them: the TMA
-    boxes of ``rank_units.segment_boxes`` (rank, block, offset, rows) cut
-    from rank k's pool, the rows past the tile's valid tokens dropped (the
-    kernels score them -inf and zero their V rows)."""
-    (tl,) = rank_units.segment_boxes(tables, bs, [unit], tile)
-    rows = torch.cat([pool[k][blk, off:off + n]
-                      for k, blk, off, n in tl["boxes"]])
-    assert rows.shape[0] >= tl["valid"] == unit[3] - unit[2]
-    return rows[:tl["valid"]]
+    """A unit's K or V rows as its producer loads them, tile by tile: the
+    TMA boxes of ``rank_units.segment_boxes`` (rank, block, offset, rows)
+    cut from rank k's pool, the rows past each tile's valid tokens
+    dropped (the kernels score them -inf and zero their V rows)."""
+    rows = []
+    for tl in rank_units.segment_boxes(tables, bs, [unit], tile):
+        got = torch.cat([pool[k][blk, off:off + n]
+                         for k, blk, off, n in tl["boxes"]])
+        assert got.shape[0] >= tl["valid"]
+        rows.append(got[:tl["valid"]])
+    assert sum(r.shape[0] for r in rows) == unit[3] - unit[2]
+    return torch.cat(rows)
 
 
 def _emulate(kind, q, pk, pv, tables, tails, *, U, B, stacked, scale,
-             rows_per_block=None, boxes=False):
-    """The rank kernels' decomposition with plain partials: each block's
+             rows_per_block=None, boxes=False, tile=None):
+    """The paged kernels' decomposition with plain partials: each block's
     segments (the online softmax over a segment's units = combine of the
     units' partials), stored to its scratch slot or straight out, and
     each group's slots merged by ``merge_partials``; groups with no unit
-    are (0, -inf, 0). ``boxes``: each prefill unit's K/V rebuilt from
-    its TMA boxes (``_box_rows``; the unit is one tile), checked equal to
-    the gathered rows. Returns stacked or merged (o, m, l)."""
+    are (0, -inf, 0). ``rows_per_block``: a prefill group's rows, or a
+    decode group's query heads (default: every head of a kv head, up to
+    16, as the kernel on the tensor cores). ``boxes``: each unit's K/V
+    rebuilt from its TMA boxes (``_box_rows``, tiles of ``tile`` tokens:
+    default the unit), checked equal to the gathered rows. Returns
+    stacked or merged (o, m, l)."""
     NR, _, bs, K, D = pk.shape
     decode = kind == "decode"
     N = 1 if decode else q.shape[0]       # query rows a request
@@ -258,7 +264,7 @@ def _emulate(kind, q, pk, pv, tables, tails, *, U, B, stacked, scale,
     H = q.shape[1]
     G = H // K
     if decode:
-        gt = 1 if G == 1 else 2
+        gt = rows_per_block or min(G, 16)
         ngr = -(-G // gt)
         HG = K * ngr
     else:
@@ -297,9 +303,9 @@ def _emulate(kind, q, pk, pv, tables, tails, *, U, B, stacked, scale,
             if boxes:
                 unit = (k, j, lo, hi)
                 assert torch.equal(_box_rows(pk, tb[:, r].numpy(), unit, bs,
-                                             U), kk)
+                                             tile or U), kk)
                 assert torch.equal(_box_rows(pv, tb[:, r].numpy(), unit, bs,
-                                             U), vv)
+                                             tile or U), vv)
             p = _partial(qr.float(), kk.float(), vv.float(), scale)
             part = p if part is None else combine(part, p)
         if seg["parts"] > 1:
@@ -331,7 +337,7 @@ def _emulate(kind, q, pk, pv, tables, tails, *, U, B, stacked, scale,
 @pytest.mark.parametrize("kind,G,bs,U,B,rows", [
     ("decode", 2, 16, 64, 7, None),       # GQA: two query heads a block
     ("decode", 1, 8, 64, 40, None),       # MHA, more blocks than units
-    ("decode", 3, 128, 256, 3, None),     # G 3: a short head group
+    ("decode", 3, 128, 256, 3, None),     # G 3: three query heads a block
     ("prefill", 2, 16, 64, 5, 8),         # 3 row tiles a kv head
     ("prefill", 1, 24, 64, 11, 16),       # bs 24 does not divide a tile
     ("prefill", 2, 128, 64, 2, 64),       # 128-token blocks in place
@@ -419,6 +425,120 @@ def test_hopper_prefill_box_walk_matches_jax_ranks(tile, rows, bs, stacked):
         want = jax_merge_partials(*want, axis=0)
     assert got[0].shape == tuple(want[0].shape)
     _close(got, want)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("tile,U,G,heads,bs", [
+    (64, 256, 2, 2, 16),    # bf16 (D 128 or 256): 64-token tiles, G heads
+    (64, 64, 12, 12, 8),    # bf16 at a halved unit (one tile), G 12, bs 8
+    (32, 256, 1, 1, 24),    # float32 at D 128, MHA, bs 24 (8-token boxes)
+    (16, 256, 6, 4, 128),   # float32 at D 256: 4 heads a block, 128-token
+])                          # blocks (a box a tile)
+def test_hopper_decode_box_walk_matches_jax_ranks(tile, U, G, heads, bs,
+                                                  stacked):
+    """The decode kernel's rank form, emulated at each instantiation's
+    tile, unit and heads a block over four ranks of a strided layer view
+    (one empty, one-token tails, uneven tables): every block's segments
+    walked unit by unit, rank by rank, a unit's K/V rebuilt from the TMA
+    boxes its producer issues tile by tile (``rank_units.segment_boxes``:
+    the (rank, block, offset, rows) of one rank's pool, each tile's valid
+    tokens) equal to that pair's gathered tokens; in the merged form some
+    segment goes on from one rank to the next, so a partial tile ends a
+    unit inside it. The partials, combined along a segment and merged per
+    group as the last arrival does, equal the JAX package's
+    ``paged_micro_attention_ranks`` (a vmap of the Pallas kernel, ``jnp``
+    backend), merged by its ``merge_partials`` unless stacked."""
+    rng = np.random.default_rng(tile * 7 + bs + G)
+    NR, K, D, R, NB, B = 4, 2, 16, 2, 40, 5
+    MB = 4 if bs == 128 else 24
+    pk_j, pv_j, pk, pv = _pools(rng, NR, NB, bs, K, D)
+    tables = -np.ones((NR, R, MB), np.int32)
+    tails = np.full((NR, R), bs, np.int32)
+    for k, row in enumerate([[MB // 2 + 1, 1], [MB - 1, 0], [0, 0],
+                             [1, MB // 3]]):   # rank 2 empty
+        perm, used = rng.permutation(NB), 0
+        for r, n in enumerate(row):
+            tables[k, r, :n] = perm[used:used + n]
+            used += n
+            tails[k, r] = rng.integers(1, bs + 1) if n else bs
+    tails[0, 1] = tails[3, 0] = 1          # one-token tails
+    tb, tl = torch.from_numpy(tables), torch.from_numpy(tails)
+    q = rng.standard_normal((R, K * G, D)).astype(np.float32)
+    scale = D ** -0.5
+    S = rank_units.pair_tokens(tables, tails, bs)
+    assert S[2].sum() == 0 and S[0, 1] == S[3, 0] == 1
+    HG = K * -(-G // heads)
+    plan = rank_units.unit_plan(S, U, HG, stacked)
+    tiles = [t for seg in rank_units.all_segments(plan, B)
+             for t in rank_units.segment_boxes(tables[:, seg["r"]], bs,
+                                               seg["units"], tile)]
+    assert sum(t["last"] for t in tiles) == len(
+        rank_units.all_segments(plan, B))
+    assert stacked or any(t["valid"] < tile and not t["last"]
+                          for t in tiles)
+    got = _emulate("decode", torch.from_numpy(q), pk, pv, tb, tl, U=U, B=B,
+                   stacked=stacked, scale=scale, rows_per_block=heads,
+                   boxes=True, tile=tile)
+    want = jax_paged_decode_ranks(
+        jnp.asarray(q), jnp.asarray(pk_j), jnp.asarray(pv_j),
+        jnp.asarray(tables), jnp.asarray(tails), backend="jnp")
+    if not stacked:
+        want = jax_merge_partials(*want, axis=0)
+    assert got[0].shape == tuple(want[0].shape)
+    _close(got, want)
+
+
+@settings(max_examples=200, deadline=None)
+@given(_plans(), st.sampled_from([16, 32, 64]), st.integers(0, 600))
+def test_card_unit_halves_while_the_units_are_few(case, tile, min_units):
+    """The unit a rank decode plan takes on the card
+    (``rank_units.card_unit``, ``plan_units``' ``min_units``): the host's
+    unit halved, never below the tile, and only while the valid tokens
+    make fewer than ``min_units`` units; so it stops at the tile or at
+    the first unit that makes enough. ``min_units`` 0 keeps the host's
+    unit (the single-rank form)."""
+    tables, tails, bs, U, HG, _, _ = case
+    S = rank_units.pair_tokens(tables, tails, bs)
+    U = max(U, tile)
+
+    def units(u):
+        return HG * int((-(-S // u)).sum())
+    got = rank_units.card_unit(S, U, tile, HG, min_units)
+    assert tile <= got <= U and U % got == 0 and got % tile == 0
+    assert rank_units.card_unit(S, U, tile, HG, 0) == U
+    if got < U:
+        assert units(2 * got) < min_units
+    assert got == tile or units(got) >= min_units or min_units == 0
+
+
+def test_card_unit_at_the_rank_decode_shapes():
+    """At ``chip_smoke.py``'s rank decode shapes, the unit each plan's
+    kernel takes on the card (``rank_decode_plan``'s ``min_units``): the
+    qwen2-moe global main shape keeps 256 tokens merged (bf16: 304 units
+    for 256 blocks; float32: 384 blocks at one head, a quarter unit a
+    head each) and halves to one 64-token tile stacked in bf16; starcoder2's
+    G 12 in float32 (4 heads a block, 264 blocks) halves to 128; the mesh
+    path's NR 1 slab in float32 to 64; long_500k keeps 256."""
+    from repro_torch.kernels.micro_attn_decode import rank_decode_plan
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ((4, 16, 16, 128, 256, 16), 3, [[63, 38, 0, 0], [160, 0, 0, 0],
+                                        [27, 0, 0, 0]],
+         {(bf16, False): 256, (bf16, True): 64, (f32, False): 256}),
+        ((2, 48, 4, 128, 128, 16), 4, [[0, 0], [100, 2], [0, 0], [7, 60]],
+         {(bf16, False): 256, (f32, False): 128, (f32, True): 128}),
+        ((4, 16, 8, 128, 256, 16), 1, [[90, 0, 12, 0]],
+         {(bf16, False): 256, (f32, False): 64}),
+        ((1, 16, 8, 128, 1025, 128), 4, [[1024]] * 4,
+         {(bf16, False): 256, (f32, False): 256}),
+    ]
+    for args, NR, nblks, want in cases:
+        S = np.asarray(nblks) * args[-1]
+        for (dt, stacked), U in want.items():
+            plan = rank_decode_plan(*args, dt, 132, NR, stacked)
+            assert rank_units.card_unit(
+                S, plan["unit_tokens"], plan["tile_tokens"],
+                plan["head_groups"], plan["min_units"]) == U
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
